@@ -9,7 +9,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from art_tpu.io.rawfile import RawFrame
+from art_tpu_torch.io.rawfile import RawFrame
 
 MAXVAL = 65535.0
 

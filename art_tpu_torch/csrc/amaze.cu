@@ -1,0 +1,702 @@
+// AMaZE demosaic stage kernels B1-B3 for Hopper (sm_90a).
+//
+// Replaces the three Pallas stage kernels of art_tpu/demosaic/
+// amaze_pallas.py (_stage_call, stages 1-3, which run amaze.py's
+// _stages_1to4, _stages_5to6 and _stages_7to8 on 288x2304 VMEM windows).
+// Each C entry point computes what its stage function computes on the
+// whole reflect-padded plane, every neighbour read periodically inside
+// the plane (torch.roll / jnp.roll), so it equals its plain PyTorch
+// version (art_tpu_torch/demosaic/amaze.py) bit for bit: float32
+// operations in the plain version's order, correctly rounded reciprocals
+// (__frcp_rn, where the TPU kernel took an approximate one), built with
+// -fmad=false so no multiply-add is contracted.
+//
+// Design: one thread per pixel, each stage split into passes over device
+// memory at the points where an intermediate is read at an offset; that
+// intermediate is written to a scratch plane. Values that are functions
+// of the mosaic alone (dirwts, delh/delv, delp/delm, the diagonal squared
+// differences) are recomputed at the neighbour instead. The padded plane
+// is H+48 by W+48 (HALO 24), so any nested read stays within one wrap.
+//
+//   B1  s1_cd -> s1_select -> s1_hvwt                      3 passes
+//   B2  s2_nyq -> s2_ny2 -> s2_vsum -> s2_area -> s2_green0
+//       -> s2_curv -> s2_green                              7 passes
+//   B3  s3_diag -> s3_rbint -> s3_gcorr -> s3_prop -> s3_out 5 passes
+//
+// Bound on this card: the work is ~40 divides and several hundred float
+// operations per pixel, against one read of the mosaic and one write of
+// the stage's planes (B3: of RGB). The passes re-read and re-write
+// ~30 scratch planes in all, so the first version is bound by device
+// memory traffic, not by the arithmetic; keeping the intermediates in
+// shared-memory tiles and fusing the passes is the way to the bound.
+//
+// Each entry point launches on the given stream, allocates nothing (the
+// wrapper passes the output and scratch planes) and returns
+// cudaGetLastError().
+
+#include <cuda_runtime.h>
+#include <stddef.h>
+
+namespace {
+
+// Constants as float(double): the rounding a Python float takes when
+// it meets a float32 tensor.
+constexpr float EPS = static_cast<float>(1e-5);
+constexpr float EPSSQ = static_cast<float>(1e-10);
+constexpr float ARTHRESH = 0.75f;
+constexpr float GO0 = static_cast<float>(0.14659727707323927);
+constexpr float GO1 = static_cast<float>(0.103592713382435);
+constexpr float GO2 = static_cast<float>(0.0732036125103057);
+constexpr float GO3 = static_cast<float>(0.0365543548389495);
+constexpr float GG0 = static_cast<float>(0.5 * 0.07384411893421103);
+constexpr float GG1 = static_cast<float>(0.5 * 0.06207511968171489);
+constexpr float GG2 = static_cast<float>(0.5 * 0.0521818194747806);
+constexpr float GG3 = static_cast<float>(0.5 * 0.03687419286733595);
+constexpr float GG4 = static_cast<float>(0.5 * 0.03099732204057846);
+constexpr float GG5 = static_cast<float>(0.5 * 0.018413194161458882);
+constexpr float GE0 = static_cast<float>(0.13719494435797422);
+constexpr float GE1 = static_cast<float>(0.05640252782101291);
+constexpr float GQ0 = static_cast<float>(0.169917);
+constexpr float GQ1 = static_cast<float>(0.108947);
+constexpr float GQ2 = static_cast<float>(0.069855);
+constexpr float GQ3 = static_cast<float>(0.0287182);
+constexpr float C1325 = static_cast<float>(1.325);
+constexpr float C0175 = static_cast<float>(0.175);
+constexpr float C0075 = static_cast<float>(0.075);
+constexpr float CM0075 = static_cast<float>(-0.075);
+
+__device__ __forceinline__ int wrap(int i, int n) {
+  if (i < 0) return i + n;
+  if (i >= n) return i - n;
+  return i;
+}
+
+// A (h, w) plane read periodically: P(y, x) for |y|, |x| within one wrap.
+struct Plane {
+  const float* __restrict__ p;
+  int h, w;
+  __device__ __forceinline__ float operator()(int y, int x) const {
+    return __ldg(p + static_cast<size_t>(wrap(y, h)) * w + wrap(x, w));
+  }
+};
+
+// CFA color (0=R 1=G 2=B) at an in-plane position: 2 bits per 2x2 site.
+__device__ __forceinline__ int color(int pat, int y, int x) {
+  return (pat >> (2 * (((y & 1) << 1) | (x & 1)))) & 3;
+}
+
+__device__ __forceinline__ float rcp(float d) { return __frcp_rn(d); }
+__device__ __forceinline__ float sq(float a) { return a * a; }
+
+__device__ __forceinline__ float med3(float a, float b, float c) {
+  return fmaxf(fminf(a, b), fminf(fmaxf(a, b), c));
+}
+
+// stage-1 gradient weights at (y, x), from the mosaic alone
+__device__ __forceinline__ float dirwts0(const Plane& X, int y, int x) {
+  float c = X(y, x);
+  float delv = fabsf(X(y + 1, x) - X(y - 1, x));
+  return EPS + fabsf(X(y + 2, x) - c) + fabsf(c - X(y - 2, x)) + delv;
+}
+
+__device__ __forceinline__ float dirwts1(const Plane& X, int y, int x) {
+  float c = X(y, x);
+  float delh = fabsf(X(y, x + 1) - X(y, x - 1));
+  return EPS + fabsf(X(y, x + 2) - c) + fabsf(c - X(y, x - 2)) + delh;
+}
+
+#define PIXEL(H, W)                                          \
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;      \
+  const int y = blockIdx.y * blockDim.y + threadIdx.y;      \
+  if (x >= (W) || y >= (H)) return;                         \
+  const size_t n = static_cast<size_t>(H) * (W);            \
+  const size_t i = static_cast<size_t>(y) * (W) + x;        \
+  (void)n;
+
+// ---------------------------------------------------------------- B1
+
+// stages 1-2: cardinal G estimates and colour differences.
+// t: vcd, hcd, vcdalt, hcdalt, dgintv, dginth, vwt, hwt
+__global__ void s1_cd(Plane X, const float* __restrict__ clips,
+                      float* __restrict__ t, int pat) {
+  PIXEL(X.h, X.w)
+  const float clip8 = clips[1];
+  const float c = X(y, x);
+  const float xu1 = X(y - 1, x), xd1 = X(y + 1, x);
+  const float xl1 = X(y, x - 1), xr1 = X(y, x + 1);
+  const float xu2 = X(y - 2, x), xd2 = X(y + 2, x);
+  const float xl2 = X(y, x - 2), xr2 = X(y, x + 2);
+  const float d0 = dirwts0(X, y, x), d1 = dirwts1(X, y, x);
+  const float d0u2 = dirwts0(X, y - 2, x), d0d2 = dirwts0(X, y + 2, x);
+  const float d0u1 = dirwts0(X, y - 1, x), d0d1 = dirwts0(X, y + 1, x);
+  const float d1l2 = dirwts1(X, y, x - 2), d1r2 = dirwts1(X, y, x + 2);
+  const float d1l1 = dirwts1(X, y, x - 1), d1r1 = dirwts1(X, y, x + 1);
+
+  const float cru = xu1 * (d0u2 + d0) * rcp(d0u2 * (EPS + c) + d0 * (EPS + xu2));
+  const float crd = xd1 * (d0d2 + d0) * rcp(d0d2 * (EPS + c) + d0 * (EPS + xd2));
+  const float crl = xl1 * (d1l2 + d1) * rcp(d1l2 * (EPS + c) + d1 * (EPS + xl2));
+  const float crr = xr1 * (d1r2 + d1) * rcp(d1r2 * (EPS + c) + d1 * (EPS + xr2));
+
+  const float guha = xu1 + 0.5f * (c - xu2);
+  const float gdha = xd1 + 0.5f * (c - xd2);
+  const float glha = xl1 + 0.5f * (c - xl2);
+  const float grha = xr1 + 0.5f * (c - xr2);
+
+  float guar = fabsf(1.0f - cru) < ARTHRESH ? c * cru : guha;
+  float gdar = fabsf(1.0f - crd) < ARTHRESH ? c * crd : gdha;
+  float glar = fabsf(1.0f - crl) < ARTHRESH ? c * crl : glha;
+  float grar = fabsf(1.0f - crr) < ARTHRESH ? c * crr : grha;
+
+  const float hwt = d1l1 * rcp(d1l1 + d1r1);
+  const float vwt = d0u1 * rcp(d0d1 + d0u1);
+
+  const float gintvha = vwt * gdha + (1.0f - vwt) * guha;
+  const float ginthha = hwt * grha + (1.0f - hwt) * glha;
+
+  const float sgn = color(pat, y, x) == 1 ? -1.0f : 1.0f;
+  float vcd = sgn * ((vwt * gdar + (1.0f - vwt) * guar) - c);
+  float hcd = sgn * ((hwt * grar + (1.0f - hwt) * glar) - c);
+  const float vcdalt = sgn * (gintvha - c);
+  const float hcdalt = sgn * (ginthha - c);
+
+  if (c > clip8 || gintvha > clip8 || ginthha > clip8) {
+    guar = guha;
+    gdar = gdha;
+    glar = glha;
+    grar = grha;
+    vcd = vcdalt;
+    hcd = hcdalt;
+  }
+  t[i] = vcd;
+  t[n + i] = hcd;
+  t[2 * n + i] = vcdalt;
+  t[3 * n + i] = hcdalt;
+  t[4 * n + i] = fminf(sq(guha - gdha), sq(guar - gdar));
+  t[5 * n + i] = fminf(sq(glha - grha), sq(glar - grar));
+  t[6 * n + i] = vwt;
+  t[7 * n + i] = hwt;
+}
+
+__device__ __forceinline__ float var3(float a, float b, float c) {
+  return 3.0f * (a * a + b * b + c * c) - sq(a + b + c);
+}
+
+__device__ __forceinline__ float bound_g_site(float cd, float x, float nm,
+                                              float np, float clip) {
+  const float gint_other = x - cd;
+  const float med = med3(gint_other, nm, np);
+  const bool strong = 3.0f * cd > (gint_other + x);
+  const float wt = 1.0f - 3.0f * cd * rcp(EPS + gint_other + x);
+  const float blended = wt * cd + (1.0f - wt) * (x - med);
+  const float out = cd > 0.0f ? (strong ? x - med : blended) : cd;
+  return gint_other > clip ? x - med : out;
+}
+
+__device__ __forceinline__ float bound_rb_site(float cd, float x, float nm,
+                                               float np, float clip) {
+  const float gint = cd + x;
+  const float med = med3(gint, nm, np);
+  const bool strong = 3.0f * cd < -(gint + x);
+  const float wt = 1.0f + 3.0f * cd * rcp(EPS + gint + x);
+  const float blended = wt * cd + (1.0f - wt) * (med - x);
+  const float out = cd < 0.0f ? (strong ? med - x : blended) : cd;
+  return gint > clip ? med - x : out;
+}
+
+// stage 3: variance-based selection and saturation bounding -> out[0..1]
+__global__ void s1_select(Plane X, const float* __restrict__ clips,
+                          const float* __restrict__ t,
+                          float* __restrict__ out, int pat) {
+  PIXEL(X.h, X.w)
+  const float clip = clips[0];
+  const Plane V{t, X.h, X.w}, H{t + n, X.h, X.w};
+  const Plane VA{t + 2 * n, X.h, X.w}, HA{t + 3 * n, X.h, X.w};
+  float vcd = V(y, x), hcd = H(y, x);
+  const float vcdalt = VA(y, x), hcdalt = HA(y, x);
+  const float hcdvar = var3(H(y, x - 2), hcd, H(y, x + 2));
+  const float hcdaltvar = var3(HA(y, x - 2), hcdalt, HA(y, x + 2));
+  const float vcdvar = var3(V(y - 2, x), vcd, V(y + 2, x));
+  const float vcdaltvar = var3(VA(y - 2, x), vcdalt, VA(y + 2, x));
+  if (hcdaltvar < hcdvar) hcd = hcdalt;
+  if (vcdaltvar < vcdvar) vcd = vcdalt;
+  const float c = X(y, x);
+  if (color(pat, y, x) == 1) {
+    hcd = bound_g_site(hcd, c, X(y, x - 1), X(y, x + 1), clip);
+    vcd = bound_g_site(vcd, c, X(y - 1, x), X(y + 1, x), clip);
+  } else {
+    hcd = bound_rb_site(hcd, c, X(y, x - 1), X(y, x + 1), clip);
+    vcd = bound_rb_site(vcd, c, X(y - 1, x), X(y + 1, x), clip);
+  }
+  out[i] = vcd;
+  out[n + i] = hcd;
+}
+
+// stage 4: directional discrimination -> out[2] = hvwt
+__global__ void s1_hvwt(int h, int w, const float* __restrict__ t,
+                        float* __restrict__ out) {
+  PIXEL(h, w)
+  const Plane V{out, h, w}, H{out + n, h, w};
+  const Plane GV{t + 4 * n, h, w}, GH{t + 5 * n, h, w};
+  const float vwt = t[6 * n + i], hwt = t[7 * n + i];
+  const float vcd = V(y, x), hcd = H(y, x);
+  const float vu1 = V(y - 1, x), vu2 = V(y - 2, x), vu3 = V(y - 3, x);
+  const float vd1 = V(y + 1, x), vd2 = V(y + 2, x), vd3 = V(y + 3, x);
+  const float hl1 = H(y, x - 1), hl2 = H(y, x - 2), hl3 = H(y, x - 3);
+  const float hr1 = H(y, x + 1), hr2 = H(y, x + 2), hr3 = H(y, x + 3);
+  const float uave = vcd + vu1 + vu2 + vu3;
+  const float dave = vcd + vd1 + vd2 + vd3;
+  const float lave = hcd + hl1 + hl2 + hl3;
+  const float rave = hcd + hr1 + hr2 + hr3;
+  const float dgrbvvaru =
+      sq(vcd - uave) + sq(vu1 - uave) + sq(vu2 - uave) + sq(vu3 - uave);
+  const float dgrbvvard =
+      sq(vcd - dave) + sq(vd1 - dave) + sq(vd2 - dave) + sq(vd3 - dave);
+  const float dgrbhvarl =
+      sq(hcd - lave) + sq(hl1 - lave) + sq(hl2 - lave) + sq(hl3 - lave);
+  const float dgrbhvarr =
+      sq(hcd - rave) + sq(hr1 - rave) + sq(hr2 - rave) + sq(hr3 - rave);
+  const float vcdvar_d = EPSSQ + vwt * dgrbvvard + (1.0f - vwt) * dgrbvvaru;
+  const float hcdvar_d = EPSSQ + hwt * dgrbhvarr + (1.0f - hwt) * dgrbhvarl;
+
+  const float gv = GV(y, x), gh = GH(y, x);
+  const float fluctv_u = gv + GV(y - 1, x) + GV(y - 2, x);
+  const float fluctv_d = gv + GV(y + 1, x) + GV(y + 2, x);
+  const float flucth_l = gh + GH(y, x - 1) + GH(y, x - 2);
+  const float flucth_r = gh + GH(y, x + 1) + GH(y, x + 2);
+  const float vcdvar1 = EPSSQ + vwt * fluctv_d + (1.0f - vwt) * fluctv_u;
+  const float hcdvar1 = EPSSQ + hwt * flucth_r + (1.0f - hwt) * flucth_l;
+
+  const float varwt = hcdvar_d * rcp(vcdvar_d + hcdvar_d);
+  const float diffwt = hcdvar1 * rcp(vcdvar1 + hcdvar1);
+  const bool agree = ((0.5f - varwt) * (0.5f - diffwt) > 0.0f) &&
+                     (fabsf(0.5f - diffwt) < fabsf(0.5f - varwt));
+  out[2 * n + i] = agree ? varwt : diffwt;
+}
+
+// ---------------------------------------------------------------- B2
+
+__device__ __forceinline__ float delhvsq(const Plane& X, int y, int x) {
+  const float delh = fabsf(X(y, x + 1) - X(y, x - 1));
+  const float delv = fabsf(X(y + 1, x) - X(y - 1, x));
+  return delh * delh + delv * delv;
+}
+
+// stage 5: Nyquist test -> t[0] = nyqf
+__global__ void s2_nyq(Plane X, const float* __restrict__ s1,
+                       float* __restrict__ t, int pat) {
+  PIXEL(X.h, X.w)
+  const Plane V{s1, X.h, X.w}, H{s1 + n, X.h, X.w};
+  auto cd = [&](int dy, int dx) {
+    return sq(V(y + dy, x + dx) - H(y + dy, x + dx));
+  };
+  auto ds = [&](int dy, int dx) { return delhvsq(X, y + dy, x + dx); };
+  const float nyqutest =
+      (GO0 * cd(0, 0) + GO1 * (cd(-1, -1) + cd(-1, 1) + cd(1, -1) + cd(1, 1)) +
+       GO2 * (cd(-2, 0) + cd(0, -2) + cd(0, 2) + cd(2, 0)) +
+       GO3 * (cd(-2, -2) + cd(-2, 2) + cd(2, -2) + cd(2, 2))) -
+      (GG0 * ds(0, 0) + GG1 * (ds(-1, 0) + ds(0, 1) + ds(0, -1) + ds(1, 0)) +
+       GG2 * (ds(-1, -1) + ds(-1, 1) + ds(1, -1) + ds(1, 1)) +
+       GG3 * (ds(-2, 0) + ds(0, -2) + ds(0, 2) + ds(2, 0)) +
+       GG4 * (ds(-2, -1) + ds(-2, 1) + ds(-1, -2) + ds(-1, 2) + ds(1, -2) +
+              ds(1, 2) + ds(2, -1) + ds(2, 1)) +
+       GG5 * (ds(-2, -2) + ds(-2, 2) + ds(2, -2) + ds(2, 2)));
+  const float m_rbf = color(pat, y, x) != 1 ? 1.0f : 0.0f;
+  t[i] = (nyqutest > 0.0f ? 1.0f : 0.0f) * m_rbf;
+}
+
+// majority vote -> t[1] = ny2f
+__global__ void s2_ny2(int h, int w, float* __restrict__ t, int pat) {
+  PIXEL(h, w)
+  const Plane N{t, h, w};
+  const float nyqsum = N(y - 2, x) + N(y - 1, x - 1) + N(y - 1, x + 1) +
+                       N(y, x - 2) + N(y, x + 2) + N(y + 1, x - 1) +
+                       N(y + 1, x + 1) + N(y + 2, x);
+  const float m_rbf = color(pat, y, x) != 1 ? 1.0f : 0.0f;
+  t[n + i] = (nyqsum > 4.0f ? 1.0f : (nyqsum < 4.0f ? 0.0f : N(y, x))) * m_rbf;
+}
+
+// 7 step-2 taps a[0..6] in _sum7's log-tree order
+__device__ __forceinline__ float sum7(const float* a) {
+  return (((a[0] + a[1]) + (a[2] + a[3])) + (a[4] + a[5])) + a[6];
+}
+
+// area sums, first dimension (rows): t[2..7] = column sums of x*ny2f,
+// cfah*ny2f, cfav*ny2f, sqh*ny2f, sqv*ny2f, ny2f
+__global__ void s2_vsum(Plane X, float* __restrict__ t) {
+  PIXEL(X.h, X.w)
+  const Plane NY{t + n, X.h, X.w};
+  float a[6][7];
+  for (int k = 0; k < 7; ++k) {
+    const int q = wrap(y - 6 + 2 * k, X.h);
+    const float ny = NY(q, x);
+    const float c = X(q, x);
+    const float l = X(q, x - 1), r = X(q, x + 1);
+    const float u = X(q - 1, x), d = X(q + 1, x);
+    a[0][k] = c * ny;
+    a[1][k] = (l + r) * ny;
+    a[2][k] = (u + d) * ny;
+    a[3][k] = (sq(c - l) + sq(c - r)) * ny;
+    a[4][k] = (sq(c - u) + sq(c - d)) * ny;
+    a[5][k] = ny;
+  }
+  for (int m = 0; m < 6; ++m) t[(2 + m) * n + i] = sum7(a[m]);
+}
+
+// area sums, second dimension (columns), and the Nyquist-region hvwt
+// -> t[8] = hvwt after stage 5
+__global__ void s2_area(int h, int w, const float* __restrict__ s1,
+                        float* __restrict__ t) {
+  PIXEL(h, w)
+  float hv = s1[2 * n + i];
+  if (t[n + i] > 0.5f) {  // nyquist2
+    float s[6];
+    for (int m = 0; m < 6; ++m) {
+      const Plane C{t + (2 + m) * n, h, w};
+      float a[7];
+      for (int k = 0; k < 7; ++k) a[k] = C(y, x - 6 + 2 * k);
+      s[m] = sum7(a);
+    }
+    const float sumcfa = s[0];
+    const float sumh = sumcfa - 0.5f * s[1];
+    const float sumv = sumcfa - 0.5f * s[2];
+    const float areawt = 0.5f * s[5];
+    const float hcdvar = EPSSQ + fabsf(areawt * s[3] - sumh * sumh);
+    const float vcdvar = EPSSQ + fabsf(areawt * s[4] - sumv * sumv);
+    hv = hcdvar * rcp(vcdvar + hcdvar);
+  }
+  t[8 * n + i] = hv;
+}
+
+// stage 6: hvwt smoothing -> out[1]; first G at R/B -> t[9] = green0
+__global__ void s2_green0(Plane X, const float* __restrict__ s1,
+                          float* __restrict__ t, float* __restrict__ out,
+                          int pat) {
+  PIXEL(X.h, X.w)
+  const Plane HV{t + 8 * n, X.h, X.w};
+  const float alt = 0.25f * (HV(y - 1, x - 1) + HV(y - 1, x + 1) +
+                             HV(y + 1, x - 1) + HV(y + 1, x + 1));
+  float hv = HV(y, x);
+  if (fabsf(0.5f - hv) < fabsf(0.5f - alt)) hv = alt;
+  out[n + i] = hv;
+  const float dgrb0 = hv * s1[i] + (1.0f - hv) * s1[n + i];
+  const float c = X(y, x);
+  t[9 * n + i] = color(pat, y, x) != 1 ? c + dgrb0 : c;
+}
+
+// green curvature in Nyquist regions -> t[10], t[11]
+__global__ void s2_curv(int h, int w, float* __restrict__ t) {
+  PIXEL(h, w)
+  const Plane G{t + 9 * n, h, w};
+  float ch = 0.0f, cv = 0.0f;
+  if (t[n + i] > 0.5f) {
+    const float g = G(y, x);
+    ch = sq(g - 0.5f * (G(y, x - 1) + G(y, x + 1)));
+    cv = sq(g - 0.5f * (G(y - 1, x) + G(y + 1, x)));
+  }
+  t[10 * n + i] = ch;
+  t[11 * n + i] = cv;
+}
+
+__device__ __forceinline__ float gquinc(const Plane& P, int y, int x) {
+  return GQ0 * P(y, x) +
+         GQ1 * (P(y - 1, x - 1) + P(y - 1, x + 1) + P(y + 1, x - 1) +
+                P(y + 1, x + 1)) +
+         GQ2 * (P(y - 2, x) + P(y, x - 2) + P(y, x + 2) + P(y + 2, x)) +
+         GQ3 * (P(y - 2, x - 2) + P(y - 2, x + 2) + P(y + 2, x - 2) +
+                P(y + 2, x + 2));
+}
+
+// Nyquist refinement of G at R/B sites -> out[0] = green
+__global__ void s2_green(Plane X, const float* __restrict__ s1,
+                         const float* __restrict__ t,
+                         float* __restrict__ out, int pat) {
+  PIXEL(X.h, X.w)
+  const float vcd = s1[i], hcd = s1[n + i];
+  const float hv = out[n + i];
+  float dgrb0 = hv * vcd + (1.0f - hv) * hcd;
+  if (t[n + i] > 0.5f) {
+    const Plane CH{t + 10 * n, X.h, X.w}, CV{t + 11 * n, X.h, X.w};
+    const float gvarh = EPSSQ + gquinc(CH, y, x);
+    const float gvarv = EPSSQ + gquinc(CV, y, x);
+    dgrb0 = (hcd * gvarv + vcd * gvarh) * rcp(gvarv + gvarh);
+  }
+  out[i] = color(pat, y, x) != 1 ? X(y, x) + dgrb0 : t[9 * n + i];
+}
+
+// ---------------------------------------------------------------- B3
+
+__device__ __forceinline__ float delp_at(const Plane& X, int y, int x) {
+  return fabsf(X(y - 1, x + 1) - X(y + 1, x - 1));
+}
+
+__device__ __forceinline__ float delm_at(const Plane& X, int y, int x) {
+  return fabsf(X(y + 1, x + 1) - X(y - 1, x - 1));
+}
+
+__device__ __forceinline__ float sq1p_at(const Plane& X, int y, int x) {
+  const float c = X(y, x);
+  return sq(c - X(y + 1, x - 1)) + sq(c - X(y - 1, x + 1));
+}
+
+__device__ __forceinline__ float sq1m_at(const Plane& X, int y, int x) {
+  const float c = X(y, x);
+  return sq(c - X(y - 1, x - 1)) + sq(c - X(y + 1, x + 1));
+}
+
+__device__ __forceinline__ float bound_rb(float rb, float x, float nm,
+                                          float np, float clip) {
+  const float med = med3(rb, nm, np);
+  const bool strong = 2.0f * rb < x;
+  const float wt = 2.0f * (x - rb) * rcp(EPS + rb + x);
+  const float blended = wt * rb + (1.0f - wt) * med;
+  const float out = rb < x ? (strong ? med : blended) : rb;
+  return out > clip ? med3(out, nm, np) : out;
+}
+
+// the diagonal estimate in one direction pair
+__device__ __forceinline__ float diag_rb(float c, float n1, float n2) {
+  const float cr = 2.0f * n1 * rcp(EPS + c + n2);
+  return fabsf(1.0f - cr) < ARTHRESH ? c * cr : n1 + 0.5f * (c - n2);
+}
+
+// stage 7: diagonal R/B -> t[0] = pmwt (raw), t[1] = rbm, t[2] = rbp
+__global__ void s3_diag(Plane X, const float* __restrict__ clips,
+                        float* __restrict__ t) {
+  PIXEL(X.h, X.w)
+  const float clip = clips[0];
+  const float c = X(y, x);
+  const float rbse = diag_rb(c, X(y + 1, x + 1), X(y + 2, x + 2));
+  const float rbnw = diag_rb(c, X(y - 1, x - 1), X(y - 2, x - 2));
+  const float rbne = diag_rb(c, X(y - 1, x + 1), X(y - 2, x + 2));
+  const float rbsw = diag_rb(c, X(y + 1, x - 1), X(y + 2, x - 2));
+
+  const float dm = delm_at(X, y, x), dp = delp_at(X, y, x);
+  const float wtse = EPS + dm + delm_at(X, y + 1, x + 1) + delm_at(X, y + 2, x + 2);
+  const float wtnw = EPS + dm + delm_at(X, y - 1, x - 1) + delm_at(X, y - 2, x - 2);
+  const float wtne = EPS + dp + delp_at(X, y - 1, x + 1) + delp_at(X, y - 2, x + 2);
+  const float wtsw = EPS + dp + delp_at(X, y + 1, x - 1) + delp_at(X, y + 2, x - 2);
+
+  float rbm = (wtse * rbnw + wtnw * rbse) * rcp(wtse + wtnw);
+  float rbp = (wtne * rbsw + wtsw * rbne) * rcp(wtne + wtsw);
+
+  auto m = [&](int dy, int dx) { return sq1m_at(X, y + dy, x + dx); };
+  auto p = [&](int dy, int dx) { return sq1p_at(X, y + dy, x + dx); };
+  const float rbvarm =
+      EPSSQ + (GE0 * (m(-1, 0) + m(0, -1) + m(0, 1) + m(1, 0)) +
+               GE1 * (m(-2, -1) + m(-2, 1) + m(-1, -2) + m(-1, 2) +
+                      m(1, -2) + m(1, 2) + m(2, -1) + m(2, 1)));
+  const float rbvarp =
+      EPSSQ + (GE0 * (p(-1, 0) + p(0, -1) + p(0, 1) + p(1, 0)) +
+               GE1 * (p(-2, -1) + p(-2, 1) + p(-1, -2) + p(-1, 2) +
+                      p(1, -2) + p(1, 2) + p(2, -1) + p(2, 1)));
+  t[i] = rbvarm * rcp(rbvarp + rbvarm);
+  rbp = bound_rb(rbp, c, X(y + 1, x - 1), X(y - 1, x + 1), clip);
+  rbm = bound_rb(rbm, c, X(y - 1, x - 1), X(y + 1, x + 1), clip);
+  t[n + i] = rbm;
+  t[2 * n + i] = rbp;
+}
+
+// pmwt smoothing and the diagonal interpolation -> t[3] = pmwt,
+// t[4] = rbint
+__global__ void s3_rbint(Plane X, float* __restrict__ t) {
+  PIXEL(X.h, X.w)
+  const Plane PM{t, X.h, X.w};
+  const float alt = 0.25f * (PM(y - 1, x - 1) + PM(y - 1, x + 1) +
+                             PM(y + 1, x - 1) + PM(y + 1, x + 1));
+  float pm = PM(y, x);
+  if (fabsf(0.5f - pm) < fabsf(0.5f - alt)) pm = alt;
+  t[3 * n + i] = pm;
+  t[4 * n + i] =
+      0.5f * (X(y, x) + t[n + i] * (1.0f - pm) + t[2 * n + i] * pm);
+}
+
+__device__ __forceinline__ float bound_g2(float g, float rbint, float nm,
+                                          float np, float clip) {
+  const float med = med3(g, nm, np);
+  const bool strong = 2.0f * g < rbint;
+  const float wt = 2.0f * (rbint - g) * rcp(EPS + g + rbint);
+  const float blended = wt * g + (1.0f - wt) * med;
+  const float out = g < rbint ? (strong ? med : blended) : g;
+  return out > clip ? med3(out, nm, np) : out;
+}
+
+// the G estimate from a cardinal neighbour n1 and the same-coset rbint
+__device__ __forceinline__ float card_g(float ri, float n1, float ri2) {
+  const float cr = n1 * 2.0f * rcp(EPS + ri + ri2);
+  return fabsf(1.0f - cr) < ARTHRESH ? ri * cr : n1 + 0.5f * (ri - ri2);
+}
+
+// G correction where the diagonal discrimination is stronger
+// -> t[5] = green, t[6] = dgrb0
+__global__ void s3_gcorr(Plane X, const float* __restrict__ clips,
+                         const float* __restrict__ s2,
+                         float* __restrict__ t, int pat) {
+  PIXEL(X.h, X.w)
+  const float c = X(y, x);
+  float green = s2[i];
+  float dgrb0 = green - c;
+  if (color(pat, y, x) != 1) {
+    const float clip = clips[0];
+    const Plane RI{t + 4 * n, X.h, X.w};
+    const float ri = RI(y, x);
+    const float xu = X(y - 1, x), xd = X(y + 1, x);
+    const float xl = X(y, x - 1), xr = X(y, x + 1);
+    const float gu = card_g(ri, xu, RI(y - 2, x));
+    const float gd = card_g(ri, xd, RI(y + 2, x));
+    const float gl = card_g(ri, xl, RI(y, x - 2));
+    const float gr = card_g(ri, xr, RI(y, x + 2));
+    const float d0u = dirwts0(X, y - 1, x), d0d = dirwts0(X, y + 1, x);
+    const float d1l = dirwts1(X, y, x - 1), d1r = dirwts1(X, y, x + 1);
+    float gintv = (d0u * gd + d0d * gu) * rcp(d0d + d0u);
+    float ginth = (d1l * gr + d1r * gl) * rcp(d1l + d1r);
+    gintv = bound_g2(gintv, ri, xu, xd, clip);
+    ginth = bound_g2(ginth, ri, xl, xr, clip);
+    const float hv = s2[n + i];
+    const float pm = t[3 * n + i];
+    if (fabsf(0.5f - pm) >= fabsf(0.5f - hv)) {
+      green = ginth * (1.0f - hv) + gintv * hv;
+      dgrb0 = green - c;
+    }
+  }
+  t[5 * n + i] = green;
+  t[6 * n + i] = dgrb0;
+}
+
+// Dgrb of one coset (src) at a position, zero elsewhere
+struct Coset {
+  Plane D;
+  int pat, src;
+  __device__ __forceinline__ float operator()(int y, int x) const {
+    const int yq = wrap(y, D.h), xq = wrap(x, D.w);
+    return color(pat, yq, xq) == src ? D(yq, xq) : 0.0f;
+  }
+};
+
+__device__ float propagate(const Coset& dg, int y, int x) {
+  const float nw = dg(y - 1, x - 1), ne = dg(y - 1, x + 1);
+  const float sw = dg(y + 1, x - 1), se = dg(y + 1, x + 1);
+  const float nw3 = dg(y - 3, x - 3), ne3 = dg(y - 3, x + 3);
+  const float sw3 = dg(y + 3, x - 3), se3 = dg(y + 3, x + 3);
+  const float wtnw = rcp(EPS + fabsf(nw - se) + fabsf(nw - nw3) + fabsf(se - nw3));
+  const float wtne = rcp(EPS + fabsf(ne - sw) + fabsf(ne - ne3) + fabsf(sw - ne3));
+  const float wtsw = rcp(EPS + fabsf(sw - ne) + fabsf(sw - se3) + fabsf(ne - sw3));
+  const float wtse = rcp(EPS + fabsf(se - nw) + fabsf(se - sw3) + fabsf(nw - se3));
+  return (wtnw * (C1325 * nw - C0175 * nw3 - C0075 * dg(y - 1, x - 3) -
+                  C0075 * dg(y - 3, x - 1)) +
+          wtne * (C1325 * ne - C0175 * ne3 + CM0075 * dg(y - 1, x + 3) -
+                  C0075 * dg(y - 3, x + 1)) +
+          wtsw * (C1325 * sw - C0175 * sw3 - C0075 * dg(y + 1, x - 3) -
+                  C0075 * dg(y + 3, x - 1)) +
+          wtse * (C1325 * se - C0175 * se3 - C0075 * dg(y + 1, x + 3) -
+                  C0075 * dg(y + 3, x + 1))) *
+         rcp(wtnw + wtne + wtsw + wtse);
+}
+
+// stage 8: chroma to the opposite R/B coset -> t[7] = dgr, t[8] = dgb
+__global__ void s3_prop(int h, int w, float* __restrict__ t, int pat) {
+  PIXEL(h, w)
+  const Plane D{t + 6 * n, h, w};
+  const int col = color(pat, y, x);
+  float dgr = 0.0f, dgb = 0.0f;
+  if (col == 0) {
+    dgr = D(y, x);
+    dgb = propagate(Coset{D, pat, 2}, y, x);
+  } else if (col == 2) {
+    dgr = propagate(Coset{D, pat, 0}, y, x);
+    dgb = D(y, x);
+  }
+  t[7 * n + i] = dgr;
+  t[8 * n + i] = dgb;
+}
+
+// chroma at G sites and the RGB output, cropped by `halo`
+__global__ void s3_out(int hp, int wp, int halo,
+                       const float* __restrict__ s2,
+                       const float* __restrict__ t,
+                       float* __restrict__ out, int pat) {
+  const int ho = hp - 2 * halo, wo = wp - 2 * halo;
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  const int k = blockIdx.y * blockDim.y + threadIdx.y;
+  if (j >= wo || k >= ho) return;
+  const int y = k + halo, x = j + halo;
+  const size_t n = static_cast<size_t>(hp) * wp;
+  const size_t i = static_cast<size_t>(y) * wp + x;
+  const Plane HV{s2 + n, hp, wp};
+  const Plane R{t + 7 * n, hp, wp}, B{t + 8 * n, hp, wp};
+  float dgr, dgb;
+  if (color(pat, y, x) == 1) {
+    const float hu = HV(y - 1, x), hd = HV(y + 1, x);
+    const float hl = HV(y, x - 1), hr = HV(y, x + 1);
+    const float iwsum = rcp(hu + hd + (1.0f - hl) + (1.0f - hr));
+    dgr = (hu * R(y - 1, x) + (1.0f - hr) * R(y, x + 1) +
+           (1.0f - hl) * R(y, x - 1) + hd * R(y + 1, x)) * iwsum;
+    dgb = (hu * B(y - 1, x) + (1.0f - hr) * B(y, x + 1) +
+           (1.0f - hl) * B(y, x - 1) + hd * B(y + 1, x)) * iwsum;
+  } else {
+    dgr = t[7 * n + i];
+    dgb = t[8 * n + i];
+  }
+  const float g = t[5 * n + i];
+  const size_t no = static_cast<size_t>(ho) * wo;
+  const size_t o = static_cast<size_t>(k) * wo + j;
+  out[o] = fmaxf((g - dgr) * 65535.0f, 0.0f);
+  out[no + o] = fmaxf(g * 65535.0f, 0.0f);
+  out[2 * no + o] = fmaxf((g - dgb) * 65535.0f, 0.0f);
+}
+
+dim3 grid_for(int h, int w, dim3 blk) {
+  return dim3((w + blk.x - 1) / blk.x, (h + blk.y - 1) / blk.y);
+}
+
+const dim3 BLK(32, 8);
+
+}  // namespace
+
+// x: (hp, wp) padded mosaic / 65535; clips: (clip_pt, clip_pt8);
+// out: (3, hp, wp) vcd, hcd, hvwt; tmp: (8, hp, wp)
+extern "C" int art_amaze_stage1(const float* x, const float* clips,
+                                float* out, float* tmp, int hp, int wp,
+                                int pat, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Plane X{x, hp, wp};
+  const dim3 g = grid_for(hp, wp, BLK);
+  s1_cd<<<g, BLK, 0, s>>>(X, clips, tmp, pat);
+  s1_select<<<g, BLK, 0, s>>>(X, clips, tmp, out, pat);
+  s1_hvwt<<<g, BLK, 0, s>>>(hp, wp, tmp, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// s1: stage 1's (3, hp, wp); out: (2, hp, wp) green, hvwt; tmp: (12, hp, wp)
+extern "C" int art_amaze_stage2(const float* x, const float* s1, float* out,
+                                float* tmp, int hp, int wp, int pat,
+                                void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Plane X{x, hp, wp};
+  const dim3 g = grid_for(hp, wp, BLK);
+  s2_nyq<<<g, BLK, 0, s>>>(X, s1, tmp, pat);
+  s2_ny2<<<g, BLK, 0, s>>>(hp, wp, tmp, pat);
+  s2_vsum<<<g, BLK, 0, s>>>(X, tmp);
+  s2_area<<<g, BLK, 0, s>>>(hp, wp, s1, tmp);
+  s2_green0<<<g, BLK, 0, s>>>(X, s1, tmp, out, pat);
+  s2_curv<<<g, BLK, 0, s>>>(hp, wp, tmp);
+  s2_green<<<g, BLK, 0, s>>>(X, s1, tmp, out, pat);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// s2: stage 2's (2, hp, wp); out: (3, hp - 2*halo, wp - 2*halo) RGB in
+// 0..65535; tmp: (9, hp, wp)
+extern "C" int art_amaze_stage3(const float* x, const float* s2,
+                                const float* clips, float* out, float* tmp,
+                                int hp, int wp, int halo, int pat,
+                                void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Plane X{x, hp, wp};
+  const dim3 g = grid_for(hp, wp, BLK);
+  s3_diag<<<g, BLK, 0, s>>>(X, clips, tmp);
+  s3_rbint<<<g, BLK, 0, s>>>(X, tmp);
+  s3_gcorr<<<g, BLK, 0, s>>>(X, clips, s2, tmp, pat);
+  s3_prop<<<g, BLK, 0, s>>>(hp, wp, tmp, pat);
+  s3_out<<<grid_for(hp - 2 * halo, wp - 2 * halo, BLK), BLK, 0, s>>>(
+      hp, wp, halo, s2, tmp, out, pat);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,19 +1,29 @@
 """Demosaic dispatch (counterpart of ``art_tpu/demosaic/__init__.py``).
 
-Only the bilinear Bayer methods are ported (``bilinear`` and ``fast``,
-which the reference also maps to bilinear); every other method raises.
+Ported: ``amaze`` (kernels B1-B3) and the bilinear Bayer methods
+(``bilinear`` and ``fast``, which the reference also maps to bilinear).
+Every other method raises NotImplementedError naming it; there is no
+fallback to bilinear for an unknown name.
 """
 
 from __future__ import annotations
 
+PORTED = ("amaze", "bilinear", "fast")
 
-def demosaic(cfa, pattern, method):
-    """(H, W) scaled Bayer mosaic -> (3, H, W) RGB on cfa's device. The
-    planner's method kwargs (dual-demosaic contrast) do not apply to
-    plain bilinear, as in the reference."""
-    from art_tpu_torch.demosaic import bilinear
 
-    if method.lower() in ("bilinear", "fast"):
+def demosaic(cfa, pattern, method, init_gain=1.0):
+    """(H, W) scaled Bayer mosaic -> (3, H, W) RGB on cfa's device.
+    init_gain: the planner's raw gain (AMaZE's clip points); the
+    planner's dual-demosaic kwargs do not apply to plain bilinear, as in
+    the reference."""
+    from art_tpu_torch.demosaic import bilinear, registry
+
+    m = method.lower()
+    if m in ("bilinear", "fast"):
         return bilinear.bayer_bilinear(cfa, pattern)
-    raise NotImplementedError(f"demosaic method {method!r} is not ported "
-                              "(bilinear and fast only)")
+    fn = registry.get(m)
+    if fn is None:
+        raise NotImplementedError(
+            f"demosaic method {method!r} is not ported to art_tpu_torch "
+            f"(ported: {', '.join(PORTED)})")
+    return fn(cfa, pattern, init_gain=init_gain)

@@ -1,11 +1,12 @@
 """Build and load the package's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``)
-into one shared library with a plain C interface, loaded with `ctypes`.
-That build takes seconds; a build that includes PyTorch's headers takes
-minutes. The library goes to ``art_tpu_torch/_build/`` under a name that
-carries a hash of the sources and flags, so an edited source rebuilds on
-its next use and an unchanged one is reused. A failed build raises.
+Each ``csrc/*.cu`` file is compiled by its own ``nvcc`` for Hopper
+(``sm_90a``) into a shared library with a plain C interface, loaded with
+`ctypes`; the compilers of all sources run at once. Such a build takes
+seconds; one that includes PyTorch's headers takes minutes. The
+libraries go to ``art_tpu_torch/_build/`` under names that carry a hash
+of the source and the flags, so an edited source rebuilds on its next
+use and an unchanged one is reused. A failed build raises.
 
 Nothing here runs at import time: the first call to :func:`library`
 builds and loads.
@@ -34,14 +35,21 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C entry points: name -> argtypes (all return a cudaError_t as int)
+# C entry points: name -> (source stem in csrc/, argtypes); all return a
+# cudaError_t as int
 SIGNATURES = {
     # rgb, out, planes, acc, absd, lohi, cnt, sigma, pv, cf, ci,
     # kf, ki, h, w, hp, wp, tx, pre, stream
-    "art_wavelet_rgb": [_P] * 11 + [_I] * 8 + [_P],
+    "art_wavelet_rgb": ("wavelet_rgb", [_P] * 11 + [_I] * 8 + [_P]),
     # rgb, out, params, coeffs, consts, npix, nparams, crows, ccols,
     # epi, stream
-    "art_neutral_tone": [_P] * 5 + [_I] * 5 + [_P],
+    "art_neutral_tone": ("neutral_tone", [_P] * 5 + [_I] * 5 + [_P]),
+    # x, clips, out, tmp, hp, wp, pat, stream
+    "art_amaze_stage1": ("amaze", [_P] * 4 + [_I] * 3 + [_P]),
+    # x, s1, out, tmp, hp, wp, pat, stream
+    "art_amaze_stage2": ("amaze", [_P] * 4 + [_I] * 3 + [_P]),
+    # x, s2, clips, out, tmp, hp, wp, halo, pat, stream
+    "art_amaze_stage3": ("amaze", [_P] * 5 + [_I] * 4 + [_P]),
 }
 
 _lib = None
@@ -68,45 +76,66 @@ def _sources():
     return srcs
 
 
-def build():
-    """Compile csrc/*.cu into _build/ unless a library of the same
-    sources and flags is there; returns its path. Fills `build_info`
-    (path, seconds, whether it compiled, and nvcc's ptxas report)."""
-    srcs = _sources()
+def _target(src):
     h = hashlib.sha256()
-    for s in srcs:
-        h.update(s.name.encode())
-        h.update(s.read_bytes())
+    h.update(src.name.encode())
+    h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    so = BUILD_DIR / f"libart_kernels_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
+
+
+def build():
+    """Compile each csrc/*.cu into _build/ unless a library of the same
+    source and flags is there, all compilers at once; returns {stem:
+    path}. Fills `build_info` (seconds, which sources compiled, and
+    nvcc's ptxas report)."""
     t0 = time.monotonic()
-    if so.is_file():
-        build_info.update(path=str(so), seconds=0.0, compiled=False, log="")
-        return so
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, srcs)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError("nvcc failed (exit %d):\n%s\n%s" % (
-            proc.returncode, " ".join(cmd), proc.stderr[-8000:]))
-    os.replace(tmp, so)
-    build_info.update(path=str(so), seconds=time.monotonic() - t0,
-                      compiled=True, log=proc.stderr)
-    return so
+    libs, procs = {}, {}
+    for src in _sources():
+        so = libs[src.stem] = _target(src)
+        if so.is_file():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)]
+        procs[src.stem] = (cmd, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    logs, failed = [], []
+    for stem, (cmd, tmp, proc) in procs.items():
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append("nvcc failed (exit %d):\n%s\n%s" % (
+                proc.returncode, " ".join(cmd), err[-8000:]))
+            continue
+        os.replace(tmp, libs[stem])
+        logs.append(err)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    build_info.update(seconds=time.monotonic() - t0, compiled=sorted(procs),
+                      log="".join(logs))
+    return libs
+
+
+class _Library:
+    """The bound C entry points, as attributes."""
 
 
 def library():
-    """The loaded kernel library, built on first use."""
+    """The loaded kernel libraries, built on first use: an object with
+    one ctypes function per SIGNATURES entry."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(lib, name)
+        paths = build()
+        loaded = {stem: ctypes.CDLL(str(p)) for stem, p in paths.items()}
+        lib = _Library()
+        for name, (stem, argtypes) in SIGNATURES.items():
+            fn = getattr(loaded[stem], name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+            setattr(lib, name, fn)
+        lib.handles = loaded  # keep the libraries loaded
         _lib = lib
     return _lib
 

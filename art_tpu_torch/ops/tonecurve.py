@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from art_tpu.color.curves import DiagonalCurve
+from art_tpu_torch.color.curves import DiagonalCurve
 from art_tpu_torch.color import colorspaces as cs
 
 LUT_SIZE = 65536
@@ -52,9 +52,9 @@ def adjust_user_curve(points, n=LUT_SIZE):
     if curve.is_identity():
         return None
     x = np.linspace(0.0, 1.0, n)
-    v = cs.srgb_gamma(x, np)
+    v = cs.srgb_gamma(x)
     y = curve.get_val(v)
-    return cs.srgb_igamma(np.clip(y, 0.0, 1.0), np)
+    return cs.srgb_igamma(np.clip(y, 0.0, 1.0))
 
 
 def compose_luts(luts, n=LUT_SIZE):

@@ -4,9 +4,9 @@
 dict of numpy arrays, as the reference's planner does, restricted to the
 steps this package has ported; any other step or parameter raises
 NotImplementedError naming it. `build_run` returns the device program
-for a config: u16 widen, black/scale, bilinear demosaic, the denoise
-kernel with the raw head fused in (B4), the Neutral tone-curve kernel
-with the output transform fused in (B7). `data_to_torch` moves either
+for a config: u16 widen, black/scale, AMaZE (kernels B1-B3) or bilinear
+demosaic, the denoise kernel with the raw head fused in (B4), the
+Neutral tone-curve kernel with the output transform fused in (B7). `data_to_torch` moves either
 planner's data to a device, so the reference's own plan can drive this
 runner. `develop` chains plan -> device -> `crop_result`.
 """
@@ -19,10 +19,12 @@ import os
 import numpy as np
 import torch
 
-from art_tpu.settings import settings
+from art_tpu_torch.settings import settings
 from art_tpu_torch import ops as ops_pkg
 from art_tpu_torch.color import colorspaces as cs
+from art_tpu_torch.color.iccstore import output_trc
 from art_tpu_torch.core.image import pad_to_multiple
+from art_tpu_torch.demosaic import PORTED as PORTED_DEMOSAICS
 from art_tpu_torch.raw import preprocess as rawpre
 from art_tpu_torch.raw import wb as wbmod
 
@@ -147,7 +149,7 @@ def _check_raw_params(frame, pp):
     if bayer.green_eq_enabled and (bayer.green_eq > 0 or bayer.linenoise > 0):
         _unported("green equilibration / CFA line denoise")
     if bayer.pdaf_lines_filter:
-        from art_tpu.raw.camconst import get_instance
+        from art_tpu_torch.raw.camconst import get_instance
 
         cc = get_instance().get(frame.make, frame.model)
         if cc is not None and cc.pdaf():
@@ -166,7 +168,7 @@ def _check_raw_params(frame, pp):
     ip = pp.icm.input_profile
     if isinstance(ip, str) and ip.lower().endswith((".icc", ".icm", ".dcp")):
         _unported(f"input profile {ip!r}")
-    from art_tpu.raw.badpixfile import find_badpixels_for
+    from art_tpu_torch.raw.badpixfile import find_badpixels_for
 
     if find_badpixels_for(frame.make, frame.model):
         _unported(".badpixels file")
@@ -225,7 +227,7 @@ def _resolve_output_profile(name: str) -> str:
 
 def plan(frame, pp):
     """ProcParams + frame -> (PipelineConfig, data) for the ported slice:
-    a Bayer raw frame, bilinear/fast demosaic, camera or CustomMult white
+    a Bayer raw frame, AMaZE or bilinear/fast demosaic, camera or CustomMult white
     balance, denoise (fused path) and the Neutral tone curve to a matrix
     output profile (the reference's plan with fast=False, out_u8=False).
     Anything else raises NotImplementedError."""
@@ -248,7 +250,7 @@ def plan(frame, pp):
         bayer_adjust = [b.black1, b.black0, b.black2, b.black3]
     raw_expos = pp.raw.expos if pp.raw.expos_enabled else 1.0
     method = pp.raw.bayer.method
-    if method.lower() not in ("bilinear", "fast"):
+    if method.lower() not in PORTED_DEMOSAICS:
         _unported(f"demosaic method {method!r}")
     dem_kwargs = []
     if method.lower() == "bilinear":
@@ -294,11 +296,9 @@ def plan(frame, pp):
         steps.append((name, tuple(static), ops_pkg.stage_of(name)))
         data[f"op:{name}"] = op_data
 
-    from art_tpu.color.iccstore import get_instance
-
     out_prof = _resolve_output_profile(pp.icm.output_profile)
     out_mat = cs.MATRICES_RGB_TO_XYZ[out_prof]
-    out_trc = get_instance().output_profile(out_prof).trc
+    out_trc = output_trc(out_prof)
     data["work2out"] = (np.linalg.inv(out_mat)
                         @ cs.MATRICES_RGB_TO_XYZ[icc_working]).astype(
                             np.float32)
@@ -383,7 +383,8 @@ def build_run(config: PipelineConfig):
         if inp.dtype != torch.float32:
             inp = inp.to(torch.float32)
         cfa = rawpre.apply_scale(inp, data["raw_offset"], data["raw_scale"])
-        rgb = demosaic(cfa, config.pattern, config.demosaic_method)
+        rgb = demosaic(cfa, config.pattern, config.demosaic_method,
+                       init_gain=data["init_gain"])
         for step in config.steps:
             name, static, stage = step
             if stage != 0:
@@ -438,9 +439,10 @@ def transfer_array(inp):
     return inp
 
 
-def develop(frame, pp, device):
-    """Full develop of a raw frame on `device`: encoded (3, H, W) float32
-    in [0, 1], as a tensor on that device."""
+def develop(frame, pp, device="cuda"):
+    """Full develop of a raw frame on `device` (the card unless the caller
+    asks for the CPU): encoded (3, H, W) float32 in [0, 1], as a tensor on
+    that device."""
     config, data = plan(frame, pp)
     inp, _ = pad_to_multiple(frame.cfa, settings.pad_multiple)
     if frame.integral:  # decoded u16 counts

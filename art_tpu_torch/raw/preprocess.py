@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from art_tpu.settings import settings
+from art_tpu_torch.settings import settings
 from art_tpu_torch.core.image import MAXVAL, bayer_color_index
 
 

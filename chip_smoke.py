@@ -2,25 +2,28 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from art_tpu_torch/csrc, develops the 24 MP
-flagship frame (4000x6000 RGGB from seed 0, the bench's input) with the
-`Standard Film Curve.arp` profile, bilinear demosaic and denoise at
-luminance/chrominance 20, through plan -> develop(device="cuda") ->
-crop_result, and checks:
+Builds the CUDA kernels from art_tpu_torch/csrc (one nvcc per source, all
+at once) and drives two paths through the user's entry points, plan ->
+develop(device="cuda") -> crop_result, each with the launch and plain-call
+counts set to 0 just before it and read just after:
 
-- both kernels of the path (B4 wavelet denoise, B7 Neutral tone curve)
-  were launched by that develop, and no plain version ran;
-- the output is (3, 4000, 6000), finite, in [0, 1];
-- each kernel agrees with its plain PyTorch version on the tensors the
-  main path feeds it (bounds below);
-- a 512x2048 develop on the GPU agrees with the same develop on the CPU
-  plain path to the slice bounds of tests/test_torch_develop.py.
+- the main path, the flagship as bench.py defines it: a 4000x6000 RGGB
+  mosaic from seed 0, `Standard Film Curve.arp` (AMaZE), denoise at
+  luminance/chrominance 20, the Neutral tone curve, sRGB out; kernels B1,
+  B2, B3 (AMaZE stages), B4 (wavelet denoise) and B7 (Neutral curve);
+- the same frame with bilinear demosaic (B4 and B7).
 
-Prints the card's name and power limit, build and timing numbers, one
-JSON line of per-kernel results, and last the line
-{"ok": true, "device": {...}}. Any failure raises (non-zero exit, no ok
-line); so does a machine without CUDA. It also prints the top of a
-torch.profiler kernel table of one device program.
+It checks that every kernel of a path launched and no plain version ran,
+that the output is (3, 4000, 6000), finite and in [0, 1], that each
+kernel equals its plain PyTorch version on the tensors the main path
+feeds it (bounds below), and that a 512x2048 develop on the card agrees
+with the same develop on the CPU's plain path, for both demosaics, to
+the slice bounds of tests/test_torch_amaze.py. It prints the card's name
+and power limit, develop and device-program timings, peak memory, a
+torch.profiler table, one JSON line of per-kernel results (time, plain
+time, bound) and last the line {"ok": true, "device": {...}}. Any
+failure raises (non-zero exit, no result lines); so does a machine
+without CUDA.
 """
 
 from __future__ import annotations
@@ -36,33 +39,42 @@ import torch
 
 # kernel vs plain version, both on the card: the kernels are built
 # without FMA contraction and follow the plain versions' operation order
-# (same IEEE division and sqrt, the same libdevice exp), so they agree to
-# the last bit; any difference fails
-B4_MAX, B4_MEAN = 0.0, 0.0  # 0..65535 output domain
-B7_MAX, B7_MEAN = 0.0, 0.0  # encoded [0, 1] output
-# slice parity (tests/test_torch_develop.py): encoded output
+# (the same IEEE division and sqrt, the same libdevice exp), so they agree
+# to the last bit; any difference fails
+KERNEL_MAX, KERNEL_MEAN = 0.0, 0.0
+# slice parity (tests/test_torch_amaze.py, test_torch_develop.py):
+# encoded output, card against the CPU plain path
 DEV_MAX, DEV_MEAN, DEV_WITHIN = 1.0 / 255.0, 2e-4, 0.999
+# the bound of each kernel: H100 SXM data sheet (on-chip-measurement guide)
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+
+FRAME = (4000, 6000)
+PROFILE = "Standard Film Curve.arp"
+
 
 def log(*a):
     print(*a, flush=True)
 
 
-def flagship_pp():
+def flagship_pp(method):
     from art_tpu_torch.params import ProcParams
 
     pp = ProcParams()
-    arp = os.path.join(os.path.dirname(os.path.abspath(__file__)), "art_tpu",
-                       "data", "profiles", "Standard Film Curve.arp")
+    arp = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "art_tpu_torch", "data", "profiles", PROFILE)
     with open(arp) as f:
         pp.apply_arp_text(f.read())
-    pp.raw.bayer.method = "bilinear"
+    if pp.raw.bayer.method != "amaze":
+        raise RuntimeError(f"{PROFILE} plans {pp.raw.bayer.method!r}")
+    pp.raw.bayer.method = method
     pp.denoise.enabled = True
     pp.denoise.luminance = 20.0
     pp.denoise.chrominance = 20.0
     return pp
 
 
-def flagship_frame(h=4000, w=6000, seed=0):
+def flagship_frame(h, w, seed=0):
     from art_tpu_torch.core.image import synthesize_bayer
 
     rng = np.random.default_rng(seed)
@@ -97,6 +109,187 @@ def parity(out, ref):
             "within_1lsb8": float((lsb <= 1.0).double().mean())}
 
 
+# ---- operation count of a plain version, for the bound
+
+# data movement and allocation: no arithmetic
+MOVES = {"roll", "cat", "stack", "clone", "copy_", "_to_copy", "slice",
+         "select", "view", "_unsafe_view", "reshape", "expand", "permute",
+         "transpose", "t", "unsqueeze", "squeeze", "constant_pad_nd",
+         "reflection_pad2d", "pad", "empty", "empty_like", "zeros",
+         "zeros_like", "ones", "ones_like", "full", "full_like",
+         "scalar_tensor", "lift_fresh", "detach", "alias", "as_strided",
+         "index_select", "index", "narrow", "split", "unbind", "contiguous",
+         "flip", "fill_", "new_empty", "new_zeros", "new_full", "arange",
+         "_local_scalar_dense", "set_", "resize_", "split_with_sizes"}
+MATMULS = {"mm", "bmm", "addmm", "baddbmm", "matmul"}
+
+
+def count_ops(fn):
+    """Run fn once, counting the element operations of its float tensor
+    ops: one per element of the largest float operand or result
+    (elementwise ops, selects, comparisons, reductions), 2*M*N*K for a
+    matrix product; data movement counts nothing. Returns (out, ops)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        ops = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = func.overloadpacket.__name__
+            if name in MOVES:
+                return out
+            outs = out if isinstance(out, (tuple, list)) else (out,)
+            ts = [t for t in (*args, *(kwargs or {}).values(), *outs)
+                  if isinstance(t, torch.Tensor) and t.is_floating_point()]
+            if not ts:  # integer and boolean mask building
+                return out
+            if name in MATMULS:
+                k = args[-2].shape[-1] if name.startswith(("add", "bad")) \
+                    else args[0].shape[-1]
+                Count.ops += 2 * outs[0].numel() * k
+            else:
+                Count.ops += max(t.numel() for t in ts)
+            return out
+
+    with Count():
+        out = fn()
+    return out, Count.ops
+
+
+def bound(reads, writes, ops):
+    """(bound_ms, bound_by, bytes_ms, ops_ms, ops): each input read once
+    and each output written once at the memory rate, against the
+    operations at the f32 rate."""
+    nbytes = sum(t.numel() * t.element_size() for t in (*reads, *writes))
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * ops / F32_OPS_PER_S
+    return (max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations", t_bytes, t_ops,
+            ops)
+
+
+def counted():
+    """name -> (wrapper with .launches, plain version with .calls)."""
+    from art_tpu_torch.demosaic import amaze
+    from art_tpu_torch.demosaic import amaze_kernel as ak
+    from art_tpu_torch.ops import tonecurve_neutral as tn
+    from art_tpu_torch.ops import wavelet_kernel as wk
+
+    return {"b1": (ak.amaze_stage1, amaze.stage1_plain),
+            "b2": (ak.amaze_stage2, amaze.stage2_plain),
+            "b3": (ak.amaze_stage3, amaze.stage3_plain),
+            "b4": (wk.wavelet_denoise_rgb, wk.wavelet_rgb_plain),
+            "b7": (tn.neutral_tone, tn.neutral_plain)}
+
+
+def reset_counts():
+    for wrapper, plain in counted().values():
+        wrapper.launches = 0
+        plain.calls = 0
+
+
+def read_counts():
+    c = counted()
+    return ({k: w.launches for k, (w, _) in c.items()},
+            {k: p.calls for k, (_, p) in c.items()})
+
+
+def drive(method, frame, kernels_of_path):
+    """One develop through the user's entry points, counts from 0; checks
+    the launches, the plain calls and the output."""
+    from art_tpu_torch.pipeline import develop as tdev
+
+    pp = flagship_pp(method)
+    reset_counts()
+    t0 = time.monotonic()
+    out = tdev.develop(frame, pp)
+    torch.cuda.synchronize()
+    seconds = time.monotonic() - t0
+    launches, plain_calls = read_counts()
+    log(f"{method} develop {FRAME[0]}x{FRAME[1]} (first): {seconds:.3f} s; "
+        f"launches {launches}; plain calls {plain_calls}")
+    missing = [k for k in kernels_of_path if launches[k] < 1]
+    if missing:
+        raise RuntimeError(f"{method}: kernels {missing} did not launch")
+    if any(plain_calls.values()):
+        raise RuntimeError(f"{method}: a plain version ran on the card: "
+                           f"{plain_calls}")
+    if tuple(out.shape) != (3, *FRAME) or out.device.type != "cuda":
+        raise RuntimeError(f"bad output {tuple(out.shape)} on {out.device}")
+    if not bool(torch.isfinite(out).all()):
+        raise RuntimeError(f"{method}: non-finite output")
+    lo, hi = float(out.min()), float(out.max())
+    if lo < 0.0 or hi > 1.0:
+        raise RuntimeError(f"{method}: output outside [0, 1]: {lo} .. {hi}")
+    log(f"  output (3, {FRAME[0]}, {FRAME[1]}) finite, range {lo:.6f} .. "
+        f"{hi:.6f}, mean {float(out.mean()):.6f}")
+    return pp, launches
+
+
+def device_program(frame, pp):
+    """Time the host plan alone, then the device program alone with its
+    inputs resident (CUDA events) and its peak memory. Returns the config
+    and the device inputs."""
+    from art_tpu_torch.pipeline import develop as tdev
+
+    t0 = time.monotonic()
+    config, data = tdev.plan(frame, pp)
+    log(f"  host plan alone: {1e3 * (time.monotonic() - t0):.1f} ms")
+    inp, _ = tdev.pad_to_multiple(frame.cfa, tdev.settings.pad_multiple)
+    inp_d = torch.from_numpy(inp).to("cuda")
+    data_d = tdev.data_to_torch(data, "cuda")
+    run = tdev.build_run(config)
+    device_ms = gpu_ms(lambda: run(inp_d, data_d), 5)
+    torch.cuda.reset_peak_memory_stats()
+    run(inp_d, data_d)
+    torch.cuda.synchronize()
+    log(f"  device program alone (inputs resident), mean of 5: "
+        f"{device_ms:.2f} ms; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    return config, inp_d, data_d
+
+
+def profile_develop(frame, pp):
+    """Device busy time of one end-to-end develop, from torch.profiler,
+    and its top kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from art_tpu_torch.pipeline import develop as tdev
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        tdev.develop(frame, pp)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.monotonic() - t0)
+    avg = prof.key_averages()
+    # device-side events only: a CPU op's entry repeats its kernels' time
+    busy_us = sum(e.self_device_time_total for e in avg
+                  if e.device_type != DeviceType.CPU)
+    log(avg.table(sort_by="self_device_time_total", row_limit=20))
+    log(f"profiled develop: wall {wall_ms:.1f} ms, device busy "
+        f"{busy_us / 1e3:.2f} ms, idle share "
+        f"{1.0 - busy_us / 1e3 / wall_ms:.4f}")
+
+
+def kernel_entry(name, key, source, replaces, launches, k_out, p_out,
+                 ms, plain_ms, bnd):
+    err, mean = diff_stats(k_out, p_out)
+    log(f"{name}: kernel vs plain at {tuple(k_out.shape)}: max {err:.6g} "
+        f"mean {mean:.6g} (bounds {KERNEL_MAX}, {KERNEL_MEAN}); kernel "
+        f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bnd[0]:.4f} ms "
+        f"({bnd[1]}; bytes {bnd[2]:.4f} ms, {bnd[4]:.4g} operations "
+        f"{bnd[3]:.4f} ms)")
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[key],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bnd[0], "bound_by": bnd[1],
+            # no single PyTorch call computes any of these functions
+            "library_ms": None, "_mean_err": mean}
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -104,16 +297,22 @@ def main():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True)
-    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else \
-        f"nvidia-smi failed: {smi.stderr.strip()}"
-    log(card)
+    if smi.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {smi.stderr.strip()}")
+    log(smi.stdout.strip().splitlines()[0])
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     from art_tpu_torch import kernels
+    from art_tpu_torch.demosaic import amaze
+    from art_tpu_torch.demosaic import amaze_kernel as ak
+    from art_tpu_torch.ops import denoise
     from art_tpu_torch.ops import tonecurve_neutral as tn
     from art_tpu_torch.ops import wavelet_kernel as wk
     from art_tpu_torch.pipeline import develop as tdev
+    from art_tpu_torch.raw.preprocess import apply_scale
 
     t0 = time.monotonic()
     kernels.library()
@@ -121,85 +320,63 @@ def main():
         f"(nvcc {kernels.build_info['seconds']:.2f} s, compiled="
         f"{kernels.build_info['compiled']})")
     for line in kernels.build_info.get("log", "").splitlines():
-        if "entry function" in line or "registers" in line:
+        if "registers" in line or "spill" in line:
             log("  ptxas:", line.strip())
 
-    dev = torch.device("cuda")
-
-    # ---- slice phase: the main path, through the user's entry points
+    # ---- the main path: the AMaZE flagship
     t0 = time.monotonic()
-    frame = flagship_frame()
-    pp = flagship_pp()
-    log(f"frame 4000x6000 synthesised in {time.monotonic() - t0:.2f} s")
-    wk.wavelet_denoise_rgb.launches = 0
-    tn.neutral_tone.launches = 0
-    wk.wavelet_rgb_plain.calls = 0
-    tn.neutral_plain.calls = 0
-    t0 = time.monotonic()
-    out = tdev.develop(frame, pp, device=dev)
-    torch.cuda.synchronize()
-    first_s = time.monotonic() - t0
-    launches = {"b4": wk.wavelet_denoise_rgb.launches,
-                "b7": tn.neutral_tone.launches}
-    plain_calls = {"b4": wk.wavelet_rgb_plain.calls,
-                   "b7": tn.neutral_plain.calls}
-    log(f"first develop: {first_s:.3f} s; launches {launches}; plain "
-        f"calls {plain_calls}")
-    if launches["b4"] < 1 or launches["b7"] < 1:
-        raise RuntimeError(f"a kernel of the path did not launch: {launches}")
-    if plain_calls["b4"] or plain_calls["b7"]:
-        raise RuntimeError(f"a plain version ran on the GPU: {plain_calls}")
-    if tuple(out.shape) != (3, 4000, 6000) or out.device.type != "cuda":
-        raise RuntimeError(f"bad output {tuple(out.shape)} on {out.device}")
-    if not bool(torch.isfinite(out).all()):
-        raise RuntimeError("non-finite output")
-    lo, hi = float(out.min()), float(out.max())
-    if lo < 0.0 or hi > 1.0:
-        raise RuntimeError(f"output outside [0, 1]: {lo} .. {hi}")
-    log(f"output (3, 4000, 6000) finite, range {lo:.6f} .. {hi:.6f}, "
-        f"mean {float(out.mean()):.6f}")
+    frame = flagship_frame(*FRAME)
+    log(f"frame {FRAME[0]}x{FRAME[1]} synthesised in "
+        f"{time.monotonic() - t0:.2f} s")
+    pp, launches = drive("amaze", frame, ("b1", "b2", "b3", "b4", "b7"))
 
     times = []
     for _ in range(5):
         t0 = time.monotonic()
-        out = tdev.develop(frame, pp, device=dev)
+        tdev.develop(frame, pp)
         torch.cuda.synchronize()
         times.append(time.monotonic() - t0)
-    develop_ms = 1000 * float(np.median(times))
-    log(f"develop (plan + H2D + device + crop), median of 5: "
-        f"{develop_ms:.1f} ms {[round(1000 * t, 1) for t in times]}")
+    log(f"amaze develop (plan + H2D + device + crop), median of 5: "
+        f"{1e3 * float(np.median(times)):.1f} ms "
+        f"{[round(1e3 * t, 1) for t in times]}")
+    config, inp_d, data_d = device_program(frame, pp)
+    profile_develop(frame, pp)
 
-    t0 = time.monotonic()
-    config, data = tdev.plan(frame, pp)
-    log(f"host plan alone: {1000 * (time.monotonic() - t0):.1f} ms")
-    inp, _ = tdev.pad_to_multiple(frame.cfa, 128)
-    inp_d = torch.from_numpy(inp).to(dev)
-    data_d = tdev.data_to_torch(data, dev)
-    run = tdev.build_run(config)
-    device_ms = gpu_ms(lambda: run(inp_d, data_d), 5)
-    torch.cuda.reset_peak_memory_stats()
-    run(inp_d, data_d)
-    torch.cuda.synchronize()
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    log(f"device program alone (inputs resident), mean of 5: "
-        f"{device_ms:.2f} ms; peak device memory {peak_gb:.2f} GB")
+    # ---- the bilinear path (the first slice's)
+    pp_bil, _ = drive("bilinear", frame, ("b4", "b7"))
+    device_program(frame, pp_bil)
 
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run(inp_d, data_d)
-        torch.cuda.synchronize()
-    log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=16))
-
-    # ---- kernel phase: each kernel on the tensors the main path gives it
-    from art_tpu_torch.demosaic import demosaic
-    from art_tpu_torch.raw.preprocess import apply_scale
-
+    # ---- kernel phase: each kernel on the tensors the main path feeds it
+    pat = config.pattern
     cfa = apply_scale(inp_d.float(), data_d["raw_offset"],
                       data_d["raw_scale"])
-    rgb = demosaic(cfa, config.pattern, config.demosaic_method)
-    from art_tpu_torch.ops import denoise
+    clips = amaze.clip_points(data_d["init_gain"], "cuda")
+    x = amaze.padded_plane(cfa)
+    entries = []
+
+    def check(key, kern, plain, reads):
+        """Kernel and plain version on the same inputs: the entry of the
+        kernels line, and the kernel's output."""
+        k_out = kern()
+        p_out, ops = count_ops(plain)
+        torch.cuda.synchronize()
+        bnd = bound(reads, (k_out,), ops)
+        entries.append(kernel_entry(
+            f"AMaZE stage {key[1]} ({key.upper()})", key,
+            "art_tpu_torch/csrc/amaze.cu",
+            "art_tpu/demosaic/amaze_pallas.py:65", launches, k_out, p_out,
+            gpu_ms(kern, 10), gpu_ms(plain, 3), bnd))
+        return k_out
+
+    s1 = check("b1", lambda: ak.amaze_stage1(x, pat, clips),
+               lambda: amaze.stage1_plain(x, pat, clips), (x, clips))
+    s2 = check("b2", lambda: ak.amaze_stage2(x, pat, s1),
+               lambda: amaze.stage2_plain(x, pat, s1), (x, s1))
+    del s1
+    k3 = check("b3", lambda: ak.amaze_stage3(x, pat, s2, clips),
+               lambda: amaze.stage3_plain(x, pat, s2, clips), (x, s2, clips))
+    rgb = amaze._with_border(cfa, pat, k3)
+    del s2, x
 
     dn = dict(data_d["op:denoise"], pre_mults=data_d["rgb_mults"],
               pre_mat=data_d["cam2work"])
@@ -207,66 +384,57 @@ def main():
     b4_args = (rgb,) + b4_args
     plain_args = (rgb,) + wk.prepare(*b4_args, **b4_kw)
     b4_k = wk.wavelet_denoise_rgb(*b4_args, **b4_kw)
-    b4_p = wk.wavelet_rgb_plain(*plain_args)
+    b4_p, ops = count_ops(lambda: wk.wavelet_rgb_plain(*plain_args))
     torch.cuda.synchronize()
-    b4_max, b4_mean = diff_stats(b4_k, b4_p)
-    log(f"B4 kernel vs plain at {tuple(rgb.shape)}: max {b4_max:.6g} "
-        f"mean {b4_mean:.6g} (bounds {B4_MAX}, {B4_MEAN})")
-    b4_ms = gpu_ms(lambda: wk.wavelet_denoise_rgb(*b4_args, **b4_kw), 10)
-    b4_plain_ms = gpu_ms(lambda: wk.wavelet_rgb_plain(*plain_args), 3)
-    log(f"B4 time: kernel {b4_ms:.3f} ms, plain {b4_plain_ms:.3f} ms")
+    entries.append(kernel_entry(
+        "wavelet_rgb (B4)", "b4", "art_tpu_torch/csrc/wavelet_rgb.cu",
+        "art_tpu/ops/wavelet_pallas.py:311", launches, b4_k, b4_p,
+        gpu_ms(lambda: wk.wavelet_denoise_rgb(*b4_args, **b4_kw), 10),
+        gpu_ms(lambda: wk.wavelet_rgb_plain(*plain_args), 3),
+        bound((rgb,), (b4_k,), ops)))
+    del b4_p
 
     tc = data_d["op:tonecurve"]
     params = torch.cat([tc["params"], data_d["work2out"].reshape(-1)])
     coeffs = tc["coeffs"].reshape(-1, tc["coeffs"].shape[-1])
     epi = config.out_trc[0]
-    b7_in = b4_k
-    b7_k = tn.neutral_tone(b7_in, params, coeffs, epi)
-    b7_p = tn.neutral_plain(b7_in, params, coeffs, epi)
+    b7_k = tn.neutral_tone(b4_k, params, coeffs, epi)
+    b7_p, ops = count_ops(lambda: tn.neutral_plain(b4_k, params, coeffs,
+                                                   epi))
     torch.cuda.synchronize()
-    b7_max, b7_mean = diff_stats(b7_k, b7_p)
-    log(f"B7 kernel vs plain at {tuple(b7_in.shape)}: max {b7_max:.6g} "
-        f"mean {b7_mean:.6g} (bounds {B7_MAX}, {B7_MEAN})")
-    b7_ms = gpu_ms(lambda: tn.neutral_tone(b7_in, params, coeffs, epi), 20)
-    b7_plain_ms = gpu_ms(
-        lambda: tn.neutral_plain(b7_in, params, coeffs, epi), 3)
-    log(f"B7 time: kernel {b7_ms:.3f} ms, plain {b7_plain_ms:.3f} ms")
+    entries.append(kernel_entry(
+        "neutral_tone (B7)", "b7", "art_tpu_torch/csrc/neutral_tone.cu",
+        "art_tpu/ops/tonecurve_neutral.py:384", launches, b7_k, b7_p,
+        gpu_ms(lambda: tn.neutral_tone(b4_k, params, coeffs, epi), 20),
+        gpu_ms(lambda: tn.neutral_plain(b4_k, params, coeffs, epi), 3),
+        bound((b4_k,), (b7_k,), ops)))
+    del b7_p, b7_k, b4_k, rgb, cfa
 
-    # ---- small develop: card against the CPU plain path
+    # ---- small develops: the card against the CPU plain path
     small = flagship_frame(512, 2048, seed=5)
-    g = tdev.develop(small, pp, device=dev).cpu()
-    c = tdev.develop(small, pp, device="cpu")
-    small_stats = parity(g, c)
-    log(f"512x2048 develop, card vs CPU plain path: {small_stats}")
+    small_stats = {}
+    for method in ("amaze", "bilinear"):
+        g = tdev.develop(small, flagship_pp(method)).cpu()
+        c = tdev.develop(small, flagship_pp(method), device="cpu")
+        small_stats[method] = parity(g, c)
+        log(f"512x2048 {method} develop, card vs CPU plain path: "
+            f"{small_stats[method]}")
 
     failures = []
-    if b4_max > B4_MAX or b4_mean > B4_MEAN:
-        failures.append(f"B4 disagrees with its plain version: {b4_max}, "
-                        f"{b4_mean}")
-    if b7_max > B7_MAX or b7_mean > B7_MEAN:
-        failures.append(f"B7 disagrees with its plain version: {b7_max}, "
-                        f"{b7_mean}")
-    if (small_stats["max_lsb8"] > DEV_MAX * 255 or small_stats["mean"]
-            > DEV_MEAN or small_stats["within_1lsb8"] < DEV_WITHIN):
-        failures.append(f"card develop disagrees with CPU: {small_stats}")
-    if "jax" in sys.modules:
-        failures.append("jax was imported")
-
-    result = {"kernels": [
-        {"name": "wavelet_rgb (B4)", "route": "cuda",
-         "source": "art_tpu_torch/csrc/wavelet_rgb.cu",
-         "replaces": "art_tpu/ops/wavelet_pallas.py:311",
-         "launches": launches["b4"], "max_abs_err": b4_max,
-         "ms": b4_ms, "plain_ms": b4_plain_ms},
-        {"name": "neutral_tone (B7)", "route": "cuda",
-         "source": "art_tpu_torch/csrc/neutral_tone.cu",
-         "replaces": "art_tpu/ops/tonecurve_neutral.py:384",
-         "launches": launches["b7"], "max_abs_err": b7_max,
-         "ms": b7_ms, "plain_ms": b7_plain_ms},
-    ]}
+    for e in entries:
+        mean_err = e.pop("_mean_err")
+        if e["max_abs_err"] > KERNEL_MAX or mean_err > KERNEL_MEAN:
+            failures.append(f"{e['name']} disagrees with its plain version")
+    for method, st in small_stats.items():
+        if (st["max_lsb8"] > DEV_MAX * 255 or st["mean"] > DEV_MEAN
+                or st["within_1lsb8"] < DEV_WITHIN):
+            failures.append(f"{method}: card develop disagrees with the "
+                            f"CPU: {st}")
+    if "jax" in sys.modules or "art_tpu" in sys.modules:
+        failures.append("jax or art_tpu was imported")
     if failures:
         raise RuntimeError("; ".join(failures))
-    print(json.dumps(result))
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -15,6 +15,8 @@ import torch
 
 from art_tpu_torch.core.curve1d import fit_curve, fit_gamma_split
 from art_tpu_torch.core.image import synthesize_bayer
+from art_tpu_torch.demosaic import amaze
+from art_tpu_torch.demosaic import amaze_kernel as ak
 from art_tpu_torch.ops import tonecurve as ttc
 from art_tpu_torch.ops import tonecurve_neutral as ttn
 from art_tpu_torch.ops import wavelet_kernel as wk
@@ -22,7 +24,8 @@ from art_tpu_torch.params import ProcParams
 from art_tpu_torch.pipeline import develop as tdev
 
 ARP = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "art_tpu", "data", "profiles", "Standard Film Curve.arp")
+    __file__))), "art_tpu_torch", "data", "profiles",
+    "Standard Film Curve.arp")
 LUM_W = np.array([0.2790177, 0.6753402, 0.0456377], np.float32)
 CAM2WORK = np.array([[0.6274, 0.3293, 0.0433],
                      [0.0691, 0.9195, 0.0114],
@@ -37,11 +40,11 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def flagship_pp():
+def flagship_pp(method="bilinear"):
     pp = ProcParams()
     with open(ARP) as f:
         pp.apply_arp_text(f.read())
-    pp.raw.bayer.method = "bilinear"
+    pp.raw.bayer.method = method
     pp.denoise.enabled = True
     pp.denoise.luminance = 20.0
     pp.denoise.chrominance = 20.0
@@ -114,19 +117,53 @@ def test_neutral_kernel_matches_plain(cuda_device, epi, cheb):
 
 
 @pytest.mark.cuda
-def test_develop_on_card_matches_cpu(cuda_device):
+@pytest.mark.parametrize("pattern,gain", [("RGGB", 1.0), ("GBRG", 1.6),
+                                          ("BGGR", 1.25), ("GRBG", 1.0)])
+def test_amaze_kernels_match_plain(cuda_device, pattern, gain):
+    rng = np.random.default_rng(11)
+    cfa = np.minimum(rng.uniform(0.01, 1.1, (300, 520)) * 65535, 65535.0)
+    x = amaze.padded_plane(
+        torch.from_numpy(cfa.astype(np.float32)).to(cuda_device))
+    clips = amaze.clip_points(np.float32(gain), cuda_device)
+    before = (ak.amaze_stage1.launches, ak.amaze_stage2.launches,
+              ak.amaze_stage3.launches)
+    # each kernel is fed the plain version's output of the stage before
+    p1 = amaze.stage1_plain(x, pattern, clips)
+    p2 = amaze.stage2_plain(x, pattern, p1)
+    p3 = amaze.stage3_plain(x, pattern, p2, clips)
+    k1 = ak.amaze_stage1(x, pattern, clips)
+    k2 = ak.amaze_stage2(x, pattern, p1)
+    k3 = ak.amaze_stage3(x, pattern, p2, clips)
+    torch.cuda.synchronize()
+    assert (ak.amaze_stage1.launches, ak.amaze_stage2.launches,
+            ak.amaze_stage3.launches) == tuple(b + 1 for b in before)
+    assert k3.shape == (3, 300, 520)
+    # built without FMA contraction, same operation order, correctly
+    # rounded reciprocals on both sides: equal
+    assert torch.equal(k1, p1)
+    assert torch.equal(k2, p2)
+    assert torch.equal(k3, p3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["bilinear", "amaze"])
+def test_develop_on_card_matches_cpu(cuda_device, method):
     rng = np.random.default_rng(0)
     rgb = rng.uniform(0.02, 0.95, size=(3, 256, 1024)).astype(np.float32)
     frame = synthesize_bayer(rgb, pattern="RGGB")
-    before = (wk.wavelet_denoise_rgb.launches, ttn.neutral_tone.launches)
-    plain_before = (wk.wavelet_rgb_plain.calls, ttn.neutral_plain.calls)
-    out = tdev.develop(frame, flagship_pp(), device=cuda_device)
+    counted = (wk.wavelet_denoise_rgb, ttn.neutral_tone, ak.amaze_stage1,
+               ak.amaze_stage2, ak.amaze_stage3)
+    plains = (wk.wavelet_rgb_plain, ttn.neutral_plain, amaze.stage1_plain,
+              amaze.stage2_plain, amaze.stage3_plain)
+    before = [f.launches for f in counted]
+    plain_before = [f.calls for f in plains]
+    out = tdev.develop(frame, flagship_pp(method))
     torch.cuda.synchronize()
-    assert (wk.wavelet_denoise_rgb.launches,
-            ttn.neutral_tone.launches) == (before[0] + 1, before[1] + 1)
-    assert (wk.wavelet_rgb_plain.calls, ttn.neutral_plain.calls) \
-        == plain_before
-    cpu = tdev.develop(frame, flagship_pp(), device="cpu")
+    assert out.device.type == "cuda"
+    want = [1, 1] + [int(method == "amaze")] * 3
+    assert [f.launches - b for f, b in zip(counted, before)] == want
+    assert [f.calls for f in plains] == plain_before
+    cpu = tdev.develop(frame, flagship_pp(method), device="cpu")
     d = (out.cpu().double() - cpu.double()).abs()
     assert d.max().item() <= 1.0 / 255.0
     assert d.mean().item() <= 2e-4

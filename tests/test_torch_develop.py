@@ -25,7 +25,8 @@ from art_tpu_torch.pipeline import develop as tdev
 jdev = importlib.import_module("art_tpu.pipeline.develop")
 
 ARP = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "art_tpu", "data", "profiles", "Standard Film Curve.arp")
+    __file__))), "art_tpu_torch", "data", "profiles",
+    "Standard Film Curve.arp")
 
 
 def flagship_pp():

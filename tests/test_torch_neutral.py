@@ -30,7 +30,7 @@ def _flagship_tc():
 
     pp = ProcParams()
     arp = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), "art_tpu", "data", "profiles",
+        os.path.abspath(__file__))), "art_tpu_torch", "data", "profiles",
         "Standard Film Curve.arp")
     pp.apply_arp_text(open(arp).read())
     return pp

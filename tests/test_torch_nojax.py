@@ -1,25 +1,38 @@
-"""art_tpu_torch runs where JAX does not exist: a subprocess that refuses
-every `jax`/`jaxlib` import plans and develops a frame, and no source
-file of the package imports JAX.
+"""art_tpu_torch stands alone: a subprocess that refuses every `jax`,
+`jaxlib` and `art_tpu` import plans and develops the flagship frame; no
+source file of the package, nor chip_smoke.py, imports either or reads a
+file under art_tpu/; and the port's copies of the reference's host
+modules (profiles, colour-space tables, camera constants, output TRCs)
+hold the reference's values.
 """
 
+import dataclasses
 import os
 import re
 import subprocess
 import sys
 
+import numpy as np
+import pytest
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PROFILES = os.path.join(REPO, "art_tpu_torch", "data", "profiles")
+ARPS = sorted(f for f in os.listdir(PROFILES) if f.endswith(".arp"))
 
 SCRIPT = r'''
 import sys
 
-class _NoJax:
+BLOCKED = ("jax", "jaxlib", "art_tpu")
+
+
+class _Refuse:
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib"):
-            raise ImportError("jax is blocked in this process: " + name)
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError("blocked in this process: " + name)
         return None
 
-sys.meta_path.insert(0, _NoJax())
+
+sys.meta_path.insert(0, _Refuse())
 
 import os
 import numpy as np
@@ -28,20 +41,24 @@ from art_tpu_torch.params import ProcParams
 from art_tpu_torch.core.image import synthesize_bayer
 from art_tpu_torch.pipeline import develop as tdev
 
-pp = ProcParams()
-pp.apply_arp_text(open(os.path.join(sys.argv[1], "art_tpu", "data",
-                   "profiles", "Standard Film Curve.arp")).read())
-pp.raw.bayer.method = "bilinear"
-pp.denoise.enabled = True
-pp.denoise.luminance = 20.0
-pp.denoise.chrominance = 20.0
 rgb = np.random.default_rng(3).uniform(0.02, 0.95, (3, 256, 1024))
-out = tdev.develop(synthesize_bayer(rgb.astype(np.float32)), pp, "cpu")
-assert tuple(out.shape) == (3, 256, 1024), out.shape
-assert bool(torch.isfinite(out).all())
-assert 0.0 <= float(out.min()) and float(out.max()) <= 1.0
-assert not any(m.split(".")[0] in ("jax", "jaxlib") for m in sys.modules)
-print("NOJAX-OK")
+frame = synthesize_bayer(rgb.astype(np.float32))
+for method in ("amaze", "bilinear"):
+    pp = ProcParams()
+    pp.apply_arp_text(open(os.path.join(
+        sys.argv[1], "art_tpu_torch", "data", "profiles",
+        "Standard Film Curve.arp")).read())
+    assert pp.raw.bayer.method == "amaze"
+    pp.raw.bayer.method = method
+    pp.denoise.enabled = True
+    pp.denoise.luminance = 20.0
+    pp.denoise.chrominance = 20.0
+    out = tdev.develop(frame, pp, device="cpu")
+    assert tuple(out.shape) == (3, 256, 1024), out.shape
+    assert bool(torch.isfinite(out).all())
+    assert 0.0 <= float(out.min()) and float(out.max()) <= 1.0
+assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
+print("STANDALONE-OK")
 '''
 
 
@@ -50,24 +67,93 @@ def test_develops_with_jax_blocked():
     proc = subprocess.run([sys.executable, "-c", SCRIPT, REPO], env=env,
                           capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-4000:]
-    assert "NOJAX-OK" in proc.stdout
+    assert "STANDALONE-OK" in proc.stdout
 
 
-def test_no_source_file_imports_jax():
-    pat = re.compile(r"^\s*(import\s+jax|from\s+jax)\b", re.M)
+def _port_sources():
     root = os.path.join(REPO, "art_tpu_torch")
-    offenders = []
     for dirpath, _, files in os.walk(root):
         for f in files:
             if f.endswith((".py", ".cu", ".cuh")):
-                path = os.path.join(dirpath, f)
-                with open(path) as fh:
-                    if pat.search(fh.read()):
-                        offenders.append(path)
+                yield os.path.join(dirpath, f)
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+# an import of jax, jaxlib or art_tpu (not art_tpu_torch)
+IMPORT = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|art_tpu)\b", re.M)
+# a path into the reference package: os.path.join(..., "art_tpu", ...)
+# or a literal art_tpu/data/... path
+REF_PATH = re.compile(r"""["']art_tpu["']\s*,|art_tpu/data""")
+
+
+def test_no_source_file_imports_jax():
+    offenders = []
+    for path in _port_sources():
+        with open(path) as fh:
+            if IMPORT.search(fh.read()):
+                offenders.append(path)
     assert offenders == []
 
 
 def test_chip_smoke_imports_no_jax():
     with open(os.path.join(REPO, "chip_smoke.py")) as fh:
         src = fh.read()
-    assert not re.search(r"^\s*(import|from)\s+(jax|art_tpu)\b", src, re.M)
+    assert not IMPORT.search(src)
+    assert IMPORT.search("from art_tpu.params import ProcParams")
+    assert not IMPORT.search("from art_tpu_torch.params import ProcParams")
+
+
+def test_no_source_file_reads_the_reference_package():
+    assert REF_PATH.search('os.path.join(root, "art_tpu", "data")')
+    assert not REF_PATH.search('"replaces": "art_tpu/ops/x.py:1"')
+    offenders = []
+    for path in _port_sources():
+        with open(path) as fh:
+            if REF_PATH.search(fh.read()):
+                offenders.append(path)
+    assert offenders == []
+
+
+@pytest.mark.parametrize("arp", ARPS)
+def test_bundled_profiles_parse_as_in_the_reference(arp):
+    from art_tpu.params import ProcParams as RefProcParams
+    from art_tpu_torch.params import ProcParams
+
+    with open(os.path.join(PROFILES, arp)) as f:
+        text = f.read()
+    with open(os.path.join(REPO, "art_tpu", "data", "profiles", arp)) as f:
+        assert f.read() == text
+    ours, ref = ProcParams(), RefProcParams()
+    ours.apply_arp_text(text)
+    ref.apply_arp_text(text)
+    assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
+
+
+def test_host_tables_equal_the_reference():
+    from art_tpu.color import colorspaces as rcs
+    from art_tpu.color.iccstore import get_instance as ref_icc
+    from art_tpu.raw.camconst import get_instance as ref_camconst
+    from art_tpu_torch.color import colorspaces as cs
+    from art_tpu_torch.color.iccstore import output_trc
+    from art_tpu_torch.raw.camconst import get_instance as camconst
+
+    for table in ("MATRICES_RGB_TO_XYZ", "MATRICES_XYZ_TO_RGB"):
+        ours, ref = getattr(cs, table), getattr(rcs, table)
+        assert sorted(ours) == sorted(ref)
+        for k in ref:
+            np.testing.assert_array_equal(ours[k], ref[k], err_msg=k)
+    for name in ("D65_TO_D50", "D50_TO_D65", "XYZ_FROM_SRGB_D65"):
+        np.testing.assert_array_equal(getattr(cs, name), getattr(rcs, name))
+    assert cs.OUTPUT_GAMMAS == rcs.OUTPUT_GAMMAS
+    assert cs._srgb_gamma_fit() == rcs._srgb_gamma_fit()
+    x = np.linspace(-0.1, 1.1, 4097)
+    np.testing.assert_array_equal(cs.srgb_gamma(x), rcs.srgb_gamma(x))
+    np.testing.assert_array_equal(cs.srgb_igamma(x), rcs.srgb_igamma(x))
+    for name in (*rcs.MATRICES_RGB_TO_XYZ, "", None, "no such space"):
+        assert output_trc(name) == ref_icc().output_profile(name).trc, name
+
+    ours, ref = camconst()._db, ref_camconst()._db
+    assert len(ref) > 100 and sorted(ours) == sorted(ref)
+    for key, cc in ref.items():
+        assert ours[key].data == cc.data, key
+        assert ours[key].pdaf() == cc.pdaf(), key
