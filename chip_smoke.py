@@ -45,7 +45,7 @@ KERNEL_MAX, KERNEL_MEAN = 0.0, 0.0
 # slice parity (tests/test_torch_amaze.py, test_torch_develop.py):
 # encoded output, card against the CPU plain path
 DEV_MAX, DEV_MEAN, DEV_WITHIN = 1.0 / 255.0, 2e-4, 0.999
-# the bound of each kernel: H100 SXM data sheet (on-chip-measurement guide)
+# the bound of each kernel: H100 SXM data sheet peaks (HBM3 rate, FP32 rate)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 
