@@ -16,14 +16,13 @@ def demosaic(cfa, pattern, method, init_gain=1.0):
     init_gain: the planner's raw gain (AMaZE's clip points); the
     planner's dual-demosaic kwargs do not apply to plain bilinear, as in
     the reference."""
-    from art_tpu_torch.demosaic import bilinear, registry
+    from art_tpu_torch.demosaic import amaze, bilinear
 
     m = method.lower()
     if m in ("bilinear", "fast"):
         return bilinear.bayer_bilinear(cfa, pattern)
-    fn = registry.get(m)
-    if fn is None:
-        raise NotImplementedError(
-            f"demosaic method {method!r} is not ported to art_tpu_torch "
-            f"(ported: {', '.join(PORTED)})")
-    return fn(cfa, pattern, init_gain=init_gain)
+    if m == "amaze":
+        return amaze.amaze_demosaic(cfa, pattern, init_gain=init_gain)
+    raise NotImplementedError(
+        f"demosaic method {method!r} is not ported to art_tpu_torch "
+        f"(ported: {', '.join(PORTED)})")

@@ -26,7 +26,6 @@ from __future__ import annotations
 import torch
 
 from art_tpu_torch.core.image import bayer_channel_masks
-from art_tpu_torch.demosaic.registry import register
 
 EPS = 1e-5
 EPSSQ = 1e-10
@@ -516,7 +515,6 @@ def padded_plane(cfa):
     return xp / torch.tensor(65535.0, dtype=xp.dtype, device=xp.device)
 
 
-@register("amaze")
 def amaze_demosaic(cfa, pattern, init_gain=1.0):
     """(H, W) scaled Bayer mosaic (0..65535) -> (3, H, W) RGB on cfa's
     device: reflect pad by HALO, the three stage kernels (plain versions

@@ -9,7 +9,8 @@ of the source and the flags, so an edited source rebuilds on its next
 use and an unchanged one is reused. A failed build raises.
 
 Nothing here runs at import time: the first call to :func:`library`
-builds and loads.
+builds and loads. ``python -m art_tpu_torch.kernels`` times a fresh
+build both ways: one nvcc per source at once, and one over all sources.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import shutil
 import subprocess
 import tempfile
 import time
+import types
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
@@ -84,60 +86,84 @@ def _target(src):
     return BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
 
 
+def _compile(jobs):
+    """Run nvcc for each (output, sources) pair, all at once; raise if one
+    fails. Returns nvcc's ptxas reports."""
+    procs = []
+    for out, srcs in jobs:
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(out), *map(str, srcs)]
+        procs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    logs, failed = [], []
+    for cmd, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append("nvcc failed (exit %d):\n%s\n%s" % (
+                proc.returncode, " ".join(cmd), err[-8000:]))
+        logs.append(err)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return "".join(logs)
+
+
 def build():
     """Compile each csrc/*.cu into _build/ unless a library of the same
     source and flags is there, all compilers at once; returns {stem:
     path}. Fills `build_info` (seconds, which sources compiled, and
     nvcc's ptxas report)."""
     t0 = time.monotonic()
-    libs, procs = {}, {}
+    libs, jobs = {}, []
     for src in _sources():
         so = libs[src.stem] = _target(src)
-        if so.is_file():
-            continue
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)]
-        procs[src.stem] = (cmd, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-    logs, failed = [], []
-    for stem, (cmd, tmp, proc) in procs.items():
-        _, err = proc.communicate()
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            failed.append("nvcc failed (exit %d):\n%s\n%s" % (
-                proc.returncode, " ".join(cmd), err[-8000:]))
-            continue
-        os.replace(tmp, libs[stem])
-        logs.append(err)
-    if failed:
-        raise RuntimeError("\n".join(failed))
-    build_info.update(seconds=time.monotonic() - t0, compiled=sorted(procs),
-                      log="".join(logs))
+        if not so.is_file():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            jobs.append((tmp, [src]))
+    try:
+        log = _compile(jobs) if jobs else ""
+        for tmp, (src,) in jobs:
+            os.replace(tmp, libs[src.stem])
+    finally:
+        for tmp, _ in jobs:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    build_info.update(seconds=time.monotonic() - t0,
+                      compiled=sorted(src.stem for _, (src,) in jobs),
+                      log=log)
     return libs
 
 
-class _Library:
-    """The bound C entry points, as attributes."""
-
-
 def library():
-    """The loaded kernel libraries, built on first use: an object with
+    """The loaded kernel libraries, built on first use: a namespace with
     one ctypes function per SIGNATURES entry."""
     global _lib
     if _lib is None:
-        paths = build()
-        loaded = {stem: ctypes.CDLL(str(p)) for stem, p in paths.items()}
-        lib = _Library()
+        loaded = {stem: ctypes.CDLL(str(p)) for stem, p in build().items()}
+        fns = {}
         for name, (stem, argtypes) in SIGNATURES.items():
-            fn = getattr(loaded[stem], name)
+            fn = fns[name] = getattr(loaded[stem], name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-            setattr(lib, name, fn)
-        lib.handles = loaded  # keep the libraries loaded
-        _lib = lib
+        # the handles keep the libraries loaded
+        _lib = types.SimpleNamespace(handles=loaded, **fns)
     return _lib
+
+
+def time_builds():
+    """Seconds of a fresh build of all csrc/*.cu: one nvcc per source, all
+    at once (as `build` does), against one nvcc over all sources."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = Path(tempfile.mkdtemp(dir=BUILD_DIR, prefix="timing_"))
+    try:
+        t0 = time.monotonic()
+        _compile([(out / f"{s.stem}.so", [s]) for s in _sources()])
+        parallel = time.monotonic() - t0
+        t0 = time.monotonic()
+        _compile([(out / "all.so", _sources())])
+        return parallel, time.monotonic() - t0
+    finally:
+        shutil.rmtree(out)
 
 
 def check(rc, name):
@@ -151,3 +177,10 @@ def stream_of(t):
     import torch
 
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+if __name__ == "__main__":
+    # python -m art_tpu_torch.kernels: time the two ways to build
+    p, one = time_builds()
+    print(f"fresh build of {len(_sources())} sources: one nvcc per source, "
+          f"all at once {p:.2f} s; one nvcc over all sources {one:.2f} s")

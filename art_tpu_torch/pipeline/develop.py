@@ -19,7 +19,7 @@ import os
 import numpy as np
 import torch
 
-from art_tpu_torch.settings import settings
+from art_tpu_torch.settings import PAD_MULTIPLE
 from art_tpu_torch import ops as ops_pkg
 from art_tpu_torch.color import colorspaces as cs
 from art_tpu_torch.color.iccstore import output_trc
@@ -242,7 +242,7 @@ def plan(frame, pp):
     ctx = {"working_profile": icc_working, "frame": frame, "pp": pp}
 
     h, w = frame.cfa.shape
-    pm = settings.pad_multiple
+    pm = PAD_MULTIPLE
     shape = (((h + pm - 1) // pm) * pm, ((w + pm - 1) // pm) * pm)
     bayer_adjust = None
     if pp.raw.bayer.black_enabled:
@@ -325,8 +325,7 @@ def fusion_gates(config: PipelineConfig):
     (develop.py::_build_run). The port runs only with both open."""
     first0 = next((s for s in config.steps if s[2] == 0), None)
     fuse_head = (
-        settings.fuse_passes
-        and config.is_raw and first0 is not None and first0[0] == "denoise"
+        config.is_raw and first0 is not None and first0[0] == "denoise"
         and len(first0[1]) >= 5
         and first0[1][1] == 0 and first0[1][2] == 0 and not first0[1][4]
         and config.hl_mode != "blend" and config.do_clip
@@ -334,8 +333,7 @@ def fusion_gates(config: PipelineConfig):
         and config.icc_input_trc is None and not config.pixelshift)
     late_steps = [s for s in config.steps if s[2] > 0]
     fuse_tail = (
-        settings.fuse_passes
-        and config.resize_to is None and bool(late_steps)
+        config.resize_to is None and bool(late_steps)
         and late_steps[-1][0] == "tonecurve"
         and bool(late_steps[-1][1]) and late_steps[-1][1][0] == "neutral"
         and config.out_trc[0] in ("srgb", "linear"))
@@ -444,7 +442,7 @@ def develop(frame, pp, device="cuda"):
     asks for the CPU): encoded (3, H, W) float32 in [0, 1], as a tensor on
     that device."""
     config, data = plan(frame, pp)
-    inp, _ = pad_to_multiple(frame.cfa, settings.pad_multiple)
+    inp, _ = pad_to_multiple(frame.cfa, PAD_MULTIPLE)
     if frame.integral:  # decoded u16 counts
         inp = transfer_array(inp)
     inp = np.ascontiguousarray(inp)

@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from art_tpu_torch.settings import settings
+from art_tpu_torch.settings import PAD_MULTIPLE
 from art_tpu_torch.core.image import MAXVAL, bayer_color_index
 
 
@@ -60,7 +60,7 @@ def scale_plan(frame, bayer_black_adjust=None, raw_expos=1.0, is_mono=False,
     offset_tile = cblack[c4].astype(np.float32)
     scale_tile = scale_mul[c4].astype(np.float32)
     # full-width row patterns, 8 rows high: the reference's data layout
-    wpad = -(-w // settings.pad_multiple) * settings.pad_multiple
+    wpad = -(-w // PAD_MULTIPLE) * PAD_MULTIPLE
     th, tw = offset_tile.shape
     reps = -(-wpad // tw)
     offset_rows = np.tile(offset_tile, (1, reps))[:, :wpad]

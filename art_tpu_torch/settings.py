@@ -1,19 +1,5 @@
-"""Engine settings (a copy of ``art_tpu/settings.py``, trimmed to the
-fields the port reads)."""
+"""Engine settings (from ``art_tpu/settings.py``): the port reads one."""
 
-from __future__ import annotations
-
-import dataclasses
-
-
-@dataclasses.dataclass
-class Settings:
-    # Pad images to multiples of this tile edge; the planned shape and the
-    # per-row level patterns follow it, as in the reference.
-    pad_multiple: int = 128
-    # Fold the raw head (WB + cam2work) and the rgb2out tail into the
-    # adjacent kernels (B4, B7); the port runs only with both folded.
-    fuse_passes: bool = True
-
-
-settings = Settings()
+# Pad images to multiples of this tile edge; the planned shape and the
+# per-row level patterns follow it, as in the reference.
+PAD_MULTIPLE = 128

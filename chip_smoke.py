@@ -109,64 +109,19 @@ def parity(out, ref):
             "within_1lsb8": float((lsb <= 1.0).double().mean())}
 
 
-# ---- operation count of a plain version, for the bound
-
-# data movement and allocation: no arithmetic
-MOVES = {"roll", "cat", "stack", "clone", "copy_", "_to_copy", "slice",
-         "select", "view", "_unsafe_view", "reshape", "expand", "permute",
-         "transpose", "t", "unsqueeze", "squeeze", "constant_pad_nd",
-         "reflection_pad2d", "pad", "empty", "empty_like", "zeros",
-         "zeros_like", "ones", "ones_like", "full", "full_like",
-         "scalar_tensor", "lift_fresh", "detach", "alias", "as_strided",
-         "index_select", "index", "narrow", "split", "unbind", "contiguous",
-         "flip", "fill_", "new_empty", "new_zeros", "new_full", "arange",
-         "_local_scalar_dense", "set_", "resize_", "split_with_sizes"}
-MATMULS = {"mm", "bmm", "addmm", "baddbmm", "matmul"}
-
-
-def count_ops(fn):
-    """Run fn once, counting the element operations of its float tensor
-    ops: one per element of the largest float operand or result
-    (elementwise ops, selects, comparisons, reductions), 2*M*N*K for a
-    matrix product; data movement counts nothing. Returns (out, ops)."""
-    from torch.utils._python_dispatch import TorchDispatchMode
-
-    class Count(TorchDispatchMode):
-        ops = 0
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            out = func(*args, **(kwargs or {}))
-            name = func.overloadpacket.__name__
-            if name in MOVES:
-                return out
-            outs = out if isinstance(out, (tuple, list)) else (out,)
-            ts = [t for t in (*args, *(kwargs or {}).values(), *outs)
-                  if isinstance(t, torch.Tensor) and t.is_floating_point()]
-            if not ts:  # integer and boolean mask building
-                return out
-            if name in MATMULS:
-                k = args[-2].shape[-1] if name.startswith(("add", "bad")) \
-                    else args[0].shape[-1]
-                Count.ops += 2 * outs[0].numel() * k
-            else:
-                Count.ops += max(t.numel() for t in ts)
-            return out
-
-    with Count():
-        out = fn()
-    return out, Count.ops
-
-
 def bound(reads, writes, ops):
-    """(bound_ms, bound_by, bytes_ms, ops_ms, ops): each input read once
-    and each output written once at the memory rate, against the
-    operations at the f32 rate."""
+    """(bound_ms, bound_by, bytes_ms, ops_ms, ops, naive_ops): each input
+    read once and each output written once at the memory rate, against
+    the operations the result needs (`opcount.needed_ops`: the taken arm
+    of each select, repeats once) at the f32 rate. naive_ops (every
+    float op of the plain version, both arms) is printed beside it."""
+    ops, naive = ops
     nbytes = sum(t.numel() * t.element_size() for t in (*reads, *writes))
     t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
     t_ops = 1e3 * ops / F32_OPS_PER_S
     return (max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations", t_bytes, t_ops,
-            ops)
+            ops, naive)
 
 
 def counted():
@@ -236,7 +191,7 @@ def device_program(frame, pp):
     t0 = time.monotonic()
     config, data = tdev.plan(frame, pp)
     log(f"  host plan alone: {1e3 * (time.monotonic() - t0):.1f} ms")
-    inp, _ = tdev.pad_to_multiple(frame.cfa, tdev.settings.pad_multiple)
+    inp, _ = tdev.pad_to_multiple(frame.cfa, tdev.PAD_MULTIPLE)
     inp_d = torch.from_numpy(inp).to("cuda")
     data_d = tdev.data_to_torch(data, "cuda")
     run = tdev.build_run(config)
@@ -281,7 +236,7 @@ def kernel_entry(name, key, source, replaces, launches, k_out, p_out,
         f"mean {mean:.6g} (bounds {KERNEL_MAX}, {KERNEL_MEAN}); kernel "
         f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bnd[0]:.4f} ms "
         f"({bnd[1]}; bytes {bnd[2]:.4f} ms, {bnd[4]:.4g} operations "
-        f"{bnd[3]:.4f} ms)")
+        f"{bnd[3]:.4f} ms; naive count {bnd[5]:.4g})")
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[key],
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -310,6 +265,7 @@ def main():
     from art_tpu_torch.demosaic import amaze_kernel as ak
     from art_tpu_torch.ops import denoise
     from art_tpu_torch.ops import tonecurve_neutral as tn
+    from art_tpu_torch.opcount import needed_ops
     from art_tpu_torch.ops import wavelet_kernel as wk
     from art_tpu_torch.pipeline import develop as tdev
     from art_tpu_torch.raw.preprocess import apply_scale
@@ -358,7 +314,7 @@ def main():
         """Kernel and plain version on the same inputs: the entry of the
         kernels line, and the kernel's output."""
         k_out = kern()
-        p_out, ops = count_ops(plain)
+        p_out, *ops = needed_ops(plain)
         torch.cuda.synchronize()
         bnd = bound(reads, (k_out,), ops)
         entries.append(kernel_entry(
@@ -384,7 +340,7 @@ def main():
     b4_args = (rgb,) + b4_args
     plain_args = (rgb,) + wk.prepare(*b4_args, **b4_kw)
     b4_k = wk.wavelet_denoise_rgb(*b4_args, **b4_kw)
-    b4_p, ops = count_ops(lambda: wk.wavelet_rgb_plain(*plain_args))
+    b4_p, *ops = needed_ops(lambda: wk.wavelet_rgb_plain(*plain_args))
     torch.cuda.synchronize()
     entries.append(kernel_entry(
         "wavelet_rgb (B4)", "b4", "art_tpu_torch/csrc/wavelet_rgb.cu",
@@ -399,8 +355,8 @@ def main():
     coeffs = tc["coeffs"].reshape(-1, tc["coeffs"].shape[-1])
     epi = config.out_trc[0]
     b7_k = tn.neutral_tone(b4_k, params, coeffs, epi)
-    b7_p, ops = count_ops(lambda: tn.neutral_plain(b4_k, params, coeffs,
-                                                   epi))
+    b7_p, *ops = needed_ops(lambda: tn.neutral_plain(b4_k, params, coeffs,
+                                                     epi))
     torch.cuda.synchronize()
     entries.append(kernel_entry(
         "neutral_tone (B7)", "b7", "art_tpu_torch/csrc/neutral_tone.cu",
