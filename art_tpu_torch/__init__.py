@@ -13,11 +13,14 @@ version only for a tensor on the CPU; for a CUDA tensor it launches the
 kernel or raises.
 
 Covered so far: ``pipeline.develop.plan`` -> ``develop`` ->
-``crop_result`` for a Bayer frame with bilinear (or ``fast``) demosaic,
-the fused RGB wavelet denoise (kernel B4, ``csrc/wavelet_rgb.cu``) and
-the Neutral tone curve with the sRGB/linear output epilogue (kernel B7,
-``csrc/neutral_tone.cu``). Anything else raises ``NotImplementedError``
-naming the step or parameter.
+``crop_result`` for a Bayer frame with AMaZE (kernels B1-B3,
+``csrc/amaze.cu``), RCD or bilinear (or ``fast``) demosaic; the denoise,
+fused (kernel B4, ``csrc/wavelet_rgb.cu``) or not (kernel B5 in the same
+source, the guided chroma filter, NLMeans as kernel B6,
+``csrc/nlmeans.cu``); the impulse denoise; the Neutral tone curve with
+the sRGB/linear output epilogue (kernel B7, ``csrc/neutral_tone.cu``) or
+the output transform on its own. Anything else raises
+``NotImplementedError`` naming the step or parameter.
 """
 
 import torch

@@ -1,5 +1,5 @@
-"""Color space constants, host transfer curves and the device sRGB encode
-(counterpart of ``art_tpu/color/colorspaces.py``).
+"""Color space constants, host transfer curves, the device TRC encode and
+Lab (counterpart of ``art_tpu/color/colorspaces.py``).
 
 The matrices, the numpy transfer curves and the host-side fit are copies
 of the reference's (its numpy branches). The device encode follows the
@@ -13,6 +13,8 @@ import functools
 
 import numpy as np
 import torch
+
+from art_tpu_torch.core.fmath import cbrt, fdiv
 
 # -- Bradford-adapted (D50) RGB<->XYZ matrices (iccmatrices.h:76-160) -------
 
@@ -137,10 +139,54 @@ def srgb_gamma_torch(x):
     pol, t0 = _srgb_gamma_fit()
     x = torch.clamp(x, 0.0, 1.0)
     t = torch.sqrt(torch.sqrt(torch.sqrt(x)))
-    # divide by a tensor: IEEE division on every backend
-    u = 2.0 * (t - t0) / torch.tensor(1.0 - t0, dtype=x.dtype,
-                                      device=x.device) - 1.0
+    u = fdiv(2.0 * (t - t0), 1.0 - t0) - 1.0
     acc = torch.full_like(x, pol[0])
     for c in pol[1:]:
         acc = acc * u + c
     return torch.where(x <= 0.0031308, x * 12.92, 1.055 * acc - 0.055)
+
+
+def check_trc(trc):
+    """Refuse an output TRC whose encode is not ported."""
+    if trc[0] in ("gamma", "para", "cheb", "lut", "icclut"):
+        raise NotImplementedError(f"output TRC {trc[0]!r} is not ported")
+
+
+def encode_trc(x, trc):
+    """Output TRC encode of a tensor (colorspaces.py::encode_trc): sRGB
+    through the device fit; kinds without a matched branch clip to
+    [0, 1] as the reference's default does ("linear" among them)."""
+    check_trc(trc)
+    if trc[0] == "srgb":
+        return srgb_gamma_torch(x)
+    return torch.clamp(x, 0.0, 1.0)
+
+
+# -- Lab (D50, matching Color::XYZ2Lab; colorspaces.py:263-294) -------------
+
+D50_WHITE = np.array([0.9642, 1.0, 0.8249])
+_EPS = 216.0 / 24389.0
+_KAPPA = 24389.0 / 27.0
+
+
+def xyz_to_lab(x, y, z):
+    def f(t):
+        return torch.where(t > _EPS, cbrt(t), fdiv(_KAPPA * t + 16.0, 116.0))
+
+    fx = f(fdiv(x, D50_WHITE[0]))
+    fy = f(fdiv(y, D50_WHITE[1]))
+    fz = f(fdiv(z, D50_WHITE[2]))
+    return 116.0 * fy - 16.0, 500.0 * (fx - fy), 200.0 * (fy - fz)
+
+
+def lab_to_xyz(L, a, b):
+    fy = fdiv(L + 16.0, 116.0)
+    fx = fy + fdiv(a, 500.0)
+    fz = fy - fdiv(b, 200.0)
+
+    def finv(t):
+        t3 = t * t * t
+        return torch.where(t3 > _EPS, t3, fdiv(116.0 * t - 16.0, _KAPPA))
+
+    return (finv(fx) * float(D50_WHITE[0]), finv(fy) * float(D50_WHITE[1]),
+            finv(fz) * float(D50_WHITE[2]))

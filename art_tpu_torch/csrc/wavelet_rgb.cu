@@ -1,10 +1,18 @@
-// Fused RGB wavelet denoise for Hopper (kernel B4).
+// Wavelet denoise for Hopper: the fused RGB kernel (B4) and the stacked
+// plane kernel (B5), sharing the sigma, blur and shrink passes.
 //
-// Replaces art_tpu/ops/wavelet_pallas.py::_run_rgb / _kernel_rgb, the
+// B4 replaces art_tpu/ops/wavelet_pallas.py::_run_rgb / _kernel_rgb, the
 // Pallas TPU kernel of the fused denoise: optional raw head (WB, clip,
 // cam2work), gain and forward gamma, YUV split, 5-level B3 a-trous
 // decomposition with a per-tile MAD noise sigma, 3x3-energy shrink,
 // reconstruction, inverse YUV and inverse gamma.
+//
+// B5 replaces wavelet_pallas.py::_run / _kernel: the same 5-level chain
+// on C stacked planes (the non-fused denoise's Y, U and V), with each
+// plane's [sigma, strength, blend] row and no gamma, YUV or head. Its
+// tiles are 256 x 1024 on the plane reflect-padded up to whole tiles
+// (_pad_to_tiles), so its sigma grid is 2-D: at 4096 x 6016, 16 x 6
+// windows of 384 x 1152 per plane.
 //
 // What bounds it here: memory traffic. The TPU kernel kept one 384 x
 // (tx+128) window per plane in VMEM (about 9.4 MB a plane at 24 MP);
@@ -16,12 +24,13 @@
 // addresses, with the stencil taps served from L1/L2. Fusing the blur
 // passes through shared-memory tiles is later work.
 //
-// The sigma grid is the reference's and must not move: bands of 256 rows
-// by tx columns, sigma = median(|d0|)/0.6745 over the band's 384 x
-// (tx+128) window by 14 bisection steps, with d0's blur wrapping around
-// inside the window (jnp.roll). The window pass stores |d0| per window
-// (the windows overlap) and each bisection step is an integer count, so
-// count/n < 0.5 decides as the reference's float mean does. Everything
+// The sigma grid is the reference's and must not move: tiles of 256 rows
+// by tx columns (B4: full-width bands where they fit; B5: tx = 1024),
+// sigma = median(|d0|)/0.6745 over the tile's 384 x (tx+128) window by
+// 14 bisection steps, with d0's blur wrapping around inside the window
+// (jnp.roll). The window pass stores |d0| per window (the windows
+// overlap) and each bisection step is an integer count, so count/n < 0.5
+// decides as the reference's float mean does. Everything
 // else reaches at most 63 pixels, inside the 64-pixel halo, so the
 // level passes run over the whole padded plane with clamped indexing at
 // its outer edge (never read by a kept output).
@@ -157,9 +166,9 @@ __global__ void blur_h_kernel(const float* __restrict__ a,
 __global__ void win_absd_kernel(const float* __restrict__ yuv,
                                 float* __restrict__ absd,
                                 float* __restrict__ lohi, int hh, int ww,
-                                int tx, int nbx) {
+                                int tx, int nbx, int nc) {
   const int wc = blockIdx.y;
-  const int win = wc / 3, c = wc % 3;
+  const int win = wc / nc, c = wc % nc;
   const int wy = TILE_Y + 2 * PAD, wx = tx + 2 * PAD;
   const int oy = (win / nbx) * TILE_Y, ox = (win % nbx) * tx;
   const float* p = yuv + (size_t)c * hh * ww + (size_t)oy * ww + ox;
@@ -232,12 +241,14 @@ __global__ void bisect_kernel(float* __restrict__ lohi,
   cnt[wc] = 0;
 }
 
+// prm: (3, nc) rows sigma, strength, blend per plane (sigma < 0: the
+// window's MAD; B4 passes pv + 4, whose rows are laid out the same)
 __global__ void sigma_kernel(const float* __restrict__ lohi,
-                             const float* __restrict__ pv,
-                             float* __restrict__ sigma, int nwc) {
+                             const float* __restrict__ prm,
+                             float* __restrict__ sigma, int nwc, int nc) {
   const int wc = blockIdx.x * blockDim.x + threadIdx.x;
   if (wc >= nwc) return;
-  const float pinned = pv[4 + wc % 3];
+  const float pinned = prm[wc % nc];
   const float mad = 0.5f * (lohi[2 * wc] + lohi[2 * wc + 1]) *
                     (float)(1.0 / 0.6745);
   sigma[wc] = pinned < 0.0f ? mad : pinned;
@@ -249,8 +260,8 @@ __global__ void shrink_kernel(const float* __restrict__ cur,
                               const float* __restrict__ sm,
                               float* __restrict__ acc,
                               const float* __restrict__ sigma,
-                              const float* __restrict__ pv, int hp, int wp,
-                              int tx, int nbx, float level_scale,
+                              const float* __restrict__ prm, int hp, int wp,
+                              int tx, int nbx, int nc, float level_scale,
                               int first) {
   const int cx = blockIdx.x * blockDim.x + threadIdx.x;
   const int cy = blockIdx.y;
@@ -270,11 +281,11 @@ __global__ void shrink_kernel(const float* __restrict__ cur,
     s[j] = (d[1][j] * d[1][j] + d[2][j] * d[2][j]) + d[0][j] * d[0][j];
   const float e9 = ((s[1] + s[2]) + s[0]) * (float)(1.0 / 9.0);
   const int band = (cy / TILE_Y) * nbx + cx / tx;
-  const float st = pv[7 + c] * sigma[band * 3 + c] * level_scale;
+  const float st = prm[nc + c] * sigma[band * nc + c] * level_scale;
   const float t2 = st * st;
   const float dc = d[1][1];
   const float dd = dc * (e9 / (e9 + t2 + 1e-12f));
-  const float val = dd + (dc - dd) * pv[10 + c];
+  const float val = dd + (dc - dd) * prm[2 * nc + c];
   const size_t o = (size_t)c * hp * wp + (size_t)cy * wp + cx;
   acc[o] = first ? val : acc[o] + val;
 }
@@ -312,10 +323,39 @@ __global__ void tail_kernel(const float* __restrict__ acc,
   }
 }
 
+// B5's pad: the tile pad (to hp, wp) and the halo (PAD), both numpy
+// reflect pads, as one gather per plane
+__global__ void pad_kernel(const float* __restrict__ x,
+                           float* __restrict__ cur, int h, int w, int hp,
+                           int wp) {
+  const int ww = wp + 2 * PAD, hh = hp + 2 * PAD;
+  const int px = blockIdx.x * blockDim.x + threadIdx.x;
+  const int py = blockIdx.y;
+  const int c = blockIdx.z;
+  if (px >= ww) return;
+  const int sy = reflect(reflect(py - PAD, hp), h);
+  const int sx = reflect(reflect(px - PAD, wp), w);
+  cur[(size_t)c * hh * ww + (size_t)py * ww + px] =
+      x[(size_t)c * h * w + (size_t)sy * w + sx];
+}
+
+// B5's tail: residual + details, cropped to (h, w)
+__global__ void multi_tail_kernel(const float* __restrict__ acc,
+                                  const float* __restrict__ cur,
+                                  float* __restrict__ out, int h, int w,
+                                  int hp, int wp) {
+  const int cx = blockIdx.x * blockDim.x + threadIdx.x;
+  const int cy = blockIdx.y;
+  const int c = blockIdx.z;
+  if (cx >= w) return;
+  const int hh = hp + 2 * PAD, ww = wp + 2 * PAD;
+  out[(size_t)c * h * w + (size_t)cy * w + cx] =
+      acc[(size_t)c * hp * wp + (size_t)cy * wp + cx] +
+      cur[(size_t)c * hh * ww + (size_t)(cy + PAD) * ww + (cx + PAD)];
+}
+
 inline int cdiv(long long a, long long b) { return (int)((a + b - 1) / b); }
 inline int imin(int a, int b) { return a < b ? a : b; }
-
-}  // namespace
 
 #define ART_LAUNCH_CHECK()                          \
   do {                                              \
@@ -323,9 +363,66 @@ inline int imin(int a, int b) { return a < b ? a : b; }
     if (e_ != cudaSuccess) return (int)e_;          \
   } while (0)
 
-// rgb (3,h,w) -> out (3,h,w). Scratch from the caller: planes 3 x (3,hh,ww)
-// (cur, blur tmp, smooth), acc (3,hp,wp), absd (nwc, wy*wx), lohi (nwc,2),
-// cnt (nwc) ints, sigma (nwc); nwc = (hp/256)*(wp/tx)*3.
+// The chain shared by B4 and B5, from the padded planes in planes[0]
+// (nc planes of hh x ww; planes holds 3 such stacks: cur, blur tmp,
+// smooth): the per-(tile, plane) noise sigma on the reference's grid,
+// then the 5 levels of blur and shrink-accumulate into acc. *cur_out is
+// the stack that holds the residual at the end.
+int run_chain(float* planes, float* acc, float* absd, float* lohi,
+              unsigned int* cnt, float* sigma, const float* prm, int nc,
+              int hp, int wp, int tx, cudaStream_t st, float** cur_out) {
+  const int hh = hp + 2 * PAD, ww = wp + 2 * PAD;
+  const size_t stack = (size_t)nc * hh * ww;
+  float* cur = planes;
+  float* tmp = planes + stack;
+  float* smooth = planes + 2 * stack;
+
+  const int nbx = wp / tx;
+  const int nwc = (hp / TILE_Y) * nbx * nc;
+  const int n = (TILE_Y + 2 * PAD) * (tx + 2 * PAD);
+  cudaError_t e = cudaMemsetAsync(lohi, 0, sizeof(float) * 2 * nwc, st);
+  if (e == cudaSuccess)
+    e = cudaMemsetAsync(cnt, 0, sizeof(unsigned int) * nwc, st);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 wgrid(imin(cdiv(n, THREADS * 8), 512), nwc);
+  win_absd_kernel<<<wgrid, THREADS, 0, st>>>(cur, absd, lohi, hh, ww, tx,
+                                             nbx, nc);
+  ART_LAUNCH_CHECK();
+  for (int it = 0; it < BISECT; ++it) {
+    count_kernel<<<wgrid, THREADS, 0, st>>>(absd, lohi, cnt, n);
+    ART_LAUNCH_CHECK();
+    bisect_kernel<<<cdiv(nwc, THREADS), THREADS, 0, st>>>(lohi, cnt, nwc, n);
+    ART_LAUNCH_CHECK();
+  }
+  sigma_kernel<<<cdiv(nwc, THREADS), THREADS, 0, st>>>(lohi, prm, sigma, nwc,
+                                                      nc);
+  ART_LAUNCH_CHECK();
+
+  const dim3 fgrid(cdiv(ww, THREADS), hh, nc);
+  const dim3 cgrid(cdiv(wp, THREADS), hp, nc);
+  for (int lv = 0; lv < LEVELS; ++lv) {
+    const int s = 1 << lv;
+    blur_v_kernel<<<fgrid, THREADS, 0, st>>>(cur, tmp, hh, ww, s);
+    ART_LAUNCH_CHECK();
+    blur_h_kernel<<<fgrid, THREADS, 0, st>>>(tmp, smooth, hh, ww, s);
+    ART_LAUNCH_CHECK();
+    shrink_kernel<<<cgrid, THREADS, 0, st>>>(cur, smooth, acc, sigma, prm, hp,
+                                             wp, tx, nbx, nc,
+                                             1.0f / (float)s, lv == 0);
+    ART_LAUNCH_CHECK();
+    float* t = cur;  // the smooth plane is the next level's input
+    cur = smooth;
+    smooth = t;
+  }
+  *cur_out = cur;
+  return 0;
+}
+
+}  // namespace
+
+// B4: rgb (3,h,w) -> out (3,h,w). Scratch from the caller: planes
+// 3 x (3,hh,ww) (cur, blur tmp, smooth), acc (3,hp,wp), absd (nwc, wy*wx),
+// lohi (nwc,2), cnt (nwc) ints, sigma (nwc); nwc = (hp/256)*(wp/tx)*3.
 extern "C" int art_wavelet_rgb(const float* rgb, float* out, float* planes,
                                float* acc, float* absd, float* lohi,
                                unsigned int* cnt, float* sigma,
@@ -338,54 +435,42 @@ extern "C" int art_wavelet_rgb(const float* rgb, float* out, float* planes,
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int hh = hp + 2 * PAD, ww = wp + 2 * PAD;
-  const size_t plane3 = (size_t)3 * hh * ww;
-  float* cur = planes;
-  float* tmp = planes + plane3;
-  float* smooth = planes + 2 * plane3;
-
   head_kernel<<<dim3(cdiv(ww, THREADS), hh), THREADS, 0, st>>>(
-      rgb, cur, pv, cf, kf, h, w, hp, wp, pre);
+      rgb, planes, pv, cf, kf, h, w, hp, wp, pre);
   ART_LAUNCH_CHECK();
-
-  // per-(band, plane) noise sigma on the reference's grid
-  const int nbx = wp / tx;
-  const int nwc = (hp / TILE_Y) * nbx * 3;
-  const int n = (TILE_Y + 2 * PAD) * (tx + 2 * PAD);
-  cudaError_t e = cudaMemsetAsync(lohi, 0, sizeof(float) * 2 * nwc, st);
-  if (e == cudaSuccess)
-    e = cudaMemsetAsync(cnt, 0, sizeof(unsigned int) * nwc, st);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 wgrid(imin(cdiv(n, THREADS * 8), 512), nwc);
-  win_absd_kernel<<<wgrid, THREADS, 0, st>>>(cur, absd, lohi, hh, ww, tx,
-                                             nbx);
-  ART_LAUNCH_CHECK();
-  for (int it = 0; it < BISECT; ++it) {
-    count_kernel<<<wgrid, THREADS, 0, st>>>(absd, lohi, cnt, n);
-    ART_LAUNCH_CHECK();
-    bisect_kernel<<<cdiv(nwc, THREADS), THREADS, 0, st>>>(lohi, cnt, nwc, n);
-    ART_LAUNCH_CHECK();
-  }
-  sigma_kernel<<<cdiv(nwc, THREADS), THREADS, 0, st>>>(lohi, pv, sigma, nwc);
-  ART_LAUNCH_CHECK();
-
-  const dim3 fgrid(cdiv(ww, THREADS), hh, 3);
-  const dim3 cgrid(cdiv(wp, THREADS), hp, 3);
-  for (int lv = 0; lv < LEVELS; ++lv) {
-    const int s = 1 << lv;
-    blur_v_kernel<<<fgrid, THREADS, 0, st>>>(cur, tmp, hh, ww, s);
-    ART_LAUNCH_CHECK();
-    blur_h_kernel<<<fgrid, THREADS, 0, st>>>(tmp, smooth, hh, ww, s);
-    ART_LAUNCH_CHECK();
-    shrink_kernel<<<cgrid, THREADS, 0, st>>>(cur, smooth, acc, sigma, pv, hp,
-                                             wp, tx, nbx, 1.0f / (float)s,
-                                             lv == 0);
-    ART_LAUNCH_CHECK();
-    float* t = cur;  // the smooth plane is the next level's input
-    cur = smooth;
-    smooth = t;
-  }
+  float* cur = nullptr;
+  const int rc = run_chain(planes, acc, absd, lohi, cnt, sigma, pv + 4, 3,
+                           hp, wp, tx, st, &cur);
+  if (rc != 0) return rc;
   tail_kernel<<<dim3(cdiv(w, THREADS), h), THREADS, 0, st>>>(
       acc, cur, out, pv, ci, ki, h, w, hp, wp);
+  ART_LAUNCH_CHECK();
+  return 0;
+}
+
+// B5: x (nc,h,w) -> out (nc,h,w), tiles of 256 x 1024 on the plane
+// reflect-padded to (hp, wp) = whole tiles. prm: (3, nc) rows sigma,
+// strength, blend. Scratch as for B4 with nc planes and tx = 1024.
+extern "C" int art_wavelet_multi(const float* x, float* out, float* planes,
+                                 float* acc, float* absd, float* lohi,
+                                 unsigned int* cnt, float* sigma,
+                                 const float* prm, int nc, int h, int w,
+                                 int hp, int wp, void* stream) {
+  constexpr int TX = 1024;
+  if (nc < 1 || hp % TILE_Y || wp % TX || h > hp || w > wp || h < TILE_Y ||
+      w < TX)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int hh = hp + 2 * PAD, ww = wp + 2 * PAD;
+  pad_kernel<<<dim3(cdiv(ww, THREADS), hh, nc), THREADS, 0, st>>>(
+      x, planes, h, w, hp, wp);
+  ART_LAUNCH_CHECK();
+  float* cur = nullptr;
+  const int rc = run_chain(planes, acc, absd, lohi, cnt, sigma, prm, nc, hp,
+                           wp, TX, st, &cur);
+  if (rc != 0) return rc;
+  multi_tail_kernel<<<dim3(cdiv(w, THREADS), h, nc), THREADS, 0, st>>>(
+      acc, cur, out, h, w, hp, wp);
   ART_LAUNCH_CHECK();
   return 0;
 }

@@ -1,14 +1,15 @@
 """Demosaic dispatch (counterpart of ``art_tpu/demosaic/__init__.py``).
 
-Ported: ``amaze`` (kernels B1-B3) and the bilinear Bayer methods
-(``bilinear`` and ``fast``, which the reference also maps to bilinear).
-Every other method raises NotImplementedError naming it; there is no
-fallback to bilinear for an unknown name.
+Ported: ``amaze`` (kernels B1-B3), ``rcd`` (plain PyTorch, as in the
+reference) and the bilinear Bayer methods (``bilinear`` and ``fast``,
+which the reference also maps to bilinear). Every other method raises
+NotImplementedError naming it; there is no fallback to bilinear for an
+unknown name.
 """
 
 from __future__ import annotations
 
-PORTED = ("amaze", "bilinear", "fast")
+PORTED = ("amaze", "rcd", "bilinear", "fast")
 
 
 def demosaic(cfa, pattern, method, init_gain=1.0):
@@ -16,13 +17,15 @@ def demosaic(cfa, pattern, method, init_gain=1.0):
     init_gain: the planner's raw gain (AMaZE's clip points); the
     planner's dual-demosaic kwargs do not apply to plain bilinear, as in
     the reference."""
-    from art_tpu_torch.demosaic import amaze, bilinear
+    from art_tpu_torch.demosaic import amaze, bilinear, rcd
 
     m = method.lower()
     if m in ("bilinear", "fast"):
         return bilinear.bayer_bilinear(cfa, pattern)
     if m == "amaze":
         return amaze.amaze_demosaic(cfa, pattern, init_gain=init_gain)
+    if m == "rcd":
+        return rcd.rcd_demosaic(cfa, pattern)
     raise NotImplementedError(
         f"demosaic method {method!r} is not ported to art_tpu_torch "
         f"(ported: {', '.join(PORTED)})")

@@ -43,6 +43,11 @@ SIGNATURES = {
     # rgb, out, planes, acc, absd, lohi, cnt, sigma, pv, cf, ci,
     # kf, ki, h, w, hp, wp, tx, pre, stream
     "art_wavelet_rgb": ("wavelet_rgb", [_P] * 11 + [_I] * 8 + [_P]),
+    # x, out, planes, acc, absd, lohi, cnt, sigma, prm, nc, h, w, hp, wp,
+    # stream
+    "art_wavelet_multi": ("wavelet_rgb", [_P] * 9 + [_I] * 5 + [_P]),
+    # y, maskinv, out, h, w, stream
+    "art_nlmeans": ("nlmeans", [_P] * 3 + [_I] * 2 + [_P]),
     # rgb, out, params, coeffs, consts, npix, nparams, crows, ccols,
     # epi, stream
     "art_neutral_tone": ("neutral_tone", [_P] * 5 + [_I] * 5 + [_P]),

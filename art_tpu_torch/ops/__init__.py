@@ -21,7 +21,7 @@ STAGE_3 = (
 )
 ALL_STEPS = STAGE_0 + STAGE_1 + STAGE_2 + STAGE_3
 
-PORTED = ("denoise", "tonecurve")
+PORTED = ("denoise", "impulse", "tonecurve")
 
 
 def stage_of(name: str) -> int:

@@ -1,18 +1,34 @@
 """Main denoise (counterpart of ``art_tpu/ops/denoise.py``).
 
 `plan` is the reference's (host numpy, with the automatic chrominance
-estimate). `apply` runs the fused path: gamma, YUV and the wavelet
-shrink in kernel B4 (:mod:`art_tpu_torch.ops.wavelet_kernel`), with the
-raw head fused in when the pipeline passes it. NLMeans, the guided
-chroma filter and the DCT detail pass are not ported and raise.
+estimate). `apply` takes the reference's two paths:
+
+- fused (no NLMeans, no guided chroma): gamma, YUV and the wavelet
+  shrink in kernel B4 (:mod:`art_tpu_torch.ops.wavelet_kernel`), with
+  the raw head fused in when the pipeline passes it;
+- non-fused: exposure gain, gamma and YUV in plain PyTorch, the wavelet
+  shrink of the stacked Y/U/V in kernel B5, the guided chroma filter
+  (:mod:`art_tpu_torch.ops.filters`), NLMeans on Y in kernel B6
+  (:mod:`art_tpu_torch.ops.nlmeans_kernel`), then back to RGB.
+
+The DCT detail pass (`use_dct`) and the reference's whole-plane paths for
+planes below one kernel tile are not ported and raise.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from art_tpu_torch.color import colorspaces as cs
-from art_tpu_torch.ops.wavelet_kernel import wavelet_denoise_rgb
+from art_tpu_torch.color.yuv import rgb_to_yuv, yuv_to_rgb
+from art_tpu_torch.core.fmath import fdiv
+from art_tpu_torch.core.image import MAXVAL
+from art_tpu_torch.core.profile import span
+from art_tpu_torch.ops.filters import gauss_blur, guided_filter
+from art_tpu_torch.ops.nlmeans_kernel import nlmeans
+from art_tpu_torch.ops.wavelet_kernel import (wavelet_denoise_multi,
+                                              wavelet_denoise_rgb)
 
 
 def plan(pp, ctx):
@@ -74,20 +90,39 @@ def plan(pp, ctx):
             int(dn.luminance_detail_threshold) if use_dct else 0), data
 
 
-def kernel_args(data, static):
-    """(args, kwargs) of `wavelet_denoise_rgb` after the image, for this
-    op's data and static; data["pre_mults"] and data["pre_mat"], when
-    present, are the raw head fused into B4."""
-    do_lum, nl, guided, _aggressive, use_dct, _thresh = static
-    for name, on in (("NLMeans (nl_strength)", nl),
-                     ("guided chroma smoothing", guided),
-                     ("DCT luminance detail", use_dct)):
-        if on:
-            raise NotImplementedError(f"denoise: {name} is not ported")
+def check_static(static):
+    """Refuse what the port lacks: the DCT luminance detail pass."""
+    if static[4]:
+        raise NotImplementedError(
+            "denoise: DCT luminance detail (use_dct, LuminanceDetail > 0) "
+            "is not ported")
+
+
+def is_fused(static):
+    """Whether `apply` takes the fused path (kernel B4)."""
+    _do_lum, nl, guided, _aggressive, use_dct, _thresh = static
+    return nl == 0 and guided == 0 and not use_dct
+
+
+def strengths_blends(data, static):
+    """The wavelet's per-plane (Y, U, V) strengths and detail blends."""
+    do_lum, _nl, _guided, _aggressive, use_dct, _thresh = static
     cb = data["chroma"] + data["chroma_by"]
     cr = data["chroma"] + data["chroma_rg"]
     strengths = [data["lum_strength"] if do_lum else 0.0, cb, cr]
-    blends = [data["lum_detail"] if do_lum else 0.0, 0.0, 0.0]
+    blends = [data["lum_detail"] if do_lum and not use_dct else 0.0,
+              0.0, 0.0]
+    return strengths, blends
+
+
+def kernel_args(data, static):
+    """(args, kwargs) of `wavelet_denoise_rgb` (B4) after the image, for
+    this op's data and a static of the fused path; data["pre_mults"] and
+    data["pre_mat"], when present, are the raw head fused into B4."""
+    if not is_fused(static):
+        raise ValueError("denoise: NLMeans, guided chroma or the DCT pass "
+                         "take the non-fused path")
+    strengths, blends = strengths_blends(data, static)
     pre = None
     if "pre_mat" in data:
         pre = (data["pre_mults"], data["pre_mat"])
@@ -95,7 +130,57 @@ def kernel_args(data, static):
              [-1.0, -1.0, -1.0], strengths, blends), {"pre": pre})
 
 
+def to_yuv(rgb, data):
+    """The non-fused path's Y, U, V planes: exposure gain, then
+    (x / MAXVAL)^(1/gamma) clipped to [0, 1], split by the working
+    space's luminance weights (denoise.py:228-234)."""
+    x = rgb * data["ecomp"]
+    xn = torch.pow(torch.clamp(fdiv(x, MAXVAL), 0.0, 1.0),
+                   torch.reciprocal(data["gamma"]))
+    return rgb_to_yuv(xn, data["lum_w"])
+
+
+def nl_maskinv(y, h2_base, detail):
+    """NLMeans' inverse weight scale (denoise.py:151-156): the smoothed
+    |y - gauss(y)|, over its maximum across the whole plane, blended
+    with the detail level, as 1 / (max(mask, 1e-6) * h2)."""
+    lap = torch.abs(y - gauss_blur(y, 2.0))
+    lap = gauss_blur(lap, 2.0)
+    lap = lap / torch.clamp(lap.amax(), min=1e-9)
+    mask = lap * (1.0 - detail) + detail
+    return torch.reciprocal(torch.clamp(mask, min=1e-6) * h2_base)
+
+
 def apply(rgb, data, static):
-    """Fused denoise of a (3, H, W) tensor (kernel B4)."""
-    args, kwargs = kernel_args(data, static)
-    return wavelet_denoise_rgb(rgb, *args, **kwargs)
+    """Denoise of a (3, H, W) tensor in the 0..65535 domain: the fused
+    path (kernel B4) or the non-fused one (kernels B5 and B6)."""
+    check_static(static)
+    if is_fused(static):
+        args, kwargs = kernel_args(data, static)
+        return wavelet_denoise_rgb(rgb, *args, **kwargs)
+    do_lum, nl, guided, _aggressive, _use_dct, _thresh = static
+    strengths, blends = strengths_blends(data, static)
+    y, u, v = to_yuv(rgb, data)
+    # B5, the sigma of every plane from its tiles (sentinel -1)
+    with span("denoise/B5"):
+        if do_lum:
+            y, u, v = wavelet_denoise_multi(torch.stack([y, u, v]),
+                                            [-1.0] * 3, strengths, blends)
+        else:
+            u, v = wavelet_denoise_multi(torch.stack([u, v]), [-1.0] * 2,
+                                         strengths[1:], [0.0, 0.0])
+    if guided > 0:
+        with span("denoise/guided"):
+            gs = data["guided_strength"]
+            u2 = guided_filter(y, u, guided, 1e-4)
+            v2 = guided_filter(y, v, guided, 1e-4)
+            u = u + (u2 - u) * gs
+            v = v + (v2 - v) * gs
+    if nl:
+        with span("denoise/nl_mask"):
+            maskinv = nl_maskinv(y, data["nl_h2"], data["nl_detail"])
+        with span("denoise/B6"):
+            y = nlmeans(y, maskinv)
+    out = yuv_to_rgb(y, u, v, data["lum_w"])
+    out = torch.pow(torch.clamp(out, 0.0, 1.0), data["gamma"]) * MAXVAL
+    return out / data["ecomp"]

@@ -28,6 +28,7 @@ from art_tpu_torch.color import colorspaces as cs
 from art_tpu_torch.color import jzazbz
 from art_tpu_torch.core.curve1d import (clenshaw, eval_curve, eval_split,
                                         fit_curve, fit_curve_split)
+from art_tpu_torch.core.fmath import fdiv
 from art_tpu_torch.core.image import MAXVAL
 
 # gamut compress constants (curves.cc:903-908)
@@ -158,15 +159,9 @@ def _jzazbz_inv(jz, az, bz, P):
             P[15] * x + P[16] * y + P[17] * z)
 
 
-def _fdiv(a, b):
-    # IEEE division by a scalar (a Python-scalar divisor may become a
-    # multiply by its reciprocal on the GPU)
-    return a / torch.as_tensor(b, dtype=a.dtype, device=a.device)
-
-
 def _gauss(x, b, c):
     c = np.float32(c)
-    return torch.exp(_fdiv(-((x - b) ** 2), np.float32(2.0) * c * c))
+    return torch.exp(fdiv(-((x - b) ** 2), np.float32(2.0) * c * c))
 
 
 def _filmlike_clip3(r, g, b, lmax):
@@ -240,7 +235,7 @@ def _neutral_core(r, g, b, P, curve_fn):
     hue_shift = (hue_shift
                  - 5.0 * (np.pi / 180.0) * _gauss(hue0, bhue, brange))
     hue_shift = hue_shift * torch.clamp(
-        _fdiv(r + g + b, np.float32(3.0) * np.float32(whitept)), 0.0, 1.0)
+        fdiv(r + g + b, np.float32(3.0) * np.float32(whitept)), 0.0, 1.0)
     hue = hue0 + hue_shift
 
     ccf = torch.where(

@@ -1,6 +1,8 @@
-"""Fused RGB wavelet denoise, kernel B4 (counterpart of
-``art_tpu/ops/wavelet_pallas.py``: ``wavelet_denoise_pallas_rgb`` ->
-``_run_rgb`` -> ``_kernel_rgb``).
+"""Wavelet denoise kernels B4 and B5 (counterpart of
+``art_tpu/ops/wavelet_pallas.py``): B4 is the fused RGB kernel
+(``wavelet_denoise_pallas_rgb`` -> ``_run_rgb`` -> ``_kernel_rgb``), B5
+the chain alone on stacked planes (``wavelet_denoise_pallas_multi`` ->
+``_run`` -> ``_kernel``), which the non-fused denoise runs on Y, U, V.
 
 What it computes, per (3, H, W) RGB stack in the 0..65535 domain:
 optional raw head (WB multipliers, clip, cam2work), exposure gain and
@@ -18,9 +20,14 @@ INSIDE the window (the reference's `jnp.roll`). Everything else is
 local: the chain reaches 63 pixels, so a band's output equals the chain
 run over the whole padded plane, with the band's sigma in the shrink.
 
-`wavelet_denoise_rgb` is the entry point. On a CPU tensor it runs the
-plain PyTorch version below; on a CUDA tensor it launches the kernel of
-``csrc/wavelet_rgb.cu`` (see there for its design) or raises.
+B5 is the same chain on C planes with no head, gamma or YUV; its tiles
+are always 256 x 1024 on the planes reflect-padded to whole tiles, so
+its sigma grid is 2-D.
+
+`wavelet_denoise_rgb` (B4) and `wavelet_denoise_multi` (B5) are the
+entry points. On a CPU tensor each runs its plain PyTorch version below;
+on a CUDA tensor it launches its kernel of ``csrc/wavelet_rgb.cu`` (see
+there for the design) or raises.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ import torch
 
 from art_tpu_torch import kernels
 from art_tpu_torch.core.curve1d import eval_split, horner_split
+from art_tpu_torch.core.fmath import fdiv
 
 TILE_Y = 256
 TILE_X = 1024
@@ -129,23 +137,28 @@ def wavelet_denoise_rgb(rgb, lum_w, ecomp, gam_fwd, gam_inv, sigmas,
 wavelet_denoise_rgb.launches = 0
 
 
+def _scratch(c, hp, wp, tx, device):
+    """The chain's scratch for c planes: planes (cur, blur tmp, smooth),
+    acc, and per (tile, plane) |d0| windows, bisection bounds, counts
+    and sigmas."""
+    nwc = (hp // TILE_Y) * (wp // tx) * c
+    f32 = dict(dtype=torch.float32, device=device)
+    return (torch.empty((3, c, hp + 2 * PAD, wp + 2 * PAD), **f32),
+            torch.empty((c, hp, wp), **f32),
+            torch.empty((nwc, (TILE_Y + 2 * PAD) * (tx + 2 * PAD)), **f32),
+            torch.empty((nwc, 2), **f32),
+            torch.empty((nwc,), dtype=torch.int32, device=device),
+            torch.empty((nwc,), **f32))
+
+
 def _launch(rgb, pv, cfwd, cinv, tx):
     lib = kernels.library()
     _, h, w = rgb.shape
     _, hp, wp = tile_geometry(h, w, tx)
-    hh, ww = hp + 2 * PAD, wp + 2 * PAD
-    nwc = (hp // TILE_Y) * (wp // tx) * 3
-    n_win = (TILE_Y + 2 * PAD) * (tx + 2 * PAD)
-    f32 = dict(dtype=torch.float32, device=rgb.device)
-    out = torch.empty((3, h, w), **f32)
-    planes = torch.empty((3, 3, hh, ww), **f32)  # cur, blur tmp, smooth
-    acc = torch.empty((3, hp, wp), **f32)
-    absd = torch.empty((nwc, n_win), **f32)
-    lohi = torch.empty((nwc, 2), **f32)
-    cnt = torch.empty((nwc,), dtype=torch.int32, device=rgb.device)
-    sigma = torch.empty((nwc,), **f32)
-    ptr = [t.data_ptr() for t in (rgb, out, planes, acc, absd, lohi, cnt,
-                                  sigma, pv, cfwd, cinv)]
+    out = torch.empty((3, h, w), dtype=torch.float32, device=rgb.device)
+    ptr = [t.data_ptr() for t in (rgb, out, *_scratch(3, hp, wp, tx,
+                                                      rgb.device),
+                                  pv, cfwd, cinv)]
     rc = lib.art_wavelet_rgb(*ptr, cfwd.shape[1], cinv.shape[1], h, w, hp,
                              wp, tx, int(pv.numel() == 26),
                              kernels.stream_of(rgb))
@@ -154,15 +167,67 @@ def _launch(rgb, pv, cfwd, cinv, tx):
     return out
 
 
+def multi_geometry(h, w):
+    """(hp, wp): B5's plane size after the reference's tile pad to whole
+    256x1024 tiles (`_pad_to_tiles`; tx is always 1024 there), or None
+    below one tile (the reference then runs a whole-plane XLA path that
+    is not ported)."""
+    if h < TILE_Y or w < TILE_X:
+        return None
+    return -(-h // TILE_Y) * TILE_Y, -(-w // TILE_X) * TILE_X
+
+
+def multi_params(c, sigmas, strengths, blends, device):
+    """(3, C) float32 rows sigma, strength, blend on `device`: the
+    reference's `sc`, transposed, as B5 and its plain version take it."""
+    rows = [[torch.as_tensor(v, dtype=torch.float32).reshape(()).to(device)
+             for v in vs] for vs in (sigmas, strengths, blends)]
+    if any(len(r) != c for r in rows):
+        raise ValueError(f"want {c} sigmas, strengths and blends")
+    return torch.stack([torch.stack(r) for r in rows])
+
+
+def wavelet_denoise_multi(x3, sigmas, strengths, blends):
+    """Kernel B5: denoise the stacked (C, H, W) float32 planes x3, plane c
+    with sigmas[c] (< 0: each tile's MAD), strengths[c] and blends[c]
+    (counterpart of `wavelet_denoise_pallas_multi`). On a CPU tensor it
+    runs `wavelet_multi_plain`; on a CUDA tensor it launches
+    ``art_wavelet_multi`` of ``csrc/wavelet_rgb.cu`` or raises."""
+    if x3.ndim != 3 or x3.dtype != torch.float32:
+        raise ValueError(f"want float32 (C, H, W), got {x3.dtype} "
+                         f"{tuple(x3.shape)}")
+    c, h, w = x3.shape
+    if multi_geometry(h, w) is None:
+        raise NotImplementedError(
+            f"wavelet denoise of {h}x{w} planes: below one 256x1024 tile "
+            "the reference runs a whole-plane path that is not ported")
+    prm = multi_params(c, sigmas, strengths, blends, x3.device)
+    if x3.device.type == "cpu":
+        return wavelet_multi_plain(x3, prm)
+    if x3.device.type != "cuda":
+        raise ValueError(f"no wavelet kernel for device {x3.device}")
+    return _launch_multi(x3.contiguous(), prm)
+
+
+wavelet_denoise_multi.launches = 0
+
+
+def _launch_multi(x3, prm):
+    lib = kernels.library()
+    c, h, w = x3.shape
+    hp, wp = multi_geometry(h, w)
+    out = torch.empty((c, h, w), dtype=torch.float32, device=x3.device)
+    ptr = [t.data_ptr() for t in (x3, out, *_scratch(c, hp, wp, TILE_X,
+                                                     x3.device), prm)]
+    rc = lib.art_wavelet_multi(*ptr, c, h, w, hp, wp, kernels.stream_of(x3))
+    kernels.check(rc, "art_wavelet_multi")
+    wavelet_denoise_multi.launches += 1
+    return out
+
+
 # ---------------------------------------------------------------------------
 # plain PyTorch version (CPU path, and the reference for the kernel on the
 # card); float32 operations in the reference's order
-
-
-def _fdiv(a, b):
-    # IEEE division by a tensor (a Python-scalar divisor may become a
-    # multiply by its reciprocal on some backends)
-    return a / torch.as_tensor(b, dtype=a.dtype, device=a.device)
 
 
 def _split_eval(t, c):
@@ -174,17 +239,22 @@ def _reflect(i, n):
     return torch.where(i >= n, 2 * (n - 1) - i, i)
 
 
-def _head(rgb, pv, cfwd, hp, wp, pre):
-    """Padded (3, hp+128, wp+128) YUV planes in the forward gamma domain:
-    the tile pad and the 64-pixel halo are both reflect pads of the
-    input, so the head (pointwise) runs after one gather."""
-    _, h, w = rgb.shape
-    dev = rgb.device
+def _padded(x3, hp, wp):
+    """(C, hp+128, wp+128): the tile pad to (hp, wp) and the 64-pixel
+    halo, both reflect pads of x3, as one gather."""
+    _, h, w = x3.shape
+    dev = x3.device
     ry = _reflect(_reflect(torch.arange(hp + 2 * PAD, device=dev) - PAD, hp),
                   h)
     rx = _reflect(_reflect(torch.arange(wp + 2 * PAD, device=dev) - PAD, wp),
                   w)
-    x = rgb[:, ry][:, :, rx]
+    return x3[:, ry][:, :, rx]
+
+
+def _head(rgb, pv, cfwd, hp, wp, pre):
+    """Padded (3, hp+128, wp+128) YUV planes in the forward gamma domain:
+    the pads come first, so the head (pointwise) runs after one gather."""
+    x = _padded(rgb, hp, wp)
     p = pv.tolist()
     gain = p[3]
 
@@ -251,8 +321,8 @@ def mad_sigma(d):
 
 
 def band_sigmas(yuv, tx, pinned=(-1.0, -1.0, -1.0)):
-    """(nby, nbx, 3) noise sigma per band and plane from the padded YUV
-    planes: the MAD of the level-0 detail over each band's window, with
+    """(nby, nbx, C) noise sigma per tile and plane from the C padded
+    planes: the MAD of the level-0 detail over each tile's window, with
     the blur wrapping inside the window. pinned[c] >= 0 replaces it."""
     _, hh, ww = yuv.shape
     nby = (hh - 2 * PAD) // TILE_Y
@@ -283,18 +353,17 @@ def _shrink(d, t2, blend, hp, wp):
     return dd + (d - dd) * blend
 
 
-def wavelet_rgb_plain(rgb, pv, cfwd, cinv, tx):
-    """The plain PyTorch version of the kernel, on `prepare`'s outputs (a
-    26-long pv carries the raw head); counts its calls in `.calls`."""
-    wavelet_rgb_plain.calls += 1
-    _, h, w = rgb.shape
-    _, hp, wp = tile_geometry(h, w, tx)
-    yuv = _head(rgb, pv, cfwd, hp, wp, pv.numel() == 26)
-    sig = band_sigmas(yuv, tx, pv[4:7])  # (nby, nbx, 3)
-    strength = pv[7:10]
-    blend = pv[10:13].reshape(3, 1, 1)
+def _chain(planes, prm, tx, hp, wp):
+    """The reference's `_wavelet_chain` on each padded plane of (C,
+    hp+128, wp+128), each tile with its own sigma: (C, hp, wp), the
+    shrunk details of the 5 levels summed, plus the residual. prm: (3, C)
+    rows sigma (< 0: the tile's MAD), strength, blend."""
+    c = planes.shape[0]
+    sig = band_sigmas(planes, tx, prm[0])  # (nby, nbx, C)
+    strength = prm[1]
+    blend = prm[2].reshape(c, 1, 1)
     acc = None
-    cur = yuv
+    cur = planes
     for lv in range(LEVELS):
         smooth = _sep_blur(cur, 2 ** lv, periodic=False)
         st = strength * sig / (2.0 ** lv)
@@ -303,11 +372,21 @@ def wavelet_rgb_plain(rgb, pv, cfwd, cinv, tx):
         val = _shrink(cur - smooth, t2, blend, hp, wp)
         acc = val if acc is None else acc + val
         cur = smooth
-    y2, u2, v2 = acc + cur[:, PAD : PAD + hp, PAD : PAD + wp]
+    return acc + cur[:, PAD : PAD + hp, PAD : PAD + wp]
+
+
+def wavelet_rgb_plain(rgb, pv, cfwd, cinv, tx):
+    """The plain PyTorch version of the kernel, on `prepare`'s outputs (a
+    26-long pv carries the raw head); counts its calls in `.calls`."""
+    wavelet_rgb_plain.calls += 1
+    _, h, w = rgb.shape
+    _, hp, wp = tile_geometry(h, w, tx)
+    yuv = _head(rgb, pv, cfwd, hp, wp, pv.numel() == 26)
+    y2, u2, v2 = _chain(yuv, pv[4:13].reshape(3, 3), tx, hp, wp)
     p = pv.tolist()
     b2 = y2 - u2
     r2 = v2 + y2
-    g2 = _fdiv(y2 - r2 * p[0] - b2 * p[2], pv[1])
+    g2 = fdiv(y2 - r2 * p[0] - b2 * p[2], pv[1])
 
     ci = cinv.tolist()
     return torch.stack([eval_split(v, ci, out_max=p[13])
@@ -315,3 +394,16 @@ def wavelet_rgb_plain(rgb, pv, cfwd, cinv, tx):
 
 
 wavelet_rgb_plain.calls = 0
+
+
+def wavelet_multi_plain(x3, prm):
+    """The plain PyTorch version of kernel B5 (counts its calls in
+    `.calls`): the chain on each plane of x3 (C, H, W), reflect-padded to
+    whole 256x1024 tiles; prm as `wavelet_denoise_multi` builds it."""
+    wavelet_multi_plain.calls += 1
+    _, h, w = x3.shape
+    hp, wp = multi_geometry(h, w)
+    return _chain(_padded(x3, hp, wp), prm, TILE_X, hp, wp)[:, :h, :w]
+
+
+wavelet_multi_plain.calls = 0

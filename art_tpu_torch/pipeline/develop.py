@@ -4,11 +4,16 @@
 dict of numpy arrays, as the reference's planner does, restricted to the
 steps this package has ported; any other step or parameter raises
 NotImplementedError naming it. `build_run` returns the device program
-for a config: u16 widen, black/scale, AMaZE (kernels B1-B3) or bilinear
-demosaic, the denoise kernel with the raw head fused in (B4), the
-Neutral tone-curve kernel with the output transform fused in (B7). `data_to_torch` moves either
-planner's data to a device, so the reference's own plan can drive this
-runner. `develop` chains plan -> device -> `crop_result`.
+for a config, in the reference's order: u16 widen, black/scale, AMaZE
+(kernels B1-B3), RCD or bilinear demosaic; the raw head (WB multipliers,
+clip, cam2work), fused into the denoise kernel B4 when the reference's
+`fuse_head` gate opens, else applied on its own; the stage-0 denoise
+(B4, or B5 and B6 on the non-fused path) and the stage-2 impulse
+denoise; then the output transform (work2out, clip, TRC), fused into the
+Neutral tone-curve kernel B7 when the `fuse_tail` gate opens, else
+applied on its own. `data_to_torch` moves either planner's data to a
+device, so the reference's own plan can drive this runner. `develop`
+chains plan -> device -> `crop_result`.
 """
 
 from __future__ import annotations
@@ -23,7 +28,9 @@ from art_tpu_torch.settings import PAD_MULTIPLE
 from art_tpu_torch import ops as ops_pkg
 from art_tpu_torch.color import colorspaces as cs
 from art_tpu_torch.color.iccstore import output_trc
-from art_tpu_torch.core.image import pad_to_multiple
+from art_tpu_torch.core.fmath import fdiv, mat3
+from art_tpu_torch.core.image import MAXVAL, pad_to_multiple
+from art_tpu_torch.core.profile import span
 from art_tpu_torch.demosaic import PORTED as PORTED_DEMOSAICS
 from art_tpu_torch.raw import preprocess as rawpre
 from art_tpu_torch.raw import wb as wbmod
@@ -104,8 +111,6 @@ def _op_active(name, pp):
             b != 0 for b in (te.band0, te.band1, te.band2, te.band3, te.band4))
     if name == "sharpen":
         return pp.sharpening.enabled
-    if name == "impulse":
-        return pp.impulse_denoise.enabled
     if name == "defringe":
         return pp.defringe.enabled
     if name == "colorcorrection":
@@ -227,10 +232,11 @@ def _resolve_output_profile(name: str) -> str:
 
 def plan(frame, pp):
     """ProcParams + frame -> (PipelineConfig, data) for the ported slice:
-    a Bayer raw frame, AMaZE or bilinear/fast demosaic, camera or CustomMult white
-    balance, denoise (fused path) and the Neutral tone curve to a matrix
-    output profile (the reference's plan with fast=False, out_u8=False).
-    Anything else raises NotImplementedError."""
+    a Bayer raw frame, AMaZE, RCD or bilinear/fast demosaic, camera or
+    CustomMult white balance, denoise, impulse denoise and the Neutral
+    tone curve to a matrix output profile (the reference's plan with
+    fast=False, out_u8=False). Anything else raises
+    NotImplementedError."""
     if not frame.is_raw:
         _unported("non-raw input")
     if frame.cfa.ndim != 2 or frame.pattern is None:
@@ -322,7 +328,7 @@ def plan(frame, pp):
 
 def fusion_gates(config: PipelineConfig):
     """(fuse_head, fuse_tail): the reference's pass-fusion gates
-    (develop.py::_build_run). The port runs only with both open."""
+    (develop.py::_build_run)."""
     first0 = next((s for s in config.steps if s[2] == 0), None)
     fuse_head = (
         config.is_raw and first0 is not None and first0[0] == "denoise"
@@ -344,7 +350,8 @@ def _check_config(config):
     """Refuse configs outside the slice (either planner's)."""
     if not config.is_raw or config.pattern is None or config.xtrans:
         _unported("non-Bayer input")
-    for field, want in (("late_crop", True), ("crop", None),
+    for field, want in (("do_clip", True), ("late_crop", True),
+                        ("crop", None),
                         ("resize_to", None), ("early_resize", None),
                         ("coarse", (0, False, False)), ("transform", False),
                         ("ca_mode", None), ("hotdead", None),
@@ -357,22 +364,27 @@ def _check_config(config):
             _unported(f"pipeline config {field}={getattr(config, field)!r}")
     if config.linedn[0] > 0:
         _unported("CFA line denoise")
-    for name, _, _ in config.steps:
-        ops_pkg.get_op(name)
-    fuse_head, fuse_tail = fusion_gates(config)
-    if not fuse_head:
-        _unported("a pipeline without the fuse_head gate (denoise first at "
-                  "stage 0, no NLMeans/guided/DCT, clip on)")
-    if not fuse_tail:
-        _unported("a pipeline without the fuse_tail gate (Neutral tone "
-                  "curve last, sRGB or linear output TRC)")
+    for name, static, _ in config.steps:
+        op = ops_pkg.get_op(name)
+        if name == "denoise":
+            op.check_static(static)
+    if not fusion_gates(config)[1]:
+        cs.check_trc(config.out_trc)
+
+
+def raw_head(rgb, data):
+    """The raw head on its own (develop.py:990-1032, do_clip on): WB
+    multipliers, clip to [0, MAXVAL], camera to working space."""
+    rgb = torch.clamp(rgb * data["rgb_mults"][:, None, None], 0.0, MAXVAL)
+    return mat3(data["cam2work"], rgb)
 
 
 def build_run(config: PipelineConfig):
     """The device program for a config: run(inp, data) -> padded encoded
     (3, H, W) float32 on inp's device (crop with `crop_result`)."""
     _check_config(config)
-    first0 = next(s for s in config.steps if s[2] == 0)
+    fuse_head, fuse_tail = fusion_gates(config)
+    first0 = next((s for s in config.steps if s[2] == 0), None)
     late_steps = [s for s in config.steps if s[2] > 0]
 
     def run(inp, data):
@@ -380,25 +392,37 @@ def build_run(config: PipelineConfig):
 
         if inp.dtype != torch.float32:
             inp = inp.to(torch.float32)
-        cfa = rawpre.apply_scale(inp, data["raw_offset"], data["raw_scale"])
-        rgb = demosaic(cfa, config.pattern, config.demosaic_method,
-                       init_gain=data["init_gain"])
+        with span("demosaic"):
+            cfa = rawpre.apply_scale(inp, data["raw_offset"],
+                                     data["raw_scale"])
+            rgb = demosaic(cfa, config.pattern, config.demosaic_method,
+                           init_gain=data["init_gain"])
+        if not fuse_head:
+            with span("raw_head"):
+                rgb = raw_head(rgb, data)
         for step in config.steps:
             name, static, stage = step
             if stage != 0:
                 continue
             d = data[f"op:{name}"]
-            if step == first0:
+            if fuse_head and step == first0:
                 d = dict(d, pre_mults=data["rgb_mults"],
                          pre_mat=data["cam2work"])
-            rgb = ops_pkg.get_op(name).apply(rgb, d, static)
+            with span(name):
+                rgb = ops_pkg.get_op(name).apply(rgb, d, static)
         for step in late_steps:
             name, static, _ = step
             d = data[f"op:{name}"]
-            if step == late_steps[-1]:
+            if fuse_tail and step == late_steps[-1]:
                 d = dict(d, out_mat=data["work2out"])
                 static = static + (("epi", config.out_trc),)
-            rgb = ops_pkg.get_op(name).apply(rgb, d, static)
+            with span(name):
+                rgb = ops_pkg.get_op(name).apply(rgb, d, static)
+        if not fuse_tail:  # rgb2out: working -> output primaries, TRC
+            with span("rgb2out"):
+                rgb = mat3(data["work2out"], rgb)
+                rgb = cs.encode_trc(torch.clamp(fdiv(rgb, MAXVAL), 0.0, 1.0),
+                                    config.out_trc)
         return rgb
 
     return run

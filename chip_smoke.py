@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from art_tpu_torch/csrc (one nvcc per source, all
-at once) and drives two paths through the user's entry points, plan ->
+at once) and drives three paths through the user's entry points, plan ->
 develop(device="cuda") -> crop_result, each with the launch and plain-call
 counts set to 0 just before it and read just after:
 
@@ -11,19 +11,23 @@ counts set to 0 just before it and read just after:
   mosaic from seed 0, `Standard Film Curve.arp` (AMaZE), denoise at
   luminance/chrominance 20, the Neutral tone curve, sRGB out; kernels B1,
   B2, B3 (AMaZE stages), B4 (wavelet denoise) and B7 (Neutral curve);
-- the same frame with bilinear demosaic (B4 and B7).
+- the same frame with bilinear demosaic (B4 and B7);
+- config 3 (BASELINE.json configs[2], as tools/bench_configs.py writes
+  it) with the Smoothing group on, on the same frame: ProcParams()
+  defaults, RCD, denoise 20/20 with NLMeans 50 and the guided chroma
+  filter, impulse denoise, no tone curve; kernels B5 (wavelet chain on
+  the stacked Y/U/V) and B6 (NLMeans).
 
 It checks that every kernel of a path launched and no plain version ran,
 that the output is (3, 4000, 6000), finite and in [0, 1], that each
-kernel equals its plain PyTorch version on the tensors the main path
-feeds it (bounds below), and that a 512x2048 develop on the card agrees
-with the same develop on the CPU's plain path, for both demosaics, to
-the slice bounds of tests/test_torch_amaze.py. It prints the card's name
-and power limit, develop and device-program timings, peak memory, a
-torch.profiler table, one JSON line of per-kernel results (time, plain
-time, bound) and last the line {"ok": true, "device": {...}}. Any
-failure raises (non-zero exit, no result lines); so does a machine
-without CUDA.
+kernel equals its plain PyTorch version on the tensors its path feeds it
+(bounds below), and that a 512x2048 develop on the card agrees with the
+same develop on the CPU's plain path, for each path, to the slice bounds
+of the CPU tests. It prints the card's name and power limit, develop
+and device-program timings, peak memory, torch.profiler tables, one JSON
+line of per-kernel results (time, plain time, bound) and last the line
+{"ok": true, "device": {...}}. Any failure raises (non-zero exit, no
+result lines); so does a machine without CUDA.
 """
 
 from __future__ import annotations
@@ -45,6 +49,11 @@ KERNEL_MAX, KERNEL_MEAN = 0.0, 0.0
 # slice parity (tests/test_torch_amaze.py, test_torch_develop.py):
 # encoded output, card against the CPU plain path
 DEV_MAX, DEV_MEAN, DEV_WITHIN = 1.0 / 255.0, 2e-4, 0.999
+# config 3 (tests/test_torch_config3.py): the impulse decision compares
+# two filtered sums and may flip where the two devices round them
+# differently, so its max is not bounded; at most this share of values
+# lies beyond one 8-bit step
+DEV3_BEYOND = 1e-4
 # the bound of each kernel: H100 SXM data sheet peaks (HBM3 rate, FP32 rate)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -71,6 +80,23 @@ def flagship_pp(method):
     pp.denoise.enabled = True
     pp.denoise.luminance = 20.0
     pp.denoise.chrominance = 20.0
+    return pp
+
+
+def config3_pp():
+    """Config 3 as tools/bench_configs.py writes it, with the Smoothing
+    group on (without it NLMeans never runs): ProcParams() defaults, no
+    profile."""
+    from art_tpu_torch.params import ProcParams
+
+    pp = ProcParams()
+    pp.raw.bayer.method = "rcd"
+    pp.denoise.enabled = True
+    pp.denoise.luminance = 20.0
+    pp.denoise.chrominance = 20.0
+    pp.denoise.nl_strength = 50
+    pp.denoise.smoothing_enabled = True
+    pp.impulse_denoise.enabled = True
     return pp
 
 
@@ -106,7 +132,8 @@ def parity(out, ref):
     lsb = d * 255.0
     return {"max_lsb8": float(lsb.max()), "mean": float(d.mean()),
             "p999_lsb8": float(torch.quantile(lsb.flatten()[::7], 0.999)),
-            "within_1lsb8": float((lsb <= 1.0).double().mean())}
+            "within_1lsb8": float((lsb <= 1.0).double().mean()),
+            "beyond_1lsb8": int((lsb > 1.0).sum())}
 
 
 def bound(reads, writes, ops):
@@ -128,6 +155,7 @@ def counted():
     """name -> (wrapper with .launches, plain version with .calls)."""
     from art_tpu_torch.demosaic import amaze
     from art_tpu_torch.demosaic import amaze_kernel as ak
+    from art_tpu_torch.ops import nlmeans_kernel as nk
     from art_tpu_torch.ops import tonecurve_neutral as tn
     from art_tpu_torch.ops import wavelet_kernel as wk
 
@@ -135,6 +163,8 @@ def counted():
             "b2": (ak.amaze_stage2, amaze.stage2_plain),
             "b3": (ak.amaze_stage3, amaze.stage3_plain),
             "b4": (wk.wavelet_denoise_rgb, wk.wavelet_rgb_plain),
+            "b5": (wk.wavelet_denoise_multi, wk.wavelet_multi_plain),
+            "b6": (nk.nlmeans, nk.nlmeans_plain),
             "b7": (tn.neutral_tone, tn.neutral_plain)}
 
 
@@ -150,36 +180,49 @@ def read_counts():
             {k: p.calls for k, (_, p) in c.items()})
 
 
-def drive(method, frame, kernels_of_path):
+def drive(label, pp, frame, kernels_of_path):
     """One develop through the user's entry points, counts from 0; checks
     the launches, the plain calls and the output."""
     from art_tpu_torch.pipeline import develop as tdev
 
-    pp = flagship_pp(method)
     reset_counts()
     t0 = time.monotonic()
     out = tdev.develop(frame, pp)
     torch.cuda.synchronize()
     seconds = time.monotonic() - t0
     launches, plain_calls = read_counts()
-    log(f"{method} develop {FRAME[0]}x{FRAME[1]} (first): {seconds:.3f} s; "
+    log(f"{label} develop {FRAME[0]}x{FRAME[1]} (first): {seconds:.3f} s; "
         f"launches {launches}; plain calls {plain_calls}")
     missing = [k for k in kernels_of_path if launches[k] < 1]
     if missing:
-        raise RuntimeError(f"{method}: kernels {missing} did not launch")
+        raise RuntimeError(f"{label}: kernels {missing} did not launch")
     if any(plain_calls.values()):
-        raise RuntimeError(f"{method}: a plain version ran on the card: "
+        raise RuntimeError(f"{label}: a plain version ran on the card: "
                            f"{plain_calls}")
     if tuple(out.shape) != (3, *FRAME) or out.device.type != "cuda":
         raise RuntimeError(f"bad output {tuple(out.shape)} on {out.device}")
     if not bool(torch.isfinite(out).all()):
-        raise RuntimeError(f"{method}: non-finite output")
+        raise RuntimeError(f"{label}: non-finite output")
     lo, hi = float(out.min()), float(out.max())
     if lo < 0.0 or hi > 1.0:
-        raise RuntimeError(f"{method}: output outside [0, 1]: {lo} .. {hi}")
+        raise RuntimeError(f"{label}: output outside [0, 1]: {lo} .. {hi}")
     log(f"  output (3, {FRAME[0]}, {FRAME[1]}) finite, range {lo:.6f} .. "
         f"{hi:.6f}, mean {float(out.mean()):.6f}")
-    return pp, launches
+    return launches
+
+
+def median_develop(label, frame, pp):
+    from art_tpu_torch.pipeline import develop as tdev
+
+    times = []
+    for _ in range(5):
+        t0 = time.monotonic()
+        tdev.develop(frame, pp)
+        torch.cuda.synchronize()
+        times.append(time.monotonic() - t0)
+    log(f"{label} develop (plan + H2D + device + crop), median of 5: "
+        f"{1e3 * float(np.median(times)):.1f} ms "
+        f"{[round(1e3 * t, 1) for t in times]}")
 
 
 def device_program(frame, pp):
@@ -220,23 +263,36 @@ def profile_develop(frame, pp):
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.monotonic() - t0)
     avg = prof.key_averages()
-    # device-side events only: a CPU op's entry repeats its kernels' time
+    # device-side events only: a CPU op's entry repeats its kernels' time;
+    # the pipeline's "art:" ranges (art_tpu_torch.core.profile.span) also
+    # show on the device timeline, as annotations over their kernels, and
+    # are not device work
     busy_us = sum(e.self_device_time_total for e in avg
-                  if e.device_type != DeviceType.CPU)
+                  if e.device_type != DeviceType.CPU
+                  and not e.key.startswith("art:"))
     log(avg.table(sort_by="self_device_time_total", row_limit=20))
     log(f"profiled develop: wall {wall_ms:.1f} ms, device busy "
         f"{busy_us / 1e3:.2f} ms, idle share "
         f"{1.0 - busy_us / 1e3 / wall_ms:.4f}")
+    # per stage: the span of each range on the device timeline (its
+    # host-side entry counts only the kernels of aten ops, not those the
+    # ctypes wrappers launch)
+    stages = sorted(((e.key, e.device_time_total) for e in avg
+                     if e.key.startswith("art:")
+                     and e.device_type != DeviceType.CPU),
+                    key=lambda kv: -kv[1])
+    log("  device ms by stage: " + ", ".join(
+        f"{k[4:]} {us / 1e3:.2f}" for k, us in stages))
 
 
 def kernel_entry(name, key, source, replaces, launches, k_out, p_out,
-                 ms, plain_ms, bnd):
+                 ms, plain_ms, bnd, note=""):
     err, mean = diff_stats(k_out, p_out)
     log(f"{name}: kernel vs plain at {tuple(k_out.shape)}: max {err:.6g} "
         f"mean {mean:.6g} (bounds {KERNEL_MAX}, {KERNEL_MEAN}); kernel "
         f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bnd[0]:.4f} ms "
         f"({bnd[1]}; bytes {bnd[2]:.4f} ms, {bnd[4]:.4g} operations "
-        f"{bnd[3]:.4f} ms; naive count {bnd[5]:.4g})")
+        f"{bnd[3]:.4f} ms; naive count {bnd[5]:.4g}{note})")
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[key],
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -263,7 +319,9 @@ def main():
     from art_tpu_torch import kernels
     from art_tpu_torch.demosaic import amaze
     from art_tpu_torch.demosaic import amaze_kernel as ak
+    from art_tpu_torch.demosaic import rcd
     from art_tpu_torch.ops import denoise
+    from art_tpu_torch.ops import nlmeans_kernel as nk
     from art_tpu_torch.ops import tonecurve_neutral as tn
     from art_tpu_torch.opcount import needed_ops
     from art_tpu_torch.ops import wavelet_kernel as wk
@@ -284,31 +342,29 @@ def main():
     frame = flagship_frame(*FRAME)
     log(f"frame {FRAME[0]}x{FRAME[1]} synthesised in "
         f"{time.monotonic() - t0:.2f} s")
-    pp, launches = drive("amaze", frame, ("b1", "b2", "b3", "b4", "b7"))
-
-    times = []
-    for _ in range(5):
-        t0 = time.monotonic()
-        tdev.develop(frame, pp)
-        torch.cuda.synchronize()
-        times.append(time.monotonic() - t0)
-    log(f"amaze develop (plan + H2D + device + crop), median of 5: "
-        f"{1e3 * float(np.median(times)):.1f} ms "
-        f"{[round(1e3 * t, 1) for t in times]}")
+    pp = flagship_pp("amaze")
+    launches = drive("amaze", pp, frame, ("b1", "b2", "b3", "b4", "b7"))
+    median_develop("amaze", frame, pp)
     config, inp_d, data_d = device_program(frame, pp)
     profile_develop(frame, pp)
 
     # ---- the bilinear path (the first slice's)
-    pp_bil, _ = drive("bilinear", frame, ("b4", "b7"))
-    device_program(frame, pp_bil)
+    drive("bilinear", flagship_pp("bilinear"), frame, ("b4", "b7"))
 
-    # ---- kernel phase: each kernel on the tensors the main path feeds it
+    # ---- config 3 with smoothing: RCD, B5, guided chroma, B6, impulse
+    pp3 = config3_pp()
+    launches3 = drive("config3", pp3, frame, ("b5", "b6"))
+    median_develop("config3", frame, pp3)
+    config3, inp3, data3 = device_program(frame, pp3)
+    profile_develop(frame, pp3)
+
+    # ---- kernel phase: each kernel on the tensors its path feeds it
     pat = config.pattern
     cfa = apply_scale(inp_d.float(), data_d["raw_offset"],
                       data_d["raw_scale"])
     clips = amaze.clip_points(data_d["init_gain"], "cuda")
     x = amaze.padded_plane(cfa)
-    entries = []
+    entries = {}
 
     def check(key, kern, plain, reads):
         """Kernel and plain version on the same inputs: the entry of the
@@ -317,11 +373,11 @@ def main():
         p_out, *ops = needed_ops(plain)
         torch.cuda.synchronize()
         bnd = bound(reads, (k_out,), ops)
-        entries.append(kernel_entry(
+        entries[key] = kernel_entry(
             f"AMaZE stage {key[1]} ({key.upper()})", key,
             "art_tpu_torch/csrc/amaze.cu",
             "art_tpu/demosaic/amaze_pallas.py:65", launches, k_out, p_out,
-            gpu_ms(kern, 10), gpu_ms(plain, 3), bnd))
+            gpu_ms(kern, 10), gpu_ms(plain, 3), bnd)
         return k_out
 
     s1 = check("b1", lambda: ak.amaze_stage1(x, pat, clips),
@@ -342,12 +398,12 @@ def main():
     b4_k = wk.wavelet_denoise_rgb(*b4_args, **b4_kw)
     b4_p, *ops = needed_ops(lambda: wk.wavelet_rgb_plain(*plain_args))
     torch.cuda.synchronize()
-    entries.append(kernel_entry(
+    entries["b4"] = kernel_entry(
         "wavelet_rgb (B4)", "b4", "art_tpu_torch/csrc/wavelet_rgb.cu",
         "art_tpu/ops/wavelet_pallas.py:311", launches, b4_k, b4_p,
         gpu_ms(lambda: wk.wavelet_denoise_rgb(*b4_args, **b4_kw), 10),
         gpu_ms(lambda: wk.wavelet_rgb_plain(*plain_args), 3),
-        bound((rgb,), (b4_k,), ops)))
+        bound((rgb,), (b4_k,), ops))
     del b4_p
 
     tc = data_d["op:tonecurve"]
@@ -358,39 +414,88 @@ def main():
     b7_p, *ops = needed_ops(lambda: tn.neutral_plain(b4_k, params, coeffs,
                                                      epi))
     torch.cuda.synchronize()
-    entries.append(kernel_entry(
+    entries["b7"] = kernel_entry(
         "neutral_tone (B7)", "b7", "art_tpu_torch/csrc/neutral_tone.cu",
         "art_tpu/ops/tonecurve_neutral.py:384", launches, b7_k, b7_p,
         gpu_ms(lambda: tn.neutral_tone(b4_k, params, coeffs, epi), 20),
         gpu_ms(lambda: tn.neutral_plain(b4_k, params, coeffs, epi), 3),
-        bound((b4_k,), (b7_k,), ops)))
-    del b7_p, b7_k, b4_k, rgb, cfa
+        bound((b4_k,), (b7_k,), ops))
+    del b7_p, b7_k, b4_k, rgb, cfa, inp_d, data_d
+
+    # B5 on config 3's stacked Y/U/V: RCD, the raw head, gain, gamma, YUV
+    cfa = apply_scale(inp3.float(), data3["raw_offset"], data3["raw_scale"])
+    rgb = tdev.raw_head(rcd.rcd_demosaic(cfa, config3.pattern), data3)
+    dn3, dn3_static = data3["op:denoise"], config3.steps[0][1]
+    x3 = torch.stack(denoise.to_yuv(rgb, dn3))
+    del rgb, cfa
+    strengths, blends = denoise.strengths_blends(dn3, dn3_static)
+    prm = wk.multi_params(3, [-1.0] * 3, strengths, blends, "cuda")
+    b5_k = wk.wavelet_denoise_multi(x3, [-1.0] * 3, strengths, blends)
+    b5_p, *ops = needed_ops(lambda: wk.wavelet_multi_plain(x3, prm))
+    torch.cuda.synchronize()
+    entries["b5"] = kernel_entry(
+        "wavelet_multi (B5)", "b5", "art_tpu_torch/csrc/wavelet_rgb.cu",
+        "art_tpu/ops/wavelet_pallas.py:127", launches3, b5_k, b5_p,
+        gpu_ms(lambda: wk.wavelet_denoise_multi(x3, [-1.0] * 3, strengths,
+                                                blends), 10),
+        gpu_ms(lambda: wk.wavelet_multi_plain(x3, prm), 3),
+        bound((x3,), (b5_k,), ops))
+    del b5_p, x3
+
+    # B6 on B5's Y (the guided filter leaves Y alone) and its maskinv
+    y = b5_k[0]
+    maskinv = denoise.nl_maskinv(y, dn3["nl_h2"], dn3["nl_detail"])
+    b6_k = nk.nlmeans(y, maskinv)
+    b6_p = nk.nlmeans_plain(y, maskinv)
+    # the plain version has no select and no repeat, so its count is
+    # linear in the rows: count a 1024-row slice of these inputs and
+    # scale per row (the slice's 4-row patch ring adds 0.3%)
+    rows = 1024
+    _, ops6, naive6 = needed_ops(lambda: nk.nlmeans_plain(
+        y[:rows].contiguous(), maskinv[:rows].contiguous()))
+    scale = y.shape[0] / rows
+    torch.cuda.synchronize()
+    entries["b6"] = kernel_entry(
+        "nlmeans (B6)", "b6", "art_tpu_torch/csrc/nlmeans.cu",
+        "art_tpu/ops/nlmeans_pallas.py:83", launches3, b6_k, b6_p,
+        gpu_ms(lambda: nk.nlmeans(y, maskinv), 10),
+        gpu_ms(lambda: nk.nlmeans_plain(y, maskinv), 3),
+        bound((y, maskinv), (b6_k,), (ops6 * scale, naive6 * scale)),
+        note=f"; counted on {rows} of {y.shape[0]} rows, scaled")
+    del b6_p, b6_k, b5_k, y, maskinv, inp3, data3
 
     # ---- small develops: the card against the CPU plain path
     small = flagship_frame(512, 2048, seed=5)
     small_stats = {}
-    for method in ("amaze", "bilinear"):
-        g = tdev.develop(small, flagship_pp(method)).cpu()
-        c = tdev.develop(small, flagship_pp(method), device="cpu")
-        small_stats[method] = parity(g, c)
-        log(f"512x2048 {method} develop, card vs CPU plain path: "
-            f"{small_stats[method]}")
+    for label, make_pp in (("amaze", lambda: flagship_pp("amaze")),
+                           ("bilinear", lambda: flagship_pp("bilinear")),
+                           ("config3", config3_pp)):
+        g = tdev.develop(small, make_pp()).cpu()
+        c = tdev.develop(small, make_pp(), device="cpu")
+        small_stats[label] = parity(g, c)
+        log(f"512x2048 {label} develop, card vs CPU plain path: "
+            f"{small_stats[label]}")
 
     failures = []
-    for e in entries:
+    for e in entries.values():
         mean_err = e.pop("_mean_err")
         if e["max_abs_err"] > KERNEL_MAX or mean_err > KERNEL_MEAN:
             failures.append(f"{e['name']} disagrees with its plain version")
-    for method, st in small_stats.items():
-        if (st["max_lsb8"] > DEV_MAX * 255 or st["mean"] > DEV_MEAN
+    for label, st in small_stats.items():
+        n = 3 * 512 * 2048
+        if label == "config3":
+            bad = st["beyond_1lsb8"] > DEV3_BEYOND * n
+        else:
+            bad = st["max_lsb8"] > DEV_MAX * 255
+        if (bad or st["mean"] > DEV_MEAN
                 or st["within_1lsb8"] < DEV_WITHIN):
-            failures.append(f"{method}: card develop disagrees with the "
+            failures.append(f"{label}: card develop disagrees with the "
                             f"CPU: {st}")
     if "jax" in sys.modules or "art_tpu" in sys.modules:
         failures.append("jax or art_tpu was imported")
     if failures:
         raise RuntimeError("; ".join(failures))
-    print(json.dumps({"kernels": entries}))
+    print(json.dumps({"kernels": [entries[k] for k in sorted(entries)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

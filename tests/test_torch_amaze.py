@@ -240,7 +240,7 @@ def test_plan_matches_reference_for_amaze(scene):
     assert data["init_gain"] == ref_data["init_gain"]
 
 
-@pytest.mark.parametrize("method", ["rcd", "lmmse", "amazebilinear", "dcb",
+@pytest.mark.parametrize("method", ["igv", "lmmse", "amazebilinear", "dcb",
                                     "vng4", "no such method"])
 def test_unported_demosaic_raises_by_name(method):
     # no fallback to bilinear for an unknown name, unlike the reference

@@ -17,6 +17,8 @@ from art_tpu_torch.core.curve1d import fit_curve, fit_gamma_split
 from art_tpu_torch.core.image import synthesize_bayer
 from art_tpu_torch.demosaic import amaze
 from art_tpu_torch.demosaic import amaze_kernel as ak
+from art_tpu_torch.ops import denoise as tdn
+from art_tpu_torch.ops import nlmeans_kernel as nk
 from art_tpu_torch.ops import tonecurve as ttc
 from art_tpu_torch.ops import tonecurve_neutral as ttn
 from art_tpu_torch.ops import wavelet_kernel as wk
@@ -169,3 +171,74 @@ def test_develop_on_card_matches_cpu(cuda_device, method):
     assert d.mean().item() <= 2e-4
     assert (d * 255 <= 1.0).double().mean().item() >= 0.999
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,sigmas", [((3, 256, 1024), [-1.0] * 3),
+                                          ((3, 300, 1100), [-1.0] * 3),
+                                          ((2, 512, 2048), [0.05, -1.0])])
+def test_wavelet_multi_kernel_matches_plain(cuda_device, shape, sigmas):
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.normal(0.5, 0.1, shape).astype(np.float32)).to(
+        cuda_device)
+    c = shape[0]
+    args = (x, sigmas, [0.8, 1.4, 0.45][-c:], [0.3, 0.0, 0.0][-c:])
+    before = wk.wavelet_denoise_multi.launches
+    out = wk.wavelet_denoise_multi(*args)
+    torch.cuda.synchronize()
+    assert wk.wavelet_denoise_multi.launches == before + 1
+    prm = torch.tensor([args[1], args[2], args[3]], device=cuda_device)
+    # built without FMA contraction, same operation order: equal
+    assert torch.equal(out, wk.wavelet_multi_plain(x, prm))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(256, 512), (300, 520)])
+def test_nlmeans_kernel_matches_plain(cuda_device, shape):
+    rng = np.random.default_rng(7)
+    y = torch.from_numpy(np.clip(rng.normal(0.5, 0.02, shape), 0, 1)
+                         .astype(np.float32)).to(cuda_device)
+    mi = tdn.nl_maskinv(y, torch.tensor(0.00287, device=cuda_device),
+                        torch.tensor(0.5, device=cuda_device))
+    before = nk.nlmeans.launches
+    out = nk.nlmeans(y, mi)
+    torch.cuda.synchronize()
+    assert nk.nlmeans.launches == before + 1
+    # same order, -fmad=false, the libdevice expf that torch.exp calls:
+    # equal
+    assert torch.equal(out, nk.nlmeans_plain(y, mi))
+
+
+def config3_pp(smoothing):
+    pp = ProcParams()
+    pp.raw.bayer.method = "rcd"
+    pp.denoise.enabled = True
+    pp.denoise.luminance = pp.denoise.chrominance = 20.0
+    pp.denoise.nl_strength = 50
+    pp.denoise.smoothing_enabled = smoothing
+    pp.impulse_denoise.enabled = True
+    return pp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("smoothing", [True, False])
+def test_config3_develop_on_card_matches_cpu(cuda_device, smoothing):
+    rng = np.random.default_rng(0)
+    rgb = rng.uniform(0.02, 0.95, size=(3, 256, 1024)).astype(np.float32)
+    frame = synthesize_bayer(rgb, pattern="RGGB")
+    counted = (wk.wavelet_denoise_rgb, wk.wavelet_denoise_multi, nk.nlmeans)
+    plains = (wk.wavelet_rgb_plain, wk.wavelet_multi_plain, nk.nlmeans_plain)
+    before = [f.launches for f in counted]
+    plain_before = [f.calls for f in plains]
+    out = tdev.develop(frame, config3_pp(smoothing))
+    torch.cuda.synchronize()
+    want = [0, 1, 1] if smoothing else [1, 0, 0]
+    assert [f.launches - b for f, b in zip(counted, before)] == want
+    assert [f.calls for f in plains] == plain_before
+    cpu = tdev.develop(frame, config3_pp(smoothing), device="cpu")
+    d = (out.cpu().double() - cpu.double()).abs() * 255
+    # the impulse decision may flip where the two devices round the
+    # filtered sums differently: at most 1e-4 of the values beyond one
+    # 8-bit step
+    assert (d > 1.0).double().mean().item() <= 1e-4
+    assert d.mean().item() / 255 <= 2e-4

@@ -1,5 +1,6 @@
 """art_tpu_torch stands alone: a subprocess that refuses every `jax`,
-`jaxlib` and `art_tpu` import plans and develops the flagship frame; no
+`jaxlib` and `art_tpu` import plans and develops the flagship frame (AMaZE
+and bilinear) and config 3 (RCD, non-fused denoise, impulse); no
 source file of the package, nor chip_smoke.py, imports either or reads a
 file under art_tpu/; and the port's copies of the reference's host
 modules (profiles, colour-space tables, camera constants, output TRCs)
@@ -57,6 +58,17 @@ for method in ("amaze", "bilinear"):
     assert tuple(out.shape) == (3, 256, 1024), out.shape
     assert bool(torch.isfinite(out).all())
     assert 0.0 <= float(out.min()) and float(out.max()) <= 1.0
+pp = ProcParams()
+pp.raw.bayer.method = "rcd"
+pp.denoise.enabled = True
+pp.denoise.luminance = pp.denoise.chrominance = 20.0
+pp.denoise.nl_strength = 50
+pp.denoise.smoothing_enabled = True
+pp.impulse_denoise.enabled = True
+out = tdev.develop(frame, pp, device="cpu")
+assert tuple(out.shape) == (3, 256, 1024), out.shape
+assert bool(torch.isfinite(out).all())
+assert 0.0 <= float(out.min()) and float(out.max()) <= 1.0
 assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
 print("STANDALONE-OK")
 '''

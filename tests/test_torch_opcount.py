@@ -3,7 +3,7 @@
 
 Hand-counted cases: each returns (function, needed count, naive count)
 for two 6x8 planes a, b from a seed; n = 48. Then every plain version of
-a kernel on the main path (B1-B3, B4, B7) at a small size: the count
+a kernel (B1-B3, B4, B7; B5 and B6 of config 3) at a small size: the count
 runs through all of its ops, leaves the result unchanged, and stays at or
 under the naive count (every float op, both arms of each select, every
 repeat); for the AMaZE stages, whose selects are whole-plane, strictly
@@ -173,3 +173,35 @@ def test_wavelet_and_neutral_counts():
         lambda: tn.neutral_plain(b4, params, coeffs, epi))
     assert torch.equal(b7, tn.neutral_plain(b4, params, coeffs, epi))
     assert 0 < ops <= naive
+
+
+def test_b5_count():
+    from art_tpu_torch.ops import wavelet_kernel as wk
+
+    rng = np.random.default_rng(2)
+    x3 = torch.from_numpy(rng.normal(0.5, 0.1, (3, 256, 1024)).astype(
+        np.float32))
+    prm = torch.tensor([[-1.0] * 3, [0.8, 1.4, 0.45], [0.3, 0.0, 0.0]])
+    out, ops, naive = needed_ops(lambda: wk.wavelet_multi_plain(x3, prm))
+    assert torch.equal(out, wk.wavelet_multi_plain(x3, prm))
+    assert 0 < ops <= naive
+    print(f"B5: {ops / x3.numel():.1f} needed, {naive / x3.numel():.1f} "
+          "naive operations an output value")
+
+
+def test_b6_count():
+    """No select and no repeat: the count is the plain version's, per
+    offset 2 ops on the (h+4)(w+4) squared differences, 4 on the h(w+4)
+    vertical sums and 11 a pixel (4 horizontal sums, multiply, min,
+    negate, exp, multiply, two adds); the first offset has no adds onto
+    acc and wsum, and the final division adds 2 a pixel."""
+    from art_tpu_torch.ops import nlmeans_kernel as nk
+
+    rng = np.random.default_rng(3)
+    h, w = 40, 56
+    y = torch.from_numpy(rng.uniform(0, 1, (h, w)).astype(np.float32))
+    mi = torch.from_numpy(rng.uniform(50, 400, (h, w)).astype(np.float32))
+    out, ops, naive = needed_ops(lambda: nk.nlmeans_plain(y, mi))
+    assert torch.equal(out, nk.nlmeans_plain(y, mi))
+    per_offset = 2 * (h + 4) * (w + 4) + 4 * h * (w + 4) + 11 * h * w
+    assert ops == naive == 121 * per_offset

@@ -110,21 +110,23 @@ def _set(pp, path, value):
 
 
 @pytest.mark.parametrize("changes,match", [
-    # a Bayer method still unported (AMaZE is ported)
-    ({"raw.bayer.method": "rcd"}, "rcd"),
+    # a Bayer method still unported (AMaZE and RCD are ported)
+    ({"raw.bayer.method": "lmmse"}, "lmmse"),
     ({"wb.method": "Auto"}, "white balance"),
-    ({"denoise.smoothing_enabled": True, "denoise.nl_strength": 20},
-     "NLMeans"),
+    # NLMeans in the denoise is ported; the Smoothing op that also runs
+    # it (ops/smoothing.py) is not
+    ({"extra": {"Smoothing": {"Enabled": "true"}}}, "smoothing"),
     ({"sharpening.enabled": True}, "sharpen"),
     ({"tone_curve.curve_mode": "Standard",
       "tone_curve.curve_mode2": "Standard"}, "tone curve mode"),
     ({"resize.enabled": True}, "resize"),
     ({"exposure.expcomp": 1.0}, "exposure"),
     ({"icm.output_profile": "/tmp/out.icc"}, "ICC"),
-    ({"denoise.enabled": False}, "fuse_head"),
-    ({"tone_curve.enabled": False}, "fuse_tail"),
+    ({"denoise.luminance_detail": 30}, "DCT"),
+    ({"icm.output_profile": "ProPhoto", "tone_curve.enabled": False},
+     "TRC 'gamma'"),
 ], ids=["amaze", "auto-wb", "nlmeans", "sharpen", "std-curve", "resize",
-        "exposure", "out-icc", "no-denoise", "no-curve"])
+        "exposure", "out-icc", "dct-detail", "gamma-trc"])
 def test_unported_steps_raise_by_name(frame, changes, match):
     pp = flagship_pp()
     for path, value in changes.items():
@@ -132,3 +134,31 @@ def test_unported_steps_raise_by_name(frame, changes, match):
     with pytest.raises(NotImplementedError, match=match):
         cfg, data = tdev.plan(frame, pp)
         tdev.build_run(cfg)
+
+
+def parity(out, ref):
+    d = np.abs(np.asarray(out, np.float64) - np.asarray(ref, np.float64))
+    return {"max_lsb8": float(d.max() * 255), "mean": float(d.mean()),
+            "within_1lsb8": float((d * 255 <= 1.0).mean())}
+
+
+@pytest.mark.parametrize("changes", [{"denoise.enabled": False},
+                                     {"tone_curve.enabled": False}],
+                         ids=["no-denoise", "no-curve"])
+def test_closed_fusion_gates_develop_as_the_reference(frame, changes):
+    # no denoise: the raw head runs on its own before the Neutral curve
+    # (B7 with the output tail); no tone curve: B4 takes the head and the
+    # output tail runs on its own. Slice bounds against the reference
+    # as it stands (its wavelet's approximate reciprocal is the gap)
+    pp, ref_pp = flagship_pp(), flagship_pp()
+    for path, value in changes.items():
+        _set(pp, path, value)
+        _set(ref_pp, path, value)
+    gates = tdev.fusion_gates(tdev.plan(frame, pp)[0])
+    assert gates == ((False, True) if "denoise.enabled" in changes
+                     else (True, False))
+    out = tdev.develop(frame, pp, device="cpu").numpy()
+    st = parity(out, jdev.develop(frame, ref_pp))
+    print(changes, st)
+    assert st["max_lsb8"] <= 1.0 and st["mean"] <= 2e-4, st
+    assert st["within_1lsb8"] >= 0.999, st
