@@ -11,8 +11,8 @@ Both end with the stage-2 impulse denoise and the unfused output tail
 (no tone curve).
 
 Bounds, against the reference with its wavelet shrink's approximate
-reciprocal replaced by a division (the port divides exactly; as PR 1
-and 2 found, the rest of the gap to the reference as it stands is that
+reciprocal replaced by a division (the port divides exactly; as for
+the flagship, the rest of the gap to the reference as it stands is that
 reciprocal): mean <= 2e-4 and >= 99.9% of values within one 8-bit step;
 max <= 1/255 everywhere but where the impulse decision (a comparison of
 two filtered sums, rounded differently in the two packages) flips, at
