@@ -155,8 +155,8 @@ def check_trc(trc):
 def encode_trc(x, trc):
     """Output TRC encode of a tensor (colorspaces.py::encode_trc): sRGB
     through the device fit; kinds without a matched branch clip to
-    [0, 1] as the reference's default does ("linear" among them)."""
-    check_trc(trc)
+    [0, 1] as the reference's default does ("linear" among them). For a
+    TRC that `check_trc` admits (the pipeline checks it at build time)."""
     if trc[0] == "srgb":
         return srgb_gamma_torch(x)
     return torch.clamp(x, 0.0, 1.0)

@@ -153,8 +153,9 @@ def nl_maskinv(y, h2_base, detail):
 
 def apply(rgb, data, static):
     """Denoise of a (3, H, W) tensor in the 0..65535 domain: the fused
-    path (kernel B4) or the non-fused one (kernels B5 and B6)."""
-    check_static(static)
+    path (kernel B4) or the non-fused one (kernels B5 and B6). For a
+    static that `check_static` admits (the pipeline checks it at build
+    time)."""
     if is_fused(static):
         args, kwargs = kernel_args(data, static)
         return wavelet_denoise_rgb(rgb, *args, **kwargs)

@@ -36,15 +36,20 @@ def plan(pp, ctx):
     return (float(max(2.0, thresh - 1.0)),), data
 
 
+def detect(L, sigma, thr):
+    """The impulse mask of the scaled L plane: |L - gauss(L)| above the
+    5x5 sum of that high-pass, less itself, times thr."""
+    hp = torch.abs(L - gauss_blur(L, sigma))
+    nbr = box_blur(hp, 2) * 25.0  # 5x5 sum
+    return hp > (nbr - hp) * thr
+
+
 def apply(rgb, data, static):
     """Impulse denoise of a (3, H, W) tensor in the 0..65535 domain."""
     (sigma,) = static
     L, a, b = cs.xyz_to_lab(*mat3(data["ws"], fdiv(rgb, MAXVAL)))
     L = L * 327.68  # the reference's Lab scaling
-
-    hp = torch.abs(L - gauss_blur(L, sigma))
-    nbr = box_blur(hp, 2) * 25.0  # 5x5 sum
-    imp = hp > (nbr - hp) * data["impthr_div24"]
+    imp = detect(L, sigma, data["impthr_div24"])
 
     # replacement: range-weighted mean over the non-impulse 5x5 neighbours
     ok = (~imp).to(L.dtype)

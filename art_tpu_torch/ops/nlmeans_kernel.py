@@ -66,27 +66,44 @@ nlmeans.launches = 0
 
 def nlmeans_plain(y, maskinv):
     """The plain PyTorch version of B6, in the Pallas kernel's operation
-    order; counts its calls in `.calls`."""
+    order; counts its calls in `.calls`.
+
+    The offsets t and -t share one patch box: the squared difference of
+    -t at q is that of t at q - t ((a - b)^2 = (b - a)^2), so the box of
+    -t at p is the box of t at p - t, the same values summed in the same
+    order. The box of each of the 60 offsets before (0, 0) is made over
+    the plane grown by the search radius and read again, moved, for its
+    partner: the kernel's result bit for bit, from the operations it
+    needs (this count is B6's bound in chip_smoke.py)."""
     nlmeans_plain.calls += 1
     h, w = y.shape
-    r = SEARCH_R + PATCH_R
+    e, q = SEARCH_R, PATCH_R
+    r = e + q + SEARCH_R
     yp = F.pad(y[None, None], (r, r, r, r), mode="replicate")[0, 0]
-    q = PATCH_R
-    hq, wq = h + 2 * q, w + 2 * q
-    centre = yp[r - q : r - q + hq, r - q : r - q + wq]
+    hb, wb = h + 2 * e, w + 2 * e  # the boxes' plane, grown by e
+    hq, wq = hb + 2 * q, wb + 2 * q
+    centre = yp[SEARCH_R : SEARCH_R + hq, SEARCH_R : SEARCH_R + wq]
     n = 2 * SEARCH_R + 1
+    half = n * n // 2  # the index of offset (0, 0)
     fifty = torch.tensor(50.0, dtype=y.dtype, device=y.device)
+    boxes = {}
     acc = wsum = None
     for idx in range(n * n):
         ty = idx // n - SEARCH_R
         tx = idx % n - SEARCH_R
-        d = centre - yp[r - q + ty : r - q + ty + hq,
-                        r - q + tx : r - q + tx + wq]
-        d2 = d * d
-        s = d2[2 : h + 2] + d2[3 : h + 3] + d2[1 : h + 1] + d2[4 : h + 4] \
-            + d2[0:h]
-        dist2 = s[:, 2 : w + 2] + s[:, 3 : w + 3] + s[:, 1 : w + 1] \
-            + s[:, 4 : w + 4] + s[:, 0:w]
+        if idx <= half:
+            d = centre - yp[SEARCH_R + ty : SEARCH_R + ty + hq,
+                            SEARCH_R + tx : SEARCH_R + tx + wq]
+            d2 = d * d
+            s = d2[2 : hb + 2] + d2[3 : hb + 3] + d2[1 : hb + 1] \
+                + d2[4 : hb + 4] + d2[0:hb]
+            box = s[:, 2 : wb + 2] + s[:, 3 : wb + 3] + s[:, 1 : wb + 1] \
+                + s[:, 4 : wb + 4] + s[:, 0:wb]
+            boxes[idx] = box
+            dist2 = box[e : e + h, e : e + w]
+        else:  # the partner -t's box, read at p + t
+            box = boxes.pop(n * n - 1 - idx)
+            dist2 = box[e + ty : e + ty + h, e + tx : e + tx + w]
         wgt = torch.exp(-torch.minimum(dist2 * maskinv, fifty))
         sh = yp[r + ty : r + ty + h, r + tx : r + tx + w]
         acc = wgt * sh if acc is None else acc + wgt * sh

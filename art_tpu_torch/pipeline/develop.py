@@ -365,11 +365,10 @@ def _check_config(config):
     if config.linedn[0] > 0:
         _unported("CFA line denoise")
     for name, static, _ in config.steps:
-        op = ops_pkg.get_op(name)
-        if name == "denoise":
-            op.check_static(static)
-    if not fusion_gates(config)[1]:
-        cs.check_trc(config.out_trc)
+        check = getattr(ops_pkg.get_op(name), "check_static", None)
+        if check is not None:
+            check(static)
+    cs.check_trc(config.out_trc)
 
 
 def raw_head(rgb, data):

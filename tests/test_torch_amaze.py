@@ -51,6 +51,7 @@ from art_tpu_torch.demosaic import amaze_kernel as ak
 from art_tpu_torch.demosaic import demosaic
 from art_tpu_torch.params import ProcParams
 from art_tpu_torch.pipeline import develop as tdev
+from chip_smoke import parity
 
 # the reference's method registry fills itself only while it is empty:
 # importing one method module first would leave it holding that method
@@ -158,15 +159,6 @@ def test_amaze_odd_size_border():
 
 
 # ---------------------------------------------------------------- (c), (d)
-
-def parity(out, ref):
-    """BACKEND_DIFF-style stats in 8-bit steps."""
-    d = np.abs(np.asarray(out, np.float64) - np.asarray(ref, np.float64))
-    lsb = d * 255.0
-    return {"max_lsb8": float(lsb.max()), "mean": float(d.mean()),
-            "p999_lsb8": float(np.quantile(lsb, 0.999)),
-            "within_1lsb8": float((lsb <= 1.0).mean())}
-
 
 @pytest.fixture(scope="module")
 def scene():

@@ -21,6 +21,7 @@ import torch
 from art_tpu.params import ProcParams
 from art_tpu_torch.core.image import synthesize_bayer
 from art_tpu_torch.pipeline import develop as tdev
+from chip_smoke import parity
 
 jdev = importlib.import_module("art_tpu.pipeline.develop")
 
@@ -39,16 +40,12 @@ def flagship_pp():
     return pp
 
 
-def parity(out, ref, label):
+def check_parity(out, ref, label):
     """BACKEND_DIFF-style stats in 8-bit steps; asserts the slice bound."""
-    d = np.abs(np.asarray(out, np.float64) - np.asarray(ref, np.float64))
-    lsb = d * 255.0
-    stats = {"max_lsb8": float(lsb.max()), "mean": float(d.mean()),
-             "p999_lsb8": float(np.quantile(lsb, 0.999)),
-             "within_1lsb8": float((lsb <= 1.0).mean())}
+    stats = parity(out, ref)
     print(label, stats)
-    assert d.max() <= 1.0 / 255.0, stats
-    assert d.mean() <= 2e-4, stats
+    assert stats["max_lsb8"] <= 1.0, stats
+    assert stats["mean"] <= 2e-4, stats
     assert stats["within_1lsb8"] >= 0.999, stats
     return stats
 
@@ -70,7 +67,7 @@ def test_develop_matches_reference(case):
     assert out.shape == (3, 256, 1024) and out.dtype == torch.float32
     out = out.numpy()
     assert np.isfinite(out).all() and out.min() >= 0 and out.max() <= 1
-    parity(out, ref, "port develop vs art_tpu develop")
+    check_parity(out, ref, "port develop vs art_tpu develop")
 
 
 def test_reference_plan_through_port_runner(case):
@@ -82,7 +79,7 @@ def test_reference_plan_through_port_runner(case):
     out = tdev.build_run(config)(torch.from_numpy(inp),
                                  tdev.data_to_torch(data, "cpu"))
     out = tdev.crop_result(out, config).numpy()
-    parity(out, ref, "art_tpu plan on the port runner")
+    check_parity(out, ref, "art_tpu plan on the port runner")
 
 
 @pytest.mark.parametrize("pattern", ["RGGB", "BGGR", "GRBG", "GBRG"])

@@ -8,6 +8,9 @@
   order, but XLA's exp on the CPU is its own polynomial, not the libm
   one PyTorch calls (they differ by 1 ulp at ~10% of arguments). Bound:
   8 ulps of 1.0 (4.8e-7) on luma in [0, 1] (measured up to 2.4e-7).
+- `nlmeans_plain`, whose offsets t and -t share one patch box, against
+  the same function with a box for every offset, as the kernels make
+  it: equal bit for bit.
 - The detail mask and inverse weight scale (`denoise.nl_maskinv`)
   against the pieces of `art_tpu.ops.denoise._nlmeans`: the same gauss
   blurs and divisions; bound 1e-6 relative.
@@ -69,6 +72,38 @@ def test_maskinv_matches_reference(detail):
     ours = tdn.nl_maskinv(torch.from_numpy(y), torch.tensor(H2),
                           torch.tensor(d)).numpy()
     np.testing.assert_allclose(ours, ref, rtol=1e-6, atol=0)
+
+
+def _per_offset(y, maskinv):
+    """B6 with a patch box of its own for every offset, as the Pallas
+    kernel and the CUDA kernel compute it."""
+    h, w = y.shape
+    yp = torch.nn.functional.pad(y[None, None], (7, 7, 7, 7),
+                                 mode="replicate")[0, 0]
+    centre = yp[5 : h + 9, 5 : w + 9]
+    acc = wsum = 0.0
+    for idx in range(121):
+        ty, tx = idx // 11 - 5, idx % 11 - 5
+        d = centre - yp[5 + ty : h + 9 + ty, 5 + tx : w + 9 + tx]
+        d2 = d * d
+        s = d2[2 : h + 2] + d2[3 : h + 3] + d2[1 : h + 1] + d2[4 : h + 4] \
+            + d2[0:h]
+        box = s[:, 2 : w + 2] + s[:, 3 : w + 3] + s[:, 1 : w + 1] \
+            + s[:, 4 : w + 4] + s[:, 0:w]
+        wgt = torch.exp(-torch.minimum(box * maskinv, torch.tensor(50.0)))
+        sh = yp[7 + ty : h + 7 + ty, 7 + tx : w + 7 + tx]
+        acc = acc + wgt * sh
+        wsum = wsum + wgt
+    return acc / (wsum + 1e-5)
+
+
+@pytest.mark.parametrize("shape", [(40, 56), (256, 300)])
+def test_offset_pairs_share_their_box_exactly(shape):
+    # (a - b)^2 = (b - a)^2, so the box of -t at p is the box of t at
+    # p - t, summed in the same order: equal bit for bit
+    y = torch.from_numpy(_luma(shape, 4))
+    mi = tdn.nl_maskinv(y, torch.tensor(H2), torch.tensor(0.5))
+    assert torch.equal(nk.nlmeans_plain(y, mi), _per_offset(y, mi))
 
 
 def test_plain_b6_on_a_constant_plane_is_identity():

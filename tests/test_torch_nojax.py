@@ -58,14 +58,8 @@ for method in ("amaze", "bilinear"):
     assert tuple(out.shape) == (3, 256, 1024), out.shape
     assert bool(torch.isfinite(out).all())
     assert 0.0 <= float(out.min()) and float(out.max()) <= 1.0
-pp = ProcParams()
-pp.raw.bayer.method = "rcd"
-pp.denoise.enabled = True
-pp.denoise.luminance = pp.denoise.chrominance = 20.0
-pp.denoise.nl_strength = 50
-pp.denoise.smoothing_enabled = True
-pp.impulse_denoise.enabled = True
-out = tdev.develop(frame, pp, device="cpu")
+from chip_smoke import config3_pp
+out = tdev.develop(frame, config3_pp(), device="cpu")
 assert tuple(out.shape) == (3, 256, 1024), out.shape
 assert bool(torch.isfinite(out).all())
 assert 0.0 <= float(out.min()) and float(out.max()) <= 1.0

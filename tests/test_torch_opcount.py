@@ -189,12 +189,22 @@ def test_b5_count():
           "naive operations an output value")
 
 
+def _pair_area(a, b, dy, dx):
+    """Elements in two a x b rectangles, one moved by (dy, dx)."""
+    return 2 * a * b - max(0, a - abs(dy)) * max(0, b - abs(dx))
+
+
 def test_b6_count():
-    """No select and no repeat: the count is the plain version's, per
-    offset 2 ops on the (h+4)(w+4) squared differences, 4 on the h(w+4)
-    vertical sums and 11 a pixel (4 horizontal sums, multiply, min,
-    negate, exp, multiply, two adds); the first offset has no adds onto
-    acc and wsum, and the final division adds 2 a pixel."""
+    """No select and no repeat, and each offset pair t, -t shares one
+    patch box, needed on the plane and on the plane moved by -t: per
+    pair, 2 ops on the squared differences under those two planes grown
+    by 2 each way, 4 on the vertical sums under them grown by 2
+    sideways, and 4 on the box itself; offset (0, 0) makes its box on
+    the plane alone. Then 7 a pixel for each of the 121 offsets
+    (multiply, min, negate, exp, multiply, two adds), of which the first
+    has no adds onto acc and wsum, and the final division adds 2 a
+    pixel. Below the naive count, which holds every box on the grown
+    plane."""
     from art_tpu_torch.ops import nlmeans_kernel as nk
 
     rng = np.random.default_rng(3)
@@ -203,5 +213,11 @@ def test_b6_count():
     mi = torch.from_numpy(rng.uniform(50, 400, (h, w)).astype(np.float32))
     out, ops, naive = needed_ops(lambda: nk.nlmeans_plain(y, mi))
     assert torch.equal(out, nk.nlmeans_plain(y, mi))
-    per_offset = 2 * (h + 4) * (w + 4) + 4 * h * (w + 4) + 11 * h * w
-    assert ops == naive == 121 * per_offset
+    boxes = 2 * (h + 4) * (w + 4) + 4 * h * (w + 4) + 4 * h * w
+    for idx in range(60):
+        ty, tx = idx // 11 - 5, idx % 11 - 5
+        boxes += (2 * _pair_area(h + 4, w + 4, ty, tx)
+                  + 4 * _pair_area(h, w + 4, ty, tx)
+                  + 4 * _pair_area(h, w, ty, tx))
+    assert ops == boxes + 121 * 7 * h * w
+    assert ops < naive

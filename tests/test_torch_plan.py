@@ -14,6 +14,7 @@ import pytest
 from art_tpu.params import ProcParams
 from art_tpu_torch.core.image import synthesize_bayer
 from art_tpu_torch.pipeline import develop as tdev
+from chip_smoke import parity
 
 jdev = importlib.import_module("art_tpu.pipeline.develop")
 
@@ -134,12 +135,6 @@ def test_unported_steps_raise_by_name(frame, changes, match):
     with pytest.raises(NotImplementedError, match=match):
         cfg, data = tdev.plan(frame, pp)
         tdev.build_run(cfg)
-
-
-def parity(out, ref):
-    d = np.abs(np.asarray(out, np.float64) - np.asarray(ref, np.float64))
-    return {"max_lsb8": float(d.max() * 255), "mean": float(d.mean()),
-            "within_1lsb8": float((d * 255 <= 1.0).mean())}
 
 
 @pytest.mark.parametrize("changes", [{"denoise.enabled": False},
