@@ -40,12 +40,13 @@ _I = ctypes.c_int
 # C entry points: name -> (source stem in csrc/, argtypes); all return a
 # cudaError_t as int
 SIGNATURES = {
-    # rgb, out, planes, acc, absd, lohi, cnt, sigma, pv, cf, ci,
+    # rgb, out, planes, acc, hist, wmax, sigma, pv, cf, ci,
     # kf, ki, h, w, hp, wp, tx, pre, stream
-    "art_wavelet_rgb": ("wavelet_rgb", [_P] * 11 + [_I] * 8 + [_P]),
-    # x, out, planes, acc, absd, lohi, cnt, sigma, prm, nc, h, w, hp, wp,
-    # stream
-    "art_wavelet_multi": ("wavelet_rgb", [_P] * 9 + [_I] * 5 + [_P]),
+    "art_wavelet_rgb": ("wavelet_rgb", [_P] * 10 + [_I] * 8 + [_P]),
+    # x, out, planes, acc, hist, wmax, sigma, prm, nc, h, w, hp, wp, stream
+    "art_wavelet_multi": ("wavelet_rgb", [_P] * 8 + [_I] * 5 + [_P]),
+    # buf, cap: the wavelet kernels' registers and shared memory, as text
+    "art_wavelet_layout": ("wavelet_rgb", [_P, _I]),
     # y, maskinv, out, h, w, stream
     "art_nlmeans": ("nlmeans", [_P] * 3 + [_I] * 2 + [_P]),
     # rgb, out, params, coeffs, consts, npix, nparams, crows, ccols,

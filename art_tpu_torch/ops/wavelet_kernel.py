@@ -16,9 +16,15 @@ the image is cut into bands of 256 rows by `tx` columns (`pick_tx_rgb`),
 each band's window is the band plus a 64-pixel reflect halo, and sigma
 is median(|d0|)/0.6745 by 14 bisection steps over the whole window,
 where d0 is the level-0 detail computed with the blur wrapping around
-INSIDE the window (the reference's `jnp.roll`). Everything else is
-local: the chain reaches 63 pixels, so a band's output equals the chain
-run over the whole padded plane, with the band's sigma in the shrink.
+INSIDE the window (the reference's `jnp.roll`). The kernel reaches the
+same sigma without storing |d0| or counting 14 times: the bisection's
+possible mids form a fixed binary tree for the window's max, so it
+walks each value down that tree by the steps' own comparisons, counts
+the leaves in a 16,384-bin histogram, and takes each step's count as a
+prefix sum of it (`mad_sigma_hist` renders that walk in PyTorch for the
+tests). Everything else is local: the chain reaches 63 pixels, so a
+band's output equals the chain run over the whole padded plane, with
+the band's sigma in the shrink.
 
 B5 is the same chain on C planes with no head, gamma or YUV; its tiles
 are always 256 x 1024 on the planes reflect-padded to whole tiles, so
@@ -32,6 +38,8 @@ there for the design) or raises.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from art_tpu_torch import kernels
@@ -43,6 +51,9 @@ TILE_X = 1024
 PAD = 64
 LEVELS = 5
 BISECT = 14
+LEAVES = 1 << BISECT  # leaves of the bisection tree (the kernel's histogram)
+TOP = 10  # levels of the tree the kernel looks up in a table of mids
+TOPN = (1 << TOP) - 1
 B3 = (0.0625, 0.25, 0.375, 0.25, 0.0625)  # art_tpu/ops/wavelet.py::_B3
 MAXK = 32  # longest split-fit row the kernel takes
 MAXVAL = 65535.0
@@ -138,17 +149,31 @@ wavelet_denoise_rgb.launches = 0
 
 
 def _scratch(c, hp, wp, tx, device):
-    """The chain's scratch for c planes: planes (cur, blur tmp, smooth),
-    acc, and per (tile, plane) |d0| windows, bisection bounds, counts
-    and sigmas."""
+    """The chain's scratch for c planes: two stacks of padded planes (each
+    level's input and its smooth plane), acc, and per (tile, plane) the
+    |d0| leaf histogram, the window's max |d0| and the sigma."""
     nwc = (hp // TILE_Y) * (wp // tx) * c
     f32 = dict(dtype=torch.float32, device=device)
-    return (torch.empty((3, c, hp + 2 * PAD, wp + 2 * PAD), **f32),
+    return (torch.empty((2, c, hp + 2 * PAD, wp + 2 * PAD), **f32),
             torch.empty((c, hp, wp), **f32),
-            torch.empty((nwc, (TILE_Y + 2 * PAD) * (tx + 2 * PAD)), **f32),
-            torch.empty((nwc, 2), **f32),
-            torch.empty((nwc,), dtype=torch.int32, device=device),
+            torch.empty((nwc, LEAVES), dtype=torch.int32, device=device),
+            torch.empty((nwc,), **f32),
             torch.empty((nwc,), **f32))
+
+
+def scratch_bytes(c, hp, wp, tx):
+    """Bytes of device scratch one call takes for c planes."""
+    return sum(t.numel() * t.element_size()
+               for t in _scratch(c, hp, wp, tx, "meta"))
+
+
+def layout():
+    """Each wavelet kernel's registers, shared memory and local memory on
+    the card, one line each (``art_wavelet_layout``)."""
+    buf = ctypes.create_string_buffer(8192)
+    kernels.check(kernels.library().art_wavelet_layout(buf, len(buf)),
+                  "art_wavelet_layout")
+    return buf.value.decode()
 
 
 def _launch(rgb, pv, cfwd, cinv, tx):
@@ -156,9 +181,8 @@ def _launch(rgb, pv, cfwd, cinv, tx):
     _, h, w = rgb.shape
     _, hp, wp = tile_geometry(h, w, tx)
     out = torch.empty((3, h, w), dtype=torch.float32, device=rgb.device)
-    ptr = [t.data_ptr() for t in (rgb, out, *_scratch(3, hp, wp, tx,
-                                                      rgb.device),
-                                  pv, cfwd, cinv)]
+    scratch = _scratch(3, hp, wp, tx, rgb.device)
+    ptr = [t.data_ptr() for t in (rgb, out, *scratch, pv, cfwd, cinv)]
     rc = lib.art_wavelet_rgb(*ptr, cfwd.shape[1], cinv.shape[1], h, w, hp,
                              wp, tx, int(pv.numel() == 26),
                              kernels.stream_of(rgb))
@@ -217,8 +241,8 @@ def _launch_multi(x3, prm):
     c, h, w = x3.shape
     hp, wp = multi_geometry(h, w)
     out = torch.empty((c, h, w), dtype=torch.float32, device=x3.device)
-    ptr = [t.data_ptr() for t in (x3, out, *_scratch(c, hp, wp, TILE_X,
-                                                     x3.device), prm)]
+    scratch = _scratch(c, hp, wp, TILE_X, x3.device)
+    ptr = [t.data_ptr() for t in (x3, out, *scratch, prm)]
     rc = lib.art_wavelet_multi(*ptr, c, h, w, hp, wp, kernels.stream_of(x3))
     kernels.check(rc, "art_wavelet_multi")
     wavelet_denoise_multi.launches += 1
@@ -318,6 +342,80 @@ def mad_sigma(d):
         lo = torch.where(go_up, mid, lo)
         hi = torch.where(go_up, hi, mid)
     return 0.5 * (lo + hi) * (1.0 / 0.6745)
+
+
+def top_mids(top):
+    """The mids of the top TOP levels of the bisection tree from (0, top)
+    for each row's max `top`, in order (the kernel's `top_mids`): entry e
+    lies between leaves e and e + 1 of those levels."""
+    tbl = torch.zeros(top.shape + (TOPN,), dtype=torch.float32,
+                      device=top.device)
+    for depth in range(TOP):
+        span = 1 << (TOP - depth)
+        f = torch.arange(1 << depth, device=top.device) * span
+        first, last = f == 0, f == f[-1]
+        lo = torch.where(first, 0.0, tbl[..., (f - 1).clamp(min=0)])
+        hi = torch.where(last, top[..., None],
+                         tbl[..., (f + span - 1).clamp(max=TOPN - 1)])
+        tbl[..., f + span // 2 - 1] = 0.5 * (lo + hi)
+    return tbl
+
+
+def sigma_leaves(a, top):
+    """Each value's leaf in the tree of mids that 14 bisection steps from
+    (0, top) can visit, as the kernel finds it: a (rows, n) >= 0, top
+    (rows,). Those mids are ordered, so the path through the top TOP
+    levels ends at the count of their mids below the value (the kernel
+    reaches it from an estimate and a step or two), between the two mids
+    around it as lo and hi; the last levels are walked by the steps' own
+    comparison a <= mid."""
+    tbl = top_mids(top)
+    e = torch.searchsorted(tbl, a.contiguous())
+    lo = torch.where(e > 0, tbl.gather(1, (e - 1).clamp(min=0)), 0.0)
+    hi = torch.where(e < TOPN, tbl.gather(1, e.clamp(max=TOPN - 1)),
+                     top[:, None])
+    leaf = e
+    for _ in range(BISECT - TOP):
+        mid = 0.5 * (lo + hi)
+        up = ~(a <= mid)
+        lo = torch.where(up, mid, lo)
+        hi = torch.where(up, hi, mid)
+        leaf = 2 * leaf + up
+    return leaf
+
+
+def mad_sigma_hist(d):
+    """`mad_sigma` as the kernel reaches it, for the tests: each value's
+    leaf (`sigma_leaves`), the leaves' histogram, then the 14 steps, each
+    count of values <= mid being the count below the current node plus
+    its left half. Equal to `mad_sigma` bit for bit."""
+    a = torch.abs(d).flatten(-2)
+    batch = a.shape[:-1]
+    a = a.reshape(-1, a.shape[-1])
+    n = torch.tensor(float(a.shape[-1]), dtype=torch.float32,
+                     device=a.device)
+    top = a.amax(-1)
+    leaf = sigma_leaves(a, top)
+    rows = torch.arange(a.shape[0], device=a.device)[:, None] * LEAVES
+    hist = torch.bincount((leaf + rows).flatten(),
+                          minlength=a.shape[0] * LEAVES).reshape(-1, LEAVES)
+    below_leaf = torch.nn.functional.pad(hist.cumsum(-1), (1, 0))
+    lo = torch.zeros_like(top)
+    hi = top
+    node = torch.zeros_like(rows[:, 0])
+    below = torch.zeros_like(node)
+    for k in range(BISECT):
+        start = node << (BISECT - k)
+        half = LEAVES >> (k + 1)
+        count = below + (below_leaf.gather(1, (start + half)[:, None])
+                         - below_leaf.gather(1, start[:, None]))[:, 0]
+        mid = 0.5 * (lo + hi)
+        go_up = count.to(torch.float32) / n < 0.5
+        lo = torch.where(go_up, mid, lo)
+        hi = torch.where(go_up, hi, mid)
+        below = torch.where(go_up, count, below)
+        node = 2 * node + go_up
+    return (0.5 * (lo + hi) * (1.0 / 0.6745)).reshape(batch)
 
 
 def band_sigmas(yuv, tx, pinned=(-1.0, -1.0, -1.0)):

@@ -24,8 +24,12 @@ kernel equals its plain PyTorch version on the tensors its path feeds it
 (bounds below), and that a 512x2048 develop on the card agrees with the
 same develop on the CPU's plain path, for each path, to the slice bounds
 of the CPU tests. It prints the card's name and power limit, develop
-and device-program timings, peak memory, torch.profiler tables, one JSON
-line of per-kernel results (time, plain time, bound) and last the line
+and device-program timings, peak memory, torch.profiler tables, the
+kernels' ptxas report (registers, spills), for B4 and B5 their kernels'
+registers and shared memory as loaded, scratch bytes and device time by
+kernel name (sigma passes against level kernels, also on a constant
+frame, where every value falls in one histogram bin), one JSON line of
+per-kernel results (time, plain time, bound) and last the line
 {"ok": true, "device": {...}}. Any failure raises (non-zero exit, no
 result lines); so does a machine without CUDA.
 """
@@ -338,6 +342,55 @@ def profile_develop(frame, pp):
         f"{k[4:]} {us / 1e3:.2f}" for k, us in stages))
 
 
+def kernel_breakdown(label, fn, parts):
+    """Device time of one call of fn by kernel name (torch.profiler), and
+    the share of each part: name -> kernel-name prefixes. Returns the
+    launches of each kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.count, e.self_device_time_total)
+            for e in prof.key_averages()
+            if e.device_type != DeviceType.CPU
+            and e.self_device_time_total > 0]
+    total = sum(us for _, _, us in rows)
+    log(f"{label} by kernel (one call, device {total / 1e3:.3f} ms):")
+    for key, n, us in sorted(rows, key=lambda r: -r[2]):
+        log(f"  {us / 1e3:8.3f} ms  x{n}  {key[:100]}")
+    for part, prefixes in parts.items():
+        us = sum(u for k, _, u in rows
+                 if any(p in k for p in prefixes))
+        log(f"  {part}: {us / 1e3:.3f} ms, {us / total:.3f} of the call")
+    return {k: n for k, n, _ in rows}
+
+
+WAVELET_PARTS = {"sigma passes (memsets, win_max, win_hist, select)":
+                 ("Memset", "win_max_kernel", "win_hist_kernel",
+                  "select_kernel"),
+                 "level kernels": ("level_kernel",),
+                 "head, pad and tail": ("head_kernel", "pad_kernel",
+                                        "tail_kernel")}
+
+
+def check_wavelet_launches(label, counts):
+    """The sigma is a fixed number of kernels per call (one each of
+    win_max, win_hist and select), and the levels one kernel each."""
+    def n(prefix):
+        return sum(c for k, c in counts.items() if prefix in k)
+
+    got = {p: n(p) for p in ("win_max_kernel", "win_hist_kernel",
+                             "select_kernel", "level_kernel")}
+    if got != {"win_max_kernel": 1, "win_hist_kernel": 1,
+               "select_kernel": 1, "level_kernel": 5}:
+        raise RuntimeError(f"{label}: unexpected kernel launches {got}")
+
+
 def kernel_entry(name, key, source, replaces, launches, k_out, p_out,
                  ms, plain_ms, bnd, note=""):
     err, mean = diff_stats(k_out, p_out)
@@ -389,6 +442,9 @@ def main():
     for line in kernels.build_info.get("log", "").splitlines():
         if "registers" in line or "spill" in line:
             log("  ptxas:", line.strip())
+    log("wavelet kernels (B4, B5) as loaded:")
+    for line in wk.layout().splitlines():
+        log("  " + line)
 
     # ---- the main path: the AMaZE flagship
     t0 = time.monotonic()
@@ -448,6 +504,18 @@ def main():
     b4_args, b4_kw = denoise.kernel_args(dn, config.steps[0][1])
     b4_args = (rgb,) + b4_args
     plain_args = (rgb,) + wk.prepare(*b4_args, **b4_kw)
+    _, hp4, wp4 = wk.tile_geometry(*rgb.shape[1:], plain_args[4])
+    log(f"B4 scratch at {tuple(rgb.shape)}: "
+        f"{wk.scratch_bytes(3, hp4, wp4, plain_args[4]) / 1e9:.3f} GB")
+    check_wavelet_launches("B4", kernel_breakdown(
+        "B4", lambda: wk.wavelet_denoise_rgb(*b4_args, **b4_kw),
+        WAVELET_PARTS))
+    # the sigma's worst case: every |d0| of a window in one leaf, so pass
+    # B's shared-memory atomics all hit one bin
+    flat = torch.full_like(rgb, 0.5)
+    kernel_breakdown("B4 on a constant frame", lambda: wk.wavelet_denoise_rgb(
+        flat, *b4_args[1:], **b4_kw), WAVELET_PARTS)
+    del flat
     b4_k = wk.wavelet_denoise_rgb(*b4_args, **b4_kw)
     b4_p, *ops = needed_ops(lambda: wk.wavelet_rgb_plain(*plain_args))
     torch.cuda.synchronize()
@@ -483,6 +551,17 @@ def main():
     del rgb, cfa
     strengths, blends = denoise.strengths_blends(dn3, dn3_static)
     prm = wk.multi_params(3, [-1.0] * 3, strengths, blends, "cuda")
+    hp5, wp5 = wk.multi_geometry(*x3.shape[1:])
+    log(f"B5 scratch at {tuple(x3.shape)}: "
+        f"{wk.scratch_bytes(3, hp5, wp5, wk.TILE_X) / 1e9:.3f} GB")
+    check_wavelet_launches("B5", kernel_breakdown(
+        "B5", lambda: wk.wavelet_denoise_multi(x3, [-1.0] * 3, strengths,
+                                               blends), WAVELET_PARTS))
+    flat = torch.full_like(x3, 0.5)
+    kernel_breakdown("B5 on a constant frame",
+                     lambda: wk.wavelet_denoise_multi(
+                         flat, [-1.0] * 3, strengths, blends), WAVELET_PARTS)
+    del flat
     b5_k = wk.wavelet_denoise_multi(x3, [-1.0] * 3, strengths, blends)
     b5_p, *ops = needed_ops(lambda: wk.wavelet_multi_plain(x3, prm))
     torch.cuda.synchronize()

@@ -67,16 +67,35 @@ def _scene(h, w, seed):
     return (np.clip(rgb, 0.005, 1.0) * 40000).astype(np.float32)
 
 
+# B4 cases: (shape, raw head, sigmas, constant input). The kernel's blocks
+# take 32-64 x 128 tiles of the padded plane and 32 x 128 tiles of each
+# sigma window; the image widths 1100 and 1216 are no multiple of them
+# (the padded planes are), 300 rows pad to 512, a constant frame has
+# sigma 0 (every gain e9 / (e9 + 1e-12)), and pinned sigmas (>= 0) skip
+# the MAD passes of their plane
+WAVELET_RGB_CASES = [((256, 2048), True, [-1.0] * 3, False),
+                     ((512, 1024), True, [-1.0] * 3, False),
+                     ((300, 1152), True, [-1.0] * 3, False),
+                     ((256, 1100), True, [-1.0] * 3, False),
+                     ((256, 1024), False, [-1.0] * 3, False),
+                     ((300, 1216), True, [-1.0] * 3, False),
+                     ((256, 1024), True, [-1.0] * 3, True),
+                     ((512, 2048), True, [0.02, -1.0, 0.0], False)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,pre", [((256, 2048), True),
-                                       ((512, 1024), True),
-                                       ((300, 1152), True),
-                                       ((256, 1100), True),
-                                       ((256, 1024), False)])
-def test_wavelet_kernel_matches_plain(cuda_device, shape, pre):
+@pytest.mark.parametrize(
+    "shape,pre,sigmas,flat", WAVELET_RGB_CASES,
+    ids=["256x2048", "512x1024", "300x1152-tile-pad", "256x1100",
+         "256x1024-no-head", "300x1216-tile-pad", "constant",
+         "pinned-and-mad"])
+def test_wavelet_kernel_matches_plain(cuda_device, shape, pre, sigmas,
+                                      flat):
     rgb = torch.from_numpy(_scene(*shape, 9)).to(cuda_device)
+    if flat:
+        rgb = torch.full_like(rgb, 20000.0)
     gf, gi = fit_gamma_split(1.7)
-    args = (rgb, LUM_W, np.float32(1.0), gf, gi, [-1.0] * 3,
+    args = (rgb, LUM_W, np.float32(1.0), gf, gi, sigmas,
             [0.8, 1.4, 0.45], [0.3, 0.0, 0.0])
     kw = {"pre": (MULTS, CAM2WORK) if pre else None}
     before = wk.wavelet_denoise_rgb.launches
@@ -84,7 +103,8 @@ def test_wavelet_kernel_matches_plain(cuda_device, shape, pre):
     torch.cuda.synchronize()
     assert wk.wavelet_denoise_rgb.launches == before + 1
     plain = wk.wavelet_rgb_plain(rgb, *wk.prepare(*args, **kw))
-    # built without FMA contraction, same operation order: equal
+    # built without FMA contraction, same operation order, the same
+    # bisection counts (from the leaf histogram): equal
     assert torch.equal(out, plain)
 
 
@@ -175,14 +195,29 @@ def test_develop_on_card_matches_cpu(cuda_device, method):
 
 
 
+# B5 cases: (shape, sigmas, plane 0 constant). 256 x 1024 tiles on the
+# reflect-padded plane: 300 x 1100 pads to 512 x 2048, 512 x 3072 is a
+# grid of 2 x 3 tiles; a constant plane has sigma 0
+WAVELET_MULTI_CASES = [((3, 256, 1024), [-1.0] * 3, False),
+                       ((3, 300, 1100), [-1.0] * 3, False),
+                       ((2, 512, 2048), [0.05, -1.0], False),
+                       ((3, 512, 3072), [-1.0] * 3, False),
+                       ((3, 256, 1024), [-1.0] * 3, True),
+                       ((3, 300, 2100), [0.0, -1.0, 0.03], False)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,sigmas", [((3, 256, 1024), [-1.0] * 3),
-                                          ((3, 300, 1100), [-1.0] * 3),
-                                          ((2, 512, 2048), [0.05, -1.0])])
-def test_wavelet_multi_kernel_matches_plain(cuda_device, shape, sigmas):
+@pytest.mark.parametrize(
+    "shape,sigmas,flat", WAVELET_MULTI_CASES,
+    ids=["3x256x1024", "3x300x1100-tile-pad", "pinned-and-mad",
+         "2x3-tiles", "constant-plane", "300x2100-pinned-zero"])
+def test_wavelet_multi_kernel_matches_plain(cuda_device, shape, sigmas,
+                                            flat):
     rng = np.random.default_rng(6)
-    x = torch.from_numpy(rng.normal(0.5, 0.1, shape).astype(np.float32)).to(
-        cuda_device)
+    x = rng.normal(0.5, 0.1, shape).astype(np.float32)
+    if flat:
+        x[0] = 0.3
+    x = torch.from_numpy(x).to(cuda_device)
     c = shape[0]
     args = (x, sigmas, [0.8, 1.4, 0.45][-c:], [0.3, 0.0, 0.0][-c:])
     before = wk.wavelet_denoise_multi.launches
@@ -190,7 +225,8 @@ def test_wavelet_multi_kernel_matches_plain(cuda_device, shape, sigmas):
     torch.cuda.synchronize()
     assert wk.wavelet_denoise_multi.launches == before + 1
     prm = torch.tensor([args[1], args[2], args[3]], device=cuda_device)
-    # built without FMA contraction, same operation order: equal
+    # built without FMA contraction, same operation order, the same
+    # bisection counts (from the leaf histogram): equal
     assert torch.equal(out, wk.wavelet_multi_plain(x, prm))
 
 
