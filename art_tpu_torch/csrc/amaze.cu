@@ -11,31 +11,33 @@
 // (__frcp_rn, where the TPU kernel took an approximate one), built with
 // -fmad=false so no multiply-add is contracted.
 //
-// Design: one thread per pixel, each stage split into passes over device
-// memory at the points where an intermediate is read at an offset; that
-// intermediate is written to a scratch plane. Values that are functions
-// of the mosaic alone (dirwts, delh/delv, delp/delm, the diagonal squared
-// differences) are recomputed at the neighbour instead. The padded plane
-// is H+48 by W+48 (HALO 24), so any nested read stays within one wrap.
+// Design of B1 and B3: one thread per pixel, each stage split into passes
+// over device memory at the points where an intermediate is read at an
+// offset; that intermediate is written to a scratch plane. Values that
+// are functions of the mosaic alone (dirwts, delh/delv, delp/delm, the
+// diagonal squared differences) are recomputed at the neighbour instead.
+// The padded plane is H+48 by W+48 (HALO 24), so any nested read stays
+// within one wrap.
 //
 //   B1  s1_cd -> s1_select -> s1_hvwt                      3 passes
-//   B2  s2_nyq -> s2_ny2 -> s2_vsum -> s2_area -> s2_green0
-//       -> s2_curv -> s2_green                              7 passes
+//   B2  s2_tile                                             1 pass
 //   B3  s3_diag -> s3_rbint -> s3_gcorr -> s3_prop -> s3_out 5 passes
 //
 // Bound on this card: the work is ~40 divides and several hundred float
 // operations per pixel, against one read of the mosaic and one write of
-// the stage's planes (B3: of RGB). The passes re-read and re-write
-// ~30 scratch planes in all, so the first version is bound by device
-// memory traffic, not by the arithmetic; keeping the intermediates in
-// shared-memory tiles and fusing the passes is the way to the bound.
+// the stage's planes (B3: of RGB). Passes that re-read and re-write
+// scratch planes are bound by device memory traffic, not by the
+// arithmetic; B2 keeps its intermediates in shared-memory tiles in one
+// pass (see s2_tile), the way to the bound that B1 and B3 can follow.
 //
 // Each entry point launches on the given stream, allocates nothing (the
-// wrapper passes the output and scratch planes) and returns
-// cudaGetLastError().
+// wrapper passes the output planes and B1's and B3's scratch planes) and
+// returns cudaGetLastError().
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdio.h>
 
 namespace {
 
@@ -69,6 +71,12 @@ __device__ __forceinline__ int wrap(int i, int n) {
   if (i < 0) return i + n;
   if (i >= n) return i - n;
   return i;
+}
+
+// i modulo n in [0, n), for any i
+__device__ __forceinline__ int wrap_any(int i, int n) {
+  const int m = i % n;
+  return m < 0 ? m + n : m;
 }
 
 // A (h, w) plane read periodically: P(y, x) for |y|, |x| within one wrap.
@@ -274,45 +282,82 @@ __global__ void s1_hvwt(int h, int w, const float* __restrict__ t,
 }
 
 // ---------------------------------------------------------------- B2
+//
+// Stages 5-6 in one kernel, s2_tile: one block of S2_THREADS per output
+// tile of S2_TH x S2_TW, every intermediate in shared memory over the
+// tile grown by its reach (measured outward from the output tile):
+//
+//   curv_h, curv_v            2   gquinc (+-2) at the output
+//   hvwt', green0, vcd, hcd   3   the curvature (+-1)
+//   hvwt after the area       4   the diagonal smoothing (+-1)
+//   ny2f                     10   the area sums (+-6) at +-4
+//   nyqf                     12   the majority vote (+-2)
+//   cddiffsq, delhvsq        14   the Nyquist test (+-2)
+//   x                        15   delhvsq (+-1)
+//
+// (R_* below). In a regular Bayer plane the curvature reads green0 by 3
+// only at G sites, where it is x, so the outputs need x by 14; where the
+// seam of an odd-size plane puts two R/B sites side by side, green0 by 3
+// is read at an R/B site, so the tile keeps the full 15.
+//
+// The first design ran 7 passes over 12 scratch planes of
+// the padded plane (1.2 GB at 24 MP, ~4.3 GB of traffic a call); this
+// one reads x and s1 (the halos' re-reads mostly from L2) and writes
+// green and hvwt', with no scratch in device memory. Halo loads wrap on
+// the global coordinate (tables of the tile's wrapped rows and columns),
+// and the CFA colour of every position is taken from its wrapped global
+// coordinate, so a tile at the plane's edge (and a plane of odd size)
+// reproduces the periodic values.
+//
+// What bounds it: the work per output pixel is a few hundred float
+// operations, most of them the Nyquist test over the tile grown by 12
+// (2.4x the tile's pixels), against 24 bytes of device memory. So the
+// kernel is made to issue little besides that arithmetic: all loads of a
+// block are asynchronous copies (cp.async) in flight together; the
+// Nyquist test walks down strips of NYQ_K rows with the 5x5 windows of
+// cddiffsq and delhvsq in registers (10 shared loads a row instead of 38
+// a pixel); the six area sums, read only where nyquist2, are computed
+// only there: the positions are listed (one atomic a warp) and the
+// block's threads share the list, each entry in _sum7's order (column
+// sums over rows first, then over columns), so a tile without a Nyquist
+// pixel skips them. The masks are bytes; the Nyquist planes and the
+// later float planes share one region of shared memory in turn.
+//
+// Bit-equality: every value is computed by the same float32 operations
+// in the same order as in stage2_plain; the per-pixel bodies below are
+// templates on their accessor (a global Plane, a shared Tile or a
+// register window), so the arithmetic is the same code whatever holds
+// the plane.
 
-__device__ __forceinline__ float delhvsq(const Plane& X, int y, int x) {
+constexpr int S2_TH = 32, S2_TW = 64;  // output tile
+constexpr int S2_THREADS = 384, S2_WARPS = S2_THREADS / 32;
+constexpr int NYQ_K = 14;  // rows a thread walks in the Nyquist test
+constexpr int R_X = 15, R_CD = 14, R_NYQ = 12, R_NY2 = 10, R_HVA = 4,
+              R_HV = 3, R_CURV = 2;
+
+template <class P>
+__device__ __forceinline__ float delhvsq(const P& X, int y, int x) {
   const float delh = fabsf(X(y, x + 1) - X(y, x - 1));
   const float delv = fabsf(X(y + 1, x) - X(y - 1, x));
   return delh * delh + delv * delv;
 }
 
-// stage 5: Nyquist test -> t[0] = nyqf
-__global__ void s2_nyq(Plane X, const float* __restrict__ s1,
-                       float* __restrict__ t, int pat) {
-  PIXEL(X.h, X.w)
-  const Plane V{s1, X.h, X.w}, H{s1 + n, X.h, X.w};
-  auto cd = [&](int dy, int dx) {
-    return sq(V(y + dy, x + dx) - H(y + dy, x + dx));
-  };
-  auto ds = [&](int dy, int dx) { return delhvsq(X, y + dy, x + dx); };
-  const float nyqutest =
-      (GO0 * cd(0, 0) + GO1 * (cd(-1, -1) + cd(-1, 1) + cd(1, -1) + cd(1, 1)) +
-       GO2 * (cd(-2, 0) + cd(0, -2) + cd(0, 2) + cd(2, 0)) +
-       GO3 * (cd(-2, -2) + cd(-2, 2) + cd(2, -2) + cd(2, 2))) -
-      (GG0 * ds(0, 0) + GG1 * (ds(-1, 0) + ds(0, 1) + ds(0, -1) + ds(1, 0)) +
-       GG2 * (ds(-1, -1) + ds(-1, 1) + ds(1, -1) + ds(1, 1)) +
-       GG3 * (ds(-2, 0) + ds(0, -2) + ds(0, 2) + ds(2, 0)) +
-       GG4 * (ds(-2, -1) + ds(-2, 1) + ds(-1, -2) + ds(-1, 2) + ds(1, -2) +
-              ds(1, 2) + ds(2, -1) + ds(2, 1)) +
-       GG5 * (ds(-2, -2) + ds(-2, 2) + ds(2, -2) + ds(2, 2)));
-  const float m_rbf = color(pat, y, x) != 1 ? 1.0f : 0.0f;
-  t[i] = (nyqutest > 0.0f ? 1.0f : 0.0f) * m_rbf;
-}
-
-// majority vote -> t[1] = ny2f
-__global__ void s2_ny2(int h, int w, float* __restrict__ t, int pat) {
-  PIXEL(h, w)
-  const Plane N{t, h, w};
-  const float nyqsum = N(y - 2, x) + N(y - 1, x - 1) + N(y - 1, x + 1) +
-                       N(y, x - 2) + N(y, x + 2) + N(y + 1, x - 1) +
-                       N(y + 1, x + 1) + N(y + 2, x);
-  const float m_rbf = color(pat, y, x) != 1 ? 1.0f : 0.0f;
-  t[n + i] = (nyqsum > 4.0f ? 1.0f : (nyqsum < 4.0f ? 0.0f : N(y, x))) * m_rbf;
+// stage 5: the Nyquist test from cddiffsq (CD) and delhvsqsum (DS)
+template <class P>
+__device__ __forceinline__ float nyqutest(const P& CD, const P& DS, int y,
+                                          int x) {
+  auto cd = [&](int dy, int dx) { return CD(y + dy, x + dx); };
+  auto ds = [&](int dy, int dx) { return DS(y + dy, x + dx); };
+  return (GO0 * cd(0, 0) +
+          GO1 * (cd(-1, -1) + cd(-1, 1) + cd(1, -1) + cd(1, 1)) +
+          GO2 * (cd(-2, 0) + cd(0, -2) + cd(0, 2) + cd(2, 0)) +
+          GO3 * (cd(-2, -2) + cd(-2, 2) + cd(2, -2) + cd(2, 2))) -
+         (GG0 * ds(0, 0) + GG1 * (ds(-1, 0) + ds(0, 1) + ds(0, -1) + ds(1, 0)) +
+          GG2 * (ds(-1, -1) + ds(-1, 1) + ds(1, -1) + ds(1, 1)) +
+          GG3 * (ds(-2, 0) + ds(0, -2) + ds(0, 2) + ds(2, 0)) +
+          GG4 * (ds(-2, -1) + ds(-2, 1) + ds(-1, -2) + ds(-1, 2) + ds(1, -2) +
+                 ds(1, 2) + ds(2, -1) + ds(2, 1)) +
+          GG5 * (ds(-2, -2) + ds(-2, 2) + ds(2, -2) + ds(2, 2)));
 }
 
 // 7 step-2 taps a[0..6] in _sum7's log-tree order
@@ -320,107 +365,320 @@ __device__ __forceinline__ float sum7(const float* a) {
   return (((a[0] + a[1]) + (a[2] + a[3])) + (a[4] + a[5])) + a[6];
 }
 
-// area sums, first dimension (rows): t[2..7] = column sums of x*ny2f,
-// cfah*ny2f, cfav*ny2f, sqh*ny2f, sqv*ny2f, ny2f
-__global__ void s2_vsum(Plane X, float* __restrict__ t) {
-  PIXEL(X.h, X.w)
-  const Plane NY{t + n, X.h, X.w};
-  float a[6][7];
+// hvwt from the six area sums (x*ny2f, cfah*ny2f, cfav*ny2f, sqh*ny2f,
+// sqv*ny2f, ny2f), each over rows then columns (_area_sum), at a
+// nyquist2 position
+template <class PX, class PN>
+__device__ float area_hvwt(const PX& X, const PN& NY, int y, int x) {
+  float cs[6][7];
+  float right[7];  // x at (q, xc + 1): the next column's left neighbour
+#pragma unroll
   for (int k = 0; k < 7; ++k) {
-    const int q = wrap(y - 6 + 2 * k, X.h);
-    const float ny = NY(q, x);
-    const float c = X(q, x);
-    const float l = X(q, x - 1), r = X(q, x + 1);
-    const float u = X(q - 1, x), d = X(q + 1, x);
-    a[0][k] = c * ny;
-    a[1][k] = (l + r) * ny;
-    a[2][k] = (u + d) * ny;
-    a[3][k] = (sq(c - l) + sq(c - r)) * ny;
-    a[4][k] = (sq(c - u) + sq(c - d)) * ny;
-    a[5][k] = ny;
-  }
-  for (int m = 0; m < 6; ++m) t[(2 + m) * n + i] = sum7(a[m]);
-}
-
-// area sums, second dimension (columns), and the Nyquist-region hvwt
-// -> t[8] = hvwt after stage 5
-__global__ void s2_area(int h, int w, const float* __restrict__ s1,
-                        float* __restrict__ t) {
-  PIXEL(h, w)
-  float hv = s1[2 * n + i];
-  if (t[n + i] > 0.5f) {  // nyquist2
-    float s[6];
-    for (int m = 0; m < 6; ++m) {
-      const Plane C{t + (2 + m) * n, h, w};
-      float a[7];
-      for (int k = 0; k < 7; ++k) a[k] = C(y, x - 6 + 2 * k);
-      s[m] = sum7(a);
+    const int xc = x - 6 + 2 * k;
+    float a[6][7];
+    float up = X(y - 7, xc);  // the first tap's upper neighbour
+#pragma unroll
+    for (int j = 0; j < 7; ++j) {
+      const int q = y - 6 + 2 * j;
+      const float ny = NY(q, xc) ? 1.0f : 0.0f;
+      const float c = X(q, xc);
+      const float l = k ? right[j] : X(q, xc - 1), r = X(q, xc + 1);
+      const float u = up, d = X(q + 1, xc);
+      right[j] = r;
+      up = d;
+      a[0][j] = c * ny;
+      a[1][j] = (l + r) * ny;
+      a[2][j] = (u + d) * ny;
+      a[3][j] = (sq(c - l) + sq(c - r)) * ny;
+      a[4][j] = (sq(c - u) + sq(c - d)) * ny;
+      a[5][j] = ny;
     }
-    const float sumcfa = s[0];
-    const float sumh = sumcfa - 0.5f * s[1];
-    const float sumv = sumcfa - 0.5f * s[2];
-    const float areawt = 0.5f * s[5];
-    const float hcdvar = EPSSQ + fabsf(areawt * s[3] - sumh * sumh);
-    const float vcdvar = EPSSQ + fabsf(areawt * s[4] - sumv * sumv);
-    hv = hcdvar * rcp(vcdvar + hcdvar);
+#pragma unroll
+    for (int m = 0; m < 6; ++m) cs[m][k] = sum7(a[m]);
   }
-  t[8 * n + i] = hv;
+  float s[6];
+#pragma unroll
+  for (int m = 0; m < 6; ++m) s[m] = sum7(cs[m]);
+  const float sumcfa = s[0];
+  const float sumh = sumcfa - 0.5f * s[1];
+  const float sumv = sumcfa - 0.5f * s[2];
+  const float areawt = 0.5f * s[5];
+  const float hcdvar = EPSSQ + fabsf(areawt * s[3] - sumh * sumh);
+  const float vcdvar = EPSSQ + fabsf(areawt * s[4] - sumv * sumv);
+  return hcdvar * rcp(vcdvar + hcdvar);
 }
 
-// stage 6: hvwt smoothing -> out[1]; first G at R/B -> t[9] = green0
-__global__ void s2_green0(Plane X, const float* __restrict__ s1,
-                          float* __restrict__ t, float* __restrict__ out,
-                          int pat) {
-  PIXEL(X.h, X.w)
-  const Plane HV{t + 8 * n, X.h, X.w};
-  const float alt = 0.25f * (HV(y - 1, x - 1) + HV(y - 1, x + 1) +
-                             HV(y + 1, x - 1) + HV(y + 1, x + 1));
-  float hv = HV(y, x);
-  if (fabsf(0.5f - hv) < fabsf(0.5f - alt)) hv = alt;
-  out[n + i] = hv;
-  const float dgrb0 = hv * s1[i] + (1.0f - hv) * s1[n + i];
-  const float c = X(y, x);
-  t[9 * n + i] = color(pat, y, x) != 1 ? c + dgrb0 : c;
+template <class P>
+__device__ __forceinline__ float gquinc(const P& Q, int y, int x) {
+  return GQ0 * Q(y, x) +
+         GQ1 * (Q(y - 1, x - 1) + Q(y - 1, x + 1) + Q(y + 1, x - 1) +
+                Q(y + 1, x + 1)) +
+         GQ2 * (Q(y - 2, x) + Q(y, x - 2) + Q(y, x + 2) + Q(y + 2, x)) +
+         GQ3 * (Q(y - 2, x - 2) + Q(y - 2, x + 2) + Q(y + 2, x - 2) +
+                Q(y + 2, x + 2));
 }
 
-// green curvature in Nyquist regions -> t[10], t[11]
-__global__ void s2_curv(int h, int w, float* __restrict__ t) {
-  PIXEL(h, w)
-  const Plane G{t + 9 * n, h, w};
-  float ch = 0.0f, cv = 0.0f;
-  if (t[n + i] > 0.5f) {
-    const float g = G(y, x);
-    ch = sq(g - 0.5f * (G(y, x - 1) + G(y, x + 1)));
-    cv = sq(g - 0.5f * (G(y - 1, x) + G(y + 1, x)));
+// A plane in shared memory over the output tile grown by HALO, indexed
+// by tile-relative (y, x) with -HALO <= y < S2_TH + HALO; a row holds
+// PITCH values from column -LEFT (planes copied in 16-byte pieces start
+// at a multiple of 4 columns).
+template <typename T, int HALO, int LEFT = HALO,
+          int PITCH = S2_TW + 2 * HALO>
+struct Tile {
+  static constexpr int R = HALO, H = S2_TH + 2 * HALO, W = S2_TW + 2 * HALO,
+                       N = H * W, L = LEFT, P = PITCH;
+  static constexpr size_t BYTES = sizeof(T) * H * PITCH;
+  static_assert(LEFT >= HALO && PITCH - LEFT >= S2_TW + HALO, "a row fits");
+  T* p;
+  __device__ __forceinline__ T& operator()(int y, int x) const {
+    return p[(y + HALO) * PITCH + x + LEFT];
   }
-  t[10 * n + i] = ch;
-  t[11 * n + i] = cv;
-}
+};
 
-__device__ __forceinline__ float gquinc(const Plane& P, int y, int x) {
-  return GQ0 * P(y, x) +
-         GQ1 * (P(y - 1, x - 1) + P(y - 1, x + 1) + P(y + 1, x - 1) +
-                P(y + 1, x + 1)) +
-         GQ2 * (P(y - 2, x) + P(y, x - 2) + P(y, x + 2) + P(y + 2, x)) +
-         GQ3 * (P(y - 2, x - 2) + P(y - 2, x + 2) + P(y + 2, x - 2) +
-                P(y + 2, x + 2));
-}
-
-// Nyquist refinement of G at R/B sites -> out[0] = green
-__global__ void s2_green(Plane X, const float* __restrict__ s1,
-                         const float* __restrict__ t,
-                         float* __restrict__ out, int pat) {
-  PIXEL(X.h, X.w)
-  const float vcd = s1[i], hcd = s1[n + i];
-  const float hv = out[n + i];
-  float dgrb0 = hv * vcd + (1.0f - hv) * hcd;
-  if (t[n + i] > 0.5f) {
-    const Plane CH{t + 10 * n, X.h, X.w}, CV{t + 11 * n, X.h, X.w};
-    const float gvarh = EPSSQ + gquinc(CH, y, x);
-    const float gvarv = EPSSQ + gquinc(CV, y, x);
-    dgrb0 = (hcd * gvarv + vcd * gvarh) * rcp(gvarv + gvarh);
+// a 5x5 window of registers, w[q + dy][2 + dx] at (dy, dx) for the
+// window centred on row q
+template <int ROWS>
+struct Window {
+  const float (&w)[ROWS][5];
+  int q;
+  __device__ __forceinline__ float operator()(int dy, int dx) const {
+    return w[q + dy][2 + dx];
   }
-  out[i] = color(pat, y, x) != 1 ? X(y, x) + dgrb0 : t[9 * n + i];
+};
+
+// the planes copied from device memory: x, vcd and hcd by 14, s1's hvwt
+constexpr int LEFT16 = 16, PITCH16 = S2_TW + 32;
+using TileX = Tile<float, R_X, LEFT16, PITCH16>;
+using TileCD = Tile<float, R_CD, LEFT16, PITCH16>;
+using TileNYQ = Tile<unsigned char, R_NYQ>;
+using TileNY2 = Tile<unsigned char, R_NY2>;
+using TileHVA = Tile<float, R_HVA, 4, S2_TW + 8>;
+using TileHV = Tile<float, R_HV>;
+using TileCurv = Tile<float, R_CURV>;
+static_assert(TileNYQ::H % NYQ_K == 0, "whole strips");
+// a warp's list segment: the most positions it visits in the vote
+constexpr int SEGMENT = (TileNY2::N + S2_THREADS - 1) / S2_THREADS * 32;
+
+// f(y, x) at every position of tile T, the block's threads in turn
+template <class T, class F>
+__device__ __forceinline__ void each(F f) {
+#pragma unroll 2
+  for (int i = threadIdx.x; i < T::N; i += S2_THREADS)
+    f(i / T::W - T::R, i % T::W - T::R);
+}
+
+// asynchronous copies of src into tile t's rows (rows: the wrapped
+// global rows from -R_X; cols: the wrapped global columns from -LEFT16):
+// 16 bytes at a time where the tile's columns lie inside the plane at
+// 16-byte alignment (x0 the tile's first column), else 4 bytes at a time
+// through the wrapped columns
+template <class T>
+__device__ __forceinline__ void copy_in(const T& t, const float* src,
+                                        const int* rows, const int* cols,
+                                        int w, int x0, bool by16) {
+  const int lane = threadIdx.x % 32;
+  for (int r = threadIdx.x / 32; r < T::H; r += S2_THREADS / 32) {
+    const float* srow = src + static_cast<size_t>(rows[r - T::R + R_X]) * w;
+    float* drow = t.p + r * T::P;
+    if (by16) {
+      for (int c = 4 * lane; c < T::P; c += 128)
+        __pipeline_memcpy_async(drow + c, srow + x0 - T::L + c, 16);
+    } else {
+      for (int c = lane; c < T::P; c += 32)
+        __pipeline_memcpy_async(drow + c, srow + cols[c - T::L + LEFT16], 4);
+    }
+  }
+}
+
+constexpr size_t al16(size_t b) { return (b + 15) / 16 * 16; }
+constexpr size_t smax(size_t a, size_t b) { return a > b ? a : b; }
+
+// shared memory of s2_tile, in bytes: the wrapped rows and columns, x,
+// the masks, vcd and hcd by 3, the area hvwt (s1's, then replaced where
+// nyquist2), then one region that holds vcd and hcd by 14 until they
+// become cddiffsq and delhvsq for the Nyquist test, then the list of
+// nyquist2 positions (over hvwt', not yet written), then hvwt', green0
+// and the curvatures
+constexpr size_t OFF_ROWS = 0;
+constexpr size_t OFF_COLS = OFF_ROWS + al16(TileX::H * sizeof(int));
+constexpr size_t OFF_COUNT = OFF_COLS + al16(TileX::P * sizeof(int));
+constexpr size_t OFF_X = OFF_COUNT + al16(S2_WARPS * sizeof(int));
+constexpr size_t OFF_NYQ = OFF_X + al16(TileX::BYTES);
+constexpr size_t OFF_NY2 = OFF_NYQ + al16(TileNYQ::BYTES);
+constexpr size_t OFF_V3 = OFF_NY2 + al16(TileNY2::BYTES);
+constexpr size_t OFF_H3 = OFF_V3 + al16(TileHV::BYTES);
+constexpr size_t OFF_HVA = OFF_H3 + al16(TileHV::BYTES);
+constexpr size_t OFF_U = OFF_HVA + al16(TileHVA::BYTES);
+constexpr size_t OFF_CD = OFF_U;
+constexpr size_t OFF_DS = OFF_CD + al16(TileCD::BYTES);
+constexpr size_t OFF_HV = OFF_U;
+constexpr size_t OFF_LIST = OFF_HV;
+constexpr size_t OFF_G0 = OFF_HV + al16(TileHV::BYTES);
+constexpr size_t OFF_CH = OFF_G0 + al16(TileHV::BYTES);
+constexpr size_t OFF_CV = OFF_CH + al16(TileCurv::BYTES);
+constexpr size_t S2_SMEM =
+    smax(OFF_DS + TileCD::BYTES, OFF_CV + TileCurv::BYTES);
+static_assert(S2_WARPS * SEGMENT * sizeof(short) <= TileHV::BYTES,
+              "the list fits under hvwt'");
+static_assert(TileHVA::N < 65536, "list entries are 16-bit");
+static_assert(2 * (S2_SMEM + 1024) <= 233472, "two blocks an SM");
+
+// x: the padded plane (h, w); s1: stage 1's vcd, hcd, hvwt; out: green,
+// hvwt'
+__global__ void __launch_bounds__(S2_THREADS, 2)
+    s2_tile(const float* __restrict__ x, const float* __restrict__ s1,
+            float* __restrict__ out, int h, int w, int pat, bool aligned) {
+  extern __shared__ float4 s2_smem[];
+  unsigned char* sm = reinterpret_cast<unsigned char*>(s2_smem);
+  int* rows = reinterpret_cast<int*>(sm + OFF_ROWS);
+  int* cols = reinterpret_cast<int*>(sm + OFF_COLS);
+  int* counts = reinterpret_cast<int*>(sm + OFF_COUNT);
+  unsigned short* list = reinterpret_cast<unsigned short*>(sm + OFF_LIST);
+  auto fp = [&](size_t off) { return reinterpret_cast<float*>(sm + off); };
+  const TileX X{fp(OFF_X)};
+  const TileCD CD{fp(OFF_CD)}, DS{fp(OFF_DS)};
+  const TileNYQ NYQ{sm + OFF_NYQ};
+  const TileNY2 NY2{sm + OFF_NY2};
+  const TileHVA HVA{fp(OFF_HVA)};
+  const TileHV V3{fp(OFF_V3)}, H3{fp(OFF_H3)};
+  const TileHV HV{fp(OFF_HV)}, G0{fp(OFF_G0)};
+  const TileCurv CH{fp(OFF_CH)}, CV{fp(OFF_CV)};
+  const size_t n = static_cast<size_t>(h) * w;
+  const int y0 = blockIdx.y * S2_TH, x0 = blockIdx.x * S2_TW;
+  const int tid = threadIdx.x, lane = tid % 32;
+
+  // the wrapped global rows of the tile grown by R_X and its columns
+  // from -LEFT16
+  for (int i = tid; i < TileX::H + TileX::P; i += S2_THREADS) {
+    if (i < TileX::H)
+      rows[i] = wrap_any(y0 + i - R_X, h);
+    else
+      cols[i - TileX::H] = wrap_any(x0 + i - TileX::H - LEFT16, w);
+  }
+  __syncthreads();
+  auto rb = [&](int y, int xx) {
+    return color(pat, rows[y + R_X], cols[xx + LEFT16]) != 1;
+  };
+  // every load of the block at once; vcd and hcd land where cddiffsq
+  // and delhvsq will be
+  const bool by16 =
+      aligned && x0 >= LEFT16 && x0 - LEFT16 + PITCH16 <= w;
+  copy_in(X, x, rows, cols, w, x0, by16);
+  copy_in(CD, s1, rows, cols, w, x0, by16);
+  copy_in(DS, s1 + n, rows, cols, w, x0, by16);
+  copy_in(HVA, s1 + 2 * n, rows, cols, w, x0, by16);
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncthreads();
+  each<TileCD>([&](int y, int xx) {
+    const float vc = CD(y, xx), hc = DS(y, xx);
+    if (y >= -R_HV && y < S2_TH + R_HV && xx >= -R_HV && xx < S2_TW + R_HV) {
+      V3(y, xx) = vc;
+      H3(y, xx) = hc;
+    }
+    CD(y, xx) = sq(vc - hc);
+    DS(y, xx) = delhvsq(X, y, xx);
+  });
+  __syncthreads();
+  // stage 5: Nyquist test -> nyqf, down strips of NYQ_K rows
+  for (int j = tid; j < TileNYQ::H / NYQ_K * TileNYQ::W; j += S2_THREADS) {
+    const int xx = j % TileNYQ::W - R_NYQ;
+    const int yt = j / TileNYQ::W * NYQ_K - R_NYQ;
+    float cw[NYQ_K + 4][5], dw[NYQ_K + 4][5];
+#pragma unroll
+    for (int q = 0; q < NYQ_K + 4; ++q) {
+#pragma unroll
+      for (int u = 0; u < 5; ++u) {
+        cw[q][u] = CD(yt - 2 + q, xx - 2 + u);
+        dw[q][u] = DS(yt - 2 + q, xx - 2 + u);
+      }
+      if (q >= 4) {
+        const int y = yt + q - 4;
+        const Window<NYQ_K + 4> C{cw, q - 2}, D{dw, q - 2};
+        NYQ(y, xx) = nyqutest(C, D, 0, 0) > 0.0f && rb(y, xx);
+      }
+    }
+  }
+  __syncthreads();
+  // majority vote -> ny2f (nyqsum counts whole numbers: exact), and the
+  // list of nyquist2 positions by R_HVA: each warp fills its own segment
+  int listed = 0;
+  unsigned short* seg = list + (tid / 32) * SEGMENT;
+  for (int i0 = tid - lane; i0 < TileNY2::N; i0 += S2_THREADS) {
+    const int i = i0 + lane;
+    const int y = i / TileNY2::W - R_NY2, xx = i % TileNY2::W - R_NY2;
+    bool need = false;
+    if (i < TileNY2::N) {
+      const int nyqsum = NYQ(y - 2, xx) + NYQ(y - 1, xx - 1) +
+                         NYQ(y - 1, xx + 1) + NYQ(y, xx - 2) +
+                         NYQ(y, xx + 2) + NYQ(y + 1, xx - 1) +
+                         NYQ(y + 1, xx + 1) + NYQ(y + 2, xx);
+      const bool ny2 =
+          (nyqsum > 4 || (nyqsum == 4 && NYQ(y, xx))) && rb(y, xx);
+      NY2(y, xx) = ny2;
+      need = ny2 && y >= -R_HVA && y < S2_TH + R_HVA && xx >= -R_HVA &&
+             xx < S2_TW + R_HVA;
+    }
+    const unsigned m = __ballot_sync(0xffffffffu, need);
+    if (need)
+      seg[listed + __popc(m & ((1u << lane) - 1u))] =
+          static_cast<unsigned short>((y + R_HVA) * TileHVA::W + xx + R_HVA);
+    listed += __popc(m);
+  }
+  if (lane == 0) counts[tid / 32] = listed;
+  __syncthreads();
+  // hvwt after the area test where nyquist2, the segments' entries shared
+  // out in turn
+  int total = 0;
+  for (int wi = 0; wi < S2_WARPS; ++wi) total += counts[wi];
+  for (int k = tid; k < total; k += S2_THREADS) {
+    int wi = 0, at = k;
+    while (at >= counts[wi]) at -= counts[wi++];
+    const int i = list[wi * SEGMENT + at];
+    const int y = i / TileHVA::W - R_HVA, xx = i % TileHVA::W - R_HVA;
+    HVA(y, xx) = area_hvwt(X, NY2, y, xx);
+  }
+  __syncthreads();
+  // stage 6: hvwt smoothing; the first G at R/B sites -> green0
+  each<TileHV>([&](int y, int xx) {
+    const float alt = 0.25f * (HVA(y - 1, xx - 1) + HVA(y - 1, xx + 1) +
+                               HVA(y + 1, xx - 1) + HVA(y + 1, xx + 1));
+    float hv = HVA(y, xx);
+    if (fabsf(0.5f - hv) < fabsf(0.5f - alt)) hv = alt;
+    HV(y, xx) = hv;
+    const float dgrb0 = hv * V3(y, xx) + (1.0f - hv) * H3(y, xx);
+    const float c = X(y, xx);
+    G0(y, xx) = rb(y, xx) ? c + dgrb0 : c;
+  });
+  __syncthreads();
+  // green curvature in Nyquist regions
+  each<TileCurv>([&](int y, int xx) {
+    float ch = 0.0f, cv = 0.0f;
+    if (NY2(y, xx)) {
+      const float g = G0(y, xx);
+      ch = sq(g - 0.5f * (G0(y, xx - 1) + G0(y, xx + 1)));
+      cv = sq(g - 0.5f * (G0(y - 1, xx) + G0(y + 1, xx)));
+    }
+    CH(y, xx) = ch;
+    CV(y, xx) = cv;
+  });
+  __syncthreads();
+  // Nyquist refinement of G at R/B sites -> green; hvwt'
+#pragma unroll 2
+  for (int i = tid; i < S2_TH * S2_TW; i += S2_THREADS) {
+    const int y = i / S2_TW, xx = i % S2_TW;
+    if (y0 + y >= h || x0 + xx >= w) continue;
+    const float vc = V3(y, xx), hc = H3(y, xx), hv = HV(y, xx);
+    float dgrb0 = hv * vc + (1.0f - hv) * hc;
+    if (NY2(y, xx)) {
+      const float gvarh = EPSSQ + gquinc(CH, y, xx);
+      const float gvarv = EPSSQ + gquinc(CV, y, xx);
+      dgrb0 = (hc * gvarv + vc * gvarh) * rcp(gvarv + gvarh);
+    }
+    const size_t g = static_cast<size_t>(y0 + y) * w + x0 + xx;
+    out[g] = rb(y, xx) ? X(y, xx) + dgrb0 : G0(y, xx);
+    out[n + g] = hv;
+  }
 }
 
 // ---------------------------------------------------------------- B3
@@ -666,21 +924,39 @@ extern "C" int art_amaze_stage1(const float* x, const float* clips,
   return static_cast<int>(cudaGetLastError());
 }
 
-// s1: stage 1's (3, hp, wp); out: (2, hp, wp) green, hvwt; tmp: (12, hp, wp)
+// s1: stage 1's (3, hp, wp); out: (2, hp, wp) green, hvwt; no scratch
 extern "C" int art_amaze_stage2(const float* x, const float* s1, float* out,
-                                float* tmp, int hp, int wp, int pat,
-                                void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Plane X{x, hp, wp};
-  const dim3 g = grid_for(hp, wp, BLK);
-  s2_nyq<<<g, BLK, 0, s>>>(X, s1, tmp, pat);
-  s2_ny2<<<g, BLK, 0, s>>>(hp, wp, tmp, pat);
-  s2_vsum<<<g, BLK, 0, s>>>(X, tmp);
-  s2_area<<<g, BLK, 0, s>>>(hp, wp, s1, tmp);
-  s2_green0<<<g, BLK, 0, s>>>(X, s1, tmp, out, pat);
-  s2_curv<<<g, BLK, 0, s>>>(hp, wp, tmp);
-  s2_green<<<g, BLK, 0, s>>>(X, s1, tmp, out, pat);
+                                int hp, int wp, int pat, void* stream) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      s2_tile, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(S2_SMEM));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  // 16-byte copies need the planes' rows at 16-byte alignment
+  const bool aligned =
+      ((reinterpret_cast<size_t>(x) | reinterpret_cast<size_t>(s1)) % 16 ==
+       0) &&
+      wp % 4 == 0;
+  s2_tile<<<grid_for(hp, wp, dim3(S2_TW, S2_TH)), S2_THREADS, S2_SMEM,
+            static_cast<cudaStream_t>(stream)>>>(x, s1, out, hp, wp, pat,
+                                                 aligned);
   return static_cast<int>(cudaGetLastError());
+}
+
+// B2's kernel as loaded: registers, shared memory (static and dynamic)
+// and local memory, and its tile, as one line of text into buf (cap
+// bytes, NUL-terminated)
+extern "C" int art_amaze_layout(char* buf, int cap) {
+  if (cap < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaFuncAttributes fa;
+  const cudaError_t e = cudaFuncGetAttributes(&fa, s2_tile);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  snprintf(buf, cap,
+           "s2_tile: %d registers, %zu B static + %zu B dynamic shared "
+           "memory, %zu B local (spills and stack), tile %dx%d, %d threads, "
+           "halo %d\n",
+           fa.numRegs, fa.sharedSizeBytes, S2_SMEM, fa.localSizeBytes, S2_TH,
+           S2_TW, S2_THREADS, R_X);
+  return 0;
 }
 
 // s2: stage 2's (2, hp, wp); out: (3, hp - 2*halo, wp - 2*halo) RGB in

@@ -229,21 +229,19 @@ def _area_sum(a):
     return _sum7(_sum7(a, 0), 1)
 
 
-def stage2_plain(x, pattern, s1):
-    """Stages 5-6 (amaze.py::_stages_5to6, fast=False): Nyquist texture
-    handling and G at R/B sites. s1 is stage 1's (3, Hp, Wp). Returns
-    (2, Hp, Wp): green, hvwt."""
-    stage2_plain.calls += 1
-    vcd, hcd, hvwt = s1[0], s1[1], s1[2]
+def nyquist_masks(x, pattern, s1):
+    """Stage 5's Nyquist test and majority vote (amaze.py::_stages_5to6)
+    on the padded plane x with stage 1's (3, Hp, Wp) s1: (nyqf, ny2f),
+    1.0 where set and 0.0 elsewhere (set only at R/B sites). nyquist2 is
+    ny2f > 0.5."""
+    vcd, hcd = s1[0], s1[1]
     _, mg, _ = _masks(pattern, x)
-    m_rb = ~mg
     s = _shifter(x)
     delh = torch.abs(s(0, 1) - s(0, -1))
     delv = torch.abs(s(1, 0) - s(-1, 0))
     delhvsqsum = delh * delh + delv * delv
     cddiffsq = _sq(vcd - hcd)
 
-    # ---- stage 5: Nyquist test
     scd, sds = _shifter(cddiffsq), _shifter(delhvsqsum)
     nyqutest = (
         GAUSSODD[0] * cddiffsq
@@ -261,7 +259,7 @@ def stage2_plain(x, pattern, s1):
         + GAUSSGRAD[5] * (sds(-2, -2) + sds(-2, 2) + sds(2, -2) + sds(2, 2))
     )
     del scd, sds, cddiffsq, delhvsqsum
-    m_rbf = torch.where(m_rb, 1.0, 0.0)
+    m_rbf = torch.where(~mg, 1.0, 0.0)
     nyqf = torch.where(nyqutest > 0.0, 1.0, 0.0) * m_rbf
 
     sny = _shifter(nyqf)
@@ -269,6 +267,21 @@ def stage2_plain(x, pattern, s1):
               + sny(0, 2) + sny(1, -1) + sny(1, 1) + sny(2, 0))
     ny2f = torch.where(nyqsum > 4, 1.0,
                        torch.where(nyqsum < 4, 0.0, nyqf)) * m_rbf
+    return nyqf, ny2f
+
+
+def stage2_plain(x, pattern, s1):
+    """Stages 5-6 (amaze.py::_stages_5to6, fast=False): Nyquist texture
+    handling and G at R/B sites. s1 is stage 1's (3, Hp, Wp). Returns
+    (2, Hp, Wp): green, hvwt."""
+    stage2_plain.calls += 1
+    vcd, hcd, hvwt = s1[0], s1[1], s1[2]
+    _, mg, _ = _masks(pattern, x)
+    m_rb = ~mg
+    s = _shifter(x)
+
+    # ---- stage 5: Nyquist test and majority vote
+    _, ny2f = nyquist_masks(x, pattern, s1)
     nyquist2 = ny2f > 0.5
     cfah = s(0, -1) + s(0, 1)
     cfav = s(-1, 0) + s(1, 0)

@@ -14,9 +14,16 @@ the reference's SMEM `clips`, so no value is read back to the host.
 
 `.launches` on each wrapper counts its kernel launches (one call of the
 C entry point, whatever number of passes it runs).
+
+B2 is one kernel over output tiles of S2_TILE, each computed from the
+tile grown by S2_HALO (x's reach; the .cu's S2_TH, S2_TW and R_X, which
+``tests/test_torch_amaze_tiles.py`` holds to these): it needs no scratch
+plane.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -25,8 +32,11 @@ from art_tpu_torch.core.image import BAYER_PATTERNS
 from art_tpu_torch.demosaic import amaze
 
 # scratch planes each entry point needs beside its output
-SCRATCH = {"art_amaze_stage1": 8, "art_amaze_stage2": 12,
+SCRATCH = {"art_amaze_stage1": 8, "art_amaze_stage2": 0,
            "art_amaze_stage3": 9}
+# B2's output tile (rows, columns) and the reach of its window around it
+S2_TILE = (32, 64)
+S2_HALO = 15
 
 
 def pattern_code(pattern):
@@ -106,9 +116,20 @@ def _launch(name, x, pattern, out_shape, inputs, ints=()):
     hp, wp = x.shape
     f32 = dict(dtype=torch.float32, device=x.device)
     out = torch.empty(out_shape, **f32)
-    tmp = torch.empty((SCRATCH[name], hp, wp), **f32)
-    ptrs = [t.data_ptr() for t in (x, *inputs, out, tmp)]
+    planes = [x, *inputs, out]
+    if SCRATCH[name]:
+        planes.append(torch.empty((SCRATCH[name], hp, wp), **f32))
+    ptrs = [t.data_ptr() for t in planes]
     rc = fn(*ptrs, hp, wp, *ints, pattern_code(pattern),
             kernels.stream_of(x))
     kernels.check(rc, name)
     return out
+
+
+def layout():
+    """B2's kernel on the card: registers, shared and local memory, tile
+    (``art_amaze_layout``)."""
+    buf = ctypes.create_string_buffer(1024)
+    kernels.check(kernels.library().art_amaze_layout(buf, len(buf)),
+                  "art_amaze_layout")
+    return buf.value.decode()

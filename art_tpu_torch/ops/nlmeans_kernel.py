@@ -16,10 +16,14 @@ form with edge-clamped neighbours. There is no tile grid to keep.
 
 `nlmeans` is the entry point. On a CPU tensor it runs `nlmeans_plain`;
 on a CUDA tensor it launches ``art_nlmeans`` of ``csrc/nlmeans.cu`` or
-raises.
+raises. The kernel walks each column down strips of rows with all 121
+offsets' sums in registers; its tile is the .cu's constants (WX, WY,
+STRIP), reported by `layout`.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 import torch.nn.functional as F
@@ -112,3 +116,12 @@ def nlmeans_plain(y, maskinv):
 
 
 nlmeans_plain.calls = 0
+
+
+def layout():
+    """B6's kernel on the card: registers, shared and local memory, tile
+    (``art_nlmeans_layout``)."""
+    buf = ctypes.create_string_buffer(1024)
+    kernels.check(kernels.library().art_nlmeans_layout(buf, len(buf)),
+                  "art_nlmeans_layout")
+    return buf.value.decode()

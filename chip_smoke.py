@@ -25,13 +25,18 @@ kernel equals its plain PyTorch version on the tensors its path feeds it
 same develop on the CPU's plain path, for each path, to the slice bounds
 of the CPU tests. It prints the card's name and power limit, develop
 and device-program timings, peak memory, torch.profiler tables, the
-kernels' ptxas report (registers, spills), for B4 and B5 their kernels'
-registers and shared memory as loaded, scratch bytes and device time by
-kernel name (sigma passes against level kernels, also on a constant
-frame, where every value falls in one histogram bin), one JSON line of
-per-kernel results (time, plain time, bound) and last the line
-{"ok": true, "device": {...}}. Any failure raises (non-zero exit, no
-result lines); so does a machine without CUDA.
+kernels' ptxas report (registers, spills), for B2, B4, B5 and B6 their
+kernels' registers and shared memory as loaded, and device time by
+kernel name: B4 and B5 by torch.profiler (sigma passes against level
+kernels, also on a constant frame, where every value falls in one
+histogram bin) with their scratch bytes; B2 and B6, one kernel a call,
+by CUDA events, with the bytes a B2 call allocates and the share of
+nyquist2 pixels, where its area sums run, and B6 also on a constant
+plane and where the weight's clamp at 50 fires, each held to the plain
+version. Then one JSON line of per-kernel results (time, plain time,
+bound) and last the line {"ok": true, "device": {...}}. Any failure
+raises (non-zero exit, no result lines); so does a machine without
+CUDA.
 """
 
 from __future__ import annotations
@@ -391,6 +396,37 @@ def check_wavelet_launches(label, counts):
         raise RuntimeError(f"{label}: unexpected kernel launches {got}")
 
 
+def one_launch_ms(label, fn, kernel):
+    """Device time a call of fn, a wrapper that launches the one kernel
+    named: CUDA events over 10 calls back to back (the queue then hides
+    the wrapper's host time, which one call alone would count)."""
+    ms = gpu_ms(fn, 10)
+    log(f"{label} by kernel (a call, mean of 10 back to back): {ms:.3f} "
+        f"ms, its one launch of {kernel} (CUDA events)")
+
+
+def b6_case(label, y, maskinv):
+    """B6 against its plain version on one plane: (equal, kernel ms)."""
+    from art_tpu_torch.ops import nlmeans_kernel as nk
+
+    k = nk.nlmeans(y, maskinv)
+    p = nk.nlmeans_plain(y, maskinv)
+    torch.cuda.synchronize()
+    equal = torch.equal(k, p)
+    ms = gpu_ms(lambda: nk.nlmeans(y, maskinv), 5)
+    log(f"B6 on {label}: kernel equals plain {equal}, kernel {ms:.3f} ms")
+    return equal
+
+
+def clamp_share(y, maskinv):
+    """The share of pixels whose weight for the offset (0, 1) is clamped
+    at 50 (box * maskinv > 50), from a 5x5 mean of the squared
+    differences."""
+    d2 = (y[:, 1:] - y[:, :-1]) ** 2
+    box = torch.nn.functional.avg_pool2d(d2[None, None], 5, 1, 2)[0, 0] * 25
+    return float((box * maskinv[:, :-1] > 50).float().mean())
+
+
 def kernel_entry(name, key, source, replaces, launches, k_out, p_out,
                  ms, plain_ms, bnd, note=""):
     err, mean = diff_stats(k_out, p_out)
@@ -442,8 +478,8 @@ def main():
     for line in kernels.build_info.get("log", "").splitlines():
         if "registers" in line or "spill" in line:
             log("  ptxas:", line.strip())
-    log("wavelet kernels (B4, B5) as loaded:")
-    for line in wk.layout().splitlines():
+    log("kernels as loaded (B2, B6; B4, B5):")
+    for line in (ak.layout() + nk.layout() + wk.layout()).splitlines():
         log("  " + line)
 
     # ---- the main path: the AMaZE flagship
@@ -493,6 +529,17 @@ def main():
                lambda: amaze.stage1_plain(x, pat, clips), (x, clips))
     s2 = check("b2", lambda: ak.amaze_stage2(x, pat, s1),
                lambda: amaze.stage2_plain(x, pat, s1), (x, s1))
+    log(f"B2 nyquist2 share on this frame: "
+        f"{float(amaze.nyquist_masks(x, pat, s1)[1].mean()):.4f} of the "
+        f"padded plane's pixels (the area sums run there)")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ak.amaze_stage2(x, pat, s1)
+    torch.cuda.synchronize()
+    log(f"B2 allocates {(torch.cuda.max_memory_allocated() - base) / 1e9:.3f}"
+        f" GB a call (its output: {s2.numel() * 4 / 1e9:.3f} GB)")
+    one_launch_ms("B2", lambda: ak.amaze_stage2(x, pat, s1), "s2_tile")
     del s1
     k3 = check("b3", lambda: ak.amaze_stage3(x, pat, s2, clips),
                lambda: amaze.stage3_plain(x, pat, s2, clips), (x, s2, clips))
@@ -595,7 +642,16 @@ def main():
         gpu_ms(lambda: nk.nlmeans_plain(y, maskinv), 3),
         bound((y, maskinv), (b6_k,), (ops6 * scale, naive6 * scale)),
         note=f"; counted on {rows} of {y.shape[0]} rows, scaled")
-    del b6_p, b6_k, b5_k, y, maskinv, inp3, data3
+    del b6_p, b6_k
+    one_launch_ms("B6", lambda: nk.nlmeans(y, maskinv), "nlmeans_walk")
+    # every box 0 (every weight 1), and a maskinv where min(., 50) clamps
+    b6_edges = {"a constant plane": b6_case(
+        "a constant plane", torch.full_like(y, 0.5), maskinv)}
+    mi_hot = maskinv * 1e4
+    label = (f"maskinv x 1e4 (the clamp at 50 fires at "
+             f"{clamp_share(y, mi_hot):.4f} of the pixels for offset (0, 1))")
+    b6_edges["maskinv x 1e4"] = b6_case(label, y, mi_hot)
+    del mi_hot, b5_k, y, maskinv, inp3, data3
 
     # ---- small develops: the card against the CPU plain path
     small = flagship_frame(512, 2048, seed=5)
@@ -609,7 +665,8 @@ def main():
         log(f"512x2048 {label} develop, card vs CPU plain path: "
             f"{small_stats[label]}")
 
-    failures = []
+    failures = [f"B6 on {k} disagrees with its plain version"
+                for k, ok in b6_edges.items() if not ok]
     for e in entries.values():
         mean_err = e.pop("_mean_err")
         if e["max_abs_err"] > KERNEL_MAX or mean_err > KERNEL_MEAN:

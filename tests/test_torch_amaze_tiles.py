@@ -1,0 +1,100 @@
+"""B2's tiling on the CPU: each output tile of the fused stage-2 kernel is
+computed from the tile grown by its halo alone.
+
+For every tile of the kernel's grid over the padded plane (S2_TILE,
+ragged at the far edges), the window of the tile grown by S2_HALO is cut
+from x and s1 with wrapped indices and given the Bayer pattern shifted to
+the window's global origin; `stage2_plain` on that window must equal
+`stage2_plain` on the whole plane over the tile, bit for bit.
+
+The halo is x's reach through the intermediates the kernel holds: nyqf
+over the tile grown by S2_HALO - 3 reads delhvsq by 2 more, which reads
+x by 1 more. A halo one smaller gets nyqf wrong there. (The outputs
+themselves need one less in a regular Bayer plane: the curvature reads
+green0 at G sites, where it is x, and green0 by 3 at an R/B site is read
+only where the seam of an odd-size plane puts two R/B sites side by
+side; no data tried here shows it.) The tile and halo constants are read
+from the wrapper, which mirrors those of ``csrc/amaze.cu``. No JAX here.
+"""
+
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from art_tpu_torch.demosaic import amaze
+from art_tpu_torch.demosaic import amaze_kernel as ak
+
+CU = Path(ak.__file__).resolve().parents[1] / "csrc" / "amaze.cu"
+
+
+def shifted_pattern(pattern, oy, ox):
+    """The 2x2 pattern seen from a window whose origin is at (oy, ox)."""
+    return "".join(pattern[((r + oy) % 2) * 2 + (c + ox) % 2]
+                   for r in (0, 1) for c in (0, 1))
+
+
+def _planes(pattern):
+    """A padded plane of 96x160 with stage 1's planes: noise with a block
+    of one-pixel stripes, so that the Nyquist test fires."""
+    rng = np.random.default_rng(21)
+    cfa = rng.uniform(0.01, 1.0, (48, 112)) * 65535
+    cfa[8:30, 20:70] = np.where(np.arange(20, 70) % 2, 60000.0, 4000.0)
+    x = amaze.padded_plane(torch.from_numpy(cfa.astype(np.float32)))
+    s1 = amaze.stage1_plain(x, pattern,
+                            amaze.clip_points(np.float32(1.0), "cpu"))
+    return x, s1
+
+
+def _tile_mismatches(x, s1, pattern, halo, fn, grow=0):
+    """The tiles (y0, x0) where fn(x, pattern, s1) on the window of
+    `halo` differs from fn on the whole plane over the tile grown by
+    `grow` (fn's planes stacked on the first axis)."""
+    th, tw = ak.S2_TILE
+    hp, wp = x.shape
+    whole = fn(x, pattern, s1)
+    bad = []
+    for y0 in range(0, hp, th):
+        for x0 in range(0, wp, tw):
+            rows = torch.arange(y0 - halo, y0 + th + halo) % hp
+            cols = torch.arange(x0 - halo, x0 + tw + halo) % wp
+            win = fn(x[rows][:, cols].contiguous(),
+                     shifted_pattern(pattern, y0 - halo, x0 - halo),
+                     s1[:, rows][:, :, cols].contiguous())
+            # the tile grown by `grow`, clipped at the plane's far edges
+            h = min(th, hp - y0) + 2 * grow
+            w = min(tw, wp - x0) + 2 * grow
+            o = halo - grow
+            want = whole[:, torch.arange(y0 - grow, y0 - grow + h) % hp][
+                :, :, torch.arange(x0 - grow, x0 - grow + w) % wp]
+            if not torch.equal(win[:, o:o + h, o:o + w], want):
+                bad.append((y0, x0))
+    return bad
+
+
+def _nyqf(x, pattern, s1):
+    return amaze.nyquist_masks(x, pattern, s1)[0][None]
+
+
+@pytest.mark.parametrize("pattern", ["RGGB", "GBRG"])
+def test_stage2_tiles_need_only_their_halo(pattern):
+    x, s1 = _planes(pattern)
+    assert x.shape == (96, 160)
+    # the test fires: a share of nyquist2 pixels the kernel's list sees
+    assert amaze.nyquist_masks(x, pattern, s1)[1].mean().item() > 0.01
+    halo, stage2 = ak.S2_HALO, amaze.stage2_plain
+    assert _tile_mismatches(x, s1, pattern, halo, stage2) == []
+    # nyqf over the tile grown by halo - 3: right from its halo, and
+    # wrong from one less
+    assert _tile_mismatches(x, s1, pattern, halo, _nyqf, halo - 3) == []
+    assert _tile_mismatches(x, s1, pattern, halo - 1, _nyqf, halo - 3) != []
+
+
+def test_tile_constants_mirror_the_kernel():
+    src = CU.read_text()
+    th, tw = re.search(r"S2_TH = (\d+), S2_TW = (\d+);", src).groups()
+    assert (int(th), int(tw)) == ak.S2_TILE
+    assert int(re.search(r"\bR_X = (\d+)", src).group(1)) == ak.S2_HALO
+    assert ak.SCRATCH["art_amaze_stage2"] == 0

@@ -24,8 +24,8 @@ from art_tpu_torch.ops import tonecurve_neutral as ttn
 from art_tpu_torch.ops import wavelet_kernel as wk
 from art_tpu_torch.params import ProcParams
 from art_tpu_torch.pipeline import develop as tdev
-from chip_smoke import (IMPULSE_FLIPS, config3_pp, impulse_masks,
-                        impulse_parity)
+from chip_smoke import (IMPULSE_FLIPS, clamp_share, config3_pp,
+                        impulse_masks, impulse_parity)
 
 ARP = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "art_tpu_torch", "data", "profiles",
@@ -230,14 +230,16 @@ def test_wavelet_multi_kernel_matches_plain(cuda_device, shape, sigmas,
     assert torch.equal(out, wk.wavelet_multi_plain(x, prm))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(256, 512), (300, 520)])
-def test_nlmeans_kernel_matches_plain(cuda_device, shape):
+def _nlmeans_planes(shape, device):
     rng = np.random.default_rng(7)
     y = torch.from_numpy(np.clip(rng.normal(0.5, 0.02, shape), 0, 1)
-                         .astype(np.float32)).to(cuda_device)
-    mi = tdn.nl_maskinv(y, torch.tensor(0.00287, device=cuda_device),
-                        torch.tensor(0.5, device=cuda_device))
+                         .astype(np.float32)).to(device)
+    mi = tdn.nl_maskinv(y, torch.tensor(0.00287, device=device),
+                        torch.tensor(0.5, device=device))
+    return y, mi
+
+
+def _nlmeans_equal(y, mi):
     before = nk.nlmeans.launches
     out = nk.nlmeans(y, mi)
     torch.cuda.synchronize()
@@ -245,6 +247,70 @@ def test_nlmeans_kernel_matches_plain(cuda_device, shape):
     # same order, -fmad=false, the libdevice expf that torch.exp calls:
     # equal
     assert torch.equal(out, nk.nlmeans_plain(y, mi))
+
+
+# the kernel's blocks write 112 x 32 tiles (4 x 2 warps of 28 columns,
+# strips of 16 rows): 256 x 256 is the smallest plane the wrapper takes,
+# 257 x 301 is off the strips and the warps, 1000 x 1030 a grid of blocks
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(256, 512), (300, 520), (256, 256),
+                                   (257, 301), (1000, 1030)])
+def test_nlmeans_kernel_matches_plain(cuda_device, shape):
+    _nlmeans_equal(*_nlmeans_planes(shape, cuda_device))
+
+
+# a constant plane (every box 0, every weight 1), and a maskinv so large
+# that min(box * maskinv, 50) clamps wherever the box is not 0
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["constant", "clamp"])
+def test_nlmeans_kernel_edge_planes(cuda_device, case):
+    y, mi = _nlmeans_planes((300, 520), cuda_device)
+    if case == "constant":
+        y = torch.full_like(y, 0.4)
+    else:
+        mi = mi * 1e4
+        assert clamp_share(y, mi) > 0.5
+    _nlmeans_equal(y, mi)
+
+
+def _stage2_inputs(cfa, pattern, device):
+    x = amaze.padded_plane(torch.from_numpy(
+        np.minimum(cfa, 65535.0).astype(np.float32)).to(device))
+    s1 = amaze.stage1_plain(x, pattern,
+                            amaze.clip_points(np.float32(1.0), device))
+    return x, s1
+
+
+# B2's fused kernel: 32 x 64 output tiles over the padded plane, copied
+# 16 bytes at a time where the plane's width is a multiple of 4 and the
+# tile is inside it, else 4 bytes at a time through wrapped indices.
+# A block of one-pixel stripes makes the Nyquist test fire; 257 x 430
+# pads to 305 x 478 (ragged tiles at both edges, 4-byte copies); 301 x
+# 523 pads to an odd 349 x 571 (the wrap's seam puts like colours side
+# by side); 300 x 1000 pads to 348 x 1048 (16-byte copies inside)
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,stripes", [((300, 520), True),
+                                           ((257, 430), False),
+                                           ((301, 523), True),
+                                           ((300, 1000), True)],
+                         ids=["stripes", "ragged", "odd", "wide"])
+def test_amaze_stage2_kernel_matches_plain(cuda_device, shape, stripes):
+    rng = np.random.default_rng(12)
+    cfa = rng.uniform(0.01, 1.1, shape) * 65535
+    if stripes:
+        cfa[40:200, 60:400] = np.where(np.arange(60, 400) % 2, 60000.0,
+                                       3000.0)
+    x, s1 = _stage2_inputs(cfa, "BGGR", cuda_device)
+    if stripes:
+        share = amaze.nyquist_masks(x, "BGGR", s1)[1].mean().item()
+        assert share > 0.01
+    before = ak.amaze_stage2.launches
+    out = ak.amaze_stage2(x, "BGGR", s1)
+    torch.cuda.synchronize()
+    assert ak.amaze_stage2.launches == before + 1
+    # the same operations in the same order, -fmad=false, correctly
+    # rounded reciprocals: equal
+    assert torch.equal(out, amaze.stage2_plain(x, "BGGR", s1))
 
 
 @pytest.mark.cuda
