@@ -11,28 +11,28 @@
 // (__frcp_rn, where the TPU kernel took an approximate one), built with
 // -fmad=false so no multiply-add is contracted.
 //
-// Design of B1 and B3: one thread per pixel, each stage split into passes
-// over device memory at the points where an intermediate is read at an
+// Design of B1: one thread per pixel, the stage split into passes over
+// device memory at the points where an intermediate is read at an
 // offset; that intermediate is written to a scratch plane. Values that
-// are functions of the mosaic alone (dirwts, delh/delv, delp/delm, the
-// diagonal squared differences) are recomputed at the neighbour instead.
-// The padded plane is H+48 by W+48 (HALO 24), so any nested read stays
-// within one wrap.
+// are functions of the mosaic alone (dirwts, delh/delv) are recomputed
+// at the neighbour instead. The padded plane is H+48 by W+48 (HALO 24),
+// so any nested read stays within one wrap.
 //
 //   B1  s1_cd -> s1_select -> s1_hvwt                      3 passes
 //   B2  s2_tile                                             1 pass
-//   B3  s3_diag -> s3_rbint -> s3_gcorr -> s3_prop -> s3_out 5 passes
+//   B3  s3_tile                                             1 pass
 //
 // Bound on this card: the work is ~40 divides and several hundred float
 // operations per pixel, against one read of the mosaic and one write of
 // the stage's planes (B3: of RGB). Passes that re-read and re-write
 // scratch planes are bound by device memory traffic, not by the
-// arithmetic; B2 keeps its intermediates in shared-memory tiles in one
-// pass (see s2_tile), the way to the bound that B1 and B3 can follow.
+// arithmetic; B2 and B3 keep their intermediates in shared-memory tiles
+// in one pass (see s2_tile and s3_tile), the way to the bound that B1
+// can follow.
 //
 // Each entry point launches on the given stream, allocates nothing (the
-// wrapper passes the output planes and B1's and B3's scratch planes) and
-// returns cudaGetLastError().
+// wrapper passes the output planes and B1's scratch planes) and returns
+// cudaGetLastError().
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -100,14 +100,17 @@ __device__ __forceinline__ float med3(float a, float b, float c) {
   return fmaxf(fminf(a, b), fminf(fmaxf(a, b), c));
 }
 
-// stage-1 gradient weights at (y, x), from the mosaic alone
-__device__ __forceinline__ float dirwts0(const Plane& X, int y, int x) {
+// stage-1 gradient weights at (y, x), from the mosaic alone (X: a Plane
+// or a shared-memory tile)
+template <class P>
+__device__ __forceinline__ float dirwts0(const P& X, int y, int x) {
   float c = X(y, x);
   float delv = fabsf(X(y + 1, x) - X(y - 1, x));
   return EPS + fabsf(X(y + 2, x) - c) + fabsf(c - X(y - 2, x)) + delv;
 }
 
-__device__ __forceinline__ float dirwts1(const Plane& X, int y, int x) {
+template <class P>
+__device__ __forceinline__ float dirwts1(const P& X, int y, int x) {
   float c = X(y, x);
   float delh = fabsf(X(y, x + 1) - X(y, x - 1));
   return EPS + fabsf(X(y, x + 2) - c) + fabsf(c - X(y, x - 2)) + delh;
@@ -418,22 +421,26 @@ __device__ __forceinline__ float gquinc(const P& Q, int y, int x) {
                 Q(y + 2, x + 2));
 }
 
-// A plane in shared memory over the output tile grown by HALO, indexed
-// by tile-relative (y, x) with -HALO <= y < S2_TH + HALO; a row holds
-// PITCH values from column -LEFT (planes copied in 16-byte pieces start
-// at a multiple of 4 columns).
-template <typename T, int HALO, int LEFT = HALO,
-          int PITCH = S2_TW + 2 * HALO>
-struct Tile {
-  static constexpr int R = HALO, H = S2_TH + 2 * HALO, W = S2_TW + 2 * HALO,
+// A plane in shared memory over an output tile of TH x TW grown by HALO,
+// indexed by tile-relative (y, x) with -HALO <= y < TH + HALO; a row
+// holds PITCH values from column -LEFT (planes copied in 16-byte pieces
+// start at a multiple of 4 columns).
+template <typename T, int TH, int TW, int HALO, int LEFT, int PITCH>
+struct TileOf {
+  static constexpr int R = HALO, H = TH + 2 * HALO, W = TW + 2 * HALO,
                        N = H * W, L = LEFT, P = PITCH;
   static constexpr size_t BYTES = sizeof(T) * H * PITCH;
-  static_assert(LEFT >= HALO && PITCH - LEFT >= S2_TW + HALO, "a row fits");
+  static_assert(LEFT >= HALO && PITCH - LEFT >= TW + HALO, "a row fits");
   T* p;
   __device__ __forceinline__ T& operator()(int y, int x) const {
     return p[(y + HALO) * PITCH + x + LEFT];
   }
 };
+
+// B2's tiles
+template <typename T, int HALO, int LEFT = HALO,
+          int PITCH = S2_TW + 2 * HALO>
+using Tile = TileOf<T, S2_TH, S2_TW, HALO, LEFT, PITCH>;
 
 // a 5x5 window of registers, w[q + dy][2 + dx] at (dy, dx) for the
 // window centred on row q
@@ -459,11 +466,11 @@ static_assert(TileNYQ::H % NYQ_K == 0, "whole strips");
 // a warp's list segment: the most positions it visits in the vote
 constexpr int SEGMENT = (TileNY2::N + S2_THREADS - 1) / S2_THREADS * 32;
 
-// f(y, x) at every position of tile T, the block's threads in turn
-template <class T, class F>
+// f(y, x) at every position of tile T, the block's THREADS in turn
+template <class T, int THREADS = S2_THREADS, class F>
 __device__ __forceinline__ void each(F f) {
 #pragma unroll 2
-  for (int i = threadIdx.x; i < T::N; i += S2_THREADS)
+  for (int i = threadIdx.x; i < T::N; i += THREADS)
     f(i / T::W - T::R, i % T::W - T::R);
 }
 
@@ -682,23 +689,118 @@ __global__ void __launch_bounds__(S2_THREADS, 2)
 }
 
 // ---------------------------------------------------------------- B3
+//
+// Stages 7-8 in one kernel, s3_tile: one block of S3_THREADS per output
+// tile of S3_TH x S3_TW, every intermediate in shared memory over the
+// tile grown by its reach (measured outward from the output tile):
+//
+//   the propagated chroma            1   chroma at G sites (+-1)
+//   green, hvwt, pmwt', dgrb0        4   the propagation (+-3)
+//   rbint                            6   the G correction (+-2)
+//   pmwt before its smoothing        7   the smoothing (+-1)
+//   delm, delp                       8   the diagonal weights (+-2)
+//   the diagonal squares sq1m, sq1p  9   rbvarm, rbvarp (+-2)
+//   x                               10   the squares (+-1)
+//
+// (R3_* below; tests/test_torch_amaze_tiles.py checks the reach on the
+// CPU). The output is the padded plane cropped by HALO = 24 > R3_X, so a
+// tile never reads across the plane's wrap and every position has its
+// regular Bayer colour: no tables of wrapped rows and columns. Rows and
+// columns past the plane's far edge, read only by the positions of a
+// ragged tile whose outputs are not written, are clamped to the edge.
+//
+// The first design ran 5 passes over 9 scratch planes of the padded
+// plane (0.9 GB at 24 MP, ~2 GB of traffic a call) and recomputed the
+// mosaic-only helpers (delm, delp, 24 diagonal squares) at every
+// neighbour; this one reads x and stage 2's planes (the halos' re-reads
+// mostly from L2), writes RGB, and computes each helper once a position.
+//
+// What bounds it: a few hundred float operations a pixel (12 correctly
+// rounded reciprocals among them) against 24 bytes of device memory, so
+// the kernel is made to issue little besides that arithmetic. The plain
+// version computes every intermediate at every site, but its result
+// reads pmwt, rbint, the G correction and the propagation only at R/B
+// sites, delm/delp only at R/B sites and the squares only at G sites:
+// the kernel computes each only there (a thread per R/B site, half the
+// positions) and keeps a G-site and an R/B-site value in one plane (see
+// the layout below). That leaves room to copy stage 2's planes in with
+// x, all loads asynchronous (cp.async) and in flight together, 16 bytes
+// at a time where the rows are aligned.
+//
+// Bit-equality: the per-pixel bodies take their planes through
+// accessors (a shared Tile, the R/B coset view), with the float32
+// operations of stage3_plain in its order.
 
-__device__ __forceinline__ float delp_at(const Plane& X, int y, int x) {
-  return fabsf(X(y - 1, x + 1) - X(y + 1, x - 1));
+constexpr int S3_TH = 32, S3_TW = 64;  // output tile
+// on an H100 (700 W) 512 threads ran faster than 384 and 256 (a tuning
+// build not kept): more warps hide the latency of the phases between
+// barriers
+constexpr int S3_THREADS = 512;
+constexpr int R3_X = 10, R3_SQ = 9, R3_DEL = 8, R3_PMR = 7, R3_RI = 6,
+              R3_G = 4, R3_PROP = 1;
+
+template <typename T, int HALO, int LEFT = HALO,
+          int PITCH = S3_TW + 2 * HALO>
+using Tile3 = TileOf<T, S3_TH, S3_TW, HALO, LEFT, PITCH>;
+// x from column -12 and stage 2's planes from -4: the tile's first
+// column is HALO + a multiple of S3_TW, so both start at a multiple of 4
+using T3X = Tile3<float, R3_X, 12, S3_TW + 24>;
+using T3SD = Tile3<float, R3_SQ>;
+using T3Q = Tile3<float, R3_PMR>;
+using T3G = Tile3<float, R3_G, 4, S3_TW + 8>;
+// the extents of the later phases (no storage of their own)
+using T3RI = Tile3<float, R3_RI>;
+using T3PROP = Tile3<float, R3_PROP>;
+static_assert(T3X::L % 4 == 0 && T3X::P % 4 == 0 && T3G::L % 4 == 0 &&
+                  T3G::P % 4 == 0 && T3X::P - T3X::L >= T3G::P - T3G::L,
+              "16-byte copies");
+static_assert(T3G::W % 2 == 0 && T3PROP::W % 2 == 0,
+              "one R/B site in two columns");
+
+template <int R>
+__device__ __forceinline__ bool inside3(int y, int x) {
+  return y >= -R && y < S3_TH + R && x >= -R && x < S3_TW + R;
 }
 
-__device__ __forceinline__ float delm_at(const Plane& X, int y, int x) {
-  return fabsf(X(y + 1, x + 1) - X(y - 1, x - 1));
+// asynchronous copies of src (h, w) into tile t, whose position (0, 0)
+// is the plane's (y0, x0): 16 bytes at a time when by16, else 4 bytes at
+// a time; rows and columns past the far edges clamped to them
+template <class T>
+__device__ __forceinline__ void copy3(const T& t, const float* src, int h,
+                                      int w, int y0, int x0, bool by16) {
+  const int lane = threadIdx.x % 32;
+  const int gx0 = x0 - T::L;
+  for (int r = threadIdx.x / 32; r < T::H; r += S3_THREADS / 32) {
+    const int gy = min(y0 - T::R + r, h - 1);
+    const float* srow = src + static_cast<size_t>(gy) * w;
+    float* drow = t.p + r * T::P;
+    if (by16) {
+      for (int c = 4 * lane; c < T::P; c += 128)
+        __pipeline_memcpy_async(drow + c, srow + gx0 + c, 16);
+    } else {
+      for (int c = lane; c < T::P; c += 32)
+        __pipeline_memcpy_async(drow + c, srow + min(gx0 + c, w - 1), 4);
+    }
+  }
 }
 
-__device__ __forceinline__ float sq1p_at(const Plane& X, int y, int x) {
-  const float c = X(y, x);
-  return sq(c - X(y + 1, x - 1)) + sq(c - X(y - 1, x + 1));
+// f(y, x) at every R/B site of tile T (a row of the tile's width holds
+// T::W / 2 of them), the block's threads in turn; (y0, x0): the plane's
+// position of the tile's (0, 0)
+template <class T, class F>
+__device__ __forceinline__ void each_rb(int pat, int y0, int x0, F f) {
+  constexpr int PER_ROW = T::W / 2;
+  for (int i = threadIdx.x; i < T::H * PER_ROW; i += S3_THREADS) {
+    const int y = i / PER_ROW - T::R;
+    const int first = color(pat, y0 + y, x0 - T::R) == 1 ? 1 : 0;
+    f(y, 2 * (i % PER_ROW) + first - T::R);
+  }
 }
 
-__device__ __forceinline__ float sq1m_at(const Plane& X, int y, int x) {
-  const float c = X(y, x);
-  return sq(c - X(y - 1, x - 1)) + sq(c - X(y + 1, x + 1));
+// the diagonal estimate in one direction pair
+__device__ __forceinline__ float diag_rb(float c, float n1, float n2) {
+  const float cr = 2.0f * n1 * rcp(EPS + c + n2);
+  return fabsf(1.0f - cr) < ARTHRESH ? c * cr : n1 + 0.5f * (c - n2);
 }
 
 __device__ __forceinline__ float bound_rb(float rb, float x, float nm,
@@ -709,63 +811,6 @@ __device__ __forceinline__ float bound_rb(float rb, float x, float nm,
   const float blended = wt * rb + (1.0f - wt) * med;
   const float out = rb < x ? (strong ? med : blended) : rb;
   return out > clip ? med3(out, nm, np) : out;
-}
-
-// the diagonal estimate in one direction pair
-__device__ __forceinline__ float diag_rb(float c, float n1, float n2) {
-  const float cr = 2.0f * n1 * rcp(EPS + c + n2);
-  return fabsf(1.0f - cr) < ARTHRESH ? c * cr : n1 + 0.5f * (c - n2);
-}
-
-// stage 7: diagonal R/B -> t[0] = pmwt (raw), t[1] = rbm, t[2] = rbp
-__global__ void s3_diag(Plane X, const float* __restrict__ clips,
-                        float* __restrict__ t) {
-  PIXEL(X.h, X.w)
-  const float clip = clips[0];
-  const float c = X(y, x);
-  const float rbse = diag_rb(c, X(y + 1, x + 1), X(y + 2, x + 2));
-  const float rbnw = diag_rb(c, X(y - 1, x - 1), X(y - 2, x - 2));
-  const float rbne = diag_rb(c, X(y - 1, x + 1), X(y - 2, x + 2));
-  const float rbsw = diag_rb(c, X(y + 1, x - 1), X(y + 2, x - 2));
-
-  const float dm = delm_at(X, y, x), dp = delp_at(X, y, x);
-  const float wtse = EPS + dm + delm_at(X, y + 1, x + 1) + delm_at(X, y + 2, x + 2);
-  const float wtnw = EPS + dm + delm_at(X, y - 1, x - 1) + delm_at(X, y - 2, x - 2);
-  const float wtne = EPS + dp + delp_at(X, y - 1, x + 1) + delp_at(X, y - 2, x + 2);
-  const float wtsw = EPS + dp + delp_at(X, y + 1, x - 1) + delp_at(X, y + 2, x - 2);
-
-  float rbm = (wtse * rbnw + wtnw * rbse) * rcp(wtse + wtnw);
-  float rbp = (wtne * rbsw + wtsw * rbne) * rcp(wtne + wtsw);
-
-  auto m = [&](int dy, int dx) { return sq1m_at(X, y + dy, x + dx); };
-  auto p = [&](int dy, int dx) { return sq1p_at(X, y + dy, x + dx); };
-  const float rbvarm =
-      EPSSQ + (GE0 * (m(-1, 0) + m(0, -1) + m(0, 1) + m(1, 0)) +
-               GE1 * (m(-2, -1) + m(-2, 1) + m(-1, -2) + m(-1, 2) +
-                      m(1, -2) + m(1, 2) + m(2, -1) + m(2, 1)));
-  const float rbvarp =
-      EPSSQ + (GE0 * (p(-1, 0) + p(0, -1) + p(0, 1) + p(1, 0)) +
-               GE1 * (p(-2, -1) + p(-2, 1) + p(-1, -2) + p(-1, 2) +
-                      p(1, -2) + p(1, 2) + p(2, -1) + p(2, 1)));
-  t[i] = rbvarm * rcp(rbvarp + rbvarm);
-  rbp = bound_rb(rbp, c, X(y + 1, x - 1), X(y - 1, x + 1), clip);
-  rbm = bound_rb(rbm, c, X(y - 1, x - 1), X(y + 1, x + 1), clip);
-  t[n + i] = rbm;
-  t[2 * n + i] = rbp;
-}
-
-// pmwt smoothing and the diagonal interpolation -> t[3] = pmwt,
-// t[4] = rbint
-__global__ void s3_rbint(Plane X, float* __restrict__ t) {
-  PIXEL(X.h, X.w)
-  const Plane PM{t, X.h, X.w};
-  const float alt = 0.25f * (PM(y - 1, x - 1) + PM(y - 1, x + 1) +
-                             PM(y + 1, x - 1) + PM(y + 1, x + 1));
-  float pm = PM(y, x);
-  if (fabsf(0.5f - pm) < fabsf(0.5f - alt)) pm = alt;
-  t[3 * n + i] = pm;
-  t[4 * n + i] =
-      0.5f * (X(y, x) + t[n + i] * (1.0f - pm) + t[2 * n + i] * pm);
 }
 
 __device__ __forceinline__ float bound_g2(float g, float rbint, float nm,
@@ -784,53 +829,18 @@ __device__ __forceinline__ float card_g(float ri, float n1, float ri2) {
   return fabsf(1.0f - cr) < ARTHRESH ? ri * cr : n1 + 0.5f * (ri - ri2);
 }
 
-// G correction where the diagonal discrimination is stronger
-// -> t[5] = green, t[6] = dgrb0
-__global__ void s3_gcorr(Plane X, const float* __restrict__ clips,
-                         const float* __restrict__ s2,
-                         float* __restrict__ t, int pat) {
-  PIXEL(X.h, X.w)
-  const float c = X(y, x);
-  float green = s2[i];
-  float dgrb0 = green - c;
-  if (color(pat, y, x) != 1) {
-    const float clip = clips[0];
-    const Plane RI{t + 4 * n, X.h, X.w};
-    const float ri = RI(y, x);
-    const float xu = X(y - 1, x), xd = X(y + 1, x);
-    const float xl = X(y, x - 1), xr = X(y, x + 1);
-    const float gu = card_g(ri, xu, RI(y - 2, x));
-    const float gd = card_g(ri, xd, RI(y + 2, x));
-    const float gl = card_g(ri, xl, RI(y, x - 2));
-    const float gr = card_g(ri, xr, RI(y, x + 2));
-    const float d0u = dirwts0(X, y - 1, x), d0d = dirwts0(X, y + 1, x);
-    const float d1l = dirwts1(X, y, x - 1), d1r = dirwts1(X, y, x + 1);
-    float gintv = (d0u * gd + d0d * gu) * rcp(d0d + d0u);
-    float ginth = (d1l * gr + d1r * gl) * rcp(d1l + d1r);
-    gintv = bound_g2(gintv, ri, xu, xd, clip);
-    ginth = bound_g2(ginth, ri, xl, xr, clip);
-    const float hv = s2[n + i];
-    const float pm = t[3 * n + i];
-    if (fabsf(0.5f - pm) >= fabsf(0.5f - hv)) {
-      green = ginth * (1.0f - hv) + gintv * hv;
-      dgrb0 = green - c;
-    }
-  }
-  t[5 * n + i] = green;
-  t[6 * n + i] = dgrb0;
-}
-
-// Dgrb of one coset (src) at a position, zero elsewhere
+// Dgrb of one R/B coset (src) at a position, zero elsewhere
+template <class P>
 struct Coset {
-  Plane D;
-  int pat, src;
+  P D;
+  int pat, y0, x0, src;
   __device__ __forceinline__ float operator()(int y, int x) const {
-    const int yq = wrap(y, D.h), xq = wrap(x, D.w);
-    return color(pat, yq, xq) == src ? D(yq, xq) : 0.0f;
+    return color(pat, y0 + y, x0 + x) == src ? D(y, x) : 0.0f;
   }
 };
 
-__device__ float propagate(const Coset& dg, int y, int x) {
+template <class C>
+__device__ float propagate(const C& dg, int y, int x) {
   const float nw = dg(y - 1, x - 1), ne = dg(y - 1, x + 1);
   const float sw = dg(y + 1, x - 1), se = dg(y + 1, x + 1);
   const float nw3 = dg(y - 3, x - 3), ne3 = dg(y - 3, x + 3);
@@ -850,56 +860,172 @@ __device__ float propagate(const Coset& dg, int y, int x) {
          rcp(wtnw + wtne + wtsw + wtse);
 }
 
-// stage 8: chroma to the opposite R/B coset -> t[7] = dgr, t[8] = dgb
-__global__ void s3_prop(int h, int w, float* __restrict__ t, int pat) {
-  PIXEL(h, w)
-  const Plane D{t + 6 * n, h, w};
-  const int col = color(pat, y, x);
-  float dgr = 0.0f, dgb = 0.0f;
-  if (col == 0) {
-    dgr = D(y, x);
-    dgb = propagate(Coset{D, pat, 2}, y, x);
-  } else if (col == 2) {
-    dgr = propagate(Coset{D, pat, 0}, y, x);
-    dgb = D(y, x);
-  }
-  t[7 * n + i] = dgr;
-  t[8 * n + i] = dgb;
-}
+// shared memory of s3_tile, in bytes: x, stage 2's green and hvwt, and
+// three planes whose Bayer sites change roles between phases (a value
+// of an R/B site q kept "right of q" lies at q + (0, 1), a G site):
+//
+//   SDM  G: sq1m, then pmwt' right of its site; R/B: delm
+//   SDP  G: sq1p;                               R/B: delp, then dgrb0
+//   Q    R/B: pmwt, then the propagated chroma; G: rbint right of its site
+constexpr size_t OFF3_X = 0;
+constexpr size_t OFF3_GS = OFF3_X + al16(T3X::BYTES);
+constexpr size_t OFF3_HV = OFF3_GS + al16(T3G::BYTES);
+constexpr size_t OFF3_SDM = OFF3_HV + al16(T3G::BYTES);
+constexpr size_t OFF3_SDP = OFF3_SDM + al16(T3SD::BYTES);
+constexpr size_t OFF3_Q = OFF3_SDP + al16(T3SD::BYTES);
+constexpr size_t S3_SMEM = OFF3_Q + T3Q::BYTES;
+static_assert(R3_G + 1 <= R3_SQ && R3_RI + 1 <= R3_PMR,
+              "a value kept right of its site stays in its plane");
+static_assert(2 * (S3_SMEM + 1024) <= 233472, "two blocks an SM");
 
-// chroma at G sites and the RGB output, cropped by `halo`
-__global__ void s3_out(int hp, int wp, int halo,
-                       const float* __restrict__ s2,
-                       const float* __restrict__ t,
-                       float* __restrict__ out, int pat) {
-  const int ho = hp - 2 * halo, wo = wp - 2 * halo;
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  const int k = blockIdx.y * blockDim.y + threadIdx.y;
-  if (j >= wo || k >= ho) return;
-  const int y = k + halo, x = j + halo;
-  const size_t n = static_cast<size_t>(hp) * wp;
-  const size_t i = static_cast<size_t>(y) * wp + x;
-  const Plane HV{s2 + n, hp, wp};
-  const Plane R{t + 7 * n, hp, wp}, B{t + 8 * n, hp, wp};
-  float dgr, dgb;
-  if (color(pat, y, x) == 1) {
-    const float hu = HV(y - 1, x), hd = HV(y + 1, x);
-    const float hl = HV(y, x - 1), hr = HV(y, x + 1);
-    const float iwsum = rcp(hu + hd + (1.0f - hl) + (1.0f - hr));
-    dgr = (hu * R(y - 1, x) + (1.0f - hr) * R(y, x + 1) +
-           (1.0f - hl) * R(y, x - 1) + hd * R(y + 1, x)) * iwsum;
-    dgb = (hu * B(y - 1, x) + (1.0f - hr) * B(y, x + 1) +
-           (1.0f - hl) * B(y, x - 1) + hd * B(y + 1, x)) * iwsum;
-  } else {
-    dgr = t[7 * n + i];
-    dgb = t[8 * n + i];
-  }
-  const float g = t[5 * n + i];
+// x: the padded plane (h, w); s2: stage 2's green, hvwt; out: RGB
+// (3, h - 2*halo, w - 2*halo), halo >= R3_X
+__global__ void __launch_bounds__(S3_THREADS, 2)
+    s3_tile(const float* __restrict__ x, const float* __restrict__ s2,
+            const float* __restrict__ clips, float* __restrict__ out, int h,
+            int w, int halo, int pat, bool aligned) {
+  extern __shared__ float4 s3_smem[];
+  unsigned char* sm = reinterpret_cast<unsigned char*>(s3_smem);
+  auto fp = [&](size_t off) { return reinterpret_cast<float*>(sm + off); };
+  const T3X X{fp(OFF3_X)};
+  const T3G GS{fp(OFF3_GS)}, HV{fp(OFF3_HV)};
+  const T3SD SDM{fp(OFF3_SDM)}, SDP{fp(OFF3_SDP)};
+  const T3Q Q{fp(OFF3_Q)};
+  // rbint and pmwt' of the R/B site (y, xx), kept right of it
+  auto RI = [&](int y, int xx) -> float& { return Q(y, xx + 1); };
+  auto PM = [&](int y, int xx) -> float& { return SDM(y, xx + 1); };
+  const int ho = h - 2 * halo, wo = w - 2 * halo;
+  const int k0 = blockIdx.y * S3_TH, j0 = blockIdx.x * S3_TW;
+  // the plane's position of the tile's (0, 0)
+  const int y0 = halo + k0, x0 = halo + j0;
+  const bool by16 = aligned && x0 - T3X::L + T3X::P <= w;
+  const float clip = __ldg(clips);
+
+  copy3(X, x, h, w, y0, x0, by16);
+  copy3(GS, s2, h, w, y0, x0, by16);
+  copy3(HV, s2 + static_cast<size_t>(h) * w, h, w, y0, x0, by16);
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncthreads();
+  // the mosaic's diagonal helpers, once a position: the squares at G
+  // sites (rbvarm/rbvarp read them there), delm/delp at R/B sites
+  each<T3SD, S3_THREADS>([&](int y, int xx) {
+    const float c = X(y, xx);
+    const float nw = X(y - 1, xx - 1), se = X(y + 1, xx + 1);
+    const float ne = X(y - 1, xx + 1), sw = X(y + 1, xx - 1);
+    if (color(pat, y0 + y, x0 + xx) == 1) {
+      SDM(y, xx) = sq(c - nw) + sq(c - se);
+      SDP(y, xx) = sq(c - sw) + sq(c - ne);
+    } else if (inside3<R3_DEL>(y, xx)) {
+      SDM(y, xx) = fabsf(se - nw);
+      SDP(y, xx) = fabsf(ne - sw);
+    }
+  });
+  __syncthreads();
+  // stage 7: pmwt from the diagonal variances, at R/B sites (the only
+  // ones whose rbint is read)
+  each_rb<T3Q>(pat, y0, x0, [&](int y, int xx) {
+    auto m = [&](int dy, int dx) { return SDM(y + dy, xx + dx); };
+    auto p = [&](int dy, int dx) { return SDP(y + dy, xx + dx); };
+    const float rbvarm =
+        EPSSQ + (GE0 * (m(-1, 0) + m(0, -1) + m(0, 1) + m(1, 0)) +
+                 GE1 * (m(-2, -1) + m(-2, 1) + m(-1, -2) + m(-1, 2) +
+                        m(1, -2) + m(1, 2) + m(2, -1) + m(2, 1)));
+    const float rbvarp =
+        EPSSQ + (GE0 * (p(-1, 0) + p(0, -1) + p(0, 1) + p(1, 0)) +
+                 GE1 * (p(-2, -1) + p(-2, 1) + p(-1, -2) + p(-1, 2) +
+                        p(1, -2) + p(1, 2) + p(2, -1) + p(2, 1)));
+    Q(y, xx) = rbvarm * rcp(rbvarp + rbvarm);
+  });
+  __syncthreads();
+  // the diagonal R/B estimates, bounded; pmwt smoothed -> rbint, pmwt'
+  each_rb<T3RI>(pat, y0, x0, [&](int y, int xx) {
+    const float c = X(y, xx);
+    const float nw = X(y - 1, xx - 1), se = X(y + 1, xx + 1);
+    const float ne = X(y - 1, xx + 1), sw = X(y + 1, xx - 1);
+    const float rbse = diag_rb(c, se, X(y + 2, xx + 2));
+    const float rbnw = diag_rb(c, nw, X(y - 2, xx - 2));
+    const float rbne = diag_rb(c, ne, X(y - 2, xx + 2));
+    const float rbsw = diag_rb(c, sw, X(y + 2, xx - 2));
+    const float dm = SDM(y, xx), dp = SDP(y, xx);
+    const float wtse = EPS + dm + SDM(y + 1, xx + 1) + SDM(y + 2, xx + 2);
+    const float wtnw = EPS + dm + SDM(y - 1, xx - 1) + SDM(y - 2, xx - 2);
+    const float wtne = EPS + dp + SDP(y - 1, xx + 1) + SDP(y - 2, xx + 2);
+    const float wtsw = EPS + dp + SDP(y + 1, xx - 1) + SDP(y + 2, xx - 2);
+    float rbm = (wtse * rbnw + wtnw * rbse) * rcp(wtse + wtnw);
+    float rbp = (wtne * rbsw + wtsw * rbne) * rcp(wtne + wtsw);
+    rbp = bound_rb(rbp, c, sw, ne, clip);
+    rbm = bound_rb(rbm, c, nw, se, clip);
+    const float alt = 0.25f * (Q(y - 1, xx - 1) + Q(y - 1, xx + 1) +
+                               Q(y + 1, xx - 1) + Q(y + 1, xx + 1));
+    float pm = Q(y, xx);
+    if (fabsf(0.5f - pm) < fabsf(0.5f - alt)) pm = alt;
+    RI(y, xx) = 0.5f * (c + rbm * (1.0f - pm) + rbp * pm);
+    if (inside3<R3_G>(y, xx)) PM(y, xx) = pm;
+  });
+  __syncthreads();
+  // G correction where the diagonal discrimination is stronger, at R/B
+  // sites -> green in place, dgrb0
+  each_rb<T3G>(pat, y0, x0, [&](int y, int xx) {
+    const float c = X(y, xx);
+    const float ri = RI(y, xx);
+    const float xu = X(y - 1, xx), xd = X(y + 1, xx);
+    const float xl = X(y, xx - 1), xr = X(y, xx + 1);
+    const float gu = card_g(ri, xu, RI(y - 2, xx));
+    const float gd = card_g(ri, xd, RI(y + 2, xx));
+    const float gl = card_g(ri, xl, RI(y, xx - 2));
+    const float gr = card_g(ri, xr, RI(y, xx + 2));
+    const float d0u = dirwts0(X, y - 1, xx), d0d = dirwts0(X, y + 1, xx);
+    const float d1l = dirwts1(X, y, xx - 1), d1r = dirwts1(X, y, xx + 1);
+    float gintv = (d0u * gd + d0d * gu) * rcp(d0d + d0u);
+    float ginth = (d1l * gr + d1r * gl) * rcp(d1l + d1r);
+    gintv = bound_g2(gintv, ri, xu, xd, clip);
+    ginth = bound_g2(ginth, ri, xl, xr, clip);
+    const float hv = HV(y, xx), pm = PM(y, xx);
+    float green = GS(y, xx);
+    if (fabsf(0.5f - pm) >= fabsf(0.5f - hv))
+      green = ginth * (1.0f - hv) + gintv * hv;
+    GS(y, xx) = green;
+    SDP(y, xx) = green - c;
+  });
+  __syncthreads();
+  // stage 8: chroma of the opposite R/B coset, at R/B sites
+  each_rb<T3PROP>(pat, y0, x0, [&](int y, int xx) {
+    const int src = 2 - color(pat, y0 + y, x0 + xx);
+    Q(y, xx) = propagate(Coset<T3SD>{SDP, pat, y0, x0, src}, y, xx);
+  });
+  __syncthreads();
+  // dgr (want 0) or dgb (want 2) at a position
+  auto dg_of = [&](int y, int xx, int want) {
+    const int c = color(pat, y0 + y, x0 + xx);
+    return c == want ? SDP(y, xx) : (c == 1 ? 0.0f : Q(y, xx));
+  };
   const size_t no = static_cast<size_t>(ho) * wo;
-  const size_t o = static_cast<size_t>(k) * wo + j;
-  out[o] = fmaxf((g - dgr) * 65535.0f, 0.0f);
-  out[no + o] = fmaxf(g * 65535.0f, 0.0f);
-  out[2 * no + o] = fmaxf((g - dgb) * 65535.0f, 0.0f);
+#pragma unroll 2
+  for (int i = threadIdx.x; i < S3_TH * S3_TW; i += S3_THREADS) {
+    const int y = i / S3_TW, xx = i % S3_TW;
+    if (k0 + y >= ho || j0 + xx >= wo) continue;
+    float dgr, dgb;
+    if (color(pat, y0 + y, x0 + xx) == 1) {  // chroma at G sites
+      const float hu = HV(y - 1, xx), hd = HV(y + 1, xx);
+      const float hl = HV(y, xx - 1), hr = HV(y, xx + 1);
+      const float iwsum = rcp(hu + hd + (1.0f - hl) + (1.0f - hr));
+      dgr = (hu * dg_of(y - 1, xx, 0) + (1.0f - hr) * dg_of(y, xx + 1, 0) +
+             (1.0f - hl) * dg_of(y, xx - 1, 0) + hd * dg_of(y + 1, xx, 0)) *
+            iwsum;
+      dgb = (hu * dg_of(y - 1, xx, 2) + (1.0f - hr) * dg_of(y, xx + 1, 2) +
+             (1.0f - hl) * dg_of(y, xx - 1, 2) + hd * dg_of(y + 1, xx, 2)) *
+            iwsum;
+    } else {
+      dgr = dg_of(y, xx, 0);
+      dgb = dg_of(y, xx, 2);
+    }
+    const float g = GS(y, xx);
+    const size_t o = static_cast<size_t>(k0 + y) * wo + j0 + xx;
+    out[o] = fmaxf((g - dgr) * 65535.0f, 0.0f);
+    out[no + o] = fmaxf(g * 65535.0f, 0.0f);
+    out[2 * no + o] = fmaxf((g - dgb) * 65535.0f, 0.0f);
+  }
 }
 
 dim3 grid_for(int h, int w, dim3 blk) {
@@ -942,37 +1068,47 @@ extern "C" int art_amaze_stage2(const float* x, const float* s1, float* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-// B2's kernel as loaded: registers, shared memory (static and dynamic)
-// and local memory, and its tile, as one line of text into buf (cap
-// bytes, NUL-terminated)
+// B2's and B3's kernels as loaded: registers, shared memory (static and
+// dynamic) and local memory, and their tiles, one line each of text into
+// buf (cap bytes, NUL-terminated)
 extern "C" int art_amaze_layout(char* buf, int cap) {
   if (cap < 1) return static_cast<int>(cudaErrorInvalidValue);
-  cudaFuncAttributes fa;
-  const cudaError_t e = cudaFuncGetAttributes(&fa, s2_tile);
+  cudaFuncAttributes f2, f3;
+  cudaError_t e = cudaFuncGetAttributes(&f2, s2_tile);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&f3, s3_tile);
   if (e != cudaSuccess) return static_cast<int>(e);
   snprintf(buf, cap,
            "s2_tile: %d registers, %zu B static + %zu B dynamic shared "
            "memory, %zu B local (spills and stack), tile %dx%d, %d threads, "
+           "halo %d\n"
+           "s3_tile: %d registers, %zu B static + %zu B dynamic shared "
+           "memory, %zu B local (spills and stack), tile %dx%d, %d threads, "
            "halo %d\n",
-           fa.numRegs, fa.sharedSizeBytes, S2_SMEM, fa.localSizeBytes, S2_TH,
-           S2_TW, S2_THREADS, R_X);
+           f2.numRegs, f2.sharedSizeBytes, S2_SMEM, f2.localSizeBytes, S2_TH,
+           S2_TW, S2_THREADS, R_X, f3.numRegs, f3.sharedSizeBytes, S3_SMEM,
+           f3.localSizeBytes, S3_TH, S3_TW, S3_THREADS, R3_X);
   return 0;
 }
 
 // s2: stage 2's (2, hp, wp); out: (3, hp - 2*halo, wp - 2*halo) RGB in
-// 0..65535; tmp: (9, hp, wp)
+// 0..65535; no scratch
 extern "C" int art_amaze_stage3(const float* x, const float* s2,
-                                const float* clips, float* out, float* tmp,
-                                int hp, int wp, int halo, int pat,
-                                void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Plane X{x, hp, wp};
-  const dim3 g = grid_for(hp, wp, BLK);
-  s3_diag<<<g, BLK, 0, s>>>(X, clips, tmp);
-  s3_rbint<<<g, BLK, 0, s>>>(X, tmp);
-  s3_gcorr<<<g, BLK, 0, s>>>(X, clips, s2, tmp, pat);
-  s3_prop<<<g, BLK, 0, s>>>(hp, wp, tmp, pat);
-  s3_out<<<grid_for(hp - 2 * halo, wp - 2 * halo, BLK), BLK, 0, s>>>(
-      hp, wp, halo, s2, tmp, out, pat);
+                                const float* clips, float* out, int hp,
+                                int wp, int halo, int pat, void* stream) {
+  if (halo < R3_X || hp <= 2 * halo || wp <= 2 * halo)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t e = cudaFuncSetAttribute(
+      s3_tile, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(S3_SMEM));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  // 16-byte copies need the planes' rows, and the tiles' first columns,
+  // at 16-byte alignment
+  const bool aligned =
+      ((reinterpret_cast<size_t>(x) | reinterpret_cast<size_t>(s2)) % 16 ==
+       0) &&
+      wp % 4 == 0 && halo % 4 == 0;
+  s3_tile<<<grid_for(hp - 2 * halo, wp - 2 * halo, dim3(S3_TW, S3_TH)),
+            S3_THREADS, S3_SMEM, static_cast<cudaStream_t>(stream)>>>(
+      x, s2, clips, out, hp, wp, halo, pat, aligned);
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,13 +7,28 @@
 // epilogue: work->out matrix, clip to [0,1], sRGB encode (_epilogue).
 //
 // What bounds it here: it reads 12 and writes 12 bytes a pixel and
-// spends several hundred float operations on them (six polynomial PQ
-// transfers, two curve evaluations, the atan2 polynomial), so at 24 MP it
-// sits near the balance of the card's float32 rate and its bandwidth.
-// The design is one thread per pixel over the flat (3, H, W) planes
-// (coalesced loads, everything in registers), with the 43/52 params,
-// the curve coefficients and the host-fitted constants staged in shared
-// memory once per block.
+// spends ~1,100 float operations on them (nine polynomial PQ transfers,
+// three curve evaluations, the atan2 polynomial, ~56 IEEE square roots
+// and ~15 IEEE divisions), so at 24 MP it is bound by the instructions it
+// issues, not by device memory. The design issues little besides that
+// arithmetic:
+//
+// - Every constant is an operand of the instruction that uses it, read
+//   from a constant bank, not a shared-memory load of its own: the 86
+//   host-fitted constants travel by value in the kernel's parameters
+//   (struct Consts), and the per-image params and curve coefficients,
+//   which lie on the device, are copied device to device into the
+//   __constant__ block c_pc on the launch stream (no read-back to the
+//   host). c_pc is one per library and device: launches that share it
+//   must be ordered on one stream, as the wrapper's are.
+// - The kernel is a template on the curve's form (rows, coefficients)
+//   and the epilogue, for each form the planner fits (FORMS), so every
+//   loop unrolls and every index into the constants is known.
+// - One thread a pixel, THREADS a block. On an H100 (700 W) 2 or 4
+//   pixels a thread (as float2, float4) ran slower, and no block of 128
+//   to 1,024 threads beat 256 (a tuning build not kept): the kernel is
+//   bound by the instructions it issues, which more pixels a thread do
+//   not reduce.
 //
 // The float32 forms are the reference's: the polynomial atan2, Taylor
 // sin/cos of the small hue shift, Horner/Clenshaw curve fits, the PQ and
@@ -24,6 +39,8 @@
 // order.
 
 #include <cuda_runtime.h>
+#include <stdio.h>
+#include <string.h>
 
 namespace {
 
@@ -32,6 +49,17 @@ constexpr int NP_MAX = 52;
 constexpr int NC_MAX = 64;  // 2 rows x 32
 constexpr int NCONST = 86;
 constexpr float MAXVAL = 65535.0f;
+
+// the curve forms the planner fits (curve1d.py): (rows, coefficients a
+// row), the even/odd split (2, deg_half + 1) or Chebyshev (1, deg + 1)
+#define FORMS(X) X(2, 11) X(2, 13) X(2, 15) X(2, 17) X(1, 16) X(1, 24) X(1, 32)
+
+struct Consts {
+  float c[NCONST];
+};
+
+// the params (NP_MAX), then the coefficients, row r at NP_MAX + r * K
+__constant__ float c_pc[NP_MAX + NC_MAX];
 
 // layout of the host-built constants (tonecurve_neutral.py::_consts_np)
 constexpr int C_PF = 0, C_QF = 12, C_PI = 24, C_QI = 34, C_INV_YMAX = 44;
@@ -43,26 +71,30 @@ __device__ __forceinline__ float clampf(float x, float lo, float hi) {
 }
 
 // P(t^2) + t*Q(t^2)
-__device__ __forceinline__ float horner_sq(float t, const float* p, int np,
-                                           const float* q, int nq) {
+template <int NP, int NQ>
+__device__ __forceinline__ float horner_sq(float t, const float* p,
+                                           const float* q) {
   const float s = t * t;
   float accp = p[0];
-  for (int i = 1; i < np; ++i) accp = accp * s + p[i];
+#pragma unroll
+  for (int i = 1; i < NP; ++i) accp = accp * s + p[i];
   float accq = q[0];
-  for (int i = 1; i < nq; ++i) accq = accq * s + q[i];
+#pragma unroll
+  for (int i = 1; i < NQ; ++i) accq = accq * s + q[i];
   return accp + t * accq;
 }
 
 __device__ __forceinline__ float pq_fwd(float x, const float* C) {
   float t = clampf(x * 0.25f, 0.0f, 1.0f);
+#pragma unroll
   for (int i = 0; i < 5; ++i) t = sqrtf(t);
-  return horner_sq(2.0f * t - 1.0f, C + C_PF, 12, C + C_QF, 12);
+  return horner_sq<12, 12>(2.0f * t - 1.0f, C + C_PF, C + C_QF);
 }
 
 __device__ __forceinline__ float pq_inv(float y, const float* C) {
   float v = clampf(y * C[C_INV_YMAX], 0.0f, 1.0f);
   v = sqrtf(sqrtf(sqrtf(v)));
-  return fmaxf(horner_sq(2.0f * v - 1.0f, C + C_PI, 10, C + C_QI, 10), 0.0f);
+  return fmaxf(horner_sq<10, 10>(2.0f * v - 1.0f, C + C_PI, C + C_QI), 0.0f);
 }
 
 __device__ __forceinline__ void jz_fwd(float r, float g, float b,
@@ -140,20 +172,23 @@ __device__ __forceinline__ float gauss(float x, float b, float c) {
   return expf(-(d * d) / (2.0f * c * c));
 }
 
-__device__ __forceinline__ float curve(float x, const float* cf, int rows,
-                                       int k) {
+template <int ROWS, int K>
+__device__ __forceinline__ float curve(float x, const float* cf) {
   const float t = 2.0f * sqrtf(clampf(x, 0.0f, 1.0f)) - 1.0f;
-  if (rows == 2) {  // even/odd Horner split in u = 2t^2 - 1
+  if (ROWS == 2) {  // even/odd Horner split in u = 2t^2 - 1
     const float u = 2.0f * t * t - 1.0f;
     float accp = cf[0];
-    for (int i = 1; i < k; ++i) accp = accp * u + cf[i];
-    float accq = cf[32];
-    for (int i = 1; i < k; ++i) accq = accq * u + cf[32 + i];
+#pragma unroll
+    for (int i = 1; i < K; ++i) accp = accp * u + cf[i];
+    float accq = cf[K];
+#pragma unroll
+    for (int i = 1; i < K; ++i) accq = accq * u + cf[K + i];
     return accp + t * accq;
   }
   const float t2 = 2.0f * t;  // Chebyshev, Clenshaw
   float b1 = 0.0f, b2 = 0.0f;
-  for (int i = k - 1; i > 0; --i) {
+#pragma unroll
+  for (int i = K - 1; i > 0; --i) {
     const float nb = cf[i] + t2 * b1 - b2;
     b2 = b1;
     b1 = nb;
@@ -166,35 +201,26 @@ __device__ __forceinline__ float srgb_encode(float x, const float* C) {
   const float t = sqrtf(sqrtf(sqrtf(x)));
   const float u = 2.0f * (t - C[C_T0]) / C[C_1MT0] - 1.0f;
   float acc = C[C_POL];
+#pragma unroll
   for (int i = 1; i < 9; ++i) acc = acc * u + C[C_POL + i];
   return x <= 0.0031308f ? x * 12.92f : 1.055f * acc - 0.055f;
 }
 
-__global__ void neutral_kernel(const float* __restrict__ in,
-                               float* __restrict__ out,
-                               const float* __restrict__ params,
-                               const float* __restrict__ coeffs,
-                               const float* __restrict__ consts, int npix,
-                               int nparams, int crows, int ccols, int epi) {
-  __shared__ float P[NP_MAX];
-  __shared__ float CF[NC_MAX];
-  __shared__ float C[NCONST];
-  for (int i = threadIdx.x; i < nparams; i += blockDim.x) P[i] = params[i];
-  for (int i = threadIdx.x; i < crows * ccols; i += blockDim.x)
-    CF[(i / ccols) * 32 + i % ccols] = coeffs[i];
-  for (int i = threadIdx.x; i < NCONST; i += blockDim.x) C[i] = consts[i];
-  __syncthreads();
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= npix) return;
-
+// one pixel, in place: (r, g, b) in 0..65535 -> the Neutral curve's
+// output (EPI 0), or the output encoded (1: sRGB, 2: linear)
+template <int ROWS, int K, int EPI>
+__device__ __forceinline__ void neutral_px(float& r_io, float& g_io,
+                                           float& b_io, const float* C) {
+  const float* P = c_pc;
+  const float* CF = c_pc + NP_MAX;
   const float rhue = P[36], bhue = P[37], yhue = P[38];
   const float rrange = P[39], brange = P[40], yrange = P[41];
   const float whitept = P[42];
   const float lmax = whitept * MAXVAL;
 
-  float r = fmaxf(in[i] * (float)(1.0 / 65535.0), 0.0f);
-  float g = fmaxf(in[npix + i] * (float)(1.0 / 65535.0), 0.0f);
-  float b = fmaxf(in[2 * (size_t)npix + i] * (float)(1.0 / 65535.0), 0.0f);
+  float r = fmaxf(r_io * (float)(1.0 / 65535.0), 0.0f);
+  float g = fmaxf(g_io * (float)(1.0 / 65535.0), 0.0f);
+  float b = fmaxf(b_io * (float)(1.0 / 65535.0), 0.0f);
   float ilum, az1, bz1;
   jz_fwd(r, g, b, P, C, ilum, az1, bz1);
   const float cz1 = sqrtf(az1 * az1 + bz1 * bz1);
@@ -203,11 +229,13 @@ __global__ void neutral_kernel(const float* __restrict__ in,
 
   // gamut compression in output space
   float o[3];
+#pragma unroll
   for (int c = 0; c < 3; ++c)
     o[c] = P[18 + 3 * c] * r + P[19 + 3 * c] * g + P[20 + 3 * c] * b;
   const float ac = fmaxf(fmaxf(o[0], o[1]), o[2]);
   const float aac = fabsf(ac);
   const float safe = aac > 0.0f ? aac : 1.0f;
+#pragma unroll
   for (int c = 0; c < 3; ++c) {
     const float d = ac != 0.0f ? (ac - o[c]) / safe : 0.0f;
     const float th = C[C_TH + c], s = C[C_S + c];
@@ -243,9 +271,9 @@ __global__ void neutral_kernel(const float* __restrict__ in,
     b = pick(b);
   }
 
-  r = curve(r, CF, crows, ccols);
-  g = curve(g, CF, crows, ccols);
-  b = curve(b, CF, crows, ccols);
+  r = curve<ROWS, K>(r, CF);
+  g = curve<ROWS, K>(g, CF);
+  b = curve<ROWS, K>(b, CF);
 
   float jz, az2, bz2;
   jz_fwd(r, g, b, P, C, jz, az2, bz2);
@@ -280,40 +308,97 @@ __global__ void neutral_kernel(const float* __restrict__ in,
   g = clampf(g * MAXVAL, 0.0f, lmax);
   b = clampf(b * MAXVAL, 0.0f, lmax);
 
-  if (epi) {  // work -> out, clip, TRC (1: sRGB, 2: linear)
+  if (EPI) {  // work -> out, clip, TRC (1: sRGB, 2: linear)
     const float* W = P + 43;
     const float inv = (float)(1.0 / 65535.0);
     float v[3];
+#pragma unroll
     for (int c = 0; c < 3; ++c) {
       float x = (W[3 * c] * r + W[3 * c + 1] * g + W[3 * c + 2] * b) * inv;
       x = clampf(x, 0.0f, 1.0f);
-      v[c] = epi == 1 ? srgb_encode(x, C) : x;
+      v[c] = EPI == 1 ? srgb_encode(x, C) : x;
     }
     r = v[0];
     g = v[1];
     b = v[2];
   }
+  r_io = r;
+  g_io = g;
+  b_io = b;
+}
+
+// in/out: (3, npix) planes
+template <int ROWS, int K, int EPI>
+__global__ void __launch_bounds__(THREADS)
+    neutral_kernel(const float* __restrict__ in, float* __restrict__ out,
+                   int npix, const Consts consts) {
+  const int i = blockIdx.x * THREADS + threadIdx.x;
+  if (i >= npix) return;
+  const size_t n = npix;
+  float r = in[i], g = in[n + i], b = in[2 * n + i];
+  neutral_px<ROWS, K, EPI>(r, g, b, consts.c);
   out[i] = r;
-  out[npix + i] = g;
-  out[2 * (size_t)npix + i] = b;
+  out[n + i] = g;
+  out[2 * n + i] = b;
+}
+
+using KernelFn = void (*)(const float*, float*, int, const Consts);
+
+// the instantiation for a form and an epilogue, or null
+KernelFn pick(int rows, int k, int epi) {
+  if (epi < 0 || epi > 2) return nullptr;
+#define PICK(R, N)                                                \
+  if (rows == R && k == N)                                        \
+    return epi == 0 ? neutral_kernel<R, N, 0>                     \
+                    : epi == 1 ? neutral_kernel<R, N, 1>          \
+                               : neutral_kernel<R, N, 2>;
+  FORMS(PICK)
+#undef PICK
+  return nullptr;
 }
 
 }  // namespace
 
 // in/out: (3, npix) float32 planes; params (nparams = 43, or 52 with the
-// epilogue's work2out matrix); coeffs (crows, ccols): crows 2 = Horner
-// split, 1 = Chebyshev; consts: NCONST host-fitted floats; epi: 0 none,
-// 1 sRGB, 2 linear.
+// epilogue's work2out matrix) and coeffs (crows, ccols; crows 2 = Horner
+// split, 1 = Chebyshev; a form of FORMS) on the device; consts: NCONST
+// host-fitted floats in host memory; epi: 0 none, 1 sRGB, 2 linear.
 extern "C" int art_neutral_tone(const float* in, float* out,
                                 const float* params, const float* coeffs,
                                 const float* consts, int npix, int nparams,
                                 int crows, int ccols, int epi,
                                 void* stream) {
-  if (npix < 1 || (crows != 1 && crows != 2) || ccols < 1 || ccols > 32 ||
-      nparams != (epi ? 52 : 43) || epi < 0 || epi > 2)
+  const KernelFn fn = pick(crows, ccols, epi);
+  if (fn == nullptr || npix < 1 || nparams != (epi ? 52 : 43))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  neutral_kernel<<<(npix + THREADS - 1) / THREADS, THREADS, 0, st>>>(
-      in, out, params, coeffs, consts, npix, nparams, crows, ccols, epi);
+  cudaError_t e = cudaMemcpyToSymbolAsync(
+      c_pc, params, nparams * sizeof(float), 0, cudaMemcpyDeviceToDevice, st);
+  if (e == cudaSuccess)
+    e = cudaMemcpyToSymbolAsync(c_pc, coeffs, crows * ccols * sizeof(float),
+                                NP_MAX * sizeof(float),
+                                cudaMemcpyDeviceToDevice, st);
+  if (e != cudaSuccess) return (int)e;
+  Consts c;
+  memcpy(c.c, consts, sizeof(c.c));
+  fn<<<(npix + THREADS - 1) / THREADS, THREADS, 0, st>>>(in, out, npix, c);
   return (int)cudaGetLastError();
+}
+
+// the kernel for a form and an epilogue as loaded: registers, shared and
+// local memory, as one line of text into buf (cap bytes, NUL-terminated)
+extern "C" int art_neutral_layout(char* buf, int cap, int crows, int ccols,
+                                  int epi) {
+  const KernelFn fn = pick(crows, ccols, epi);
+  if (cap < 1 || fn == nullptr) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes fa;
+  const cudaError_t e = cudaFuncGetAttributes(&fa, fn);
+  if (e != cudaSuccess) return (int)e;
+  snprintf(buf, cap,
+           "neutral_kernel<%d, %d, %d>: %d registers, %zu B static shared "
+           "memory, %zu B local (spills and stack), %zu B __constant__, %d "
+           "threads\n",
+           crows, ccols, epi, fa.numRegs, fa.sharedSizeBytes,
+           fa.localSizeBytes, fa.constSizeBytes, THREADS);
+  return 0;
 }

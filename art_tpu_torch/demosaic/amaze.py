@@ -15,7 +15,7 @@ Each stage has a CUDA kernel (``csrc/amaze.cu``, wrappers in
 plain PyTorch versions: float32 operations in the reference's order, with
 exact division (the reference's Pallas path takes an approximate
 reciprocal on the TPU; its whole-plane path, which this follows, divides
-exactly). Stage reaches: B1 ~9, B2 ~13, B3 ~11, all inside HALO.
+exactly). Stage reaches: B1 ~9, B2 ~13, B3 10, all inside HALO.
 
 The reference's tile padding to 256x2048 multiples and its 128-column
 halo are TPU layout workarounds and are not copied; they change no value.

@@ -17,7 +17,9 @@ C entry point, whatever number of passes it runs).
 
 B2 is one kernel over output tiles of S2_TILE, each computed from the
 tile grown by S2_HALO (x's reach; the .cu's S2_TH, S2_TW and R_X, which
-``tests/test_torch_amaze_tiles.py`` holds to these): it needs no scratch
+``tests/test_torch_amaze_tiles.py`` holds to these); B3 likewise over
+output tiles of S3_TILE of its cropped output, from the tile grown by
+S3_HALO (the .cu's S3_TH, S3_TW and R3_X). Neither needs a scratch
 plane.
 """
 
@@ -33,10 +35,13 @@ from art_tpu_torch.demosaic import amaze
 
 # scratch planes each entry point needs beside its output
 SCRATCH = {"art_amaze_stage1": 8, "art_amaze_stage2": 0,
-           "art_amaze_stage3": 9}
-# B2's output tile (rows, columns) and the reach of its window around it
+           "art_amaze_stage3": 0}
+# B2's and B3's output tiles (rows, columns) and the reach of the window
+# around each
 S2_TILE = (32, 64)
 S2_HALO = 15
+S3_TILE = (32, 64)
+S3_HALO = 10
 
 
 def pattern_code(pattern):
@@ -127,8 +132,8 @@ def _launch(name, x, pattern, out_shape, inputs, ints=()):
 
 
 def layout():
-    """B2's kernel on the card: registers, shared and local memory, tile
-    (``art_amaze_layout``)."""
+    """B2's and B3's kernels on the card: registers, shared and local
+    memory, tile (``art_amaze_layout``)."""
     buf = ctypes.create_string_buffer(1024)
     kernels.check(kernels.library().art_amaze_layout(buf, len(buf)),
                   "art_amaze_layout")

@@ -51,17 +51,19 @@ SIGNATURES = {
     "art_nlmeans": ("nlmeans", [_P] * 3 + [_I] * 2 + [_P]),
     # buf, cap: B6's kernel's registers and shared memory, as text
     "art_nlmeans_layout": ("nlmeans", [_P, _I]),
-    # rgb, out, params, coeffs, consts, npix, nparams, crows, ccols,
-    # epi, stream
+    # rgb, out, params, coeffs, consts (host), npix, nparams, crows,
+    # ccols, epi, stream
     "art_neutral_tone": ("neutral_tone", [_P] * 5 + [_I] * 5 + [_P]),
+    # buf, cap, crows, ccols, epi: B7's kernel of that form as loaded
+    "art_neutral_layout": ("neutral_tone", [_P] + [_I] * 4),
     # x, clips, out, tmp, hp, wp, pat, stream
     "art_amaze_stage1": ("amaze", [_P] * 4 + [_I] * 3 + [_P]),
     # x, s1, out, hp, wp, pat, stream
     "art_amaze_stage2": ("amaze", [_P] * 3 + [_I] * 3 + [_P]),
-    # buf, cap: B2's kernel's registers and shared memory, as text
+    # buf, cap: B2's and B3's kernels' registers and shared memory, as text
     "art_amaze_layout": ("amaze", [_P, _I]),
-    # x, s2, clips, out, tmp, hp, wp, halo, pat, stream
-    "art_amaze_stage3": ("amaze", [_P] * 5 + [_I] * 4 + [_P]),
+    # x, s2, clips, out, hp, wp, halo, pat, stream
+    "art_amaze_stage3": ("amaze", [_P] * 4 + [_I] * 4 + [_P]),
 }
 
 _lib = None

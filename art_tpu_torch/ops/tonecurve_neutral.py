@@ -18,6 +18,7 @@ on any device, as the reference sends them to XLA.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
@@ -40,7 +41,12 @@ _ATAN_C = (  # minimax odd poly for atan(t), |t|<=1
     0.9999993329, -0.3332985605, 0.1994653599, -0.1390853351,
     0.0964200441, -0.0559098861, 0.0218612288, -0.0040540580)
 
-MAXC = 32  # longest curve-coefficient row the kernel takes
+# the curve forms (rows, coefficients a row) the kernel is built for: the
+# planner's fits, the even/odd split of deg_half 10-16 and the Chebyshev
+# series of degree 15, 23 or 31 (core/curve1d.py); FORMS in
+# csrc/neutral_tone.cu
+KERNEL_FORMS = ((2, 11), (2, 13), (2, 15), (2, 17), (1, 16), (1, 24),
+                (1, 32))
 
 
 def _output_matrix_for(name: str):
@@ -305,8 +311,8 @@ _EPI = {None: 0, "srgb": 1, "linear": 2}
 
 @functools.lru_cache(None)
 def _consts_np():
-    """Host-derived float32 constants the kernel reads (layout in
-    csrc/neutral_tone.cu): PQ fits, the sRGB fit, gamut-compression
+    """Host-derived float32 constants the kernel takes by value (layout
+    in csrc/neutral_tone.cu): PQ fits, the sRGB fit, gamut-compression
     constants and the Bradford matrices."""
     pf, qf, pi, qi, ymax = jzazbz.pq_fits()
     pol, t0 = cs._srgb_gamma_fit()
@@ -322,9 +328,6 @@ def _consts_np():
     return np.asarray(vals, dtype=np.float32)
 
 
-_consts_dev: dict = {}
-
-
 def neutral_tone(rgb, params, coeffs, epi=None):
     """Neutral tone curve (+ optional epilogue) of a (3, H, W) float32
     stack. params: 43 scalars (52 with the work2out matrix for the
@@ -338,10 +341,13 @@ def neutral_tone(rgb, params, coeffs, epi=None):
     want = 52 if epi else 43
     if params.ndim != 1 or params.shape[0] != want:
         raise ValueError(f"params: want ({want},), got {tuple(params.shape)}")
-    if coeffs.ndim != 2 or coeffs.shape[0] not in (1, 2) \
-            or not 1 <= coeffs.shape[1] <= MAXC:
-        raise ValueError(f"coeffs: want (2, K) or (1, D) with K, D <= "
-                         f"{MAXC}, got {tuple(coeffs.shape)}")
+    if coeffs.ndim != 2 or coeffs.shape[0] not in (1, 2):
+        raise ValueError(f"coeffs: want (2, K) or (1, D), got "
+                         f"{tuple(coeffs.shape)}")
+    if tuple(coeffs.shape) not in KERNEL_FORMS:
+        raise NotImplementedError(
+            f"coeffs {tuple(coeffs.shape)}: the kernel is built for the "
+            f"planner's curve forms {KERNEL_FORMS}")
     if rgb.device.type == "cpu":
         return neutral_plain(rgb, params, coeffs, epi)
     if rgb.device.type != "cuda":
@@ -353,15 +359,11 @@ def neutral_tone(rgb, params, coeffs, epi=None):
     rgb = rgb.contiguous()
     params = params.contiguous()
     coeffs = coeffs.contiguous()
-    consts = _consts_dev.get(rgb.device)
-    if consts is None:
-        consts = torch.from_numpy(_consts_np()).to(rgb.device)
-        _consts_dev[rgb.device] = consts
     out = torch.empty_like(rgb)
     lib = kernels.library()
     rc = lib.art_neutral_tone(
         rgb.data_ptr(), out.data_ptr(), params.data_ptr(),
-        coeffs.data_ptr(), consts.data_ptr(), rgb[0].numel(),
+        coeffs.data_ptr(), _consts_np().ctypes.data, rgb[0].numel(),
         params.shape[0], coeffs.shape[0], coeffs.shape[1], _EPI[epi],
         kernels.stream_of(rgb))
     kernels.check(rc, "art_neutral_tone")
@@ -370,6 +372,15 @@ def neutral_tone(rgb, params, coeffs, epi=None):
 
 
 neutral_tone.launches = 0
+
+
+def layout(coeffs_shape, epi):
+    """The kernel of a curve form and epilogue on the card: registers,
+    shared and local memory (``art_neutral_layout``)."""
+    buf = ctypes.create_string_buffer(512)
+    kernels.check(kernels.library().art_neutral_layout(
+        buf, len(buf), *coeffs_shape, _EPI[epi]), "art_neutral_layout")
+    return buf.value.decode()
 
 
 def apply_neutral(rgb, data, static):

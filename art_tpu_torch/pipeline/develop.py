@@ -162,16 +162,23 @@ def _check_raw_params(frame, pp):
     if raw.ca_enabled and (raw.ca_autocorrect or raw.ca_red != 0
                            or raw.ca_blue != 0):
         _unported("raw CA correction")
-    if raw.df_enabled:
+    # the reference applies a dark frame or flat field only from a file
+    # that exists, found by path or by its search (raw/dfff_managers.py,
+    # not ported), and a gain map only from the frame's own file
+    if raw.df_enabled and (raw.df_autoselect or _is_file(raw.df_file)):
         _unported("dark frame")
-    if raw.ff_enabled:
+    if raw.ff_enabled and (raw.ff_autoselect or _is_file(raw.ff_file)
+                           or (raw.ff_embedded and _is_file(frame.filename))):
         _unported("flat field / gain map")
     if pp.lens_prof.method != "none":
         _unported(f"lens profile {pp.lens_prof.method!r}")
     if pp.exposure.enabled and pp.exposure.hrmode != "Off":
         _unported(f"highlight recovery {pp.exposure.hrmode!r}")
+    # a profile file that does not exist keeps the camera matrix, as in
+    # the reference
     ip = pp.icm.input_profile
-    if isinstance(ip, str) and ip.lower().endswith((".icc", ".icm", ".dcp")):
+    if (isinstance(ip, str) and ip.lower().endswith((".icc", ".icm", ".dcp"))
+            and os.path.isfile(ip)):
         _unported(f"input profile {ip!r}")
     from art_tpu_torch.raw.badpixfile import find_badpixels_for
 
@@ -211,11 +218,17 @@ def _check_geometry(frame, pp):
         _unported("resize")
 
 
+def _is_file(path) -> bool:
+    return bool(path) and os.path.isfile(path)
+
+
 def _resolve_output_profile(name: str) -> str:
     """Output-profile name -> named colorspace (develop.py::
-    _resolve_output_profile); ICC files are not ported."""
+    _resolve_output_profile): an .icc/.icm file that exists is not
+    ported; any other name resolves by substring, as in the reference
+    (which without a user directory looks nowhere else)."""
     n = (name or "").lower()
-    if n.endswith((".icc", ".icm")):
+    if n.endswith((".icc", ".icm")) and os.path.isfile(name):
         _unported(f"output ICC profile {name!r}")
     if "2020" in n:
         return "Rec2020"
@@ -396,6 +409,9 @@ def build_run(config: PipelineConfig):
                                      data["raw_scale"])
             rgb = demosaic(cfa, config.pattern, config.demosaic_method,
                            init_gain=data["init_gain"])
+        # the float mosaic planes would stay allocated beside the
+        # denoise's scratch, where the flagship's peak lies
+        del inp, cfa
         if not fuse_head:
             with span("raw_head"):
                 rgb = raw_head(rgb, data)

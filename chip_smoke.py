@@ -24,19 +24,19 @@ kernel equals its plain PyTorch version on the tensors its path feeds it
 (bounds below), and that a 512x2048 develop on the card agrees with the
 same develop on the CPU's plain path, for each path, to the slice bounds
 of the CPU tests. It prints the card's name and power limit, develop
-and device-program timings, peak memory, torch.profiler tables, the
-kernels' ptxas report (registers, spills), for B2, B4, B5 and B6 their
-kernels' registers and shared memory as loaded, and device time by
-kernel name: B4 and B5 by torch.profiler (sigma passes against level
-kernels, also on a constant frame, where every value falls in one
-histogram bin) with their scratch bytes; B2 and B6, one kernel a call,
-by CUDA events, with the bytes a B2 call allocates and the share of
-nyquist2 pixels, where its area sums run, and B6 also on a constant
-plane and where the weight's clamp at 50 fires, each held to the plain
-version. Then one JSON line of per-kernel results (time, plain time,
-bound) and last the line {"ok": true, "device": {...}}. Any failure
-raises (non-zero exit, no result lines); so does a machine without
-CUDA.
+and device-program timings, peak memory and the stage and kernel launch
+that set it, torch.profiler tables, the kernels' ptxas report
+(registers, spills), for B2, B3, B4, B5, B6 and B7 their kernels'
+registers and shared memory as loaded, and device time by kernel name:
+B4 and B5 by torch.profiler (sigma passes against level kernels, also on
+a constant frame, where every value falls in one histogram bin) with
+their scratch bytes; B2, B3 and B6, one kernel a call, by CUDA events,
+with the bytes a B2 or B3 call allocates and the share of nyquist2
+pixels, where B2's area sums run, and B6 also on a constant plane and
+where the weight's clamp at 50 fires, each held to the plain version.
+Then one JSON line of per-kernel results (time, plain time, bound) and
+last the line {"ok": true, "device": {...}}. Any failure raises
+(non-zero exit, no result lines); so does a machine without CUDA.
 """
 
 from __future__ import annotations
@@ -287,10 +287,54 @@ def median_develop(label, frame, pp):
         f"{[round(1e3 * t, 1) for t in times]}")
 
 
+def peak_by_stage(run):
+    """Run `run` once and attribute its peak device memory: the peak so far
+    after each pipeline stage (an `art:` span of develop.py) and at each
+    kernel launch (its launch check, its output and scratch allocated).
+    The allocator counts on the host, in program order, so no
+    synchronisation is needed between the marks. Returns (peak, the
+    first stage and the first launch at which the peak was reached)."""
+    from art_tpu_torch import kernels
+    from art_tpu_torch.pipeline import develop as tdev
+
+    stages, launches = [], []
+    check, span = kernels.check, tdev.span
+
+    def check_at(rc, name):
+        launches.append((name, torch.cuda.max_memory_allocated()))
+        return check(rc, name)
+
+    @contextlib.contextmanager
+    def span_at(name):
+        with span(name):
+            yield
+        stages.append((name, torch.cuda.max_memory_allocated()))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.check, tdev.span = check_at, span_at
+    try:
+        run()
+    finally:
+        kernels.check, tdev.span = check, span
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+
+    def first(marks):
+        return next((name for name, m in marks if m == peak), "after all")
+
+    log("  peak device memory so far, after each stage: " + ", ".join(
+        f"{k} {m / 1e9:.3f}" for k, m in stages) + " GB; at each launch: "
+        + ", ".join(f"{k} {m / 1e9:.3f}" for k, m in launches) + " GB")
+    log(f"  peak {peak / 1e9:.3f} GB, set in stage {first(stages)}, at "
+        f"the launch of {first(launches)}")
+    return peak, first(stages), first(launches)
+
+
 def device_program(frame, pp):
     """Time the host plan alone, then the device program alone with its
-    inputs resident (CUDA events) and its peak memory. Returns the config
-    and the device inputs."""
+    inputs resident (CUDA events), its peak memory and the stage that
+    sets it. Returns the config and the device inputs."""
     from art_tpu_torch.pipeline import develop as tdev
 
     t0 = time.monotonic()
@@ -301,12 +345,9 @@ def device_program(frame, pp):
     data_d = tdev.data_to_torch(data, "cuda")
     run = tdev.build_run(config)
     device_ms = gpu_ms(lambda: run(inp_d, data_d), 5)
-    torch.cuda.reset_peak_memory_stats()
-    run(inp_d, data_d)
-    torch.cuda.synchronize()
+    peak, _, _ = peak_by_stage(lambda: run(inp_d, data_d))
     log(f"  device program alone (inputs resident), mean of 5: "
-        f"{device_ms:.2f} ms; peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        f"{device_ms:.2f} ms; peak device memory {peak / 1e9:.2f} GB")
     return config, inp_d, data_d
 
 
@@ -478,7 +519,7 @@ def main():
     for line in kernels.build_info.get("log", "").splitlines():
         if "registers" in line or "spill" in line:
             log("  ptxas:", line.strip())
-    log("kernels as loaded (B2, B6; B4, B5):")
+    log("kernels as loaded (B2, B3, B6; B4, B5):")
     for line in (ak.layout() + nk.layout() + wk.layout()).splitlines():
         log("  " + line)
 
@@ -543,6 +584,14 @@ def main():
     del s1
     k3 = check("b3", lambda: ak.amaze_stage3(x, pat, s2, clips),
                lambda: amaze.stage3_plain(x, pat, s2, clips), (x, s2, clips))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ak.amaze_stage3(x, pat, s2, clips)
+    torch.cuda.synchronize()
+    log(f"B3 allocates {(torch.cuda.max_memory_allocated() - base) / 1e9:.3f}"
+        f" GB a call (its output: {k3.numel() * 4 / 1e9:.3f} GB)")
+    one_launch_ms("B3", lambda: ak.amaze_stage3(x, pat, s2, clips), "s3_tile")
     rgb = amaze._with_border(cfa, pat, k3)
     del s2, x
 
@@ -578,6 +627,7 @@ def main():
     params = torch.cat([tc["params"], data_d["work2out"].reshape(-1)])
     coeffs = tc["coeffs"].reshape(-1, tc["coeffs"].shape[-1])
     epi = config.out_trc[0]
+    log("B7 as loaded: " + tn.layout(tuple(coeffs.shape), epi).strip())
     b7_k = tn.neutral_tone(b4_k, params, coeffs, epi)
     b7_p, *ops = needed_ops(lambda: tn.neutral_plain(b4_k, params, coeffs,
                                                      epi))

@@ -1,5 +1,5 @@
-"""B2's tiling on the CPU: each output tile of the fused stage-2 kernel is
-computed from the tile grown by its halo alone.
+"""B2's and B3's tiling on the CPU: each output tile of the fused stage-2
+and stage-3 kernels is computed from the tile grown by its halo alone.
 
 For every tile of the kernel's grid over the padded plane (S2_TILE,
 ragged at the far edges), the window of the tile grown by S2_HALO is cut
@@ -13,7 +13,11 @@ x by 1 more. A halo one smaller gets nyqf wrong there. (The outputs
 themselves need one less in a regular Bayer plane: the curvature reads
 green0 at G sites, where it is x, and green0 by 3 at an R/B site is read
 only where the seam of an odd-size plane puts two R/B sites side by
-side; no data tried here shows it.) The tile and halo constants are read
+side; no data tried here shows it.) B3's tiles (S3_TILE over its output,
+the plane cropped by HALO) need x by S3_HALO: the outputs' chroma at G
+sites reads the propagation by 1, which reads dgrb0 by 3, which reads
+rbint by 2, whose pmwt reads the diagonal variances by 1, which read the
+squares by 2, which read x by 1. The tile and halo constants are read
 from the wrapper, which mirrors those of ``csrc/amaze.cu``. No JAX here.
 """
 
@@ -98,3 +102,62 @@ def test_tile_constants_mirror_the_kernel():
     assert (int(th), int(tw)) == ak.S2_TILE
     assert int(re.search(r"\bR_X = (\d+)", src).group(1)) == ak.S2_HALO
     assert ak.SCRATCH["art_amaze_stage2"] == 0
+
+
+def _stage3_planes(pattern, shape):
+    """x, stage 2's planes and the clips of a mosaic of `shape` (noise
+    with a block of one-pixel stripes), from the plain versions."""
+    rng = np.random.default_rng(23)
+    h, w = shape
+    cfa = np.minimum(rng.uniform(0.01, 1.1, shape), 1.0) * 65535
+    cfa[4:h // 2, 10:w // 2] = np.where(np.arange(10, w // 2) % 2, 60000.0,
+                                        4000.0)
+    x = amaze.padded_plane(torch.from_numpy(cfa.astype(np.float32)))
+    clips = amaze.clip_points(np.float32(1.25), "cpu")
+    s1 = amaze.stage1_plain(x, pattern, clips)
+    return x, amaze.stage2_plain(x, pattern, s1), clips
+
+
+def _stage3_tile_mismatches(x, s2, clips, pattern, halo):
+    """The output tiles (k0, j0) of B3's grid where stage3_plain on the
+    tile grown by `halo` differs from stage3_plain on the whole plane.
+    B3's output is the padded plane cropped by HALO > its reach, so the
+    window of a tile (ragged ones cut to the output) lies inside the
+    plane: no wrapped index."""
+    th, tw = ak.S3_TILE
+    whole = amaze.stage3_plain(x, pattern, s2, clips)
+    _, ho, wo = whole.shape
+    bad = []
+    for k0 in range(0, ho, th):
+        for j0 in range(0, wo, tw):
+            h, w = min(th, ho - k0), min(tw, wo - j0)
+            y0, x0 = amaze.HALO + k0 - halo, amaze.HALO + j0 - halo
+            rows = slice(y0, y0 + h + 2 * halo)
+            cols = slice(x0, x0 + w + 2 * halo)
+            win = amaze.stage3_plain(
+                x[rows, cols].contiguous(), shifted_pattern(pattern, y0, x0),
+                s2[:, rows, cols].contiguous(), clips, halo=halo)
+            if not torch.equal(win, whole[:, k0:k0 + h, j0:j0 + w]):
+                bad.append((k0, j0))
+    return bad
+
+
+# 57 x 131 pads to an odd 105 x 179: an output of 2 x 3 tiles, ragged at
+# the bottom (25 rows) and the right (3 columns)
+@pytest.mark.parametrize("pattern", ["RGGB", "GRBG", "GBRG", "BGGR"])
+def test_stage3_tiles_need_only_their_halo(pattern):
+    x, s2, clips = _stage3_planes(pattern, (57, 131))
+    assert x.shape == (105, 179)
+    halo = ak.S3_HALO
+    assert halo < amaze.HALO
+    assert _stage3_tile_mismatches(x, s2, clips, pattern, halo) == []
+    # a halo one smaller misses x where rbint's pmwt reads it
+    assert _stage3_tile_mismatches(x, s2, clips, pattern, halo - 1) != []
+
+
+def test_stage3_tile_constants_mirror_the_kernel():
+    src = CU.read_text()
+    th, tw = re.search(r"S3_TH = (\d+), S3_TW = (\d+);", src).groups()
+    assert (int(th), int(tw)) == ak.S3_TILE
+    assert int(re.search(r"\bR3_X = (\d+)", src).group(1)) == ak.S3_HALO
+    assert ak.SCRATCH["art_amaze_stage3"] == 0

@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from art_tpu_torch.core.curve1d import fit_curve, fit_gamma_split
+from art_tpu_torch.core.curve1d import fit_curve, fit_gamma_split, split_poly
 from art_tpu_torch.core.image import synthesize_bayer
 from art_tpu_torch.demosaic import amaze
 from art_tpu_torch.demosaic import amaze_kernel as ak
@@ -167,6 +167,108 @@ def test_amaze_kernels_match_plain(cuda_device, pattern, gain):
     assert torch.equal(k1, p1)
     assert torch.equal(k2, p2)
     assert torch.equal(k3, p3)
+
+
+def _extremes(rgb):
+    """Write extreme pixels into the first columns of a (3, H, W) stack:
+    zero chroma, black, negative, far past white, one primary."""
+    rgb[:, :, :4] = rgb[0, :, :4]
+    rgb[:, :2, 4:8] = 0.0
+    rgb[:, 2:4, 4:8] = -1000.0
+    rgb[:, 4:6, 4:8] = 3e5
+    rgb[0, 6:8, 4:8], rgb[1:, 6:8, 4:8] = 1e6, 0.0
+    return rgb
+
+
+def _form_coeffs(rows, k):
+    """Coefficients of the flagship curve in a form the planner fits: the
+    even/odd split of half degree k - 1 or the Chebyshev series of
+    degree k - 1, on the sqrt warp (core/curve1d.py)."""
+    lut = ttc.compose_luts([ttc.adjust_user_curve(
+        flagship_pp().tone_curve.curve)])
+    n = len(lut)
+
+    def fn_t(t):
+        return np.interp(((t + 1.0) / 2.0) ** 2, np.linspace(0, 1, n), lut)
+
+    if rows == 2:
+        return split_poly(fn_t, k - 1)
+    t = np.linspace(-1.0, 1.0, 4097)
+    return np.polynomial.chebyshev.chebfit(t, fn_t(t), k - 1).astype(
+        np.float32)[None]
+
+
+def _neutral_equal(device, shape, form, epi, seed):
+    _, data = ttc.plan(flagship_pp(), {"working_profile": "Rec2020"})
+    params = data["params"]
+    if epi:
+        w2o = np.linalg.inv(ttn.cs.MATRICES_RGB_TO_XYZ["sRGB"]) @ \
+            ttn.cs.MATRICES_RGB_TO_XYZ["Rec2020"]
+        params = np.concatenate([params, w2o.astype(np.float32).ravel()])
+    rng = np.random.default_rng(seed)
+    rgb = _extremes((rng.uniform(-0.05, 1.15, size=shape) * 65535).astype(
+        np.float32))
+    rgb = torch.from_numpy(rgb).to(device)
+    p = torch.from_numpy(params).to(device)
+    c = torch.from_numpy(_form_coeffs(*form)).to(device)
+    assert tuple(c.shape) == form
+    before = ttn.neutral_tone.launches
+    out = ttn.neutral_tone(rgb, p, c, epi)
+    torch.cuda.synchronize()
+    assert ttn.neutral_tone.launches == before + 1
+    # the same operations in the same order, -fmad=false: equal
+    assert torch.equal(out, ttn.neutral_plain(rgb, p, c, epi))
+
+
+# every instantiation of the kernel: each curve form the planner fits,
+# each epilogue; 96 x 258 pixels
+@pytest.mark.cuda
+@pytest.mark.parametrize("epi", [None, "srgb", "linear"])
+@pytest.mark.parametrize("form", ttn.KERNEL_FORMS,
+                         ids=[f"{r}x{k}" for r, k in ttn.KERNEL_FORMS])
+def test_neutral_kernel_every_instantiation(cuda_device, form, epi):
+    _neutral_equal(cuda_device, (3, 96, 258), form, epi, 5)
+
+
+# 97 x 131 pixels, odd: the planes start off 8-byte alignment, and the
+# last block is ragged
+@pytest.mark.cuda
+@pytest.mark.parametrize("form,epi", [((2, 11), None), ((1, 32), "srgb"),
+                                      ((2, 17), "linear")])
+def test_neutral_kernel_odd_pixel_count(cuda_device, form, epi):
+    _neutral_equal(cuda_device, (3, 97, 131), form, epi, 8)
+
+
+# B3's fused kernel: 32 x 64 output tiles of the cropped output, copied
+# 16 bytes at a time where the plane's width is a multiple of 4 and the
+# tile is inside it, else 4 bytes at a time. 257 x 430 pads to 305 x 478
+# (ragged tiles at both far edges, 4-byte copies); 301 x 523 to an odd
+# 349 x 571; 300 x 1000 to 348 x 1048 (16-byte copies inside); stripes
+# make stage 2's Nyquist test fire
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,stripes,pattern", [
+    ((300, 520), True, "RGGB"), ((257, 430), False, "GRBG"),
+    ((301, 523), True, "GBRG"), ((300, 1000), True, "BGGR"),
+    ((64, 65), False, "RGGB")],
+    ids=["stripes", "ragged", "odd", "wide", "one-tile"])
+def test_amaze_stage3_kernel_matches_plain(cuda_device, shape, stripes,
+                                           pattern):
+    rng = np.random.default_rng(13)
+    cfa = rng.uniform(0.01, 1.1, shape) * 65535
+    if stripes:
+        cfa[40:200, 60:400] = np.where(np.arange(60, 400) % 2, 60000.0,
+                                       3000.0)
+    x, s1 = _stage2_inputs(cfa, pattern, cuda_device)
+    s2 = amaze.stage2_plain(x, pattern, s1)
+    clips = amaze.clip_points(np.float32(1.25), cuda_device)
+    before = ak.amaze_stage3.launches
+    out = ak.amaze_stage3(x, pattern, s2, clips)
+    torch.cuda.synchronize()
+    assert ak.amaze_stage3.launches == before + 1
+    assert out.shape == (3, *shape)
+    # the same operations in the same order, -fmad=false, correctly
+    # rounded reciprocals: equal
+    assert torch.equal(out, amaze.stage3_plain(x, pattern, s2, clips))
 
 
 @pytest.mark.cuda

@@ -4,6 +4,9 @@ without the fused output epilogue, for the split and the Chebyshev curve
 forms. Inputs come from numpy seeds and go to both packages unchanged.
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -12,7 +15,7 @@ import jax.numpy as jnp
 from art_tpu.color import colorspaces as jcs
 from art_tpu.ops import tonecurve_neutral as jtn
 from art_tpu.params import ProcParams
-from art_tpu_torch.core.curve1d import fit_curve
+from art_tpu_torch.core.curve1d import fit_curve, fit_curve_split
 from art_tpu_torch.ops import tonecurve as ttc
 from art_tpu_torch.ops import tonecurve_neutral as ttn
 
@@ -115,6 +118,26 @@ def test_wrapper_checks_and_cpu_path():
         ttn.neutral_tone(rgb[:2], params, coeffs, "srgb")
     with pytest.raises(NotImplementedError):
         ttn.neutral_tone(rgb, params, coeffs, "gamma")
+    # a curve form the kernel has no instantiation for
+    with pytest.raises(NotImplementedError, match="curve forms"):
+        ttn.neutral_tone(rgb, params, coeffs[:, :-1], "srgb")
+
+
+def test_kernel_forms_mirror_the_source_and_the_fits():
+    src = (Path(ttn.__file__).resolve().parents[1] / "csrc"
+           / "neutral_tone.cu").read_text()
+    line = re.search(r"#define FORMS\(X\)(.*)", src).group(1)
+    forms = tuple((int(a), int(b))
+                  for a, b in re.findall(r"X\((\d+), (\d+)\)", line))
+    assert forms == ttn.KERNEL_FORMS
+    # every series the planner fits is one of them: split fits of each
+    # half degree, and Chebyshev fits of curves from gentle to steep
+    x = np.linspace(0.0, 1.0, 65536)
+    for dh in fit_curve_split.__defaults__[0]:
+        assert (2, dh + 1) in forms
+    shapes = {(1, fit_curve(x + a * np.sin(k * np.pi * np.sqrt(x)))
+               .shape[0]) for a, k in ((0.01, 4), (0.005, 10), (0.002, 14))}
+    assert shapes == {f for f in forms if f[0] == 1}, shapes
 
 
 def test_segment_curve_takes_plain_math():

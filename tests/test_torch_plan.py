@@ -122,19 +122,88 @@ def _set(pp, path, value):
       "tone_curve.curve_mode2": "Standard"}, "tone curve mode"),
     ({"resize.enabled": True}, "resize"),
     ({"exposure.expcomp": 1.0}, "exposure"),
-    ({"icm.output_profile": "/tmp/out.icc"}, "ICC"),
+    ({"icm.output_profile": "{tmp}/out.icc"}, "ICC"),
     ({"denoise.luminance_detail": 30}, "DCT"),
     ({"icm.output_profile": "ProPhoto", "tone_curve.enabled": False},
      "TRC 'gamma'"),
+    # a missing Adobe RGB .icc resolves by name, and its TRC is unported
+    ({"icm.output_profile": "{missing}/AdobeRGB.icc",
+      "tone_curve.enabled": False}, "TRC 'gamma'"),
+    ({"icm.input_profile": "{tmp}/camera.dcp"}, "input profile"),
+    ({"icm.input_profile": "{tmp}/camera.icc"}, "input profile"),
+    ({"raw.df_enabled": True, "raw.df_file": "{tmp}/dark.dng"},
+     "dark frame"),
+    ({"raw.df_enabled": True, "raw.df_autoselect": True}, "dark frame"),
+    ({"raw.ff_enabled": True, "raw.ff_file": "{tmp}/flat.dng"},
+     "flat field"),
+    ({"raw.ff_enabled": True, "raw.ff_autoselect": True}, "flat field"),
+    ({"raw.ff_enabled": True, "raw.ff_embedded": True,
+      "frame.filename": "{tmp}/frame.dng"}, "gain map"),
 ], ids=["amaze", "auto-wb", "nlmeans", "sharpen", "std-curve", "resize",
-        "exposure", "out-icc", "dct-detail", "gamma-trc"])
-def test_unported_steps_raise_by_name(frame, changes, match):
+        "exposure", "out-icc", "dct-detail", "gamma-trc", "adobe-icc-trc",
+        "in-dcp", "in-icc", "df-file", "df-auto", "ff-file", "ff-auto",
+        "ff-embedded"])
+def test_unported_steps_raise_by_name(frame, tmp_path, changes, match):
+    # "{tmp}/..." names a file the test writes (the reference would apply
+    # it), "{missing}/..." one that does not exist
     pp = flagship_pp()
-    for path, value in changes.items():
-        _set(pp, path, value)
+    frame = _apply(pp, frame, changes, tmp_path)
     with pytest.raises(NotImplementedError, match=match):
         cfg, data = tdev.plan(frame, pp)
         tdev.build_run(cfg)
+
+
+def _apply(pp, frame, changes, tmp_path):
+    """Set `changes` on pp (and "frame.filename" on a copy of frame),
+    writing an empty file for each "{tmp}/..." value; returns the
+    frame."""
+    for path, value in changes.items():
+        if isinstance(value, str) and value.startswith("{tmp}"):
+            value = str(tmp_path / value[len("{tmp}/"):])
+            with open(value, "wb"):
+                pass
+        elif isinstance(value, str) and value.startswith("{missing}"):
+            value = str(tmp_path / "missing" / value[len("{missing}/"):])
+        if path == "frame.filename":
+            frame = dataclasses.replace(frame, filename=value)
+        else:
+            _set(pp, path, value)
+    return frame
+
+
+# settings the reference develops without the step they name, because
+# the file the step needs does not exist: each plans and develops as the
+# reference does
+@pytest.mark.parametrize("changes,out_prof", [
+    ({"icm.output_profile": "{missing}/rec2020.icc"}, "Rec2020"),
+    ({"icm.output_profile": "{missing}/foo.icc"}, "sRGB"),
+    ({"icm.input_profile": "{missing}/camera.dcp"}, "sRGB"),
+    ({"icm.input_profile": "{missing}/camera.icc"}, "sRGB"),
+    ({"raw.df_enabled": True, "raw.df_file": "{missing}/dark.dng"}, "sRGB"),
+    ({"raw.ff_enabled": True, "raw.ff_file": "{missing}/flat.dng",
+      "raw.ff_embedded": True}, "sRGB"),
+], ids=["out-rec2020-icc", "out-foo-icc", "in-dcp", "in-icc", "df-file",
+        "ff-file-embedded"])
+def test_missing_files_develop_as_the_reference(frame, tmp_path, changes,
+                                                out_prof):
+    pp, ref_pp = flagship_pp(), flagship_pp()
+    _apply(pp, frame, changes, tmp_path)
+    _apply(ref_pp, frame, changes, tmp_path)
+    cfg, data = tdev.plan(frame, pp)
+    ref_cfg, ref_data = jdev.plan(frame, ref_pp)
+    assert cfg.out_trc == ref_cfg.out_trc
+    assert not (ref_cfg.darkframe or ref_cfg.flatfield or ref_cfg.gainmap
+                or ref_cfg.dcp or ref_cfg.icc_input_trc)
+    want = (np.linalg.inv(tdev.cs.MATRICES_RGB_TO_XYZ[out_prof])
+            @ tdev.cs.MATRICES_RGB_TO_XYZ[cfg.working_profile])
+    np.testing.assert_allclose(data["work2out"], want, rtol=1e-6, atol=1e-7)
+    for k in ("work2out", "cam2work"):
+        np.testing.assert_array_equal(data[k], ref_data[k], err_msg=k)
+    out = tdev.develop(frame, pp, device="cpu").numpy()
+    st = parity(out, jdev.develop(frame, ref_pp))
+    print(changes, st)
+    assert st["max_lsb8"] <= 1.0 and st["mean"] <= 2e-4, st
+    assert st["within_1lsb8"] >= 0.999, st
 
 
 @pytest.mark.parametrize("changes", [{"denoise.enabled": False},
