@@ -11,28 +11,29 @@
 // (__frcp_rn, where the TPU kernel took an approximate one), built with
 // -fmad=false so no multiply-add is contracted.
 //
-// Design of B1: one thread per pixel, the stage split into passes over
-// device memory at the points where an intermediate is read at an
-// offset; that intermediate is written to a scratch plane. Values that
-// are functions of the mosaic alone (dirwts, delh/delv) are recomputed
-// at the neighbour instead. The padded plane is H+48 by W+48 (HALO 24),
-// so any nested read stays within one wrap.
+// Each stage is one kernel over output tiles, every intermediate in
+// shared memory over the tile grown by its reach (what reads it, from
+// how far); a tile reads x and the previous stage's planes once (the
+// halos' re-reads mostly from L2) and writes its output, with no scratch
+// plane in device memory:
 //
-//   B1  s1_cd -> s1_select -> s1_hvwt                      3 passes
-//   B2  s2_tile                                             1 pass
-//   B3  s3_tile                                             1 pass
+//   B1  s1_tile   32x64 tiles of the padded plane   x by 9   (R1_X)
+//   B2  s2_tile   32x64 tiles of the padded plane   x by 15  (R_X)
+//   B3  s3_tile   32x64 tiles of the cropped output x by 10  (R3_X)
 //
-// Bound on this card: the work is ~40 divides and several hundred float
-// operations per pixel, against one read of the mosaic and one write of
-// the stage's planes (B3: of RGB). Passes that re-read and re-write
-// scratch planes are bound by device memory traffic, not by the
-// arithmetic; B2 and B3 keep their intermediates in shared-memory tiles
-// in one pass (see s2_tile and s3_tile), the way to the bound that B1
-// can follow.
+// B1 and B2 write every position of the padded plane (the next stage
+// reads theirs periodically across the wrap), so their halo loads wrap
+// on the global coordinate; B3's output is cropped by HALO = 24 > R3_X,
+// so its tiles never cross the wrap.
+//
+// Bound on this card: the work is a few hundred float operations and
+// 12-16 correctly rounded reciprocals per pixel, against one read of the
+// mosaic and one write of the stage's planes. With the intermediates out
+// of device memory, the kernels are bound inside the SM: by the float
+// work, the shared-memory accesses and the phases between barriers.
 //
 // Each entry point launches on the given stream, allocates nothing (the
-// wrapper passes the output planes and B1's scratch planes) and returns
-// cudaGetLastError().
+// wrapper passes the output planes) and returns cudaGetLastError().
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -67,26 +68,11 @@ constexpr float C0175 = static_cast<float>(0.175);
 constexpr float C0075 = static_cast<float>(0.075);
 constexpr float CM0075 = static_cast<float>(-0.075);
 
-__device__ __forceinline__ int wrap(int i, int n) {
-  if (i < 0) return i + n;
-  if (i >= n) return i - n;
-  return i;
-}
-
 // i modulo n in [0, n), for any i
 __device__ __forceinline__ int wrap_any(int i, int n) {
   const int m = i % n;
   return m < 0 ? m + n : m;
 }
-
-// A (h, w) plane read periodically: P(y, x) for |y|, |x| within one wrap.
-struct Plane {
-  const float* __restrict__ p;
-  int h, w;
-  __device__ __forceinline__ float operator()(int y, int x) const {
-    return __ldg(p + static_cast<size_t>(wrap(y, h)) * w + wrap(x, w));
-  }
-};
 
 // CFA color (0=R 1=G 2=B) at an in-plane position: 2 bits per 2x2 site.
 __device__ __forceinline__ int color(int pat, int y, int x) {
@@ -100,8 +86,8 @@ __device__ __forceinline__ float med3(float a, float b, float c) {
   return fmaxf(fminf(a, b), fminf(fmaxf(a, b), c));
 }
 
-// stage-1 gradient weights at (y, x), from the mosaic alone (X: a Plane
-// or a shared-memory tile)
+// stage-1 gradient weights at (y, x), from the mosaic alone (X: a
+// shared-memory tile)
 template <class P>
 __device__ __forceinline__ float dirwts0(const P& X, int y, int x) {
   float c = X(y, x);
@@ -116,32 +102,203 @@ __device__ __forceinline__ float dirwts1(const P& X, int y, int x) {
   return EPS + fabsf(X(y, x + 2) - c) + fabsf(c - X(y, x - 2)) + delh;
 }
 
-#define PIXEL(H, W)                                          \
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;      \
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;      \
-  if (x >= (W) || y >= (H)) return;                         \
-  const size_t n = static_cast<size_t>(H) * (W);            \
-  const size_t i = static_cast<size_t>(y) * (W) + x;        \
-  (void)n;
+// ------------------------------------------------------------- tiles
+//
+// A plane in shared memory over an output tile of TH x TW grown by HALO
+// rows and HALO_X columns, indexed by tile-relative (y, x) with -HALO <=
+// y < TH + HALO; a row holds PITCH values from column -LEFT (planes
+// copied in 16-byte pieces start at a multiple of 4 columns).
+template <typename T, int TH, int TW, int HALO, int LEFT, int PITCH,
+          int HALO_X = HALO>
+struct TileOf {
+  static constexpr int R = HALO, RX = HALO_X, H = TH + 2 * HALO,
+                       W = TW + 2 * HALO_X, N = H * W, L = LEFT, P = PITCH;
+  static constexpr size_t BYTES = sizeof(T) * H * PITCH;
+  static_assert(LEFT >= HALO_X && PITCH - LEFT >= TW + HALO_X, "a row fits");
+  T* p;
+  __device__ __forceinline__ T& operator()(int y, int x) const {
+    return p[(y + HALO) * PITCH + x + LEFT];
+  }
+};
+
+// f(y, x) at every position of tile T, the block's THREADS in turn
+template <class T, int THREADS, class F>
+__device__ __forceinline__ void each(F f) {
+#pragma unroll 2
+  for (int i = threadIdx.x; i < T::N; i += THREADS)
+    f(i / T::W - T::R, i % T::W - T::RX);
+}
+
+// asynchronous copies of src (rows of w floats) into tile t's rows, by
+// the block's THREADS (rows: the wrapped global rows from -ROW0; cols:
+// the wrapped global columns from -COL0): 16 bytes at a time where the
+// tile's columns lie inside the plane at 16-byte alignment (x0 the
+// tile's first column), else 4 bytes at a time through the wrapped
+// columns
+template <int THREADS, int ROW0, int COL0, class T>
+__device__ __forceinline__ void copy_in(const T& t, const float* src,
+                                        const int* rows, const int* cols,
+                                        int w, int x0, bool by16) {
+  const int lane = threadIdx.x % 32;
+  for (int r = threadIdx.x / 32; r < T::H; r += THREADS / 32) {
+    const float* srow = src + static_cast<size_t>(rows[r - T::R + ROW0]) * w;
+    float* drow = t.p + r * T::P;
+    if (by16) {
+      for (int c = 4 * lane; c < T::P; c += 128)
+        __pipeline_memcpy_async(drow + c, srow + x0 - T::L + c, 16);
+    } else {
+      for (int c = lane; c < T::P; c += 32)
+        __pipeline_memcpy_async(drow + c, srow + cols[c - T::L + COL0], 4);
+    }
+  }
+}
+
+constexpr size_t al16(size_t b) { return (b + 15) / 16 * 16; }
+constexpr size_t smax(size_t a, size_t b) { return a > b ? a : b; }
 
 // ---------------------------------------------------------------- B1
+//
+// Stages 1-4 in one kernel, s1_tile: one block of S1_THREADS per output
+// tile of S1_TH x S1_TW of the padded plane, every intermediate in
+// shared memory over the tile grown by its reach (rows x columns,
+// measured outward from the output tile; each plane is read along one
+// axis only, so its reach across is what the other planes need):
+//
+//   hvwt (with vwt, hwt from dirwts by 1)       0 x 0   the output
+//   select's vcd | hcd                          3 x 0 | 0 x 3   stage 4
+//   dgintv | dginth                             2 x 0 | 0 x 2   stage 4
+//   vcd, vcdalt | hcd, hcdalt                   5 x 0 | 0 x 5   stage 3
+//   dirwts0 | dirwts1                           7 x 5 | 5 x 7   stage 2
+//   x                                           9 x 9           dirwts
+//
+// (R1_* below; tests/test_torch_amaze_tiles.py checks the reach on the
+// CPU). Stage 2 runs at the positions of the cross that the four cd
+// planes cover, the tile grown by 5 rows within its columns and by 5
+// columns within its rows. dirwts is computed once a position (the first
+// design recomputed it 10 times a pixel, at the neighbours); reading it
+// back gives the same float. Halo loads wrap on the global coordinate
+// through tables of the tile's wrapped rows and columns, as in s2_tile,
+// and each position's CFA colour is taken from its wrapped coordinate,
+// so a tile at the seam (and a plane of odd size) reproduces the
+// periodic values.
+//
+// The first design ran 3 passes over 8 scratch planes of the padded
+// plane (0.8 GB at 24 MP, ~2.3 GB of traffic a call). This one keeps the
+// planes in ~101 KB of shared memory, two blocks an SM: stage 3 holds
+// its selected vcd and hcd in registers across a barrier and writes them
+// over the cd planes it has read; vwt and hwt, read only at the output,
+// are recomputed there from dirwts (the same operations on the same
+// floats) rather than kept in planes of their own.
+//
+// What bounds it: ~15 correctly rounded reciprocals and a few hundred
+// float operations per output pixel, stage 2 over 1.5 times the tile's
+// positions, against 16 bytes of device memory: the SM's instruction
+// issue. So each phase runs as column walks (Walks): a thread takes K
+// rows of one column, keeps the column's values of the planes read
+// along it in registers (Col), and reads only the other columns from
+// shared memory, its index arithmetic done once a walk; on an H100 that
+// ran faster than one thread a position. `python -m
+// art_tpu_torch.demosaic.tune_stage1` times other walk lengths and
+// thread counts, and the phases' cumulative cost, on the card; K1-K4 are
+// the fastest of those it tries.
 
-// stages 1-2: cardinal G estimates and colour differences.
-// t: vcd, hcd, vcdalt, hcdalt, dgintv, dginth, vwt, hwt
-__global__ void s1_cd(Plane X, const float* __restrict__ clips,
-                      float* __restrict__ t, int pat) {
-  PIXEL(X.h, X.w)
-  const float clip8 = clips[1];
+constexpr int S1_TH = 32, S1_TW = 64;  // output tile
+constexpr int S1_THREADS = 512;
+constexpr int R1_X = 9, R1_D = 7, R1_DX = 5, R1_CD = 5, R1_SEL = 3,
+              R1_G = 2;
+
+// B1's tiles: RY rows and RX columns of halo
+template <typename T, int RY, int RX, int LEFT = RX,
+          int PITCH = S1_TW + 2 * RX>
+using Tile1 = TileOf<T, S1_TH, S1_TW, RY, LEFT, PITCH, RX>;
+// x from column -12: the tile's first column is a multiple of S1_TW, so
+// a row starts at a multiple of 4
+using T1X = Tile1<float, R1_X, R1_X, 12, S1_TW + 24>;
+using T1D0 = Tile1<float, R1_D, R1_DX>;
+using T1D1 = Tile1<float, R1_DX, R1_D>;
+using T1V = Tile1<float, R1_CD, 0>;
+using T1H = Tile1<float, 0, R1_CD>;
+using T1GV = Tile1<float, R1_G, 0>;
+using T1GH = Tile1<float, 0, R1_G>;
+using T1SV = Tile1<float, R1_SEL, 0>;
+using T1SH = Tile1<float, 0, R1_SEL>;
+static_assert(T1X::L % 4 == 0 && T1X::P % 4 == 0, "16-byte copies");
+
+// a plane read at (dy, dx) from a position of a column walk: its own
+// column from the registers w of the walk's window (w[o + dy], o the
+// position's index in the window), the other columns from the tile t
+template <int N, class T>
+struct Col {
+  const float (&w)[N];
+  const T& t;
+  int o, y, x;
+  __device__ __forceinline__ float operator()(int dy, int dx) const {
+    return dx == 0 ? w[o + dy] : t(y + dy, x + dx);
+  }
+};
+
+// a tile read at (dy, dx) from a position (y, x)
+template <class T>
+struct Rel {
+  const T& t;
+  int y, x;
+  __device__ __forceinline__ float operator()(int dy, int dx) const {
+    return t(y + dy, x + dx);
+  }
+};
+
+// the column walks of K rows over a region of C columns and R rows: walk
+// i starts at (r0 + row, c0 + column); the last walk of a column ends on
+// the region's last row, so it may repeat rows of the one before (and
+// write the same values there)
+struct At {
+  int y, x;
+};
+template <int C, int R, int K>
+struct Walks {
+  static constexpr int N = C * ((R + K - 1) / K);
+  static_assert(K <= R, "a walk fits its column");
+  static __device__ __forceinline__ At at(int i, int r0, int c0) {
+    return At{r0 + min(i / C * K, R - K), c0 + i % C};
+  }
+};
+
+// each phase's walks, K1-K4 rows long: stage 1 down the columns of
+// dirwts0's and dirwts1's union; stage 2 down those of the cd planes'
+// cross, the tile's columns (W2V), then R1_CD columns left and right
+// within its rows (W2H); stage 3 down the selected vcd's columns and the
+// selected hcd's, a thread one walk of each; stage 4 down the tile's
+constexpr int K1 = 8, K2 = 6, K3 = 5, K4 = 4;
+using W1 = Walks<T1D1::W, T1D0::H, K1>;
+using W2V = Walks<S1_TW, T1V::H, K2>;
+using W2H = Walks<2 * R1_CD, S1_TH, K2>;
+using W3V = Walks<S1_TW, T1SV::H, K3>;
+using W3H = Walks<T1SH::W, S1_TH, K3>;
+using W4 = Walks<S1_TW, S1_TH, K4>;
+static_assert(W1::N <= S1_THREADS && W2V::N + W2H::N <= S1_THREADS &&
+                  W3V::N <= S1_THREADS && W3H::N <= S1_THREADS &&
+                  W4::N <= S1_THREADS,
+              "a walk a thread");
+
+// stage 2 at a position: cardinal G estimates and colour differences
+struct Cd {
+  float vcd, hcd, vcdalt, hcdalt, dgintv, dginth;
+};
+
+template <class PX, class PD0, class PD1>
+__device__ __forceinline__ Cd cd_at(const PX& X, const PD0& D0,
+                                    const PD1& D1, int y, int x, bool g,
+                                    float clip8) {
   const float c = X(y, x);
   const float xu1 = X(y - 1, x), xd1 = X(y + 1, x);
   const float xl1 = X(y, x - 1), xr1 = X(y, x + 1);
   const float xu2 = X(y - 2, x), xd2 = X(y + 2, x);
   const float xl2 = X(y, x - 2), xr2 = X(y, x + 2);
-  const float d0 = dirwts0(X, y, x), d1 = dirwts1(X, y, x);
-  const float d0u2 = dirwts0(X, y - 2, x), d0d2 = dirwts0(X, y + 2, x);
-  const float d0u1 = dirwts0(X, y - 1, x), d0d1 = dirwts0(X, y + 1, x);
-  const float d1l2 = dirwts1(X, y, x - 2), d1r2 = dirwts1(X, y, x + 2);
-  const float d1l1 = dirwts1(X, y, x - 1), d1r1 = dirwts1(X, y, x + 1);
+  const float d0 = D0(y, x), d1 = D1(y, x);
+  const float d0u2 = D0(y - 2, x), d0d2 = D0(y + 2, x);
+  const float d0u1 = D0(y - 1, x), d0d1 = D0(y + 1, x);
+  const float d1l2 = D1(y, x - 2), d1r2 = D1(y, x + 2);
+  const float d1l1 = D1(y, x - 1), d1r1 = D1(y, x + 1);
 
   const float cru = xu1 * (d0u2 + d0) * rcp(d0u2 * (EPS + c) + d0 * (EPS + xu2));
   const float crd = xd1 * (d0d2 + d0) * rcp(d0d2 * (EPS + c) + d0 * (EPS + xd2));
@@ -164,91 +321,70 @@ __global__ void s1_cd(Plane X, const float* __restrict__ clips,
   const float gintvha = vwt * gdha + (1.0f - vwt) * guha;
   const float ginthha = hwt * grha + (1.0f - hwt) * glha;
 
-  const float sgn = color(pat, y, x) == 1 ? -1.0f : 1.0f;
-  float vcd = sgn * ((vwt * gdar + (1.0f - vwt) * guar) - c);
-  float hcd = sgn * ((hwt * grar + (1.0f - hwt) * glar) - c);
-  const float vcdalt = sgn * (gintvha - c);
-  const float hcdalt = sgn * (ginthha - c);
+  const float sgn = g ? -1.0f : 1.0f;
+  Cd r;
+  r.vcd = sgn * ((vwt * gdar + (1.0f - vwt) * guar) - c);
+  r.hcd = sgn * ((hwt * grar + (1.0f - hwt) * glar) - c);
+  r.vcdalt = sgn * (gintvha - c);
+  r.hcdalt = sgn * (ginthha - c);
 
   if (c > clip8 || gintvha > clip8 || ginthha > clip8) {
     guar = guha;
     gdar = gdha;
     glar = glha;
     grar = grha;
-    vcd = vcdalt;
-    hcd = hcdalt;
+    r.vcd = r.vcdalt;
+    r.hcd = r.hcdalt;
   }
-  t[i] = vcd;
-  t[n + i] = hcd;
-  t[2 * n + i] = vcdalt;
-  t[3 * n + i] = hcdalt;
-  t[4 * n + i] = fminf(sq(guha - gdha), sq(guar - gdar));
-  t[5 * n + i] = fminf(sq(glha - grha), sq(glar - grar));
-  t[6 * n + i] = vwt;
-  t[7 * n + i] = hwt;
+  r.dgintv = fminf(sq(guha - gdha), sq(guar - gdar));
+  r.dginth = fminf(sq(glha - grha), sq(glar - grar));
+  return r;
 }
 
 __device__ __forceinline__ float var3(float a, float b, float c) {
   return 3.0f * (a * a + b * b + c * c) - sq(a + b + c);
 }
 
-__device__ __forceinline__ float bound_g_site(float cd, float x, float nm,
-                                              float np, float clip) {
-  const float gint_other = x - cd;
-  const float med = med3(gint_other, nm, np);
-  const bool strong = 3.0f * cd > (gint_other + x);
-  const float wt = 1.0f - 3.0f * cd * rcp(EPS + gint_other + x);
-  const float blended = wt * cd + (1.0f - wt) * (x - med);
-  const float out = cd > 0.0f ? (strong ? x - med : blended) : cd;
-  return gint_other > clip ? x - med : out;
-}
-
-__device__ __forceinline__ float bound_rb_site(float cd, float x, float nm,
-                                               float np, float clip) {
-  const float gint = cd + x;
+// the saturation bound of a colour difference cd at a position whose
+// mosaic value is x (G site: cd is G minus the other channel; R/B site:
+// the interpolated G minus x), against x's neighbours nm, np along the
+// axis: bound_g_site and bound_rb_site of stage1_plain in one body, each
+// site's operations on the same floats (x - cd is x + -cd; t < -u is
+// -t > u; 1 - p is 1 + -p), so the block's warps do not split on the
+// colour
+__device__ __forceinline__ float bound_cd(float cd, float x, float nm,
+                                          float np, bool g, float clip) {
+  const float gint = g ? x - cd : cd + x;  // the interpolated other channel
   const float med = med3(gint, nm, np);
-  const bool strong = 3.0f * cd < -(gint + x);
-  const float wt = 1.0f + 3.0f * cd * rcp(EPS + gint + x);
-  const float blended = wt * cd + (1.0f - wt) * (med - x);
-  const float out = cd < 0.0f ? (strong ? med - x : blended) : cd;
-  return gint > clip ? med - x : out;
+  const float dm = g ? x - med : med - x;
+  const float t = 3.0f * cd;
+  const bool strong = (g ? t : -t) > (gint + x);
+  const float p = t * rcp(EPS + gint + x);
+  const float wt = g ? 1.0f - p : 1.0f + p;
+  const float blended = wt * cd + (1.0f - wt) * dm;
+  const float out = (g ? cd : -cd) > 0.0f ? (strong ? dm : blended) : cd;
+  return gint > clip ? dm : out;
 }
 
-// stage 3: variance-based selection and saturation bounding -> out[0..1]
-__global__ void s1_select(Plane X, const float* __restrict__ clips,
-                          const float* __restrict__ t,
-                          float* __restrict__ out, int pat) {
-  PIXEL(X.h, X.w)
-  const float clip = clips[0];
-  const Plane V{t, X.h, X.w}, H{t + n, X.h, X.w};
-  const Plane VA{t + 2 * n, X.h, X.w}, HA{t + 3 * n, X.h, X.w};
-  float vcd = V(y, x), hcd = H(y, x);
-  const float vcdalt = VA(y, x), hcdalt = HA(y, x);
-  const float hcdvar = var3(H(y, x - 2), hcd, H(y, x + 2));
-  const float hcdaltvar = var3(HA(y, x - 2), hcdalt, HA(y, x + 2));
-  const float vcdvar = var3(V(y - 2, x), vcd, V(y + 2, x));
-  const float vcdaltvar = var3(VA(y - 2, x), vcdalt, VA(y + 2, x));
-  if (hcdaltvar < hcdvar) hcd = hcdalt;
-  if (vcdaltvar < vcdvar) vcd = vcdalt;
-  const float c = X(y, x);
-  if (color(pat, y, x) == 1) {
-    hcd = bound_g_site(hcd, c, X(y, x - 1), X(y, x + 1), clip);
-    vcd = bound_g_site(vcd, c, X(y - 1, x), X(y + 1, x), clip);
-  } else {
-    hcd = bound_rb_site(hcd, c, X(y, x - 1), X(y, x + 1), clip);
-    vcd = bound_rb_site(vcd, c, X(y - 1, x), X(y + 1, x), clip);
-  }
-  out[i] = vcd;
-  out[n + i] = hcd;
+// stage 3 along one axis at a position: the variance-based choice of cd
+// or cdalt from their neighbours at -2 and +2 (cdm, cdp; altm, altp),
+// then the saturation bound against x's neighbours at -1 and +1
+__device__ __forceinline__ float select_at(float cd, float cdm, float cdp,
+                                           float alt, float altm,
+                                           float altp, float c, float nm,
+                                           float np, bool g, float clip) {
+  const float var = var3(cdm, cd, cdp);
+  const float altvar = var3(altm, alt, altp);
+  if (altvar < var) cd = alt;
+  return bound_cd(cd, c, nm, np, g, clip);
 }
 
-// stage 4: directional discrimination -> out[2] = hvwt
-__global__ void s1_hvwt(int h, int w, const float* __restrict__ t,
-                        float* __restrict__ out) {
-  PIXEL(h, w)
-  const Plane V{out, h, w}, H{out + n, h, w};
-  const Plane GV{t + 4 * n, h, w}, GH{t + 5 * n, h, w};
-  const float vwt = t[6 * n + i], hwt = t[7 * n + i];
+// stage 4 at a position: directional discrimination from the selected
+// vcd, hcd (V, H), dgintv, dginth (GV, GH) and the weights vwt, hwt
+template <class PV, class PH, class PGV, class PGH>
+__device__ __forceinline__ float hvwt_at(const PV& V, const PH& H,
+                                         const PGV& GV, const PGH& GH,
+                                         float vwt, float hwt, int y, int x) {
   const float vcd = V(y, x), hcd = H(y, x);
   const float vu1 = V(y - 1, x), vu2 = V(y - 2, x), vu3 = V(y - 3, x);
   const float vd1 = V(y + 1, x), vd2 = V(y + 2, x), vd3 = V(y + 3, x);
@@ -281,7 +417,184 @@ __global__ void s1_hvwt(int h, int w, const float* __restrict__ t,
   const float diffwt = hcdvar1 * rcp(vcdvar1 + hcdvar1);
   const bool agree = ((0.5f - varwt) * (0.5f - diffwt) > 0.0f) &&
                      (fabsf(0.5f - diffwt) < fabsf(0.5f - varwt));
-  out[2 * n + i] = agree ? varwt : diffwt;
+  return agree ? varwt : diffwt;
+}
+
+// shared memory of s1_tile, in bytes: the wrapped rows and columns, x,
+// dirwts0 and dirwts1, the four cd planes (stage 3's selected vcd over
+// vcd and vcdalt, its hcd over hcd and hcdalt), dgintv and dginth
+constexpr size_t OFF1_ROWS = 0;
+constexpr size_t OFF1_COLS = OFF1_ROWS + al16(T1X::H * sizeof(int));
+constexpr size_t OFF1_X = OFF1_COLS + al16(T1X::P * sizeof(int));
+constexpr size_t OFF1_D0 = OFF1_X + al16(T1X::BYTES);
+constexpr size_t OFF1_D1 = OFF1_D0 + al16(T1D0::BYTES);
+constexpr size_t OFF1_V = OFF1_D1 + al16(T1D1::BYTES);
+constexpr size_t OFF1_VA = OFF1_V + al16(T1V::BYTES);
+constexpr size_t OFF1_H = OFF1_VA + al16(T1V::BYTES);
+constexpr size_t OFF1_HA = OFF1_H + al16(T1H::BYTES);
+constexpr size_t OFF1_GV = OFF1_HA + al16(T1H::BYTES);
+constexpr size_t OFF1_GH = OFF1_GV + al16(T1GV::BYTES);
+constexpr size_t S1_SMEM = OFF1_GH + T1GH::BYTES;
+constexpr size_t OFF1_SV = OFF1_V, OFF1_SH = OFF1_H;
+static_assert(T1SV::BYTES <= OFF1_H - OFF1_V &&
+                  T1SH::BYTES <= OFF1_GV - OFF1_H,
+              "the selected planes fit over the cd planes");
+static_assert(2 * (S1_SMEM + 1024) <= 233472, "two blocks an SM");
+
+// x: the padded plane (h, w); clips: (clip_pt, clip_pt8); out: vcd,
+// hcd, hvwt (3, h, w)
+__global__ void __launch_bounds__(S1_THREADS, 2)
+    s1_tile(const float* __restrict__ x, const float* __restrict__ clips,
+            float* __restrict__ out, int h, int w, int pat, bool aligned) {
+  extern __shared__ float4 s1_smem[];
+  unsigned char* sm = reinterpret_cast<unsigned char*>(s1_smem);
+  int* rows = reinterpret_cast<int*>(sm + OFF1_ROWS);
+  int* cols = reinterpret_cast<int*>(sm + OFF1_COLS);
+  auto fp = [&](size_t off) { return reinterpret_cast<float*>(sm + off); };
+  const T1X X{fp(OFF1_X)};
+  const T1D0 D0{fp(OFF1_D0)};
+  const T1D1 D1{fp(OFF1_D1)};
+  const T1V V{fp(OFF1_V)}, VA{fp(OFF1_VA)};
+  const T1H H{fp(OFF1_H)}, HA{fp(OFF1_HA)};
+  const T1GV GV{fp(OFF1_GV)};
+  const T1GH GH{fp(OFF1_GH)};
+  const T1SV SV{fp(OFF1_SV)};
+  const T1SH SH{fp(OFF1_SH)};
+  const size_t n = static_cast<size_t>(h) * w;
+  const int y0 = blockIdx.y * S1_TH, x0 = blockIdx.x * S1_TW;
+  const int tid = threadIdx.x;
+
+  // the wrapped global rows of the tile grown by R1_X and its columns
+  // from -T1X::L
+  for (int i = tid; i < T1X::H + T1X::P; i += S1_THREADS) {
+    if (i < T1X::H)
+      rows[i] = wrap_any(y0 + i - R1_X, h);
+    else
+      cols[i - T1X::H] = wrap_any(x0 + i - T1X::H - T1X::L, w);
+  }
+  __syncthreads();
+  auto green = [&](int y, int xx) {
+    return color(pat, rows[y + R1_X], cols[xx + T1X::L]) == 1;
+  };
+  const bool by16 = aligned && x0 >= T1X::L && x0 - T1X::L + T1X::P <= w;
+  copy_in<S1_THREADS, R1_X, T1X::L>(X, x, rows, cols, w, x0, by16);
+  __pipeline_commit();
+  const float clip = __ldg(clips), clip8 = __ldg(clips + 1);
+  __pipeline_wait_prior(0);
+  __syncthreads();
+  // stage 1: the gradient weights, once a position
+  if (tid < W1::N) {
+    const At a = W1::at(tid, -R1_D, -R1_D);
+    float wx[K1 + 4];
+#pragma unroll
+    for (int j = 0; j < K1 + 4; ++j) wx[j] = X(a.y - 2 + j, a.x);
+    const bool d0 = a.x >= -R1_DX && a.x < S1_TW + R1_DX;
+#pragma unroll
+    for (int k = 0; k < K1; ++k) {
+      const int y = a.y + k;
+      const Col<K1 + 4, T1X> c{wx, X, k + 2, y, a.x};
+      if (d0) D0(y, a.x) = dirwts0(c, 0, 0);
+      if (y >= -R1_DX && y < S1_TH + R1_DX) D1(y, a.x) = dirwts1(c, 0, 0);
+    }
+  }
+  __syncthreads();
+  // stage 2 over the cross of the cd planes; dgintv, dginth by R1_G
+  if (tid < W2V::N + W2H::N) {
+    At a;
+    if (tid < W2V::N) {
+      a = W2V::at(tid, -R1_CD, 0);
+    } else {
+      a = W2H::at(tid - W2V::N, 0, 0);
+      a.x += a.x < R1_CD ? -R1_CD : S1_TW - R1_CD;
+    }
+    float wx[K2 + 4], wd[K2 + 4];
+#pragma unroll
+    for (int j = 0; j < K2 + 4; ++j) {
+      wx[j] = X(a.y - 2 + j, a.x);
+      wd[j] = D0(a.y - 2 + j, a.x);
+    }
+    const bool in_cols = a.x >= 0 && a.x < S1_TW;
+    const bool gh_cols = a.x >= -R1_G && a.x < S1_TW + R1_G;
+#pragma unroll
+    for (int k = 0; k < K2; ++k) {
+      const int y = a.y + k;
+      const Cd r = cd_at(Col<K2 + 4, T1X>{wx, X, k + 2, y, a.x},
+                         Col<K2 + 4, T1D0>{wd, D0, k + 2, y, a.x},
+                         Rel<T1D1>{D1, y, a.x}, 0, 0, green(y, a.x), clip8);
+      if (in_cols) {
+        V(y, a.x) = r.vcd;
+        VA(y, a.x) = r.vcdalt;
+        if (y >= -R1_G && y < S1_TH + R1_G) GV(y, a.x) = r.dgintv;
+      }
+      if (y >= 0 && y < S1_TH) {
+        H(y, a.x) = r.hcd;
+        HA(y, a.x) = r.hcdalt;
+        if (gh_cols) GH(y, a.x) = r.dginth;
+      }
+    }
+  }
+  __syncthreads();
+  // stage 3: the selected, bounded vcd (by R1_SEL rows) and hcd (by
+  // R1_SEL columns), held until every thread has read the cd planes
+  const At av = W3V::at(tid, -R1_SEL, 0), ah = W3H::at(tid, 0, -R1_SEL);
+  float sv[K3], sh[K3];
+  if (tid < W3V::N) {
+    float wv[K3 + 4], wa[K3 + 4], wx[K3 + 2];
+#pragma unroll
+    for (int j = 0; j < K3 + 4; ++j) {
+      wv[j] = V(av.y - 2 + j, av.x);
+      wa[j] = VA(av.y - 2 + j, av.x);
+      if (j < K3 + 2) wx[j] = X(av.y - 1 + j, av.x);
+    }
+#pragma unroll
+    for (int k = 0; k < K3; ++k)
+      sv[k] = select_at(wv[k + 2], wv[k], wv[k + 4], wa[k + 2], wa[k],
+                        wa[k + 4], wx[k + 1], wx[k], wx[k + 2],
+                        green(av.y + k, av.x), clip);
+  }
+  if (tid < W3H::N) {
+#pragma unroll
+    for (int k = 0; k < K3; ++k) {
+      const int y = ah.y + k, xx = ah.x;
+      sh[k] = select_at(H(y, xx), H(y, xx - 2), H(y, xx + 2), HA(y, xx),
+                        HA(y, xx - 2), HA(y, xx + 2), X(y, xx), X(y, xx - 1),
+                        X(y, xx + 1), green(y, xx), clip);
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < K3; ++k) {
+    if (tid < W3V::N) SV(av.y + k, av.x) = sv[k];
+    if (tid < W3H::N) SH(ah.y + k, ah.x) = sh[k];
+  }
+  __syncthreads();
+  // stage 4 -> vcd, hcd, hvwt
+  if (tid < W4::N) {
+    const At a = W4::at(tid, 0, 0);
+    float wv[K4 + 6], wg[K4 + 4], wd[K4 + 2];
+#pragma unroll
+    for (int j = 0; j < K4 + 6; ++j) {
+      wv[j] = SV(a.y - 3 + j, a.x);
+      if (j < K4 + 4) wg[j] = GV(a.y - 2 + j, a.x);
+      if (j < K4 + 2) wd[j] = D0(a.y - 1 + j, a.x);
+    }
+#pragma unroll
+    for (int k = 0; k < K4; ++k) {
+      const int y = a.y + k;
+      if (y0 + y >= h || x0 + a.x >= w) continue;
+      const float d0u1 = wd[k], d0d1 = wd[k + 2];
+      const float d1l1 = D1(y, a.x - 1), d1r1 = D1(y, a.x + 1);
+      const float hwt = d1l1 * rcp(d1l1 + d1r1);
+      const float vwt = d0u1 * rcp(d0d1 + d0u1);
+      const size_t g = static_cast<size_t>(y0 + y) * w + x0 + a.x;
+      out[g] = wv[k + 3];
+      out[n + g] = SH(y, a.x);
+      out[2 * n + g] = hvwt_at(Col<K4 + 6, T1SV>{wv, SV, k + 3, y, a.x},
+                               Rel<T1SH>{SH, y, a.x},
+                               Col<K4 + 4, T1GV>{wg, GV, k + 2, y, a.x},
+                               Rel<T1GH>{GH, y, a.x}, vwt, hwt, 0, 0);
+    }
+  }
 }
 
 // ---------------------------------------------------------------- B2
@@ -328,8 +641,8 @@ __global__ void s1_hvwt(int h, int w, const float* __restrict__ t,
 //
 // Bit-equality: every value is computed by the same float32 operations
 // in the same order as in stage2_plain; the per-pixel bodies below are
-// templates on their accessor (a global Plane, a shared Tile or a
-// register window), so the arithmetic is the same code whatever holds
+// templates on their accessor (a shared Tile or a register window),
+// so the arithmetic is the same code whatever holds
 // the plane.
 
 constexpr int S2_TH = 32, S2_TW = 64;  // output tile
@@ -421,22 +734,6 @@ __device__ __forceinline__ float gquinc(const P& Q, int y, int x) {
                 Q(y + 2, x + 2));
 }
 
-// A plane in shared memory over an output tile of TH x TW grown by HALO,
-// indexed by tile-relative (y, x) with -HALO <= y < TH + HALO; a row
-// holds PITCH values from column -LEFT (planes copied in 16-byte pieces
-// start at a multiple of 4 columns).
-template <typename T, int TH, int TW, int HALO, int LEFT, int PITCH>
-struct TileOf {
-  static constexpr int R = HALO, H = TH + 2 * HALO, W = TW + 2 * HALO,
-                       N = H * W, L = LEFT, P = PITCH;
-  static constexpr size_t BYTES = sizeof(T) * H * PITCH;
-  static_assert(LEFT >= HALO && PITCH - LEFT >= TW + HALO, "a row fits");
-  T* p;
-  __device__ __forceinline__ T& operator()(int y, int x) const {
-    return p[(y + HALO) * PITCH + x + LEFT];
-  }
-};
-
 // B2's tiles
 template <typename T, int HALO, int LEFT = HALO,
           int PITCH = S2_TW + 2 * HALO>
@@ -465,40 +762,6 @@ using TileCurv = Tile<float, R_CURV>;
 static_assert(TileNYQ::H % NYQ_K == 0, "whole strips");
 // a warp's list segment: the most positions it visits in the vote
 constexpr int SEGMENT = (TileNY2::N + S2_THREADS - 1) / S2_THREADS * 32;
-
-// f(y, x) at every position of tile T, the block's THREADS in turn
-template <class T, int THREADS = S2_THREADS, class F>
-__device__ __forceinline__ void each(F f) {
-#pragma unroll 2
-  for (int i = threadIdx.x; i < T::N; i += THREADS)
-    f(i / T::W - T::R, i % T::W - T::R);
-}
-
-// asynchronous copies of src into tile t's rows (rows: the wrapped
-// global rows from -R_X; cols: the wrapped global columns from -LEFT16):
-// 16 bytes at a time where the tile's columns lie inside the plane at
-// 16-byte alignment (x0 the tile's first column), else 4 bytes at a time
-// through the wrapped columns
-template <class T>
-__device__ __forceinline__ void copy_in(const T& t, const float* src,
-                                        const int* rows, const int* cols,
-                                        int w, int x0, bool by16) {
-  const int lane = threadIdx.x % 32;
-  for (int r = threadIdx.x / 32; r < T::H; r += S2_THREADS / 32) {
-    const float* srow = src + static_cast<size_t>(rows[r - T::R + R_X]) * w;
-    float* drow = t.p + r * T::P;
-    if (by16) {
-      for (int c = 4 * lane; c < T::P; c += 128)
-        __pipeline_memcpy_async(drow + c, srow + x0 - T::L + c, 16);
-    } else {
-      for (int c = lane; c < T::P; c += 32)
-        __pipeline_memcpy_async(drow + c, srow + cols[c - T::L + LEFT16], 4);
-    }
-  }
-}
-
-constexpr size_t al16(size_t b) { return (b + 15) / 16 * 16; }
-constexpr size_t smax(size_t a, size_t b) { return a > b ? a : b; }
 
 // shared memory of s2_tile, in bytes: the wrapped rows and columns, x,
 // the masks, vcd and hcd by 3, the area hvwt (s1's, then replaced where
@@ -570,14 +833,15 @@ __global__ void __launch_bounds__(S2_THREADS, 2)
   // and delhvsq will be
   const bool by16 =
       aligned && x0 >= LEFT16 && x0 - LEFT16 + PITCH16 <= w;
-  copy_in(X, x, rows, cols, w, x0, by16);
-  copy_in(CD, s1, rows, cols, w, x0, by16);
-  copy_in(DS, s1 + n, rows, cols, w, x0, by16);
-  copy_in(HVA, s1 + 2 * n, rows, cols, w, x0, by16);
+  copy_in<S2_THREADS, R_X, LEFT16>(X, x, rows, cols, w, x0, by16);
+  copy_in<S2_THREADS, R_X, LEFT16>(CD, s1, rows, cols, w, x0, by16);
+  copy_in<S2_THREADS, R_X, LEFT16>(DS, s1 + n, rows, cols, w, x0, by16);
+  copy_in<S2_THREADS, R_X, LEFT16>(HVA, s1 + 2 * n, rows, cols, w, x0,
+                                   by16);
   __pipeline_commit();
   __pipeline_wait_prior(0);
   __syncthreads();
-  each<TileCD>([&](int y, int xx) {
+  each<TileCD, S2_THREADS>([&](int y, int xx) {
     const float vc = CD(y, xx), hc = DS(y, xx);
     if (y >= -R_HV && y < S2_TH + R_HV && xx >= -R_HV && xx < S2_TW + R_HV) {
       V3(y, xx) = vc;
@@ -647,7 +911,7 @@ __global__ void __launch_bounds__(S2_THREADS, 2)
   }
   __syncthreads();
   // stage 6: hvwt smoothing; the first G at R/B sites -> green0
-  each<TileHV>([&](int y, int xx) {
+  each<TileHV, S2_THREADS>([&](int y, int xx) {
     const float alt = 0.25f * (HVA(y - 1, xx - 1) + HVA(y - 1, xx + 1) +
                                HVA(y + 1, xx - 1) + HVA(y + 1, xx + 1));
     float hv = HVA(y, xx);
@@ -659,7 +923,7 @@ __global__ void __launch_bounds__(S2_THREADS, 2)
   });
   __syncthreads();
   // green curvature in Nyquist regions
-  each<TileCurv>([&](int y, int xx) {
+  each<TileCurv, S2_THREADS>([&](int y, int xx) {
     float ch = 0.0f, cv = 0.0f;
     if (NY2(y, xx)) {
       const float g = G0(y, xx);
@@ -792,8 +1056,8 @@ __device__ __forceinline__ void each_rb(int pat, int y0, int x0, F f) {
   constexpr int PER_ROW = T::W / 2;
   for (int i = threadIdx.x; i < T::H * PER_ROW; i += S3_THREADS) {
     const int y = i / PER_ROW - T::R;
-    const int first = color(pat, y0 + y, x0 - T::R) == 1 ? 1 : 0;
-    f(y, 2 * (i % PER_ROW) + first - T::R);
+    const int first = color(pat, y0 + y, x0 - T::RX) == 1 ? 1 : 0;
+    f(y, 2 * (i % PER_ROW) + first - T::RX);
   }
 }
 
@@ -1032,21 +1296,22 @@ dim3 grid_for(int h, int w, dim3 blk) {
   return dim3((w + blk.x - 1) / blk.x, (h + blk.y - 1) / blk.y);
 }
 
-const dim3 BLK(32, 8);
-
 }  // namespace
 
 // x: (hp, wp) padded mosaic / 65535; clips: (clip_pt, clip_pt8);
-// out: (3, hp, wp) vcd, hcd, hvwt; tmp: (8, hp, wp)
+// out: (3, hp, wp) vcd, hcd, hvwt; no scratch
 extern "C" int art_amaze_stage1(const float* x, const float* clips,
-                                float* out, float* tmp, int hp, int wp,
-                                int pat, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Plane X{x, hp, wp};
-  const dim3 g = grid_for(hp, wp, BLK);
-  s1_cd<<<g, BLK, 0, s>>>(X, clips, tmp, pat);
-  s1_select<<<g, BLK, 0, s>>>(X, clips, tmp, out, pat);
-  s1_hvwt<<<g, BLK, 0, s>>>(hp, wp, tmp, out);
+                                float* out, int hp, int wp, int pat,
+                                void* stream) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      s1_tile, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(S1_SMEM));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  // 16-byte copies need x's rows at 16-byte alignment
+  const bool aligned = reinterpret_cast<size_t>(x) % 16 == 0 && wp % 4 == 0;
+  s1_tile<<<grid_for(hp, wp, dim3(S1_TW, S1_TH)), S1_THREADS, S1_SMEM,
+            static_cast<cudaStream_t>(stream)>>>(x, clips, out, hp, wp, pat,
+                                                 aligned);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1068,25 +1333,35 @@ extern "C" int art_amaze_stage2(const float* x, const float* s1, float* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-// B2's and B3's kernels as loaded: registers, shared memory (static and
-// dynamic) and local memory, and their tiles, one line each of text into
-// buf (cap bytes, NUL-terminated)
+// B1's, B2's and B3's kernels as loaded: registers, shared memory
+// (static and dynamic) and local memory, and their tiles, one line each
+// of text into buf (cap bytes, NUL-terminated)
 extern "C" int art_amaze_layout(char* buf, int cap) {
   if (cap < 1) return static_cast<int>(cudaErrorInvalidValue);
-  cudaFuncAttributes f2, f3;
-  cudaError_t e = cudaFuncGetAttributes(&f2, s2_tile);
+  cudaFuncAttributes f1, f2, f3;
+  cudaError_t e = cudaFuncGetAttributes(&f1, s1_tile);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&f2, s2_tile);
   if (e == cudaSuccess) e = cudaFuncGetAttributes(&f3, s3_tile);
   if (e != cudaSuccess) return static_cast<int>(e);
-  snprintf(buf, cap,
-           "s2_tile: %d registers, %zu B static + %zu B dynamic shared "
-           "memory, %zu B local (spills and stack), tile %dx%d, %d threads, "
-           "halo %d\n"
-           "s3_tile: %d registers, %zu B static + %zu B dynamic shared "
-           "memory, %zu B local (spills and stack), tile %dx%d, %d threads, "
-           "halo %d\n",
-           f2.numRegs, f2.sharedSizeBytes, S2_SMEM, f2.localSizeBytes, S2_TH,
-           S2_TW, S2_THREADS, R_X, f3.numRegs, f3.sharedSizeBytes, S3_SMEM,
-           f3.localSizeBytes, S3_TH, S3_TW, S3_THREADS, R3_X);
+  const char* fmt =
+      "%s: %d registers, %zu B static + %zu B dynamic shared memory, %zu B "
+      "local (spills and stack), tile %dx%d, %d threads, halo %d\n";
+  const struct {
+    const char* name;
+    const cudaFuncAttributes& f;
+    size_t smem;
+    int th, tw, threads, halo;
+  } k[] = {{"s1_tile", f1, S1_SMEM, S1_TH, S1_TW, S1_THREADS, R1_X},
+           {"s2_tile", f2, S2_SMEM, S2_TH, S2_TW, S2_THREADS, R_X},
+           {"s3_tile", f3, S3_SMEM, S3_TH, S3_TW, S3_THREADS, R3_X}};
+  int at = 0;
+  for (const auto& q : k) {
+    const int m = snprintf(buf + at, cap - at, fmt, q.name, q.f.numRegs,
+                           q.f.sharedSizeBytes, q.smem, q.f.localSizeBytes,
+                           q.th, q.tw, q.threads, q.halo);
+    if (m < 0 || m >= cap - at) break;
+    at += m;
+  }
   return 0;
 }
 

@@ -15,12 +15,13 @@ the reference's SMEM `clips`, so no value is read back to the host.
 `.launches` on each wrapper counts its kernel launches (one call of the
 C entry point, whatever number of passes it runs).
 
-B2 is one kernel over output tiles of S2_TILE, each computed from the
-tile grown by S2_HALO (x's reach; the .cu's S2_TH, S2_TW and R_X, which
-``tests/test_torch_amaze_tiles.py`` holds to these); B3 likewise over
-output tiles of S3_TILE of its cropped output, from the tile grown by
-S3_HALO (the .cu's S3_TH, S3_TW and R3_X). Neither needs a scratch
-plane.
+Each is one kernel over output tiles, each tile computed from the tile
+grown by its halo (x's reach): B1 over tiles of S1_TILE of the padded
+plane, grown by S1_HALO (the .cu's S1_TH, S1_TW and R1_X); B2 likewise
+over S2_TILE, grown by S2_HALO (S2_TH, S2_TW and R_X); B3 over tiles of
+S3_TILE of its cropped output, grown by S3_HALO (S3_TH, S3_TW and R3_X).
+``tests/test_torch_amaze_tiles.py`` holds these to the .cu and checks
+each halo on the CPU. No stage needs a scratch plane.
 """
 
 from __future__ import annotations
@@ -34,10 +35,12 @@ from art_tpu_torch.core.image import BAYER_PATTERNS
 from art_tpu_torch.demosaic import amaze
 
 # scratch planes each entry point needs beside its output
-SCRATCH = {"art_amaze_stage1": 8, "art_amaze_stage2": 0,
+SCRATCH = {"art_amaze_stage1": 0, "art_amaze_stage2": 0,
            "art_amaze_stage3": 0}
-# B2's and B3's output tiles (rows, columns) and the reach of the window
-# around each
+# B1's, B2's and B3's output tiles (rows, columns) and the reach of the
+# window around each
+S1_TILE = (32, 64)
+S1_HALO = 9
 S2_TILE = (32, 64)
 S2_HALO = 15
 S3_TILE = (32, 64)
@@ -132,7 +135,7 @@ def _launch(name, x, pattern, out_shape, inputs, ints=()):
 
 
 def layout():
-    """B2's and B3's kernels on the card: registers, shared and local
+    """B1's, B2's and B3's kernels on the card: registers, shared and local
     memory, tile (``art_amaze_layout``)."""
     buf = ctypes.create_string_buffer(1024)
     kernels.check(kernels.library().art_amaze_layout(buf, len(buf)),

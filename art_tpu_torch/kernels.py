@@ -56,11 +56,12 @@ SIGNATURES = {
     "art_neutral_tone": ("neutral_tone", [_P] * 5 + [_I] * 5 + [_P]),
     # buf, cap, crows, ccols, epi: B7's kernel of that form as loaded
     "art_neutral_layout": ("neutral_tone", [_P] + [_I] * 4),
-    # x, clips, out, tmp, hp, wp, pat, stream
-    "art_amaze_stage1": ("amaze", [_P] * 4 + [_I] * 3 + [_P]),
+    # x, clips, out, hp, wp, pat, stream
+    "art_amaze_stage1": ("amaze", [_P] * 3 + [_I] * 3 + [_P]),
     # x, s1, out, hp, wp, pat, stream
     "art_amaze_stage2": ("amaze", [_P] * 3 + [_I] * 3 + [_P]),
-    # buf, cap: B2's and B3's kernels' registers and shared memory, as text
+    # buf, cap: B1's, B2's and B3's kernels' registers and shared memory,
+    # as text
     "art_amaze_layout": ("amaze", [_P, _I]),
     # x, s2, clips, out, hp, wp, halo, pat, stream
     "art_amaze_stage3": ("amaze", [_P] * 4 + [_I] * 4 + [_P]),

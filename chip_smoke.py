@@ -26,12 +26,12 @@ same develop on the CPU's plain path, for each path, to the slice bounds
 of the CPU tests. It prints the card's name and power limit, develop
 and device-program timings, peak memory and the stage and kernel launch
 that set it, torch.profiler tables, the kernels' ptxas report
-(registers, spills), for B2, B3, B4, B5, B6 and B7 their kernels'
-registers and shared memory as loaded, and device time by kernel name:
-B4 and B5 by torch.profiler (sigma passes against level kernels, also on
-a constant frame, where every value falls in one histogram bin) with
-their scratch bytes; B2, B3 and B6, one kernel a call, by CUDA events,
-with the bytes a B2 or B3 call allocates and the share of nyquist2
+(registers, spills), for every kernel its registers and shared memory
+as loaded, and device time by kernel name: B4 and B5 by torch.profiler
+(sigma passes against level kernels, also on a constant frame, where
+every value falls in one histogram bin) with their scratch bytes; B1,
+B2, B3 and B6, one kernel a call, by CUDA events, with the bytes a B1,
+B2 or B3 call allocates beside its output's and the share of nyquist2
 pixels, where B2's area sums run, and B6 also on a constant plane and
 where the weight's clamp at 50 fires, each held to the plain version.
 Then one JSON line of per-kernel results (time, plain time, bound) and
@@ -446,6 +446,19 @@ def one_launch_ms(label, fn, kernel):
         f"ms, its one launch of {kernel} (CUDA events)")
 
 
+def allocation(label, fn, out):
+    """The bytes one call of fn allocates on the card, beside the bytes of
+    its output `out`."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    log(f"{label} allocates "
+        f"{(torch.cuda.max_memory_allocated() - base) / 1e9:.3f} GB a call "
+        f"(its output: {out.numel() * out.element_size() / 1e9:.3f} GB)")
+
+
 def b6_case(label, y, maskinv):
     """B6 against its plain version on one plane: (equal, kernel ms)."""
     from art_tpu_torch.ops import nlmeans_kernel as nk
@@ -519,7 +532,7 @@ def main():
     for line in kernels.build_info.get("log", "").splitlines():
         if "registers" in line or "spill" in line:
             log("  ptxas:", line.strip())
-    log("kernels as loaded (B2, B3, B6; B4, B5):")
+    log("kernels as loaded (B1, B2, B3, B6; B4, B5):")
     for line in (ak.layout() + nk.layout() + wk.layout()).splitlines():
         log("  " + line)
 
@@ -568,29 +581,19 @@ def main():
 
     s1 = check("b1", lambda: ak.amaze_stage1(x, pat, clips),
                lambda: amaze.stage1_plain(x, pat, clips), (x, clips))
+    allocation("B1", lambda: ak.amaze_stage1(x, pat, clips), s1)
+    one_launch_ms("B1", lambda: ak.amaze_stage1(x, pat, clips), "s1_tile")
     s2 = check("b2", lambda: ak.amaze_stage2(x, pat, s1),
                lambda: amaze.stage2_plain(x, pat, s1), (x, s1))
     log(f"B2 nyquist2 share on this frame: "
         f"{float(amaze.nyquist_masks(x, pat, s1)[1].mean()):.4f} of the "
         f"padded plane's pixels (the area sums run there)")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-    ak.amaze_stage2(x, pat, s1)
-    torch.cuda.synchronize()
-    log(f"B2 allocates {(torch.cuda.max_memory_allocated() - base) / 1e9:.3f}"
-        f" GB a call (its output: {s2.numel() * 4 / 1e9:.3f} GB)")
+    allocation("B2", lambda: ak.amaze_stage2(x, pat, s1), s2)
     one_launch_ms("B2", lambda: ak.amaze_stage2(x, pat, s1), "s2_tile")
     del s1
     k3 = check("b3", lambda: ak.amaze_stage3(x, pat, s2, clips),
                lambda: amaze.stage3_plain(x, pat, s2, clips), (x, s2, clips))
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-    ak.amaze_stage3(x, pat, s2, clips)
-    torch.cuda.synchronize()
-    log(f"B3 allocates {(torch.cuda.max_memory_allocated() - base) / 1e9:.3f}"
-        f" GB a call (its output: {k3.numel() * 4 / 1e9:.3f} GB)")
+    allocation("B3", lambda: ak.amaze_stage3(x, pat, s2, clips), k3)
     one_launch_ms("B3", lambda: ak.amaze_stage3(x, pat, s2, clips), "s3_tile")
     rgb = amaze._with_border(cfa, pat, k3)
     del s2, x

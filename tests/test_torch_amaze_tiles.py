@@ -1,5 +1,5 @@
-"""B2's and B3's tiling on the CPU: each output tile of the fused stage-2
-and stage-3 kernels is computed from the tile grown by its halo alone.
+"""B1's, B2's and B3's tiling on the CPU: each output tile of the fused
+stage kernels is computed from the tile grown by its halo alone.
 
 For every tile of the kernel's grid over the padded plane (S2_TILE,
 ragged at the far edges), the window of the tile grown by S2_HALO is cut
@@ -17,7 +17,10 @@ side; no data tried here shows it.) B3's tiles (S3_TILE over its output,
 the plane cropped by HALO) need x by S3_HALO: the outputs' chroma at G
 sites reads the propagation by 1, which reads dgrb0 by 3, which reads
 rbint by 2, whose pmwt reads the diagonal variances by 1, which read the
-squares by 2, which read x by 1. The tile and halo constants are read
+squares by 2, which read x by 1. B1's tiles (S1_TILE over the padded
+plane, cut with wrapped indices as B2's) need x by S1_HALO: hvwt reads
+the selected vcd by 3 rows, which reads vcd and vcdalt by 2, which read
+dirwts0 by 2, which reads x by 2. The tile and halo constants are read
 from the wrapper, which mirrors those of ``csrc/amaze.cu``. No JAX here.
 """
 
@@ -52,13 +55,15 @@ def _planes(pattern):
     return x, s1
 
 
-def _tile_mismatches(x, s1, pattern, halo, fn, grow=0):
-    """The tiles (y0, x0) where fn(x, pattern, s1) on the window of
-    `halo` differs from fn on the whole plane over the tile grown by
-    `grow` (fn's planes stacked on the first axis)."""
-    th, tw = ak.S2_TILE
+def _tile_mismatches(x, pattern, halo, fn, planes=None, tile=ak.S2_TILE,
+                     grow=0):
+    """The tiles (y0, x0) of `tile`'s grid where fn(x, pattern, planes)
+    on the window of `halo` (x and planes cut with wrapped indices)
+    differs from fn on the whole plane over the tile grown by `grow`
+    (fn's planes stacked on the first axis)."""
+    th, tw = tile
     hp, wp = x.shape
-    whole = fn(x, pattern, s1)
+    whole = fn(x, pattern, planes)
     bad = []
     for y0 in range(0, hp, th):
         for x0 in range(0, wp, tw):
@@ -66,7 +71,8 @@ def _tile_mismatches(x, s1, pattern, halo, fn, grow=0):
             cols = torch.arange(x0 - halo, x0 + tw + halo) % wp
             win = fn(x[rows][:, cols].contiguous(),
                      shifted_pattern(pattern, y0 - halo, x0 - halo),
-                     s1[:, rows][:, :, cols].contiguous())
+                     None if planes is None
+                     else planes[:, rows][:, :, cols].contiguous())
             # the tile grown by `grow`, clipped at the plane's far edges
             h = min(th, hp - y0) + 2 * grow
             w = min(tw, wp - x0) + 2 * grow
@@ -89,11 +95,13 @@ def test_stage2_tiles_need_only_their_halo(pattern):
     # the test fires: a share of nyquist2 pixels the kernel's list sees
     assert amaze.nyquist_masks(x, pattern, s1)[1].mean().item() > 0.01
     halo, stage2 = ak.S2_HALO, amaze.stage2_plain
-    assert _tile_mismatches(x, s1, pattern, halo, stage2) == []
+    assert _tile_mismatches(x, pattern, halo, stage2, s1) == []
     # nyqf over the tile grown by halo - 3: right from its halo, and
     # wrong from one less
-    assert _tile_mismatches(x, s1, pattern, halo, _nyqf, halo - 3) == []
-    assert _tile_mismatches(x, s1, pattern, halo - 1, _nyqf, halo - 3) != []
+    assert _tile_mismatches(x, pattern, halo, _nyqf, s1,
+                            grow=halo - 3) == []
+    assert _tile_mismatches(x, pattern, halo - 1, _nyqf, s1,
+                            grow=halo - 3) != []
 
 
 def test_tile_constants_mirror_the_kernel():
@@ -161,3 +169,49 @@ def test_stage3_tile_constants_mirror_the_kernel():
     assert (int(th), int(tw)) == ak.S3_TILE
     assert int(re.search(r"\bR3_X = (\d+)", src).group(1)) == ak.S3_HALO
     assert ak.SCRATCH["art_amaze_stage3"] == 0
+
+
+# 58 x 132 pads to 106 x 180: 4 x 3 tiles of B1's grid over the padded
+# plane, ragged at the bottom (10 rows) and the right (52 columns), the
+# windows of the edge tiles reaching across the wrap. (An even plane: a
+# window is given one shifted pattern, which the seam of an odd plane
+# breaks; the card test holds the kernel there.) Gain 1.6 puts clip_pt8
+# (0.5) and clip_pt (0.625) below much of x, so stage 2's clip mask and
+# the bound's clip branch both fire; gain 1.0 leaves most of the plane
+# unclipped
+@pytest.mark.parametrize("pattern", ["RGGB", "GRBG", "GBRG", "BGGR"])
+def test_stage1_tiles_need_only_their_halo(pattern):
+    rng = np.random.default_rng(29)
+    cfa = np.minimum(rng.uniform(0.01, 1.1, (58, 132)), 1.0) * 65535
+    cfa[4:30, 10:70] = np.where(np.arange(10, 70) % 2, 60000.0, 4000.0)
+    x = amaze.padded_plane(torch.from_numpy(cfa.astype(np.float32)))
+    assert x.shape == (106, 180)
+
+    def mismatches(gain, halo):
+        clips = amaze.clip_points(np.float32(gain), "cpu")
+        return _tile_mismatches(
+            x, pattern, halo,
+            lambda xw, pat, _: amaze.stage1_plain(xw, pat, clips),
+            tile=ak.S1_TILE)
+
+    hot = amaze.clip_points(np.float32(1.6), "cpu")
+    assert (x > hot[1]).double().mean() > 0.2
+    assert (x > hot[0]).double().mean() > 0.1
+    assert mismatches(1.6, ak.S1_HALO) == []
+    assert mismatches(1.0, ak.S1_HALO) == []
+    # a halo one smaller misses x where dirwts0 is read by 7 rows (the
+    # unclipped vcd by 5, whose variance picks the selected vcd by 3);
+    # where the clip mask fires, vcd is vcdalt and reaches less far
+    assert mismatches(1.0, ak.S1_HALO - 1) != []
+
+
+def test_stage1_tile_constants_mirror_the_kernel():
+    src = CU.read_text()
+    th, tw = re.search(r"S1_TH = (\d+), S1_TW = (\d+);", src).groups()
+    assert (int(th), int(tw)) == ak.S1_TILE
+    assert int(re.search(r"\bR1_X = (\d+)", src).group(1)) == ak.S1_HALO
+    assert int(re.search(r"\bS1_THREADS = (\d+);", src).group(1)) % 32 == 0
+    assert ak.SCRATCH["art_amaze_stage1"] == 0
+    # one kernel: the three passes of the first design are gone
+    for name in ("s1_cd", "s1_select", "s1_hvwt"):
+        assert name not in src

@@ -239,6 +239,41 @@ def test_neutral_kernel_odd_pixel_count(cuda_device, form, epi):
     _neutral_equal(cuda_device, (3, 97, 131), form, epi, 8)
 
 
+# B1's fused kernel: 32 x 64 tiles of the padded plane, x copied 16
+# bytes at a time where the plane's width is a multiple of 4 and the tile
+# is inside it, else 4 bytes at a time through wrapped indices. 257 x 430
+# pads to 305 x 478 (ragged tiles at both far edges, 4-byte copies); 301
+# x 523 to an odd 349 x 571 (the wrap's seam puts like colours side by
+# side); 300 x 1000 to 348 x 1048 (16-byte copies inside); 64 x 65 to 112
+# x 113, two tiles a column. Gain 1.6 fires stage 2's clip mask and the
+# bound's clip branch over much of the plane
+@pytest.mark.cuda
+@pytest.mark.parametrize("gain", [1.0, 1.6])
+@pytest.mark.parametrize("shape,stripes,pattern", [
+    ((300, 520), True, "RGGB"), ((257, 430), False, "GRBG"),
+    ((301, 523), True, "GBRG"), ((300, 1000), True, "BGGR"),
+    ((64, 65), False, "RGGB")],
+    ids=["stripes", "ragged", "odd", "wide", "one-tile"])
+def test_amaze_stage1_kernel_matches_plain(cuda_device, shape, stripes,
+                                           pattern, gain):
+    rng = np.random.default_rng(13)
+    cfa = rng.uniform(0.01, 1.1, shape) * 65535
+    if stripes:
+        cfa[40:200, 60:400] = np.where(np.arange(60, 400) % 2, 60000.0,
+                                       3000.0)
+    x = amaze.padded_plane(torch.from_numpy(
+        np.minimum(cfa, 65535.0).astype(np.float32)).to(cuda_device))
+    clips = amaze.clip_points(np.float32(gain), cuda_device)
+    before = ak.amaze_stage1.launches
+    out = ak.amaze_stage1(x, pattern, clips)
+    torch.cuda.synchronize()
+    assert ak.amaze_stage1.launches == before + 1
+    assert out.shape == (3, *x.shape)
+    # the same operations in the same order, -fmad=false, correctly
+    # rounded reciprocals: equal
+    assert torch.equal(out, amaze.stage1_plain(x, pattern, clips))
+
+
 # B3's fused kernel: 32 x 64 output tiles of the cropped output, copied
 # 16 bytes at a time where the plane's width is a multiple of 4 and the
 # tile is inside it, else 4 bytes at a time. 257 x 430 pads to 305 x 478

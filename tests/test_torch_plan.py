@@ -5,6 +5,8 @@ named NotImplementedError for every step the port lacks.
 """
 
 import dataclasses
+import fcntl
+import hashlib
 import importlib
 import os
 
@@ -171,10 +173,58 @@ def _apply(pp, frame, changes, tmp_path):
     return frame
 
 
+def plan_key(config, data):
+    """A digest of a plan: its PipelineConfig and every array of its
+    data."""
+    h = hashlib.sha256(repr(config).encode())
+    for k, v in sorted(_leaves(data)):
+        a = np.ascontiguousarray(np.asarray(v))
+        h.update(f"{k} {a.dtype} {a.shape}".encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+class Develops:
+    """Develops by plan: `get(package, key, develop)` runs develop() once
+    for each (package, key) and returns its output as a numpy array from
+    then on. The outputs are kept in the process and as .npy files in
+    `directory`, which the test session's workers share (each key's file
+    written under a lock), so a plan that several settings resolve to is
+    developed once a session, whichever worker takes each setting. The
+    keys are plans of the module's one frame."""
+
+    def __init__(self, directory):
+        self.dir = directory
+        self.dir.mkdir(parents=True, exist_ok=True)
+        self.memo = {}
+
+    def get(self, package, key, develop):
+        name = f"{package}-{key}"
+        if name not in self.memo:
+            path = self.dir / f"{name}.npy"
+            with open(self.dir / f"{name}.lock", "w") as lock:
+                fcntl.flock(lock, fcntl.LOCK_EX)
+                if not path.exists():
+                    out = np.asarray(develop())
+                    np.save(self.dir / f"{name}.tmp.npy", out)
+                    os.replace(self.dir / f"{name}.tmp.npy", path)
+            self.memo[name] = np.load(path)
+        return self.memo[name]
+
+
+@pytest.fixture(scope="module")
+def develops(tmp_path_factory):
+    root = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        root = root.parent  # the session's, above each worker's own
+    return Develops(root / "plan_develops")
+
+
 # settings the reference develops without the step they name, because
 # the file the step needs does not exist: each plans and develops as the
-# reference does
-@pytest.mark.parametrize("changes,out_prof", [
+# reference does. They resolve to two plans (Rec2020 and sRGB out), each
+# developed once by either package (`develops`)
+MISSING = [
     ({"icm.output_profile": "{missing}/rec2020.icc"}, "Rec2020"),
     ({"icm.output_profile": "{missing}/foo.icc"}, "sRGB"),
     ({"icm.input_profile": "{missing}/camera.dcp"}, "sRGB"),
@@ -182,10 +232,14 @@ def _apply(pp, frame, changes, tmp_path):
     ({"raw.df_enabled": True, "raw.df_file": "{missing}/dark.dng"}, "sRGB"),
     ({"raw.ff_enabled": True, "raw.ff_file": "{missing}/flat.dng",
       "raw.ff_embedded": True}, "sRGB"),
-], ids=["out-rec2020-icc", "out-foo-icc", "in-dcp", "in-icc", "df-file",
-        "ff-file-embedded"])
-def test_missing_files_develop_as_the_reference(frame, tmp_path, changes,
-                                                out_prof):
+]
+
+
+@pytest.mark.parametrize("changes,out_prof", MISSING,
+                         ids=["out-rec2020-icc", "out-foo-icc", "in-dcp",
+                              "in-icc", "df-file", "ff-file-embedded"])
+def test_missing_files_develop_as_the_reference(frame, tmp_path, develops,
+                                                changes, out_prof):
     pp, ref_pp = flagship_pp(), flagship_pp()
     _apply(pp, frame, changes, tmp_path)
     _apply(ref_pp, frame, changes, tmp_path)
@@ -199,11 +253,25 @@ def test_missing_files_develop_as_the_reference(frame, tmp_path, changes,
     np.testing.assert_allclose(data["work2out"], want, rtol=1e-6, atol=1e-7)
     for k in ("work2out", "cam2work"):
         np.testing.assert_array_equal(data[k], ref_data[k], err_msg=k)
-    out = tdev.develop(frame, pp, device="cpu").numpy()
-    st = parity(out, jdev.develop(frame, ref_pp))
+    out = develops.get("port", plan_key(cfg, data), lambda: tdev.develop(
+        frame, pp, device="cpu").numpy())
+    ref = develops.get("ref", plan_key(ref_cfg, ref_data),
+                       lambda: jdev.develop(frame, ref_pp))
+    st = parity(out, ref)
     print(changes, st)
     assert st["max_lsb8"] <= 1.0 and st["mean"] <= 2e-4, st
     assert st["within_1lsb8"] >= 0.999, st
+
+
+def test_missing_files_resolve_to_two_plans(frame, tmp_path):
+    # the reading `develops` rests on: each setting above plans as the
+    # flagship does, with its output profile
+    keys = {}
+    for changes, out_prof in MISSING + [({}, "sRGB")]:
+        pp = flagship_pp()
+        _apply(pp, frame, changes, tmp_path)
+        keys.setdefault(out_prof, set()).add(plan_key(*tdev.plan(frame, pp)))
+    assert {k: len(v) for k, v in keys.items()} == {"Rec2020": 1, "sRGB": 1}
 
 
 @pytest.mark.parametrize("changes", [{"denoise.enabled": False},
