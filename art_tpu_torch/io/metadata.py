@@ -1,0 +1,175 @@
+"""Metadata: EXIF harvest from TIFF/DNG containers and EXIF emission for
+outputs (a copy of ``art_tpu/io/metadata.py``'s ``harvest`` and
+``build_exif_bytes``; the preview decode, which needs PIL, is left out).
+
+Reference: ART tunnels metadata with exiv2 (rtengine/metadata.cc;
+MetaDataParams modes tunnel/edit/strip, procparams.h:1560). Here a small
+pure-Python TIFF IFD walker harvests the standard tags and previews, and
+a minimal EXIF TIFF blob is built for the output's APP1 segment.
+"""
+
+from __future__ import annotations
+
+import struct
+
+# tag -> (name, kind) for the tags we tunnel
+_IFD0_TAGS = {
+    271: "make", 272: "model", 274: "orientation", 306: "datetime",
+    305: "software", 315: "artist", 33432: "copyright",
+}
+_EXIF_TAGS = {
+    33434: "exposure_time", 33437: "f_number", 34855: "iso",
+    36867: "datetime_original", 37386: "focal_length",
+    42036: "lens_model", 42035: "lens_make", 37500: None,  # skip makernote
+}
+
+_TYPE_SIZE = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 7: 1, 9: 4, 10: 8, 11: 4, 12: 8}
+
+
+def _read_ifd(buf, off, le):
+    e = "<" if le else ">"
+    if off + 2 > len(buf):
+        return {}, 0
+    n = struct.unpack_from(e + "H", buf, off)[0]
+    entries = {}
+    for i in range(n):
+        p = off + 2 + 12 * i
+        if p + 12 > len(buf):
+            break
+        tag, typ, cnt = struct.unpack_from(e + "HHI", buf, p)
+        size = _TYPE_SIZE.get(typ, 1) * cnt
+        if size <= 4:
+            data_off = p + 8
+        else:
+            data_off = struct.unpack_from(e + "I", buf, p + 8)[0]
+        entries[tag] = (typ, cnt, data_off)
+    nxt = struct.unpack_from(e + "I", buf, off + 2 + 12 * n)[0] \
+        if off + 2 + 12 * n + 4 <= len(buf) else 0
+    return entries, nxt
+
+
+def _value(buf, typ, cnt, off, le):
+    e = "<" if le else ">"
+    try:
+        if typ == 2:
+            raw = buf[off : off + cnt]
+            return raw.split(b"\0")[0].decode("ascii", "replace")
+        if typ == 3:
+            v = struct.unpack_from(e + f"{cnt}H", buf, off)
+        elif typ == 4:
+            v = struct.unpack_from(e + f"{cnt}I", buf, off)
+        elif typ == 5:
+            parts = struct.unpack_from(e + f"{2 * cnt}I", buf, off)
+            v = tuple((parts[2 * i], parts[2 * i + 1]) for i in range(cnt))
+        elif typ == 10:
+            parts = struct.unpack_from(e + f"{2 * cnt}i", buf, off)
+            v = tuple((parts[2 * i], parts[2 * i + 1]) for i in range(cnt))
+        else:
+            return None
+        return v[0] if cnt == 1 else v
+    except struct.error:
+        return None
+
+
+def harvest(path):
+    """Parse a TIFF-container raw (DNG etc.): returns (tags dict,
+    preview list [(offset, length)])."""
+    with open(path, "rb") as f:
+        buf = f.read()
+    if len(buf) < 8 or buf[:2] not in (b"II", b"MM"):
+        return {}, []
+    le = buf[:2] == b"II"
+    e = "<" if le else ">"
+    off = struct.unpack_from(e + "I", buf, 4)[0]
+    tags = {}
+    previews = []
+    seen = set()
+    queue = [off]
+    while queue:
+        o = queue.pop()
+        if o in seen or o == 0:
+            continue
+        seen.add(o)
+        ents, nxt = _read_ifd(buf, o, le)
+        if nxt:
+            queue.append(nxt)
+        for tag, (typ, cnt, doff) in ents.items():
+            if tag in _IFD0_TAGS and _IFD0_TAGS[tag]:
+                v = _value(buf, typ, cnt, doff, le)
+                if v is not None:
+                    tags.setdefault(_IFD0_TAGS[tag], v)
+            elif tag in _EXIF_TAGS and _EXIF_TAGS[tag]:
+                v = _value(buf, typ, cnt, doff, le)
+                if v is not None:
+                    tags.setdefault(_EXIF_TAGS[tag], v)
+            elif tag in (34665, 330):  # EXIF IFD / SubIFDs
+                v = _value(buf, typ, cnt, doff, le)
+                for sub in ([v] if isinstance(v, int) else list(v or [])):
+                    queue.append(sub)
+        # JPEG preview (JPEGInterchangeFormat + length)
+        if 513 in ents and 514 in ents:
+            po = _value(buf, *ents[513][:2], ents[513][2], le)
+            pl = _value(buf, *ents[514][:2], ents[514][2], le)
+            if isinstance(po, int) and isinstance(pl, int):
+                previews.append((po, pl))
+        # new-style preview: strips in a reduced-resolution JPEG IFD
+        if (ents.get(254) and _value(buf, *ents[254][:2], ents[254][2], le)
+                == 1 and ents.get(259)
+                and _value(buf, *ents[259][:2], ents[259][2], le) in (6, 7)
+                and 273 in ents and 279 in ents):
+            so = _value(buf, *ents[273][:2], ents[273][2], le)
+            sl = _value(buf, *ents[279][:2], ents[279][2], le)
+            if isinstance(so, int) and isinstance(sl, int):
+                previews.append((so, sl))
+    return tags, previews
+
+
+def build_exif_bytes(tags, software="art-tpu 0.1"):
+    """EXIF payload (the ``Exif`` header and a TIFF stream) for an APP1
+    segment: the IFD0 and Exif sub-IFD tags of the reference's
+    ``build_exif_bytes``, packed with the TIFF writer's own IFD code (the
+    reference builds it with PIL's ``Image.Exif``)."""
+    from art_tpu_torch.io.tiffwrite import (T_ASCII, T_LONG, T_RATIONAL,
+                                            T_SHORT, _IFD)
+
+    def add(ifd, tag, typ, v):
+        if typ == T_ASCII:
+            ifd.add(tag, typ, str(v))
+        elif typ == T_RATIONAL and isinstance(v, tuple) and v \
+                and isinstance(v[0], tuple):
+            ifd.add(tag, typ, list(v))
+        else:
+            ifd.add(tag, typ, [v])
+
+    ifd0 = _IFD()
+    for tag, key, typ in ((271, "make", T_ASCII), (272, "model", T_ASCII),
+                          (274, "orientation", T_SHORT),
+                          (306, "datetime", T_ASCII),
+                          (315, "artist", T_ASCII),
+                          (33432, "copyright", T_ASCII),
+                          (270, "image_description", T_ASCII),
+                          (18246, "rating", T_SHORT)):
+        if tags.get(key) is not None:
+            add(ifd0, tag, typ, tags[key])
+    add(ifd0, 305, T_ASCII, software)
+    sub = _IFD()
+    for tag, key, typ in ((33434, "exposure_time", T_RATIONAL),
+                          (33437, "f_number", T_RATIONAL),
+                          (34855, "iso", T_SHORT),
+                          (36867, "datetime_original", T_ASCII),
+                          (37386, "focal_length", T_RATIONAL),
+                          (42036, "lens_model", T_ASCII)):
+        v = tags.get(key)
+        if v is None:
+            continue
+        if tag == 34855 and isinstance(v, tuple):
+            v = v[0]
+        add(sub, tag, typ, v)
+    # the sub-IFD's offset is known once IFD0's size is: lay IFD0 out with
+    # a placeholder pointer, then again with the offset
+    ifd0.add(34665, T_LONG, [0])
+    sub_off = 8 + len(ifd0.layout(8))
+    ifd0.entries = [(t, ty, c, struct.pack("<I", sub_off) if t == 34665
+                     else d) for (t, ty, c, d) in ifd0.entries]
+    return (b"Exif\x00\x00" + struct.pack("<2sHI", b"II", 42, 8)
+            + ifd0.layout(8) + sub.layout(sub_off))

@@ -1,19 +1,39 @@
-"""The raw frame model (a copy of ``RawFrame`` from
-``art_tpu/io/rawfile.py`` with the helpers it calls).
+"""The raw frame model and the host decode dispatch (a copy of
+``art_tpu/io/rawfile.py``: ``RawFrame``, ``is_raw_file``, ``load_raw``
+and ``_apply_camconst_levels``).
 
 A `RawFrame` carries the decoded CFA plane plus the static sensor and
-color metadata the planner reads. Decoding raw files is host code that
-the port does not copy; frames come from a decoder or from
-:func:`art_tpu_torch.core.image.synthesize_bayer`.
+color metadata the planner reads. :func:`load_raw` decodes a raw file
+on the host with the port's build of the native decoder
+(:mod:`art_tpu_torch.io.dng`); frames also come from
+:func:`art_tpu_torch.core.image.synthesize_bayer`. The reference's
+external preconverters (``io/iomanager.py``) are not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 
 from art_tpu_torch.color import colorspaces as cs
+
+RAW_EXTENSIONS = {
+    ".dng", ".nef", ".cr2", ".cr3", ".arw", ".raf", ".orf", ".rw2", ".crw",
+    ".pef", ".srw", ".x3f", ".3fr", ".fff", ".iiq", ".mos", ".nrw",
+    ".mrw", ".kdc", ".dcr", ".sr2", ".srf", ".erf", ".mef", ".raw",
+    ".qtk", ".pxn",
+}
+# the extensions the native decoder reads (rawfile.py::load_raw)
+NATIVE_EXTENSIONS = (
+    ".dng", ".cr2", ".cr3", ".raf", ".nef", ".arw", ".rw2", ".pef", ".orf",
+    ".srw", ".mrw", ".3fr", ".iiq", ".x3f", ".crw", ".dcr", ".kdc", ".qtk",
+    ".pxn")
+
+
+def is_raw_file(path) -> bool:
+    return os.path.splitext(str(path))[1].lower() in RAW_EXTENSIONS
 
 
 @dataclasses.dataclass
@@ -89,3 +109,70 @@ class RawFrame:
         if v[1] <= 0:
             return np.ones(3)
         return np.array([v[0] / v[1], 1.0, v[2] / v[1]])
+
+
+def load_raw(path) -> RawFrame:
+    """Decode a raw file on host with the native decoder (DNG, CR2, NEF,
+    classic RAF, ARW), as the reference does. Another extension raises:
+    the reference would hand it to an external preconverter
+    (``io/iomanager.py``), which is not ported."""
+    from art_tpu_torch.io import dng
+
+    ext = os.path.splitext(str(path))[1].lower()
+    if ext in NATIVE_EXTENSIONS:
+        frame = dng.load_dng(path)
+        # RW2 carries per-channel blacks in its tags; the camconst value
+        # is an additional pedestal (dcraw merges `black` into cblack)
+        _apply_camconst_levels(frame, black_add=(ext == ".rw2"))
+        if ext != ".raf":
+            try:
+                from art_tpu_torch.io.metadata import harvest
+
+                tags, _ = harvest(path)
+                frame.exif.update(tags)
+            except Exception:
+                pass
+        return frame
+    from art_tpu_torch.settings import settings
+
+    conf = (os.path.join(settings.user_dir, "imageio")
+            if settings.user_dir else None)
+    if conf and os.path.isdir(conf) and any(
+            n.lower().endswith(".txt") for n in os.listdir(conf)):
+        raise NotImplementedError(
+            f"raw format {ext}: external preconverters (io/iomanager.py) "
+            "are not ported to art_tpu_torch")
+    raise NotImplementedError(
+        f"raw format {ext} not natively decoded yet; convert to DNG or "
+        "register an external preconverter"
+    )
+
+
+def _apply_camconst_levels(frame: RawFrame, black_add=False):
+    """Override container levels with camconst per-ISO data when present
+    (reference: camconst.cc get_Levels consulted by RawImage::get_*level).
+    black_add: treat the camconst black as a pedestal added to the
+    container's per-channel blacks (Panasonic RW2 semantics)."""
+    try:
+        from art_tpu_torch.raw.camconst import get_instance
+
+        cc = get_instance().get(frame.make, frame.model)
+    except Exception:
+        return
+    if cc is None:
+        return
+    wl = cc.white_levels(int(frame.iso))
+    if wl is not None:
+        frame.white = np.asarray(wl, dtype=np.float64)
+    bl = cc.black_levels(int(frame.iso))
+    if bl is not None and np.any(np.asarray(bl) > 0):
+        if black_add:
+            frame.black = frame.black + np.asarray(bl, dtype=np.float64)
+        else:
+            frame.black = np.asarray(bl, dtype=np.float64)
+    if frame.cam_xyz is None:
+        m = cc.dcraw_matrix()
+        if m and len(m) >= 9:
+            frame.cam_xyz = np.asarray(m[:9], dtype=np.float64).reshape(3, 3)
+            if np.abs(frame.cam_xyz).max() > 10:  # dcraw x10000 convention
+                frame.cam_xyz = frame.cam_xyz / 10000.0

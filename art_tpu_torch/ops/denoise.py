@@ -50,6 +50,9 @@ def plan(pp, ctx):
         factor = max(dn.chrominance_auto_factor, 0.1)
         if est is not None:
             ch, rg, by = est
+            from art_tpu_torch.pipeline.listeners import report_auto
+
+            report_auto("chroma", (float(ch), float(rg), float(by)))
             chroma = ch * factor
             chroma_rg = rg * factor
             chroma_by = by * factor

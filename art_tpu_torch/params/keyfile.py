@@ -1,5 +1,5 @@
-"""Glib-KeyFile-style parser for `.arp` sidecars (a copy of
-``art_tpu/params/keyfile.py``, reading side only).
+"""Glib-KeyFile-style parser/writer for `.arp` sidecars (a copy of
+``art_tpu/params/keyfile.py``).
 
 Reference sidecars are written by Glib's KeyFile (``procparams.cc``
 load/save): ``[Group]`` headers, ``Key=value`` entries, ``#`` comments,
@@ -91,6 +91,45 @@ class KeyFile:
             return unpack_half_list(v.strip())
         return out
 
+    # -- writing -----------------------------------------------------------
+
+    def set(self, group, key, value):
+        self.groups.setdefault(group, {})[key] = _format_value(value)
+
+    def dump(self) -> str:
+        lines = []
+        for group, kv in self.groups.items():
+            if lines:
+                lines.append("")
+            lines.append(f"[{group}]")
+            for key, value in kv.items():
+                lines.append(f"{key}={value}")
+        return "\n".join(lines) + "\n"
+
+    def save(self, path):
+        with open(path, "w", encoding="utf-8") as f:
+            f.write(self.dump())
+
+
+def _format_value(value) -> str:
+    if isinstance(value, bool):
+        return "true" if value else "false"
+    if isinstance(value, (list, tuple)):
+        # Glib double-list format: trailing separator included
+        return ";".join(_format_number(v) for v in value) + ";"
+    if isinstance(value, float):
+        return _format_number(value)
+    return str(value)
+
+
+def _format_number(v) -> str:
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    f = float(v)
+    if f == int(f) and abs(f) < 1e15:
+        return str(int(f))
+    return repr(f)
+
 
 def unpack_half_list(data: str):
     """Decode the reference's packed value list: base64 of little-endian
@@ -107,3 +146,12 @@ def unpack_half_list(data: str):
         buf = buf[: len(buf) - 1]
     return [float(x) for x in np.frombuffer(buf, dtype="<f2")]
 
+
+def pack_half_list(values):
+    """Inverse of unpack_half_list (procparams.cc pack_list :96)."""
+    import base64
+
+    import numpy as np
+
+    arr = np.asarray(list(values), dtype="<f2")
+    return base64.b64encode(arr.tobytes()).decode("ascii")

@@ -1,11 +1,12 @@
-"""ProcParams: typed processing parameters and the `.arp` reader (a
-copy of ``art_tpu/params/procparams.py``, reading side only, so that both
-packages read a profile into the same values).
+"""ProcParams: typed processing parameters + `.arp` codec (a copy of
+``art_tpu/params/procparams.py`` without the snapshot sidecars, so that
+both packages read and write a profile alike).
 
 Reference: ``rtengine/procparams.{h,cc}`` (~8k LoC). Parameters are plain
 dataclasses; each carries its `.arp` group name and a field->key spec so a
-single generic reader (`update_from_keyfile`) handles them. Unknown groups/keys are preserved in ``ProcParams.extra`` so
-nothing a sidecar holds is dropped.
+single generic codec (`to_keyfile`/`update_from_keyfile`) handles
+serialization. Unknown groups/keys are preserved in ``ProcParams.extra`` so
+sidecars written by the reference round-trip losslessly.
 
 Partial-profile semantics (reference ``PartialProfile``,
 ``procparams.h:1769-1815``): loading a keyfile only overrides the fields
@@ -39,10 +40,21 @@ def _spec(**kwargs):
 
 
 class ParamGroup:
-    """Mixin implementing the generic .arp reader via ARP_GROUP/ARP_SPEC."""
+    """Mixin implementing the generic .arp codec via ARP_GROUP/ARP_SPEC."""
 
     ARP_GROUP: ClassVar[str] = ""
     ARP_SPEC: ClassVar[dict] = {}
+
+    def to_keyfile(self, kf: KeyFile):
+        for fname, spec in self.ARP_SPEC.items():
+            key, kind = spec[0], spec[1]
+            val = getattr(self, fname)
+            if kind == "e":
+                emap = spec[2]
+                val = emap.get(val, val)
+            if kind == "dl":
+                val = list(val)
+            kf.set(self.ARP_GROUP, key, val)
 
     def update_from_keyfile(self, kf: KeyFile):
         g = self.ARP_GROUP
@@ -355,6 +367,11 @@ class RAWParams(ParamGroup):
     expos_enabled: bool = False
     bayer: BayerSensorParams = field(default_factory=BayerSensorParams)
     xtrans: XTransSensorParams = field(default_factory=XTransSensorParams)
+
+    def to_keyfile(self, kf):
+        super().to_keyfile(kf)
+        self.bayer.to_keyfile(kf)
+        self.xtrans.to_keyfile(kf)
 
     def update_from_keyfile(self, kf):
         hit = super().update_from_keyfile(kf)
@@ -887,6 +904,13 @@ class SpotParams(ParamGroup):
     enabled: bool = False
     entries: list = field(default_factory=list)
 
+    def to_keyfile(self, kf: KeyFile):
+        super().to_keyfile(kf)
+        for i, e in enumerate(self.entries):
+            kf.set(self.ARP_GROUP, f"Spot{i + 1}",
+                   [e.source_x, e.source_y, e.target_x, e.target_y,
+                    float(e.radius), e.feather, e.opacity, float(e.detail)])
+
     def update_from_keyfile(self, kf: KeyFile):
         if not super().update_from_keyfile(kf):
             return False
@@ -962,6 +986,18 @@ class MetaDataParams(ParamGroup):
     # {"Iptc.Application2.Keywords": ["a", "b"]}
     exif: dict = field(default_factory=dict)
     iptc: dict = field(default_factory=dict)
+
+    def to_keyfile(self, kf):
+        super().to_keyfile(kf)
+        for arp_key, exiv_key in EXIF_ARP_KEYS.items():
+            if exiv_key in self.exif:
+                kf.set("Exif", arp_key, str(self.exif[exiv_key]))
+        for arp_key, exiv_key in IPTC_ARP_KEYS.items():
+            if exiv_key in self.iptc:
+                vals = self.iptc[exiv_key]
+                if isinstance(vals, str):
+                    vals = [vals]
+                kf.set("IPTC", arp_key, ";".join(str(v) for v in vals) + ";")
 
     def update_from_keyfile(self, kf):
         hit = super().update_from_keyfile(kf)
@@ -1046,13 +1082,24 @@ class ProcParams:
     # unknown groups preserved verbatim for lossless round-trip
     extra: dict = field(default_factory=dict)
 
-    # -- reader ------------------------------------------------------------
+    # -- codec -------------------------------------------------------------
 
     def _groups(self):
         for f in dataclasses.fields(self):
             v = getattr(self, f.name)
             if isinstance(v, ParamGroup):
                 yield v
+
+    def to_keyfile(self) -> KeyFile:
+        kf = KeyFile()
+        kf.set("Version", "AppVersion", "art-tpu " + "0.1.0")
+        kf.set("Version", "Version", self.pp_version)
+        for g in self._groups():
+            g.to_keyfile(kf)
+        for group, kv in self.extra.items():
+            for k, v in kv.items():
+                kf.groups.setdefault(group, {})[k] = v
+        return kf
 
     def update_from_keyfile(self, kf: KeyFile):
         """Partial update: only keys present in `kf` override."""
@@ -1065,6 +1112,9 @@ class ProcParams:
         for group, kv in kf.groups.items():
             if group not in known:
                 self.extra.setdefault(group, {}).update(kv)
+
+    def save(self, path):
+        self.to_keyfile().save(path)
 
     @classmethod
     def load(cls, path) -> "ProcParams":

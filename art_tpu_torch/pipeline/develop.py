@@ -11,9 +11,11 @@ clip, cam2work), fused into the denoise kernel B4 when the reference's
 (B4, or B5 and B6 on the non-fused path) and the stage-2 impulse
 denoise; then the output transform (work2out, clip, TRC), fused into the
 Neutral tone-curve kernel B7 when the `fuse_tail` gate opens, else
-applied on its own. `data_to_torch` moves either planner's data to a
-device, so the reference's own plan can drive this runner. `develop`
-chains plan -> device -> `crop_result`.
+applied on its own; and for an 8-bit JPEG, the conversion to
+interleaved uint8 (`out_u8`). `data_to_torch` moves either planner's data
+to a device, so the reference's own plan can drive this runner.
+`develop` chains plan -> device -> `crop_result`, and `process_image`
+decodes a raw file, develops it and saves the result with its metadata.
 """
 
 from __future__ import annotations
@@ -224,11 +226,15 @@ def _is_file(path) -> bool:
 
 def _resolve_output_profile(name: str) -> str:
     """Output-profile name -> named colorspace (develop.py::
-    _resolve_output_profile): an .icc/.icm file that exists is not
-    ported; any other name resolves by substring, as in the reference
-    (which without a user directory looks nowhere else)."""
+    _resolve_output_profile): an .icc/.icm file that exists, by its path
+    or by its name in <user_dir>/iccprofiles, is not ported; any other
+    name resolves by substring, as in the reference."""
+    from art_tpu_torch.settings import settings
+
     n = (name or "").lower()
-    if n.endswith((".icc", ".icm")) and os.path.isfile(name):
+    if n.endswith((".icc", ".icm")) and (os.path.isfile(name) or (
+            settings.user_dir and os.path.isfile(os.path.join(
+                settings.user_dir, "iccprofiles", os.path.basename(name))))):
         _unported(f"output ICC profile {name!r}")
     if "2020" in n:
         return "Rec2020"
@@ -243,13 +249,14 @@ def _resolve_output_profile(name: str) -> str:
     return "sRGB"
 
 
-def plan(frame, pp):
+def plan(frame, pp, out_u8=False):
     """ProcParams + frame -> (PipelineConfig, data) for the ported slice:
     a Bayer raw frame, AMaZE, RCD or bilinear/fast demosaic, camera or
     CustomMult white balance, denoise, impulse denoise and the Neutral
     tone curve to a matrix output profile (the reference's plan with
-    fast=False, out_u8=False). Anything else raises
-    NotImplementedError."""
+    fast=False). out_u8 plans the reference's device-side 8-bit output:
+    interleaved (H, W, 3) uint8 in place of (3, H, W) float planes.
+    Anything else raises NotImplementedError."""
     if not frame.is_raw:
         _unported("non-raw input")
     if frame.cfa.ndim != 2 or frame.pattern is None:
@@ -335,6 +342,7 @@ def plan(frame, pp):
         steps=tuple(steps),
         late_crop=True,
         dem_kwargs=tuple(dem_kwargs),
+        out_u8=bool(out_u8),
     )
     return config, data
 
@@ -372,7 +380,7 @@ def _check_config(config):
                         ("hl_mode", "Off"), ("pdaf", False), ("dcp", None),
                         ("icc_input_trc", None), ("pixelshift", False),
                         ("darkframe", False), ("flatfield", None),
-                        ("gainmap", False), ("out_u8", False)):
+                        ("gainmap", False)):
         if getattr(config, field) != want:
             _unported(f"pipeline config {field}={getattr(config, field)!r}")
     if config.linedn[0] > 0:
@@ -393,7 +401,8 @@ def raw_head(rgb, data):
 
 def build_run(config: PipelineConfig):
     """The device program for a config: run(inp, data) -> padded encoded
-    (3, H, W) float32 on inp's device (crop with `crop_result`)."""
+    (3, H, W) float32 on inp's device, or (H, W, 3) uint8 for an out_u8
+    config (crop with `crop_result`)."""
     _check_config(config)
     fuse_head, fuse_tail = fusion_gates(config)
     first0 = next((s for s in config.steps if s[2] == 0), None)
@@ -438,6 +447,14 @@ def build_run(config: PipelineConfig):
                 rgb = mat3(data["work2out"], rgb)
                 rgb = cs.encode_trc(torch.clamp(fdiv(rgb, MAXVAL), 0.0, 1.0),
                                     config.out_trc)
+        if config.out_u8:
+            # interleaved 8-bit for the encoder, converted before the
+            # readback (develop.py:1109-1114): a quarter of the f32
+            # planes' bytes, and no byte transpose on the host; the
+            # values lie in [0.5, 255.5], where the cast truncates
+            with span("out_u8"):
+                rgb = (torch.clamp(rgb, 0.0, 1.0) * 255.0 + 0.5).to(
+                    torch.uint8).permute(1, 2, 0).contiguous()
         return rgb
 
     return run
@@ -476,21 +493,194 @@ def transfer_array(inp):
     return inp
 
 
-def develop(frame, pp, device="cuda"):
-    """Full develop of a raw frame on `device` (the card unless the caller
-    asks for the CPU): encoded (3, H, W) float32 in [0, 1], as a tensor on
-    that device."""
-    config, data = plan(frame, pp)
+def upload(frame, device):
+    """The frame's mosaic padded to the planned shape, on `device`: u16
+    counts ship as u16 (half the bytes of f32) and widen there."""
     inp, _ = pad_to_multiple(frame.cfa, PAD_MULTIPLE)
     if frame.integral:  # decoded u16 counts
         inp = transfer_array(inp)
     inp = np.ascontiguousarray(inp)
     if inp.dtype == np.uint16:
-        # ship the u16 bits (half the bytes of f32); torch's uint16 has
-        # few kernels, so widen from an int16 view on the device
+        # torch's uint16 has few kernels, so widen from an int16 view on
+        # the device
         dev_inp = torch.from_numpy(inp.view(np.int16)).to(device)
-        dev_inp = dev_inp.to(torch.int32) & 0xFFFF
-    else:
-        dev_inp = torch.from_numpy(inp).to(device)
-    out = build_run(config)(dev_inp, data_to_torch(data, device))
+        return dev_inp.to(torch.int32) & 0xFFFF
+    return torch.from_numpy(inp).to(device)
+
+
+def develop(frame, pp, device="cuda", out_u8=False):
+    """Full develop of a raw frame on `device` (the card unless the caller
+    asks for the CPU): encoded (3, H, W) float32 in [0, 1], or (H, W, 3)
+    uint8 with out_u8, as a tensor on that device."""
+    config, data = plan(frame, pp, out_u8=out_u8)
+    out = build_run(config)(upload(frame, device), data_to_torch(data, device))
     return crop_result(out, config)
+
+
+def _sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def process_image(path_or_frame, pp, fast=False, output_path=None,
+                  bits=8, quality=92, uncompressed=False,
+                  gamut_warn=None, subsampling=3, listener=None,
+                  device="cuda"):
+    """processImage equivalent (``art_tpu/pipeline/develop.py::
+    process_image``; rtengine.h:604, simpleprocess.cc:580): decode a raw
+    file (or take a RawFrame), develop it on `device` (the card unless
+    the caller asks for the CPU), save it to `output_path` with its
+    metadata and ICC profile, and return the developed image as a numpy
+    array: (H, W, 3) uint8 when the output is an 8-bit JPEG (converted on
+    the device, as in the reference), else (3, H, W) float32.
+
+    listener: optional pipeline.listeners.ProgressListener — phase
+    milestones + errors. With settings.verbose, the wall-clock time of
+    each phase prints to stdout: decode, plan, H2D, device program, D2H,
+    encode and metadata/write (the reference's `-V` instrumentation
+    times decode, develop and encode+metadata).
+
+    Not ported, and raising NotImplementedError naming the step: fast
+    export (``fast=True``), the gamut warning (``gamut_warn``) and a
+    PipelineListener that wants a histogram."""
+    import time as _time
+
+    from art_tpu_torch.io.rawfile import RawFrame
+    from art_tpu_torch.pipeline.listeners import (PipelineListener,
+                                                  _Collect, fire_autos,
+                                                  notify, wants_histogram)
+    from art_tpu_torch.settings import settings
+
+    if fast:
+        _unported("fast export / resize (-q)")
+    if gamut_warn:
+        _unported("gamut warning (color/gamutwarning.py)")
+    if wants_histogram(listener):
+        _unported("histogram listener (pipeline/scopes.py)")
+
+    def _tick(label, t0):
+        if settings.verbose:
+            print(f"[art-tpu] {label}: "
+                  f"{(_time.monotonic() - t0) * 1000:.1f} ms", flush=True)
+        return _time.monotonic()
+
+    t = _time.monotonic()
+    try:
+        if isinstance(path_or_frame, RawFrame):
+            frame = path_or_frame
+        else:
+            from art_tpu_torch.io import load_image
+
+            frame = load_image(path_or_frame)
+    except Exception as e:
+        if listener is not None:
+            listener.error(f"load failed: {e}")
+        raise
+    notify(listener, "decode")
+    t = _tick("decode", t)
+    if isinstance(listener, PipelineListener) and frame.is_raw:
+        listener.image_type_changed(
+            True, frame.pattern is not None, frame.xtrans is not None,
+            frame.pattern is None and frame.xtrans is None
+            and getattr(frame.cfa, "ndim", 2) == 2)
+    # 8-bit JPEG output with no host-side post step: convert on device
+    u8 = (bits == 8 and gamut_warn is None and output_path is not None
+          and str(output_path).lower().endswith((".jpg", ".jpeg")))
+    with _Collect() as auto_report:
+        config, data = plan(frame, pp, out_u8=u8)
+    t = _tick("plan", t)
+    inp = upload(frame, device)
+    data_d = data_to_torch(data, device)
+    _sync(device)
+    t = _tick("H2D", t)
+    out = build_run(config)(inp, data_d)
+    del inp, data_d
+    _sync(device)
+    t = _tick("device program", t)
+    out = crop_result(out, config).cpu().numpy()
+    t = _tick("D2H", t)
+    fire_autos(listener, auto_report)
+    notify(listener, "develop")
+    if output_path is not None:
+        from art_tpu_torch.io.imagefile import save_image
+
+        # metadata tunnel/edit (MetaDataParams.mode: 0=tunnel 1=edit
+        # 2=strip; rtengine/metadata.cc semantics)
+        exif_bytes = None
+        exif_tags = None
+        xmp_bytes = None
+        iptc_iim = None
+        if pp.metadata.mode != 2 and frame.filename:
+            try:
+                from art_tpu_torch.io.metadata import (build_exif_bytes,
+                                                       harvest)
+                from art_tpu_torch.io.xmp import (build_iptc_iim,
+                                                  read_xmp_sidecar,
+                                                  serialize_xmp,
+                                                  xmp_exif_overrides)
+
+                tags, _ = harvest(frame.filename)
+                # sidecar XMP wins over in-file values (do_merge_xmp,
+                # metadata.cc:463); rating and a few dc fields promote
+                # into EXIF like exiv2's moveXmpToExif
+                xmp_props = read_xmp_sidecar(frame.filename,
+                                             settings.xmp_sidecar_style)
+                if xmp_props:
+                    tags.update(xmp_exif_overrides(xmp_props))
+                if pp.metadata.mode == 1:
+                    if pp.metadata.exif_keys:
+                        keep = set(pp.metadata.exif_keys.split(";"))
+                        tags = {k: v for k, v in tags.items() if k in keep}
+                    # ProcParams Exif change list (procparams.cc:4262)
+                    _EXIF_FIELD = {
+                        "Exif.Image.Copyright": "copyright",
+                        "Exif.Image.Artist": "artist",
+                        "Exif.Image.ImageDescription": "image_description",
+                        "Exif.Image.Make": "make",
+                        "Exif.Image.Model": "model",
+                        "Exif.Photo.LensModel": "lens_model",
+                        "Exif.Photo.DateTimeOriginal": "datetime_original",
+                    }
+                    for exiv_key, val in pp.metadata.exif.items():
+                        fkey = _EXIF_FIELD.get(exiv_key)
+                        if fkey:
+                            tags[fkey] = val
+                    if pp.metadata.iptc:
+                        iptc_iim = build_iptc_iim(pp.metadata.iptc)
+                if xmp_props:
+                    if pp.metadata.notes:
+                        xmp_props["Xmp.ART.notes"] = pp.metadata.notes
+                    xmp_bytes = serialize_xmp(xmp_props)
+                elif pp.metadata.notes:
+                    xmp_bytes = serialize_xmp(
+                        {"Xmp.ART.notes": pp.metadata.notes})
+                if tags:
+                    exif_bytes = build_exif_bytes(tags)
+                    exif_tags = tags
+            except Exception:
+                # the reference's behaviour: a failed harvest leaves the
+                # output without metadata
+                pass
+        icc = None
+        try:
+            from art_tpu_torch.color.iccwrite import make_icc
+
+            icc = make_icc(_resolve_output_profile(pp.icm.output_profile))
+        except Exception:
+            icc = None
+        t = _tick("metadata", t)
+        save_image(output_path, out, bits=bits, quality=quality,
+                   exif_bytes=exif_bytes, exif_tags=exif_tags,
+                   icc_bytes=icc, uncompressed=uncompressed,
+                   xmp_bytes=xmp_bytes, iptc_iim=iptc_iim,
+                   subsampling=subsampling)
+        t = _tick("encode+write", t)
+        if pp.metadata.mode == 0 and frame.filename:
+            # tunnel mode: deep makernote copy via exiftool when the
+            # binary exists (metadata.h:113 fallback; no-op otherwise)
+            from art_tpu_torch.io.exiftool import copy_tags
+
+            copy_tags(frame.filename, output_path)
+            _tick("exiftool", t)
+    notify(listener, "save")
+    return out

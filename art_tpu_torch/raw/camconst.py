@@ -1,5 +1,7 @@
 """Camera constants DB (a copy of ``art_tpu/raw/camconst.py``, trimmed to
-the lookup the port's planner makes: whether a camera has PDAF lines).
+the lookups the port makes: the planner's whether a camera has PDAF
+lines, and the raw loader's per-ISO white and black levels and dcraw
+matrix).
 
 The data is the reference's bundled ``camconst.json``, shipped in
 ``art_tpu_torch/data/``.
@@ -54,6 +56,65 @@ class CameraConst:
     def __init__(self, data: dict):
         self.make_model = data.get("make_model", "")
         self.data = data
+
+    @staticmethod
+    def _resolve_levels(spec, iso):
+        """Resolve a camconst levels spec: scalar | [4 values] | per-ISO table.
+
+        Per-ISO entries list exact ISO values (camconst.cc get_Levels picks
+        the entry containing the ISO); unmatched ISO falls through to the
+        nearest lower entry.
+        """
+        if spec is None:
+            return None
+        if isinstance(spec, (int, float)):
+            return [float(spec)] * 4
+        if isinstance(spec, list) and spec and isinstance(spec[0], (int, float)):
+            vals = [float(v) for v in spec]
+            return (vals * 4)[:4]
+        if isinstance(spec, list):  # per-ISO dict entries
+            best = None
+            best_iso = -1
+            fallback = None
+            for entry in spec:
+                if not isinstance(entry, dict):
+                    continue
+                isos = entry.get("iso", 0)
+                isos = isos if isinstance(isos, list) else [isos]
+                lv = entry.get("levels", 0)
+                lv = ([float(v) for v in lv] * 4)[:4] if isinstance(lv, list) \
+                    else [float(lv)] * 4
+                if fallback is None:
+                    fallback = lv
+                if iso in isos:
+                    return lv
+                lower = [i for i in isos if i <= iso]
+                if lower and max(lower) > best_iso:
+                    best_iso = max(lower)
+                    best = lv
+            return best or fallback
+        return None
+
+    def white_levels(self, iso=0):
+        ranges = self.data.get("ranges")
+        if isinstance(ranges, dict):
+            lv = self._resolve_levels(ranges.get("white"), iso)
+            if lv is not None:
+                return lv
+            wm = ranges.get("white_max")
+            if wm is not None:
+                return [float(wm)] * 4
+        return None
+
+    def black_levels(self, iso=0):
+        ranges = self.data.get("ranges")
+        if isinstance(ranges, dict):
+            return self._resolve_levels(ranges.get("black"), iso)
+        return None
+
+    def dcraw_matrix(self):
+        m = self.data.get("dcraw_matrix")
+        return [float(v) for v in m] if m else None
 
     def pdaf(self):
         """(pattern row indices, offset) or None (camconst.json

@@ -1,5 +1,32 @@
-"""Engine settings (from ``art_tpu/settings.py``): the port reads one."""
+"""Engine settings (a copy of the fields of ``art_tpu/settings.py`` that
+the port reads): the develop pipeline's pad multiple, and the `Settings`
+singleton of the export path (``pipeline/develop.py::process_image``,
+``cli.py``)."""
+
+from __future__ import annotations
+
+import dataclasses
 
 # Pad images to multiples of this tile edge; the planned shape and the
 # per-row level patterns follow it, as in the reference.
 PAD_MULTIPLE = 128
+
+
+@dataclasses.dataclass
+class Settings:
+    # per-phase timings of process_image on stdout (ART-cli's -V)
+    verbose: bool = False
+    # Directory with user camconst overrides, dark frames, flat fields and
+    # external image IO configs (<user_dir>/imageio).
+    user_dir: str | None = None
+    # XMP sidecar naming (settings.h XmpSidecarStyle): "std" = file.xmp,
+    # "ext" = file.raw.xmp
+    xmp_sidecar_style: str = "std"
+    # exiftool binary for deep makernote preservation on output
+    # (settings.h:75 exiftool_path; metadata.cc embed path). The native
+    # EXIF tunnel always runs; exiftool additionally copies proprietary
+    # makernote blocks when the binary exists.
+    exiftool_path: str = "exiftool"
+
+
+settings = Settings()

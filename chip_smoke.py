@@ -2,8 +2,9 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from art_tpu_torch/csrc (one nvcc per source, all
-at once) and drives three paths through the user's entry points, plan ->
+Builds the CUDA kernels from art_tpu_torch/csrc (one nvcc per source) and
+the host decoder and JPEG encoder from art_tpu_torch/io/native (g++), all
+at once, and drives three paths through the user's entry points, plan ->
 develop(device="cuda") -> crop_result, each with the launch and plain-call
 counts set to 0 just before it and read just after:
 
@@ -34,6 +35,17 @@ B2, B3 and B6, one kernel a call, by CUDA events, with the bytes a B1,
 B2 or B3 call allocates beside its output's and the share of nyquist2
 pixels, where B2's area sums run, and B6 also on a constant plane and
 where the weight's clamp at 50 fires, each held to the plain version.
+Then the headless CLI path, `art_tpu_torch.cli.main` from a DNG file to a
+JPEG on the card, counts reset before each: config 1 (BASELINE.json
+configs[0]: a 4000x6000 RGGB DNG from seed 1 as tools/bench_configs.py
+writes it, uncompressed, bilinear, no kernel), with the median of each
+phase (decode, plan, H2D, device program, D2H, metadata, encode+write)
+over 3 runs after a warm one and the u8 output's readback beside the f32
+planes'; config 1 on a 512x768 LJ92 DNG against the CPU; and the AMaZE
+flagship from a DNG of the flagship frame with the bundled profile and a
+second one that turns the denoise on at 20/20 (B1, B2, B3, B4 and B7,
+one launch each), timed the same way, its u8 output equal to the u8 cast
+of the float develop on the card, and each JPEG's markers well formed.
 Then one JSON line of per-kernel results (time, plain time, bound) and
 last the line {"ok": true, "device": {...}}. Any failure raises
 (non-zero exit, no result lines); so does a machine without CUDA.
@@ -42,11 +54,15 @@ last the line {"ok": true, "device": {...}}. Any failure raises
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import os
+import re
 import subprocess
 import sys
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -497,6 +513,193 @@ def kernel_entry(name, key, source, replaces, launches, k_out, p_out,
             "library_ms": None, "_mean_err": mean}
 
 
+# the phases process_image times with settings.verbose, in order
+CLI_PHASES = ("decode", "plan", "H2D", "device program", "D2H", "metadata",
+              "encode+write")
+
+
+def cli_run(argv):
+    """One `art_tpu_torch.cli.main` on the card with settings.verbose on:
+    ({phase: ms}, seconds end to end); raises unless it exits 0."""
+    from art_tpu_torch import cli
+    from art_tpu_torch.settings import settings
+
+    buf = io.StringIO()
+    settings.verbose = True
+    try:
+        t0 = time.monotonic()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        seconds = time.monotonic() - t0
+    finally:
+        settings.verbose = False
+    if rc != 0:
+        raise RuntimeError(f"cli.main {argv} exited {rc}: "
+                           f"{buf.getvalue()[-2000:]}")
+    phases = {}
+    for line in buf.getvalue().splitlines():
+        m = re.match(r"\[art-tpu\] (.+): ([0-9.]+) ms$", line)
+        if m:
+            phases[m.group(1)] = float(m.group(2))
+    return phases, seconds
+
+
+def cli_timed(label, argv, runs=3):
+    """cli_run once warm, then `runs` times: logs each phase's median."""
+    cli_run(argv)
+    got = [cli_run(argv) for _ in range(runs)]
+    med = {k: float(np.median([g[0][k] for g in got])) for k in CLI_PHASES}
+    total = float(np.median([g[1] for g in got]))
+    log(f"{label} through cli.main, median of {runs} after one warm run: "
+        f"end to end {1e3 * total:.1f} ms; " + ", ".join(
+            f"{k} {v:.1f}" for k, v in med.items()) + " ms")
+    return med
+
+
+def check_jpeg(path):
+    """The file's markers are well formed: SOI, DQT, SOF0, DHT and SOS in
+    that order (APPn where they may be), a scan whose every 0xFF byte is
+    stuffed, and EOI."""
+    data = open(path, "rb").read()
+    if data[:2] != b"\xff\xd8" or data[-2:] != b"\xff\xd9":
+        raise RuntimeError(f"{path}: no SOI/EOI")
+    pos, markers = 2, []
+    while True:
+        if data[pos] != 0xFF:
+            raise RuntimeError(f"{path}: no marker at byte {pos}")
+        markers.append(data[pos + 1])
+        pos += 2 + int.from_bytes(data[pos + 2: pos + 4], "big")
+        if markers[-1] == 0xDA:
+            break
+    body = [m for m in markers if not 0xE0 <= m <= 0xEF]
+    want = [0xDB, 0xDB, 0xC0, 0xC4, 0xC4, 0xC4, 0xC4, 0xDA]
+    scan = np.frombuffer(data, np.uint8, offset=pos)[:-2]
+    ff = np.flatnonzero(scan[:-1] == 0xFF)
+    if body != want or scan[-1] == 0xFF or (scan[ff + 1] != 0).any():
+        raise RuntimeError(f"{path}: markers {[hex(m) for m in markers]}, "
+                           "or an unstuffed 0xFF in the scan")
+    log(f"  {os.path.basename(path)}: {len(data)} bytes, markers "
+        + " ".join(hex(m) for m in markers) + " ... 0xd9: well formed")
+
+
+def readback(frame, pp):
+    """D2H of the device-side u8 output against that of the f32 planes,
+    both cropped as process_image reads them, on one frame: bytes and ms
+    (median of 3, host clock)."""
+    from art_tpu_torch.pipeline import develop as tdev
+
+    for u8 in (True, False):
+        config, data = tdev.plan(frame, pp, out_u8=u8)
+        out = tdev.build_run(config)(tdev.upload(frame, "cuda"),
+                                     tdev.data_to_torch(data, "cuda"))
+        view = tdev.crop_result(out, config)
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(3):
+            t0 = time.monotonic()
+            view.cpu()
+            times.append(time.monotonic() - t0)
+        log(f"  D2H of the {'u8 (H, W, 3)' if u8 else 'f32 (3, H, W)'} "
+            f"output: {view.numel() * view.element_size() / 1e6:.1f} MB in "
+            f"{1e3 * float(np.median(times)):.2f} ms (median of 3)")
+        del out, view
+
+
+def cli_phase(smi_line, tmp):
+    """Config 1 and the AMaZE flagship from a DNG file to a JPEG through
+    the CLI on the card: phase times, kernel launches, the u8 output
+    against the float develop's cast, the files' markers; config 1 on a
+    small LJ92 DNG against the CPU."""
+    from art_tpu_torch import cli
+    from art_tpu_torch.io.dngwrite import write_dng
+    from art_tpu_torch.io.rawfile import load_raw
+    from art_tpu_torch.params import ProcParams
+    from art_tpu_torch.pipeline import develop as tdev
+
+    log(f"---- CLI phase ({smi_line})")
+    bil = os.path.join(tmp, "bilinear.arp")
+    with open(bil, "w") as f:
+        f.write("[RAW Bayer]\nMethod=bilinear\n")
+    # config 1 as tools/bench_configs.py writes it, uncompressed (the
+    # numpy LJ92 encoder would take most of a minute at this size)
+    c1 = os.path.join(tmp, "config1.dng")
+    t0 = time.monotonic()
+    m = (np.random.default_rng(1).uniform(0.05, 0.9, FRAME) * 16000
+         + 500).astype(np.uint16)
+    write_dng(c1, m, black=500, white=16500, compress=False)
+    log(f"config 1 DNG {FRAME[0]}x{FRAME[1]} written in "
+        f"{time.monotonic() - t0:.2f} s")
+    out1 = os.path.join(tmp, "config1.jpg")
+    argv1 = ["-Y", "-p", bil, "-o", out1, "-c", c1]
+    reset_counts()
+    cli_run(argv1)
+    launches, plain_calls = read_counts()
+    log(f"config 1 through cli.main: launches {launches}; plain calls "
+        f"{plain_calls}")
+    if any(launches.values()) or any(plain_calls.values()):
+        raise RuntimeError("config 1 runs no kernel and no plain version")
+    check_jpeg(out1)
+    cli_timed(f"config 1 ({FRAME[0]}x{FRAME[1]}, bilinear, sRGB JPEG)", argv1)
+    pp1 = ProcParams()
+    pp1.raw.bayer.method = "bilinear"
+    readback(load_raw(c1), pp1)
+
+    # the lossless (LJ92) decode on a small DNG, card against the CPU
+    small = os.path.join(tmp, "small.dng")
+    write_dng(small, m[:512, :768], black=500, white=16500, compress=True)
+    g = tdev.process_image(small, pp1, output_path=os.path.join(
+        tmp, "small.jpg"))
+    c = tdev.process_image(small, pp1, output_path=os.path.join(
+        tmp, "small_cpu.jpg"), device="cpu")
+    d = np.abs(g.astype(np.int16) - c.astype(np.int16))
+    log(f"config 1 on a 512x768 LJ92 DNG, card vs CPU: u8 max {d.max()}, "
+        f"equal share {(d == 0).mean():.6f}")
+    if g.shape != (512, 768, 3) or d.max() > 1 or (d == 0).mean() < 0.999:
+        raise RuntimeError("config 1: the card's u8 output disagrees with "
+                           "the CPU's")
+
+    # the AMaZE flagship: the synthetic flagship frame as a DNG, the
+    # bundled profile and a second one with the denoise at 20/20
+    frame = flagship_frame(*FRAME)
+    fl = os.path.join(tmp, "flagship.dng")
+    write_dng(fl, np.round(frame.cfa).astype(np.uint16), black=512,
+              white=16383, cam_mul=(2.0, 1.0, 1.5), compress=False)
+    del frame
+    dn = os.path.join(tmp, "denoise20.arp")
+    with open(dn, "w") as f:
+        f.write("[Denoise]\nEnabled=true\nLuminance=20\nChrominance=20\n")
+    arp = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "art_tpu_torch", "data", "profiles", PROFILE)
+    out2 = os.path.join(tmp, "flagship.jpg")
+    argv2 = ["-Y", "-p", arp, "-p", dn, "-o", out2, "-c", fl]
+    reset_counts()
+    cli_run(argv2)
+    launches, plain_calls = read_counts()
+    log(f"flagship through cli.main: launches {launches}; plain calls "
+        f"{plain_calls}")
+    want = {k: int(k in ("b1", "b2", "b3", "b4", "b7")) for k in launches}
+    if launches != want or any(plain_calls.values()):
+        raise RuntimeError(f"flagship through the CLI: launches {launches}, "
+                           f"want {want}; plain calls {plain_calls}")
+    check_jpeg(out2)
+    cli_timed(f"flagship ({FRAME[0]}x{FRAME[1]}, AMaZE, denoise, Neutral "
+              "curve, sRGB JPEG)", argv2)
+    pp = cli.compose_params(fl, cli.parse_args(argv2))
+    if (pp.raw.bayer.method, pp.denoise.enabled, pp.denoise.luminance,
+            pp.denoise.chrominance) != ("amaze", True, 20.0, 20.0):
+        raise RuntimeError("the flagship's profiles composed wrongly")
+    u8 = tdev.process_image(fl, pp, output_path=out2)
+    flt = tdev.develop(load_raw(fl), pp)
+    cast = (torch.clamp(flt, 0.0, 1.0) * 255.0 + 0.5).to(
+        torch.uint8).permute(1, 2, 0).cpu().numpy()
+    del flt
+    if u8.shape != (*FRAME, 3) or not np.array_equal(u8, cast):
+        raise RuntimeError("flagship: the u8 output differs from the cast "
+                           "of the float develop")
+    log(f"flagship u8 output {u8.shape} equals the u8 cast of the float "
+        "develop, on the card")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -506,7 +709,8 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True)
     if smi.returncode != 0:
         raise RuntimeError(f"nvidia-smi failed: {smi.stderr.strip()}")
-    log(smi.stdout.strip().splitlines()[0])
+    smi_line = smi.stdout.strip().splitlines()[0]
+    log(smi_line)
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -524,11 +728,19 @@ def main():
     from art_tpu_torch.pipeline import develop as tdev
     from art_tpu_torch.raw.preprocess import apply_scale
 
+    from art_tpu_torch import hostbuild
+
+    # the host libraries (raw decoder, JPEG encoder; g++) build beside
+    # the CUDA kernels (nvcc), all compilers at once
     t0 = time.monotonic()
-    kernels.library()
+    with ThreadPoolExecutor(1) as pool:
+        host = pool.submit(hostbuild.build, "artraw", "jpegenc")
+        kernels.library()
+        host_libs = host.result()
     log(f"build: {time.monotonic() - t0:.2f} s "
         f"(nvcc {kernels.build_info['seconds']:.2f} s, compiled="
-        f"{kernels.build_info['compiled']})")
+        f"{kernels.build_info['compiled']}; g++ "
+        f"{sorted(p.name for p in host_libs.values())})")
     for line in kernels.build_info.get("log", "").splitlines():
         if "registers" in line or "spill" in line:
             log("  ptxas:", line.strip())
@@ -717,6 +929,10 @@ def main():
             else parity(g, c)
         log(f"512x2048 {label} develop, card vs CPU plain path: "
             f"{small_stats[label]}")
+
+    # ---- the CLI: config 1 and the flagship, file in, JPEG out
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_phase(smi_line, tmp)
 
     failures = [f"B6 on {k} disagrees with its plain version"
                 for k, ok in b6_edges.items() if not ok]

@@ -1,10 +1,11 @@
 """art_tpu_torch stands alone: a subprocess that refuses every `jax`,
 `jaxlib` and `art_tpu` import plans and develops the flagship frame (AMaZE
-and bilinear) and config 3 (RCD, non-fused denoise, impulse); no
-source file of the package, nor chip_smoke.py, imports either or reads a
-file under art_tpu/; and the port's copies of the reference's host
-modules (profiles, colour-space tables, camera constants, output TRCs)
-hold the reference's values.
+and bilinear) and config 3 (RCD, non-fused denoise, impulse); another
+that also refuses `PIL` and `cv2` (absent on the card's machine) runs
+`cli.main` from a DNG to a JPEG; no source file of the package, nor
+chip_smoke.py, imports any of them or reads a file under art_tpu/; and
+the port's copies of the reference's host modules (profiles, colour-space
+tables, camera constants, output TRCs) hold the reference's values.
 """
 
 import dataclasses
@@ -68,6 +69,44 @@ print("STANDALONE-OK")
 '''
 
 
+CLI_SCRIPT = r'''
+import sys
+
+BLOCKED = ("jax", "jaxlib", "art_tpu", "PIL", "cv2")
+
+
+class _Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError("blocked in this process: " + name)
+        return None
+
+
+sys.meta_path.insert(0, _Refuse())
+
+import os
+import numpy as np
+from art_tpu_torch import cli
+from art_tpu_torch.io.dngwrite import write_dng
+
+d = sys.argv[2]
+m = (np.random.default_rng(1).uniform(0.05, 0.9, (128, 192)) * 16000
+     + 500).astype(np.uint16)
+write_dng(os.path.join(d, "in.dng"), m, black=500, white=16500)
+with open(os.path.join(d, "bilinear.arp"), "w") as f:
+    f.write("[RAW Bayer]\nMethod=bilinear\n")
+rc = cli.main(["-Y", "-p", os.path.join(d, "bilinear.arp"), "-O",
+               os.path.join(d, "out.jpg"), "-c", os.path.join(d, "in.dng")],
+              device="cpu")
+assert rc == 0, rc
+data = open(os.path.join(d, "out.jpg"), "rb").read()
+assert data[:2] == b"\xff\xd8" and data[-2:] == b"\xff\xd9"
+assert os.path.isfile(os.path.join(d, "out.jpg.arp"))
+assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
+print("CLI-STANDALONE-OK")
+'''
+
+
 def test_develops_with_jax_blocked():
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", SCRIPT, REPO], env=env,
@@ -76,17 +115,28 @@ def test_develops_with_jax_blocked():
     assert "STANDALONE-OK" in proc.stdout
 
 
+def test_cli_with_jax_pil_and_cv2_blocked(tmp_path):
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", CLI_SCRIPT, REPO,
+                           str(tmp_path)], env=env, capture_output=True,
+                          text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "CLI-STANDALONE-OK" in proc.stdout
+
+
 def _port_sources():
     root = os.path.join(REPO, "art_tpu_torch")
     for dirpath, _, files in os.walk(root):
         for f in files:
-            if f.endswith((".py", ".cu", ".cuh")):
+            if f.endswith((".py", ".cu", ".cuh", ".cc")):
                 yield os.path.join(dirpath, f)
     yield os.path.join(REPO, "chip_smoke.py")
 
 
 # an import of jax, jaxlib or art_tpu (not art_tpu_torch)
 IMPORT = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|art_tpu)\b", re.M)
+# an import of PIL or OpenCV, which the card's machine lacks
+IMAGE_LIB = re.compile(r"^\s*(import|from)\s+(PIL|cv2)\b", re.M)
 # a path into the reference package: os.path.join(..., "art_tpu", ...)
 # or a literal art_tpu/data/... path
 REF_PATH = re.compile(r"""["']art_tpu["']\s*,|art_tpu/data""")
@@ -97,6 +147,18 @@ def test_no_source_file_imports_jax():
     for path in _port_sources():
         with open(path) as fh:
             if IMPORT.search(fh.read()):
+                offenders.append(path)
+    assert offenders == []
+
+
+def test_no_source_file_imports_pil_or_cv2():
+    assert IMAGE_LIB.search("    from PIL import Image")
+    assert IMAGE_LIB.search("import cv2")
+    assert not IMAGE_LIB.search("from art_tpu_torch.io import jpeg")
+    offenders = []
+    for path in _port_sources():
+        with open(path) as fh:
+            if IMAGE_LIB.search(fh.read()):
                 offenders.append(path)
     assert offenders == []
 
