@@ -13,10 +13,13 @@ version only for a tensor on the CPU; for a CUDA tensor it launches the
 kernel or raises.
 
 Covered so far: ``pipeline.develop.plan`` -> ``develop`` ->
-``crop_result`` for a Bayer frame with AMaZE (kernels B1-B3,
-``csrc/amaze.cu``), RCD or bilinear (or ``fast``) demosaic; the denoise,
-fused (kernel B4, ``csrc/wavelet_rgb.cu``) or not (kernel B5 in the same
-source, the guided chroma filter, NLMeans as kernel B6,
+``crop_result`` for a Bayer frame, with the hot/dead filter, green
+equilibration and raw CA correction, and AMaZE (kernels B1-B3,
+``csrc/amaze.cu``), RCD or bilinear (or ``fast``) demosaic, or an
+X-Trans frame (fast, 1-, 2-, 3-pass); dehaze, the tone equalizer, a
+``.cube`` film simulation and local contrast with its region masks; the
+denoise, fused (kernel B4, ``csrc/wavelet_rgb.cu``) or not (kernel B5
+in the same source, the guided chroma filter, NLMeans as kernel B6,
 ``csrc/nlmeans.cu``); the impulse denoise; the Neutral tone curve with
 the sRGB/linear output epilogue (kernel B7, ``csrc/neutral_tone.cu``) or
 the output transform on its own, ending for an 8-bit JPEG in

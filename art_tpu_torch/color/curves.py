@@ -1,6 +1,6 @@
-"""Host-side diagonal curves -> dense LUTs (a copy of the diagonal-curve
-half of ``art_tpu/color/curves.py``; the port's tone curve bakes its user
-curves through it).
+"""Host-side diagonal and flat curves -> dense LUTs (a copy of
+``art_tpu/color/curves.py``; the port's tone curve bakes its user curves
+through it, dehaze its strength curve and the masks their H/C/L curves).
 
 Reference: ``rtengine/diagonalcurves.cc``, ``rtengine/curves.h:90-171``
 (parametric basis functions). Curves are evaluated on the host (numpy) at
@@ -20,6 +20,11 @@ DCT_SPLINE = 1
 DCT_PARAMETRIC = 2
 DCT_NURBS = 3
 DCT_CATMULL_ROM = 4
+
+# Flat curve type tags (rtgui/myflatcurve.h:29-36)
+FCT_EMPTY = -1
+FCT_LINEAR = 0
+FCT_MIN_MAX_CPOINTS = 1
 
 
 # ---------------------------------------------------------------------------
@@ -354,3 +359,105 @@ def _nurbs_chain(x, y, n_points):
         res_x.append(x[-1])
         res_y.append(y[-1])
     return np.array(res_x), np.array(res_y)
+
+
+# ---------------------------------------------------------------------------
+# flat curves
+# ---------------------------------------------------------------------------
+
+class FlatCurve:
+    """Periodic/clamped flat curve (flatcurves.cc:26-90; a copy of
+    art_tpu/color/curves.py::FlatCurve).
+
+    Encoding: [1, x0, y0, leftTan0, rightTan0, x1, y1, lt1, rt1, ...].
+    Used by HSL equalizer, parametric masks, etc. Identity value is the
+    y everywhere for an empty curve (0.5 by default).
+    """
+
+    def __init__(self, points, periodic=True, identity_value=0.5):
+        p = [float(v) for v in points]
+        self.kind = FCT_EMPTY
+        self.identity_value = identity_value
+        self.periodic = periodic
+        if len(p) < 5 or int(p[0]) != FCT_MIN_MAX_CPOINTS:
+            return
+        n = (len(p) - 1) // 4
+        arr = np.array(p[1 : 1 + 4 * n]).reshape(n, 4)
+        arr = arr[np.argsort(arr[:, 0], kind="stable")]
+        x = arr[:, 0].copy()
+        y = arr[:, 1].copy()
+        lt = arr[:, 2].copy()
+        rt = arr[:, 3].copy()
+        if periodic:
+            x = np.append(x, x[0] + 1.0)
+            y = np.append(y, y[0])
+            lt = np.append(lt, lt[0])
+            rt = np.append(rt, rt[0])
+        if np.all(np.abs(y - identity_value) < 1e-7):
+            return
+        self._x, self._y, self._lt, self._rt = x, y, lt, rt
+        self.kind = FCT_MIN_MAX_CPOINTS
+        self._poly_x, self._poly_y = self._build_poly()
+
+    def _build_poly(self, per_seg=200):
+        x, y, lt, rt = self._x, self._y, self._lt, self._rt
+        nseg = len(x) - 1
+        res_x = []
+        res_y = []
+        for i in range(nseg):
+            x0, y0 = x[i], y[i]
+            x1v, y1v = x[i + 1], y[i + 1]
+            start_linear = rt[i] == 0.0 or y0 == y1v
+            end_linear = lt[i + 1] == 0.0 or y0 == y1v
+            if start_linear and end_linear:
+                res_x.extend([x0, x1v])
+                res_y.extend([y0, y1v])
+                continue
+            xp1 = x0 if start_linear else (x1v - x0) * rt[i] + x0
+            xp3 = x1v if end_linear else (x0 - x1v) * lt[i + 1] + x1v
+            xp2 = (xp1 + xp3) / 2.0
+            yp2 = (y0 + y1v) / 2.0
+            if rt[i] + lt[i + 1] > 1.0:
+                xp1 = xp3 = xp2
+            t = np.linspace(0.0, 1.0, per_seg)
+            # first half: quadratic bezier (x0,y0)-(xp1,y0)-(xp2,yp2)
+            if start_linear:
+                res_x.extend([x0, xp2])
+                res_y.extend([y0, yp2])
+            else:
+                qx = (1 - t) ** 2 * x0 + 2 * (1 - t) * t * xp1 + t**2 * xp2
+                qy = (1 - t) ** 2 * y0 + 2 * (1 - t) * t * y0 + t**2 * yp2
+                res_x.extend(qx.tolist())
+                res_y.extend(qy.tolist())
+            # second half: (xp2,yp2)-(xp3,y1)-(x1,y1)
+            if end_linear:
+                res_x.extend([xp2, x1v])
+                res_y.extend([yp2, y1v])
+            else:
+                qx = (1 - t) ** 2 * xp2 + 2 * (1 - t) * t * xp3 + t**2 * x1v
+                qy = (1 - t) ** 2 * yp2 + 2 * (1 - t) * t * y1v + t**2 * y1v
+                res_x.extend(qx.tolist())
+                res_y.extend(qy.tolist())
+        px = np.array(res_x)
+        py = np.array(res_y)
+        order = np.argsort(px, kind="stable")
+        px, py = px[order], py[order]
+        keep = np.concatenate([[True], np.diff(px) > 0])
+        return px[keep], py[keep]
+
+    def is_identity(self):
+        return self.kind == FCT_EMPTY
+
+    def get_val(self, t):
+        t = np.asarray(t, dtype=np.float64)
+        if self.kind == FCT_EMPTY:
+            return np.full_like(t, self.identity_value)
+        if self.periodic:
+            tt = np.mod(t - self._x[0], 1.0) + self._x[0]
+        else:
+            tt = np.clip(t, self._poly_x[0], self._poly_x[-1])
+        return np.interp(tt, self._poly_x, self._poly_y)
+
+    def lut(self, size=65536, dtype=np.float32):
+        t = np.linspace(0.0, 1.0, size)
+        return self.get_val(t).astype(dtype)

@@ -1,13 +1,15 @@
 """Image layout helpers (counterpart of ``art_tpu/core/image.py``).
 
-Host padding and CFA indexing in numpy, CFA masks as torch tensors, and
-the synthetic Bayer frame used by tests and the chip smoke run.
+Host padding and CFA indexing in numpy, CFA masks and X-Trans colour
+indices as torch tensors, shifted views of a padded plane, and the
+synthetic Bayer and X-Trans frames used by tests and the chip smoke run.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from art_tpu_torch.io.rawfile import RawFrame
 
@@ -36,6 +38,42 @@ def bayer_color_index(pattern: str, shape):
     idx2 = rows[:, None] * 2 + cols[None, :]
     lut = np.array(["RGB".index(c) for c in pattern], dtype=np.int32)
     return lut[idx2]
+
+
+def xtrans_color_index(pattern6x6, shape):
+    """Int array (H, W) 0/1/2 for an X-Trans 6x6 pattern (host numpy;
+    art_tpu/core/image.py::xtrans_color_index)."""
+    pat = np.asarray(pattern6x6, dtype=np.int32).reshape(6, 6)
+    h, w = shape
+    return pat[np.arange(h)[:, None] % 6, np.arange(w)[None, :] % 6]
+
+
+def xtrans_color_index_device(pattern, shape, device, dy=0, dx=0):
+    """(H, W) int64 colour index of the site (y + dy, x + dx) of an
+    X-Trans pattern, built on `device` by a 6x6 lookup on the global
+    coordinates modulo 6 (art_tpu/core/image.py::
+    xtrans_color_index_device). The planner's reflect pad breaks the CFA
+    period in the pad rows and columns; this index, like the
+    reference's, does not follow it."""
+    pat = torch.as_tensor(np.asarray(pattern, dtype=np.int64).reshape(6, 6),
+                          device=device)
+    h, w = shape
+    ry = (torch.arange(h, device=device) + dy) % 6
+    cx = (torch.arange(w, device=device) + dx) % 6
+    return pat[ry[:, None], cx[None, :]]
+
+
+def shifts(x, r, mode="reflect"):
+    """sh(dy, dx) -> x shifted by (dy, dx) over one pad of `r` (reflect,
+    edge as "replicate", or zeros as "constant"): the reference's
+    `_shift`, which pads anew for every shift, with one pad a plane."""
+    h, w = x.shape
+    p = F.pad(x[None, None], (r, r, r, r), mode=mode)[0, 0]
+
+    def sh(dy, dx):
+        return p[r + dy: r + dy + h, r + dx: r + dx + w]
+
+    return sh
 
 
 def bayer_channel_masks(pattern: str, shape, device):
@@ -86,4 +124,41 @@ def synthesize_bayer(rgb01, pattern="RGGB", black=512.0, white=16383.0,
         cam_xyz=None,
         make="ART-TPU", model="Synthetic",
         filename="<synthetic>",
+    )
+
+
+# the canonical Fuji X-Trans pattern (dcraw ordering, 0=R 1=G 2=B)
+XTRANS_CANONICAL = (
+    (1, 1, 0, 1, 1, 2),
+    (1, 1, 2, 1, 1, 0),
+    (2, 0, 1, 0, 2, 1),
+    (1, 1, 2, 1, 1, 0),
+    (1, 1, 0, 1, 1, 2),
+    (0, 2, 1, 2, 0, 1),
+)
+
+
+def synthesize_xtrans(rgb01, black=512.0, white=16383.0,
+                      cam_mul=(2.0, 1.0, 1.5), pattern=XTRANS_CANONICAL):
+    """The X-Trans companion of synthesize_bayer
+    (art_tpu/io/rawfile.py::synthesize_xtrans)."""
+    rgb01 = np.asarray(rgb01, dtype=np.float64)
+    _, h, w = rgb01.shape
+    cam_mul = np.asarray(cam_mul, dtype=np.float64)
+    sensor = rgb01 / cam_mul[:, None, None]
+    cidx = xtrans_color_index(pattern, (h, w))
+    mosaic = np.take_along_axis(
+        sensor.reshape(3, -1), cidx.reshape(1, -1), axis=0
+    ).reshape(h, w)
+    adu = np.clip(mosaic * (white - black) + black, 0, white)
+    return RawFrame(
+        cfa=adu.astype(np.float32),
+        pattern=None,
+        xtrans=pattern,
+        black=np.full(4, float(black)),
+        white=np.full(4, float(white)),
+        cam_mul=np.array([cam_mul[0], cam_mul[1], cam_mul[2], cam_mul[1]]),
+        cam_xyz=None,
+        make="ART-TPU", model="SyntheticXT",
+        filename="<synthetic-xtrans>",
     )

@@ -2,9 +2,10 @@
 
 Ported: ``amaze`` (kernels B1-B3), ``rcd`` (plain PyTorch, as in the
 reference) and the bilinear Bayer methods (``bilinear`` and ``fast``,
-which the reference also maps to bilinear). Every other method raises
-NotImplementedError naming it; there is no fallback to bilinear for an
-unknown name.
+which the reference also maps to bilinear); for an X-Trans frame, every
+method of ``demosaic/xtrans.py`` but the 4-pass dual blend. Every other
+Bayer method raises NotImplementedError naming it; there is no fallback
+to bilinear for an unknown name.
 """
 
 from __future__ import annotations
@@ -12,13 +13,16 @@ from __future__ import annotations
 PORTED = ("amaze", "rcd", "bilinear", "fast")
 
 
-def demosaic(cfa, pattern, method, init_gain=1.0):
-    """(H, W) scaled Bayer mosaic -> (3, H, W) RGB on cfa's device.
+def demosaic(cfa, pattern, method, init_gain=1.0, xtrans=None,
+             dem_kwargs=()):
+    """(H, W) scaled mosaic -> (3, H, W) RGB on cfa's device.
     init_gain: the planner's raw gain (AMaZE's clip points); the
     planner's dual-demosaic kwargs do not apply to plain bilinear, as in
-    the reference."""
-    from art_tpu_torch.demosaic import amaze, bilinear, rcd
+    the reference; for X-Trans they say whether 4-pass blends."""
+    from art_tpu_torch.demosaic import amaze, bilinear, rcd, xtrans as xt
 
+    if xtrans is not None:
+        return xt.demosaic_xtrans(cfa, xtrans, method, dem_kwargs)
     m = method.lower()
     if m in ("bilinear", "fast"):
         return bilinear.bayer_bilinear(cfa, pattern)

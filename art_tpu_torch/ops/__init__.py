@@ -21,7 +21,12 @@ STAGE_3 = (
 )
 ALL_STEPS = STAGE_0 + STAGE_1 + STAGE_2 + STAGE_3
 
-PORTED = ("denoise", "impulse", "tonecurve")
+PORTED = ("denoise", "dehaze", "toneequalizer", "impulse", "filmsim_pre",
+          "tonecurve", "filmsim_post", "localcontrast")
+
+# steps run by another step's module: the film simulation before and
+# after the tone curve
+_MODULES = {"filmsim_pre": "filmsim", "filmsim_post": "filmsim"}
 
 
 def stage_of(name: str) -> int:
@@ -35,4 +40,16 @@ def get_op(name: str):
     """The port's module for a ported op; NotImplementedError otherwise."""
     if name not in PORTED:
         raise NotImplementedError(f"op {name!r} is not ported")
-    return importlib.import_module(f"art_tpu_torch.ops.{name}")
+    return importlib.import_module(
+        f"art_tpu_torch.ops.{_MODULES.get(name, name)}")
+
+
+def plan_step(name, pp, ctx):
+    """A step's plan: a positional variant (filmsim_post) plans through
+    its module's plan_<suffix> where there is one, as in the reference's
+    planner."""
+    mod = get_op(name)
+    plan_fn = mod.plan
+    if "_" in name:
+        plan_fn = getattr(mod, f"plan_{name.rsplit('_', 1)[1]}", mod.plan)
+    return plan_fn(pp, ctx)

@@ -137,6 +137,8 @@ class Options:
     def apply_to_settings(self, settings) -> None:
         if self.verbose:
             settings.verbose = True
+        if self.cluts_directory:
+            settings.cluts_dir = self.cluts_directory
 
 
 def config_dir() -> str:

@@ -4,12 +4,15 @@
 dict of numpy arrays, as the reference's planner does, restricted to the
 steps this package has ported; any other step or parameter raises
 NotImplementedError naming it. `build_run` returns the device program
-for a config, in the reference's order: u16 widen, black/scale, AMaZE
-(kernels B1-B3), RCD or bilinear demosaic; the raw head (WB multipliers,
-clip, cam2work), fused into the denoise kernel B4 when the reference's
-`fuse_head` gate opens, else applied on its own; the stage-0 denoise
-(B4, or B5 and B6 on the non-fused path) and the stage-2 impulse
-denoise; then the output transform (work2out, clip, TRC), fused into the
+for a config, in the reference's order: u16 widen, black/scale; on a
+Bayer mosaic the hot/dead filter, green equilibration and raw CA
+correction; AMaZE (kernels B1-B3), RCD or bilinear demosaic, or an X-Trans
+method; the raw head (WB multipliers, clip, cam2work), fused into the
+denoise kernel B4 when the reference's `fuse_head` gate opens, else
+applied on its own; the op chain: the stage-0 denoise (B4, or B5 and B6
+on the non-fused path) and dehaze, the tone equalizer, the stage-2
+impulse denoise, the film simulation, the tone curve and local contrast;
+then the output transform (work2out, clip, TRC), fused into the
 Neutral tone-curve kernel B7 when the `fuse_tail` gate opens, else
 applied on its own; and for an 8-bit JPEG, the conversion to
 interleaved uint8 (`out_u8`). `data_to_torch` moves either planner's data
@@ -31,9 +34,11 @@ from art_tpu_torch import ops as ops_pkg
 from art_tpu_torch.color import colorspaces as cs
 from art_tpu_torch.color.iccstore import output_trc
 from art_tpu_torch.core.fmath import fdiv, mat3
-from art_tpu_torch.core.image import MAXVAL, pad_to_multiple
+from art_tpu_torch.core.image import (MAXVAL, bayer_channel_masks,
+                                     pad_to_multiple)
 from art_tpu_torch.core.profile import span
 from art_tpu_torch.demosaic import PORTED as PORTED_DEMOSAICS
+from art_tpu_torch.masks import regions_from_extra
 from art_tpu_torch.raw import preprocess as rawpre
 from art_tpu_torch.raw import wb as wbmod
 
@@ -81,9 +86,23 @@ def _unported(what):
     raise NotImplementedError(f"{what} is not ported to art_tpu_torch")
 
 
+# the suffixed region keys of the region ops the port lacks
+# (ops/textureboost.py::FIELDS, ops/smoothing.py::FIELDS): a region exists
+# where one of them, or its MaskEnabled, has the region's suffix
+_TEXTUREBOOST_KEYS = {"strength": ("Strength", "f", 0.0),
+                      "detail_threshold": ("DetailThreshold", "f", 0.2),
+                      "iterations": ("Iterations", "i", 1)}
+_SMOOTHING_KEYS = {k.lower(): (k, "s", "") for k in (
+    "Mode", "Channel", "Radius", "Sigma", "Epsilon", "Iterations", "Falloff",
+    "NLStrength", "NLDetail", "NoiseStrength", "NoiseCoarseness",
+    "HalationSize", "HalationColor", "WavStrength", "WavLevels", "WavGamma",
+    "Angle", "Curvature", "NumBlades")}
+
+
 def _op_active(name, pp):
     """Whether an op the port lacks would plan a step (the reference ops'
-    own enable gates)."""
+    own enable gates; the region ops through the reference's region
+    parsing, which reads only suffixed keys)."""
     extra = pp.extra or {}
 
     def group_on(group):
@@ -118,16 +137,19 @@ def _op_active(name, pp):
     if name == "colorcorrection":
         return group_on("ColorCorrection")
     if name == "smoothing":
-        return pp.grain.enabled or group_on("Smoothing")
+        # film grain runs as the op's noise regions (ops/smoothing.py:52)
+        return pp.grain.enabled or bool(
+            regions_from_extra(pp, "Smoothing", _SMOOTHING_KEYS))
     if name == "gradients":
         return ((pp.gradient.enabled and abs(pp.gradient.strength) > 1e-6)
                 or (pp.pcvignette.enabled
                     and abs(pp.pcvignette.strength) > 1e-6)
                 or (pp.vignetting.enabled and pp.vignetting.amount != 0))
     if name == "textureboost":
-        return group_on("TextureBoost")
-    if name == "localcontrast":
-        return group_on("Local Contrast")
+        # a region plans a step only with a strength (textureboost.py:42)
+        return any(params["strength"] != 0 for params, _ in (
+            regions_from_extra(pp, "TextureBoost", _TEXTUREBOOST_KEYS)
+            or ()))
     if name == "logenc":
         return pp.logenc.enabled
     if name == "saturation":
@@ -147,23 +169,42 @@ def _op_active(name, pp):
     return False  # dcplook_*: needs a DCP input profile (refused earlier)
 
 
-def _check_raw_params(frame, pp):
-    """Refuse every raw-stage feature of the reference planner that the
-    port lacks (develop.py::plan, raw branch)."""
+def _plan_raw_steps(frame, pp):
+    """The planned raw steps before the demosaic, as the reference plans
+    them (develop.py:215-250): (hotdead, green_eq, ca_mode). Green
+    equilibration, CFA line denoise, the PDAF filter and raw CA apply to a
+    Bayer mosaic only; the hot/dead filter is planned for any raw frame
+    and runs on a Bayer one."""
     raw, bayer = pp.raw, pp.raw.bayer
+    hotdead = None
     if raw.hotdead_enabled and (raw.hotpixel_filter or raw.deadpixel_filter):
-        _unported("hot/dead pixel filter")
-    if bayer.green_eq_enabled and (bayer.green_eq > 0 or bayer.linenoise > 0):
-        _unported("green equilibration / CFA line denoise")
+        hotdead = (bool(raw.hotpixel_filter), bool(raw.deadpixel_filter),
+                   float(raw.hotdead_thresh))
+    green_eq, ca_mode = 0.0, None
+    if frame.pattern is None:
+        return hotdead, green_eq, ca_mode
+    if bayer.green_eq_enabled and bayer.green_eq > 0:
+        green_eq = float(bayer.green_eq) / 100.0
+    if bayer.green_eq_enabled and bayer.linenoise > 0:
+        _unported("CFA line denoise")
     if bayer.pdaf_lines_filter:
         from art_tpu_torch.raw.camconst import get_instance
 
         cc = get_instance().get(frame.make, frame.model)
         if cc is not None and cc.pdaf():
             _unported("PDAF line filter")
-    if raw.ca_enabled and (raw.ca_autocorrect or raw.ca_red != 0
-                           or raw.ca_blue != 0):
-        _unported("raw CA correction")
+    if raw.ca_enabled:
+        if raw.ca_autocorrect:
+            ca_mode = ("auto", 0.0, 0.0)
+        elif raw.ca_red != 0 or raw.ca_blue != 0:
+            ca_mode = ("manual", float(raw.ca_red), float(raw.ca_blue))
+    return hotdead, green_eq, ca_mode
+
+
+def _check_raw_params(frame, pp):
+    """Refuse every raw-stage feature of the reference planner that the
+    port lacks (develop.py::plan, raw branch)."""
+    raw = pp.raw
     # the reference applies a dark frame or flat field only from a file
     # that exists, found by path or by its search (raw/dfff_managers.py,
     # not ported), and a gain map only from the frame's own file
@@ -251,16 +292,18 @@ def _resolve_output_profile(name: str) -> str:
 
 def plan(frame, pp, out_u8=False):
     """ProcParams + frame -> (PipelineConfig, data) for the ported slice:
-    a Bayer raw frame, AMaZE, RCD or bilinear/fast demosaic, camera or
-    CustomMult white balance, denoise, impulse denoise and the Neutral
-    tone curve to a matrix output profile (the reference's plan with
-    fast=False). out_u8 plans the reference's device-side 8-bit output:
-    interleaved (H, W, 3) uint8 in place of (3, H, W) float planes.
+    a Bayer raw frame (hot/dead pixels, green equilibration, raw CA;
+    AMaZE, RCD or bilinear/fast demosaic) or an X-Trans one, camera or
+    CustomMult white balance, the ported ops (`ops.PORTED`) to a matrix
+    output profile (the reference's plan with fast=False). out_u8 plans
+    the reference's device-side 8-bit output: interleaved (H, W, 3) uint8
+    in place of (3, H, W) float planes.
     Anything else raises NotImplementedError."""
     if not frame.is_raw:
         _unported("non-raw input")
-    if frame.cfa.ndim != 2 or frame.pattern is None:
-        _unported("non-Bayer raw (X-Trans, Foveon, mono)")
+    if frame.cfa.ndim != 2 or (frame.pattern is None
+                               and frame.xtrans is None):
+        _unported("Foveon or monochrome raw")
     icc_working = pp.icm.working_profile
     if icc_working not in cs.MATRICES_RGB_TO_XYZ:
         icc_working = "Rec2020"
@@ -271,18 +314,20 @@ def plan(frame, pp, out_u8=False):
     pm = PAD_MULTIPLE
     shape = (((h + pm - 1) // pm) * pm, ((w + pm - 1) // pm) * pm)
     bayer_adjust = None
-    if pp.raw.bayer.black_enabled:
+    if frame.pattern is not None and pp.raw.bayer.black_enabled:
         b = pp.raw.bayer
         bayer_adjust = [b.black1, b.black0, b.black2, b.black3]
     raw_expos = pp.raw.expos if pp.raw.expos_enabled else 1.0
-    method = pp.raw.bayer.method
-    if method.lower() not in PORTED_DEMOSAICS:
+    sensor = pp.raw.bayer if frame.pattern is not None else pp.raw.xtrans
+    method = sensor.method
+    ml = method.lower()
+    if frame.pattern is not None and ml not in PORTED_DEMOSAICS:
         _unported(f"demosaic method {method!r}")
     dem_kwargs = []
-    if method.lower() == "bilinear":
+    if ml.endswith("bilinear") or ml.startswith("4-pass"):
         dem_kwargs += [
-            ("dual_contrast", float(pp.raw.bayer.dual_demosaic_contrast)),
-            ("dual_auto", bool(pp.raw.bayer.dual_demosaic_auto_contrast))]
+            ("dual_contrast", float(sensor.dual_demosaic_contrast)),
+            ("dual_auto", bool(sensor.dual_demosaic_auto_contrast))]
 
     if pp.wb.enabled and pp.wb.method in ("CustomMult", "CustomMultLegacy"):
         m = np.asarray(pp.wb.mult, dtype=np.float64)
@@ -292,15 +337,17 @@ def plan(frame, pp, out_u8=False):
     else:
         wb_mults = frame.camera_wb_mults()
 
+    is_mono = method == "mono"
     splan = rawpre.scale_plan(frame, bayer_adjust, raw_expos,
-                              wb_mults_rgb=wb_mults)
+                              is_mono=is_mono, wb_mults_rgb=wb_mults)
     data["raw_offset"] = splan["offset_tile"]
     data["raw_scale"] = splan["scale_tile"]
     mults, _ = wbmod.image_multipliers(
         frame, wb_mults, splan["scale_mul"], splan["c_white"],
-        splan["cblack"], raw_expos)
+        splan["cblack"], raw_expos, is_mono=is_mono)
     data["rgb_mults"] = mults.astype(np.float32)
     data["init_gain"] = np.float32(splan["gain"])
+    hotdead, green_eq, ca_mode = _plan_raw_steps(frame, pp)
     _check_raw_params(frame, pp)
 
     rgb_cam, _, _ = frame.color_matrices()
@@ -315,7 +362,7 @@ def plan(frame, pp, out_u8=False):
             if _op_active(name, pp):
                 _unported(f"op {name!r}")
             continue
-        planned = ops_pkg.get_op(name).plan(pp, ctx)
+        planned = ops_pkg.plan_step(name, pp, ctx)
         if planned is None:
             continue
         static, op_data = planned
@@ -341,6 +388,9 @@ def plan(frame, pp, out_u8=False):
         orig_shape=(h, w),
         steps=tuple(steps),
         late_crop=True,
+        ca_mode=ca_mode,
+        hotdead=hotdead,
+        green_eq=green_eq,
         dem_kwargs=tuple(dem_kwargs),
         out_u8=bool(out_u8),
     )
@@ -369,22 +419,30 @@ def fusion_gates(config: PipelineConfig):
 
 def _check_config(config):
     """Refuse configs outside the slice (either planner's)."""
-    if not config.is_raw or config.pattern is None or config.xtrans:
-        _unported("non-Bayer input")
+    if not config.is_raw or (config.pattern is None
+                             and config.xtrans is None):
+        _unported("non-raw, Foveon or monochrome input")
     for field, want in (("do_clip", True), ("late_crop", True),
                         ("crop", None),
                         ("resize_to", None), ("early_resize", None),
                         ("coarse", (0, False, False)), ("transform", False),
-                        ("ca_mode", None), ("hotdead", None),
-                        ("badpix_file", False), ("green_eq", 0.0),
+                        ("badpix_file", False),
                         ("hl_mode", "Off"), ("pdaf", False), ("dcp", None),
                         ("icc_input_trc", None), ("pixelshift", False),
                         ("darkframe", False), ("flatfield", None),
                         ("gainmap", False)):
         if getattr(config, field) != want:
             _unported(f"pipeline config {field}={getattr(config, field)!r}")
-    if config.linedn[0] > 0:
+    if config.linedn[0] > 0 and config.pattern is not None:
         _unported("CFA line denoise")
+    if config.xtrans is not None:
+        from art_tpu_torch.demosaic.xtrans import dual_blend_runs
+
+        if dual_blend_runs(config.demosaic_method, config.dem_kwargs):
+            _unported(f"X-Trans demosaic {config.demosaic_method!r} (its "
+                      "dual-demosaic blend, demosaic/dual.py)")
+    elif config.demosaic_method.lower() not in PORTED_DEMOSAICS:
+        _unported(f"demosaic method {config.demosaic_method!r}")
     for name, static, _ in config.steps:
         check = getattr(ops_pkg.get_op(name), "check_static", None)
         if check is not None:
@@ -397,6 +455,37 @@ def raw_head(rgb, data):
     multipliers, clip to [0, MAXVAL], camera to working space."""
     rgb = torch.clamp(rgb * data["rgb_mults"][:, None, None], 0.0, MAXVAL)
     return mat3(data["cam2work"], rgb)
+
+
+def raw_steps(cfa, config: PipelineConfig):
+    """The raw steps between the scale and the demosaic, in the
+    reference's order (develop.py:930-965), each in its own span: hot/dead
+    pixels, green equilibration, raw CA correction; on a Bayer mosaic."""
+    if config.pattern is None:
+        return cfa
+    if config.hotdead is not None or config.green_eq > 0:
+        _, mg, _ = bayer_channel_masks(config.pattern, cfa.shape, cfa.device)
+    if config.hotdead is not None:
+        from art_tpu_torch.raw.badpixels import (find_hot_dead,
+                                                 interpolate_bad_bayer)
+
+        with span("hotdead"):
+            find_hot, find_dead, thr = config.hotdead
+            bad = find_hot_dead(cfa, thr, find_hot, find_dead)
+            cfa = interpolate_bad_bayer(cfa, bad, mg)
+    if config.green_eq > 0:
+        from art_tpu_torch.raw.green_eq import green_equilibrate
+
+        with span("green_eq"):
+            cfa = green_equilibrate(cfa, mg, config.green_eq)
+    if config.ca_mode is not None:
+        from art_tpu_torch.raw.ca_correct import ca_correct
+
+        with span("ca_correct"):
+            mode, car, cab = config.ca_mode
+            cfa = ca_correct(cfa, config.pattern, auto=(mode == "auto"),
+                             ca_red=car, ca_blue=cab)
+    return cfa
 
 
 def build_run(config: PipelineConfig):
@@ -413,14 +502,19 @@ def build_run(config: PipelineConfig):
 
         if inp.dtype != torch.float32:
             inp = inp.to(torch.float32)
-        with span("demosaic"):
+        with span("scale"):
             cfa = rawpre.apply_scale(inp, data["raw_offset"],
                                      data["raw_scale"])
+        del inp
+        cfa = raw_steps(cfa, config)
+        with span("demosaic"):
             rgb = demosaic(cfa, config.pattern, config.demosaic_method,
-                           init_gain=data["init_gain"])
-        # the float mosaic planes would stay allocated beside the
+                           init_gain=data["init_gain"],
+                           xtrans=config.xtrans,
+                           dem_kwargs=config.dem_kwargs)
+        # the float mosaic plane would stay allocated beside the
         # denoise's scratch, where the flagship's peak lies
-        del inp, cfa
+        del cfa
         if not fuse_head:
             with span("raw_head"):
                 rgb = raw_head(rgb, data)

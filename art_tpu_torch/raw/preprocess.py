@@ -12,7 +12,8 @@ import numpy as np
 import torch
 
 from art_tpu_torch.settings import PAD_MULTIPLE
-from art_tpu_torch.core.image import MAXVAL, bayer_color_index
+from art_tpu_torch.core.image import (MAXVAL, bayer_color_index,
+                                     xtrans_color_index)
 
 
 def calculate_scale_mul(pre_mul4, c_white, c_black, is_mono=False):
@@ -32,12 +33,13 @@ def calculate_scale_mul(pre_mul4, c_white, c_black, is_mono=False):
 
 def scale_plan(frame, bayer_black_adjust=None, raw_expos=1.0, is_mono=False,
                wb_mults_rgb=None):
-    """Per-site black/scale row patterns for a Bayer frame, plus
-    scale_mul, gain, clmax, cblack and c_white
-    (art_tpu/raw/preprocess.py::scale_plan)."""
-    if frame.pattern is None:
+    """Per-site black/scale row patterns for a Bayer or X-Trans frame,
+    plus scale_mul, gain, clmax, cblack and c_white
+    (art_tpu/raw/preprocess.py::scale_plan). The row period is 8 for
+    Bayer and lcm(6, 8) = 24 for X-Trans, on the global coordinates."""
+    if frame.pattern is None and frame.xtrans is None:
         raise NotImplementedError(
-            "scale_plan: only Bayer frames are ported (X-Trans/Foveon)")
+            "scale_plan: Foveon and monochrome frames are not ported")
     h, w = frame.cfa.shape
     cblack = np.asarray(frame.black, dtype=np.float64).copy()
     if bayer_black_adjust is not None:
@@ -52,11 +54,14 @@ def scale_plan(frame, bayer_black_adjust=None, raw_expos=1.0, is_mono=False,
     scale_mul, gain = calculate_scale_mul(pre_mul4, c_white, cblack, is_mono)
     clmax = (c_white - cblack) * scale_mul
 
-    cidx = bayer_color_index(frame.pattern, (2, 2))
-    c4 = cidx.astype(np.int64).copy()
-    # dcraw c4: G on even rows is G2 (index 3)
-    g2 = (cidx == 1) & (np.arange(2)[:, None] % 2 == 0)
-    c4[g2] = 3
+    if frame.pattern is not None:
+        cidx = bayer_color_index(frame.pattern, (2, 2))
+        c4 = cidx.astype(np.int64).copy()
+        # dcraw c4: G on even rows is G2 (index 3)
+        g2 = (cidx == 1) & (np.arange(2)[:, None] % 2 == 0)
+        c4[g2] = 3
+    else:
+        c4 = xtrans_color_index(frame.xtrans, (6, 6)).astype(np.int64)
     offset_tile = cblack[c4].astype(np.float32)
     scale_tile = scale_mul[c4].astype(np.float32)
     # full-width row patterns, 8 rows high: the reference's data layout

@@ -1,7 +1,7 @@
 """Engine settings (a copy of the fields of ``art_tpu/settings.py`` that
 the port reads): the develop pipeline's pad multiple, and the `Settings`
 singleton of the export path (``pipeline/develop.py::process_image``,
-``cli.py``)."""
+``cli.py``) and the film simulation's LUT directory."""
 
 from __future__ import annotations
 
@@ -27,6 +27,9 @@ class Settings:
     # EXIF tunnel always runs; exiftool additionally copies proprietary
     # makernote blocks when the binary exists.
     exiftool_path: str = "exiftool"
+    # Directory that relative film-simulation LUT names resolve against
+    # (options.clutsDir; ops/filmsim.py)
+    cluts_dir: str | None = None
 
 
 settings = Settings()

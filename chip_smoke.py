@@ -4,7 +4,7 @@
 
 Builds the CUDA kernels from art_tpu_torch/csrc (one nvcc per source) and
 the host decoder and JPEG encoder from art_tpu_torch/io/native (g++), all
-at once, and drives three paths through the user's entry points, plan ->
+at once, and drives five paths through the user's entry points, plan ->
 develop(device="cuda") -> crop_result, each with the launch and plain-call
 counts set to 0 just before it and read just after:
 
@@ -17,15 +17,29 @@ counts set to 0 just before it and read just after:
   it) with the Smoothing group on, on the same frame: ProcParams()
   defaults, RCD, denoise 20/20 with NLMeans 50 and the guided chroma
   filter, impulse denoise, no tone curve; kernels B5 (wavelet chain on
-  the stacked Y/U/V) and B6 (NLMeans).
+  the stacked Y/U/V) and B6 (NLMeans);
+- config 2 (BASELINE.json configs[1]) with both hot/dead filters on: the
+  flagship frame with R and B magnified by 1 +- 2e-3 before mosaicing
+  and 0.1% of the sites 0 or white; hot/dead pixels, green
+  equilibration at 100, auto raw CA, AMaZE (B1, B2, B3 once each and no
+  other kernel), the unfused raw head and output tail;
+- config 4 (BASELINE.json configs[3]) with Contrast_1=30: a 4008x6000
+  X-Trans frame from seed 2 as tools/bench_configs.py makes it, 3-pass,
+  dehaze, the tone equalizer, a 33^3 .cube film simulation, local
+  contrast; no kernel. For configs 2 and 4 it prints the median develop,
+  the host plan and the device program alone, peak memory by stage,
+  device ms by `art:` stage, and config 2's flagged bad pixels.
 
 It checks that every kernel of a path launched and no plain version ran,
-that the output is (3, 4000, 6000), finite and in [0, 1], that each
+that the output has the frame's shape, finite and in [0, 1], that each
 kernel equals its plain PyTorch version on the tensors its path feeds it
 (bounds below), and that a 512x2048 develop on the card agrees with the
 same develop on the CPU's plain path, for each path, to the slice bounds
-of the CPU tests. It prints the card's name and power limit, develop
-and device-program timings, peak memory and the stage and kernel launch
+of the CPU tests (configs 2 and 4 at 512x768 and 384x576; config 2's
+hot/dead and green-equilibration decisions may flip between the devices
+at RAW_FLIPS of the sites, the max held beyond RAW_REACH pixels of them).
+It prints the card's name and power limit, develop and device-program
+timings, peak memory and the stage and kernel launch
 that set it, torch.profiler tables, the kernels' ptxas report
 (registers, spills), for every kernel its registers and shared memory
 as loaded, and device time by kernel name: B4 and B5 by torch.profiler
@@ -81,11 +95,22 @@ DEV_MAX, DEV_MEAN, DEV_WITHIN = 1.0 / 255.0, 2e-4, 0.999
 # (their replacement weighs it), so DEV_MAX holds outside that reach, and
 # at most this share of the pixels flips
 IMPULSE_FLIPS = 2e-5
+# config 2 (tests/test_torch_raw_config2.py): the hot/dead and green
+# equilibration decisions compare sums the two devices may round
+# differently; a flipped site moves its value by up to full scale, which
+# the CA warp and AMaZE carry up to this many pixels, so DEV_MAX holds
+# beyond that reach, and at most RAW_FLIPS of the sites flip
+RAW_FLIPS, RAW_REACH = 2e-5, 32
 # the bound of each kernel: H100 SXM data sheet peaks (HBM3 rate, FP32 rate)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 
 FRAME = (4000, 6000)
+# config 4's X-Trans frame (tools/bench_configs.py:138)
+FRAME4 = (4008, 6000)
+# the small develops, card against the CPU: the earlier paths, config 2,
+# config 4
+SMALL, SMALL2, SMALL4 = (512, 2048), (512, 768), (384, 576)
 PROFILE = "Standard Film Curve.arp"
 
 
@@ -129,6 +154,60 @@ def config3_pp(pp=None, smoothing=True, impulse=True):
     return pp
 
 
+def config2_pp(pp=None):
+    """Config 2 (BASELINE.json configs[1], tools/bench_configs.py:109-120)
+    set on pp (either package's ProcParams; default a fresh one of this
+    package's): AMaZE, auto raw CA, hot/dead pixels, green equilibration
+    at 100. bench_configs sets HotDeadPixelEnabled but neither filter, so
+    there the reference plans no hot/dead step; both filters are on
+    here."""
+    if pp is None:
+        from art_tpu_torch.params import ProcParams
+
+        pp = ProcParams()
+    pp.raw.bayer.method = "amaze"
+    pp.raw.ca_enabled = True
+    pp.raw.ca_autocorrect = True
+    pp.raw.hotdead_enabled = True
+    pp.raw.hotpixel_filter = True
+    pp.raw.deadpixel_filter = True
+    pp.raw.bayer.green_eq_enabled = True
+    pp.raw.bayer.green_eq = 100.0
+    return pp
+
+
+def write_cube(path, n=33):
+    """The near-identity .cube LUT of tools/bench_configs.py's config 4."""
+    ax = np.linspace(0, 1, n)
+    with open(path, "w") as f:
+        f.write(f"LUT_3D_SIZE {n}\n")
+        for b in ax:
+            for g in ax:
+                for r in ax:
+                    f.write(f"{r**1.05:.6f} {g:.6f} {b**0.95:.6f}\n")
+
+
+def config4_pp(cube, pp=None):
+    """Config 4 (BASELINE.json configs[3], tools/bench_configs.py:134-164)
+    set on pp, with the LUT file `cube`: X-Trans 3-pass, the tone
+    equalizer, dehaze, the film simulation, and local contrast with
+    Contrast_1=30. bench_configs writes the unsuffixed Contrast=30, which
+    plans no region in the reference, so no local-contrast step."""
+    if pp is None:
+        from art_tpu_torch.params import ProcParams
+
+        pp = ProcParams()
+    pp.raw.xtrans.method = "3-pass"
+    te = pp.tone_equalizer
+    te.enabled = True
+    te.band0, te.band1, te.band3, te.band4 = -20, -10, 10, 20
+    pp.dehaze.enabled = True
+    pp.film_simulation.enabled = True
+    pp.film_simulation.clut_filename = cube
+    pp.apply_arp_text("[Local Contrast]\nEnabled=true\nContrast_1=30\n")
+    return pp
+
+
 def path_pp(label):
     """The ProcParams of a path: "amaze", "bilinear" or "config3"."""
     return config3_pp() if label == "config3" else flagship_pp(label)
@@ -140,6 +219,56 @@ def flagship_frame(h, w, seed=0):
     rng = np.random.default_rng(seed)
     rgb = rng.uniform(0.02, 0.95, size=(3, h, w)).astype(np.float32)
     return synthesize_bayer(rgb, pattern="RGGB")
+
+
+def scale_about_centre(plane, s):
+    """A (H, W) plane magnified by s about its centre, bilinear, edges
+    clamped: out(p) = plane(c + (p - c) / s)."""
+    h, w = plane.shape
+    out = []
+    for n in (h, w):
+        c = (n - 1) / 2.0
+        src = np.clip(c + (np.arange(n) - c) / s, 0.0, n - 1.0)
+        i0 = np.minimum(np.floor(src).astype(np.int64), n - 2)
+        out.append((i0, (src - i0).astype(np.float32)))
+    (y0, fy), (x0, fx) = out
+    top = plane[y0][:, x0] * (1 - fx) + plane[y0][:, x0 + 1] * fx
+    bot = plane[y0 + 1][:, x0] * (1 - fx) + plane[y0 + 1][:, x0 + 1] * fx
+    return top * (1 - fy[:, None]) + bot * fy[:, None]
+
+
+def with_raw_faults(rgb, seed=0, ca=2e-3, share=1e-3):
+    """A Bayer RawFrame of a linear (3, H, W) image with config 2's raw
+    faults: R magnified by 1 + ca and B by 1 - ca about the centre before
+    mosaicing (lateral CA), then `share` of the sites set to 0 or to
+    white, half each (dead and hot pixels)."""
+    from art_tpu_torch.core.image import synthesize_bayer
+
+    rgb = np.stack([scale_about_centre(rgb[0], 1.0 + ca), rgb[1],
+                    scale_about_centre(rgb[2], 1.0 - ca)])
+    frame = synthesize_bayer(rgb.astype(np.float32), pattern="RGGB")
+    cfa = frame.cfa.reshape(-1)
+    idx = np.random.default_rng(seed).choice(cfa.size, int(cfa.size * share),
+                                             replace=False)
+    cfa[idx[::2]] = 0.0
+    cfa[idx[1::2]] = frame.white[0]
+    return frame
+
+
+def config2_frame(h, w, seed=0):
+    """The flagship frame of seed `seed` with config 2's raw faults."""
+    rng = np.random.default_rng(seed)
+    return with_raw_faults(
+        rng.uniform(0.02, 0.95, size=(3, h, w)).astype(np.float32), seed)
+
+
+def config4_frame(h, w, seed=2):
+    """Config 4's X-Trans frame as tools/bench_configs.py makes it."""
+    from art_tpu_torch.core.image import synthesize_xtrans
+
+    rng = np.random.default_rng(seed)
+    return synthesize_xtrans(
+        rng.uniform(0.02, 0.95, size=(3, h, w)).astype(np.float32))
 
 
 def gpu_ms(fn, n):
@@ -202,16 +331,57 @@ def impulse_parity(out, ref, imp_out, imp_ref):
     """parity() of two develops with an impulse step, given their impulse
     masks (on the padded plane): the share of pixels whose decision
     differs, and the max outside those pixels' reach."""
+    return flip_parity(out, ref, imp_out, imp_ref, 2)
+
+
+def flip_parity(out, ref, dec_out, dec_ref, reach):
+    """parity() of two develops given the decision masks each made (on
+    the padded plane): the share of sites whose decision differs, and
+    the max outside `reach` pixels of them."""
     st = parity(out, ref)
-    flips = _cpu64(imp_out) != _cpu64(imp_ref)
+    flips = _cpu64(dec_out) != _cpu64(dec_ref)
     h, w = out.shape[-2:]
-    reach = torch.nn.functional.max_pool2d(
-        flips[None, None].double(), 5, 1, 2)[0, 0, :h, :w] > 0
+    near = torch.nn.functional.max_pool2d(
+        flips[None, None].double(), 2 * reach + 1, 1,
+        reach)[0, 0, :h, :w] > 0
     d = (_cpu64(out) - _cpu64(ref)).abs() * 255.0
     st["flips"] = int(flips.sum())
     st["flip_share"] = st["flips"] / flips.numel()
-    st["max_lsb8_beyond_flips"] = float(d[:, ~reach].max())
+    st["max_lsb8_beyond_flips"] = float(d[:, ~near].max()) if (
+        ~near).any() else 0.0
     return st
+
+
+@contextlib.contextmanager
+def raw_decisions():
+    """Yields a dict that gathers, on the CPU, the raw decisions of the
+    develops run inside the block, one (H, W) bool plane a develop each:
+    "hotdead", the hot/dead masks (`raw.badpixels.find_hot_dead`), and
+    "green_eq", the green sites that green equilibration replaced
+    (`raw.green_eq.green_equilibrate`; its output differs from its input
+    there)."""
+    from art_tpu_torch.raw import badpixels, green_eq
+
+    got = {"hotdead": [], "green_eq": []}
+    find, equil = badpixels.find_hot_dead, green_eq.green_equilibrate
+
+    def find_recorded(*args, **kwargs):
+        bad = find(*args, **kwargs)
+        got["hotdead"].append(bad.cpu())
+        return bad
+
+    def equil_recorded(cfa, *args, **kwargs):
+        out = equil(cfa, *args, **kwargs)
+        got["green_eq"].append((out != cfa).cpu())
+        return out
+
+    badpixels.find_hot_dead = find_recorded
+    green_eq.green_equilibrate = equil_recorded
+    try:
+        yield got
+    finally:
+        badpixels.find_hot_dead = find
+        green_eq.green_equilibrate = equil
 
 
 def bound(reads, writes, ops):
@@ -269,7 +439,8 @@ def drive(label, pp, frame, kernels_of_path):
     torch.cuda.synchronize()
     seconds = time.monotonic() - t0
     launches, plain_calls = read_counts()
-    log(f"{label} develop {FRAME[0]}x{FRAME[1]} (first): {seconds:.3f} s; "
+    shape = frame.cfa.shape
+    log(f"{label} develop {shape[0]}x{shape[1]} (first): {seconds:.3f} s; "
         f"launches {launches}; plain calls {plain_calls}")
     missing = [k for k in kernels_of_path if launches[k] < 1]
     if missing:
@@ -277,16 +448,52 @@ def drive(label, pp, frame, kernels_of_path):
     if any(plain_calls.values()):
         raise RuntimeError(f"{label}: a plain version ran on the card: "
                            f"{plain_calls}")
-    if tuple(out.shape) != (3, *FRAME) or out.device.type != "cuda":
+    if tuple(out.shape) != (3, *shape) or out.device.type != "cuda":
         raise RuntimeError(f"bad output {tuple(out.shape)} on {out.device}")
     if not bool(torch.isfinite(out).all()):
         raise RuntimeError(f"{label}: non-finite output")
     lo, hi = float(out.min()), float(out.max())
     if lo < 0.0 or hi > 1.0:
         raise RuntimeError(f"{label}: output outside [0, 1]: {lo} .. {hi}")
-    log(f"  output (3, {FRAME[0]}, {FRAME[1]}) finite, range {lo:.6f} .. "
+    log(f"  output (3, {shape[0]}, {shape[1]}) finite, range {lo:.6f} .. "
         f"{hi:.6f}, mean {float(out.mean()):.6f}")
     return launches
+
+
+def new_path(label, pp, frame, kernels_of_path, small_frame):
+    """A path of configs 2 and 4: one develop with the counts from 0,
+    which must launch each kernel of the path once and no other, and
+    print the bad pixels flagged and the green sites equilibrated; the
+    median develop, the host plan and the device program alone with peak
+    memory by stage, device ms by stage; then a develop of small_frame
+    on the card against the same on the CPU (flip_parity where the path
+    makes raw decisions). Returns that comparison."""
+    from art_tpu_torch.pipeline import develop as tdev
+
+    with raw_decisions() as dec:
+        launches = drive(label, pp, frame, kernels_of_path)
+    want = {k: int(k in kernels_of_path) for k in launches}
+    if launches != want:
+        raise RuntimeError(f"{label}: launches {launches}, want {want}")
+    if dec["hotdead"]:
+        log(f"  hot/dead pixels flagged: {int(dec['hotdead'][0].sum())} of "
+            f"{dec['hotdead'][0].numel()} sites of the padded plane; green "
+            f"sites equilibrated: {int(dec['green_eq'][0].sum())}")
+    median_develop(label, frame, pp)
+    device_program(frame, pp)
+    profile_develop(frame, pp)
+
+    with raw_decisions() as dec:
+        g = tdev.develop(small_frame, pp).cpu()
+        c = tdev.develop(small_frame, pp, device="cpu")
+    if dec["hotdead"]:
+        planes = [hd | ge for hd, ge in zip(dec["hotdead"], dec["green_eq"])]
+        st = flip_parity(g, c, *planes, RAW_REACH)
+    else:
+        st = parity(g, c)
+    h, w = small_frame.cfa.shape
+    log(f"{h}x{w} {label} develop, card vs CPU plain path: {st}")
+    return st
 
 
 def median_develop(label, frame, pp):
@@ -769,6 +976,28 @@ def main():
     config3, inp3, data3 = device_program(frame, pp3)
     profile_develop(frame, pp3)
 
+    # ---- configs 2 and 4, each with a small develop against the CPU
+    new_stats = {}
+    t0 = time.monotonic()
+    frame2 = config2_frame(*FRAME)
+    log(f"config 2 frame {FRAME[0]}x{FRAME[1]} (the flagship frame, R and "
+        f"B magnified by 1 +- 2e-3, 0.1% of the sites 0 or white) in "
+        f"{time.monotonic() - t0:.2f} s")
+    new_stats["config2"] = new_path("config2", config2_pp(), frame2,
+                                    ("b1", "b2", "b3"),
+                                    config2_frame(*SMALL2, seed=5))
+    del frame2
+    with tempfile.TemporaryDirectory() as lut_dir:
+        cube = os.path.join(lut_dir, "config4.cube")
+        write_cube(cube)
+        t0 = time.monotonic()
+        frame4 = config4_frame(*FRAME4)
+        log(f"config 4 frame {FRAME4[0]}x{FRAME4[1]} X-Trans in "
+            f"{time.monotonic() - t0:.2f} s; a 33^3 .cube LUT")
+        new_stats["config4"] = new_path("config4", config4_pp(cube), frame4,
+                                        (), config4_frame(*SMALL4, seed=5))
+        del frame4
+
     # ---- kernel phase: each kernel on the tensors its path feeds it
     pat = config.pattern
     cfa = apply_scale(inp_d.float(), data_d["raw_offset"],
@@ -919,7 +1148,7 @@ def main():
     del mi_hot, b5_k, y, maskinv, inp3, data3
 
     # ---- small develops: the card against the CPU plain path
-    small = flagship_frame(512, 2048, seed=5)
+    small = flagship_frame(*SMALL, seed=5)
     small_stats = {}
     for label in ("amaze", "bilinear", "config3"):
         with impulse_masks() as masks:
@@ -927,8 +1156,8 @@ def main():
             c = tdev.develop(small, path_pp(label), device="cpu")
         small_stats[label] = impulse_parity(g, c, *masks) if masks \
             else parity(g, c)
-        log(f"512x2048 {label} develop, card vs CPU plain path: "
-            f"{small_stats[label]}")
+        log(f"{SMALL[0]}x{SMALL[1]} {label} develop, card vs CPU plain "
+            f"path: {small_stats[label]}")
 
     # ---- the CLI: config 1 and the flagship, file in, JPEG out
     with tempfile.TemporaryDirectory() as tmp:
@@ -940,9 +1169,10 @@ def main():
         mean_err = e.pop("_mean_err")
         if e["max_abs_err"] > KERNEL_MAX or mean_err > KERNEL_MEAN:
             failures.append(f"{e['name']} disagrees with its plain version")
-    for label, st in small_stats.items():
+    for label, st in {**small_stats, **new_stats}.items():
         if "flips" in st:
-            bad = (st["flip_share"] > IMPULSE_FLIPS
+            bad = (st["flip_share"] > (RAW_FLIPS if label == "config2"
+                                       else IMPULSE_FLIPS)
                    or st["max_lsb8_beyond_flips"] > DEV_MAX * 255)
         else:
             bad = st["max_lsb8"] > DEV_MAX * 255

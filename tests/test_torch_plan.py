@@ -117,8 +117,10 @@ def _set(pp, path, value):
     ({"raw.bayer.method": "lmmse"}, "lmmse"),
     ({"wb.method": "Auto"}, "white balance"),
     # NLMeans in the denoise is ported; the Smoothing op that also runs
-    # it (ops/smoothing.py) is not
-    ({"extra": {"Smoothing": {"Enabled": "true"}}}, "smoothing"),
+    # it (ops/smoothing.py) is not: a region in NLMeans mode (the
+    # reference reads only suffixed region keys)
+    ({"extra": {"Smoothing": {"Enabled": "true", "Mode_1": "3"}}},
+     "smoothing"),
     ({"sharpening.enabled": True}, "sharpen"),
     ({"tone_curve.curve_mode": "Standard",
       "tone_curve.curve_mode2": "Standard"}, "tone curve mode"),
