@@ -23,11 +23,14 @@ in the same source, the guided chroma filter, NLMeans as kernel B6,
 ``csrc/nlmeans.cu``); the impulse denoise; the Neutral tone curve with
 the sRGB/linear output epilogue (kernel B7, ``csrc/neutral_tone.cu``) or
 the output transform on its own, ending for an 8-bit JPEG in
-interleaved uint8. Around it, the headless ART-cli path (``cli``,
-``pipeline.develop.process_image``): raw decode with the package's own
-build of the reference's C++ decoder (``io/native``, built by
-:mod:`art_tpu_torch.hostbuild`) and JPEG/TIFF/PNG output with its own
-encoders and the reference's metadata. Anything else raises
+interleaved uint8; and the pointwise ops exposure, channel mixer,
+saturation, RGB curves and soft light. Around it, the headless ART-cli
+path (``cli``, ``pipeline.develop.process_image``): raw decode with the
+package's own build of the reference's C++ decoder (``io/native``, built
+by :mod:`art_tpu_torch.hostbuild`) and JPEG/TIFF/PNG output with its own
+encoders and the reference's metadata; and the batch queue
+(``parallel``), one worker per device with decode, plan and encode on
+host threads. Anything else raises
 ``NotImplementedError`` naming the step or parameter.
 """
 

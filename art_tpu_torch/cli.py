@@ -9,12 +9,16 @@ Reference: ``rtgui/main-cli.cc`` (910 LoC) and the argv contract in
     python -m art_tpu_torch.cli -c in.dng -o out.jpg -p profile.arp
 
 Extra flags of the reference: ``--bench`` prints per-image timings;
-``--devices N`` (N > 1, several inputs) would shard the batch through the
-reference's batch queue (``parallel/queue.py``), which is not ported and
-refuses with exit code 2. Also not ported, and refused per file with
-exit code 2: ``-q`` (fast export / resize), ``--gamut-warn``
-(``color/gamutwarning.py``) and ``--check-lut`` (``color/lut3d.py``).
-`main` develops on the card unless its caller passes ``device="cpu"``.
+``--devices N`` (N > 1, several inputs) develops the inputs through the
+batch queue (``parallel/queue.py::process_batch``) over the first N
+visible CUDA devices, as the reference takes its first N devices; as
+there, its outputs carry no metadata. ``--check-lut <file>`` exits 0 if
+the LUT loads, 1 if it does not, and 2 for a format whose loader is not
+ported (a Hald CLUT image). Not ported, and refused per file with exit
+code 2: ``-q`` (fast export / resize) and ``--gamut-warn``
+(``color/gamutwarning.py``). `main` develops on the card unless its
+caller passes ``device="cpu"`` (with ``--devices N``: N workers on the
+CPU).
 """
 
 from __future__ import annotations
@@ -254,12 +258,53 @@ def make_icc_main(args):
 
 
 def check_lut_main(args):
-    """--check-lut (main-cli.cc:105-126): the LUT loader
-    (``color/lut3d.py``) is not ported, so this refuses with exit
-    code 2."""
-    print("error: --check-lut: color/lut3d.py is not ported to "
-          "art_tpu_torch", file=sys.stderr)
-    return 2
+    """--check-lut (main-cli.cc:105-126): exit 0 iff the LUT loads, 1
+    ("Invalid LUT file") if it does not; 2, naming the step, for a
+    format whose loader is not ported, which the port cannot judge."""
+    if not args:
+        print("invalid arguments to --check-lut")
+        return 2
+    from art_tpu_torch.color.lut3d import load_lut3d
+
+    try:
+        load_lut3d(args[0])
+    except NotImplementedError as e:
+        print(f"error: --check-lut: {e}", file=sys.stderr)
+        return 2
+    except Exception:
+        print(f"Invalid LUT file: {args[0]}")
+        return 1
+    return 0
+
+
+def _batch_main(opts, device):
+    """The inputs through `parallel.queue.process_batch` over the first
+    N visible CUDA devices (N workers on the CPU for device="cpu"), with
+    the serial path's sidecar skips and -Y check; exit 0 if every job
+    succeeded, else 2."""
+    import torch
+
+    from art_tpu_torch.parallel import process_batch
+
+    jobs = []
+    for inp in opts["inputs"]:
+        pp = compose_params(inp, opts)
+        if pp is None:
+            print(f"skipping {inp} (no sidecar)")
+            continue
+        outp = output_path_for(inp, opts)
+        if os.path.exists(outp) and not opts["overwrite"]:
+            print(f"error: output {outp} exists (use -Y)", file=sys.stderr)
+            continue
+        jobs.append((inp, pp, outp))
+    if torch.device(device).type == "cuda":
+        count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        devices = [f"cuda:{i}" for i in range(min(opts["devices"], count))]
+    else:
+        devices = [device] * opts["devices"]
+    results = process_batch(jobs, devices=devices or None,
+                            progress=lambda i, o: print(f"-> {o}"))
+    return 0 if all(results) else 2
 
 
 def main(argv=None, device="cuda"):
@@ -294,11 +339,8 @@ def main(argv=None, device="cuda"):
     from art_tpu_torch.pipeline.develop import process_image
 
     if opts["devices"] > 1 and len(opts["inputs"]) > 1:
-        # the reference shards such a batch over its devices
-        print(f"error: --devices {opts['devices']}: the batch queue "
-              "(parallel/queue.py) is not ported to art_tpu_torch",
-              file=sys.stderr)
-        return 2
+        # the batch queue, one worker per device
+        return _batch_main(opts, device)
 
     errors = 0
     n_files = max(len(opts["inputs"]), 1)

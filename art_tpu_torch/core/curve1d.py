@@ -48,6 +48,21 @@ def fit_curve(dense_lut, in_max=1.0, allow_poly=True):
     return coeffs.astype(np.float32)
 
 
+
+def fit_curves(dense_luts, in_max=1.0):
+    """Several curves fitted into one stackable representation
+    (art_tpu/core/curve1d.py::fit_curves): Chebyshev series zero-padded
+    to one degree, or, if any curve needs segments, all refit as
+    segments."""
+    fits = [fit_curve(np.asarray(lut), in_max) for lut in dense_luts]
+    if all(f.ndim == 1 for f in fits):
+        d = max(f.shape[0] for f in fits)
+        return np.stack([np.pad(f, (0, d - f.shape[0])) for f in fits])
+    return np.stack([f if f.ndim == 2
+                     else fit_curve(np.asarray(lut), in_max,
+                                    allow_poly=False)
+                     for f, lut in zip(fits, dense_luts)])
+
 def split_poly(fn_t, deg_half, tol=None):
     """Fit fn(t), t in [-1,1], as P(u) + t*Q(u) with u = 2t^2-1; returns
     (2, deg_half+1) highest power first, or None if `tol` is missed

@@ -10,27 +10,32 @@ tables and scan data for a quality and a chroma subsampling.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import numpy as np
 
 from art_tpu_torch import hostbuild
 
 _LIB = None
+# the encode pool's threads load the library once
+_LIB_LOCK = threading.Lock()
 
 
 def _load():
     global _LIB
-    if _LIB is None:
-        lib = hostbuild.load("jpegenc")
-        lib.jpegenc_encode.restype = ctypes.c_int
-        lib.jpegenc_encode.argtypes = [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.POINTER(ctypes.POINTER(ctypes.c_uint8)),
-            ctypes.POINTER(ctypes.c_size_t)]
-        lib.jpegenc_free.restype = None
-        lib.jpegenc_free.argtypes = [ctypes.POINTER(ctypes.c_uint8)]
-        _LIB = lib
-    return _LIB
+    with _LIB_LOCK:
+        if _LIB is None:
+            lib = hostbuild.load("jpegenc")
+            lib.jpegenc_encode.restype = ctypes.c_int
+            lib.jpegenc_encode.argtypes = [
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int,
+                ctypes.POINTER(ctypes.POINTER(ctypes.c_uint8)),
+                ctypes.POINTER(ctypes.c_size_t)]
+            lib.jpegenc_free.restype = None
+            lib.jpegenc_free.argtypes = [ctypes.POINTER(ctypes.c_uint8)]
+            _LIB = lib
+        return _LIB
 
 
 def encode(rgb, quality=92, subsampling=3) -> bytes:

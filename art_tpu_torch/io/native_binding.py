@@ -9,12 +9,15 @@ threads, as in the reference."""
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import numpy as np
 
 from art_tpu_torch import hostbuild
 
 _LIB = None
+# the batch queue's host threads load the library once
+_LIB_LOCK = threading.Lock()
 
 
 class ArtRawMeta(ctypes.Structure):
@@ -47,16 +50,16 @@ def _load():
     """The port's own build of the decoder (``io/native/artraw.cc``, a
     copy of the reference's source), built by g++ at first use."""
     global _LIB
-    if _LIB is not None:
+    with _LIB_LOCK:
+        if _LIB is None:
+            lib = hostbuild.load("artraw")
+            lib.artraw_decode_dng.restype = ctypes.POINTER(ctypes.c_uint16)
+            lib.artraw_decode_dng.argtypes = [
+                ctypes.c_char_p, ctypes.c_size_t, ctypes.POINTER(ArtRawMeta)]
+            lib.artraw_free.argtypes = [ctypes.POINTER(ctypes.c_uint16)]
+            lib.artraw_free.restype = None
+            _LIB = lib
         return _LIB
-    lib = hostbuild.load("artraw")
-    lib.artraw_decode_dng.restype = ctypes.POINTER(ctypes.c_uint16)
-    lib.artraw_decode_dng.argtypes = [
-        ctypes.c_char_p, ctypes.c_size_t, ctypes.POINTER(ArtRawMeta)]
-    lib.artraw_free.argtypes = [ctypes.POINTER(ctypes.c_uint16)]
-    lib.artraw_free.restype = None
-    _LIB = lib
-    return lib
 
 
 def decode_dng_bytes(data: bytes):

@@ -21,6 +21,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 import types
 from pathlib import Path
@@ -68,6 +69,9 @@ SIGNATURES = {
 }
 
 _lib = None
+# first use from several threads (the batch queue's device workers)
+# builds and loads once
+_lib_lock = threading.Lock()
 build_info: dict = {}
 
 
@@ -151,16 +155,18 @@ def library():
     """The loaded kernel libraries, built on first use: a namespace with
     one ctypes function per SIGNATURES entry."""
     global _lib
-    if _lib is None:
-        loaded = {stem: ctypes.CDLL(str(p)) for stem, p in build().items()}
-        fns = {}
-        for name, (stem, argtypes) in SIGNATURES.items():
-            fn = fns[name] = getattr(loaded[stem], name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        # the handles keep the libraries loaded
-        _lib = types.SimpleNamespace(handles=loaded, **fns)
-    return _lib
+    with _lib_lock:
+        if _lib is None:
+            loaded = {stem: ctypes.CDLL(str(p))
+                      for stem, p in build().items()}
+            fns = {}
+            for name, (stem, argtypes) in SIGNATURES.items():
+                fn = fns[name] = getattr(loaded[stem], name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            # the handles keep the libraries loaded
+            _lib = types.SimpleNamespace(handles=loaded, **fns)
+        return _lib
 
 
 def time_builds():

@@ -21,8 +21,9 @@ STAGE_3 = (
 )
 ALL_STEPS = STAGE_0 + STAGE_1 + STAGE_2 + STAGE_3
 
-PORTED = ("denoise", "dehaze", "toneequalizer", "impulse", "filmsim_pre",
-          "tonecurve", "filmsim_post", "localcontrast")
+PORTED = ("denoise", "dehaze", "chmixer", "exposure", "toneequalizer",
+          "impulse", "saturation", "filmsim_pre", "tonecurve",
+          "filmsim_post", "rgbcurves", "softlight", "localcontrast")
 
 # steps run by another step's module: the film simulation before and
 # after the tone curve

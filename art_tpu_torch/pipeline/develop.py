@@ -19,11 +19,16 @@ interleaved uint8 (`out_u8`). `data_to_torch` moves either planner's data
 to a device, so the reference's own plan can drive this runner.
 `develop` chains plan -> device -> `crop_result`, and `process_image`
 decodes a raw file, develops it and saves the result with its metadata.
+The staged pieces between them (`host_input`, `device_input`,
+`read_back`, with a reusable `PinnedBuffer` where the caller keeps one)
+are those of the batch queue (`parallel/queue.py`), so both give the
+same bytes.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 
 import numpy as np
@@ -114,22 +119,10 @@ def _op_active(name, pp):
         return bool(sp is not None and sp.enabled and sp.entries)
     if name == "filmneg":
         return pp.film_negative.enabled
-    if name in ("dehaze", "fattal"):
-        return getattr(pp, name).enabled
-    if name == "chmixer":
-        cm = pp.chmixer
-        return cm.enabled and (cm.mode != 0 or not np.allclose(
-            np.array([cm.red, cm.green, cm.blue], np.float64) / 1000.0,
-            np.eye(3)))
-    if name == "exposure":
-        e = pp.exposure
-        return e.enabled and (e.expcomp != 0 or e.black != 0)
+    if name == "fattal":
+        return pp.fattal.enabled
     if name == "hsl":
         return pp.hsl.enabled
-    if name == "toneequalizer":
-        te = pp.tone_equalizer
-        return te.enabled and any(
-            b != 0 for b in (te.band0, te.band1, te.band2, te.band3, te.band4))
     if name == "sharpen":
         return pp.sharpening.enabled
     if name == "defringe":
@@ -152,18 +145,8 @@ def _op_active(name, pp):
             or ()))
     if name == "logenc":
         return pp.logenc.enabled
-    if name == "saturation":
-        s = pp.saturation
-        return s.enabled and (s.saturation != 0 or s.vibrance != 0)
-    if name in ("filmsim_pre", "filmsim_post"):
-        fs = pp.film_simulation
-        return bool(fs.enabled and fs.clut_filename)
-    if name == "rgbcurves":
-        return pp.rgb_curves.enabled
     if name == "labadj":
         return pp.lab_curve.enabled
-    if name == "softlight":
-        return pp.softlight.enabled and pp.softlight.strength > 0
     if name == "bw":
         return pp.bw.enabled
     return False  # dcplook_*: needs a DCP input profile (refused earlier)
@@ -229,11 +212,33 @@ def _check_raw_params(frame, pp):
         _unported(".badpixels file")
 
 
+def _has_jpeg_preview(path) -> bool:
+    """Whether the file holds an embedded preview whose bytes start as a
+    JPEG's, where the reference's `io/metadata.py::embedded_thumb` would
+    decode one. A file it cannot read or parse has none: the reference's
+    planner skips the matched curve on any failure of that step."""
+    from art_tpu_torch.io.metadata import harvest
+
+    try:
+        _, previews = harvest(path)
+        with open(path, "rb") as f:
+            for off, _ in previews:
+                f.seek(off)
+                if f.read(2) == b"\xff\xd8":
+                    return True
+    except Exception:
+        return False
+    return False
+
+
 def _check_geometry(frame, pp):
     tc = pp.tone_curve
+    # the reference derives a matched curve only from an embedded JPEG
+    # preview (develop.py:482-503); decoding one needs a JPEG decoder
     if (tc.histmatching and not tc.from_histmatching and frame.filename
-            and os.path.isfile(frame.filename)):
-        _unported("histogram-matched tone curve")
+            and _has_jpeg_preview(frame.filename)):
+        _unported("histogram-matched tone curve (the embedded JPEG "
+                  "preview's decode, io/metadata.py::embedded_thumb)")
     if (int(pp.coarse.rotate // 90) % 4, bool(pp.coarse.hflip),
             bool(pp.coarse.vflip)) != (0, False, False):
         _unported("coarse rotate/flip")
@@ -587,19 +592,72 @@ def transfer_array(inp):
     return inp
 
 
-def upload(frame, device):
-    """The frame's mosaic padded to the planned shape, on `device`: u16
-    counts ship as u16 (half the bytes of f32) and widen there."""
+class PinnedBuffer:
+    """A reusable page-locked host buffer, grown to the largest request:
+    the source of an asynchronous host-to-device copy and the target of an
+    asynchronous readback. Pinning 48-72 MB anew for each 24 MP image
+    would cost more than the copy."""
+
+    def __init__(self):
+        self._bytes = None
+
+    def view(self, dtype, shape):
+        """The buffer's first bytes as a contiguous tensor of this dtype
+        and shape."""
+        n = math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+        if self._bytes is None or self._bytes.numel() < n:
+            self._bytes = torch.empty(n, dtype=torch.uint8, pin_memory=True)
+        return self._bytes[:n].view(dtype).view(shape)
+
+
+def host_input(frame):
+    """The frame's mosaic padded to the planned shape, as the host array
+    that goes to the device: decoded u16 counts as an int16 view (half
+    the bytes of f32; torch's uint16 has few kernels, so the program's
+    input widens it back, `device_input`), else float32."""
     inp, _ = pad_to_multiple(frame.cfa, PAD_MULTIPLE)
     if frame.integral:  # decoded u16 counts
         inp = transfer_array(inp)
     inp = np.ascontiguousarray(inp)
     if inp.dtype == np.uint16:
-        # torch's uint16 has few kernels, so widen from an int16 view on
-        # the device
-        dev_inp = torch.from_numpy(inp.view(np.int16)).to(device)
-        return dev_inp.to(torch.int32) & 0xFFFF
-    return torch.from_numpy(inp).to(device)
+        inp = inp.view(np.int16)
+    return inp
+
+
+def device_input(host, device, pinned=None):
+    """`host_input`'s array on `device`. With `pinned` (a PinnedBuffer)
+    the array is staged there and copied with non_blocking=True on the
+    current stream: the caller may refill the buffer only after that
+    copy (an event recorded after this call). u16 counts widen from their
+    int16 view on the device, bit for bit."""
+    src = torch.from_numpy(host)
+    if pinned is not None:
+        stage = pinned.view(src.dtype, src.shape)
+        stage.copy_(src)
+        dev = stage.to(device, non_blocking=True)
+    else:
+        dev = src.to(device)
+    if dev.dtype == torch.int16:
+        return dev.to(torch.int32) & 0xFFFF
+    return dev
+
+
+def upload(frame, device):
+    """The frame's mosaic padded to the planned shape, on `device`
+    (`host_input` -> `device_input`)."""
+    return device_input(host_input(frame), device)
+
+
+def read_back(out, pinned=None):
+    """A device output (cropped by `crop_result`) on the host: into
+    `pinned` (a PinnedBuffer) with non_blocking=True on the current
+    stream, which the caller synchronises before reading it, or as a
+    host tensor at once."""
+    if pinned is None:
+        return out.cpu()
+    host = pinned.view(out.dtype, tuple(out.shape))
+    host.copy_(out, non_blocking=True)
+    return host
 
 
 def develop(frame, pp, device="cuda", out_u8=False):
@@ -691,7 +749,7 @@ def process_image(path_or_frame, pp, fast=False, output_path=None,
     del inp, data_d
     _sync(device)
     t = _tick("device program", t)
-    out = crop_result(out, config).cpu().numpy()
+    out = read_back(crop_result(out, config)).numpy()
     t = _tick("D2H", t)
     fire_autos(listener, auto_report)
     notify(listener, "develop")

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import json
 import os
+import threading
 
 DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "data", "camconst.json")
@@ -146,13 +147,16 @@ class CameraConstantsStore:
 
 
 _instance: CameraConstantsStore | None = None
+# the batch queue's host threads plan at once: the store loads once
+_instance_lock = threading.Lock()
 
 
 def get_instance() -> CameraConstantsStore:
     """The store, loaded from the bundled data on first use."""
     global _instance
-    if _instance is None:
-        store = CameraConstantsStore()
-        store.load_json(DATA)
-        _instance = store
-    return _instance
+    with _instance_lock:
+        if _instance is None:
+            store = CameraConstantsStore()
+            store.load_json(DATA)
+            _instance = store
+        return _instance

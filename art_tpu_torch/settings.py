@@ -1,11 +1,13 @@
 """Engine settings (a copy of the fields of ``art_tpu/settings.py`` that
 the port reads): the develop pipeline's pad multiple, and the `Settings`
 singleton of the export path (``pipeline/develop.py::process_image``,
-``cli.py``) and the film simulation's LUT directory."""
+``cli.py``), the batch queue's host threads (``parallel/queue.py``) and
+the film simulation's LUT directory."""
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 # Pad images to multiples of this tile edge; the planned shape and the
 # per-row level patterns follow it, as in the reference.
@@ -16,6 +18,9 @@ PAD_MULTIPLE = 128
 class Settings:
     # per-phase timings of process_image on stdout (ART-cli's -V)
     verbose: bool = False
+    # Host threads of the batch queue's decode/plan pool and of its encode
+    # pool (the reference sizes its ThreadPool to nproc-1, init.cc:66-73)
+    host_threads: int = max(1, (os.cpu_count() or 2) - 1)
     # Directory with user camconst overrides, dark frames, flat fields and
     # external image IO configs (<user_dir>/imageio).
     user_dir: str | None = None

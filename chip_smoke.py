@@ -60,6 +60,18 @@ flagship from a DNG of the flagship frame with the bundled profile and a
 second one that turns the denoise on at 20/20 (B1, B2, B3, B4 and B7,
 one launch each), timed the same way, its u8 output equal to the u8 cast
 of the float develop on the card, and each JPEG's markers well formed.
+Then config 5, the batch queue (`art_tpu_torch.parallel.process_batch`
+over every CUDA device, one worker each): 64 jobs of a 4000x6000 RGGB
+DNG from seed 3 as tools/bench_configs.py writes it (uncompressed,
+hardlinked per job), AMaZE and denoise at luminance 20, to JPEGs, after
+a warm run of 2, with the window of the reference's one-chip run
+(prefetch 8): images/s, the stages' worker-seconds, the frames held
+against the window, the device's busy share (torch.profiler over 16
+jobs) and 16 jobs at the default window; B1-B4 64 launches each and no
+other, every JPEG well formed, job 0's scan byte-equal to
+process_image's. Then a mixed catalog of 10 jobs (the four bundled
+profiles and USER_ARP, which turns on the five pointwise ops), B7 once
+per Neutral-curve job, and USER_ARP's 512x2048 develop against the CPU.
 Then one JSON line of per-kernel results (time, plain time, bound) and
 last the line {"ok": true, "device": {...}}. Any failure raises
 (non-zero exit, no result lines); so does a machine without CUDA.
@@ -205,6 +217,49 @@ def config4_pp(cube, pp=None):
     pp.film_simulation.enabled = True
     pp.film_simulation.clut_filename = cube
     pp.apply_arp_text("[Local Contrast]\nEnabled=true\nContrast_1=30\n")
+    return pp
+
+
+# a user profile that turns on the five pointwise ops: exposure, the
+# channel mixer (RGB matrix mode, off-diagonal terms), saturation with
+# vibrance, a non-linear red RGB curve and soft light (keys as
+# art_tpu/params/procparams.py spells them)
+USER_ARP = """[Exposure]
+Compensation=0.5
+
+[Channel Mixer]
+Enabled=true
+Mode=0
+Red=1100;-60;-40
+Green=-30;1050;-20
+Blue=-20;-80;1100
+
+[Saturation]
+Enabled=true
+Saturation=15
+Vibrance=10
+
+[RGB Curves]
+Enabled=true
+rCurve=1;0;0;0.25;0.2;0.5;0.56;0.75;0.8;1;1;
+
+[SoftLight]
+Enabled=true
+Strength=30
+"""
+
+
+def config5_pp(pp=None):
+    """Config 5's job (tools/bench_configs.py's config 5) set on pp (either
+    package's ProcParams; default a fresh one of this package's): AMaZE,
+    denoise at luminance 20 with the default (automatic) chrominance."""
+    if pp is None:
+        from art_tpu_torch.params import ProcParams
+
+        pp = ProcParams()
+    pp.raw.bayer.method = "amaze"
+    pp.denoise.enabled = True
+    pp.denoise.luminance = 20.0
     return pp
 
 
@@ -763,10 +818,11 @@ def cli_timed(label, argv, runs=3):
     return med
 
 
-def check_jpeg(path):
+def check_jpeg(path, quiet=False):
     """The file's markers are well formed: SOI, DQT, SOF0, DHT and SOS in
     that order (APPn where they may be), a scan whose every 0xFF byte is
-    stuffed, and EOI."""
+    stuffed, and EOI. Returns the file from its SOS marker to EOI (the
+    scan with its header)."""
     data = open(path, "rb").read()
     if data[:2] != b"\xff\xd8" or data[-2:] != b"\xff\xd9":
         raise RuntimeError(f"{path}: no SOI/EOI")
@@ -775,6 +831,7 @@ def check_jpeg(path):
         if data[pos] != 0xFF:
             raise RuntimeError(f"{path}: no marker at byte {pos}")
         markers.append(data[pos + 1])
+        sos = pos
         pos += 2 + int.from_bytes(data[pos + 2: pos + 4], "big")
         if markers[-1] == 0xDA:
             break
@@ -785,8 +842,10 @@ def check_jpeg(path):
     if body != want or scan[-1] == 0xFF or (scan[ff + 1] != 0).any():
         raise RuntimeError(f"{path}: markers {[hex(m) for m in markers]}, "
                            "or an unstuffed 0xFF in the scan")
-    log(f"  {os.path.basename(path)}: {len(data)} bytes, markers "
-        + " ".join(hex(m) for m in markers) + " ... 0xd9: well formed")
+    if not quiet:
+        log(f"  {os.path.basename(path)}: {len(data)} bytes, markers "
+            + " ".join(hex(m) for m in markers) + " ... 0xd9: well formed")
+    return data[sos:]
 
 
 def readback(frame, pp):
@@ -905,6 +964,177 @@ def cli_phase(smi_line, tmp):
                            "of the float develop")
     log(f"flagship u8 output {u8.shape} equals the u8 cast of the float "
         "develop, on the card")
+
+
+def batch_counts(label, jobs, want, prefetch):
+    """One `process_batch` of jobs over every CUDA device with the counts
+    from 0: checks that every job succeeded, that each kernel launched as
+    `want` says and no plain version ran, and that the frames held stayed
+    within the window. Returns (stats, wall seconds)."""
+    from art_tpu_torch.parallel import process_batch
+
+    reset_counts()
+    stats = {}
+    t0 = time.monotonic()
+    oks = process_batch(jobs, prefetch=prefetch, stats=stats)
+    wall = time.monotonic() - t0
+    launches, plain_calls = read_counts()
+    log(f"{label}: {len(jobs)} jobs in {wall:.3f} s, "
+        f"{len(jobs) / wall:.4f} images/s; {sum(oks)} True; launches "
+        f"{launches}; plain calls {plain_calls}; peak in flight "
+        f"{stats['peak_in_flight']} of window {stats['window']}")
+    log("  stage worker-seconds: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in stats["stage_seconds"].items())
+        + "; per image: " + ", ".join(
+            f"{k} {1e3 * v / len(jobs):.1f} ms"
+            for k, v in stats["stage_seconds"].items()))
+    if not all(oks):
+        raise RuntimeError(f"{label}: jobs failed: "
+                           f"{[i for i, ok in enumerate(oks) if not ok]}")
+    if launches != want or any(plain_calls.values()):
+        raise RuntimeError(f"{label}: launches {launches}, want {want}; "
+                           f"plain calls {plain_calls}")
+    if stats["peak_in_flight"] > stats["window"]:
+        raise RuntimeError(f"{label}: frames held beyond the window: "
+                           f"{stats}")
+    return stats, wall
+
+
+def device_busy(run):
+    """(device busy seconds, wall seconds) of run(), from torch.profiler:
+    every device activity (kernels and copies) of the process, whichever
+    thread launched it, as profile_develop counts it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        run()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type != DeviceType.CPU
+                  and not e.key.startswith("art:"))
+    return busy_us / 1e6, wall
+
+
+# the bundled profiles of the mixed catalog, with the Neutral tone curve
+# (kernel B7) or not
+BUNDLED = {"Auto-Matched Curve.arp": False, "Neutral.arp": False,
+           "Punchy.arp": True, "Standard Film Curve.arp": True}
+
+
+def config5_phase(smi_line, tmp):
+    """Config 5, the batch queue (`parallel.queue.process_batch` over
+    every CUDA device): (a) 64 jobs of config 5's 24 MP DNG to JPEGs,
+    after a warm run of 2: images/s, stage seconds, the frames held
+    against the window, the device's busy share; launches, markers and
+    job 0's scan against process_image's. (b) A mixed catalog of 10 jobs:
+    the four bundled profiles and USER_ARP, two each; B7 once per
+    Neutral-curve job. Returns the user profile's 512x2048 develop, card
+    against the CPU."""
+    from art_tpu_torch.io.dngwrite import write_dng
+    from art_tpu_torch.io.rawfile import load_raw
+    from art_tpu_torch.params import ProcParams
+    from art_tpu_torch.pipeline import develop as tdev
+    from art_tpu_torch.settings import settings
+
+    log(f"---- config 5, the batch queue ({smi_line}; "
+        f"{torch.cuda.device_count()} CUDA device(s), host threads "
+        f"{settings.host_threads} + {settings.host_threads}, "
+        f"{os.cpu_count()} cores)")
+    # config 5's DNG as tools/bench_configs.py writes it, uncompressed
+    # (the numpy LJ92 encoder would take most of a minute at this size),
+    # hardlinked once per job
+    t0 = time.monotonic()
+    src = os.path.join(tmp, "c5_0.dng")
+    m = (np.random.default_rng(3).uniform(0.05, 0.9, FRAME) * 16000
+         + 500).astype(np.uint16)
+    write_dng(src, m, black=500, white=16500, compress=False)
+    del m
+    paths = [src]
+    for i in range(1, 64):
+        paths.append(os.path.join(tmp, f"c5_{i}.dng"))
+        os.link(src, paths[-1])
+    log(f"config 5 DNG {FRAME[0]}x{FRAME[1]} written and linked 64 times "
+        f"in {time.monotonic() - t0:.2f} s")
+    config, _ = tdev.plan(load_raw(src), config5_pp(), out_u8=True)
+    if ([s[0] for s in config.steps] != ["denoise"]
+            or tdev.fusion_gates(config) != (True, False)):
+        raise RuntimeError(f"config 5 plans {config.steps}, gates "
+                           f"{tdev.fusion_gates(config)}")
+    jobs = [(p, config5_pp(), os.path.join(tmp, f"c5_out_{i}.jpg"))
+            for i, p in enumerate(paths)]
+    want = {k: 64 * (k in ("b1", "b2", "b3", "b4")) for k in counted()}
+    # the window of the reference's run on one chip (device_batch 4:
+    # max(4 + 1, 2 * 4) = 8 frames), and the default (prefetch 2)
+    prefetch = 8
+    batch_counts("config 5 warm run",
+                 jobs[:2], {k: 2 * (v > 0) for k, v in want.items()},
+                 prefetch)
+    stats, wall = batch_counts(
+        f"config 5 ({FRAME[0]}x{FRAME[1]}, AMaZE, denoise 20, sRGB JPEG; "
+        f"prefetch {prefetch})", jobs, want, prefetch)
+    log(f"  device stream share of the wall (the device stage's CUDA-event "
+        f"span over wall time): {stats['stage_seconds']['device'] / wall:.4f}")
+    scans = [check_jpeg(j[2], quiet=True) for j in jobs]
+    sizes = [os.path.getsize(j[2]) for j in jobs]
+    log(f"  all 64 JPEGs well formed ({min(sizes)}-{max(sizes)} bytes)")
+    ref = os.path.join(tmp, "c5_single.jpg")
+    tdev.process_image(src, config5_pp(), output_path=ref)
+    if scans[0] != check_jpeg(ref, quiet=True):
+        raise RuntimeError("config 5: job 0's scan differs from "
+                           "process_image's")
+    if any(sc != scans[0] for sc in scans):
+        raise RuntimeError("config 5: the jobs of one file wrote different "
+                           "scans")
+    log("  job 0's scan (SOS to EOI) equals process_image's, byte for "
+        "byte; every job's scan equals job 0's")
+    busy, pwall = device_busy(lambda: batch_counts(
+        "config 5 under torch.profiler, 16 jobs", jobs[:16],
+        {k: 16 * (v > 0) for k, v in want.items()}, prefetch))
+    log(f"  profiled 16 jobs: device busy {busy:.3f} s of {pwall:.3f} s "
+        f"wall, busy share {busy / pwall:.4f}")
+    batch_counts("config 5 at the default window (prefetch 2), 16 jobs",
+                 jobs[:16], {k: 16 * (v > 0) for k, v in want.items()}, 2)
+    for j in jobs:
+        os.unlink(j[2])
+
+    # (b) the mixed catalog: the bundled profiles and the user profile
+    prof_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "art_tpu_torch", "data", "profiles")
+    user = os.path.join(tmp, "user.arp")
+    with open(user, "w") as f:
+        f.write(USER_ARP)
+    mixed = []
+    for k in range(10):
+        name = (sorted(BUNDLED) + ["user.arp"])[k % 5]
+        pp = ProcParams()
+        with open(user if name == "user.arp"
+                  else os.path.join(prof_dir, name)) as f:
+            pp.apply_arp_text(f.read())
+        mixed.append((paths[k], pp, os.path.join(tmp, f"mixed_{k}.jpg")))
+    neutral = 2 * sum(BUNDLED.values())
+    batch_counts("mixed catalog (the four bundled profiles and the user "
+                 "profile, two jobs each)", mixed,
+                 {k: {"b1": 10, "b2": 10, "b3": 10, "b7": neutral}.get(k, 0)
+                  for k in counted()}, prefetch)
+    for j in mixed:
+        check_jpeg(j[2], quiet=True)
+    log(f"  all 10 JPEGs well formed; B7 launched once per Neutral-curve "
+        f"job ({neutral})")
+
+    pp = ProcParams()
+    pp.apply_arp_text(USER_ARP)
+    small = flagship_frame(*SMALL, seed=5)
+    cfg, _ = tdev.plan(small, pp)
+    g = tdev.develop(small, pp).cpu()
+    c = tdev.develop(small, pp, device="cpu")
+    st = parity(g, c)
+    log(f"{SMALL[0]}x{SMALL[1]} user profile develop "
+        f"({[s[0] for s in cfg.steps]}), card vs CPU plain path: {st}")
+    return st
 
 
 def main():
@@ -1162,6 +1392,10 @@ def main():
     # ---- the CLI: config 1 and the flagship, file in, JPEG out
     with tempfile.TemporaryDirectory() as tmp:
         cli_phase(smi_line, tmp)
+
+    # ---- config 5: the batch queue over a 24 MP catalog, then a mixed one
+    with tempfile.TemporaryDirectory() as tmp:
+        new_stats["user-profile"] = config5_phase(smi_line, tmp)
 
     failures = [f"B6 on {k} disagrees with its plain version"
                 for k, ok in b6_edges.items() if not ok]

@@ -2,7 +2,8 @@
 `jaxlib` and `art_tpu` import plans and develops the flagship frame (AMaZE
 and bilinear) and config 3 (RCD, non-fused denoise, impulse); another
 that also refuses `PIL` and `cv2` (absent on the card's machine) runs
-`cli.main` from a DNG to a JPEG; no source file of the package, nor
+`cli.main` from a DNG to a JPEG, and through the batch queue with
+`--devices 2`; no source file of the package (`parallel/` among them), nor
 chip_smoke.py, imports any of them or reads a file under art_tpu/; and
 the port's copies of the reference's host modules (profiles, colour-space
 tables, camera constants, output TRCs) hold the reference's values.
@@ -102,6 +103,15 @@ assert rc == 0, rc
 data = open(os.path.join(d, "out.jpg"), "rb").read()
 assert data[:2] == b"\xff\xd8" and data[-2:] == b"\xff\xd9"
 assert os.path.isfile(os.path.join(d, "out.jpg.arp"))
+# the batch queue, two workers on the CPU
+os.makedirs(os.path.join(d, "batch"))
+rc = cli.main(["-p", os.path.join(d, "bilinear.arp"), "-o",
+               os.path.join(d, "batch") + os.sep, "--devices", "2", "-c",
+               os.path.join(d, "in.dng"), os.path.join(d, "out.jpg.arp")],
+              device="cpu")
+assert rc == 2, rc  # the .arp is no raw file: its job fails alone
+assert open(os.path.join(d, "batch", "in.jpg"), "rb").read()[:2] == \
+    b"\xff\xd8"
 assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
 print("CLI-STANDALONE-OK")
 '''
@@ -143,6 +153,9 @@ REF_PATH = re.compile(r"""["']art_tpu["']\s*,|art_tpu/data""")
 
 
 def test_no_source_file_imports_jax():
+    scanned = {os.path.relpath(p, REPO) for p in _port_sources()}
+    for name in ("__init__.py", "queue.py", "dryrun.py"):
+        assert os.path.join("art_tpu_torch", "parallel", name) in scanned
     offenders = []
     for path in _port_sources():
         with open(path) as fh:

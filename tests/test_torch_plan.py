@@ -125,7 +125,8 @@ def _set(pp, path, value):
     ({"tone_curve.curve_mode": "Standard",
       "tone_curve.curve_mode2": "Standard"}, "tone curve mode"),
     ({"resize.enabled": True}, "resize"),
-    ({"exposure.expcomp": 1.0}, "exposure"),
+    # exposure compensation is ported; its highlight recovery is not
+    ({"exposure.hrmode": "Blend"}, "highlight recovery"),
     ({"icm.output_profile": "{tmp}/out.icc"}, "ICC"),
     ({"denoise.luminance_detail": 30}, "DCT"),
     ({"icm.output_profile": "ProPhoto", "tone_curve.enabled": False},

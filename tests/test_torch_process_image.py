@@ -16,9 +16,10 @@ JPEGs here; the port imports no PIL).
   the port's float develop, exactly.
 - `cli.main` of both packages with -p and -O: the JPEGs agree as above
   and the .arp copies parse to equal ProcParams.
-- What the slice does not port (-q, --devices 2 over two files,
-  --gamut-warn, --check-lut, a non-raw input, a histogram listener)
-  exits 2, or raises, naming its step.
+- What the slice does not port (-q, --gamut-warn, --check-lut on a
+  Hald CLUT image, a non-raw input, a histogram listener) exits 2, or
+  raises, naming its step. (--devices N over several files runs the
+  batch queue: tests/test_torch_queue.py.)
 - The port's copies of the app options reader and the profile store
   read as the reference's.
 """
@@ -181,16 +182,12 @@ def test_cli_matches_the_reference(dng, config1_outputs, tmp_path,
 @pytest.mark.parametrize("args,step", [
     (["-q"], "fast export / resize"),
     (["--gamut-warn", "sRGB"], "color/gamutwarning.py"),
-    (["--devices", "2"], "parallel/queue.py"),
 ])
 def test_cli_refusals(dng, tmp_path, capsys, args, step):
     from art_tpu_torch import cli
 
-    inputs = [str(dng / "c1.dng")]
-    if "--devices" in args:  # the batch path takes several files
-        inputs.append(str(dng / "c1.dng"))
     rc = cli.main(["-Y", "-o", str(tmp_path) + os.sep, *args, "-c",
-                   *inputs], device="cpu")
+                   str(dng / "c1.dng")], device="cpu")
     assert rc == 2
     assert step in capsys.readouterr().err
     assert not list(tmp_path.glob("*.jpg"))
@@ -199,7 +196,9 @@ def test_cli_refusals(dng, tmp_path, capsys, args, step):
 def test_cli_refuses_check_lut_and_non_raw(tmp_path, capsys):
     from art_tpu_torch import cli
 
-    assert cli.main(["--check-lut", str(tmp_path / "a.cube")]) == 2
+    # a Hald CLUT image: its loader (an image decoder) is not ported
+    (tmp_path / "hald.png").write_bytes(b"\x89PNG\r\n\x1a\n")
+    assert cli.main(["--check-lut", str(tmp_path / "hald.png")]) == 2
     assert "color/lut3d.py" in capsys.readouterr().err
     (tmp_path / "photo.png").write_bytes(b"\x89PNG\r\n\x1a\n")
     rc = cli.main(["-Y", "-c", str(tmp_path / "photo.png")], device="cpu")
