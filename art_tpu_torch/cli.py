@@ -14,8 +14,9 @@ batch queue (``parallel/queue.py::process_batch``) over the first N
 visible CUDA devices, as the reference takes its first N devices; as
 there, its outputs carry no metadata. ``--check-lut <file>`` exits 0 if
 the LUT loads, 1 if it does not, and 2 for a format whose loader is not
-ported (a Hald CLUT image). Not ported, and refused per file with exit
-code 2: ``-q`` (fast export / resize) and ``--gamut-warn``
+ported (a Hald CLUT image). ``-q`` is the fast export: a resize to the
+Options' fast-export box right after the raw stage. Not ported, and
+refused per file with exit code 2: ``--gamut-warn``
 (``color/gamutwarning.py``). `main` develops on the card unless its
 caller passes ``device="cpu"`` (with ``--devices N``: N workers on the
 CPU).

@@ -147,18 +147,28 @@ def srgb_gamma_torch(x):
 
 
 def check_trc(trc):
-    """Refuse an output TRC whose encode is not ported."""
-    if trc[0] in ("gamma", "para", "cheb", "lut", "icclut"):
+    """Refuse an output TRC whose encode is not ported: the kinds that
+    only ICC profile files give (para, cheb, lut, icclut)."""
+    if trc[0] in ("para", "cheb", "lut", "icclut"):
         raise NotImplementedError(f"output TRC {trc[0]!r} is not ported")
+
+
+def pure_gamma(x, g):
+    """max(x, 0)^g of a tensor (colorspaces.py::pure_gamma), the exponent
+    a float32 as under JAX."""
+    return torch.pow(torch.clamp(x, min=0.0), float(np.float32(g)))
 
 
 def encode_trc(x, trc):
     """Output TRC encode of a tensor (colorspaces.py::encode_trc): sRGB
-    through the device fit; kinds without a matched branch clip to
-    [0, 1] as the reference's default does ("linear" among them). For a
-    TRC that `check_trc` admits (the pipeline checks it at build time)."""
+    through the device fit, a pure gamma (Adobe RGB, ProPhoto) as
+    clip(x, 0, 1)^(1/g); kinds without a matched branch clip to [0, 1]
+    as the reference's default does ("linear" among them). For a TRC
+    that `check_trc` admits (the pipeline checks it at build time)."""
     if trc[0] == "srgb":
         return srgb_gamma_torch(x)
+    if trc[0] == "gamma":
+        return pure_gamma(torch.clamp(x, 0.0, 1.0), 1.0 / trc[1])
     return torch.clamp(x, 0.0, 1.0)
 
 

@@ -2,7 +2,8 @@
 
 `fdiv` divides by a tensor: PyTorch's CUDA division by a Python scalar
 multiplies by the scalar's reciprocal, which rounds differently from an
-IEEE division. `cbrt` stands in for `jnp.cbrt`, which PyTorch lacks.
+IEEE division; `rdiv` divides a scalar by a tensor, which PyTorch
+rounds as a reciprocal and a product. `cbrt` stands in for `jnp.cbrt`, which PyTorch lacks.
 `mat3` applies a 3x3 matrix as explicit multiply-adds.
 """
 
@@ -31,3 +32,9 @@ def cbrt(t):
     (np.cbrt on float32, itself up to 2 ulps off it, is within 2)."""
     y = torch.pow(t, 1.0 / 3.0)
     return y - fdiv(y - t / (y * y), 3.0)
+
+
+def rdiv(a, b):
+    """a / b as an IEEE float division for a Python scalar a and a tensor
+    b (PyTorch's `a / b` multiplies by b's reciprocal instead)."""
+    return torch.full_like(b, a) / b

@@ -22,7 +22,7 @@ STAGE_3 = (
 ALL_STEPS = STAGE_0 + STAGE_1 + STAGE_2 + STAGE_3
 
 PORTED = ("denoise", "dehaze", "chmixer", "exposure", "toneequalizer",
-          "impulse", "saturation", "filmsim_pre", "tonecurve",
+          "sharpen", "impulse", "saturation", "filmsim_pre", "tonecurve",
           "filmsim_post", "rgbcurves", "softlight", "localcontrast")
 
 # steps run by another step's module: the film simulation before and

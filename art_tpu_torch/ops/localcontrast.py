@@ -34,7 +34,7 @@ def plan(pp, ctx):
     regions = regions_from_extra(pp, GROUP, FIELDS)
     if not regions:
         return None
-    h, w = ctx["frame"].shape
+    h, w = ctx.get("op_dims") or ctx["frame"].shape
     ws = cs.MATRICES_RGB_TO_XYZ[ctx["working_profile"]]
     data = {"ws": ws.astype(np.float32), "lum_w": ws[1].astype(np.float32)}
     statics = []

@@ -14,8 +14,8 @@ Group/key names match the reference KeyFile so an existing ART
 ``options`` file loads as-is. ``load_options()`` also forwards the
 engine-relevant values into :data:`art_tpu_torch.settings.settings` the same
 way ``Options::readFromFile`` fills ``rtSettings``: of them the port's
-settings carry ``verbose`` alone (dark frames, flat fields, CLUTs and
-lensfun are not ported).
+settings carry ``verbose``, the CLUT directory and the lensfun database
+directory (dark frames and flat fields are not ported).
 """
 
 from __future__ import annotations
@@ -139,6 +139,8 @@ class Options:
             settings.verbose = True
         if self.cluts_directory:
             settings.cluts_dir = self.cluts_directory
+        if self.lensfun_db_directory:
+            settings.lensfun_db_dir = self.lensfun_db_directory
 
 
 def config_dir() -> str:

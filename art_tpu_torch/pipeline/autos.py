@@ -1,8 +1,9 @@
 """Automatic adjustments run at plan time (counterpart of
 ``art_tpu/pipeline/autos.py``).
 
-Host numpy. Only the automatic chrominance estimate is ported; it is a
-copy of the reference's `auto_chroma_params`.
+Host numpy. Ported: the automatic chrominance estimate and the RL
+sharpening radius, copies of the reference's `auto_chroma_params` and
+`deconv_auto_radius`.
 """
 
 from __future__ import annotations
@@ -245,3 +246,53 @@ def auto_chroma_params(frame, pp, wb_mults=None):
         maxr = MinRMoy + (MinR - MinRMoy) * 0.66
     chrominance = chM / (autoNR * multip * adjustr)
     return float(chrominance), float(maxr), float(maxb)
+
+
+def deconv_auto_radius(frame, lower_limit=1000.0):
+    """The capture's gaussian blur radius for RL sharpening's
+    DeconvAutoRadius (art_tpu/pipeline/autos.py::deconv_auto_radius,
+    deconvautoradius.cc calcRadiusBayer): the largest ratio of diagonal
+    green neighbours away from near-clip sites, inverted through the
+    gaussian's adjacent-sample falloff; float64 numpy on the host. None
+    when it cannot be estimated."""
+    from art_tpu_torch.core.image import bayer_color_index
+
+    if frame.pattern is None or frame.cfa is None:
+        return None
+    cfa = np.asarray(frame.cfa, np.float64)
+    black = float(np.asarray(frame.black).mean())
+    white = float(np.asarray(frame.white).min())
+    x = np.maximum(cfa - black, 0.0)
+    clip_val = (white - black) * 0.95
+    mg = bayer_color_index(frame.pattern, cfa.shape) == 1
+
+    # clipped-neighborhood exclusion (3x3 dilation of near-clip pixels)
+    near_clip = x >= clip_val
+    nc = near_clip.copy()
+    for ax, sh in ((0, 1), (0, -1), (1, 1), (1, -1)):
+        nc |= np.roll(near_clip, sh, axis=ax)
+    nc |= np.roll(np.roll(near_clip, 1, 0), 1, 1)
+    nc |= np.roll(np.roll(near_clip, 1, 0), -1, 1)
+    nc |= np.roll(np.roll(near_clip, -1, 0), 1, 1)
+    nc |= np.roll(np.roll(near_clip, -1, 0), -1, 1)
+
+    max_ratio = 1.0
+    for dx in (-1, 1):
+        a = x[:-1, 1:-1]
+        b = x[1:, 1 + dx : x.shape[1] - 1 + dx]
+        valid = (mg[:-1, 1:-1] & mg[1:, 1 + dx : x.shape[1] - 1 + dx]
+                 & ~nc[:-1, 1:-1]
+                 & ~nc[1:, 1 + dx : x.shape[1] - 1 + dx])
+        hi = np.maximum(a, b)
+        lo = np.minimum(a, b)
+        valid &= (lo > 0) & (hi > lower_limit)
+        if valid.any():
+            r = (hi[valid] / lo[valid]).max()
+            max_ratio = max(max_ratio, float(r))
+    if max_ratio <= 1.0:
+        return None
+    # gaussian adjacent-sample falloff inversion (deconvautoradius.cc:90)
+    radius = float(np.sqrt((1.0 / (np.log(1.0 / max_ratio) / 2.0)) / -2.0))
+    if not np.isfinite(radius):
+        return None
+    return float(np.clip(radius, 0.4, 2.5))

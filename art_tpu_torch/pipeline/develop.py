@@ -7,14 +7,18 @@ NotImplementedError naming it. `build_run` returns the device program
 for a config, in the reference's order: u16 widen, black/scale; on a
 Bayer mosaic the hot/dead filter, green equilibration and raw CA
 correction; AMaZE (kernels B1-B3), RCD or bilinear demosaic, or an X-Trans
-method; the raw head (WB multipliers, clip, cam2work), fused into the
-denoise kernel B4 when the reference's `fuse_head` gate opens, else
-applied on its own; the op chain: the stage-0 denoise (B4, or B5 and B6
-on the non-fused path) and dehaze, the tone equalizer, the stage-2
-impulse denoise, the film simulation, the tone curve and local contrast;
-then the output transform (work2out, clip, TRC), fused into the
-Neutral tone-curve kernel B7 when the `fuse_tail` gate opens, else
-applied on its own; and for an 8-bit JPEG, the conversion to
+method; highlight recovery (ColorSoft, Color); the raw head (WB
+multipliers, Blend, clip, cam2work), fused into the denoise kernel B4
+when the reference's `fuse_head` gate opens, else applied on its own,
+with fast export's early Lanczos resize before its matrix; the stage-0
+ops: the denoise (B4, or B5 and B6 on the non-fused path, or their
+whole-plane versions below one tile) and dehaze; the coarse rotation
+and flips and the crop; the stage 1-3 ops: the tone equalizer,
+sharpening, impulse denoise, the film simulation, the tone curve and
+local contrast; the Lanczos resize and post-resize sharpening; then the
+output transform (work2out, clip, TRC), fused into the Neutral
+tone-curve kernel B7 when the `fuse_tail` gate opens, else applied on
+its own; and for an 8-bit JPEG, the conversion to
 interleaved uint8 (`out_u8`). `data_to_torch` moves either planner's data
 to a device, so the reference's own plan can drive this runner.
 `develop` chains plan -> device -> `crop_result`, and `process_image`
@@ -44,6 +48,7 @@ from art_tpu_torch.core.image import (MAXVAL, bayer_channel_masks,
 from art_tpu_torch.core.profile import span
 from art_tpu_torch.demosaic import PORTED as PORTED_DEMOSAICS
 from art_tpu_torch.masks import regions_from_extra
+from art_tpu_torch.ops.resize import apply_resize, resize_plan
 from art_tpu_torch.raw import preprocess as rawpre
 from art_tpu_torch.raw import wb as wbmod
 
@@ -104,10 +109,25 @@ _SMOOTHING_KEYS = {k.lower(): (k, "s", "") for k in (
     "Angle", "Curvature", "NumBlades")}
 
 
-def _op_active(name, pp):
-    """Whether an op the port lacks would plan a step (the reference ops'
-    own enable gates; the region ops through the reference's region
-    parsing, which reads only suffixed keys)."""
+def _spot_active(sp, frame):
+    """Whether a spot entry plans a window (ops/spot.py::plan): a radius,
+    and a window no larger than the frame."""
+    if sp is None or not sp.enabled or not sp.entries:
+        return False
+    h, w = frame.cfa.shape[-2:]
+    for e in sp.entries:
+        if e.radius <= 0:
+            continue
+        size = 2 * (int(math.ceil(e.radius * (1.0 + e.feather))) + 1) + 1
+        if size <= min(h, w):
+            return True
+    return False
+
+
+def _op_active(name, pp, frame):
+    """Whether an op the port lacks would plan a step: the host-side
+    enable gates of the reference ops' plans (the region ops through the
+    reference's region parsing, which reads only suffixed keys)."""
     extra = pp.extra or {}
 
     def group_on(group):
@@ -115,20 +135,31 @@ def _op_active(name, pp):
         return v is not None and str(v).lower() in ("true", "1", "yes")
 
     if name == "spot":
-        sp = getattr(pp, "spot", None)
-        return bool(sp is not None and sp.enabled and sp.entries)
+        return _spot_active(getattr(pp, "spot", None), frame)
     if name == "filmneg":
         return pp.film_negative.enabled
     if name == "fattal":
-        return pp.fattal.enabled
+        # alpha and beta must be positive (ops/fattal.py:28-36)
+        f = pp.fattal
+        alpha = 1.0 + (f.threshold * 0.9 / 100.0 if f.threshold < 0
+                       else f.threshold / 100.0)
+        beta = 1.0 - (f.amount * 0.3) / 100.0
+        return f.enabled and alpha > 0 and beta > 0
     if name == "hsl":
-        return pp.hsl.enabled
-    if name == "sharpen":
-        return pp.sharpening.enabled
+        from art_tpu_torch.color.curves import FlatCurve
+
+        h = pp.hsl
+        return h.enabled and not all(
+            FlatCurve(c, periodic=True).is_identity()
+            for c in (h.hcurve, h.scurve, h.lcurve))
     if name == "defringe":
         return pp.defringe.enabled
     if name == "colorcorrection":
-        return group_on("ColorCorrection")
+        # a region needs Mode_1, Slope_1 or A_1 (ops/colorcorrection.py:
+        # 49-50)
+        group = extra.get("ColorCorrection") or {}
+        return group_on("ColorCorrection") and any(
+            k in group for k in ("Mode_1", "Slope_1", "A_1"))
     if name == "smoothing":
         # film grain runs as the op's noise regions (ops/smoothing.py:52)
         return pp.grain.enabled or bool(
@@ -146,7 +177,15 @@ def _op_active(name, pp):
     if name == "logenc":
         return pp.logenc.enabled
     if name == "labadj":
-        return pp.lab_curve.enabled
+        # an identity L curve, a and b curves and no contrast, brightness
+        # or chromaticity plan nothing (ops/labadj.py:127-128)
+        from art_tpu_torch.color.curves import DiagonalCurve
+
+        lc = pp.lab_curve
+        return lc.enabled and bool(
+            lc.contrast or lc.brightness or lc.chromaticity != 0
+            or not all(DiagonalCurve(c).is_identity()
+                       for c in (lc.lcurve, lc.acurve, lc.bcurve)))
     if name == "bw":
         return pp.bw.enabled
     return False  # dcplook_*: needs a DCP input profile (refused earlier)
@@ -196,10 +235,8 @@ def _check_raw_params(frame, pp):
     if raw.ff_enabled and (raw.ff_autoselect or _is_file(raw.ff_file)
                            or (raw.ff_embedded and _is_file(frame.filename))):
         _unported("flat field / gain map")
-    if pp.lens_prof.method != "none":
+    if _lens_correction(frame, pp):
         _unported(f"lens profile {pp.lens_prof.method!r}")
-    if pp.exposure.enabled and pp.exposure.hrmode != "Off":
-        _unported(f"highlight recovery {pp.exposure.hrmode!r}")
     # a profile file that does not exist keeps the camera matrix, as in
     # the reference
     ip = pp.icm.input_profile
@@ -210,6 +247,32 @@ def _check_raw_params(frame, pp):
 
     if find_badpixels_for(frame.make, frame.model):
         _unported(".badpixels file")
+
+
+def _lens_correction(frame, pp) -> bool:
+    """Whether the reference would apply a lens correction: its raw
+    vignette (develop.py:321-358) or the geometry of its transform
+    (pipeline/transform.py:53-95). An LCP file that is set turns the
+    transform on; one that exists, the vignette. LcMode=exif applies
+    what `lens.exifcorr.for_frame` finds; lensfun needs a configured
+    database."""
+    lp = pp.lens_prof
+    geometry, vign = lp.use_dist or lp.use_ca, lp.use_vign
+    if lp.method == "lcp":
+        return bool(lp.lcp_file) and (geometry or (
+            vign and os.path.isfile(lp.lcp_file)))
+    if lp.method == "exif" and (geometry or vign):
+        from art_tpu_torch.lens.exifcorr import for_frame
+
+        corr = for_frame(frame)
+        return corr is not None and (
+            (lp.use_dist and corr.has_dist) or (lp.use_ca and corr.has_ca)
+            or (vign and corr.has_vign))
+    if lp.method in ("lfauto", "lfmanual") and (geometry or vign):
+        from art_tpu_torch.settings import settings
+
+        return bool(settings.lensfun_db_dir)
+    return False
 
 
 def _has_jpeg_preview(path) -> bool:
@@ -239,12 +302,14 @@ def _check_geometry(frame, pp):
             and _has_jpeg_preview(frame.filename)):
         _unported("histogram-matched tone curve (the embedded JPEG "
                   "preview's decode, io/metadata.py::embedded_thumb)")
-    if (int(pp.coarse.rotate // 90) % 4, bool(pp.coarse.hflip),
-            bool(pp.coarse.vflip)) != (0, False, False):
-        _unported("coarse rotate/flip")
-    if pp.distortion.enabled and (pp.distortion.auto_compute
-                                  or abs(pp.distortion.amount) > 1e-6):
-        _unported("distortion correction")
+    if pp.distortion.enabled:
+        if abs(pp.distortion.amount) > 1e-6:
+            _unported("distortion correction")
+        # the reference measures an amount against the embedded JPEG
+        # preview (lens/autos.py::auto_distortion_for, OpenCV)
+        if (pp.distortion.auto_compute and frame.filename
+                and _has_jpeg_preview(frame.filename)):
+            _unported("auto distortion (lens/autos.py::auto_distortion_for)")
     if pp.rotate.enabled and abs(pp.rotate.degree) > 1e-6:
         _unported("rotate")
     cac = pp.cacorrection
@@ -254,16 +319,6 @@ def _check_geometry(frame, pp):
     if pe.enabled and any(abs(v) > 1e-6 for v in (
             pe.horizontal, pe.vertical, pe.angle, pe.shear)):
         _unported("perspective")
-    if pp.crop.enabled:
-        h, w = frame.cfa.shape
-        cx = max(0, int(pp.crop.x + 0.5))
-        cy = max(0, int(pp.crop.y + 0.5))
-        cw = min(int(pp.crop.w + 0.5) if pp.crop.w > 0 else w, w - cx)
-        ch = min(int(pp.crop.h + 0.5) if pp.crop.h > 0 else h, h - cy)
-        if (cx, cy, cw, ch) != (0, 0, w, h):
-            _unported("crop")
-    if pp.resize.enabled:
-        _unported("resize")
 
 
 def _is_file(path) -> bool:
@@ -295,20 +350,102 @@ def _resolve_output_profile(name: str) -> str:
     return "sRGB"
 
 
-def plan(frame, pp, out_u8=False):
+def _resize_scale(pp, h, w, crop=None):
+    """resizeScale (develop.py::_resize_scale, ipresize.cc:226): the scale
+    factor by DataSpecified (0 scale, 1 width, 2 height, 3 fit box) of the
+    crop or the whole image (AppliesTo), 1 where it would upscale without
+    AllowUpscaling or is within 1e-5 of 1."""
+    rs = pp.resize
+    if not rs.enabled:
+        return 1.0
+    if crop is not None and rs.applies_to == "Cropped area":
+        refh, refw = crop[2], crop[3]
+    else:
+        refh, refw = h, w
+    ds = rs.data_specified
+    if ds == 1:
+        scale = rs.width / refw if rs.width > 0 else 1.0
+    elif ds == 2:
+        scale = rs.height / refh if rs.height > 0 else 1.0
+    elif ds == 3:  # fit box
+        sw = rs.width / refw if rs.width > 0 else 1.0
+        sh = rs.height / refh if rs.height > 0 else 1.0
+        scale = min(sw, sh)
+        if scale > 1.0 and not rs.allow_upscaling:
+            scale = 1.0
+    else:
+        scale = rs.scale
+    if abs(scale - 1.0) <= 1e-5:
+        return 1.0
+    if scale > 1.0 and not rs.allow_upscaling:
+        return 1.0
+    return scale
+
+
+def _map_tree(obj, fn):
+    if isinstance(obj, dict):
+        return {k: _map_tree(v, fn) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_map_tree(v, fn) for v in obj)
+    return fn(obj)
+
+
+def fit_op_planes(data, steps, dims, shape, late_crop, crop):
+    """The (H, W) planes of the stage 1-3 ops' data at the image they meet
+    (develop.py:625-662): edge-padded to the padded `shape` on the
+    late-crop path, else sliced to the crop window (ipf.setViewport).
+    dims is the image's (H, W) after coarse rotation."""
+    h, w = dims
+
+    def pad_plane(a):
+        if (isinstance(a, np.ndarray) and a.ndim >= 2
+                and a.shape[-2:] == (h, w) and a.shape[-2:] != tuple(shape)):
+            pad = [(0, 0)] * (a.ndim - 2) + [
+                (0, shape[0] - h), (0, shape[1] - w)]
+            return np.pad(a, pad, mode="edge")
+        return a
+
+    def crop_plane(a):
+        if (isinstance(a, np.ndarray) and a.ndim >= 2
+                and a.shape[-2:] == (h, w)):
+            cy, cx, ch, cw = crop
+            return np.ascontiguousarray(a[..., cy : cy + ch, cx : cx + cw])
+        return a
+
+    fn = pad_plane if late_crop else crop_plane if crop is not None else None
+    if fn is not None:
+        for name, _, stage in steps:
+            if stage > 0:
+                data[f"op:{name}"] = _map_tree(data[f"op:{name}"], fn)
+
+
+def plan(frame, pp, fast=False, out_u8=False):
     """ProcParams + frame -> (PipelineConfig, data) for the ported slice:
     a Bayer raw frame (hot/dead pixels, green equilibration, raw CA;
     AMaZE, RCD or bilinear/fast demosaic) or an X-Trans one, camera or
-    CustomMult white balance, the ported ops (`ops.PORTED`) to a matrix
-    output profile (the reference's plan with fast=False). out_u8 plans
-    the reference's device-side 8-bit output: interleaved (H, W, 3) uint8
-    in place of (3, H, W) float planes.
+    CustomMult white balance, highlight recovery, the ported ops
+    (`ops.PORTED`), coarse rotation and flips, the crop, the Lanczos
+    resize with post-resize sharpening, to a matrix output profile.
+    fast=True is the reference's fast export (-q), active only with a
+    resize: the demosaic downgrades, the image is resized right after
+    the raw stage and every later step runs at output scale. out_u8
+    plans the reference's device-side 8-bit output: interleaved
+    (H, W, 3) uint8 in place of (3, H, W) float planes.
     Anything else raises NotImplementedError."""
     if not frame.is_raw:
         _unported("non-raw input")
     if frame.cfa.ndim != 2 or (frame.pattern is None
                                and frame.xtrans is None):
         _unported("Foveon or monochrome raw")
+    fast = bool(fast and pp.resize.enabled)
+    if fast:
+        import copy
+
+        pp = copy.deepcopy(pp)
+        if pp.raw.xtrans.method.lower().startswith("3-pass"):
+            pp.raw.xtrans.method = "1-pass (medium)"
+        if pp.raw.bayer.method.lower() == "pixelshift":
+            pp.raw.bayer.method = "amaze"
     icc_working = pp.icm.working_profile
     if icc_working not in cs.MATRICES_RGB_TO_XYZ:
         icc_working = "Rec2020"
@@ -355,16 +492,84 @@ def plan(frame, pp, out_u8=False):
     hotdead, green_eq, ca_mode = _plan_raw_steps(frame, pp)
     _check_raw_params(frame, pp)
 
+    # highlight reconstruction (develop.py:363-380)
+    hl_mode = "Off"
+    if pp.exposure.enabled and pp.exposure.hrmode != "Off":
+        hl_mode = {"Blend": "blend", "Color": "inpaint",
+                   "ColorSoft": "opposed"}.get(pp.exposure.hrmode, "Off")
+    if hl_mode != "Off":
+        wb_cam = wbmod.wb_camera_multipliers(frame, wb_mults)
+        data["hl_scale_mul"] = splan["scale_mul"][:3].astype(np.float32)
+        data["hl_wb_cam"] = wb_cam.astype(np.float32)
+        data["hl_max"] = (splan["clmax"] * mults).astype(np.float32)
+
     rgb_cam, _, _ = frame.color_matrices()
     xyz_cam = cs.MATRICES_RGB_TO_XYZ["sRGB"] @ rgb_cam
     data["cam2work"] = (cs.MATRICES_XYZ_TO_RGB[icc_working]
                         @ xyz_cam).astype(np.float32)
+    do_clip = not (pp.exposure.enabled and pp.exposure.hrmode != "Off")
     _check_geometry(frame, pp)
 
+    # coarse rotation and flips: an odd quarter turn swaps the dims
+    coarse = (int(pp.coarse.rotate // 90) % 4, bool(pp.coarse.hflip),
+              bool(pp.coarse.vflip))
+    if coarse[0] % 2 == 1:
+        h, w = w, h
+
+    # fast export's early resize (develop.py:513-536): the scale of the
+    # whole rotated image, a target in sensor orientation (it runs before
+    # the coarse rotation); the crop then scales, and no final resize
+    early_resize = None
+    fast_scale = 1.0
+    if fast:
+        fast_scale = _resize_scale(pp, h, w)
+        if fast_scale != 1.0:
+            oh = int(h * fast_scale + 0.5)
+            ow = int(w * fast_scale + 0.5)
+            th, tw = (ow, oh) if coarse[0] % 2 == 1 else (oh, ow)
+            sh0, sw0 = (w, h) if coarse[0] % 2 == 1 else (h, w)
+            data["early_rows"], data["early_cols"] = resize_plan(
+                (sh0, sw0), (th, tw))
+            early_resize = (sh0, sw0, th, tw)
+            h, w = oh, ow
+
+    # crop, in rotated coordinates (develop.py:558-570)
+    crop = None
+    if pp.crop.enabled:
+        sf = fast_scale if early_resize is not None else 1.0
+        cx = max(0, int(pp.crop.x * sf + 0.5))
+        cy = max(0, int(pp.crop.y * sf + 0.5))
+        cw0 = int(pp.crop.w * sf + 0.5) if pp.crop.w > 0 else w
+        ch0 = int(pp.crop.h * sf + 0.5) if pp.crop.h > 0 else h
+        cw = min(cw0, w - cx)
+        ch = min(ch0, h - cy)
+        if (cx, cy, cw, ch) != (0, 0, w, h):
+            crop = (cy, cx, ch, cw)
+
+    # the final resize (develop.py:572-587)
+    resize_to = None
+    if pp.resize.enabled and early_resize is None:
+        scale_f = _resize_scale(pp, h, w, crop)
+        src_h = crop[2] if crop else h
+        src_w = crop[3] if crop else w
+        if scale_f != 1.0:
+            oh = max(32, int(src_h * scale_f + 0.5))
+            ow = max(32, int(src_w * scale_f + 0.5))
+            if (oh, ow) != (src_h, src_w):
+                resize_to = (oh, ow)
+                data["resize_rows"], data["resize_cols"] = resize_plan(
+                    (src_h, src_w), resize_to)
+
+    # with no geometry change, stages 1-3 run on the padded planes and
+    # the slice to true dims comes last (crop_result)
+    late_crop = (coarse == (0, False, False) and crop is None
+                 and early_resize is None)
+
+    ctx["op_dims"] = (h, w)
     steps = []
     for name in ops_pkg.ALL_STEPS:
         if name not in ops_pkg.PORTED:
-            if _op_active(name, pp):
+            if _op_active(name, pp, frame):
                 _unported(f"op {name!r}")
             continue
         planned = ops_pkg.plan_step(name, pp, ctx)
@@ -373,6 +578,16 @@ def plan(frame, pp, out_u8=False):
         static, op_data = planned
         steps.append((name, tuple(static), ops_pkg.stage_of(name)))
         data[f"op:{name}"] = op_data
+    fit_op_planes(data, steps, (h, w), shape, late_crop, crop)
+
+    # post-resize sharpening (develop.py:664-672)
+    prsharp = None
+    if resize_to is not None and pp.pr_sharpening.enabled:
+        from art_tpu_torch.ops import sharpen
+
+        planned = sharpen.plan_pr(pp, ctx)
+        if planned is not None:
+            prsharp, data["op:prsharpen"] = planned
 
     out_prof = _resolve_output_profile(pp.icm.output_profile)
     out_mat = cs.MATRICES_RGB_TO_XYZ[out_prof]
@@ -386,16 +601,22 @@ def plan(frame, pp, out_u8=False):
         xtrans=frame.xtrans,
         is_raw=True,
         demosaic_method=method,
-        do_clip=True,
+        do_clip=do_clip,
         working_profile=icc_working,
         out_trc=out_trc,
         shape=tuple(shape),
         orig_shape=(h, w),
         steps=tuple(steps),
-        late_crop=True,
+        late_crop=late_crop,
+        crop=crop,
+        resize_to=resize_to,
+        early_resize=early_resize,
+        prsharp=prsharp,
+        coarse=coarse,
         ca_mode=ca_mode,
         hotdead=hotdead,
         green_eq=green_eq,
+        hl_mode=hl_mode,
         dem_kwargs=tuple(dem_kwargs),
         out_u8=bool(out_u8),
     )
@@ -427,17 +648,15 @@ def _check_config(config):
     if not config.is_raw or (config.pattern is None
                              and config.xtrans is None):
         _unported("non-raw, Foveon or monochrome input")
-    for field, want in (("do_clip", True), ("late_crop", True),
-                        ("crop", None),
-                        ("resize_to", None), ("early_resize", None),
-                        ("coarse", (0, False, False)), ("transform", False),
-                        ("badpix_file", False),
-                        ("hl_mode", "Off"), ("pdaf", False), ("dcp", None),
+    for field, want in (("transform", False), ("badpix_file", False),
+                        ("pdaf", False), ("dcp", None),
                         ("icc_input_trc", None), ("pixelshift", False),
                         ("darkframe", False), ("flatfield", None),
                         ("gainmap", False)):
         if getattr(config, field) != want:
             _unported(f"pipeline config {field}={getattr(config, field)!r}")
+    if config.hl_mode not in ("Off", "blend", "opposed", "inpaint"):
+        _unported(f"highlight recovery {config.hl_mode!r}")
     if config.linedn[0] > 0 and config.pattern is not None:
         _unported("CFA line denoise")
     if config.xtrans is not None:
@@ -455,11 +674,39 @@ def _check_config(config):
     cs.check_trc(config.out_trc)
 
 
+def raw_gains(rgb, data, hl_mode="Off", do_clip=True):
+    """The raw head's multipliers (develop.py:990-998): WB multipliers,
+    then the Blend highlight recovery, then the clip to [0, MAXVAL]
+    unless highlight recovery turned it off."""
+    rgb = rgb * data["rgb_mults"][:, None, None]
+    if hl_mode == "blend":
+        from art_tpu_torch.raw.hilite import recover_blend
+
+        with span("hilite"):
+            rgb = recover_blend(rgb, data["hl_max"])
+    if do_clip:
+        rgb = torch.clamp(rgb, 0.0, MAXVAL)
+    return rgb
+
+
 def raw_head(rgb, data):
-    """The raw head on its own (develop.py:990-1032, do_clip on): WB
-    multipliers, clip to [0, MAXVAL], camera to working space."""
-    rgb = torch.clamp(rgb * data["rgb_mults"][:, None, None], 0.0, MAXVAL)
-    return mat3(data["cam2work"], rgb)
+    """The raw head on its own with the clip (develop.py:990-1032):
+    `raw_gains`, then camera to working space."""
+    return mat3(data["cam2work"], raw_gains(rgb, data))
+
+
+def recover_highlights(rgb, data, hl_mode):
+    """The highlight recovery that runs right after the demosaic, before
+    the multipliers (develop.py:980-989): ColorSoft and Color."""
+    if hl_mode == "opposed":
+        from art_tpu_torch.raw.hilite import recover_opposed
+
+        return recover_opposed(rgb, data["hl_scale_mul"], data["hl_wb_cam"])
+    if hl_mode == "inpaint":
+        from art_tpu_torch.raw.hilite_inpaint import recover_inpaint
+
+        return recover_inpaint(rgb, data["hl_scale_mul"], data["hl_wb_cam"])
+    return rgb
 
 
 def raw_steps(cfa, config: PipelineConfig):
@@ -493,10 +740,23 @@ def raw_steps(cfa, config: PipelineConfig):
     return cfa
 
 
+def coarse_transform(rgb, coarse):
+    """Quarter turns counter-clockwise, then the horizontal and vertical
+    flips (develop.py:1048-1057)."""
+    k, hflip, vflip = coarse
+    if k:
+        rgb = torch.rot90(rgb, k, dims=(1, 2))
+    if hflip:
+        rgb = torch.flip(rgb, dims=(2,))
+    if vflip:
+        rgb = torch.flip(rgb, dims=(1,))
+    return rgb
+
+
 def build_run(config: PipelineConfig):
-    """The device program for a config: run(inp, data) -> padded encoded
+    """The device program for a config: run(inp, data) -> encoded
     (3, H, W) float32 on inp's device, or (H, W, 3) uint8 for an out_u8
-    config (crop with `crop_result`)."""
+    config; padded on the late-crop path (crop with `crop_result`)."""
     _check_config(config)
     fuse_head, fuse_tail = fusion_gates(config)
     first0 = next((s for s in config.steps if s[2] == 0), None)
@@ -520,9 +780,21 @@ def build_run(config: PipelineConfig):
         # the float mosaic plane would stay allocated beside the
         # denoise's scratch, where the flagship's peak lies
         del cfa
+        if config.hl_mode in ("opposed", "inpaint"):
+            with span("hilite"):
+                rgb = recover_highlights(rgb, data, config.hl_mode)
         if not fuse_head:
             with span("raw_head"):
-                rgb = raw_head(rgb, data)
+                rgb = raw_gains(rgb, data, config.hl_mode, config.do_clip)
+        if config.early_resize is not None:
+            # fast export: to output scale right after the raw stage
+            sh0, sw0, _, _ = config.early_resize
+            with span("early_resize"):
+                rgb = apply_resize(rgb[:, :sh0, :sw0], data["early_rows"],
+                                   data["early_cols"])
+        if not fuse_head:
+            with span("raw_head"):
+                rgb = mat3(data["cam2work"], rgb)
         for step in config.steps:
             name, static, stage = step
             if stage != 0:
@@ -533,6 +805,20 @@ def build_run(config: PipelineConfig):
                          pre_mat=data["cam2work"])
             with span(name):
                 rgb = ops_pkg.get_op(name).apply(rgb, d, static)
+        h0, w0 = config.orig_shape
+        if not config.late_crop:
+            # the sensor's true dims (orig_shape is after the rotation),
+            # then the rotation, flips and crop (develop.py:1044-1068)
+            k = config.coarse[0]
+            sh, sw = (w0, h0) if k % 2 == 1 else (h0, w0)
+            rgb = rgb[:, :sh, :sw]
+            if config.coarse != (0, False, False):
+                with span("coarse"):
+                    rgb = coarse_transform(rgb, config.coarse)
+            if config.crop is not None:
+                cy, cx, ch, cw = config.crop
+                with span("crop"):
+                    rgb = rgb[:, cy : cy + ch, cx : cx + cw].contiguous()
         for step in late_steps:
             name, static, _ = step
             d = data[f"op:{name}"]
@@ -541,6 +827,18 @@ def build_run(config: PipelineConfig):
                 static = static + (("epi", config.out_trc),)
             with span(name):
                 rgb = ops_pkg.get_op(name).apply(rgb, d, static)
+        if config.resize_to is not None:
+            if config.late_crop:
+                rgb = rgb[:, :h0, :w0]
+            with span("resize"):
+                rgb = apply_resize(rgb, data["resize_rows"],
+                                   data["resize_cols"])
+            if config.prsharp is not None:
+                from art_tpu_torch.ops import sharpen
+
+                with span("prsharpen"):
+                    rgb = sharpen.apply(rgb, data["op:prsharpen"],
+                                        config.prsharp)
         if not fuse_tail:  # rgb2out: working -> output primaries, TRC
             with span("rgb2out"):
                 rgb = mat3(data["work2out"], rgb)
@@ -660,11 +958,12 @@ def read_back(out, pinned=None):
     return host
 
 
-def develop(frame, pp, device="cuda", out_u8=False):
+def develop(frame, pp, device="cuda", fast=False, out_u8=False):
     """Full develop of a raw frame on `device` (the card unless the caller
     asks for the CPU): encoded (3, H, W) float32 in [0, 1], or (H, W, 3)
-    uint8 with out_u8, as a tensor on that device."""
-    config, data = plan(frame, pp, out_u8=out_u8)
+    uint8 with out_u8, as a tensor on that device. fast: the fast export
+    (-q), as `plan` takes it."""
+    config, data = plan(frame, pp, fast=fast, out_u8=out_u8)
     out = build_run(config)(upload(frame, device), data_to_torch(data, device))
     return crop_result(out, config)
 
@@ -692,9 +991,11 @@ def process_image(path_or_frame, pp, fast=False, output_path=None,
     encode and metadata/write (the reference's `-V` instrumentation
     times decode, develop and encode+metadata).
 
-    Not ported, and raising NotImplementedError naming the step: fast
-    export (``fast=True``), the gamut warning (``gamut_warn``) and a
-    PipelineListener that wants a histogram."""
+    fast: the fast export (ART-cli's -q), as `plan` takes it.
+
+    Not ported, and raising NotImplementedError naming the step: the
+    gamut warning (``gamut_warn``) and a PipelineListener that wants a
+    histogram."""
     import time as _time
 
     from art_tpu_torch.io.rawfile import RawFrame
@@ -703,8 +1004,6 @@ def process_image(path_or_frame, pp, fast=False, output_path=None,
                                                   notify, wants_histogram)
     from art_tpu_torch.settings import settings
 
-    if fast:
-        _unported("fast export / resize (-q)")
     if gamut_warn:
         _unported("gamut warning (color/gamutwarning.py)")
     if wants_histogram(listener):
@@ -739,7 +1038,7 @@ def process_image(path_or_frame, pp, fast=False, output_path=None,
     u8 = (bits == 8 and gamut_warn is None and output_path is not None
           and str(output_path).lower().endswith((".jpg", ".jpeg")))
     with _Collect() as auto_report:
-        config, data = plan(frame, pp, out_u8=u8)
+        config, data = plan(frame, pp, fast=fast, out_u8=u8)
     t = _tick("plan", t)
     inp = upload(frame, device)
     data_d = data_to_torch(data, device)

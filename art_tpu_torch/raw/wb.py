@@ -1,7 +1,8 @@
 """White-balance channel multipliers (counterpart of ``art_tpu/raw/wb.py``).
 
-Host numpy. Only what the camera and `CustomMult` white balances need:
-the temperature model (`Custom`) and auto WB are not ported yet.
+Host numpy. Only what the camera and `CustomMult` white balances and
+highlight recovery need: the temperature model (`Custom`) and auto WB
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -39,3 +40,14 @@ def image_multipliers(frame, wb_mults_rgb, scale_mul, c_white, cblack,
 
     expcomp = 2.0 ** frame.baseline_exposure
     return np.array([rm, gm, bm]) * expcomp, gain
+
+
+def wb_camera_multipliers(frame, wb_mults_rgb):
+    """wbMul2Camera (art_tpu/raw/wb.py::wb_camera_multipliers,
+    rawimagesource.cc:4708): the chosen white balance's RGB multipliers
+    as camera-space per-channel multipliers, green-normalised."""
+    _, cam_rgb, _ = frame.color_matrices()
+    pm = frame.pre_mul()
+    cam_v = cam_rgb @ np.asarray(wb_mults_rgb, dtype=np.float64)
+    w = pm[:3] / np.maximum(cam_v, 1e-9)
+    return np.array([w[0] / w[1], 1.0, w[2] / w[1]])

@@ -2,7 +2,8 @@
 the port reads): the develop pipeline's pad multiple, and the `Settings`
 singleton of the export path (``pipeline/develop.py::process_image``,
 ``cli.py``), the batch queue's host threads (``parallel/queue.py``) and
-the film simulation's LUT directory."""
+the film simulation's LUT directory, and the lensfun database directory
+(whose corrections the port refuses)."""
 
 from __future__ import annotations
 
@@ -35,6 +36,10 @@ class Settings:
     # Directory that relative film-simulation LUT names resolve against
     # (options.clutsDir; ops/filmsim.py)
     cluts_dir: str | None = None
+    # lensfun database directory (options.rtSettings.lensfunDbDirectory):
+    # with one set, a lensfun lens correction would apply, which the port
+    # refuses
+    lensfun_db_dir: str | None = None
 
 
 settings = Settings()

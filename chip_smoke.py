@@ -4,9 +4,9 @@
 
 Builds the CUDA kernels from art_tpu_torch/csrc (one nvcc per source) and
 the host decoder and JPEG encoder from art_tpu_torch/io/native (g++), all
-at once, and drives five paths through the user's entry points, plan ->
-develop(device="cuda") -> crop_result, each with the launch and plain-call
-counts set to 0 just before it and read just after:
+at once, and drives the paths below through the user's entry points,
+plan -> develop(device="cuda") -> crop_result, each with the launch and
+plain-call counts set to 0 just before it and read just after:
 
 - the main path, the flagship as bench.py defines it: a 4000x6000 RGGB
   mosaic from seed 0, `Standard Film Curve.arp` (AMaZE), denoise at
@@ -72,6 +72,22 @@ other, every JPEG well formed, job 0's scan byte-equal to
 process_image's. Then a mixed catalog of 10 jobs (the four bundled
 profiles and USER_ARP, which turns on the five pointwise ops), B7 once
 per Neutral-curve job, and USER_ARP's 512x2048 develop against the CPU.
+Then the everyday export (`export_phase`), counts reset before each
+path: E1, the flagship frame with blown highlights (`clipped_frame`,
+about 1% of the sites at white) and `export_pp` (Blend, denoise 20/20
+with LuminanceDetail 30, RL sharpening, a quarter turn, a 3000x4500
+crop at (500, 750), a 2048 box with USM output sharpening, Adobe RGB),
+B1, B2, B3, B5 and B7 (no epilogue) once each and no other, as
+new_path runs configs 2 and 4, with a 512x2048 develop against the CPU;
+E2, the flagship's fast export (-q) through cli.main at the default
+1920 box (B1-B3 at 24 MP, B4 with no raw head at 1280x1920, B7 with the
+sRGB epilogue), its phases and the Lanczos matrices' share of the H2D;
+E3, config 3's denoise with LuminanceDetail 30 in a fast export to an
+800 box (533x800: the whole-plane wavelet, the DCT pass, guided chroma;
+B6 once, its 256x256 tile fits, as in the reference), as new_path runs;
+B7 with no epilogue and B4 with no raw head against their plain
+versions on the tensors E1 and E2 feed them; and 512x2048 develops with
+HLRecovery=Color and ColorSoft against the CPU.
 Then one JSON line of per-kernel results (time, plain time, bound) and
 last the line {"ok": true, "device": {...}}. Any failure raises
 (non-zero exit, no result lines); so does a machine without CUDA.
@@ -130,10 +146,13 @@ def log(*a):
     print(*a, flush=True)
 
 
-def flagship_pp(method):
-    from art_tpu_torch.params import ProcParams
+def flagship_pp(method, pp=None):
+    """The flagship's ProcParams with demosaic `method`, on pp (either
+    package's; default a fresh one of this package's)."""
+    if pp is None:
+        from art_tpu_torch.params import ProcParams
 
-    pp = ProcParams()
+        pp = ProcParams()
     arp = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "art_tpu_torch", "data", "profiles", PROFILE)
     with open(arp) as f:
@@ -263,6 +282,59 @@ def config5_pp(pp=None):
     return pp
 
 
+def export_arp(h, w):
+    """E1, the everyday export, for a (h, w) frame: highlight recovery
+    Blend, denoise 20/20 with LuminanceDetail 30, RL capture sharpening,
+    a quarter turn, a crop of the middle 3/4 x 3/4 in rotated coordinates
+    (3000x4500 at (500, 750) on 4000x6000), a resize to a box of 2048 on
+    6000 pixels with USM output sharpening, and Adobe RGB out
+    (RT_Medium_gsRGB)."""
+    rh, rw = w, h  # rotated
+    box = max(32, round(max(rh, rw) * 2048 / 6000))
+    return ("[Exposure]\nHLRecovery=Blend\n"
+            "[Denoise]\nEnabled=true\nLuminance=20\nChrominance=20\n"
+            "LuminanceDetail=30\n"
+            "[Sharpening]\nEnabled=true\nMethod=rld\n"
+            "[Coarse Transformation]\nRotate=90\n"
+            f"[Crop]\nEnabled=true\nX={rw // 8}\nY={rh // 8}\n"
+            f"W={3 * rw // 4}\nH={3 * rh // 4}\n"
+            f"[Resize]\nEnabled=true\nDataSpecified=3\nWidth={box}\n"
+            f"Height={box}\n"
+            "[OutputSharpening]\nEnabled=true\nMethod=usm\n"
+            "[Color Management]\nOutputProfile=RT_Medium_gsRGB\n")
+
+
+def export_pp(h, w, pp=None):
+    """E1's ProcParams for a (h, w) frame, on pp (either package's;
+    default a fresh one of this package's): the flagship profile with
+    AMaZE and `export_arp`."""
+    if pp is None:
+        from art_tpu_torch.params import ProcParams
+
+        pp = ProcParams()
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "art_tpu_torch", "data", "profiles",
+                           PROFILE)) as f:
+        pp.apply_arp_text(f.read())
+    pp.raw.bayer.method = "amaze"
+    pp.apply_arp_text(export_arp(h, w))
+    return pp
+
+
+def fast_box_arp(box):
+    """A profile whose resize box bounds the fast export (-q) to `box`."""
+    return (f"[Resize]\nEnabled=true\nDataSpecified=3\nWidth={box}\n"
+            f"Height={box}\n")
+
+
+def e3_pp(pp=None):
+    """E3's ProcParams: config 3 with the Smoothing group on and the DCT
+    detail pass (LuminanceDetail 30), on pp (either package's)."""
+    pp = config3_pp(pp)
+    pp.denoise.luminance_detail = 30.0
+    return pp
+
+
 def path_pp(label):
     """The ProcParams of a path: "amaze", "bilinear" or "config3"."""
     return config3_pp() if label == "config3" else flagship_pp(label)
@@ -273,6 +345,21 @@ def flagship_frame(h, w, seed=0):
 
     rng = np.random.default_rng(seed)
     rgb = rng.uniform(0.02, 0.95, size=(3, h, w)).astype(np.float32)
+    return synthesize_bayer(rgb, pattern="RGGB")
+
+
+def clipped_frame(h, w, seed=0, share=0.02, gain=2.2):
+    """The flagship frame of seed `seed` with blown highlights: blocks of
+    16x16 pixels, `share` of them, brightened by `gain` before mosaicing,
+    so that the brighter sites of each block clip at white (about half a
+    block's green sites, fewer of its red and blue)."""
+    from art_tpu_torch.core.image import synthesize_bayer
+
+    rng = np.random.default_rng(seed)
+    rgb = rng.uniform(0.02, 0.95, size=(3, h, w)).astype(np.float32)
+    blocks = rng.random((-(-h // 16), -(-w // 16))) < share
+    mask = np.repeat(np.repeat(blocks, 16, 0), 16, 1)[:h, :w]
+    rgb[:, mask] *= gain
     return synthesize_bayer(rgb, pattern="RGGB")
 
 
@@ -483,19 +570,21 @@ def read_counts():
             {k: p.calls for k, (_, p) in c.items()})
 
 
-def drive(label, pp, frame, kernels_of_path):
+def drive(label, pp, frame, kernels_of_path, shape=None, fast=False):
     """One develop through the user's entry points, counts from 0; checks
-    the launches, the plain calls and the output."""
+    the launches, the plain calls and the output, of `shape` (H, W)
+    (default the frame's)."""
     from art_tpu_torch.pipeline import develop as tdev
 
     reset_counts()
     t0 = time.monotonic()
-    out = tdev.develop(frame, pp)
+    out = tdev.develop(frame, pp, fast=fast)
     torch.cuda.synchronize()
     seconds = time.monotonic() - t0
     launches, plain_calls = read_counts()
-    shape = frame.cfa.shape
-    log(f"{label} develop {shape[0]}x{shape[1]} (first): {seconds:.3f} s; "
+    fh, fw = frame.cfa.shape
+    shape = shape or (fh, fw)
+    log(f"{label} develop {fh}x{fw} (first): {seconds:.3f} s; "
         f"launches {launches}; plain calls {plain_calls}")
     missing = [k for k in kernels_of_path if launches[k] < 1]
     if missing:
@@ -515,18 +604,22 @@ def drive(label, pp, frame, kernels_of_path):
     return launches
 
 
-def new_path(label, pp, frame, kernels_of_path, small_frame):
-    """A path of configs 2 and 4: one develop with the counts from 0,
-    which must launch each kernel of the path once and no other, and
-    print the bad pixels flagged and the green sites equilibrated; the
-    median develop, the host plan and the device program alone with peak
-    memory by stage, device ms by stage; then a develop of small_frame
-    on the card against the same on the CPU (flip_parity where the path
-    makes raw decisions). Returns that comparison."""
+def new_path(label, pp, frame, kernels_of_path, small_frame, small_pp=None,
+             shape=None, fast=False):
+    """A path of configs 2 and 4 and the export: one develop with the
+    counts from 0, which must launch each kernel of the path once and no
+    other, and print the bad pixels flagged and the green sites
+    equilibrated; the median develop, the host plan and the device
+    program alone with peak memory by stage, device ms by stage; then a
+    develop of small_frame (with small_pp, default pp) on the card
+    against the same on the CPU (flip_parity where the path makes raw
+    decisions). shape: the output's (H, W), default the frame's; fast:
+    the fast export. Returns that comparison."""
     from art_tpu_torch.pipeline import develop as tdev
 
+    small_pp = pp if small_pp is None else small_pp
     with raw_decisions() as dec:
-        launches = drive(label, pp, frame, kernels_of_path)
+        launches = drive(label, pp, frame, kernels_of_path, shape, fast)
     want = {k: int(k in kernels_of_path) for k in launches}
     if launches != want:
         raise RuntimeError(f"{label}: launches {launches}, want {want}")
@@ -534,16 +627,18 @@ def new_path(label, pp, frame, kernels_of_path, small_frame):
         log(f"  hot/dead pixels flagged: {int(dec['hotdead'][0].sum())} of "
             f"{dec['hotdead'][0].numel()} sites of the padded plane; green "
             f"sites equilibrated: {int(dec['green_eq'][0].sum())}")
-    median_develop(label, frame, pp)
-    device_program(frame, pp)
-    profile_develop(frame, pp)
+    median_develop(label, frame, pp, fast)
+    device_program(frame, pp, fast)
+    profile_develop(frame, pp, fast)
 
-    with raw_decisions() as dec:
-        g = tdev.develop(small_frame, pp).cpu()
-        c = tdev.develop(small_frame, pp, device="cpu")
+    with raw_decisions() as dec, impulse_masks() as imp:
+        g = tdev.develop(small_frame, small_pp, fast=fast).cpu()
+        c = tdev.develop(small_frame, small_pp, device="cpu", fast=fast)
     if dec["hotdead"]:
         planes = [hd | ge for hd, ge in zip(dec["hotdead"], dec["green_eq"])]
         st = flip_parity(g, c, *planes, RAW_REACH)
+    elif imp:
+        st = impulse_parity(g, c, *imp)
     else:
         st = parity(g, c)
     h, w = small_frame.cfa.shape
@@ -551,13 +646,13 @@ def new_path(label, pp, frame, kernels_of_path, small_frame):
     return st
 
 
-def median_develop(label, frame, pp):
+def median_develop(label, frame, pp, fast=False):
     from art_tpu_torch.pipeline import develop as tdev
 
     times = []
     for _ in range(5):
         t0 = time.monotonic()
-        tdev.develop(frame, pp)
+        tdev.develop(frame, pp, fast=fast)
         torch.cuda.synchronize()
         times.append(time.monotonic() - t0)
     log(f"{label} develop (plan + H2D + device + crop), median of 5: "
@@ -609,14 +704,14 @@ def peak_by_stage(run):
     return peak, first(stages), first(launches)
 
 
-def device_program(frame, pp):
+def device_program(frame, pp, fast=False):
     """Time the host plan alone, then the device program alone with its
     inputs resident (CUDA events), its peak memory and the stage that
     sets it. Returns the config and the device inputs."""
     from art_tpu_torch.pipeline import develop as tdev
 
     t0 = time.monotonic()
-    config, data = tdev.plan(frame, pp)
+    config, data = tdev.plan(frame, pp, fast=fast)
     log(f"  host plan alone: {1e3 * (time.monotonic() - t0):.1f} ms")
     inp, _ = tdev.pad_to_multiple(frame.cfa, tdev.PAD_MULTIPLE)
     inp_d = torch.from_numpy(inp).to("cuda")
@@ -629,7 +724,7 @@ def device_program(frame, pp):
     return config, inp_d, data_d
 
 
-def profile_develop(frame, pp):
+def profile_develop(frame, pp, fast=False):
     """Device busy time of one end-to-end develop, from torch.profiler,
     and its top kernels."""
     from torch.autograd import DeviceType
@@ -640,7 +735,7 @@ def profile_develop(frame, pp):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
-        tdev.develop(frame, pp)
+        tdev.develop(frame, pp, fast=fast)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.monotonic() - t0)
     avg = prof.key_averages()
@@ -1137,6 +1232,194 @@ def config5_phase(smi_line, tmp):
     return st
 
 
+@contextlib.contextmanager
+def record_args(module, name):
+    """Yields a list that gathers the (args, kwargs) of every call of
+    module.<name> inside the block; the function runs as before, and a
+    launch it counts on its own name stays counted."""
+    fn = getattr(module, name)
+    calls = []
+
+    def recorded(*args, **kwargs):
+        calls.append((args, kwargs))
+        return fn(*args, **kwargs)
+
+    recorded.launches = getattr(fn, "launches", 0)
+    setattr(module, name, recorded)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, fn)
+        if hasattr(fn, "launches"):
+            fn.launches = recorded.launches
+
+
+def jpeg_size(path):
+    """(height, width) from a JPEG's SOF0 marker."""
+    data = open(path, "rb").read()
+    i = data.index(b"\xff\xc0")
+    return (int.from_bytes(data[i + 5: i + 7], "big"),
+            int.from_bytes(data[i + 7: i + 9], "big"))
+
+
+def variant_entry(name, key, source, replaces, launches, kern, plain,
+                  reads):
+    """A kernel variant on the tensors its path fed it: the kernel against
+    its plain version (bit-equal), times and bound, as a kernels-line
+    entry."""
+    from art_tpu_torch.opcount import needed_ops
+
+    k_out = kern()
+    p_out, *ops = needed_ops(plain)
+    torch.cuda.synchronize()
+    return kernel_entry(name, key, source, replaces, {key: launches}, k_out,
+                        p_out, gpu_ms(kern, 10), gpu_ms(plain, 3),
+                        bound(reads, (k_out,), ops))
+
+
+def export_phase(smi_line, tmp, entries):
+    """The everyday export on the card: E1 (the flagship frame with blown
+    highlights, Blend, denoise with the DCT pass, RL sharpening, a
+    quarter turn, a crop, the resize with USM output sharpening, Adobe
+    RGB: B1, B2, B3, B5 and B7 with no epilogue), E2 (the flagship's
+    fast export through cli.main at the default 1920 box: B1-B3 at 24 MP,
+    B4 with no raw head at 1280x1920, B7 with the sRGB epilogue) and E3
+    (config 3's denoise with the DCT pass in a fast export to an 800 box:
+    the whole-plane wavelet, B6 at 533x800); B7 with no epilogue and B4
+    with no head held to their plain versions on the tensors E1 and E2
+    feed them (entries added to `entries`); small develops of each, and
+    of HLRecovery=Color and ColorSoft, against the CPU. Returns the
+    comparisons."""
+    from art_tpu_torch import cli
+    from art_tpu_torch.io.dngwrite import write_dng
+    from art_tpu_torch.io.rawfile import load_raw
+    from art_tpu_torch.ops import denoise
+    from art_tpu_torch.ops import tonecurve_neutral as tn
+    from art_tpu_torch.ops import wavelet_kernel as wk
+    from art_tpu_torch.pipeline import develop as tdev
+
+    log(f"---- export phase ({smi_line})")
+    stats = {}
+    # E1, the everyday export
+    t0 = time.monotonic()
+    frame = clipped_frame(*FRAME, share=0.03)
+    clipped = float((frame.cfa >= frame.white[0]).mean())
+    log(f"E1 frame {FRAME[0]}x{FRAME[1]} (the flagship frame, 3% of its "
+        f"16x16 blocks x2.2) in {time.monotonic() - t0:.2f} s: "
+        f"{clipped:.4f} of the sites clipped")
+    pp = export_pp(*FRAME)
+    config, data = tdev.plan(frame, pp)
+    log(f"E1 plan: steps {[st[0] for st in config.steps]}, coarse "
+        f"{config.coarse}, crop {config.crop}, resize_to "
+        f"{config.resize_to}, prsharp {config.prsharp}, hl_mode "
+        f"{config.hl_mode}, out_trc {config.out_trc}, fusion gates "
+        f"{tdev.fusion_gates(config)}; Lanczos matrices "
+        f"{(data['resize_rows'].nbytes + data['resize_cols'].nbytes) / 1e6:.1f}"
+        " MB")
+    stats["E1"] = new_path("E1", pp, frame, ("b1", "b2", "b3", "b5", "b7"),
+                           clipped_frame(*SMALL, seed=5, share=0.03),
+                           export_pp(*SMALL), shape=config.resize_to)
+    with record_args(tn, "neutral_tone") as calls:
+        tdev.develop(frame, pp)
+    (x, params, coeffs, epi), _ = calls[0]
+    if epi is not None:
+        raise RuntimeError(f"E1: B7 ran with the epilogue {epi!r}")
+    log("B7 (EPI 0) as loaded: " + tn.layout(tuple(coeffs.shape),
+                                              None).strip())
+    entries["b7_epi0"] = variant_entry(
+        "neutral_tone (B7, EPI 0)", "b7_epi0",
+        "art_tpu_torch/csrc/neutral_tone.cu",
+        "art_tpu/ops/tonecurve_neutral.py:384", 1,
+        lambda: tn.neutral_tone(x, params, coeffs, None),
+        lambda: tn.neutral_plain(x, params, coeffs, None), (x,))
+    del frame, calls, x
+
+    # E2, the flagship's fast export through the CLI
+    frame = flagship_frame(*FRAME)
+    fl = os.path.join(tmp, "flagship.dng")
+    write_dng(fl, np.round(frame.cfa).astype(np.uint16), black=512,
+              white=16383, cam_mul=(2.0, 1.0, 1.5), compress=False)
+    del frame
+    dn = os.path.join(tmp, "denoise20.arp")
+    with open(dn, "w") as f:
+        f.write("[Denoise]\nEnabled=true\nLuminance=20\nChrominance=20\n")
+    arp = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "art_tpu_torch", "data", "profiles", PROFILE)
+    out2 = os.path.join(tmp, "e2.jpg")
+    argv = ["-Y", "-q", "-p", arp, "-p", dn, "-o", out2, "-c", fl]
+    reset_counts()
+    cli_run(argv)
+    launches, plain_calls = read_counts()
+    log(f"E2 through cli.main -q: launches {launches}; plain calls "
+        f"{plain_calls}")
+    want = {k: int(k in ("b1", "b2", "b3", "b4", "b7")) for k in launches}
+    if launches != want or any(plain_calls.values()):
+        raise RuntimeError(f"E2: launches {launches}, want {want}; plain "
+                           f"calls {plain_calls}")
+    check_jpeg(out2)
+    if jpeg_size(out2) != (1280, 1920):
+        raise RuntimeError(f"E2: a {jpeg_size(out2)} JPEG, want 1280x1920")
+    cli_timed(f"E2 ({FRAME[0]}x{FRAME[1]} -> 1280x1920, -q, AMaZE, denoise, "
+              "Neutral curve, sRGB JPEG)", argv)
+    pp2 = cli.compose_params(fl, cli.parse_args(argv))
+    frame = load_raw(fl)
+    config2, data2 = tdev.plan(frame, pp2, fast=True, out_u8=True)
+    lanczos = data2["early_rows"].nbytes + data2["early_cols"].nbytes
+    h2d = tdev.host_input(frame).nbytes + sum(
+        np.asarray(v).nbytes for _, v in _leaves(data2))
+    log(f"E2 plan: early_resize {config2.early_resize}, fusion gates "
+        f"{tdev.fusion_gates(config2)}; the H2D: {h2d / 1e6:.1f} MB, of "
+        f"which the Lanczos matrices {lanczos / 1e6:.1f} MB")
+    with record_args(denoise, "wavelet_denoise_rgb") as calls:
+        tdev.develop(frame, pp2, fast=True)
+    args, kwargs = calls[0]
+    if kwargs.get("pre") is not None or tuple(args[0].shape) != (3, 1280,
+                                                                  1920):
+        raise RuntimeError("E2: B4 ran with a raw head or at "
+                           f"{tuple(args[0].shape)}")
+    plain_args = (args[0],) + wk.prepare(*args, **kwargs)
+    entries["b4_nohead"] = variant_entry(
+        "wavelet_rgb (B4, no raw head)", "b4_nohead",
+        "art_tpu_torch/csrc/wavelet_rgb.cu",
+        "art_tpu/ops/wavelet_pallas.py:311", 1,
+        lambda: wk.wavelet_denoise_rgb(*args, **kwargs),
+        lambda: wk.wavelet_rgb_plain(*plain_args), (args[0],))
+    del frame, calls, args, plain_args
+
+    # E3, config 3's denoise in a fast export to an 800 box: the wavelet
+    # below a tile runs whole-plane; B6's tile is 256x256, which 533x800
+    # holds, so it launches (as the reference's nlmeans_pallas tiles it)
+    frame = flagship_frame(*FRAME)
+    pp3 = e3_pp()
+    pp3.apply_arp_text(fast_box_arp(800))
+    small3 = e3_pp()
+    small3.apply_arp_text(fast_box_arp(round(800 * SMALL2[1] / FRAME[1])))
+    stats["E3"] = new_path("E3", pp3, frame, ("b6",),
+                           flagship_frame(*SMALL2, seed=5), small3,
+                           shape=(533, 800), fast=True)
+    del frame
+
+    # highlight recovery Color and ColorSoft, card against the CPU
+    small = clipped_frame(*SMALL, seed=5, share=0.03)
+    for mode in ("Color", "ColorSoft"):
+        ppm = flagship_pp("amaze")
+        ppm.exposure.hrmode = mode
+        g = tdev.develop(small, ppm).cpu()
+        c = tdev.develop(small, ppm, device="cpu")
+        stats[f"HL {mode}"] = parity(g, c)
+        log(f"{SMALL[0]}x{SMALL[1]} HLRecovery={mode} develop, card vs CPU "
+            f"plain path: {stats[f'HL {mode}']}")
+    return stats
+
+
+def _leaves(d):
+    for k, v in d.items():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield k, v
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -1396,6 +1679,10 @@ def main():
     # ---- config 5: the batch queue over a 24 MP catalog, then a mixed one
     with tempfile.TemporaryDirectory() as tmp:
         new_stats["user-profile"] = config5_phase(smi_line, tmp)
+
+    # ---- the everyday export: E1, E2 (-q through the CLI) and E3
+    with tempfile.TemporaryDirectory() as tmp:
+        new_stats.update(export_phase(smi_line, tmp, entries))
 
     failures = [f"B6 on {k} disagrees with its plain version"
                 for k, ok in b6_edges.items() if not ok]

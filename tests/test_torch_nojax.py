@@ -3,7 +3,11 @@
 and bilinear) and config 3 (RCD, non-fused denoise, impulse); another
 that also refuses `PIL` and `cv2` (absent on the card's machine) runs
 `cli.main` from a DNG to a JPEG, and through the batch queue with
-`--devices 2`; no source file of the package (`parallel/` among them), nor
+`--devices 2`; a third, refusing all four, develops the fast export of
+E3 (config 3's denoise, whole-plane) and E1's settings (highlights,
+sharpening, rotation, crop, resize, Adobe RGB) at a small size; no
+source file of the package (`parallel/` and the export's modules among
+them), nor
 chip_smoke.py, imports any of them or reads a file under art_tpu/; and
 the port's copies of the reference's host modules (profiles, colour-space
 tables, camera constants, output TRCs) hold the reference's values.
@@ -117,6 +121,40 @@ print("CLI-STANDALONE-OK")
 '''
 
 
+EXPORT_SCRIPT = r'''
+import sys
+
+BLOCKED = ("jax", "jaxlib", "art_tpu", "PIL", "cv2")
+
+
+class _Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError("blocked in this process: " + name)
+        return None
+
+
+sys.meta_path.insert(0, _Refuse())
+
+import torch
+from art_tpu_torch.pipeline import develop as tdev
+from chip_smoke import clipped_frame, e3_pp, export_pp, fast_box_arp
+
+frame = clipped_frame(96, 160, seed=9, share=0.05)
+pp = e3_pp()
+pp.apply_arp_text(fast_box_arp(80))
+cfg, _ = tdev.plan(frame, pp, fast=True)
+assert cfg.early_resize == (96, 160, 48, 80), cfg.early_resize
+out = tdev.develop(frame, pp, device="cpu", fast=True)
+assert tuple(out.shape) == (3, 48, 80), out.shape
+out = tdev.develop(frame, export_pp(96, 160), device="cpu")
+assert tuple(out.shape) == (3, 55, 33), out.shape
+assert bool(torch.isfinite(out).all())
+assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
+print("EXPORT-STANDALONE-OK")
+'''
+
+
 def test_develops_with_jax_blocked():
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", SCRIPT, REPO], env=env,
@@ -132,6 +170,15 @@ def test_cli_with_jax_pil_and_cv2_blocked(tmp_path):
                           text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "CLI-STANDALONE-OK" in proc.stdout
+
+
+def test_export_with_jax_pil_and_cv2_blocked():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", EXPORT_SCRIPT], env=env,
+                          capture_output=True, text=True, timeout=600,
+                          cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "EXPORT-STANDALONE-OK" in proc.stdout
 
 
 def _port_sources():
@@ -156,6 +203,10 @@ def test_no_source_file_imports_jax():
     scanned = {os.path.relpath(p, REPO) for p in _port_sources()}
     for name in ("__init__.py", "queue.py", "dryrun.py"):
         assert os.path.join("art_tpu_torch", "parallel", name) in scanned
+    for name in ("ops/sharpen.py", "ops/resize.py", "ops/dct_detail.py",
+                 "raw/hilite.py", "raw/hilite_inpaint.py",
+                 "lens/exifcorr.py"):
+        assert os.path.join("art_tpu_torch", name) in scanned
     offenders = []
     for path in _port_sources():
         with open(path) as fh:

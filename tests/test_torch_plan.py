@@ -121,19 +121,25 @@ def _set(pp, path, value):
     # reference reads only suffixed region keys)
     ({"extra": {"Smoothing": {"Enabled": "true", "Mode_1": "3"}}},
      "smoothing"),
-    ({"sharpening.enabled": True}, "sharpen"),
+    # sharpening is ported; a PSF kernel from an image file is not (its
+    # decoder), where the file exists
+    ({"sharpening.enabled": True, "sharpening.method": "psf",
+      "sharpening.psf_kernel": "{tmp}/psf.png"}, "PSF image kernel"),
     ({"tone_curve.curve_mode": "Standard",
       "tone_curve.curve_mode2": "Standard"}, "tone curve mode"),
-    ({"resize.enabled": True}, "resize"),
-    # exposure compensation is ported; its highlight recovery is not
-    ({"exposure.hrmode": "Blend"}, "highlight recovery"),
+    # the transforms beside the ported crop, flips and resize
+    ({"resize.enabled": True, "rotate.enabled": True, "rotate.degree": 3.0},
+     "rotate"),
+    ({"perspective.enabled": True, "perspective.horizontal": 10.0},
+     "perspective"),
+    ({"distortion.enabled": True, "distortion.amount": 0.05},
+     "distortion"),
+    ({"raw.bayer.green_eq_enabled": True, "raw.bayer.linenoise": 10},
+     "CFA line denoise"),
     ({"icm.output_profile": "{tmp}/out.icc"}, "ICC"),
-    ({"denoise.luminance_detail": 30}, "DCT"),
-    ({"icm.output_profile": "ProPhoto", "tone_curve.enabled": False},
-     "TRC 'gamma'"),
-    # a missing Adobe RGB .icc resolves by name, and its TRC is unported
-    ({"icm.output_profile": "{missing}/AdobeRGB.icc",
-      "tone_curve.enabled": False}, "TRC 'gamma'"),
+    # an LCP file that exists: its vignette and geometry would apply
+    ({"lens_prof.method": "lcp", "lens_prof.lcp_file": "{tmp}/lens.lcp"},
+     "lens profile 'lcp'"),
     ({"icm.input_profile": "{tmp}/camera.dcp"}, "input profile"),
     ({"icm.input_profile": "{tmp}/camera.icc"}, "input profile"),
     ({"raw.df_enabled": True, "raw.df_file": "{tmp}/dark.dng"},
@@ -144,10 +150,10 @@ def _set(pp, path, value):
     ({"raw.ff_enabled": True, "raw.ff_autoselect": True}, "flat field"),
     ({"raw.ff_enabled": True, "raw.ff_embedded": True,
       "frame.filename": "{tmp}/frame.dng"}, "gain map"),
-], ids=["amaze", "auto-wb", "nlmeans", "sharpen", "std-curve", "resize",
-        "exposure", "out-icc", "dct-detail", "gamma-trc", "adobe-icc-trc",
-        "in-dcp", "in-icc", "df-file", "df-auto", "ff-file", "ff-auto",
-        "ff-embedded"])
+], ids=["amaze", "auto-wb", "nlmeans", "psf-image", "std-curve",
+        "rotate-resize", "perspective", "distortion", "cfa-linedn", "out-icc",
+        "lcp-file", "in-dcp", "in-icc", "df-file", "df-auto", "ff-file",
+        "ff-auto", "ff-embedded"])
 def test_unported_steps_raise_by_name(frame, tmp_path, changes, match):
     # "{tmp}/..." names a file the test writes (the reference would apply
     # it), "{missing}/..." one that does not exist
@@ -297,3 +303,41 @@ def test_closed_fusion_gates_develop_as_the_reference(frame, changes):
     print(changes, st)
     assert st["max_lsb8"] <= 1.0 and st["mean"] <= 2e-4, st
     assert st["within_1lsb8"] >= 0.999, st
+
+
+# groups the reference plans no step for (ROADMAP C5): each op's own
+# enable gate, a lens profile with no correction to find, auto
+# distortion with no embedded JPEG preview
+NO_STEP = [
+    "[HSL Equalizer]\nEnabled=true\n",
+    "[Luminance Curve]\nEnabled=true\n",
+    "[ColorCorrection]\nEnabled=true\n",
+    "[FattalToneMapping]\nEnabled=true\nAmount=400\n",
+    "[Spot Removal]\nEnabled=true\nSpot1=10;10;30;30;0;1;1;2\n",
+    "[LensProfile]\nLcMode=lcp\n",
+    "[LensProfile]\nLcMode=exif\n",
+    "[LensProfile]\nLcMode=lfauto\n",
+    "[Sharpening]\nEnabled=true\nMethod=psf\nPSFKernel={missing}/psf.json\n",
+    "[Distortion]\nEnabled=true\nAuto=true\n",
+]
+
+
+@pytest.mark.parametrize("text", NO_STEP, ids=[
+    "hsl", "lab-curve", "color-correction", "fattal", "spot-radius-0",
+    "lcp-no-file", "exif-no-data", "lensfun-no-db", "psf-missing",
+    "auto-distortion-no-preview"])
+def test_groups_the_reference_skips_plan_the_same_steps(tmp_path, text):
+    from art_tpu_torch.params import ProcParams as TorchProcParams
+
+    rgb = np.random.default_rng(1).uniform(0.02, 0.95, (3, 64, 96))
+    small = synthesize_bayer(rgb.astype(np.float32), pattern="RGGB")
+    text = text.replace("{missing}", str(tmp_path / "missing"))
+    got = []
+    for planner, cls in ((tdev.plan, TorchProcParams),
+                         (jdev.plan, ProcParams)):
+        pp = cls()
+        pp.apply_arp_text(text)
+        cfg, _ = planner(small, pp)
+        got.append((cfg.steps, cfg.transform, cfg.late_crop))
+    assert got[0] == got[1]
+    assert got[0] == ((), False, True)

@@ -180,17 +180,24 @@ def test_cli_matches_the_reference(dng, config1_outputs, tmp_path,
 
 
 @pytest.mark.parametrize("args,step", [
-    (["-q"], "fast export / resize"),
+    # the fast export is ported; a rotation by degrees in its profile is
+    # not
+    (["-q", "-p", "{tmp}/rotate.arp"], "rotate"),
     (["--gamut-warn", "sRGB"], "color/gamutwarning.py"),
 ])
 def test_cli_refusals(dng, tmp_path, capsys, args, step):
     from art_tpu_torch import cli
 
-    rc = cli.main(["-Y", "-o", str(tmp_path) + os.sep, *args, "-c",
+    (tmp_path / "rotate.arp").write_text("[Rotation]\nEnabled=true\n"
+                                         "Degree=3\n")
+    args = [a.replace("{tmp}", str(tmp_path)) for a in args]
+    out = tmp_path / "out"
+    out.mkdir()
+    rc = cli.main(["-Y", "-o", str(out) + os.sep, *args, "-c",
                    str(dng / "c1.dng")], device="cpu")
     assert rc == 2
     assert step in capsys.readouterr().err
-    assert not list(tmp_path.glob("*.jpg"))
+    assert not list(out.glob("*.jpg"))
 
 
 def test_cli_refuses_check_lut_and_non_raw(tmp_path, capsys):
@@ -255,11 +262,20 @@ def test_process_image_refusals(dng):
             pass
 
     path = str(dng / "c1.dng")
-    for kw, step in ((dict(fast=True), "fast export"),
-                     (dict(gamut_warn="sRGB"), "color/gamutwarning.py"),
-                     (dict(listener=Wants()), "pipeline/scopes.py")):
+    # the fast export is ported: with a perspective correction, its step
+    # is refused
+    fast = config1(ProcParams)
+    fast.resize.enabled = True
+    fast.perspective.enabled = True
+    fast.perspective.vertical = 10.0
+    for pp, kw, step in (
+            (fast, dict(fast=True), "perspective"),
+            (config1(ProcParams), dict(gamut_warn="sRGB"),
+             "color/gamutwarning.py"),
+            (config1(ProcParams), dict(listener=Wants()),
+             "pipeline/scopes.py")):
         with pytest.raises(NotImplementedError, match=step):
-            process_image(path, config1(ProcParams), device="cpu", **kw)
+            process_image(path, pp, device="cpu", **kw)
 
 
 def test_options_and_profiles_read_as_the_reference(tmp_path):
