@@ -3,7 +3,8 @@
 
 The PQ transfers are the reference's host-fitted even/odd series on
 power-warped domains (`pq_fits` is a numpy copy). `pq` / `pq_inv`
-evaluate them on tensors; `hue_of` computes the Neutral curve's hue
+evaluate them on tensors, `xyz_to_jzazbz` / `jzazbz_to_xyz` convert
+planes; `hue_of` computes the Neutral curve's hue
 anchors on the host in float32 numpy, where the reference ran a jnp
 float32 program.
 """
@@ -122,3 +123,38 @@ def hue_of(rgb, ws):
     az = f32(3.524000) * lp - f32(4.066708) * mp + f32(0.542708) * sp
     bz = f32(0.199076) * lp + f32(1.096799) * mp - f32(1.295875) * sp
     return float(np.arctan2(az, bz))
+
+
+def xyz_to_jzazbz(x, y, z):
+    """D50 XYZ planes -> (Jz, az, bz) (jzazbz.py::xyz_to_jzazbz)."""
+    m = D50_TO_D65
+    x, y, z = (m[0, 0] * x + m[0, 1] * y + m[0, 2] * z,
+               m[1, 0] * x + m[1, 1] * y + m[1, 2] * z,
+               m[2, 0] * x + m[2, 1] * y + m[2, 2] * z)
+    lp = pq(0.674207838 * x + 0.382799340 * y - 0.047570458 * z)
+    mp = pq(0.149284160 * x + 0.739628340 * y + 0.083327300 * z)
+    sp = pq(0.070941080 * x + 0.174768000 * y + 0.670970020 * z)
+    iz = 0.5 * (lp + mp)
+    az = 3.524000 * lp - 4.066708 * mp + 0.542708 * sp
+    bz = 0.199076 * lp + 1.096799 * mp - 1.295875 * sp
+    jz = (0.44 * iz) / (1.0 - 0.56 * iz) - 1.6295499532821566e-11
+    return jz, az, bz
+
+
+def jzazbz_to_xyz(jz, az, bz):
+    """(Jz, az, bz) -> D50 XYZ planes (jzazbz.py::jzazbz_to_xyz)."""
+    jz = jz + 1.6295499532821566e-11
+    iz = jz / (0.44 + 0.56 * jz)
+    l = pq_inv(iz + 1.386050432715393e-1 * az + 5.804731615611869e-2 * bz)
+    m = pq_inv(iz - 1.386050432715393e-1 * az - 5.804731615611891e-2 * bz)
+    s = pq_inv(iz - 9.601924202631895e-2 * az - 8.118918960560390e-1 * bz)
+    x = (1.661373055774069e+00 * l - 9.145230923250668e-01 * m
+         + 2.313620767186147e-01 * s)
+    y = (-3.250758740427037e-01 * l + 1.571847038366936e+00 * m
+         - 2.182538318672940e-01 * s)
+    z = (-9.098281098284756e-02 * l - 3.127282905230740e-01 * m
+         + 1.522766561305260e+00 * s)
+    mm = D65_TO_D50
+    return (mm[0, 0] * x + mm[0, 1] * y + mm[0, 2] * z,
+            mm[1, 0] * x + mm[1, 1] * y + mm[1, 2] * z,
+            mm[2, 0] * x + mm[2, 1] * y + mm[2, 2] * z)

@@ -3,7 +3,10 @@
 Each op module exposes ``plan(pp, ctx) -> (static, data) | None`` (host
 numpy) and ``apply(rgb, data, static) -> rgb`` on (3, H, W) float32
 tensors in the 0..65535 domain. The stage grouping and order are the
-reference's; only the ops in `PORTED` exist here.
+reference's; every step is in `PORTED` but the DCP look
+(`dcplook_early`, `dcplook_late`), which only a DCP input profile plans.
+Film grain (`grain`) has no module of its own, as in the reference: the
+smoothing op runs it as NOISE regions.
 """
 
 from __future__ import annotations
@@ -21,13 +24,13 @@ STAGE_3 = (
 )
 ALL_STEPS = STAGE_0 + STAGE_1 + STAGE_2 + STAGE_3
 
-PORTED = ("denoise", "dehaze", "chmixer", "exposure", "toneequalizer",
-          "sharpen", "impulse", "saturation", "filmsim_pre", "tonecurve",
-          "filmsim_post", "rgbcurves", "softlight", "localcontrast")
+PORTED = tuple(n for n in ALL_STEPS
+               if n not in ("dcplook_early", "dcplook_late"))
 
 # steps run by another step's module: the film simulation before and
-# after the tone curve
-_MODULES = {"filmsim_pre": "filmsim", "filmsim_post": "filmsim"}
+# after the tone curve; None: a step with no module (film grain)
+_MODULES = {"filmsim_pre": "filmsim", "filmsim_post": "filmsim",
+            "grain": None}
 
 
 def stage_of(name: str) -> int:
@@ -38,18 +41,23 @@ def stage_of(name: str) -> int:
 
 
 def get_op(name: str):
-    """The port's module for a ported op; NotImplementedError otherwise."""
+    """The port's module for a ported op (None for a step with no module);
+    NotImplementedError for an op that is not ported."""
     if name not in PORTED:
         raise NotImplementedError(f"op {name!r} is not ported")
-    return importlib.import_module(
-        f"art_tpu_torch.ops.{_MODULES.get(name, name)}")
+    modname = _MODULES.get(name, name)
+    if modname is None:
+        return None
+    return importlib.import_module(f"art_tpu_torch.ops.{modname}")
 
 
 def plan_step(name, pp, ctx):
-    """A step's plan: a positional variant (filmsim_post) plans through
-    its module's plan_<suffix> where there is one, as in the reference's
-    planner."""
+    """A step's plan: None for a step with no module; a positional variant
+    (filmsim_post) plans through its module's plan_<suffix> where there is
+    one, as in the reference's planner."""
     mod = get_op(name)
+    if mod is None:
+        return None
     plan_fn = mod.plan
     if "_" in name:
         plan_fn = getattr(mod, f"plan_{name.rsplit('_', 1)[1]}", mod.plan)

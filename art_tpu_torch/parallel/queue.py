@@ -245,10 +245,12 @@ def process_batch(jobs, devices=None, progress=None, prefetch=2,
         t0 = time.monotonic()
         try:
             frame = load_image(inp)
-            # 8-bit JPEG outputs convert to u8 on the device
+            # 8-bit JPEG outputs convert to u8 on the device; an auto log
+            # encoding renders on a device of the queue's
             config, data = plan(
                 frame, pp,
-                out_u8=str(outp).lower().endswith((".jpg", ".jpeg")))
+                out_u8=str(outp).lower().endswith((".jpg", ".jpeg")),
+                device=devices[idx % n])
             run = build_run(config)
             host = host_input(frame)
         except Exception as e:  # a per-file error doesn't stop the queue

@@ -3,10 +3,14 @@
 
 Host numpy. Ported: the automatic chrominance estimate and the RL
 sharpening radius, copies of the reference's `auto_chroma_params` and
-`deconv_auto_radius`.
+`deconv_auto_radius`; and the automatic log encoding, `auto_log_params`,
+whose statistics come from a neutral develop of a subsampled frame on
+the device of the develop that asks for it.
 """
 
 from __future__ import annotations
+
+import copy
 
 import numpy as np
 
@@ -296,3 +300,52 @@ def deconv_auto_radius(frame, lower_limit=1000.0):
     if not np.isfinite(radius):
         return None
     return float(np.clip(radius, 0.4, 2.5))
+
+
+def auto_log_params(frame, pp, device):
+    """getAutoLog (iplogenc.cc:308; art_tpu/pipeline/autos.py::
+    auto_log_params): (gain, black_ev, white_ev) from the 1st, 50th and
+    99.5th percentiles of the luminance of a neutral develop (fast
+    demosaic, pp's working space) of the frame subsampled 8x, rendered
+    on `device`."""
+    from art_tpu_torch.color import colorspaces as cs
+    from art_tpu_torch.params import ProcParams
+    from art_tpu_torch.pipeline.develop import develop
+
+    neutral = ProcParams()
+    neutral.raw.bayer.method = "fast"
+    neutral.icm.working_profile = pp.icm.working_profile
+    out = develop(subsample_frame(frame, 8), neutral, device=device)
+    lin = cs.srgb_igamma(out.cpu().numpy())
+    y = 0.2126 * lin[0] + 0.7152 * lin[1] + 0.0722 * lin[2]
+    y = np.maximum(y, 2.0 ** -16)
+    lo = np.percentile(y, 1.0)
+    hi = np.percentile(y, 99.5)
+    med = np.median(y)
+    gray = 0.18
+    gain = float(np.log2(gray / max(med, 1e-6)))
+    black_ev = float(np.log2(max(lo, 1e-6) / gray) - gain)
+    white_ev = float(np.log2(max(hi, 1e-6) / gray) - gain + 1.0)
+    # the reference's slider domains (blackEv < 0 < whiteEv)
+    black_ev = float(np.clip(black_ev, -16.0, -0.5))
+    white_ev = float(np.clip(white_ev, 0.5, 32.0))
+    if white_ev - black_ev < 0.5:
+        white_ev = black_ev + 0.5
+    return gain, black_ev, white_ev
+
+
+def subsample_frame(frame, step):
+    """A Bayer frame's 2x2 blocks every 2 * step sites, pattern kept
+    (autos.py::_subsample_frame); any other frame as it is."""
+    f = copy.copy(frame)
+    if frame.is_raw and frame.pattern is not None:
+        c = frame.cfa
+        h, w = c.shape
+        s = step * 2
+        blocks = np.zeros((2 * (h // s), 2 * (w // s)), dtype=c.dtype)
+        blocks[0::2, 0::2] = c[0::s, 0::s][: h // s, : w // s]
+        blocks[0::2, 1::2] = c[0::s, 1::s][: h // s, : w // s]
+        blocks[1::2, 0::2] = c[1::s, 0::s][: h // s, : w // s]
+        blocks[1::2, 1::2] = c[1::s, 1::s][: h // s, : w // s]
+        f.cfa = blocks
+    return f

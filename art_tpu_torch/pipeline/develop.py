@@ -47,7 +47,6 @@ from art_tpu_torch.core.image import (MAXVAL, bayer_channel_masks,
                                      pad_to_multiple)
 from art_tpu_torch.core.profile import span
 from art_tpu_torch.demosaic import PORTED as PORTED_DEMOSAICS
-from art_tpu_torch.masks import regions_from_extra
 from art_tpu_torch.ops.resize import apply_resize, resize_plan
 from art_tpu_torch.raw import preprocess as rawpre
 from art_tpu_torch.raw import wb as wbmod
@@ -96,99 +95,36 @@ def _unported(what):
     raise NotImplementedError(f"{what} is not ported to art_tpu_torch")
 
 
-# the suffixed region keys of the region ops the port lacks
-# (ops/textureboost.py::FIELDS, ops/smoothing.py::FIELDS): a region exists
-# where one of them, or its MaskEnabled, has the region's suffix
-_TEXTUREBOOST_KEYS = {"strength": ("Strength", "f", 0.0),
-                      "detail_threshold": ("DetailThreshold", "f", 0.2),
-                      "iterations": ("Iterations", "i", 1)}
-_SMOOTHING_KEYS = {k.lower(): (k, "s", "") for k in (
-    "Mode", "Channel", "Radius", "Sigma", "Epsilon", "Iterations", "Falloff",
-    "NLStrength", "NLDetail", "NoiseStrength", "NoiseCoarseness",
-    "HalationSize", "HalationColor", "WavStrength", "WavLevels", "WavGamma",
-    "Angle", "Curvature", "NumBlades")}
+def _auto_log(frame, pp, device):
+    """pp with the automatic log encoding resolved (develop.py:462-477,
+    getAutoLog): a neutral develop of the frame subsampled 8x on `device`
+    sets the gain and the black and white EVs where auto gain is on, and
+    both autos turn off; on a copy, so the caller's pp keeps its autos.
+    A failure of that develop raises (the reference falls back to the
+    manual values on any error). A frame too small to subsample keeps
+    them, as the reference's empty render does."""
+    lp = pp.logenc
+    if not (lp.enabled and (lp.auto_gain or lp.auto_gray)):
+        return pp
+    import copy
 
+    from art_tpu_torch.pipeline.autos import auto_log_params
 
-def _spot_active(sp, frame):
-    """Whether a spot entry plans a window (ops/spot.py::plan): a radius,
-    and a window no larger than the frame."""
-    if sp is None or not sp.enabled or not sp.entries:
-        return False
-    h, w = frame.cfa.shape[-2:]
-    for e in sp.entries:
-        if e.radius <= 0:
-            continue
-        size = 2 * (int(math.ceil(e.radius * (1.0 + e.feather))) + 1) + 1
-        if size <= min(h, w):
-            return True
-    return False
+    pp = copy.deepcopy(pp)
+    h, w = frame.cfa.shape
+    if frame.pattern is not None and min(h, w) < 16:
+        return pp
+    gain, black_ev, white_ev = auto_log_params(frame, pp, device)
+    from art_tpu_torch.pipeline.listeners import report_auto
 
-
-def _op_active(name, pp, frame):
-    """Whether an op the port lacks would plan a step: the host-side
-    enable gates of the reference ops' plans (the region ops through the
-    reference's region parsing, which reads only suffixed keys)."""
-    extra = pp.extra or {}
-
-    def group_on(group):
-        v = (extra.get(group) or {}).get("Enabled")
-        return v is not None and str(v).lower() in ("true", "1", "yes")
-
-    if name == "spot":
-        return _spot_active(getattr(pp, "spot", None), frame)
-    if name == "filmneg":
-        return pp.film_negative.enabled
-    if name == "fattal":
-        # alpha and beta must be positive (ops/fattal.py:28-36)
-        f = pp.fattal
-        alpha = 1.0 + (f.threshold * 0.9 / 100.0 if f.threshold < 0
-                       else f.threshold / 100.0)
-        beta = 1.0 - (f.amount * 0.3) / 100.0
-        return f.enabled and alpha > 0 and beta > 0
-    if name == "hsl":
-        from art_tpu_torch.color.curves import FlatCurve
-
-        h = pp.hsl
-        return h.enabled and not all(
-            FlatCurve(c, periodic=True).is_identity()
-            for c in (h.hcurve, h.scurve, h.lcurve))
-    if name == "defringe":
-        return pp.defringe.enabled
-    if name == "colorcorrection":
-        # a region needs Mode_1, Slope_1 or A_1 (ops/colorcorrection.py:
-        # 49-50)
-        group = extra.get("ColorCorrection") or {}
-        return group_on("ColorCorrection") and any(
-            k in group for k in ("Mode_1", "Slope_1", "A_1"))
-    if name == "smoothing":
-        # film grain runs as the op's noise regions (ops/smoothing.py:52)
-        return pp.grain.enabled or bool(
-            regions_from_extra(pp, "Smoothing", _SMOOTHING_KEYS))
-    if name == "gradients":
-        return ((pp.gradient.enabled and abs(pp.gradient.strength) > 1e-6)
-                or (pp.pcvignette.enabled
-                    and abs(pp.pcvignette.strength) > 1e-6)
-                or (pp.vignetting.enabled and pp.vignetting.amount != 0))
-    if name == "textureboost":
-        # a region plans a step only with a strength (textureboost.py:42)
-        return any(params["strength"] != 0 for params, _ in (
-            regions_from_extra(pp, "TextureBoost", _TEXTUREBOOST_KEYS)
-            or ()))
-    if name == "logenc":
-        return pp.logenc.enabled
-    if name == "labadj":
-        # an identity L curve, a and b curves and no contrast, brightness
-        # or chromaticity plan nothing (ops/labadj.py:127-128)
-        from art_tpu_torch.color.curves import DiagonalCurve
-
-        lc = pp.lab_curve
-        return lc.enabled and bool(
-            lc.contrast or lc.brightness or lc.chromaticity != 0
-            or not all(DiagonalCurve(c).is_identity()
-                       for c in (lc.lcurve, lc.acurve, lc.bcurve)))
-    if name == "bw":
-        return pp.bw.enabled
-    return False  # dcplook_*: needs a DCP input profile (refused earlier)
+    report_auto("log", (gain, black_ev, white_ev))
+    if pp.logenc.auto_gain:
+        pp.logenc.gain = gain
+        pp.logenc.black_ev = black_ev
+        pp.logenc.white_ev = white_ev
+    pp.logenc.auto_gain = False
+    pp.logenc.auto_gray = False
+    return pp
 
 
 def _plan_raw_steps(frame, pp):
@@ -419,7 +355,7 @@ def fit_op_planes(data, steps, dims, shape, late_crop, crop):
                 data[f"op:{name}"] = _map_tree(data[f"op:{name}"], fn)
 
 
-def plan(frame, pp, fast=False, out_u8=False):
+def plan(frame, pp, fast=False, out_u8=False, device="cuda"):
     """ProcParams + frame -> (PipelineConfig, data) for the ported slice:
     a Bayer raw frame (hot/dead pixels, green equilibration, raw CA;
     AMaZE, RCD or bilinear/fast demosaic) or an X-Trans one, camera or
@@ -430,7 +366,9 @@ def plan(frame, pp, fast=False, out_u8=False):
     resize: the demosaic downgrades, the image is resized right after
     the raw stage and every later step runs at output scale. out_u8
     plans the reference's device-side 8-bit output: interleaved
-    (H, W, 3) uint8 in place of (3, H, W) float planes.
+    (H, W, 3) uint8 in place of (3, H, W) float planes. device: where the
+    automatic log encoding renders its neutral develop (the device of
+    the develop that plans). pp itself is not changed.
     Anything else raises NotImplementedError."""
     if not frame.is_raw:
         _unported("non-raw input")
@@ -508,6 +446,7 @@ def plan(frame, pp, fast=False, out_u8=False):
     data["cam2work"] = (cs.MATRICES_XYZ_TO_RGB[icc_working]
                         @ xyz_cam).astype(np.float32)
     do_clip = not (pp.exposure.enabled and pp.exposure.hrmode != "Off")
+    pp = _auto_log(frame, pp, device)
     _check_geometry(frame, pp)
 
     # coarse rotation and flips: an odd quarter turn swaps the dims
@@ -569,8 +508,8 @@ def plan(frame, pp, fast=False, out_u8=False):
     steps = []
     for name in ops_pkg.ALL_STEPS:
         if name not in ops_pkg.PORTED:
-            if _op_active(name, pp, frame):
-                _unported(f"op {name!r}")
+            # the DCP look: planned only from a DCP input profile, which
+            # _check_raw_params refuses
             continue
         planned = ops_pkg.plan_step(name, pp, ctx)
         if planned is None:
@@ -869,11 +808,14 @@ def crop_result(out, config: PipelineConfig):
 
 
 def data_to_torch(data, device):
-    """A planner's data (numpy arrays and scalars in nested dicts, from
-    this package's plan or the reference's) as float32/int tensors on
-    `device`; float64 becomes float32 as under JAX's default x32."""
+    """A planner's data (numpy arrays and scalars in nested dicts and
+    lists, from this package's plan or the reference's) as float32/int
+    tensors on `device`; float64 becomes float32 as under JAX's default
+    x32."""
     if isinstance(data, dict):
         return {k: data_to_torch(v, device) for k, v in data.items()}
+    if isinstance(data, (list, tuple)):  # the spot entries' windows
+        return [data_to_torch(v, device) for v in data]
     a = np.asarray(data)
     if a.dtype == np.float64:
         a = a.astype(np.float32)
@@ -963,7 +905,7 @@ def develop(frame, pp, device="cuda", fast=False, out_u8=False):
     asks for the CPU): encoded (3, H, W) float32 in [0, 1], or (H, W, 3)
     uint8 with out_u8, as a tensor on that device. fast: the fast export
     (-q), as `plan` takes it."""
-    config, data = plan(frame, pp, fast=fast, out_u8=out_u8)
+    config, data = plan(frame, pp, fast=fast, out_u8=out_u8, device=device)
     out = build_run(config)(upload(frame, device), data_to_torch(data, device))
     return crop_result(out, config)
 
@@ -1038,7 +980,7 @@ def process_image(path_or_frame, pp, fast=False, output_path=None,
     u8 = (bits == 8 and gamut_warn is None and output_path is not None
           and str(output_path).lower().endswith((".jpg", ".jpeg")))
     with _Collect() as auto_report:
-        config, data = plan(frame, pp, fast=fast, out_u8=u8)
+        config, data = plan(frame, pp, fast=fast, out_u8=u8, device=device)
     t = _tick("plan", t)
     inp = upload(frame, device)
     data_d = data_to_torch(data, device)

@@ -88,6 +88,18 @@ B6 once, its 256x256 tile fits, as in the reference), as new_path runs;
 B7 with no epilogue and B4 with no raw head against their plain
 versions on the tensors E1 and E2 feed them; and 512x2048 develops with
 HLRecovery=Color and ColorSoft against the CPU.
+Then the look (`look_phase`), counts reset before each path: L1, a
+colour grade on the flagship frame (`l1_pp`: two spot entries, HSL,
+defringe, colour correction in three regions, smoothing with NLMeans on
+Y, U and V under a parametric mask and a glow, grain, the gradients,
+texture boost, automatic log encoding, Lab adjustments), B1, B2, B3, B4
+(no raw head) and B7 (no epilogue) once and B6 three times; L2, a
+scanned colour negative (`l2_frame`, `l2_pp`: film negative, Fattal, a
+FilmLike curve, B&W), B1-B3 once; each as new_path runs, with its
+512x2048 develop against the CPU; B6 against its plain version on the
+luma and chroma planes L1's smoothing feeds it; Fattal's 49-point
+median at 24 MP beside a 9-point one; and each of the seven tone-curve
+modes in a 512x768 develop against the CPU.
 Then one JSON line of per-kernel results (time, plain time, bound) and
 last the line {"ok": true, "device": {...}}. Any failure raises
 (non-zero exit, no result lines); so does a machine without CUDA.
@@ -333,6 +345,194 @@ def e3_pp(pp=None):
     pp = config3_pp(pp)
     pp.denoise.luminance_detail = 30.0
     return pp
+
+
+# L1, a colour grade on the flagship: the keys as
+# art_tpu/params/procparams.py spells them and the region tools' suffixed
+# keys. Mask curves: a parametric hue mask on the reds and yellows
+_HUE_MASK = "1;0.05;1;0.35;0.35;0.2;1;0.35;0.35;0.45;0;0.35;0.35;"
+_L1_LOOK = """[HSL Equalizer]
+Enabled=true
+HCurve=1;0.166666667;0.55;0.35;0.35;0.5;0.45;0.35;0.35;
+SCurve=1;0.33;0.7;0.35;0.35;0.83;0.4;0.35;0.35;
+LCurve=1;0.0;0.55;0.35;0.35;0.66;0.45;0.35;0.35;
+Smoothing=3
+
+[ColorCorrection]
+Enabled=true
+Mode_1=RGB
+SlopeR_1=1.1
+SlopeB_1=0.92
+OffsetG_1=0.01
+PowerR_1=0.95
+Mode_2=HSL
+SlopeH_2=30
+SlopeS_2=40
+SlopeL_2=5
+OffsetH_2=200
+OffsetS_2=20
+PowerH_2=90
+PowerS_2=10
+ParametricMaskEnabled_2=true
+HueMask_2={hue}
+Mode_3=Jzazbz
+Slope_3=1.05
+Offset_3=0.002
+Power_3=1.1
+A_3=0.1
+B_3=-0.05
+InSaturation_3=10
+OutSaturation_3=-5
+HueShift_3=8
+
+[Smoothing]
+Enabled=true
+Mode_1=3
+Channel_1=2
+Iterations_1=1
+NLStrength_1=40
+NLDetail_1=50
+ParametricMaskEnabled_1=true
+HueMask_1={hue}
+Mode_2=2
+Sigma_2=4
+Iterations_2=2
+Falloff_2=2
+MaskOpacity_2=0.3
+
+[Grain]
+Enabled=true
+ISO=400
+Strength=25
+
+[Defringing]
+Enabled=true
+Radius=2
+Threshold=25
+
+[Gradient]
+Enabled=true
+Degree=20
+Feather=40
+Strength=0.8
+CenterX=10
+CenterY=-20
+
+[PCVignette]
+Enabled=true
+Strength=0.6
+Feather=50
+Roundness=30
+
+[Vignetting Correction]
+Enabled=true
+Amount=-20
+Radius=60
+Strength=2
+
+[TextureBoost]
+Enabled=true
+Strength_1=0.6
+DetailThreshold_1=1.5
+Iterations_1=1
+
+[LogEncoding]
+Enabled=true
+
+[Luminance Curve]
+Enabled=true
+Chromaticity=15
+LCurve=1;0;0;0.3;0.25;0.7;0.78;1;1;
+"""
+
+
+def l1_arp(h, w):
+    """L1's tools beyond the flagship profile, for a (h, w) frame: two
+    spot entries (the second's target overlapping the first's source),
+    HSL with all three curves, colour correction in three regions (RGB,
+    HSL under a parametric mask, Jzazbz), Smoothing (NLMeans on Y, U and
+    V under a parametric mask; a gaussian glow), grain (ISO 400, strength
+    25), defringe, the graduated filter, PC vignette and vignetting
+    filter, texture boost in one region, log encoding with its automatic
+    gain and gray, and Lab adjustments (an L curve and chromaticity)."""
+    r = max(3, min(h, w) // 100)
+    sx, sy = w * 3 // 10, h * 3 // 10
+    spots = (f"[Spot Removal]\nEnabled=true\n"
+             f"Spot1={sx};{sy};{w // 2};{h // 2};{r};0.5;1;2\n"
+             f"Spot2={w * 7 // 10};{h * 6 // 10};{sx + r};{sy};{r};1;0.8;4\n")
+    return spots + _L1_LOOK.format(hue=_HUE_MASK)
+
+
+def l1_pp(h, w, pp=None):
+    """L1's ProcParams for a (h, w) frame, on pp (either package's): the
+    flagship profile (AMaZE, denoise 20/20, the Neutral curve) and
+    `l1_arp`."""
+    pp = flagship_pp("amaze", pp)
+    pp.apply_arp_text(l1_arp(h, w))
+    return pp
+
+
+L2_ARP = """[Film Negative]
+Enabled=true
+
+[FattalToneMapping]
+Enabled=true
+Threshold=30
+Amount=20
+
+[ToneCurve]
+Enabled=true
+CurveMode=FilmLike
+Curve=1;0;0;0.25;0.18;0.6;0.68;1;1;
+
+[Black & White]
+Enabled=true
+Setting=RGB-Rel
+Filter=Yellow
+GammaRed=10
+GammaBlue=-10
+"""
+
+
+def l2_pp(pp=None):
+    """L2, a scanned colour negative in mono, on pp (either package's;
+    default a fresh one of this package's): AMaZE, film negative at its
+    automatic input, Fattal (threshold 30, amount 20), a FilmLike curve
+    with a user curve, B&W; no denoise."""
+    if pp is None:
+        from art_tpu_torch.params import ProcParams
+
+        pp = ProcParams()
+    pp.raw.bayer.method = "amaze"
+    pp.apply_arp_text(L2_ARP)
+    return pp
+
+
+def l2_frame(h, w, seed=0, cell=16, grain=0.02):
+    """A colour negative of a scene: the flagship's uniform values of
+    seed `seed` on a grid every `cell` pixels, bilinear between them,
+    with `grain` of multiplicative gaussian grain, inverted and tinted
+    (R x0.9, G x0.6, B x0.4) before mosaicing. (The flagship's
+    per-pixel noise as a negative makes Fattal's Poisson solve, the
+    reference's as the port's, overflow float32 from about 6 MP.)"""
+    from art_tpu_torch.core.image import synthesize_bayer
+
+    rng = np.random.default_rng(seed)
+    coarse = rng.uniform(0.02, 0.95, size=(3, h // cell + 2,
+                                           w // cell + 2)).astype(np.float32)
+    axes = []
+    for n, m in ((h, coarse.shape[1]), (w, coarse.shape[2])):
+        src = np.clip((np.arange(n) + 0.5) / cell, 0.0, m - 1.0)
+        i0 = np.minimum(np.floor(src).astype(np.int64), m - 2)
+        axes.append((i0, (src - i0).astype(np.float32)))
+    (y0, fy), (x0, fx) = axes
+    rows = (coarse[:, y0] * (1 - fy[:, None]) + coarse[:, y0 + 1]
+            * fy[:, None])
+    rgb = rows[:, :, x0] * (1 - fx) + rows[:, :, x0 + 1] * fx
+    rgb *= 1.0 + grain * rng.standard_normal((3, h, w), dtype=np.float32)
+    tint = np.array([0.9, 0.6, 0.4], np.float32)[:, None, None]
+    return synthesize_bayer(np.clip(1.0 - rgb, 0.0, 1.0) * tint,
+                            pattern="RGGB")
 
 
 def path_pp(label):
@@ -606,9 +806,10 @@ def drive(label, pp, frame, kernels_of_path, shape=None, fast=False):
 
 def new_path(label, pp, frame, kernels_of_path, small_frame, small_pp=None,
              shape=None, fast=False):
-    """A path of configs 2 and 4 and the export: one develop with the
-    counts from 0, which must launch each kernel of the path once and no
-    other, and print the bad pixels flagged and the green sites
+    """A path of configs 2 and 4, the export and the look: one develop
+    with the counts from 0, which must launch each kernel of the path
+    once (or as often as a dict kernels_of_path says) and no other, and
+    print the bad pixels flagged and the green sites
     equilibrated; the median develop, the host plan and the device
     program alone with peak memory by stage, device ms by stage; then a
     develop of small_frame (with small_pp, default pp) on the card
@@ -620,7 +821,10 @@ def new_path(label, pp, frame, kernels_of_path, small_frame, small_pp=None,
     small_pp = pp if small_pp is None else small_pp
     with raw_decisions() as dec:
         launches = drive(label, pp, frame, kernels_of_path, shape, fast)
-    want = {k: int(k in kernels_of_path) for k in launches}
+    if isinstance(kernels_of_path, dict):
+        want = {k: kernels_of_path.get(k, 0) for k in launches}
+    else:
+        want = {k: int(k in kernels_of_path) for k in launches}
     if launches != want:
         raise RuntimeError(f"{label}: launches {launches}, want {want}")
     if dec["hotdead"]:
@@ -843,6 +1047,31 @@ def b6_case(label, y, maskinv):
     ms = gpu_ms(lambda: nk.nlmeans(y, maskinv), 5)
     log(f"B6 on {label}: kernel equals plain {equal}, kernel {ms:.3f} ms")
     return equal
+
+
+def b6_entry(name, key, launches, y, maskinv):
+    """B6 against its plain version on one plane, as a kernels-line
+    entry. The plain version (each offset pair sharing its patch box) has
+    no select and no repeat, so its operation count is linear in the
+    rows: counted on a 1024-row slice of these inputs and scaled per row
+    (the slice's edge rows add under 1%)."""
+    from art_tpu_torch.opcount import needed_ops
+    from art_tpu_torch.ops import nlmeans_kernel as nk
+
+    k_out = nk.nlmeans(y, maskinv)
+    p_out = nk.nlmeans_plain(y, maskinv)
+    rows = min(1024, y.shape[0])
+    _, ops6, naive6 = needed_ops(lambda: nk.nlmeans_plain(
+        y[:rows].contiguous(), maskinv[:rows].contiguous()))
+    scale = y.shape[0] / rows
+    torch.cuda.synchronize()
+    return kernel_entry(
+        name, key, "art_tpu_torch/csrc/nlmeans.cu",
+        "art_tpu/ops/nlmeans_pallas.py:83", {key: launches["b6"]}, k_out,
+        p_out, gpu_ms(lambda: nk.nlmeans(y, maskinv), 10),
+        gpu_ms(lambda: nk.nlmeans_plain(y, maskinv), 3),
+        bound((y, maskinv), (k_out,), (ops6 * scale, naive6 * scale)),
+        note=f"; counted on {rows} of {y.shape[0]} rows, scaled")
 
 
 def clamp_share(y, maskinv):
@@ -1412,6 +1641,72 @@ def export_phase(smi_line, tmp, entries):
     return stats
 
 
+TONE_MODES = ("Standard", "FilmLike", "Luminance", "WeightedStd",
+              "SatAndValueBlending", "Perceptual", "Neutral")
+
+
+def look_phase(smi_line, entries):
+    """The look paths on the card, counts reset before each: L1, a colour
+    grade on the flagship frame (`l1_pp`: B1, B2, B3 and B4 with no raw
+    head once, B6 three times on smoothing's Y, U and V, B7 with no
+    epilogue once) and L2, a scanned colour negative (`l2_frame`,
+    `l2_pp`: B1-B3 once), as new_path runs them, with 512x2048 develops
+    against the CPU; B6 on L1's luma and chroma planes against its plain
+    version (entries added to `entries`); Fattal's 49-point shadow median
+    timed beside a 9-point one; and each tone-curve mode at 512x768
+    against the CPU. Returns the comparisons."""
+    from art_tpu_torch.ops import denoise, fattal
+    from art_tpu_torch.pipeline import develop as tdev
+
+    log(f"---- look phase ({smi_line})")
+    stats = {}
+    frame = flagship_frame(*FRAME)
+    pp = l1_pp(*FRAME)
+    t0 = time.monotonic()
+    config, _ = tdev.plan(frame, pp)
+    log(f"L1 plan (with the auto log render) {time.monotonic() - t0:.3f} "
+        f"s: steps {[st[0] for st in config.steps]}, fusion gates "
+        f"{tdev.fusion_gates(config)}")
+    l1 = {"b1": 1, "b2": 1, "b3": 1, "b4": 1, "b6": 3, "b7": 1}
+    stats["L1"] = new_path("L1", pp, frame, l1, flagship_frame(*SMALL, seed=5),
+                           l1_pp(*SMALL))
+    with record_args(denoise, "nlmeans") as calls:
+        tdev.develop(frame, pp)
+    if len(calls) != 3:
+        raise RuntimeError(f"L1: B6 ran {len(calls)} times, want 3")
+    for (args, _), plane in zip(calls[:2], ("luma", "chroma")):
+        y, maskinv = args
+        log(f"L1 smoothing's {plane} plane into B6: range "
+            f"{float(y.min()):.5f} .. {float(y.max()):.5f}")
+        entries[f"b6_{plane}"] = b6_entry(
+            f"nlmeans (B6, L1 smoothing {plane})", f"b6_{plane}",
+            {"b6": 3}, y, maskinv)
+    del calls, y, maskinv, frame
+
+    frame = l2_frame(*FRAME)
+    stats["L2"] = new_path("L2", l2_pp(), frame, ("b1", "b2", "b3"),
+                           l2_frame(*SMALL, seed=5))
+    # Fattal's shadow median at 24 MP: 49 points (7x7) against 9
+    y = torch.rand(FRAME, device="cuda") * 100.0
+    for name in ("_MED_7X7", "_MED_3X3"):
+        pts = getattr(fattal, name)
+        ms = gpu_ms(lambda: fattal._median_pts(y, pts), 3)
+        log(f"Fattal's {len(pts)}-point median of a {FRAME[0]}x{FRAME[1]} "
+            f"plane: {ms:.2f} ms (CUDA events, mean of 3)")
+    del y, frame
+
+    small = flagship_frame(*SMALL2, seed=5)
+    for mode in TONE_MODES:
+        ppm = flagship_pp("amaze")
+        ppm.tone_curve.curve_mode = ppm.tone_curve.curve_mode2 = mode
+        g = tdev.develop(small, ppm).cpu()
+        c = tdev.develop(small, ppm, device="cpu")
+        stats[f"curve {mode}"] = parity(g, c)
+        log(f"{SMALL2[0]}x{SMALL2[1]} tone curve {mode} develop, card vs "
+            f"CPU plain path: {stats[f'curve {mode}']}")
+    return stats
+
+
 def _leaves(d):
     for k, v in d.items():
         if isinstance(v, dict):
@@ -1631,25 +1926,7 @@ def main():
     # B6 on B5's Y (the guided filter leaves Y alone) and its maskinv
     y = b5_k[0]
     maskinv = denoise.nl_maskinv(y, dn3["nl_h2"], dn3["nl_detail"])
-    b6_k = nk.nlmeans(y, maskinv)
-    b6_p = nk.nlmeans_plain(y, maskinv)
-    # the plain version (each offset pair sharing its patch box) has no
-    # select and no repeat, so its count is linear in the rows: count a
-    # 1024-row slice of these inputs and scale per row (the slice's edge
-    # rows add under 1%)
-    rows = 1024
-    _, ops6, naive6 = needed_ops(lambda: nk.nlmeans_plain(
-        y[:rows].contiguous(), maskinv[:rows].contiguous()))
-    scale = y.shape[0] / rows
-    torch.cuda.synchronize()
-    entries["b6"] = kernel_entry(
-        "nlmeans (B6)", "b6", "art_tpu_torch/csrc/nlmeans.cu",
-        "art_tpu/ops/nlmeans_pallas.py:83", launches3, b6_k, b6_p,
-        gpu_ms(lambda: nk.nlmeans(y, maskinv), 10),
-        gpu_ms(lambda: nk.nlmeans_plain(y, maskinv), 3),
-        bound((y, maskinv), (b6_k,), (ops6 * scale, naive6 * scale)),
-        note=f"; counted on {rows} of {y.shape[0]} rows, scaled")
-    del b6_p, b6_k
+    entries["b6"] = b6_entry("nlmeans (B6)", "b6", launches3, y, maskinv)
     one_launch_ms("B6", lambda: nk.nlmeans(y, maskinv), "nlmeans_walk")
     # every box 0 (every weight 1), and a maskinv where min(., 50) clamps
     b6_edges = {"a constant plane": b6_case(
@@ -1683,6 +1960,9 @@ def main():
     # ---- the everyday export: E1, E2 (-q through the CLI) and E3
     with tempfile.TemporaryDirectory() as tmp:
         new_stats.update(export_phase(smi_line, tmp, entries))
+
+    # ---- the look: L1 (a colour grade) and L2 (a colour negative)
+    new_stats.update(look_phase(smi_line, entries))
 
     failures = [f"B6 on {k} disagrees with its plain version"
                 for k, ok in b6_edges.items() if not ok]

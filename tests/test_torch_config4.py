@@ -355,8 +355,7 @@ def test_unsuffixed_region_groups_plan_no_step(group):
     assert cfg.steps == ref_cfg.steps == ()
     out = tdev.develop(frame, ours, device="cpu")
     assert out.shape == (3, 64, 96)
-    # with a region key, the reference plans the op: the port's own
-    # local contrast, a refusal by name for the other two
+    # with a region key, the reference plans the op, and so does the port
     ours, ref = _pps(text.replace("Contrast=30", "Contrast_1=30").replace(
         "Strength=40", "Strength_1=40").replace("Mode=1", "Mode_1=1"))
     ours.raw.bayer.method = ref.raw.bayer.method = "bilinear"
@@ -364,11 +363,7 @@ def test_unsuffixed_region_groups_plan_no_step(group):
     assert names == [{"Local Contrast": "localcontrast",
                       "TextureBoost": "textureboost",
                       "Smoothing": "smoothing"}[group]]
-    if group == "Local Contrast":
-        assert [s[0] for s in tdev.plan(frame, ours)[0].steps] == names
-    else:
-        with pytest.raises(NotImplementedError, match=names[0]):
-            tdev.plan(frame, ours)
+    assert [s[0] for s in tdev.plan(frame, ours)[0].steps] == names
 
 
 @pytest.fixture(scope="module")

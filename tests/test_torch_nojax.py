@@ -4,8 +4,9 @@ and bilinear) and config 3 (RCD, non-fused denoise, impulse); another
 that also refuses `PIL` and `cv2` (absent on the card's machine) runs
 `cli.main` from a DNG to a JPEG, and through the batch queue with
 `--devices 2`; a third, refusing all four, develops the fast export of
-E3 (config 3's denoise, whole-plane) and E1's settings (highlights,
-sharpening, rotation, crop, resize, Adobe RGB) at a small size; no
+E3 (config 3's denoise, whole-plane), E1's settings (highlights,
+sharpening, rotation, crop, resize, Adobe RGB) and the look paths L1
+(with its automatic log encoding and grain) and L2 at a small size; no
 source file of the package (`parallel/` and the export's modules among
 them), nor
 chip_smoke.py, imports any of them or reads a file under art_tpu/; and
@@ -150,6 +151,12 @@ assert tuple(out.shape) == (3, 48, 80), out.shape
 out = tdev.develop(frame, export_pp(96, 160), device="cpu")
 assert tuple(out.shape) == (3, 55, 33), out.shape
 assert bool(torch.isfinite(out).all())
+from chip_smoke import flagship_frame, l1_pp, l2_frame, l2_pp
+for frame, pp in ((flagship_frame(96, 160, seed=5), l1_pp(96, 160)),
+                  (l2_frame(96, 160, seed=5), l2_pp())):
+    out = tdev.develop(frame, pp, device="cpu")
+    assert tuple(out.shape) == (3, 96, 160), out.shape
+    assert bool(torch.isfinite(out).all())
 assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
 print("EXPORT-STANDALONE-OK")
 '''
@@ -205,7 +212,12 @@ def test_no_source_file_imports_jax():
         assert os.path.join("art_tpu_torch", "parallel", name) in scanned
     for name in ("ops/sharpen.py", "ops/resize.py", "ops/dct_detail.py",
                  "raw/hilite.py", "raw/hilite_inpaint.py",
-                 "lens/exifcorr.py"):
+                 "lens/exifcorr.py", "ops/labadj.py", "ops/bw.py",
+                 "ops/hsl.py", "ops/defringe.py", "ops/logenc.py",
+                 "ops/gradients.py", "ops/textureboost.py",
+                 "ops/colorcorrection.py", "ops/smoothing.py", "ops/spot.py",
+                 "ops/filmneg.py", "ops/fattal.py", "color/ciecam02.py",
+                 "core/prng.py", "pipeline/autos.py"):
         assert os.path.join("art_tpu_torch", name) in scanned
     offenders = []
     for path in _port_sources():

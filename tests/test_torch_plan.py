@@ -61,6 +61,8 @@ def _leaves(d, prefix=""):
     for k, v in d.items():
         if isinstance(v, dict):
             yield from _leaves(v, f"{prefix}{k}/")
+        elif isinstance(v, list):  # the spot entries' windows
+            yield from _leaves(dict(enumerate(v)), f"{prefix}{k}/")
         else:
             yield f"{prefix}{k}", v
 
@@ -116,17 +118,24 @@ def _set(pp, path, value):
     # a Bayer method still unported (AMaZE and RCD are ported)
     ({"raw.bayer.method": "lmmse"}, "lmmse"),
     ({"wb.method": "Auto"}, "white balance"),
-    # NLMeans in the denoise is ported; the Smoothing op that also runs
-    # it (ops/smoothing.py) is not: a region in NLMeans mode (the
-    # reference reads only suffixed region keys)
-    ({"extra": {"Smoothing": {"Enabled": "true", "Mode_1": "3"}}},
-     "smoothing"),
+    # the Smoothing op's NLMeans region is ported; an area mask on it
+    # (the reference rasterises it with OpenCV) is not
+    ({"extra": {"Smoothing": {"Enabled": "true", "Mode_1": "3",
+                              "AreaMaskEnabled_1": "true",
+                              "AreaMask0Type_1": "rectangle"}}},
+     "area mask"),
     # sharpening is ported; a PSF kernel from an image file is not (its
     # decoder), where the file exists
     ({"sharpening.enabled": True, "sharpening.method": "psf",
       "sharpening.psf_kernel": "{tmp}/psf.png"}, "PSF image kernel"),
-    ({"tone_curve.curve_mode": "Standard",
-      "tone_curve.curve_mode2": "Standard"}, "tone curve mode"),
+    # the masks of the region ops that need a rasteriser or a file
+    ({"extra": {"ColorCorrection": {
+        "Enabled": "true", "Mode_1": "RGB", "DrawnMaskEnabled_1": "true",
+        "DrawnMaskStrokes_1": "1;0.1;1;1;0.5;0.5;"}}}, "drawn mask"),
+    ({"extra": {"TextureBoost": {
+        "Enabled": "true", "Strength_1": "0.5",
+        "ExternalMaskEnabled_1": "true",
+        "ExternalMaskFilename_1": "{tmp}/mask.png"}}}, "external mask"),
     # the transforms beside the ported crop, flips and resize
     ({"resize.enabled": True, "rotate.enabled": True, "rotate.degree": 3.0},
      "rotate"),
@@ -150,10 +159,11 @@ def _set(pp, path, value):
     ({"raw.ff_enabled": True, "raw.ff_autoselect": True}, "flat field"),
     ({"raw.ff_enabled": True, "raw.ff_embedded": True,
       "frame.filename": "{tmp}/frame.dng"}, "gain map"),
-], ids=["amaze", "auto-wb", "nlmeans", "psf-image", "std-curve",
-        "rotate-resize", "perspective", "distortion", "cfa-linedn", "out-icc",
-        "lcp-file", "in-dcp", "in-icc", "df-file", "df-auto", "ff-file",
-        "ff-auto", "ff-embedded"])
+], ids=["amaze", "auto-wb", "nlmeans", "psf-image", "cc-drawn-mask",
+        "texture-external-mask", "rotate-resize", "perspective",
+        "distortion", "cfa-linedn", "out-icc", "lcp-file", "in-dcp",
+        "in-icc", "df-file", "df-auto", "ff-file", "ff-auto",
+        "ff-embedded"])
 def test_unported_steps_raise_by_name(frame, tmp_path, changes, match):
     # "{tmp}/..." names a file the test writes (the reference would apply
     # it), "{missing}/..." one that does not exist
@@ -166,15 +176,21 @@ def test_unported_steps_raise_by_name(frame, tmp_path, changes, match):
 
 def _apply(pp, frame, changes, tmp_path):
     """Set `changes` on pp (and "frame.filename" on a copy of frame),
-    writing an empty file for each "{tmp}/..." value; returns the
-    frame."""
-    for path, value in changes.items():
+    writing an empty file for each "{tmp}/..." value (also inside a
+    group of `extra`); returns the frame."""
+    def resolve(value):
+        if isinstance(value, dict):
+            return {k: resolve(v) for k, v in value.items()}
         if isinstance(value, str) and value.startswith("{tmp}"):
             value = str(tmp_path / value[len("{tmp}/"):])
             with open(value, "wb"):
                 pass
         elif isinstance(value, str) and value.startswith("{missing}"):
             value = str(tmp_path / "missing" / value[len("{missing}/"):])
+        return value
+
+    for path, value in changes.items():
+        value = resolve(value)
         if path == "frame.filename":
             frame = dataclasses.replace(frame, filename=value)
         else:
