@@ -4,11 +4,17 @@
 multiplies by the scalar's reciprocal, which rounds differently from an
 IEEE division; `rdiv` divides a scalar by a tensor, which PyTorch
 rounds as a reciprocal and a product. `cbrt` stands in for `jnp.cbrt`, which PyTorch lacks.
-`mat3` applies a 3x3 matrix as explicit multiply-adds.
+`mat3` applies a 3x3 matrix as explicit multiply-adds. `interp` is
+`jnp.interp`'s formula, constant ends included. `fsqrt`, `cumsum32` and
+`mean32` round alike on the card and the CPU, where PyTorch's own
+float32 versions do not: its CPU sqrt is not the correctly rounded root
+(for ~0.5% of values), its CPU cumsum accumulates in float64 and its
+CUDA scan in float32, and the two reduce a mean in different orders.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -38,3 +44,47 @@ def rdiv(a, b):
     """a / b as an IEEE float division for a Python scalar a and a tensor
     b (PyTorch's `a / b` multiplies by b's reciprocal instead)."""
     return torch.full_like(b, a) / b
+
+
+# jnp.interp's threshold below which a knot interval counts as empty
+_INTERP_EPS = float(np.spacing(np.finfo(np.float32).eps))
+
+
+def interp(x, xp, fp):
+    """jnp.interp(x, xp, fp) for float32 tensors (JAX's own formula):
+    the interval from a right-sided search clipped to [1, n - 1], the
+    slope as (x - xp[i-1]) / dx * df, fp[0] below xp[0] and fp[-1]
+    above xp[-1]."""
+    n = xp.shape[0]
+    i = torch.clamp(torch.searchsorted(xp, x.contiguous(), right=True),
+                    1, n - 1)
+    f0 = fp[i - 1]
+    df = fp[i] - f0
+    dx = xp[i] - xp[i - 1]
+    delta = x - xp[i - 1]
+    dx0 = torch.abs(dx) <= _INTERP_EPS
+    f = torch.where(dx0, f0, f0 + (delta / torch.where(
+        dx0, torch.ones_like(dx), dx)) * df)
+    f = torch.where(x < xp[0], fp[0], f)
+    return torch.where(x > xp[-1], fp[-1], f)
+
+
+def fsqrt(t):
+    """sqrt of a float32 tensor, correctly rounded on every device (the
+    float64 root rounds to the float32 one)."""
+    return torch.sqrt(t.double()).to(t.dtype)
+
+
+def cumsum32(a, dim):
+    """Running sums along dim, accumulated in float64 and stored as a's
+    dtype, on every device (what PyTorch's CPU cumsum of float32 does)."""
+    return torch.cumsum(a, dim, dtype=torch.float64).to(a.dtype)
+
+
+def mean32(a, dim=None, keepdim=False):
+    """The mean (of all of a, or along dim) in float64, as a's dtype: the
+    same value on every device."""
+    if dim is None:
+        return torch.mean(a, dtype=torch.float64).to(a.dtype)
+    return torch.mean(a, dim, keepdim=keepdim,
+                      dtype=torch.float64).to(a.dtype)

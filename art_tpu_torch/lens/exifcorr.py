@@ -1,10 +1,10 @@
 """Lens corrections embedded in camera metadata (a copy of the host side
 of ``art_tpu/lens/exifcorr.py``; lensexif.cc ExifLensCorrection).
 
-The port applies none of them: the planner asks `for_frame` whether the
-reference would find a correction for a frame (LcMode=exif), and refuses
-the lens profile only then. Sources, each reduced to a spline or a DNG
-model as in the reference: Sony makernote tags 0x2011-0x2013, Fuji RAF
+The planner asks `for_frame` for a frame's correction (LcMode=exif) and
+hands its coefficients to the raw vignette and the geometry transform
+(`pipeline/transform.py::_exif_map`). Sources, each reduced to a spline
+or a DNG model as in the reference: Sony makernote tags 0x2011-0x2013, Fuji RAF
 records 0x9501-0x9503, Olympus 0x150a/0x150c (from a ``makernotes``
 dict a decoder attaches), DNG OpcodeList3 (WarpRectilinear,
 FixVignetteRadial) and a Sony makernote walk of the file.

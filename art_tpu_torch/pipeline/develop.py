@@ -4,23 +4,28 @@
 dict of numpy arrays, as the reference's planner does, restricted to the
 steps this package has ported; any other step or parameter raises
 NotImplementedError naming it. `build_run` returns the device program
-for a config, in the reference's order: u16 widen, black/scale; on a
-Bayer mosaic the hot/dead filter, green equilibration and raw CA
-correction; AMaZE (kernels B1-B3), RCD or bilinear demosaic, or an X-Trans
-method; highlight recovery (ColorSoft, Color); the raw head (WB
+for a config, in the reference's order: u16 widen; the raw calibration
+(dark frame, embedded gain map, flat field); black/scale; the lens
+vignette gains (LCP, metadata or lensfun); on a Bayer mosaic the
+.badpixels file's sites, the hot/dead filter, green equilibration, CFA
+line denoise, the PDAF line filter and raw CA correction; AMaZE
+(kernels B1-B3), RCD or bilinear demosaic, or an X-Trans method;
+highlight recovery (ColorSoft, Color); the raw head (WB
 multipliers, Blend, clip, cam2work), fused into the denoise kernel B4
 when the reference's `fuse_head` gate opens, else applied on its own,
 with fast export's early Lanczos resize before its matrix; the stage-0
 ops: the denoise (B4, or B5 and B6 on the non-fused path, or their
 whole-plane versions below one tile) and dehaze; the coarse rotation
-and flips and the crop; the stage 1-3 ops: the tone equalizer,
-sharpening, impulse denoise, the film simulation, the tone curve and
-local contrast; the Lanczos resize and post-resize sharpening; then the
-output transform (work2out, clip, TRC), fused into the Neutral
-tone-curve kernel B7 when the `fuse_tail` gate opens, else applied on
-its own; and for an 8-bit JPEG, the conversion to
-interleaved uint8 (`out_u8`). `data_to_torch` moves either planner's data
-to a device, so the reference's own plan can drive this runner.
+and flips, the geometric transform (rotation, perspective, distortion,
+CA, lens maps: `pipeline/transform.py`) and the crop; the stage 1-3
+ops: the tone equalizer, sharpening, impulse denoise, the film
+simulation, the tone curve and local contrast; the Lanczos resize and
+post-resize sharpening; then the output transform (work2out, clip,
+TRC), fused into the Neutral tone-curve kernel B7 when the `fuse_tail`
+gate opens, else applied on its own; and for an 8-bit JPEG, the
+conversion to interleaved uint8 (`out_u8`). `data_to_torch` moves
+either planner's data to a device, so the reference's own plan can
+drive this runner.
 `develop` chains plan -> device -> `crop_result`, and `process_image`
 decodes a raw file, develops it and saves the result with its metadata.
 The staged pieces between them (`host_input`, `device_input`,
@@ -42,12 +47,15 @@ from art_tpu_torch.settings import PAD_MULTIPLE
 from art_tpu_torch import ops as ops_pkg
 from art_tpu_torch.color import colorspaces as cs
 from art_tpu_torch.color.iccstore import output_trc
-from art_tpu_torch.core.fmath import fdiv, mat3
+from art_tpu_torch.core.fmath import fdiv, fsqrt, interp, mat3
 from art_tpu_torch.core.image import (MAXVAL, bayer_channel_masks,
                                      pad_to_multiple)
 from art_tpu_torch.core.profile import span
 from art_tpu_torch.demosaic import PORTED as PORTED_DEMOSAICS
 from art_tpu_torch.ops.resize import apply_resize, resize_plan
+from art_tpu_torch.pipeline.transform import (apply_transform,
+                                              needs_transform,
+                                              plan_transform)
 from art_tpu_torch.raw import preprocess as rawpre
 from art_tpu_torch.raw import wb as wbmod
 
@@ -127,9 +135,10 @@ def _auto_log(frame, pp, device):
     return pp
 
 
-def _plan_raw_steps(frame, pp):
-    """The planned raw steps before the demosaic, as the reference plans
-    them (develop.py:215-250): (hotdead, green_eq, ca_mode). Green
+def _plan_raw_steps(frame, pp, shape, data):
+    """The planned raw steps after the scale, as the reference plans them
+    (develop.py:214-250): (hotdead, green_eq, linedn, pdaf, ca_mode), and
+    PDAF's row mask of the padded height in data["pdaf_rows"]. Green
     equilibration, CFA line denoise, the PDAF filter and raw CA apply to a
     Bayer mosaic only; the hot/dead filter is planned for any raw frame
     and runs on a Bayer one."""
@@ -138,77 +147,165 @@ def _plan_raw_steps(frame, pp):
     if raw.hotdead_enabled and (raw.hotpixel_filter or raw.deadpixel_filter):
         hotdead = (bool(raw.hotpixel_filter), bool(raw.deadpixel_filter),
                    float(raw.hotdead_thresh))
-    green_eq, ca_mode = 0.0, None
+    green_eq, linedn, pdaf, ca_mode = 0.0, (0.0, 3), False, None
     if frame.pattern is None:
-        return hotdead, green_eq, ca_mode
+        return hotdead, green_eq, linedn, pdaf, ca_mode
     if bayer.green_eq_enabled and bayer.green_eq > 0:
         green_eq = float(bayer.green_eq) / 100.0
     if bayer.green_eq_enabled and bayer.linenoise > 0:
-        _unported("CFA line denoise")
+        linedn = (float(bayer.linenoise), int(bayer.linenoise_direction))
     if bayer.pdaf_lines_filter:
         from art_tpu_torch.raw.camconst import get_instance
 
         cc = get_instance().get(frame.make, frame.model)
-        if cc is not None and cc.pdaf():
-            _unported("PDAF line filter")
+        pd = cc.pdaf() if cc is not None else None
+        if pd:
+            from art_tpu_torch.raw.pdaf import pdaf_row_mask
+
+            data["pdaf_rows"] = pdaf_row_mask(pd[0], pd[1],
+                                              shape[0]).astype(np.float32)
+            pdaf = True
     if raw.ca_enabled:
         if raw.ca_autocorrect:
             ca_mode = ("auto", 0.0, 0.0)
         elif raw.ca_red != 0 or raw.ca_blue != 0:
             ca_mode = ("manual", float(raw.ca_red), float(raw.ca_blue))
-    return hotdead, green_eq, ca_mode
+    return hotdead, green_eq, linedn, pdaf, ca_mode
 
 
-def _check_raw_params(frame, pp):
-    """Refuse every raw-stage feature of the reference planner that the
-    port lacks (develop.py::plan, raw branch)."""
+def _padded_f32(plane):
+    """A host plane reflect-padded to the planned shape, as float32."""
+    return np.asarray(pad_to_multiple(plane, PAD_MULTIPLE)[0],
+                      dtype=np.float32)
+
+
+def _calibration_frame(path, frame):
+    """A dark or flat frame's mosaic, where `path` names a file whose
+    mosaic has the frame's shape (the reference skips any other)."""
+    if not (path and os.path.isfile(path)):
+        return None
+    from art_tpu_torch.io.rawfile import load_raw
+
+    cal = load_raw(path)
+    return cal.cfa if cal.cfa.shape == frame.cfa.shape else None
+
+
+def _plan_calibration(frame, pp, data):
+    """The raw calibration the reference plans (develop.py:199-212,
+    252-319): the user .badpixels file's mask, the dark frame (by path or
+    by its search), the embedded DNG gain map, the flat field (by path or
+    by its search, unless a gain map applies); each plane padded to the
+    planned shape. Returns (darkframe, flatfield, gainmap)."""
+    from art_tpu_torch.raw.badpixfile import (badpixel_mask,
+                                              find_badpixels_for,
+                                              parse_badpixels_file)
+
     raw = pp.raw
-    # the reference applies a dark frame or flat field only from a file
-    # that exists, found by path or by its search (raw/dfff_managers.py,
-    # not ported), and a gain map only from the frame's own file
-    if raw.df_enabled and (raw.df_autoselect or _is_file(raw.df_file)):
-        _unported("dark frame")
-    if raw.ff_enabled and (raw.ff_autoselect or _is_file(raw.ff_file)
-                           or (raw.ff_embedded and _is_file(frame.filename))):
-        _unported("flat field / gain map")
-    if _lens_correction(frame, pp):
-        _unported(f"lens profile {pp.lens_prof.method!r}")
-    # a profile file that does not exist keeps the camera matrix, as in
-    # the reference
+    bp_file = find_badpixels_for(frame.make, frame.model)
+    if bp_file:
+        pts = parse_badpixels_file(bp_file)
+        if pts:
+            data["badpix_mask"] = _padded_f32(
+                badpixel_mask(pts, frame.cfa.shape).astype(np.float32))
+
+    df_path = raw.df_file if (raw.df_enabled and raw.df_file) else ""
+    if raw.df_enabled and raw.df_autoselect:
+        from art_tpu_torch.raw.dfff_managers import df_manager
+
+        found = df_manager().search(frame.make, frame.model, frame.iso,
+                                    frame.exif.get("exposure_time", 0.0))
+        if found:
+            df_path = found
+    dark = _calibration_frame(df_path, frame)
+    if dark is not None:
+        data["df_plane"] = _padded_f32(dark)
+
+    # a gain map whose parse fails is skipped on the host, as in the
+    # reference (develop.py:275-294)
+    gainmap = False
+    if raw.ff_enabled and raw.ff_embedded and frame.filename:
+        try:
+            from art_tpu_torch.io.gainmap import (build_gain_plane,
+                                                  parse_gain_maps,
+                                                  read_opcodelist2)
+
+            maps = parse_gain_maps(read_opcodelist2(frame.filename))
+            sf = max((100.0 - float(raw.ff_clip_control)) / 100.0, 0.01)
+            plane = build_gain_plane(maps, frame.cfa.shape, sf)
+            if plane is not None:
+                data["gain_plane"] = _padded_f32(plane)
+                gainmap = True
+        except Exception:
+            gainmap = False
+
+    flatfield = None
+    ff_path = raw.ff_file if (raw.ff_enabled and raw.ff_file) else ""
+    if not gainmap and raw.ff_enabled and raw.ff_autoselect:
+        from art_tpu_torch.raw.dfff_managers import ff_manager
+
+        found = ff_manager().search(
+            frame.make, frame.model, frame.exif.get("lens_model", ""),
+            frame.exif.get("focal_length", 0.0),
+            frame.exif.get("f_number", 0.0))
+        if found:
+            ff_path = found
+    flat = None if gainmap else _calibration_frame(ff_path, frame)
+    if flat is not None:
+        data["ff_plane"] = _padded_f32(flat)
+        bt = (raw.ff_blur_type or "area").lower()
+        bt = {"area flatfield": "area", "vertical": "v",
+              "horizontal": "h", "v+h": "vh"}.get(bt, bt)
+        flatfield = (bt, int(raw.ff_blur_radius))
+    return dark is not None, flatfield, gainmap
+
+
+def _plan_raw_vignette(frame, pp, data, w, h):
+    """The lens vignette gains on the raw plane (develop.py:321-359): an
+    LCP profile's (not a fisheye's), or the metadata's or lensfun's,
+    a spline or the DNG FixVignetteRadial polynomial; centres from the
+    frame's true (w, h)."""
+    lp = pp.lens_prof
+    focal = float(frame.exif.get("focal_length", 0.0) or 0.0)
+    if lp.method == "lcp" and lp.lcp_file and lp.use_vign:
+        from art_tpu_torch.lens.lcp import parse_lcp
+
+        prof = parse_lcp(lp.lcp_file)
+        if prof is not None and not prof.is_fisheye:
+            vm = prof.vignette(
+                focal, float(frame.exif.get("f_number", 0.0) or 0.0))
+            if vm is not None:
+                x0, y0, fx, fy = vm.geometry(w, h, focal)
+                data["lcp_vign"] = np.asarray(
+                    [x0, y0, 1.0 / fx, 1.0 / fy] + list(vm.vign_param()),
+                    dtype=np.float32)
+    elif lp.method in ("exif", "lfauto", "lfmanual") and lp.use_vign:
+        if lp.method == "exif":
+            from art_tpu_torch.lens import exifcorr
+
+            corr = exifcorr.for_frame(frame)
+        else:
+            from art_tpu_torch.lens import lensfun
+
+            corr = lensfun.for_frame(pp, frame)
+        if corr is not None and corr.has_vign:
+            if corr.kind == "spline":
+                data["exif_vign"] = np.stack(
+                    [corr.knots, corr.vig]).astype(np.float32)
+            else:
+                cx = corr.center_v[0] * w
+                cy = corr.center_v[1] * h
+                m2 = 1.0 / (max(cx, w - cx) ** 2 + max(cy, h - cy) ** 2)
+                data["exif_vign_dng"] = np.asarray(
+                    [cx, cy, m2] + list(corr.vign_radial), np.float32)
+
+
+def _check_input_profile(pp):
+    """A camera profile file (ICC or DCP) that exists is not ported; one
+    that does not exist keeps the camera matrix, as in the reference."""
     ip = pp.icm.input_profile
     if (isinstance(ip, str) and ip.lower().endswith((".icc", ".icm", ".dcp"))
             and os.path.isfile(ip)):
         _unported(f"input profile {ip!r}")
-    from art_tpu_torch.raw.badpixfile import find_badpixels_for
-
-    if find_badpixels_for(frame.make, frame.model):
-        _unported(".badpixels file")
-
-
-def _lens_correction(frame, pp) -> bool:
-    """Whether the reference would apply a lens correction: its raw
-    vignette (develop.py:321-358) or the geometry of its transform
-    (pipeline/transform.py:53-95). An LCP file that is set turns the
-    transform on; one that exists, the vignette. LcMode=exif applies
-    what `lens.exifcorr.for_frame` finds; lensfun needs a configured
-    database."""
-    lp = pp.lens_prof
-    geometry, vign = lp.use_dist or lp.use_ca, lp.use_vign
-    if lp.method == "lcp":
-        return bool(lp.lcp_file) and (geometry or (
-            vign and os.path.isfile(lp.lcp_file)))
-    if lp.method == "exif" and (geometry or vign):
-        from art_tpu_torch.lens.exifcorr import for_frame
-
-        corr = for_frame(frame)
-        return corr is not None and (
-            (lp.use_dist and corr.has_dist) or (lp.use_ca and corr.has_ca)
-            or (vign and corr.has_vign))
-    if lp.method in ("lfauto", "lfmanual") and (geometry or vign):
-        from art_tpu_torch.settings import settings
-
-        return bool(settings.lensfun_db_dir)
-    return False
 
 
 def _has_jpeg_preview(path) -> bool:
@@ -230,35 +327,20 @@ def _has_jpeg_preview(path) -> bool:
     return False
 
 
-def _check_geometry(frame, pp):
+def _check_autos(frame, pp):
+    """Refuse the autos the reference derives from the embedded JPEG
+    preview, where the file holds one: the histogram-matched tone curve
+    (develop.py:482-503) and auto distortion (develop.py:542-553,
+    lens/autos.py::auto_distortion_for, OpenCV); decoding the preview
+    needs a JPEG decoder."""
     tc = pp.tone_curve
-    # the reference derives a matched curve only from an embedded JPEG
-    # preview (develop.py:482-503); decoding one needs a JPEG decoder
     if (tc.histmatching and not tc.from_histmatching and frame.filename
             and _has_jpeg_preview(frame.filename)):
         _unported("histogram-matched tone curve (the embedded JPEG "
                   "preview's decode, io/metadata.py::embedded_thumb)")
-    if pp.distortion.enabled:
-        if abs(pp.distortion.amount) > 1e-6:
-            _unported("distortion correction")
-        # the reference measures an amount against the embedded JPEG
-        # preview (lens/autos.py::auto_distortion_for, OpenCV)
-        if (pp.distortion.auto_compute and frame.filename
-                and _has_jpeg_preview(frame.filename)):
-            _unported("auto distortion (lens/autos.py::auto_distortion_for)")
-    if pp.rotate.enabled and abs(pp.rotate.degree) > 1e-6:
-        _unported("rotate")
-    cac = pp.cacorrection
-    if cac.enabled and (abs(cac.red) > 1e-9 or abs(cac.blue) > 1e-9):
-        _unported("CA correction transform")
-    pe = pp.perspective
-    if pe.enabled and any(abs(v) > 1e-6 for v in (
-            pe.horizontal, pe.vertical, pe.angle, pe.shear)):
-        _unported("perspective")
-
-
-def _is_file(path) -> bool:
-    return bool(path) and os.path.isfile(path)
+    if (pp.distortion.enabled and pp.distortion.auto_compute
+            and frame.filename and _has_jpeg_preview(frame.filename)):
+        _unported("auto distortion (lens/autos.py::auto_distortion_for)")
 
 
 def _resolve_output_profile(name: str) -> str:
@@ -357,11 +439,14 @@ def fit_op_planes(data, steps, dims, shape, late_crop, crop):
 
 def plan(frame, pp, fast=False, out_u8=False, device="cuda"):
     """ProcParams + frame -> (PipelineConfig, data) for the ported slice:
-    a Bayer raw frame (hot/dead pixels, green equilibration, raw CA;
-    AMaZE, RCD or bilinear/fast demosaic) or an X-Trans one, camera or
-    CustomMult white balance, highlight recovery, the ported ops
-    (`ops.PORTED`), coarse rotation and flips, the crop, the Lanczos
-    resize with post-resize sharpening, to a matrix output profile.
+    a Bayer raw frame (dark frame, gain map, flat field, lens vignette,
+    .badpixels, hot/dead pixels, green equilibration, line denoise, PDAF
+    lines, raw CA; AMaZE, RCD or bilinear/fast demosaic) or an X-Trans
+    one, camera or CustomMult white balance, highlight recovery, the
+    ported ops (`ops.PORTED`), coarse rotation and flips, the geometric
+    transform with its lens corrections (LCP, metadata, lensfun), the
+    crop, the Lanczos resize with post-resize sharpening, to a matrix
+    output profile.
     fast=True is the reference's fast export (-q), active only with a
     resize: the demosaic downgrades, the image is resized right after
     the raw stage and every later step runs at output scale. out_u8
@@ -427,8 +512,11 @@ def plan(frame, pp, fast=False, out_u8=False, device="cuda"):
         splan["cblack"], raw_expos, is_mono=is_mono)
     data["rgb_mults"] = mults.astype(np.float32)
     data["init_gain"] = np.float32(splan["gain"])
-    hotdead, green_eq, ca_mode = _plan_raw_steps(frame, pp)
-    _check_raw_params(frame, pp)
+    darkframe, flatfield, gainmap = _plan_calibration(frame, pp, data)
+    hotdead, green_eq, linedn, pdaf, ca_mode = _plan_raw_steps(
+        frame, pp, shape, data)
+    _plan_raw_vignette(frame, pp, data, w, h)
+    _check_input_profile(pp)
 
     # highlight reconstruction (develop.py:363-380)
     hl_mode = "Off"
@@ -447,7 +535,7 @@ def plan(frame, pp, fast=False, out_u8=False, device="cuda"):
                         @ xyz_cam).astype(np.float32)
     do_clip = not (pp.exposure.enabled and pp.exposure.hrmode != "Off")
     pp = _auto_log(frame, pp, device)
-    _check_geometry(frame, pp)
+    _check_autos(frame, pp)
 
     # coarse rotation and flips: an odd quarter turn swaps the dims
     coarse = (int(pp.coarse.rotate // 90) % 4, bool(pp.coarse.hflip),
@@ -471,6 +559,12 @@ def plan(frame, pp, fast=False, out_u8=False, device="cuda"):
                 (sh0, sw0), (th, tw))
             early_resize = (sh0, sw0, th, tw)
             h, w = oh, ow
+
+    # the geometric transform, at output scale in fast export
+    # (develop.py:538-556)
+    do_transform = needs_transform(pp, frame)
+    if do_transform:
+        data["transform"] = plan_transform(pp, (h, w), frame=frame)
 
     # crop, in rotated coordinates (develop.py:558-570)
     crop = None
@@ -501,15 +595,15 @@ def plan(frame, pp, fast=False, out_u8=False, device="cuda"):
 
     # with no geometry change, stages 1-3 run on the padded planes and
     # the slice to true dims comes last (crop_result)
-    late_crop = (coarse == (0, False, False) and crop is None
-                 and early_resize is None)
+    late_crop = (coarse == (0, False, False) and not do_transform
+                 and crop is None and early_resize is None)
 
     ctx["op_dims"] = (h, w)
     steps = []
     for name in ops_pkg.ALL_STEPS:
         if name not in ops_pkg.PORTED:
             # the DCP look: planned only from a DCP input profile, which
-            # _check_raw_params refuses
+            # _check_input_profile refuses
             continue
         planned = ops_pkg.plan_step(name, pp, ctx)
         if planned is None:
@@ -552,11 +646,18 @@ def plan(frame, pp, fast=False, out_u8=False, device="cuda"):
         early_resize=early_resize,
         prsharp=prsharp,
         coarse=coarse,
+        transform=do_transform,
+        linedn=linedn,
         ca_mode=ca_mode,
         hotdead=hotdead,
+        badpix_file="badpix_mask" in data,
         green_eq=green_eq,
         hl_mode=hl_mode,
+        pdaf=pdaf,
         dem_kwargs=tuple(dem_kwargs),
+        darkframe=darkframe,
+        flatfield=flatfield,
+        gainmap=gainmap,
         out_u8=bool(out_u8),
     )
     return config, data
@@ -587,17 +688,12 @@ def _check_config(config):
     if not config.is_raw or (config.pattern is None
                              and config.xtrans is None):
         _unported("non-raw, Foveon or monochrome input")
-    for field, want in (("transform", False), ("badpix_file", False),
-                        ("pdaf", False), ("dcp", None),
-                        ("icc_input_trc", None), ("pixelshift", False),
-                        ("darkframe", False), ("flatfield", None),
-                        ("gainmap", False)):
+    for field, want in (("dcp", None), ("icc_input_trc", None),
+                        ("pixelshift", False)):
         if getattr(config, field) != want:
             _unported(f"pipeline config {field}={getattr(config, field)!r}")
     if config.hl_mode not in ("Off", "blend", "opposed", "inpaint"):
         _unported(f"highlight recovery {config.hl_mode!r}")
-    if config.linedn[0] > 0 and config.pattern is not None:
-        _unported("CFA line denoise")
     if config.xtrans is not None:
         from art_tpu_torch.demosaic.xtrans import dual_blend_runs
 
@@ -648,14 +744,92 @@ def recover_highlights(rgb, data, hl_mode):
     return rgb
 
 
-def raw_steps(cfa, config: PipelineConfig):
+def raw_calibration(inp, config: PipelineConfig, data):
+    """The raw calibration on ADUs before the scale (develop.py:858-886),
+    each in its own span: dark frame, gain map, flat field."""
+    from art_tpu_torch.raw import dfff
+
+    if config.darkframe:
+        with span("darkframe"):
+            inp = dfff.subtract_dark(inp, data["df_plane"])
+    if config.gainmap:
+        with span("gainmap"):
+            inp = dfff.apply_gain_plane(inp, data["raw_offset"],
+                                        data["gain_plane"])
+    if config.flatfield is not None:
+        bt, rad = config.flatfield
+        with span("flatfield"):
+            if config.pattern is not None:
+                inp = dfff.apply_flatfield_bayer(inp, data["ff_plane"], bt,
+                                                 rad)
+            else:
+                from art_tpu_torch.core.image import \
+                    xtrans_color_index_device
+
+                cidx = xtrans_color_index_device(config.xtrans, inp.shape,
+                                                 inp.device)
+                inp = dfff.apply_flatfield_xtrans(inp, data["ff_plane"],
+                                                  cidx, bt, rad)
+    return inp
+
+
+def _plane_coords(cfa):
+    """(row index as an (H, 1) column, column index as a (1, W) row) in
+    cfa's dtype, on its device."""
+    hh, ww = cfa.shape
+    return (torch.arange(hh, dtype=cfa.dtype, device=cfa.device)[:, None],
+            torch.arange(ww, dtype=cfa.dtype, device=cfa.device)[None, :])
+
+
+def raw_vignette(cfa, data):
+    """The lens vignette gains on the scaled mosaic (develop.py:889-922):
+    the LCP gain series on the normalised radius, the metadata or lensfun
+    spline (the raw divided by its square; its centre and radius
+    normaliser from the padded plane's shape, as in the reference), the
+    DNG FixVignetteRadial polynomial."""
+    if "lcp_vign" in data:
+        v = data["lcp_vign"]
+        ys, xs = _plane_coords(cfa)
+        rs = ((xs - v[0]) * v[2]) ** 2 + ((ys - v[1]) * v[3]) ** 2
+        factor = rs * (v[4] + rs * (v[5] - v[6] * rs + v[7] * rs * rs))
+        cfa = cfa * (1.0 + factor)
+    if "exif_vign" in data:
+        v = data["exif_vign"]
+        hh2, ww2 = cfa.shape
+        w2e, h2e = ww2 * 0.5, hh2 * 0.5
+        # float32, as the reference's jnp.sqrt of a Python float
+        rn = float(np.float32(1.0) / np.sqrt(np.float32(w2e * w2e
+                                                        + h2e * h2e)))
+        ys, xs = _plane_coords(cfa)
+        sf = interp(rn * fsqrt((ys - h2e) ** 2 + (xs - w2e) ** 2),
+                    v[0], v[1])
+        cfa = cfa / (sf * sf)
+    if "exif_vign_dng" in data:
+        v = data["exif_vign_dng"]
+        ys, xs = _plane_coords(cfa)
+        r2 = v[2] * ((ys - v[1]) ** 2 + (xs - v[0]) ** 2)
+        gain = 1.0 + r2 * (v[3] + r2 * (v[4] + r2 * (
+            v[5] + r2 * (v[6] + r2 * v[7]))))
+        cfa = cfa * gain
+    return cfa
+
+
+def raw_steps(cfa, config: PipelineConfig, data):
     """The raw steps between the scale and the demosaic, in the
-    reference's order (develop.py:930-965), each in its own span: hot/dead
-    pixels, green equilibration, raw CA correction; on a Bayer mosaic."""
+    reference's order (develop.py:923-961), each in its own span: the
+    .badpixels file's sites, hot/dead pixels, green equilibration, CFA
+    line denoise, the PDAF line filter, raw CA correction; on a Bayer
+    mosaic."""
     if config.pattern is None:
         return cfa
-    if config.hotdead is not None or config.green_eq > 0:
+    if (config.badpix_file or config.hotdead is not None
+            or config.green_eq > 0 or config.pdaf):
         _, mg, _ = bayer_channel_masks(config.pattern, cfa.shape, cfa.device)
+    if config.badpix_file:
+        from art_tpu_torch.raw.badpixels import interpolate_bad_bayer
+
+        with span("badpix"):
+            cfa = interpolate_bad_bayer(cfa, data["badpix_mask"] > 0.5, mg)
     if config.hotdead is not None:
         from art_tpu_torch.raw.badpixels import (find_hot_dead,
                                                  interpolate_bad_bayer)
@@ -669,6 +843,16 @@ def raw_steps(cfa, config: PipelineConfig):
 
         with span("green_eq"):
             cfa = green_equilibrate(cfa, mg, config.green_eq)
+    if config.linedn[0] > 0:
+        from art_tpu_torch.raw.cfa_linedn import cfa_line_denoise
+
+        with span("linedn"):
+            cfa = cfa_line_denoise(cfa, config.linedn[0], config.linedn[1])
+    if config.pdaf:
+        from art_tpu_torch.raw.pdaf import pdaf_filter
+
+        with span("pdaf"):
+            cfa = pdaf_filter(cfa, mg, data["pdaf_rows"])
     if config.ca_mode is not None:
         from art_tpu_torch.raw.ca_correct import ca_correct
 
@@ -706,11 +890,16 @@ def build_run(config: PipelineConfig):
 
         if inp.dtype != torch.float32:
             inp = inp.to(torch.float32)
+        inp = raw_calibration(inp, config, data)
         with span("scale"):
             cfa = rawpre.apply_scale(inp, data["raw_offset"],
                                      data["raw_scale"])
         del inp
-        cfa = raw_steps(cfa, config)
+        if any(k in data for k in ("lcp_vign", "exif_vign",
+                                   "exif_vign_dng")):
+            with span("vignette"):
+                cfa = raw_vignette(cfa, data)
+        cfa = raw_steps(cfa, config, data)
         with span("demosaic"):
             rgb = demosaic(cfa, config.pattern, config.demosaic_method,
                            init_gain=data["init_gain"],
@@ -754,6 +943,9 @@ def build_run(config: PipelineConfig):
             if config.coarse != (0, False, False):
                 with span("coarse"):
                     rgb = coarse_transform(rgb, config.coarse)
+            if config.transform:
+                with span("transform"):
+                    rgb = apply_transform(rgb, data["transform"])
             if config.crop is not None:
                 cy, cx, ch, cw = config.crop
                 with span("crop"):

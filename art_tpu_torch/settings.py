@@ -2,8 +2,9 @@
 the port reads): the develop pipeline's pad multiple, and the `Settings`
 singleton of the export path (``pipeline/develop.py::process_image``,
 ``cli.py``), the batch queue's host threads (``parallel/queue.py``) and
-the film simulation's LUT directory, and the lensfun database directory
-(whose corrections the port refuses)."""
+the film simulation's LUT directory, the dark-frame and flat-field
+search directories (``raw/dfff_managers.py``) and the lensfun database
+directory (``lens/lensfun.py``)."""
 
 from __future__ import annotations
 
@@ -36,9 +37,12 @@ class Settings:
     # Directory that relative film-simulation LUT names resolve against
     # (options.clutsDir; ops/filmsim.py)
     cluts_dir: str | None = None
-    # lensfun database directory (options.rtSettings.lensfunDbDirectory):
-    # with one set, a lensfun lens correction would apply, which the port
-    # refuses
+    # Auto-select scan roots (reference dfmanager/ffmanager dir options);
+    # default to <user_dir>/darkframes and <user_dir>/flatfields
+    dark_frames_dir: str | None = None
+    flat_fields_dir: str | None = None
+    # lensfun XML database directory (rtlensfun.cc LFDatabase::init's
+    # lensfunDbDirectory option); None = lensfun corrections disabled
     lensfun_db_dir: str | None = None
 
 

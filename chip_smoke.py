@@ -100,6 +100,20 @@ FilmLike curve, B&W), B1-B3 once; each as new_path runs, with its
 luma and chroma planes L1's smoothing feeds it; Fattal's 49-point
 median at 24 MP beside a 9-point one; and each of the seven tone-curve
 modes in a 512x768 develop against the CPU.
+Then the lens and sensor corrections (`lens_phase`), counts reset before
+each path: C1, a calibrated, lens-corrected flagship (`c1_frame`,
+`c1_files`, `c1_pp`: the flagship frame named as a FUJIFILM GFX 100,
+whose camconst entry has PDAF rows, under a lens falloff with a dark
+pattern; a dark-frame and a flat-field DNG, a .badpixels file, CFA line
+denoise, the PDAF filter, an LCP profile's distortion, CA and vignette,
+a rotation by 1.5 degrees, perspective and auto-fill; AMaZE, denoise, the
+Neutral curve), B1, B2, B3, B4 (raw head) and B7 (sRGB epilogue) once
+each, as new_path runs it, each kernel held to its plain version on the
+tensors C1 feeds it and a 512x2048 develop against the CPU; C2, a 24 MP
+DNG with four 9x9 gain maps developed through cli.main with lensfun
+(`lensfun_db`), a distortion slider and CA sliders (`c2_arp`), its
+phases (median of 3 after a warm run), its launches and a 512x2048
+develop against the CPU.
 Then one JSON line of per-kernel results (time, plain time, bound) and
 last the line {"ok": true, "device": {...}}. Any failure raises
 (non-zero exit, no result lines); so does a machine without CUDA.
@@ -535,6 +549,224 @@ def l2_frame(h, w, seed=0, cell=16, grain=0.02):
                             pattern="RGGB")
 
 
+# C1's lens (lens/lcp.py): an Adobe LCP profile of a 35 mm prime with a
+# rectilinear distortion, a vignette and three CA models, and a 50 mm
+# frame to interpolate towards
+C1_LCP = """<?xml version="1.0" encoding="UTF-8"?>
+<x:xmpmeta xmlns:x="adobe:ns:meta/">
+ <rdf:RDF xmlns:rdf="http://www.w3.org/1999/02/22-rdf-syntax-ns#">
+  <rdf:Description xmlns:stCamera="http://ns.adobe.com/photoshop/1.0/camera-profile">
+   <stCamera:CameraProfiles><rdf:Seq>{frames}</rdf:Seq></stCamera:CameraProfiles>
+  </rdf:Description>
+ </rdf:RDF>
+</x:xmpmeta>
+"""
+_LCP_FRAME = """
+    <rdf:li><rdf:Description stCamera:Make="FUJIFILM" stCamera:Model="GFX 100"
+      stCamera:FocalLength="{f}" stCamera:ApertureValue="2.8">
+     <stCamera:PerspectiveModel><rdf:Description
+       stCamera:FocalLengthX="{fl}" stCamera:FocalLengthY="{fl}"
+       stCamera:ImageXCenter="0.502" stCamera:ImageYCenter="0.497"
+       stCamera:RadialDistortParam1="{k1}" stCamera:RadialDistortParam2="0.01"
+       stCamera:TangentialDistortParam1="0.0004"
+       stCamera:TangentialDistortParam2="-0.0003"/></stCamera:PerspectiveModel>
+     <stCamera:VignetteModel><rdf:Description
+       stCamera:FocalLengthX="{fl}" stCamera:FocalLengthY="{fl}"
+       stCamera:VignetteModelParam1="-0.35" stCamera:VignetteModelParam2="0.08"
+       stCamera:VignetteModelParam3="-0.01"/></stCamera:VignetteModel>
+     <stCamera:ChromaticRedGreenModel><rdf:Description
+       stCamera:FocalLengthX="{fl}" stCamera:FocalLengthY="{fl}"
+       stCamera:ScaleFactor="1.0008"
+       stCamera:RadialDistortParam1="0.002"/></stCamera:ChromaticRedGreenModel>
+     <stCamera:ChromaticGreenModel><rdf:Description
+       stCamera:FocalLengthX="{fl}" stCamera:FocalLengthY="{fl}"
+       stCamera:RadialDistortParam1="{k1}"
+       stCamera:RadialDistortParam2="0.01"/></stCamera:ChromaticGreenModel>
+     <stCamera:ChromaticBlueGreenModel><rdf:Description
+       stCamera:FocalLengthX="{fl}" stCamera:FocalLengthY="{fl}"
+       stCamera:ScaleFactor="0.9993"
+       stCamera:RadialDistortParam1="-0.002"/></stCamera:ChromaticBlueGreenModel>
+    </rdf:Description></rdf:li>"""
+
+# C2's lensfun database (lens/lensfun.py): a camera and a lens with a
+# ptlens distortion, a poly3 TCA and pa vignetting at two apertures
+LENSFUN_XML = """<lensdatabase>
+ <camera>
+  <maker>ART-TPU</maker>
+  <model>Synthetic</model>
+  <mount>Synthetic mount</mount>
+  <cropfactor>1.0</cropfactor>
+ </camera>
+ <lens>
+  <maker>ART-TPU</maker>
+  <model>ART-TPU 50mm f/1.8</model>
+  <mount>Synthetic mount</mount>
+  <cropfactor>1.0</cropfactor>
+  <calibration>
+   <distortion model="ptlens" focal="50" a="0.01" b="-0.03" c="0.005"/>
+   <tca model="poly3" focal="50" kr="1.0004" vr="-0.0002" kb="0.9996" vb="0.0002"/>
+   <vignetting model="pa" focal="50" aperture="1.8" distance="1000" k1="-0.6" k2="0.2" k3="-0.05"/>
+   <vignetting model="pa" focal="50" aperture="5.6" distance="1000" k1="-0.1" k2="0.0" k3="0.0"/>
+  </calibration>
+ </lens>
+</lensdatabase>
+"""
+# the camconst entry C1's frame takes its name from: its PDAF rows are
+# 0 and 18 of every 18 (pdaf_pattern, pdaf_offset 0)
+C1_CAMERA = ("FUJIFILM", "GFX 100")
+
+
+def falloff(h, w, amount=0.4):
+    """A lens's radial falloff over a (h, w) frame: 1 at the centre,
+    1 - amount in the corners."""
+    yy = (np.arange(h, dtype=np.float32) - h / 2)[:, None] / (h / 2)
+    xx = (np.arange(w, dtype=np.float32) - w / 2)[None, :] / (w / 2)
+    return 1.0 - amount * 0.5 * (yy * yy + xx * xx)
+
+
+def c1_frame(h, w, seed=0):
+    """C1's scene: the flagship frame of seed `seed` under the lens's
+    falloff, plus the sensor's dark pattern (`c1_dark`), its PDAF rows'
+    values 3% low, named as a FUJIFILM GFX 100 (whose camconst entry
+    has a PDAF row pattern) shot at 35 mm and f/2.8."""
+    import dataclasses
+
+    frame = flagship_frame(h, w, seed)
+    black = frame.black[0]
+    cfa = black + (frame.cfa - black) * falloff(h, w)
+    pdaf = (np.arange(h) % 18) == 0
+    cfa[pdaf] = black + (cfa[pdaf] - black) * 0.97
+    cfa = np.clip(cfa + (c1_dark(h, w, seed) - black), 0.0, frame.white[0])
+    return dataclasses.replace(
+        frame, cfa=cfa.astype(np.float32), make=C1_CAMERA[0],
+        model=C1_CAMERA[1], exif={"focal_length": 35.0, "f_number": 2.8})
+
+
+def c1_dark(h, w, seed=0):
+    """The sensor's dark frame: the black level 512 plus fixed-pattern
+    noise (0-40 ADU) and four hot columns (+600)."""
+    rng = np.random.default_rng(seed + 100)
+    dark = 512.0 + rng.uniform(0.0, 40.0, (h, w)).astype(np.float32)
+    dark[:, rng.choice(w, 4, replace=False)] += 600.0
+    return dark
+
+
+def c1_files(directory, frame, seed=0):
+    """Write C1's calibration for `frame` into `directory`: a dark-frame
+    and a flat-field DNG of its shape (the flat: a grey at 8000 ADU under
+    the falloff, with noise), the LCP profile, and a .badpixels file for
+    its camera in `directory`/darkframes (12 sites). Returns their
+    paths: "df", "ff", "lcp", "badpixels_dir"."""
+    from art_tpu_torch.io.dngwrite import write_dng
+
+    h, w = frame.cfa.shape
+    rng = np.random.default_rng(seed + 200)
+    os.makedirs(directory, exist_ok=True)
+    files = {"df": os.path.join(directory, "dark.dng"),
+             "ff": os.path.join(directory, "flat.dng"),
+             "lcp": os.path.join(directory, "lens.lcp"),
+             "badpixels_dir": os.path.join(directory, "darkframes")}
+    write_dng(files["df"], np.round(c1_dark(h, w, seed)).astype(np.uint16),
+              black=512, white=16383, compress=False)
+    flat = 512.0 + 8000.0 * falloff(h, w) * (
+        1.0 + 0.01 * rng.standard_normal((h, w), dtype=np.float32))
+    write_dng(files["ff"], np.round(flat).astype(np.uint16), black=512,
+              white=16383, compress=False)
+    with open(files["lcp"], "w") as f:
+        f.write(C1_LCP.format(frames="".join(
+            _LCP_FRAME.format(f=f_mm, fl=fl, k1=k1) for f_mm, fl, k1 in (
+                (35, 0.72, -0.05), (50, 1.03, -0.02)))))
+    os.makedirs(files["badpixels_dir"], exist_ok=True)
+    pts = [(int(rng.integers(w)), int(rng.integers(h))) for _ in range(12)]
+    with open(os.path.join(files["badpixels_dir"],
+                           f"{C1_CAMERA[0]} {C1_CAMERA[1]}.badpixels"),
+              "w") as f:
+        f.write("".join(f"{x} {y}\n" for x, y in pts))
+    return files
+
+
+def c1_arp(files):
+    """C1's tools beyond the flagship profile: the dark frame, the flat
+    field (area blur, radius 32), CFA line denoise 30 in both
+    directions, the PDAF line filter, the LCP profile's distortion, CA
+    and vignette, a rotation by 1.5 degrees, perspective 8 / -5 and
+    auto-fill."""
+    return (f"[RAW]\nDarkFrameEnabled=true\nDarkFrame={files['df']}\n"
+            f"FlatFieldEnabled=true\nFlatFieldFile={files['ff']}\n"
+            "FlatFieldBlurType=Area Flatfield\nFlatFieldBlurRadius=32\n"
+            "[RAW Bayer]\nPreprocessingEnabled=true\nLineDenoise=30\n"
+            "LineDenoiseDirection=3\nPDAFLinesFilter=true\n"
+            f"[LensProfile]\nLcMode=lcp\nLCPFile={files['lcp']}\n"
+            "UseDistortion=true\nUseVignette=true\nUseCA=true\n"
+            "[Rotation]\nEnabled=true\nDegree=1.5\n"
+            "[Perspective]\nEnabled=true\nHorizontal=8\nVertical=-5\n"
+            "[Common Properties for Transformations]\nAutoFill=true\n")
+
+
+def c1_pp(files, pp=None):
+    """C1's ProcParams on pp (either package's): the flagship profile
+    (AMaZE, denoise 20/20, the Neutral curve) and `c1_arp`."""
+    pp = flagship_pp("amaze", pp)
+    pp.apply_arp_text(c1_arp(files))
+    return pp
+
+
+@contextlib.contextmanager
+def badpixels_dir(path):
+    """The .badpixels lookup (`raw/badpixfile.py`) reads `path` inside
+    the block."""
+    old = os.environ.get("ART_TPU_DARKFRAMES")
+    os.environ["ART_TPU_DARKFRAMES"] = path
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["ART_TPU_DARKFRAMES"]
+        else:
+            os.environ["ART_TPU_DARKFRAMES"] = old
+
+
+def gain_maps(h, w, n=9, amount=0.4):
+    """Four per-site DNG gain maps on an n x n grid that undo
+    `falloff(h, w, amount)`, each site's 1% apart."""
+    g = 1.0 / falloff(n, n, amount)
+    return [{"gains": (g * (1.0 + 0.01 * k)).astype(np.float32), "top": t,
+             "left": lft, "bottom": h, "right": w}
+            for k, (t, lft) in enumerate(((0, 0), (0, 1), (1, 0), (1, 1)))]
+
+
+def c2_dng(path, h, w, seed=0):
+    """C2's raw file: the flagship frame of seed `seed` under the falloff,
+    as an uncompressed DNG with the four gain maps that undo it."""
+    from art_tpu_torch.io.dngwrite import write_dng
+
+    frame = flagship_frame(h, w, seed)
+    cfa = 512.0 + (frame.cfa - 512.0) * falloff(h, w)
+    write_dng(path, np.round(cfa).astype(np.uint16), black=512, white=16383,
+              cam_mul=(2.0, 1.0, 1.5), compress=False,
+              gain_maps=gain_maps(h, w))
+
+
+def c2_arp():
+    """C2's tools beyond the flagship profile: the embedded gain map, the
+    lensfun database's corrections for its lens (chosen by hand), a
+    distortion of 0.05 and CA red 0.002, blue -0.002."""
+    return ("[RAW]\nFlatFieldEnabled=true\nFlatFieldUseEmbedded=true\n"
+            "[LensProfile]\nLcMode=lfmanual\nLFCameraMake=ART-TPU\n"
+            "LFCameraModel=Synthetic\nLFLens=ART-TPU 50mm f/1.8\n"
+            "UseDistortion=true\nUseVignette=true\nUseCA=true\n"
+            "[Distortion]\nEnabled=true\nAmount=0.05\n"
+            "[CACorrection]\nEnabled=true\nRed=0.002\nBlue=-0.002\n")
+
+
+def lensfun_db(directory):
+    """Write C2's lensfun database into `directory`; returns it."""
+    os.makedirs(directory, exist_ok=True)
+    with open(os.path.join(directory, "synthetic.xml"), "w") as f:
+        f.write(LENSFUN_XML)
+    return directory
+
+
 def path_pp(label):
     """The ProcParams of a path: "amaze", "bilinear" or "config3"."""
     return config3_pp() if label == "config3" else flagship_pp(label)
@@ -965,24 +1197,39 @@ def profile_develop(frame, pp, fast=False):
         f"{k[4:]} {us / 1e3:.2f}" for k, us in stages))
 
 
-def kernel_breakdown(label, fn, parts):
+def kernel_breakdown(label, fn, parts, expect=None):
     """Device time of one call of fn by kernel name (torch.profiler), and
     the share of each part: name -> kernel-name prefixes. Returns the
-    launches of each kernel."""
+    launches of each kernel. The traced call follows an untraced warm-up
+    step of the profiler; a trace that lacks device events (or whose
+    launches `expect` refuses: on the card a trace now and then loses
+    its first kernels) is taken again, five times at most."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    rows = [(e.key, e.count, e.self_device_time_total)
-            for e in prof.key_averages()
-            if e.device_type != DeviceType.CPU
-            and e.self_device_time_total > 0]
-    total = sum(us for _, _, us in rows)
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+        # the step's own range spans its kernels on the device timeline
+        rows = [(e.key, e.count, e.self_device_time_total)
+                for e in prof.key_averages()
+                if e.device_type != DeviceType.CPU
+                and e.self_device_time_total > 0
+                and not e.key.startswith("ProfilerStep")]
+        total = sum(us for _, _, us in rows)
+        if total > 0 and (expect is None
+                          or expect({k: n for k, n, _ in rows})):
+            break
+    if total == 0:
+        raise RuntimeError(f"{label}: five traces without device time")
     log(f"{label} by kernel (one call, device {total / 1e3:.3f} ms):")
     for key, n, us in sorted(rows, key=lambda r: -r[2]):
         log(f"  {us / 1e3:8.3f} ms  x{n}  {key[:100]}")
@@ -1001,16 +1248,24 @@ WAVELET_PARTS = {"sigma passes (memsets, win_max, win_hist, select)":
                                         "tail_kernel")}
 
 
-def check_wavelet_launches(label, counts):
-    """The sigma is a fixed number of kernels per call (one each of
-    win_max, win_hist and select), and the levels one kernel each."""
-    def n(prefix):
-        return sum(c for k, c in counts.items() if prefix in k)
+# the sigma is a fixed number of kernels per call (one each of win_max,
+# win_hist and select), and the levels one kernel each
+WAVELET_LAUNCHES = {"win_max_kernel": 1, "win_hist_kernel": 1,
+                    "select_kernel": 1, "level_kernel": 5}
 
-    got = {p: n(p) for p in ("win_max_kernel", "win_hist_kernel",
-                             "select_kernel", "level_kernel")}
-    if got != {"win_max_kernel": 1, "win_hist_kernel": 1,
-               "select_kernel": 1, "level_kernel": 5}:
+
+def wavelet_launches(counts):
+    return {p: sum(c for k, c in counts.items() if p in k)
+            for p in WAVELET_LAUNCHES}
+
+
+def wavelet_complete(counts):
+    return wavelet_launches(counts) == WAVELET_LAUNCHES
+
+
+def check_wavelet_launches(label, counts):
+    got = wavelet_launches(counts)
+    if got != WAVELET_LAUNCHES:
         raise RuntimeError(f"{label}: unexpected kernel launches {got}")
 
 
@@ -1707,6 +1962,160 @@ def look_phase(smi_line, entries):
     return stats
 
 
+def kernels_against_plain(label, develop):
+    """Run `develop` once, recording the arguments of each launch of B1,
+    B2, B3, B4 and B7, and hold each kernel to its plain version on them
+    (bit-equal). Returns the failures."""
+    from art_tpu_torch.demosaic import amaze
+    from art_tpu_torch.demosaic import amaze_kernel as ak
+    from art_tpu_torch.ops import denoise
+    from art_tpu_torch.ops import tonecurve_neutral as tn
+    from art_tpu_torch.ops import wavelet_kernel as wk
+
+    with contextlib.ExitStack() as stack:
+        calls = {k: stack.enter_context(record_args(mod, name))
+                 for k, (mod, name) in {
+                     "b1": (ak, "amaze_stage1"), "b2": (ak, "amaze_stage2"),
+                     "b3": (ak, "amaze_stage3"),
+                     "b4": (denoise, "wavelet_denoise_rgb"),
+                     "b7": (tn, "neutral_tone")}.items()}
+        develop()
+    pairs = {
+        "b1": (ak.amaze_stage1, amaze.stage1_plain),
+        "b2": (ak.amaze_stage2, amaze.stage2_plain),
+        "b3": (ak.amaze_stage3, amaze.stage3_plain),
+        "b4": (wk.wavelet_denoise_rgb,
+               lambda *a, **kw: wk.wavelet_rgb_plain(
+                   a[0], *wk.prepare(*a, **kw))),
+        "b7": (tn.neutral_tone, tn.neutral_plain)}
+    failures = []
+    for key, (kern, plain) in pairs.items():
+        if len(calls[key]) != 1:
+            failures.append(f"{label}: {key} ran {len(calls[key])} times")
+            continue
+        args, kwargs = calls[key][0]
+        k_out = kern(*args, **kwargs)
+        p_out = plain(*args, **kwargs)
+        torch.cuda.synchronize()
+        err, mean = diff_stats(k_out, p_out)
+        log(f"{label} {key.upper()} on its path's tensors "
+            f"{tuple(args[0].shape)}: kernel vs plain max {err:.6g} mean "
+            f"{mean:.6g}")
+        if err > KERNEL_MAX or mean > KERNEL_MEAN:
+            failures.append(f"{label}: {key} disagrees with its plain "
+                            "version")
+    return failures
+
+
+def lens_phase(smi_line, tmp):
+    """The lens and sensor corrections on the card, counts reset before
+    each path. C1, a calibrated, lens-corrected flagship (`c1_frame`,
+    `c1_files`, `c1_pp`: a dark frame, a flat field, a .badpixels file,
+    CFA line denoise, the PDAF filter, an LCP profile's distortion, CA and
+    vignette, a rotation, perspective and auto-fill; AMaZE, denoise, the
+    Neutral curve, sRGB), as new_path runs it: B1, B2, B3, B4 (raw head)
+    and B7 (sRGB epilogue) once each, each held to its plain version on
+    the tensors C1 feeds it, and a 512x2048 develop against the CPU. C2,
+    an embedded gain map and lensfun through cli.main (`c2_dng`,
+    `c2_arp`, `lensfun_db`): its phases, median of 3 after a warm run,
+    its launches, and a 512x2048 develop against the CPU. Returns (the
+    comparisons, the failures)."""
+    from art_tpu_torch.io.rawfile import load_raw
+    from art_tpu_torch.pipeline import develop as tdev
+    from art_tpu_torch.settings import settings
+
+    log(f"---- lens phase ({smi_line})")
+    stats = {}
+    t0 = time.monotonic()
+    frame = c1_frame(*FRAME)
+    files = c1_files(tmp, frame)
+    small = c1_frame(*SMALL, seed=5)
+    small_files = c1_files(os.path.join(tmp, "small"), small, seed=5)
+    log(f"C1 frame {FRAME[0]}x{FRAME[1]} and its calibration (a dark-frame "
+        f"and a flat-field DNG, an LCP profile, a .badpixels file) in "
+        f"{time.monotonic() - t0:.2f} s")
+    with badpixels_dir(files["badpixels_dir"]):
+        pp = c1_pp(files)
+        t0 = time.monotonic()
+        config, data = tdev.plan(frame, pp)
+        planes = sum(data[k].nbytes for k in ("df_plane", "ff_plane",
+                                              "badpix_mask"))
+        log(f"C1 plan {1e3 * (time.monotonic() - t0):.1f} ms: steps "
+            f"{[st[0] for st in config.steps]}, transform "
+            f"{config.transform} ({sorted(data['transform'])}), darkframe "
+            f"{config.darkframe}, flatfield {config.flatfield}, badpix_file "
+            f"{config.badpix_file}, linedn {config.linedn}, pdaf "
+            f"{config.pdaf}, fusion gates {tdev.fusion_gates(config)}; the "
+            f"dark, flat and .badpixels planes {planes / 1e6:.1f} MB of the "
+            "H2D")
+        if not (config.transform and config.darkframe and config.pdaf
+                and config.badpix_file and config.flatfield
+                and config.linedn[0] > 0 and "lcp_vign" in data):
+            raise RuntimeError(f"C1 planned {config}")
+        del data
+        stats["C1"] = new_path("C1", pp, frame,
+                               ("b1", "b2", "b3", "b4", "b7"), small,
+                               c1_pp(small_files))
+        failures = kernels_against_plain("C1", lambda: tdev.develop(frame,
+                                                                    pp))
+    del frame, small
+
+    # C2: an embedded gain map and lensfun, file in, JPEG out
+    t0 = time.monotonic()
+    dng = os.path.join(tmp, "c2.dng")
+    c2_dng(dng, *FRAME)
+    arp = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "art_tpu_torch", "data", "profiles", PROFILE)
+    dn = os.path.join(tmp, "denoise20.arp")
+    with open(dn, "w") as f:
+        f.write("[Denoise]\nEnabled=true\nLuminance=20\nChrominance=20\n")
+    c2 = os.path.join(tmp, "c2.arp")
+    with open(c2, "w") as f:
+        f.write(c2_arp())
+    out = os.path.join(tmp, "c2.jpg")
+    argv = ["-Y", "-p", arp, "-p", dn, "-p", c2, "-o", out, "-c", dng]
+    log(f"C2 DNG {FRAME[0]}x{FRAME[1]} with four 9x9 gain maps in "
+        f"{time.monotonic() - t0:.2f} s")
+    old_db = settings.lensfun_db_dir
+    settings.lensfun_db_dir = lensfun_db(os.path.join(tmp, "lensfun"))
+    try:
+        reset_counts()
+        cli_run(argv)
+        launches, plain_calls = read_counts()
+        log(f"C2 through cli.main: launches {launches}; plain calls "
+            f"{plain_calls}")
+        want = {k: int(k in ("b1", "b2", "b3", "b4", "b7"))
+                for k in launches}
+        if launches != want or any(plain_calls.values()):
+            raise RuntimeError(f"C2: launches {launches}, want {want}; "
+                               f"plain calls {plain_calls}")
+        check_jpeg(out)
+        cli_timed(f"C2 ({FRAME[0]}x{FRAME[1]} DNG, gain map, lensfun, "
+                  "distortion and CA sliders, AMaZE, denoise, Neutral "
+                  "curve, sRGB JPEG)", argv)
+        from art_tpu_torch import cli
+
+        pp2 = cli.compose_params(dng, cli.parse_args(argv))
+        config, data = tdev.plan(load_raw(dng), pp2)
+        log(f"C2 plan: gainmap {config.gainmap}, transform "
+            f"{config.transform} ({sorted(data['transform'])}), raw "
+            f"vignette {[k for k in data if 'vign' in k]}")
+        if not (config.gainmap and config.transform
+                and "exif_vign" in data):
+            raise RuntimeError(f"C2 planned {config}")
+        small_dng = os.path.join(tmp, "c2_small.dng")
+        c2_dng(small_dng, *SMALL, seed=5)
+        small = load_raw(small_dng)
+        g = tdev.develop(small, pp2).cpu()
+        c = tdev.develop(small, pp2, device="cpu")
+        stats["C2"] = parity(g, c)
+        log(f"{SMALL[0]}x{SMALL[1]} C2 develop, card vs CPU plain path: "
+            f"{stats['C2']}")
+    finally:
+        settings.lensfun_db_dir = old_db
+    return stats, failures
+
+
 def _leaves(d):
     for k, v in d.items():
         if isinstance(v, dict):
@@ -1857,12 +2266,12 @@ def main():
         f"{wk.scratch_bytes(3, hp4, wp4, plain_args[4]) / 1e9:.3f} GB")
     check_wavelet_launches("B4", kernel_breakdown(
         "B4", lambda: wk.wavelet_denoise_rgb(*b4_args, **b4_kw),
-        WAVELET_PARTS))
+        WAVELET_PARTS, wavelet_complete))
     # the sigma's worst case: every |d0| of a window in one leaf, so pass
     # B's shared-memory atomics all hit one bin
     flat = torch.full_like(rgb, 0.5)
     kernel_breakdown("B4 on a constant frame", lambda: wk.wavelet_denoise_rgb(
-        flat, *b4_args[1:], **b4_kw), WAVELET_PARTS)
+        flat, *b4_args[1:], **b4_kw), WAVELET_PARTS, wavelet_complete)
     del flat
     b4_k = wk.wavelet_denoise_rgb(*b4_args, **b4_kw)
     b4_p, *ops = needed_ops(lambda: wk.wavelet_rgb_plain(*plain_args))
@@ -1905,11 +2314,13 @@ def main():
         f"{wk.scratch_bytes(3, hp5, wp5, wk.TILE_X) / 1e9:.3f} GB")
     check_wavelet_launches("B5", kernel_breakdown(
         "B5", lambda: wk.wavelet_denoise_multi(x3, [-1.0] * 3, strengths,
-                                               blends), WAVELET_PARTS))
+                                               blends), WAVELET_PARTS,
+        wavelet_complete))
     flat = torch.full_like(x3, 0.5)
     kernel_breakdown("B5 on a constant frame",
                      lambda: wk.wavelet_denoise_multi(
-                         flat, [-1.0] * 3, strengths, blends), WAVELET_PARTS)
+                         flat, [-1.0] * 3, strengths, blends), WAVELET_PARTS,
+                     wavelet_complete)
     del flat
     b5_k = wk.wavelet_denoise_multi(x3, [-1.0] * 3, strengths, blends)
     b5_p, *ops = needed_ops(lambda: wk.wavelet_multi_plain(x3, prm))
@@ -1964,8 +2375,14 @@ def main():
     # ---- the look: L1 (a colour grade) and L2 (a colour negative)
     new_stats.update(look_phase(smi_line, entries))
 
-    failures = [f"B6 on {k} disagrees with its plain version"
-                for k, ok in b6_edges.items() if not ok]
+    # ---- lens and sensor corrections: C1 (calibrated, lens-corrected)
+    # and C2 (an embedded gain map and lensfun, through the CLI)
+    with tempfile.TemporaryDirectory() as tmp:
+        lens_stats, failures = lens_phase(smi_line, tmp)
+    new_stats.update(lens_stats)
+
+    failures += [f"B6 on {k} disagrees with its plain version"
+                 for k, ok in b6_edges.items() if not ok]
     for e in entries.values():
         mean_err = e.pop("_mean_err")
         if e["max_abs_err"] > KERNEL_MAX or mean_err > KERNEL_MEAN:

@@ -475,3 +475,69 @@ def test_config3_develop_on_card_matches_cpu(cuda_device, smoothing):
     assert st["flip_share"] <= IMPULSE_FLIPS, st
     assert st["max_lsb8_beyond_flips"] <= 1.0, st
     assert st["mean"] <= 2e-4, st
+
+
+def _transform_data(case):
+    """The geometric transform's data for a 256x384 image from the port's
+    own planner: rotation and perspective with auto-fill, or distortion
+    and CA sliders with a metadata spline (a Sony correction)."""
+    import dataclasses
+
+    from art_tpu_torch.pipeline import transform as tt
+
+    pp = ProcParams()
+    frame = synthesize_bayer(np.full((3, 8, 8), 0.5, np.float32))
+    if case == "rotate-perspective":
+        pp.apply_arp_text("[Rotation]\nEnabled=true\nDegree=1.5\n"
+                          "[Perspective]\nEnabled=true\nHorizontal=8\n"
+                          "Vertical=-5\n[Common Properties for "
+                          "Transformations]\nAutoFill=true\n")
+    else:
+        nc = 16
+        frame = dataclasses.replace(frame, make="SONY", exif={"makernotes": {
+            "DistortionCorrParams": [nc] + [int(-3000 * (i / 15.0) ** 2)
+                                            for i in range(nc)],
+            "ChromaticAberrationCorrParams": [2 * nc] + [40] * (2 * nc),
+            "VignettingCorrParams": [nc] + [0] * nc}})
+        pp.apply_arp_text("[Distortion]\nEnabled=true\nAmount=0.05\n"
+                          "[CACorrection]\nEnabled=true\nRed=0.002\n"
+                          "Blue=-0.002\n[LensProfile]\nLcMode=exif\n"
+                          "UseCA=true\n")
+    return tt.plan_transform(pp, (256, 384), frame=frame)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["bicubic", "bilinear"])
+@pytest.mark.parametrize("case", ["rotate-perspective", "exif-spline"])
+def test_transform_on_card_matches_cpu(cuda_device, case, method):
+    # the coordinates' divisions by host scalars go through fdiv, so the
+    # card rounds them as the CPU does: the same samples, the same taps
+    from art_tpu_torch.pipeline import transform as tt
+
+    data = _transform_data(case)
+    rgb = np.random.default_rng(4).uniform(0, 65535, (3, 256, 384))
+    x = torch.from_numpy(rgb.astype(np.float32))
+    cpu = tt.apply_transform(x, tdev.data_to_torch(data, "cpu"), method)
+    out = tt.apply_transform(x.to(cuda_device),
+                             tdev.data_to_torch(data, cuda_device), method)
+    d = (out.cpu().double() - cpu.double()).abs()
+    assert ((out.cpu() == 0) == (cpu == 0)).all()  # no support flips
+    assert d.max().item() <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blur", ["area", "v", "h", "vh"])
+def test_flatfield_on_card_matches_cpu(cuda_device, blur):
+    # the box means difference running sums, which the card's scan adds
+    # in another order: within 1.0 of 65535 on a 512x768 plane
+    from art_tpu_torch.raw.dfff import apply_flatfield_bayer
+
+    rng = np.random.default_rng(5)
+    cfa = torch.from_numpy(rng.uniform(600, 16000, (512, 768)).astype(
+        np.float32))
+    flat = torch.from_numpy(rng.uniform(4000, 9000, (512, 768)).astype(
+        np.float32))
+    cpu = apply_flatfield_bayer(cfa, flat, blur, 32)
+    out = apply_flatfield_bayer(cfa.to(cuda_device), flat.to(cuda_device),
+                                blur, 32)
+    assert (out.cpu().double() - cpu.double()).abs().max().item() <= 1.0

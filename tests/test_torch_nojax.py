@@ -5,8 +5,9 @@ that also refuses `PIL` and `cv2` (absent on the card's machine) runs
 `cli.main` from a DNG to a JPEG, and through the batch queue with
 `--devices 2`; a third, refusing all four, develops the fast export of
 E3 (config 3's denoise, whole-plane), E1's settings (highlights,
-sharpening, rotation, crop, resize, Adobe RGB) and the look paths L1
-(with its automatic log encoding and grain) and L2 at a small size; no
+sharpening, rotation, crop, resize, Adobe RGB), the look paths L1
+(with its automatic log encoding and grain) and L2, and the lens and
+sensor corrections of C1 and C2 at a small size; no
 source file of the package (`parallel/` and the export's modules among
 them), nor
 chip_smoke.py, imports any of them or reads a file under art_tpu/; and
@@ -137,6 +138,7 @@ class _Refuse:
 
 sys.meta_path.insert(0, _Refuse())
 
+import os
 import torch
 from art_tpu_torch.pipeline import develop as tdev
 from chip_smoke import clipped_frame, e3_pp, export_pp, fast_box_arp
@@ -156,6 +158,33 @@ for frame, pp in ((flagship_frame(96, 160, seed=5), l1_pp(96, 160)),
                   (l2_frame(96, 160, seed=5), l2_pp())):
     out = tdev.develop(frame, pp, device="cpu")
     assert tuple(out.shape) == (3, 96, 160), out.shape
+    assert bool(torch.isfinite(out).all())
+# the lens and sensor corrections: C1 (dark frame, flat field,
+# .badpixels, line denoise, PDAF, an LCP profile, rotation, perspective)
+# and C2 (an embedded gain map, lensfun, distortion and CA sliders)
+import tempfile
+from art_tpu_torch.io.rawfile import load_raw
+from art_tpu_torch.settings import settings
+from chip_smoke import (badpixels_dir, c1_files, c1_frame, c1_pp, c2_arp,
+                        c2_dng, flagship_pp, lensfun_db)
+with tempfile.TemporaryDirectory() as d:
+    frame = c1_frame(96, 160, seed=5)
+    files = c1_files(d, frame)
+    with badpixels_dir(files["badpixels_dir"]):
+        pp = c1_pp(files)
+        cfg, _ = tdev.plan(frame, pp, device="cpu")
+        assert cfg.transform and cfg.darkframe and cfg.badpix_file, cfg
+        assert cfg.flatfield and cfg.pdaf and cfg.linedn[0] > 0, cfg
+        out = tdev.develop(frame, pp, device="cpu")
+    assert tuple(out.shape) == (3, 96, 160), out.shape
+    c2_dng(os.path.join(d, "c2.dng"), 96, 160)
+    settings.lensfun_db_dir = lensfun_db(os.path.join(d, "lensfun"))
+    pp = flagship_pp("bilinear")
+    pp.apply_arp_text(c2_arp())
+    frame = load_raw(os.path.join(d, "c2.dng"))
+    cfg, _ = tdev.plan(frame, pp, device="cpu")
+    assert cfg.gainmap and cfg.transform, cfg
+    out = tdev.develop(frame, pp, device="cpu")
     assert bool(torch.isfinite(out).all())
 assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
 print("EXPORT-STANDALONE-OK")
@@ -217,7 +246,10 @@ def test_no_source_file_imports_jax():
                  "ops/gradients.py", "ops/textureboost.py",
                  "ops/colorcorrection.py", "ops/smoothing.py", "ops/spot.py",
                  "ops/filmneg.py", "ops/fattal.py", "color/ciecam02.py",
-                 "core/prng.py", "pipeline/autos.py"):
+                 "core/prng.py", "pipeline/autos.py",
+                 "pipeline/transform.py", "lens/lcp.py", "lens/lensfun.py",
+                 "raw/dfff.py", "raw/dfff_managers.py", "io/gainmap.py",
+                 "raw/cfa_linedn.py", "raw/pdaf.py"):
         assert os.path.join("art_tpu_torch", name) in scanned
     offenders = []
     for path in _port_sources():

@@ -4,6 +4,7 @@ profile (AMaZE), its bilinear variant and a WB/denoise variant; and a
 named NotImplementedError for every step the port lacks.
 """
 
+import contextlib
 import dataclasses
 import fcntl
 import hashlib
@@ -19,6 +20,17 @@ from art_tpu_torch.pipeline import develop as tdev
 from chip_smoke import parity
 
 jdev = importlib.import_module("art_tpu.pipeline.develop")
+
+# Under pytest-xdist each worker collects every test module, this one
+# included: give each worker its share of the cores for PyTorch's
+# intra-op threads. With one thread a core in each of six workers on
+# eight cores, the spin-waiting thread pools oversubscribe the machine
+# and a CPU test that takes 5 s alone takes minutes.
+if os.environ.get("PYTEST_XDIST_WORKER_COUNT"):
+    import torch
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(
+        os.environ["PYTEST_XDIST_WORKER_COUNT"])))
 
 ARP = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "art_tpu_torch", "data", "profiles",
@@ -77,8 +89,16 @@ LOOSE = {"op:tonecurve/params": (slice(36, 42), 2e-6)}
 @pytest.mark.parametrize("make_pp", [flagship_pp, variant_pp, amaze_pp],
                          ids=["flagship-bilinear", "variant", "flagship"])
 def test_plan_matches_reference(frame, make_pp):
-    ours_cfg, ours = tdev.plan(frame, make_pp())
-    ref_cfg, ref = jdev.plan(frame, make_pp())
+    assert_plans_equal(tdev.plan(frame, make_pp()),
+                       jdev.plan(frame, make_pp()))
+
+
+def assert_plans_equal(ours_plan, ref_plan):
+    """The port's (config, data) against the reference's: the same
+    PipelineConfig, data keys, shapes and dtypes, and values within rtol
+    1e-6 (LOOSE entries within their atol)."""
+    ours_cfg, ours = ours_plan
+    ref_cfg, ref = ref_plan
     names = [f.name for f in dataclasses.fields(ref_cfg)]
     assert [f.name for f in dataclasses.fields(ours_cfg)] == names
     for n in names:
@@ -136,29 +156,28 @@ def _set(pp, path, value):
         "Enabled": "true", "Strength_1": "0.5",
         "ExternalMaskEnabled_1": "true",
         "ExternalMaskFilename_1": "{tmp}/mask.png"}}}, "external mask"),
-    # the transforms beside the ported crop, flips and resize
+    # ported since (match None): the transform beside the crop, flips
+    # and resize, line denoise, the LCP profile, the dark frame, the
+    # flat field and the gain map plan as in the reference, from the
+    # files the test writes
     ({"resize.enabled": True, "rotate.enabled": True, "rotate.degree": 3.0},
-     "rotate"),
-    ({"perspective.enabled": True, "perspective.horizontal": 10.0},
-     "perspective"),
-    ({"distortion.enabled": True, "distortion.amount": 0.05},
-     "distortion"),
-    ({"raw.bayer.green_eq_enabled": True, "raw.bayer.linenoise": 10},
-     "CFA line denoise"),
+     None),
+    ({"perspective.enabled": True, "perspective.horizontal": 10.0}, None),
+    ({"distortion.enabled": True, "distortion.amount": 0.05}, None),
+    ({"raw.bayer.green_eq_enabled": True, "raw.bayer.linenoise": 10}, None),
     ({"icm.output_profile": "{tmp}/out.icc"}, "ICC"),
-    # an LCP file that exists: its vignette and geometry would apply
-    ({"lens_prof.method": "lcp", "lens_prof.lcp_file": "{tmp}/lens.lcp"},
-     "lens profile 'lcp'"),
+    # an LCP file: its vignette and geometry apply
+    ({"lens_prof.method": "lcp", "lens_prof.lcp_file": "{tmp}/lens.lcp",
+      "lens_prof.use_ca": True}, None),
     ({"icm.input_profile": "{tmp}/camera.dcp"}, "input profile"),
     ({"icm.input_profile": "{tmp}/camera.icc"}, "input profile"),
-    ({"raw.df_enabled": True, "raw.df_file": "{tmp}/dark.dng"},
-     "dark frame"),
-    ({"raw.df_enabled": True, "raw.df_autoselect": True}, "dark frame"),
-    ({"raw.ff_enabled": True, "raw.ff_file": "{tmp}/flat.dng"},
-     "flat field"),
-    ({"raw.ff_enabled": True, "raw.ff_autoselect": True}, "flat field"),
+    ({"raw.df_enabled": True, "raw.df_file": "{tmp}/dark.dng"}, None),
+    # the searches find the DNG the test writes in their directories
+    ({"raw.df_enabled": True, "raw.df_autoselect": True}, None),
+    ({"raw.ff_enabled": True, "raw.ff_file": "{tmp}/flat.dng"}, None),
+    ({"raw.ff_enabled": True, "raw.ff_autoselect": True}, None),
     ({"raw.ff_enabled": True, "raw.ff_embedded": True,
-      "frame.filename": "{tmp}/frame.dng"}, "gain map"),
+      "frame.filename": "{tmp}/frame.dng"}, None),
 ], ids=["amaze", "auto-wb", "nlmeans", "psf-image", "cc-drawn-mask",
         "texture-external-mask", "rotate-resize", "perspective",
         "distortion", "cfa-linedn", "out-icc", "lcp-file", "in-dcp",
@@ -166,25 +185,83 @@ def _set(pp, path, value):
         "ff-embedded"])
 def test_unported_steps_raise_by_name(frame, tmp_path, changes, match):
     # "{tmp}/..." names a file the test writes (the reference would apply
-    # it), "{missing}/..." one that does not exist
+    # it), "{missing}/..." one that does not exist. A step ported since
+    # (match None) plans as in the reference: the same PipelineConfig and
+    # data, and not the flagship's plan
     pp = flagship_pp()
+    if match is None:
+        ref_pp = flagship_pp()
+        with _searches(frame, tmp_path):
+            ours = _apply(pp, frame, changes, tmp_path)
+            _apply(ref_pp, frame, changes, tmp_path)
+            cfg, data = tdev.plan(ours, pp)
+            assert_plans_equal((cfg, data), jdev.plan(ours, ref_pp))
+        assert plan_key(cfg, data) != plan_key(*tdev.plan(frame,
+                                                          flagship_pp()))
+        tdev.build_run(cfg)
+        return
     frame = _apply(pp, frame, changes, tmp_path)
     with pytest.raises(NotImplementedError, match=match):
         cfg, data = tdev.plan(frame, pp)
         tdev.build_run(cfg)
 
 
+def _write_file(path, frame):
+    """A file for a "{tmp}/..." value: a DNG of the frame's mosaic with
+    four gain maps, C1's LCP profile, or an empty file."""
+    if path.endswith(".dng"):
+        from art_tpu_torch.io.dngwrite import write_dng
+        from chip_smoke import gain_maps
+
+        h, w = frame.cfa.shape
+        write_dng(path, np.round(frame.cfa).astype(np.uint16), black=512,
+                  white=16383, compress=False, gain_maps=gain_maps(h, w))
+    elif path.endswith(".lcp"):
+        from chip_smoke import C1_LCP, _LCP_FRAME
+
+        with open(path, "w") as f:
+            f.write(C1_LCP.format(frames=_LCP_FRAME.format(
+                f=35, fl=0.72, k1=-0.05)))
+    else:
+        with open(path, "wb"):
+            pass
+
+
+@contextlib.contextmanager
+def _searches(frame, tmp_path):
+    """Both packages' dark-frame and flat-field searches read a directory
+    that holds one DNG of the frame's mosaic, inside the block."""
+    from art_tpu.raw import dfff_managers as ref_mgr
+    from art_tpu_torch.raw import dfff_managers as mgr
+
+    d = tmp_path / "search"
+    d.mkdir()
+    _write_file(str(d / "cal.dng"), frame)
+    mp = pytest.MonkeyPatch()
+    for pkg in ("art_tpu", "art_tpu_torch"):
+        settings = importlib.import_module(f"{pkg}.settings").settings
+        mp.setattr(settings, "dark_frames_dir", str(d))
+        mp.setattr(settings, "flat_fields_dir", str(d))
+    mgr.reset()
+    ref_mgr.reset()
+    try:
+        yield
+    finally:
+        mp.undo()
+        mgr.reset()
+        ref_mgr.reset()
+
+
 def _apply(pp, frame, changes, tmp_path):
     """Set `changes` on pp (and "frame.filename" on a copy of frame),
-    writing an empty file for each "{tmp}/..." value (also inside a
-    group of `extra`); returns the frame."""
+    writing a file for each "{tmp}/..." value (also inside a group of
+    `extra`, `_write_file`); returns the frame."""
     def resolve(value):
         if isinstance(value, dict):
             return {k: resolve(v) for k, v in value.items()}
         if isinstance(value, str) and value.startswith("{tmp}"):
             value = str(tmp_path / value[len("{tmp}/"):])
-            with open(value, "wb"):
-                pass
+            _write_file(value, frame)
         elif isinstance(value, str) and value.startswith("{missing}"):
             value = str(tmp_path / "missing" / value[len("{missing}/"):])
         return value

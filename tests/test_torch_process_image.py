@@ -180,16 +180,16 @@ def test_cli_matches_the_reference(dng, config1_outputs, tmp_path,
 
 
 @pytest.mark.parametrize("args,step", [
-    # the fast export is ported; a rotation by degrees in its profile is
+    # the fast export is ported; auto white balance in its profile is
     # not
-    (["-q", "-p", "{tmp}/rotate.arp"], "rotate"),
+    (["-q", "-p", "{tmp}/auto-wb.arp"], "white balance"),
     (["--gamut-warn", "sRGB"], "color/gamutwarning.py"),
 ])
 def test_cli_refusals(dng, tmp_path, capsys, args, step):
     from art_tpu_torch import cli
 
-    (tmp_path / "rotate.arp").write_text("[Rotation]\nEnabled=true\n"
-                                         "Degree=3\n")
+    (tmp_path / "auto-wb.arp").write_text("[White Balance]\n"
+                                          "Setting=Auto\n")
     args = [a.replace("{tmp}", str(tmp_path)) for a in args]
     out = tmp_path / "out"
     out.mkdir()
@@ -262,14 +262,13 @@ def test_process_image_refusals(dng):
             pass
 
     path = str(dng / "c1.dng")
-    # the fast export is ported: with a perspective correction, its step
-    # is refused
+    # the fast export is ported: with auto white balance, its step is
+    # refused
     fast = config1(ProcParams)
     fast.resize.enabled = True
-    fast.perspective.enabled = True
-    fast.perspective.vertical = 10.0
+    fast.wb.method = "Auto"
     for pp, kw, step in (
-            (fast, dict(fast=True), "perspective"),
+            (fast, dict(fast=True), "white balance"),
             (config1(ProcParams), dict(gamut_warn="sRGB"),
              "color/gamutwarning.py"),
             (config1(ProcParams), dict(listener=Wants()),

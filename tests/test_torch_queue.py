@@ -140,8 +140,7 @@ def test_batch_bad_file_and_refused_step_continue(tmp_path, capsys):
     bad = tmp_path / "broken.dng"
     bad.write_bytes(b"not a dng")
     refused = ProcParams()
-    refused.rotate.enabled = True  # a rotation by degrees is not ported
-    refused.rotate.degree = 3.0
+    refused.wb.method = "Auto"  # auto white balance is not ported
     jobs = [(str(paths[0]), ProcParams(), str(tmp_path / "g0.jpg")),
             (str(bad), ProcParams(), str(tmp_path / "g1.jpg")),
             (str(paths[1]), refused, str(tmp_path / "g2.jpg")),
@@ -149,7 +148,8 @@ def test_batch_bad_file_and_refused_step_continue(tmp_path, capsys):
     assert process_batch(jobs, devices=CPU2) == [True, False, False, True]
     assert not (tmp_path / "g1.jpg").exists()
     assert not (tmp_path / "g2.jpg").exists()
-    assert "rotate is not ported" in capsys.readouterr().err
+    assert "white balance method 'Auto' is not ported" in \
+        capsys.readouterr().err
 
 
 def test_device_failure_raises_after_draining(tmp_path, monkeypatch):

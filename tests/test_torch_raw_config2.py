@@ -238,14 +238,19 @@ def test_develop_matches_reference(frame):
     assert st["within_1lsb8"] >= 0.999, st
 
 
-@pytest.mark.parametrize("changes,frame_changes,match", [
-    ({"raw.bayer.linenoise": 10.0}, {}, "CFA line denoise"),
+@pytest.mark.parametrize("changes,frame_changes,field", [
+    ({"raw.bayer.linenoise": 10.0}, {}, "linedn"),
     ({"raw.bayer.pdaf_lines_filter": True},
-     {"make": "Fujifilm", "model": "GFX 100"}, "PDAF"),
+     {"make": "Fujifilm", "model": "GFX 100"}, "pdaf"),
 ], ids=["line-denoise", "pdaf"])
 def test_unported_raw_steps_raise_by_name(frame, changes, frame_changes,
-                                          match):
-    pp = _set(config2_pp(ProcParams()), changes)
+                                          field):
+    # CFA line denoise and the PDAF line filter, once refused here, plan
+    # as in the reference (tests/test_torch_rawcal.py runs them)
+    from tests.test_torch_plan import assert_plans_equal
+
     f = dataclasses.replace(frame, **frame_changes)
-    with pytest.raises(NotImplementedError, match=match):
-        tdev.plan(f, pp)
+    cfg, data = tdev.plan(f, _set(config2_pp(ProcParams()), changes))
+    assert_plans_equal((cfg, data), jdev.plan(
+        f, _set(config2_pp(RefProcParams()), changes)))
+    assert getattr(cfg, field) not in (False, (0.0, 3))
