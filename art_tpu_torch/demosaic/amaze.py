@@ -528,7 +528,7 @@ def padded_plane(cfa):
     return xp / torch.tensor(65535.0, dtype=xp.dtype, device=xp.device)
 
 
-def amaze_demosaic(cfa, pattern, init_gain=1.0):
+def amaze_demosaic(cfa, pattern, init_gain=1.0, **kw):
     """(H, W) scaled Bayer mosaic (0..65535) -> (3, H, W) RGB on cfa's
     device: reflect pad by HALO, the three stage kernels (plain versions
     on a CPU tensor), crop, then the bilinear border ring."""
@@ -547,16 +547,11 @@ def _with_border(cfa, pattern, rgb):
     """The outer BORDER ring falls back to bilinear (amaze.py::_with_border):
     computed on four strips of BORDER + 4 px, or, for an odd size, as a
     whole-plane select. Writes into `rgb` and returns it."""
-    from art_tpu_torch.demosaic.bilinear import bayer_bilinear
+    from art_tpu_torch.demosaic.bilinear import bayer_bilinear, bilinear_ring
 
     h, w = cfa.shape
     if h % 2 or w % 2:
-        fallback = bayer_bilinear(cfa, pattern)
-        ri = torch.arange(h, device=cfa.device)[:, None]
-        ci = torch.arange(w, device=cfa.device)[None, :]
-        ring = ((ri < BORDER) | (ri >= h - BORDER)
-                | (ci < BORDER) | (ci >= w - BORDER))
-        return torch.where(ring[None], fallback, rgb)
+        return bilinear_ring(rgb, cfa, pattern, BORDER)
     m = BORDER + 4  # strip width incl. interpolation context
     fb_top = bayer_bilinear(cfa[:m, :], pattern)
     fb_bot = bayer_bilinear(cfa[h - m :, :], pattern)

@@ -32,6 +32,18 @@ def _shift_sum(x, weights):
     return out
 
 
+def bilinear_ring(rgb, cfa, pattern, border):
+    """rgb with its outer `border`-pixel ring replaced by the bilinear
+    result of cfa (the reference's border interpolation of RCD, DCB,
+    AHD, EAHD, HPHD, PPG and JDL)."""
+    h, w = cfa.shape
+    ri = torch.arange(h, device=cfa.device)[:, None]
+    ci = torch.arange(w, device=cfa.device)[None, :]
+    ring = ((ri < border) | (ri >= h - border)
+            | (ci < border) | (ci >= w - border))
+    return torch.where(ring[None], bayer_bilinear(cfa, pattern), rgb)
+
+
 def bayer_bilinear(cfa, pattern):
     """(H, W) mosaic -> (3, H, W) RGB, same 0..65535 domain."""
     mr, mg, mb = bayer_channel_masks(pattern, cfa.shape, cfa.device)

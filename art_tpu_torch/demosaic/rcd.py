@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from art_tpu_torch.core.image import bayer_channel_masks
-from art_tpu_torch.demosaic.bilinear import bayer_bilinear
+from art_tpu_torch.demosaic.bilinear import bilinear_ring
 
 EPS = 1e-5
 EPSSQ = 1e-10
@@ -57,7 +57,7 @@ def _diag_mean(s):
     return 0.25 * (s(-1, -1) + s(-1, 1) + s(1, -1) + s(1, 1))
 
 
-def rcd_demosaic(cfa, pattern):
+def rcd_demosaic(cfa, pattern, **kw):
     """(H, W) Bayer mosaic in 0..65535 -> (3, H, W) RGB, same domain."""
     scale = 65536.0
     x = torch.clamp(cfa / scale, 0.0, 1.0)
@@ -180,9 +180,4 @@ def rcd_demosaic(cfa, pattern):
     rgb = torch.clamp(torch.stack([red, green, blue]) * scale, min=0.0)
 
     # the reference interpolates the outer ring separately: bilinear
-    h, w = x.shape
-    ri = torch.arange(h, device=x.device)[:, None]
-    ci = torch.arange(w, device=x.device)[None, :]
-    border = ((ri < BORDER) | (ri >= h - BORDER)
-              | (ci < BORDER) | (ci >= w - BORDER))
-    return torch.where(border[None], bayer_bilinear(cfa, pattern), rgb)
+    return bilinear_ring(rgb, cfa, pattern, BORDER)

@@ -182,31 +182,28 @@ def xtrans_directional(cfa, xtrans_pattern, passes=1):
     return torch.stack([red, g, blue])
 
 
-def dual_blend_runs(method, dem_kwargs):
-    """Whether the reference's 4-pass method blends against the fast
-    method (demosaic/dual.py, not ported): under a positive contrast or
-    the automatic one, the default."""
-    kw = dict(dem_kwargs)
-    return method.lower().startswith("4-pass") and (
-        kw.get("dual_auto", False) or kw.get("dual_contrast", 0.0) > 0.0)
-
-
 def demosaic_xtrans(cfa, xtrans_pattern, method="3-pass (best)",
                     dem_kwargs=()):
     """The reference's dispatch by method name: mono/none, fast, 1-, 2-,
-    3- and 4-pass (4-pass only where no dual blend runs); any other name
-    runs 3 passes, as in the reference."""
+    3- and 4-pass; any other name runs 3 passes, as in the reference.
+    4-pass is 4 directional passes blended against the fast method by
+    `dual.dual_blend` under a positive contrast or the automatic one
+    (dual_demosaic_RT.cc fast_xtrans_interpolate_blend)."""
     m = method.lower()
     if m in ("mono", "none"):
         return torch.stack([cfa, cfa, cfa])
     if m.startswith("fast"):
         return fast_xtrans(cfa, xtrans_pattern)
-    if dual_blend_runs(method, dem_kwargs):
-        raise NotImplementedError(
-            f"X-Trans demosaic {method!r} with its dual-demosaic blend "
-            "(demosaic/dual.py) is not ported to art_tpu_torch")
     passes = 3
     for prefix, n in (("1-pass", 1), ("2-pass", 2), ("4-pass", 4)):
         if m.startswith(prefix):
             passes = n
-    return xtrans_directional(cfa, xtrans_pattern, passes=passes)
+    out = xtrans_directional(cfa, xtrans_pattern, passes=passes)
+    kw = dict(dem_kwargs)
+    dc = kw.get("dual_contrast", 0.0)
+    da = kw.get("dual_auto", False)
+    if m.startswith("4-pass") and (da or dc > 0.0):
+        from art_tpu_torch.demosaic.dual import dual_blend
+
+        out = dual_blend(out, fast_xtrans(cfa, xtrans_pattern), dc, da)
+    return out

@@ -111,6 +111,39 @@ class RawFrame:
         return np.array([v[0] / v[1], 1.0, v[2] / v[1]])
 
 
+def synthesize_pixelshift(rgb01, pattern="RGGB", black=512.0, white=16383.0,
+                          cam_mul=(2.0, 1.0, 1.5)):
+    """Four pixel-shift frames of a linear [0, 1] scene (the Pentax/Sony
+    4-frame grid) as one RawFrame and its `extra_frames`: frame k records
+    the channel the CFA displaced by `demosaic.pixelshift.OFFSETS[k]`
+    selects (art_tpu/io/rawfile.py::synthesize_pixelshift)."""
+    from art_tpu_torch.core.image import bayer_color_index
+    from art_tpu_torch.demosaic.pixelshift import OFFSETS
+
+    rgb01 = np.asarray(rgb01, dtype=np.float64)
+    _, h, w = rgb01.shape
+    cam_mul = np.asarray(cam_mul, dtype=np.float64)
+    sensor = rgb01 / cam_mul[:, None, None]
+    frames = []
+    for dy, dx in OFFSETS:
+        cidx = np.roll(np.roll(bayer_color_index(pattern, (h, w)), -dy, 0),
+                       -dx, 1)
+        mosaic = np.take_along_axis(
+            sensor.reshape(3, -1), cidx.reshape(1, -1), axis=0
+        ).reshape(h, w)
+        frames.append(np.clip(mosaic * (white - black) + black, 0, white))
+    return RawFrame(
+        cfa=frames[0].astype(np.float32),
+        pattern=pattern,
+        black=np.full(4, float(black)),
+        white=np.full(4, float(white)),
+        cam_mul=np.array([cam_mul[0], cam_mul[1], cam_mul[2], cam_mul[1]]),
+        make="ART-TPU", model="SyntheticPS",
+        filename="<synthetic-pixelshift>",
+        extra_frames=np.stack(frames[1:]).astype(np.float32),
+    )
+
+
 def load_raw(path) -> RawFrame:
     """Decode a raw file on host with the native decoder (DNG, CR2, NEF,
     classic RAF, ARW), as the reference does. Another extension raises:

@@ -51,7 +51,6 @@ from art_tpu_torch.core.fmath import fdiv, fsqrt, interp, mat3
 from art_tpu_torch.core.image import (MAXVAL, bayer_channel_masks,
                                      pad_to_multiple)
 from art_tpu_torch.core.profile import span
-from art_tpu_torch.demosaic import PORTED as PORTED_DEMOSAICS
 from art_tpu_torch.ops.resize import apply_resize, resize_plan
 from art_tpu_torch.pipeline.transform import (apply_transform,
                                               needs_transform,
@@ -119,7 +118,7 @@ def _auto_log(frame, pp, device):
     from art_tpu_torch.pipeline.autos import auto_log_params
 
     pp = copy.deepcopy(pp)
-    h, w = frame.cfa.shape
+    h, w = frame.cfa.shape[-2:]
     if frame.pattern is not None and min(h, w) < 16:
         return pp
     gain, black_ev, white_ev = auto_log_params(frame, pp, device)
@@ -195,11 +194,14 @@ def _plan_calibration(frame, pp, data):
     252-319): the user .badpixels file's mask, the dark frame (by path or
     by its search), the embedded DNG gain map, the flat field (by path or
     by its search, unless a gain map applies); each plane padded to the
-    planned shape. Returns (darkframe, flatfield, gainmap)."""
+    planned shape. None of them for a Foveon frame. Returns (darkframe,
+    flatfield, gainmap)."""
     from art_tpu_torch.raw.badpixfile import (badpixel_mask,
                                               find_badpixels_for,
                                               parse_badpixels_file)
 
+    if frame.cfa.ndim == 3:  # Foveon: no CFA-domain calibration
+        return False, None, False
     raw = pp.raw
     bp_file = find_badpixels_for(frame.make, frame.model)
     if bp_file:
@@ -263,8 +265,10 @@ def _plan_raw_vignette(frame, pp, data, w, h):
     """The lens vignette gains on the raw plane (develop.py:321-359): an
     LCP profile's (not a fisheye's), or the metadata's or lensfun's,
     a spline or the DNG FixVignetteRadial polynomial; centres from the
-    frame's true (w, h)."""
+    frame's true (w, h). None for a Foveon frame."""
     lp = pp.lens_prof
+    if frame.cfa.ndim == 3:
+        return
     focal = float(frame.exif.get("focal_length", 0.0) or 0.0)
     if lp.method == "lcp" and lp.lcp_file and lp.use_vign:
         from art_tpu_torch.lens.lcp import parse_lcp
@@ -437,16 +441,36 @@ def fit_op_planes(data, steps, dims, shape, late_crop, crop):
                 data[f"op:{name}"] = _map_tree(data[f"op:{name}"], fn)
 
 
+def _dem_kwargs(method, sensor, bayer):
+    """The method's demosaic kwargs, as pairs (develop.py:143-158): the
+    dual blend's contrast and auto for names ending in bilinear or vng4
+    and for X-Trans 4-pass, LMMSE's iterations, DCB's iterations and
+    enhance (also for its duals)."""
+    ml = method.lower()
+    kw = []
+    if (ml.endswith("bilinear") or ml.endswith("vng4")
+            or ml.startswith("4-pass")):
+        kw += [("dual_contrast", float(sensor.dual_demosaic_contrast)),
+               ("dual_auto", bool(sensor.dual_demosaic_auto_contrast))]
+    if ml == "lmmse":
+        kw.append(("iterations", int(bayer.lmmse_iterations)))
+    if ml.startswith("dcb"):
+        kw += [("iterations", int(bayer.dcb_iterations)),
+               ("enhance", bool(bayer.dcb_enhance))]
+    return kw
+
+
 def plan(frame, pp, fast=False, out_u8=False, device="cuda"):
     """ProcParams + frame -> (PipelineConfig, data) for the ported slice:
     a Bayer raw frame (dark frame, gain map, flat field, lens vignette,
     .badpixels, hot/dead pixels, green equilibration, line denoise, PDAF
-    lines, raw CA; AMaZE, RCD or bilinear/fast demosaic) or an X-Trans
-    one, camera or CustomMult white balance, highlight recovery, the
-    ported ops (`ops.PORTED`), coarse rotation and flips, the geometric
-    transform with its lens corrections (LCP, metadata, lensfun), the
-    crop, the Lanczos resize with post-resize sharpening, to a matrix
-    output profile.
+    lines, raw CA; every demosaic method of the reference, pixel shift
+    with the frame's 3 extra frames), an X-Trans one or a Foveon one
+    (3 planes, no CFA step), camera or CustomMult white balance,
+    highlight recovery, the ported ops (`ops.PORTED`), coarse rotation
+    and flips, the geometric transform with its lens corrections (LCP,
+    metadata, lensfun), the crop, the Lanczos resize with post-resize
+    sharpening, to a matrix output profile.
     fast=True is the reference's fast export (-q), active only with a
     resize: the demosaic downgrades, the image is resized right after
     the raw stage and every later step runs at output scale. out_u8
@@ -457,9 +481,10 @@ def plan(frame, pp, fast=False, out_u8=False, device="cuda"):
     Anything else raises NotImplementedError."""
     if not frame.is_raw:
         _unported("non-raw input")
-    if frame.cfa.ndim != 2 or (frame.pattern is None
-                               and frame.xtrans is None):
-        _unported("Foveon or monochrome raw")
+    # a Sigma Foveon X3F: 3 full planes, no mosaic (develop.py:112-126)
+    foveon = frame.cfa.ndim == 3
+    if not foveon and frame.pattern is None and frame.xtrans is None:
+        _unported("monochrome raw with no CFA")
     fast = bool(fast and pp.resize.enabled)
     if fast:
         import copy
@@ -475,7 +500,7 @@ def plan(frame, pp, fast=False, out_u8=False, device="cuda"):
     data = {}
     ctx = {"working_profile": icc_working, "frame": frame, "pp": pp}
 
-    h, w = frame.cfa.shape
+    h, w = frame.cfa.shape[-2:]
     pm = PAD_MULTIPLE
     shape = (((h + pm - 1) // pm) * pm, ((w + pm - 1) // pm) * pm)
     bayer_adjust = None
@@ -484,29 +509,38 @@ def plan(frame, pp, fast=False, out_u8=False, device="cuda"):
         bayer_adjust = [b.black1, b.black0, b.black2, b.black3]
     raw_expos = pp.raw.expos if pp.raw.expos_enabled else 1.0
     sensor = pp.raw.bayer if frame.pattern is not None else pp.raw.xtrans
-    method = sensor.method
-    ml = method.lower()
-    if frame.pattern is not None and ml not in PORTED_DEMOSAICS:
-        _unported(f"demosaic method {method!r}")
-    dem_kwargs = []
-    if ml.endswith("bilinear") or ml.startswith("4-pass"):
-        dem_kwargs += [
-            ("dual_contrast", float(sensor.dual_demosaic_contrast)),
-            ("dual_auto", bool(sensor.dual_demosaic_auto_contrast))]
+    method = "foveon" if foveon else sensor.method
+    # pixel shift needs the 3 extra frames; a single frame develops with
+    # AMaZE (develop.py:131-139, the rawimagesource.cc:1888 fallback)
+    pixelshift = False
+    if method.lower() == "pixelshift":
+        extra = frame.extra_frames
+        if extra is not None and len(extra) == 3:
+            pixelshift = True
+            data["ps_frames"] = _padded_f32(np.asarray(extra, np.float32))
+        else:
+            method = "amaze"
+    dem_kwargs = _dem_kwargs(method, sensor, pp.raw.bayer)
 
     if pp.wb.enabled and pp.wb.method in ("CustomMult", "CustomMultLegacy"):
         m = np.asarray(pp.wb.mult, dtype=np.float64)
         wb_mults = np.array([m[0] / m[1], 1.0, m[2] / m[1]])
-    elif pp.wb.enabled and pp.wb.method in ("Custom", "CustomTemp", "Auto"):
+    elif pp.wb.enabled and (pp.wb.method in ("Custom", "CustomTemp")
+                            or (pp.wb.method == "Auto" and not foveon)):
         _unported(f"white balance method {pp.wb.method!r}")
     else:
         wb_mults = frame.camera_wb_mults()
 
     is_mono = method == "mono"
-    splan = rawpre.scale_plan(frame, bayer_adjust, raw_expos,
-                              is_mono=is_mono, wb_mults_rgb=wb_mults)
-    data["raw_offset"] = splan["offset_tile"]
-    data["raw_scale"] = splan["scale_tile"]
+    if foveon:
+        splan = rawpre.scale_plan_foveon(frame, raw_expos, wb_mults)
+        data["raw_offset"] = splan["offset3"]
+        data["raw_scale"] = splan["scale3"]
+    else:
+        splan = rawpre.scale_plan(frame, bayer_adjust, raw_expos,
+                                  is_mono=is_mono, wb_mults_rgb=wb_mults)
+        data["raw_offset"] = splan["offset_tile"]
+        data["raw_scale"] = splan["scale_tile"]
     mults, _ = wbmod.image_multipliers(
         frame, wb_mults, splan["scale_mul"], splan["c_white"],
         splan["cblack"], raw_expos, is_mono=is_mono)
@@ -518,9 +552,9 @@ def plan(frame, pp, fast=False, out_u8=False, device="cuda"):
     _plan_raw_vignette(frame, pp, data, w, h)
     _check_input_profile(pp)
 
-    # highlight reconstruction (develop.py:363-380)
+    # highlight reconstruction (develop.py:363-380), on a CFA frame
     hl_mode = "Off"
-    if pp.exposure.enabled and pp.exposure.hrmode != "Off":
+    if pp.exposure.enabled and pp.exposure.hrmode != "Off" and not foveon:
         hl_mode = {"Blend": "blend", "Color": "inpaint",
                    "ColorSoft": "opposed"}.get(pp.exposure.hrmode, "Off")
     if hl_mode != "Off":
@@ -655,6 +689,7 @@ def plan(frame, pp, fast=False, out_u8=False, device="cuda"):
         hl_mode=hl_mode,
         pdaf=pdaf,
         dem_kwargs=tuple(dem_kwargs),
+        pixelshift=pixelshift,
         darkframe=darkframe,
         flatfield=flatfield,
         gainmap=gainmap,
@@ -685,23 +720,16 @@ def fusion_gates(config: PipelineConfig):
 
 def _check_config(config):
     """Refuse configs outside the slice (either planner's)."""
-    if not config.is_raw or (config.pattern is None
-                             and config.xtrans is None):
-        _unported("non-raw, Foveon or monochrome input")
-    for field, want in (("dcp", None), ("icc_input_trc", None),
-                        ("pixelshift", False)):
-        if getattr(config, field) != want:
+    if not config.is_raw:
+        _unported("non-raw input")
+    if (config.pattern is None and config.xtrans is None
+            and config.demosaic_method != "foveon"):
+        _unported("monochrome raw with no CFA")
+    for field in ("dcp", "icc_input_trc"):
+        if getattr(config, field) is not None:
             _unported(f"pipeline config {field}={getattr(config, field)!r}")
     if config.hl_mode not in ("Off", "blend", "opposed", "inpaint"):
         _unported(f"highlight recovery {config.hl_mode!r}")
-    if config.xtrans is not None:
-        from art_tpu_torch.demosaic.xtrans import dual_blend_runs
-
-        if dual_blend_runs(config.demosaic_method, config.dem_kwargs):
-            _unported(f"X-Trans demosaic {config.demosaic_method!r} (its "
-                      "dual-demosaic blend, demosaic/dual.py)")
-    elif config.demosaic_method.lower() not in PORTED_DEMOSAICS:
-        _unported(f"demosaic method {config.demosaic_method!r}")
     for name, static, _ in config.steps:
         check = getattr(ops_pkg.get_op(name), "check_static", None)
         if check is not None:
@@ -876,6 +904,45 @@ def coarse_transform(rgb, coarse):
     return rgb
 
 
+def foveon_scale(inp, data):
+    """A Foveon frame's (3, H, W) planes through the per-channel
+    scaleColors (develop.py:848-851): no mosaic, no demosaic."""
+    with span("scale"):
+        return torch.clamp((inp - data["raw_offset"]) * data["raw_scale"],
+                           min=0.0)
+
+
+def raw_stage(inp, config: PipelineConfig, data):
+    """A CFA frame from raw counts to RGB (develop.py:858-979): the
+    calibration, the scale, the vignette, the raw steps, then the
+    demosaic, or pixel shift's combine of the 4 scaled frames."""
+    from art_tpu_torch.demosaic import demosaic
+
+    inp = raw_calibration(inp, config, data)
+    with span("scale"):
+        cfa = rawpre.apply_scale(inp, data["raw_offset"], data["raw_scale"])
+    del inp
+    if any(k in data for k in ("lcp_vign", "exif_vign", "exif_vign_dng")):
+        with span("vignette"):
+            cfa = raw_vignette(cfa, data)
+    cfa = raw_steps(cfa, config, data)
+    if config.pixelshift:
+        from art_tpu_torch.demosaic.pixelshift import pixelshift_combine
+
+        with span("scale"):
+            frames = torch.stack([cfa] + [
+                rawpre.apply_scale(data["ps_frames"][k], data["raw_offset"],
+                                   data["raw_scale"]) for k in range(3)])
+        del cfa
+        with span("pixelshift"):
+            return pixelshift_combine(frames, config.pattern,
+                                      **dict(config.dem_kwargs))
+    with span("demosaic"):
+        return demosaic(cfa, config.pattern, config.demosaic_method,
+                        init_gain=data["init_gain"], xtrans=config.xtrans,
+                        dem_kwargs=config.dem_kwargs)
+
+
 def build_run(config: PipelineConfig):
     """The device program for a config: run(inp, data) -> encoded
     (3, H, W) float32 on inp's device, or (H, W, 3) uint8 for an out_u8
@@ -886,28 +953,13 @@ def build_run(config: PipelineConfig):
     late_steps = [s for s in config.steps if s[2] > 0]
 
     def run(inp, data):
-        from art_tpu_torch.demosaic import demosaic
-
         if inp.dtype != torch.float32:
             inp = inp.to(torch.float32)
-        inp = raw_calibration(inp, config, data)
-        with span("scale"):
-            cfa = rawpre.apply_scale(inp, data["raw_offset"],
-                                     data["raw_scale"])
+        if config.demosaic_method == "foveon":
+            rgb = foveon_scale(inp, data)
+        else:
+            rgb = raw_stage(inp, config, data)
         del inp
-        if any(k in data for k in ("lcp_vign", "exif_vign",
-                                   "exif_vign_dng")):
-            with span("vignette"):
-                cfa = raw_vignette(cfa, data)
-        cfa = raw_steps(cfa, config, data)
-        with span("demosaic"):
-            rgb = demosaic(cfa, config.pattern, config.demosaic_method,
-                           init_gain=data["init_gain"],
-                           xtrans=config.xtrans,
-                           dem_kwargs=config.dem_kwargs)
-        # the float mosaic plane would stay allocated beside the
-        # denoise's scratch, where the flagship's peak lies
-        del cfa
         if config.hl_mode in ("opposed", "inpaint"):
             with span("hilite"):
                 rgb = recover_highlights(rgb, data, config.hl_mode)

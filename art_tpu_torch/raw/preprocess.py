@@ -39,7 +39,8 @@ def scale_plan(frame, bayer_black_adjust=None, raw_expos=1.0, is_mono=False,
     Bayer and lcm(6, 8) = 24 for X-Trans, on the global coordinates."""
     if frame.pattern is None and frame.xtrans is None:
         raise NotImplementedError(
-            "scale_plan: Foveon and monochrome frames are not ported")
+            "scale_plan: a monochrome raw with no CFA is not ported to "
+            "art_tpu_torch (a Foveon frame takes scale_plan_foveon)")
     h, w = frame.cfa.shape
     cblack = np.asarray(frame.black, dtype=np.float64).copy()
     if bayer_black_adjust is not None:
@@ -74,6 +75,32 @@ def scale_plan(frame, bayer_black_adjust=None, raw_expos=1.0, is_mono=False,
     return {
         "offset_tile": np.tile(offset_rows, (vreps, 1)),
         "scale_tile": np.tile(scale_rows, (vreps, 1)),
+        "scale_mul": scale_mul,
+        "gain": gain,
+        "clmax": clmax[:3],
+        "cblack": cblack,
+        "c_white": c_white,
+    }
+
+
+def scale_plan_foveon(frame, raw_expos=1.0, wb_mults_rgb=None):
+    """scaleColors for a 3-plane Foveon frame: a (black, scale) per
+    channel as (3, 1, 1) planes over the (3, H, W) stack, plus scale_mul,
+    gain, clmax, cblack and c_white
+    (art_tpu/raw/preprocess.py::scale_plan_foveon)."""
+    cblack = np.asarray(frame.black, dtype=np.float64).copy()
+    c_white = np.asarray(frame.white, dtype=np.float64)
+    c_white = (c_white - cblack) / raw_expos + cblack
+    pre_mul4 = frame.pre_mul()
+    if wb_mults_rgb is not None:
+        w4 = np.array([wb_mults_rgb[0], wb_mults_rgb[1], wb_mults_rgb[2],
+                       wb_mults_rgb[1]], dtype=np.float64)
+        pre_mul4 = pre_mul4 / w4
+    scale_mul, gain = calculate_scale_mul(pre_mul4, c_white, cblack)
+    clmax = (c_white - cblack) * scale_mul
+    return {
+        "offset3": cblack[:3].astype(np.float32).reshape(3, 1, 1),
+        "scale3": scale_mul[:3].astype(np.float32).reshape(3, 1, 1),
         "scale_mul": scale_mul,
         "gain": gain,
         "clmax": clmax[:3],

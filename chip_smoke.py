@@ -114,6 +114,20 @@ DNG with four 9x9 gain maps developed through cli.main with lensfun
 (`lensfun_db`), a distortion slider and CA sliders (`c2_arp`), its
 phases (median of 3 after a warm run), its launches and a 512x2048
 develop against the CPU.
+Then the demosaics and raw inputs (`demosaic_phase`), counts reset
+before each path: D1, the flagship with `amazevng4` and the automatic
+dual contrast (B1-B4, B7); D2, each other Bayer name of D2_METHODS on
+the flagship frame and profile (B4 and B7; B1-B3 for the AMaZE dual),
+with a 256x1024 crop against the CPU; D3, pixel shift: four 24 MP
+frames of the flagship scene with a 512x512 patch moved (B1-B3 in the
+motion fallback, B4 with no raw head, B7), its motion share and the H2D
+of the three float32 extra frames; D4, a (3, 4000, 6000) u16 Foveon
+frame (B4 with the raw head, B7); D5, X-Trans 4-pass with the automatic
+dual blend on config 4's frame and settings (no kernel). Each prints its
+device program, peak memory and device ms by `art:` stage, holds each
+kernel it launched to its plain version on its own tensors, and
+compares the card with the CPU, with flip_parity over the demosaic's
+sites that moved between them or pixel shift's motion masks.
 Then one JSON line of per-kernel results (time, plain time, bound) and
 last the line {"ok": true, "device": {...}}. Any failure raises
 (non-zero exit, no result lines); so does a machine without CUDA.
@@ -1014,7 +1028,7 @@ def drive(label, pp, frame, kernels_of_path, shape=None, fast=False):
     torch.cuda.synchronize()
     seconds = time.monotonic() - t0
     launches, plain_calls = read_counts()
-    fh, fw = frame.cfa.shape
+    fh, fw = frame.cfa.shape[-2:]
     shape = shape or (fh, fw)
     log(f"{label} develop {fh}x{fw} (first): {seconds:.3f} s; "
         f"launches {launches}; plain calls {plain_calls}")
@@ -1140,24 +1154,27 @@ def peak_by_stage(run):
     return peak, first(stages), first(launches)
 
 
-def device_program(frame, pp, fast=False):
+def device_program(frame, pp, fast=False, n=5):
     """Time the host plan alone, then the device program alone with its
-    inputs resident (CUDA events), its peak memory and the stage that
-    sets it. Returns the config and the device inputs."""
+    inputs resident (uploaded as develop uploads them; CUDA events, mean
+    of n after a warm call), its peak memory and the stage that sets it.
+    Returns the config, the device inputs and those numbers."""
     from art_tpu_torch.pipeline import develop as tdev
 
     t0 = time.monotonic()
     config, data = tdev.plan(frame, pp, fast=fast)
-    log(f"  host plan alone: {1e3 * (time.monotonic() - t0):.1f} ms")
-    inp, _ = tdev.pad_to_multiple(frame.cfa, tdev.PAD_MULTIPLE)
-    inp_d = torch.from_numpy(inp).to("cuda")
+    plan_ms = 1e3 * (time.monotonic() - t0)
+    log(f"  host plan alone: {plan_ms:.1f} ms")
+    inp_d = tdev.upload(frame, "cuda")
     data_d = tdev.data_to_torch(data, "cuda")
     run = tdev.build_run(config)
-    device_ms = gpu_ms(lambda: run(inp_d, data_d), 5)
-    peak, _, _ = peak_by_stage(lambda: run(inp_d, data_d))
-    log(f"  device program alone (inputs resident), mean of 5: "
+    device_ms = gpu_ms(lambda: run(inp_d, data_d), n)
+    peak, at, _ = peak_by_stage(lambda: run(inp_d, data_d))
+    log(f"  device program alone (inputs resident), mean of {n}: "
         f"{device_ms:.2f} ms; peak device memory {peak / 1e9:.2f} GB")
-    return config, inp_d, data_d
+    return config, inp_d, data_d, {
+        "plan_ms": plan_ms, "device_ms": device_ms, "peak_gb": peak / 1e9,
+        "peak_stage": at}
 
 
 def profile_develop(frame, pp, fast=False):
@@ -1962,10 +1979,11 @@ def look_phase(smi_line, entries):
     return stats
 
 
-def kernels_against_plain(label, develop):
+def kernels_against_plain(label, develop,
+                          keys=("b1", "b2", "b3", "b4", "b7")):
     """Run `develop` once, recording the arguments of each launch of B1,
-    B2, B3, B4 and B7, and hold each kernel to its plain version on them
-    (bit-equal). Returns the failures."""
+    B2, B3, B4 and B7, and hold each kernel of `keys` to its plain version
+    on them (bit-equal); each must launch once. Returns the failures."""
     from art_tpu_torch.demosaic import amaze
     from art_tpu_torch.demosaic import amaze_kernel as ak
     from art_tpu_torch.ops import denoise
@@ -1990,6 +2008,8 @@ def kernels_against_plain(label, develop):
         "b7": (tn.neutral_tone, tn.neutral_plain)}
     failures = []
     for key, (kern, plain) in pairs.items():
+        if key not in keys:
+            continue
         if len(calls[key]) != 1:
             failures.append(f"{label}: {key} ran {len(calls[key])} times")
             continue
@@ -2116,6 +2136,289 @@ def lens_phase(smi_line, tmp):
     return stats, failures
 
 
+# the demosaic phase: D2's names beside D1's amazevng4 (the other
+# Bayer methods, the duals, mono/none and a name outside the registry,
+# which develops bilinear), its card-vs-CPU crop, and D3's moved patch
+D2_METHODS = ("lmmse", "igv", "vng4", "dcb", "ahd", "eahd", "hphd", "ppg",
+              "jdl", "amazebilinear", "rcdbilinear", "rcdvng4",
+              "dcbbilinear", "dcbvng4", "mono", "none", "no such method")
+CROP = (256, 1024)
+PATCH = 512
+# a Sigma DP2 Merrill's levels (12-bit, black 16)
+FOVEON_BLACK, FOVEON_WHITE = 16.0, 4070.0
+
+
+def crop_frame(frame, h, w):
+    """The frame's top-left h x w, every plane and extra frame."""
+    import dataclasses
+
+    extra = frame.extra_frames
+    return dataclasses.replace(
+        frame, cfa=np.ascontiguousarray(frame.cfa[..., :h, :w]),
+        extra_frames=None if extra is None
+        else np.ascontiguousarray(extra[:, :h, :w]))
+
+
+def pixelshift_frame(h, w, seed=0, patch=PATCH):
+    """Four pixel-shift frames of the flagship scene of `seed`
+    (`synthesize_pixelshift`), with a patch x patch block halved in the
+    second frame from a third of the way down and across: an object that
+    moved, where the motion fallback runs."""
+    from art_tpu_torch.io.rawfile import synthesize_pixelshift
+
+    rng = np.random.default_rng(seed)
+    frame = synthesize_pixelshift(
+        rng.uniform(0.02, 0.95, size=(3, h, w)).astype(np.float32))
+    p = min(patch, h // 4, w // 4)
+    frame.extra_frames[0, h // 3: h // 3 + p, w // 3: w // 3 + p] *= 0.5
+    return frame
+
+
+def foveon_frame(h, w, seed=0):
+    """A Sigma Foveon frame of the flagship scene of `seed`: three u16
+    planes at a DP2 Merrill's levels, as an X3F decodes."""
+    from art_tpu_torch.io.rawfile import RawFrame
+
+    rng = np.random.default_rng(seed)
+    rgb = rng.uniform(0.02, 0.95, size=(3, h, w))
+    planes = np.round(rgb * (FOVEON_WHITE - FOVEON_BLACK) + FOVEON_BLACK)
+    return RawFrame(cfa=planes.astype(np.uint16), pattern=None,
+                    black=np.full(4, FOVEON_BLACK),
+                    white=np.full(4, FOVEON_WHITE), make="SIGMA",
+                    model="DP2 Merrill", integral=True)
+
+
+@contextlib.contextmanager
+def demosaic_decisions(outputs=True):
+    """Yields a dict that gathers, on the CPU, the demosaic's output of
+    each develop inside the block ("demosaic", unless `outputs` is
+    False) and pixel shift's motion masks ("motion")."""
+    from art_tpu_torch import demosaic as dem
+    from art_tpu_torch.demosaic import pixelshift as tps
+
+    got = {"demosaic": [], "motion": []}
+    dem_fn, mask_fn = dem.demosaic, tps.motion_mask
+
+    def dem_recorded(*args, **kwargs):
+        rgb = dem_fn(*args, **kwargs)
+        got["demosaic"].append(rgb.cpu())
+        return rgb
+
+    def mask_recorded(*args):
+        m = mask_fn(*args)
+        got["motion"].append(m.cpu())
+        return m
+
+    tps.motion_mask = mask_recorded
+    if outputs:
+        dem.demosaic = dem_recorded
+    try:
+        yield got
+    finally:
+        dem.demosaic, tps.motion_mask = dem_fn, mask_fn
+
+
+def card_vs_cpu(label, frame, pp):
+    """A develop of frame on the card against the same on the CPU. Where
+    the path decides (a demosaic's direction picks and votes, the dual
+    blend's threshold, pixel shift's motion), flip_parity reads the
+    decisions: the motion masks, or the demosaic's sites that differ by
+    more than 1 of 65535 between the two (a flipped pick moves a value
+    by far more than rounding)."""
+    from art_tpu_torch.pipeline import develop as tdev
+
+    with demosaic_decisions() as dec:
+        g = tdev.develop(frame, pp).cpu()
+        c = tdev.develop(frame, pp, device="cpu")
+    if dec["motion"]:
+        st = flip_parity(g, c, *dec["motion"], RAW_REACH)
+    elif dec["demosaic"]:
+        a, b = dec["demosaic"]
+        moved = (a.double() - b.double()).abs().amax(0) > 1.0
+        st = flip_parity(g, c, moved, torch.zeros_like(moved), RAW_REACH)
+    else:
+        st = parity(g, c)
+    h, w = frame.cfa.shape[-2:]
+    log(f"{h}x{w} {label} develop, card vs CPU plain path: {st}")
+    return st
+
+
+def stage_ms(run):
+    """Device ms of each `art:` stage in one call of run (torch.profiler:
+    the span of each range on the device timeline), traced after an
+    untraced warm-up step, as kernel_breakdown traces: a trace's first
+    step can lose its first ranges."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            run()
+            torch.cuda.synchronize()
+            prof.step()
+    return {e.key[4:]: e.device_time_total / 1e3
+            for e in prof.key_averages()
+            if e.key.startswith("art:") and e.device_type != DeviceType.CPU}
+
+
+def program_times(label, frame, pp, n=3):
+    """device_program's numbers (mean of n) and the device ms by `art:`
+    stage, logged on one line and returned as a dict."""
+    from art_tpu_torch.pipeline import develop as tdev
+
+    config, inp, data, times = device_program(frame, pp, n=n)
+    run = tdev.build_run(config)
+    times["stages"] = stage_ms(lambda: run(inp, data))
+    log(f"{label}: host plan {times['plan_ms']:.1f} ms; device program "
+        f"{times['device_ms']:.3f} ms (mean of {n}, inputs resident); peak "
+        f"{times['peak_gb']:.3f} GB in {times['peak_stage']}; device ms by "
+        "stage: " + ", ".join(f"{k} {v:.3f}" for k, v in sorted(
+            times["stages"].items(), key=lambda kv: -kv[1])))
+    return times
+
+
+def demosaic_path(label, pp, frame, want, small, median=False):
+    """One path of the demosaic phase: a develop with the counts from 0,
+    which must launch each kernel of `want` once and no other (and no
+    plain version); with `median`, the median develop and the profiled
+    one; the device program's times; each launched kernel against its
+    plain version on the path's own tensors; a develop of `small` on the
+    card against the CPU. Returns (times, comparison, failures)."""
+    from art_tpu_torch.pipeline import develop as tdev
+
+    launches = drive(label, pp, frame, want, shape=frame.cfa.shape[-2:])
+    expect = {k: int(k in want) for k in launches}
+    if launches != expect:
+        raise RuntimeError(f"{label}: launches {launches}, want {expect}")
+    if median:
+        median_develop(label, frame, pp)
+        profile_develop(frame, pp)
+    times = program_times(label, frame, pp)
+    failures = kernels_against_plain(
+        label, lambda: tdev.develop(frame, pp), want) if want else []
+    return times, card_vs_cpu(label, small, pp), failures
+
+
+def demosaic_phase(smi_line, entries):
+    """The demosaics and raw inputs on the card, counts reset before each
+    path, each kernel launched held to its plain version on the path's
+    own tensors, each path's small develop against the CPU:
+    D1, the flagship with `amazevng4` and the automatic dual contrast
+    (B1-B4, B7; the median develop, the device program, peak memory and
+    `art:` stages, a 512x2048 develop against the CPU); D2, each of
+    D2_METHODS on the flagship frame and profile (B4 and B7; B1-B3 for
+    the AMaZE dual), its device program and `art:demosaic` ms and a
+    256x1024 crop against the CPU; D3, pixel shift: four 24 MP frames
+    with a 512x512 patch moved (B1-B3 in the motion fallback at gain 1,
+    B4 with no raw head, B7), the motion share and the H2D of the three
+    float32 extra frames; D4, a (3, 4000, 6000) u16 Foveon frame (B4 with
+    the raw head, B7); D5, X-Trans 4-pass with the automatic dual blend
+    on config 4's frame and settings (no kernel). `entries` (the kernels
+    line) is left as it is: no new kernel. Returns (times by path, the
+    comparisons, the failures)."""
+    from art_tpu_torch.pipeline import develop as tdev
+
+    log(f"---- demosaic phase ({smi_line})")
+    times, stats, failures = {}, {}, []
+    b15 = ("b1", "b2", "b3", "b4", "b7")
+    t0 = time.monotonic()
+    frame = flagship_frame(*FRAME)
+    small = flagship_frame(*SMALL, seed=5)
+    log(f"flagship frame {FRAME[0]}x{FRAME[1]} in "
+        f"{time.monotonic() - t0:.2f} s")
+
+    pp = flagship_pp("amazevng4")
+    config, _ = tdev.plan(small, pp)
+    log(f"D1 plan: {config.demosaic_method} {config.dem_kwargs}, fusion "
+        f"gates {tdev.fusion_gates(config)}")
+    t, st, f = demosaic_path("D1 amazevng4", pp, frame, b15, small,
+                             median=True)
+    times["D1 amazevng4"], stats["D1 amazevng4"] = t, st
+    failures += f
+
+    crop = crop_frame(frame, *CROP)
+    for m in D2_METHODS:
+        label = f"D2 {m}"
+        want = b15 if m.startswith("amaze") else ("b4", "b7")
+        t, st, f = demosaic_path(label, flagship_pp(m), frame, want, crop)
+        times[label], stats[label] = t, st
+        failures += f
+    del frame, crop, small
+
+    # D3: pixel shift, a moved patch
+    t0 = time.monotonic()
+    frame = pixelshift_frame(*FRAME)
+    small = pixelshift_frame(*SMALL, seed=5)
+    log(f"D3 four pixel-shift frames {FRAME[0]}x{FRAME[1]} in "
+        f"{time.monotonic() - t0:.2f} s")
+    pp = flagship_pp("pixelshift")
+    config, data = tdev.plan(frame, pp)
+    extra = data["ps_frames"]
+    if not config.pixelshift or tdev.fusion_gates(config)[0]:
+        raise RuntimeError(f"D3 planned {config}")
+    h2d = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        torch.from_numpy(extra).to("cuda")
+        torch.cuda.synchronize()
+        h2d.append(1e3 * (time.monotonic() - t0))
+    log(f"D3 H2D of the three float32 extra frames "
+        f"({extra.nbytes / 1e6:.1f} MB, pageable), median of 3: "
+        f"{float(np.median(h2d)):.2f} ms")
+    del data, extra
+    with demosaic_decisions(outputs=False) as dec:
+        t, st, f = demosaic_path("D3 pixelshift", pp, frame, b15, small,
+                                 median=True)
+    share = float(dec["motion"][0].double().mean())
+    log(f"D3 motion share of the padded plane: {share:.5f}")
+    if not 0.0 < share < 0.05:
+        failures.append(f"D3: motion share {share}")
+    t["motion_share"] = share
+    times["D3 pixelshift"], stats["D3 pixelshift"] = t, st
+    failures += f
+    del frame, small
+
+    # D4: Foveon, three planes, no demosaic
+    pp = flagship_pp("amaze")
+    frame, small = foveon_frame(*FRAME), foveon_frame(*SMALL, seed=5)
+    config, _ = tdev.plan(frame, pp)
+    if config.demosaic_method != "foveon" or not tdev.fusion_gates(
+            config)[0]:
+        raise RuntimeError(f"D4 planned {config}")
+    t, st, f = demosaic_path("D4 foveon", pp, frame, ("b4", "b7"), small,
+                             median=True)
+    times["D4 foveon"], stats["D4 foveon"] = t, st
+    failures += f
+    del frame, small
+
+    # D5: X-Trans 4-pass with the automatic dual blend
+    with tempfile.TemporaryDirectory() as lut_dir:
+        cube = os.path.join(lut_dir, "config4.cube")
+        write_cube(cube)
+        pp = config4_pp(cube)
+        pp.raw.xtrans.method = "4-pass (best)"
+        if not pp.raw.xtrans.dual_demosaic_auto_contrast:
+            raise RuntimeError("4-pass without the automatic dual blend")
+        t, st, f = demosaic_path("D5 xtrans 4-pass", pp,
+                                 config4_frame(*FRAME4), (),
+                                 config4_frame(*SMALL4, seed=5),
+                                 median=True)
+        times["D5 xtrans 4-pass"], stats["D5 xtrans 4-pass"] = t, st
+        failures += f
+    log("demosaic phase summary (device program ms, art:demosaic or "
+        "art:pixelshift ms, peak GB): " + json.dumps({k: [
+            round(v["device_ms"], 3),
+            round(v["stages"].get("demosaic", v["stages"].get(
+                "pixelshift", 0.0)), 3), round(v["peak_gb"], 3)]
+            for k, v in times.items()}))
+    return times, stats, failures
+
+
 def _leaves(d):
     for k, v in d.items():
         if isinstance(v, dict):
@@ -2180,7 +2483,7 @@ def main():
     pp = flagship_pp("amaze")
     launches = drive("amaze", pp, frame, ("b1", "b2", "b3", "b4", "b7"))
     median_develop("amaze", frame, pp)
-    config, inp_d, data_d = device_program(frame, pp)
+    config, inp_d, data_d, _ = device_program(frame, pp)
     profile_develop(frame, pp)
 
     # ---- the bilinear path (the first slice's)
@@ -2190,7 +2493,7 @@ def main():
     pp3 = config3_pp()
     launches3 = drive("config3", pp3, frame, ("b5", "b6"))
     median_develop("config3", frame, pp3)
-    config3, inp3, data3 = device_program(frame, pp3)
+    config3, inp3, data3, _ = device_program(frame, pp3)
     profile_develop(frame, pp3)
 
     # ---- configs 2 and 4, each with a small develop against the CPU
@@ -2380,6 +2683,11 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         lens_stats, failures = lens_phase(smi_line, tmp)
     new_stats.update(lens_stats)
+
+    # ---- the demosaics and raw inputs: D1-D5
+    _, dem_stats, dem_failures = demosaic_phase(smi_line, entries)
+    new_stats.update(dem_stats)
+    failures += dem_failures
 
     failures += [f"B6 on {k} disagrees with its plain version"
                  for k, ok in b6_edges.items() if not ok]

@@ -235,10 +235,18 @@ def test_plan_matches_reference_for_amaze(scene):
 @pytest.mark.parametrize("method", ["igv", "lmmse", "amazebilinear", "dcb",
                                     "vng4", "no such method"])
 def test_unported_demosaic_raises_by_name(method):
-    # no fallback to bilinear for an unknown name, unlike the reference
-    cfa = torch.zeros(64, 64)
-    with pytest.raises(NotImplementedError, match=method):
-        demosaic(cfa, "RGGB", method)
+    # every method of the reference's registry is ported, and a name
+    # outside it develops bilinear, as in the reference (its registry's
+    # default): each develops as the reference's dispatch does, within
+    # 0.05 of 65535 (measured: equal but the dual blend's exp, 0.004)
+    rng = np.random.default_rng(7)
+    cfa = (rng.uniform(0.05, 0.9, (64, 96)) * 60000).astype(np.float32)
+    from art_tpu.demosaic import demosaic as ref_demosaic
+
+    ref = np.asarray(ref_demosaic(jnp.asarray(cfa), "RGGB", method))
+    out = demosaic(torch.from_numpy(cfa), "RGGB", method).numpy()
+    assert out.shape == ref.shape == (3, 64, 96)
+    np.testing.assert_allclose(out, ref, rtol=0, atol=0.05)
 
 
 def test_amaze_wrappers_refuse_bad_inputs():

@@ -1,6 +1,7 @@
 """art_tpu_torch stands alone: a subprocess that refuses every `jax`,
 `jaxlib` and `art_tpu` import plans and develops the flagship frame (AMaZE
-and bilinear) and config 3 (RCD, non-fused denoise, impulse); another
+and bilinear), config 3 (RCD, non-fused denoise, impulse), a dual
+demosaic (`dcbvng4`), a pixel-shift frame and a Foveon frame; another
 that also refuses `PIL` and `cv2` (absent on the card's machine) runs
 `cli.main` from a DNG to a JPEG, and through the batch queue with
 `--devices 2`; a third, refusing all four, develops the fast export of
@@ -71,6 +72,21 @@ out = tdev.develop(frame, config3_pp(), device="cpu")
 assert tuple(out.shape) == (3, 256, 1024), out.shape
 assert bool(torch.isfinite(out).all())
 assert 0.0 <= float(out.min()) and float(out.max()) <= 1.0
+# a dual demosaic, a pixel-shift frame (a patch moved: the AMaZE
+# fallback runs) and a Foveon frame (3 u16 planes)
+from art_tpu_torch.io.rawfile import RawFrame, synthesize_pixelshift
+ps = synthesize_pixelshift(rgb[:, :96, :160])
+ps.extra_frames[:, 40:60, 60:90] *= 0.5
+fov = RawFrame(cfa=(rgb[:, :96, :160] * 4000 + 16).astype(np.uint16),
+               pattern=None, integral=True, make="SIGMA")
+for fr, method in ((frame, "dcbvng4"), (ps, "pixelshift"), (fov, "amaze")):
+    pp = ProcParams()
+    pp.raw.bayer.method = method
+    cfg, _ = tdev.plan(fr, pp, device="cpu")
+    assert cfg.demosaic_method == ("foveon" if fr is fov else method), cfg
+    out = tdev.develop(fr, pp, device="cpu")
+    assert tuple(out.shape[-2:]) == fr.cfa.shape[-2:], out.shape
+    assert bool(torch.isfinite(out).all())
 assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
 print("STANDALONE-OK")
 '''

@@ -135,8 +135,9 @@ def _set(pp, path, value):
 
 
 @pytest.mark.parametrize("changes,match", [
-    # a Bayer method still unported (AMaZE and RCD are ported)
-    ({"raw.bayer.method": "lmmse"}, "lmmse"),
+    # ported since (match None, below): LMMSE plans its iterations as
+    # in the reference
+    ({"raw.bayer.method": "lmmse"}, None),
     ({"wb.method": "Auto"}, "white balance"),
     # the Smoothing op's NLMeans region is ported; an area mask on it
     # (the reference rasterises it with OpenCV) is not

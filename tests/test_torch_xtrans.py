@@ -1,7 +1,8 @@
 """X-Trans in art_tpu_torch against `art_tpu` on the CPU: the colour
 index (host and device, with offsets), the synthetic frame, the scale
 plan's 24-row period, each demosaic method on the same seeded mosaic,
-the refusal of the 4-pass dual blend, the raw steps' plan as the
+4-pass with its dual blend (the plan, the demosaic and a develop), the
+raw steps' plan as the
 reference plans them for X-Trans, and a synthetic X-Trans RAF from
 `tests/util_raf.write_raf` through `cli.main` against the reference's
 `process_image` (u8 output, as tests/test_torch_process_image.py holds
@@ -13,6 +14,7 @@ the same order; measured equal bit for bit on x86); the CLI's u8 output
 max <= 1 and >= 99.9% equal (PERF.md section 2).
 """
 
+import dataclasses
 import importlib
 
 import jax.numpy as jnp
@@ -21,7 +23,7 @@ import pytest
 import torch
 
 from art_tpu.core import image as rimage
-from art_tpu.demosaic import xtrans as rxt
+from art_tpu.demosaic import registry as ref_registry
 from art_tpu.io import rawfile as rraw
 from art_tpu.params import ProcParams as RefProcParams
 from art_tpu.raw import preprocess as rpre
@@ -30,8 +32,15 @@ from art_tpu_torch.demosaic import xtrans as txt
 from art_tpu_torch.params import ProcParams
 from art_tpu_torch.pipeline import develop as tdev
 from art_tpu_torch.raw import preprocess as tpre
+from chip_smoke import parity
 from test_torch_process_image import check_u8
 from util_raf import write_raf
+
+# the reference's 4-pass imports its dual module, which registers the
+# dual names: let the registry fill first, or it would hold those alone
+# (and every other method fall back to bilinear) in this process
+ref_registry.get("amaze")
+from art_tpu.demosaic import xtrans as rxt  # noqa: E402
 
 jdev = importlib.import_module("art_tpu.pipeline.develop")
 
@@ -102,14 +111,29 @@ def small_frame():
 
 
 def test_four_pass_dual_blend_raises_by_name(mosaic, small_frame):
-    pp = ProcParams()
-    pp.raw.xtrans.method = "4-pass (best)"
+    # 4-pass under the default DualDemosaicAutoContrast blends against
+    # the fast method (demosaic/dual.py), as in the reference: the same
+    # plan, the demosaic within 0.05 of 65535 (automatic and a fixed
+    # contrast), the develop within the slice bounds (measured: the
+    # blend's exp, 0.0002 LSB8)
+    pp, ref_pp = ProcParams(), RefProcParams()
+    for p in (pp, ref_pp):
+        p.raw.xtrans.method = "4-pass (best)"
     assert pp.raw.xtrans.dual_demosaic_auto_contrast  # the default
-    with pytest.raises(NotImplementedError, match="4-pass.*dual"):
-        tdev.build_run(tdev.plan(small_frame, pp)[0])
-    with pytest.raises(NotImplementedError, match="dual"):
-        txt.demosaic_xtrans(torch.from_numpy(mosaic), PATTERN, "4-pass",
-                            (("dual_auto", True),))
+    cfg, _ = tdev.plan(small_frame, pp, device="cpu")
+    ref_cfg, _ = jdev.plan(small_frame, ref_pp)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(ref_cfg)
+    assert dict(cfg.dem_kwargs)["dual_auto"] is True
+    for kw in ((("dual_auto", True), ("dual_contrast", 20.0)),
+               (("dual_auto", False), ("dual_contrast", 35.0))):
+        ours = txt.demosaic_xtrans(torch.from_numpy(mosaic), PATTERN,
+                                   "4-pass", kw).numpy()
+        ref = np.asarray(rxt.demosaic_xtrans(jnp.asarray(mosaic), PATTERN,
+                                             "4-pass", **dict(kw)))
+        np.testing.assert_allclose(ours, ref, rtol=0, atol=0.05)
+    out = tdev.develop(small_frame, pp, device="cpu").numpy()
+    st = parity(out, np.asarray(jdev.develop(small_frame, ref_pp)))
+    assert st["max_lsb8"] <= 1.0 and st["mean"] <= 2e-4, st
 
 
 def _raw_settings(pp):
