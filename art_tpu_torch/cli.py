@@ -13,13 +13,13 @@ Extra flags of the reference: ``--bench`` prints per-image timings;
 batch queue (``parallel/queue.py::process_batch``) over the first N
 visible CUDA devices, as the reference takes its first N devices; as
 there, its outputs carry no metadata. ``--check-lut <file>`` exits 0 if
-the LUT loads, 1 if it does not, and 2 for a format whose loader is not
-ported (a Hald CLUT image). ``-q`` is the fast export: a resize to the
-Options' fast-export box right after the raw stage. Not ported, and
-refused per file with exit code 2: ``--gamut-warn``
-(``color/gamutwarning.py``). `main` develops on the card unless its
-caller passes ``device="cpu"`` (with ``--devices N``: N workers on the
-CPU).
+the LUT loads, 1 if it does not, and 2 for an image format the port's
+decoder does not read (it reads PNG and baseline TIFF Hald CLUTs).
+``-q`` is the fast export: a resize to the Options' fast-export box
+right after the raw stage. ``--gamut-warn <profile>`` paints the pixels
+outside the proof profile's gamut cyan (``color/gamutwarning.py``).
+`main` develops on the card unless its caller passes ``device="cpu"``
+(with ``--devices N``: N workers on the CPU).
 """
 
 from __future__ import annotations
@@ -260,8 +260,8 @@ def make_icc_main(args):
 
 def check_lut_main(args):
     """--check-lut (main-cli.cc:105-126): exit 0 iff the LUT loads, 1
-    ("Invalid LUT file") if it does not; 2, naming the step, for a
-    format whose loader is not ported, which the port cannot judge."""
+    ("Invalid LUT file") if it does not; 2, naming the format, for an
+    image the port's decoder does not read, which it cannot judge."""
     if not args:
         print("invalid arguments to --check-lut")
         return 2

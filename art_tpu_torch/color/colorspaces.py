@@ -14,6 +14,7 @@ import functools
 import numpy as np
 import torch
 
+from art_tpu_torch.core.curve1d import clenshaw
 from art_tpu_torch.core.fmath import cbrt, fdiv
 
 # -- Bradford-adapted (D50) RGB<->XYZ matrices (iccmatrices.h:76-160) -------
@@ -91,6 +92,14 @@ XYZ_FROM_SRGB_D65 = np.array(
     ]
 )
 
+SRGB_D65_FROM_XYZ = np.array(
+    [
+        [3.2404542, -1.5371385, -0.4985314],
+        [-0.9692660, 1.8760108, 0.0415560],
+        [0.0556434, -0.2040259, 1.0572252],
+    ]
+)
+
 # standard output TRCs by colorspace name (matrix + TRC output path)
 OUTPUT_GAMMAS = {
     "sRGB": ("srgb", None),
@@ -147,9 +156,12 @@ def srgb_gamma_torch(x):
 
 
 def check_trc(trc):
-    """Refuse an output TRC whose encode is not ported: the kinds that
-    only ICC profile files give (para, cheb, lut, icclut)."""
-    if trc[0] in ("para", "cheb", "lut", "icclut"):
+    """Refuse an output TRC this package does not encode. Every kind the
+    reference's planner gives is encoded: the named ones, an ICC file's
+    `para`, `cheb` and `lut` curves (`encode_trc`) and a LUT-class
+    profile's `icclut` stages (`color/icclut.py`)."""
+    if trc[0] not in ("srgb", "gamma", "linear", "para", "cheb", "lut",
+                      "icclut"):
         raise NotImplementedError(f"output TRC {trc[0]!r} is not ported")
 
 
@@ -159,17 +171,91 @@ def pure_gamma(x, g):
     return torch.pow(torch.clamp(x, min=0.0), float(np.float32(g)))
 
 
+def _cheb_sqrtwarp(x, coeffs):
+    """A fitted sampled TRC (`core/curve1d.py::fit_curve`'s Chebyshev
+    series on the sqrt-warped [0, 1]) by the Clenshaw recurrence
+    (colorspaces.py::_cheb_sqrtwarp)."""
+    t = 2.0 * torch.sqrt(torch.clamp(x, 0.0, 1.0)) - 1.0
+    return clenshaw(t, coeffs)
+
+
+def _para_fwd(x, p):
+    """The ICC parametric curve in its tag's direction, device to linear
+    (colorspaces.py::_para_fwd): (a*x + b)^g + e for x >= d, else
+    c*x + f."""
+    g, a, b, c, d, e, f = p
+    x = torch.clamp(x, 0.0, 1.0)
+    hi = torch.pow(torch.clamp(a * x + b, min=0.0), g) + e
+    return torch.where(x >= d, hi, c * x + f)
+
+
+def _para_inv(y, p):
+    """The parametric curve's inverse, linear to device
+    (colorspaces.py::_para_inv)."""
+    g, a, b, c, d, e, f = p
+    y = torch.clamp(y, 0.0, 1.0)
+    hi = fdiv(torch.pow(torch.clamp(y - e, min=0.0), 1.0 / g) - b,
+              a or 1.0)
+    lo = fdiv(y - f, c) if c else torch.zeros_like(y)
+    return torch.where(y >= c * d + f, hi, lo)
+
+
+def _table(x, samples):
+    """Linear interpolation in a table of samples over [0, 1]
+    (colorspaces.py's `lut` branch)."""
+    s = torch.as_tensor(np.asarray(samples, np.float32), device=x.device)
+    n = s.shape[0]
+    idx = torch.clamp(x, 0.0, 1.0) * (n - 1)
+    i0 = torch.clamp(idx.to(torch.int32), 0, n - 2)
+    fr = idx - i0
+    i0 = i0.long()
+    return s[i0] * (1 - fr) + s[i0 + 1] * fr
+
+
 def encode_trc(x, trc):
     """Output TRC encode of a tensor (colorspaces.py::encode_trc): sRGB
     through the device fit, a pure gamma (Adobe RGB, ProPhoto) as
-    clip(x, 0, 1)^(1/g); kinds without a matched branch clip to [0, 1]
-    as the reference's default does ("linear" among them). For a TRC
-    that `check_trc` admits (the pipeline checks it at build time)."""
-    if trc[0] == "srgb":
+    clip(x, 0, 1)^(1/g), an ICC file's parametric curve by its inverse,
+    a sampled one by its fitted encode series (`cheb`) or its encode
+    table (`lut`); kinds without a matched branch clip to [0, 1] as the
+    reference's default does ("linear" among them)."""
+    kind, g = trc
+    if kind == "srgb":
         return srgb_gamma_torch(x)
-    if trc[0] == "gamma":
-        return pure_gamma(torch.clamp(x, 0.0, 1.0), 1.0 / trc[1])
+    if kind == "gamma":
+        return pure_gamma(torch.clamp(x, 0.0, 1.0), 1.0 / g)
+    if kind == "para":
+        return _para_inv(x, g)
+    if kind == "cheb":
+        return torch.clamp(_cheb_sqrtwarp(x, g[0]), 0.0, 1.0)
+    if kind == "lut":
+        return _table(x, g[0])
     return torch.clamp(x, 0.0, 1.0)
+
+
+def srgb_igamma_torch(y):
+    """sRGB -> linear of a tensor, the exact power (colorspaces.py::
+    srgb_igamma)."""
+    y = torch.clamp(y, 0.0, 1.0)
+    return torch.where(y <= 0.04045, fdiv(y, 12.92),
+                       torch.pow(fdiv(y + 0.055, 1.055), 2.4))
+
+
+def decode_trc(y, trc):
+    """TRC decode of a tensor, device to linear (colorspaces.py::
+    decode_trc): the counterpart of each `encode_trc` branch."""
+    kind, g = trc
+    if kind == "srgb":
+        return srgb_igamma_torch(y)
+    if kind == "gamma":
+        return pure_gamma(torch.clamp(y, 0.0, 1.0), g)
+    if kind == "para":
+        return _para_fwd(y, g)
+    if kind == "cheb":
+        return torch.clamp(_cheb_sqrtwarp(y, g[1]), 0.0, 1.0)
+    if kind == "lut":
+        return _table(y, g[1])
+    return torch.clamp(y, 0.0, 1.0)
 
 
 # -- Lab (D50, matching Color::XYZ2Lab; colorspaces.py:263-294) -------------
@@ -179,9 +265,12 @@ _EPS = 216.0 / 24389.0
 _KAPPA = 24389.0 / 27.0
 
 
-def xyz_to_lab(x, y, z):
+def xyz_to_lab(x, y, z, root=cbrt):
+    """XYZ (D50) to Lab; `root` the cube root (`core/fmath.py::cbrt`, or
+    `cbrt_xla` where XLA's rounding of the reference's jitted `jnp.cbrt`
+    is what the result is held to)."""
     def f(t):
-        return torch.where(t > _EPS, cbrt(t), fdiv(_KAPPA * t + 16.0, 116.0))
+        return torch.where(t > _EPS, root(t), fdiv(_KAPPA * t + 16.0, 116.0))
 
     fx = f(fdiv(x, D50_WHITE[0]))
     fy = f(fdiv(y, D50_WHITE[1]))

@@ -1,13 +1,15 @@
-"""3D LUTs: the .cube parser and tetrahedral interpolation (counterpart
-of ``art_tpu/color/lut3d.py``; rtengine/clutstore.cc, LUT3D.cc).
+"""3D LUTs: Hald CLUT images, the .cube parser, tetrahedral and
+trilinear interpolation (counterpart of ``art_tpu/color/lut3d.py``;
+rtengine/clutstore.cc, LUT3D.cc).
 
-The host parser gives an (n, n, n, 3) float32 table indexed [r][g][b].
+The host loaders give an (n, n, n, 3) float32 table indexed [r][g][b]:
+a Hald image through the port's own decoder (`io/imagefile.py::
+read_rgb8`, what the reference asks PIL for), a .cube file by its text.
 On the device each pixel gathers the 8 corners of its lattice cell from
-the flat table and takes the tetrahedron that its fractions select (the
-reference packs the corners into rows and maps over chunks to suit the
-TPU's gathers; the corners and the six-way select are the same). A Hald
-CLUT image needs an image decoder (PIL in the reference), which the port
-does not carry.
+the flat table and takes the tetrahedron that its fractions select, or
+the trilinear blend (the reference packs the corners into rows and maps
+over chunks to suit the TPU's gathers; the corners and the weights are
+the same).
 """
 
 from __future__ import annotations
@@ -53,17 +55,40 @@ def load_cube(path):
     return np.ascontiguousarray(np.transpose(table, (2, 1, 0, 3))), dmin, dmax
 
 
+def load_hald_clut(path):
+    """A Hald CLUT image -> (n, n, n, 3) table, level n = cbrt(pixels)
+    (clutstore semantics: pixel p = r + n*g + n*n*b, row-major)."""
+    from art_tpu_torch.io.imagefile import read_rgb8
+
+    arr = read_rgb8(path).astype(np.float32) / 255.0
+    npix = arr.shape[0] * arr.shape[1]
+    n = round(npix ** (1.0 / 3.0))
+    if n * n * n != npix:
+        raise ValueError(f"not a Hald CLUT: {path}")
+    table = arr.reshape(n, n, n, 3)  # [b][g][r]
+    return np.ascontiguousarray(np.transpose(table, (2, 1, 0, 3)))
+
+
 def load_lut3d(path):
-    """A .cube file's table; any other extension is a Hald CLUT image,
-    which is not ported: one that exists raises NotImplementedError, a
-    missing one OSError, on which the reference plans nothing."""
+    """A .cube file's table, or a Hald CLUT image's for any other
+    extension."""
     if os.path.splitext(str(path))[1].lower() == ".cube":
         return load_cube(path)[0]
-    if not os.path.isfile(path):
-        raise FileNotFoundError(path)
-    raise NotImplementedError(
-        f"Hald CLUT image {path!r} (color/lut3d.py::load_hald_clut, an "
-        "image decoder) is not ported to art_tpu_torch")
+    return load_hald_clut(path)
+
+
+def _cell(r, g, b, n):
+    """Each value's lattice cell (flat index of its low corner) and its
+    fractions in the cell, as the reference computes them."""
+    dm1 = n - 1.0
+    rr = torch.clamp(r, 0.0, 1.0).reshape(-1) * dm1
+    gg = torch.clamp(g, 0.0, 1.0).reshape(-1) * dm1
+    bb = torch.clamp(b, 0.0, 1.0).reshape(-1) * dm1
+    r0 = torch.clamp(torch.floor(rr), max=dm1 - 1).to(torch.int32)
+    g0 = torch.clamp(torch.floor(gg), max=dm1 - 1).to(torch.int32)
+    b0 = torch.clamp(torch.floor(bb), max=dm1 - 1).to(torch.int32)
+    base = ((r0 * n + g0) * n + b0).long()
+    return base, rr - r0, gg - g0, bb - b0
 
 
 def apply_tetrahedral(r, g, b, table):
@@ -71,17 +96,9 @@ def apply_tetrahedral(r, g, b, table):
     [0, 1] (clamped), table an (n, n, n, 3) tensor on their device.
     Returns (r', g', b')."""
     n = table.shape[0]
-    dm1 = n - 1.0
     flat = table.reshape(-1, 3)
     shape = r.shape
-    rr = torch.clamp(r, 0.0, 1.0).reshape(-1) * dm1
-    gg = torch.clamp(g, 0.0, 1.0).reshape(-1) * dm1
-    bb = torch.clamp(b, 0.0, 1.0).reshape(-1) * dm1
-    r0 = torch.clamp(torch.floor(rr), max=dm1 - 1).to(torch.int32)
-    g0 = torch.clamp(torch.floor(gg), max=dm1 - 1).to(torch.int32)
-    b0 = torch.clamp(torch.floor(bb), max=dm1 - 1).to(torch.int32)
-    fr, fg, fb = rr - r0, gg - g0, bb - b0
-    base = ((r0 * n + g0) * n + b0).long()
+    base, fr, fg, fb = _cell(r, g, b, n)
 
     def at(i, j, k):
         q = flat[base + ((i * n + j) * n + k)]
@@ -113,3 +130,24 @@ def apply_tetrahedral(r, g, b, table):
                             ~rge_g & gge_b & ~rge_b, t5[c], t6[c])))))
         outs.append(o.reshape(shape))
     return tuple(outs)
+
+
+def apply_trilinear(r, g, b, table):
+    """Trilinear 3D LUT interpolation (CLF interpolation="trilinear"):
+    the 8 corners weighed by the products of the fractions, summed in
+    the reference's corner order."""
+    n = table.shape[0]
+    flat = table.reshape(-1, 3)
+    shape = r.shape
+    base, fr, fg, fb = _cell(r, g, b, n)
+    fr, fg, fb = fr[:, None], fg[:, None], fb[:, None]
+    out = 0.0
+    for i in (0, 1):
+        wi = fr if i else (1.0 - fr)
+        for j in (0, 1):
+            wj = fg if j else (1.0 - fg)
+            for k in (0, 1):
+                wk = fb if k else (1.0 - fb)
+                out = out + flat[base + ((i * n + j) * n + k)] * (
+                    wi * wj * wk)
+    return tuple(out[:, c].reshape(shape) for c in range(3))

@@ -5,7 +5,8 @@ multiplies by the scalar's reciprocal, which rounds differently from an
 IEEE division; `rdiv` divides a scalar by a tensor, which PyTorch
 rounds as a reciprocal and a product. `cbrt` stands in for `jnp.cbrt`,
 which PyTorch lacks; `cbrt_xla` follows XLA's own rounding of it.
-`mat3` applies a 3x3 matrix as explicit multiply-adds. `interp` is
+`mat3` applies a 3x3 matrix as explicit multiply-adds. `fpow` is a
+float32 power through float64, alike on every device. `interp` is
 `jnp.interp`'s formula, constant ends included. `fsqrt`, `cumsum32` and
 `mean32` round alike on the card and the CPU, where PyTorch's own
 float32 versions do not: its CPU sqrt is not the correctly rounded root
@@ -49,6 +50,19 @@ def cbrt_xla(t):
     root (the AHD/EAHD Lab votes, the dual demosaic's L), where `cbrt`'s
     1-ulp differences from XLA (~14% of values) flip votes."""
     return torch.pow(t.double(), float(np.float32(1.0 / 3.0))).to(t.dtype)
+
+
+def fpow(t, e):
+    """t ** e as XLA's float32 power, a Python base or exponent rounded to
+    float32 (a weak-typed scalar under JAX): the float64 power rounded to
+    the float result type, the same value on every device (PyTorch's CUDA
+    pow is not correctly rounded, nor its CPU pow of two tensors)."""
+    if not torch.is_tensor(t):
+        return torch.pow(float(np.float32(t)), e.double()).to(e.dtype)
+    if not torch.is_tensor(e):
+        return torch.pow(t.double(), float(np.float32(e))).to(t.dtype)
+    return torch.pow(t.double(), e.double()).to(
+        torch.promote_types(t.dtype, e.dtype))
 
 
 def rdiv(a, b):

@@ -1,13 +1,24 @@
-"""Host-side image encode: JPEG, TIFF and PNG (counterpart of
-``art_tpu/io/imagefile.py::save_image``), with no PIL and no OpenCV.
+"""Host-side image encode and decode: JPEG, TIFF and PNG out
+(counterpart of ``art_tpu/io/imagefile.py::save_image``), PNG and TIFF
+in, with no PIL and no OpenCV.
 
 The reference's output matrix: JPEG 8-bit through the port's own
 libjpeg-exact encoder (:mod:`art_tpu_torch.io.jpeg`, in place of the
 reference's OpenCV call, same bytes) with EXIF and ICC inserted as
 APP1/APP2 segments; TIFF 8/16/32 through :mod:`art_tpu_torch.io.tiffwrite`;
 PNG 8/16-bit through the small zlib writer below (the reference uses PIL
-for 8 bits and OpenCV for 16; the pixels are the same). Reading non-raw
-images (``load_std_image``) is not ported.
+for 8 bits and OpenCV for 16; the pixels are the same).
+
+`read_rgb8` decodes a PNG (1 to 16 bits; grey, grey and alpha, RGB, RGBA,
+palette; plain or Adam7) or a baseline TIFF (strips or tiles; none,
+deflate, LZW or PackBits; the horizontal predictor; 1 to 16 bits; grey,
+RGB, RGBA, palette) into what the reference's callers ask PIL for,
+``np.asarray(Image.open(path).convert("RGB"))``, byte for byte: 16-bit
+colour keeps its high byte, 16-bit grey clips at 255 (PIL's I;16), grey
+below 8 bits scales to 0..255, a palette expands through PLTE (entries
+past its end black), alpha and tRNS drop. Another image format raises
+NotImplementedError naming it. Developing a non-raw input
+(``load_std_image``) is not ported.
 """
 
 from __future__ import annotations
@@ -127,3 +138,363 @@ def write_png(path, hwc, icc_bytes=None, exif_bytes=None, xmp_bytes=None):
     out.append(_chunk(b"IEND", b""))
     with open(path, "wb") as f:
         f.write(b"".join(out))
+
+
+# -- decode ----------------------------------------------------------------
+
+# formats PIL reads that this decoder does not, by their leading bytes
+_OTHER_FORMATS = ((b"\xff\xd8\xff", "JPEG"), (b"GIF8", "GIF"),
+                  (b"BM", "BMP"), (b"II\x2b\x00", "BigTIFF"),
+                  (b"MM\x00\x2b", "BigTIFF"), (b"\x00\x00\x01\x00", "ICO"),
+                  (b"8BPS", "PSD"), (b"\x76\x2f\x31\x01", "OpenEXR"),
+                  (b"\x00\x00\x00\x0cjP  ", "JPEG 2000"))
+
+
+def read_rgb8(path):
+    """A PNG or TIFF image as (H, W, 3) uint8, the array PIL's
+    ``Image.open(path).convert("RGB")`` gives. Another format that PIL
+    reads raises NotImplementedError naming it; bytes that are no image
+    raise OSError, as PIL's UnidentifiedImageError does."""
+    with open(path, "rb") as f:
+        buf = f.read()
+    if buf[:8] == b"\x89PNG\r\n\x1a\n":
+        return _read_png(buf)
+    if buf[:4] in (b"II\x2a\x00", b"MM\x00\x2a"):
+        return _read_tiff(buf)
+    name = next((n for magic, n in _OTHER_FORMATS if buf.startswith(magic)),
+                None)
+    if name is None and buf[:4] == b"RIFF" and buf[8:12] == b"WEBP":
+        name = "WebP"
+    if name is None and len(buf) > 2 and buf[:1] == b"P" \
+            and buf[1:2] in b"1234567" and buf[2:3].isspace():
+        name = "PNM"
+    if name is not None:
+        raise NotImplementedError(
+            f"{name} image {str(path)!r}: the port's image decoder "
+            "(io/imagefile.py::read_rgb8) reads PNG and TIFF only")
+    raise OSError(f"cannot identify image file {str(path)!r}")
+
+
+def _paeth(a, b, c):
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+
+
+def _unfilter(raw, h, row_bytes, bpp):
+    """The PNG filters undone (None, Sub, Up, Average, Paeth): (h,
+    row_bytes) uint8. Rows of None, Sub and Up go one row at a time;
+    once a row uses Average or Paeth, which read the reconstructed byte
+    to the left, the rest go by anti-diagonals of bpp-byte groups (a
+    group reads its left, upper and upper-left neighbours)."""
+    raw = np.frombuffer(raw, np.uint8)
+    if raw.size < h * (row_bytes + 1):
+        raise ValueError("broken PNG file: image data too short")
+    raw = raw[: h * (row_bytes + 1)].reshape(h, row_bytes + 1)
+    ftype = raw[:, 0]
+    if (ftype > 4).any():
+        raise ValueError(f"broken PNG file: filter type {ftype.max()}")
+    filt = raw[:, 1:]
+    out = np.zeros((h, row_bytes), np.uint8)
+    prior = np.zeros(row_bytes, np.uint8)
+    seq = np.nonzero(ftype >= 3)[0]
+    first_seq = int(seq[0]) if seq.size else h
+    for y in range(first_seq):
+        t = ftype[y]
+        row = filt[y]
+        if t == 1:  # Sub: running sums of each of the bpp byte lanes
+            row = np.cumsum(row.reshape(-1, bpp), axis=0,
+                            dtype=np.uint8).reshape(-1)
+        elif t == 2:
+            row = row + prior
+        out[y] = row
+        prior = out[y]
+    if first_seq == h:
+        return out
+    g = row_bytes // bpp
+    rest = h - first_seq
+    f3 = filt[first_seq:].reshape(rest, g, bpp).astype(np.int32)
+    # rec[y + 1, k + 1]: reconstructed group k of row first_seq + y;
+    # row 0 the row above, column 0 zeros
+    rec = np.zeros((rest + 1, g + 1, bpp), np.int32)
+    rec[0, 1:] = prior.reshape(g, bpp)
+    types = ftype[first_seq:].astype(np.int32)
+    for d in range(rest + g - 1):
+        ys = np.arange(max(0, d - g + 1), min(rest - 1, d) + 1)
+        ks = d - ys
+        a = rec[ys + 1, ks]
+        b = rec[ys, ks + 1]
+        c = rec[ys, ks]
+        t = types[ys][:, None]
+        pred = np.where(t == 1, a, np.where(
+            t == 2, b, np.where(t == 3, (a + b) >> 1, np.where(
+                t == 4, _paeth(a, b, c), 0))))
+        rec[ys + 1, ks + 1] = (f3[ys, ks] + pred) & 255
+    out[first_seq:] = rec[1:, 1:].reshape(rest, row_bytes)
+    return out
+
+
+def _png_samples(rows, w, depth, channels):
+    """Unfiltered rows -> (h, w, channels) samples (uint8 or uint16)."""
+    h = rows.shape[0]
+    if depth == 16:
+        return rows.view(">u2").astype(np.uint16).reshape(h, -1)[
+            :, : w * channels].reshape(h, w, channels)
+    if depth == 8:
+        return rows[:, : w * channels].reshape(h, w, channels)
+    bits = np.unpackbits(rows, axis=1).reshape(h, -1, depth)[:, :w]
+    vals = np.zeros((h, w), np.uint8)
+    for i in range(depth):
+        vals = (vals << 1) | bits[..., i]
+    return vals[..., None]
+
+
+_ADAM7 = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4),
+          (2, 0, 4, 2), (0, 1, 2, 2), (1, 0, 2, 1))
+
+
+def _read_png(buf):
+    pos = 8
+    ihdr = None
+    plte = b""
+    idat = []
+    while pos + 8 <= len(buf):
+        n, kind = struct.unpack_from(">I4s", buf, pos)
+        body = buf[pos + 8 : pos + 8 + n]
+        crc = buf[pos + 8 + n : pos + 12 + n]
+        if len(body) < n or len(crc) < 4:
+            raise ValueError("broken PNG file: truncated chunk")
+        if kind[0] & 0x20 == 0 and struct.unpack(">I", crc)[0] != (
+                zlib.crc32(kind + body) & 0xFFFFFFFF):
+            raise ValueError(f"broken PNG file: CRC of {kind!r}")
+        if kind == b"IHDR":
+            ihdr = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            plte = body
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+        pos += 12 + n
+    if ihdr is None or not idat:
+        raise ValueError("broken PNG file: no IHDR or IDAT")
+    w, h, depth, ctype, comp, _, interlace = ihdr
+    channels = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}.get(ctype)
+    if channels is None or depth not in (1, 2, 4, 8, 16) or comp != 0:
+        raise ValueError(f"broken PNG file: colour type {ctype}, depth "
+                         f"{depth}")
+    data = zlib.decompress(b"".join(idat))
+    bits_px = depth * channels
+    bpp = max(1, bits_px // 8)
+    if interlace:
+        dtype = np.uint16 if depth == 16 else np.uint8
+        samples = np.zeros((h, w, channels), dtype)
+        pos = 0
+        for y0, x0, dy, dx in _ADAM7:
+            ph = (h - y0 + dy - 1) // dy
+            pw = (w - x0 + dx - 1) // dx
+            if ph <= 0 or pw <= 0:
+                continue
+            rb = (pw * bits_px + 7) // 8
+            n = ph * (rb + 1)
+            rows = _unfilter(data[pos : pos + n], ph, rb, bpp)
+            pos += n
+            samples[y0::dy, x0::dx] = _png_samples(rows, pw, depth, channels)
+    else:
+        rb = (w * bits_px + 7) // 8
+        samples = _png_samples(_unfilter(data, h, rb, bpp), w, depth,
+                               channels)
+    if ctype == 3:
+        pal = np.zeros((256, 3), np.uint8)
+        entries = np.frombuffer(plte[: len(plte) // 3 * 3],
+                                np.uint8).reshape(-1, 3)[:256]
+        pal[: len(entries)] = entries
+        return pal[samples[..., 0]]
+    if ctype in (0, 4):
+        grey = samples[..., 0]
+        if depth == 16 and ctype == 0:  # PIL's I;16 clips to 8 bits
+            grey = np.minimum(grey, 255).astype(np.uint8)
+        elif depth == 16:
+            grey = (grey >> 8).astype(np.uint8)
+        elif depth < 8:
+            grey = (grey.astype(np.uint16) * (255 // ((1 << depth) - 1))
+                    ).astype(np.uint8)
+        return np.repeat(grey[..., None], 3, axis=2)
+    rgb = samples[..., :3]
+    if depth == 16:
+        rgb = (rgb >> 8).astype(np.uint8)
+    return np.ascontiguousarray(rgb)
+
+
+def _lzw_decode(data):
+    """TIFF LZW (MSB-first codes, 9 to 12 bits, the early change)."""
+    out = bytearray()
+    table = [bytes([i]) for i in range(256)] + [b"", b""]
+    nbits = 9
+    bitpos = 0
+    end = len(data) * 8
+    data = bytes(data) + b"\0\0\0"
+    prev = None
+    while bitpos + nbits <= end:
+        i, off = divmod(bitpos, 8)
+        code = (int.from_bytes(data[i : i + 3], "big")
+                >> (24 - off - nbits)) & ((1 << nbits) - 1)
+        bitpos += nbits
+        if code == 256:  # clear
+            del table[258:]
+            nbits = 9
+            prev = None
+            continue
+        if code == 257:  # end of information
+            break
+        if prev is None:
+            entry = table[code]
+        elif code < len(table):
+            entry = table[code]
+            table.append(prev + entry[:1])
+        elif code == len(table):
+            entry = prev + prev[:1]
+            table.append(entry)
+        else:
+            raise ValueError("TIFF LZW: bad code")
+        out += entry
+        prev = entry
+        if len(table) + 1 >= (1 << nbits) and nbits < 12:
+            nbits += 1
+    return bytes(out)
+
+
+def _packbits_decode(data, size):
+    out = bytearray()
+    i, n = 0, len(data)
+    while i < n and len(out) < size:
+        c = data[i]
+        i += 1
+        if c < 128:
+            out += data[i : i + c + 1]
+            i += c + 1
+        elif c > 128:
+            out += data[i : i + 1] * (257 - c)
+            i += 1
+    return bytes(out)
+
+
+_TIFF_COMPRESSION = {1: "none", 5: "LZW", 8: "deflate", 32946: "deflate",
+                     32773: "PackBits"}
+
+
+def _read_tiff(buf):
+    from art_tpu_torch.io.metadata import _read_ifd, _value
+
+    le = buf[:2] == b"II"
+    e = "<" if le else ">"
+    ents, _ = _read_ifd(buf, struct.unpack_from(e + "I", buf, 4)[0], le)
+
+    def get(tag, default=None):
+        if tag not in ents:
+            return default
+        v = _value(buf, *ents[tag], le)
+        return default if v is None else v
+
+    def seq(tag):
+        v = get(tag)
+        return None if v is None else (v if isinstance(v, tuple) else (v,))
+
+    def unported(what):
+        raise NotImplementedError(
+            f"TIFF image with {what}: the port's image decoder "
+            "(io/imagefile.py::read_rgb8) reads baseline TIFF only")
+
+    w, h = int(get(256, 0)), int(get(257, 0))
+    spp = int(get(277, 1))
+    bits = seq(258) or (1,)
+    depth = int(bits[0])
+    comp = int(get(259, 1))
+    photo = int(get(262, 1))
+    pred = int(get(317, 1))
+    fmt = seq(339) or (1,)
+    if w <= 0 or h <= 0:
+        raise ValueError("TIFF: no image size")
+    if comp not in _TIFF_COMPRESSION:
+        unported(f"compression {comp}")
+    if int(get(284, 1)) != 1:
+        unported("separate colour planes")
+    if any(int(f) != 1 for f in fmt):
+        unported(f"sample format {fmt[0]}")
+    if any(int(b) != depth for b in bits) or depth not in (1, 2, 4, 8, 16):
+        unported(f"{bits} bits per sample")
+    if pred not in (1, 2):
+        unported(f"predictor {pred}")
+    if photo not in (0, 1, 2, 3):
+        unported(f"photometric interpretation {photo}")
+    if photo == 2 and spp < 3:
+        raise ValueError("TIFF: RGB with fewer than 3 samples")
+    tiled = 322 in ents
+    if tiled:
+        bw, bh = int(get(322)), int(get(323))
+        offsets, counts = seq(324), seq(325)
+        across = (w + bw - 1) // bw
+    else:
+        bw, bh = w, int(get(278, h))
+        bh = min(bh, h) if bh > 0 else h
+        offsets, counts = seq(273), seq(279)
+        across = 1
+    if not offsets:
+        raise ValueError("TIFF: no image data")
+    row_bytes = (bw * spp * depth + 7) // 8
+    block_bytes = row_bytes * bh
+    dtype = np.dtype(e + "u2") if depth == 16 else np.uint8
+    if depth >= 8:
+        img = np.zeros((h, w, spp), np.uint16 if depth == 16 else np.uint8)
+    else:
+        img = np.zeros((h, w), np.uint8)
+    for i, off in enumerate(offsets):
+        n = counts[i] if counts else block_bytes
+        raw = buf[off : off + n]
+        name = _TIFF_COMPRESSION[comp]
+        if name == "deflate":
+            raw = zlib.decompress(raw)
+        elif name == "LZW":
+            raw = _lzw_decode(raw)
+        elif name == "PackBits":
+            raw = _packbits_decode(raw, block_bytes)
+        raw = raw[:block_bytes].ljust(block_bytes, b"\0")
+        y0 = (i // across) * bh
+        x0 = (i % across) * bw
+        if y0 >= h:
+            break
+        rows = np.frombuffer(raw, np.uint8).reshape(bh, row_bytes)
+        if depth >= 8:
+            blk = rows.view(dtype).reshape(bh, bw, spp).astype(img.dtype)
+            if pred == 2:  # horizontal differencing, sample by sample
+                blk = np.cumsum(blk, axis=1, dtype=img.dtype)
+        else:
+            bitv = np.unpackbits(rows, axis=1).reshape(bh, -1, depth)[:, :bw]
+            blk = np.zeros((bh, bw), np.uint8)
+            for k in range(depth):
+                blk = (blk << 1) | bitv[..., k]
+        hh, ww = min(bh, h - y0), min(bw, w - x0)
+        img[y0 : y0 + hh, x0 : x0 + ww] = blk[:hh, :ww]
+    if depth < 8:
+        img = img[..., None]
+    if photo == 3:
+        cmap = np.asarray(seq(320) or (), np.uint16)
+        n = 1 << depth
+        if cmap.size < 3 * n:
+            raise ValueError("TIFF: short colour map")
+        pal = (cmap[: 3 * n].reshape(3, n).T >> 8).astype(np.uint8)
+        return pal[img[..., 0]]
+    if photo in (0, 1):
+        grey = img[..., 0]
+        if depth == 16:
+            grey = np.minimum(grey, 255).astype(np.uint8)
+        elif depth < 8:
+            grey = (grey.astype(np.uint16) * (255 // ((1 << depth) - 1))
+                    ).astype(np.uint8)
+        if photo == 0:
+            grey = 255 - grey
+        return np.repeat(grey[..., None], 3, axis=2)
+    rgb = img[..., :3]
+    if depth == 16:
+        rgb = (rgb >> 8).astype(np.uint8)
+    return np.ascontiguousarray(rgb)

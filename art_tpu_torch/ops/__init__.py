@@ -3,9 +3,8 @@
 Each op module exposes ``plan(pp, ctx) -> (static, data) | None`` (host
 numpy) and ``apply(rgb, data, static) -> rgb`` on (3, H, W) float32
 tensors in the 0..65535 domain. The stage grouping and order are the
-reference's; every step is in `PORTED` but the DCP look
-(`dcplook_early`, `dcplook_late`), which only a DCP input profile plans.
-Film grain (`grain`) has no module of its own, as in the reference: the
+reference's; every step is in `PORTED`. The DCP look (`dcplook_early`,
+`dcplook_late`) is planned only from a DCP input profile. Film grain (`grain`) has no module of its own, as in the reference: the
 smoothing op runs it as NOISE regions.
 """
 
@@ -24,12 +23,13 @@ STAGE_3 = (
 )
 ALL_STEPS = STAGE_0 + STAGE_1 + STAGE_2 + STAGE_3
 
-PORTED = tuple(n for n in ALL_STEPS
-               if n not in ("dcplook_early", "dcplook_late"))
+PORTED = ALL_STEPS
 
 # steps run by another step's module: the film simulation before and
-# after the tone curve; None: a step with no module (film grain)
+# after the tone curve, the DCP look early and late; None: a step with
+# no module (film grain)
 _MODULES = {"filmsim_pre": "filmsim", "filmsim_post": "filmsim",
+            "dcplook_early": "dcplook", "dcplook_late": "dcplook",
             "grain": None}
 
 
@@ -53,7 +53,7 @@ def get_op(name: str):
 
 def plan_step(name, pp, ctx):
     """A step's plan: None for a step with no module; a positional variant
-    (filmsim_post) plans through its module's plan_<suffix> where there is
+    (filmsim_post, dcplook_early) plans through its module's plan_<suffix> where there is
     one, as in the reference's planner."""
     mod = get_op(name)
     if mod is None:

@@ -69,11 +69,13 @@ def _plan(sp, ctx, lum_w):
 
 
 def load_psf_kernel(path, scale=1.0):
-    """A PSF kernel from a JSON file, normalised and rescaled to the
-    processing scale (sharpen.py::load_psf_kernel, import_kernel and
+    """A PSF kernel from a JSON file (a flat n^2 list or a matrix) or a
+    square, odd-sized image (its green channel, through the port's
+    decoder, `io/imagefile.py::read_rgb8`), normalised and rescaled to
+    the processing scale (sharpen.py::load_psf_kernel, import_kernel and
     rescale_kernel, ipsharpen.cc:347-495): (k, k) float32, or None for a
-    missing file or an invalid kernel. A file that is not JSON is an
-    image kernel, whose decoder is not ported: NotImplementedError."""
+    missing file or an invalid kernel. An image format the decoder does
+    not read raises NotImplementedError naming it."""
     if not path or not os.path.exists(path):
         return None
     k = None
@@ -82,21 +84,25 @@ def load_psf_kernel(path, scale=1.0):
             head = f.read(32)
     except OSError:
         return None
-    if head.lstrip()[:1] != b"[":
-        raise NotImplementedError(
-            f"PSF image kernel {path!r} (an image decoder, "
-            "ops/sharpen.py::load_psf_kernel) is not ported to "
-            "art_tpu_torch")
     try:
-        with open(path) as f:
-            arr = np.asarray(json.load(f), np.float32)
-        if arr.ndim == 1:
-            n = int(round(arr.size ** 0.5))
-            if n * n != arr.size or n < 2:
-                return None
-            k = arr.reshape(n, n)
-        elif arr.ndim == 2 and arr.shape[0] == arr.shape[1]:
-            k = arr
+        if head.lstrip()[:1] == b"[":
+            with open(path) as f:
+                arr = np.asarray(json.load(f), np.float32)
+            if arr.ndim == 1:
+                n = int(round(arr.size ** 0.5))
+                if n * n != arr.size or n < 2:
+                    return None
+                k = arr.reshape(n, n)
+            elif arr.ndim == 2 and arr.shape[0] == arr.shape[1]:
+                k = arr
+        else:
+            from art_tpu_torch.io.imagefile import read_rgb8
+
+            img = read_rgb8(path).astype(np.float32)
+            if img.shape[0] == img.shape[1] and img.shape[0] % 2 == 1:
+                k = img[:, :, 1]
+    except NotImplementedError:
+        raise
     except Exception:
         return None
     if k is None or k.shape[0] % 2 == 0:

@@ -13,7 +13,10 @@ line denoise, the PDAF line filter and raw CA correction; AMaZE
 highlight recovery (ColorSoft, Color); the raw head (WB
 multipliers, Blend, clip, cam2work), fused into the denoise kernel B4
 when the reference's `fuse_head` gate opens, else applied on its own,
-with fast export's early Lanczos resize before its matrix; the stage-0
+with fast export's early Lanczos resize before its matrix; a DCP input
+profile's matrices and HueSatMap (`color/dcp.py`) in place of the
+matrix, or an ICC input profile's shaper TRC or LUT stages
+(`color/icclut.py`) before it; the stage-0
 ops: the denoise (B4, or B5 and B6 on the non-fused path, or their
 whole-plane versions below one tile) and dehaze; the coarse rotation
 and flips, the geometric transform (rotation, perspective, distortion,
@@ -21,8 +24,9 @@ CA, lens maps: `pipeline/transform.py`) and the crop; the stage 1-3
 ops: the tone equalizer, sharpening, impulse denoise, the film
 simulation, the tone curve and local contrast; the Lanczos resize and
 post-resize sharpening; then the output transform (work2out, clip,
-TRC), fused into the Neutral tone-curve kernel B7 when the `fuse_tail`
-gate opens, else applied on its own; and for an 8-bit JPEG, the
+TRC, or an ICC output profile's TRC or LUT stages), fused into the
+Neutral tone-curve kernel B7 when the `fuse_tail` gate opens, else
+applied on its own; and for an 8-bit JPEG, the
 conversion to interleaved uint8 (`out_u8`). `data_to_torch` moves
 either planner's data to a device, so the reference's own plan can
 drive this runner.
@@ -303,13 +307,59 @@ def _plan_raw_vignette(frame, pp, data, w, h):
                     [cx, cy, m2] + list(corr.vign_radial), np.float32)
 
 
-def _check_input_profile(pp):
-    """A camera profile file (ICC or DCP) that exists is not ported; one
-    that does not exist keeps the camera matrix, as in the reference."""
+def _plan_input_profile(frame, pp, data, ctx, icc_working, wb_mults):
+    """A camera profile file (develop.py:383-444): an ICC one's matrix
+    and shaper TRC, or its A2B LUT stages with an XYZ-to-working matrix
+    (any failure keeps the camera matrix, as in the reference); a DCP
+    one's matrices and tables at the shot's temperature, its step 2 (the
+    look, the tone curve, the baseline exposure) left in
+    ctx["dcp_step2"] for the DCP look op. A file that does not exist
+    keeps the camera matrix. Returns (dcp static, input TRC)."""
     ip = pp.icm.input_profile
-    if (isinstance(ip, str) and ip.lower().endswith((".icc", ".icm", ".dcp"))
-            and os.path.isfile(ip)):
-        _unported(f"input profile {ip!r}")
+    dcp_static = icc_input_trc = None
+    if not (isinstance(ip, str) and os.path.isfile(ip)):
+        return dcp_static, icc_input_trc
+    if ip.lower().endswith((".icc", ".icm")):
+        try:
+            from art_tpu_torch.color.iccfile import load_icc
+
+            prof = load_icc(ip)
+            if prof.get("kind") == "lut":
+                if prof["a2b"] is not None:
+                    from art_tpu_torch.color.icclut import plan_lut
+
+                    stages, ldata = plan_lut(prof["a2b"], prof["pcs"], "in")
+                    for k, v in ldata.items():
+                        data[f"iccin:{k}"] = v
+                    data["cam2work"] = cs.MATRICES_XYZ_TO_RGB[
+                        icc_working].astype(np.float32)
+                    icc_input_trc = ("icclut", stages)
+            else:
+                data["cam2work"] = (cs.MATRICES_XYZ_TO_RGB[icc_working]
+                                    @ prof["rgb_to_xyz"]).astype(np.float32)
+                if prof["trc"][0] != "linear":
+                    icc_input_trc = prof["trc"]
+        except Exception:
+            pass
+    if ip.lower().endswith(".dcp"):
+        from art_tpu_torch.color.dcp import load_dcp, plan_dcp
+
+        if pp.wb.enabled and pp.wb.method in ("Custom", "CustomTemp"):
+            wb_temp = float(pp.wb.temperature)
+        else:
+            wb_temp, _ = wbmod.mul2temp(*np.asarray(wb_mults)[:3])
+        dcp_static, step2, dcp_data = plan_dcp(
+            load_dcp(ip), frame, wb_temp,
+            cs.MATRICES_XYZ_TO_RGB[icc_working], icm=pp.icm)
+        if step2 is not None:
+            ctx["dcp_step2"] = (step2, {
+                k: dcp_data[k] for k in ("dcp_work2pro", "dcp_pro2work",
+                                         "dcp_look", "dcp_tc")
+                if k in dcp_data})
+        for k in ("dcp_work2pro", "dcp_look", "dcp_tc"):
+            dcp_data.pop(k, None)
+        data.update(dcp_data)
+    return dcp_static, icc_input_trc
 
 
 def _has_jpeg_preview(path) -> bool:
@@ -348,17 +398,22 @@ def _check_autos(frame, pp):
 
 
 def _resolve_output_profile(name: str) -> str:
-    """Output-profile name -> named colorspace (develop.py::
-    _resolve_output_profile): an .icc/.icm file that exists, by its path
-    or by its name in <user_dir>/iccprofiles, is not ported; any other
-    name resolves by substring, as in the reference."""
+    """Output-profile name -> named colorspace, or the path of a user
+    .icc/.icm file that exists, by its path or by its name in
+    <user_dir>/iccprofiles (develop.py::_resolve_output_profile,
+    iccstore.cc:224-366); any other name resolves by substring, as in
+    the reference."""
     from art_tpu_torch.settings import settings
 
     n = (name or "").lower()
-    if n.endswith((".icc", ".icm")) and (os.path.isfile(name) or (
-            settings.user_dir and os.path.isfile(os.path.join(
-                settings.user_dir, "iccprofiles", os.path.basename(name))))):
-        _unported(f"output ICC profile {name!r}")
+    if n.endswith((".icc", ".icm")):
+        if os.path.isfile(name):
+            return name
+        if settings.user_dir:
+            cand = os.path.join(settings.user_dir, "iccprofiles",
+                                os.path.basename(name))
+            if os.path.isfile(cand):
+                return cand
     if "2020" in n:
         return "Rec2020"
     if "adobe" in n or "medium" in n:
@@ -470,7 +525,8 @@ def plan(frame, pp, fast=False, out_u8=False, device="cuda"):
     highlight recovery, the ported ops (`ops.PORTED`), coarse rotation
     and flips, the geometric transform with its lens corrections (LCP,
     metadata, lensfun), the crop, the Lanczos resize with post-resize
-    sharpening, to a matrix output profile.
+    sharpening; camera, CustomMult or temperature (Custom) white balance;
+    a DCP or ICC camera profile; a named or ICC output profile.
     fast=True is the reference's fast export (-q), active only with a
     resize: the demosaic downgrades, the image is resized right after
     the raw stage and every later step runs at output scale. out_u8
@@ -498,7 +554,8 @@ def plan(frame, pp, fast=False, out_u8=False, device="cuda"):
     if icc_working not in cs.MATRICES_RGB_TO_XYZ:
         icc_working = "Rec2020"
     data = {}
-    ctx = {"working_profile": icc_working, "frame": frame, "pp": pp}
+    ctx = {"working_profile": icc_working, "frame": frame, "pp": pp,
+           "device": device}
 
     h, w = frame.cfa.shape[-2:]
     pm = PAD_MULTIPLE
@@ -522,12 +579,15 @@ def plan(frame, pp, fast=False, out_u8=False, device="cuda"):
             method = "amaze"
     dem_kwargs = _dem_kwargs(method, sensor, pp.raw.bayer)
 
-    if pp.wb.enabled and pp.wb.method in ("CustomMult", "CustomMultLegacy"):
+    if pp.wb.enabled and pp.wb.method in ("Custom", "CustomTemp"):
+        wb_mults = wbmod.temp2mul(pp.wb.temperature, pp.wb.green,
+                                  pp.wb.equal)
+    elif pp.wb.enabled and pp.wb.method in ("CustomMult",
+                                            "CustomMultLegacy"):
         m = np.asarray(pp.wb.mult, dtype=np.float64)
         wb_mults = np.array([m[0] / m[1], 1.0, m[2] / m[1]])
-    elif pp.wb.enabled and (pp.wb.method in ("Custom", "CustomTemp")
-                            or (pp.wb.method == "Auto" and not foveon)):
-        _unported(f"white balance method {pp.wb.method!r}")
+    elif pp.wb.enabled and pp.wb.method == "Auto" and not foveon:
+        _unported("white balance method 'Auto'")
     else:
         wb_mults = frame.camera_wb_mults()
 
@@ -550,7 +610,6 @@ def plan(frame, pp, fast=False, out_u8=False, device="cuda"):
     hotdead, green_eq, linedn, pdaf, ca_mode = _plan_raw_steps(
         frame, pp, shape, data)
     _plan_raw_vignette(frame, pp, data, w, h)
-    _check_input_profile(pp)
 
     # highlight reconstruction (develop.py:363-380), on a CFA frame
     hl_mode = "Off"
@@ -568,6 +627,8 @@ def plan(frame, pp, fast=False, out_u8=False, device="cuda"):
     data["cam2work"] = (cs.MATRICES_XYZ_TO_RGB[icc_working]
                         @ xyz_cam).astype(np.float32)
     do_clip = not (pp.exposure.enabled and pp.exposure.hrmode != "Off")
+    dcp_static, icc_input_trc = _plan_input_profile(
+        frame, pp, data, ctx, icc_working, wb_mults)
     pp = _auto_log(frame, pp, device)
     _check_autos(frame, pp)
 
@@ -635,10 +696,6 @@ def plan(frame, pp, fast=False, out_u8=False, device="cuda"):
     ctx["op_dims"] = (h, w)
     steps = []
     for name in ops_pkg.ALL_STEPS:
-        if name not in ops_pkg.PORTED:
-            # the DCP look: planned only from a DCP input profile, which
-            # _check_input_profile refuses
-            continue
         planned = ops_pkg.plan_step(name, pp, ctx)
         if planned is None:
             continue
@@ -656,9 +713,7 @@ def plan(frame, pp, fast=False, out_u8=False, device="cuda"):
         if planned is not None:
             prsharp, data["op:prsharpen"] = planned
 
-    out_prof = _resolve_output_profile(pp.icm.output_profile)
-    out_mat = cs.MATRICES_RGB_TO_XYZ[out_prof]
-    out_trc = output_trc(out_prof)
+    out_mat, out_trc = _plan_output_profile(pp, data)
     data["work2out"] = (np.linalg.inv(out_mat)
                         @ cs.MATRICES_RGB_TO_XYZ[icc_working]).astype(
                             np.float32)
@@ -689,6 +744,8 @@ def plan(frame, pp, fast=False, out_u8=False, device="cuda"):
         hl_mode=hl_mode,
         pdaf=pdaf,
         dem_kwargs=tuple(dem_kwargs),
+        dcp=dcp_static,
+        icc_input_trc=icc_input_trc,
         pixelshift=pixelshift,
         darkframe=darkframe,
         flatfield=flatfield,
@@ -696,6 +753,33 @@ def plan(frame, pp, fast=False, out_u8=False, device="cuda"):
         out_u8=bool(out_u8),
     )
     return config, data
+
+
+def _plan_output_profile(pp, data):
+    """(output matrix, output TRC) of the output profile
+    (develop.py:675-705): a named colorspace's, or a user ICC file's
+    matrix and TRC, or, for a LUT-class one, XYZ (D50) and its B2A0
+    stages; any failure of the file falls back to sRGB, as in the
+    reference."""
+    out_prof = _resolve_output_profile(pp.icm.output_profile)
+    if not out_prof.lower().endswith((".icc", ".icm")):
+        return cs.MATRICES_RGB_TO_XYZ[out_prof], output_trc(out_prof)
+    try:
+        from art_tpu_torch.color.iccfile import load_icc
+
+        prof = load_icc(out_prof)
+        if prof.get("kind") != "lut":
+            return prof["rgb_to_xyz"], prof["trc"]
+        if prof["b2a"] is None:
+            raise ValueError("LUT output profile has no B2A0")
+        from art_tpu_torch.color.icclut import plan_lut
+
+        stages, ldata = plan_lut(prof["b2a"], prof["pcs"], "out")
+        for k, v in ldata.items():
+            data[f"iccout:{k}"] = v
+        return np.eye(3), ("icclut", stages)
+    except Exception:
+        return cs.MATRICES_RGB_TO_XYZ["sRGB"], output_trc("sRGB")
 
 
 def fusion_gates(config: PipelineConfig):
@@ -725,9 +809,6 @@ def _check_config(config):
     if (config.pattern is None and config.xtrans is None
             and config.demosaic_method != "foveon"):
         _unported("monochrome raw with no CFA")
-    for field in ("dcp", "icc_input_trc"):
-        if getattr(config, field) is not None:
-            _unported(f"pipeline config {field}={getattr(config, field)!r}")
     if config.hl_mode not in ("Off", "blend", "opposed", "inpaint"):
         _unported(f"highlight recovery {config.hl_mode!r}")
     for name, static, _ in config.steps:
@@ -972,7 +1053,15 @@ def build_run(config: PipelineConfig):
             with span("early_resize"):
                 rgb = apply_resize(rgb[:, :sh0, :sw0], data["early_rows"],
                                    data["early_cols"])
-        if not fuse_head:
+        if config.dcp is not None:
+            from art_tpu_torch.color.dcp import apply_dcp
+
+            with span("dcp"):
+                rgb = apply_dcp(rgb, data, config.dcp)
+        elif not fuse_head:
+            if config.icc_input_trc is not None:
+                with span("iccin"):
+                    rgb = icc_input(rgb, config.icc_input_trc, data)
             with span("raw_head"):
                 rgb = mat3(data["cam2work"], rgb)
         for step in config.steps:
@@ -1024,9 +1113,18 @@ def build_run(config: PipelineConfig):
                                         config.prsharp)
         if not fuse_tail:  # rgb2out: working -> output primaries, TRC
             with span("rgb2out"):
-                rgb = mat3(data["work2out"], rgb)
-                rgb = cs.encode_trc(torch.clamp(fdiv(rgb, MAXVAL), 0.0, 1.0),
-                                    config.out_trc)
+                rgb = torch.clamp(fdiv(mat3(data["work2out"], rgb), MAXVAL),
+                                  0.0, 1.0)
+                if config.out_trc[0] != "icclut":
+                    rgb = cs.encode_trc(rgb, config.out_trc)
+            if config.out_trc[0] == "icclut":
+                # a LUT-class output profile: rgb is PCS XYZ (D50) here
+                from art_tpu_torch.color.icclut import apply_stages
+
+                with span("iccout"):
+                    rgb = torch.clamp(torch.stack(apply_stages(
+                        rgb[0], rgb[1], rgb[2], config.out_trc[1], data,
+                        "iccout:")), 0.0, 1.0)
         if config.out_u8:
             # interleaved 8-bit for the encoder, converted before the
             # readback (develop.py:1109-1114): a quarter of the f32
@@ -1038,6 +1136,19 @@ def build_run(config: PipelineConfig):
         return rgb
 
     return run
+
+
+def icc_input(rgb, trc, data):
+    """An ICC camera profile before its matrix (develop.py:1015-1033):
+    device RGB (0..65535) to PCS XYZ through a LUT-class profile's A2B
+    stages, or linearised by a matrix profile's shaper TRC."""
+    x01 = rgb * (1.0 / MAXVAL)
+    if trc[0] == "icclut":
+        from art_tpu_torch.color.icclut import apply_stages
+
+        return torch.stack(apply_stages(x01[0], x01[1], x01[2], trc[1],
+                                        data, "iccin:")) * MAXVAL
+    return cs.decode_trc(x01, trc) * MAXVAL
 
 
 def crop_result(out, config: PipelineConfig):
@@ -1179,9 +1290,12 @@ def process_image(path_or_frame, pp, fast=False, output_path=None,
 
     fast: the fast export (ART-cli's -q), as `plan` takes it.
 
-    Not ported, and raising NotImplementedError naming the step: the
-    gamut warning (``gamut_warn``) and a PipelineListener that wants a
-    histogram."""
+    gamut_warn: a proof profile (a named colorspace or a matrix .icc
+    path); the pixels outside its gamut are painted cyan
+    (`color/gamutwarning.py`), on the develop's device.
+
+    Not ported, and raising NotImplementedError naming the step: a
+    PipelineListener that wants a histogram."""
     import time as _time
 
     from art_tpu_torch.io.rawfile import RawFrame
@@ -1190,8 +1304,6 @@ def process_image(path_or_frame, pp, fast=False, output_path=None,
                                                   notify, wants_histogram)
     from art_tpu_torch.settings import settings
 
-    if gamut_warn:
-        _unported("gamut warning (color/gamutwarning.py)")
     if wants_histogram(listener):
         _unported("histogram listener (pipeline/scopes.py)")
 
@@ -1234,10 +1346,20 @@ def process_image(path_or_frame, pp, fast=False, output_path=None,
     del inp, data_d
     _sync(device)
     t = _tick("device program", t)
-    out = read_back(crop_result(out, config)).numpy()
+    out = crop_result(out, config)
+    if gamut_warn:
+        from art_tpu_torch.color.gamutwarning import paint_gamut_warning
+
+        out, _ = paint_gamut_warning(
+            out, _resolve_output_profile(pp.icm.output_profile), gamut_warn)
+        _sync(device)
+        t = _tick("gamut warning", t)
+    out = read_back(out).numpy()
     t = _tick("D2H", t)
     fire_autos(listener, auto_report)
     notify(listener, "develop")
+    if gamut_warn:
+        notify(listener, "gamut")
     if output_path is not None:
         from art_tpu_torch.io.imagefile import save_image
 
@@ -1300,9 +1422,15 @@ def process_image(path_or_frame, pp, fast=False, output_path=None,
                 pass
         icc = None
         try:
-            from art_tpu_torch.color.iccwrite import make_icc
+            op = _resolve_output_profile(pp.icm.output_profile)
+            if op.lower().endswith((".icc", ".icm")):
+                # a user profile file embeds its own bytes
+                with open(op, "rb") as f:
+                    icc = f.read()
+            else:
+                from art_tpu_torch.color.iccwrite import make_icc
 
-            icc = make_icc(_resolve_output_profile(pp.icm.output_profile))
+                icc = make_icc(op)
         except Exception:
             icc = None
         t = _tick("metadata", t)

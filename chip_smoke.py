@@ -128,6 +128,22 @@ device program, peak memory and device ms by `art:` stage, holds each
 kernel it launched to its plain version on its own tensors, and
 compares the card with the CPU, with flip_parity over the demosaic's
 sites that moved between them or pixel shift's motion masks.
+Then the colour profiles and LUTs (`profile_phase`), counts reset
+before each path, on the flagship frame and profile, every file written
+from a seed (`profile_files`): P1, a dual-illuminant DCP with its look
+late under Custom WB at 5200 K, to a v4 matrix/para .icc; P2, LUT-class
+.icc profiles in (mAB, 33^3) and out (mft2 on Lab, 17^3); P3, a
+level-12 16-bit Hald PNG, a CLF, a CTL script after the curve and an
+external generator at strength 80, then the Hald run through cli.main
+with --gamut-warn (ProPhoto out, an sRGB proof). Each launches B1-B3,
+B4 (with no raw head on P1 and P2) and B7 (with no epilogue on P1, P2
+and the CTL run) once, held to their plain versions on the path's
+tensors (the Hald and CTL runs for P3), with its develop, device
+program, peak memory, device ms by `art:` stage (`dcp`, `dcplook_late`,
+`iccin`, `iccout`, `filmsim_*`) and a small develop against the CPU;
+also the Hald's decode, the CTL bake on the card against the CPU's, and
+the gamut warning's time at 24 MP and its marks against the CPU's (at
+most GAMUT_FLIPS of the pixels flip).
 Then one JSON line of per-kernel results (time, plain time, bound) and
 last the line {"ok": true, "device": {...}}. Any failure raises
 (non-zero exit, no result lines); so does a machine without CUDA.
@@ -2419,6 +2435,627 @@ def demosaic_phase(smi_line, entries):
     return times, stats, failures
 
 
+# ---- colour profiles and LUTs (profile_phase): the files P1-P3 read,
+# written from a seed; the CPU tests write them too
+
+# P1's white balance: Custom at 5200 K, green 1.0
+P1_TEMP = 5200.0
+# Adobe Standard's table shapes: the HueSatMap (hue, sat, val) and the
+# look table, as the DNG tags store their dims
+HSM_DIMS, LOOK_DIMS = (90, 30, 1), (36, 8, 16)
+
+
+def _tiff_bytes(entries):
+    """A little-endian TIFF of one IFD: entries (tag, type, count,
+    payload bytes), sorted by tag."""
+    entries = sorted(entries)
+    n = len(entries)
+    data_off = 8 + 2 + 12 * n + 4
+    out = bytearray(b"II*\0" + (8).to_bytes(4, "little"))
+    out += n.to_bytes(2, "little")
+    blobs = bytearray()
+    for tag, typ, count, payload in entries:
+        if len(payload) <= 4:
+            field = payload + b"\0" * (4 - len(payload))
+        else:
+            field = (data_off + len(blobs)).to_bytes(4, "little")
+            blobs += payload + b"\0" * (len(payload) % 2)
+        out += (tag.to_bytes(2, "little") + typ.to_bytes(2, "little")
+                + count.to_bytes(4, "little") + field)
+    return bytes(out + b"\0\0\0\0" + blobs)
+
+
+def _srational(vals, den=1000000):
+    return b"".join(int(round(v * den)).to_bytes(4, "little", signed=True)
+                    + den.to_bytes(4, "little") for v in np.ravel(vals))
+
+
+def _floats_le(a):
+    return np.asarray(a, "<f4").tobytes()
+
+
+def write_dcp(path, seed=0, dual=True, forward=True):
+    """P1's camera profile: a dual-illuminant DCP (StdA / D65) for the
+    synthetic camera (linear sRGB primaries), with ColorMatrix and
+    ForwardMatrix pairs, a 90x30x1 HueSatMap per illuminant, a 36x8x16
+    sRGB-encoded LookTable, a 9-point tone curve and a baseline exposure
+    offset of +0.35: Adobe Standard's layout, smooth random tables.
+    dual=False keeps the D65 illuminant's tags alone; forward=False
+    leaves out the forward matrices."""
+    from art_tpu_torch.color import colorspaces as cs
+
+    rng = np.random.default_rng(seed)
+    cm2 = cs.SRGB_D65_FROM_XYZ  # XYZ -> camera under D65
+    warm = np.diag([1.06, 1.0, 0.9])
+    cm1 = warm @ cm2
+    fm = cs.MATRICES_RGB_TO_XYZ["sRGB"]
+
+    def table(dims, hue_deg, sat, val):
+        hd, sd, vd = dims
+        h = np.linspace(0.0, 2 * np.pi, hd, endpoint=False)[None, :, None]
+        s = np.linspace(0.0, 1.0, sd)[None, None, :]
+        v = np.linspace(0.0, 1.0, vd)[:, None, None]
+        ph = rng.uniform(0, 2 * np.pi, 3)
+        t = np.zeros((vd, hd, sd, 3), np.float32)
+        t[..., 0] = hue_deg * np.sin(h + ph[0]) * s
+        t[..., 1] = 1.0 + sat * np.sin(2 * h + ph[1]) * s * (1 - 0.3 * v)
+        t[..., 2] = 1.0 + val * np.cos(h + ph[2]) * s * (1 - v)
+        return t
+
+    hsm1 = table(HSM_DIMS, 6.0, 0.08, 0.03)
+    hsm2 = table(HSM_DIMS, 4.0, 0.06, 0.02)
+    look = table(LOOK_DIMS, 3.0, 0.1, 0.05)
+    x = np.linspace(0.0, 1.0, 9)
+    tc = np.stack([x, x + 0.12 * np.sin(2 * np.pi * x) * x * (1 - x) * 4],
+                  axis=1)
+    short = lambda v: int(v).to_bytes(2, "little")  # noqa: E731
+    long3 = lambda d: b"".join(int(v).to_bytes(4, "little")  # noqa: E731
+                               for v in d)
+    if not dual:
+        cm1, hsm1 = cm2, hsm2
+    entries = [
+        (50721, 10, 9, _srational(cm1)), (50778, 3, 1, short(17)),
+        (50937, 4, 3, long3(HSM_DIMS)),
+        (50938, 11, hsm1.size, _floats_le(hsm1)),
+        (50940, 11, tc.size, _floats_le(tc)),
+        (50981, 4, 3, long3(LOOK_DIMS)),
+        (50982, 11, look.size, _floats_le(look)),
+        (51108, 4, 1, (1).to_bytes(4, "little")),
+        (51109, 10, 1, _srational([0.35], 100)),
+    ]
+    if dual:
+        entries += [(50722, 10, 9, _srational(cm2)), (50779, 3, 1, short(21)),
+                    (50939, 11, hsm2.size, _floats_le(hsm2))]
+    if forward:
+        entries.append((50964, 10, 9, _srational(fm)))
+        if dual:
+            entries.append((50965, 10, 9, _srational(fm)))
+    with open(path, "wb") as f:
+        f.write(_tiff_bytes(entries))
+
+
+def _icc_bytes(tags, pcs=b"XYZ ", version=4):
+    """An RGB-device ICC profile of these (signature, bytes) tags."""
+    import struct
+
+    table = struct.pack(">I", len(tags))
+    off = 128 + 4 + 12 * len(tags)
+    body = b""
+    for sig, data in tags:
+        table += sig + struct.pack(">II", off + len(body), len(data))
+        body += data + b"\0" * ((-len(data)) % 4)
+    hdr = bytearray(128)
+    hdr[8] = version
+    hdr[12:16] = b"mntr"
+    hdr[16:20] = b"RGB "
+    hdr[20:24] = pcs
+    hdr[36:40] = b"acsp"
+    struct.pack_into(">I", hdr, 0, 128 + len(table) + len(body))
+    return bytes(hdr) + table + body
+
+
+def _s15f16(vals):
+    return b"".join(int(round(v * 65536)).to_bytes(4, "big", signed=True)
+                    for v in np.ravel(vals))
+
+
+def _u16(vals):
+    return b"".join(int(round(v * 65535)).to_bytes(2, "big")
+                    for v in np.clip(np.ravel(vals), 0.0, 1.0))
+
+
+def _curv(samples=None):
+    if samples is None:
+        return b"curv\0\0\0\0" + (0).to_bytes(4, "big")
+    return (b"curv\0\0\0\0" + len(samples).to_bytes(4, "big")
+            + _u16(samples))
+
+
+def write_para_icc(path, space="Rec2020",
+                   para=(1 / 0.45, 1 / 1.099, 0.099 / 1.099, 1 / 4.5,
+                         0.081), narrow=0.0):
+    """P1's output profile: a v4 matrix profile of `space`'s primaries
+    with a type-3 `para` TRC (by default Rec. 709's curve); narrow > 0
+    moves each primary that share of the way to the white (a small
+    gamut, as of a print)."""
+    from art_tpu_torch.color import colorspaces as cs
+
+    m = cs.MATRICES_RGB_TO_XYZ[space]
+    m = (1.0 - narrow) * m + narrow * m.sum(axis=1, keepdims=True) / 3.0
+    tags = [(sig, b"XYZ \0\0\0\0" + _s15f16(m[:, i]))
+            for i, sig in enumerate((b"rXYZ", b"gXYZ", b"bXYZ"))]
+    trc = b"para\0\0\0\0" + (3).to_bytes(2, "big") + b"\0\0" + _s15f16(para)
+    tags += [(sig, trc) for sig in (b"rTRC", b"gTRC", b"bTRC")]
+    with open(path, "wb") as f:
+        f.write(_icc_bytes(tags))
+
+
+def _lattice(g):
+    """(g, g, g, 3) lattice coordinates in [0, 1], r along axis 0."""
+    ax = np.linspace(0.0, 1.0, g)
+    return np.stack(np.meshgrid(ax, ax, ax, indexing="ij"), axis=-1)
+
+
+def write_lut_icc_in(path, grid=33):
+    """P2's camera profile: a LUT-class v4 input profile whose A2B0 is an
+    mAB (A curves: a square-root encode; a 33^3 CLUT: the square back,
+    with 8% more saturation; M curves: a slight lift; a 3x4 matrix: the
+    camera's primaries to XYZ in the PCS encoding, with an offset; B
+    curves: identity), XYZ PCS."""
+    from art_tpu_torch.color import colorspaces as cs
+
+    xs = np.linspace(0.0, 1.0, 256)
+    a_curves = [np.sqrt(xs)] * 3
+    lat = _lattice(grid) ** 2
+    y = lat.mean(axis=-1, keepdims=True)
+    clut = np.clip(y + 1.08 * (lat - y), 0.0, 1.0)
+    m_curves = [xs ** 0.97] * 3
+    mat = cs.MATRICES_RGB_TO_XYZ["sRGB"] * (32768.0 / 65535.0) * 0.98
+    mat34 = np.hstack([mat, np.full((3, 1), 0.002)])
+
+    def curves(cs3):
+        blob = b""
+        for c in cs3:
+            e = _curv(c)
+            blob += e + b"\0" * ((-len(e)) % 4)
+        return blob
+
+    blobs = {"b": curves([None] * 3),
+             "m": _s15f16(np.concatenate([mat34[:, :3].ravel(),
+                                          mat34[:, 3]])),
+             "mc": curves(m_curves),
+             "cl": (bytes([grid] * 3 + [0] * 13) + bytes([2, 0, 0, 0])
+                    + _u16(clut)),
+             "a": curves(a_curves)}
+    offs, body, pos = {}, b"", 32
+    for key in ("b", "m", "mc", "cl", "a"):
+        offs[key] = pos
+        body += blobs[key]
+        pos += len(blobs[key])
+    tag = (b"mAB \0\0\0\0" + bytes([3, 3, 0, 0])
+           + b"".join(offs[k].to_bytes(4, "big")
+                      for k in ("b", "m", "mc", "cl", "a")) + body)
+    with open(path, "wb") as f:
+        f.write(_icc_bytes([(b"A2B0", tag)], pcs=b"XYZ "))
+
+
+def write_lut_icc_out(path, grid=17):
+    """P2's output profile: a LUT-class v2 profile whose B2A0 is an mft2
+    (lut16) on the Lab PCS: identity curves and a 17^3 CLUT from the
+    legacy 16-bit Lab encoding to sRGB-encoded device values."""
+    from art_tpu_torch.color import colorspaces as cs
+
+    lat = _lattice(grid)
+    L = lat[..., 0] * (65535.0 / 652.8)
+    a = lat[..., 1] * (65535.0 / 256.0) - 128.0
+    b = lat[..., 2] * (65535.0 / 256.0) - 128.0
+    fy = (L + 16.0) / 116.0
+    f = np.stack([fy + a / 500.0, fy, fy - b / 200.0])
+    eps, kappa = 216.0 / 24389.0, 24389.0 / 27.0
+    xyz = np.where(f ** 3 > eps, f ** 3, (116.0 * f - 16.0) / kappa) \
+        * cs.D50_WHITE[:, None, None, None]
+    lin = np.tensordot(cs.MATRICES_XYZ_TO_RGB["sRGB"], xyz, axes=1)
+    clut = np.moveaxis(cs.srgb_gamma(np.clip(lin, 0.0, 1.0)), 0, -1)
+    ident = np.linspace(0.0, 1.0, 256)
+    tag = (b"mft2\0\0\0\0" + bytes([3, 3, grid, 0]) + _s15f16(np.eye(3))
+           + (256).to_bytes(2, "big") + (256).to_bytes(2, "big")
+           + _u16(np.tile(ident, 3)) + _u16(clut) + _u16(np.tile(ident, 3)))
+    with open(path, "wb") as f:
+        f.write(_icc_bytes([(b"B2A0", tag)], pcs=b"Lab ", version=2))
+
+
+def hald_image(level, bits=16):
+    """A Hald CLUT image of `level` (level^3 pixels a side): the identity
+    lattice through a film look (a gentle S-curve, a warm cast, 10% less
+    saturation), as (H, W, 3) uint8 or uint16."""
+    n = level * level
+    ax = np.linspace(0.0, 1.0, n)
+    b, g, r = np.meshgrid(ax, ax, ax, indexing="ij")  # r fastest
+    rgb = np.stack([r, g, b], axis=-1).reshape(level ** 3, level ** 3, 3)
+    y = rgb.mean(axis=-1, keepdims=True)
+    rgb = y + 0.9 * (rgb - y)
+    rgb = rgb + 0.06 * np.sin(np.pi * (rgb - 0.5)) * (1 - np.abs(2 * rgb - 1))
+    rgb = np.clip(rgb * np.array([1.03, 1.0, 0.95]), 0.0, 1.0)
+    top = (1 << bits) - 1
+    return np.round(rgb * top).astype(np.uint16 if bits == 16 else np.uint8)
+
+
+def write_hald(path, level=12, bits=16):
+    """P3's Hald CLUT as a PNG (the port's writer: no filter)."""
+    from art_tpu_torch.io.imagefile import write_png
+
+    write_png(path, hald_image(level, bits))
+
+
+CLF_TEXT = """<?xml version="1.0" encoding="UTF-8"?>
+<ProcessList id="p3-look" compCLFversion="3">
+  <Description>P3: log, a {n}^3 LUT, a matrix, a moncurve decode</Description>
+  <Log inBitDepth="32f" outBitDepth="32f" style="cameraLinToLog">
+    <LogParams base="2" logSideSlope="0.0570776" logSideOffset="0.5547945"
+               linSideSlope="1" linSideOffset="0" linSideBreak="0.0078125"/>
+  </Log>
+  <LUT3D inBitDepth="32f" outBitDepth="16i" interpolation="tetrahedral">
+    <Array dim="{n} {n} {n} 3">
+{lut}
+    </Array>
+  </LUT3D>
+  <Matrix inBitDepth="32f" outBitDepth="32f">
+    <Array dim="3 3">
+ 1.06 -0.04 -0.02
+-0.03  1.05 -0.02
+-0.02 -0.05  1.07
+    </Array>
+  </Matrix>
+  <Exponent inBitDepth="32f" outBitDepth="32f" style="monCurveFwd">
+    <ExponentParams exponent="2.4" offset="0.055"/>
+  </Exponent>
+</ProcessList>
+"""
+
+
+def write_clf(path, n=33):
+    """P3's CLF: ACEScct's camera log, a n^3 LUT3D (16-bit values) from
+    log to a moncurve (sRGB-like) encode of the linear values times 0.9,
+    a saturating matrix, the moncurve decode back to linear."""
+    lat = _lattice(n)
+    lin = np.where(lat <= 0.155251141552511, (lat - 0.0729055341958355)
+                   / 10.5402377416545, 2.0 ** (lat * 17.52 - 9.72))
+    lin = np.clip(lin * 0.9, 0.0, 1.0)
+    enc = np.where(lin < 0.0031308, lin * 12.92,
+                   1.055 * lin ** (1 / 2.4) - 0.055)
+    rows = "\n".join(" ".join(str(int(round(v * 65535))) for v in px)
+                     for px in enc.reshape(-1, 3))
+    with open(path, "w") as f:
+        f.write(CLF_TEXT.format(n=n, lut=rows))
+
+
+CTL_TEXT = """// @ART-label: "P3 contrast and warmth"
+// @ART-colorspace: "rec2020"
+// @ART-lut: 32
+// @ART-param: ["contrast", "Contrast", 0.5, 2.0, 1.2, 0.01]
+// @ART-param: ["warmth", "Warmth", -1.0, 1.0, 0.2, 0.01]
+
+const float pivot = 0.18;
+const float lum[3] = { 0.2627, 0.678, 0.0593 };
+
+float tone(float x, float c)
+{
+    if (x <= 0.0) {
+        return 0.0;
+    }
+    float y = pivot * pow(x / pivot, c);
+    if (y > 16.0) {
+        return 16.0 + log2(y / 16.0);
+    }
+    return y;
+}
+
+void ART_main(varying float r, varying float g, varying float b,
+              output varying float rout, output varying float gout,
+              output varying float bout, float contrast, float warmth)
+{
+    float y = lum[0] * r + lum[1] * g + lum[2] * b;
+    float ty = tone(y, contrast);
+    float k = 1.0;
+    if (y > 1e-6) {
+        k = ty / y;
+    }
+    float w = 0.1 * warmth;
+    rout = r * k * (1.0 + w);
+    gout = g * k;
+    bout = b * k * (1.0 - w);
+}
+"""
+
+
+def write_ctl(path):
+    """P3's CTL script: two @ART-params, @ART-lut: 32, a masked return
+    in a function of a varying value."""
+    with open(path, "w") as f:
+        f.write(CTL_TEXT)
+
+
+EXTLUT_SCRIPT = '''import json
+import sys
+
+import numpy as np
+
+
+def cube(params, out, n=17):
+    ax = np.linspace(0.0, 1.0, n)
+    b, g, r = np.meshgrid(ax, ax, ax, indexing="ij")  # r fastest
+    rgb = np.stack([r, g, b], axis=-1).reshape(-1, 3)
+    y = rgb.mean(axis=1, keepdims=True)
+    rgb = np.clip(y + params["saturation"] * (rgb - y), 0.0, 1.0)
+    rgb = rgb ** (1.0 / params["gamma"])
+    with open(out, "w") as f:
+        f.write("LUT_3D_SIZE %d\\n" % n)
+        for px in rgb:
+            f.write("%.6f %.6f %.6f\\n" % tuple(px))
+
+
+if sys.argv[1:2] == ["--server"]:
+    while True:
+        line = sys.stdin.readline()
+        if not line:
+            break
+        out = sys.stdin.readline().strip()
+        cube(json.loads(line), out)
+        sys.stdout.write("Y1\\nwrote " + out + "\\n")
+        sys.stdout.flush()
+else:
+    with open(sys.argv[1]) as f:
+        cube(json.load(f), sys.argv[2])
+'''
+
+
+def write_extlut(directory, server=False):
+    """P3's external LUT generator: a Python script (run with this
+    interpreter) and its JSON config, one-shot or server; returns the
+    config's path."""
+    import shlex
+
+    os.makedirs(directory, exist_ok=True)
+    with open(os.path.join(directory, "gen_look.py"), "w") as f:
+        f.write(EXTLUT_SCRIPT)
+    cmd = f"{shlex.quote(sys.executable)} gen_look.py"
+    cfg = {"ART-lut3d": {
+        "command": cmd + (" --server" if server else ""), "server": server,
+        "label": "P3 look",
+        "params": [["saturation", "Saturation", 0.0, 2.0, 0.85, 0.01],
+                   ["gamma", "Gamma", 0.5, 2.0, 1.1, 0.01]]}}
+    path = os.path.join(directory,
+                        "look_server.json" if server else "look.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+def p1_arp(files):
+    """P1's settings: WB Custom at 5200 K, the DCP with its look at the
+    late position, the matrix/para output profile."""
+    return (f"[White Balance]\nEnabled=true\nSetting=Custom\n"
+            f"Temperature={int(P1_TEMP)}\nGreen=1\nEqual=1\n"
+            f"[Color Management]\nInputProfile={files['dcp']}\n"
+            "ApplyLookTable=true\nApplyBaselineExposureOffset=true\n"
+            "ApplyHueSatMap=true\nToneCurve=true\nDCPLookEarly=false\n"
+            f"OutputProfile={files['para_icc']}\n")
+
+
+def p2_arp(files):
+    """P2's settings: the LUT-class input and output profiles."""
+    return (f"[Color Management]\nInputProfile={files['lut_icc_in']}\n"
+            f"OutputProfile={files['lut_icc_out']}\n")
+
+
+def p3_arp(lut, after=False, strength=80):
+    """P3's settings: a film simulation from `lut` at `strength`, before
+    the curve or after it."""
+    return (f"[Film Simulation]\nEnabled=true\nClutFilename={lut}\n"
+            f"Strength={strength}\nAfterToneCurve={str(after).lower()}\n")
+
+
+def profile_files(directory, level=12, seed=0):
+    """Every file of P1-P3 in `directory`: name -> path."""
+    os.makedirs(directory, exist_ok=True)
+    files = {k: os.path.join(directory, v) for k, v in {
+        "dcp": "camera.dcp", "para_icc": "rec709para.icc",
+        "lut_icc_in": "camera_lut.icc", "lut_icc_out": "print_lut.icc",
+        "hald": f"hald{level}.png", "clf": "look.clf",
+        "ctl": "look.ctl"}.items()}
+    write_dcp(files["dcp"], seed)
+    write_para_icc(files["para_icc"])
+    write_lut_icc_in(files["lut_icc_in"])
+    write_lut_icc_out(files["lut_icc_out"])
+    write_hald(files["hald"], level)
+    write_clf(files["clf"])
+    write_ctl(files["ctl"])
+    files["json"] = write_extlut(os.path.join(directory, "extlut"))
+    return files
+
+
+def profile_pp(arp, pp=None):
+    """The flagship (AMaZE, denoise 20/20, the Neutral curve) with `arp`
+    on top, on pp (either package's)."""
+    pp = flagship_pp("amaze", pp)
+    pp.apply_arp_text(arp)
+    return pp
+
+
+# the gamut warning's marks, card against the CPU at SMALL: a pixel whose
+# round-trip delta lies within rounding of the 1e-4 threshold may flip
+# between the devices (its colour moves by up to full scale); at most
+# this share of the pixels, and the slice bounds beyond them
+GAMUT_FLIPS = 1e-3
+
+
+def profile_path(label, pp, frame, small, want, check_kernels=True):
+    """One path of the profile phase: a develop with the counts from 0,
+    which must launch each kernel of `want` once and no other (and no
+    plain version); the median develop; the host plan, the device
+    program (inputs resident), its peak memory and device ms by `art:`
+    stage; with `check_kernels`, each kernel against its plain version
+    on the path's own tensors; a develop of `small` on the card against
+    the CPU. Returns (times, comparison, failures)."""
+    from art_tpu_torch.pipeline import develop as tdev
+
+    launches = drive(label, pp, frame, want)
+    expect = {k: int(k in want) for k in launches}
+    if launches != expect:
+        raise RuntimeError(f"{label}: launches {launches}, want {expect}")
+    median_develop(label, frame, pp)
+    times = program_times(label, frame, pp)
+    failures = kernels_against_plain(
+        label, lambda: tdev.develop(frame, pp), want) if check_kernels \
+        else []
+    return times, card_vs_cpu(label, small, pp), failures
+
+
+def profile_phase(smi_line, tmp):
+    """The colour profiles and LUTs on the card, on the flagship frame
+    and profile (AMaZE, denoise 20/20, the Neutral curve), counts reset
+    before each path: P1, a DCP camera profile (`write_dcp`: two
+    illuminants, HueSatMaps, an sRGB-encoded look table late, a tone
+    curve, +0.35 EV) under Custom WB at 5200 K, to a v4 matrix/para .icc;
+    P2, LUT-class .icc profiles in (mAB, 33^3) and out (mft2 on Lab,
+    17^3); each launches B1-B3, B4 with no raw head and B7 with no
+    epilogue. P3, the four film-simulation files at strength 80: a
+    level-12 16-bit Hald PNG, a CLF, a CTL script (after the curve: B7
+    with no epilogue) and an external generator, then the Hald run
+    through cli.main with a gamut warning (ProPhoto out, an sRGB proof).
+    Each path as profile_path runs it; also the Hald's decode, the CTL
+    bake on the card against the CPU's, and the gamut warning's time at
+    24 MP and its marks card against CPU. Returns (the comparisons, the
+    failures)."""
+    from art_tpu_torch.color import ctl
+    from art_tpu_torch.color.gamutwarning import paint_gamut_warning
+    from art_tpu_torch.color.lut3d import load_hald_clut
+    from art_tpu_torch.io.dngwrite import write_dng
+    from art_tpu_torch.pipeline import develop as tdev
+
+    log(f"---- profile phase ({smi_line})")
+    t_phase = time.monotonic()
+    t0 = time.monotonic()
+    files = profile_files(tmp)
+    log(f"profile files (a DCP, four .icc, a level-12 16-bit Hald PNG of "
+        f"{os.path.getsize(files['hald']) / 1e6:.1f} MB, a CLF, a CTL "
+        f"script, a generator) written in {time.monotonic() - t0:.2f} s")
+    t0 = time.monotonic()
+    table = load_hald_clut(files["hald"])
+    log(f"Hald CLUT decode (host, io/imagefile.py): "
+        f"{1e3 * (time.monotonic() - t0):.1f} ms -> {table.shape}")
+    frame = flagship_frame(*FRAME)
+    small = flagship_frame(*SMALL, seed=5)
+    want = ("b1", "b2", "b3", "b4", "b7")
+    stats, failures = {}, []
+
+    def planned(label, pp, check):
+        t0 = time.monotonic()
+        config, _ = tdev.plan(frame, pp)
+        gates = tdev.fusion_gates(config)
+        log(f"{label} plan {1e3 * (time.monotonic() - t0):.1f} ms: steps "
+            f"{[s[0] for s in config.steps]}, dcp {config.dcp}, input TRC "
+            f"{str(config.icc_input_trc)[:60]}, output TRC "
+            f"{str(config.out_trc)[:60]}, fusion gates {gates}")
+        if not check(config, gates):
+            raise RuntimeError(f"{label} planned {config}")
+
+    pp = profile_pp(p1_arp(files))
+    planned("P1", pp, lambda c, g: (
+        c.dcp is not None and c.dcp[0] and c.out_trc[0] == "para"
+        and [s[0] for s in c.steps] == ["denoise", "dcplook_late",
+                                        "tonecurve"]
+        and g == (False, False)))
+    _, stats["P1"], f = profile_path("P1", pp, frame, small, want)
+    failures += f
+    pp = profile_pp(p2_arp(files))
+    planned("P2", pp, lambda c, g: (
+        c.icc_input_trc[0] == c.out_trc[0] == "icclut"
+        and g == (False, False)))
+    _, stats["P2"], f = profile_path("P2", pp, frame, small, want)
+    failures += f
+    for kind in ("hald", "clf", "ctl", "json"):
+        after = kind == "ctl"
+        pp = profile_pp(p3_arp(files[kind], after=after))
+        step = "filmsim_post" if after else "filmsim_pre"
+        planned(f"P3 {kind}", pp, lambda c, g, step=step, after=after: (
+            step in [s[0] for s in c.steps] and g == (True, not after)))
+        _, stats[f"P3 {kind}"], f = profile_path(
+            f"P3 {kind}", pp, frame, small, want,
+            check_kernels=kind in ("hald", "ctl"))
+        failures += f
+
+    # the CTL bake on the card (the planning device) against the CPU's
+    script = ctl.load_ctl(files["ctl"])
+    ctl.bake_lut(script, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    on_card = ctl.bake_lut(script, device="cuda")
+    card_ms = 1e3 * (time.monotonic() - t0)
+    t0 = time.monotonic()
+    on_cpu = ctl.bake_lut(script, device="cpu")
+    cpu_ms = 1e3 * (time.monotonic() - t0)
+    rel = float(np.max(np.abs(on_card.astype(np.float64) - on_cpu)
+                       / np.maximum(1.0, np.abs(on_cpu))))
+    log(f"CTL bake ({on_card.shape[0]}^3, the interpreter over the shaper "
+        f"lattice): card {card_ms:.1f} ms (second call), CPU {cpu_ms:.1f} "
+        f"ms; card vs CPU max {rel:.3g} of max(1, |value|)")
+    if rel > 1e-5:
+        failures.append(f"CTL bake: card vs CPU {rel}")
+
+    # the gamut warning: the Hald run through the CLI to ProPhoto, proofed
+    # against sRGB
+    dng = os.path.join(tmp, "flagship.dng")
+    write_dng(dng, np.round(frame.cfa).astype(np.uint16), black=512,
+              white=16383, compress=False)
+    arp = os.path.join(tmp, "p3_gamut.arp")
+    with open(arp, "w") as f:
+        f.write(p3_arp(files["hald"]) + "[Color Management]\n"
+                "OutputProfile=RTv4_ProPhoto\n")
+    base = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "art_tpu_torch", "data", "profiles", PROFILE)
+    dn = os.path.join(tmp, "denoise20.arp")
+    with open(dn, "w") as f:
+        f.write("[Denoise]\nEnabled=true\nLuminance=20\nChrominance=20\n")
+    out = os.path.join(tmp, "p3_gamut.jpg")
+    argv = ["-Y", "-p", base, "-p", dn, "-p", arp, "--gamut-warn", "sRGB",
+            "-o", out, "-c", dng]
+    reset_counts()
+    phases, seconds = cli_run(argv)
+    launches, plain_calls = read_counts()
+    log(f"P3 gamut through cli.main: {1e3 * seconds:.1f} ms end to end "
+        f"(first); phases {phases}; launches {launches}; plain calls "
+        f"{plain_calls}")
+    if launches != {k: int(k in want) for k in launches} \
+            or any(plain_calls.values()) or "gamut warning" not in phases:
+        raise RuntimeError(f"P3 gamut: launches {launches}, phases "
+                           f"{phases}")
+    check_jpeg(out)
+    cli_timed("P3 gamut (4000x6000 DNG, Hald film simulation, ProPhoto "
+              "JPEG, an sRGB proof)", argv, runs=2)
+    from art_tpu_torch import cli
+
+    pp = cli.compose_params(dng, cli.parse_args(argv))
+    dev = tdev.develop(frame, pp)
+    ms = gpu_ms(lambda: paint_gamut_warning(dev, "ProPhoto", "sRGB"), 5)
+    _, mask = paint_gamut_warning(dev, "ProPhoto", "sRGB")
+    log(f"gamut warning at {tuple(dev.shape)} on the card: {ms:.3f} ms "
+        f"(mean of 5); marked share {float(mask.double().mean()):.4f}")
+    del dev
+    g, gm = paint_gamut_warning(tdev.develop(small, pp), "ProPhoto", "sRGB")
+    c, cm = paint_gamut_warning(tdev.develop(small, pp, device="cpu"),
+                                "ProPhoto", "sRGB")
+    st = flip_parity(g.cpu(), c, gm.cpu(), cm, 0)
+    log(f"{SMALL[0]}x{SMALL[1]} P3 gamut develop, card vs CPU plain path: "
+        f"{st}")
+    if (st["flip_share"] > GAMUT_FLIPS
+            or st["max_lsb8_beyond_flips"] > DEV_MAX * 255
+            or st["mean"] > DEV_MEAN or st["within_1lsb8"] < DEV_WITHIN):
+        failures.append(f"P3 gamut: card disagrees with the CPU: {st}")
+    log(f"profile phase: {time.monotonic() - t_phase:.1f} s")
+    return stats, failures
+
+
 def _leaves(d):
     for k, v in d.items():
         if isinstance(v, dict):
@@ -2688,6 +3325,13 @@ def main():
     _, dem_stats, dem_failures = demosaic_phase(smi_line, entries)
     new_stats.update(dem_stats)
     failures += dem_failures
+
+    # ---- colour profiles and LUTs: P1 (a DCP), P2 (ICC LUT profiles), P3
+    # (the film-simulation files, the gamut warning)
+    with tempfile.TemporaryDirectory() as tmp:
+        prof_stats, prof_failures = profile_phase(smi_line, tmp)
+    new_stats.update(prof_stats)
+    failures += prof_failures
 
     failures += [f"B6 on {k} disagrees with its plain version"
                  for k, ok in b6_edges.items() if not ok]

@@ -3,8 +3,9 @@ equalizer, local contrast and a film-simulation LUT) in art_tpu_torch
 against `art_tpu` on the CPU: each module on the same seeded inputs
 (`FlatCurve`, the masks' parse and evaluation, the à trous chain, each op
 at its static variants, the .cube parser, the tetrahedral LUT), the
-region ops' plan for unsuffixed groups, the steps left out, and the whole
-develop at 192x288 X-Trans with a 9^3 cube.
+region ops' plan for unsuffixed groups, the steps left out, the film
+simulation's other file kinds planned as the reference plans them, and
+the whole develop at 192x288 X-Trans with a 9^3 cube.
 
 Tolerances: host values (curves, parsed masks and tables, plans) equal
 exactly; the masks, à trous and the LUT within 1e-5 (of 1; measured
@@ -303,23 +304,77 @@ def test_tetrahedral_matches_reference():
             rtol=0, atol=1e-6)
 
 
+def _write_lut(path):
+    """A film-simulation file of each kind (chip_smoke's P3 files, small):
+    a level-2 Hald PNG, a CTL script, a CLF (also gzipped as .clfz), an
+    external generator's JSON config."""
+    import gzip
+    import shutil
+
+    import chip_smoke
+
+    name = os.path.basename(path)
+    if name.endswith(".png"):
+        chip_smoke.write_hald(path, level=2, bits=8)
+    elif name.endswith(".ctl"):
+        chip_smoke.write_ctl(path)
+    elif name.endswith(".clf"):
+        chip_smoke.write_clf(path, n=5)
+    elif name.endswith(".clfz"):
+        chip_smoke.write_clf(path + ".tmp", n=5)
+        with open(path + ".tmp", "rb") as f, gzip.open(path, "wb") as g:
+            shutil.copyfileobj(f, g)
+    else:
+        cfg = chip_smoke.write_extlut(os.path.dirname(path))
+        shutil.move(cfg, path)
+
+
 @pytest.mark.parametrize("name,match", [
     ("look.png", "Hald CLUT"), ("look.ctl", "CTL"), ("look.clf", "CLF"),
     ("look.clfz", "CLF"), ("look.json", "JSON")])
 def test_unported_luts_raise_by_name(tmp_path, name, match):
+    # ported since: each kind plans as the reference does. A file that
+    # does not exist or cannot be read plans nothing in both; a file of
+    # the kind plans the same static part and the same tables
+    from art_tpu.ops import filmsim as rfilmsim
     from art_tpu_torch.ops import filmsim
 
     frame = synthesize_bayer(np.full((3, 32, 32), 0.5))
-    ctx = {"working_profile": "Rec2020", "frame": frame}
-    pp = ProcParams()
-    pp.film_simulation.enabled = True
-    # a file that does not exist plans nothing, as in the reference
-    pp.film_simulation.clut_filename = str(tmp_path / "missing" / name)
+    ctx = {"working_profile": "Rec2020", "frame": frame, "device": "cpu"}
+    pp, ref_pp = ProcParams(), RefProcParams()
+    for p in (pp, ref_pp):
+        p.film_simulation.enabled = True
+        p.film_simulation.strength = 80
+        p.film_simulation.clut_filename = str(tmp_path / "missing" / name)
     assert filmsim.plan(pp, ctx) is None
+    assert rfilmsim.plan(ref_pp, ctx) is None
     (tmp_path / name).write_bytes(b"x")
-    pp.film_simulation.clut_filename = str(tmp_path / name)
-    with pytest.raises(NotImplementedError, match=match):
-        filmsim.plan(pp, ctx)
+    for p in (pp, ref_pp):
+        p.film_simulation.clut_filename = str(tmp_path / name)
+    assert filmsim.plan(pp, ctx) is None
+    assert rfilmsim.plan(ref_pp, ctx) is None
+    (tmp_path / name).unlink()
+    (tmp_path / "lut").mkdir()
+    path = str(tmp_path / "lut" / name)
+    _write_lut(path)
+    for p in (pp, ref_pp):
+        p.film_simulation.clut_filename = path
+    static, data = filmsim.plan(pp, ctx)
+    ref_static, ref_data = rfilmsim.plan(ref_pp, ctx)
+    assert static == ref_static, match
+    assert sorted(data) == sorted(ref_data)
+    for k in data:
+        if k == "clf_arrays":
+            for ours, ref in zip(data[k], ref_data[k]):
+                for a, b in zip(ours, ref):
+                    np.testing.assert_array_equal(a, b)
+        else:
+            # a baked CTL table: the same float32 operations, whose
+            # log and pow round differently in XLA and PyTorch (values
+            # up to ~100, scene-linear)
+            tol = 1e-5 if static[0] == "ctl" else 0
+            np.testing.assert_allclose(data[k], ref_data[k], rtol=tol,
+                                       atol=tol, err_msg=k)
 
 
 def test_relative_lut_resolves_against_cluts_dir(cube, monkeypatch):

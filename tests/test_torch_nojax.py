@@ -8,9 +8,12 @@ that also refuses `PIL` and `cv2` (absent on the card's machine) runs
 E3 (config 3's denoise, whole-plane), E1's settings (highlights,
 sharpening, rotation, crop, resize, Adobe RGB), the look paths L1
 (with its automatic log encoding and grain) and L2, and the lens and
-sensor corrections of C1 and C2 at a small size; no
-source file of the package (`parallel/` and the export's modules among
-them), nor
+sensor corrections of C1 and C2 at a small size; a fourth, refusing all
+four, develops the colour profiles and LUTs of P1 (a DCP, temperature
+WB, a matrix/para .icc out), P2 (LUT-class .icc in and out) and P3 (a
+Hald PNG, a CLF, a CTL script and an external generator) with a gamut
+warning; no source file of the package (`parallel/`, the export's and
+the colour profiles' modules among them), nor
 chip_smoke.py, imports any of them or reads a file under art_tpu/; and
 the port's copies of the reference's host modules (profiles, colour-space
 tables, camera constants, output TRCs) hold the reference's values.
@@ -207,6 +210,49 @@ print("EXPORT-STANDALONE-OK")
 '''
 
 
+PROFILE_SCRIPT = r'''
+import sys
+
+BLOCKED = ("jax", "jaxlib", "art_tpu", "PIL", "cv2")
+
+
+class _Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError("blocked in this process: " + name)
+        return None
+
+
+sys.meta_path.insert(0, _Refuse())
+
+import tempfile
+import torch
+from art_tpu_torch.pipeline import develop as tdev
+from chip_smoke import (flagship_frame, p1_arp, p2_arp, p3_arp,
+                        profile_files, profile_pp)
+
+frame = flagship_frame(96, 160, seed=5)
+with tempfile.TemporaryDirectory() as d:
+    files = profile_files(d, level=2)
+    arps = {"P1": p1_arp(files), "P2": p2_arp(files)}
+    for kind in ("hald", "clf", "ctl", "json"):
+        arps[kind] = p3_arp(files[kind], after=kind == "ctl")
+    for label, arp in arps.items():
+        pp = profile_pp(arp)
+        pp.raw.bayer.method = "bilinear"
+        cfg, _ = tdev.plan(frame, pp, device="cpu")
+        assert label[0] != "P" or cfg.out_trc[0] in ("para", "icclut"), cfg
+        out = tdev.develop(frame, pp, device="cpu")
+        assert tuple(out.shape) == (3, 96, 160), out.shape
+        assert bool(torch.isfinite(out).all()), label
+    out = tdev.process_image(frame, profile_pp(arps["P1"]),
+                             gamut_warn="sRGB", device="cpu")
+    assert out.shape == (3, 96, 160)
+assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
+print("PROFILE-STANDALONE-OK")
+'''
+
+
 def test_develops_with_jax_blocked():
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", SCRIPT, REPO], env=env,
@@ -231,6 +277,15 @@ def test_export_with_jax_pil_and_cv2_blocked():
                           cwd=REPO)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "EXPORT-STANDALONE-OK" in proc.stdout
+
+
+def test_profiles_with_jax_pil_and_cv2_blocked():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", PROFILE_SCRIPT], env=env,
+                          capture_output=True, text=True, timeout=600,
+                          cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "PROFILE-STANDALONE-OK" in proc.stdout
 
 
 def _port_sources():
@@ -265,7 +320,11 @@ def test_no_source_file_imports_jax():
                  "core/prng.py", "pipeline/autos.py",
                  "pipeline/transform.py", "lens/lcp.py", "lens/lensfun.py",
                  "raw/dfff.py", "raw/dfff_managers.py", "io/gainmap.py",
-                 "raw/cfa_linedn.py", "raw/pdaf.py"):
+                 "raw/cfa_linedn.py", "raw/pdaf.py", "color/dcp.py",
+                 "color/iccfile.py", "color/icclut.py", "color/clf.py",
+                 "color/ctl.py", "color/extclut.py",
+                 "color/gamutwarning.py", "ops/dcplook.py",
+                 "io/imagefile.py"):
         assert os.path.join("art_tpu_torch", name) in scanned
     offenders = []
     for path in _port_sources():
@@ -334,7 +393,8 @@ def test_host_tables_equal_the_reference():
         assert sorted(ours) == sorted(ref)
         for k in ref:
             np.testing.assert_array_equal(ours[k], ref[k], err_msg=k)
-    for name in ("D65_TO_D50", "D50_TO_D65", "XYZ_FROM_SRGB_D65"):
+    for name in ("D65_TO_D50", "D50_TO_D65", "XYZ_FROM_SRGB_D65",
+                 "SRGB_D65_FROM_XYZ"):
         np.testing.assert_array_equal(getattr(cs, name), getattr(rcs, name))
     assert cs.OUTPUT_GAMMAS == rcs.OUTPUT_GAMMAS
     assert cs._srgb_gamma_fit() == rcs._srgb_gamma_fit()

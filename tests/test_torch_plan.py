@@ -1,7 +1,8 @@
 """The JAX-free planner of art_tpu_torch against `art_tpu`'s `plan`:
 same PipelineConfig, same data keys, same arrays, for the flagship
 profile (AMaZE), its bilinear variant and a WB/denoise variant; and a
-named NotImplementedError for every step the port lacks.
+named NotImplementedError for every step the port lacks; a step ported
+since plans as the reference's does, from files the test writes.
 """
 
 import contextlib
@@ -145,10 +146,10 @@ def _set(pp, path, value):
                               "AreaMaskEnabled_1": "true",
                               "AreaMask0Type_1": "rectangle"}}},
      "area mask"),
-    # sharpening is ported; a PSF kernel from an image file is not (its
-    # decoder), where the file exists
+    # ported since (match None): a PSF kernel from an image file, which
+    # the port's own decoder reads
     ({"sharpening.enabled": True, "sharpening.method": "psf",
-      "sharpening.psf_kernel": "{tmp}/psf.png"}, "PSF image kernel"),
+      "sharpening.psf_kernel": "{tmp}/psf.png"}, None),
     # the masks of the region ops that need a rasteriser or a file
     ({"extra": {"ColorCorrection": {
         "Enabled": "true", "Mode_1": "RGB", "DrawnMaskEnabled_1": "true",
@@ -166,12 +167,13 @@ def _set(pp, path, value):
     ({"perspective.enabled": True, "perspective.horizontal": 10.0}, None),
     ({"distortion.enabled": True, "distortion.amount": 0.05}, None),
     ({"raw.bayer.green_eq_enabled": True, "raw.bayer.linenoise": 10}, None),
-    ({"icm.output_profile": "{tmp}/out.icc"}, "ICC"),
+    # ported since (match None): ICC and DCP profile files
+    ({"icm.output_profile": "{tmp}/out.icc"}, None),
     # an LCP file: its vignette and geometry apply
     ({"lens_prof.method": "lcp", "lens_prof.lcp_file": "{tmp}/lens.lcp",
       "lens_prof.use_ca": True}, None),
-    ({"icm.input_profile": "{tmp}/camera.dcp"}, "input profile"),
-    ({"icm.input_profile": "{tmp}/camera.icc"}, "input profile"),
+    ({"icm.input_profile": "{tmp}/camera.dcp"}, None),
+    ({"icm.input_profile": "{tmp}/camera.icc"}, None),
     ({"raw.df_enabled": True, "raw.df_file": "{tmp}/dark.dng"}, None),
     # the searches find the DNG the test writes in their directories
     ({"raw.df_enabled": True, "raw.df_autoselect": True}, None),
@@ -209,7 +211,9 @@ def test_unported_steps_raise_by_name(frame, tmp_path, changes, match):
 
 def _write_file(path, frame):
     """A file for a "{tmp}/..." value: a DNG of the frame's mosaic with
-    four gain maps, C1's LCP profile, or an empty file."""
+    four gain maps, C1's LCP profile, P1's DCP camera profile, a v4
+    matrix ICC profile with a parametric TRC, a 9x9 PSF image, or an
+    empty file."""
     if path.endswith(".dng"):
         from art_tpu_torch.io.dngwrite import write_dng
         from chip_smoke import gain_maps
@@ -223,6 +227,20 @@ def _write_file(path, frame):
         with open(path, "w") as f:
             f.write(C1_LCP.format(frames=_LCP_FRAME.format(
                 f=35, fl=0.72, k1=-0.05)))
+    elif path.endswith(".dcp"):
+        from chip_smoke import write_dcp
+
+        write_dcp(path)
+    elif path.endswith(".icc"):
+        from chip_smoke import write_para_icc
+
+        write_para_icc(path)
+    elif path.endswith(".png"):
+        from art_tpu_torch.io.imagefile import write_png
+
+        yy, xx = np.mgrid[-4:5, -4:5]
+        k = np.exp(-(yy * yy + xx * xx) / 4.0) * 255.0
+        write_png(path, np.repeat(k[..., None], 3, 2).astype(np.uint8))
     else:
         with open(path, "wb"):
             pass

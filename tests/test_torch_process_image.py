@@ -16,9 +16,11 @@ JPEGs here; the port imports no PIL).
   the port's float develop, exactly.
 - `cli.main` of both packages with -p and -O: the JPEGs agree as above
   and the .arp copies parse to equal ProcParams.
-- What the slice does not port (-q, --gamut-warn, --check-lut on a
-  Hald CLUT image, a non-raw input, a histogram listener) exits 2, or
-  raises, naming its step. (--devices N over several files runs the
+- What the slice does not port (auto white balance, a non-raw input, a
+  histogram listener) exits 2, or raises, naming its step; a gamut
+  warning against a LUT-class proof profile exits 2 as in the
+  reference; --check-lut on a file that is no image answers 1, as the
+  reference's. (--devices N over several files runs the
   batch queue: tests/test_torch_queue.py.)
 - The port's copies of the app options reader and the profile store
   read as the reference's.
@@ -183,13 +185,18 @@ def test_cli_matches_the_reference(dng, config1_outputs, tmp_path,
     # the fast export is ported; auto white balance in its profile is
     # not
     (["-q", "-p", "{tmp}/auto-wb.arp"], "white balance"),
-    (["--gamut-warn", "sRGB"], "color/gamutwarning.py"),
+    # the gamut warning is ported; a LUT-class proof profile is refused
+    # as in the reference
+    (["--gamut-warn", "{tmp}/proof.icc"], "gamut_warning_mask_lab"),
 ])
 def test_cli_refusals(dng, tmp_path, capsys, args, step):
     from art_tpu_torch import cli
 
+    from chip_smoke import write_lut_icc_out
+
     (tmp_path / "auto-wb.arp").write_text("[White Balance]\n"
                                           "Setting=Auto\n")
+    write_lut_icc_out(str(tmp_path / "proof.icc"), grid=3)
     args = [a.replace("{tmp}", str(tmp_path)) for a in args]
     out = tmp_path / "out"
     out.mkdir()
@@ -203,10 +210,11 @@ def test_cli_refusals(dng, tmp_path, capsys, args, step):
 def test_cli_refuses_check_lut_and_non_raw(tmp_path, capsys):
     from art_tpu_torch import cli
 
-    # a Hald CLUT image: its loader (an image decoder) is not ported
+    # a Hald CLUT image loads through the port's decoder: a PNG
+    # signature and nothing after it is no LUT, as in the reference
     (tmp_path / "hald.png").write_bytes(b"\x89PNG\r\n\x1a\n")
-    assert cli.main(["--check-lut", str(tmp_path / "hald.png")]) == 2
-    assert "color/lut3d.py" in capsys.readouterr().err
+    assert cli.main(["--check-lut", str(tmp_path / "hald.png")]) == 1
+    assert "Invalid LUT file" in capsys.readouterr().out
     (tmp_path / "photo.png").write_bytes(b"\x89PNG\r\n\x1a\n")
     rc = cli.main(["-Y", "-c", str(tmp_path / "photo.png")], device="cpu")
     assert rc == 2
@@ -269,8 +277,6 @@ def test_process_image_refusals(dng):
     fast.wb.method = "Auto"
     for pp, kw, step in (
             (fast, dict(fast=True), "white balance"),
-            (config1(ProcParams), dict(gamut_warn="sRGB"),
-             "color/gamutwarning.py"),
             (config1(ProcParams), dict(listener=Wants()),
              "pipeline/scopes.py")):
         with pytest.raises(NotImplementedError, match=step):

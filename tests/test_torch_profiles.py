@@ -12,9 +12,9 @@ CPU, and the two narrowed refusals:
   written with a preview is refused naming the step (the preview's
   decode needs a JPEG decoder);
 - `--check-lut` answers as the reference's for .cube files (0 if the
-  LUT loads, 1 with "Invalid LUT file" if not, as for a missing file),
-  and exits 2 naming the step for a Hald CLUT image, whose loader is
-  not ported.
+  LUT loads, 1 with "Invalid LUT file" if not, as for a missing file)
+  and for a Hald CLUT PNG (the port's own decoder), and exits 2 naming
+  the format for an image the decoder does not read (a JPEG).
 """
 
 import importlib
@@ -123,11 +123,22 @@ def test_check_lut_answers_as_the_reference(tmp_path, capsys, case):
 
 
 def test_check_lut_refuses_a_hald_image(tmp_path, capsys):
+    # ported since: a Hald PNG loads (0) as in the reference; an image
+    # format the port's decoder does not read exits 2 naming it
+    from PIL import Image
+
+    from art_tpu import cli as ref_cli
     from art_tpu_torch import cli
+    from chip_smoke import hald_image, write_hald
 
     path = tmp_path / "hald.png"
-    path.write_bytes(b"\x89PNG\r\n\x1a\n")
+    write_hald(str(path), level=2, bits=8)
     rc, text = _check_lut(cli.main, path, capsys)
+    ref_rc, ref_text = _check_lut(ref_cli.main, path, capsys)
+    assert rc == ref_rc == 0 and text == ref_text
+    jpeg = tmp_path / "hald.jpg"
+    Image.fromarray(hald_image(2, 8)).save(jpeg)
+    rc, text = _check_lut(cli.main, jpeg, capsys)
     assert rc == 2
-    assert "Hald CLUT image" in text and "not ported" in text
+    assert "JPEG image" in text and "reads PNG and TIFF" in text
     assert "Invalid LUT file" not in text

@@ -99,10 +99,28 @@ def test_psf_loader(tmp_path, scale, content):
 
 
 def test_psf_image_file_is_refused_only_where_it_exists(tmp_path):
+    # ported since: an image kernel decodes as in the reference (its green
+    # channel, at both scales); a file that is no image is skipped as the
+    # reference skips it; an image format the port's decoder does not
+    # read is refused naming it
+    from PIL import Image
+
+    from art_tpu_torch.io.imagefile import write_png
+
     assert tsh.load_psf_kernel(str(tmp_path / "missing.png")) is None
     (tmp_path / "k.png").write_bytes(b"\x89PNG\r\n\x1a\n")
-    with pytest.raises(NotImplementedError, match="PSF image kernel"):
-        tsh.load_psf_kernel(str(tmp_path / "k.png"))
+    assert tsh.load_psf_kernel(str(tmp_path / "k.png")) is None
+    assert jsh.load_psf_kernel(str(tmp_path / "k.png")) is None
+    rng = np.random.default_rng(4)
+    img = rng.integers(0, 256, (11, 11, 3)).astype(np.uint8)
+    write_png(str(tmp_path / "k.png"), img)
+    for scale in (1.0, 2.0):
+        got = tsh.load_psf_kernel(str(tmp_path / "k.png"), scale)
+        want = jsh.load_psf_kernel(str(tmp_path / "k.png"), scale)
+        np.testing.assert_array_equal(got, want)
+    Image.fromarray(img).save(tmp_path / "k.jpg")
+    with pytest.raises(NotImplementedError, match="JPEG image"):
+        tsh.load_psf_kernel(str(tmp_path / "k.jpg"))
 
 
 def test_auto_radius_matches_reference():
