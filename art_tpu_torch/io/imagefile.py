@@ -16,7 +16,11 @@ RGB, RGBA, palette) into what the reference's callers ask PIL for,
 ``np.asarray(Image.open(path).convert("RGB"))``, byte for byte: 16-bit
 colour keeps its high byte, 16-bit grey clips at 255 (PIL's I;16), grey
 below 8 bits scales to 0..255, a palette expands through PLTE (entries
-past its end black), alpha and tRNS drop. Another image format raises
+past its end black), alpha and tRNS drop. `read_grey` decodes an
+external mask as PIL opens it: a 16-bit grey PNG or little-endian TIFF
+as its uint16 samples (``I;16``), a TIFF of 32-bit floats as float32
+(``F``), any other image as the green channel of the above (``L``).
+Another image format raises
 NotImplementedError naming it. Developing a non-raw input
 (``load_std_image``) is not ported.
 """
@@ -158,9 +162,39 @@ def read_rgb8(path):
     with open(path, "rb") as f:
         buf = f.read()
     if buf[:8] == b"\x89PNG\r\n\x1a\n":
-        return _read_png(buf)
+        return _png_rgb8(*_read_png(buf))
     if buf[:4] in (b"II\x2a\x00", b"MM\x00\x2a"):
         return _read_tiff(buf)
+    _refuse_format(buf, path)
+
+
+def read_grey(path):
+    """A mask image as PIL opens it for the reference's external masks
+    (``art_tpu/masks/__init__.py::_load_external_mask``): (plane, mode)
+    with mode "I;16" (uint16: a 16-bit grey PNG, a little-endian 16-bit
+    grey TIFF), "F" (float32: a TIFF of 32-bit float samples) or "L"
+    (uint8: any other image, the green channel of its
+    ``convert("RGB")``). Bytes that are no image, and an image whose
+    decode fails (a truncated file), raise OSError as PIL does; another
+    format that PIL reads raises NotImplementedError naming it."""
+    with open(path, "rb") as f:
+        buf = f.read()
+    try:
+        if buf[:8] == b"\x89PNG\r\n\x1a\n":
+            png = _read_png(buf)
+            samples, depth, ctype, _ = png
+            if ctype == 0 and depth == 16:
+                return samples[..., 0], "I;16"
+            return _png_rgb8(*png)[..., 1], "L"
+        if buf[:4] in (b"II\x2a\x00", b"MM\x00\x2a"):
+            img = _read_tiff(buf, grey=True)
+            return img if isinstance(img, tuple) else (img[..., 1], "L")
+    except (ValueError, IndexError, struct.error, zlib.error) as e:
+        raise OSError(f"broken image file {str(path)!r}: {e}") from e
+    _refuse_format(buf, path)
+
+
+def _refuse_format(buf, path):
     name = next((n for magic, n in _OTHER_FORMATS if buf.startswith(magic)),
                 None)
     if name is None and buf[:4] == b"RIFF" and buf[8:12] == b"WEBP":
@@ -254,6 +288,7 @@ _ADAM7 = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4),
 
 
 def _read_png(buf):
+    """A PNG's (samples (h, w, channels), depth, colour type, PLTE)."""
     pos = 8
     ihdr = None
     plte = b""
@@ -304,6 +339,11 @@ def _read_png(buf):
         rb = (w * bits_px + 7) // 8
         samples = _png_samples(_unfilter(data, h, rb, bpp), w, depth,
                                channels)
+    return samples, depth, ctype, plte
+
+
+def _png_rgb8(samples, depth, ctype, plte):
+    """A PNG's samples as PIL's ``convert("RGB")``."""
     if ctype == 3:
         pal = np.zeros((256, 3), np.uint8)
         entries = np.frombuffer(plte[: len(plte) // 3 * 3],
@@ -383,7 +423,9 @@ _TIFF_COMPRESSION = {1: "none", 5: "LZW", 8: "deflate", 32946: "deflate",
                      32773: "PackBits"}
 
 
-def _read_tiff(buf):
+def _read_tiff(buf, grey=False):
+    """A TIFF as PIL's ``convert("RGB")``; with `grey`, a single-sample
+    image that PIL opens as "I;16" or "F" as (plane, mode) instead."""
     from art_tpu_torch.io.metadata import _read_ifd, _value
 
     le = buf[:2] == b"II"
@@ -419,11 +461,20 @@ def _read_tiff(buf):
         unported(f"compression {comp}")
     if int(get(284, 1)) != 1:
         unported("separate colour planes")
-    if any(int(f) != 1 for f in fmt):
+    # PIL's modes for one sample: "F" for 32-bit floats, "I;16" for 16
+    # bits little-endian (WhiteIsZero not inverted), "I;16B" big-endian
+    # BlackIsZero; it opens no big-endian 16-bit WhiteIsZero image
+    single = spp == 1 and photo in (0, 1)
+    flt = grey and single and tuple(fmt) == (3,) and bits == (32,)
+    if grey and single and bits == (16,) and not le and photo == 0:
+        raise OSError("TIFF: PIL opens no big-endian 16-bit WhiteIsZero "
+                      "image")
+    if not flt and any(int(f) != 1 for f in fmt):
         unported(f"sample format {fmt[0]}")
-    if any(int(b) != depth for b in bits) or depth not in (1, 2, 4, 8, 16):
+    if not flt and (any(int(b) != depth for b in bits)
+                    or depth not in (1, 2, 4, 8, 16)):
         unported(f"{bits} bits per sample")
-    if pred not in (1, 2):
+    if pred not in (1, 2) or (flt and pred != 1):
         unported(f"predictor {pred}")
     if photo not in (0, 1, 2, 3):
         unported(f"photometric interpretation {photo}")
@@ -443,13 +494,17 @@ def _read_tiff(buf):
         raise ValueError("TIFF: no image data")
     row_bytes = (bw * spp * depth + 7) // 8
     block_bytes = row_bytes * bh
-    dtype = np.dtype(e + "u2") if depth == 16 else np.uint8
+    dtype = np.dtype(e + ("f4" if flt else "u2")) if depth >= 16 \
+        else np.uint8
     if depth >= 8:
-        img = np.zeros((h, w, spp), np.uint16 if depth == 16 else np.uint8)
+        img = np.zeros((h, w, spp), np.float32 if flt else
+                       np.uint16 if depth == 16 else np.uint8)
     else:
         img = np.zeros((h, w), np.uint8)
     for i, off in enumerate(offsets):
         n = counts[i] if counts else block_bytes
+        if grey and off + n > len(buf):
+            raise ValueError("TIFF: image file is truncated")
         raw = buf[off : off + n]
         name = _TIFF_COMPRESSION[comp]
         if name == "deflate":
@@ -477,6 +532,10 @@ def _read_tiff(buf):
         img[y0 : y0 + hh, x0 : x0 + ww] = blk[:hh, :ww]
     if depth < 8:
         img = img[..., None]
+    if flt:
+        return img[..., 0], "F"
+    if grey and single and depth == 16 and le:
+        return img[..., 0], "I;16"
     if photo == 3:
         cmap = np.asarray(seq(320) or (), np.uint16)
         n = 1 << depth

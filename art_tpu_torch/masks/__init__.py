@@ -2,19 +2,25 @@
 rtengine/masks.cc, procparams.h:101-330).
 
 `MaskSpec` and its keyfile parsing, `regions_from_extra` (a tool's
-suffixed region keys), and for one region `plan_mask` (host numpy) and
-`eval_mask` (torch): an unmasked region, the parametric H/C/L mask, the
-ΔE mask, the mask curve, posterization, inversion and opacity. Area,
-drawn, external-file and linked masks need host rasterisers, image files
-or another tool's mask; where the reference would apply one, planning
-raises NotImplementedError naming it.
+suffixed region keys), and for one region `plan_mask` (host) and
+`eval_mask` (torch): the parametric H/C/L mask, the ΔE mask, the area
+shapes, the drawn strokes, an external mask file, a mask linked from
+another tool, the mask curve, posterization, inversion and opacity.
+
+The area and drawn masks are rasterised at plan time, as the reference
+does with OpenCV, by `masks/raster.py`: the binary fills exactly in host
+numpy, the feathers and the rest of each plane in PyTorch on the plan's
+device (a 24 MP feather is a blur of hundreds of taps), returned to the
+host as the reference's planes. An external mask file is decoded by
+`io/imagefile.py::read_grey` and resampled as Pillow does
+(`raster.pil_resize_bilinear`); a file that raises OSError (missing, no
+image, truncated) plans the region unmasked, as in the reference.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-import os
 
 import numpy as np
 import torch
@@ -24,7 +30,8 @@ from art_tpu_torch.color.curves import DiagonalCurve, FlatCurve
 from art_tpu_torch.core.curve1d import eval_curve, fit_curve
 from art_tpu_torch.core.fmath import fdiv
 from art_tpu_torch.core.image import MAXVAL
-from art_tpu_torch.ops.filters import gauss_blur
+from art_tpu_torch.masks import raster
+from art_tpu_torch.ops.filters import gauss_blur, guided_filter
 from art_tpu_torch.params.keyfile import KeyFile
 
 # reference defaults (procparams.cc:1014-1052): identity curves
@@ -163,33 +170,192 @@ _TOOL_GROUPS = {
 }
 
 
-def _linked_source(pp, mask):
-    """The enabled, named mask of another tool that a linked mask resolves
-    to (masks.py::build_mask_registry's lookup), or None."""
-    group = _TOOL_GROUPS.get(mask.linked_toolname)
-    if group is None or group not in pp.extra:
+def build_mask_registry(pp):
+    """(toolname, mask name) -> MaskSpec over every masked tool in `pp`
+    (masks.py::build_mask_registry; LinkedMaskManager, masks.cc:806-865):
+    the enabled, named masks, the last of a name winning. Built anew for
+    each plan; the reference caches it on the ProcParams."""
+    reg = {}
+    for toolname, group in _TOOL_GROUPS.items():
+        if group not in pp.extra:
+            continue
+        kf = KeyFile()
+        kf.groups[group] = dict(pp.extra[group])
+        for j in range(1, 65):
+            sfx = f"_{j}"
+            if not kf.has(group, f"MaskEnabled{sfx}") and \
+                    not kf.has(group, f"MaskName{sfx}"):
+                break
+            m = MaskSpec.from_keyfile(kf, group, sfx)
+            if m.name and m.enabled:
+                reg[(toolname, m.name)] = m
+    return reg
+
+
+def _host(t):
+    return t.cpu().numpy()
+
+
+def rasterize_area(shapes, h, w, device="cpu"):
+    """The area shapes as a float32 (h, w) alpha (masks.py::
+    rasterize_area): rectangles and polygons filled on the host, their
+    feather blurred, gradients and the add/subtract/intersect modes on
+    `device`."""
+    out = torch.zeros((h, w), dtype=torch.float32, device=device)
+    for s in shapes:
+        cx = (s.get("x", 0.0) / 200.0 + 0.5) * w
+        cy = (s.get("y", 0.0) / 200.0 + 0.5) * h
+        fill = None
+        if s["type"] in ("rectangle", "rect"):
+            ww = s.get("width", 100.0) / 100.0 * w / 2.0
+            hh = s.get("height", 100.0) / 100.0 * h / 2.0
+            angle = np.radians(s.get("angle", 0.0))
+            box = raster.box_points((cx, cy), (2 * ww, 2 * hh),
+                                    -np.degrees(angle))
+            fill = raster.fill_poly((h, w), box.astype(np.int32))
+        elif s["type"] == "polygon" and len(s.get("knots", [])) >= 6:
+            k = np.asarray(s["knots"], dtype=np.float64)
+            pts = np.stack([(k[0::3] / 200.0 + 0.5) * w,
+                            (k[1::3] / 200.0 + 0.5) * h], axis=1)
+            fill = raster.fill_poly((h, w), pts.astype(np.int32))
+        if s["type"] == "gradient":
+            # float64 over the pixel grid, as the reference's np.mgrid
+            angle = np.radians(s.get("angle", 0.0))
+            ss = s.get("strengthstart", 100.0) / 100.0
+            se = s.get("strengthend", 0.0) / 100.0
+            f64 = dict(dtype=torch.float64, device=device)
+            dx = (torch.arange(w, **f64) - cx) * float(np.sin(angle))
+            dy = (torch.arange(h, **f64) - cy) * float(np.cos(angle))
+            d = dx[None, :] + dy[:, None]
+            span = max(h, w) * max(s.get("shapefeather", 25.0), 1.0) / 100.0
+            t = torch.clamp(d / span + 0.5, 0.0, 1.0)
+            alpha = (ss + (se - ss) * t).to(torch.float32)
+        elif fill is not None:
+            alpha = torch.from_numpy(fill).to(device).to(torch.float32)
+        else:
+            alpha = torch.zeros((h, w), dtype=torch.float32, device=device)
+        feather = s.get("shapefeather", 0.0)
+        if feather > 0 and s["type"] != "gradient":
+            sigma = feather / 100.0 * min(h, w) * 0.1 + 0.5
+            alpha = raster.gaussian_blur(alpha, sigma)
+        if s.get("mode") == "subtract":
+            out = torch.clamp(out - alpha, 0.0, 1.0)
+        elif s.get("mode") == "intersect":
+            out = out * alpha
+        else:
+            out = torch.clamp(out + alpha, 0.0, 1.0)
+    return _host(out)
+
+
+def _interp(x, xp, fp):
+    """np.interp of x in [xp[0], xp[-1]] in float64 on x's device, the
+    reference's formula: slope * (x - xp[j]) + fp[j], fp[j] where x hits
+    a knot."""
+    xp = torch.from_numpy(np.asarray(xp, np.float64)).to(x.device)
+    fp = torch.from_numpy(np.asarray(fp, np.float64)).to(x.device)
+    n = xp.numel()
+    j = torch.searchsorted(xp, x, right=True) - 1
+    jj = torch.clamp(j, 0, n - 2)
+    slope = (fp[1:] - fp[:-1]) / (xp[1:] - xp[:-1])
+    res = slope[jj] * (x - xp[jj]) + fp[jj]
+    res = torch.where(xp[jj] == x, fp[jj], res)
+    return torch.where(j >= n - 1, fp[n - 1], res)
+
+
+def rasterize_drawn(spec, h, w, device="cpu"):
+    """The brush strokes as a float32 (h, w) plane (masks.py::
+    rasterize_drawn; masks.cc generate_drawn_mask): each stroke group's
+    discs stamped on the host over their bounding box, then the rescale,
+    the smoothness blur, the feather and the contrast curve on `device`.
+    The reference's deviations from ART are kept: a Gaussian feather in
+    place of the guided filter, stamps merged per parameter group."""
+    strokes = list(spec.drawn_strokes)
+    add = spec.drawn_mode != 0
+    mask = np.zeros((h, w), dtype=np.float32)
+    stamped = np.zeros((h, w), dtype=bool)
+    maxradius = 0.0
+    pos = 0
+    while pos + 4 < len(strokes):
+        n = int(strokes[pos])
+        radius = float(strokes[pos + 1])
+        erase = not bool(strokes[pos + 2])
+        opac = float(np.clip(strokes[pos + 3], 0.0, 1.0))
+        pos += 4
+        pts = strokes[pos: pos + 2 * n]
+        pos += 2 * n
+        r = int(min(w, h) * radius * 0.25)
+        maxradius = max(maxradius, radius)
+        val = (-1.0 if erase else 1.0) + (1.0 - opac) * (0.99 if erase
+                                                         else -0.99)
+        centers = [(int(round(w * pts[k])), int(round(h * pts[k + 1])))
+                   for k in range(0, len(pts) - 1, 2)]
+        cover = raster.circle_cover((h, w), centers, max(r, 1))
+        if cover is None:
+            continue
+        win, cov = cover
+        m = mask[win]
+        stamped[win] |= cov
+        if add:
+            base = np.where(np.sign(m) == np.sign(val), m,
+                            np.clip(m, 0.0, 1.0))
+            mask[win] = np.where(cov, np.clip(base + val, -1.0, 1.0), m)
+        else:
+            mask[win] = np.where(cov, np.clip(m + val, 0.0, 1.0), m)
+
+    ccurve = DiagonalCurve(spec.drawn_contrast)
+    needscale = add and (spec.drawn_smoothness > 0 or spec.drawn_feather > 0
+                         or not ccurve.is_identity())
+    out = torch.from_numpy(mask).to(device)
+    if needscale:
+        out = torch.where(torch.from_numpy(stamped).to(device),
+                          (out + 1.0) / 2.0, 0.5)
+    if spec.drawn_smoothness > 0:
+        sigma = min(w, h) * maxradius * 0.2 * spec.drawn_smoothness
+        if sigma > 0.3:
+            out = raster.gaussian_blur(out, sigma)
+    if spec.drawn_feather > 0:
+        rad = spec.drawn_feather / 100.0 * min(w, h) * 0.1 + 0.5
+        if rad > 0.6:
+            out = raster.gaussian_blur(out, rad)
+    if not ccurve.is_identity():
+        out = _interp(torch.clamp(out, 0.0, 1.0).to(torch.float64),
+                      np.linspace(0.0, 1.0, 1025),
+                      ccurve.lut(1025)).to(torch.float32)
+    if needscale:
+        out = out * 2.0 - 1.0
+    return _host(out)
+
+
+def load_external_mask(filename, h, w, inverted, device="cpu"):
+    """A greyscale mask image as a float32 (h, w) plane (masks.py::
+    _load_external_mask; ExternalMaskManager::apply_mask, masks.cc:
+    951-1023): PIL's mode, its bilinear resample to the frame, a scale
+    chosen by the plane's max, the clip, the optional inversion. None
+    where the decode raises OSError (a missing, empty, truncated file or
+    one that is no image), which leaves the reference's region
+    unmasked; the resample on the card raises as it fails."""
+    from art_tpu_torch.io.imagefile import read_grey
+
+    try:
+        plane, mode = read_grey(filename)
+    except OSError:
         return None
-    kf = KeyFile()
-    kf.groups[group] = dict(pp.extra[group])
-    for j in range(1, 65):
-        sfx = f"_{j}"
-        if not kf.has(group, f"MaskEnabled{sfx}") and \
-                not kf.has(group, f"MaskName{sfx}"):
-            break
-        m = MaskSpec.from_keyfile(kf, group, sfx)
-        if m.name == mask.linked_name and m.enabled:
-            return m
-    return None
+    a = raster.pil_resize_bilinear(plane, mode, (w, h), device).to(
+        torch.float32)
+    top = float(a.max())
+    scale = 65535.0 if top > 255.0 else (255.0 if top > 1.0 else 1.0)
+    a = torch.clamp(a / scale, 0.0, 1.0)
+    if inverted:
+        a = 1.0 - a
+    return _host(a)
 
 
-def _unported(what):
-    raise NotImplementedError(f"{what} is not ported to art_tpu_torch")
-
-
-def plan_mask(mask: MaskSpec, shape, pp=None):
+def plan_mask(mask: MaskSpec, shape, pp=None, device="cpu"):
     """Host planner for one region mask -> (static, data), the reference's
-    static layout. Refuses an area, drawn, external-file or linked mask
-    wherever the reference would apply one."""
+    static layout and data keys. `pp` resolves a linked mask against the
+    other tools' masks; `device` is where the area and drawn planes and
+    an external mask's resample are computed."""
+    h, w = shape
     data = {}
     use_param = False
     if mask.parametric_enabled:
@@ -204,10 +370,13 @@ def plan_mask(mask: MaskSpec, shape, pp=None):
             data["lm"] = fit_curve(FlatCurve(
                 mask.lightness, periodic=False,
                 identity_value=1.0).lut(8192))
-    if mask.area_enabled and mask.area_shapes:
-        _unported("area mask (masks/__init__.py::rasterize_area)")
+    use_area = bool(mask.area_enabled and mask.area_shapes)
+    if use_area:
+        data["area"] = rasterize_area(mask.area_shapes, h, w, device)
+    drawn_mode = -1
     if mask.drawn_enabled and mask.drawn_strokes:
-        _unported("drawn mask (masks/__init__.py::rasterize_drawn)")
+        drawn_mode = int(np.clip(mask.drawn_mode, 0, 2))
+        data["drawn"] = rasterize_drawn(mask, h, w, device)
     use_curve = False
     mc = DiagonalCurve(mask.curve)
     if not mc.is_identity():
@@ -218,20 +387,38 @@ def plan_mask(mask: MaskSpec, shape, pp=None):
         data["de_ref"] = np.array(mask.deltae_lch, dtype=np.float32)
         data["de_range"] = np.float32(mask.deltae_range)
         data["de_decay"] = np.float32(max(mask.deltae_decay, 1e-3))
-    # the reference loads an external mask file that opens, and skips one
-    # that does not
-    if (mask.external_enabled and mask.external_filename
-            and os.path.isfile(mask.external_filename)):
-        _unported("external mask file")
-    if (mask.linked_enabled and mask.linked_name and pp is not None
-            and _linked_source(pp, mask) is not None):
-        _unported("linked mask")
-    static = (use_param, False, use_curve, use_de,
+    # external mask file (masks.cc:1396); one whose decode raises
+    # OSError leaves the region unmasked
+    ext_radius = -1
+    ext = None
+    if mask.external_enabled and mask.external_filename:
+        ext = load_external_mask(mask.external_filename, h, w,
+                                 mask.external_inverted, device)
+    if ext is not None:
+        data["ext"] = ext
+        # feather -> guided-filter radius (masks.cc:1025-1030)
+        ext_radius = int(mask.external_feather / 100.0 * min(h, w) * 0.1
+                         + 0.5) if mask.external_feather > 0 else 0
+    # linked mask: the other tool's spec, without its own linked and
+    # external parts, planned and evaluated on this op's input
+    # (masks.cc:1411-1425, the reference's re-evaluation)
+    linked_static = None
+    if mask.linked_enabled and mask.linked_name and pp is not None:
+        src = build_mask_registry(pp).get((mask.linked_toolname,
+                                           mask.linked_name))
+        if src is not None:
+            src = dataclasses.replace(src, linked_enabled=False,
+                                      external_enabled=False)
+            linked_static, linked_data = plan_mask(src, shape,
+                                                   device=device)
+            for k, v in linked_data.items():
+                data["linked:" + k] = v
+    static = (use_param, use_area, use_curve, use_de,
               bool(mask.inverted), float(mask.parametric_blur),
               float(mask.area_blur), int(mask.posterization),
-              float(mask.opacity), -1,
+              float(mask.opacity), drawn_mode,
               float(np.clip(mask.drawn_opacity, 0.0, 1.0)),
-              -1, None, bool(mask.linked_inverted))
+              ext_radius, linked_static, bool(mask.linked_inverted))
     return static, data
 
 
@@ -247,12 +434,20 @@ def _mod(x, y):
 
 def eval_mask(rgb, ws, static, data):
     """One region mask of a (3, H, W) working-space image -> (H, W) in
-    [0, 1]; ws the working space's RGB -> XYZ matrix (a tensor)."""
-    (use_param, use_area, use_curve, use_de, inverted, pblur, _ablur,
-     posterization, opacity, drawn_mode, _alpha, ext_radius, linked,
-     _linked_inverted) = static
-    if use_area or drawn_mode >= 0 or ext_radius >= 0 or linked is not None:
-        _unported("area, drawn, external or linked mask")
+    [0, 1]; ws the working space's RGB -> XYZ matrix (a tensor). The
+    parts multiply in the reference's order: parametric, ΔE, a bounded
+    brush, the area, the external plane, the linked mask, the other
+    brush modes; then the curve, posterization, inversion, opacity."""
+    (use_param, use_area, use_curve, use_de, inverted, pblur, ablur,
+     posterization, opacity, drawn_mode, drawn_alpha, ext_radius, linked,
+     linked_inverted) = static
+
+    def apply_drawn(m):
+        f = drawn_alpha * data["drawn"]
+        if drawn_mode == 0:  # INTERSECT
+            return m * f
+        return torch.clamp(m + f, 0.0, 1.0)
+
     x = fdiv(rgb, MAXVAL)
     xx = ws[0, 0] * x[0] + ws[0, 1] * x[1] + ws[0, 2] * x[2]
     yy = ws[1, 0] * x[0] + ws[1, 1] * x[1] + ws[1, 2] * x[2]
@@ -283,6 +478,27 @@ def eval_mask(rgb, ws, static, data):
         sel = torch.exp(-torch.clamp(de - data["de_range"], min=0.0)
                         / (data["de_decay"] * 10.0))
         m = m * sel
+    if drawn_mode == 2:  # ADD_BOUNDED: the brush before the area bound
+        m = apply_drawn(m)
+    if use_area:
+        area = data["area"]
+        if ablur > 0:
+            area = gauss_blur(area, ablur)
+        m = m * area
+    if ext_radius >= 0:  # the external mask multiplies in (masks.cc:1396)
+        ext = data["ext"]
+        if ext_radius > 0:
+            ext = guided_filter(l01, ext, ext_radius, 1e-7)
+        m = m * ext
+    if linked is not None:  # the linked mask multiplies in (:1411)
+        lm = eval_mask(rgb, ws, linked,
+                       {k[len("linked:"):]: v for k, v in data.items()
+                        if k.startswith("linked:")})
+        if linked_inverted:
+            lm = 1.0 - lm
+        m = m * lm
+    if drawn_mode in (0, 1):
+        m = apply_drawn(m)
     if use_curve:
         m = eval_curve(m, data["mcurve"], in_max=1.0, out_max=1.0)
     if posterization > 0:

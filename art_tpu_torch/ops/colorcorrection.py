@@ -122,7 +122,8 @@ def plan(pp, ctx):
         abca = ss * np.sin(2 * np.pi * hh)  # v component
 
         mask = MaskSpec.from_keyfile(kf, GROUP, sfx)
-        mstatic, mdata = plan_mask(mask, (h, w), pp)
+        mstatic, mdata = plan_mask(mask, (h, w), pp,
+                                   ctx.get("device", "cpu"))
 
         ridx = len(regions)
         data[f"cc{ridx}"] = {

@@ -50,7 +50,8 @@ def plan(pp, ctx):
         lvl = curve.get_val(pos) if not curve.is_identity() else np.zeros(
             LEVELS)
         factors = 1.0 + contrast / 100.0 + 4.0 * lvl
-        mstatic, mdata = plan_mask(mask, (h, w), pp)
+        mstatic, mdata = plan_mask(mask, (h, w), pp,
+                                   ctx.get("device", "cpu"))
         data[f"lc{ridx}"] = {"mask": mdata,
                              "factors": factors.astype(np.float32)}
         statics.append((mstatic, ridx))

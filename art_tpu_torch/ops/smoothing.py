@@ -79,7 +79,8 @@ def plan(pp, ctx):
             "lum_w": ws[1].astype(np.float32)}
     statics = []
     for ridx, (params, mask) in enumerate(regions):
-        mstatic, mdata = plan_mask(mask, (h, w), pp)
+        mstatic, mdata = plan_mask(mask, (h, w), pp,
+                                   ctx.get("device", "cpu"))
         mode = MODES[min(params["mode"], len(MODES) - 1)]
         data[f"sm{ridx}"] = {
             "mask": mdata,

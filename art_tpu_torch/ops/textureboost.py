@@ -39,7 +39,8 @@ def plan(pp, ctx):
     for ridx, (params, mask) in enumerate(regions):
         if params["strength"] == 0:
             continue
-        mstatic, mdata = plan_mask(mask, (h, w), pp)
+        mstatic, mdata = plan_mask(mask, (h, w), pp,
+                                   ctx.get("device", "cpu"))
         s = params["strength"]
         s = (s / 2.0) ** 0.3 * 2.0 if s >= 0 else s
         data[f"tb{ridx}"] = {

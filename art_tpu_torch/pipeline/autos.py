@@ -1,8 +1,9 @@
 """Automatic adjustments run at plan time (counterpart of
 ``art_tpu/pipeline/autos.py``).
 
-Host numpy. Ported: the automatic chrominance estimate and the RL
-sharpening radius, copies of the reference's `auto_chroma_params` and
+Host numpy. Ported: the grey-world white balance, the automatic
+chrominance estimate and the RL sharpening radius, copies of the
+reference's `auto_wb_multipliers`, `auto_chroma_params` and
 `deconv_auto_radius`; and the automatic log encoding, `auto_log_params`,
 whose statistics come from a neutral develop of a subsampled frame on
 the device of the develop that asks for it.
@@ -13,6 +14,39 @@ from __future__ import annotations
 import copy
 
 import numpy as np
+
+from art_tpu_torch.core.image import bayer_color_index
+
+
+def auto_wb_multipliers(frame):
+    """Grey-world auto WB -> ColorTemp-convention RGB multipliers
+    (art_tpu/pipeline/autos.py::auto_wb_multipliers; RawImageSource::
+    getAutoWBMultipliers): the mean of each channel's unclipped CFA sites
+    above black, as gains relative to green, taken to the RGB multiplier
+    convention through rgb_cam. ones(3) for a frame with no Bayer
+    pattern (X-Trans included)."""
+    if not frame.is_raw or frame.pattern is None:
+        return np.ones(3)
+    cfa = np.asarray(frame.cfa, dtype=np.float64)
+    h, w = cfa.shape
+    cidx = bayer_color_index(frame.pattern, (h, w))
+    black = np.asarray(frame.black)
+    white = np.asarray(frame.white)
+    clip_hi = 0.95 * white.min()
+    avgs = []
+    for c in range(3):
+        sel = (cidx == c) & (cfa < clip_hi)
+        vals = cfa[sel] - black[[0, 1, 2][c]]
+        avgs.append(max(vals.mean() if vals.size else 1.0, 1e-3))
+    gains = np.array([avgs[1] / avgs[0], 1.0, avgs[1] / avgs[2]])
+    # gains = pre_mul / (cam_rgb @ mult) * norm, so mult = rgb_cam @
+    # (pre_mul / gains)
+    rgb_cam, _, _ = frame.color_matrices()
+    pm = frame.pre_mul()
+    v = rgb_cam @ (pm[:3] / gains)
+    if v[1] <= 0:
+        return np.ones(3)
+    return np.array([v[0] / v[1], 1.0, v[2] / v[1]])
 
 
 def auto_chroma_params(frame, pp, wb_mults=None):

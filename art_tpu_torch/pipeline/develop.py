@@ -521,19 +521,21 @@ def plan(frame, pp, fast=False, out_u8=False, device="cuda"):
     .badpixels, hot/dead pixels, green equilibration, line denoise, PDAF
     lines, raw CA; every demosaic method of the reference, pixel shift
     with the frame's 3 extra frames), an X-Trans one or a Foveon one
-    (3 planes, no CFA step), camera or CustomMult white balance,
-    highlight recovery, the ported ops (`ops.PORTED`), coarse rotation
-    and flips, the geometric transform with its lens corrections (LCP,
+    (3 planes, no CFA step), highlight recovery, the ported ops
+    (`ops.PORTED`) and their region masks, coarse rotation and flips,
+    the geometric transform with its lens corrections (LCP,
     metadata, lensfun), the crop, the Lanczos resize with post-resize
-    sharpening; camera, CustomMult or temperature (Custom) white balance;
+    sharpening; camera, CustomMult, temperature (Custom) or grey-world
+    (Auto, `pipeline/autos.py::auto_wb_multipliers`) white balance;
     a DCP or ICC camera profile; a named or ICC output profile.
     fast=True is the reference's fast export (-q), active only with a
     resize: the demosaic downgrades, the image is resized right after
     the raw stage and every later step runs at output scale. out_u8
     plans the reference's device-side 8-bit output: interleaved
     (H, W, 3) uint8 in place of (3, H, W) float planes. device: where the
-    automatic log encoding renders its neutral develop (the device of
-    the develop that plans). pp itself is not changed.
+    automatic log encoding renders its neutral develop and the region
+    masks blur and resample their planes (the device of the develop that
+    plans). pp itself is not changed.
     Anything else raises NotImplementedError."""
     if not frame.is_raw:
         _unported("non-raw input")
@@ -587,7 +589,15 @@ def plan(frame, pp, fast=False, out_u8=False, device="cuda"):
         m = np.asarray(pp.wb.mult, dtype=np.float64)
         wb_mults = np.array([m[0] / m[1], 1.0, m[2] / m[1]])
     elif pp.wb.enabled and pp.wb.method == "Auto" and not foveon:
-        _unported("white balance method 'Auto'")
+        from art_tpu_torch.pipeline.autos import auto_wb_multipliers
+
+        wb_mults = auto_wb_multipliers(frame)
+        try:
+            from art_tpu_torch.pipeline.listeners import report_auto
+
+            report_auto("wb", wbmod.mul2temp(*np.asarray(wb_mults)[:3]))
+        except Exception:
+            pass
     else:
         wb_mults = frame.camera_wb_mults()
 
@@ -1294,8 +1304,10 @@ def process_image(path_or_frame, pp, fast=False, output_path=None,
     path); the pixels outside its gamut are painted cyan
     (`color/gamutwarning.py`), on the develop's device.
 
-    Not ported, and raising NotImplementedError naming the step: a
-    PipelineListener that wants a histogram."""
+    A PipelineListener that overrides `histogram_changed` gets the
+    256-bin R, G, B and luminance histograms of the developed image
+    (`pipeline/scopes.py::histogram_rgbl`, on the host) after the autos
+    are reported."""
     import time as _time
 
     from art_tpu_torch.io.rawfile import RawFrame
@@ -1303,9 +1315,6 @@ def process_image(path_or_frame, pp, fast=False, output_path=None,
                                                   _Collect, fire_autos,
                                                   notify, wants_histogram)
     from art_tpu_torch.settings import settings
-
-    if wants_histogram(listener):
-        _unported("histogram listener (pipeline/scopes.py)")
 
     def _tick(label, t0):
         if settings.verbose:
@@ -1347,6 +1356,10 @@ def process_image(path_or_frame, pp, fast=False, output_path=None,
     _sync(device)
     t = _tick("device program", t)
     out = crop_result(out, config)
+    scoped = None
+    if gamut_warn and wants_histogram(listener):
+        # the reference's histogram reads the develop before the paint
+        scoped = np.array(read_back(out).numpy())
     if gamut_warn:
         from art_tpu_torch.color.gamutwarning import paint_gamut_warning
 
@@ -1357,6 +1370,14 @@ def process_image(path_or_frame, pp, fast=False, output_path=None,
     out = read_back(out).numpy()
     t = _tick("D2H", t)
     fire_autos(listener, auto_report)
+    if wants_histogram(listener):
+        from art_tpu_torch.pipeline.scopes import histogram_rgbl
+
+        arr = out if scoped is None else scoped
+        full = (arr.transpose(2, 0, 1).astype(np.float32)
+                * (MAXVAL / 255.0) if u8
+                else np.clip(arr, 0.0, 1.0) * MAXVAL)
+        listener.histogram_changed(histogram_rgbl(full))
     notify(listener, "develop")
     if gamut_warn:
         notify(listener, "gamut")

@@ -144,6 +144,21 @@ program, peak memory, device ms by `art:` stage (`dcp`, `dcplook_late`,
 also the Hald's decode, the CTL bake on the card against the CPU's, and
 the gamut warning's time at 24 MP and its marks against the CPU's (at
 most GAMUT_FLIPS of the pixels flip).
+Then the region masks and the host autos (`mask_phase`), counts reset
+before each path, on the flagship frame and profile: M1 (`m1_pp`),
+Local Contrast under an area mask (a rectangle turned 30 degrees with
+feather 25, less a non-convex polygon, an area blur), Smoothing's
+NLMeans under the inverted linked mask, Colour Correction under three
+stroke groups (one an erase; smoothness, feather, a contrast curve) and
+Texture Boost under a 1000x1500 16-bit grey PNG (`write_mask_png`)
+resampled to 24 MP through the guided filter: B1-B4, B6 and B7 once,
+each held to its plain version on M1's tensors, B6 on the Smoothing
+region's own, with the host plan's mask parts timed apart (the fills,
+the card's blurs, the decode, the resample); M2 (`m2_pp`), WB Auto
+through process_image with a listener that takes the histogram and the
+auto WB report: B1-B4 and B7 once. Each prints its develop, device
+program, peak memory, device ms by `art:` stage and a 512x2048 develop
+against the CPU.
 Then one JSON line of per-kernel results (time, plain time, bound) and
 last the line {"ok": true, "device": {...}}. Any failure raises
 (non-zero exit, no result lines); so does a machine without CUDA.
@@ -3056,6 +3071,299 @@ def profile_phase(smi_line, tmp):
     return stats, failures
 
 
+# ---- region masks (M1) and the host autos and scopes (M2)
+
+MASK_PNG = (1000, 1500)
+# the drawn strokes, n;radius;draw(1)/erase(0);opacity;x0;y0;... in frame
+# units: a wave across the upper third, a softer arc, an erase through
+# the first
+_WAVE = [(0.1 + 0.8 * i / 23, 0.25 + 0.08 * np.sin(i / 3.0))
+         for i in range(24)]
+_ARC = [(0.3 + 0.4 * np.cos(np.pi * i / 15), 0.7 - 0.25 * np.sin(
+    np.pi * i / 15)) for i in range(16)]
+_ERASE = [(0.3 + 0.04 * i, 0.2 + 0.012 * i) for i in range(10)]
+
+
+def _strokes(groups):
+    out = []
+    for radius, draw, opacity, pts in groups:
+        out += [len(pts), radius, draw, opacity]
+        for x, y in pts:
+            out += [round(x, 4), round(y, 4)]
+    return ";".join(f"{v:g}" for v in out) + ";"
+
+
+M1_STROKES = _strokes([(0.15, 1, 1.0, _WAVE), (0.25, 1, 0.6, _ARC),
+                       (0.08, 0, 1.0, _ERASE)])
+
+M1_ARP = """[Local Contrast]
+Enabled=true
+Contrast_1=40
+MaskName_1=sky
+AreaMaskEnabled_1=true
+AreaMaskBlur_1=3
+AreaMask0Type_1=rectangle
+AreaMask0X_1=-10
+AreaMask0Y_1=-35
+AreaMask0Width_1=75
+AreaMask0Height_1=45
+AreaMask0Angle_1=30
+AreaMask0ShapeFeather_1=25
+AreaMask1Type_1=polygon
+AreaMask1Knots_1=-40;-60;0;10;-20;0;40;-70;0;20;10;0;-30;0;0;
+AreaMask1ShapeFeather_1=5
+AreaMask1Mode_1=subtract
+
+[Smoothing]
+Enabled=true
+Mode_1=3
+Channel_1=0
+NLStrength_1=40
+NLDetail_1=50
+LinkedMaskEnabled_1=true
+LinkedMask_1=localcontrast|sky
+LinkedMaskInverted_1=true
+
+[ColorCorrection]
+Enabled=true
+Mode_1=RGB
+SlopeR_1=1.12
+SlopeB_1=0.9
+OffsetG_1=0.01
+PowerR_1=0.95
+DrawnMaskEnabled_1=true
+DrawnMaskMode_1=1
+DrawnMaskSmoothness_1=0.5
+DrawnMaskFeather_1=20
+DrawnMaskContrast_1=1;0;0;0.3;0.2;0.7;0.85;1;1;
+DrawnMaskStrokes_1={strokes}
+
+[TextureBoost]
+Enabled=true
+Strength_1=0.6
+DetailThreshold_1=1.5
+Iterations_1=1
+ExternalMaskEnabled_1=true
+ExternalMaskFilename_1={mask}
+ExternalMaskFeather_1=10
+"""
+
+
+def m1_arp(mask):
+    """M1's region tools beyond the flagship profile: Local Contrast under
+    an area mask named `sky` (a rectangle turned 30 degrees, feather 25,
+    less a non-convex 5-knot polygon, area blur 3); Smoothing's NLMeans
+    on luminance under the inverted linked mask `localcontrast|sky`;
+    Colour Correction (RGB) under three stroke groups, one an erase
+    (drawn mode 1, smoothness 0.5, feather 20, a contrast curve); Texture
+    Boost under the external mask file `mask` (feather 10, the guided
+    filter). The geometry is relative to the frame, so one profile serves
+    every size."""
+    return M1_ARP.format(strokes=M1_STROKES, mask=mask)
+
+
+def m1_pp(mask, pp=None):
+    """M1's ProcParams on pp (either package's): the flagship profile
+    (AMaZE, denoise 20/20, the Neutral curve) and `m1_arp`."""
+    pp = flagship_pp("amaze", pp)
+    pp.apply_arp_text(m1_arp(mask))
+    return pp
+
+
+def write_mask_png(path, h=MASK_PNG[0], w=MASK_PNG[1], seed=0):
+    """M1's external mask: a 16-bit greyscale PNG (colour type 0, which
+    Pillow opens as I;16) of a soft blob and a ramp with 1% noise,
+    written with zlib (the card's machine has no PIL)."""
+    import struct
+    import zlib
+
+    yy, xx = np.mgrid[0:h, 0:w]
+    yy, xx = yy / h, xx / w
+    blob = np.exp(-((xx - 0.6) ** 2 / 0.04 + (yy - 0.45) ** 2 / 0.06))
+    v = 0.7 * blob + 0.3 * xx + np.random.default_rng(seed).normal(
+        0.0, 0.01, (h, w))
+    plane = np.round(np.clip(v, 0.0, 1.0) * 65535.0).astype(">u2")
+    rows = np.concatenate([np.zeros((h, 1), np.uint8),
+                           plane.view(np.uint8).reshape(h, -1)], axis=1)
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 16, 0, 0,
+                                             0, 0))
+                + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+                + chunk(b"IEND", b""))
+    return path
+
+
+def m2_pp(pp=None):
+    """M2's ProcParams on pp (either package's): the flagship profile
+    with white balance Auto (grey world)."""
+    pp = flagship_pp("amaze", pp)
+    pp.wb.method = "Auto"
+    return pp
+
+
+@contextlib.contextmanager
+def timed_calls(parts):
+    """Yields a dict label -> [seconds of each call] of the functions
+    `parts` names ({label: (module, name)}) inside the block, the card
+    synchronised before and after each call, so the host's part and the
+    card's part of a plan read apart."""
+    seconds = {label: [] for label in parts}
+    saved = []
+    for label, (module, name) in parts.items():
+        fn = getattr(module, name)
+        saved.append((module, name, fn))
+
+        def timed(*args, _fn=fn, _label=label, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            out = _fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            seconds[_label].append(time.monotonic() - t0)
+            return out
+
+        setattr(module, name, timed)
+    try:
+        yield seconds
+    finally:
+        for module, name, fn in saved:
+            setattr(module, name, fn)
+
+
+def mask_plan_parts(label, frame, pp):
+    """One host plan with its mask parts timed apart: the area and drawn
+    rasterisers and the external mask's load, and inside them the host
+    fills, the card's blurs, the decode and the resample. Returns the
+    plan's ms and {part: ms}."""
+    from art_tpu_torch import masks
+    from art_tpu_torch.io import imagefile
+    from art_tpu_torch.masks import raster
+    from art_tpu_torch.pipeline import develop as tdev
+
+    parts = {"area rasterise": (masks, "rasterize_area"),
+             "drawn rasterise": (masks, "rasterize_drawn"),
+             "external decode+resize": (masks, "load_external_mask"),
+             "  polygon fills (host)": (raster, "fill_poly"),
+             "  disc stamps (host)": (raster, "circle_cover"),
+             "  Gaussian blurs (card)": (raster, "gaussian_blur"),
+             "  decode (host)": (imagefile, "read_grey"),
+             "  PIL resample (card)": (raster, "pil_resize_bilinear")}
+    with timed_calls(parts) as seconds:
+        t0 = time.monotonic()
+        tdev.plan(frame, pp)
+        plan_ms = 1e3 * (time.monotonic() - t0)
+    ms = {k: 1e3 * sum(v) for k, v in seconds.items()}
+    log(f"{label} host plan (synchronised around each part) {plan_ms:.1f} "
+        "ms, of it: " + "; ".join(
+            f"{k.strip()} {ms[k]:.1f} ms ({len(seconds[k])} calls)"
+            for k in parts))
+    return plan_ms, ms
+
+
+def mask_phase(smi_line, tmp):
+    """The region masks and the host autos and scopes on the card, on the
+    flagship frame and profile (AMaZE, denoise 20/20, the Neutral curve),
+    counts reset before each path. M1 (`m1_pp`): Local Contrast under an
+    area mask (a rotated rectangle, feather 25, less a non-convex
+    polygon), Smoothing's NLMeans under the inverted linked mask,
+    Colour Correction under three stroke groups, Texture Boost under a
+    1000x1500 16-bit grey PNG resampled to the frame (`write_mask_png`);
+    B1-B4, B6 and B7 once each, each held to its plain version on M1's
+    tensors (B6 on the Smoothing region's own), as profile_path runs it,
+    with the host plan's mask parts timed apart. M2 (`m2_pp`): the
+    flagship with WB Auto through process_image with a listener that
+    takes the histogram and the auto WB report; B1-B4 and B7 once. Each
+    with its device program, peak memory, device ms by `art:` stage and
+    a 512x2048 develop against the CPU. Returns (the comparisons, the
+    failures)."""
+    from art_tpu_torch.ops import denoise
+    from art_tpu_torch.pipeline import develop as tdev
+    from art_tpu_torch.pipeline.listeners import PipelineListener
+    from art_tpu_torch.pipeline.scopes import histogram_rgbl
+
+    log(f"---- mask phase ({smi_line})")
+    t_phase = time.monotonic()
+    mask = write_mask_png(os.path.join(tmp, "m1_mask.png"))
+    frame = flagship_frame(*FRAME)
+    small = flagship_frame(*SMALL, seed=5)
+    stats, failures = {}, []
+
+    pp = m1_pp(mask)
+    config, _ = tdev.plan(frame, pp)
+    steps = [st[0] for st in config.steps]
+    log(f"M1 steps {steps}; fusion gates {tdev.fusion_gates(config)}")
+    if not {"localcontrast", "smoothing", "colorcorrection",
+            "textureboost"} <= set(steps):
+        raise RuntimeError(f"M1 planned {steps}")
+    mask_plan_parts("M1", frame, pp)
+    want = ("b1", "b2", "b3", "b4", "b6", "b7")
+    _, stats["M1"], f = profile_path("M1", pp, frame, small, want)
+    failures += f
+    with record_args(denoise, "nlmeans") as calls:
+        tdev.develop(frame, pp)
+    if len(calls) != 1:
+        raise RuntimeError(f"M1: B6 ran {len(calls)} times, want 1")
+    y, maskinv = calls[0][0]
+    if not b6_case("M1 smoothing's luma (under the linked mask)", y,
+                   maskinv):
+        failures.append("M1: B6 disagrees with its plain version")
+    del calls, y, maskinv
+
+    class Scoped(PipelineListener):
+        wb = hist = None
+
+        def auto_wb_changed(self, temp, green):
+            self.wb = (temp, green)
+
+        def histogram_changed(self, hist_rgbl):
+            self.hist = hist_rgbl
+
+    pp = m2_pp()
+    want = ("b1", "b2", "b3", "b4", "b7")
+    runs = []
+    for i in range(3):
+        listener = Scoped()
+        reset_counts()
+        t0 = time.monotonic()
+        out = tdev.process_image(frame, pp, listener=listener)
+        runs.append(time.monotonic() - t0)
+        if i == 0:
+            launches, plain_calls = read_counts()
+            log(f"M2 process_image {FRAME[0]}x{FRAME[1]} (first): "
+                f"{runs[0]:.3f} s; launches {launches}; plain calls "
+                f"{plain_calls}; auto WB reported {listener.wb}")
+            if launches != {k: int(k in want) for k in launches} \
+                    or any(plain_calls.values()):
+                raise RuntimeError(f"M2: launches {launches}, plain "
+                                   f"{plain_calls}")
+            if listener.wb is None or listener.hist is None or any(
+                    int(listener.hist[k].sum()) != out[0].size
+                    for k in "rgb"):
+                raise RuntimeError("M2: the listener missed the auto WB "
+                                   "or the histogram")
+            if out.shape != (3, *FRAME) or not np.isfinite(out).all():
+                raise RuntimeError(f"M2: bad output {out.shape}")
+    log(f"M2 process_image (plan + H2D + device + D2H + histogram), median "
+        f"of 3: {1e3 * float(np.median(runs)):.1f} ms "
+        f"{[round(1e3 * t, 1) for t in runs]}")
+    t0 = time.monotonic()
+    histogram_rgbl(np.clip(out, 0.0, 1.0) * 65535.0)
+    log(f"M2 histogram_rgbl of the 24 MP float output (host numpy): "
+        f"{1e3 * (time.monotonic() - t0):.1f} ms")
+    del out
+    program_times("M2", frame, pp)
+    failures += kernels_against_plain(
+        "M2", lambda: tdev.develop(frame, pp), want)
+    stats["M2"] = card_vs_cpu("M2", small, pp)
+    log(f"mask phase: {time.monotonic() - t_phase:.1f} s")
+    return stats, failures
+
+
 def _leaves(d):
     for k, v in d.items():
         if isinstance(v, dict):
@@ -3332,6 +3640,13 @@ def main():
         prof_stats, prof_failures = profile_phase(smi_line, tmp)
     new_stats.update(prof_stats)
     failures += prof_failures
+
+    # ---- the region masks (M1: area, linked, drawn, external) and the
+    # host autos and scopes (M2: auto WB, the histogram listener)
+    with tempfile.TemporaryDirectory() as tmp:
+        mask_stats, mask_failures = mask_phase(smi_line, tmp)
+    new_stats.update(mask_stats)
+    failures += mask_failures
 
     failures += [f"B6 on {k} disagrees with its plain version"
                  for k, ok in b6_edges.items() if not ok]

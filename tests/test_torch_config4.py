@@ -3,7 +3,9 @@ equalizer, local contrast and a film-simulation LUT) in art_tpu_torch
 against `art_tpu` on the CPU: each module on the same seeded inputs
 (`FlatCurve`, the masks' parse and evaluation, the à trous chain, each op
 at its static variants, the .cube parser, the tetrahedral LUT), the
-region ops' plan for unsuffixed groups, the steps left out, the film
+region ops' plan for unsuffixed groups, the area, drawn, external-file
+and linked masks planned as the reference plans them (an external file
+that is empty or no image leaves the region unmasked), the film
 simulation's other file kinds planned as the reference plans them, and
 the whole develop at 192x288 X-Trans with a 9^3 cube.
 
@@ -149,35 +151,65 @@ def test_eval_mask_matches_reference(rgb, region):
     np.testing.assert_allclose(a, b, rtol=0, atol=1e-5)
 
 
-@pytest.mark.parametrize("keys,match", [
-    ("AreaMaskEnabled_1=true\nAreaMask0Type_1=rectangle\n", "area mask"),
+@pytest.mark.parametrize("keys,file", [
+    ("AreaMaskEnabled_1=true\nAreaMask0Type_1=rectangle\n"
+     "AreaMask0Width_1=50\nAreaMask0Height_1=40\nAreaMask0Angle_1=30\n"
+     "AreaMask0ShapeFeather_1=20\n", None),
     ("DrawnMaskEnabled_1=true\nDrawnMaskStrokes_1=1;0.1;1;1;0.5;0.5;\n",
-     "drawn mask"),
+     None),
     ("ExternalMaskEnabled_1=true\nExternalMaskFilename_1={file}\n",
-     "external mask"),
+     "image"),
     ("MaskEnabled_1=true\nLinkedMaskEnabled_1=true\n"
      "LinkedMask_1=localcontrast|sky\nMaskName_2=sky\nContrast_2=10\n",
-     "linked mask"),
-], ids=["area", "drawn", "external", "linked"])
-def test_unported_masks_raise_by_name(tmp_path, keys, match):
+     None),
+    ("ExternalMaskEnabled_1=true\nExternalMaskFilename_1={file}\n",
+     "empty"),
+    ("ExternalMaskEnabled_1=true\nExternalMaskFilename_1={file}\n",
+     "text"),
+], ids=["area", "drawn", "external", "linked", "external-empty",
+        "external-text"])
+def test_unported_masks_raise_by_name(tmp_path, keys, file):
+    # ported since: the area, drawn, external-file and linked masks plan
+    # as the reference's, the same static and data (the rasterised planes
+    # within 1e-5); an external file that is empty or no image raises
+    # OSError in both decoders, which plans the region unmasked
+    # (ext_radius -1, no plane), as in the reference
+    from chip_smoke import write_mask_png
+
     path = tmp_path / "mask.png"
-    path.write_bytes(b"")
+    if file == "image":
+        write_mask_png(str(path), 40, 50)
+    elif file == "empty":
+        path.write_bytes(b"")
+    elif file == "text":
+        path.write_bytes(b"hello")
     text = "[Local Contrast]\nEnabled=true\nContrast_1=30\n" + keys.format(
         file=path)
-    pp, _ = _pps(text)
-    region = masks.regions_from_extra(pp, "Local Contrast", FIELDS)[0][1]
-    with pytest.raises(NotImplementedError, match=match):
-        masks.plan_mask(region, (32, 32), pp)
+
+    def plans(text):
+        pp, ref = _pps(text)
+        m = masks.regions_from_extra(pp, "Local Contrast", FIELDS)[0][1]
+        rm = rmasks.regions_from_extra(ref, "Local Contrast", FIELDS)[0][1]
+        return (masks.plan_mask(m, (32, 32), pp, "cpu"),
+                rmasks.plan_mask(rm, (32, 32), ref))
+
+    (st, data), (rst, rdata) = plans(text)
+    assert st == rst
+    assert sorted(data) == sorted(rdata)
+    for k in rdata:
+        np.testing.assert_allclose(data[k], rdata[k], rtol=0, atol=1e-5,
+                                   err_msg=k)
+    if file in ("empty", "text"):
+        assert st[11] == -1 and not data
+    else:  # a plane, or the linked mask's own plan
+        assert data or st[12] is not None
     # a missing mask file, or a linked name that resolves to no mask,
     # plans the region unmasked, as in the reference
     text = text.replace(str(path), str(tmp_path / "missing.png")).replace(
         "MaskName_2=sky", "MaskName_2=sea")
-    if match in ("external mask", "linked mask"):
-        pp, ref = _pps(text)
-        m = masks.regions_from_extra(pp, "Local Contrast", FIELDS)[0][1]
-        rm = rmasks.regions_from_extra(ref, "Local Contrast", FIELDS)[0][1]
-        assert masks.plan_mask(m, (32, 32), pp)[0] == \
-            rmasks.plan_mask(rm, (32, 32), ref)[0]
+    if file or "Linked" in keys:
+        (st, data), (rst, _) = plans(text)
+        assert st == rst and not data
 
 
 def test_atrous_matches_reference():

@@ -12,9 +12,12 @@ sensor corrections of C1 and C2 at a small size; a fourth, refusing all
 four, develops the colour profiles and LUTs of P1 (a DCP, temperature
 WB, a matrix/para .icc out), P2 (LUT-class .icc in and out) and P3 (a
 Hald PNG, a CLF, a CTL script and an external generator) with a gamut
-warning; no source file of the package (`parallel/`, the export's and
-the colour profiles' modules among them), nor
-chip_smoke.py, imports any of them or reads a file under art_tpu/; and
+warning; a fifth, refusing all four, develops M1's region masks (area,
+linked, drawn, a 16-bit grey PNG) and M2's auto white balance with a
+histogram listener; no source file of the package (`parallel/`, the
+export's and the colour profiles' modules, `masks/raster.py` and
+`pipeline/scopes.py` among them), nor chip_smoke.py, imports any of them
+or reads a file under art_tpu/; and
 the port's copies of the reference's host modules (profiles, colour-space
 tables, camera constants, output TRCs) hold the reference's values.
 """
@@ -253,6 +256,57 @@ print("PROFILE-STANDALONE-OK")
 '''
 
 
+MASK_SCRIPT = r'''
+import sys
+
+BLOCKED = ("jax", "jaxlib", "art_tpu", "PIL", "cv2")
+
+
+class _Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError("blocked in this process: " + name)
+        return None
+
+
+sys.meta_path.insert(0, _Refuse())
+
+import os
+import tempfile
+import torch
+from art_tpu_torch.pipeline import develop as tdev
+from art_tpu_torch.pipeline.listeners import PipelineListener
+from chip_smoke import flagship_frame, m1_pp, m2_pp, write_mask_png
+
+frame = flagship_frame(96, 160, seed=5)
+with tempfile.TemporaryDirectory() as d:
+    pp = m1_pp(write_mask_png(os.path.join(d, "mask.png"), 40, 60))
+    pp.raw.bayer.method = "bilinear"
+    cfg, data = tdev.plan(frame, pp, device="cpu")
+    ops = [s[0] for s in cfg.steps]
+    for op in ("localcontrast", "smoothing", "colorcorrection",
+               "textureboost"):
+        assert op in ops, ops
+    out = tdev.develop(frame, pp, device="cpu")
+    assert bool(torch.isfinite(out).all())
+    seen = []
+
+    class Wants(PipelineListener):
+        def auto_wb_changed(self, temp, green):
+            seen.append("wb")
+
+        def histogram_changed(self, hist_rgbl):
+            seen.append(int(hist_rgbl["l"].sum()))
+
+    pp = m2_pp()
+    pp.raw.bayer.method = "bilinear"
+    tdev.process_image(frame, pp, listener=Wants(), device="cpu")
+    assert seen == ["wb", 96 * 160], seen
+assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
+print("MASK-STANDALONE-OK")
+'''
+
+
 def test_develops_with_jax_blocked():
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", SCRIPT, REPO], env=env,
@@ -286,6 +340,15 @@ def test_profiles_with_jax_pil_and_cv2_blocked():
                           cwd=REPO)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "PROFILE-STANDALONE-OK" in proc.stdout
+
+
+def test_masks_and_autos_with_jax_pil_and_cv2_blocked():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", MASK_SCRIPT], env=env,
+                          capture_output=True, text=True, timeout=600,
+                          cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "MASK-STANDALONE-OK" in proc.stdout
 
 
 def _port_sources():

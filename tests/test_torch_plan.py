@@ -139,25 +139,26 @@ def _set(pp, path, value):
     # ported since (match None, below): LMMSE plans its iterations as
     # in the reference
     ({"raw.bayer.method": "lmmse"}, None),
-    ({"wb.method": "Auto"}, "white balance"),
-    # the Smoothing op's NLMeans region is ported; an area mask on it
-    # (the reference rasterises it with OpenCV) is not
+    # ported since (match None): auto white balance (grey world)
+    ({"wb.method": "Auto"}, None),
+    # ported since (match None): the Smoothing op's NLMeans region under
+    # an area mask, rasterised as the reference's OpenCV calls do
     ({"extra": {"Smoothing": {"Enabled": "true", "Mode_1": "3",
                               "AreaMaskEnabled_1": "true",
-                              "AreaMask0Type_1": "rectangle"}}},
-     "area mask"),
+                              "AreaMask0Type_1": "rectangle"}}}, None),
     # ported since (match None): a PSF kernel from an image file, which
     # the port's own decoder reads
     ({"sharpening.enabled": True, "sharpening.method": "psf",
       "sharpening.psf_kernel": "{tmp}/psf.png"}, None),
-    # the masks of the region ops that need a rasteriser or a file
+    # ported since (match None): the drawn and external-file masks of the
+    # region ops
     ({"extra": {"ColorCorrection": {
         "Enabled": "true", "Mode_1": "RGB", "DrawnMaskEnabled_1": "true",
-        "DrawnMaskStrokes_1": "1;0.1;1;1;0.5;0.5;"}}}, "drawn mask"),
+        "DrawnMaskStrokes_1": "1;0.1;1;1;0.5;0.5;"}}}, None),
     ({"extra": {"TextureBoost": {
         "Enabled": "true", "Strength_1": "0.5",
         "ExternalMaskEnabled_1": "true",
-        "ExternalMaskFilename_1": "{tmp}/mask.png"}}}, "external mask"),
+        "ExternalMaskFilename_1": "{tmp}/mask.png"}}}, None),
     # ported since (match None): the transform beside the crop, flips
     # and resize, line denoise, the LCP profile, the dark frame, the
     # flat field and the gain map plan as in the reference, from the
@@ -197,7 +198,7 @@ def test_unported_steps_raise_by_name(frame, tmp_path, changes, match):
         with _searches(frame, tmp_path):
             ours = _apply(pp, frame, changes, tmp_path)
             _apply(ref_pp, frame, changes, tmp_path)
-            cfg, data = tdev.plan(ours, pp)
+            cfg, data = tdev.plan(ours, pp, device="cpu")
             assert_plans_equal((cfg, data), jdev.plan(ours, ref_pp))
         assert plan_key(cfg, data) != plan_key(*tdev.plan(frame,
                                                           flagship_pp()))

@@ -16,8 +16,8 @@ JPEGs here; the port imports no PIL).
   the port's float develop, exactly.
 - `cli.main` of both packages with -p and -O: the JPEGs agree as above
   and the .arp copies parse to equal ProcParams.
-- What the slice does not port (auto white balance, a non-raw input, a
-  histogram listener) exits 2, or raises, naming its step; a gamut
+- What the slice does not port (a histogram-matched curve from a JPEG
+  preview, a non-raw input) exits 2, or raises, naming its step; a gamut
   warning against a LUT-class proof profile exits 2 as in the
   reference; --check-lut on a file that is no image answers 1, as the
   reference's. (--devices N over several files runs the
@@ -182,26 +182,34 @@ def test_cli_matches_the_reference(dng, config1_outputs, tmp_path,
 
 
 @pytest.mark.parametrize("args,step", [
-    # the fast export is ported; auto white balance in its profile is
-    # not
-    (["-q", "-p", "{tmp}/auto-wb.arp"], "white balance"),
+    # the fast export is ported; a histogram-matched curve in its profile,
+    # on a file with a JPEG preview, is not (auto white balance, this
+    # case's step before, is ported: the id keeps the case's name)
+    (["-q", "-p", "{tmp}/matched.arp", "-c", "{tmp}/preview.dng"],
+     "histogram-matched tone curve"),
     # the gamut warning is ported; a LUT-class proof profile is refused
     # as in the reference
     (["--gamut-warn", "{tmp}/proof.icc"], "gamut_warning_mask_lab"),
-])
+], ids=["args0-white balance", "args1-gamut_warning_mask_lab"])
 def test_cli_refusals(dng, tmp_path, capsys, args, step):
     from art_tpu_torch import cli
+    from art_tpu_torch.io.dngwrite import write_dng
 
     from chip_smoke import write_lut_icc_out
 
-    (tmp_path / "auto-wb.arp").write_text("[White Balance]\n"
-                                          "Setting=Auto\n")
+    (tmp_path / "matched.arp").write_text("[ToneCurve]\n"
+                                          "HistogramMatching=true\n")
+    write_dng(str(tmp_path / "preview.dng"), np.full((64, 96), 4000,
+                                                     np.uint16),
+              black=512, white=16383,
+              preview_rgb01=np.full((3, 16, 24), 0.5))
     write_lut_icc_out(str(tmp_path / "proof.icc"), grid=3)
     args = [a.replace("{tmp}", str(tmp_path)) for a in args]
+    if "-c" not in args:
+        args += ["-c", str(dng / "c1.dng")]
     out = tmp_path / "out"
     out.mkdir()
-    rc = cli.main(["-Y", "-o", str(out) + os.sep, *args, "-c",
-                   str(dng / "c1.dng")], device="cpu")
+    rc = cli.main(["-Y", "-o", str(out) + os.sep, *args], device="cpu")
     assert rc == 2
     assert step in capsys.readouterr().err
     assert not list(out.glob("*.jpg"))
@@ -261,7 +269,9 @@ def test_flagship_u8_equals_the_cast_of_the_float_develop(tmp_path):
     assert decoded.shape == (256, 1024, 3)
 
 
-def test_process_image_refusals(dng):
+def test_process_image_refusals(dng, tmp_path):
+    from art_tpu_torch.io.dngwrite import write_dng
+    from art_tpu_torch.io.imagefile import write_png
     from art_tpu_torch.pipeline.develop import process_image
     from art_tpu_torch.pipeline.listeners import PipelineListener
 
@@ -269,16 +279,23 @@ def test_process_image_refusals(dng):
         def histogram_changed(self, hist_rgbl):
             pass
 
-    path = str(dng / "c1.dng")
-    # the fast export is ported: with auto white balance, its step is
-    # refused
+    # auto white balance and a histogram listener are ported since
+    # (tests/test_torch_autos_scopes.py); the refusals held here are steps
+    # still unported. The fast export is ported: with a histogram-matched
+    # curve on a file with a JPEG preview, its step is refused; a non-raw
+    # input is refused before any listener is fed
+    preview = str(tmp_path / "preview.dng")
+    write_dng(preview, np.full((64, 96), 4000, np.uint16), black=512,
+              white=16383, preview_rgb01=np.full((3, 16, 24), 0.5))
+    png = str(tmp_path / "in.png")
+    write_png(png, np.full((16, 24, 3), 128, np.uint8))
     fast = config1(ProcParams)
     fast.resize.enabled = True
-    fast.wb.method = "Auto"
-    for pp, kw, step in (
-            (fast, dict(fast=True), "white balance"),
-            (config1(ProcParams), dict(listener=Wants()),
-             "pipeline/scopes.py")):
+    fast.tone_curve.histmatching = True
+    for path, pp, kw, step in (
+            (preview, fast, dict(fast=True), "histogram-matched tone curve"),
+            (png, config1(ProcParams), dict(listener=Wants()),
+             "load_std_image")):
         with pytest.raises(NotImplementedError, match=step):
             process_image(path, pp, device="cpu", **kw)
 

@@ -33,6 +33,7 @@ import torch
 
 from art_tpu_torch.core.image import synthesize_bayer
 from art_tpu_torch.io.dngwrite import write_dng
+from art_tpu_torch.io.imagefile import write_png
 from art_tpu_torch.params import ProcParams
 from art_tpu_torch.parallel import BatchQueue, process_batch
 from art_tpu_torch.parallel import queue as tqueue
@@ -139,17 +140,18 @@ def test_batch_bad_file_and_refused_step_continue(tmp_path, capsys):
     paths = make_dngs(tmp_path, 2)
     bad = tmp_path / "broken.dng"
     bad.write_bytes(b"not a dng")
-    refused = ProcParams()
-    refused.wb.method = "Auto"  # auto white balance is not ported
+    # a non-raw input is not ported (auto white balance, this test's
+    # refused step before, is)
+    refused = tmp_path / "in.png"
+    write_png(str(refused), np.full((16, 24, 3), 128, np.uint8))
     jobs = [(str(paths[0]), ProcParams(), str(tmp_path / "g0.jpg")),
             (str(bad), ProcParams(), str(tmp_path / "g1.jpg")),
-            (str(paths[1]), refused, str(tmp_path / "g2.jpg")),
+            (str(refused), ProcParams(), str(tmp_path / "g2.jpg")),
             (str(paths[1]), ProcParams(), str(tmp_path / "g3.jpg"))]
     assert process_batch(jobs, devices=CPU2) == [True, False, False, True]
     assert not (tmp_path / "g1.jpg").exists()
     assert not (tmp_path / "g2.jpg").exists()
-    assert "white balance method 'Auto' is not ported" in \
-        capsys.readouterr().err
+    assert "load_std_image is not ported" in capsys.readouterr().err
 
 
 def test_device_failure_raises_after_draining(tmp_path, monkeypatch):
