@@ -1,6 +1,7 @@
 """Build the package's host C++ libraries: the raw decoder
-(``io/native/artraw.cc``) and the baseline JPEG encoder
-(``io/native/jpegenc.cc``).
+(``io/native/artraw.cc``), the baseline JPEG encoder
+(``io/native/jpegenc.cc``) and the JPEG decoder
+(``io/native/jpegdec.cc``).
 
 Each source is compiled by g++ with portable flags (no ``-march=native``,
 so a library built on one machine runs on another) into
@@ -43,7 +44,8 @@ def _cxx() -> str:
     cxx = os.environ.get("CXX") or shutil.which("g++")
     if not cxx:
         raise RuntimeError("g++ not found: cannot build the art_tpu_torch "
-                           "host libraries (raw decoder, JPEG encoder)")
+                           "host libraries (raw decoder, JPEG encoder and "
+                           "decoder)")
     return cxx
 
 

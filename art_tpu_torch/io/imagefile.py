@@ -1,6 +1,6 @@
 """Host-side image encode and decode: JPEG, TIFF and PNG out
-(counterpart of ``art_tpu/io/imagefile.py::save_image``), PNG and TIFF
-in, with no PIL and no OpenCV.
+(counterpart of ``art_tpu/io/imagefile.py::save_image``), PNG, TIFF and
+JPEG in, with no PIL and no OpenCV.
 
 The reference's output matrix: JPEG 8-bit through the port's own
 libjpeg-exact encoder (:mod:`art_tpu_torch.io.jpeg`, in place of the
@@ -10,17 +10,19 @@ PNG 8/16-bit through the small zlib writer below (the reference uses PIL
 for 8 bits and OpenCV for 16; the pixels are the same).
 
 `read_rgb8` decodes a PNG (1 to 16 bits; grey, grey and alpha, RGB, RGBA,
-palette; plain or Adam7) or a baseline TIFF (strips or tiles; none,
+palette; plain or Adam7), a baseline TIFF (strips or tiles; none,
 deflate, LZW or PackBits; the horizontal predictor; 1 to 16 bits; grey,
-RGB, RGBA, palette) into what the reference's callers ask PIL for,
+RGB, RGBA, palette) or a JPEG (:mod:`art_tpu_torch.io.jpegdec`: 8-bit
+Huffman-coded baseline, extended or progressive, grey or colour) into
+what the reference's callers ask PIL for,
 ``np.asarray(Image.open(path).convert("RGB"))``, byte for byte: 16-bit
 colour keeps its high byte, 16-bit grey clips at 255 (PIL's I;16), grey
 below 8 bits scales to 0..255, a palette expands through PLTE (entries
 past its end black), alpha and tRNS drop. `read_grey` decodes an
 external mask as PIL opens it: a 16-bit grey PNG or little-endian TIFF
 as its uint16 samples (``I;16``), a TIFF of 32-bit floats as float32
-(``F``), any other image as the green channel of the above (``L``).
-Another image format raises
+(``F``), a one-component JPEG as its samples (``L``), any other image
+as the green channel of the above (``L``). Another image format raises
 NotImplementedError naming it. Developing a non-raw input
 (``load_std_image``) is not ported.
 """
@@ -147,7 +149,7 @@ def write_png(path, hwc, icc_bytes=None, exif_bytes=None, xmp_bytes=None):
 # -- decode ----------------------------------------------------------------
 
 # formats PIL reads that this decoder does not, by their leading bytes
-_OTHER_FORMATS = ((b"\xff\xd8\xff", "JPEG"), (b"GIF8", "GIF"),
+_OTHER_FORMATS = ((b"GIF8", "GIF"),
                   (b"BM", "BMP"), (b"II\x2b\x00", "BigTIFF"),
                   (b"MM\x00\x2b", "BigTIFF"), (b"\x00\x00\x01\x00", "ICO"),
                   (b"8BPS", "PSD"), (b"\x76\x2f\x31\x01", "OpenEXR"),
@@ -155,16 +157,21 @@ _OTHER_FORMATS = ((b"\xff\xd8\xff", "JPEG"), (b"GIF8", "GIF"),
 
 
 def read_rgb8(path):
-    """A PNG or TIFF image as (H, W, 3) uint8, the array PIL's
+    """A PNG, TIFF or JPEG image as (H, W, 3) uint8, the array PIL's
     ``Image.open(path).convert("RGB")`` gives. Another format that PIL
-    reads raises NotImplementedError naming it; bytes that are no image
-    raise OSError, as PIL's UnidentifiedImageError does."""
+    reads, or a JPEG form the port's decoder does not read, raises
+    NotImplementedError naming it; bytes that are no image, and a JPEG
+    whose load fails (a truncated file), raise OSError, as PIL does."""
     with open(path, "rb") as f:
         buf = f.read()
     if buf[:8] == b"\x89PNG\r\n\x1a\n":
         return _png_rgb8(*_read_png(buf))
     if buf[:4] in (b"II\x2a\x00", b"MM\x00\x2a"):
         return _read_tiff(buf)
+    if buf[:3] == b"\xff\xd8\xff":
+        from art_tpu_torch.io import jpegdec
+
+        return jpegdec.decode_rgb(buf)
     _refuse_format(buf, path)
 
 
@@ -189,6 +196,11 @@ def read_grey(path):
         if buf[:4] in (b"II\x2a\x00", b"MM\x00\x2a"):
             img = _read_tiff(buf, grey=True)
             return img if isinstance(img, tuple) else (img[..., 1], "L")
+        if buf[:3] == b"\xff\xd8\xff":
+            from art_tpu_torch.io import jpegdec
+
+            img = jpegdec.decode(buf)
+            return (img if img.ndim == 2 else img[..., 1]), "L"
     except (ValueError, IndexError, struct.error, zlib.error) as e:
         raise OSError(f"broken image file {str(path)!r}: {e}") from e
     _refuse_format(buf, path)
@@ -205,7 +217,7 @@ def _refuse_format(buf, path):
     if name is not None:
         raise NotImplementedError(
             f"{name} image {str(path)!r}: the port's image decoder "
-            "(io/imagefile.py::read_rgb8) reads PNG and TIFF only")
+            "(io/imagefile.py::read_rgb8) reads PNG, TIFF and JPEG only")
     raise OSError(f"cannot identify image file {str(path)!r}")
 
 
@@ -457,6 +469,8 @@ def _read_tiff(buf, grey=False):
     fmt = seq(339) or (1,)
     if w <= 0 or h <= 0:
         raise ValueError("TIFF: no image size")
+    if comp in (6, 7):
+        unported(f"JPEG compression ({comp})")
     if comp not in _TIFF_COMPRESSION:
         unported(f"compression {comp}")
     if int(get(284, 1)) != 1:

@@ -1,6 +1,9 @@
-"""Metadata: EXIF harvest from TIFF/DNG containers and EXIF emission for
-outputs (a copy of ``art_tpu/io/metadata.py``'s ``harvest`` and
-``build_exif_bytes``; the preview decode, which needs PIL, is left out).
+"""Metadata: EXIF harvest from TIFF/DNG containers, the embedded JPEG
+preview's decode, and EXIF emission for outputs (counterparts of
+``art_tpu/io/metadata.py``'s ``harvest``, ``_decode_jpeg_resilient``,
+``embedded_thumb`` and ``build_exif_bytes``; the preview decodes through
+the port's own JPEG decoder, :mod:`art_tpu_torch.io.jpegdec`, as Pillow
+would).
 
 Reference: ART tunnels metadata with exiv2 (rtengine/metadata.cc;
 MetaDataParams modes tunnel/edit/strip, procparams.h:1560). Here a small
@@ -122,6 +125,52 @@ def harvest(path):
             if isinstance(so, int) and isinstance(sl, int):
                 previews.append((so, sl))
     return tags, previews
+
+
+def decode_jpeg_resilient(blob):
+    """A (possibly truncated or marker-damaged) JPEG preview as (H, W, 3)
+    uint8, or None (``_decode_jpeg_resilient``): Pillow's strict load
+    first, then its salvage load under ``LOAD_TRUNCATED_IMAGES``, which
+    keeps the scanlines that decoded. None where both fail. A form Pillow
+    decodes and the port does not raises NotImplementedError."""
+    from art_tpu_torch.io import jpegdec
+
+    for salvage in (False, True):
+        try:
+            return jpegdec.decode_rgb(blob, salvage=salvage)
+        except OSError:
+            pass
+    return None
+
+
+def embedded_thumb(path):
+    """The largest embedded JPEG preview (by pixel count) as (3, H, W)
+    float32 in [0, 1], or None (``embedded_thumb``): the previews of IFD0's
+    JPEGInterchangeFormat and of the reduced-resolution JPEG IFDs that
+    `harvest` lists; a span with no EOI marker reads on up to 32 MiB,
+    as preview tables sometimes under-report their length."""
+    import numpy as np
+
+    try:
+        _, previews = harvest(path)
+    except OSError:
+        return None
+    best = None
+    for off, length in previews:
+        with open(path, "rb") as f:
+            f.seek(off)
+            blob = f.read(length)
+            if blob.startswith(b"\xff\xd8") and b"\xff\xd9" not in blob:
+                blob += f.read(32 * 1024 * 1024)
+        if not blob.startswith(b"\xff\xd8"):
+            continue
+        img = decode_jpeg_resilient(blob)
+        if img is None:
+            continue
+        arr = np.moveaxis(img.astype(np.float32) / 255.0, -1, 0)
+        if best is None or arr.size > best.size:
+            best = arr
+    return best
 
 
 def build_exif_bytes(tags, software="art-tpu 0.1"):

@@ -4,9 +4,10 @@
 Host numpy. Ported: the grey-world white balance, the automatic
 chrominance estimate and the RL sharpening radius, copies of the
 reference's `auto_wb_multipliers`, `auto_chroma_params` and
-`deconv_auto_radius`; and the automatic log encoding, `auto_log_params`,
+`deconv_auto_radius`; the automatic log encoding, `auto_log_params`,
 whose statistics come from a neutral develop of a subsampled frame on
-the device of the develop that asks for it.
+the device of the develop that asks for it; and the histogram-matched
+tone curve's points, `histogram_matching_curve`.
 """
 
 from __future__ import annotations
@@ -366,6 +367,46 @@ def auto_log_params(frame, pp, device):
     if white_ev - black_ev < 0.5:
         white_ev = black_ev + 0.5
     return gain, black_ev, white_ev
+
+
+def histogram_matching_render(frame, device):
+    """The neutral render the matched curve is read against
+    (develop.py:489-492): the frame subsampled 8x through ProcParams()
+    with the fast demosaic, on `device`; (3, h, w) float32 numpy. Unlike
+    the auto log's render, it keeps the default working profile."""
+    from art_tpu_torch.params import ProcParams
+    from art_tpu_torch.pipeline.develop import develop
+
+    neutral = ProcParams()
+    neutral.raw.bayer.method = "fast"
+    out = develop(subsample_frame(frame, 8), neutral, device=device)
+    return out.cpu().numpy()
+
+
+def histogram_matching_curve(source_rgb01, target_rgb01, n_points=9):
+    """The tone curve (sRGB-encoded domain) that maps the neutral render's
+    luminance distribution onto the embedded preview's (histmatching.cc;
+    art_tpu/pipeline/autos.py::histogram_matching_curve): the float32
+    Rec.709 luminance of each, sorted, read at 9 quantiles from 2% to
+    98%; a knot is kept only 0.02 past the last one and below 0.98.
+    Returns DiagonalCurve points [DCT_SPLINE, 0, 0, x1, y1, ..., 1, 1]."""
+    def lum(img):
+        return 0.2126 * img[0] + 0.7152 * img[1] + 0.0722 * img[2]
+
+    s = np.sort(lum(np.asarray(source_rgb01)).ravel())
+    t = np.sort(lum(np.asarray(target_rgb01)).ravel())
+    qs = np.linspace(0.02, 0.98, n_points)
+    xs = np.quantile(s, qs)
+    ys = np.quantile(t, qs)
+    pts = [1.0, 0.0, 0.0]
+    lastx = 0.0
+    for x, y in zip(xs, ys):
+        if x <= lastx + 0.02 or x >= 0.98:
+            continue
+        pts += [float(x), float(np.clip(y, 0, 1))]
+        lastx = x
+    pts += [1.0, 1.0]
+    return pts
 
 
 def subsample_frame(frame, step):

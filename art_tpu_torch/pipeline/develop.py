@@ -365,8 +365,7 @@ def _plan_input_profile(frame, pp, data, ctx, icc_working, wb_mults):
 def _has_jpeg_preview(path) -> bool:
     """Whether the file holds an embedded preview whose bytes start as a
     JPEG's, where the reference's `io/metadata.py::embedded_thumb` would
-    decode one. A file it cannot read or parse has none: the reference's
-    planner skips the matched curve on any failure of that step."""
+    decode one. A file it cannot read or parse has none."""
     from art_tpu_torch.io.metadata import harvest
 
     try:
@@ -381,17 +380,48 @@ def _has_jpeg_preview(path) -> bool:
     return False
 
 
-def _check_autos(frame, pp):
-    """Refuse the autos the reference derives from the embedded JPEG
-    preview, where the file holds one: the histogram-matched tone curve
-    (develop.py:482-503) and auto distortion (develop.py:542-553,
-    lens/autos.py::auto_distortion_for, OpenCV); decoding the preview
-    needs a JPEG decoder."""
+def _hist_match(frame, pp, device):
+    """pp with the histogram-matched tone curve resolved (develop.py:
+    480-503, histmatching.cc:444): where a raw asks for it and its file
+    holds a JPEG preview, the points that map a neutral render of the
+    frame subsampled 8x (on `device`) onto the largest preview become an
+    enabled curve, marked as matched, and go to the listener; on a copy,
+    so the caller's pp keeps asking. The reference skips the step on any
+    failure; the port skips where it would fail: no preview, one that
+    neither of Pillow's loads decodes, a frame too small to render. A
+    preview form Pillow decodes and the port does not raises, and so
+    does a render that fails on the card."""
     tc = pp.tone_curve
-    if (tc.histmatching and not tc.from_histmatching and frame.filename
-            and _has_jpeg_preview(frame.filename)):
-        _unported("histogram-matched tone curve (the embedded JPEG "
-                  "preview's decode, io/metadata.py::embedded_thumb)")
+    if not (frame.is_raw and tc.histmatching and not tc.from_histmatching
+            and frame.filename):
+        return pp
+    from art_tpu_torch.io import metadata
+    from art_tpu_torch.pipeline import autos
+
+    thumb = metadata.embedded_thumb(frame.filename)
+    if thumb is None:
+        return pp
+    h, w = frame.cfa.shape[-2:]
+    if frame.pattern is not None and min(h, w) < 16:
+        return pp
+    small = autos.histogram_matching_render(frame, device)
+    pts = autos.histogram_matching_curve(small, thumb)
+    import copy
+
+    pp = copy.deepcopy(pp)
+    pp.tone_curve.enabled = True
+    pp.tone_curve.curve = pts
+    pp.tone_curve.from_histmatching = True
+    from art_tpu_torch.pipeline.listeners import report_auto
+
+    report_auto("matched_curve", pts)
+    return pp
+
+
+def _check_autos(frame, pp):
+    """Refuse auto distortion (develop.py:542-553,
+    lens/autos.py::auto_distortion_for, OpenCV) where the file holds a
+    JPEG preview to estimate it from."""
     if (pp.distortion.enabled and pp.distortion.auto_compute
             and frame.filename and _has_jpeg_preview(frame.filename)):
         _unported("auto distortion (lens/autos.py::auto_distortion_for)")
@@ -533,9 +563,9 @@ def plan(frame, pp, fast=False, out_u8=False, device="cuda"):
     the raw stage and every later step runs at output scale. out_u8
     plans the reference's device-side 8-bit output: interleaved
     (H, W, 3) uint8 in place of (3, H, W) float planes. device: where the
-    automatic log encoding renders its neutral develop and the region
-    masks blur and resample their planes (the device of the develop that
-    plans). pp itself is not changed.
+    automatic log encoding and the histogram-matched curve render their
+    neutral develops and the region masks blur and resample their planes
+    (the device of the develop that plans). pp itself is not changed.
     Anything else raises NotImplementedError."""
     if not frame.is_raw:
         _unported("non-raw input")
@@ -640,6 +670,7 @@ def plan(frame, pp, fast=False, out_u8=False, device="cuda"):
     dcp_static, icc_input_trc = _plan_input_profile(
         frame, pp, data, ctx, icc_working, wb_mults)
     pp = _auto_log(frame, pp, device)
+    pp = _hist_match(frame, pp, device)
     _check_autos(frame, pp)
 
     # coarse rotation and flips: an odd quarter turn swaps the dims

@@ -817,12 +817,16 @@ def path_pp(label):
     return config3_pp() if label == "config3" else flagship_pp(label)
 
 
+def flagship_scene(h, w, seed=0):
+    """The flagship's scene: (3, h, w) float32 uniform in [0.02, 0.95]."""
+    rng = np.random.default_rng(seed)
+    return rng.uniform(0.02, 0.95, size=(3, h, w)).astype(np.float32)
+
+
 def flagship_frame(h, w, seed=0):
     from art_tpu_torch.core.image import synthesize_bayer
 
-    rng = np.random.default_rng(seed)
-    rgb = rng.uniform(0.02, 0.95, size=(3, h, w)).astype(np.float32)
-    return synthesize_bayer(rgb, pattern="RGGB")
+    return synthesize_bayer(flagship_scene(h, w, seed), pattern="RGGB")
 
 
 def clipped_frame(h, w, seed=0, share=0.02, gain=2.2):
@@ -2260,11 +2264,14 @@ def card_vs_cpu(label, frame, pp):
 
     with demosaic_decisions() as dec:
         g = tdev.develop(frame, pp).cpu()
+        n_card = len(dec["demosaic"])
         c = tdev.develop(frame, pp, device="cpu")
     if dec["motion"]:
         st = flip_parity(g, c, *dec["motion"], RAW_REACH)
     elif dec["demosaic"]:
-        a, b = dec["demosaic"]
+        # each develop's own demosaic is its last one (a neutral render
+        # for an auto, histogram matching's, demosaics before it)
+        a, b = dec["demosaic"][n_card - 1], dec["demosaic"][-1]
         moved = (a.double() - b.double()).abs().amax(0) > 1.0
         st = flip_parity(g, c, moved, torch.zeros_like(moved), RAW_REACH)
     else:
@@ -3364,6 +3371,227 @@ def mask_phase(smi_line, tmp):
     return stats, failures
 
 
+MATCHED_ARP = "Auto-Matched Curve.arp"
+
+
+def matched_pp(pp=None):
+    """The bundled Auto-Matched Curve.arp on pp (either package's):
+    histogram matching, AMaZE, the Neutral curve mode, nothing else."""
+    if pp is None:
+        from art_tpu_torch.params import ProcParams
+
+        pp = ProcParams()
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "art_tpu_torch", "data", "profiles",
+                           MATCHED_ARP)) as f:
+        pp.apply_arp_text(f.read())
+    return pp
+
+
+def preview_look(rgb):
+    """A camera's rendition of a scene for its embedded preview: a
+    tone-mapped, contrasty look (an S-curve over a 0.8 power)."""
+    return np.clip(0.5 - 0.5 * np.cos(np.pi * rgb ** np.float32(0.8)), 0.0,
+                   1.0)
+
+
+def h1_dng(path, h, w, seed=0):
+    """H1's file: the flagship frame of `seed` as an uncompressed DNG
+    (black 512, white 16383) with a full-size JPEG preview of its scene
+    (`preview_look`, quality 90, 4:2:0, as write_dng writes it)."""
+    from art_tpu_torch.core.image import synthesize_bayer
+    from art_tpu_torch.io.dngwrite import write_dng
+
+    rgb = flagship_scene(h, w, seed)
+    frame = synthesize_bayer(rgb, pattern="RGGB")
+    write_dng(path, np.round(frame.cfa).astype(np.uint16), black=512,
+              white=16383, compress=False, preview_rgb01=preview_look(rgb))
+    return path
+
+
+def matched_points(frame, pp, device):
+    """One plan on `device`: the host plan's seconds, the matched points
+    it reported and the shape of the tone curve's fit ((1, K) or (2, K)
+    take B7; more rows are segments, plain math as in the reference)."""
+    from art_tpu_torch.pipeline import develop as tdev
+    from art_tpu_torch.pipeline.listeners import _Collect
+
+    t0 = time.monotonic()
+    with _Collect() as report:
+        _, data = tdev.plan(frame, pp, device=device)
+    fit = tuple(data["op:tonecurve"]["coeffs"].shape) \
+        if "op:tonecurve" in data else None
+    return time.monotonic() - t0, report.get("matched_curve"), fit
+
+
+def jpeg_phase(smi_line, tmp, entries):
+    """The JPEG decoder and histogram matching on the card, counts reset
+    before each path. H1: the bundled Auto-Matched Curve.arp on the
+    flagship frame as a DNG with a full-size 4000x6000 preview (`h1_dng`):
+    the host plan split into the preview's decode, the neutral render
+    (the 1/8 frame on the card), the two sorts and quantiles and the
+    rest; the develop, the device program and its `art:` stages; the
+    matched points; B1-B3 once each and no other (B7 too where the
+    matched curve's LUT fits one split polynomial; a kinked one runs on
+    segments, plain math, as in the reference), each held to its plain
+    version on H1's tensors (kernels-line entries `b*_h1`); a 512x2048
+    file on the card against the CPU, with the matched points of both. H2: the same file through cli.main
+    with the bundled profile to a JPEG, its phases. J1: the decoder alone
+    on the 24 MP preview, a level-8 Hald JPEG (512x512) and a 1000x1500
+    mask as JPEG, then one develop each of P3's Hald path and M1's
+    external-mask path with those JPEGs in place of the PNGs. Returns
+    (the comparisons, the failures)."""
+    from art_tpu_torch.demosaic import amaze_kernel as ak
+    from art_tpu_torch.io import jpeg, jpegdec, metadata
+    from art_tpu_torch.io.rawfile import load_raw
+    from art_tpu_torch.ops import tonecurve_neutral as tn
+    from art_tpu_torch.pipeline import autos
+    from art_tpu_torch.pipeline import develop as tdev
+
+    log(f"---- JPEG phase ({smi_line})")
+    t_phase = time.monotonic()
+    stats, failures = {}, []
+    t0 = time.monotonic()
+    path = h1_dng(os.path.join(tmp, "h1.dng"), *FRAME)
+    small_path = h1_dng(os.path.join(tmp, "h1_small.dng"), *SMALL, seed=5)
+    (off, length), = metadata.harvest(path)[1]
+    log(f"H1 files: a {FRAME[0]}x{FRAME[1]} DNG with a {length / 1e6:.1f} MB "
+        f"full-size preview, and a {SMALL[0]}x{SMALL[1]} one, written in "
+        f"{time.monotonic() - t0:.1f} s")
+    frame = load_raw(path)
+    pp = matched_pp()
+
+    # H1: the first develop with the counts from 0 (the fit of the matched
+    # curve decides whether B7 is on the path: read from one plan)
+    _, _, fit = matched_points(frame, pp, "cuda")
+    # the Neutral curve takes B7 only where its LUT fits one split
+    # polynomial; a matched spline's knots leave segment fits, which run
+    # as plain math (the reference's XLA path, tonecurve_neutral.py:417)
+    want = ("b1", "b2", "b3", "b7") if fit and fit[0] in (1, 2) \
+        else ("b1", "b2", "b3")
+    log(f"H1 tone curve fit {fit}: kernels of the path {want}")
+    launches = drive("H1", pp, frame, want)
+    if launches != {k: int(k in want) for k in launches}:
+        raise RuntimeError(f"H1: launches {launches}, want {want} once")
+    # the warm plan's parts, synchronised around each
+    parts = {"preview decode (host)": (metadata, "embedded_thumb"),
+             "neutral render (card)": (autos, "histogram_matching_render"),
+             "sorts + quantiles (host)": (autos, "histogram_matching_curve")}
+    with timed_calls(parts) as seconds:
+        plan_s, points, _ = matched_points(frame, pp, "cuda")
+    ms = {k: 1e3 * sum(v) for k, v in seconds.items()}
+    rest = 1e3 * plan_s - sum(ms.values())
+    log(f"H1 host plan (warm) {1e3 * plan_s:.1f} ms, of it: " + "; ".join(
+        f"{k} {v:.1f} ms" for k, v in ms.items()) + f"; the rest {rest:.1f} "
+        "ms")
+    if points is None or len(points) < 7:
+        raise RuntimeError(f"H1: no matched curve ({points})")
+    log(f"H1 matched points ({(len(points) - 3) // 2} knots): "
+        + ", ".join(f"{p:.6f}" for p in points))
+    times = []
+    for _ in range(2):
+        t0 = time.monotonic()
+        tdev.develop(frame, pp)
+        torch.cuda.synchronize()
+        times.append(time.monotonic() - t0)
+    log(f"H1 develop (plan + H2D + device + crop): "
+        f"{[round(1e3 * t, 1) for t in times]} ms")
+    program_times("H1", frame, pp, n=3)
+    with contextlib.ExitStack() as stack:
+        calls = {k: stack.enter_context(record_args(mod, name))
+                 for k, (mod, name) in {
+                     "b1": (ak, "amaze_stage1"), "b2": (ak, "amaze_stage2"),
+                     "b3": (ak, "amaze_stage3"),
+                     "b7": (tn, "neutral_tone")}.items()}
+        tdev.develop(frame, pp)
+    from art_tpu_torch.demosaic import amaze
+
+    for key, kern, plain, name, source, replaces in (
+            ("b1", ak.amaze_stage1, amaze.stage1_plain, "AMaZE stage 1",
+             "art_tpu_torch/csrc/amaze.cu",
+             "art_tpu/demosaic/amaze_pallas.py:65"),
+            ("b2", ak.amaze_stage2, amaze.stage2_plain, "AMaZE stage 2",
+             "art_tpu_torch/csrc/amaze.cu",
+             "art_tpu/demosaic/amaze_pallas.py:65"),
+            ("b3", ak.amaze_stage3, amaze.stage3_plain, "AMaZE stage 3",
+             "art_tpu_torch/csrc/amaze.cu",
+             "art_tpu/demosaic/amaze_pallas.py:65"),
+            ("b7", tn.neutral_tone, tn.neutral_plain,
+             "neutral_tone with the matched curve",
+             "art_tpu_torch/csrc/neutral_tone.cu",
+             "art_tpu/ops/tonecurve_neutral.py:384")):
+        if len(calls[key]) != int(key in want):
+            failures.append(f"H1: {key} ran {len(calls[key])} times")
+        if not calls[key]:
+            continue
+        args, kwargs = calls[key][0]
+        entries[f"{key}_h1"] = variant_entry(
+            f"{name} on H1's tensors ({key.upper()})", key, source, replaces,
+            launches[key], lambda: kern(*args, **kwargs),
+            lambda: plain(*args, **kwargs),
+            tuple(a for a in args if isinstance(a, torch.Tensor)))
+    del calls
+    small = load_raw(small_path)
+    _, card_pts, _ = matched_points(small, pp, "cuda")
+    _, cpu_pts, _ = matched_points(small, pp, "cpu")
+    gap = float(np.abs(np.subtract(card_pts, cpu_pts)).max()) \
+        if len(card_pts) == len(cpu_pts) else float("inf")
+    log(f"H1 {SMALL[0]}x{SMALL[1]} matched points, card against CPU: "
+        f"{len(card_pts)} and {len(cpu_pts)} values, max difference {gap:.3g}")
+    if gap > 1e-6:
+        failures.append(f"H1: matched points differ between card and CPU "
+                        f"by {gap}")
+    stats["H1"] = card_vs_cpu("H1", small, pp)
+
+    # H2: the ART-cli user's export with the bundled profile
+    arp = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "art_tpu_torch", "data", "profiles", MATCHED_ARP)
+    out = os.path.join(tmp, "h2.jpg")
+    reset_counts()
+    cli_timed("H2", ["-Y", "-p", arp, "-o", out, "-c", path], runs=1)
+    launches2, plain_calls = read_counts()
+    log(f"H2 launches over the 2 runs {launches2}; plain calls "
+        f"{plain_calls}")
+    if launches2 != {k: 2 * int(k in want) for k in launches2} \
+            or any(plain_calls.values()):
+        raise RuntimeError(f"H2: launches {launches2}, plain {plain_calls}")
+    check_jpeg(out)
+
+    # J1: the decoder alone, then P3's and M1's paths with JPEG files
+    with open(path, "rb") as f:
+        f.seek(off)
+        blob = f.read(length)
+    hald = os.path.join(tmp, "hald8.jpg")
+    with open(hald, "wb") as f:
+        f.write(jpeg.encode(hald_image(8, 8), quality=95, subsampling=3))
+    mask_png = write_mask_png(os.path.join(tmp, "mask.png"))
+    from art_tpu_torch.io.imagefile import read_grey
+
+    grey = (read_grey(mask_png)[0] >> 8).astype(np.uint8)
+    mask = os.path.join(tmp, "mask.jpg")
+    with open(mask, "wb") as f:
+        f.write(jpeg.encode(np.repeat(grey[..., None], 3, 2), quality=92))
+    for label, buf in (("24 MP preview", blob),
+                       ("level-8 Hald (512x512)", open(hald, "rb").read()),
+                       ("1000x1500 mask", open(mask, "rb").read())):
+        ts = []
+        for _ in range(3):
+            t0 = time.monotonic()
+            arr = jpegdec.decode_rgb(buf)
+            ts.append(time.monotonic() - t0)
+        log(f"J1 decode of the {label} ({len(buf) / 1e6:.2f} MB, "
+            f"{arr.shape[1]}x{arr.shape[0]}): median of 3 "
+            f"{1e3 * float(np.median(ts)):.1f} ms "
+            f"{[round(1e3 * t, 1) for t in ts]}")
+    flag = flagship_frame(*FRAME)
+    drive("J1 P3 (Hald JPEG)", profile_pp(p3_arp(hald)), flag,
+          ("b1", "b2", "b3", "b4", "b7"))
+    drive("J1 M1 (mask JPEG)", m1_pp(mask), flag,
+          ("b1", "b2", "b3", "b4", "b6", "b7"))
+    log(f"JPEG phase: {time.monotonic() - t_phase:.1f} s")
+    return stats, failures
+
+
 def _leaves(d):
     for k, v in d.items():
         if isinstance(v, dict):
@@ -3402,11 +3630,12 @@ def main():
 
     from art_tpu_torch import hostbuild
 
-    # the host libraries (raw decoder, JPEG encoder; g++) build beside
+    # the host libraries (raw decoder, JPEG encoder and decoder; g++)
+    # build beside
     # the CUDA kernels (nvcc), all compilers at once
     t0 = time.monotonic()
     with ThreadPoolExecutor(1) as pool:
-        host = pool.submit(hostbuild.build, "artraw", "jpegenc")
+        host = pool.submit(hostbuild.build, "artraw", "jpegenc", "jpegdec")
         kernels.library()
         host_libs = host.result()
     log(f"build: {time.monotonic() - t0:.2f} s "
@@ -3647,6 +3876,14 @@ def main():
         mask_stats, mask_failures = mask_phase(smi_line, tmp)
     new_stats.update(mask_stats)
     failures += mask_failures
+
+    # ---- the JPEG decoder and histogram matching: H1 (the bundled
+    # Auto-Matched Curve.arp on a DNG with a full-size preview), H2 (the
+    # same through cli.main), J1 (the decoder alone, JPEG Hald and mask)
+    with tempfile.TemporaryDirectory() as tmp:
+        jpeg_stats, jpeg_failures = jpeg_phase(smi_line, tmp, entries)
+    new_stats.update(jpeg_stats)
+    failures += jpeg_failures
 
     failures += [f"B6 on {k} disagrees with its plain version"
                  for k, ok in b6_edges.items() if not ok]

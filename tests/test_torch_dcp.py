@@ -22,8 +22,8 @@ against `art_tpu` on the CPU.
   agrees with the reference's develop within the slice bounds (max <= 1
   LSB8, mean <= 2e-4, >= 99.9% within 1 LSB8); the early look plans as
   the reference's.
-- `Custom`/`CustomTemp` WB plans as the reference's; a histogram-matched
-  curve on a file with a JPEG preview stays refused by name.
+- `Custom`/`CustomTemp` WB plans as the reference's; so does a
+  histogram-matched curve on a file with a JPEG preview.
 """
 
 import dataclasses
@@ -298,18 +298,34 @@ def test_temperature_wb_plans_as_the_reference(method):
 
 
 def test_auto_wb_stays_refused(tmp_path):
-    # auto white balance is ported since (tests/test_torch_autos_scopes.py);
-    # the refusal held here is a step still unported: a histogram-matched
-    # tone curve on a file with an embedded JPEG preview, whose decode the
-    # port lacks
+    # auto white balance is ported since (tests/test_torch_autos_scopes.py),
+    # and so is the step this test held refused after it: a
+    # histogram-matched tone curve on a file with an embedded JPEG preview
+    # matches the reference's points (within 1e-6: the two neutral renders
+    # differ in float32 rounding), and with those points plans the
+    # reference's plan
+    from art_tpu.io.rawfile import load_raw as ref_load_raw
     from art_tpu_torch.io.dngwrite import write_dng
+    from art_tpu_torch.io.rawfile import load_raw
+    from art_tpu_torch.pipeline.listeners import _Collect
 
     frame = flagship_frame(32, 48)
     path = str(tmp_path / "preview.dng")
     write_dng(path, np.round(frame.cfa).astype(np.uint16), black=512,
               white=16383, preview_rgb01=np.full((3, 16, 24), 0.5))
-    frame = dataclasses.replace(frame, filename=path)
-    pp = profile_pp("[ToneCurve]\nHistogramMatching=true\n")
-    with pytest.raises(NotImplementedError,
-                       match="histogram-matched tone curve .* is not ported"):
-        tdev.plan(frame, pp, device="cpu")
+    arp = "[ToneCurve]\nHistogramMatching=true\n"
+    pp, ref_pp = profile_pp(arp), profile_pp(arp, RefProcParams())
+    with _Collect() as report:
+        tdev.plan(load_raw(path), pp, device="cpu")
+    ref_plan = jdev.plan(ref_load_raw(path), ref_pp)
+    assert ref_pp.tone_curve.from_histmatching
+    assert not pp.tone_curve.from_histmatching
+    points = report["matched_curve"]
+    assert len(points) == len(ref_pp.tone_curve.curve)
+    assert np.abs(np.subtract(points, ref_pp.tone_curve.curve)).max() \
+        <= 1e-6
+    pp.tone_curve.enabled = True
+    pp.tone_curve.curve = list(ref_pp.tone_curve.curve)
+    pp.tone_curve.from_histmatching = True
+    assert_plans_equal(tdev.plan(load_raw(path), pp, device="cpu"),
+                       ref_plan)

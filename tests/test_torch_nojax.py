@@ -14,10 +14,14 @@ WB, a matrix/para .icc out), P2 (LUT-class .icc in and out) and P3 (a
 Hald PNG, a CLF, a CTL script and an external generator) with a gamut
 warning; a fifth, refusing all four, develops M1's region masks (area,
 linked, drawn, a 16-bit grey PNG) and M2's auto white balance with a
-histogram listener; no source file of the package (`parallel/`, the
-export's and the colour profiles' modules, `masks/raster.py` and
-`pipeline/scopes.py` among them), nor chip_smoke.py, imports any of them
-or reads a file under art_tpu/; and
+histogram listener; a sixth, refusing all four, decodes an embedded
+preview (whole and through the salvage pass), plans the bundled
+Auto-Matched Curve.arp on a DNG with a preview, and loads a Hald CLUT and
+a grey mask written as JPEG; no source file of the package (`parallel/`,
+the export's and the colour profiles' modules, `masks/raster.py`,
+`pipeline/scopes.py`, `io/jpegdec.py` and `io/native/jpegdec.cc` among
+them), nor chip_smoke.py, imports any of them or reads a file under
+art_tpu/; and
 the port's copies of the reference's host modules (profiles, colour-space
 tables, camera constants, output TRCs) hold the reference's values.
 """
@@ -307,6 +311,69 @@ print("MASK-STANDALONE-OK")
 '''
 
 
+JPEG_SCRIPT = r"""
+import sys
+
+BLOCKED = ("jax", "jaxlib", "art_tpu", "PIL", "cv2")
+
+
+class _Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError("blocked in this process: " + name)
+        return None
+
+
+sys.meta_path.insert(0, _Refuse())
+
+import os
+import tempfile
+import numpy as np
+from art_tpu_torch.color.lut3d import load_hald_clut
+from art_tpu_torch.io import jpeg
+from art_tpu_torch.io.dngwrite import write_dng
+from art_tpu_torch.io.imagefile import read_grey
+from art_tpu_torch.io.metadata import decode_jpeg_resilient, embedded_thumb
+from art_tpu_torch.io.rawfile import load_raw
+from art_tpu_torch.params import ProcParams
+from art_tpu_torch.pipeline import develop as tdev
+from art_tpu_torch.pipeline.listeners import _Collect
+from chip_smoke import flagship_frame, hald_image
+
+frame = flagship_frame(64, 96, seed=2)
+look = np.clip(0.5 - 0.5 * np.cos(np.pi * np.linspace(0, 1, 96)), 0, 1)
+with tempfile.TemporaryDirectory() as d:
+    path = os.path.join(d, "p.dng")
+    write_dng(path, np.round(frame.cfa).astype(np.uint16), black=512,
+              white=16383, preview_rgb01=np.broadcast_to(look, (3, 64, 96)))
+    thumb = embedded_thumb(path)
+    assert thumb.shape == (3, 64, 96) and thumb.dtype == np.float32
+    blob = jpeg.encode(np.random.default_rng(0).integers(
+        0, 256, (64, 96, 3)).astype(np.uint8), 90, 1)
+    cut = blob[: blob.index(b"\xff\xda") + 400]
+    assert decode_jpeg_resilient(cut).shape == (64, 96, 3)
+    assert decode_jpeg_resilient(b"\xff\xd8\xff\xe0junk") is None
+    pp = ProcParams()
+    pp.apply_arp_text(open(os.path.join(
+        "art_tpu_torch", "data", "profiles", "Auto-Matched Curve.arp")).read())
+    with _Collect() as report:
+        cfg, _ = tdev.plan(load_raw(path), pp, device="cpu")
+    assert [s[0] for s in cfg.steps] == ["tonecurve"], cfg.steps
+    assert len(report["matched_curve"]) > 6
+    hald = os.path.join(d, "hald.jpg")
+    with open(hald, "wb") as f:
+        f.write(jpeg.encode(hald_image(4, 8), 95, 3))
+    assert load_hald_clut(hald).shape == (16, 16, 16, 3)
+    mask = os.path.join(d, "mask.jpg")
+    with open(mask, "wb") as f:
+        f.write(jpeg.encode(hald_image(2, 8), 90, 1))
+    plane, mode = read_grey(mask)
+    assert mode == "L" and plane.shape == (8, 8)
+assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
+print("JPEG-STANDALONE-OK")
+"""
+
+
 def test_develops_with_jax_blocked():
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", SCRIPT, REPO], env=env,
@@ -351,6 +418,15 @@ def test_masks_and_autos_with_jax_pil_and_cv2_blocked():
     assert "MASK-STANDALONE-OK" in proc.stdout
 
 
+def test_jpeg_paths_with_jax_pil_and_cv2_blocked():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", JPEG_SCRIPT], env=env,
+                          capture_output=True, text=True, timeout=600,
+                          cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "JPEG-STANDALONE-OK" in proc.stdout
+
+
 def _port_sources():
     root = os.path.join(REPO, "art_tpu_torch")
     for dirpath, _, files in os.walk(root):
@@ -387,7 +463,8 @@ def test_no_source_file_imports_jax():
                  "color/iccfile.py", "color/icclut.py", "color/clf.py",
                  "color/ctl.py", "color/extclut.py",
                  "color/gamutwarning.py", "ops/dcplook.py",
-                 "io/imagefile.py"):
+                 "io/imagefile.py", "io/jpegdec.py", "io/metadata.py",
+                 "io/native/jpegdec.cc"):
         assert os.path.join("art_tpu_torch", name) in scanned
     offenders = []
     for path in _port_sources():

@@ -16,8 +16,11 @@ JPEGs here; the port imports no PIL).
   the port's float develop, exactly.
 - `cli.main` of both packages with -p and -O: the JPEGs agree as above
   and the .arp copies parse to equal ProcParams.
-- What the slice does not port (a histogram-matched curve from a JPEG
-  preview, a non-raw input) exits 2, or raises, naming its step; a gamut
+- The bundled Auto-Matched Curve.arp through `cli.main` of both
+  packages on a DNG with a JPEG preview: the decoded JPEGs agree to the
+  slice bounds.
+- What the slice does not port (auto distortion from a JPEG preview, a
+  non-raw input) exits 2, or raises, naming its step; a gamut
   warning against a LUT-class proof profile exits 2 as in the
   reference; --check-lut on a file that is no image answers 1, as the
   reference's. (--devices N over several files runs the
@@ -181,12 +184,55 @@ def test_cli_matches_the_reference(dng, config1_outputs, tmp_path,
     assert parsed[0]["raw"]["bayer"]["method"] == "bilinear"
 
 
+def test_cli_auto_matched_curve_matches_the_reference(tmp_path,
+                                                     monkeypatch):
+    # the bundled profile on a DNG with a JPEG preview: the curve matched
+    # to the preview, the export as the reference's
+    from art_tpu import cli as ref_cli
+    from art_tpu.core import compilecache
+    from art_tpu.pipeline.develop import process_image as ref_process
+    from art_tpu_torch import cli
+    from art_tpu_torch.io.dngwrite import write_dng
+    from art_tpu_torch.pipeline.develop import process_image
+
+    monkeypatch.setattr(compilecache, "enable", lambda *a, **k: True)
+    rng = np.random.default_rng(2)
+    path = str(tmp_path / "preview.dng")
+    write_dng(path, (rng.uniform(0.05, 0.9, (64, 96)) * 16000
+                     + 500).astype(np.uint16), black=500, white=16500,
+              preview_rgb01=rng.uniform(0, 1, (3, 16, 24)) ** 2)
+    arp = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "art_tpu_torch", "data", "profiles",
+        "Auto-Matched Curve.arp")
+    u8 = {}
+    for name, run, cls in (
+            ("ours", lambda pp, o: process_image(path, pp, output_path=o,
+                                                 device="cpu"), ProcParams),
+            ("ref", lambda pp, o: ref_process(path, pp, output_path=o),
+             RefProcParams)):
+        pp = cls()
+        pp.apply_arp_text(open(arp).read())
+        u8[name] = run(pp, str(tmp_path / f"{name}-pi.jpg"))
+    outs = {}
+    for name, main in (("ours", lambda a: cli.main(a, device="cpu")),
+                       ("ref", ref_cli.main)):
+        outs[name] = tmp_path / f"{name}.jpg"
+        assert main(["-Y", "-p", arp, "-O",
+                     str(outs[name]), "-c", path]) == 0
+        assert outs[name].read_bytes() == (
+            tmp_path / f"{name}-pi.jpg").read_bytes()
+    d = np.abs(u8["ours"].astype(int) - u8["ref"].astype(int))
+    assert d.max() <= 1 and (d == 0).mean() >= 0.999
+    check_jpegs(tmp_path, outs["ours"], outs["ref"], u8["ours"], u8["ref"])
+
+
 @pytest.mark.parametrize("args,step", [
-    # the fast export is ported; a histogram-matched curve in its profile,
-    # on a file with a JPEG preview, is not (auto white balance, this
-    # case's step before, is ported: the id keeps the case's name)
-    (["-q", "-p", "{tmp}/matched.arp", "-c", "{tmp}/preview.dng"],
-     "histogram-matched tone curve"),
+    # the fast export is ported, and so are the steps this case refused
+    # before (auto white balance, then a histogram-matched curve from a
+    # JPEG preview: the id keeps the case's name); auto distortion in its
+    # profile, on a file with a JPEG preview, is not
+    (["-q", "-p", "{tmp}/autodist.arp", "-c", "{tmp}/preview.dng"],
+     "auto distortion"),
     # the gamut warning is ported; a LUT-class proof profile is refused
     # as in the reference
     (["--gamut-warn", "{tmp}/proof.icc"], "gamut_warning_mask_lab"),
@@ -197,8 +243,8 @@ def test_cli_refusals(dng, tmp_path, capsys, args, step):
 
     from chip_smoke import write_lut_icc_out
 
-    (tmp_path / "matched.arp").write_text("[ToneCurve]\n"
-                                          "HistogramMatching=true\n")
+    (tmp_path / "autodist.arp").write_text("[Distortion]\nEnabled=true\n"
+                                           "Auto=true\n")
     write_dng(str(tmp_path / "preview.dng"), np.full((64, 96), 4000,
                                                      np.uint16),
               black=512, white=16383,
@@ -280,10 +326,11 @@ def test_process_image_refusals(dng, tmp_path):
             pass
 
     # auto white balance and a histogram listener are ported since
-    # (tests/test_torch_autos_scopes.py); the refusals held here are steps
-    # still unported. The fast export is ported: with a histogram-matched
-    # curve on a file with a JPEG preview, its step is refused; a non-raw
-    # input is refused before any listener is fed
+    # (tests/test_torch_autos_scopes.py), and so is a histogram-matched
+    # curve from a JPEG preview (tests/test_torch_jpegdec.py); the
+    # refusals held here are steps still unported. The fast export is
+    # ported: with auto distortion on a file with a JPEG preview, its step
+    # is refused; a non-raw input is refused before any listener is fed
     preview = str(tmp_path / "preview.dng")
     write_dng(preview, np.full((64, 96), 4000, np.uint16), black=512,
               white=16383, preview_rgb01=np.full((3, 16, 24), 0.5))
@@ -291,9 +338,9 @@ def test_process_image_refusals(dng, tmp_path):
     write_png(png, np.full((16, 24, 3), 128, np.uint8))
     fast = config1(ProcParams)
     fast.resize.enabled = True
-    fast.tone_curve.histmatching = True
+    fast.apply_arp_text("[Distortion]\nEnabled=true\nAuto=true\n")
     for path, pp, kw, step in (
-            (preview, fast, dict(fast=True), "histogram-matched tone curve"),
+            (preview, fast, dict(fast=True), "auto distortion"),
             (png, config1(ProcParams), dict(listener=Wants()),
              "load_std_image")):
         with pytest.raises(NotImplementedError, match=step):

@@ -1,5 +1,5 @@
 """The bundled profiles through art_tpu_torch against `art_tpu` on the
-CPU, and the two narrowed refusals:
+CPU, histogram matching and `--check-lut`:
 
 - each bundled `.arp` (Punchy with saturation and the Neutral curve,
   Auto-Matched Curve, Neutral, Standard Film Curve) plans the
@@ -9,12 +9,12 @@ CPU, and the two narrowed refusals:
 - histogram matching: the reference derives a curve only from an
   embedded JPEG preview (develop.py:482-503), so Auto-Matched Curve on
   a DNG without one develops with the tone curve untouched, and one
-  written with a preview is refused naming the step (the preview's
-  decode needs a JPEG decoder);
+  written with a preview derives the reference's curve and develops
+  within the same bounds;
 - `--check-lut` answers as the reference's for .cube files (0 if the
   LUT loads, 1 with "Invalid LUT file" if not, as for a missing file)
-  and for a Hald CLUT PNG (the port's own decoder), and exits 2 naming
-  the format for an image the decoder does not read (a JPEG).
+  and for a Hald CLUT PNG and JPEG (the port's own decoders), and exits
+  2 naming the format for an image the decoder does not read (a GIF).
 """
 
 import importlib
@@ -86,14 +86,23 @@ def test_bundled_profile_develops_as_the_reference(dngs, arp):
 
 
 def test_auto_matched_curve_with_a_jpeg_preview_is_refused(dngs):
-    pp, _ = _pps("Auto-Matched Curve.arp")
+    # ported since: with a JPEG preview the bundled profile derives the
+    # reference's curve from it (points within 1e-6) and develops within
+    # the bounds; a curve already matched is the user's curve
+    path = str(dngs / "preview.dng")
+    pp, ref_pp = _pps("Auto-Matched Curve.arp")
     assert pp.tone_curve.histmatching
-    with pytest.raises(NotImplementedError,
-                       match="histogram-matched tone curve.*embedded_thumb"):
-        tdev.plan(load_raw(str(dngs / "preview.dng")), pp)
-    # a curve already matched is the user's curve: no derivation
+    cfg, _ = tdev.plan(load_raw(path), pp, device="cpu")
+    assert [s[0] for s in cfg.steps] == ["tonecurve"]
+    out = tdev.develop(load_raw(path), pp, device="cpu")
+    ref = np.asarray(jdev.develop(ref_load_raw(path), ref_pp))
+    assert ref_pp.tone_curve.from_histmatching
+    st = parity(out, ref)
+    print("Auto-Matched Curve with a preview, port vs art_tpu", st)
+    assert st["max_lsb8"] <= 1.0 and st["mean"] <= 2e-4, st
     pp.tone_curve.from_histmatching = True
-    tdev.plan(load_raw(str(dngs / "preview.dng")), pp)
+    assert [s[0] for s in tdev.plan(load_raw(path), pp, device="cpu")[
+        0].steps] == []
 
 
 def _check_lut(main, path, capsys):
@@ -123,8 +132,9 @@ def test_check_lut_answers_as_the_reference(tmp_path, capsys, case):
 
 
 def test_check_lut_refuses_a_hald_image(tmp_path, capsys):
-    # ported since: a Hald PNG loads (0) as in the reference; an image
-    # format the port's decoder does not read exits 2 naming it
+    # ported since: a Hald PNG and a Hald JPEG load (0) as in the
+    # reference; an image format the port's decoder does not read (a GIF)
+    # exits 2 naming it
     from PIL import Image
 
     from art_tpu import cli as ref_cli
@@ -133,12 +143,15 @@ def test_check_lut_refuses_a_hald_image(tmp_path, capsys):
 
     path = tmp_path / "hald.png"
     write_hald(str(path), level=2, bits=8)
-    rc, text = _check_lut(cli.main, path, capsys)
-    ref_rc, ref_text = _check_lut(ref_cli.main, path, capsys)
-    assert rc == ref_rc == 0 and text == ref_text
     jpeg = tmp_path / "hald.jpg"
     Image.fromarray(hald_image(2, 8)).save(jpeg)
-    rc, text = _check_lut(cli.main, jpeg, capsys)
+    for lut in (path, jpeg):
+        rc, text = _check_lut(cli.main, lut, capsys)
+        ref_rc, ref_text = _check_lut(ref_cli.main, lut, capsys)
+        assert rc == ref_rc == 0 and text == ref_text
+    gif = tmp_path / "hald.gif"
+    Image.fromarray(hald_image(2, 8)).save(gif)
+    rc, text = _check_lut(cli.main, gif, capsys)
     assert rc == 2
-    assert "JPEG image" in text and "reads PNG and TIFF" in text
+    assert "GIF image" in text and "reads PNG, TIFF and JPEG" in text
     assert "Invalid LUT file" not in text

@@ -99,10 +99,10 @@ def test_psf_loader(tmp_path, scale, content):
 
 
 def test_psf_image_file_is_refused_only_where_it_exists(tmp_path):
-    # ported since: an image kernel decodes as in the reference (its green
-    # channel, at both scales); a file that is no image is skipped as the
-    # reference skips it; an image format the port's decoder does not
-    # read is refused naming it
+    # ported since: an image kernel (PNG or JPEG) decodes as in the
+    # reference (its green channel, at both scales); a file that is no
+    # image is skipped as the reference skips it; an image format the
+    # port's decoder does not read (a GIF) is refused naming it
     from PIL import Image
 
     from art_tpu_torch.io.imagefile import write_png
@@ -118,9 +118,16 @@ def test_psf_image_file_is_refused_only_where_it_exists(tmp_path):
         got = tsh.load_psf_kernel(str(tmp_path / "k.png"), scale)
         want = jsh.load_psf_kernel(str(tmp_path / "k.png"), scale)
         np.testing.assert_array_equal(got, want)
+    # a JPEG PSF loads through the port's JPEG decoder as PIL loads it
     Image.fromarray(img).save(tmp_path / "k.jpg")
-    with pytest.raises(NotImplementedError, match="JPEG image"):
-        tsh.load_psf_kernel(str(tmp_path / "k.jpg"))
+    for scale in (1.0, 2.0):
+        got = tsh.load_psf_kernel(str(tmp_path / "k.jpg"), scale)
+        want = jsh.load_psf_kernel(str(tmp_path / "k.jpg"), scale)
+        assert got is not None
+        np.testing.assert_array_equal(got, want)
+    Image.fromarray(img).save(tmp_path / "k.gif")
+    with pytest.raises(NotImplementedError, match="GIF image"):
+        tsh.load_psf_kernel(str(tmp_path / "k.gif"))
 
 
 def test_auto_radius_matches_reference():
