@@ -324,6 +324,9 @@ def main(argv=None, device="cuda"):
         print("error: no input files (-c)", file=sys.stderr)
         return 2
 
+    import art_tpu_torch
+
+    art_tpu_torch.init()
     # Options tier (rtgui/options.cc KeyFile): CLI flags win; the app
     # options fill defaults the way main-cli.cc's globals do
     from art_tpu_torch.options import load_options

@@ -1,5 +1,6 @@
-"""Minimal DNG writer (a copy of ``art_tpu/io/dngwrite.py``; host, pure
-Python): uncompressed or LJ92 strips. The optional JPEG preview goes
+"""Minimal DNG writer (a copy of ``art_tpu/io/dngwrite.py``; host, numpy):
+uncompressed or LJ92 strips, the LJ92 scan packed in numpy
+(`_pack_scan`) to the reference's bytes. The optional JPEG preview goes
 through the port's own encoder (:mod:`art_tpu_torch.io.jpeg`).
 
 Exists for two reasons: (a) a test oracle for the native decoder — encode a
@@ -70,38 +71,38 @@ def _huffman_table(hist):
     return codes, bits, huffval
 
 
-class _BitWriter:
-    def __init__(self):
-        self.out = bytearray()
-        self.acc = 0
-        self.n = 0
-
-    def put(self, value, nbits):
-        if nbits == 0:
-            return
-        self.acc = (self.acc << nbits) | (value & ((1 << nbits) - 1))
-        self.n += nbits
-        while self.n >= 8:
-            b = (self.acc >> (self.n - 8)) & 0xFF
-            self.out.append(b)
-            if b == 0xFF:
-                self.out.append(0x00)
-            self.n -= 8
-        self.acc &= (1 << self.n) - 1
-
-    def flush(self):
-        if self.n:
-            b = (self.acc << (8 - self.n)) & 0xFF
-            b |= (1 << (8 - self.n)) - 1  # pad with 1s per JPEG
-            self.out.append(b)
-            if b == 0xFF:
-                self.out.append(0x00)
-            self.n = 0
-        return bytes(self.out)
-
-
-def _category(v):
-    return 0 if v == 0 else int(v).bit_length()
+def _pack_scan(diffs, cats, codes):
+    """The entropy-coded scan as the reference's bit writer
+    (``art_tpu/io/dngwrite.py::_BitWriter``) writes it symbol by symbol
+    (each sample's Huffman code, then its c low bits of the difference,
+    none for category 16; 0xFF bytes stuffed; the last byte padded with
+    1s), in numpy: each sample's codeword of up to 32 bits placed at its
+    bit offset in a stream of big-endian 32-bit words (disjoint bits, so
+    the words are sums)."""
+    lens = np.array([codes.get(c, (0, 0))[0] for c in range(17)], np.int64)
+    vals = np.array([codes.get(c, (0, 0))[1] for c in range(17)], np.int64)
+    extra = np.where(cats == 16, 0, cats)
+    low = np.where(diffs >= 0, diffs, diffs + (1 << extra) - 1) \
+        & ((1 << extra) - 1)
+    word = ((vals[cats] << extra) | low).astype(np.uint64)
+    n = lens[cats] + extra
+    end = np.cumsum(n)
+    total = int(end[-1]) if len(end) else 0
+    off = end - n
+    j = off >> 5
+    shift = (64 - n - (off & 31)).astype(np.uint64)
+    v = np.where(n > 0, word << np.minimum(shift, np.uint64(63)), 0)
+    nwords = (total + 31) // 32 + 1
+    acc = (np.bincount(j, weights=(v >> np.uint64(32)).astype(np.float64),
+                       minlength=nwords)
+           + np.bincount(j + 1, weights=(v & np.uint64(0xFFFFFFFF)).astype(
+               np.float64), minlength=nwords + 1)[:nwords])
+    data = np.frombuffer(acc.astype(np.uint64).astype(">u4").tobytes(),
+                         np.uint8)[: (total + 7) // 8].copy()
+    if total % 8:
+        data[-1] |= (1 << (8 - total % 8)) - 1
+    ff = np.flatnonzero(data == 0xFF)
+    return np.insert(data, ff + 1, 0).tobytes()
 
 
 def lj92_encode(img: np.ndarray, precision=16, predictor=1) -> bytes:
@@ -134,19 +135,7 @@ def lj92_encode(img: np.ndarray, precision=16, predictor=1) -> bytes:
     hist = np.bincount(cats.ravel(), minlength=17)
     codes, bits, huffval = _huffman_table(hist.tolist())
 
-    bw = _BitWriter()
-    for row in range(h):
-        for col in range(w):
-            d = int(diffs[row, col])
-            c = int(cats[row, col])
-            l, code = codes[c]
-            bw.put(code, l)
-            if c == 16:
-                continue
-            if c:
-                v = d if d >= 0 else d + (1 << c) - 1
-                bw.put(v, c)
-    scan = bw.flush()
+    scan = _pack_scan(diffs.ravel(), cats.ravel(), codes)
 
     def seg(marker, payload):
         return struct.pack(">BBH", 0xFF, marker, len(payload) + 2) + payload

@@ -10,9 +10,10 @@ PNG 8/16-bit through the small zlib writer below (the reference uses PIL
 for 8 bits and OpenCV for 16; the pixels are the same).
 
 `read_rgb8` decodes a PNG (1 to 16 bits; grey, grey and alpha, RGB, RGBA,
-palette; plain or Adam7), a baseline TIFF (strips or tiles; none,
-deflate, LZW or PackBits; the horizontal predictor; 1 to 16 bits; grey,
-RGB, RGBA, palette) or a JPEG (:mod:`art_tpu_torch.io.jpegdec`: 8-bit
+palette; plain or Adam7), a TIFF (strips or tiles; none, deflate, LZW,
+PackBits or JPEG; the horizontal predictor; 1 to 16 bits, and one
+sample of 32-bit integers or floats; grey, RGB, RGBA, palette, YCbCr
+under JPEG) or a JPEG (:mod:`art_tpu_torch.io.jpegdec`: 8-bit
 Huffman-coded baseline, extended or progressive, grey or colour) into
 what the reference's callers ask PIL for,
 ``np.asarray(Image.open(path).convert("RGB"))``, byte for byte: 16-bit
@@ -22,9 +23,11 @@ past its end black), alpha and tRNS drop. `read_grey` decodes an
 external mask as PIL opens it: a 16-bit grey PNG or little-endian TIFF
 as its uint16 samples (``I;16``), a TIFF of 32-bit floats as float32
 (``F``), a one-component JPEG as its samples (``L``), any other image
-as the green channel of the above (``L``). Another image format raises
-NotImplementedError naming it. Developing a non-raw input
-(``load_std_image``) is not ported.
+as the green channel of the above (``L``). `read_image` gives an image
+as ``Image.open`` opens it, in Pillow's mode, with its embedded ICC
+profile; `load_std_image` turns it into the RawFrame of a non-raw input
+as the reference does. Another image format raises NotImplementedError
+naming it.
 """
 
 from __future__ import annotations
@@ -159,20 +162,13 @@ _OTHER_FORMATS = ((b"GIF8", "GIF"),
 def read_rgb8(path):
     """A PNG, TIFF or JPEG image as (H, W, 3) uint8, the array PIL's
     ``Image.open(path).convert("RGB")`` gives. Another format that PIL
-    reads, or a JPEG form the port's decoder does not read, raises
-    NotImplementedError naming it; bytes that are no image, and a JPEG
-    whose load fails (a truncated file), raise OSError, as PIL does."""
+    reads, or a form the port's decoder does not read, raises
+    NotImplementedError naming it; bytes that are no image, and an image
+    whose decode fails (a truncated file), raise OSError, as PIL does."""
     with open(path, "rb") as f:
         buf = f.read()
-    if buf[:8] == b"\x89PNG\r\n\x1a\n":
-        return _png_rgb8(*_read_png(buf))
-    if buf[:4] in (b"II\x2a\x00", b"MM\x00\x2a"):
-        return _read_tiff(buf)
-    if buf[:3] == b"\xff\xd8\xff":
-        from art_tpu_torch.io import jpegdec
-
-        return jpegdec.decode_rgb(buf)
-    _refuse_format(buf, path)
+    mode, samples, _ = _decode(buf, path)
+    return to_rgb8(mode, samples)
 
 
 def read_grey(path):
@@ -186,22 +182,130 @@ def read_grey(path):
     format that PIL reads raises NotImplementedError naming it."""
     with open(path, "rb") as f:
         buf = f.read()
+    mode, samples, _ = _decode(buf, path)
+    if mode in ("I;16", "F"):
+        return samples, mode
+    return to_rgb8(mode, samples)[..., 1], "L"
+
+
+def read_image(path):
+    """An image as ``Image.open(path)`` opens it: (mode, samples, icc).
+    mode is "RGB" for every 8-bit form (samples: its ``convert("RGB")``,
+    (H, W, 3) uint8), or Pillow's mode of one 16- or 32-bit sample:
+    "I;16" (a 16-bit grey PNG, a little-endian 16-bit grey TIFF) and
+    "I;16B" (a big-endian one), uint16; "I" (a TIFF of 32-bit or signed
+    16-bit integers), int32; "F" (32-bit floats), float32. icc is the
+    embedded ICC profile as Pillow's ``info["icc_profile"]`` gives it (a
+    PNG's iCCP inflated, TIFF tag 34675, a JPEG's APP2 ICC_PROFILE
+    chunks joined in sequence order), or None. Errors as `read_rgb8`'s;
+    where Pillow's ``Image.open`` fails (bytes that are no image, a PNG
+    broken before its image data, a JPEG whose markers Pillow's parse
+    rejects, a TIFF with no readable IFD or size) they are
+    `Unidentified` (an OSError); where its load fails, other errors."""
+    with open(path, "rb") as f:
+        buf = f.read()
+    return _decode(buf, path)
+
+
+class Unidentified(OSError):
+    """``Image.open`` fails: the bytes are no image PIL knows."""
+
+
+def to_rgb8(mode, samples):
+    """Pillow's ``convert("RGB")`` of the samples `read_image` gives: a
+    16-bit plane clips at 255, a 32-bit integer one to 0..255, a float
+    one truncates toward zero within 0..255 (through Pillow's "L")."""
+    if mode == "RGB":
+        return samples
+    if mode == "F":
+        grey = np.where(samples >= 255.0, 255.0,
+                        np.where(samples > 0.0, samples, 0.0))
+        grey = np.nan_to_num(grey, nan=0.0).astype(np.uint8)
+    else:
+        grey = np.clip(samples, 0, 255).astype(np.uint8)
+    return np.repeat(grey[..., None], 3, axis=2)
+
+
+def load_std_image(path):
+    """A non-raw image as a RawFrame with an rgb payload (counterpart of
+    ``art_tpu/io/imagefile.py::load_std_image``; StdImageSource,
+    stdimagesource.cc): the embedded ICC profile converted to LittleCMS's
+    sRGB (:mod:`art_tpu_torch.color.lcms`, perceptual, 8 bits) on
+    ``convert("RGB")`` of the image, unconverted where LittleCMS refuses
+    the profile; a 16-bit grey or 32-bit integer image (no profile) kept
+    at its depth over 65535, any other through its ``convert("RGB")``
+    over 255; then the sRGB decode, times MAXVAL, as (3, H, W) float32.
+
+    A file ``Image.open`` cannot open (missing, no image, a header it
+    rejects: `Unidentified`) goes to the external loader registered for
+    its extension (``io/iomanager.py``), whose TIFF is read instead;
+    without one the error stands. A file whose data fails to decode
+    raises as the reference's load does, with no loader. A format PIL reads and the port's decoder does not
+    raises NotImplementedError naming it, with no loader tried."""
+    from art_tpu_torch.color import colorspaces as cs
+    from art_tpu_torch.color import lcms
+    from art_tpu_torch.core.image import MAXVAL
+    from art_tpu_torch.io.rawfile import RawFrame
+
+    buf = None
+    try:
+        with open(path, "rb") as f:
+            buf = f.read()
+        mode, samples, icc = _decode(buf, path)
+    except OSError as e:
+        if buf is not None and not isinstance(e, Unidentified):
+            raise  # Image.open succeeded; its load failed
+        from art_tpu_torch.io.iomanager import get_instance
+
+        conv = get_instance().load_image(path)
+        if conv is None:
+            raise
+        mode, samples, icc = read_image(conv)
+    if icc:
+        try:
+            samples = lcms.to_srgb(to_rgb8(mode, samples), icc)
+            mode = "RGB"
+        except lcms.Refused:
+            pass
+    if mode in ("I;16", "I;16B", "I"):
+        arr = samples.astype(np.float32) / 65535.0
+        arr = np.stack([arr] * 3, axis=-1)
+    else:
+        arr = to_rgb8(mode, samples).astype(np.float32) / 255.0
+    linear = cs.srgb_igamma(arr)
+    chw = np.moveaxis(linear, -1, 0) * MAXVAL
+    return RawFrame(
+        cfa=np.zeros((1, 1), np.float32),
+        pattern=None,
+        rgb=np.ascontiguousarray(chw).astype(np.float32),
+        filename=str(path),
+    )
+
+
+def _decode(buf, path):
+    """(mode, samples, icc) of an image's bytes; see `read_image`."""
     try:
         if buf[:8] == b"\x89PNG\r\n\x1a\n":
-            png = _read_png(buf)
-            samples, depth, ctype, _ = png
+            samples, depth, ctype, plte, icc = _read_png(buf)
             if ctype == 0 and depth == 16:
-                return samples[..., 0], "I;16"
-            return _png_rgb8(*png)[..., 1], "L"
+                return "I;16", samples[..., 0], icc
+            return "RGB", _png_rgb8(samples, depth, ctype, plte), icc
         if buf[:4] in (b"II\x2a\x00", b"MM\x00\x2a"):
-            img = _read_tiff(buf, grey=True)
-            return img if isinstance(img, tuple) else (img[..., 1], "L")
+            return _read_tiff(buf)
         if buf[:3] == b"\xff\xd8\xff":
             from art_tpu_torch.io import jpegdec
 
-            img = jpegdec.decode(buf)
-            return (img if img.ndim == 2 else img[..., 1]), "L"
-    except (ValueError, IndexError, struct.error, zlib.error) as e:
+            try:
+                icc = jpegdec.pil_header(buf).icc_profile
+            except OSError as e:  # Pillow's open fails
+                raise Unidentified(f"cannot identify image file "
+                                   f"{str(path)!r}: {e}") from e
+            return "RGB", jpegdec.decode_rgb(buf), icc
+    except (IndexError, struct.error, zlib.error) as e:
+        raise OSError(f"broken image file {str(path)!r}: {e}") from e
+    except ValueError as e:
+        if isinstance(e, _TooLarge):
+            raise
         raise OSError(f"broken image file {str(path)!r}: {e}") from e
     _refuse_format(buf, path)
 
@@ -218,7 +322,7 @@ def _refuse_format(buf, path):
         raise NotImplementedError(
             f"{name} image {str(path)!r}: the port's image decoder "
             "(io/imagefile.py::read_rgb8) reads PNG, TIFF and JPEG only")
-    raise OSError(f"cannot identify image file {str(path)!r}")
+    raise Unidentified(f"cannot identify image file {str(path)!r}")
 
 
 def _paeth(a, b, c):
@@ -299,37 +403,73 @@ _ADAM7 = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4),
           (2, 0, 4, 2), (0, 1, 2, 2), (1, 0, 2, 1))
 
 
+class _TooLarge(ValueError):
+    """An iCCP chunk inflates past Pillow's MAX_TEXT_CHUNK (Image.open
+    raises ValueError)."""
+
+
+_SAFEBLOCK = 1024 * 1024  # ImageFile.SAFEBLOCK, PngImagePlugin.MAX_TEXT_CHUNK
+
+
+def _iccp(body):
+    """PngStream.chunk_iCCP: the inflated profile, or None where the
+    stream is broken; ValueError (where Image.open fails) for a
+    compression method other than 0."""
+    i = body.find(b"\0")
+    if body[i + 1] != 0:
+        raise ValueError(f"unknown compression method {body[i + 1]} in "
+                         "iCCP chunk")
+    d = zlib.decompressobj()
+    try:
+        icc = d.decompress(body[i + 2 :], _SAFEBLOCK)
+    except zlib.error:
+        return None
+    if d.unconsumed_tail:
+        raise _TooLarge("Decompressed data too large for "
+                        "PngImagePlugin.MAX_TEXT_CHUNK")
+    return icc
+
+
 def _read_png(buf):
-    """A PNG's (samples (h, w, channels), depth, colour type, PLTE)."""
+    """A PNG's (samples (h, w, channels), depth, colour type, PLTE, ICC
+    profile): the profile of the last iCCP chunk before the image data,
+    as Pillow's open reads it, or None."""
     pos = 8
     ihdr = None
     plte = b""
     idat = []
+    icc = None
     while pos + 8 <= len(buf):
         n, kind = struct.unpack_from(">I4s", buf, pos)
+        # a broken chunk before the image data fails Pillow's open
+        error = ValueError if idat or kind == b"IDAT" else Unidentified
         body = buf[pos + 8 : pos + 8 + n]
         crc = buf[pos + 8 + n : pos + 12 + n]
         if len(body) < n or len(crc) < 4:
-            raise ValueError("broken PNG file: truncated chunk")
+            raise error("broken PNG file: truncated chunk")
         if kind[0] & 0x20 == 0 and struct.unpack(">I", crc)[0] != (
                 zlib.crc32(kind + body) & 0xFFFFFFFF):
-            raise ValueError(f"broken PNG file: CRC of {kind!r}")
+            raise error(f"broken PNG file: CRC of {kind!r}")
         if kind == b"IHDR":
             ihdr = struct.unpack(">IIBBBBB", body)
         elif kind == b"PLTE":
             plte = body
+        elif kind == b"iCCP" and not idat:
+            icc = _iccp(body)
         elif kind == b"IDAT":
             idat.append(body)
         elif kind == b"IEND":
             break
         pos += 12 + n
     if ihdr is None or not idat:
-        raise ValueError("broken PNG file: no IHDR or IDAT")
+        raise Unidentified("broken PNG file: no IHDR or IDAT")
     w, h, depth, ctype, comp, _, interlace = ihdr
     channels = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}.get(ctype)
-    if channels is None or depth not in (1, 2, 4, 8, 16) or comp != 0:
-        raise ValueError(f"broken PNG file: colour type {ctype}, depth "
-                         f"{depth}")
+    if channels is None or depth not in (1, 2, 4, 8, 16):
+        raise Unidentified(f"broken PNG file: colour type {ctype}, depth "
+                           f"{depth}")
+    if comp != 0:
+        raise ValueError(f"broken PNG file: compression method {comp}")
     data = zlib.decompress(b"".join(idat))
     bits_px = depth * channels
     bpp = max(1, bits_px // 8)
@@ -351,7 +491,7 @@ def _read_png(buf):
         rb = (w * bits_px + 7) // 8
         samples = _png_samples(_unfilter(data, h, rb, bpp), w, depth,
                                channels)
-    return samples, depth, ctype, plte
+    return samples, depth, ctype, plte, icc
 
 
 def _png_rgb8(samples, depth, ctype, plte):
@@ -435,14 +575,27 @@ _TIFF_COMPRESSION = {1: "none", 5: "LZW", 8: "deflate", 32946: "deflate",
                      32773: "PackBits"}
 
 
-def _read_tiff(buf, grey=False):
-    """A TIFF as PIL's ``convert("RGB")``; with `grey`, a single-sample
-    image that PIL opens as "I;16" or "F" as (plane, mode) instead."""
+def _read_tiff(buf):
+    """A TIFF as Pillow opens it: (mode, samples, icc) as `read_image`
+    gives them. Pillow's modes of one sample (TiffImagePlugin.OPEN_INFO):
+    "I;16" for 16 bits little-endian (WhiteIsZero not inverted), "I;16B"
+    for 16 bits big-endian BlackIsZero (it opens no big-endian 16-bit
+    WhiteIsZero image), "I" for signed 16-bit and for 32-bit integers
+    (unsigned ones little-endian only, wrapped to int32), "F" for 32-bit
+    floats; every other form through its ``convert("RGB")``. A
+    JPEG-compressed image (compression 7) decodes strip by strip or tile
+    by tile through :mod:`art_tpu_torch.io.jpegdec`, its JPEGTables
+    (tag 347) joined to each stream, as libtiff feeds libjpeg: YCbCr
+    (photometric 6) converted to RGB as libtiff's JPEGCOLORMODE_RGB asks,
+    RGB and grey unconverted."""
     from art_tpu_torch.io.metadata import _read_ifd, _value
 
     le = buf[:2] == b"II"
     e = "<" if le else ">"
-    ents, _ = _read_ifd(buf, struct.unpack_from(e + "I", buf, 4)[0], le)
+    try:
+        ents, _ = _read_ifd(buf, struct.unpack_from(e + "I", buf, 4)[0], le)
+    except struct.error as err:  # Pillow's open fails on the IFD
+        raise Unidentified(f"TIFF: broken IFD ({err})") from err
 
     def get(tag, default=None):
         if tag not in ents:
@@ -454,10 +607,17 @@ def _read_tiff(buf, grey=False):
         v = get(tag)
         return None if v is None else (v if isinstance(v, tuple) else (v,))
 
+    def raw_tag(tag):
+        if tag not in ents:
+            return None
+        typ, cnt, off = ents[tag]
+        return buf[off : off + cnt] if typ in (1, 7) else None
+
     def unported(what):
         raise NotImplementedError(
             f"TIFF image with {what}: the port's image decoder "
-            "(io/imagefile.py::read_rgb8) reads baseline TIFF only")
+            "(io/imagefile.py::read_rgb8) reads baseline and "
+            "JPEG-compressed TIFF only")
 
     w, h = int(get(256, 0)), int(get(257, 0))
     spp = int(get(277, 1))
@@ -467,33 +627,56 @@ def _read_tiff(buf, grey=False):
     photo = int(get(262, 1))
     pred = int(get(317, 1))
     fmt = seq(339) or (1,)
+    icc = raw_tag(34675)
     if w <= 0 or h <= 0:
-        raise ValueError("TIFF: no image size")
-    if comp in (6, 7):
-        unported(f"JPEG compression ({comp})")
-    if comp not in _TIFF_COMPRESSION:
+        raise Unidentified("TIFF: no image size")
+    if comp == 6:
+        unported("old-style JPEG compression (6)")
+    if comp not in _TIFF_COMPRESSION and comp != 7:
         unported(f"compression {comp}")
     if int(get(284, 1)) != 1:
         unported("separate colour planes")
-    # PIL's modes for one sample: "F" for 32-bit floats, "I;16" for 16
-    # bits little-endian (WhiteIsZero not inverted), "I;16B" big-endian
-    # BlackIsZero; it opens no big-endian 16-bit WhiteIsZero image
+    # Pillow's mode of one 16- or 32-bit sample
     single = spp == 1 and photo in (0, 1)
-    flt = grey and single and tuple(fmt) == (3,) and bits == (32,)
-    if grey and single and bits == (16,) and not le and photo == 0:
-        raise OSError("TIFF: PIL opens no big-endian 16-bit WhiteIsZero "
-                      "image")
-    if not flt and any(int(f) != 1 for f in fmt):
+    mode = None
+    if single and bits in ((16,), (32,)):
+        kind = {(16, 1): "I;16" if le else "I;16B", (16, 2): "I",
+                (32, 1): "I", (32, 2): "I", (32, 3): "F"}.get(
+                    (depth, int(fmt[0])))
+        if kind is None:
+            unported(f"sample format {fmt[0]}")
+        # the forms OPEN_INFO lacks: Image.open fails on them
+        if (kind == "I;16B" and photo == 0) or (kind == "I" and (
+                photo == 0 or (depth == 32 and not le
+                               and int(fmt[0]) == 1))):
+            raise Unidentified(
+                f"cannot identify image file: PIL opens no TIFF of "
+                f"{depth}-bit samples of format {fmt[0]}, photometric "
+                f"{photo}, {'little' if le else 'big'}-endian")
+        mode = kind
+    elif any(int(f) != 1 for f in fmt):
         unported(f"sample format {fmt[0]}")
-    if not flt and (any(int(b) != depth for b in bits)
-                    or depth not in (1, 2, 4, 8, 16)):
+    if mode is None and (any(int(b) != depth for b in bits)
+                         or depth not in (1, 2, 4, 8, 16)):
         unported(f"{bits} bits per sample")
-    if pred not in (1, 2) or (flt and pred != 1):
+    if pred not in (1, 2) or (mode == "F" and pred != 1):
         unported(f"predictor {pred}")
-    if photo not in (0, 1, 2, 3):
-        unported(f"photometric interpretation {photo}")
-    if photo == 2 and spp < 3:
-        raise ValueError("TIFF: RGB with fewer than 3 samples")
+    if comp == 7:
+        if depth != 8 or mode is not None:
+            unported(f"JPEG compression of {bits} bits per sample")
+        if photo == 6 and spp == 3:
+            photo_out, color = 2, 1
+        elif (photo == 2 and spp == 3) or (photo in (0, 1) and spp == 1):
+            photo_out, color = photo, 0
+        else:
+            unported(f"JPEG compression of photometric {photo}, {spp} "
+                     "samples")
+    else:
+        photo_out = photo
+        if photo not in (0, 1, 2, 3):
+            unported(f"photometric interpretation {photo}")
+    if photo_out == 2 and spp < 3:
+        raise Unidentified("TIFF: RGB with fewer than 3 samples")
     tiled = 322 in ents
     if tiled:
         bw, bh = int(get(322)), int(get(323))
@@ -506,20 +689,41 @@ def _read_tiff(buf, grey=False):
         across = 1
     if not offsets:
         raise ValueError("TIFF: no image data")
+    nbytes = depth // 8 if depth >= 8 else 0
     row_bytes = (bw * spp * depth + 7) // 8
     block_bytes = row_bytes * bh
-    dtype = np.dtype(e + ("f4" if flt else "u2")) if depth >= 16 \
-        else np.uint8
-    if depth >= 8:
-        img = np.zeros((h, w, spp), np.float32 if flt else
-                       np.uint16 if depth == 16 else np.uint8)
+    if mode == "F":
+        dtype, store = np.dtype(e + "f4"), np.float32
+    elif mode == "I":
+        dtype = np.dtype(e + ("i" if int(fmt[0]) == 2 else "u") + str(nbytes))
+        store = np.int32
+    elif depth == 16:
+        dtype, store = np.dtype(e + "u2"), np.uint16
     else:
-        img = np.zeros((h, w), np.uint8)
+        dtype, store = np.uint8, np.uint8
+    img = np.zeros((h, w, spp) if depth >= 8 else (h, w), store)
+    tables = raw_tag(347)
     for i, off in enumerate(offsets):
+        y0 = (i // across) * bh
+        x0 = (i % across) * bw
+        if y0 >= h:
+            break
         n = counts[i] if counts else block_bytes
-        if grey and off + n > len(buf):
+        if off + n > len(buf):
             raise ValueError("TIFF: image file is truncated")
         raw = buf[off : off + n]
+        hh, ww = min(bh, h - y0), min(bw, w - x0)
+        if comp == 7:
+            from art_tpu_torch.io import jpegdec
+
+            blk = jpegdec.decode_tiff_stream(_join_tables(tables, raw),
+                                             color)
+            blk = blk.reshape(blk.shape[0], blk.shape[1], -1)
+            if blk.shape[0] < hh or blk.shape[1] < ww or \
+                    blk.shape[2] != spp:
+                raise ValueError("TIFF: a JPEG strip of the wrong size")
+            img[y0 : y0 + hh, x0 : x0 + ww] = blk[:hh, :ww]
+            continue
         name = _TIFF_COMPRESSION[comp]
         if name == "deflate":
             raw = zlib.decompress(raw)
@@ -528,46 +732,47 @@ def _read_tiff(buf, grey=False):
         elif name == "PackBits":
             raw = _packbits_decode(raw, block_bytes)
         raw = raw[:block_bytes].ljust(block_bytes, b"\0")
-        y0 = (i // across) * bh
-        x0 = (i % across) * bw
-        if y0 >= h:
-            break
         rows = np.frombuffer(raw, np.uint8).reshape(bh, row_bytes)
         if depth >= 8:
-            blk = rows.view(dtype).reshape(bh, bw, spp).astype(img.dtype)
+            blk = rows.view(dtype).reshape(bh, bw, spp).astype(store)
             if pred == 2:  # horizontal differencing, sample by sample
-                blk = np.cumsum(blk, axis=1, dtype=img.dtype)
+                blk = np.cumsum(blk, axis=1, dtype=store)
         else:
             bitv = np.unpackbits(rows, axis=1).reshape(bh, -1, depth)[:, :bw]
             blk = np.zeros((bh, bw), np.uint8)
             for k in range(depth):
                 blk = (blk << 1) | bitv[..., k]
-        hh, ww = min(bh, h - y0), min(bw, w - x0)
         img[y0 : y0 + hh, x0 : x0 + ww] = blk[:hh, :ww]
     if depth < 8:
         img = img[..., None]
-    if flt:
-        return img[..., 0], "F"
-    if grey and single and depth == 16 and le:
-        return img[..., 0], "I;16"
-    if photo == 3:
+    if mode is not None:
+        return mode, img[..., 0], icc
+    if photo_out == 3:
         cmap = np.asarray(seq(320) or (), np.uint16)
         n = 1 << depth
         if cmap.size < 3 * n:
             raise ValueError("TIFF: short colour map")
         pal = (cmap[: 3 * n].reshape(3, n).T >> 8).astype(np.uint8)
-        return pal[img[..., 0]]
-    if photo in (0, 1):
+        return "RGB", pal[img[..., 0]], icc
+    if photo_out in (0, 1):
         grey = img[..., 0]
-        if depth == 16:
-            grey = np.minimum(grey, 255).astype(np.uint8)
-        elif depth < 8:
+        if depth < 8:
             grey = (grey.astype(np.uint16) * (255 // ((1 << depth) - 1))
                     ).astype(np.uint8)
-        if photo == 0:
+        if photo_out == 0:
             grey = 255 - grey
-        return np.repeat(grey[..., None], 3, axis=2)
+        return "RGB", np.repeat(grey[..., None], 3, axis=2), icc
     rgb = img[..., :3]
     if depth == 16:
         rgb = (rgb >> 8).astype(np.uint8)
-    return np.ascontiguousarray(rgb)
+    return "RGB", np.ascontiguousarray(rgb), icc
+
+
+def _join_tables(tables, stream):
+    """A strip's JPEG stream with the JPEGTables' markers before its own,
+    as libtiff hands libjpeg the tables and then the strip."""
+    if not tables:
+        return stream
+    head = tables[:-2] if tables[-2:] == b"\xff\xd9" else tables
+    body = stream[2:] if stream[:2] == b"\xff\xd8" else stream
+    return head + body

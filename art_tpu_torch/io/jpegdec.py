@@ -68,14 +68,18 @@ _DQT, _COM = 0xDB, 0xFE
 
 class Header:
     """What Pillow's parse keeps: mode ("L", "RGB" or "CMYK"), size
-    (width, height), the last SOF marker, and the Adobe transform flag
-    (None without an APP14)."""
+    (width, height), the last SOF marker, the Adobe transform flag
+    (None without an APP14) and the ICC profile (``info["icc_profile"]``:
+    the APP2 ICC_PROFILE chunks seen before a SOF, sorted and joined
+    where their count matches, else None; absent, None too)."""
 
     def __init__(self):
         self.mode = None
         self.size = None
         self.sof = None
         self.adobe_transform = None
+        self.icc_profile = None
+        self.icclist = []
 
 
 class _Reader:
@@ -169,6 +173,13 @@ def _sof(r, hdr, marker):
         raise SyntaxError(f"cannot handle {layers}-layer images")
     hdr.mode = modes[layers]
     hdr.sof = marker
+    if hdr.icclist:  # Pillow's fixup at each SOF
+        hdr.icclist.sort()
+        if hdr.icclist[0][13] == len(hdr.icclist):
+            hdr.icc_profile = b"".join(p[14:] for p in hdr.icclist)
+        else:
+            hdr.icc_profile = None  # a wrong number of fragments
+        hdr.icclist = []
     for i in range(6, len(s), 3):
         t = s[i : i + 3]
         t[0], t[1], t[2]  # Pillow indexes each triple (IndexError if cut)
@@ -178,6 +189,8 @@ def _app(r, hdr, marker):
     s = r.safe_read(r.length())
     if marker == 0xE0 and s.startswith(b"JFIF"):
         struct.unpack_from(">H", s, 5)
+    elif marker == 0xE2 and s.startswith(b"ICC_PROFILE\0"):
+        hdr.icclist.append(s)
     elif marker == 0xED and s.startswith(b"Photoshop 3.0\x00"):
         _photoshop(s)
     elif marker == 0xEE and s.startswith(b"Adobe"):
@@ -246,23 +259,31 @@ def _load():
                 ctypes.POINTER(ctypes.c_int),
                 ctypes.POINTER(ctypes.POINTER(ctypes.c_uint8)),
                 ctypes.c_char_p, ctypes.c_int]
+            lib.jpegdec_decode_as.restype = ctypes.c_int
+            lib.jpegdec_decode_as.argtypes = [
+                ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int, ctypes.c_int,
+                ctypes.POINTER(ctypes.c_int),
+                ctypes.POINTER(ctypes.POINTER(ctypes.c_uint8)),
+                ctypes.c_char_p, ctypes.c_int]
             lib.jpegdec_free.restype = None
             lib.jpegdec_free.argtypes = [ctypes.POINTER(ctypes.c_uint8)]
             _LIB = lib
         return _LIB
 
 
-def _native_decode(buf, salvage=False):
+def _native_decode(buf, salvage=False, color=-1):
     """The C++ decoder on the whole stream: (outcome, array or None,
     message); outcome 0 every scanline output, 1 the same but a later
-    marker failed, 2 the data ended first, 3 an error came first."""
+    marker failed, 2 the data ended first, 3 an error came first. color:
+    a three-component frame's colour space, -1 libjpeg's guess, 0 the
+    components unconverted, 1 YCbCr."""
     lib = _load()
     info = (ctypes.c_int * 4)()
     out = ctypes.POINTER(ctypes.c_uint8)()
     msg = ctypes.create_string_buffer(256)
     data = bytes(buf)
-    if lib.jpegdec_decode(data, len(data), int(bool(salvage)), info,
-                          ctypes.byref(out), msg, len(msg)) != 0:
+    if lib.jpegdec_decode_as(data, len(data), int(bool(salvage)), int(color),
+                             info, ctypes.byref(out), msg, len(msg)) != 0:
         raise RuntimeError("jpegdec: bad arguments")
     outcome, h, w, c = info[0], info[1], info[2], info[3]
     arr = None
@@ -292,6 +313,25 @@ def decode(buf, salvage=False):
     if outcome == 2:
         raise OSError("image file is truncated")
     raise OSError(f"broken data stream when reading image file: {msg}")
+
+
+def decode_tiff_stream(buf, color):
+    """One strip or tile of a JPEG-compressed TIFF (its JPEGTables
+    joined), as libtiff has libjpeg decode it for Pillow: (H, W) uint8 for
+    one component, (H, W, 3) for three; color 1 converts YCbCr to RGB
+    (JPEGCOLORMODE_RGB), 0 keeps the components as they are. A form the
+    port's decoder does not read raises NotImplementedError naming it;
+    a stream libjpeg cannot decode to its end raises OSError."""
+    try:
+        hdr = pil_header(buf)
+    except OSError:
+        hdr = None
+    if hdr is not None:
+        _refuse(hdr)
+    outcome, arr, msg = _native_decode(buf, False, color)
+    if outcome != 0:
+        raise OSError(f"TIFF JPEG strip: {msg or 'the data ended first'}")
+    return arr
 
 
 def decode_rgb(buf, salvage=False):

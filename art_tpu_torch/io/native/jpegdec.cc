@@ -45,6 +45,10 @@
 // frame header was read. *out holds (height, width, channels) uint8 for
 // outcomes 0 and 1; free it with jpegdec_free. Returns 0, or -1 on bad
 // arguments. msg gets the error's text.
+//   int jpegdec_decode_as(..., int salvage, int color, int* info, ...)
+// is the same with the colour space of a three-component frame set as
+// libtiff sets it for a JPEG-compressed TIFF: color -1 libjpeg's guess
+// (jpegdec_decode), 0 the components unconverted (JCS_UNKNOWN), 1 YCbCr.
 
 #include <algorithm>
 #include <cstdint>
@@ -153,6 +157,9 @@ struct Decoder {
   int unread_marker = 0;
   bool saw_SOI = false, saw_SOF = false;
   bool saw_JFIF = false, saw_Adobe = false;
+  // the caller's jpeg_color_space for three components: -1 libjpeg's
+  // guess, 0 none (JCS_UNKNOWN: the components as they are), 1 YCbCr
+  int color_override = -1;
   int adobe_transform = 0;
   int restart_interval = 0;
   int next_restart_num = 0;
@@ -1517,6 +1524,7 @@ struct Decoder {
 
   // jdapimin.c default_decompress_parms for three components
   bool color_space_is_ycc() const {
+    if (color_override >= 0) return color_override == 1;
     if (saw_JFIF) return true;
     if (saw_Adobe) return adobe_transform != 0;
     int c0 = comp[0].id, c1 = comp[1].id, c2 = comp[2].id;
@@ -1529,14 +1537,15 @@ struct Decoder {
 
 extern "C" {
 
-int jpegdec_decode(const uint8_t* data, size_t len, int salvage, int* info, uint8_t** out,
-                   char* msg, int msg_len) {
+int jpegdec_decode_as(const uint8_t* data, size_t len, int salvage, int color, int* info,
+                      uint8_t** out, char* msg, int msg_len) {
   if (!data || !info || !out) return -1;
   *out = nullptr;
   info[0] = 3;
   info[1] = info[2] = info[3] = 0;
   Decoder* dp = new Decoder();
   Decoder& dec = *dp;
+  dec.color_override = color;
   dec.d.assign(data, data + len);
   dec.file_len = len;
   if (salvage) {
@@ -1614,6 +1623,11 @@ int jpegdec_decode(const uint8_t* data, size_t len, int salvage, int* info, uint
     msg[n] = 0;
   }
   return 0;
+}
+
+int jpegdec_decode(const uint8_t* data, size_t len, int salvage, int* info, uint8_t** out,
+                   char* msg, int msg_len) {
+  return jpegdec_decode_as(data, len, salvage, -1, info, out, msg, msg_len);
 }
 
 void jpegdec_free(uint8_t* p) { free(p); }

@@ -146,9 +146,9 @@ def synthesize_pixelshift(rgb01, pattern="RGGB", black=512.0, white=16383.0,
 
 def load_raw(path) -> RawFrame:
     """Decode a raw file on host with the native decoder (DNG, CR2, NEF,
-    classic RAF, ARW), as the reference does. Another extension raises:
-    the reference would hand it to an external preconverter
-    (``io/iomanager.py``), which is not ported."""
+    classic RAF, ARW, ...), as the reference does; another extension goes
+    to a registered external preconverter (``io/iomanager.py``), whose
+    DNG decodes through the native path (imgiomanager.cc loadRaw :510)."""
     from art_tpu_torch.io import dng
 
     ext = os.path.splitext(str(path))[1].lower()
@@ -166,15 +166,16 @@ def load_raw(path) -> RawFrame:
             except Exception:
                 pass
         return frame
-    from art_tpu_torch.settings import settings
+    # external preconverter hook (imgiomanager.cc loadRaw :510); no EXIF
+    # harvest, as in the reference
+    from art_tpu_torch.io.iomanager import get_instance
 
-    conf = (os.path.join(settings.user_dir, "imageio")
-            if settings.user_dir else None)
-    if conf and os.path.isdir(conf) and any(
-            n.lower().endswith(".txt") for n in os.listdir(conf)):
-        raise NotImplementedError(
-            f"raw format {ext}: external preconverters (io/iomanager.py) "
-            "are not ported to art_tpu_torch")
+    dng_path = get_instance().preconvert_raw(path)
+    if dng_path:
+        frame = dng.load_dng(dng_path)
+        frame.filename = str(path)
+        _apply_camconst_levels(frame)
+        return frame
     raise NotImplementedError(
         f"raw format {ext} not natively decoded yet; convert to DNG or "
         "register an external preconverter"

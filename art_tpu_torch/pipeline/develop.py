@@ -106,6 +106,18 @@ def _unported(what):
     raise NotImplementedError(f"{what} is not ported to art_tpu_torch")
 
 
+def _refuse_non_raw():
+    """The develop of a non-raw frame (``io/imagefile.py::
+    load_std_image``'s RGB payload), which the reference's plan fails on:
+    its RGB branch passes ``pixelshift`` (art_tpu/pipeline/develop.py:715),
+    which only its raw branch binds (:132), so every such frame raises
+    UnboundLocalError there. The port refuses it by name instead."""
+    raise NotImplementedError(
+        "non-raw input: the reference's plan fails on every non-raw frame "
+        "(art_tpu/pipeline/develop.py:715 reads `pixelshift`, which only "
+        ":132 binds), so art_tpu_torch refuses its develop")
+
+
 def _auto_log(frame, pp, device):
     """pp with the automatic log encoding resolved (develop.py:462-477,
     getAutoLog): a neutral develop of the frame subsampled 8x on `device`
@@ -568,7 +580,7 @@ def plan(frame, pp, fast=False, out_u8=False, device="cuda"):
     (the device of the develop that plans). pp itself is not changed.
     Anything else raises NotImplementedError."""
     if not frame.is_raw:
-        _unported("non-raw input")
+        _refuse_non_raw()
     # a Sigma Foveon X3F: 3 full planes, no mosaic (develop.py:112-126)
     foveon = frame.cfa.ndim == 3
     if not foveon and frame.pattern is None and frame.xtrans is None:
@@ -846,7 +858,7 @@ def fusion_gates(config: PipelineConfig):
 def _check_config(config):
     """Refuse configs outside the slice (either planner's)."""
     if not config.is_raw:
-        _unported("non-raw input")
+        _refuse_non_raw()
     if (config.pattern is None and config.xtrans is None
             and config.demosaic_method != "foveon"):
         _unported("monochrome raw with no CFA")

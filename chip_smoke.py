@@ -159,6 +159,24 @@ through process_image with a listener that takes the histogram and the
 auto WB report: B1-B4 and B7 once. Each prints its develop, device
 program, peak memory, device ms by `art:` stage and a 512x2048 develop
 against the CPU.
+Then the JPEG decoder and histogram matching (`jpeg_phase`): H1, the
+bundled Auto-Matched Curve.arp on a DNG with a full-size preview; H2,
+the same through cli.main; J1, the decoder alone and P3's and M1's
+paths with JPEG files.
+Then the package's entry points (`entry_phase`), counts reset before
+each path: X1, the flagship frame as a 16-bit PGM under a raw extension
+the native decoder does not read (.mos), registered through `init` for
+the shipped preconverter (art_tpu_torch/preconverters/pnm_to_dng.py),
+through cli.main with the bundled profile and denoise 20/20: the first
+call (the preconversion) and the cached one, the phases, B1-B4 and B7
+once each and bit-equal to their plain versions on X1's tensors, the
+scan byte-equal to cli.main's on the cached DNG, a 512x768 .mos
+against the CPU; T1, `thumbnail` of a 24 MP DNG with no preview (B1-B3,
+as its plan says) and with H1's preview (no launch); N1, `load_image`
+of 24 MP non-raw files on the host (an 8-bit PNG, a 16-bit grey PNG, a
+JPEG-compressed TIFF, a JPEG with an Adobe RGB profile), decode and ICC
+conversion timed apart, an external loader, and the PNG through
+cli.main (exit 2, non-raw input named, no file).
 Then one JSON line of per-kernel results (time, plain time, bound) and
 last the line {"ok": true, "device": {...}}. Any failure raises
 (non-zero exit, no result lines); so does a machine without CUDA.
@@ -3592,6 +3610,282 @@ def jpeg_phase(smi_line, tmp, entries):
     return stats, failures
 
 
+# X1's raw format: an extension of a raw the native decoder does not read
+# (Leaf's), so load_raw hands it to the registered preconverter
+X1_EXT = "mos"
+
+
+def write_pgm16(path, mosaic):
+    """A (H, W) uint16 mosaic as a binary 16-bit PGM (P5, big-endian), the
+    input of the shipped preconverter."""
+    h, w = mosaic.shape
+    with open(path, "wb") as f:
+        f.write(b"P5\n%d %d\n65535\n" % (w, h))
+        f.write(np.asarray(mosaic, ">u2").tobytes())
+    return path
+
+
+def write_jpeg_tiff(path, rgb8, rows=256, quality=90):
+    """A JPEG-compressed TIFF (compression 7) as a camera or scanner
+    writes one: YCbCr 4:2:0 strips of `rows` rows, each a whole JPEG from
+    the port's encoder (photometric 6, YCbCrSubsampling 2, 2)."""
+    import struct
+
+    from art_tpu_torch.io import jpeg
+
+    h, w = rgb8.shape[:2]
+    strips = [jpeg.encode(np.ascontiguousarray(rgb8[y : y + rows]),
+                          quality=quality, subsampling=1)
+              for y in range(0, h, rows)]
+    offs = np.cumsum([8] + [len(b) for b in strips[:-1]])
+    ifd_at = 8 + sum(len(b) for b in strips)
+    entries = [(256, 4, [w]), (257, 4, [h]), (258, 3, [8, 8, 8]),
+               (259, 3, [7]), (262, 3, [6]),
+               (273, 4, [int(o) for o in offs]), (277, 3, [3]),
+               (278, 4, [rows]), (279, 4, [len(b) for b in strips]),
+               (284, 3, [1]), (530, 3, [2, 2])]
+    ext_at = ifd_at + 2 + 12 * len(entries) + 4
+    ifd, extra = struct.pack("<H", len(entries)), b""
+    for tag, typ, vals in entries:
+        raw = struct.pack("<" + {3: "H", 4: "I"}[typ] * len(vals), *vals)
+        if len(raw) <= 4:
+            ifd += struct.pack("<HHI", tag, typ, len(vals)) + raw.ljust(4,
+                                                                       b"\0")
+        else:
+            ifd += struct.pack("<HHII", tag, typ, len(vals),
+                               ext_at + len(extra))
+            extra += raw
+    with open(path, "wb") as f:
+        f.write(b"II*\0" + struct.pack("<I", ifd_at) + b"".join(strips)
+                + ifd + struct.pack("<I", 0) + extra)
+    return path
+
+
+def timed(fn, runs=2):
+    """fn's result and the median of `runs` calls' seconds (host clock)."""
+    ts = []
+    for _ in range(runs):
+        t0 = time.monotonic()
+        out = fn()
+        ts.append(time.monotonic() - t0)
+    return out, float(np.median(ts))
+
+
+def entry_phase(smi_line, tmp):
+    """The package's entry points on the card, counts reset before each
+    path. X1: the flagship frame (seed 0) as a 16-bit PGM under a raw
+    extension the native decoder does not read (.mos), registered through
+    `init(user_settings_dir=...)` with `<user>/imageio/pnm.txt` for the
+    shipped `art_tpu_torch/preconverters/pnm_to_dng.py`, through cli.main
+    with the bundled profile and denoise 20/20: the first call (the
+    preconversion subprocess in its decode), the cached second, the
+    phases (median of 3 after a warm run), B1-B4 and B7 once each and no
+    plain version, each held to its plain version on X1's tensors, the
+    JPEG well formed with its scan byte-equal to cli.main's on the cached
+    DNG itself; a 512x768 .mos through the same path, card against the
+    CPU. T1: `thumbnail` of a 24 MP DNG with no preview (a fast develop
+    of ProcParams(); its launches as its plan says) and of H1's DNG with
+    a full-size preview (no launch), both timed. N1: `load_image` of 24
+    MP non-raw files on the host, decode and conversion timed apart: an
+    8-bit RGB PNG, a 16-bit grey PNG (I;16), a JPEG-compressed TIFF
+    (YCbCr 4:2:0 strips), an 8-bit JPEG with an Adobe RGB matrix/TRC
+    profile (`color/iccwrite.py`; the LittleCMS model); then an [ART
+    ImageIO] loader for an unknown extension; then the PNG through
+    cli.main: exit code 2, the error naming non-raw input, no file
+    written. Returns (the comparisons, the failures)."""
+    import shutil
+
+    import art_tpu_torch
+    from art_tpu_torch import cli
+    from art_tpu_torch.color import iccwrite, lcms
+    from art_tpu_torch.io import imagefile, iomanager, jpeg
+    from art_tpu_torch.io.dngwrite import write_dng
+    from art_tpu_torch.io.rawfile import load_raw
+    from art_tpu_torch.io.xmp import insert_jpeg_app_segments
+    from art_tpu_torch.params import ProcParams
+    from art_tpu_torch.pipeline import develop as tdev
+    from art_tpu_torch.settings import settings
+
+    log(f"---- entry phase ({smi_line})")
+    t_phase = time.monotonic()
+    stats, failures = {}, []
+    here = os.path.dirname(os.path.abspath(__file__))
+    user = os.path.join(tmp, "user")
+    os.makedirs(os.path.join(user, "imageio"))
+    script = os.path.join(here, "art_tpu_torch", "preconverters",
+                          "pnm_to_dng.py")
+    with open(os.path.join(user, "imageio", "pnm.txt"), "w") as f:
+        f.write(f"[ART RAWImageIO]\nExtension={X1_EXT}\n"
+                f"ReadCommand={sys.executable} {script}\n")
+    saved = (tempfile.tempdir, settings.user_dir,
+             {k: os.environ.get(k) for k in ("ART_PNM_BLACK",
+                                             "ART_PNM_WHITE")})
+    cache = os.path.join(tmp, "cache")
+    os.makedirs(cache)
+    tempfile.tempdir = cache  # the preconverter's cache, fresh
+    os.environ.update(ART_PNM_BLACK="512", ART_PNM_WHITE="16383")
+    try:
+        art_tpu_torch.init(user_settings_dir=user)
+
+        # X1: a preconverted raw through cli.main
+        frame = flagship_frame(*FRAME)
+        mosaic = np.round(frame.cfa).astype(np.uint16)
+        del frame
+        pgm = write_pgm16(os.path.join(tmp, f"x1.{X1_EXT}"), mosaic)
+        dn = os.path.join(tmp, "denoise20.arp")
+        with open(dn, "w") as f:
+            f.write("[Denoise]\nEnabled=true\nLuminance=20\n"
+                    "Chrominance=20\n")
+        arp = os.path.join(here, "art_tpu_torch", "data", "profiles",
+                           PROFILE)
+        out = os.path.join(tmp, "x1.jpg")
+        argv = ["-Y", "-p", arp, "-p", dn, "-o", out, "-c", pgm]
+        want = ("b1", "b2", "b3", "b4", "b7")
+        for call in ("first (preconverts)", "second (cached DNG)"):
+            reset_counts()
+            phases, seconds = cli_run(argv)
+            launches, plain_calls = read_counts()
+            log(f"X1 {call} through cli.main: {1e3 * seconds:.1f} ms end to "
+                f"end, decode {phases.get('decode', float('nan')):.1f} ms; "
+                f"launches {launches}; plain calls {plain_calls}")
+            if launches != {k: int(k in want) for k in launches} \
+                    or any(plain_calls.values()):
+                raise RuntimeError(f"X1: launches {launches}, want {want} "
+                                   f"once; plain calls {plain_calls}")
+        scan = check_jpeg(out)
+        cli_timed(f"X1 ({FRAME[0]}x{FRAME[1]} .{X1_EXT} preconverted, "
+                  "AMaZE, denoise, Neutral curve, sRGB JPEG)", argv)
+        dng = iomanager.get_instance().preconvert_raw(pgm)
+        if not dng or os.path.dirname(os.path.dirname(dng)) != cache:
+            raise RuntimeError(f"X1: no cached DNG ({dng})")
+        direct = os.path.join(tmp, "x1.dng")
+        shutil.copy(dng, direct)
+        out_dng = os.path.join(tmp, "x1_dng.jpg")
+        cli_run(["-Y", "-p", arp, "-p", dn, "-o", out_dng, "-c", direct])
+        if check_jpeg(out_dng, quiet=True) != scan:
+            failures.append("X1: the scan differs from cli.main's on the "
+                            "cached DNG")
+        else:
+            log("X1 scan byte-equal to cli.main's on the cached DNG itself")
+        failures += kernels_against_plain("X1", lambda: cli_run(argv))
+        small = write_pgm16(os.path.join(tmp, f"x1_small.{X1_EXT}"),
+                            mosaic[: SMALL2[0], : SMALL2[1]])
+        pp = flagship_pp("amaze")
+        stats["X1"] = card_vs_cpu("X1", art_tpu_torch.load_image(small), pp)
+
+        # T1: thumbnails, with no preview and with one
+        t1 = os.path.join(tmp, "t1.dng")
+        write_dng(t1, mosaic, black=512, white=16383, compress=False)
+        config, _ = tdev.plan(load_raw(t1), ProcParams(), fast=True)
+        head, tail = tdev.fusion_gates(config)
+        want_t = (("b1", "b2", "b3") if config.demosaic_method == "amaze"
+                  else ()) + (("b4",) if head else ()) + \
+            (("b7",) if tail else ())
+        log(f"T1 plan of ProcParams() (fast): demosaic "
+            f"{config.demosaic_method}, steps {[s[0] for s in config.steps]}"
+            f", fuse_head {head}, fuse_tail {tail}: kernels {want_t}")
+        for label, path, kernels in (
+                ("no preview", t1, want_t),
+                ("H1's full-size preview",
+                 h1_dng(os.path.join(tmp, "h1.dng"), *FRAME), ())):
+            reset_counts()
+            thumb, first = timed(lambda: art_tpu_torch.thumbnail(path), 1)
+            launches, plain_calls = read_counts()
+            _, warm = timed(lambda: art_tpu_torch.thumbnail(path), 3)
+            log(f"T1 thumbnail, {label}: {thumb.shape} {thumb.dtype}, first "
+                f"{1e3 * first:.1f} ms, median of 3 {1e3 * warm:.1f} ms; "
+                f"launches {launches}; plain calls {plain_calls}")
+            if launches != {k: int(k in kernels) for k in launches} \
+                    or any(plain_calls.values()):
+                failures.append(f"T1 {label}: launches {launches}, want "
+                                f"{kernels}; plain {plain_calls}")
+            step = -(-max(FRAME) // 256)
+            if thumb.shape != (3, -(-FRAME[0] // step), -(-FRAME[1] // step))\
+                    or not np.isfinite(thumb).all():
+                failures.append(f"T1 {label}: thumbnail {thumb.shape}")
+        del mosaic
+
+        # N1: non-raw files on the host
+        rgb8 = np.round(np.moveaxis(preview_look(flagship_scene(*FRAME)),
+                                    0, -1) * 255.0).astype(np.uint8)
+        files = {}
+        t0 = time.monotonic()
+        files["8-bit RGB PNG"] = os.path.join(tmp, "n1.png")
+        imagefile.write_png(files["8-bit RGB PNG"], rgb8)
+        files["16-bit grey PNG (I;16)"] = write_mask_png(
+            os.path.join(tmp, "n1_grey.png"), *FRAME)
+        files["JPEG-compressed TIFF"] = write_jpeg_tiff(
+            os.path.join(tmp, "n1.tif"), rgb8)
+        files["JPEG, Adobe RGB profile"] = os.path.join(tmp, "n1.jpg")
+        with open(files["JPEG, Adobe RGB profile"], "wb") as f:
+            f.write(jpeg.encode(rgb8, quality=90, subsampling=1))
+        insert_jpeg_app_segments(files["JPEG, Adobe RGB profile"],
+                                 icc_bytes=iccwrite.make_icc("Adobe RGB"))
+        log(f"N1 files written in {time.monotonic() - t0:.1f} s")
+        for label, path in files.items():
+            (mode, samples, icc), dec = timed(
+                lambda: imagefile.read_image(path))
+            conv = 0.0
+            if icc:
+                _, conv = timed(lambda: lcms.to_srgb(
+                    imagefile.to_rgb8(mode, samples), icc))
+            fr, total = timed(lambda: art_tpu_torch.load_image(path))
+            log(f"N1 {label} ({os.path.getsize(path) / 1e6:.1f} MB, mode "
+                f"{mode}, ICC {len(icc) if icc else 0} bytes): decode "
+                f"{1e3 * dec:.1f} ms, ICC conversion {1e3 * conv:.1f} ms; "
+                f"load_image in all (decode, conversion, sRGB decode to "
+                f"float) {1e3 * total:.1f} ms (medians of 2)")
+            if fr.rgb.shape != (3, *FRAME) or fr.is_raw or not (
+                    np.isfinite(fr.rgb).all() and fr.rgb.min() >= 0
+                    and fr.rgb.max() <= 65535.0):
+                failures.append(f"N1 {label}: bad frame {fr.rgb.shape}")
+        # an external loader for an unknown extension: a container the
+        # decoder does not know, unwrapped to its TIFF by the command
+        loader = os.path.join(tmp, "unwrap.py")
+        with open(loader, "w") as f:
+            f.write("import sys\ndata = open(sys.argv[1], 'rb').read()\n"
+                    "open(sys.argv[2], 'wb').write(data[8:])\n")
+        with open(os.path.join(user, "imageio", "wrapped.txt"), "w") as f:
+            f.write(f"[ART ImageIO]\nExtension=wrapped\n"
+                    f"ReadCommand={sys.executable} {loader}\n")
+        art_tpu_torch.init(user_settings_dir=user)
+        wrapped = os.path.join(tmp, "n1.wrapped")
+        with open(wrapped, "wb") as f:
+            f.write(b"WRAPPED\n" + open(files["JPEG-compressed TIFF"],
+                                         "rb").read())
+        fr, secs = timed(lambda: art_tpu_torch.load_image(wrapped), 1)
+        ref = art_tpu_torch.load_image(files["JPEG-compressed TIFF"])
+        same = np.array_equal(fr.rgb, ref.rgb)
+        log(f"N1 external loader (.wrapped -> TIFF): {1e3 * secs:.1f} ms, "
+            f"the frame equal to the TIFF's own: {same}")
+        if not same or fr.filename != wrapped:
+            failures.append("N1: the external loader's frame differs")
+        # a non-raw develop: refused by name, as the reference's plan fails
+        out_dir = os.path.join(tmp, "n1_out")
+        os.makedirs(out_dir)
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err), \
+                contextlib.redirect_stdout(io.StringIO()):
+            rc = cli.main(["-Y", "-o", out_dir + os.sep, "-c",
+                           files["8-bit RGB PNG"]])
+        log(f"N1 PNG through cli.main: exit {rc}, files {os.listdir(out_dir)}"
+            f", stderr {err.getvalue().strip()[:200]!r}")
+        if rc != 2 or os.listdir(out_dir) or \
+                "non-raw input" not in err.getvalue():
+            failures.append("N1: cli.main on a PNG did not exit 2 naming "
+                            "non-raw input")
+    finally:
+        tempfile.tempdir, settings.user_dir = saved[0], saved[1]
+        for k, v in saved[2].items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        iomanager.reset()
+    log(f"entry phase: {time.monotonic() - t_phase:.1f} s")
+    return stats, failures
+
+
 def _leaves(d):
     for k, v in d.items():
         if isinstance(v, dict):
@@ -3884,6 +4178,13 @@ def main():
         jpeg_stats, jpeg_failures = jpeg_phase(smi_line, tmp, entries)
     new_stats.update(jpeg_stats)
     failures += jpeg_failures
+
+    # ---- the entry points: X1 (a preconverted raw through cli.main), T1
+    # (thumbnails), N1 (non-raw input on the host)
+    with tempfile.TemporaryDirectory() as tmp:
+        entry_stats, entry_failures = entry_phase(smi_line, tmp)
+    new_stats.update(entry_stats)
+    failures += entry_failures
 
     failures += [f"B6 on {k} disagrees with its plain version"
                  for k, ok in b6_edges.items() if not ok]

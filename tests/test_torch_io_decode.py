@@ -81,18 +81,36 @@ def test_decoder_is_the_ports_own_build():
 
 
 def test_non_raw_and_non_native_inputs_raise(tmp_path, monkeypatch):
-    from art_tpu_torch.io import load_image
+    """A non-raw file loads through load_std_image, so a missing one
+    raises as Image.open does; a raw format the native decoder does not
+    read raises as the reference's does unless a registered preconverter
+    turns it into a DNG (tests/test_torch_iomanager.py), here one whose
+    command fails."""
+    from art_tpu.io import iomanager as ref_iomanager
+    from art_tpu.io import load_image as ref_load_image
+    from art_tpu.settings import settings as ref_settings
+    from art_tpu_torch.io import iomanager, load_image
     from art_tpu_torch.settings import settings
 
-    with pytest.raises(NotImplementedError,
-                       match="io/imagefile.py::load_std_image"):
-        load_image(str(tmp_path / "photo.png"))
-    with pytest.raises(NotImplementedError, match="not natively decoded"):
-        load_raw(str(tmp_path / "x.mos"))
+    for load in (load_image, ref_load_image):
+        with pytest.raises(FileNotFoundError):
+            load(str(tmp_path / "photo.png"))
+    for load in (load_raw, ref_load_raw):
+        with pytest.raises(NotImplementedError, match="not natively decoded"):
+            load(str(tmp_path / "x.mos"))
     conf = tmp_path / "imageio"
     conf.mkdir()
     (conf / "mos.txt").write_text("[ART RAWImageIO]\nExtension=mos\n"
                                   "ReadCommand=conv\n")
-    monkeypatch.setattr(settings, "user_dir", str(tmp_path))
-    with pytest.raises(NotImplementedError, match="io/iomanager.py"):
-        load_raw(str(tmp_path / "x.mos"))
+    (tmp_path / "x.mos").write_bytes(b"junk")
+    for mod, iom in ((settings, iomanager), (ref_settings, ref_iomanager)):
+        monkeypatch.setattr(mod, "user_dir", str(tmp_path))
+        monkeypatch.setattr(iom, "_instance", None)
+    try:
+        for load in (load_raw, ref_load_raw):
+            with pytest.raises(NotImplementedError,
+                               match="register an external preconverter"):
+                load(str(tmp_path / "x.mos"))
+    finally:
+        iomanager.reset()
+        ref_iomanager.reset()

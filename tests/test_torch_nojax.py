@@ -17,11 +17,15 @@ linked, drawn, a 16-bit grey PNG) and M2's auto white balance with a
 histogram listener; a sixth, refusing all four, decodes an embedded
 preview (whole and through the salvage pass), plans the bundled
 Auto-Matched Curve.arp on a DNG with a preview, and loads a Hald CLUT and
-a grey mask written as JPEG; no source file of the package (`parallel/`,
+a grey mask written as JPEG; a seventh, refusing all four, runs the
+entry points: `init` with a user directory that registers the shipped
+PGM preconverter, `load_image` of a preconverted raw and of a PNG with an
+ICC profile (the LittleCMS model), `process_image`'s refusal of it and
+`thumbnail` from a preview; no source file of the package (`parallel/`,
 the export's and the colour profiles' modules, `masks/raster.py`,
-`pipeline/scopes.py`, `io/jpegdec.py` and `io/native/jpegdec.cc` among
-them), nor chip_smoke.py, imports any of them or reads a file under
-art_tpu/; and
+`pipeline/scopes.py`, `io/jpegdec.py`, `io/native/jpegdec.cc`,
+`io/iomanager.py`, `color/lcms.py` and `preconverters/` among them), nor
+chip_smoke.py, imports any of them or reads a file under art_tpu/; and
 the port's copies of the reference's host modules (profiles, colour-space
 tables, camera constants, output TRCs) hold the reference's values.
 """
@@ -374,6 +378,64 @@ print("JPEG-STANDALONE-OK")
 """
 
 
+ENTRY_SCRIPT = r"""
+import sys
+
+BLOCKED = ("jax", "jaxlib", "art_tpu", "PIL", "cv2")
+
+
+class _Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError("blocked in this process: " + name)
+        return None
+
+
+sys.meta_path.insert(0, _Refuse())
+
+import os
+import tempfile
+import numpy as np
+import art_tpu_torch
+from art_tpu_torch.color import iccwrite
+from art_tpu_torch.io.dngwrite import write_dng
+from art_tpu_torch.io.imagefile import write_png
+
+rng = np.random.default_rng(0)
+with tempfile.TemporaryDirectory() as d:
+    tempfile.tempdir = d
+    os.makedirs(os.path.join(d, "user", "imageio"))
+    with open(os.path.join(d, "user", "imageio", "pnm.txt"), "w") as f:
+        f.write("[ART RAWImageIO]\nExtension=mos\nReadCommand="
+                + sys.executable + " " + os.path.abspath(os.path.join(
+                    "art_tpu_torch", "preconverters", "pnm_to_dng.py"))
+                + "\n")
+    art_tpu_torch.init(user_settings_dir=os.path.join(d, "user"))
+    m = rng.integers(600, 15000, (32, 48)).astype(np.uint16)
+    with open(os.path.join(d, "shot.mos"), "wb") as f:
+        f.write(b"P5\n48 32\n65535\n" + m.astype(">u2").tobytes())
+    frame = art_tpu_torch.load_image(os.path.join(d, "shot.mos"))
+    assert (frame.cfa == m).all() and frame.pattern == "RGGB"
+    png = os.path.join(d, "a.png")
+    write_png(png, rng.integers(0, 256, (8, 12, 3)).astype(np.uint8),
+              icc_bytes=iccwrite.make_icc("Adobe RGB"))
+    img = art_tpu_torch.load_image(png)
+    assert img.rgb.shape == (3, 8, 12) and not img.is_raw
+    try:
+        art_tpu_torch.process_image(png, None, device="cpu")
+        raise AssertionError("a non-raw develop went through")
+    except NotImplementedError as e:
+        assert "non-raw input" in str(e)
+    dng = os.path.join(d, "p.dng")
+    write_dng(dng, m, black=512, white=16383,
+              preview_rgb01=np.full((3, 16, 24), 0.5))
+    thumb = art_tpu_torch.thumbnail(dng, max_px=8, device="cpu")
+    assert thumb.shape == (3, 6, 8)
+assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
+print("ENTRY-STANDALONE-OK")
+"""
+
+
 def test_develops_with_jax_blocked():
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", SCRIPT, REPO], env=env,
@@ -427,6 +489,15 @@ def test_jpeg_paths_with_jax_pil_and_cv2_blocked():
     assert "JPEG-STANDALONE-OK" in proc.stdout
 
 
+def test_entry_points_with_jax_pil_and_cv2_blocked():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", ENTRY_SCRIPT], env=env,
+                          capture_output=True, text=True, timeout=600,
+                          cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "ENTRY-STANDALONE-OK" in proc.stdout
+
+
 def _port_sources():
     root = os.path.join(REPO, "art_tpu_torch")
     for dirpath, _, files in os.walk(root):
@@ -464,7 +535,8 @@ def test_no_source_file_imports_jax():
                  "color/ctl.py", "color/extclut.py",
                  "color/gamutwarning.py", "ops/dcplook.py",
                  "io/imagefile.py", "io/jpegdec.py", "io/metadata.py",
-                 "io/native/jpegdec.cc"):
+                 "io/native/jpegdec.cc", "io/iomanager.py", "color/lcms.py",
+                 "preconverters/pnm_to_dng.py", "__init__.py"):
         assert os.path.join("art_tpu_torch", name) in scanned
     offenders = []
     for path in _port_sources():

@@ -19,8 +19,9 @@ JPEGs here; the port imports no PIL).
 - The bundled Auto-Matched Curve.arp through `cli.main` of both
   packages on a DNG with a JPEG preview: the decoded JPEGs agree to the
   slice bounds.
-- What the slice does not port (auto distortion from a JPEG preview, a
-  non-raw input) exits 2, or raises, naming its step; a gamut
+- What the slice does not port (auto distortion from a JPEG preview)
+  and a non-raw input (whose develop the reference's plan fails on)
+  exit 2, or raise, naming the step; a gamut
   warning against a LUT-class proof profile exits 2 as in the
   reference; --check-lut on a file that is no image answers 1, as the
   reference's. (--devices N over several files runs the
@@ -261,18 +262,33 @@ def test_cli_refusals(dng, tmp_path, capsys, args, step):
     assert not list(out.glob("*.jpg"))
 
 
-def test_cli_refuses_check_lut_and_non_raw(tmp_path, capsys):
+def test_cli_refuses_check_lut_and_non_raw(tmp_path, capsys, monkeypatch):
+    from art_tpu import cli as ref_cli
+    from art_tpu.core import compilecache
     from art_tpu_torch import cli
+    from art_tpu_torch.io.imagefile import write_png
 
     # a Hald CLUT image loads through the port's decoder: a PNG
     # signature and nothing after it is no LUT, as in the reference
     (tmp_path / "hald.png").write_bytes(b"\x89PNG\r\n\x1a\n")
     assert cli.main(["--check-lut", str(tmp_path / "hald.png")]) == 1
     assert "Invalid LUT file" in capsys.readouterr().out
-    (tmp_path / "photo.png").write_bytes(b"\x89PNG\r\n\x1a\n")
-    rc = cli.main(["-Y", "-c", str(tmp_path / "photo.png")], device="cpu")
-    assert rc == 2
-    assert "io/imagefile.py::load_std_image" in capsys.readouterr().err
+    # a non-raw input loads as in the reference, whose plan then fails on
+    # it (develop.py:715); the port refuses it by name: exit 2 in both,
+    # no file written
+    write_png(str(tmp_path / "photo.png"), np.full((8, 12, 3), 90, np.uint8))
+    monkeypatch.setattr(compilecache, "enable", lambda *a, **k: True)
+    for name, main in (("ours", lambda a: cli.main(a, device="cpu")),
+                       ("ref", ref_cli.main)):
+        out = tmp_path / name
+        out.mkdir()
+        rc = main(["-Y", "-o", str(out) + os.sep, "-c",
+                   str(tmp_path / "photo.png")])
+        assert rc == 2 and not os.listdir(out)
+        err = capsys.readouterr().err
+        assert "error processing" in err
+        if name == "ours":
+            assert "non-raw input" in err
 
 
 def test_flagship_u8_equals_the_cast_of_the_float_develop(tmp_path):
@@ -330,7 +346,9 @@ def test_process_image_refusals(dng, tmp_path):
     # curve from a JPEG preview (tests/test_torch_jpegdec.py); the
     # refusals held here are steps still unported. The fast export is
     # ported: with auto distortion on a file with a JPEG preview, its step
-    # is refused; a non-raw input is refused before any listener is fed
+    # is refused; a non-raw input loads and is refused in the plan, where
+    # the reference's fails (tests/test_torch_entry.py), before any
+    # listener is fed
     preview = str(tmp_path / "preview.dng")
     write_dng(preview, np.full((64, 96), 4000, np.uint16), black=512,
               white=16383, preview_rgb01=np.full((3, 16, 24), 0.5))
@@ -342,7 +360,7 @@ def test_process_image_refusals(dng, tmp_path):
     for path, pp, kw, step in (
             (preview, fast, dict(fast=True), "auto distortion"),
             (png, config1(ProcParams), dict(listener=Wants()),
-             "load_std_image")):
+             "non-raw input")):
         with pytest.raises(NotImplementedError, match=step):
             process_image(path, pp, device="cpu", **kw)
 

@@ -140,8 +140,9 @@ def test_batch_bad_file_and_refused_step_continue(tmp_path, capsys):
     paths = make_dngs(tmp_path, 2)
     bad = tmp_path / "broken.dng"
     bad.write_bytes(b"not a dng")
-    # a non-raw input is not ported (auto white balance, this test's
-    # refused step before, is)
+    # a non-raw input loads and its develop is refused by name, where the
+    # reference's plan fails (tests/test_torch_entry.py holds the
+    # reference's queue on it)
     refused = tmp_path / "in.png"
     write_png(str(refused), np.full((16, 24, 3), 128, np.uint8))
     jobs = [(str(paths[0]), ProcParams(), str(tmp_path / "g0.jpg")),
@@ -151,7 +152,7 @@ def test_batch_bad_file_and_refused_step_continue(tmp_path, capsys):
     assert process_batch(jobs, devices=CPU2) == [True, False, False, True]
     assert not (tmp_path / "g1.jpg").exists()
     assert not (tmp_path / "g2.jpg").exists()
-    assert "load_std_image is not ported" in capsys.readouterr().err
+    assert "non-raw input" in capsys.readouterr().err
 
 
 def test_device_failure_raises_after_draining(tmp_path, monkeypatch):
