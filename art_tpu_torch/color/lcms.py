@@ -22,18 +22,26 @@ A numpy model of the C code, with no LittleCMS to call:
   16-bit linear interpolation, a parametric curve through the C library's
   ``pow`` (Python's ``math.pow`` calls it);
 - a LUT-class source (an A2B0 of type ``mft1``, ``mft2`` or ``mAB``):
-  its tag through the port's float pipeline (``color/icclut.py``), black
-  point compensation as LittleCMS forces it for a v4 profile, then the
-  sRGB output in float64. LittleCMS resamples such a transform into an
-  8-bit prelinearised CLUT, which a float model does not equal bit for
-  bit; ``tests/test_torch_stdimage.py`` measures the difference.
+  the joined pipeline in float (the tag through the port's stages,
+  ``color/icclut.py``; black point compensation as LittleCMS forces it
+  for the v4 sRGB in perceptual; the sRGB output in float), then
+  ``cmsopt.c``'s resampling for 8-bit RGB: the prelinearisation curves
+  of ``OptimizeByComputingLinearization`` (a 4096-entry grey ramp,
+  slope-limited and reversed), a 33^3 16-bit CLUT sampled through them,
+  the white node patched (``FixWhiteMisalignment``), and ``PrelinEval8``'s
+  tetrahedral interpolation in LittleCMS's fixed point; where the curves
+  are not monotonic, ``OptimizeByResampling``'s plain CLUT. Within one
+  8-bit code of Pillow's LittleCMS (``tests/test_torch_stdimage.py``):
+  the float pipeline's last bit differs now and then at a CLUT node.
 
 `Refused` marks a profile LittleCMS refuses (it cannot open the profile,
 or cannot link it: a grey or CMYK profile on an RGB image, a tag missing
 or cut off): Pillow raises, and the reference leaves the image as it was.
 A profile LittleCMS would link but this model does not cover (a device
 link, a float D2B0 tag, black point compensation of a matrix source, a
-LUT tag the port does not parse) raises NotImplementedError naming it.
+LUT tag the port does not parse, an A2B0 curve whose table the port's
+curve refit misses by more than `LUT_CURVE_TOL`) raises NotImplementedError
+naming it.
 """
 
 from __future__ import annotations
@@ -419,11 +427,160 @@ def _lab_black_to_xyz(xyz):
     return (D50[0] * f1(fy), D50[1] * f1(fy), D50[2] * f1(fy))
 
 
+PRELIN_POINTS = 4096  # PRELINEARIZATION_POINTS (cmsopt.c)
+GRID_RGB = 33  # _cmsReasonableGridpointsByColorspace for 3 channels
+
+
+def slope_limit(table):
+    """cmsopt.c SlopeLimiting: the first and last 2% of a 16-bit curve
+    replaced by straight lines to 0 and 0xFFFF (reversed for a
+    descending curve)."""
+    t = np.asarray(table, np.int64).copy()
+    n = len(t)
+    at_begin = int(math.floor(n * 0.02 + 0.5))
+    at_end = n - at_begin - 1
+    begin, end = (0xFFFF, 0) if t[0] > t[-1] else (0, 0xFFFF)
+    val = float(t[at_begin])
+    slope = (val - begin) / at_begin
+    beta = val - slope * at_begin
+    i = np.arange(at_begin)
+    t[:at_begin] = quick_saturate_word(i * slope + beta)
+    val = float(t[at_end])
+    slope = (end - val) / at_begin
+    beta = val - slope * at_end
+    i = np.arange(at_end, n)
+    t[at_end:] = quick_saturate_word(i * slope + beta)
+    return t
+
+
+def is_monotonic(t):
+    """cmsIsToneCurveMonotonic: steps against the direction of at most 2,
+    walked from the far end."""
+    t = np.asarray(t, np.int64)
+    if len(t) < 2:
+        return True
+    if t[0] > t[-1]:  # descending: walk forward from the first entry
+        last = t[0]
+        for v in t[1:]:
+            if v - last > 2:
+                return False
+            last = v
+        return True
+    last = t[-1]
+    for v in t[-2::-1]:
+        if v - last > 2:
+            return False
+        last = v
+    return True
+
+
+def is_degenerated(t):
+    """cmsopt.c IsDegenerated: more than a twentieth of the entries at 0
+    or at 0xFFFF (one of each is a linear table)."""
+    t = np.asarray(t, np.int64)
+    zeros, poles = int((t == 0).sum()), int((t == 0xFFFF).sum())
+    if zeros == 1 and poles == 1:
+        return False
+    return zeros > len(t) // 20 or poles > len(t) // 20
+
+
+def reverse_curve(t, n_out):
+    """cmsReverseToneCurveEx of a 16-bit table: for each of n_out output
+    samples y, the interval GetInterval finds (the last that holds y for
+    an ascending table, the first for a descending one) and the line
+    through it; a collapsed interval gives its upper (ascending) or lower
+    end and leaves the line as it was; where no interval holds y the last
+    line stands (0 before any)."""
+    t = np.asarray(t, np.int64)
+    n1 = len(t) - 1
+    ascending = not t[0] > t[-1]
+    y = np.arange(n_out) * 65535.0 / (n_out - 1)
+    lo = np.minimum(t[:-1], t[1:]).astype(np.float64)
+    hi = np.maximum(t[:-1], t[1:]).astype(np.float64)
+    j = np.full(n_out, -1, np.int64)
+    for c0 in range(0, n_out, 256):  # (samples, intervals) in blocks
+        yy = y[c0 : c0 + 256, None]
+        inside = (lo[None] <= yy) & (yy <= hi[None])
+        any_in = inside.any(axis=1)
+        if t[0] < t[n1]:
+            k = n1 - 1 - np.argmax(inside[:, ::-1], axis=1)
+        else:
+            k = np.argmax(inside, axis=1)
+        j[c0 : c0 + 256] = np.where(any_in, k, -1)
+    jj = np.maximum(j, 0)
+    x1, x2 = t[jj].astype(np.float64), t[jj + 1].astype(np.float64)
+    y1 = (jj * 65535.0) / n1
+    y2 = ((jj + 1) * 65535.0) / n1
+    collapsed = (j >= 0) & (x1 == x2)
+    sets = (j >= 0) & ~collapsed
+    with np.errstate(divide="ignore", invalid="ignore"):
+        a = np.where(sets, (y2 - y1) / (x2 - x1), 0.0)
+    b = np.where(sets, y2 - a * x2, 0.0)
+    # the line in force at each sample: the last one set at or before it
+    last = np.maximum.accumulate(np.where(sets, np.arange(n_out), -1))
+    a_in = np.where(last >= 0, a[np.maximum(last, 0)], 0.0)
+    b_in = np.where(last >= 0, b[np.maximum(last, 0)], 0.0)
+    out = quick_saturate_word(a_in * y + b_in)
+    ends = quick_saturate_word(y2 if ascending else y1)
+    return np.where(collapsed, ends, out).astype(np.int64)
+
+
+def to_fixed_domain(a):
+    """_cmsToFixedDomain: a 0..0xFFFF (times a domain) value to 16.16."""
+    a = np.asarray(a, np.int64)
+    return a + (a + 0x7FFF) // 0xFFFF
+
+
+# the most a refit A2B0 curve may miss its table by (of full scale): the
+# pipeline's curves are the port's refits (core/curve1d.py), LittleCMS's
+# the tables themselves
+LUT_CURVE_TOL = 1e-3
+
+
+def _check_curve_fits(lut):
+    """NotImplementedError where a curve of the A2B0 is one the port's
+    refit does not follow within `LUT_CURVE_TOL` (a table with detail
+    finer than the refit's segments): the model would then be more than
+    an 8-bit code from LittleCMS, which interpolates the table."""
+    import torch
+
+    from art_tpu_torch.color.icclut import _is_identity_curves
+    from art_tpu_torch.core.curve1d import eval_curve, fit_curves
+
+    x = np.linspace(0.0, 1.0, 65536)
+    for key in ("in_curves", "m_curves", "out_curves"):
+        stack = lut.get(key)
+        if stack is None or _is_identity_curves(stack):
+            continue
+        fits = fit_curves([stack[i] for i in range(3)])
+        for i in range(3):
+            table = np.asarray(stack[i], np.float64)
+            want = np.interp(x, np.linspace(0.0, 1.0, table.size), table)
+            got = eval_curve(torch.from_numpy(x.astype(np.float32)),
+                             torch.from_numpy(fits[i]), in_max=1.0,
+                             out_max=1.0).double().numpy()
+            err = float(np.abs(got - want).max())
+            if err > LUT_CURVE_TOL:
+                raise NotImplementedError(
+                    f"ICC profile whose A2B0 {key.replace('_', ' ')} "
+                    f"({table.size}-entry table, channel {i}) the port's "
+                    f"refit misses by {err:.2g} of full scale, past "
+                    f"{LUT_CURVE_TOL:g}: LittleCMS interpolates the table")
+
+
 class LutSource:
-    """A LUT-class source in float: its A2B0 through the port's
-    pipeline (``color/icclut.py``), black point compensation to sRGB's
-    zero black (LittleCMS forces it for the v4 sRGB in perceptual), the
-    sRGB colorants inverted and the reversed sRGB curve, to 8 bits."""
+    """A LUT-class source as LittleCMS optimises it for 8-bit RGB
+    (``cmsopt.c``): the joined float pipeline (its A2B0 through the
+    port's stages, ``color/icclut.py``; black point compensation to
+    sRGB's zero black, which LittleCMS forces for the v4 sRGB in
+    perceptual; the sRGB colorants inverted and the reversed sRGB curve)
+    resampled by ``OptimizeByComputingLinearization``: three 4096-entry
+    prelinearisation curves from a grey ramp, slope-limited, a 33^3
+    16-bit CLUT sampled through their inverses, the white node patched
+    by ``FixWhiteMisalignment``, evaluated by ``PrelinEval8`` in
+    LittleCMS's fixed point; ``OptimizeByResampling`` (the CLUT alone,
+    ``TetrahedralInterp16``) where the curves are not monotonic or
+    degenerate."""
 
     def __init__(self, prof):
         from art_tpu_torch.color.iccfile import _parse_lut_tag
@@ -437,6 +594,7 @@ class LutSource:
         except (ValueError, KeyError, IndexError, struct.error) as e:
             raise NotImplementedError(
                 f"ICC profile with an A2B0 the port does not parse ({e})")
+        _check_curve_fits(lut)
         import torch
 
         self.data = {k: torch.from_numpy(np.asarray(v, np.float32))
@@ -446,40 +604,139 @@ class LutSource:
         if prof.version >= 0x4000000:
             bp = PERCEPTUAL_BLACK
         else:
-            bp = _lab_black_to_xyz(self._xyz(np.zeros((1, 3), np.uint8))[0])
+            bp = _lab_black_to_xyz(self._xyz(np.zeros((1, 3), np.float32))[0])
         self.bpc = None
         if any(bp):
             t = [bp[k] - D50[k] for k in range(3)]
             self.bpc = (np.array([(0.0 - D50[k]) / t[k] for k in range(3)]),
                         np.array([-D50[k] * (0.0 - bp[k]) / t[k]
                                   for k in range(3)]))
+        self._optimise()
 
-    def _xyz(self, rgb8):
+    def _xyz(self, rgb):
+        """The A2B0 at float32 RGB in [0, 1]: XYZ (N, 3) float64."""
         import torch
 
         from art_tpu_torch.color.icclut import apply_stages
 
-        x = torch.from_numpy(rgb8.reshape(-1, 3).astype(np.float32) / 255.0)
+        x = torch.from_numpy(np.asarray(rgb, np.float32).reshape(-1, 3))
         r, g, b = apply_stages(x[:, 0], x[:, 1], x[:, 2], self.stages,
                                self.data)
         return torch.stack([r, g, b], -1).double().numpy()
 
-    def __call__(self, rgb8):
-        xyz = self._xyz(rgb8)
+    def pipeline(self, rgb):
+        """The joined float pipeline: float32 RGB (N, 3) in [0, 1] to the
+        encoded sRGB floats, unclipped."""
+        xyz = self._xyz(rgb)
         if self.bpc is not None:
-            xyz = xyz * self.bpc[0] + self.bpc[1]
-        lin = xyz @ self.inv.T
-        idx = quick_saturate_word(np.clip(lin, 0.0, 1.0) * 65535.0)
-        return _srgb_encode8()[idx].reshape(rgb8.shape)
+            xyz = (xyz * self.bpc[0] + self.bpc[1]).astype(np.float32)
+        lin = (np.asarray(xyz, np.float64) @ self.inv.T).astype(np.float32)
+        enc = _srgb_encode_float(lin)
+        return enc
+
+    def _optimise(self):
+        ramp = (np.arange(PRELIN_POINTS, dtype=np.float64)
+                / (PRELIN_POINTS - 1)).astype(np.float32)
+        grey = self.pipeline(np.repeat(ramp[:, None], 3, axis=1))
+        trans = [slope_limit(quick_saturate_word(grey[:, t].astype(np.float64)
+                                                 * 65535.0))
+                 for t in range(3)]
+        suitable = all(is_monotonic(t) and not is_degenerated(t)
+                       for t in trans)
+        g = GRID_RGB
+        node = quick_saturate_word(np.arange(g) * 65535.0 / (g - 1))
+        nodes = np.stack(np.meshgrid(node, node, node, indexing="ij"),
+                         -1).reshape(-1, 3)  # r slowest, b fastest
+        infl = (nodes / 65535.0).astype(np.float32)
+        if suitable:
+            rev = [reverse_curve(t, PRELIN_POINTS) for t in trans]
+            w = quick_saturate_word(infl.astype(np.float64) * 65535.0)
+            infl = np.stack([(lin_lerp16(w[:, t], rev[t]) / 65535.0)
+                             .astype(np.float32) for t in range(3)], -1)
+        out = self.pipeline(infl)
+        self.clut = quick_saturate_word(out.astype(np.float64) * 65535.0
+                                        ).reshape(g, g, g, 3)
+        self.prelin = trans if suitable else None
+        self._fix_white()
+
+    def _eval16(self, rgb8):
+        """PrelinEval8 (or, without curves, TetrahedralInterp16) of (N, 3)
+        uint8: (N, 3) int64 16-bit outputs."""
+        v = np.asarray(rgb8, np.int64).reshape(-1, 3)
+        g1 = GRID_RGB - 1
+        w16 = (v << 8) | v
+        if self.prelin is not None:
+            w16 = np.stack([lin_lerp16(w16[:, t], self.prelin[t])
+                            for t in range(3)], -1)
+        f = to_fixed_domain(w16 * g1)
+        i0 = f >> 16
+        r = f & 0xFFFF
+        if self.prelin is None:  # TetrahedralInterp16 steps past no edge
+            i1 = np.where(w16 == 0xFFFF, i0, i0 + 1)
+        else:
+            i1 = np.where(r == 0, i0, i0 + 1)
+        lut = self.clut
+        rx, ry, rz = r[:, 0:1], r[:, 1:2], r[:, 2:3]
+        x0, y0, z0 = i0[:, 0], i0[:, 1], i0[:, 2]
+        x1, y1, z1 = i1[:, 0], i1[:, 1], i1[:, 2]
+
+        def d(x, y, z):
+            return lut[x, y, z]
+
+        c0 = d(x0, y0, z0)
+        conds = [(rx >= ry) & (ry >= rz), (rx >= rz) & (rz >= ry),
+                 (rz >= rx) & (rx >= ry), (ry >= rx) & (rx >= rz),
+                 (ry >= rz) & (rz >= rx), (rz >= ry) & (ry >= rx)]
+        c1s = [d(x1, y0, z0) - c0, d(x1, y0, z0) - c0,
+               d(x1, y0, z1) - d(x0, y0, z1), d(x1, y1, z0) - d(x0, y1, z0),
+               d(x1, y1, z1) - d(x0, y1, z1), d(x1, y1, z1) - d(x0, y1, z1)]
+        c2s = [d(x1, y1, z0) - d(x1, y0, z0), d(x1, y1, z1) - d(x1, y0, z1),
+               d(x1, y1, z1) - d(x1, y0, z1), d(x0, y1, z0) - c0,
+               d(x0, y1, z0) - c0, d(x0, y1, z1) - d(x0, y0, z1)]
+        c3s = [d(x1, y1, z1) - d(x1, y1, z0), d(x1, y0, z1) - d(x1, y0, z0),
+               d(x0, y0, z1) - c0, d(x1, y1, z1) - d(x1, y1, z0),
+               d(x0, y1, z1) - d(x0, y1, z0), d(x0, y0, z1) - c0]
+        c1 = np.select(conds, c1s, 0)
+        c2 = np.select(conds, c2s, 0)
+        c3 = np.select(conds, c3s, 0)
+        rest = c1 * rx + c2 * ry + c3 * rz + 0x8001
+        return (c0 + ((rest + (rest >> 16)) >> 16)) & 0xFFFF
+
+    def _fix_white(self):
+        """FixWhiteMisalignment: where white does not come out white, the
+        CLUT node white lands on (if it lands on one) set to 0xFFFF."""
+        got = self._eval16(np.full((1, 3), 255, np.uint8))[0]
+        d = np.abs(got - 0xFFFF)
+        if (d > 0xF000).any() or (got == 0xFFFF).all():
+            return
+        # on the first channel whose whites differ: WhitesAreEqual
+        for k in range(3):
+            if d[k] > 0xF000:
+                return
+            if got[k] != 0xFFFF:
+                break
+        white_in = [0xFFFF] * 3 if self.prelin is None else [
+            int(lin_lerp16(np.array([0xFFFF]), t)[0]) for t in self.prelin]
+        pos = [w * (GRID_RGB - 1) / 65535.0 for w in white_in]
+        if any(p != math.floor(p) for p in pos):
+            return
+        x, y, z = (int(p) for p in pos)
+        self.clut[x, y, z] = 0xFFFF
+
+    def __call__(self, rgb8):
+        out = self._eval16(np.asarray(rgb8).reshape(-1, 3))
+        return from_16_to_8(out).astype(np.uint8).reshape(np.shape(rgb8))
 
 
-@functools.lru_cache(maxsize=None)
-def _srgb_encode8():
-    """The reversed sRGB curve at each 16-bit linear value, to 8 bits."""
-    enc = np.array([eval_parametric(-4, SRGB_PARAMS, v / 65535.0)
-                    for v in range(65536)])
-    return from_16_to_8(quick_saturate_word(np.clip(enc, 0.0, 1.0)
-                                            * 65535.0)).astype(np.uint8)
+def _srgb_encode_float(lin):
+    """The reversed sRGB curve (parametric type -4, in double) at float32
+    linear values, to float32."""
+    p = SRGB_PARAMS
+    r = np.asarray(lin, np.float64)
+    disc = math.pow(p[1] * p[4] + p[2], p[0])
+    with np.errstate(invalid="ignore", divide="ignore"):
+        hi = (np.power(np.where(r >= disc, r, 1.0), 1.0 / p[0]) - p[2]) / p[1]
+    return np.where(r >= disc, hi, r / p[3]).astype(np.float32)
 
 
 def build_transform(icc):
@@ -524,6 +781,11 @@ def build_transform(icc):
     return MatrixShaper(colorants, curves)
 
 
+@functools.lru_cache(maxsize=8)
+def _cached_transform(icc):
+    return build_transform(icc)
+
+
 def to_srgb(rgb8, icc):
     """(H, W, 3) uint8 converted from profile `icc` to the built-in sRGB."""
-    return build_transform(icc)(np.asarray(rgb8, np.uint8))
+    return _cached_transform(bytes(icc))(np.asarray(rgb8, np.uint8))

@@ -1,7 +1,7 @@
 """Build the package's host C++ libraries: the raw decoder
 (``io/native/artraw.cc``), the baseline JPEG encoder
-(``io/native/jpegenc.cc``) and the JPEG decoder
-(``io/native/jpegdec.cc``).
+(``io/native/jpegenc.cc``), the JPEG decoder (``io/native/jpegdec.cc``)
+and GIF's LZW decoder (``io/native/lzwdec.cc``).
 
 Each source is compiled by g++ with portable flags (no ``-march=native``,
 so a library built on one machine runs on another) into
@@ -45,7 +45,7 @@ def _cxx() -> str:
     if not cxx:
         raise RuntimeError("g++ not found: cannot build the art_tpu_torch "
                            "host libraries (raw decoder, JPEG encoder and "
-                           "decoder)")
+                           "decoder, GIF decoder)")
     return cxx
 
 

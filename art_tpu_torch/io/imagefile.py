@@ -10,24 +10,27 @@ PNG 8/16-bit through the small zlib writer below (the reference uses PIL
 for 8 bits and OpenCV for 16; the pixels are the same).
 
 `read_rgb8` decodes a PNG (1 to 16 bits; grey, grey and alpha, RGB, RGBA,
-palette; plain or Adam7), a TIFF (strips or tiles; none, deflate, LZW,
-PackBits or JPEG; the horizontal predictor; 1 to 16 bits, and one
-sample of 32-bit integers or floats; grey, RGB, RGBA, palette, YCbCr
-under JPEG) or a JPEG (:mod:`art_tpu_torch.io.jpegdec`: 8-bit
-Huffman-coded baseline, extended or progressive, grey or colour) into
+palette; plain or Adam7), a TIFF or BigTIFF (strips or tiles, chunky or
+planar; none, deflate, LZW, PackBits or JPEG; the horizontal predictor;
+1 to 16 bits, and one sample of 32-bit integers or floats; grey, RGB,
+RGBA, palette, CMYK, YCbCr under JPEG), a JPEG
+(:mod:`art_tpu_torch.io.jpegdec`: Huffman- or arithmetic-coded
+baseline, extended or progressive, lossless; grey, YCbCr, RGB, CMYK or
+YCCK) or a BMP, PNM or GIF (:mod:`art_tpu_torch.io.stdformats`) into
 what the reference's callers ask PIL for,
 ``np.asarray(Image.open(path).convert("RGB"))``, byte for byte: 16-bit
 colour keeps its high byte, 16-bit grey clips at 255 (PIL's I;16), grey
 below 8 bits scales to 0..255, a palette expands through PLTE (entries
-past its end black), alpha and tRNS drop. `read_grey` decodes an
-external mask as PIL opens it: a 16-bit grey PNG or little-endian TIFF
-as its uint16 samples (``I;16``), a TIFF of 32-bit floats as float32
-(``F``), a one-component JPEG as its samples (``L``), any other image
-as the green channel of the above (``L``). `read_image` gives an image
-as ``Image.open`` opens it, in Pillow's mode, with its embedded ICC
+past its end black), alpha and tRNS drop, CMYK goes through Pillow's
+``cmyk2rgb``. `read_grey` decodes an external mask as PIL opens it: a
+16-bit grey PNG or little-endian TIFF as its uint16 samples (``I;16``),
+a TIFF of 32-bit floats as float32 (``F``), any other image as the
+green channel of the above (``L``). `read_image` gives an image as
+``Image.open`` opens it, in Pillow's mode, with its embedded ICC
 profile; `load_std_image` turns it into the RawFrame of a non-raw input
-as the reference does. Another image format raises NotImplementedError
-naming it.
+as the reference does. Another format that Pillow opens raises
+NotImplementedError naming it; bytes Pillow cannot open raise
+`Unidentified`.
 """
 
 from __future__ import annotations
@@ -37,6 +40,8 @@ import struct
 import zlib
 
 import numpy as np
+
+from art_tpu_torch.io.stdformats import PilValueError, Unidentified
 
 
 def save_image(path, rgb_encoded01, bits=8, quality=92, icc_bytes=None,
@@ -151,16 +156,9 @@ def write_png(path, hwc, icc_bytes=None, exif_bytes=None, xmp_bytes=None):
 
 # -- decode ----------------------------------------------------------------
 
-# formats PIL reads that this decoder does not, by their leading bytes
-_OTHER_FORMATS = ((b"GIF8", "GIF"),
-                  (b"BM", "BMP"), (b"II\x2b\x00", "BigTIFF"),
-                  (b"MM\x00\x2b", "BigTIFF"), (b"\x00\x00\x01\x00", "ICO"),
-                  (b"8BPS", "PSD"), (b"\x76\x2f\x31\x01", "OpenEXR"),
-                  (b"\x00\x00\x00\x0cjP  ", "JPEG 2000"))
-
-
 def read_rgb8(path):
-    """A PNG, TIFF or JPEG image as (H, W, 3) uint8, the array PIL's
+    """A PNG, TIFF, JPEG, BMP, PNM or GIF image as (H, W, 3) uint8, the
+    array PIL's
     ``Image.open(path).convert("RGB")`` gives. Another format that PIL
     reads, or a form the port's decoder does not read, raises
     NotImplementedError naming it; bytes that are no image, and an image
@@ -176,8 +174,8 @@ def read_grey(path):
     (``art_tpu/masks/__init__.py::_load_external_mask``): (plane, mode)
     with mode "I;16" (uint16: a 16-bit grey PNG, a little-endian 16-bit
     grey TIFF), "F" (float32: a TIFF of 32-bit float samples) or "L"
-    (uint8: any other image, the green channel of its
-    ``convert("RGB")``). Bytes that are no image, and an image whose
+    (uint8: any other image, "I" of a deep PGM included, the green
+    channel of its ``convert("RGB")``). Bytes that are no image, and an image whose
     decode fails (a truncated file), raise OSError as PIL does; another
     format that PIL reads raises NotImplementedError naming it."""
     with open(path, "rb") as f:
@@ -205,10 +203,6 @@ def read_image(path):
     with open(path, "rb") as f:
         buf = f.read()
     return _decode(buf, path)
-
-
-class Unidentified(OSError):
-    """``Image.open`` fails: the bytes are no image PIL knows."""
 
 
 def to_rgb8(mode, samples):
@@ -284,13 +278,16 @@ def load_std_image(path):
 
 def _decode(buf, path):
     """(mode, samples, icc) of an image's bytes; see `read_image`."""
+    from art_tpu_torch.io import stdformats
+
     try:
         if buf[:8] == b"\x89PNG\r\n\x1a\n":
             samples, depth, ctype, plte, icc = _read_png(buf)
             if ctype == 0 and depth == 16:
                 return "I;16", samples[..., 0], icc
             return "RGB", _png_rgb8(samples, depth, ctype, plte), icc
-        if buf[:4] in (b"II\x2a\x00", b"MM\x00\x2a"):
+        if buf[:4] in (b"II\x2a\x00", b"MM\x00\x2a", b"II\x2b\x00",
+                       b"MM\x00\x2b"):
             return _read_tiff(buf)
         if buf[:3] == b"\xff\xd8\xff":
             from art_tpu_torch.io import jpegdec
@@ -301,27 +298,34 @@ def _decode(buf, path):
                 raise Unidentified(f"cannot identify image file "
                                    f"{str(path)!r}: {e}") from e
             return "RGB", jpegdec.decode_rgb(buf), icc
+        if buf[:2] == b"BM":
+            return (*stdformats.read_bmp(buf), None)
+        if buf[:6] in (b"GIF87a", b"GIF89a"):
+            return (*stdformats.read_gif(buf), None)
+        if stdformats.pnm_magic(buf)[0] in (b"P1", b"P2", b"P3", b"P4",
+                                            b"P5", b"P6"):
+            return (*stdformats.read_pnm(buf), None)
     except (IndexError, struct.error, zlib.error) as e:
         raise OSError(f"broken image file {str(path)!r}: {e}") from e
     except ValueError as e:
-        if isinstance(e, _TooLarge):
+        if isinstance(e, (_TooLarge, PilValueError)):
             raise
         raise OSError(f"broken image file {str(path)!r}: {e}") from e
     _refuse_format(buf, path)
 
 
 def _refuse_format(buf, path):
-    name = next((n for magic, n in _OTHER_FORMATS if buf.startswith(magic)),
-                None)
-    if name is None and buf[:4] == b"RIFF" and buf[8:12] == b"WEBP":
-        name = "WebP"
-    if name is None and len(buf) > 2 and buf[:1] == b"P" \
-            and buf[1:2] in b"1234567" and buf[2:3].isspace():
-        name = "PNM"
+    """NotImplementedError naming a format Pillow opens and the port does
+    not decode; `Unidentified` where Pillow opens nothing, and the other
+    errors Pillow's open raises (:mod:`art_tpu_torch.io.unported`)."""
+    from art_tpu_torch.io import unported
+
+    name = unported.identify(buf)
     if name is not None:
         raise NotImplementedError(
             f"{name} image {str(path)!r}: the port's image decoder "
-            "(io/imagefile.py::read_rgb8) reads PNG, TIFF and JPEG only")
+            "(io/imagefile.py::read_rgb8) reads PNG, TIFF, JPEG, BMP, PNM "
+            "and GIF only")
     raise Unidentified(f"cannot identify image file {str(path)!r}")
 
 
@@ -575,32 +579,49 @@ _TIFF_COMPRESSION = {1: "none", 5: "LZW", 8: "deflate", 32946: "deflate",
                      32773: "PackBits"}
 
 
+# Pillow's integer TIFF types by their struct codes, and every type's size
+_TIFF_TYPES = {1: "B", 3: "H", 4: "I", 6: "b", 8: "h", 9: "i", 16: "Q",
+               17: "q", 18: "Q"}
+_TIFF_TYPE_SIZE = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 6: 1, 7: 1, 8: 2, 9: 4,
+                   10: 8, 11: 4, 12: 8, 13: 4, 16: 8, 17: 8, 18: 8}
+
+
 def _read_tiff(buf):
-    """A TIFF as Pillow opens it: (mode, samples, icc) as `read_image`
-    gives them. Pillow's modes of one sample (TiffImagePlugin.OPEN_INFO):
-    "I;16" for 16 bits little-endian (WhiteIsZero not inverted), "I;16B"
-    for 16 bits big-endian BlackIsZero (it opens no big-endian 16-bit
-    WhiteIsZero image), "I" for signed 16-bit and for 32-bit integers
-    (unsigned ones little-endian only, wrapped to int32), "F" for 32-bit
-    floats; every other form through its ``convert("RGB")``. A
-    JPEG-compressed image (compression 7) decodes strip by strip or tile
-    by tile through :mod:`art_tpu_torch.io.jpegdec`, its JPEGTables
-    (tag 347) joined to each stream, as libtiff feeds libjpeg: YCbCr
-    (photometric 6) converted to RGB as libtiff's JPEGCOLORMODE_RGB asks,
-    RGB and grey unconverted."""
-    from art_tpu_torch.io.metadata import _read_ifd, _value
+    """A TIFF or BigTIFF as Pillow opens it: (mode, samples, icc) as
+    `read_image` gives them. Pillow's modes of one sample
+    (TiffImagePlugin.OPEN_INFO): "I;16" for 16 bits little-endian
+    (WhiteIsZero not inverted), "I;16B" for 16 bits big-endian
+    BlackIsZero (it opens no big-endian 16-bit WhiteIsZero image), "I"
+    for signed 16-bit and for 32-bit integers (unsigned ones
+    little-endian only, wrapped to int32), "F" for 32-bit floats; every
+    other form through its ``convert("RGB")``: CMYK (photometric 5, 8
+    bits) through Pillow's ``cmyk2rgb``. Separate planes
+    (PlanarConfiguration 2) decode plane by plane, each strip or tile
+    one sample. A JPEG-compressed image (compression 7) decodes strip by
+    strip or tile by tile through :mod:`art_tpu_torch.io.jpegdec`, its
+    JPEGTables (tag 347) joined to each stream, as libtiff feeds libjpeg:
+    YCbCr (photometric 6) converted to RGB as libtiff's
+    JPEGCOLORMODE_RGB asks, RGB and grey unconverted."""
+    from art_tpu_torch.io.stdformats import cmyk_to_rgb
 
     le = buf[:2] == b"II"
+    big = buf[2:4] in (b"\x2b\x00", b"\x00\x2b")
     e = "<" if le else ">"
+    from art_tpu_torch.io.metadata import _read_ifd, _value
+
     try:
-        ents, _ = _read_ifd(buf, struct.unpack_from(e + "I", buf, 4)[0], le)
+        if big and struct.unpack_from(e + "HH", buf, 4) != (8, 0):
+            raise struct.error("BigTIFF: offset size other than 8")
+        first = struct.unpack_from(e + ("Q" if big else "I"), buf,
+                                   8 if big else 4)[0]
+        ents = _read_ifd(buf, first, le, big, _TIFF_TYPE_SIZE)[0]
     except struct.error as err:  # Pillow's open fails on the IFD
         raise Unidentified(f"TIFF: broken IFD ({err})") from err
 
     def get(tag, default=None):
         if tag not in ents:
             return default
-        v = _value(buf, *ents[tag], le)
+        v = _value(buf, *ents[tag], le, _TIFF_TYPES)
         return default if v is None else v
 
     def seq(tag):
@@ -616,7 +637,7 @@ def _read_tiff(buf):
     def unported(what):
         raise NotImplementedError(
             f"TIFF image with {what}: the port's image decoder "
-            "(io/imagefile.py::read_rgb8) reads baseline and "
+            "(io/imagefile.py::read_rgb8) reads baseline, CMYK, planar and "
             "JPEG-compressed TIFF only")
 
     w, h = int(get(256, 0)), int(get(257, 0))
@@ -627,6 +648,7 @@ def _read_tiff(buf):
     photo = int(get(262, 1))
     pred = int(get(317, 1))
     fmt = seq(339) or (1,)
+    planar = int(get(284, 1)) == 2 and spp > 1
     icc = raw_tag(34675)
     if w <= 0 or h <= 0:
         raise Unidentified("TIFF: no image size")
@@ -634,8 +656,8 @@ def _read_tiff(buf):
         unported("old-style JPEG compression (6)")
     if comp not in _TIFF_COMPRESSION and comp != 7:
         unported(f"compression {comp}")
-    if int(get(284, 1)) != 1:
-        unported("separate colour planes")
+    if int(get(284, 1)) not in (1, 2):
+        unported(f"planar configuration {get(284)}")
     # Pillow's mode of one 16- or 32-bit sample
     single = spp == 1 and photo in (0, 1)
     mode = None
@@ -661,9 +683,12 @@ def _read_tiff(buf):
         unported(f"{bits} bits per sample")
     if pred not in (1, 2) or (mode == "F" and pred != 1):
         unported(f"predictor {pred}")
+    if photo == 5 and (depth != 8 or spp not in (4, 5)):
+        unported(f"CMYK of {bits} bits per sample")
     if comp == 7:
-        if depth != 8 or mode is not None:
-            unported(f"JPEG compression of {bits} bits per sample")
+        if depth != 8 or mode is not None or planar:
+            unported(f"JPEG compression of {bits} bits per sample"
+                     + (", separate planes" if planar else ""))
         if photo == 6 and spp == 3:
             photo_out, color = 2, 1
         elif (photo == 2 and spp == 3) or (photo in (0, 1) and spp == 1):
@@ -673,7 +698,7 @@ def _read_tiff(buf):
                      "samples")
     else:
         photo_out = photo
-        if photo not in (0, 1, 2, 3):
+        if photo not in (0, 1, 2, 3, 5):
             unported(f"photometric interpretation {photo}")
     if photo_out == 2 and spp < 3:
         raise Unidentified("TIFF: RGB with fewer than 3 samples")
@@ -682,15 +707,19 @@ def _read_tiff(buf):
         bw, bh = int(get(322)), int(get(323))
         offsets, counts = seq(324), seq(325)
         across = (w + bw - 1) // bw
+        per_plane = across * ((h + bh - 1) // bh)
     else:
         bw, bh = w, int(get(278, h))
         bh = min(bh, h) if bh > 0 else h
         offsets, counts = seq(273), seq(279)
         across = 1
+        per_plane = (h + bh - 1) // bh
     if not offsets:
         raise ValueError("TIFF: no image data")
+    nplanes = spp if planar else 1
+    bspp = 1 if planar else spp  # samples a pixel in one strip or tile
     nbytes = depth // 8 if depth >= 8 else 0
-    row_bytes = (bw * spp * depth + 7) // 8
+    row_bytes = (bw * bspp * depth + 7) // 8
     block_bytes = row_bytes * bh
     if mode == "F":
         dtype, store = np.dtype(e + "f4"), np.float32
@@ -701,12 +730,24 @@ def _read_tiff(buf):
         dtype, store = np.dtype(e + "u2"), np.uint16
     else:
         dtype, store = np.uint8, np.uint8
+    # Pillow unpacks an uncompressed planar 16-bit plane with the 8-bit
+    # unpacker of its band ("RGB;16L"[k]): a strip's or tile's bytes in
+    # order, one a pixel, rows as long as its part in the image (a tile
+    # past the right edge: rows at the full row's stride)
+    bytewise = planar and comp == 1 and depth == 16 and mode is None
+    if bytewise:
+        store = np.uint8
     img = np.zeros((h, w, spp) if depth >= 8 else (h, w), store)
     tables = raw_tag(347)
     for i, off in enumerate(offsets):
-        y0 = (i // across) * bh
-        x0 = (i % across) * bw
+        plane, j = divmod(i, per_plane) if planar else (0, i)
+        if plane >= nplanes:
+            break
+        y0 = (j // across) * bh
+        x0 = (j % across) * bw
         if y0 >= h:
+            if planar:
+                continue
             break
         n = counts[i] if counts else block_bytes
         if off + n > len(buf):
@@ -733,8 +774,12 @@ def _read_tiff(buf):
             raw = _packbits_decode(raw, block_bytes)
         raw = raw[:block_bytes].ljust(block_bytes, b"\0")
         rows = np.frombuffer(raw, np.uint8).reshape(bh, row_bytes)
-        if depth >= 8:
-            blk = rows.view(dtype).reshape(bh, bw, spp).astype(store)
+        if bytewise:
+            blk = np.zeros((bh, bw, 1), np.uint8)
+            blk[:hh, :ww, 0] = rows[:hh, :ww] if x0 + bw > w else \
+                np.frombuffer(raw, np.uint8)[: hh * ww].reshape(hh, ww)
+        elif depth >= 8:
+            blk = rows.view(dtype).reshape(bh, bw, bspp).astype(store)
             if pred == 2:  # horizontal differencing, sample by sample
                 blk = np.cumsum(blk, axis=1, dtype=store)
         else:
@@ -742,7 +787,10 @@ def _read_tiff(buf):
             blk = np.zeros((bh, bw), np.uint8)
             for k in range(depth):
                 blk = (blk << 1) | bitv[..., k]
-        img[y0 : y0 + hh, x0 : x0 + ww] = blk[:hh, :ww]
+        if planar:
+            img[y0 : y0 + hh, x0 : x0 + ww, plane] = blk[:hh, :ww, 0]
+        else:
+            img[y0 : y0 + hh, x0 : x0 + ww] = blk[:hh, :ww]
     if depth < 8:
         img = img[..., None]
     if mode is not None:
@@ -762,8 +810,10 @@ def _read_tiff(buf):
         if photo_out == 0:
             grey = 255 - grey
         return "RGB", np.repeat(grey[..., None], 3, axis=2), icc
+    if photo_out == 5:
+        return "RGB", cmyk_to_rgb(img[..., :4]), icc
     rgb = img[..., :3]
-    if depth == 16:
+    if depth == 16 and not bytewise:
         rgb = (rgb >> 8).astype(np.uint8)
     return "RGB", np.ascontiguousarray(rgb), icc
 

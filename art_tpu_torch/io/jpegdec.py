@@ -15,18 +15,21 @@ Two layers, as in Pillow:
   progressive file cut before its last refinement. Nothing falls back to
   another library.
 
-What it decodes: Huffman-coded SOF0, SOF1 and SOF2 at 8 bits; 1 component
-(mode L) or 3 (YCbCr after a JFIF APP0, an Adobe APP14 with transform 1,
-or component IDs other than R, G, B; RGB after an APP14 with transform 0
-or IDs R, G, B); any sampling libjpeg upsamples (4:4:4, 4:2:2, 4:2:0,
-4:4:0, 4:1:1, ...); restart intervals; any size from 1x1.
+What it decodes: SOF0, SOF1 and SOF2 (Huffman-coded), SOF9 and SOF10
+(arithmetic-coded) and SOF3 (lossless, Huffman-coded) at 8 bits; 1
+component (mode L), 3 (YCbCr after a JFIF APP0, an Adobe APP14 with
+transform 1, or component IDs other than R, G, B; RGB after an APP14
+with transform 0 or IDs R, G, B) or 4 (mode CMYK: CMYK, or YCCK after an
+APP14 with a transform other than 0, inverted as Pillow's "CMYK;I" raw
+mode reads Adobe's CMYK); any sampling libjpeg upsamples (4:4:4, 4:2:2,
+4:2:0, 4:4:0, 4:1:1, ...); restart intervals; any size from 1x1.
 
 The other forms, as Pillow here treats them:
-- arithmetic coding (SOF9, SOF10), lossless SOF3 at 8 bits and 4
-  components (CMYK, or YCCK after an APP14 with transform 2): Pillow
-  decodes them, so the port raises NotImplementedError naming the form;
 - 12 and 16 bits (any process): Pillow's header parse refuses them, so
   the port raises OSError;
+- lossless arithmetic coding (SOF11): libjpeg-turbo does not implement
+  it, so the decode fails (OSError, or a black image in the salvage
+  pass);
 - the hierarchical processes (SOF5-7, SOF13-15) and DHP: Pillow opens
   them and libjpeg fails, so the port fails as that decode does (OSError,
   or a black image in the salvage pass).
@@ -39,7 +42,11 @@ rest of its buffer as allocated (zeros): a file cut inside its
 entropy-coded data decodes to the end (grey blocks past the cut in a
 sequential file, smoothed coefficients in a progressive one), a file cut
 where libjpeg cannot reach its output pass (inside a header or between
-the scans of a progressive file) gives a black image.
+the scans of a progressive file) gives a black image. The arithmetic
+decoder cannot suspend: where it needs bytes past those Pillow has fed
+(past the file's end, or past the first 64 KiB of a larger file) libjpeg
+fails, the strict load raises, and the salvage load keeps the scanlines
+a single-scan file output before the failure.
 """
 
 from __future__ import annotations
@@ -56,7 +63,7 @@ _LIB = None
 _LIB_LOCK = threading.Lock()
 
 # Image.open's limit: twice Image.MAX_IMAGE_PIXELS
-_BOMB_PIXELS = 2 * 178956970
+_BOMB_PIXELS = 178956970
 
 # markers by Pillow's handler (the rest from C0 on have none)
 _SOF = {0xC0, 0xC1, 0xC2, 0xC3, 0xC5, 0xC6, 0xC7, 0xC9, 0xCA, 0xCB, 0xCD,
@@ -155,8 +162,10 @@ def _parse(buf):
     if hdr.mode is None or hdr.size is None or min(hdr.size) <= 0:
         raise SyntaxError("no mode or an empty size")
     if hdr.size[0] * hdr.size[1] > _BOMB_PIXELS:
-        raise OSError(f"image size {hdr.size} exceeds the decompression "
-                      "bomb limit")
+        from art_tpu_torch.io.stdformats import DecompressionBomb
+
+        raise DecompressionBomb(f"image size {hdr.size} exceeds the "
+                                "decompression bomb limit")
     return hdr
 
 
@@ -231,23 +240,6 @@ def _dqt(r):
         s = s[qt_length:]
 
 
-def _refuse(hdr):
-    """The forms Pillow decodes and the port does not."""
-    what = None
-    if hdr.sof in (0xC9, 0xCA):
-        what = "arithmetic-coded"
-    elif hdr.sof == 0xC3:
-        what = "lossless (SOF3)"
-    elif hdr.sof == 0xCB:
-        what = "lossless arithmetic-coded (SOF11)"
-    elif hdr.mode == "CMYK":
-        what = "YCCK" if hdr.adobe_transform == 2 else "CMYK"
-    if what:
-        raise NotImplementedError(
-            f"{what} JPEG: the port's JPEG decoder (io/jpegdec.py) reads "
-            "8-bit Huffman-coded grey, YCbCr and RGB only")
-
-
 def _load():
     global _LIB
     with _LIB_LOCK:
@@ -273,43 +265,49 @@ def _load():
 
 def _native_decode(buf, salvage=False, color=-1):
     """The C++ decoder on the whole stream: (outcome, array or None,
-    message); outcome 0 every scanline output, 1 the same but a later
-    marker failed, 2 the data ended first, 3 an error came first. color:
+    message, scanlines output); outcome 0 every scanline output, 1 the same but a later
+    marker failed, 2 the data ended first, 3 an error came first, 4 an
+    error came inside the one scan of a single-scan file (the array: the
+    scanlines output before it, zeros after). color:
     a three-component frame's colour space, -1 libjpeg's guess, 0 the
     components unconverted, 1 YCbCr."""
     lib = _load()
-    info = (ctypes.c_int * 4)()
+    info = (ctypes.c_int * 5)()
     out = ctypes.POINTER(ctypes.c_uint8)()
     msg = ctypes.create_string_buffer(256)
     data = bytes(buf)
     if lib.jpegdec_decode_as(data, len(data), int(bool(salvage)), int(color),
                              info, ctypes.byref(out), msg, len(msg)) != 0:
         raise RuntimeError("jpegdec: bad arguments")
-    outcome, h, w, c = info[0], info[1], info[2], info[3]
+    outcome, h, w, c, rows = info[0], info[1], info[2], info[3], info[4]
     arr = None
     if out:
         try:
             arr = np.ctypeslib.as_array(out, shape=(h * w * c,)).copy()
         finally:
             lib.jpegdec_free(out)
-        arr = arr.reshape((h, w) if c == 1 else (h, w, 3))
-    return outcome, arr, msg.value.decode("ascii", "replace")
+        arr = arr.reshape((h, w) if c == 1 else (h, w, c))
+    return (outcome, arr, msg.value.decode("ascii", "replace"),
+            rows if outcome == 4 else h)
 
 
 def decode(buf, salvage=False):
     """A JPEG stream as Pillow's ``Image.open(...)`` loads it: (H, W)
-    uint8 for mode L, (H, W, 3) for RGB. Strict (Pillow's default) raises
+    uint8 for mode L, (H, W, 3) for RGB, (H, W, 4) for CMYK (Pillow's
+    "CMYK;I": libjpeg's CMYK inverted). Strict (Pillow's default) raises
     OSError where the load fails; `salvage` is the load under
-    ``ImageFile.LOAD_TRUNCATED_IMAGES``. A form Pillow decodes and the
-    port does not raises NotImplementedError naming it."""
+    ``ImageFile.LOAD_TRUNCATED_IMAGES``."""
     hdr = pil_header(buf)
-    _refuse(hdr)
     w, h = hdr.size
-    outcome, arr, msg = _native_decode(buf, salvage)
-    if outcome == 0 or (salvage and outcome == 1):
+    outcome, arr, msg, rows = _native_decode(buf, salvage)
+    if arr is not None and hdr.mode == "CMYK":
+        # Pillow inverts the scanlines libjpeg output; the rest stay 0
+        arr[:rows] = 255 - arr[:rows]
+    if outcome == 0 or (salvage and outcome in (1, 4)):
         return arr
     if salvage:
-        return np.zeros((h, w) if hdr.mode == "L" else (h, w, 3), np.uint8)
+        return np.zeros({"L": (h, w), "RGB": (h, w, 3)}.get(
+            hdr.mode, (h, w, 4)), np.uint8)
     if outcome == 2:
         raise OSError("image file is truncated")
     raise OSError(f"broken data stream when reading image file: {msg}")
@@ -319,16 +317,9 @@ def decode_tiff_stream(buf, color):
     """One strip or tile of a JPEG-compressed TIFF (its JPEGTables
     joined), as libtiff has libjpeg decode it for Pillow: (H, W) uint8 for
     one component, (H, W, 3) for three; color 1 converts YCbCr to RGB
-    (JPEGCOLORMODE_RGB), 0 keeps the components as they are. A form the
-    port's decoder does not read raises NotImplementedError naming it;
-    a stream libjpeg cannot decode to its end raises OSError."""
-    try:
-        hdr = pil_header(buf)
-    except OSError:
-        hdr = None
-    if hdr is not None:
-        _refuse(hdr)
-    outcome, arr, msg = _native_decode(buf, False, color)
+    (JPEGCOLORMODE_RGB), 0 keeps the components as they are. A stream
+    libjpeg cannot decode to its end raises OSError."""
+    outcome, arr, msg, _ = _native_decode(buf, False, color)
     if outcome != 0:
         raise OSError(f"TIFF JPEG strip: {msg or 'the data ended first'}")
     return arr
@@ -336,7 +327,11 @@ def decode_tiff_stream(buf, color):
 
 def decode_rgb(buf, salvage=False):
     """`decode` followed by Pillow's ``convert("RGB")``: (H, W, 3)."""
+    from art_tpu_torch.io.stdformats import cmyk_to_rgb
+
     arr = decode(buf, salvage)
     if arr.ndim == 2:
         arr = np.repeat(arr[..., None], 3, axis=2)
+    elif arr.shape[2] == 4:
+        arr = cmyk_to_rgb(arr)
     return arr

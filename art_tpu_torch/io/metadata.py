@@ -29,38 +29,46 @@ _EXIF_TAGS = {
 _TYPE_SIZE = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 7: 1, 9: 4, 10: 8, 11: 4, 12: 8}
 
 
-def _read_ifd(buf, off, le):
+def _read_ifd(buf, off, le, big=False, type_size=_TYPE_SIZE):
+    """The IFD at `off`: ({tag: (type, count, data offset)}, the next
+    IFD's offset). `big`: a BigTIFF IFD (an 8-byte entry count, 20-byte
+    entries with 8-byte counts and offsets, values up to 8 bytes
+    inline); `type_size`: the bytes of a value of each type."""
     e = "<" if le else ">"
-    if off + 2 > len(buf):
+    count, word, head, step, inline = ("Q", "Q", 8, 20, 8) if big else \
+        ("H", "I", 2, 12, 4)
+    if off + head > len(buf):
         return {}, 0
-    n = struct.unpack_from(e + "H", buf, off)[0]
+    n = struct.unpack_from(e + count, buf, off)[0]
     entries = {}
     for i in range(n):
-        p = off + 2 + 12 * i
-        if p + 12 > len(buf):
+        p = off + head + step * i
+        if p + step > len(buf):
             break
-        tag, typ, cnt = struct.unpack_from(e + "HHI", buf, p)
-        size = _TYPE_SIZE.get(typ, 1) * cnt
-        if size <= 4:
-            data_off = p + 8
+        tag, typ, cnt = struct.unpack_from(e + "HH" + word, buf, p)
+        size = type_size.get(typ, 1) * cnt
+        if size <= inline:
+            data_off = p + step - inline
         else:
-            data_off = struct.unpack_from(e + "I", buf, p + 8)[0]
+            data_off = struct.unpack_from(e + word, buf, p + step - inline)[0]
         entries[tag] = (typ, cnt, data_off)
-    nxt = struct.unpack_from(e + "I", buf, off + 2 + 12 * n)[0] \
-        if off + 2 + 12 * n + 4 <= len(buf) else 0
+    end = off + head + step * n
+    nxt = struct.unpack_from(e + word, buf, end)[0] \
+        if end + inline <= len(buf) else 0
     return entries, nxt
 
 
-def _value(buf, typ, cnt, off, le):
+_INTS = {3: "H", 4: "I"}  # the integer types read, by their struct codes
+
+
+def _value(buf, typ, cnt, off, le, ints=_INTS):
     e = "<" if le else ">"
     try:
         if typ == 2:
             raw = buf[off : off + cnt]
             return raw.split(b"\0")[0].decode("ascii", "replace")
-        if typ == 3:
-            v = struct.unpack_from(e + f"{cnt}H", buf, off)
-        elif typ == 4:
-            v = struct.unpack_from(e + f"{cnt}I", buf, off)
+        if typ in ints:
+            v = struct.unpack_from(e + f"{cnt}{ints[typ]}", buf, off)
         elif typ == 5:
             parts = struct.unpack_from(e + f"{2 * cnt}I", buf, off)
             v = tuple((parts[2 * i], parts[2 * i + 1]) for i in range(cnt))
@@ -134,11 +142,12 @@ def decode_jpeg_resilient(blob):
     keeps the scanlines that decoded. None where both fail. A form Pillow
     decodes and the port does not raises NotImplementedError."""
     from art_tpu_torch.io import jpegdec
+    from art_tpu_torch.io.stdformats import DecompressionBomb
 
     for salvage in (False, True):
         try:
             return jpegdec.decode_rgb(blob, salvage=salvage)
-        except OSError:
+        except (OSError, DecompressionBomb):
             pass
     return None
 

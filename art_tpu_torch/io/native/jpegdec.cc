@@ -1,7 +1,8 @@
-// jpegdec: a decoder for 8-bit Huffman-coded JPEG (baseline, extended
-// sequential, progressive) that gives the bytes libjpeg-turbo's default
-// decompressor gives to a caller that feeds it as Pillow does, for the
-// port's JPEG reads (previews, Hald CLUTs, PSFs, masks).
+// jpegdec: a decoder for 8-bit JPEG (baseline, extended sequential and
+// progressive, Huffman- or arithmetic-coded; lossless, Huffman-coded)
+// that gives the bytes libjpeg-turbo's default decompressor gives to a
+// caller that feeds it as Pillow does, for the port's JPEG reads
+// (previews, Hald CLUTs, PSFs, masks, non-raw inputs).
 //
 // What it mirrors (libjpeg-turbo source files in brackets):
 // - the marker reader: SOI first, the table and frame markers with their
@@ -27,7 +28,15 @@
 // - the triangular upsamplers h2v1 and h2v2 (above 2 samples wide) and
 //   h1v2, else replication [jdsample.c], with the first and last sample
 //   rows repeated as context [jdmainct.c];
-// - the table-driven YCbCr to RGB conversion [jdcolor.c].
+// - the table-driven YCbCr to RGB and YCCK to CMYK conversions
+//   [jdcolor.c];
+// - the arithmetic decoder with its conditioning tables (DAC), its
+//   statistics bins and the Qe table, sequential and progressive; it
+//   cannot suspend, so where it needs bytes past those fed it fails
+//   [jdarith.c, jaricom.c];
+// - lossless decoding: the Huffman-coded sample differences, the seven
+//   predictors with the point transform, restarts on whole MCU rows, and
+//   replication upsampling [jdlhuff.c, jdlossls.c, jddiffct.c].
 //
 // Suspension: Pillow hands the decoder 64 KiB of the file a call and
 // suspends it where it needs more; the bytes fed so far decide whether a
@@ -41,9 +50,12 @@
 // info[0]: 0 every scanline was output and the rest of the stream read
 // (to EOI, or to its end); 1 every scanline was output but a later
 // marker failed; 2 the data ended first; 3 an error came first.
-// info[1..3]: height, width, output channels (1 grey, 3 RGB), where the
-// frame header was read. *out holds (height, width, channels) uint8 for
-// outcomes 0 and 1; free it with jpegdec_free. Returns 0, or -1 on bad
+// info[1..3]: height, width, output channels (1 grey, 3 RGB, 4 CMYK as
+// libjpeg outputs it), where the frame header was read. *out holds
+// (height, width, channels) uint8 for outcomes 0 and 1; free it with
+// jpegdec_free. Outcome 4: an error came while the one scan of a
+// single-scan file was decoded; *out holds the scanlines output before
+// it (info[4] of them) and zeros after. Returns 0, or -1 on bad
 // arguments. msg gets the error's text.
 //   int jpegdec_decode_as(..., int salvage, int color, int* info, ...)
 // is the same with the colour space of a three-component frame set as
@@ -108,6 +120,52 @@ const size_t kChunk = 65536;  // Pillow's read size (ImageFile.MAXBLOCK)
 const int kMinGetBits = 57;   // BIT_BUF_SIZE - 7 for a 64-bit buffer
 const int kLookahead = 8;
 
+// jaricom.c: Qe, Next_Index_MPS, Switch_MPS and Next_Index_LPS of Table D.2
+// packed as (Qe << 16) | (NMPS << 8) | (SWITCH << 7) | NLPS, plus entry
+// 113, the fixed 0.5 estimate
+#define V(i, qe, nlps, nmps, sw) \
+  (((int64_t)(qe) << 16) | ((int64_t)(nmps) << 8) | ((int64_t)(sw) << 7) | (nlps))
+const int64_t kAritab[114] = {
+    V(0, 0x5a1d, 1, 1, 1),      V(1, 0x2586, 14, 2, 0),     V(2, 0x1114, 16, 3, 0),
+    V(3, 0x080b, 18, 4, 0),     V(4, 0x03d8, 20, 5, 0),     V(5, 0x01da, 23, 6, 0),
+    V(6, 0x00e5, 25, 7, 0),     V(7, 0x006f, 28, 8, 0),     V(8, 0x0036, 30, 9, 0),
+    V(9, 0x001a, 33, 10, 0),    V(10, 0x000d, 35, 11, 0),   V(11, 0x0006, 9, 12, 0),
+    V(12, 0x0003, 10, 13, 0),   V(13, 0x0001, 12, 13, 0),   V(14, 0x5a7f, 15, 15, 1),
+    V(15, 0x3f25, 36, 16, 0),   V(16, 0x2cf2, 38, 17, 0),   V(17, 0x207c, 39, 18, 0),
+    V(18, 0x17b9, 40, 19, 0),   V(19, 0x1182, 42, 20, 0),   V(20, 0x0cef, 43, 21, 0),
+    V(21, 0x09a1, 45, 22, 0),   V(22, 0x072f, 46, 23, 0),   V(23, 0x055c, 48, 24, 0),
+    V(24, 0x0406, 49, 25, 0),   V(25, 0x0303, 51, 26, 0),   V(26, 0x0240, 52, 27, 0),
+    V(27, 0x01b1, 54, 28, 0),   V(28, 0x0144, 56, 29, 0),   V(29, 0x00f5, 57, 30, 0),
+    V(30, 0x00b7, 59, 31, 0),   V(31, 0x008a, 60, 32, 0),   V(32, 0x0068, 62, 33, 0),
+    V(33, 0x004e, 63, 34, 0),   V(34, 0x003b, 32, 35, 0),   V(35, 0x002c, 33, 9, 0),
+    V(36, 0x5ae1, 37, 37, 1),   V(37, 0x484c, 64, 38, 0),   V(38, 0x3a0d, 65, 39, 0),
+    V(39, 0x2ef1, 67, 40, 0),   V(40, 0x261f, 68, 41, 0),   V(41, 0x1f33, 69, 42, 0),
+    V(42, 0x19a8, 70, 43, 0),   V(43, 0x1518, 72, 44, 0),   V(44, 0x1177, 73, 45, 0),
+    V(45, 0x0e74, 74, 46, 0),   V(46, 0x0bfb, 75, 47, 0),   V(47, 0x09f8, 77, 48, 0),
+    V(48, 0x0861, 78, 49, 0),   V(49, 0x0706, 79, 50, 0),   V(50, 0x05cd, 48, 51, 0),
+    V(51, 0x04de, 50, 52, 0),   V(52, 0x040f, 50, 53, 0),   V(53, 0x0363, 51, 54, 0),
+    V(54, 0x02d4, 52, 55, 0),   V(55, 0x025c, 53, 56, 0),   V(56, 0x01f8, 54, 57, 0),
+    V(57, 0x01a4, 55, 58, 0),   V(58, 0x0160, 56, 59, 0),   V(59, 0x0125, 57, 60, 0),
+    V(60, 0x00f6, 58, 61, 0),   V(61, 0x00cb, 59, 62, 0),   V(62, 0x00ab, 61, 63, 0),
+    V(63, 0x008f, 61, 32, 0),   V(64, 0x5b12, 65, 65, 1),   V(65, 0x4d04, 80, 66, 0),
+    V(66, 0x412c, 81, 67, 0),   V(67, 0x37d8, 82, 68, 0),   V(68, 0x2fe8, 83, 69, 0),
+    V(69, 0x293c, 84, 70, 0),   V(70, 0x2379, 86, 71, 0),   V(71, 0x1edf, 87, 72, 0),
+    V(72, 0x1aa9, 87, 73, 0),   V(73, 0x174e, 72, 74, 0),   V(74, 0x1424, 72, 75, 0),
+    V(75, 0x119c, 74, 76, 0),   V(76, 0x0f6b, 74, 77, 0),   V(77, 0x0d51, 75, 78, 0),
+    V(78, 0x0bb6, 77, 79, 0),   V(79, 0x0a40, 77, 48, 0),   V(80, 0x5832, 80, 81, 1),
+    V(81, 0x4d1c, 88, 82, 0),   V(82, 0x438e, 89, 83, 0),   V(83, 0x3bdd, 90, 84, 0),
+    V(84, 0x34ee, 91, 85, 0),   V(85, 0x2eae, 92, 86, 0),   V(86, 0x299a, 93, 87, 0),
+    V(87, 0x2516, 86, 71, 0),   V(88, 0x5570, 88, 89, 1),   V(89, 0x4ca9, 95, 90, 0),
+    V(90, 0x44d9, 96, 91, 0),   V(91, 0x3e22, 97, 92, 0),   V(92, 0x3824, 99, 93, 0),
+    V(93, 0x32b4, 99, 94, 0),   V(94, 0x2e17, 93, 86, 0),   V(95, 0x56a8, 95, 96, 1),
+    V(96, 0x4f46, 101, 97, 0),  V(97, 0x47e5, 102, 98, 0),  V(98, 0x41cf, 103, 99, 0),
+    V(99, 0x3c3d, 104, 100, 0), V(100, 0x375e, 99, 93, 0),  V(101, 0x5231, 105, 102, 0),
+    V(102, 0x4c0f, 106, 103, 0), V(103, 0x4639, 107, 104, 0), V(104, 0x415e, 103, 99, 0),
+    V(105, 0x5627, 105, 106, 1), V(106, 0x50e7, 108, 107, 0), V(107, 0x4b85, 109, 103, 0),
+    V(108, 0x5597, 110, 109, 0), V(109, 0x504f, 111, 107, 0), V(110, 0x5a10, 110, 111, 1),
+    V(111, 0x5522, 112, 109, 0), V(112, 0x59eb, 112, 111, 1), V(113, 0x5a1d, 113, 113, 0)};
+#undef V
+
 struct Suspend {};   // the data ended: the decoder suspends for good
 struct NeedMore {};  // the bytes fed so far ended inside a sequential MCU
 struct Fail {
@@ -164,7 +222,9 @@ struct Decoder {
   int restart_interval = 0;
   int next_restart_num = 0;
   bool progressive = false;
+  bool arith = false, lossless = false;
   int precision = 8;
+  uint8_t arith_dc_L[16], arith_dc_U[16], arith_ac_K[16];
   int height = 0, width = 0;
   int ncomp = 0;
   Component comp[10];
@@ -197,8 +257,30 @@ struct Decoder {
 
   int last_good_imcu_row = 0;
 
+  // arithmetic decoder state [jdarith.c]
+  int64_t ar_c = 0, ar_a = 0;
+  int ar_ct = -16;
+  int dc_context[4] = {0, 0, 0, 0};
+  uint8_t dc_stats[16][64], ac_stats[16][256];
+  uint8_t fixed_bin[4] = {113, 0, 0, 0};
+  bool no_suspend = false;  // inside the arithmetic decoder
+
+  // lossless: each component's sample rows (downsampled size, padded to
+  // whole MCUs) as undifferenced values, and its predictor state
+  std::vector<std::vector<int>> diffs;   // the MCU row's differences
+  std::vector<std::vector<uint8_t>> lsamples;  // output samples
+  std::vector<std::vector<int>> undiff_prev;   // last undifferenced row
+  bool first_row[10];
+  int restart_rows_to_go = 0;
+
+  // a single-scan file: the iMCU row being decoded, for the scanlines
+  // libjpeg has output where an error stops it
+  bool single_scan = false;
+  int imcu_in_progress = 0;
+
   // ------------------------------------------------------------ input
   void more() {
+    if (no_suspend) fail("Suspension not allowed here");
     if (fed < file_len) {
       if (in_mcu) throw NeedMore{};
       fed = std::min(fed + kChunk, file_len);
@@ -268,10 +350,15 @@ struct Decoder {
     saw_JFIF = false;
     saw_Adobe = false;
     adobe_transform = 0;
+    for (int i = 0; i < 16; i++) {
+      arith_dc_L[i] = 0;
+      arith_dc_U[i] = 1;
+      arith_ac_K[i] = 5;
+    }
     saw_SOI = true;
   }
 
-  void get_sof(bool prog, bool lossless, bool arith) {
+  void get_sof(bool prog, bool is_lossless, bool is_arith) {
     long length = two_bytes();
     precision = byte();
     height = two_bytes();
@@ -293,8 +380,8 @@ struct Decoder {
       c.tq = byte();
     }
     progressive = prog;
-    if (lossless) fail("unsupported: lossless JPEG");
-    if (arith) fail("unsupported: arithmetic-coded JPEG");
+    this->lossless = is_lossless;
+    this->arith = is_arith;
     saw_SOF = true;
   }
 
@@ -385,7 +472,13 @@ struct Decoder {
       int val = byte();
       length -= 2;
       if (index < 0 || index >= 32) fail("Bogus DAC index " + std::to_string(index));
-      if (index < 16 && (val & 15) > (val >> 4)) fail("Bogus DAC value 0x" + hex(val));
+      if (index >= 16) {
+        arith_ac_K[index - 16] = (uint8_t)val;
+      } else {
+        arith_dc_L[index] = (uint8_t)(val & 15);
+        arith_dc_U[index] = (uint8_t)(val >> 4);
+        if (arith_dc_L[index] > arith_dc_U[index]) fail("Bogus DAC value 0x" + hex(val));
+      }
     }
     if (length != 0) fail("Bogus marker length");
   }
@@ -524,24 +617,37 @@ struct Decoder {
       max_h = std::max(max_h, c.h);
       max_v = std::max(max_v, c.v);
     }
+    // a block is 8x8 samples, or one sample in a lossless frame
+    const int dct = lossless ? 1 : 8;
     for (int ci = 0; ci < ncomp; ci++) {
       Component& c = comp[ci];
-      c.wb = (int)(((long)width * c.h + max_h * 8 - 1) / (max_h * 8));
-      c.hb = (int)(((long)height * c.v + max_v * 8 - 1) / (max_v * 8));
+      c.wb = (int)(((long)width * c.h + max_h * dct - 1) / (max_h * dct));
+      c.hb = (int)(((long)height * c.v + max_v * dct - 1) / (max_v * dct));
       c.dw = (int)(((long)width * c.h + max_h - 1) / max_h);
       c.dh = (int)(((long)height * c.v + max_v - 1) / max_v);
       c.wb_pad = (c.wb + c.h - 1) / c.h * c.h;
       c.hb_pad = (c.hb + c.v - 1) / c.v * c.v;
       // room for the MCU columns of an interleaved scan
-      int mcus = (width + max_h * 8 - 1) / (max_h * 8);
+      int mcus = (width + max_h * dct - 1) / (max_h * dct);
       c.wb_pad = std::max(c.wb_pad, mcus * c.h);
       for (int i = 0; i < 64; i++) c.coef_bits[i] = -1;
     }
-    total_imcu_rows = (height + max_v * 8 - 1) / (max_v * 8);
+    total_imcu_rows = (height + max_v * dct - 1) / (max_v * dct);
+    if (lossless) {
+      diffs.resize(ncomp);
+      lsamples.resize(ncomp);
+      undiff_prev.resize(ncomp);
+    }
     for (int ci = 0; ci < ncomp; ci++) {
       Component& c = comp[ci];
       c.hb_pad = std::max(c.hb_pad, total_imcu_rows * c.v);
-      c.coef.assign((size_t)c.hb_pad * c.wb_pad * 64, 0);
+      if (lossless) {
+        diffs[ci].assign((size_t)c.v * c.wb_pad, 0);
+        lsamples[ci].assign((size_t)c.hb_pad * c.wb_pad, 0);
+        undiff_prev[ci].assign((size_t)c.wb_pad, 0);
+      } else {
+        c.coef.assign((size_t)c.hb_pad * c.wb_pad * 64, 0);
+      }
     }
     // the upsampling each component needs must be one libjpeg has
     for (int ci = 0; ci < ncomp; ci++) {
@@ -560,8 +666,9 @@ struct Decoder {
       mcu_membership[0] = 0;
     } else {
       if (comps_in_scan <= 0 || comps_in_scan > 4) fail("Too many color components");
-      mcus_per_row = (width + max_h * 8 - 1) / (max_h * 8);
-      mcu_rows_in_scan = (height + max_v * 8 - 1) / (max_v * 8);
+      const int dct = lossless ? 1 : 8;
+      mcus_per_row = (width + max_h * dct - 1) / (max_h * dct);
+      mcu_rows_in_scan = (height + max_v * dct - 1) / (max_v * dct);
       blocks_in_mcu = 0;
       for (int i = 0; i < comps_in_scan; i++) {
         Component& c = comp[scan_comp[i]];
@@ -649,13 +756,21 @@ struct Decoder {
     }
     if (is_dc) {
       for (int i = 0; i < numsymbols; i++)
-        if (ht.val[i] > 15) fail("Bogus Huffman table definition");
+        if (ht.val[i] > (lossless ? 16 : 15)) fail("Bogus Huffman table definition");
     }
   }
 
   void start_input_pass() {
     per_scan_setup();
+    if (lossless) {
+      start_pass_lossless();
+      return;
+    }
     latch_quant_tables();
+    if (arith) {
+      start_pass_arith();
+      return;
+    }
     if (progressive) {
       start_pass_phuff();
     } else {
@@ -685,15 +800,8 @@ struct Decoder {
     }
     if (Ah != 0 && Al != Ah - 1) bad = true;
     if (Al > 13) bad = true;
-    if (bad) fail("Invalid progressive/lossless parameters Ss=" + std::to_string(Ss) +
-                  " Se=" + std::to_string(Se) + " Ah=" + std::to_string(Ah) +
-                  " Al=" + std::to_string(Al));
-    for (int i = 0; i < comps_in_scan; i++) {
-      Component& c = comp[scan_comp[i]];
-      for (int k = std::min(Ss, 1); k <= std::max(Se, 9); k++)
-        c.prev_bits[k] = input_scan_number > 1 ? c.coef_bits[k] : 0;
-      for (int k = Ss; k <= Se; k++) c.coef_bits[k] = Al;
-    }
+    if (bad) bad_progression();
+    update_coef_bits();
     for (int i = 0; i < comps_in_scan; i++) {
       Component& c = comp[scan_comp[i]];
       if (is_dc) {
@@ -702,6 +810,75 @@ struct Decoder {
         make_derived(false, c.ac_tbl, dtbl_ac[c.ac_tbl]);
       }
     }
+  }
+
+  [[noreturn]] void bad_progression() {
+    fail("Invalid progressive/lossless parameters Ss=" + std::to_string(Ss) +
+         " Se=" + std::to_string(Se) + " Ah=" + std::to_string(Ah) + " Al=" + std::to_string(Al));
+  }
+  void update_coef_bits() {
+    for (int i = 0; i < comps_in_scan; i++) {
+      Component& c = comp[scan_comp[i]];
+      for (int k = std::min(Ss, 1); k <= std::max(Se, 9); k++)
+        c.prev_bits[k] = input_scan_number > 1 ? c.coef_bits[k] : 0;
+      for (int k = Ss; k <= Se; k++) c.coef_bits[k] = Al;
+    }
+  }
+
+  // jdarith.c start_pass
+  void start_pass_arith() {
+    if (progressive) {
+      bool bad = false;
+      if (Ss == 0) {
+        if (Se != 0) bad = true;
+      } else {
+        if (Se < Ss || Se > 63) bad = true;
+        if (comps_in_scan != 1) bad = true;
+      }
+      if (Ah != 0 && Ah - 1 != Al) bad = true;
+      if (Al > 13) bad = true;
+      if (bad) bad_progression();
+      update_coef_bits();
+    }
+    for (int i = 0; i < comps_in_scan; i++) {
+      Component& c = comp[scan_comp[i]];
+      if (!progressive || (Ss == 0 && Ah == 0)) {
+        if (c.dc_tbl < 0 || c.dc_tbl >= 16)
+          fail("Arithmetic table 0x" + hex(c.dc_tbl) + " was not defined");
+        memset(dc_stats[c.dc_tbl], 0, 64);
+        last_dc[i] = 0;
+        dc_context[i] = 0;
+      }
+      if (!progressive || Ss) {
+        if (c.ac_tbl < 0 || c.ac_tbl >= 16)
+          fail("Arithmetic table 0x" + hex(c.ac_tbl) + " was not defined");
+        memset(ac_stats[c.ac_tbl], 0, 256);
+      }
+    }
+    ar_c = 0;
+    ar_a = 0;
+    ar_ct = -16;
+    insufficient = false;
+    restarts_to_go = restart_interval;
+  }
+
+  // jdlossls.c, jddiffct.c start_input_pass
+  void start_pass_lossless() {
+    if (arith) fail("Sorry, arithmetic coding is not implemented");
+    if (Ss < 1 || Ss > 7 || Se != 0 || Ah != 0 || Al >= precision) bad_progression();
+    if (restart_interval % mcus_per_row != 0)
+      fail("Invalid restart interval " + std::to_string(restart_interval) +
+           "; must be an integer multiple of the number of MCUs in an MCU row (" +
+           std::to_string(mcus_per_row) + ")");
+    for (int i = 0; i < comps_in_scan; i++) {
+      Component& c = comp[scan_comp[i]];
+      make_derived(true, c.dc_tbl, dtbl_dc[c.dc_tbl]);
+    }
+    for (int ci = 0; ci < ncomp; ci++) first_row[ci] = true;
+    bits_left = 0;
+    get_buffer = 0;
+    insufficient = false;
+    restart_rows_to_go = restart_interval / mcus_per_row;
   }
 
   // ------------------------------------------------------ bit reader
@@ -1133,8 +1310,392 @@ struct Decoder {
     if (restart_interval) restarts_to_go--;
   }
 
+
+  // ------------------------------------------- arithmetic decoding
+  // jdarith.c: the decoder reads the data itself and cannot suspend
+  int arith_byte() {
+    if (pos >= fed) fail("Suspension not allowed here");
+    return d[pos++];
+  }
+  int arith_decode(uint8_t* st) {
+    while (ar_a < 0x8000) {
+      if (--ar_ct < 0) {
+        int data;
+        if (unread_marker) {
+          data = 0;  // past a marker: zero data to the end of the scan
+        } else {
+          data = arith_byte();
+          if (data == 0xFF) {
+            do data = arith_byte();
+            while (data == 0xFF);
+            if (data == 0) {
+              data = 0xFF;
+            } else {
+              unread_marker = data;
+              data = 0;
+            }
+          }
+        }
+        ar_c = (ar_c << 8) | data;
+        if ((ar_ct += 8) < 0)
+          if (++ar_ct == 0) ar_a = 0x8000;  // the two initial bytes read
+      }
+      ar_a <<= 1;
+    }
+    int sv = *st;
+    int64_t qe = kAritab[sv & 0x7F];
+    int nl = (int)(qe & 0xFF);
+    qe >>= 8;
+    int nm = (int)(qe & 0xFF);
+    qe >>= 8;
+    int64_t temp = ar_a - qe;
+    ar_a = temp;
+    temp <<= ar_ct;
+    if (ar_c >= temp) {
+      ar_c -= temp;
+      if (ar_a < qe) {
+        ar_a = qe;
+        *st = (uint8_t)((sv & 0x80) ^ nm);
+      } else {
+        ar_a = qe;
+        *st = (uint8_t)((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (ar_a < 0x8000) {
+      if (ar_a < qe) {
+        *st = (uint8_t)((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = (uint8_t)((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+  void arith_restart() {
+    read_restart_marker();
+    for (int i = 0; i < comps_in_scan; i++) {
+      Component& c = comp[scan_comp[i]];
+      if (!progressive || (Ss == 0 && Ah == 0)) {
+        memset(dc_stats[c.dc_tbl], 0, 64);
+        last_dc[i] = 0;
+        dc_context[i] = 0;
+      }
+      if (!progressive || Ss) memset(ac_stats[c.ac_tbl], 0, 256);
+    }
+    ar_c = 0;
+    ar_a = 0;
+    ar_ct = -16;
+    restarts_to_go = restart_interval;
+  }
+  // a DC difference (Figures F.19-F.24) added to component ci's
+  // prediction; false where the magnitude overflows
+  bool arith_dc(int ci, int tbl) {
+    uint8_t* st = dc_stats[tbl] + dc_context[ci];
+    if (arith_decode(st) == 0) {
+      dc_context[ci] = 0;
+      return true;
+    }
+    int sign = arith_decode(st + 1);
+    st += 2 + sign;
+    int m = arith_decode(st);
+    if (m != 0) {
+      st = dc_stats[tbl] + 20;
+      while (arith_decode(st)) {
+        if ((m <<= 1) == 0x8000) return false;
+        st += 1;
+      }
+    }
+    if (m < (int)((1L << arith_dc_L[tbl]) >> 1))
+      dc_context[ci] = 0;
+    else if (m > (int)((1L << arith_dc_U[tbl]) >> 1))
+      dc_context[ci] = 12 + sign * 4;
+    else
+      dc_context[ci] = 4 + sign * 4;
+    int v = m;
+    st += 14;
+    while (m >>= 1)
+      if (arith_decode(st)) v |= m;
+    v += 1;
+    if (sign) v = -v;
+    last_dc[ci] = (last_dc[ci] + v) & 0xffff;
+    return true;
+  }
+  // an AC value at k, whose bins start at st (Figures F.21-F.24); false
+  // where the magnitude overflows
+  bool arith_ac_value(int tbl, int k, uint8_t* st, int* out) {
+    int sign = arith_decode(fixed_bin);
+    st += 2;
+    int m = arith_decode(st);
+    if (m != 0) {
+      if (arith_decode(st)) {
+        m <<= 1;
+        st = ac_stats[tbl] + (k <= arith_ac_K[tbl] ? 189 : 217);
+        while (arith_decode(st)) {
+          if ((m <<= 1) == 0x8000) return false;
+          st += 1;
+        }
+      }
+    }
+    int v = m;
+    st += 14;
+    while (m >>= 1)
+      if (arith_decode(st)) v |= m;
+    v += 1;
+    *out = sign ? -v : v;
+    return true;
+  }
+  void arith_sequential(int16_t** blocks) {
+    for (int b = 0; b < blocks_in_mcu; b++) {
+      int16_t* block = blocks[b];
+      int ci = mcu_membership[b];
+      Component& c = comp[scan_comp[ci]];
+      if (!arith_dc(ci, c.dc_tbl)) {
+        ar_ct = -1;
+        return;
+      }
+      block[0] = (int16_t)last_dc[ci];
+      int tbl = c.ac_tbl;
+      for (int k = 1; k <= 63; k++) {
+        uint8_t* st = ac_stats[tbl] + 3 * (k - 1);
+        if (arith_decode(st)) break;  // EOB
+        while (arith_decode(st + 1) == 0) {
+          st += 3;
+          if (++k > 63) {
+            ar_ct = -1;
+            return;
+          }
+        }
+        int v;
+        if (!arith_ac_value(tbl, k, st, &v)) {
+          ar_ct = -1;
+          return;
+        }
+        block[kNatural[k]] = (int16_t)v;
+      }
+    }
+  }
+  void arith_dc_first(int16_t** blocks) {
+    for (int b = 0; b < blocks_in_mcu; b++) {
+      int ci = mcu_membership[b];
+      if (!arith_dc(ci, comp[scan_comp[ci]].dc_tbl)) {
+        ar_ct = -1;
+        return;
+      }
+      blocks[b][0] = (int16_t)(int64_t)((uint64_t)(int64_t)last_dc[ci] << Al);
+    }
+  }
+  void arith_ac_first(int16_t** blocks) {
+    int16_t* block = blocks[0];
+    int tbl = comp[scan_comp[0]].ac_tbl;
+    for (int k = Ss; k <= Se; k++) {
+      uint8_t* st = ac_stats[tbl] + 3 * (k - 1);
+      if (arith_decode(st)) break;  // EOB
+      while (arith_decode(st + 1) == 0) {
+        st += 3;
+        if (++k > Se) {
+          ar_ct = -1;
+          return;
+        }
+      }
+      int v;
+      if (!arith_ac_value(tbl, k, st, &v)) {
+        ar_ct = -1;
+        return;
+      }
+      block[kNatural[k]] = (int16_t)((unsigned)v << Al);
+    }
+  }
+  void arith_dc_refine(int16_t** blocks) {
+    int p1 = 1 << Al;
+    for (int b = 0; b < blocks_in_mcu; b++)
+      if (arith_decode(fixed_bin)) blocks[b][0] = (int16_t)(blocks[b][0] | p1);
+  }
+  void arith_ac_refine(int16_t** blocks) {
+    int16_t* block = blocks[0];
+    int tbl = comp[scan_comp[0]].ac_tbl;
+    int p1 = 1 << Al;
+    int m1 = (int)((unsigned)-1 << Al);
+    int kex;
+    for (kex = Se; kex > 0; kex--)
+      if (block[kNatural[kex]]) break;
+    for (int k = Ss; k <= Se; k++) {
+      uint8_t* st = ac_stats[tbl] + 3 * (k - 1);
+      if (k > kex)
+        if (arith_decode(st)) break;  // EOB
+      for (;;) {
+        int16_t* coef = block + kNatural[k];
+        if (*coef) {
+          if (arith_decode(st + 2)) *coef = (int16_t)(*coef + (*coef < 0 ? m1 : p1));
+          break;
+        }
+        if (arith_decode(st + 1)) {
+          *coef = (int16_t)(arith_decode(fixed_bin) ? m1 : p1);
+          break;
+        }
+        st += 3;
+        if (++k > Se) {
+          ar_ct = -1;
+          return;
+        }
+      }
+    }
+  }
+  void decode_mcu_arith(int16_t** blocks) {
+    no_suspend = true;
+    if (restart_interval) {
+      if (restarts_to_go == 0) arith_restart();
+      restarts_to_go--;
+    }
+    if (ar_ct != -1) {  // after a bad code the rest of the interval is zero
+      if (!progressive)
+        arith_sequential(blocks);
+      else if (Ah == 0)
+        Ss == 0 ? arith_dc_first(blocks) : arith_ac_first(blocks);
+      else
+        Ss == 0 ? arith_dc_refine(blocks) : arith_ac_refine(blocks);
+    }
+    no_suspend = false;
+  }
+
+  // --------------------------------------------- lossless decoding
+  // one MCU's sample differences into the rows of its MCU row (a
+  // single-component scan's MCU: one sample, in row yo) [jdlhuff.c
+  // decode_mcus]
+  void lossless_mcu(int mcu_col, int yo) {
+    for (int b = 0; b < blocks_in_mcu; b++) {
+      int ci_scan = mcu_membership[b];
+      int ci = scan_comp[ci_scan];
+      Component& c = comp[ci];
+      int s = huff_decode(dtbl_dc[c.dc_tbl]);
+      if (s) {
+        if (s == 16) {
+          s = 32768;
+        } else {
+          check_bits(s);
+          int r = get_bits(s);
+          s = huff_extend(r, s);
+        }
+      }
+      // the sample's place: block b's offset within its component's run
+      int first = 0;
+      while (mcu_membership[first] != ci_scan) first++;
+      int k = b - first;
+      int hh = comps_in_scan == 1 ? 1 : c.h;
+      int row = comps_in_scan == 1 ? yo : k / hh, col = mcu_col * hh + k % hh;
+      diffs[ci][(size_t)row * c.wb_pad + col] = s;
+    }
+  }
+  // jdlossls.c: one row undifferenced by the scan's predictor (the first
+  // row of a scan or restart interval by its initial value and Ra), then
+  // scaled by the point transform
+  void undifference(int ci, const int* diff, uint8_t* out) {
+    Component& c = comp[ci];
+    int width = c.wb;
+    std::vector<int>& prev = undiff_prev[ci];
+    std::vector<int> row(width);
+    if (first_row[ci]) {
+      int Ra = (diff[0] + (1 << (precision - Al - 1))) & 0xFFFF;
+      row[0] = Ra;
+      for (int x = 1; x < width; x++) row[x] = Ra = (diff[x] + Ra) & 0xFFFF;
+      first_row[ci] = false;
+    } else {
+      int Rb = prev[0];
+      int Ra = (diff[0] + Rb) & 0xFFFF;
+      row[0] = Ra;
+      for (int x = 1; x < width; x++) {
+        int Rc = Rb;
+        Rb = prev[x];
+        int64_t pred;
+        switch (Ss) {
+          case 1: pred = Ra; break;
+          case 2: pred = Rb; break;
+          case 3: pred = Rc; break;
+          case 4: pred = (int64_t)Ra + Rb - Rc; break;
+          case 5: pred = (int64_t)Ra + (((int64_t)Rb - Rc) >> 1); break;
+          case 6: pred = (int64_t)Rb + (((int64_t)Ra - Rc) >> 1); break;
+          default: pred = ((int64_t)Ra + Rb) >> 1; break;
+        }
+        row[x] = Ra = (int)((diff[x] + pred) & 0xFFFF);
+      }
+    }
+    for (int x = 0; x < width; x++) {
+      prev[x] = row[x];
+      out[x] = (uint8_t)(row[x] << Al);
+    }
+  }
+  // one scan, an iMCU row at a time [jddiffct.c decompress_data]
+  void decode_scan_lossless() {
+    int mcu_rows_per_imcu = comps_in_scan == 1 ? comp[scan_comp[0]].v : 1;
+    if (comps_in_scan == 1) mcu_rows_in_scan = comp[scan_comp[0]].hb;
+    int imcu_rows = (mcu_rows_in_scan + mcu_rows_per_imcu - 1) / mcu_rows_per_imcu;
+    for (int imcu = 0; imcu < imcu_rows; imcu++) {
+      imcu_in_progress = imcu;
+      for (int yo = 0; yo < mcu_rows_per_imcu; yo++) {
+        int mrow = imcu * mcu_rows_per_imcu + yo;
+        if (mrow >= mcu_rows_in_scan) break;
+        if (restart_interval && restart_rows_to_go == 0) {
+          process_restart();
+          for (int ci = 0; ci < ncomp; ci++) first_row[ci] = true;
+          restart_rows_to_go = restart_interval / mcus_per_row;
+        }
+        // the differences land in rows yo (single component) or 0..v-1
+        if (insufficient) {
+          // out of data: zero differences, every predictor restarted
+          for (int i = 0; i < comps_in_scan; i++) {
+            int ci = scan_comp[i];
+            size_t w = comp[ci].wb_pad;
+            if (comps_in_scan == 1)
+              std::fill(diffs[ci].begin() + yo * w, diffs[ci].begin() + (yo + 1) * w, 0);
+            else
+              std::fill(diffs[ci].begin(), diffs[ci].end(), 0);
+          }
+          for (int ci = 0; ci < ncomp; ci++) first_row[ci] = true;
+        } else {
+          for (int col = 0; col < mcus_per_row; col++) {
+            for (;;) {
+              size_t pos0 = pos;
+              uint64_t gb0 = get_buffer;
+              int bl0 = bits_left;
+              try {
+                in_mcu = true;
+                lossless_mcu(col, yo);
+                in_mcu = false;
+                break;
+              } catch (NeedMore&) {
+                in_mcu = false;
+                pos = pos0;
+                get_buffer = gb0;
+                bits_left = bl0;
+                feed_more();
+              } catch (...) {
+                in_mcu = false;
+                throw;
+              }
+            }
+          }
+        }
+        if (restart_interval) restart_rows_to_go--;
+      }
+      for (int i = 0; i < comps_in_scan; i++) {
+        int ci = scan_comp[i];
+        Component& c = comp[ci];
+        int vrows = comps_in_scan == 1 ? mcu_rows_per_imcu : c.v;
+        for (int r = 0; r < vrows; r++) {
+          int y = imcu * vrows + r;
+          if (y >= c.hb) break;
+          undifference(ci, &diffs[ci][(size_t)r * c.wb_pad],
+                       &lsamples[ci][(size_t)y * c.wb_pad]);
+        }
+      }
+    }
+  }
+
   // one scan, MCU by MCU, in the order of libjpeg's coefficient controller
   void decode_scan() {
+    if (lossless) {
+      decode_scan_lossless();
+      return;
+    }
     int16_t* blocks[10];
     if (comps_in_scan == 1) {
       Component& c = comp[scan_comp[0]];
@@ -1163,7 +1724,10 @@ struct Decoder {
   }
   void decode_one(int imcu_row, int16_t** blocks) {
     if (!insufficient) last_good_imcu_row = imcu_row;
-    if (progressive)
+    imcu_in_progress = imcu_row;
+    if (arith)
+      decode_mcu_arith(blocks);
+    else if (progressive)
       decode_mcu_progressive(blocks);
     else
       decode_mcu_sequential(blocks);
@@ -1408,6 +1972,12 @@ struct Decoder {
 
   // the sample planes: every block of each component through the IDCT
   void sample_planes(std::vector<std::vector<uint8_t>>& planes, std::vector<int>& pws) {
+    if (lossless) {
+      planes = lsamples;
+      pws.resize(ncomp);
+      for (int ci = 0; ci < ncomp; ci++) pws[ci] = comp[ci].wb_pad;
+      return;
+    }
     int latch[10][10], prev_latch[10][10];
     bool smooth = smoothing_ok(latch, prev_latch);
     planes.resize(ncomp);
@@ -1442,10 +2012,15 @@ struct Decoder {
       col = std::min(std::max(col, 0), c.dw - 1);
       return plane[(size_t)r * pw + col];
     };
-    bool fancy_h2 = c.dw > 2;
+    // a lossless frame is upsampled by replication (libjpeg's fancy
+    // upsampling needs a DCT size above 1)
+    bool fancy_h2 = c.dw > 2 && !lossless;
     for (int y = 0; y < height; y++) {
       uint8_t* o = &out[(size_t)y * width];
-      if (hx == 1 && vx == 1) {
+      if (lossless && !(hx == 1 && vx == 1)) {
+        int sy = y / vx;
+        for (int x = 0; x < width; x++) o[x] = (uint8_t)S(sy, x / hx);
+      } else if (hx == 1 && vx == 1) {
         for (int x = 0; x < width; x++) o[x] = plane[(size_t)y * pw + x];
       } else if (hx == 2 && vx == 1) {
         for (int x = 0; x < width; x++) {
@@ -1493,6 +2068,10 @@ struct Decoder {
       memcpy(out, full[0].data(), n);
       return;
     }
+    if (channels == 4) {
+      output_cmyk(out, full);
+      return;
+    }
     bool ycc = color_space_is_ycc();
     if (!ycc) {
       for (size_t i = 0; i < n; i++) {
@@ -1522,6 +2101,55 @@ struct Decoder {
     }
   }
 
+  // jdcolor.c for four components: CMYK copied, YCCK through
+  // ycck_cmyk_convert (YCbCr to RGB, inverted, K as it is)
+  void output_cmyk(uint8_t* out, std::vector<std::vector<uint8_t>>& full) {
+    size_t n = (size_t)height * width;
+    bool ycck = saw_Adobe && adobe_transform != 0;
+    if (!ycck) {
+      for (size_t i = 0; i < n; i++)
+        for (int k = 0; k < 4; k++) out[4 * i + k] = full[k][i];
+      return;
+    }
+    const int SCALEBITS = 16;
+    const int64_t ONE_HALF = (int64_t)1 << (SCALEBITS - 1);
+    auto FIX = [](double x) -> int64_t { return (int64_t)(x * 65536.0 + 0.5); };
+    int crr[256], cbb[256];
+    int64_t crg[256], cbg[256];
+    for (int i = 0, x = -128; i < 256; i++, x++) {
+      crr[i] = (int)((FIX(1.40200) * x + ONE_HALF) >> SCALEBITS);
+      cbb[i] = (int)((FIX(1.77200) * x + ONE_HALF) >> SCALEBITS);
+      crg[i] = -FIX(0.71414) * x;
+      cbg[i] = -FIX(0.34414) * x + ONE_HALF;
+    }
+    auto clamp = [](int v) -> uint8_t { return (uint8_t)(v < 0 ? 0 : v > 255 ? 255 : v); };
+    for (size_t i = 0; i < n; i++) {
+      int y = full[0][i], cb = full[1][i], cr = full[2][i];
+      out[4 * i] = clamp(255 - (y + crr[cr]));
+      out[4 * i + 1] = clamp(255 - (y + (int)((cbg[cb] + crg[cr]) >> SCALEBITS)));
+      out[4 * i + 2] = clamp(255 - (y + cbb[cb]));
+      out[4 * i + 3] = full[3][i];
+    }
+  }
+
+  // the scanlines libjpeg has output where an error stops the decode of
+  // iMCU row imcu_in_progress of a single-scan file: the whole iMCU rows
+  // before it, less the last row group of the one before where the
+  // upsampler needs context rows (fancy h1v2 or h2v2) [jdmainct.c]
+  int rows_output() const {
+    int dct = lossless ? 1 : 8;
+    bool context = false;
+    for (int ci = 0; ci < ncomp && !lossless; ci++) {
+      const Component& c = comp[ci];
+      int hx = max_h / c.h, vx = max_v / c.v;
+      if (vx == 2 && (hx == 1 || (hx == 2 && c.dw > 2))) context = true;
+    }
+    int k = imcu_in_progress;
+    int rows = k * max_v * dct;
+    if (context && k > 0) rows -= max_v;
+    return std::min(std::max(rows, 0), height);
+  }
+
   // jdapimin.c default_decompress_parms for three components
   bool color_space_is_ycc() const {
     if (color_override >= 0) return color_override == 1;
@@ -1529,7 +2157,7 @@ struct Decoder {
     if (saw_Adobe) return adobe_transform != 0;
     int c0 = comp[0].id, c1 = comp[1].id, c2 = comp[2].id;
     if (c0 == 82 && c1 == 71 && c2 == 66) return false;
-    return true;
+    return !lossless;  // a lossless frame is taken for RGB
   }
 };
 
@@ -1542,7 +2170,7 @@ int jpegdec_decode_as(const uint8_t* data, size_t len, int salvage, int color, i
   if (!data || !info || !out) return -1;
   *out = nullptr;
   info[0] = 3;
-  info[1] = info[2] = info[3] = 0;
+  info[1] = info[2] = info[3] = info[4] = 0;
   Decoder* dp = new Decoder();
   Decoder& dec = *dp;
   dec.color_override = color;
@@ -1568,9 +2196,10 @@ int jpegdec_decode_as(const uint8_t* data, size_t len, int salvage, int color, i
       }
       if (dec.comps_in_scan > 0) break;  // a pseudo SOS is passed over
     }
-    if (dec.ncomp != 1 && dec.ncomp != 3) fail("unsupported: " + std::to_string(dec.ncomp) + " components");
+    if (dec.ncomp != 1 && dec.ncomp != 3 && dec.ncomp != 4)
+      fail("unsupported: " + std::to_string(dec.ncomp) + " components");
     dec.initial_setup();
-    channels = dec.ncomp == 1 ? 1 : 3;
+    channels = dec.ncomp == 1 ? 1 : dec.ncomp == 4 ? 4 : 3;
     info[1] = dec.height;
     info[2] = dec.width;
     info[3] = channels;
@@ -1578,7 +2207,9 @@ int jpegdec_decode_as(const uint8_t* data, size_t len, int salvage, int color, i
     if (!dec.progressive) dec.std_huff_tables();  // jinit_huff_decoder only
     dec.start_input_pass();
     if (!dec.has_multiple_scans) {
+      dec.single_scan = true;
       dec.decode_scan();
+      dec.single_scan = false;
     } else {
       // jpeg_start_decompress: every scan into the coefficient buffer,
       // up to EOI
@@ -1606,6 +2237,19 @@ int jpegdec_decode_as(const uint8_t* data, size_t len, int salvage, int color, i
   } catch (Fail& f) {
     err = f.msg;
     outcome = rows_done ? 1 : 3;
+    if (!rows_done && dec.single_scan && dec.rows_output() > 0) {
+      // the scanlines output before the error, zeros after
+      int rows = dec.rows_output();
+      img = (uint8_t*)malloc((size_t)dec.height * dec.width * channels);
+      if (img) {
+        dec.output(img, channels);
+        size_t line = (size_t)dec.width * channels;
+        memset(img + (size_t)rows * line, 0, (size_t)(dec.height - rows) * line);
+        info[4] = rows;
+        outcome = 4;
+        rows_done = true;
+      }
+    }
   } catch (NeedMore&) {
     err = "internal: unexpected NeedMore";
     outcome = rows_done ? 1 : 3;

@@ -1,0 +1,1519 @@
+"""The formats Pillow 12.1.0 opens and the port does not decode, and
+which of them a file is, decided as ``Image.open`` decides it.
+
+``Image.open`` walks its plugins in the order of ``Image.ID``. A plugin
+whose accept test passes on the file's first 16 bytes, or which has
+none, runs its ``_open``: a parse of the header (and, for ICO, a decode
+of the largest icon). Where that raises IndexError, TypeError, KeyError,
+EOFError, struct.error or SyntaxError, or leaves no mode or an empty
+size, the walk goes on to the next plugin. Any other error leaves
+``Image.open`` as it is, and the reference's ``load_std_image`` tries its
+external loader only for an OSError. A header that parses opens the
+image, unless its size passes twice ``Image.MAX_IMAGE_PIXELS``
+(DecompressionBombError).
+
+`identify` makes the same walk over `FORMATS`, each ``_open`` mirrored
+here over the file's bytes: the plugin's header checks, reads and seeks,
+as a file opened for reading makes them (a seek before the start fails
+with OSError, a read of a negative length other than -1 with
+ValueError). It returns the name of the format that opens, or None where
+none does; the errors Pillow lets out come out as `Unidentified` (an
+OSError), `PilValueError` (a ValueError), `DecompressionBomb` or
+`OpenError` (any other). The formats the port decodes (BMP, GIF, JPEG,
+PNG, PNM's P1-P6 and TIFF) are read before this walk and are not in it.
+
+Not mirrored: the coded data that AVIF's and WebP's opens parse with
+libavif and libwebp. Their containers are checked (boxes or chunks whole,
+the image's boxes or bitstream header present), not what libavif and
+libwebp check inside them. ICO's open decodes its largest icon: a PNG
+icon goes through the port's PNG reader, a bitmap icon is checked to its
+header and the lengths of its data and mask.
+"""
+
+from __future__ import annotations
+
+import math
+import re
+import struct
+import zlib
+
+from art_tpu_torch.io.stdformats import (DecompressionBomb, PilValueError,
+                                         Unidentified)
+
+
+class OpenError(Exception):
+    """Pillow's ``Image.open`` raises an error that is neither an OSError
+    nor a ValueError here (ZeroDivisionError, AttributeError, a failed
+    assert, NotImplementedError): the reference fails with no loader."""
+
+
+_BOMB_PIXELS = 178956970  # twice Image.MAX_IMAGE_PIXELS
+# the errors after which Image.open tries the next plugin
+_NEXT = (IndexError, TypeError, KeyError, EOFError, struct.error, SyntaxError)
+
+
+class _File:
+    """A file's bytes read as Pillow's plugins read a file opened "rb"."""
+
+    def __init__(self, buf):
+        self.buf, self.pos = bytes(buf), 0
+
+    def read(self, n=-1):
+        if n < -1:
+            raise PilValueError("read length must be non-negative or -1")
+        out = self.buf[self.pos :] if n == -1 else \
+            self.buf[self.pos : self.pos + n]
+        self.pos += len(out)
+        return out
+
+    def seek(self, off, whence=0):
+        base = (0, self.pos, len(self.buf))[whence]
+        if base + off < 0:
+            raise Unidentified("[Errno 22] Invalid argument")
+        self.pos = base + off
+
+    def tell(self):
+        return self.pos
+
+    def readline(self):
+        end = self.buf.find(b"\n", self.pos)
+        out = self.buf[self.pos : len(self.buf) if end < 0 else end + 1]
+        self.pos += len(out)
+        return out
+
+
+def _i16(b, o=0):
+    return struct.unpack_from("<H", b, o)[0]
+
+
+def _i32(b, o=0):
+    return struct.unpack_from("<I", b, o)[0]
+
+
+def _i16be(b, o=0):
+    return struct.unpack_from(">H", b, o)[0]
+
+
+def _i32be(b, o=0):
+    return struct.unpack_from(">I", b, o)[0]
+
+
+def _i8(c):
+    return c[0]
+
+
+# -- the plugins' opens, each returning (mode, size) ----------------------
+
+def _avif(f):
+    """libavif's parse as far as its boxes: the top-level boxes, each
+    whole, read up to the meta box (libavif stops there for an image),
+    ftyp among them with an AVIF brand, and the meta box's own boxes
+    whole (a box cut short fails the parse: the next plugin) holding the
+    primary item's (without them libavif finds no image item, which
+    Pillow raises as RuntimeError)."""
+    buf, pos, n = f.buf, 0, len(f.buf)
+    ftyp = None
+    while True:
+        kind, start, end = _iso_boxes(buf, pos, n, one=True)[0]
+        if kind == b"ftyp" and ftyp is None:
+            brands = {buf[i : i + 4] for i in range(start, end - 3, 4)
+                      if i != start + 4}
+            if not {b"avif", b"avis"} & brands:
+                raise SyntaxError("AVIF: invalid ftyp")
+            ftyp = True
+        if kind == b"meta":
+            break
+        pos = end
+    if ftyp is None:
+        raise SyntaxError("AVIF: invalid ftyp")
+    inner = {k for k, _, _ in _iso_boxes(buf, start + 4, end)}
+    if not {b"hdlr", b"pitm", b"iloc", b"iinf", b"iprp"} <= inner:
+        raise OpenError("AVIF: RuntimeError: Missing or empty image item")
+    return "RGB", (1, 1)
+
+
+def _iso_boxes(buf, pos, end, one=False):
+    """(type, payload start, payload end) of the whole boxes from `pos`
+    (only the first where `one`); SyntaxError where one runs past `end`."""
+    out = []
+    while pos < end or one and not out:
+        if end - pos < 8:
+            raise SyntaxError("box header cut off")
+        size, kind = struct.unpack_from(">I4s", buf, pos)
+        head = 8
+        if size == 1:
+            if end - pos < 16:
+                raise SyntaxError("box header cut off")
+            size, head = struct.unpack_from(">Q", buf, pos + 8)[0], 16
+        elif size == 0:
+            size = end - pos
+        if size < head or pos + size > end:
+            raise SyntaxError("box cut off")
+        out.append((kind, pos + head, pos + size))
+        if one:
+            break
+        pos += size
+    return out
+
+
+def _blp(f):
+    magic = f.read(4)
+    if not magic.startswith((b"BLP1", b"BLP2")):
+        raise SyntaxError("Bad BLP magic")
+    struct.unpack("<i", f.read(4))
+    if magic == b"BLP1":
+        alpha = struct.unpack("<I", f.read(4))[0] != 0
+    else:
+        struct.unpack("<b", f.read(1))
+        alpha = struct.unpack("<b", f.read(1))[0] != 0
+        struct.unpack("<b", f.read(1))
+        f.seek(1, 1)
+    size = struct.unpack("<II", f.read(8))
+    if magic == b"BLP1":
+        struct.unpack("<i", f.read(4))
+    return ("RGBA" if alpha else "RGB"), size
+
+
+_BIT2MODE = {1: "P", 4: "P", 8: "P", 16: "RGB", 24: "RGB", 32: "RGB"}
+_MASKS = {32: [(0xFF0000, 0xFF00, 0xFF, 0x0),
+               (0xFF000000, 0xFF0000, 0xFF00, 0x0),
+               (0xFF000000, 0xFF00, 0xFF, 0x0),
+               (0xFF000000, 0xFF0000, 0xFF00, 0xFF),
+               (0xFF, 0xFF00, 0xFF0000, 0xFF000000),
+               (0xFF0000, 0xFF00, 0xFF, 0xFF000000),
+               (0xFF000000, 0xFF00, 0xFF, 0xFF0000), (0x0, 0x0, 0x0, 0x0)],
+          24: [(0xFF0000, 0xFF00, 0xFF)],
+          16: [(0xF800, 0x7E0, 0x1F), (0x7C00, 0x3E0, 0x1F)]}
+
+
+def _safe_read(f, size):
+    if size <= 0:
+        return b""
+    data = f.read(size)
+    if len(data) < size:
+        raise Unidentified("Truncated File Read")
+    return data
+
+
+def _bitmap(f, header=0, offset=0):
+    """BmpImageFile._bitmap: (mode, size, (data offset, stride, row
+    bytes, compression)); the mode only as far as open tells modes apart
+    (a palette's, grey or not, else "RGB")."""
+    if header:
+        f.seek(header)
+    hsize = _i32(f.read(4))
+    data = _safe_read(f, hsize - 4)
+    colors = 0
+    if hsize == 12:
+        w, h = _i16(data, 0), _i16(data, 2)
+        _i16(data, 4)
+        bits, comp, pad = _i16(data, 6), 0, 3
+    elif hsize in (40, 52, 56, 64, 108, 124):
+        flip = data[7] == 0xFF
+        w = _i32(data, 0)
+        h = 2 ** 32 - _i32(data, 4) if flip else _i32(data, 4)
+        _i16(data, 8)
+        bits, comp = _i16(data, 10), _i32(data, 12)
+        _i32(data, 16), _i32(data, 20), _i32(data, 24)
+        colors, pad = _i32(data, 28), 4
+        if comp == 3:
+            if len(data) >= 48:
+                n = 4 if len(data) >= 52 else 3
+                masks = [_i32(data, 36 + 4 * i) for i in range(n)]
+                masks += [0] * (4 - n)
+            else:
+                masks = [_i32(f.read(4)) for _ in range(3)] + [0]
+    else:
+        raise Unidentified(f"Unsupported BMP header type ({hsize})")
+    colors = colors or (1 << bits)
+    if offset == 14 + hsize and bits <= 8:
+        offset += 4 * colors
+    mode = _BIT2MODE.get(bits)
+    if mode is None:
+        raise Unidentified(f"Unsupported BMP pixel depth ({bits})")
+    if comp == 3:
+        if not (bits == 32 and tuple(masks) in _MASKS[32]
+                or bits in (24, 16) and tuple(masks[:3]) in _MASKS[bits]):
+            raise Unidentified("Unsupported BMP bitfields layout")
+    elif comp not in (0, 1, 2):
+        raise Unidentified(f"Unsupported BMP compression ({comp})")
+    if mode == "P":
+        if not 0 < colors <= 65536:
+            raise Unidentified(f"Unsupported BMP Palette size ({colors})")
+        palette = f.read(pad * colors)
+        idx = (0, 255) if colors == 2 else range(colors)
+        grey = all(palette[i * pad : i * pad + 3] == bytes((v & 255,)) * 3
+                   for i, v in enumerate(idx))
+        if grey:
+            mode = "1" if colors == 2 else "L"
+    stride = ((w * bits + 31) >> 3) & ~3
+    return mode, (w, h), (offset or f.tell(), stride, (w * bits + 7) // 8,
+                          comp)
+
+
+def _dib(f):
+    return _bitmap(f)[:2]
+
+
+def _stub(*magics):
+    def open_(f):
+        if not f.read(max(len(m) for m in magics)).startswith(magics):
+            raise SyntaxError("not this stub format")
+        return "F", (1, 1)
+    return open_
+
+
+def _grib(f):
+    s = f.read(8)
+    if not (len(s) >= 8 and s.startswith(b"GRIB") and s[7] == 1):
+        raise SyntaxError("Not a GRIB file")
+    return "F", (1, 1)
+
+
+def _cur(f):
+    s = f.read(6)
+    if not s.startswith(b"\0\0\2\0"):
+        raise SyntaxError("not a CUR file")
+    m = b""
+    for _ in range(_i16(s, 4)):
+        s = f.read(16)
+        if not m:
+            m = s
+        elif s[0] > m[0] and s[1] > m[1]:
+            m = s
+    if not m:
+        raise TypeError("No cursors were found")
+    mode, (w, h), _ = _bitmap(f, _i32(m, 12))
+    return mode, (w, h // 2)
+
+
+def _pcx_accept(p):
+    return len(p) >= 2 and p[0] == 10 and p[1] in (0, 2, 3, 5)
+
+
+def _pcx(f):
+    s = f.read(68)
+    if not _pcx_accept(s):
+        raise SyntaxError("not a PCX file")
+    x0, y0, x1, y1 = _i16(s, 4), _i16(s, 6), _i16(s, 8) + 1, _i16(s, 10) + 1
+    if x1 <= x0 or y1 <= y0:
+        raise SyntaxError("bad PCX image size")
+    version, bits, planes = s[1], s[3], s[65]
+    _i16(s, 66), _i16(s, 12), _i16(s, 14)
+    if bits == 1 and planes in (1, 2, 4):
+        mode = "1" if planes == 1 else "P"
+    elif version == 5 and bits == 8 and planes == 1:
+        mode = "L"
+        f.seek(-769, 2)
+        s = f.read(769)
+        if len(s) == 769 and s[0] == 12 and any(
+                s[i * 3 + 1 : i * 3 + 4] != bytes((i,)) * 3
+                for i in range(256)):
+            mode = "P"
+    elif version == 5 and bits == 8 and planes == 3:
+        mode = "RGB"
+    else:
+        raise Unidentified("unknown PCX mode")
+    return mode, (x1 - x0, y1 - y0)
+
+
+def _dcx(f):
+    s = f.read(4)
+    if not (len(s) >= 4 and _i32(s) == 987654321):
+        raise SyntaxError("not a DCX file")
+    offsets = []
+    for _ in range(1024):
+        off = _i32(f.read(4))
+        if not off:
+            break
+        offsets.append(off)
+    if not offsets:
+        raise EOFError("attempt to seek outside sequence")
+    f.seek(offsets[0])
+    return _pcx(f)
+
+
+_DXGI = {70: "RGBA", 71: "RGBA", 73: "RGBA", 74: "RGBA", 76: "RGBA",
+         77: "RGBA", 79: "L", 80: "L", 82: "RGB", 83: "RGB", 84: "RGB",
+         95: "RGB", 96: "RGB", 97: "RGBA", 98: "RGBA", 99: "RGBA",
+         27: "RGBA", 28: "RGBA", 29: "RGBA"}
+_FOURCC = {827611204: "RGBA", 861165636: "RGBA", 894720068: "RGBA",
+           1429488450: "L", 826889281: "L", 1395999554: "RGB",
+           1429553986: "RGB", 843666497: "RGB"}
+
+
+def _dds(f):
+    if not f.read(4).startswith(b"DDS "):
+        raise SyntaxError("not a DDS file")
+    (hsize,) = struct.unpack("<I", f.read(4))
+    if hsize != 124:
+        raise Unidentified(f"Unsupported header size {hsize!r}")
+    header = f.read(hsize - 4)
+    if len(header) != 120:
+        raise Unidentified(f"Incomplete header: {len(header)} bytes")
+    _, h, w = struct.unpack("<3I", header[:12])
+    _, pfflags, fourcc, bitcount = struct.unpack("<4I", header[68:84])
+    if pfflags & 64:  # DDPF.RGB
+        mode = "RGBA" if pfflags & 1 else "RGB"
+    elif pfflags & 131072:  # DDPF.LUMINANCE
+        if bitcount == 8:
+            mode = "L"
+        elif bitcount == 16 and pfflags & 1:
+            mode = "LA"
+        else:
+            raise Unidentified(f"Unsupported bitcount {bitcount}")
+    elif pfflags & 32:  # DDPF.PALETTEINDEXED8
+        mode = "P"
+    elif pfflags & 4:  # DDPF.FOURCC
+        if fourcc == 808540228:  # DX10
+            (dxgi,) = struct.unpack("<I", f.read(4))
+            if dxgi not in _DXGI:
+                raise OpenError(f"DDS: Unimplemented DXGI format {dxgi}")
+            mode = _DXGI[dxgi]
+        elif fourcc in _FOURCC:
+            mode = _FOURCC[fourcc]
+        else:
+            raise OpenError(f"DDS: Unimplemented pixel format {fourcc!r}")
+    else:
+        raise OpenError(f"DDS: Unknown pixel format flags {pfflags}")
+    return mode, (w, h)
+
+
+_EPS_SPLIT = re.compile(r"^%%([^:]*):[ \t]*(.*)[ \t]*$")
+_EPS_FIELD = re.compile(r"^%[%!\w]([^:]*)[ \t]*$")
+_EPS_MODES = {1: "L", 2: "LAB", 3: "RGB", 4: "CMYK"}
+_EPS_EOL = re.compile(rb"[\r\n]")
+
+
+def _eps(f):
+    """EpsImageFile._open: its walk over the header and trailer comments,
+    a run of bytes between line ends at a time."""
+    s = f.read(4)
+    if s == b"%!PS":
+        offset = 0
+    elif _i32(s) == 0xC6D3D0C5:
+        offset = _i32(f.read(8))
+    else:
+        raise SyntaxError("not an EPS file")
+    f.seek(offset)
+    buf, info, mode = f.buf, {}, "RGB"
+    bbox = imagedata = None
+    arr = bytearray(255)
+    nread = 0
+    header, trailer_comments, trailer = True, False, False
+
+    def check():
+        if "PS-Adobe" not in info:
+            raise SyntaxError('EPS header missing "%!PS-Adobe" comment')
+        if "BoundingBox" not in info:
+            raise SyntaxError('EPS header missing "%%BoundingBox" comment')
+
+    def comment(s):
+        nonlocal bbox, trailer_comments
+        m = _EPS_SPLIT.match(s)
+        if not m:
+            return False
+        k, v = m.group(1, 2)
+        info[k] = v
+        if k == "BoundingBox":
+            if v == "(atend)":
+                trailer_comments = True
+            elif not bbox or (trailer and trailer_comments):
+                try:
+                    bbox = [int(float(i)) for i in v.split()]
+                except Exception:
+                    pass
+        return True
+
+    while True:
+        # a run of bytes up to a line end, as Pillow's reads of one byte
+        # at a time add them to the line: a 256th byte starts the line
+        # over, after the header check, where the line is no comment
+        m = _EPS_EOL.search(buf, f.pos)
+        end = m.start() if m else len(buf)
+        run = memoryview(buf)[f.pos : end] if f.pos < end else b""
+        i = 0
+        while i < len(run):
+            if nread >= 255:
+                if arr[0] == 37:
+                    raise SyntaxError("not an EPS file")
+                if header:
+                    check()
+                    header = False
+                nread = 0
+            k = min(len(run) - i, 255 - nread)
+            arr[nread : nread + k] = run[i : i + k]
+            nread += k
+            i += k
+        f.pos = max(f.pos, end)
+        byte = f.read(1)
+        if byte == b"":
+            if nread == 0:
+                if header:
+                    check()
+                break
+        elif nread == 0:
+            continue
+        mv = memoryview(arr)
+        if header:
+            if arr[0] != 37 or mv[:13] == b"%%EndComments":
+                check()
+                header = False
+                continue
+            s = str(mv[:nread], "latin-1")
+            if not comment(s):
+                m = _EPS_FIELD.match(s)
+                if m:
+                    k = m.group(1)
+                    info["PS-Adobe" if k.startswith("PS-Adobe") else k] = \
+                        k[9:] if k.startswith("PS-Adobe") else ""
+                elif s[0] != "%":
+                    raise Unidentified("bad EPS header")
+        elif mv[:11] == b"%ImageData:":
+            if imagedata:
+                nread = 0
+                continue
+            values = arr[11:nread].split(None, 7)
+            try:
+                cols, rows, depth, mode_id = (int(v) for v in values[:4])
+            except ValueError as e:
+                raise PilValueError(str(e)) from e
+            if depth == 1:
+                mode = "1"
+            elif depth == 8:
+                mode = _EPS_MODES[mode_id]
+            else:
+                break
+            imagedata = cols, rows
+        elif mv[:5] == b"%%EOF":
+            break
+        elif trailer and trailer_comments:
+            comment(str(mv[:nread], "latin-1"))
+        elif mv[:9] == b"%%Trailer":
+            trailer = True
+        elif mv[:14] == b"%%BeginBinary:":
+            try:
+                count = int(arr[14:nread])
+            except ValueError as e:
+                raise PilValueError(str(e)) from e
+            f.seek(count, 1)
+        nread = 0
+    if not bbox:
+        raise Unidentified("cannot determine EPS bounding box")
+    return mode, imagedata or (bbox[2] - bbox[0], bbox[3] - bbox[1])
+
+
+def _int(v):
+    try:
+        return int(v)
+    except ValueError as e:
+        raise PilValueError(str(e)) from e
+
+
+def _fits_size(headers, prefix):
+    naxis = _int(headers[prefix + b"NAXIS"])
+    if naxis == 0:
+        return None
+    if naxis == 1:
+        return 1, _int(headers[prefix + b"NAXIS1"])
+    return _int(headers[prefix + b"NAXIS1"]), _int(headers[prefix + b"NAXIS2"])
+
+
+def _fits(f):
+    headers = {}
+    in_header = False
+    parsed = None
+    while True:
+        card = f.read(80)
+        if not card:
+            raise Unidentified("Truncated FITS file")
+        keyword = card[:8].strip()
+        if keyword in (b"SIMPLE", b"XTENSION"):
+            in_header = True
+        elif headers and not in_header:
+            break
+        elif keyword == b"END":
+            f.seek(math.ceil(f.tell() / 2880) * 2880)
+            if parsed is None or not parsed[0]:
+                parsed = _fits_parse(headers)
+            in_header = False
+            continue
+        if parsed is not None and parsed[0]:
+            continue
+        value = card[8:].split(b"/")[0].strip()
+        if value.startswith(b"="):
+            value = value[1:].strip()
+        if not headers and (not keyword.startswith(b"SIMPLE")
+                            or value != b"T"):
+            raise SyntaxError("Not a FITS file")
+        headers[keyword] = value
+    if parsed is None or not parsed[0]:
+        raise PilValueError("No image data")
+    return parsed[1], parsed[2]
+
+
+def _fits_parse(headers):
+    """FitsImageFile._parse_headers: (decoder, mode, size)."""
+    prefix = b""
+    decoder = "raw"
+    if headers.get(b"XTENSION") == b"'BINTABLE'" and \
+            headers.get(b"ZIMAGE") == b"T" and \
+            headers[b"ZCMPTYPE"] == b"'GZIP_1  '":
+        _fits_size(headers, prefix)
+        _int(headers[b"BITPIX"])
+        prefix, decoder = b"Z", "fits_gzip"
+    size = _fits_size(headers, prefix)
+    if not size:
+        return "", "", (0, 0)
+    bits = _int(headers[prefix + b"BITPIX"])
+    mode = {8: "L", 16: "I;16", 32: "I", -32: "F", -64: "F"}.get(bits, "")
+    return decoder, mode, size
+
+
+def _fli_accept(p):
+    return len(p) >= 16 and _i16(p, 4) in (0xAF11, 0xAF12) \
+        and _i16(p, 14) in (0, 3)
+
+
+def _fli(f):
+    s = f.read(128)
+    if not (_fli_accept(s) and s[20:22] == b"\0\0" and s[42:80] == bytes(38)
+            and s[88:] == bytes(40)):
+        raise SyntaxError("not an FLI/FLC file")
+    frames = _i16(s, 6)
+    size = _i16(s, 8), _i16(s, 10)
+    _i32(s, 16)
+    s = f.read(16)
+    if _i16(s, 4) == 0xF100:
+        f.seek(128 + _i32(s))
+        s = f.read(16)
+    if _i16(s, 4) == 0xF1FA:
+        chunk = None
+        for _ in range(_i16(s, 6)):
+            if chunk is not None:
+                f.seek(chunk - 6, 1)
+            s = f.read(6)
+            if _i16(s, 4) in (4, 11):
+                i = 0
+                for _ in range(_i16(f.read(2))):
+                    s = f.read(2)
+                    i += s[0]
+                    n = s[1] or 256
+                    s = f.read(n * 3)
+                    for k in range(0, len(s), 3):
+                        s[k + 2]
+                        if i >= 256:  # the palette's list of 256
+                            raise IndexError("list index out of range")
+                        i += 1
+                break
+            chunk = _i32(s)
+            if not chunk:
+                break
+    if frames == 0:
+        raise EOFError("attempt to seek outside sequence")
+    f.seek(128)
+    s = f.read(4)
+    if not s:
+        raise EOFError("missing frame size")
+    _i32(s)
+    return "P", size
+
+
+def _ftex(f):
+    if not f.read(4).startswith(b"FTEX"):
+        raise SyntaxError("not an FTEX file")
+    struct.unpack("<i", f.read(4))
+    size = struct.unpack("<2i", f.read(8))
+    _, count = struct.unpack("<2i", f.read(8))
+    if count != 1:
+        raise OpenError("FTEX: AssertionError (a format count other than 1)")
+    fmt, where = struct.unpack("<2i", f.read(8))
+    f.seek(where)
+    (n,) = struct.unpack("<i", f.read(4))
+    f.read(n)
+    if fmt not in (0, 1):
+        raise PilValueError(f"Invalid texture compression format: {fmt!r}")
+    if size[0] <= 0 or size[1] <= 0:
+        # the plugin has closed the file by now: Image.open's next plugin
+        # (IM's, which has no accept test) cannot seek it
+        raise PilValueError("seek of closed file")
+    return ("RGBA" if fmt == 0 else "RGB"), size
+
+
+def _gbr(f):
+    hsize = _i32be(f.read(4))
+    if hsize < 20:
+        raise SyntaxError("not a GIMP brush")
+    version = _i32be(f.read(4))
+    if version not in (1, 2):
+        raise SyntaxError(f"Unsupported GIMP brush version: {version}")
+    w, h, depth = _i32be(f.read(4)), _i32be(f.read(4)), _i32be(f.read(4))
+    if w == 0 or h == 0:
+        raise SyntaxError("not a GIMP brush")
+    if depth not in (1, 4):
+        raise SyntaxError(f"Unsupported GIMP brush color depth: {depth}")
+    if version == 1:
+        n = hsize - 20
+    else:
+        n = hsize - 28
+        if f.read(4) != b"GIMP":
+            raise SyntaxError("not a GIMP brush, bad magic number")
+        _i32be(f.read(4))
+    f.read(n)
+    _bomb((w, h))
+    return ("L" if depth == 1 else "RGBA"), (w, h)
+
+
+class _Boxes:
+    """Jpeg2KImagePlugin.BoxReader."""
+
+    def __init__(self, f, length=-1):
+        self.f, self.has_length, self.length = f, length >= 0, length
+        self.left = -1
+
+    def can_read(self, n):
+        if self.has_length and self.f.tell() + n > self.length:
+            return False
+        return n <= self.left if self.left >= 0 else True
+
+    def read_bytes(self, n):
+        if not self.can_read(n):
+            raise SyntaxError("Not enough data in header")
+        data = self.f.read(n)
+        if len(data) < n:
+            raise Unidentified(f"Expected to read {n} bytes but only got "
+                               f"{len(data)}.")
+        if self.left > 0:
+            self.left -= n
+        return data
+
+    def fields(self, fmt):
+        return struct.unpack(fmt, self.read_bytes(struct.calcsize(fmt)))
+
+    def boxes(self):
+        size = self.left
+        return _Boxes(_File(self.read_bytes(size)), size)
+
+    def has_next(self):
+        return self.f.tell() + self.left < self.length if self.has_length \
+            else True
+
+    def next_type(self):
+        if self.left > 0:
+            self.f.seek(self.left, 1)
+        self.left = -1
+        lbox, tbox = self.fields(">I4s")
+        head = 8
+        if lbox == 1:
+            lbox, head = self.fields(">Q")[0], 16
+        if lbox < head or not self.can_read(lbox - head):
+            raise SyntaxError("Invalid header length")
+        self.left = lbox - head
+        return tbox
+
+
+def _j2k_codestream(f):
+    hdr = f.read(2)
+    lsiz = _i16be(hdr)
+    siz = hdr + f.read(lsiz - 2)
+    _, _, xsiz, ysiz, xo, yo, _, _, _, _, csiz = struct.unpack_from(
+        ">HHIIIIIIIIH", siz)
+    if csiz == 1:
+        mode = "I;16" if (siz[38] & 0x7F) + 1 > 8 else "L"
+        struct.unpack_from(">B", siz, 38)
+    elif csiz in (2, 3, 4):
+        mode = ("LA", "RGB", "RGBA")[csiz - 2]
+    else:
+        raise SyntaxError("unable to determine J2K image mode")
+    return (xsiz - xo, ysiz - yo), mode
+
+
+def _j2k_comment(f):
+    while True:
+        marker = f.read(2)
+        if not marker:
+            break
+        typ = marker[1]
+        if typ in (0x90, 0xD9):
+            break
+        length = _i16be(f.read(2))
+        if typ == 0x64:
+            f.read(length - 2)
+            break
+        f.seek(length - 2, 1)
+
+
+def _jp2_header(f):
+    reader = _Boxes(f)
+    while True:  # a box reader with no length always has a next box
+        tbox = reader.next_type()
+        if tbox == b"jp2h":
+            header = reader.boxes()
+            break
+        if tbox == b"ftyp":
+            reader.fields(">4s")
+    size = mode = None
+    nc = None
+    while header.has_next():
+        tbox = header.next_type()
+        if tbox == b"ihdr":
+            h, w, nc, bpc = header.fields(">IIHB")
+            size = (w, h)
+            mode = {1: "I;16" if (bpc & 0x7F) > 8 else "L", 2: "LA",
+                    3: "RGB", 4: "RGBA"}.get(nc, mode)
+        elif tbox == b"colr" and nc == 4:
+            meth, _, _, cs = header.fields(">BBBI")
+            if meth == 1 and cs == 12:
+                mode = "CMYK"
+        elif tbox == b"pclr" and mode in ("L", "LA"):
+            ne, npc = header.fields(">HB")
+            if max([0, *header.fields(">" + "B" * npc)]) <= 8:
+                # ImagePalette.getcolor: a new colour's index is the
+                # palette's length over 3, each colour npc bytes long
+                colors, length = set(), 0
+                for _ in range(ne):
+                    c = header.fields(">" + "B" * npc)
+                    if c not in colors:
+                        if length // 3 >= 256:
+                            raise PilValueError(
+                                "cannot allocate more than 256 colors")
+                        colors.add(c)
+                        length += npc
+                mode = "P" if mode == "L" else "PA"
+        elif tbox == b"res ":
+            res = header.boxes()
+            while res.has_next():
+                if res.next_type() == b"resc":
+                    res.fields(">HHHHBB")
+                    break
+    if size is None or mode is None:
+        raise SyntaxError("Malformed JP2 header")
+    return size, mode
+
+
+def _jpeg2000(f):
+    sig = f.read(4)
+    if sig == b"\xff\x4f\xff\x51":
+        size, mode = _j2k_codestream(f)
+        _j2k_comment(f)
+        return mode, size
+    sig += f.read(8)
+    if sig != b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a":
+        raise SyntaxError("not a JPEG 2000 file")
+    size, mode = _jp2_header(f)
+    if f.read(12).endswith(b"jp2c\xff\x4f\xff\x51"):
+        length = _i16be(f.read(2))
+        f.seek(length - 2, 1)
+        _j2k_comment(f)
+    return mode, size
+
+
+# IcnsFile.SIZES: (width, height, scale) and the blocks that give it
+_ICNS_SIZES = {
+    (512, 512, 2): (b"ic10",), (512, 512, 1): (b"ic09",),
+    (256, 256, 2): (b"ic14",), (256, 256, 1): (b"ic08",),
+    (128, 128, 2): (b"ic13",), (128, 128, 1): (b"ic07", b"it32", b"t8mk"),
+    (64, 64, 1): (b"icp6",), (32, 32, 2): (b"ic12",),
+    (48, 48, 1): (b"ih32", b"h8mk"), (32, 32, 1): (b"icp5", b"il32", b"l8mk"),
+    (16, 16, 2): (b"ic11",), (16, 16, 1): (b"icp4", b"is32", b"s8mk")}
+
+
+def _icns(f):
+    sig, filesize = struct.unpack(">4sI", f.read(8))
+    if not sig.startswith(b"icns"):
+        raise SyntaxError("not an icns file")
+    blocks = set()
+    i = 8
+    while i < filesize:
+        sig, size = struct.unpack(">4sI", f.read(8))
+        if size <= 0:
+            raise SyntaxError("invalid block header")
+        i += 8
+        size -= 8
+        blocks.add(sig)
+        f.seek(size, 1)
+        i += size
+    sizes = [s for s, codes in _ICNS_SIZES.items() if blocks & set(codes)]
+    if not sizes:
+        raise SyntaxError("No 32bit icon resources found")
+    w, h, scale = max(sizes)
+    return "RGBA", (w * scale, h * scale)
+
+
+def _ico(f):
+    s = f.read(6)
+    if not s.startswith(b"\0\0\1\0"):
+        raise SyntaxError("not an ICO file")
+    entries = []
+    for _ in range(_i16(s, 4)):
+        s = f.read(16)
+        w, h, ncolor = s[0] or 256, s[1] or 256, s[2]
+        bpp = _i16(s, 6)
+        s[3], _i16(s, 4)
+        depth = bpp or (ncolor != 0 and math.ceil(math.log(ncolor, 2))) or 256
+        entries.append((w * h, depth, (w, h), bpp, _i32(s, 8), _i32(s, 12)))
+    entries.sort(key=lambda e: e[1])
+    entries.sort(key=lambda e: e[0], reverse=True)
+    _, _, _, bpp, size, offset = entries[0]
+    f.seek(offset)
+    head = f.read(8)
+    f.seek(offset)
+    if head == b"\x89PNG\r\n\x1a\n":  # through the port's PNG reader
+        from art_tpu_torch.io import imagefile
+
+        try:
+            samples = imagefile._read_png(f.buf[offset:])[0]
+        except Unidentified as e:
+            raise SyntaxError(str(e)) from e
+        except (IndexError, struct.error, zlib.error, ValueError) as e:
+            raise Unidentified(f"broken PNG icon: {e}") from e
+        shape = samples.shape[1], samples.shape[0]
+        _bomb(shape)
+        return "RGBA", shape
+    mode, (w, h), (data, stride, row, comp) = _bitmap(f)
+    if w <= 0 or h <= 0:
+        raise SyntaxError("an icon of no size")
+    _bomb((w, h))
+    h = int(h / 2)
+    if h == 0:
+        raise SyntaxError("an icon of no rows")
+    if bpp == 32:  # its alpha: every fourth byte of its data
+        f.seek(data)
+        if len(f.read(w * h * 4)[3::4]) < w * h:
+            raise PilValueError("buffer is not large enough")
+    else:  # the AND mask after its data, rows of 32-bit words
+        w32 = w + (32 - w % 32) % 32
+        total = int((w32 * h) / 8)
+        f.seek(offset + size - total)
+        if len(f.read(total)) < int(w32 / 8) * (h - 1) + (w + 7) // 8:
+            raise PilValueError("not enough image data")
+    if comp in (1, 2) and mode not in ("P", "L"):
+        # BmpRleDecoder's "P" raw mode for an "RGB" or "1" image
+        raise PilValueError("unknown raw mode for given image mode")
+    if comp not in (1, 2) and len(f.buf) - data < stride * (h - 1) + row:
+        raise Unidentified("image file is truncated")
+    return "RGBA", (w, h)
+
+
+_IM_SPLIT = re.compile(rb"^([A-Za-z][^:]*):[ \t]*(.*)[ \t]*$")
+_IM_TAGS = ("Comment", "Date", "Digitalization equipment",
+            "File size (no of images)", "Lut", "Name", "Scale (x,y)",
+            "Image size (x*y)", "Image type")
+_IM_MODES = {
+    "0 1 image": "1", "L 1 image": "1", "Greyscale image": "L",
+    "Grayscale image": "L", "RGB image": "RGB", "RLB image": "RGB",
+    "RYB image": "RGB", "B1 image": "1", "B2 image": "P", "B4 image": "P",
+    "X 24 image": "RGB", "L 32 S image": "I", "L 32 F image": "F",
+    "RGB3 image": "RGB", "RYB3 image": "RGB", "LA image": "LA",
+    "PA image": "LA", "RGBA image": "RGBA", "RGBX image": "RGB",
+    "CMYK image": "CMYK", "YCC image": "YCbCr"}
+
+
+def _im_number(s):
+    try:
+        return int(s)
+    except ValueError:
+        try:
+            return float(s)
+        except ValueError as e:
+            raise PilValueError(str(e)) from e
+
+
+def _im(f):
+    if b"\n" not in f.read(100):
+        raise SyntaxError("not an IM file")
+    f.seek(0)
+    info = {"Image type": "L", "Image size (x*y)": (512, 512)}
+    n = 0
+    while True:
+        s = f.read(1)
+        if s == b"\r":
+            continue
+        if not s or s in (b"\0", b"\x1a"):
+            break
+        s += f.readline()
+        if len(s) > 100:
+            raise SyntaxError("not an IM file")
+        s = s[:-2] if s.endswith(b"\r\n") else \
+            s[:-1] if s.endswith(b"\n") else s
+        m = _IM_SPLIT.match(s)
+        if not m:
+            raise SyntaxError("Syntax error in IM header")
+        k, v = (g.decode("latin-1", "replace") for g in m.group(1, 2))
+        if k in ("File size (no of images)", "Scale (x,y)",
+                 "Image size (x*y)"):
+            v = tuple(map(_im_number, v.replace("*", ",").split(",")))
+            if len(v) == 1:
+                v = v[0]
+        elif k == "Image type" and v in _IM_MODES:
+            v = _IM_MODES[v]
+        info[k] = v
+        if k in _IM_TAGS:
+            n += 1
+    if not n:
+        raise SyntaxError("Not an IM file")
+    size, mode = info["Image size (x*y)"], info["Image type"]
+    while s and not s.startswith(b"\x1a"):
+        s = f.read(1)
+    if not s:
+        raise SyntaxError("File truncated")
+    if "Lut" in info:
+        p = f.read(768)
+        grey = True
+        for i in range(256):
+            if not p[i] == p[i + 256] == p[i + 512]:
+                grey = False
+        if mode in ("L", "LA", "P", "PA") and not grey:
+            mode = "P" if mode in ("L", "P") else "PA"
+    size[0], size[1]  # a scalar size is no size (TypeError)
+    return mode, size
+
+
+_IMT_FIELD = re.compile(rb"([a-z]*) ([^ \r\n]*)")
+
+
+def _imt(f):
+    buffer = f.read(100)
+    if b"\n" not in buffer:
+        raise SyntaxError("not an IM file")
+    w = h = 0
+    size, mode = (0, 0), ""
+    while True:
+        if buffer:
+            s, buffer = buffer[:1], buffer[1:]
+        else:
+            s = f.read(1)
+        if not s or s == b"\x0c":
+            break
+        if b"\n" not in buffer:
+            buffer += f.read(100)
+        lines = buffer.split(b"\n")
+        s += lines.pop(0)
+        buffer = b"\n".join(lines)
+        if len(s) == 1 or len(s) > 100:
+            break
+        if s[0] == ord(b"*"):
+            continue
+        m = _IMT_FIELD.match(s)
+        if not m:
+            break
+        k, v = m.group(1, 2)
+        if k == b"width":
+            w = _int(v)
+            size = w, h
+        elif k == b"height":
+            h = _int(v)
+            size = w, h
+        elif k == b"pixel" and v == b"n8":
+            mode = "L"
+    return mode, size
+
+
+def _iptc_int(c):
+    return _i32be((b"\0\0\0\0" + c)[-4:])
+
+
+def _iptc(f):
+    info = {}
+    while True:
+        s = f.read(5)
+        if not s.strip(b"\0"):
+            break
+        tag = s[1], s[2]
+        if s[0] != 0x1C or tag[0] not in (1, 2, 3, 4, 5, 6, 7, 8, 9, 240):
+            raise SyntaxError("invalid IPTC/NAA file")
+        size = s[3]
+        if size > 132:
+            raise Unidentified("illegal field length in IPTC/NAA file")
+        size = 0 if size == 128 else \
+            _iptc_int(f.read(size - 128)) if size > 128 else _i16be(s, 3)
+        if tag == (8, 10):
+            break
+        data = f.read(size) if size else None
+        if tag in info:
+            info[tag] = (info[tag] if isinstance(info[tag], list)
+                         else [info[tag]]) + [data]
+        else:
+            info[tag] = data
+    layers, component = info[(3, 60)][0], info[(3, 60)][1]
+    mode = ""
+    if layers == 1 and not component:
+        mode = "L"
+    else:
+        if layers == 3 and component:
+            mode = "RGB"
+        elif layers == 4 and component:
+            mode = "CMYK"
+        if (3, 65) in info:
+            info[(3, 65)][0] - 1
+    size = _iptc_int(info[(3, 20)]), _iptc_int(info[(3, 30)])
+    try:
+        if _iptc_int(info[(3, 120)]) not in (1, 5):
+            raise KeyError
+    except KeyError as e:
+        raise Unidentified("Unknown IPTC image compression") from e
+    return mode, size
+
+
+def _mcidas(f):
+    s = f.read(256)
+    if not s.startswith(b"\0\0\0\0\0\0\0\4") or len(s) != 256:
+        raise SyntaxError("not an McIdas area file")
+    w = [0, *struct.unpack("!64i", s)]
+    if w[11] not in (1, 2, 4):
+        raise SyntaxError("unsupported McIdas format")
+    return {1: "L", 2: "I;16B", 4: "I"}[w[11]], (w[10], w[9])
+
+
+def _mpeg(f):
+    state = [0, 0]  # bits held, the bit buffer
+
+    def read(n):
+        while state[0] < n:
+            state[1] = (state[1] << 8) + _i8(f.read(1))
+            state[0] += 8
+        v = state[1] >> (state[0] - n) & (1 << n) - 1
+        state[0] -= n
+        return v
+
+    if read(32) != 0x1B3:
+        raise SyntaxError("not an MPEG file")
+    return "RGB", (read(12), read(12))
+
+
+def _msp(f):
+    s = f.read(32)
+    if not s.startswith((b"DanM", b"LinS")):
+        raise SyntaxError("not an MSP file")
+    check = 0
+    for i in range(0, 32, 2):
+        check ^= _i16(s, i)
+    if check:
+        raise SyntaxError("bad MSP checksum")
+    return "1", (_i16(s, 4), _i16(s, 6))
+
+
+def _pcd(f):
+    f.seek(2048)
+    s = f.read(1539)
+    if not s.startswith(b"PCD_"):
+        raise SyntaxError("not a PCD file")
+    return "RGB", (512, 768) if s[1538] & 3 in (1, 3) else (768, 512)
+
+
+def _pixar(f):
+    s = f.read(4)
+    if not s.startswith(b"\x80\xe8\0\0"):
+        raise SyntaxError("not a PIXAR file")
+    s += f.read(508)
+    size = _i16(s, 418), _i16(s, 416)
+    return ("RGB" if (_i16(s, 424), _i16(s, 426)) == (14, 2) else ""), size
+
+
+_PPM_MODES = {b"P0CMYK": "CMYK", b"Pf": "F", b"PyP": "P", b"PyRGBA": "RGBA",
+              b"PyCMYK": "CMYK"}
+
+
+def _ppm(f):
+    """PpmImageFile._open for the magics beyond P1-P6."""
+    from art_tpu_torch.io import stdformats
+
+    magic, r = stdformats.pnm_magic(f.buf)
+    mode = _PPM_MODES[magic]
+    size = (stdformats._int(stdformats._token(r)),
+            stdformats._int(stdformats._token(r)))
+    token = stdformats._token(r)
+    if mode == "F":
+        try:
+            scale = float(token)
+        except ValueError as e:
+            raise PilValueError(str(e)) from e
+        if scale == 0.0 or not math.isfinite(scale):
+            raise PilValueError("scale must be finite and non-zero")
+    elif not 0 < stdformats._int(token) < 65536:
+        raise PilValueError("maxval must be greater than 0 and less than "
+                            "65536")
+    return mode, size
+
+
+_PSD_MODES = {(0, 1): ("1", 1), (0, 8): ("L", 1), (1, 8): ("L", 1),
+              (2, 8): ("P", 1), (3, 8): ("RGB", 3), (4, 8): ("CMYK", 4),
+              (7, 8): ("L", 1), (8, 8): ("L", 1), (9, 8): ("LAB", 3)}
+
+
+def _psd(f):
+    s = f.read(26)
+    if not s.startswith(b"8BPS") or _i16be(s, 4) != 1:
+        raise SyntaxError("not a PSD file")
+    mode, channels = _PSD_MODES[(_i16be(s, 24), _i16be(s, 22))]
+    have = _i16be(s, 12)
+    if channels > have:
+        raise Unidentified("not enough channels")
+    if mode == "RGB" and have == 4:
+        mode, channels = "RGBA", 4
+    size = _i32be(s, 18), _i32be(s, 14)
+    n = _i32be(f.read(4))
+    if n:
+        f.read(n)
+    n = _i32be(f.read(4))
+    if n:
+        end = f.tell() + n
+        while f.tell() < end:
+            f.read(4)
+            _i16be(f.read(2))
+            name = f.read(_i8(f.read(1)))
+            if not len(name) & 1:
+                f.read(1)
+            data = f.read(_i32be(f.read(4)))
+            if len(data) & 1:
+                f.read(1)
+    n = _i32be(f.read(4))
+    if n:
+        end = f.tell() + n
+        _i32be(f.read(4))
+        f.seek(end)
+    if _i16be(f.read(2)) == 1:  # packbits: a byte count per row
+        counts = f.read(channels * size[1] * 2)
+        if len(counts) < channels * size[1] * 2:
+            raise struct.error("unpack_from requires a buffer of 2 bytes")
+    return mode, size
+
+
+def _qoi(f):
+    if not f.read(4).startswith(b"qoif"):
+        raise SyntaxError("not a QOI file")
+    size = _i32be(f.read(4)), _i32be(f.read(4))
+    channels = f.read(1)[0]
+    return ("RGB" if channels == 3 else "RGBA"), size
+
+
+_SGI_MODES = {(1, 1, 1): "L", (1, 2, 1): "L", (2, 1, 1): "L", (2, 2, 1): "L",
+              (1, 3, 3): "RGB", (2, 3, 3): "RGB", (1, 3, 4): "RGBA",
+              (2, 3, 4): "RGBA"}
+
+
+def _sgi(f):
+    s = f.read(512)
+    if not (len(s) >= 2 and _i16be(s) == 474):
+        raise PilValueError("Not an SGI image file")
+    s[2]
+    key = s[3], _i16be(s, 4), _i16be(s, 10)
+    size = _i16be(s, 6), _i16be(s, 8)
+    if key not in _SGI_MODES:
+        raise PilValueError("Unsupported SGI image mode")
+    return _SGI_MODES[key], size
+
+
+def _spider_header(t):
+    """SpiderImagePlugin.isSpiderHeader: the header's byte count, or 0."""
+    h = (99,) + t
+    for i in (1, 2, 5, 12, 13, 22, 23):
+        try:
+            if h[i] - int(h[i]) != 0:
+                return 0
+        except (ValueError, OverflowError):
+            return 0
+    if int(h[5]) not in (1, 3, -11, -12, -21, -22):
+        return 0
+    labbyt = int(h[22])
+    if labbyt != int(h[13]) * int(h[23]):
+        return 0
+    return labbyt
+
+
+def _spider_int(v):
+    try:
+        return int(v)
+    except ValueError as e:
+        raise PilValueError(str(e)) from e
+    except OverflowError as e:
+        raise OpenError(f"SPIDER: OverflowError: {e}") from e
+
+
+def _spider(f):
+    data = f.read(108)
+    t = struct.unpack(">27f", data)
+    if not _spider_header(t):
+        t = struct.unpack("<27f", data)
+        if not _spider_header(t):
+            raise SyntaxError("not a valid Spider file")
+    h = (99,) + t
+    if int(h[5]) != 1:
+        raise SyntaxError("not a Spider 2D image")
+    size = int(h[12]), int(h[2])
+    stack, number = _spider_int(h[24]), _spider_int(h[27])
+    if stack > 0 and number == 0:
+        _spider_int(h[26])
+    elif stack == 0 and number > 0:
+        raise OpenError("SPIDER: AttributeError: 'SpiderImageFile' object "
+                        "has no attribute 'stkoffset'")
+    elif not (stack == 0 and number == 0):
+        raise SyntaxError("inconsistent stack header values")
+    return "F", size
+
+
+def _sun(f):
+    s = f.read(32)
+    if not (len(s) >= 4 and _i32be(s) == 0x59A66A95):
+        raise SyntaxError("not an SUN raster file")
+    size = _i32be(s, 4), _i32be(s, 8)
+    depth, ftype = _i32be(s, 12), _i32be(s, 20)
+    ptype, plen = _i32be(s, 24), _i32be(s, 28)
+    if depth not in (1, 4, 8, 24, 32):
+        raise SyntaxError("Unsupported Mode/Bit Depth")
+    mode = {1: "1", 4: "L", 8: "L"}.get(depth, "RGB")
+    if plen:
+        if plen > 1024:
+            raise SyntaxError("Unsupported Color Palette Length")
+        if ptype != 1:
+            raise SyntaxError("Unsupported Palette Type")
+        if mode == "L":
+            mode = "P"
+    if ftype not in (0, 1, 2, 3, 4, 5):
+        raise SyntaxError("Unsupported Sun Raster file type")
+    return mode, size
+
+
+def _tga(f):
+    s = f.read(18)
+    id_len, cmap, itype, depth, _ = s[0], s[1], s[2], s[16], s[17]
+    size = _i16(s, 12), _i16(s, 14)
+    if cmap not in (0, 1) or size[0] <= 0 or size[1] <= 0 or \
+            depth not in (1, 8, 16, 24, 32):
+        raise SyntaxError("not a TGA file")
+    if itype in (3, 11):
+        mode = {1: "1", 16: "LA"}.get(depth, "L")
+    elif itype in (1, 9):
+        mode = "P" if cmap else "L"
+    elif itype in (2, 10):
+        mode = "RGB" if depth == 24 else "RGBA"
+    else:
+        raise SyntaxError("unknown TGA mode")
+    if id_len:
+        f.read(id_len)
+    if cmap:
+        _i16(s, 3), _i16(s, 5)
+        if s[7] not in (16, 24, 32):
+            raise SyntaxError("unknown TGA map depth")
+    return mode, size
+
+
+def _webp(f):
+    """libwebp's demux, as far as its chunks: a whole RIFF, whole chunks,
+    and the first image's bitstream header."""
+    buf = f.buf
+    if len(buf) < 12 or _i32(buf, 4) < 12 or _i32(buf, 4) + 8 > len(buf):
+        raise Unidentified("could not create decoder object")
+    end = _i32(buf, 4) + 8
+    pos, chunks = 12, []
+    while pos < end:
+        if end - pos < 8:
+            raise Unidentified("could not create decoder object")
+        kind, n = buf[pos : pos + 4], _i32(buf, pos + 4)
+        if pos + 8 + n > end:
+            raise Unidentified("could not create decoder object")
+        chunks.append((kind, buf[pos + 8 : pos + 8 + n]))
+        pos += 8 + n + (n & 1)
+    if not chunks:
+        raise Unidentified("could not create decoder object")
+    kind, data = chunks[0]
+    if kind == b"VP8X":
+        if len(data) < 10:
+            raise Unidentified("could not create decoder object")
+        images = [c for c in chunks[1:] if c[0] in (b"VP8 ", b"VP8L", b"ANMF")]
+        if not images:
+            raise Unidentified("could not create decoder object")
+        kind, data = images[0]
+        if kind == b"ANMF":
+            return "RGBA", (1 + int.from_bytes(data[4:7], "little")
+                            if len(data) >= 16 else 0, 1)
+    if kind == b"VP8 ":  # VP8GetInfo: a shown key frame
+        tag = int.from_bytes(data[:3], "little")
+        if len(data) < 10 or tag & 1 or not tag & 16 or (tag >> 1) & 7 > 3 \
+                or tag >> 5 >= len(data) or data[3:6] != b"\x9d\x01\x2a":
+            raise Unidentified("could not create decoder object")
+        size = _i16(data, 6) & 0x3FFF, _i16(data, 8) & 0x3FFF
+    elif kind == b"VP8L":
+        if len(data) < 5 or data[0] != 0x2F or _i32(data, 1) >> 29:
+            raise Unidentified("could not create decoder object")
+        bits = _i32(data, 1)
+        size = (bits & 0x3FFF) + 1, ((bits >> 14) & 0x3FFF) + 1
+    else:
+        raise Unidentified("could not create decoder object")
+    if not size[0] or not size[1]:
+        raise Unidentified("could not create decoder object")
+    return "RGB", size
+
+
+def _wmf(f):
+    s = f.read(44)
+    if s.startswith(b"\xd7\xcd\xc6\x9a\0\0"):
+        inch = _i16(s, 14)
+        if inch == 0:
+            raise PilValueError("Invalid inch")
+        x0, y0, x1, y1 = struct.unpack_from("<4h", s, 6)
+        size = (x1 - x0) * 72 // inch, (y1 - y0) * 72 // inch
+        if s[22:26] != b"\x01\x00\t\x00":
+            raise SyntaxError("Unsupported WMF file format")
+    elif s.startswith(b"\x01\0\0\0") and s[40:44] == b" EMF":
+        x0, y0, x1, y1, fx0, fy0, fx1, fy1 = struct.unpack_from("<8i", s, 8)
+        if fx1 == fx0 or fy1 == fy0:
+            raise OpenError("WMF: ZeroDivisionError: division by zero")
+        size = x1 - x0, y1 - y0
+    else:
+        raise SyntaxError("Unsupported file format")
+    return "RGB", size
+
+
+_XBM = re.compile(
+    rb"\s*#define[ \t]+.*_width[ \t]+(?P<width>[0-9]+)[\r\n]+"
+    b"#define[ \t]+.*_height[ \t]+(?P<height>[0-9]+)[\r\n]+"
+    b"(?P<hotspot>"
+    b"#define[ \t]+[^_]*_x_hot[ \t]+(?P<xhot>[0-9]+)[\r\n]+"
+    b"#define[ \t]+[^_]*_y_hot[ \t]+(?P<yhot>[0-9]+)[\r\n]+"
+    b")?"
+    rb"[\000-\377]*_bits\[]")
+
+
+def _xbm(f):
+    m = _XBM.match(f.read(512))
+    if not m:
+        raise SyntaxError("not a XBM file")
+    return "1", (int(m.group("width")), int(m.group("height")))
+
+
+_XPM = re.compile(b'"([0-9]*) ([0-9]*) ([0-9]*) ([0-9]*)')
+
+
+def _xpm(f):
+    if not f.read(9).startswith(b"/* XPM */"):
+        raise SyntaxError("not an XPM file")
+    while True:
+        line = f.readline()
+        if not line:
+            raise SyntaxError("broken XPM file")
+        m = _XPM.match(line)
+        if m:
+            break
+    size = _int(m.group(1)), _int(m.group(2))
+    n, bpp = _int(m.group(3)), _int(m.group(4))
+    for _ in range(n):
+        line = f.readline().rstrip()
+        s = line[bpp + 1 : -2].split()
+        for i in range(0, len(s), 2):
+            if s[i] == b"c":
+                rgb = s[i + 1]
+                if rgb.startswith(b"#"):
+                    try:
+                        int(rgb[1:], 16)
+                    except ValueError as e:
+                        raise PilValueError(str(e)) from e
+                elif rgb != b"None":
+                    raise PilValueError("cannot read this XPM file")
+                break
+        else:
+            raise PilValueError("cannot read this XPM file")
+    return ("RGB" if n > 256 else "P"), size
+
+
+def _xvthumb(f):
+    if not f.read(6).startswith(b"P7 332"):
+        raise SyntaxError("not an XV thumbnail file")
+    f.readline()
+    while True:
+        s = f.readline()
+        if not s:
+            raise SyntaxError("Unexpected EOF reading XV thumbnail file")
+        if s[0] != 35:
+            break
+    parts = s.strip().split(maxsplit=2)[:2]
+    if len(parts) < 2:
+        raise PilValueError("not enough values to unpack")
+    return "P", (_int(parts[0]), _int(parts[1]))
+
+
+def _bomb(size):
+    if max(1, size[0]) * max(1, size[1]) > _BOMB_PIXELS:
+        raise DecompressionBomb(
+            f"Image size ({size[0]}x{size[1]}) exceeds limit of "
+            f"{_BOMB_PIXELS} pixels, could be decompression bomb DOS attack.")
+
+
+def _starts(*magics):
+    return lambda p: p.startswith(magics)
+
+
+# (name, accept test on the first 16 bytes or None, open) in the order of
+# Pillow 12.1.0's Image.ID, the plugins of the port's own formats left
+# out; PPM's plugin is here for the magics beyond P1-P6
+FORMATS = (
+    ("AVIF", lambda p: p[4:8] == b"ftyp"
+     and p[8:12] in (b"avif", b"avis", b"mif1", b"msf1"), _avif),
+    ("BLP", _starts(b"BLP1", b"BLP2"), _blp),
+    ("DIB", lambda p: len(p) >= 4
+     and _i32(p) in (12, 40, 52, 56, 64, 108, 124), _dib),
+    ("BUFR", _starts(b"BUFR", b"ZCZC"), _stub(b"BUFR", b"ZCZC")),
+    ("CUR", _starts(b"\0\0\2\0"), _cur),
+    ("PCX", _pcx_accept, _pcx),
+    ("DCX", lambda p: len(p) >= 4 and _i32(p) == 987654321, _dcx),
+    ("DDS", _starts(b"DDS "), _dds),
+    ("EPS", lambda p: p.startswith(b"%!PS")
+     or (len(p) >= 4 and _i32(p) == 0xC6D3D0C5), _eps),
+    ("FITS", _starts(b"SIMPLE"), _fits),
+    ("FLI", _fli_accept, _fli),
+    ("FTEX", _starts(b"FTEX"), _ftex),
+    ("GBR", lambda p: len(p) >= 8 and _i32be(p) >= 20
+     and _i32be(p, 4) in (1, 2), _gbr),
+    ("GRIB", lambda p: len(p) >= 8 and p.startswith(b"GRIB") and p[7] == 1,
+     _grib),
+    ("HDF5", _starts(b"\x89HDF\r\n\x1a\n"), _stub(b"\x89HDF\r\n\x1a\n")),
+    ("JPEG 2000", _starts(b"\xff\x4f\xff\x51",
+                          b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a"), _jpeg2000),
+    ("ICNS", _starts(b"icns"), _icns),
+    ("ICO", _starts(b"\0\0\1\0"), _ico),
+    ("IM", None, _im),
+    ("IMT", None, _imt),
+    ("IPTC/NAA", None, _iptc),
+    ("McIdas", _starts(b"\0\0\0\0\0\0\0\4"), _mcidas),
+    ("MPEG", _starts(b"\x00\x00\x01\xb3"), _mpeg),
+    ("MSP", _starts(b"DanM", b"LinS"), _msp),
+    ("PCD", None, _pcd),
+    ("PIXAR", _starts(b"\x80\xe8\x00\x00"), _pixar),
+    ("PFM", _starts(b"Pf"), _ppm),
+    ("PNM of a Pillow extension", _starts(b"P0", b"Py"), _ppm),
+    ("PSD", _starts(b"8BPS"), _psd),
+    ("QOI", _starts(b"qoif"), _qoi),
+    ("SGI", lambda p: len(p) >= 2 and _i16be(p) == 474, _sgi),
+    ("SPIDER", None, _spider),
+    ("SUN", lambda p: len(p) >= 4 and _i32be(p) == 0x59A66A95, _sun),
+    ("TGA", None, _tga),
+    ("WebP", lambda p: p.startswith(b"RIFF") and p[8:12] == b"WEBP"
+     and p[12:16] in (b"VP8 ", b"VP8X", b"VP8L"), _webp),
+    ("WMF", _starts(b"\xd7\xcd\xc6\x9a\x00\x00", b"\x01\x00\x00\x00"), _wmf),
+    ("XBM", lambda p: p.lstrip().startswith(b"#define"), _xbm),
+    ("XPM", _starts(b"/* XPM */"), _xpm),
+    ("XVThumb", _starts(b"P7 332"), _xvthumb),
+)
+
+
+def identify(buf):
+    """The name of the format in `FORMATS` that Pillow's ``Image.open``
+    opens `buf` as, or None where it opens none of them; the errors its
+    open lets out as the module docstring says."""
+    prefix = bytes(buf[:16])
+    for name, accept, open_ in FORMATS:
+        if accept is not None and not accept(prefix):
+            continue
+        try:
+            mode, size = open_(_File(buf))
+        except (Unidentified, PilValueError, DecompressionBomb, OpenError):
+            raise
+        except _NEXT:
+            continue
+        except OverflowError as e:
+            raise OpenError(f"{name}: OverflowError: {e}") from e
+        if not mode or size[0] <= 0 or size[1] <= 0:
+            continue
+        _bomb(size)
+        return name
+    return None

@@ -177,6 +177,18 @@ of 24 MP non-raw files on the host (an 8-bit PNG, a 16-bit grey PNG, a
 JPEG-compressed TIFF, a JPEG with an Adobe RGB profile), decode and ICC
 conversion timed apart, an external loader, and the PNG through
 cli.main (exit 2, non-raw input named, no file).
+Then the image formats Pillow opens (`formats_phase`), on the host:
+F1, 24 MP files the phase writes with its numpy writers (`write_bmp24`,
+`write_pnm`, `write_gif`, `write_tiff_form`: a 24-bit BMP, an 8-bit PPM,
+a 16-bit PGM, a GIF, a planar TIFF, a BigTIFF, a CMYK TIFF), each
+decode's host ms and its array against the one written (the CMYK
+TIFF's against the sha256 the CPU tests recorded from Pillow), and the
+committed JPEG forms of tests/data (arithmetic-coded, lossless, CMYK,
+YCCK) against Pillow's sha256; F2, P3's Hald film simulation with
+Texture Boost under an external mask through cli.main at 24 MP, the
+Hald a BMP and the mask a 16-bit PGM, its JPEG byte-equal to the same
+develop from PNG files, B1-B4 and B7 once each and bit-equal to their
+plain versions on F2's tensors.
 Then one JSON line of per-kernel results (time, plain time, bound) and
 last the line {"ok": true, "device": {...}}. Any failure raises
 (non-zero exit, no result lines); so does a machine without CUDA.
@@ -3886,6 +3898,354 @@ def entry_phase(smi_line, tmp):
     return stats, failures
 
 
+# ---- the image formats Pillow opens (F1, F2) --------------------------
+
+FORMATS_FRAME = (4000, 6000)
+# tests/data: the committed JPEG forms and GIF, and the sha256 of Pillow 12.1.0's
+# convert("RGB") of each (and of F1's CMYK TIFF), recorded by
+# tests/test_torch_formats.py
+FORMATS_DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "tests", "data")
+FORMATS_SHA = os.path.join(FORMATS_DATA, "formats_sha256.json")
+
+
+def write_bmp24(path, rgb):
+    """A 24-bit bottom-up BMP (BITMAPINFOHEADER, rows padded to 4
+    bytes) of (H, W, 3) uint8."""
+    import struct
+
+    h, w, _ = rgb.shape
+    stride = (w * 3 + 3) & ~3
+    rows = np.zeros((h, stride), np.uint8)
+    rows[:, : w * 3] = rgb[::-1, :, ::-1].reshape(h, -1)
+    head = struct.pack("<2sIHHI", b"BM", 54 + rows.size, 0, 0, 54)
+    info = struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, rows.size,
+                       2835, 2835, 0, 0)
+    with open(path, "wb") as f:
+        f.write(head + info)
+        f.write(rows.tobytes())
+    return path
+
+
+def write_pnm(path, arr, maxval=255):
+    """A binary PGM (P5, (H, W)) or PPM (P6, (H, W, 3)) of maxval
+    `maxval`: one byte a sample up to 255, else two, big-endian."""
+    arr = np.asarray(arr)
+    magic = b"P5" if arr.ndim == 2 else b"P6"
+    h, w = arr.shape[:2]
+    data = arr.astype(np.uint8 if maxval < 256 else ">u2").tobytes()
+    with open(path, "wb") as f:
+        f.write(b"%s\n%d %d\n%d\n" % (magic, w, h, maxval))
+        f.write(data)
+    return path
+
+
+def write_gif(path, idx, palette):
+    """A GIF89a of (H, W) uint8 indices into a 256-colour palette ((256,
+    3) uint8): LZW data of 9-bit literal codes only, a clear code before
+    every 254 of them (so the table never widens the codes)."""
+    import struct
+
+    h, w = idx.shape
+    flat = idx.reshape(-1).astype(np.uint16)
+    n = flat.size
+    groups = (n + 253) // 254
+    codes = np.empty(n + groups + 1, np.uint16)
+    starts = np.arange(groups) * 255
+    codes[starts] = 256  # clear
+    mask = np.ones(n + groups + 1, bool)
+    mask[starts] = False
+    mask[-1] = False
+    codes[mask] = flat
+    codes[-1] = 257  # end of information
+    # eight 9-bit codes, least significant bit first, make nine bytes
+    total = codes.size
+    c = np.zeros((total + 7) // 8 * 8, np.uint64)
+    c[:total] = codes
+    c = c.reshape(-1, 8)
+    lo = np.zeros(len(c), np.uint64)
+    for i in range(7):
+        lo |= c[:, i] << np.uint64(9 * i)
+    lo |= (c[:, 7] & np.uint64(1)) << np.uint64(63)
+    data = np.concatenate([lo.astype("<u8").view(np.uint8).reshape(-1, 8),
+                           (c[:, 7:8] >> np.uint64(1)).astype(np.uint8)],
+                          axis=1).reshape(-1)[: (total * 9 + 7) // 8]
+    nb = (data.size + 254) // 255
+    padded = np.zeros(nb * 255, np.uint8)
+    padded[: data.size] = data
+    blocks = np.concatenate([np.full((nb, 1), 255, np.uint8),
+                             padded.reshape(nb, 255)], axis=1)
+    blocks[-1, 0] = data.size - 255 * (nb - 1)  # sub-blocks of 255 bytes
+    body = blocks.reshape(-1)[: (nb - 1) * 256 + 1 + int(blocks[-1, 0])]
+    with open(path, "wb") as f:
+        f.write(b"GIF89a" + struct.pack("<HHBBB", w, h, 0xF7, 0, 0))
+        f.write(np.asarray(palette, np.uint8).tobytes())
+        f.write(b"," + struct.pack("<HHHHB", 0, 0, w, h, 0) + bytes([8]))
+        f.write(body.tobytes() + b"\x00;")
+    return path
+
+
+def tiff_bytes(blocks, ents, big=False, tiles=False):
+    """A little-endian TIFF (BigTIFF with `big`: 8-byte offsets) of the
+    data blocks, strips or (with `tiles`) tiles, in order after the
+    header, and an IFD of the entries `ents` ((tag, type 3 or 4, values))
+    with the blocks' offsets and byte counts added."""
+    import struct
+
+    head = 16 if big else 8
+    offsets, pos = [], head
+    for b in blocks:
+        offsets.append(pos)
+        pos += len(b)
+    pos += pos & 1
+    long_t = 16 if big else 4
+    where, counts = (324, 325) if tiles else (273, 279)
+    ents = sorted(list(ents) + [(where, long_t, offsets),
+                                (counts, long_t, [len(b) for b in blocks])])
+    code = {3: "H", 4: "I", 16: "Q"}
+    inline = 8 if big else 4
+    n = len(ents)
+    extra_at = pos + ((8 + 20 * n + 8) if big else (2 + 12 * n + 4))
+    ifd = struct.pack("<Q", n) if big else struct.pack("<H", n)
+    extra = b""
+    for tag, typ, vals in ents:
+        payload = struct.pack("<" + code[typ] * len(vals), *vals)
+        if len(payload) <= inline:
+            value = payload.ljust(inline, b"\0")
+        else:
+            value = struct.pack("<Q" if big else "<I", extra_at + len(extra))
+            extra += payload + b"\0" * (len(payload) & 1)
+        ifd += struct.pack("<HHQ" if big else "<HHI", tag, typ,
+                           len(vals)) + value
+    ifd += b"\0" * (8 if big else 4)
+    hdr = (b"II+\0" + struct.pack("<HHQ", 8, 0, pos)) if big else \
+        (b"II*\0" + struct.pack("<I", pos))
+    return (hdr + b"".join(blocks)).ljust(pos, b"\0") + ifd + extra
+
+
+def write_tiff_form(path, arr, photometric=2, planar=False, big=False,
+                    rows_per_strip=256, deflate=False):
+    """A little-endian TIFF (BigTIFF with `big`: 8-byte offsets) of
+    (H, W, C) uint8 or uint16 `arr`: photometric 1 (grey), 2 (RGB) or 5
+    (CMYK), chunky or with separate planes (one plane's strips after
+    another's), strips of `rows_per_strip` rows, uncompressed or
+    deflated."""
+    import zlib
+
+    arr = np.asarray(arr)
+    if arr.ndim == 2:
+        arr = arr[..., None]
+    h, w, c = arr.shape
+    bits = 8 * arr.dtype.itemsize
+    planes = [arr[..., k : k + 1] for k in range(c)] if planar else [arr]
+    strips = []
+    for plane in planes:
+        for y in range(0, h, rows_per_strip):
+            raw = np.ascontiguousarray(plane[y : y + rows_per_strip]).astype(
+                "<u2" if bits == 16 else np.uint8).tobytes()
+            strips.append(zlib.compress(raw, 1) if deflate else raw)
+    ents = [(256, 4, [w]), (257, 4, [h]), (258, 3, [bits] * c),
+            (259, 3, [8 if deflate else 1]), (262, 3, [photometric]),
+            (277, 3, [c]), (278, 4, [rows_per_strip]),
+            (284, 3, [2 if planar else 1])]
+    with open(path, "wb") as f:
+        f.write(tiff_bytes(strips, ents, big))
+    return path
+
+
+def formats_arrays(h, w, seed=0):
+    """F1's pictures: an RGB scene with noise, a 16-bit grey ramp with
+    noise, a GIF's indices and palette, and a CMYK scene, all from
+    `seed`."""
+    rng = np.random.default_rng(seed)
+    y = np.arange(h, dtype=np.int32)[:, None]
+    x = np.arange(w, dtype=np.int32)[None, :]
+    base = np.empty((h, w, 3), np.int16)
+    base[..., 0] = (x // 20 + y // 33) % 256
+    base[..., 1] = (y // 25) % 256
+    base[..., 2] = ((x + y) // 50) % 256
+    rgb = np.clip(base + rng.integers(-8, 9, (h, w, 3), dtype=np.int8), 0,
+                  255).astype(np.uint8)
+    grey16 = np.clip(x * 65535 // max(w - 1, 1) + rng.integers(
+        -600, 601, (h, w), dtype=np.int32), 0, 65535).astype(np.uint16)
+    idx = ((x // 7 + y // 5) % 256).astype(np.uint8)
+    palette = rng.integers(0, 256, (256, 3)).astype(np.uint8)
+    cmyk = np.concatenate([rgb, (255 - rgb.max(-1, keepdims=True))], -1)
+    return rgb, grey16, idx, palette, cmyk
+
+
+def formats_files(tmp, h, w, seed=0):
+    """F1's files in `tmp`: name -> (path, the array each decodes to, or
+    None where Pillow's sha256 stands for it)."""
+    rgb, grey16, idx, palette, cmyk = formats_arrays(h, w, seed)
+    files = {
+        "BMP 24-bit": (write_bmp24(os.path.join(tmp, "f1.bmp"), rgb), rgb),
+        "PPM 8-bit": (write_pnm(os.path.join(tmp, "f1.ppm"), rgb), rgb),
+        "PGM 16-bit": (write_pnm(os.path.join(tmp, "f1.pgm"), grey16,
+                                 65535), grey16.astype(np.int32)),
+        "GIF": (write_gif(os.path.join(tmp, "f1.gif"), idx, palette),
+                palette[idx]),
+        "planar TIFF": (write_tiff_form(os.path.join(tmp, "f1p.tif"), rgb,
+                                        planar=True, deflate=True), rgb),
+        "BigTIFF": (write_tiff_form(os.path.join(tmp, "f1b.tif"), rgb,
+                                    big=True), rgb),
+        "CMYK TIFF": (write_tiff_form(os.path.join(tmp, "f1c.tif"), cmyk,
+                                      photometric=5), None),
+    }
+    return files
+
+
+def _sha(arr):
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(arr).tobytes()).hexdigest()
+
+
+def f2_arp(hald, mask):
+    """F2's settings: P3's Hald film simulation (before the curve,
+    strength 80) and Texture Boost under the external mask `mask`."""
+    return (p3_arp(hald) + "\n[TextureBoost]\nEnabled=true\nStrength_1=0.6\n"
+            "DetailThreshold_1=1.5\nIterations_1=1\n"
+            f"ExternalMaskEnabled_1=true\nExternalMaskFilename_1={mask}\n"
+            "ExternalMaskFeather_1=10\n")
+
+
+def f2_mask(h=MASK_PNG[0], w=MASK_PNG[1], seed=0):
+    """F2's mask samples: M1's blob and ramp with 1% noise, at 0..255 (a
+    16-bit PGM opens as Pillow's mode I, which a mask reads through
+    ``convert("RGB")``, clipped at 255)."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    yy, xx = yy / h, xx / w
+    blob = np.exp(-((xx - 0.6) ** 2 / 0.04 + (yy - 0.45) ** 2 / 0.06))
+    v = 0.7 * blob + 0.3 * xx + np.random.default_rng(seed).normal(
+        0.0, 0.01, (h, w))
+    return np.round(np.clip(v, 0.0, 1.0) * 255.0).astype(np.uint16)
+
+
+def formats_phase(smi_line, tmp):
+    """The image formats Pillow opens, decoded by the port on the card's
+    machine (no PIL there). F1: `formats_files` at 24 MP, each decode's
+    host ms and its samples against the array written (the CMYK TIFF's
+    against Pillow's sha256 from tests/data/formats_sha256.json), then
+    every committed fixture of tests/data (the JPEG forms and a GIF of
+    Pillow's own LZW) against Pillow's sha256 (the card machine's g++
+    builds of io/native/jpegdec.cc and lzwdec.cc held to Pillow). F2:
+    `f2_arp` on the flagship DNG through cli.main with the bundled
+    profile and denoise 20/20, the Hald a 24-bit BMP and the mask a
+    16-bit PGM, against the same develop from an 8-bit PNG Hald and an
+    8-bit PNG mask of the same samples: the JPEGs byte-equal, B1-B4
+    and B7 once each and bit-equal to their plain versions on F2's
+    tensors. Returns (the comparisons, the failures)."""
+    from art_tpu_torch.io import imagefile
+    from art_tpu_torch.io.dngwrite import write_dng
+    from art_tpu_torch.pipeline import develop as tdev
+
+    log(f"---- formats phase ({smi_line})")
+    t_phase = time.monotonic()
+    failures = []
+    with open(FORMATS_SHA) as f:
+        recorded = json.load(f)
+    h, w = FORMATS_FRAME
+    t0 = time.monotonic()
+    files = formats_files(tmp, h, w)
+    log(f"F1 files {h}x{w} written in {time.monotonic() - t0:.2f} s: "
+        + ", ".join(f"{k} {os.path.getsize(p) / 1e6:.1f} MB"
+                    for k, (p, _) in files.items()))
+    for name, (path, want) in files.items():
+        t0 = time.monotonic()
+        mode, samples, _ = imagefile.read_image(path)
+        ms = 1e3 * (time.monotonic() - t0)
+        if want is None:
+            got_sha = _sha(imagefile.to_rgb8(mode, samples))
+            ok = got_sha == recorded.get(f"F1 {name}")
+        else:
+            ok = samples.shape == want.shape and np.array_equal(samples, want)
+        log(f"F1 {name}: read_image {ms:.1f} ms (host) -> mode {mode} "
+            f"{samples.shape} {samples.dtype}: "
+            f"{'equal' if ok else 'DIFFERENT'}")
+        if not ok:
+            failures.append(f"F1 {name} decodes differently")
+    for name in sorted(k for k in recorded if not k.startswith("F1 ")):
+        path = os.path.join(FORMATS_DATA, name)
+        buf = open(path, "rb").read()
+        t0 = time.monotonic()
+        rgb = imagefile.read_rgb8(path)
+        ms = 1e3 * (time.monotonic() - t0)
+        ok = _sha(rgb) == recorded[name]
+        log(f"F1 {name} ({len(buf)} bytes, {rgb.shape[1]}x{rgb.shape[0]}): "
+            f"{ms:.1f} ms, sha256 {'equal to' if ok else 'NOT'} Pillow's")
+        if not ok:
+            failures.append(f"F1 {name}: sha256 differs from Pillow's")
+
+    # F2: the Hald as a BMP and the mask as a 16-bit PGM against PNGs
+    from art_tpu_torch.io.imagefile import write_png
+
+    hald = hald_image(12, 8)
+    mask = f2_mask()
+    paths = {"bmp": write_bmp24(os.path.join(tmp, "hald12.bmp"), hald),
+             "pgm": write_pnm(os.path.join(tmp, "mask.pgm"), mask, 65535),
+             "png": os.path.join(tmp, "hald12.png"),
+             "mask_png": os.path.join(tmp, "mask.png")}
+    write_png(paths["png"], hald)
+    write_png(paths["mask_png"], np.repeat(mask.astype(np.uint8)[..., None],
+                                           3, axis=2))
+    t0 = time.monotonic()
+    plane, mode = imagefile.read_grey(paths["pgm"])
+    ms = 1e3 * (time.monotonic() - t0)
+    ok = mode == "L" and np.array_equal(plane, mask.astype(np.uint8))
+    log(f"F2 mask: the 16-bit PGM reads as mode {mode} {plane.shape} in "
+        f"{ms:.1f} ms (host), {'equal to' if ok else 'NOT'} its samples "
+        f"clipped at 255")
+    if not ok:
+        failures.append("F2: the PGM mask decodes wrongly")
+    frame = flagship_frame(*FRAME)
+    dng = os.path.join(tmp, "f2.dng")
+    write_dng(dng, np.round(frame.cfa).astype(np.uint16), black=512,
+              white=16383, compress=False)
+    base = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "art_tpu_torch", "data", "profiles", PROFILE)
+    dn = os.path.join(tmp, "denoise20.arp")
+    with open(dn, "w") as f:
+        f.write("[Denoise]\nEnabled=true\nLuminance=20\nChrominance=20\n")
+    outs = {}
+    want = ("b1", "b2", "b3", "b4", "b7")
+    for kind, (lut, msk) in {"new": (paths["bmp"], paths["pgm"]),
+                             "png": (paths["png"], paths["mask_png"])}.items():
+        arp = os.path.join(tmp, f"f2_{kind}.arp")
+        with open(arp, "w") as f:
+            f.write(f2_arp(lut, msk))
+        out = os.path.join(tmp, f"f2_{kind}.jpg")
+        argv = ["-Y", "-p", base, "-p", dn, "-p", arp, "-o", out, "-c", dng]
+        reset_counts()
+        phases, seconds = cli_run(argv)
+        launches, plain_calls = read_counts()
+        log(f"F2 ({'BMP Hald, PGM mask' if kind == 'new' else 'PNG Hald, '
+            'PNG mask'}) through cli.main: {1e3 * seconds:.1f} ms end to "
+            f"end (first); phases {phases}; launches {launches}; plain "
+            f"calls {plain_calls}")
+        if launches != {k: int(k in want) for k in launches} \
+                or any(plain_calls.values()):
+            failures.append(f"F2 {kind}: launches {launches}, plain calls "
+                            f"{plain_calls}")
+        outs[kind] = open(out, "rb").read()
+        check_jpeg(out)
+    same = outs["new"] == outs["png"]
+    log(f"F2 JPEG from the BMP and PGM {'byte-equal to' if same else 'DIFFERS FROM'}"
+        f" the PNGs' ({len(outs['new'])} bytes)")
+    if not same:
+        failures.append("F2: the BMP/PGM develop differs from the PNGs'")
+    from art_tpu_torch import cli
+
+    argv = ["-Y", "-p", base, "-p", dn, "-p",
+            os.path.join(tmp, "f2_new.arp"), "-o",
+            os.path.join(tmp, "f2_k.jpg"), "-c", dng]
+    pp = cli.compose_params(dng, cli.parse_args(argv))
+    failures += kernels_against_plain("F2", lambda: tdev.develop(frame, pp),
+                                      want)
+    log(f"formats phase: {time.monotonic() - t_phase:.1f} s")
+    return {}, failures
+
+
 def _leaves(d):
     for k, v in d.items():
         if isinstance(v, dict):
@@ -3924,12 +4284,13 @@ def main():
 
     from art_tpu_torch import hostbuild
 
-    # the host libraries (raw decoder, JPEG encoder and decoder; g++)
-    # build beside
-    # the CUDA kernels (nvcc), all compilers at once
+    # the host libraries (raw decoder, JPEG encoder and decoder, GIF's
+    # LZW decoder; g++) build beside the CUDA kernels (nvcc), all
+    # compilers at once
     t0 = time.monotonic()
     with ThreadPoolExecutor(1) as pool:
-        host = pool.submit(hostbuild.build, "artraw", "jpegenc", "jpegdec")
+        host = pool.submit(hostbuild.build, "artraw", "jpegenc", "jpegdec",
+                           "lzwdec")
         kernels.library()
         host_libs = host.result()
     log(f"build: {time.monotonic() - t0:.2f} s "
@@ -4185,6 +4546,14 @@ def main():
         entry_stats, entry_failures = entry_phase(smi_line, tmp)
     new_stats.update(entry_stats)
     failures += entry_failures
+
+    # ---- the image formats Pillow opens: F1 (24 MP files of each form,
+    # the committed JPEG forms), F2 (a BMP Hald and a PGM mask through
+    # cli.main)
+    with tempfile.TemporaryDirectory() as tmp:
+        fmt_stats, fmt_failures = formats_phase(smi_line, tmp)
+    new_stats.update(fmt_stats)
+    failures += fmt_failures
 
     failures += [f"B6 on {k} disagrees with its plain version"
                  for k, ok in b6_edges.items() if not ok]

@@ -265,8 +265,9 @@ def test_tiled_tiff_decodes_as_pil(tmp_path, bits, le):
 def test_other_formats_raise_by_name(tmp_path, fmt, name):
     img = Image.fromarray(np.zeros((8, 8, 3), np.uint8))
     img.save(tmp_path / "a.img", format=fmt)
-    if fmt == "JPEG":
-        # decoded since (tests/test_torch_jpegdec.py), as PIL decodes it
+    if fmt != "WEBP":
+        # decoded since (tests/test_torch_jpegdec.py,
+        # tests/test_torch_formats.py), as PIL decodes it
         rgb = np.random.default_rng(1).integers(0, 256, (13, 21, 3))
         Image.fromarray(rgb.astype(np.uint8)).save(tmp_path / "a.img",
                                                    format=fmt)

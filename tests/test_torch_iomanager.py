@@ -262,22 +262,29 @@ def test_saver_hands_its_file_on(tmp_path, both):
 
 
 def test_a_format_pil_reads_goes_to_no_loader(tmp_path, both):
-    """A BMP is an image PIL opens, so the reference never asks a loader:
-    the port refuses it by name and runs none either."""
+    """A BMP and a WebP are images PIL opens, so the reference never asks
+    a loader: the port decodes the BMP as the reference does and refuses
+    the WebP by name, and runs no loader either."""
     Image = pytest.importorskip("PIL.Image")
     iodir, run = both
     marker = tmp_path / "ran"
     script = tmp_path / "mark.py"
     script.write_text(f"open({str(marker)!r}, 'w').close()\n")
-    (iodir / "bmp.txt").write_text(
-        f"[ART ImageIO]\nExtension=bmp\nReadCommand={sys.executable} "
-        f"{script}\n")
+    for ext in ("bmp", "webp"):
+        (iodir / f"{ext}.txt").write_text(
+            f"[ART ImageIO]\nExtension={ext}\nReadCommand="
+            f"{sys.executable} {script}\n")
     bmp = tmp_path / "a.bmp"
-    Image.fromarray(np.zeros((4, 4, 3), np.uint8)).save(bmp)
+    Image.fromarray(np.full((4, 4, 3), 77, np.uint8)).save(bmp)
     ref = run("ref", lambda: ref_load_std(str(bmp)))
     assert ref.rgb.shape == (3, 4, 4) and not marker.exists()
-    with pytest.raises(NotImplementedError, match="BMP image"):
-        run("port", lambda: load_std_image(str(bmp)))
+    got = run("port", lambda: load_std_image(str(bmp)))
+    np.testing.assert_array_equal(got.rgb, ref.rgb)
+    webp = tmp_path / "a.webp"
+    Image.fromarray(np.zeros((4, 4, 3), np.uint8)).save(webp)
+    assert run("ref", lambda: ref_load_std(str(webp))).rgb.shape == (3, 4, 4)
+    with pytest.raises(NotImplementedError, match="WebP image"):
+        run("port", lambda: load_std_image(str(webp)))
     assert not marker.exists()
 
 

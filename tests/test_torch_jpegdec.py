@@ -339,19 +339,22 @@ REFUSED = {"CMYK": _cmyk, "YCCK": lambda: _cmyk(2),
 
 @pytest.mark.parametrize("form", sorted(REFUSED))
 def test_forms_pil_decodes_are_refused_by_name(form, tmp_path):
+    """The forms the port once refused by name (CMYK, YCCK, arithmetic
+    coding, lossless) decode as Pillow decodes them: strict, salvage and
+    through the image readers."""
     buf = REFUSED[form]()
     for salvage in (False, True):
         assert not isinstance(pil_load(buf, salvage), Exception)
-        with pytest.raises(NotImplementedError, match=form):
-            jpegdec.decode_rgb(buf, salvage)
+    check_as_pil(buf, form)
     path = tmp_path / "a.jpg"
     path.write_bytes(buf)
     from art_tpu_torch.io.imagefile import read_grey, read_rgb8
 
-    with pytest.raises(NotImplementedError, match=form):
-        read_rgb8(str(path))
-    with pytest.raises(NotImplementedError, match=form):
-        read_grey(str(path))
+    want = pil_load(buf, False)
+    np.testing.assert_array_equal(read_rgb8(str(path)), want)
+    grey, mode = read_grey(str(path))
+    np.testing.assert_array_equal(grey, want[..., 1])
+    assert mode == "L"
 
 
 def test_forms_pil_fails_on_fail_alike():

@@ -498,6 +498,54 @@ def test_entry_points_with_jax_pil_and_cv2_blocked():
     assert "ENTRY-STANDALONE-OK" in proc.stdout
 
 
+FORMATS_SCRIPT = r"""
+import sys
+
+BLOCKED = ("jax", "jaxlib", "art_tpu", "PIL", "cv2")
+
+
+class _Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError("blocked in this process: " + name)
+        return None
+
+
+sys.meta_path.insert(0, _Refuse())
+
+import hashlib
+import json
+import os
+import tempfile
+import numpy as np
+import chip_smoke
+from art_tpu_torch.io import imagefile, unported
+
+assert unported.identify(b"qoif\0\0\0\4\0\0\0\3\3\0") == "QOI"
+with tempfile.TemporaryDirectory() as d:
+    for name, (path, want) in chip_smoke.formats_files(d, 40, 64).items():
+        mode, samples, _ = imagefile.read_image(path)
+        assert want is None or np.array_equal(samples, want), name
+with open(os.path.join("tests", "data", "formats_sha256.json")) as f:
+    rec = json.load(f)
+for name, sha in rec.items():
+    if name.startswith("F1 "):
+        continue
+    rgb = imagefile.read_rgb8(os.path.join("tests", "data", name))
+    assert hashlib.sha256(rgb.tobytes()).hexdigest() == sha, name
+print("FORMATS-STANDALONE-OK")
+"""
+
+
+def test_formats_with_jax_pil_and_cv2_blocked():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", FORMATS_SCRIPT], env=env,
+                          capture_output=True, text=True, timeout=600,
+                          cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "FORMATS-STANDALONE-OK" in proc.stdout
+
+
 def _port_sources():
     root = os.path.join(REPO, "art_tpu_torch")
     for dirpath, _, files in os.walk(root):

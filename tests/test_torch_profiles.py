@@ -132,9 +132,9 @@ def test_check_lut_answers_as_the_reference(tmp_path, capsys, case):
 
 
 def test_check_lut_refuses_a_hald_image(tmp_path, capsys):
-    # ported since: a Hald PNG and a Hald JPEG load (0) as in the
-    # reference; an image format the port's decoder does not read (a GIF)
-    # exits 2 naming it
+    # ported since: a Hald PNG, JPEG and GIF load (0) as in the
+    # reference; an image format the port's decoder does not read (a
+    # WebP) exits 2 naming it
     from PIL import Image
 
     from art_tpu import cli as ref_cli
@@ -145,13 +145,15 @@ def test_check_lut_refuses_a_hald_image(tmp_path, capsys):
     write_hald(str(path), level=2, bits=8)
     jpeg = tmp_path / "hald.jpg"
     Image.fromarray(hald_image(2, 8)).save(jpeg)
-    for lut in (path, jpeg):
+    gif = tmp_path / "hald.gif"
+    Image.fromarray(hald_image(2, 8)).save(gif)
+    for lut in (path, jpeg, gif):
         rc, text = _check_lut(cli.main, lut, capsys)
         ref_rc, ref_text = _check_lut(ref_cli.main, lut, capsys)
         assert rc == ref_rc == 0 and text == ref_text
-    gif = tmp_path / "hald.gif"
-    Image.fromarray(hald_image(2, 8)).save(gif)
-    rc, text = _check_lut(cli.main, gif, capsys)
+    webp = tmp_path / "hald.webp"
+    Image.fromarray(hald_image(2, 8)).save(webp, lossless=True)
+    rc, text = _check_lut(cli.main, webp, capsys)
     assert rc == 2
-    assert "GIF image" in text and "reads PNG, TIFF and JPEG" in text
+    assert "WebP image" in text and "reads PNG, TIFF, JPEG" in text
     assert "Invalid LUT file" not in text
