@@ -1,7 +1,8 @@
 """Build the package's host C++ libraries: the raw decoder
 (``io/native/artraw.cc``), the baseline JPEG encoder
-(``io/native/jpegenc.cc``), the JPEG decoder (``io/native/jpegdec.cc``)
-and GIF's LZW decoder (``io/native/lzwdec.cc``).
+(``io/native/jpegenc.cc``), the JPEG decoder (``io/native/jpegdec.cc``),
+GIF's LZW decoder (``io/native/lzwdec.cc``) and the WebP decoder
+(``io/native/webpdec.cc``).
 
 Each source is compiled by g++ with portable flags (no ``-march=native``,
 so a library built on one machine runs on another) into
@@ -45,7 +46,7 @@ def _cxx() -> str:
     if not cxx:
         raise RuntimeError("g++ not found: cannot build the art_tpu_torch "
                            "host libraries (raw decoder, JPEG encoder and "
-                           "decoder, GIF decoder)")
+                           "decoder, GIF and WebP decoders)")
     return cxx
 
 

@@ -10,14 +10,17 @@ PNG 8/16-bit through the small zlib writer below (the reference uses PIL
 for 8 bits and OpenCV for 16; the pixels are the same).
 
 `read_rgb8` decodes a PNG (1 to 16 bits; grey, grey and alpha, RGB, RGBA,
-palette; plain or Adam7), a TIFF or BigTIFF (strips or tiles, chunky or
+palette; plain or Adam7; opened and loaded step by step as Pillow does,
+CRCs checked at the open only), a TIFF or BigTIFF (strips or tiles, chunky or
 planar; none, deflate, LZW, PackBits or JPEG; the horizontal predictor;
 1 to 16 bits, and one sample of 32-bit integers or floats; grey, RGB,
 RGBA, palette, CMYK, YCbCr under JPEG), a JPEG
 (:mod:`art_tpu_torch.io.jpegdec`: Huffman- or arithmetic-coded
 baseline, extended or progressive, lossless; grey, YCbCr, RGB, CMYK or
-YCCK) or a BMP, PNM or GIF (:mod:`art_tpu_torch.io.stdformats`) into
-what the reference's callers ask PIL for,
+YCCK), a BMP, PNM or GIF (:mod:`art_tpu_torch.io.stdformats`) or a WebP
+(:mod:`art_tpu_torch.io.webpdec`: lossless, lossy with its alpha, the
+first frame of an animation) into what the reference's callers ask PIL
+for,
 ``np.asarray(Image.open(path).convert("RGB"))``, byte for byte: 16-bit
 colour keeps its high byte, 16-bit grey clips at 255 (PIL's I;16), grey
 below 8 bits scales to 0..255, a palette expands through PLTE (entries
@@ -36,12 +39,14 @@ NotImplementedError naming it; bytes Pillow cannot open raise
 from __future__ import annotations
 
 import os
+import re
 import struct
 import zlib
 
 import numpy as np
 
-from art_tpu_torch.io.stdformats import PilValueError, Unidentified
+from art_tpu_torch.io.stdformats import (PilSyntaxError, PilValueError,
+                                         Unidentified)
 
 
 def save_image(path, rgb_encoded01, bits=8, quality=92, icc_bytes=None,
@@ -157,8 +162,8 @@ def write_png(path, hwc, icc_bytes=None, exif_bytes=None, xmp_bytes=None):
 # -- decode ----------------------------------------------------------------
 
 def read_rgb8(path):
-    """A PNG, TIFF, JPEG, BMP, PNM or GIF image as (H, W, 3) uint8, the
-    array PIL's
+    """A PNG, TIFF, JPEG, BMP, PNM, GIF or WebP image as (H, W, 3) uint8,
+    the array PIL's
     ``Image.open(path).convert("RGB")`` gives. Another format that PIL
     reads, or a form the port's decoder does not read, raises
     NotImplementedError naming it; bytes that are no image, and an image
@@ -195,11 +200,12 @@ def read_image(path):
     16-bit integers), int32; "F" (32-bit floats), float32. icc is the
     embedded ICC profile as Pillow's ``info["icc_profile"]`` gives it (a
     PNG's iCCP inflated, TIFF tag 34675, a JPEG's APP2 ICC_PROFILE
-    chunks joined in sequence order), or None. Errors as `read_rgb8`'s;
+    chunks joined in sequence order, a WebP's ICCP chunk), or None. Errors as `read_rgb8`'s;
     where Pillow's ``Image.open`` fails (bytes that are no image, a PNG
     broken before its image data, a JPEG whose markers Pillow's parse
-    rejects, a TIFF with no readable IFD or size) they are
-    `Unidentified` (an OSError); where its load fails, other errors."""
+    rejects, a TIFF with no readable IFD or size, a WebP libwebp's
+    demuxer rejects) they are `Unidentified` (an OSError); where its load
+    fails, other errors."""
     with open(path, "rb") as f:
         buf = f.read()
     return _decode(buf, path)
@@ -311,21 +317,34 @@ def _decode(buf, path):
         if isinstance(e, (_TooLarge, PilValueError)):
             raise
         raise OSError(f"broken image file {str(path)!r}: {e}") from e
-    _refuse_format(buf, path)
+    return _plugin_walk(buf, path)
 
 
-def _refuse_format(buf, path):
-    """NotImplementedError naming a format Pillow opens and the port does
-    not decode; `Unidentified` where Pillow opens nothing, and the other
-    errors Pillow's open raises (:mod:`art_tpu_torch.io.unported`)."""
-    from art_tpu_torch.io import unported
+def _plugin_walk(buf, path):
+    """Pillow's plugin walk past the formats read above, in the order of
+    ``Image.ID``: a WebP decoded where the walk reaches WebP's plugin
+    (after IM, IMT, IPTC/NAA, PCD, SPIDER and TGA, which have no accept
+    test; :mod:`art_tpu_torch.io.webpdec`), NotImplementedError naming any
+    other format Pillow opens; `Unidentified` where Pillow opens nothing
+    or WebP's open fails, and the other errors Pillow's open raises
+    (:mod:`art_tpu_torch.io.unported`)."""
+    from art_tpu_torch.io import unported, webpdec
 
-    name = unported.identify(buf)
+    name = unported.identify(buf, unported.FORMATS[: unported.WEBP_AT])
+    if name is None and webpdec.accept(bytes(buf[:16])):
+        try:
+            rgb, icc = webpdec.read_webp(bytes(buf))
+        except Unidentified as e:
+            raise Unidentified(f"cannot identify image file "
+                               f"{str(path)!r}: {e}") from e
+        return "RGB", rgb, icc
+    if name is None:
+        name = unported.identify(buf, unported.FORMATS[unported.WEBP_AT :])
     if name is not None:
         raise NotImplementedError(
             f"{name} image {str(path)!r}: the port's image decoder "
-            "(io/imagefile.py::read_rgb8) reads PNG, TIFF, JPEG, BMP, PNM "
-            "and GIF only")
+            "(io/imagefile.py::read_rgb8) reads PNG, TIFF, JPEG, BMP, PNM, "
+            "GIF and WebP only")
     raise Unidentified(f"cannot identify image file {str(path)!r}")
 
 
@@ -417,12 +436,12 @@ _SAFEBLOCK = 1024 * 1024  # ImageFile.SAFEBLOCK, PngImagePlugin.MAX_TEXT_CHUNK
 
 def _iccp(body):
     """PngStream.chunk_iCCP: the inflated profile, or None where the
-    stream is broken; ValueError (where Image.open fails) for a
-    compression method other than 0."""
+    stream is broken; SyntaxError for a compression method other than 0,
+    `_TooLarge` (a ValueError) for a profile past MAX_TEXT_CHUNK."""
     i = body.find(b"\0")
     if body[i + 1] != 0:
-        raise ValueError(f"unknown compression method {body[i + 1]} in "
-                         "iCCP chunk")
+        raise SyntaxError(f"Unknown compression method {body[i + 1]} in "
+                          "iCCP chunk")
     d = zlib.decompressobj()
     try:
         icc = d.decompress(body[i + 2 :], _SAFEBLOCK)
@@ -434,68 +453,207 @@ def _iccp(body):
     return icc
 
 
+class _Stream:
+    """A file's bytes as Pillow's PNG plugin reads them from a file opened
+    "rb": a read past the end gives what is left."""
+
+    def __init__(self, buf, pos):
+        self.buf, self.pos = buf, pos
+
+    def read(self, n):
+        out = self.buf[self.pos : self.pos + n]
+        self.pos += len(out)
+        return out
+
+    def safe_read(self, n):
+        """ImageFile._safe_read: OSError where the file ends first."""
+        out = self.read(max(n, 0))
+        if len(out) < n:
+            raise OSError("Truncated File Read")
+        return out
+
+    def chunk_head(self):
+        """ChunkStream.read: (cid, length); struct.error where fewer than
+        4 bytes are left, SyntaxError for a name that is not 4 word
+        characters."""
+        s = self.read(8)
+        length = struct.unpack_from(">I", s)[0]
+        cid = s[4:]
+        if not _IS_CID(cid):
+            raise SyntaxError(f"broken PNG file (chunk {cid!r})")
+        return cid, length
+
+
+_IS_CID = re.compile(rb"\w\w\w\w").match
+# PngImagePlugin._MODES: the (depth, colour type) pairs Pillow opens
+_PNG_MODES = {(1, 0), (2, 0), (4, 0), (8, 0), (16, 0), (8, 2), (16, 2),
+              (1, 3), (2, 3), (4, 3), (8, 3), (8, 4), (16, 4), (8, 6),
+              (16, 6)}
+
+
+def _png_chunk(f, cid, length, st):
+    """PngStream.call for the chunks the decode reads (any other is read
+    and dropped): the chunk's bytes. The handlers' own errors:
+    ValueError for an IHDR shorter than 13 bytes or an iCCP profile
+    past MAX_TEXT_CHUNK, SyntaxError for a filter method other than 0
+    or an iCCP compression method other than 0."""
+    s = f.safe_read(length)
+    if cid == b"IHDR":
+        if length < 13:
+            raise PilValueError("Truncated IHDR chunk")
+        st["size"] = struct.unpack_from(">II", s)
+        if (s[8], s[9]) in _PNG_MODES:
+            st["depth"], st["ctype"] = s[8], s[9]
+        if s[12]:
+            st["interlace"] = 1
+        if s[11]:
+            raise SyntaxError("unknown filter category")
+    elif cid == b"PLTE":
+        if st.get("ctype") == 3:
+            st["plte"] = s
+    elif cid == b"iCCP":
+        st["icc"] = _iccp(s)
+    return s
+
+
 def _read_png(buf):
     """A PNG's (samples (h, w, channels), depth, colour type, PLTE, ICC
-    profile): the profile of the last iCCP chunk before the image data,
-    as Pillow's open reads it, or None."""
-    pos = 8
-    ihdr = None
-    plte = b""
-    idat = []
-    icc = None
-    while pos + 8 <= len(buf):
-        n, kind = struct.unpack_from(">I4s", buf, pos)
-        # a broken chunk before the image data fails Pillow's open
-        error = ValueError if idat or kind == b"IDAT" else Unidentified
-        body = buf[pos + 8 : pos + 8 + n]
-        crc = buf[pos + 8 + n : pos + 12 + n]
-        if len(body) < n or len(crc) < 4:
-            raise error("broken PNG file: truncated chunk")
-        if kind[0] & 0x20 == 0 and struct.unpack(">I", crc)[0] != (
-                zlib.crc32(kind + body) & 0xFFFFFFFF):
-            raise error(f"broken PNG file: CRC of {kind!r}")
-        if kind == b"IHDR":
-            ihdr = struct.unpack(">IIBBBBB", body)
-        elif kind == b"PLTE":
-            plte = body
-        elif kind == b"iCCP" and not idat:
-            icc = _iccp(body)
-        elif kind == b"IDAT":
-            idat.append(body)
-        elif kind == b"IEND":
-            break
-        pos += 12 + n
-    if ihdr is None or not idat:
-        raise Unidentified("broken PNG file: no IHDR or IDAT")
-    w, h, depth, ctype, comp, _, interlace = ihdr
-    channels = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}.get(ctype)
-    if channels is None or depth not in (1, 2, 4, 8, 16):
-        raise Unidentified(f"broken PNG file: colour type {ctype}, depth "
-                           f"{depth}")
-    if comp != 0:
-        raise ValueError(f"broken PNG file: compression method {comp}")
-    data = zlib.decompress(b"".join(idat))
+    profile) as Pillow 12.1.0 opens and loads it.
+
+    The open (``PngImageFile._open``): each chunk up to the first IDAT or
+    IEND goes through its handler's checks, then its CRC is checked;
+    any failure but a handler's ValueError is `Unidentified`. The load
+    (``ImageFile.load`` over ``load_read`` and ``load_end``): IDAT data
+    is inflated in blocks of 64 KiB with no CRC check, row by row, and
+    the image is done once its last row is out (or the zlib stream ends
+    on a row's end, the rows after it left black); the file ending
+    first, a zlib error or a filter type past 4 is an OSError, a chunk
+    name that is no name while more data is wanted a SyntaxError. The
+    chunks after the image are read leniently (no CRC, a cut header ends
+    them, IEND optional), but a chunk cut short there is an OSError. The
+    profile is that of the last iCCP chunk before the image data."""
+    f = _Stream(buf, 8)
+    st = {"size": (0, 0), "depth": None, "ctype": None, "plte": b"",
+          "icc": None, "interlace": 0}
+    try:
+        while True:
+            cid, length = f.chunk_head()
+            if cid in (b"IDAT", b"IEND"):  # EOFError: the open ends here
+                break
+            s = _png_chunk(f, cid, length, st)
+            crc = f.read(4)
+            if struct.unpack(">I", crc)[0] != zlib.crc32(cid + s):
+                raise SyntaxError(f"broken PNG file (bad header checksum "
+                                  f"in {cid!r})")
+    except (OSError, SyntaxError, IndexError, struct.error) as e:
+        raise Unidentified(f"cannot identify image file: {e}") from e
+    w, h = st["size"]
+    depth, ctype = st["depth"], st["ctype"]
+    if depth is None or w <= 0 or h <= 0:
+        raise Unidentified("cannot identify image file: no PNG mode or "
+                           "size")
+    if cid != b"IDAT":
+        raise OSError("cannot load this image")
+    channels = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[ctype]
     bits_px = depth * channels
-    bpp = max(1, bits_px // 8)
-    if interlace:
-        dtype = np.uint16 if depth == 16 else np.uint8
-        samples = np.zeros((h, w, channels), dtype)
-        pos = 0
-        for y0, x0, dy, dx in _ADAM7:
-            ph = (h - y0 + dy - 1) // dy
-            pw = (w - x0 + dx - 1) // dx
-            if ph <= 0 or pw <= 0:
-                continue
-            rb = (pw * bits_px + 7) // 8
-            n = ph * (rb + 1)
-            rows = _unfilter(data[pos : pos + n], ph, rb, bpp)
-            pos += n
-            samples[y0::dy, x0::dx] = _png_samples(rows, pw, depth, channels)
+    if st["interlace"]:
+        passes = [(y0, x0, dy, dx, (h - y0 + dy - 1) // dy,
+                   (w - x0 + dx - 1) // dx) for y0, x0, dy, dx in _ADAM7]
+        passes = [p + ((p[5] * bits_px + 7) // 8,) for p in passes
+                  if p[4] > 0 and p[5] > 0]
     else:
-        rb = (w * bits_px + 7) // 8
-        samples = _png_samples(_unfilter(data, h, rb, bpp), w, depth,
-                               channels)
-    return samples, depth, ctype, plte, icc
+        passes = [(0, 0, 1, 1, h, w, (w * bits_px + 7) // 8)]
+    data, rows = _png_load(f, length, [(p[4], p[6] + 1) for p in passes])
+    dtype = np.uint16 if depth == 16 else np.uint8
+    samples = np.zeros((h, w, channels), dtype)
+    pos = 0
+    bpp = max(1, bits_px // 8)
+    for y0, x0, dy, dx, ph, pw, rb in passes:
+        n = min(ph, rows)
+        rows -= n
+        if n:
+            out = _png_samples(_unfilter(data[pos : pos + n * (rb + 1)], n,
+                                         rb, bpp), pw, depth, channels)
+            samples[y0 : y0 + n * dy : dy, x0::dx] = out
+        pos += n * (rb + 1)
+    return samples, depth, ctype, st["plte"], st["icc"]
+
+
+def _png_load(f, idat, passes):
+    """The image data of a PNG opened up to its first IDAT's data (`idat`
+    bytes), as Pillow's load reads and inflates it (ZipDecode): (the
+    inflated rows' bytes, the number of rows done). `passes`: (rows,
+    bytes a row with its filter type) of each pass."""
+    ends = []
+    total = 0
+    for n, rb in passes:
+        for _ in range(n):
+            total += rb
+            ends.append(total)
+    dec = zlib.decompressobj()
+    out = bytearray()
+    row = 0
+    left = [idat]
+
+    def load_read(n):
+        while left[0] == 0:
+            f.read(4)  # CRC
+            try:
+                cid, length = f.chunk_head()
+            except struct.error as e:
+                raise OSError("image file is truncated") from e
+            except SyntaxError as e:
+                raise PilSyntaxError(str(e)) from e
+            if cid not in (b"IDAT", b"DDAT", b"fdAT"):
+                f.pos -= 8  # pushed back for load_end
+                return b""
+            left[0] = length - 4 if cid == b"fdAT" else length
+            if cid == b"fdAT":
+                f.read(4)
+        n = min(n, left[0])
+        left[0] -= n
+        return f.read(n)
+
+    done = False
+    while not done:
+        s = load_read(65536)  # ImageFile.decodermaxblock
+        if not s:
+            raise OSError("image file is truncated")
+        while s:  # ZipDecode: while avail_in > 0
+            if dec.eof:
+                break
+            try:
+                got = dec.decompress(s, ends[row] - len(out))
+            except zlib.error as e:
+                raise OSError(f"broken data stream when reading image "
+                              f"file: {e}") from e
+            out += got
+            s = dec.unconsumed_tail
+            if len(out) < ends[row]:
+                break
+            start = ends[row - 1] if row else 0
+            if out[start] > 4:
+                raise OSError("unknown decoder error: PNG filter type "
+                              f"{out[start]}")
+            row += 1
+            if row == len(ends) or dec.eof:
+                done = True
+                break
+    # load_end
+    f.read(left[0])
+    while True:
+        f.read(4)  # CRC
+        try:
+            cid, length = f.chunk_head()
+        except (struct.error, SyntaxError):
+            break
+        if cid == b"IEND":
+            break
+        try:
+            _png_chunk(f, cid, length, {"icc": None})
+        except SyntaxError as e:
+            raise PilSyntaxError(str(e)) from e
+    return bytes(out), row
 
 
 def _png_rgb8(samples, depth, ctype, plte):

@@ -50,6 +50,12 @@ class PilValueError(ValueError):
     """Pillow's open or load raises ValueError here (a Python decoder)."""
 
 
+class PilSyntaxError(SyntaxError):
+    """Pillow's load raises SyntaxError here (a PNG chunk name that is no
+    name while the image wants more data): not an OSError, so the
+    reference tries no external loader."""
+
+
 class DecompressionBomb(Exception):
     """``Image.open``'s DecompressionBombError: an image of more than
     twice ``Image.MAX_IMAGE_PIXELS`` pixels (not an OSError, so the

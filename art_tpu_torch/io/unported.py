@@ -20,12 +20,14 @@ ValueError). It returns the name of the format that opens, or None where
 none does; the errors Pillow lets out come out as `Unidentified` (an
 OSError), `PilValueError` (a ValueError), `DecompressionBomb` or
 `OpenError` (any other). The formats the port decodes (BMP, GIF, JPEG,
-PNG, PNM's P1-P6 and TIFF) are read before this walk and are not in it.
+PNG, PNM's P1-P6 and TIFF) are read before this walk and are not in it;
+nor is WebP, which the port decodes where the walk reaches it
+(:mod:`art_tpu_torch.io.webpdec`): `FORMATS[:WEBP_AT]` are the plugins
+Pillow tries before WebP's, `FORMATS[WEBP_AT:]` those after it.
 
-Not mirrored: the coded data that AVIF's and WebP's opens parse with
-libavif and libwebp. Their containers are checked (boxes or chunks whole,
-the image's boxes or bitstream header present), not what libavif and
-libwebp check inside them. ICO's open decodes its largest icon: a PNG
+Not mirrored: the coded data that AVIF's open parses with libavif. Its
+container is checked (boxes whole, the image's boxes present), not what
+libavif checks inside them. ICO's open decodes its largest icon: a PNG
 icon goes through the port's PNG reader, a bitmap icon is checked to its
 header and the lengths of its data and mask.
 """
@@ -863,9 +865,12 @@ def _ico(f):
 
         try:
             samples = imagefile._read_png(f.buf[offset:])[0]
-        except Unidentified as e:
+        except (Unidentified, SyntaxError) as e:
             raise SyntaxError(str(e)) from e
-        except (IndexError, struct.error, zlib.error, ValueError) as e:
+        except PilValueError:
+            raise
+        except (OSError, IndexError, struct.error, zlib.error,
+                ValueError) as e:
             raise Unidentified(f"broken PNG icon: {e}") from e
         shape = samples.shape[1], samples.shape[0]
         _bomb(shape)
@@ -1298,53 +1303,6 @@ def _tga(f):
     return mode, size
 
 
-def _webp(f):
-    """libwebp's demux, as far as its chunks: a whole RIFF, whole chunks,
-    and the first image's bitstream header."""
-    buf = f.buf
-    if len(buf) < 12 or _i32(buf, 4) < 12 or _i32(buf, 4) + 8 > len(buf):
-        raise Unidentified("could not create decoder object")
-    end = _i32(buf, 4) + 8
-    pos, chunks = 12, []
-    while pos < end:
-        if end - pos < 8:
-            raise Unidentified("could not create decoder object")
-        kind, n = buf[pos : pos + 4], _i32(buf, pos + 4)
-        if pos + 8 + n > end:
-            raise Unidentified("could not create decoder object")
-        chunks.append((kind, buf[pos + 8 : pos + 8 + n]))
-        pos += 8 + n + (n & 1)
-    if not chunks:
-        raise Unidentified("could not create decoder object")
-    kind, data = chunks[0]
-    if kind == b"VP8X":
-        if len(data) < 10:
-            raise Unidentified("could not create decoder object")
-        images = [c for c in chunks[1:] if c[0] in (b"VP8 ", b"VP8L", b"ANMF")]
-        if not images:
-            raise Unidentified("could not create decoder object")
-        kind, data = images[0]
-        if kind == b"ANMF":
-            return "RGBA", (1 + int.from_bytes(data[4:7], "little")
-                            if len(data) >= 16 else 0, 1)
-    if kind == b"VP8 ":  # VP8GetInfo: a shown key frame
-        tag = int.from_bytes(data[:3], "little")
-        if len(data) < 10 or tag & 1 or not tag & 16 or (tag >> 1) & 7 > 3 \
-                or tag >> 5 >= len(data) or data[3:6] != b"\x9d\x01\x2a":
-            raise Unidentified("could not create decoder object")
-        size = _i16(data, 6) & 0x3FFF, _i16(data, 8) & 0x3FFF
-    elif kind == b"VP8L":
-        if len(data) < 5 or data[0] != 0x2F or _i32(data, 1) >> 29:
-            raise Unidentified("could not create decoder object")
-        bits = _i32(data, 1)
-        size = (bits & 0x3FFF) + 1, ((bits >> 14) & 0x3FFF) + 1
-    else:
-        raise Unidentified("could not create decoder object")
-    if not size[0] or not size[1]:
-        raise Unidentified("could not create decoder object")
-    return "RGB", size
-
-
 def _wmf(f):
     s = f.read(44)
     if s.startswith(b"\xd7\xcd\xc6\x9a\0\0"):
@@ -1487,8 +1445,6 @@ FORMATS = (
     ("SPIDER", None, _spider),
     ("SUN", lambda p: len(p) >= 4 and _i32be(p) == 0x59A66A95, _sun),
     ("TGA", None, _tga),
-    ("WebP", lambda p: p.startswith(b"RIFF") and p[8:12] == b"WEBP"
-     and p[12:16] in (b"VP8 ", b"VP8X", b"VP8L"), _webp),
     ("WMF", _starts(b"\xd7\xcd\xc6\x9a\x00\x00", b"\x01\x00\x00\x00"), _wmf),
     ("XBM", lambda p: p.lstrip().startswith(b"#define"), _xbm),
     ("XPM", _starts(b"/* XPM */"), _xpm),
@@ -1496,12 +1452,16 @@ FORMATS = (
 )
 
 
-def identify(buf):
-    """The name of the format in `FORMATS` that Pillow's ``Image.open``
-    opens `buf` as, or None where it opens none of them; the errors its
-    open lets out as the module docstring says."""
+# where WebP's plugin sits in Image.ID: after TGA's
+WEBP_AT = [name for name, _, _ in FORMATS].index("TGA") + 1
+
+
+def identify(buf, formats=FORMATS):
+    """The name of the format of `formats` (a slice of `FORMATS`) that
+    Pillow's ``Image.open`` opens `buf` as, or None where it opens none of
+    them; the errors its open lets out as the module docstring says."""
     prefix = bytes(buf[:16])
-    for name, accept, open_ in FORMATS:
+    for name, accept, open_ in formats:
         if accept is not None and not accept(prefix):
             continue
         try:

@@ -189,6 +189,14 @@ Texture Boost under an external mask through cli.main at 24 MP, the
 Hald a BMP and the mask a 16-bit PGM, its JPEG byte-equal to the same
 develop from PNG files, B1-B4 and B7 once each and bit-equal to their
 plain versions on F2's tensors.
+Then WebP (`webp_phase`): W1, a 24 MP lossless WebP the phase writes
+(`write_webp_lossless`: subtract-green, one prefix-code group), its
+read_image host ms and array against the one written, the committed
+24 MP lossy WebP with alpha and the small WebP fixtures of tests/data
+against Pillow's sha256; W2, F2's develop through cli.main with a
+lossless WebP Hald and the committed lossy WebP mask, its JPEG
+byte-equal to the same develop from PNGs of the same samples, B1-B4 and
+B7 once each and bit-equal to their plain versions on W2's tensors.
 Then one JSON line of per-kernel results (time, plain time, bound) and
 last the line {"ok": true, "device": {...}}. Any failure raises
 (non-zero exit, no result lines); so does a machine without CUDA.
@@ -4165,7 +4173,8 @@ def formats_phase(smi_line, tmp):
             f"{'equal' if ok else 'DIFFERENT'}")
         if not ok:
             failures.append(f"F1 {name} decodes differently")
-    for name in sorted(k for k in recorded if not k.startswith("F1 ")):
+    for name in sorted(k for k in recorded
+                       if not k.startswith(("F1 ", "webp_"))):
         path = os.path.join(FORMATS_DATA, name)
         buf = open(path, "rb").read()
         t0 = time.monotonic()
@@ -4246,6 +4255,258 @@ def formats_phase(smi_line, tmp):
     return {}, failures
 
 
+# ---- WebP (W1, W2) -------------------------------------------------------
+
+# tests/data: W1's 24 MP lossy WebP with alpha, W2's lossy mask and the
+# small WebP fixtures (written by tests/util_webpforms.py::fixtures),
+# each held to the sha256 of Pillow's convert("RGB") recorded in
+# formats_sha256.json
+W1_LOSSY = "webp_w1_24mp_alpha.webp"
+W1_LOSSY_SIZE = (4000, 6000)
+W2_MASK = "webp_w2_mask.webp"
+
+_REV8 = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], np.uint8)
+
+
+class LsbBits:
+    """Bits packed least significant first, as VP8L reads them."""
+
+    def __init__(self):
+        self.out = bytearray()
+        self.acc = 0
+        self.n = 0
+
+    def put(self, v, n):
+        self.acc |= (int(v) & ((1 << n) - 1)) << self.n
+        self.n += n
+        while self.n >= 8:
+            self.out.append(self.acc & 255)
+            self.acc >>= 8
+            self.n -= 8
+
+    def put_bytes(self, data):
+        """Whole bytes (a uint8 array), each its 8 bits in order."""
+        data = np.ascontiguousarray(data, np.uint8).reshape(-1)
+        r = self.n
+        if r == 0:
+            self.out += data.tobytes()
+            return
+        d = data.astype(np.uint16)
+        body = ((d << r) & 255).astype(np.uint8)
+        body[1:] |= (d[:-1] >> (8 - r)).astype(np.uint8)
+        body[0] |= self.acc
+        self.out += body.tobytes()
+        self.acc = int(d[-1]) >> (8 - r)
+
+    def getvalue(self):
+        return bytes(self.out) + (bytes([self.acc]) if self.n else b"")
+
+
+def vp8l_fixed_code(bw, alphabet):
+    """A normal prefix code giving each of the 256 literals 8 bits (a
+    code-length code of one symbol, 8, read in no bits; an alphabet past
+    256 stops at its 256th length)."""
+    bw.put(0, 1)
+    bw.put(12 - 4, 4)  # 12 code-length code lengths: symbol 8 the 12th
+    for i in range(12):
+        bw.put(1 if i == 11 else 0, 3)
+    if alphabet == 256:
+        bw.put(0, 1)
+    else:
+        bw.put(1, 1)
+        bw.put(3, 3)  # 8 bits of max_symbol
+        bw.put(254, 8)  # 2 + 254 = 256 symbols
+
+
+def vp8l_one_symbol(bw, symbol):
+    """A simple prefix code of one symbol, read in no bits."""
+    bw.put(1, 1)
+    bw.put(0, 1)
+    if symbol < 2:
+        bw.put(0, 1)
+        bw.put(symbol, 1)
+    else:
+        bw.put(1, 1)
+        bw.put(symbol, 8)
+
+
+def vp8l_codes(bw, alpha=None, cache_bits=0):
+    """One prefix-code group: green, red, blue and alpha literals of 8
+    bits (alpha a one-symbol code of `alpha` where given; green's
+    backward-reference and cache symbols unused), distance one symbol."""
+    vp8l_fixed_code(bw, 280 + (1 << cache_bits if cache_bits else 0))
+    vp8l_fixed_code(bw, 256)
+    vp8l_fixed_code(bw, 256)
+    if alpha is None:
+        vp8l_fixed_code(bw, 256)
+    else:
+        vp8l_one_symbol(bw, alpha)
+    vp8l_one_symbol(bw, 0)
+
+
+def vp8l_pixels(bw, argb, alpha=None):
+    """The pixels of `argb` ((N, 4) uint8, A, R, G, B) as the literals of
+    `vp8l_codes`' group: green, red, blue and (unless alpha is one
+    symbol) alpha, a byte each."""
+    order = [2, 1, 3] + ([0] if alpha is None else [])
+    bw.put_bytes(_REV8[np.ascontiguousarray(argb[:, order])])
+
+
+def webp_riff(vp8l):
+    body = b"WEBP" + b"VP8L" + len(vp8l).to_bytes(4, "little") + vp8l
+    body += b"\0" * (len(vp8l) & 1)
+    return b"RIFF" + len(body).to_bytes(4, "little") + body
+
+
+def write_webp_lossless(path, rgb):
+    """A lossless WebP of (H, W, 3) uint8: one VP8L stream with the
+    subtract-green transform, no colour cache and one prefix-code group
+    (`vp8l_codes`: each pixel three bytes after the header)."""
+    h, w, _ = rgb.shape
+    bw = LsbBits()
+    bw.put(0x2F, 8)
+    bw.put(w - 1, 14)
+    bw.put(h - 1, 14)
+    bw.put(0, 1)  # no alpha
+    bw.put(0, 3)  # version
+    bw.put(1, 1)
+    bw.put(2, 2)  # subtract green
+    bw.put(0, 1)
+    bw.put(0, 1)  # no colour cache
+    bw.put(0, 1)  # no meta prefix codes
+    flat = rgb.reshape(-1, 3)
+    g = flat[:, 1]
+    argb = np.empty((flat.shape[0], 4), np.uint8)
+    argb[:, 0] = 255
+    argb[:, 1] = flat[:, 0] - g
+    argb[:, 2] = g
+    argb[:, 3] = flat[:, 2] - g
+    vp8l_codes(bw, alpha=255)
+    vp8l_pixels(bw, argb, alpha=255)
+    with open(path, "wb") as f:
+        f.write(webp_riff(bw.getvalue()))
+    return path
+
+
+def webp_phase(smi_line, tmp):
+    """WebP decoded by the port on the card's machine (no PIL there). W1:
+    a 24 MP lossless WebP from `write_webp_lossless` (its read_image host
+    ms and its array against the one written), the committed 24 MP lossy
+    WebP with alpha and every small WebP fixture of tests/data against
+    the sha256 of Pillow's decode (the card machine's g++ build of
+    io/native/webpdec.cc held to Pillow). W2: F2's develop through
+    cli.main (P3's Hald film simulation with Texture Boost under an
+    external mask, bundled profile, denoise 20/20), the Hald a lossless
+    WebP and the mask the committed lossy WebP (its decode first held to
+    Pillow's sha256), against the same develop from PNG files of the same
+    samples: the JPEGs byte-equal, B1-B4 and B7 once each and bit-equal
+    to their plain versions on W2's tensors. Returns (the comparisons,
+    the failures)."""
+    from art_tpu_torch.io import imagefile
+    from art_tpu_torch.io.dngwrite import write_dng
+    from art_tpu_torch.io.imagefile import write_png
+    from art_tpu_torch.pipeline import develop as tdev
+
+    log(f"---- WebP phase ({smi_line})")
+    t_phase = time.monotonic()
+    failures = []
+    with open(FORMATS_SHA) as f:
+        recorded = json.load(f)
+    h, w = FORMATS_FRAME
+    rgb = formats_arrays(h, w)[0]
+    t0 = time.monotonic()
+    path = write_webp_lossless(os.path.join(tmp, "w1.webp"), rgb)
+    log(f"W1 lossless {h}x{w} written in {time.monotonic() - t0:.2f} s "
+        f"({os.path.getsize(path) / 1e6:.1f} MB)")
+    t0 = time.monotonic()
+    mode, samples, _ = imagefile.read_image(path)
+    ms = 1e3 * (time.monotonic() - t0)
+    ok = mode == "RGB" and np.array_equal(samples, rgb)
+    log(f"W1 lossless: read_image {ms:.1f} ms (host) -> {samples.shape}: "
+        f"{'equal' if ok else 'DIFFERENT'}")
+    if not ok:
+        failures.append("W1 lossless decodes differently")
+    del rgb, samples
+    names = [W1_LOSSY] + sorted(k for k in recorded if k.startswith("webp_")
+                                and k != W1_LOSSY)
+    for name in names:
+        fpath = os.path.join(FORMATS_DATA, name)
+        t0 = time.monotonic()
+        got = imagefile.read_rgb8(fpath)
+        ms = 1e3 * (time.monotonic() - t0)
+        ok = _sha(got) == recorded[name]
+        log(f"W1 {name} ({os.path.getsize(fpath)} bytes, "
+            f"{got.shape[1]}x{got.shape[0]}): read_rgb8 {ms:.1f} ms (host), "
+            f"sha256 {'equal to' if ok else 'NOT'} Pillow's")
+        if not ok:
+            failures.append(f"W1 {name}: sha256 differs from Pillow's")
+
+    # W2: a lossless WebP Hald and the lossy WebP mask against PNGs
+    hald = hald_image(12, 8)
+    mask_rgb = imagefile.read_rgb8(os.path.join(FORMATS_DATA, W2_MASK))
+    if _sha(mask_rgb) != recorded[W2_MASK]:
+        failures.append("W2: the WebP mask's sha256 differs from Pillow's")
+    paths = {"hald": write_webp_lossless(os.path.join(tmp, "hald12.webp"),
+                                         hald),
+             "mask": os.path.join(FORMATS_DATA, W2_MASK),
+             "hald_png": os.path.join(tmp, "hald12.png"),
+             "mask_png": os.path.join(tmp, "mask.png")}
+    write_png(paths["hald_png"], hald)
+    write_png(paths["mask_png"], mask_rgb)
+    t0 = time.monotonic()
+    plane, mode = imagefile.read_grey(paths["mask"])
+    ms = 1e3 * (time.monotonic() - t0)
+    log(f"W2 mask: the lossy WebP reads as mode {mode} {plane.shape} in "
+        f"{ms:.1f} ms (host)")
+    frame = flagship_frame(*FRAME)
+    dng = os.path.join(tmp, "w2.dng")
+    write_dng(dng, np.round(frame.cfa).astype(np.uint16), black=512,
+              white=16383, compress=False)
+    base = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "art_tpu_torch", "data", "profiles", PROFILE)
+    dn = os.path.join(tmp, "denoise20.arp")
+    with open(dn, "w") as f:
+        f.write("[Denoise]\nEnabled=true\nLuminance=20\nChrominance=20\n")
+    outs = {}
+    want = ("b1", "b2", "b3", "b4", "b7")
+    for kind, (lut, msk) in {
+            "webp": (paths["hald"], paths["mask"]),
+            "png": (paths["hald_png"], paths["mask_png"])}.items():
+        arp = os.path.join(tmp, f"w2_{kind}.arp")
+        with open(arp, "w") as f:
+            f.write(f2_arp(lut, msk))
+        out = os.path.join(tmp, f"w2_{kind}.jpg")
+        argv = ["-Y", "-p", base, "-p", dn, "-p", arp, "-o", out, "-c", dng]
+        reset_counts()
+        phases, seconds = cli_run(argv)
+        launches, plain_calls = read_counts()
+        log(f"W2 ({'WebP Hald, WebP mask' if kind == 'webp' else 'PNG Hald, '
+            'PNG mask'}) through cli.main: {1e3 * seconds:.1f} ms end to "
+            f"end (first); phases {phases}; launches {launches}; plain "
+            f"calls {plain_calls}")
+        if launches != {k: int(k in want) for k in launches} \
+                or any(plain_calls.values()):
+            failures.append(f"W2 {kind}: launches {launches}, plain calls "
+                            f"{plain_calls}")
+        outs[kind] = open(out, "rb").read()
+        check_jpeg(out)
+    same = outs["webp"] == outs["png"]
+    log(f"W2 JPEG from the WebPs {'byte-equal to' if same else 'DIFFERS FROM'}"
+        f" the PNGs' ({len(outs['webp'])} bytes)")
+    if not same:
+        failures.append("W2: the WebP develop differs from the PNGs'")
+    from art_tpu_torch import cli
+
+    argv = ["-Y", "-p", base, "-p", dn, "-p",
+            os.path.join(tmp, "w2_webp.arp"), "-o",
+            os.path.join(tmp, "w2_k.jpg"), "-c", dng]
+    pp = cli.compose_params(dng, cli.parse_args(argv))
+    failures += kernels_against_plain("W2", lambda: tdev.develop(frame, pp),
+                                      want)
+    log(f"WebP phase: {time.monotonic() - t_phase:.1f} s")
+    return {}, failures
+
+
 def _leaves(d):
     for k, v in d.items():
         if isinstance(v, dict):
@@ -4285,12 +4546,12 @@ def main():
     from art_tpu_torch import hostbuild
 
     # the host libraries (raw decoder, JPEG encoder and decoder, GIF's
-    # LZW decoder; g++) build beside the CUDA kernels (nvcc), all
+    # LZW decoder, WebP decoder; g++) build beside the CUDA kernels (nvcc), all
     # compilers at once
     t0 = time.monotonic()
     with ThreadPoolExecutor(1) as pool:
         host = pool.submit(hostbuild.build, "artraw", "jpegenc", "jpegdec",
-                           "lzwdec")
+                           "lzwdec", "webpdec")
         kernels.library()
         host_libs = host.result()
     log(f"build: {time.monotonic() - t0:.2f} s "
@@ -4554,6 +4815,13 @@ def main():
         fmt_stats, fmt_failures = formats_phase(smi_line, tmp)
     new_stats.update(fmt_stats)
     failures += fmt_failures
+
+    # ---- WebP: W1 (24 MP lossless and lossy decodes, the committed
+    # fixtures), W2 (a WebP Hald and a WebP mask through cli.main)
+    with tempfile.TemporaryDirectory() as tmp:
+        webp_stats, webp_failures = webp_phase(smi_line, tmp)
+    new_stats.update(webp_stats)
+    failures += webp_failures
 
     failures += [f"B6 on {k} disagrees with its plain version"
                  for k, ok in b6_edges.items() if not ok]

@@ -817,10 +817,12 @@ def test_arithmetic_jpeg_past_the_first_chunk_fails_as_pillow(tmp_path):
 
 
 def test_committed_fixtures_hold_their_sha256():
-    """The JPEG forms and a GIF of Pillow's own LZW (its codes widen to
-    12 bits and clear; interlaced; its colour table moved from the screen
-    to the frame) decode to the sha256 recorded from Pillow, which
-    `chip_smoke.py`'s formats phase checks on the card's machine."""
+    """The JPEG forms, a GIF of Pillow's own LZW (its codes widen to 12
+    bits and clear; interlaced; its colour table moved from the screen to
+    the frame) and the WebP fixtures (tests/test_torch_webp.py; W1's 24 MP
+    lossy file up to 1.5 MB) decode to the sha256 recorded from Pillow,
+    which `chip_smoke.py`'s formats and WebP phases check on the card's
+    machine."""
     with open(os.path.join(DATA, "formats_sha256.json")) as f:
         recorded = json.load(f)
     names = [k for k in recorded if not k.startswith("F1 ")]
@@ -830,7 +832,8 @@ def test_committed_fixtures_hold_their_sha256():
     assert gif_bytes[13] == 0x2C and gif_bytes[22] & 0xC0 == 0xC0
     for name in names:
         path = os.path.join(DATA, name)
-        assert os.path.getsize(path) <= 64 * 1024
+        assert os.path.getsize(path) <= (
+            1536 if name == chip_smoke.W1_LOSSY else 64) * 1024
         want = np.asarray(Image.open(path).convert("RGB"))
         assert hashlib.sha256(want.tobytes()).hexdigest() == recorded[name]
         np.testing.assert_array_equal(read_rgb8(path), want)
@@ -880,7 +883,7 @@ PIL_FORMAT = {"JPEG 2000": "JPEG2000", "WebP": "WEBP", "McIdas": "MCIDAS",
               "XVThumb": "XVTHUMB", "IPTC/NAA": "IPTC", "PFM": "PPM"}
 
 
-@pytest.mark.parametrize("fmt", ["WEBP", "TGA", "ICO", "PCX", "SGI", "QOI",
+@pytest.mark.parametrize("fmt", ["DIB", "TGA", "ICO", "PCX", "SGI", "QOI",
                                  "JPEG2000", "DDS", "MSP", "XBM", "IM",
                                  "SPIDER"])
 def test_formats_pillow_writes_and_the_port_refuses(fmt, tmp_path):

@@ -14,10 +14,10 @@ PIL is the oracle only here: the decoder's array must equal
   grey), the port's own 16-bit RGB writer (deflate with the predictor,
   and none), and tiled TIFFs from the encoder below (8 and 16 bits,
   both byte orders, edge tiles, the predictor), which PIL reads.
-- JPEG decodes as PIL decodes it (the decoder's own grid is
-  tests/test_torch_jpegdec.py); GIF, BMP, WebP and PNM files raise
-  NotImplementedError naming the format; bytes that are no image raise
-  OSError; a missing file FileNotFoundError.
+- JPEG, GIF, BMP, WebP and PNM decode as PIL decodes them (the
+  decoders' own grids are tests/test_torch_jpegdec.py,
+  tests/test_torch_formats.py and tests/test_torch_webp.py); bytes that
+  are no image raise OSError; a missing file FileNotFoundError.
 - `load_hald_clut` of an 8-bit PIL PNG, a 16-bit PNG and a TIFF: the
   reference's table exactly.
 - A film simulation from a Hald PNG at strength 80 at 96x160 bilinear:
@@ -263,18 +263,13 @@ def test_tiled_tiff_decodes_as_pil(tmp_path, bits, le):
                                       ("BMP", "BMP"), ("WEBP", "WebP"),
                                       ("PPM", "PNM")])
 def test_other_formats_raise_by_name(tmp_path, fmt, name):
-    img = Image.fromarray(np.zeros((8, 8, 3), np.uint8))
-    img.save(tmp_path / "a.img", format=fmt)
-    if fmt != "WEBP":
-        # decoded since (tests/test_torch_jpegdec.py,
-        # tests/test_torch_formats.py), as PIL decodes it
-        rgb = np.random.default_rng(1).integers(0, 256, (13, 21, 3))
-        Image.fromarray(rgb.astype(np.uint8)).save(tmp_path / "a.img",
-                                                   format=fmt)
-        _check(tmp_path / "a.img")
-    else:
-        with pytest.raises(NotImplementedError, match=f"{name} image"):
-            read_rgb8(str(tmp_path / "a.img"))
+    # each decoded since (tests/test_torch_jpegdec.py,
+    # tests/test_torch_formats.py, tests/test_torch_webp.py), as PIL
+    # decodes it
+    rgb = np.random.default_rng(1).integers(0, 256, (13, 21, 3))
+    Image.fromarray(rgb.astype(np.uint8)).save(tmp_path / "a.img",
+                                               format=fmt)
+    _check(tmp_path / "a.img")
     (tmp_path / "b.img").write_bytes(b"no image here")
     with pytest.raises(OSError, match="cannot identify"):
         read_rgb8(str(tmp_path / "b.img"))

@@ -262,15 +262,16 @@ def test_saver_hands_its_file_on(tmp_path, both):
 
 
 def test_a_format_pil_reads_goes_to_no_loader(tmp_path, both):
-    """A BMP and a WebP are images PIL opens, so the reference never asks
-    a loader: the port decodes the BMP as the reference does and refuses
-    the WebP by name, and runs no loader either."""
+    """A BMP, a WebP and a TGA are images PIL opens, so the reference
+    never asks a loader: the port decodes the BMP and the WebP as the
+    reference does and refuses the TGA by name, and runs no loader
+    either."""
     Image = pytest.importorskip("PIL.Image")
     iodir, run = both
     marker = tmp_path / "ran"
     script = tmp_path / "mark.py"
     script.write_text(f"open({str(marker)!r}, 'w').close()\n")
-    for ext in ("bmp", "webp"):
+    for ext in ("bmp", "webp", "tga"):
         (iodir / f"{ext}.txt").write_text(
             f"[ART ImageIO]\nExtension={ext}\nReadCommand="
             f"{sys.executable} {script}\n")
@@ -281,10 +282,15 @@ def test_a_format_pil_reads_goes_to_no_loader(tmp_path, both):
     got = run("port", lambda: load_std_image(str(bmp)))
     np.testing.assert_array_equal(got.rgb, ref.rgb)
     webp = tmp_path / "a.webp"
-    Image.fromarray(np.zeros((4, 4, 3), np.uint8)).save(webp)
-    assert run("ref", lambda: ref_load_std(str(webp))).rgb.shape == (3, 4, 4)
-    with pytest.raises(NotImplementedError, match="WebP image"):
-        run("port", lambda: load_std_image(str(webp)))
+    Image.fromarray(np.full((4, 4, 3), 90, np.uint8)).save(webp)
+    ref = run("ref", lambda: ref_load_std(str(webp)))
+    got = run("port", lambda: load_std_image(str(webp)))
+    np.testing.assert_array_equal(got.rgb, ref.rgb)
+    tga = tmp_path / "a.tga"
+    Image.fromarray(np.zeros((4, 4, 3), np.uint8)).save(tga)
+    assert run("ref", lambda: ref_load_std(str(tga))).rgb.shape == (3, 4, 4)
+    with pytest.raises(NotImplementedError, match="TGA image"):
+        run("port", lambda: load_std_image(str(tga)))
     assert not marker.exists()
 
 

@@ -132,9 +132,9 @@ def test_check_lut_answers_as_the_reference(tmp_path, capsys, case):
 
 
 def test_check_lut_refuses_a_hald_image(tmp_path, capsys):
-    # ported since: a Hald PNG, JPEG and GIF load (0) as in the
+    # ported since: a Hald PNG, JPEG, GIF and WebP load (0) as in the
     # reference; an image format the port's decoder does not read (a
-    # WebP) exits 2 naming it
+    # TGA) exits 2 naming it
     from PIL import Image
 
     from art_tpu import cli as ref_cli
@@ -147,13 +147,15 @@ def test_check_lut_refuses_a_hald_image(tmp_path, capsys):
     Image.fromarray(hald_image(2, 8)).save(jpeg)
     gif = tmp_path / "hald.gif"
     Image.fromarray(hald_image(2, 8)).save(gif)
-    for lut in (path, jpeg, gif):
+    webp = tmp_path / "hald.webp"
+    Image.fromarray(hald_image(2, 8)).save(webp, lossless=True)
+    for lut in (path, jpeg, gif, webp):
         rc, text = _check_lut(cli.main, lut, capsys)
         ref_rc, ref_text = _check_lut(ref_cli.main, lut, capsys)
         assert rc == ref_rc == 0 and text == ref_text
-    webp = tmp_path / "hald.webp"
-    Image.fromarray(hald_image(2, 8)).save(webp, lossless=True)
-    rc, text = _check_lut(cli.main, webp, capsys)
+    tga = tmp_path / "hald.tga"
+    Image.fromarray(hald_image(2, 8)).save(tga)
+    rc, text = _check_lut(cli.main, tga, capsys)
     assert rc == 2
-    assert "WebP image" in text and "reads PNG, TIFF, JPEG" in text
+    assert "TGA image" in text and "reads PNG, TIFF, JPEG" in text
     assert "Invalid LUT file" not in text

@@ -99,10 +99,10 @@ def test_psf_loader(tmp_path, scale, content):
 
 
 def test_psf_image_file_is_refused_only_where_it_exists(tmp_path):
-    # ported since: an image kernel (PNG, JPEG or GIF) decodes as in the
-    # reference (its green channel, at both scales); a file that is no
-    # image is skipped as the reference skips it; an image format the
-    # port's decoder does not read (a WebP) is refused naming it
+    # ported since: an image kernel (PNG, JPEG, GIF or WebP) decodes as
+    # in the reference (its green channel, at both scales); a file that
+    # is no image is skipped as the reference skips it; an image format
+    # the port's decoder does not read (a TGA) is refused naming it
     from PIL import Image
 
     from art_tpu_torch.io.imagefile import write_png
@@ -132,8 +132,14 @@ def test_psf_image_file_is_refused_only_where_it_exists(tmp_path):
         assert got is not None
         np.testing.assert_array_equal(got, want)
     Image.fromarray(img).save(tmp_path / "k.webp")
-    with pytest.raises(NotImplementedError, match="WebP image"):
-        tsh.load_psf_kernel(str(tmp_path / "k.webp"))
+    for scale in (1.0, 2.0):
+        got = tsh.load_psf_kernel(str(tmp_path / "k.webp"), scale)
+        want = jsh.load_psf_kernel(str(tmp_path / "k.webp"), scale)
+        assert got is not None
+        np.testing.assert_array_equal(got, want)
+    Image.fromarray(img).save(tmp_path / "k.tga")
+    with pytest.raises(NotImplementedError, match="TGA image"):
+        tsh.load_psf_kernel(str(tmp_path / "k.tga"))
 
 
 def test_auto_radius_matches_reference():

@@ -171,8 +171,6 @@ OPENABLE = {
     + bytes(12),
     "TGA": _pil("TGA"),
     "TGA RLE": _pil("TGA", compression="tga_rle"),
-    "WebP": _pil("WEBP"),
-    "WebP lossless": _pil("WEBP", lossless=True),
     "WMF": _wmf,
     "WMF of an EMF": _emf,
     "XBM": _pil("XBM", "1"),
@@ -182,9 +180,10 @@ OPENABLE = {
     + bytes(12),
 }
 # Pillow's format name -> the port's
-PORT_NAME = {"JPEG2000": "JPEG 2000", "WEBP": "WebP", "MCIDAS": "McIdas",
+PORT_NAME = {"JPEG2000": "JPEG 2000", "MCIDAS": "McIdas",
              "XVTHUMB": "XVThumb", "IPTC": "IPTC/NAA"}
-PORT_DECODES = {"BMP", "GIF", "PNG", "JPEG", "MPO", "TIFF"}
+# (WebP's opens and damaged files: tests/test_torch_webp.py)
+PORT_DECODES = {"BMP", "GIF", "PNG", "JPEG", "MPO", "TIFF", "WEBP"}
 
 
 def _name(key):
