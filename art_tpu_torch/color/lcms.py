@@ -739,6 +739,49 @@ def _srgb_encode_float(lin):
     return np.where(r >= disc, hi, r / p[3]).astype(np.float32)
 
 
+def _lab_f1(t):
+    """cmsLab2XYZ's inverse of the Lab companding."""
+    return np.where(t <= 24.0 / 116.0, (108.0 / 841.0) * (t - 16.0 / 116.0),
+                    t * t * t)
+
+
+@functools.lru_cache(maxsize=1)
+def lab_to_srgb_clut():
+    """The 33^3 16-bit CLUT (L, a, b nodes; (33, 33, 33, 3) uint16) of
+    Pillow's ``convert("RGB")`` of a "LAB" image: a LittleCMS transform
+    from ``cmsCreateLab2Profile(NULL)`` (D50, an abstract v2 profile
+    whose identity A2B0 and v2/v4 encoding stages PreOptimize removes)
+    to the built-in sRGB, TYPE_Lab_8 in, 8 bits out, perceptual, no BPC
+    (both black points zero). ``OptimizeByResampling`` samples the float
+    pipeline at the nodes: the node's 16-bit value over 65535 in float32,
+    ``EvaluateLab2XYZ`` in double (L times 100, a and b times 255 less
+    128, ``cmsLab2XYZ`` against D50, over MAX_ENCODEABLE_XYZ) to
+    float32, the sRGB output matrix (the colorants inverted, times
+    MAX_ENCODEABLE_XYZ) summed in double to float32, the reversed sRGB
+    curve, then ``_cmsQuickSaturateWord`` of the value times 65535. The
+    white node is not patched: Lab's white (0xFFFF, 0x8080, 0x8080) is
+    on no node. The 8-bit evaluation is ``TetrahedralInterp16`` on the
+    bytes times 257 (``io/native/rasterdec.cc::lab_to_rgb``)."""
+    g = GRID_RGB
+    node = quick_saturate_word(np.arange(g) * 65535.0 / (g - 1))
+    nodes = np.stack(np.meshgrid(node, node, node, indexing="ij"),
+                     -1).reshape(-1, 3)
+    v = (nodes / 65535.0).astype(np.float32).astype(np.float64)
+    y = (v[:, 0] * 100.0 + 16.0) / 116.0
+    x = y + 0.002 * (v[:, 1] * 255.0 - 128.0)
+    z = y - 0.005 * (v[:, 2] * 255.0 - 128.0)
+    xyz = np.stack([(_lab_f1(t) * D50[k] / MAX_ENCODEABLE_XYZ).astype(
+        np.float32) for k, t in enumerate((x, y, z))], -1).astype(np.float64)
+    inv = np.array(mat3_inverse(srgb_colorants())) * MAX_ENCODEABLE_XYZ
+    lin = np.zeros_like(xyz)
+    for i in range(3):
+        for j in range(3):
+            lin[:, i] = lin[:, i] + xyz[:, j] * inv[i, j]
+    enc = _srgb_encode_float(lin.astype(np.float32))
+    return quick_saturate_word(enc.astype(np.float64) * 65535.0).astype(
+        np.uint16).reshape(g, g, g, 3)
+
+
 def build_transform(icc):
     """The transform from profile bytes `icc` to the built-in sRGB, as a
     callable on (..., 3) uint8 RGB; `Refused` where Pillow's

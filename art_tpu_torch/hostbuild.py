@@ -1,8 +1,9 @@
 """Build the package's host C++ libraries: the raw decoder
 (``io/native/artraw.cc``), the baseline JPEG encoder
 (``io/native/jpegenc.cc``), the JPEG decoder (``io/native/jpegdec.cc``),
-GIF's LZW decoder (``io/native/lzwdec.cc``) and the WebP decoder
-(``io/native/webpdec.cc``).
+GIF's LZW decoder (``io/native/lzwdec.cc``), the WebP decoder
+(``io/native/webpdec.cc``) and the simple raster formats' decoders
+(``io/native/rasterdec.cc``).
 
 Each source is compiled by g++ with portable flags (no ``-march=native``,
 so a library built on one machine runs on another) into
@@ -46,7 +47,7 @@ def _cxx() -> str:
     if not cxx:
         raise RuntimeError("g++ not found: cannot build the art_tpu_torch "
                            "host libraries (raw decoder, JPEG encoder and "
-                           "decoder, GIF and WebP decoders)")
+                           "decoder, GIF, WebP and raster decoders)")
     return cxx
 
 

@@ -17,10 +17,11 @@ planar; none, deflate, LZW, PackBits or JPEG; the horizontal predictor;
 RGBA, palette, CMYK, YCbCr under JPEG), a JPEG
 (:mod:`art_tpu_torch.io.jpegdec`: Huffman- or arithmetic-coded
 baseline, extended or progressive, lossless; grey, YCbCr, RGB, CMYK or
-YCCK), a BMP, PNM or GIF (:mod:`art_tpu_torch.io.stdformats`) or a WebP
+YCCK), a BMP, PNM or GIF (:mod:`art_tpu_torch.io.stdformats`), a WebP
 (:mod:`art_tpu_torch.io.webpdec`: lossless, lossy with its alpha, the
-first frame of an animation) into what the reference's callers ask PIL
-for,
+first frame of an animation) or a DIB, ICO, CUR, TGA, PSD, QOI, PCX,
+DCX or SGI (:mod:`art_tpu_torch.io.rasterformats`) into what the
+reference's callers ask PIL for,
 ``np.asarray(Image.open(path).convert("RGB"))``, byte for byte: 16-bit
 colour keeps its high byte, 16-bit grey clips at 255 (PIL's I;16), grey
 below 8 bits scales to 0..255, a palette expands through PLTE (entries
@@ -31,9 +32,10 @@ a TIFF of 32-bit floats as float32 (``F``), any other image as the
 green channel of the above (``L``). `read_image` gives an image as
 ``Image.open`` opens it, in Pillow's mode, with its embedded ICC
 profile; `load_std_image` turns it into the RawFrame of a non-raw input
-as the reference does. Another format that Pillow opens raises
-NotImplementedError naming it; bytes Pillow cannot open raise
-`Unidentified`.
+as the reference does. A format whose load always fails in Pillow
+(BUFR, GRIB, HDF5, WMF/EMF, MPEG, EPS with no Ghostscript) raises its
+OSError; another format that Pillow opens raises NotImplementedError
+naming it; bytes Pillow cannot open raise `Unidentified`.
 """
 
 from __future__ import annotations
@@ -162,12 +164,13 @@ def write_png(path, hwc, icc_bytes=None, exif_bytes=None, xmp_bytes=None):
 # -- decode ----------------------------------------------------------------
 
 def read_rgb8(path):
-    """A PNG, TIFF, JPEG, BMP, PNM, GIF or WebP image as (H, W, 3) uint8,
-    the array PIL's
+    """A PNG, TIFF, JPEG, BMP, PNM, GIF, WebP, DIB, ICO, CUR, TGA, PSD,
+    QOI, PCX, DCX or SGI image as (H, W, 3) uint8, the array PIL's
     ``Image.open(path).convert("RGB")`` gives. Another format that PIL
     reads, or a form the port's decoder does not read, raises
-    NotImplementedError naming it; bytes that are no image, and an image
-    whose decode fails (a truncated file), raise OSError, as PIL does."""
+    NotImplementedError naming it; bytes that are no image, an image
+    whose decode fails (a truncated file) and a format whose load always
+    fails in PIL raise OSError, as PIL does."""
     with open(path, "rb") as f:
         buf = f.read()
     mode, samples, _ = _decode(buf, path)
@@ -180,9 +183,10 @@ def read_grey(path):
     with mode "I;16" (uint16: a 16-bit grey PNG, a little-endian 16-bit
     grey TIFF), "F" (float32: a TIFF of 32-bit float samples) or "L"
     (uint8: any other image, "I" of a deep PGM included, the green
-    channel of its ``convert("RGB")``). Bytes that are no image, and an image whose
-    decode fails (a truncated file), raise OSError as PIL does; another
-    format that PIL reads raises NotImplementedError naming it."""
+    channel of its ``convert("RGB")``), of the formats `read_rgb8`
+    reads. Bytes that are no image, and an image whose decode fails (a
+    truncated file), raise OSError as PIL does; another format that PIL
+    reads raises NotImplementedError naming it."""
     with open(path, "rb") as f:
         buf = f.read()
     mode, samples, _ = _decode(buf, path)
@@ -200,7 +204,9 @@ def read_image(path):
     16-bit integers), int32; "F" (32-bit floats), float32. icc is the
     embedded ICC profile as Pillow's ``info["icc_profile"]`` gives it (a
     PNG's iCCP inflated, TIFF tag 34675, a JPEG's APP2 ICC_PROFILE
-    chunks joined in sequence order, a WebP's ICCP chunk), or None. Errors as `read_rgb8`'s;
+    chunks joined in sequence order, a WebP's ICCP chunk, a PSD's image
+    resource 1039), or None; the formats `read_rgb8` reads (an ICO of a
+    16-bit grey PNG icon as "I;16"). Errors as `read_rgb8`'s;
     where Pillow's ``Image.open`` fails (bytes that are no image, a PNG
     broken before its image data, a JPEG whose markers Pillow's parse
     rejects, a TIFF with no readable IFD or size, a WebP libwebp's
@@ -239,9 +245,11 @@ def load_std_image(path):
     A file ``Image.open`` cannot open (missing, no image, a header it
     rejects: `Unidentified`) goes to the external loader registered for
     its extension (``io/iomanager.py``), whose TIFF is read instead;
-    without one the error stands. A file whose data fails to decode
-    raises as the reference's load does, with no loader. A format PIL reads and the port's decoder does not
-    raises NotImplementedError naming it, with no loader tried."""
+    without one the error stands. A file whose data fails to decode, or
+    whose format PIL opens and never loads, raises as the reference's
+    load does, with no loader. A format PIL reads and the port's decoder
+    does not raises NotImplementedError naming it, with no loader
+    tried."""
     from art_tpu_torch.color import colorspaces as cs
     from art_tpu_torch.color import lcms
     from art_tpu_torch.core.image import MAXVAL
@@ -322,30 +330,30 @@ def _decode(buf, path):
 
 def _plugin_walk(buf, path):
     """Pillow's plugin walk past the formats read above, in the order of
-    ``Image.ID``: a WebP decoded where the walk reaches WebP's plugin
-    (after IM, IMT, IPTC/NAA, PCD, SPIDER and TGA, which have no accept
-    test; :mod:`art_tpu_torch.io.webpdec`), NotImplementedError naming any
-    other format Pillow opens; `Unidentified` where Pillow opens nothing
-    or WebP's open fails, and the other errors Pillow's open raises
-    (:mod:`art_tpu_torch.io.unported`)."""
-    from art_tpu_torch.io import unported, webpdec
+    ``Image.ID`` (:mod:`art_tpu_torch.io.unported`): a DIB, CUR, PCX, DCX,
+    ICO, PSD, QOI, SGI or TGA (:mod:`art_tpu_torch.io.rasterformats`) or
+    a WebP (:mod:`art_tpu_torch.io.webpdec`) loaded where the walk opens
+    it; OSError with Pillow's message for a format whose load always
+    fails in Pillow (BUFR, GRIB, HDF5, WMF/EMF, MPEG, EPS with no
+    Ghostscript: the open succeeded, so the reference tries no external
+    loader); NotImplementedError naming any other format Pillow opens;
+    `Unidentified` where Pillow opens nothing or WebP's open fails, and
+    the other errors Pillow's open raises."""
+    from art_tpu_torch.io import unported
 
-    name = unported.identify(buf, unported.FORMATS[: unported.WEBP_AT])
-    if name is None and webpdec.accept(bytes(buf[:16])):
-        try:
-            rgb, icc = webpdec.read_webp(bytes(buf))
-        except Unidentified as e:
-            raise Unidentified(f"cannot identify image file "
-                               f"{str(path)!r}: {e}") from e
-        return "RGB", rgb, icc
-    if name is None:
-        name = unported.identify(buf, unported.FORMATS[unported.WEBP_AT :])
-    if name is not None:
-        raise NotImplementedError(
-            f"{name} image {str(path)!r}: the port's image decoder "
-            "(io/imagefile.py::read_rgb8) reads PNG, TIFF, JPEG, BMP, PNM, "
-            "GIF and WebP only")
-    raise Unidentified(f"cannot identify image file {str(path)!r}")
+    hit = unported.walk(buf, path)
+    if hit is None:
+        raise Unidentified(f"cannot identify image file {str(path)!r}")
+    name, read = hit
+    if read is not None:
+        return read(buf, path)
+    msg = unported.load_fails(name)
+    if msg is not None:
+        raise OSError(msg)
+    raise NotImplementedError(
+        f"{name} image {str(path)!r}: the port's image decoder "
+        "(io/imagefile.py::read_rgb8) reads PNG, TIFF, JPEG, BMP, DIB, "
+        "ICO, CUR, PNM, GIF, WebP, TGA, PSD, QOI, PCX, DCX and SGI only")
 
 
 def _paeth(a, b, c):

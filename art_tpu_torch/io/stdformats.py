@@ -14,8 +14,11 @@ Python decoders (``ValueError``), `PilValueError`, a ValueError; an
 image past Pillow's pixel limit, `DecompressionBomb`.
 
 - BMP: the 12-byte OS/2 header and the 40- to 124-byte Windows headers;
-  1, 4 and 8 bits through the palette (a palette that is the grey ramp
-  reads as grey, as Pillow's mode "1" or "L"), 16 bits as 5-5-5, 24
+  1, 4 and 8 bits through the palette (one of more than 256 entries a
+  ValueError); a palette that is the grey ramp reads as Pillow's mode
+  "L", a byte a pixel whatever the depth (a file opened by name maps
+  its rows, which then may overlap), or, black and white, as "1", bits
+  whatever the depth; 16 bits as 5-5-5, 24
   bits, 32 bits; the bitfield layouts Pillow knows (5-6-5 and 5-5-5, and
   the byte orders of 24 and 32 bits, alpha dropped); RLE8 and RLE4 with
   Pillow's own walk of the escapes (its delta escape reads two bytes
@@ -48,6 +51,12 @@ class Unidentified(OSError):
 
 class PilValueError(ValueError):
     """Pillow's open or load raises ValueError here (a Python decoder)."""
+
+
+class PilIndexError(IndexError):
+    """Pillow's load raises IndexError here (QOI's Python decoder reads
+    past the file's end): not an OSError, so the reference tries no
+    external loader."""
 
 
 class PilSyntaxError(SyntaxError):
@@ -140,13 +149,29 @@ def read_bmp(buf):
     """A BMP file as Pillow opens and converts it: ("RGB", (H, W, 3))."""
     try:
         offset = _u32(buf, 10)
-        hsize = _u32(buf, 14)
     except struct.error as e:
         raise Unidentified(f"BMP: header cut off ({e})") from e
-    hdr = buf[18 : 14 + hsize]
+    return read_bitmap(buf, 14, offset)
+
+
+def read_bitmap(buf, at, offset=0, rows=None, mapped=True):
+    """``BmpImageFile._bitmap`` and the load of its tile: the bitmap whose
+    info header starts at byte `at`, its data at `offset` (the file
+    header's; where that is 0, after the header, masks and palette, as a
+    DIB, an icon's or a cursor's bitmap is read), ("RGB", (H, W, 3)).
+    `rows` makes the image's height what an icon (``int(h / 2)``) or a
+    cursor (``h // 2``) takes of the header's. `mapped`: the file was
+    opened by name, so Pillow maps an 8-bit tile of one byte a pixel
+    (``ImageFile.load``'s mmap) where the file holds all its rows; an
+    icon's bitmap, read from the icon file's stream, is not mapped."""
+    try:
+        hsize = _u32(buf, at)
+    except struct.error as e:
+        raise Unidentified(f"BMP: header cut off ({e})") from e
+    hdr = buf[at + 4 : at + hsize]
     if len(hdr) < hsize - 4:
         raise Unidentified("BMP: Truncated File Read")
-    pos = 14 + hsize
+    pos = at + hsize
     masks = None
     try:
         if hsize == 12:
@@ -173,7 +198,7 @@ def read_bmp(buf):
         raise Unidentified(f"BMP: header cut off ({e})") from e
     if w <= 0 or h <= 0:
         raise Unidentified(f"BMP: image size {w}x{h}")
-    if w * h > 178956970:
+    if w * h > 178956970 and rows is None:  # an icon's: at its open
         raise DecompressionBomb(f"BMP: image size {w}x{h}")
     colors = colors or (1 << bits)
     if offset == 14 + hsize and bits <= 8:
@@ -205,34 +230,53 @@ def read_bmp(buf):
         if not 0 < colors <= 65536:
             raise Unidentified(f"Unsupported BMP Palette size ({colors})")
         praw = buf[pos : pos + pad * colors]
+        pos += len(praw)
         idx = (0, 255) if colors == 2 else range(colors)
-        grey = all(praw[i * pad : i * pad + 3] == bytes([v]) * 3
+        grey = all(praw[i * pad : i * pad + 3] == bytes([v & 255]) * 3
                    for i, v in enumerate(idx))
-        if grey and colors != 2 and bits != 8 and not rle:
-            raise NotImplementedError(
-                f"BMP of {bits} bits whose palette is the grey ramp (Pillow "
-                "reads its packed samples as bytes)")
         if grey and colors == 2 and rle:  # "P" raw mode for mode "1"
             raise PilValueError("unknown raw mode for given image mode")
-        pal = _palette(praw, pad)
+        if not grey:
+            if len(praw) // pad > 256:  # the palette's load, first
+                raise PilValueError("invalid palette size")
+            pal = _palette(praw, pad)
+        # the grey modes' raw modes: "1" (bits, whatever the depth) or
+        # "L" (a byte a pixel, whatever the depth)
+        raw = ("1" if colors == 2 else "L") if grey else raw
+    offset = offset or min(pos, len(buf))
+    if rows is not None:
+        h = rows(h)
+        if h == 0:  # the halved tile's load
+            raise PilValueError("tile cannot extend outside image")
     if rle:
         idx = _bmp_rle(buf, offset, w, h, comp == 2)
         rows = idx if direction == 1 else idx[::-1]
         return "RGB", _grey3(rows) if grey else pal[rows]
     stride = ((w * bits + 31) >> 3) & ~3
-    need = stride * (h - 1) + (w * bits + 7) // 8
-    data = buf[offset : offset + stride * h]
-    if len(data) < need:
-        raise OSError("image file is truncated")
-    data = bytes(data).ljust(stride * h, b"\0")
-    rows = np.frombuffer(data, np.uint8).reshape(h, stride)
+    row = {"1": (w + 7) // 8, "L": w}.get(raw, (w * bits + 7) // 8)
+    if mapped and raw in ("L", "P") and offset + h * stride <= len(buf):
+        # the mapped file: each row from its place, zeros past the end
+        data = bytes(buf[offset : offset + stride * (h - 1) + row])
+        data = data.ljust(stride * (h - 1) + row, b"\0")
+    else:
+        if stride < row:
+            raise OSError("bad configuration")
+        data = buf[offset : offset + stride * (h - 1) + row]
+        if len(data) < stride * (h - 1) + row:
+            raise OSError("image file is truncated")
+    span = stride * (h - 1) + row
+    rows = np.lib.stride_tricks.as_strided(
+        np.frombuffer(bytes(data)[:span], np.uint8), (h, row), (stride, 1))
     if direction == -1:
         rows = rows[::-1]
+    if raw == "1":
+        return "RGB", _grey3(_bits(np.ascontiguousarray(rows), 1, w) * 255)
+    if raw == "L":
+        return "RGB", _grey3(rows[:, :w])
     if bits <= 8:
-        idx = rows[:, :w] if bits == 8 else _bits(rows, bits, w)
-        if grey and colors == 2:  # mode "1"
-            return "RGB", _grey3(np.where(idx != 0, 255, 0))
-        return "RGB", _grey3(idx) if grey else pal[idx]
+        idx = rows[:, :w] if bits == 8 else _bits(np.ascontiguousarray(rows),
+                                                  bits, w)
+        return "RGB", pal[idx]
     if bits == 16:
         v = rows[:, : 2 * w].copy().view("<u2").astype(np.int32)
         if raw == "BGR;16":
@@ -242,7 +286,8 @@ def read_bmp(buf):
             r, g, b = (v >> 10) & 31, (v >> 5) & 31, v & 31
             rgb = np.stack([r * 255 // 31, g * 255 // 31, b * 255 // 31], -1)
         return "RGB", rgb.astype(np.uint8)
-    px = rows[:, : w * bits // 8].reshape(h, w, bits // 8)
+    px = np.ascontiguousarray(rows[:, : w * bits // 8]).reshape(
+        h, w, bits // 8)
     order = raw[:4] if bits == 32 else raw
     rgb = np.stack([px[..., order.index(c)] for c in "RGB"], -1)
     return "RGB", np.ascontiguousarray(rgb)

@@ -1,5 +1,6 @@
-"""The formats Pillow 12.1.0 opens and the port does not decode, and
-which of them a file is, decided as ``Image.open`` decides it.
+"""The formats Pillow 12.1.0 opens past those the port reads by their
+magic, and which of them a file is, decided as ``Image.open`` decides
+it.
 
 ``Image.open`` walks its plugins in the order of ``Image.ID``. A plugin
 whose accept test passes on the file's first 16 bytes, or which has
@@ -12,29 +13,36 @@ external loader only for an OSError. A header that parses opens the
 image, unless its size passes twice ``Image.MAX_IMAGE_PIXELS``
 (DecompressionBombError).
 
-`identify` makes the same walk over `FORMATS`, each ``_open`` mirrored
-here over the file's bytes: the plugin's header checks, reads and seeks,
-as a file opened for reading makes them (a seek before the start fails
-with OSError, a read of a negative length other than -1 with
-ValueError). It returns the name of the format that opens, or None where
-none does; the errors Pillow lets out come out as `Unidentified` (an
+`walk` makes the same walk over `WALK`, each ``_open`` mirrored here
+over the file's bytes: the plugin's header checks, reads and seeks, as a
+file opened for reading makes them (a seek before the start fails with
+OSError, a read of a negative length other than -1 with ValueError). It
+returns the format that opens and the port's load of it (None for a
+format in `FORMATS`, which the port refuses by name), or None where none
+opens; the errors Pillow lets out come out as `Unidentified` (an
 OSError), `PilValueError` (a ValueError), `DecompressionBomb` or
-`OpenError` (any other). The formats the port decodes (BMP, GIF, JPEG,
-PNG, PNM's P1-P6 and TIFF) are read before this walk and are not in it;
-nor is WebP, which the port decodes where the walk reaches it
-(:mod:`art_tpu_torch.io.webpdec`): `FORMATS[:WEBP_AT]` are the plugins
-Pillow tries before WebP's, `FORMATS[WEBP_AT:]` those after it.
+`OpenError` (any other). The formats the port decodes by their magic
+(BMP, GIF, JPEG, PNG, PNM's P1-P6 and TIFF) are read before this walk
+and are not in it; the walk's own decoded formats load where it opens
+them: DIB, CUR, PCX, DCX, ICO, PSD, QOI, SGI and TGA
+(:mod:`art_tpu_torch.io.rasterformats`) and WebP
+(:mod:`art_tpu_torch.io.webpdec`, whose open is libwebp's parse, made
+in its load). `LOAD_FAILS` names the formats whose load always fails in
+Pillow (BUFR, GRIB and HDF5 stubs, WMF/EMF, MPEG, EPS with no
+Ghostscript).
 
 Not mirrored: the coded data that AVIF's open parses with libavif. Its
 container is checked (boxes whole, the image's boxes present), not what
 libavif checks inside them. ICO's open decodes its largest icon: a PNG
-icon goes through the port's PNG reader, a bitmap icon is checked to its
-header and the lengths of its data and mask.
+icon goes through the port's PNG reader, a bitmap icon through its
+load in ``stdformats.read_bitmap`` after the checks of its mask's or
+alpha's length.
 """
 
 from __future__ import annotations
 
 import math
+import os
 import re
 import struct
 import zlib
@@ -55,10 +63,13 @@ _NEXT = (IndexError, TypeError, KeyError, EOFError, struct.error, SyntaxError)
 
 
 class _File:
-    """A file's bytes read as Pillow's plugins read a file opened "rb"."""
+    """A file's bytes read as Pillow's plugins read a file opened "rb".
+    With the file's `path`, a seek past its end is made on the file too:
+    the file system refuses one past its largest file (EINVAL)."""
 
-    def __init__(self, buf):
-        self.buf, self.pos = bytes(buf), 0
+    def __init__(self, buf, path=None):
+        self.buf = buf if isinstance(buf, bytes) else bytes(buf)
+        self.pos, self.path = 0, path
 
     def read(self, n=-1):
         if n < -1:
@@ -72,6 +83,21 @@ class _File:
         base = (0, self.pos, len(self.buf))[whence]
         if base + off < 0:
             raise Unidentified("[Errno 22] Invalid argument")
+        if base + off >= 1 << 63:
+            raise PilValueError("cannot fit 'int' into an offset-sized "
+                                "integer")
+        if self.path is not None and base + off > len(self.buf):
+            try:
+                fd = os.open(self.path, os.O_RDONLY)
+            except OSError:
+                pass
+            else:
+                try:
+                    os.lseek(fd, base + off, os.SEEK_SET)
+                except OSError as e:
+                    raise Unidentified(str(e)) from e
+                finally:
+                    os.close(fd)
         self.pos = base + off
 
     def tell(self):
@@ -272,7 +298,10 @@ def _grib(f):
     return "F", (1, 1)
 
 
-def _cur(f):
+def cur_entry(f):
+    """CurImageFile._open's pick: the 16-byte directory entry of the first
+    cursor whose width and height bytes both pass the one picked before;
+    the file left after the directory."""
     s = f.read(6)
     if not s.startswith(b"\0\0\2\0"):
         raise SyntaxError("not a CUR file")
@@ -285,7 +314,11 @@ def _cur(f):
             m = s
     if not m:
         raise TypeError("No cursors were found")
-    mode, (w, h), _ = _bitmap(f, _i32(m, 12))
+    return m
+
+
+def _cur(f):
+    mode, (w, h), _ = _bitmap(f, _i32(cur_entry(f), 12))
     return mode, (w, h // 2)
 
 
@@ -842,7 +875,10 @@ def _icns(f):
     return "RGBA", (w * scale, h * scale)
 
 
-def _ico(f):
+def ico_entry(f):
+    """IcoFile's first entry, the icon the open loads: the entries sorted
+    by colour depth, then stably by area, largest first; (bpp, bytes,
+    offset)."""
     s = f.read(6)
     if not s.startswith(b"\0\0\1\0"):
         raise SyntaxError("not an ICO file")
@@ -853,10 +889,14 @@ def _ico(f):
         bpp = _i16(s, 6)
         s[3], _i16(s, 4)
         depth = bpp or (ncolor != 0 and math.ceil(math.log(ncolor, 2))) or 256
-        entries.append((w * h, depth, (w, h), bpp, _i32(s, 8), _i32(s, 12)))
+        entries.append((w * h, depth, bpp, _i32(s, 8), _i32(s, 12)))
     entries.sort(key=lambda e: e[1])
     entries.sort(key=lambda e: e[0], reverse=True)
-    _, _, _, bpp, size, offset = entries[0]
+    return entries[0][2:]
+
+
+def _ico(f):
+    bpp, size, offset = ico_entry(f)
     f.seek(offset)
     head = f.read(8)
     f.seek(offset)
@@ -880,8 +920,6 @@ def _ico(f):
         raise SyntaxError("an icon of no size")
     _bomb((w, h))
     h = int(h / 2)
-    if h == 0:
-        raise SyntaxError("an icon of no rows")
     if bpp == 32:  # its alpha: every fourth byte of its data
         f.seek(data)
         if len(f.read(w * h * 4)[3::4]) < w * h:
@@ -892,11 +930,15 @@ def _ico(f):
         f.seek(offset + size - total)
         if len(f.read(total)) < int(w32 / 8) * (h - 1) + (w + 7) // 8:
             raise PilValueError("not enough image data")
-    if comp in (1, 2) and mode not in ("P", "L"):
-        # BmpRleDecoder's "P" raw mode for an "RGB" or "1" image
-        raise PilValueError("unknown raw mode for given image mode")
-    if comp not in (1, 2) and len(f.buf) - data < stride * (h - 1) + row:
-        raise Unidentified("image file is truncated")
+    # the open loads the bitmap (not mapped: it is read from the stream)
+    from art_tpu_torch.io.stdformats import read_bitmap
+
+    try:
+        read_bitmap(f.buf, offset, rows=lambda n: int(n / 2), mapped=False)
+    except (PilValueError, Unidentified):
+        raise
+    except OSError as e:
+        raise Unidentified(str(e)) from e
     return "RGBA", (w, h)
 
 
@@ -1146,7 +1188,13 @@ _PSD_MODES = {(0, 1): ("1", 1), (0, 8): ("L", 1), (1, 8): ("L", 1),
               (7, 8): ("L", 1), (8, 8): ("L", 1), (9, 8): ("LAB", 3)}
 
 
-def _psd(f):
+def psd_header(f):
+    """PsdImageFile._open and _maketile's reads: a dict of the mode, the
+    channels read, the size, the colour mode data where it is a P
+    image's 768-byte palette (else None), the ICC profile (the last image
+    resource 1039, else None), the compression, the image data's offset
+    and, for PackBits, the byte counts of the channels' rows; the file
+    left past the tiles."""
     s = f.read(26)
     if not s.startswith(b"8BPS") or _i16be(s, 4) != 1:
         raise SyntaxError("not a PSD file")
@@ -1156,32 +1204,51 @@ def _psd(f):
         raise Unidentified("not enough channels")
     if mode == "RGB" and have == 4:
         mode, channels = "RGBA", 4
-    size = _i32be(s, 18), _i32be(s, 14)
+    h = {"mode": mode, "channels": channels, "palette": None, "icc": None,
+         "size": (_i32be(s, 18), _i32be(s, 14)), "counts": None}
     n = _i32be(f.read(4))
     if n:
-        f.read(n)
+        data = f.read(n)
+        if mode == "P" and n == 768:
+            h["palette"] = data
     n = _i32be(f.read(4))
     if n:
         end = f.tell() + n
         while f.tell() < end:
             f.read(4)
-            _i16be(f.read(2))
+            rid = _i16be(f.read(2))
             name = f.read(_i8(f.read(1)))
             if not len(name) & 1:
                 f.read(1)
             data = f.read(_i32be(f.read(4)))
             if len(data) & 1:
                 f.read(1)
+            if rid == 1039:
+                h["icc"] = data
     n = _i32be(f.read(4))
     if n:
         end = f.tell() + n
         _i32be(f.read(4))
         f.seek(end)
-    if _i16be(f.read(2)) == 1:  # packbits: a byte count per row
-        counts = f.read(channels * size[1] * 2)
-        if len(counts) < channels * size[1] * 2:
+    h["comp"] = _i16be(f.read(2))
+    w, rows = h["size"]
+    h["offset"] = offset = f.tell()
+    if h["comp"] == 0:  # raw: one plane after another
+        offset += channels * w * rows
+    elif h["comp"] == 1:  # packbits: a byte count per row
+        counts = f.read(channels * rows * 2)
+        if len(counts) < channels * rows * 2:
             raise struct.error("unpack_from requires a buffer of 2 bytes")
-    return mode, size
+        h["counts"] = struct.unpack(f">{channels * rows}H", counts)
+        h["offset"] = offset = f.tell()
+        offset += sum(h["counts"])
+    f.seek(offset)  # past the tiles
+    return h
+
+
+def _psd(f):
+    h = psd_header(f)
+    return h["mode"], h["size"]
 
 
 def _qoi(f):
@@ -1296,10 +1363,10 @@ def _tga(f):
         raise SyntaxError("unknown TGA mode")
     if id_len:
         f.read(id_len)
-    if cmap:
-        _i16(s, 3), _i16(s, 5)
+    if cmap:  # the colour map's entries; the file left at the image data
         if s[7] not in (16, 24, 32):
             raise SyntaxError("unknown TGA map depth")
+        f.read(s[7] // 8 * _i16(s, 5))
     return mode, size
 
 
@@ -1401,71 +1468,130 @@ def _starts(*magics):
     return lambda p: p.startswith(magics)
 
 
-# (name, accept test on the first 16 bytes or None, open) in the order of
-# Pillow 12.1.0's Image.ID, the plugins of the port's own formats left
-# out; PPM's plugin is here for the magics beyond P1-P6
-FORMATS = (
+def _reader(name):
+    """The port's load of a format it decodes, in
+    :mod:`art_tpu_torch.io.rasterformats`."""
+    def read(buf, path):
+        from art_tpu_torch.io import rasterformats
+
+        return getattr(rasterformats, f"read_{name}")(buf, path)
+    return read
+
+
+def _webp_accept(p):
+    from art_tpu_torch.io import webpdec
+
+    return webpdec.accept(p)
+
+
+def _webp_open(f):
+    """WebP's open is libwebp's parse, made in the load below."""
+    return "RGB", (1, 1)
+
+
+def _read_webp(buf, path):
+    from art_tpu_torch.io import webpdec
+
+    try:
+        rgb, icc = webpdec.read_webp(bytes(buf))
+    except Unidentified as e:
+        raise Unidentified(f"cannot identify image file {str(path)!r}: "
+                           f"{e}") from e
+    return "RGB", rgb, icc
+
+
+# (name, accept test on the first 16 bytes or None, open, the port's load
+# or None) in the order of Pillow 12.1.0's Image.ID, the plugins of the
+# formats read before the walk left out; PPM's plugin is here for the
+# magics beyond P1-P6. A format with no load is refused by name.
+WALK = (
     ("AVIF", lambda p: p[4:8] == b"ftyp"
-     and p[8:12] in (b"avif", b"avis", b"mif1", b"msf1"), _avif),
-    ("BLP", _starts(b"BLP1", b"BLP2"), _blp),
+     and p[8:12] in (b"avif", b"avis", b"mif1", b"msf1"), _avif, None),
+    ("BLP", _starts(b"BLP1", b"BLP2"), _blp, None),
     ("DIB", lambda p: len(p) >= 4
-     and _i32(p) in (12, 40, 52, 56, 64, 108, 124), _dib),
-    ("BUFR", _starts(b"BUFR", b"ZCZC"), _stub(b"BUFR", b"ZCZC")),
-    ("CUR", _starts(b"\0\0\2\0"), _cur),
-    ("PCX", _pcx_accept, _pcx),
-    ("DCX", lambda p: len(p) >= 4 and _i32(p) == 987654321, _dcx),
-    ("DDS", _starts(b"DDS "), _dds),
+     and _i32(p) in (12, 40, 52, 56, 64, 108, 124), _dib, _reader("dib")),
+    ("BUFR", _starts(b"BUFR", b"ZCZC"), _stub(b"BUFR", b"ZCZC"), None),
+    ("CUR", _starts(b"\0\0\2\0"), _cur, _reader("cur")),
+    ("PCX", _pcx_accept, _pcx, _reader("pcx")),
+    ("DCX", lambda p: len(p) >= 4 and _i32(p) == 987654321, _dcx,
+     _reader("dcx")),
+    ("DDS", _starts(b"DDS "), _dds, None),
     ("EPS", lambda p: p.startswith(b"%!PS")
-     or (len(p) >= 4 and _i32(p) == 0xC6D3D0C5), _eps),
-    ("FITS", _starts(b"SIMPLE"), _fits),
-    ("FLI", _fli_accept, _fli),
-    ("FTEX", _starts(b"FTEX"), _ftex),
+     or (len(p) >= 4 and _i32(p) == 0xC6D3D0C5), _eps, None),
+    ("FITS", _starts(b"SIMPLE"), _fits, None),
+    ("FLI", _fli_accept, _fli, None),
+    ("FTEX", _starts(b"FTEX"), _ftex, None),
     ("GBR", lambda p: len(p) >= 8 and _i32be(p) >= 20
-     and _i32be(p, 4) in (1, 2), _gbr),
+     and _i32be(p, 4) in (1, 2), _gbr, None),
     ("GRIB", lambda p: len(p) >= 8 and p.startswith(b"GRIB") and p[7] == 1,
-     _grib),
-    ("HDF5", _starts(b"\x89HDF\r\n\x1a\n"), _stub(b"\x89HDF\r\n\x1a\n")),
+     _grib, None),
+    ("HDF5", _starts(b"\x89HDF\r\n\x1a\n"), _stub(b"\x89HDF\r\n\x1a\n"),
+     None),
     ("JPEG 2000", _starts(b"\xff\x4f\xff\x51",
-                          b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a"), _jpeg2000),
-    ("ICNS", _starts(b"icns"), _icns),
-    ("ICO", _starts(b"\0\0\1\0"), _ico),
-    ("IM", None, _im),
-    ("IMT", None, _imt),
-    ("IPTC/NAA", None, _iptc),
-    ("McIdas", _starts(b"\0\0\0\0\0\0\0\4"), _mcidas),
-    ("MPEG", _starts(b"\x00\x00\x01\xb3"), _mpeg),
-    ("MSP", _starts(b"DanM", b"LinS"), _msp),
-    ("PCD", None, _pcd),
-    ("PIXAR", _starts(b"\x80\xe8\x00\x00"), _pixar),
-    ("PFM", _starts(b"Pf"), _ppm),
-    ("PNM of a Pillow extension", _starts(b"P0", b"Py"), _ppm),
-    ("PSD", _starts(b"8BPS"), _psd),
-    ("QOI", _starts(b"qoif"), _qoi),
-    ("SGI", lambda p: len(p) >= 2 and _i16be(p) == 474, _sgi),
-    ("SPIDER", None, _spider),
-    ("SUN", lambda p: len(p) >= 4 and _i32be(p) == 0x59A66A95, _sun),
-    ("TGA", None, _tga),
-    ("WMF", _starts(b"\xd7\xcd\xc6\x9a\x00\x00", b"\x01\x00\x00\x00"), _wmf),
-    ("XBM", lambda p: p.lstrip().startswith(b"#define"), _xbm),
-    ("XPM", _starts(b"/* XPM */"), _xpm),
-    ("XVThumb", _starts(b"P7 332"), _xvthumb),
+                          b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a"), _jpeg2000,
+     None),
+    ("ICNS", _starts(b"icns"), _icns, None),
+    ("ICO", _starts(b"\0\0\1\0"), _ico, _reader("ico")),
+    ("IM", None, _im, None),
+    ("IMT", None, _imt, None),
+    ("IPTC/NAA", None, _iptc, None),
+    ("McIdas", _starts(b"\0\0\0\0\0\0\0\4"), _mcidas, None),
+    ("MPEG", _starts(b"\x00\x00\x01\xb3"), _mpeg, None),
+    ("MSP", _starts(b"DanM", b"LinS"), _msp, None),
+    ("PCD", None, _pcd, None),
+    ("PIXAR", _starts(b"\x80\xe8\x00\x00"), _pixar, None),
+    ("PFM", _starts(b"Pf"), _ppm, None),
+    ("PNM of a Pillow extension", _starts(b"P0", b"Py"), _ppm, None),
+    ("PSD", _starts(b"8BPS"), _psd, _reader("psd")),
+    ("QOI", _starts(b"qoif"), _qoi, _reader("qoi")),
+    ("SGI", lambda p: len(p) >= 2 and _i16be(p) == 474, _sgi,
+     _reader("sgi")),
+    ("SPIDER", None, _spider, None),
+    ("SUN", lambda p: len(p) >= 4 and _i32be(p) == 0x59A66A95, _sun, None),
+    ("TGA", None, _tga, _reader("tga")),
+    ("WebP", _webp_accept, _webp_open, _read_webp),
+    ("WMF", _starts(b"\xd7\xcd\xc6\x9a\x00\x00", b"\x01\x00\x00\x00"), _wmf,
+     None),
+    ("XBM", lambda p: p.lstrip().startswith(b"#define"), _xbm, None),
+    ("XPM", _starts(b"/* XPM */"), _xpm, None),
+    ("XVThumb", _starts(b"P7 332"), _xvthumb, None),
 )
 
+# the formats Pillow opens that the port refuses by name: (name, accept,
+# open)
+FORMATS = tuple(e[:3] for e in WALK if e[3] is None)
+# those whose load always fails in Pillow 12.1.0 (no handler, no
+# decoder): the message of the OSError its load raises
+LOAD_FAILS = {"BUFR": "cannot find loader for this BUFR file",
+              "GRIB": "cannot find loader for this GRIB file",
+              "HDF5": "cannot find loader for this HDF5 file",
+              "WMF": "cannot find loader for this WMF file",
+              "MPEG": "cannot load this image",
+              "EPS": "Unable to locate Ghostscript on paths"}
 
-# where WebP's plugin sits in Image.ID: after TGA's
-WEBP_AT = [name for name, _, _ in FORMATS].index("TGA") + 1
+
+def load_fails(name):
+    """Pillow's load message where a file of format `name` can never load
+    (EPS only where no ``gs`` is on PATH), else None."""
+    if name == "EPS":
+        import shutil
+
+        if shutil.which("gs") is not None:
+            return None
+    return LOAD_FAILS.get(name)
 
 
-def identify(buf, formats=FORMATS):
-    """The name of the format of `formats` (a slice of `FORMATS`) that
-    Pillow's ``Image.open`` opens `buf` as, or None where it opens none of
-    them; the errors its open lets out as the module docstring says."""
+def walk(buf, path=None):
+    """(name, the port's load or None) of the plugin Pillow's
+    ``Image.open`` opens `buf` (the bytes of the file at `path`, where
+    given) with, walking `WALK`, or None where none does; the errors its
+    open lets out as the module docstring says."""
     prefix = bytes(buf[:16])
-    for name, accept, open_ in formats:
+    for name, accept, open_, read in WALK:
         if accept is not None and not accept(prefix):
             continue
         try:
-            mode, size = open_(_File(buf))
+            mode, size = open_(_File(buf, path))
         except (Unidentified, PilValueError, DecompressionBomb, OpenError):
             raise
         except _NEXT:
@@ -1475,5 +1601,13 @@ def identify(buf, formats=FORMATS):
         if not mode or size[0] <= 0 or size[1] <= 0:
             continue
         _bomb(size)
-        return name
+        return name, read
     return None
+
+
+def identify(buf):
+    """The name of the format Pillow's ``Image.open`` opens `buf` as where
+    the port refuses it by name; None where it opens none or one the port
+    decodes; the errors its open lets out as the module docstring says."""
+    hit = walk(buf)
+    return hit[0] if hit is not None and hit[1] is None else None

@@ -197,6 +197,15 @@ against Pillow's sha256; W2, F2's develop through cli.main with a
 lossless WebP Hald and the committed lossy WebP mask, its JPEG
 byte-equal to the same develop from PNGs of the same samples, B1-B4 and
 B7 once each and bit-equal to their plain versions on W2's tensors.
+Then the simple raster formats (`raster_phase`): R1, 24 MP TGA (raw and
+RLE), PSD (raw and PackBits), QOI, PCX and RLE SGI files the phase
+writes (`raster_files`), each read_image's host ms and array against
+the one written, and the small raster fixtures of tests/data (ICO, CUR,
+DCX, PSD, 16-bit SGI, TGA, PCX) against Pillow's sha256; R2, F2's
+develop through cli.main with a PackBits PSD Hald and an RLE SGI mask,
+its JPEG byte-equal to the same develop from PNGs of the same samples,
+B1-B4 and B7 once each and bit-equal to their plain versions on R2's
+tensors.
 Then one JSON line of per-kernel results (time, plain time, bound) and
 last the line {"ok": true, "device": {...}}. Any failure raises
 (non-zero exit, no result lines); so does a machine without CUDA.
@@ -4174,7 +4183,7 @@ def formats_phase(smi_line, tmp):
         if not ok:
             failures.append(f"F1 {name} decodes differently")
     for name in sorted(k for k in recorded
-                       if not k.startswith(("F1 ", "webp_"))):
+                       if not k.startswith(("F1 ", "webp_", "raster_"))):
         path = os.path.join(FORMATS_DATA, name)
         buf = open(path, "rb").read()
         t0 = time.monotonic()
@@ -4507,6 +4516,365 @@ def webp_phase(smi_line, tmp):
     return {}, failures
 
 
+# ---- the simple raster formats (R1, R2) --------------------------------
+
+def rle_rows(rows, px, chunk, run_head, lit_head, tail=b""):
+    """Rows of pixels ((R, n * px) uint8, px bytes a pixel) as packets of
+    up to `chunk` pixels that never cross a row: a chunk of one repeated
+    pixel (two or more) as run_head(count) and the pixel, any other as
+    lit_head(count) and its pixels, `tail` after each row. Returns (the
+    stream as uint8, each row's byte count)."""
+    rows = np.ascontiguousarray(rows, np.uint8)
+    r, nb = rows.shape
+    n = nb // px
+    pix = rows.reshape(r, n, px)
+    starts = np.arange(0, n, chunk)
+    counts = np.minimum(chunk, n - starts)
+    nch = len(starts)
+    cid = np.repeat(np.arange(nch), counts)  # each pixel's chunk
+    first = pix[:, starts[cid]]
+    same = (pix == first).all(-1)  # (r, n)
+    uniform = np.logical_and.reduceat(same, starts, axis=1) & (counts > 1)
+    size = np.where(uniform, 1 + px, 1 + counts * px)  # (r, nch)
+    row_len = size.sum(1) + len(tail)
+    ends = np.cumsum(row_len)
+    row_at = ends - row_len
+    out = np.zeros(int(ends[-1]) if r else 0, np.uint8)
+    at = row_at[:, None] + np.concatenate(
+        [np.zeros((r, 1), np.int64), np.cumsum(size, 1)[:, :-1]], 1)
+    heads = np.where(uniform, run_head(counts)[None, :],
+                     lit_head(counts)[None, :]).astype(np.uint8)
+    out[at.ravel()] = heads.ravel()
+    # a run's pixel
+    ur, uc = np.nonzero(uniform)
+    for k in range(px):
+        out[at[ur, uc] + 1 + k] = pix[ur, starts[uc], k]
+    # a literal's pixels
+    lit = ~uniform[:, cid]  # (r, n)
+    lr, li = np.nonzero(lit)
+    base = at[lr, cid[li]] + 1 + (li - starts[cid[li]]) * px
+    for k in range(px):
+        out[base + k] = pix[lr, li, k]
+    if tail:
+        t = np.frombuffer(tail, np.uint8)
+        for k, v in enumerate(t):
+            out[ends - len(t) + k] = v
+    return out, row_len
+
+
+def write_tga(path, rgb, rle=False):
+    """A 24-bit top-down TGA (image type 2, or 10 with `rle`: packets of
+    up to 128 pixels, a row of one colour a run) of (H, W, 3) uint8."""
+    import struct
+
+    h, w, _ = rgb.shape
+    bgr = np.ascontiguousarray(rgb[..., ::-1]).reshape(h, -1)
+    head = struct.pack("<BBBHHBHHHHBB", 0, 0, 10 if rle else 2, 0, 0, 0, 0,
+                       0, w, h, 24, 0x20)
+    if rle:
+        data, _ = rle_rows(bgr, 3, 128, lambda c: 0x80 | (c - 1),
+                           lambda c: c - 1)
+    else:
+        data = bgr
+    with open(path, "wb") as f:
+        f.write(head)
+        f.write(data.tobytes())
+    return path
+
+
+def _packbits_head(c):
+    return np.where(c > 1, 257 - c, 0) & 0xFF
+
+
+def write_psd(path, planes, mode=3, packbits=False, icc=None, palette=None,
+              layers=b""):
+    """A PSD of 8-bit planes ((C, H, W) uint8): colour mode `mode` (3 RGB,
+    1 grey, 2 indexed with `palette` ((256, 3) uint8), 4 CMYK as stored,
+    9 Lab), the ICC profile as image resource 1039, a layer section of
+    `layers`' bytes, the merged image raw or PackBits (chunks of up to
+    128 bytes, one row of each channel after another, its byte counts
+    first)."""
+    import struct
+
+    planes = np.asarray(planes, np.uint8)
+    c, h, w = planes.shape
+    cmd = b"" if palette is None else \
+        np.ascontiguousarray(np.asarray(palette, np.uint8).T).tobytes()
+    res = b""
+    if icc:
+        res = b"8BIM" + struct.pack(">HBx I", 1039, 0, len(icc)) + icc
+        res += b"\0" * (len(icc) & 1)
+    with open(path, "wb") as f:
+        f.write(b"8BPS" + struct.pack(">H6xHIIHH", 1, c, h, w, 8, mode))
+        for block in (cmd, res, layers):
+            f.write(struct.pack(">I", len(block)) + block)
+        if packbits:
+            data, counts = rle_rows(planes.reshape(c * h, w), 1, 128,
+                                    _packbits_head, lambda n: n - 1)
+            f.write(struct.pack(">H", 1))
+            f.write(counts.astype(">u2").tobytes())
+            f.write(data.tobytes())
+        else:
+            f.write(struct.pack(">H", 0))
+            f.write(planes.tobytes())
+    return path
+
+
+def write_qoi(path, rgb):
+    """A QOI of (H, W, 3) uint8: QOI_OP_RUN for a pixel that repeats the
+    one before (runs of up to 62), QOI_OP_RGB for any other, then the
+    end marker."""
+    import struct
+
+    h, w, _ = rgb.shape
+    flat = rgb.reshape(-1, 3)
+    n = flat.shape[0]
+    prev = np.concatenate([np.zeros((1, 3), np.uint8), flat[:-1]])
+    rep = (flat == prev).all(1)
+    rep[0] = False  # the first pixel against (0, 0, 0, 255): an RGB op
+    # a run op closes each stretch of repeats at 62 and at its end
+    idx = np.arange(n)
+    start = np.where(rep & ~np.concatenate([[False], rep[:-1]]), idx, 0)
+    start = np.maximum.accumulate(start)
+    k = idx - start  # the repeat's place in its stretch
+    last = rep & (~np.concatenate([rep[1:], [False]]) | (k % 62 == 61))
+    size = np.where(rep, last.astype(np.int64), 4)
+    at = np.cumsum(size) - size
+    out = np.zeros(int(size.sum()) + 8, np.uint8)
+    lit = np.nonzero(~rep)[0]
+    out[at[lit]] = 0xFE
+    for c in range(3):
+        out[at[lit] + 1 + c] = flat[lit, c]
+    ends = np.nonzero(last)[0]
+    out[at[ends]] = 0xC0 | (k[ends] % 62)
+    out[-1] = 1  # the end marker: seven zeros and a one
+    with open(path, "wb") as f:
+        f.write(b"qoif" + struct.pack(">IIBB", w, h, 3, 0))
+        f.write(out.tobytes())
+    return path
+
+
+def write_pcx(path, rgb):
+    """A version-5 PCX of (H, W, 3) uint8, three 8-bit planes: each line
+    (the planes' rows) in chunks of up to 63 bytes, a chunk of one
+    repeated byte a run, any other byte by byte (a byte of 0xC0 and up
+    as a run of one)."""
+    import struct
+
+    h, w, _ = rgb.shape
+    stride = w + (w & 1)
+    lines = np.zeros((h, 3, stride), np.uint8)
+    lines[:, :, :w] = np.moveaxis(rgb, -1, 1)
+    lines = lines.reshape(h, -1)
+    n = lines.shape[1]
+    starts = np.arange(0, n, 63)
+    counts = np.minimum(63, n - starts)
+    cid = np.repeat(np.arange(len(starts)), counts)
+    same = lines == lines[:, starts[cid]]
+    uniform = np.logical_and.reduceat(same, starts, axis=1) & (counts > 1)
+    lit = ~uniform[:, cid]
+    big = lines >= 0xC0
+    # bytes each source byte makes: a literal 1 or 2, a run's first 2
+    first = np.zeros(n, bool)
+    first[starts] = True
+    size = np.where(lit, 1 + big, np.where(first[None, :], 2, 0))
+    flat = size.ravel()
+    at = np.cumsum(flat) - flat
+    src = lines.ravel()
+    out = np.zeros(int(flat.sum()), np.uint8)
+    two = np.nonzero(flat == 2)[0]
+    run_count = np.where(lit.ravel()[two], 1, counts[cid][two % n])
+    out[at[two]] = 0xC0 | run_count
+    out[at[two] + 1] = src[two]
+    one = np.nonzero(flat == 1)[0]
+    out[at[one]] = src[one]
+    head = bytearray(128)
+    head[:4] = bytes([10, 5, 1, 8])
+    struct.pack_into("<4H", head, 4, 0, 0, w - 1, h - 1)
+    head[65] = 3
+    struct.pack_into("<H", head, 66, stride)
+    with open(path, "wb") as f:
+        f.write(bytes(head))
+        f.write(out.tobytes())
+    return path
+
+
+def write_sgi(path, img):
+    """An RLE SGI of (H, W) or (H, W, 3) uint8, 8 bits: each channel's
+    rows bottom-up in chunks of up to 127 (a chunk of one repeated value
+    a run, any other a copy), each row ended by a zero, after the offset
+    and length tables."""
+    import struct
+
+    img = np.asarray(img, np.uint8)
+    grey = img.ndim == 2
+    if grey:
+        img = img[..., None]
+    h, w, z = img.shape
+    rows = np.moveaxis(img[::-1], -1, 0).reshape(z * h, w)
+    data, lengths = rle_rows(rows, 1, 127, lambda c: c,
+                             lambda c: 0x80 | c, tail=b"\0")
+    head = bytearray(512)
+    struct.pack_into(">HBBHHHH", head, 0, 474, 1, 1, 2 if grey else 3, w, h,
+                     z)
+    struct.pack_into(">II", head, 12, 0, 255)
+    first = 512 + 8 * z * h
+    offsets = first + np.cumsum(lengths) - lengths
+    with open(path, "wb") as f:
+        f.write(bytes(head))
+        f.write(offsets.astype(">u4").tobytes())
+        f.write(lengths.astype(">u4").tobytes())
+        f.write(data.tobytes())
+    return path
+
+
+def raster_picture(h, w, seed=0):
+    """R1's picture: F1's RGB scene with its top eighth made of rows of
+    one colour (so the RLE forms have runs as well as literals)."""
+    rgb = formats_arrays(h, w, seed)[0]
+    rgb[: h // 8] = rgb[: h // 8, :1]
+    return rgb
+
+
+def raster_files(tmp, h, w, seed=0):
+    """R1's files in `tmp`: name -> (path, the RGB array it decodes to)."""
+    rgb = raster_picture(h, w, seed)
+    planes = np.moveaxis(rgb, -1, 0)
+    j = os.path.join
+    return {
+        "TGA raw": (write_tga(j(tmp, "r1.tga"), rgb), rgb),
+        "TGA RLE": (write_tga(j(tmp, "r1r.tga"), rgb, rle=True), rgb),
+        "PSD raw": (write_psd(j(tmp, "r1.psd"), planes), rgb),
+        "PSD PackBits": (write_psd(j(tmp, "r1p.psd"), planes, packbits=True),
+                         rgb),
+        "QOI": (write_qoi(j(tmp, "r1.qoi"), rgb), rgb),
+        "PCX RGB": (write_pcx(j(tmp, "r1.pcx"), rgb), rgb),
+        "SGI RLE": (write_sgi(j(tmp, "r1.sgi"), rgb), rgb),
+    }
+
+
+def raster_phase(smi_line, tmp):
+    """The simple raster formats decoded by the port on the card's machine
+    (no PIL there). R1: `raster_files` at 24 MP (TGA raw and RLE, PSD raw
+    and PackBits, QOI, PCX RGB, SGI RLE), each read_image's host ms and
+    its array against the one written, then every small raster fixture of
+    tests/data (ICO, CUR, DCX, PSD in CMYK, LAB, P and with an ICC,
+    16-bit SGI, colour-mapped RLE TGA, 256-colour PCX) against the sha256
+    of Pillow's decode (the card machine's g++ build of
+    io/native/rasterdec.cc held to Pillow). R2: F2's develop through
+    cli.main (P3's Hald film simulation with Texture Boost under an
+    external mask, bundled profile, denoise 20/20), the Hald a PackBits
+    PSD and the mask an 8-bit RLE SGI, against the same develop from PNG
+    files of the same samples: the JPEGs byte-equal, B1-B4 and B7 once
+    each and bit-equal to their plain versions on R2's tensors. Returns
+    (the comparisons, the failures)."""
+    from art_tpu_torch.io import imagefile
+    from art_tpu_torch.io.dngwrite import write_dng
+    from art_tpu_torch.io.imagefile import write_png
+    from art_tpu_torch.pipeline import develop as tdev
+
+    log(f"---- raster phase ({smi_line})")
+    t_phase = time.monotonic()
+    failures = []
+    with open(FORMATS_SHA) as f:
+        recorded = json.load(f)
+    h, w = FORMATS_FRAME
+    t0 = time.monotonic()
+    files = raster_files(tmp, h, w)
+    log(f"R1 files {h}x{w} written in {time.monotonic() - t0:.2f} s: "
+        + ", ".join(f"{k} {os.path.getsize(p) / 1e6:.1f} MB"
+                    for k, (p, _) in files.items()))
+    for name, (path, want) in files.items():
+        t0 = time.monotonic()
+        mode, samples, _ = imagefile.read_image(path)
+        ms = 1e3 * (time.monotonic() - t0)
+        ok = mode == "RGB" and np.array_equal(samples, want)
+        log(f"R1 {name}: read_image {ms:.1f} ms (host) -> {samples.shape}: "
+            f"{'equal' if ok else 'DIFFERENT'}")
+        if not ok:
+            failures.append(f"R1 {name} decodes differently")
+        os.unlink(path)
+    del files, samples
+    for name in sorted(k for k in recorded if k.startswith("raster_")):
+        fpath = os.path.join(FORMATS_DATA, name)
+        t0 = time.monotonic()
+        got = imagefile.read_rgb8(fpath)
+        ms = 1e3 * (time.monotonic() - t0)
+        ok = _sha(got) == recorded[name]
+        log(f"R1 {name} ({os.path.getsize(fpath)} bytes, "
+            f"{got.shape[1]}x{got.shape[0]}): read_rgb8 {ms:.1f} ms (host), "
+            f"sha256 {'equal to' if ok else 'NOT'} Pillow's")
+        if not ok:
+            failures.append(f"R1 {name}: sha256 differs from Pillow's")
+
+    # R2: a PackBits PSD Hald and an RLE SGI mask against PNGs
+    hald = hald_image(12, 8)
+    mask = f2_mask().astype(np.uint8)
+    paths = {"hald": write_psd(os.path.join(tmp, "hald12.psd"),
+                               np.moveaxis(hald, -1, 0), packbits=True),
+             "mask": write_sgi(os.path.join(tmp, "mask.sgi"), mask),
+             "hald_png": os.path.join(tmp, "hald12.png"),
+             "mask_png": os.path.join(tmp, "mask.png")}
+    write_png(paths["hald_png"], hald)
+    write_png(paths["mask_png"], np.repeat(mask[..., None], 3, axis=2))
+    t0 = time.monotonic()
+    plane, mode = imagefile.read_grey(paths["mask"])
+    ms = 1e3 * (time.monotonic() - t0)
+    ok = mode == "L" and np.array_equal(plane, mask)
+    log(f"R2 mask: the RLE SGI reads as mode {mode} {plane.shape} in "
+        f"{ms:.1f} ms (host), {'equal to' if ok else 'NOT'} its samples")
+    if not ok:
+        failures.append("R2: the SGI mask decodes wrongly")
+    frame = flagship_frame(*FRAME)
+    dng = os.path.join(tmp, "r2.dng")
+    write_dng(dng, np.round(frame.cfa).astype(np.uint16), black=512,
+              white=16383, compress=False)
+    base = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "art_tpu_torch", "data", "profiles", PROFILE)
+    dn = os.path.join(tmp, "denoise20.arp")
+    with open(dn, "w") as f:
+        f.write("[Denoise]\nEnabled=true\nLuminance=20\nChrominance=20\n")
+    outs = {}
+    want = ("b1", "b2", "b3", "b4", "b7")
+    for kind, (lut, msk) in {
+            "raster": (paths["hald"], paths["mask"]),
+            "png": (paths["hald_png"], paths["mask_png"])}.items():
+        arp = os.path.join(tmp, f"r2_{kind}.arp")
+        with open(arp, "w") as f:
+            f.write(f2_arp(lut, msk))
+        out = os.path.join(tmp, f"r2_{kind}.jpg")
+        argv = ["-Y", "-p", base, "-p", dn, "-p", arp, "-o", out, "-c", dng]
+        reset_counts()
+        phases, seconds = cli_run(argv)
+        launches, plain_calls = read_counts()
+        log(f"R2 ({'PSD Hald, SGI mask' if kind == 'raster' else 'PNG Hald, '
+            'PNG mask'}) through cli.main: {1e3 * seconds:.1f} ms end to "
+            f"end (first); phases {phases}; launches {launches}; plain "
+            f"calls {plain_calls}")
+        if launches != {k: int(k in want) for k in launches} \
+                or any(plain_calls.values()):
+            failures.append(f"R2 {kind}: launches {launches}, plain calls "
+                            f"{plain_calls}")
+        outs[kind] = open(out, "rb").read()
+        check_jpeg(out)
+    same = outs["raster"] == outs["png"]
+    log(f"R2 JPEG from the PSD and SGI "
+        f"{'byte-equal to' if same else 'DIFFERS FROM'} the PNGs' "
+        f"({len(outs['raster'])} bytes)")
+    if not same:
+        failures.append("R2: the PSD/SGI develop differs from the PNGs'")
+    from art_tpu_torch import cli
+
+    argv = ["-Y", "-p", base, "-p", dn, "-p",
+            os.path.join(tmp, "r2_raster.arp"), "-o",
+            os.path.join(tmp, "r2_k.jpg"), "-c", dng]
+    pp = cli.compose_params(dng, cli.parse_args(argv))
+    failures += kernels_against_plain("R2", lambda: tdev.develop(frame, pp),
+                                      want)
+    log(f"raster phase: {time.monotonic() - t_phase:.1f} s")
+    return {}, failures
+
+
 def _leaves(d):
     for k, v in d.items():
         if isinstance(v, dict):
@@ -4546,12 +4914,12 @@ def main():
     from art_tpu_torch import hostbuild
 
     # the host libraries (raw decoder, JPEG encoder and decoder, GIF's
-    # LZW decoder, WebP decoder; g++) build beside the CUDA kernels (nvcc), all
-    # compilers at once
+    # LZW decoder, WebP decoder, the simple raster decoders; g++) build
+    # beside the CUDA kernels (nvcc), all compilers at once
     t0 = time.monotonic()
     with ThreadPoolExecutor(1) as pool:
         host = pool.submit(hostbuild.build, "artraw", "jpegenc", "jpegdec",
-                           "lzwdec", "webpdec")
+                           "lzwdec", "webpdec", "rasterdec")
         kernels.library()
         host_libs = host.result()
     log(f"build: {time.monotonic() - t0:.2f} s "
@@ -4822,6 +5190,13 @@ def main():
         webp_stats, webp_failures = webp_phase(smi_line, tmp)
     new_stats.update(webp_stats)
     failures += webp_failures
+
+    # ---- the simple raster formats: R1 (24 MP decodes, the committed
+    # fixtures), R2 (a PSD Hald and an SGI mask through cli.main)
+    with tempfile.TemporaryDirectory() as tmp:
+        raster_stats, raster_failures = raster_phase(smi_line, tmp)
+    new_stats.update(raster_stats)
+    failures += raster_failures
 
     failures += [f"B6 on {k} disagrees with its plain version"
                  for k, ok in b6_edges.items() if not ok]

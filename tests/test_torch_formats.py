@@ -18,8 +18,11 @@ on the CPU against Pillow 12.1.0 and, through `load_std_image`, against
   fixtures of tests/data against their recorded sha256.
 - A file Pillow cannot open (OpenEXR's magic) reaches its external
   loader in both packages; files Pillow writes in a format the port
-  does not decode are refused by name (the walk that tells those formats
-  apart is tested in tests/test_torch_unported.py).
+  does not decode are refused by name, and those it writes in DIB, TGA,
+  ICO, PCX, SGI and QOI decode as Pillow's (the walk that tells the
+  formats apart is tested in tests/test_torch_unported.py, the simple
+  raster formats in tests/test_torch_rasterformats.py); F1's and R1's
+  writers of chip_smoke.py against Pillow's reading.
 - The consumers: a Hald CLUT, an external mask, a PSF image and
   `load_image`.
 """
@@ -677,11 +680,15 @@ def test_tiff_forms_read_as_pillow(form, tmp_path):
 
 @pytest.mark.parametrize("name", ["BMP 24-bit", "PPM 8-bit", "PGM 16-bit",
                                   "GIF", "planar TIFF", "BigTIFF",
-                                  "CMYK TIFF"])
+                                  "CMYK TIFF", "TGA raw", "TGA RLE",
+                                  "PSD raw", "PSD PackBits", "QOI",
+                                  "PCX RGB", "SGI RLE"])
 def test_chip_smoke_writers_as_pillow_reads_them(name, tmp_path):
-    """F1's numpy writers (chip_smoke.py) at a small size: Pillow reads
-    each file as the array written, and so does the port."""
-    path, want = chip_smoke.formats_files(str(tmp_path), 61, 97)[name]
+    """F1's and R1's numpy writers (chip_smoke.py) at a small size: Pillow
+    reads each file as the array written, and so does the port."""
+    files = chip_smoke.formats_files(str(tmp_path), 61, 97)
+    files.update(chip_smoke.raster_files(str(tmp_path), 61, 97))
+    path, want = files[name]
     im = Image.open(path)
     if want is not None:
         pil = np.asarray(im) if im.mode == "I" else np.asarray(
@@ -819,10 +826,11 @@ def test_arithmetic_jpeg_past_the_first_chunk_fails_as_pillow(tmp_path):
 def test_committed_fixtures_hold_their_sha256():
     """The JPEG forms, a GIF of Pillow's own LZW (its codes widen to 12
     bits and clear; interlaced; its colour table moved from the screen to
-    the frame) and the WebP fixtures (tests/test_torch_webp.py; W1's 24 MP
-    lossy file up to 1.5 MB) decode to the sha256 recorded from Pillow,
-    which `chip_smoke.py`'s formats and WebP phases check on the card's
-    machine."""
+    the frame), the WebP fixtures (tests/test_torch_webp.py; W1's 24 MP
+    lossy file up to 1.5 MB) and the raster fixtures
+    (tests/util_rasterforms.py::fixtures) decode to the sha256 recorded
+    from Pillow, which `chip_smoke.py`'s formats, WebP and raster phases
+    check on the card's machine."""
     with open(os.path.join(DATA, "formats_sha256.json")) as f:
         recorded = json.load(f)
     names = [k for k in recorded if not k.startswith("F1 ")]
@@ -883,13 +891,7 @@ PIL_FORMAT = {"JPEG 2000": "JPEG2000", "WebP": "WEBP", "McIdas": "MCIDAS",
               "XVThumb": "XVTHUMB", "IPTC/NAA": "IPTC", "PFM": "PPM"}
 
 
-@pytest.mark.parametrize("fmt", ["DIB", "TGA", "ICO", "PCX", "SGI", "QOI",
-                                 "JPEG2000", "DDS", "MSP", "XBM", "IM",
-                                 "SPIDER"])
-def test_formats_pillow_writes_and_the_port_refuses(fmt, tmp_path):
-    """Files Pillow writes in a format the port does not decode: Pillow
-    opens them, and the port raises NotImplementedError naming the
-    format."""
+def _pil_written(fmt, tmp_path):
     mode = "1" if fmt in ("XBM", "MSP") else ("F" if fmt == "SPIDER"
                                              else "RGB")
     img = Image.fromarray(scene(16, 16)).convert(mode)
@@ -899,11 +901,32 @@ def test_formats_pillow_writes_and_the_port_refuses(fmt, tmp_path):
     except (OSError, KeyError, ValueError) as e:
         pytest.skip(f"Pillow here cannot write {fmt}: {e}")
     assert Image.open(path).format == fmt
+    return path
+
+
+@pytest.mark.parametrize("fmt", ["JPEG2000", "DDS", "MSP", "XBM", "IM",
+                                 "SPIDER"])
+def test_formats_pillow_writes_and_the_port_refuses(fmt, tmp_path):
+    """Files Pillow writes in a format the port does not decode: Pillow
+    opens them, and the port raises NotImplementedError naming the
+    format."""
+    path = _pil_written(fmt, tmp_path)
     names = {PIL_FORMAT.get(n, n.upper()): n for n, _, _ in
              unported.FORMATS}
     assert fmt in names
     with pytest.raises(NotImplementedError, match=f"{names[fmt]} image"):
         read_rgb8(path)
+
+
+@pytest.mark.parametrize("fmt", ["DIB", "TGA", "ICO", "PCX", "SGI", "QOI"])
+def test_formats_pillow_writes_decode_as_pillow(fmt, tmp_path):
+    """Files Pillow writes in the simple raster formats the port decodes
+    (io/rasterformats.py): the four readers as Pillow and the
+    reference."""
+    path = _pil_written(fmt, tmp_path)
+    assert fmt not in {PIL_FORMAT.get(n, n.upper()) for n, _, _ in
+                       unported.FORMATS}
+    check_readers(path)
 
 
 # -- the consumers -----------------------------------------------------------------

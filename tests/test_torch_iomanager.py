@@ -271,7 +271,7 @@ def test_a_format_pil_reads_goes_to_no_loader(tmp_path, both):
     marker = tmp_path / "ran"
     script = tmp_path / "mark.py"
     script.write_text(f"open({str(marker)!r}, 'w').close()\n")
-    for ext in ("bmp", "webp", "tga"):
+    for ext in ("bmp", "webp", "tga", "im"):
         (iodir / f"{ext}.txt").write_text(
             f"[ART ImageIO]\nExtension={ext}\nReadCommand="
             f"{sys.executable} {script}\n")
@@ -287,10 +287,15 @@ def test_a_format_pil_reads_goes_to_no_loader(tmp_path, both):
     got = run("port", lambda: load_std_image(str(webp)))
     np.testing.assert_array_equal(got.rgb, ref.rgb)
     tga = tmp_path / "a.tga"
-    Image.fromarray(np.zeros((4, 4, 3), np.uint8)).save(tga)
-    assert run("ref", lambda: ref_load_std(str(tga))).rgb.shape == (3, 4, 4)
-    with pytest.raises(NotImplementedError, match="TGA image"):
-        run("port", lambda: load_std_image(str(tga)))
+    Image.fromarray(np.full((4, 4, 3), 60, np.uint8)).save(tga)
+    ref = run("ref", lambda: ref_load_std(str(tga)))
+    got = run("port", lambda: load_std_image(str(tga)))
+    np.testing.assert_array_equal(got.rgb, ref.rgb)
+    im = tmp_path / "a.im"
+    Image.fromarray(np.zeros((4, 4, 3), np.uint8)).save(im)
+    assert run("ref", lambda: ref_load_std(str(im))).rgb.shape == (3, 4, 4)
+    with pytest.raises(NotImplementedError, match="IM image"):
+        run("port", lambda: load_std_image(str(im)))
     assert not marker.exists()
 
 

@@ -521,7 +521,11 @@ import numpy as np
 import chip_smoke
 from art_tpu_torch.io import imagefile, unported
 
-assert unported.identify(b"qoif\0\0\0\4\0\0\0\3\3\0") == "QOI"
+qoi = b"qoif\0\0\0\4\0\0\0\3\3\0"
+assert unported.walk(qoi)[0] == "QOI" and unported.walk(qoi)[1] is not None
+assert unported.identify(qoi) is None
+assert unported.identify(b"Image type: RGB image\r\nImage size (x*y): "
+                         b"4*3\r\n\x1a" + bytes(36)) == "IM"
 with tempfile.TemporaryDirectory() as d:
     for name, (path, want) in chip_smoke.formats_files(d, 40, 64).items():
         mode, samples, _ = imagefile.read_image(path)

@@ -156,6 +156,11 @@ def test_check_lut_refuses_a_hald_image(tmp_path, capsys):
     tga = tmp_path / "hald.tga"
     Image.fromarray(hald_image(2, 8)).save(tga)
     rc, text = _check_lut(cli.main, tga, capsys)
+    ref_rc, ref_text = _check_lut(ref_cli.main, tga, capsys)
+    assert rc == ref_rc == 0 and text == ref_text
+    im = tmp_path / "hald.im"
+    Image.fromarray(hald_image(2, 8)).save(im)
+    rc, text = _check_lut(cli.main, im, capsys)
     assert rc == 2
-    assert "TGA image" in text and "reads PNG, TIFF, JPEG" in text
+    assert "IM image" in text and "reads PNG, TIFF, JPEG" in text
     assert "Invalid LUT file" not in text

@@ -138,8 +138,14 @@ def test_psf_image_file_is_refused_only_where_it_exists(tmp_path):
         assert got is not None
         np.testing.assert_array_equal(got, want)
     Image.fromarray(img).save(tmp_path / "k.tga")
-    with pytest.raises(NotImplementedError, match="TGA image"):
-        tsh.load_psf_kernel(str(tmp_path / "k.tga"))
+    for scale in (1.0, 2.0):
+        got = tsh.load_psf_kernel(str(tmp_path / "k.tga"), scale)
+        want = jsh.load_psf_kernel(str(tmp_path / "k.tga"), scale)
+        assert got is not None
+        np.testing.assert_array_equal(got, want)
+    Image.fromarray(img).save(tmp_path / "k.im")
+    with pytest.raises(NotImplementedError, match="IM image"):
+        tsh.load_psf_kernel(str(tmp_path / "k.im"))
 
 
 def test_auto_radius_matches_reference():

@@ -1,11 +1,18 @@
-"""The formats Pillow 12.1.0 opens and the port does not decode
-(`art_tpu_torch.io.unported`): a file of each opens in Pillow and is
-refused by name in the port; damaged copies of it (cut short, bytes of
-its header changed, bytes added) open, fail to open (an OSError, after
-which the reference tries its external loader) or fail otherwise in the
-port exactly where they do in Pillow's ``Image.open``; and a file that
-takes a plugin's accept test but not its open reaches the external
-loader in both packages.
+"""The formats Pillow 12.1.0 opens past those the port reads by their
+magic (`art_tpu_torch.io.unported`): a file of each opens in Pillow and,
+in the port, is decoded as Pillow decodes it (DIB, CUR, PCX, DCX, ICO,
+PSD, QOI, SGI, TGA: `art_tpu_torch.io.rasterformats`), fails with
+Pillow's load error where Pillow's load always fails (BUFR, GRIB, HDF5,
+WMF/EMF, MPEG, EPS with no Ghostscript) or is refused by name; damaged
+copies of it (cut short, bytes of its header changed, bytes added; for
+the decoded formats bytes anywhere, its palettes, offset tables and RLE
+data included) open, fail to open (an OSError, after which the
+reference tries its external loader) or fail otherwise in the port
+exactly where they do in Pillow's ``Image.open``, and a decoded format's
+copies load to Pillow's array or fail with its error class at its
+stage; each consumer of a file whose load always fails does what the
+reference's does; and a file that takes a plugin's accept test but not
+its open reaches the external loader in both packages.
 
 Two opens are mirrored only in part (see the module's docstring), and
 their damaged copies here are those the mirror covers: AVIF's, whose
@@ -28,6 +35,7 @@ from art_tpu_torch.io.imagefile import load_std_image, read_rgb8
 from art_tpu_torch.io.stdformats import (DecompressionBomb, PilValueError,
                                          Unidentified)
 
+import util_rasterforms as rf
 from test_torch_iomanager import both  # noqa: F401 (fixture)
 
 Image = pytest.importorskip("PIL.Image")
@@ -171,6 +179,24 @@ OPENABLE = {
     + bytes(12),
     "TGA": _pil("TGA"),
     "TGA RLE": _pil("TGA", compression="tga_rle"),
+    "TGA colour-mapped RLE": lambda: rf.tga_mapped(
+        (np.arange(9 * 14).reshape(9, 14) % 30 + 3).astype(np.uint8),
+        bytes(range(7, 7 + 96)), 24, first=3, rle=True, top=False),
+    "PSD PackBits": lambda: rf.psd_form("RGB", 1, h=6, w=9),
+    "PSD CMYK": lambda: rf.psd_form("CMYK", 0, h=5, w=7, extra=1),
+    "PSD P": lambda: rf.psd_form("P", 0, h=5, w=7),
+    "QOI of every op": rf.qoi_every_op,
+    "SGI RLE": lambda: rf.sgi8_rle(rf.picture(6, 9, 3)),
+    "SGI 16-bit RLE": lambda: rf.sgi16(rf.picture(5, 7, 1)[..., 0]
+                                       .astype(np.uint16) * 257, rle=True),
+    "PCX P": _pil("PCX", "P", (40, 30)),
+    "PCX of 16 colours": lambda: rf.pcx_planes(
+        (np.arange(7 * 13).reshape(7, 13) % 16).astype(np.uint8), 4,
+        bytes(range(48))),
+    "CUR of three": lambda: rf.icon_dir(2, [
+        (16, 16, 0, 24, rf.dib_icon(rf.picture(16, 16))),
+        (24, 24, 0, 8, rf.dib_icon(rf.picture(24, 24), "P")),
+        (20, 32, 0, 24, rf.dib_icon(rf.picture(32, 20)))]),
     "WMF": _wmf,
     "WMF of an EMF": _emf,
     "XBM": _pil("XBM", "1"),
@@ -186,10 +212,14 @@ PORT_NAME = {"JPEG2000": "JPEG 2000", "MCIDAS": "McIdas",
 PORT_DECODES = {"BMP", "GIF", "PNG", "JPEG", "MPO", "TIFF", "WEBP"}
 
 
+# the formats the port decodes where the walk opens them
+DECODED = {"DIB", "CUR", "PCX", "DCX", "ICO", "PSD", "QOI", "SGI", "TGA"}
+
+
 def _name(key):
     """The port's name of the format of OPENABLE[key]."""
-    return next(n for n, _, _ in unported.FORMATS
-                if key == n or key.startswith(n + " "))
+    return next(e[0] for e in unported.WALK
+                if key == e[0] or key.startswith(e[0] + " "))
 
 
 def pil_outcome(data, path):
@@ -218,16 +248,65 @@ def pil_outcome(data, path):
     return ("opens", PORT_NAME.get(fmt, fmt))
 
 
-def port_outcome(data):
+def port_outcome(data, path=None):
+    """The port's walk of `data` (written at `path`, where given)."""
+    if path is not None:
+        path.write_bytes(data)
     try:
-        name = unported.identify(data)
+        hit = unported.walk(data, None if path is None else str(path))
     except Unidentified:
         return ("OSError",)
     except PilValueError:
         return ("ValueError",)
     except (DecompressionBomb, unported.OpenError):
         return ("other",)
-    return ("opens", name) if name else ("OSError",)
+    return ("opens", hit[0]) if hit else ("OSError",)
+
+
+def _error_class(e):
+    for cls in (OSError, ValueError, IndexError):
+        if isinstance(e, cls):
+            return cls.__name__
+    return "other"
+
+
+def pil_decode(data, path):
+    """Image.open(path) and its convert("RGB"): ("ok", array), or (the
+    stage, "open" or "load", the error's class)."""
+    path.write_bytes(data)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        try:
+            im = Image.open(str(path))
+        except Exception as e:
+            return ("open", _error_class(e))
+        try:
+            return ("ok", np.asarray(im.convert("RGB")))
+        except Exception as e:
+            return ("load", _error_class(e))
+
+
+def same_decode(want, got):
+    if want[0] != got[0]:
+        return False
+    if want[0] == "ok":
+        return want[1].shape == got[1].shape and (want[1] == got[1]).all()
+    return want[1] == got[1]
+
+
+def port_decode(data, path):
+    """The port's walk (its open) and load, as `pil_decode`."""
+    path.write_bytes(data)
+    try:
+        hit = unported.walk(data, str(path))
+    except Exception as e:
+        return ("open", _error_class(e))
+    if hit is None:
+        return ("open", "OSError")
+    try:
+        return ("ok", read_rgb8(str(path)))
+    except Exception as e:
+        return ("load", _error_class(e))
 
 
 def variants(key, data, rng):
@@ -241,6 +320,15 @@ def variants(key, data, rng):
              data[:16] + rng.integers(0, 256, 300).astype(np.uint8).tobytes()]
     if key == "AVIF":
         return out + tails[:1]
+    if _name(key) in DECODED and key != "ICO":
+        # the decoded formats: bytes changed anywhere (palettes, offset
+        # tables, RLE data), and more cuts
+        out += [data[:c] for c in rng.integers(1, n, 8)]
+        for _ in range(24):
+            d = bytearray(data)
+            for _ in range(int(rng.integers(1, 4))):
+                d[int(rng.integers(0, n))] = int(rng.integers(0, 256))
+            out.append(bytes(d))
     span = 22 if key == "ICO" else min(n, 140)
     for _ in range(36):
         d = bytearray(data)
@@ -253,37 +341,136 @@ def variants(key, data, rng):
     return (out if key == "ICO" else out + tails)
 
 
+def _pil_load_error(path):
+    """The OSError Pillow's load of `path` raises, or None."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        try:
+            Image.open(str(path)).load()
+        except OSError as e:
+            return str(e)
+    return None
+
+
 @pytest.mark.parametrize("key", sorted(OPENABLE))
 def test_each_unported_format_opens_in_pillow_and_is_refused_by_name(
         key, tmp_path):
+    """A file of each format opens in Pillow and in the port's walk; the
+    port decodes it as Pillow does (the formats it decodes), fails with
+    Pillow's load error (the formats whose load always fails) or refuses
+    it by name (the others)."""
     data = OPENABLE[key]()
     name = _name(key)
-    assert pil_outcome(data, tmp_path / "a.img") == ("opens", name)
-    assert unported.identify(data) == name
     path = tmp_path / "a.img"
+    assert pil_outcome(data, path) == ("opens", name)
+    assert unported.walk(data)[0] == name
+    if name in DECODED:
+        assert unported.identify(data) is None
+        assert same_decode(pil_decode(data, path), port_decode(data, path))
+        return
+    assert unported.identify(data) == name
+    msg = unported.load_fails(name)
+    if msg is not None:
+        assert _pil_load_error(path) == msg
+        with pytest.raises(OSError) as e:
+            read_rgb8(str(path))
+        assert str(e.value) == msg and not isinstance(e.value, Unidentified)
+        return
     with pytest.raises(NotImplementedError, match=f"{name} image"):
         read_rgb8(str(path))
 
 
 def test_every_format_in_the_table_has_a_file():
-    assert {n for n, _, _ in unported.FORMATS} == \
+    """The walk's table has a file of each format; the table of formats
+    refused by name holds neither the decoded ones nor WebP."""
+    assert {e[0] for e in unported.WALK} - {"WebP"} == \
         {_name(k) for k in OPENABLE}
+    assert {n for n, _, _ in unported.FORMATS} == \
+        {_name(k) for k in OPENABLE} - DECODED
+    assert {e[0] for e in unported.WALK if e[3] is not None} == \
+        DECODED | {"WebP"}
 
 
 @pytest.mark.parametrize("key", sorted(OPENABLE))
 def test_damaged_files_open_or_fail_as_in_pillow(key, tmp_path):
     """Each damaged copy opens, fails with OSError, ValueError or another
-    error in the port's walk as in Pillow's Image.open."""
+    error in the port's walk as in Pillow's Image.open; where it opens as
+    a format the port decodes, the port's load gives Pillow's array or
+    fails with the error class Pillow's load raises."""
     rng = np.random.default_rng(sorted(OPENABLE).index(key))
     wrong = []
     for i, data in enumerate(variants(key, OPENABLE[key](), rng)):
         want = pil_outcome(data, tmp_path / "v.img")
         if want is None:
             continue
-        got = port_outcome(data)
+        got = port_outcome(data, tmp_path / "v.img")
         if got != want:
             wrong.append((i, len(data), want, got))
+        elif want[0] == "opens" and want[1] in DECODED:
+            w = pil_decode(data, tmp_path / "v.img")
+            g = port_decode(data, tmp_path / "v.img")
+            if not same_decode(w, g):
+                wrong.append((i, len(data), w[:2] if w[0] != "ok" else "ok",
+                              g[:2] if g[0] != "ok" else "ok"))
     assert not wrong, wrong
+
+
+# the formats whose load always fails in Pillow here (EPS: no gs)
+LOAD_FAILS = ["BUFR", "GRIB", "HDF5", "WMF", "WMF of an EMF", "MPEG", "EPS"]
+
+
+@pytest.mark.parametrize("key", LOAD_FAILS)
+def test_formats_whose_load_fails_give_the_references_outcome(key, tmp_path,
+                                                              both, capsys):
+    """A file Pillow opens and cannot load: `load_std_image` and
+    `load_hald_clut` raise its OSError with no external loader tried, an
+    external mask leaves the region unmasked (the reference's
+    ``except OSError``), a PSF image gives None and ``--check-lut`` the
+    reference's exit code and text."""
+    import shutil
+
+    from art_tpu import cli as ref_cli
+    from art_tpu.color.lut3d import load_hald_clut as ref_hald
+    from art_tpu.masks import _load_external_mask as ref_mask
+    from art_tpu.ops.sharpen import load_psf_kernel as ref_psf
+    from art_tpu_torch import cli
+    from art_tpu_torch.color.lut3d import load_hald_clut
+    from art_tpu_torch.masks import load_external_mask
+    from art_tpu_torch.ops.sharpen import load_psf_kernel
+
+    if key == "EPS" and shutil.which("gs"):
+        pytest.skip("Ghostscript renders EPS here")
+    iodir, run = both
+    marker = tmp_path / "ran"
+    script = tmp_path / "mark.py"
+    script.write_text(f"open({str(marker)!r}, 'w').close()\n")
+    (iodir / "img.txt").write_text(
+        f"[ART ImageIO]\nExtension=img\nReadCommand={sys.executable} "
+        f"{script}\n")
+    path = tmp_path / "a.img"
+    path.write_bytes(OPENABLE[key]())
+    msg = _pil_load_error(path)
+    assert msg == unported.load_fails(_name(key))
+    errors = {}
+    for package, load in (("ref", ref_load), ("port", load_std_image)):
+        with pytest.raises(OSError) as e:
+            run(package, lambda: load(str(path)))
+        errors[package] = str(e.value)
+    assert errors["port"] == errors["ref"] == msg
+    assert not marker.exists()
+    for load in (ref_hald, load_hald_clut):
+        with pytest.raises(OSError, match=msg):
+            load(str(path))
+    with pytest.raises(OSError, match=msg):
+        ref_mask(str(path), 8, 8, False)
+    assert load_external_mask(str(path), 8, 8, False) is None
+    assert ref_psf(str(path)) is None and load_psf_kernel(str(path)) is None
+    from test_torch_profiles import _check_lut
+
+    lut = tmp_path / "a.png"
+    lut.write_bytes(OPENABLE[key]())
+    assert _check_lut(cli.main, lut, capsys) == \
+        _check_lut(ref_cli.main, lut, capsys)
 
 
 # files that take a plugin's accept test and fail its open

@@ -407,13 +407,14 @@ def test_damaged_file_walk(form):
 def test_webp_is_reached_in_pillows_plugin_order():
     from art_tpu_torch.io import unported
 
-    names = [n for n, _, _ in unported.FORMATS]
-    assert "WebP" not in names
-    before = names[: unported.WEBP_AT]
+    names = [e[0] for e in unported.WALK]
+    assert "WebP" not in [n for n, _, _ in unported.FORMATS]
+    before = names[: names.index("WebP")]
     assert before[-1] == "TGA"
     assert {"IM", "IMT", "IPTC/NAA", "PCD", "SPIDER"} <= set(before)
     buf = wf.pil_save(scene(8, 8), quality=80)
     assert unported.identify(buf) is None
+    assert unported.walk(buf)[0] == "WebP"
     assert webpdec.accept(buf[:16])
     for bad in (buf[:12] + b"VP8Y" + buf[16:], b"RIFX" + buf[4:]):
         assert port_outcome(bad) == pil_outcome(bad) == ("open", "OSError")
