@@ -199,9 +199,11 @@ def read_image(path):
     """An image as ``Image.open(path)`` opens it: (mode, samples, icc).
     mode is "RGB" for every 8-bit form (samples: its ``convert("RGB")``,
     (H, W, 3) uint8), or Pillow's mode of one 16- or 32-bit sample:
-    "I;16" (a 16-bit grey PNG, a little-endian 16-bit grey TIFF) and
-    "I;16B" (a big-endian one), uint16; "I" (a TIFF of 32-bit or signed
-    16-bit integers), int32; "F" (32-bit floats), float32. icc is the
+    "I;16" (a 16-bit grey PNG, a little-endian 16-bit grey TIFF, FITS)
+    and "I;16B" (a big-endian one, McIdas), "I;16L" (IM), uint16; "I" (a
+    TIFF of 32-bit or signed 16-bit integers, FITS, McIdas, IM), int32;
+    "F" (32-bit floats: TIFF, FITS, PFM, SPIDER, IM), float32; or
+    "YCbCr" (IM), (H, W, 3) uint8, which `to_rgb8` converts. icc is the
     embedded ICC profile as Pillow's ``info["icc_profile"]`` gives it (a
     PNG's iCCP inflated, TIFF tag 34675, a JPEG's APP2 ICC_PROFILE
     chunks joined in sequence order, a WebP's ICCP chunk, a PSD's image
@@ -220,9 +222,14 @@ def read_image(path):
 def to_rgb8(mode, samples):
     """Pillow's ``convert("RGB")`` of the samples `read_image` gives: a
     16-bit plane clips at 255, a 32-bit integer one to 0..255, a float
-    one truncates toward zero within 0..255 (through Pillow's "L")."""
+    one truncates toward zero within 0..255 (through Pillow's "L"),
+    YCbCr through Pillow's fixed-point conversion."""
     if mode == "RGB":
         return samples
+    if mode == "YCbCr":
+        from art_tpu_torch.io.plugins import ycbcr_to_rgb
+
+        return ycbcr_to_rgb(samples)
     if mode == "F":
         grey = np.where(samples >= 255.0, 255.0,
                         np.where(samples > 0.0, samples, 0.0))
@@ -238,8 +245,8 @@ def load_std_image(path):
     stdimagesource.cc): the embedded ICC profile converted to LittleCMS's
     sRGB (:mod:`art_tpu_torch.color.lcms`, perceptual, 8 bits) on
     ``convert("RGB")`` of the image, unconverted where LittleCMS refuses
-    the profile; a 16-bit grey or 32-bit integer image (no profile) kept
-    at its depth over 65535, any other through its ``convert("RGB")``
+    the profile; a 16-bit grey (I;16, I;16B, I;16L) or 32-bit integer
+    image (no profile) kept at its depth over 65535, any other through its ``convert("RGB")``
     over 255; then the sRGB decode, times MAXVAL, as (3, H, W) float32.
 
     A file ``Image.open`` cannot open (missing, no image, a header it
@@ -275,7 +282,7 @@ def load_std_image(path):
             mode = "RGB"
         except lcms.Refused:
             pass
-    if mode in ("I;16", "I;16B", "I"):
+    if mode in ("I;16", "I;16B", "I;16L", "I"):
         arr = samples.astype(np.float32) / 65535.0
         arr = np.stack([arr] * 3, axis=-1)
     else:
@@ -331,14 +338,17 @@ def _decode(buf, path):
 def _plugin_walk(buf, path):
     """Pillow's plugin walk past the formats read above, in the order of
     ``Image.ID`` (:mod:`art_tpu_torch.io.unported`): a DIB, CUR, PCX, DCX,
-    ICO, PSD, QOI, SGI or TGA (:mod:`art_tpu_torch.io.rasterformats`) or
-    a WebP (:mod:`art_tpu_torch.io.webpdec`) loaded where the walk opens
-    it; OSError with Pillow's message for a format whose load always
-    fails in Pillow (BUFR, GRIB, HDF5, WMF/EMF, MPEG, EPS with no
-    Ghostscript: the open succeeded, so the reference tries no external
-    loader); NotImplementedError naming any other format Pillow opens;
-    `Unidentified` where Pillow opens nothing or WebP's open fails, and
-    the other errors Pillow's open raises."""
+    ICO, PSD, QOI, SGI or TGA (:mod:`art_tpu_torch.io.rasterformats`), a
+    FITS, FLI, FTEX, GBR, IM, IMT, IPTC/NAA, McIdas, MSP, PCD, PIXAR, PFM,
+    PNM of a Pillow extension, SPIDER, SUN, XBM, XPM or XVThumb
+    (:mod:`art_tpu_torch.io.plugins`) or a WebP
+    (:mod:`art_tpu_torch.io.webpdec`) loaded where the walk opens it;
+    OSError with Pillow's message for a format whose load always fails
+    in Pillow (BUFR, GRIB, HDF5, WMF/EMF, MPEG, EPS with no Ghostscript:
+    the open succeeded, so the reference tries no external loader);
+    NotImplementedError naming any other format Pillow opens (BLP, DDS,
+    ICNS, JPEG 2000, AVIF); `Unidentified` where Pillow opens nothing or
+    WebP's open fails, and the other errors Pillow's open raises."""
     from art_tpu_torch.io import unported
 
     hit = unported.walk(buf, path)
@@ -352,8 +362,8 @@ def _plugin_walk(buf, path):
         raise OSError(msg)
     raise NotImplementedError(
         f"{name} image {str(path)!r}: the port's image decoder "
-        "(io/imagefile.py::read_rgb8) reads PNG, TIFF, JPEG, BMP, DIB, "
-        "ICO, CUR, PNM, GIF, WebP, TGA, PSD, QOI, PCX, DCX and SGI only")
+        "(io/imagefile.py::read_rgb8) does not read BLP, DDS, ICNS, "
+        "JPEG 2000 or AVIF")
 
 
 def _paeth(a, b, c):

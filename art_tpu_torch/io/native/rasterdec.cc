@@ -25,6 +25,27 @@
 //   sRGB as Pillow's convert("RGB") builds it, a tetrahedral
 //   interpolation (TetrahedralInterp16) on a 33^3 16-bit CLUT the
 //   caller samples.
+// - sun_rle: SunRleDecode.c. 0x80 0 is a literal 0x80, 0x80 n v a run
+//   of n + 1 bytes v that goes on into the next rows; rows of
+//   ceil(bits x xsize / 8) bytes (no 16-bit padding).
+// - xbm: XbmDecode.c. Each "x" starts a hex byte (a character that is no
+//   hex digit counts 0), rows of ceil(xsize / 8) bytes.
+// - pcd: PcdDecode.c. Photo CD's base image, 768 x 512: pairs of luma
+//   rows over one row of half-width Cb and Cr, each pixel turned to RGB
+//   by Pillow's "YCC;P" unpacker (Kodak's PhotoYCC tables, below).
+// - fli: FliDecode.c, one call on the bytes Pillow's load hands it
+//   (frame 0, at most its frame size): the COLOR chunks skipped, SS2,
+//   LC, BLACK, BRUN, COPY, PSTAMP; its bounds checks and error codes.
+// - bc1: BcnDecode.c with n = 1 (DXT1): 4 x 4 blocks of two 5-6-5 colours
+//   and a 2-bit index each, the third and fourth colour thirds (c0 > c1)
+//   or the mean and transparent black; RGBA out, blocks past the edge
+//   cut.
+// - bitdec: BitDecode.c as ImImagePlugin asks for it (fill 3, pad 8, no
+//   sign, bottom-up rows): `bits`-bit unsigned samples read LSB first
+//   into float32.
+// - ycc_to_rgb, ycbcr_to_rgb: Pillow's PhotoYCC unpacker ("YCC;P") and
+//   its fixed-point YCbCr to RGB conversion, their tables read off
+//   Pillow 12.1.0 on all 2^24 triples.
 //
 // Every stream decoder reads the file from the image data's start to
 // the file's end as Pillow's ImageFile.load feeds it (the chunk
@@ -390,6 +411,507 @@ void lab_to_rgb(const uint8_t* lab, int64_t npix, const uint16_t* clut, uint8_t*
       out[3 * p + c] = (uint8_t)(((o16 * 65281u + 8388608u) >> 24) & 0xFF);
     }
   }
+}
+
+// sun_rle: out rows x row_bytes bytes.
+int sun_rle(const uint8_t* data, size_t len, size_t row_bytes, int64_t rows, uint8_t* out) {
+  size_t pos = 0, x = 0;
+  int64_t y = 0;
+  std::vector<uint8_t> buf(row_bytes);
+  for (;;) {
+    size_t n;
+    size_t extra = 0;
+    uint8_t extra_v = 0;
+    if (pos >= len) return 1;
+    if (data[pos] == 0x80) {
+      if (len - pos < 2) return 1;
+      n = data[pos + 1];
+      if (n == 0) {
+        n = 1;
+        buf[x] = 0x80;
+        pos += 2;
+      } else {
+        if (len - pos < 3) return 1;
+        n += 1;
+        const uint8_t v = data[pos + 2];
+        if (x + n > row_bytes) {
+          extra = n - (row_bytes - x);
+          n = row_bytes - x;
+          extra_v = v;
+        }
+        std::memset(buf.data() + x, v, n);
+        pos += 3;
+      }
+    } else {
+      n = 1;
+      buf[x] = data[pos];
+      pos += 1;
+    }
+    for (;;) {
+      x += n;
+      if (x >= row_bytes) {
+        std::memcpy(out + (size_t)y * row_bytes, buf.data(), row_bytes);
+        x = 0;
+        if (++y >= rows) return 0;
+      }
+      if (extra == 0 || x > 0) break;
+      n = extra >= row_bytes ? row_bytes : extra;
+      std::memset(buf.data(), extra_v, n);
+      extra -= n;
+    }
+  }
+}
+
+static inline int hexv(uint8_t v) {
+  return v >= '0' && v <= '9' ? v - '0' : v >= 'a' && v <= 'f' ? v - 'a' + 10
+         : v >= 'A' && v <= 'F' ? v - 'A' + 10 : 0;
+}
+
+// xbm: out rows x row_bytes bytes, as stored (bits LSB first).
+int xbm(const uint8_t* data, size_t len, size_t row_bytes, int64_t rows, uint8_t* out) {
+  size_t pos = 0, x = 0;
+  int64_t y = 0;
+  for (;;) {
+    while (pos < len && data[pos] != 'x') pos++;
+    if (len - pos < 3) return 1;
+    out[(size_t)y * row_bytes + x] = (uint8_t)((hexv(data[pos + 1]) << 4) + hexv(data[pos + 2]));
+    if (++x >= row_bytes) {
+      x = 0;
+      if (++y >= rows) return 0;
+    }
+    pos += 3;
+  }
+}
+
+static const int16_t PYCC_L[256] = {
+    0, 1, 3, 4, 5, 7, 8, 10, 11, 12, 14, 15, 16, 18, 19, 20,
+    22, 23, 24, 26, 27, 29, 30, 31, 33, 34, 35, 37, 38, 39, 41, 42,
+    43, 45, 46, 48, 49, 50, 52, 53, 54, 56, 57, 58, 60, 61, 62, 64,
+    65, 67, 68, 69, 71, 72, 73, 75, 76, 77, 79, 80, 82, 83, 84, 86,
+    87, 88, 90, 91, 92, 94, 95, 96, 98, 99, 101, 102, 103, 105, 106, 107,
+    109, 110, 111, 113, 114, 115, 117, 118, 120, 121, 122, 124, 125, 126, 128, 129,
+    130, 132, 133, 134, 136, 137, 139, 140, 141, 143, 144, 145, 147, 148, 149, 151,
+    152, 153, 155, 156, 158, 159, 160, 162, 163, 164, 166, 167, 168, 170, 171, 173,
+    174, 175, 177, 178, 179, 181, 182, 183, 185, 186, 187, 189, 190, 192, 193, 194,
+    196, 197, 198, 200, 201, 202, 204, 205, 206, 208, 209, 211, 212, 213, 215, 216,
+    217, 219, 220, 221, 223, 224, 225, 227, 228, 230, 231, 232, 234, 235, 236, 238,
+    239, 240, 242, 243, 245, 246, 247, 249, 250, 251, 253, 254, 255, 257, 258, 259,
+    261, 262, 264, 265, 266, 268, 269, 270, 272, 273, 274, 276, 277, 278, 280, 281,
+    283, 284, 285, 287, 288, 289, 291, 292, 293, 295, 296, 297, 299, 300, 302, 303,
+    304, 306, 307, 308, 310, 311, 312, 314, 315, 317, 318, 319, 321, 322, 323, 325,
+    326, 327, 329, 330, 331, 333, 334, 336, 337, 338, 340, 341, 342, 344, 345, 346,
+};
+static const int16_t PYCC_CB[256] = {
+    -345, -343, -341, -338, -336, -334, -332, -329, -327, -325, -323, -321, -318, -316, -314, -312,
+    -310, -307, -305, -303, -301, -298, -296, -294, -292, -290, -287, -285, -283, -281, -278, -276,
+    -274, -272, -270, -267, -265, -263, -261, -258, -256, -254, -252, -250, -247, -245, -243, -241,
+    -239, -236, -234, -232, -230, -227, -225, -223, -221, -219, -216, -214, -212, -210, -207, -205,
+    -203, -201, -199, -196, -194, -192, -190, -188, -185, -183, -181, -179, -176, -174, -172, -170,
+    -168, -165, -163, -161, -159, -156, -154, -152, -150, -148, -145, -143, -141, -139, -137, -134,
+    -132, -130, -128, -125, -123, -121, -119, -117, -114, -112, -110, -108, -105, -103, -101, -99,
+    -97, -94, -92, -90, -88, -85, -83, -81, -79, -77, -74, -72, -70, -68, -66, -63,
+    -61, -59, -57, -54, -52, -50, -48, -46, -43, -41, -39, -37, -34, -32, -30, -28,
+    -26, -23, -21, -19, -17, -15, -12, -10, -8, -6, -3, -1, 0, 2, 4, 7,
+    9, 11, 13, 16, 18, 20, 22, 24, 27, 29, 31, 33, 35, 38, 40, 42,
+    44, 47, 49, 51, 53, 55, 58, 60, 62, 64, 67, 69, 71, 73, 75, 78,
+    80, 82, 84, 86, 89, 91, 93, 95, 98, 100, 102, 104, 106, 109, 111, 113,
+    115, 118, 120, 122, 124, 126, 129, 131, 133, 135, 138, 140, 142, 144, 146, 149,
+    151, 153, 155, 157, 160, 162, 164, 166, 169, 171, 173, 175, 177, 180, 182, 184,
+    186, 189, 191, 193, 195, 197, 200, 202, 204, 206, 208, 211, 213, 215, 217, 220,
+};
+static const int16_t PYCC_CR[256] = {
+    -249, -247, -245, -243, -241, -239, -238, -236, -234, -232, -230, -229, -227, -225, -223, -221,
+    -219, -218, -216, -214, -212, -210, -208, -207, -205, -203, -201, -199, -198, -196, -194, -192,
+    -190, -188, -187, -185, -183, -181, -179, -178, -176, -174, -172, -170, -168, -167, -165, -163,
+    -161, -159, -157, -156, -154, -152, -150, -148, -147, -145, -143, -141, -139, -137, -136, -134,
+    -132, -130, -128, -127, -125, -123, -121, -119, -117, -116, -114, -112, -110, -108, -106, -105,
+    -103, -101, -99, -97, -96, -94, -92, -90, -88, -86, -85, -83, -81, -79, -77, -76,
+    -74, -72, -70, -68, -66, -65, -63, -61, -59, -57, -55, -54, -52, -50, -48, -46,
+    -45, -43, -41, -39, -37, -35, -34, -32, -30, -28, -26, -25, -23, -21, -19, -17,
+    -15, -14, -12, -10, -8, -6, -4, -3, -1, 0, 2, 4, 5, 7, 9, 11,
+    13, 15, 16, 18, 20, 22, 24, 26, 27, 29, 31, 33, 35, 36, 38, 40,
+    42, 44, 46, 47, 49, 51, 53, 55, 56, 58, 60, 62, 64, 66, 67, 69,
+    71, 73, 75, 77, 78, 80, 82, 84, 86, 87, 89, 91, 93, 95, 97, 98,
+    100, 102, 104, 106, 107, 109, 111, 113, 115, 117, 118, 120, 122, 124, 126, 128,
+    129, 131, 133, 135, 137, 138, 140, 142, 144, 146, 148, 149, 151, 153, 155, 157,
+    158, 160, 162, 164, 166, 168, 169, 171, 173, 175, 177, 179, 180, 182, 184, 186,
+    188, 189, 191, 193, 195, 197, 199, 200, 202, 204, 206, 208, 209, 211, 213, 215,
+};
+static const int16_t PYCC_GB[256] = {
+    67, 67, 66, 66, 65, 65, 65, 64, 64, 63, 63, 62, 62, 62, 61, 61,
+    60, 60, 59, 59, 59, 58, 58, 57, 57, 56, 56, 56, 55, 55, 54, 54,
+    53, 53, 52, 52, 52, 51, 51, 50, 50, 49, 49, 49, 48, 48, 47, 47,
+    46, 46, 46, 45, 45, 44, 44, 43, 43, 43, 42, 42, 41, 41, 40, 40,
+    40, 39, 39, 38, 38, 37, 37, 37, 36, 36, 35, 35, 34, 34, 34, 33,
+    33, 32, 32, 31, 31, 31, 30, 30, 29, 29, 28, 28, 28, 27, 27, 26,
+    26, 25, 25, 25, 24, 24, 23, 23, 22, 22, 22, 21, 21, 20, 20, 19,
+    19, 19, 18, 18, 17, 17, 16, 16, 15, 15, 15, 14, 14, 13, 13, 12,
+    12, 12, 11, 11, 10, 10, 9, 9, 9, 8, 8, 7, 7, 6, 6, 6,
+    5, 5, 4, 4, 3, 3, 3, 2, 2, 1, 1, 0, 0, 0, 0, 0,
+    -1, -1, -2, -2, -2, -3, -3, -4, -4, -5, -5, -5, -6, -6, -7, -7,
+    -8, -8, -8, -9, -9, -10, -10, -11, -11, -11, -12, -12, -13, -13, -14, -14,
+    -14, -15, -15, -16, -16, -17, -17, -18, -18, -18, -19, -19, -20, -20, -21, -21,
+    -21, -22, -22, -23, -23, -24, -24, -24, -25, -25, -26, -26, -27, -27, -27, -28,
+    -28, -29, -29, -30, -30, -30, -31, -31, -32, -32, -33, -33, -33, -34, -34, -35,
+    -35, -36, -36, -36, -37, -37, -38, -38, -39, -39, -39, -40, -40, -41, -41, -42,
+};
+static const int16_t PYCC_GR[256] = {
+    127, 126, 125, 124, 123, 122, 121, 121, 120, 119, 118, 117, 116, 115, 114, 113,
+    112, 111, 110, 109, 108, 108, 107, 106, 105, 104, 103, 102, 101, 100, 99, 98,
+    97, 96, 95, 95, 94, 93, 92, 91, 90, 89, 88, 87, 86, 85, 84, 83,
+    83, 82, 81, 80, 79, 78, 77, 76, 75, 74, 73, 72, 71, 70, 70, 69,
+    68, 67, 66, 65, 64, 63, 62, 61, 60, 59, 58, 57, 57, 56, 55, 54,
+    53, 52, 51, 50, 49, 48, 47, 46, 45, 45, 44, 43, 42, 41, 40, 39,
+    38, 37, 36, 35, 34, 33, 32, 32, 31, 30, 29, 28, 27, 26, 25, 24,
+    23, 22, 21, 20, 19, 19, 18, 17, 16, 15, 14, 13, 12, 11, 10, 9,
+    8, 7, 6, 6, 5, 4, 3, 2, 1, 0, 0, -1, -2, -3, -4, -5,
+    -5, -6, -7, -8, -9, -10, -11, -12, -13, -14, -15, -16, -17, -18, -18, -19,
+    -20, -21, -22, -23, -24, -25, -26, -27, -28, -29, -30, -31, -31, -32, -33, -34,
+    -35, -36, -37, -38, -39, -40, -41, -42, -43, -44, -44, -45, -46, -47, -48, -49,
+    -50, -51, -52, -53, -54, -55, -56, -56, -57, -58, -59, -60, -61, -62, -63, -64,
+    -65, -66, -67, -68, -69, -69, -70, -71, -72, -73, -74, -75, -76, -77, -78, -79,
+    -80, -81, -82, -82, -83, -84, -85, -86, -87, -88, -89, -90, -91, -92, -93, -94,
+    -94, -95, -96, -97, -98, -99, -100, -101, -102, -103, -104, -105, -106, -107, -107, -108,
+};
+static const int16_t YCC_R[256] = {
+    -180, -179, -177, -176, -174, -173, -172, -170, -169, -167, -166, -165, -163, -162, -160, -159,
+    -158, -156, -155, -153, -152, -150, -149, -148, -146, -145, -143, -142, -141, -139, -138, -136,
+    -135, -134, -132, -131, -129, -128, -127, -125, -124, -122, -121, -120, -118, -117, -115, -114,
+    -113, -111, -110, -108, -107, -106, -104, -103, -101, -100, -99, -97, -96, -94, -93, -92,
+    -90, -89, -87, -86, -85, -83, -82, -80, -79, -78, -76, -75, -73, -72, -71, -69,
+    -68, -66, -65, -64, -62, -61, -59, -58, -57, -55, -54, -52, -51, -50, -48, -47,
+    -45, -44, -43, -41, -40, -38, -37, -36, -34, -33, -31, -30, -29, -27, -26, -24,
+    -23, -22, -20, -19, -17, -16, -14, -13, -12, -10, -9, -7, -6, -5, -3, -2,
+    0, 1, 2, 4, 5, 7, 8, 9, 11, 12, 14, 15, 16, 18, 19, 21,
+    22, 23, 25, 26, 28, 29, 30, 32, 33, 35, 36, 37, 39, 40, 42, 43,
+    44, 46, 47, 49, 50, 51, 53, 54, 56, 57, 58, 60, 61, 63, 64, 65,
+    67, 68, 70, 71, 72, 74, 75, 77, 78, 79, 81, 82, 84, 85, 86, 88,
+    89, 91, 92, 93, 95, 96, 98, 99, 100, 102, 103, 105, 106, 107, 109, 110,
+    112, 113, 114, 116, 117, 119, 120, 121, 123, 124, 126, 127, 128, 130, 131, 133,
+    134, 136, 137, 138, 140, 141, 143, 144, 145, 147, 148, 150, 151, 152, 154, 155,
+    157, 158, 159, 161, 162, 164, 165, 166, 168, 169, 171, 172, 173, 175, 176, 178,
+};
+static const int16_t YCC_B[256] = {
+    -227, -226, -224, -222, -220, -218, -217, -215, -213, -211, -210, -208, -206, -204, -202, -201,
+    -199, -197, -195, -194, -192, -190, -188, -187, -185, -183, -181, -179, -178, -176, -174, -172,
+    -171, -169, -167, -165, -164, -162, -160, -158, -156, -155, -153, -151, -149, -148, -146, -144,
+    -142, -140, -139, -137, -135, -133, -132, -130, -128, -126, -125, -123, -121, -119, -117, -116,
+    -114, -112, -110, -109, -107, -105, -103, -101, -100, -98, -96, -94, -93, -91, -89, -87,
+    -86, -84, -82, -80, -78, -77, -75, -73, -71, -70, -68, -66, -64, -62, -61, -59,
+    -57, -55, -54, -52, -50, -48, -47, -45, -43, -41, -39, -38, -36, -34, -32, -31,
+    -29, -27, -25, -24, -22, -20, -18, -16, -15, -13, -11, -9, -8, -6, -4, -2,
+    0, 1, 3, 5, 7, 8, 10, 12, 14, 15, 17, 19, 21, 23, 24, 26,
+    28, 30, 31, 33, 35, 37, 38, 40, 42, 44, 46, 47, 49, 51, 53, 54,
+    56, 58, 60, 62, 63, 65, 67, 69, 70, 72, 74, 76, 77, 79, 81, 83,
+    85, 86, 88, 90, 92, 93, 95, 97, 99, 101, 102, 104, 106, 108, 109, 111,
+    113, 115, 116, 118, 120, 122, 124, 125, 127, 129, 131, 132, 134, 136, 138, 139,
+    141, 143, 145, 147, 148, 150, 152, 154, 155, 157, 159, 161, 163, 164, 166, 168,
+    170, 171, 173, 175, 177, 178, 180, 182, 184, 186, 187, 189, 191, 193, 194, 196,
+    198, 200, 202, 203, 205, 207, 209, 210, 212, 214, 216, 217, 219, 221, 223, 225,
+};
+static const int16_t YCC_GB[256] = {
+    2817, 2773, 2761, 2753, 2707, 2697, 2653, 2643, 2633, 2587, 2579, 2567, 2523, 2514, 2501, 2459,
+    2448, 2437, 2394, 2382, 2373, 2328, 2318, 2308, 2263, 2254, 2242, 2199, 2187, 2177, 2134, 2121,
+    2113, 2068, 2057, 2048, 2003, 1993, 1948, 1939, 1928, 1883, 1875, 1862, 1819, 1809, 1797, 1755,
+    1743, 1733, 1689, 1678, 1669, 1623, 1614, 1603, 1559, 1549, 1537, 1495, 1483, 1473, 1430, 1417,
+    1409, 1364, 1353, 1344, 1299, 1289, 1243, 1235, 1223, 1179, 1170, 1157, 1115, 1104, 1093, 1050,
+    1038, 1029, 984, 974, 964, 919, 910, 898, 855, 844, 833, 791, 778, 769, 725, 713,
+    705, 659, 649, 605, 595, 585, 539, 531, 519, 475, 466, 453, 411, 399, 389, 345,
+    334, 325, 279, 270, 259, 215, 205, 193, 151, 139, 129, 86, 73, 65, 20, 9,
+    0, -45, -55, -99, -109, -119, -165, -173, -185, -229, -238, -251, -293, -304, -315, -358,
+    -370, -379, -424, -434, -444, -489, -499, -511, -553, -565, -575, -618, -631, -639, -684, -695,
+    -704, -749, -759, -804, -813, -824, -869, -877, -890, -933, -943, -955, -997, -1009, -1019, -1063,
+    -1074, -1083, -1129, -1138, -1149, -1193, -1203, -1215, -1257, -1269, -1279, -1322, -1335, -1343, -1389, -1399,
+    -1443, -1453, -1463, -1509, -1517, -1529, -1573, -1582, -1595, -1637, -1648, -1659, -1702, -1714, -1723, -1768,
+    -1778, -1788, -1833, -1842, -1854, -1897, -1908, -1919, -1961, -1974, -1983, -2027, -2039, -2047, -2093, -2103,
+    -2147, -2157, -2167, -2213, -2221, -2234, -2277, -2287, -2299, -2341, -2353, -2363, -2407, -2418, -2427, -2473,
+    -2482, -2493, -2537, -2547, -2559, -2601, -2613, -2623, -2666, -2679, -2687, -2732, -2743, -2752, -2797, -2807,
+};
+static const int16_t YCC_GR[256] = {
+    5869, 5815, 5759, 5737, 5682, 5627, 5605, 5549, 5495, 5439, 5417, 5362, 5307, 5285, 5229, 5175,
+    5119, 5097, 5043, 4987, 4965, 4909, 4855, 4799, 4777, 4723, 4667, 4645, 4589, 4535, 4479, 4457,
+    4403, 4347, 4325, 4270, 4215, 4159, 4137, 4083, 4027, 4005, 3950, 3895, 3839, 3818, 3763, 3707,
+    3685, 3630, 3575, 3519, 3498, 3443, 3387, 3365, 3310, 3255, 3199, 3178, 3123, 3067, 3046, 2990,
+    2935, 2879, 2858, 2803, 2747, 2726, 2670, 2615, 2559, 2538, 2483, 2427, 2406, 2350, 2295, 2240,
+    2218, 2163, 2107, 2086, 2030, 1975, 1920, 1898, 1843, 1787, 1766, 1710, 1655, 1600, 1578, 1523,
+    1468, 1446, 1390, 1335, 1280, 1258, 1203, 1148, 1126, 1070, 1016, 960, 938, 883, 828, 806,
+    750, 696, 640, 618, 563, 508, 486, 430, 376, 320, 298, 244, 188, 166, 110, 56,
+    0, -21, -75, -131, -153, -209, -263, -285, -341, -395, -451, -473, -528, -583, -605, -661,
+    -715, -771, -793, -848, -903, -925, -981, -1035, -1091, -1113, -1168, -1223, -1245, -1300, -1355, -1411,
+    -1433, -1488, -1543, -1565, -1620, -1675, -1731, -1752, -1808, -1863, -1885, -1940, -1995, -2051, -2072, -2128,
+    -2183, -2205, -2260, -2315, -2371, -2392, -2448, -2503, -2524, -2580, -2635, -2691, -2712, -2768, -2823, -2844,
+    -2900, -2955, -3011, -3032, -3088, -3143, -3164, -3220, -3275, -3330, -3352, -3408, -3463, -3484, -3540, -3595,
+    -3650, -3672, -3728, -3783, -3804, -3860, -3915, -3970, -3992, -4048, -4102, -4124, -4180, -4235, -4290, -4312,
+    -4368, -4422, -4444, -4500, -4554, -4610, -4632, -4688, -4742, -4764, -4820, -4874, -4930, -4952, -5008, -5062,
+    -5084, -5140, -5194, -5250, -5272, -5327, -5382, -5404, -5460, -5514, -5570, -5592, -5647, -5702, -5724, -5780,
+};
+
+static inline uint8_t clamp8(int v) { return v <= 0 ? 0 : v >= 255 ? 255 : (uint8_t)v; }
+
+// PhotoYCC (Y, Cb, Cr) to RGB, as Pillow's "YCC;P" unpacker.
+static inline void pycc(uint8_t* o, int y, int cb, int cr) {
+  const int l = PYCC_L[y];
+  o[0] = clamp8(l + PYCC_CR[cr]);
+  o[1] = clamp8(l + PYCC_GR[cr] + PYCC_GB[cb]);
+  o[2] = clamp8(l + PYCC_CB[cb]);
+}
+
+void ycc_to_rgb(const uint8_t* in, int64_t npix, uint8_t* out) {
+  for (int64_t p = 0; p < npix; p++) pycc(out + 3 * p, in[3 * p], in[3 * p + 1], in[3 * p + 2]);
+}
+
+void ycbcr_to_rgb(const uint8_t* in, int64_t npix, uint8_t* out) {
+  for (int64_t p = 0; p < npix; p++) {
+    const int y = in[3 * p], cb = in[3 * p + 1], cr = in[3 * p + 2];
+    out[3 * p] = clamp8(y + YCC_R[cr]);
+    out[3 * p + 1] = clamp8(y + ((YCC_GB[cb] + YCC_GR[cr]) >> 6));
+    out[3 * p + 2] = clamp8(y + YCC_B[cb]);
+  }
+}
+
+// pcd: out 512 x 768 x 3 bytes of RGB; 0 done, 1 the data ended first.
+int pcd(const uint8_t* data, size_t len, uint8_t* out) {
+  const int xs = 768, ys = 512;
+  const size_t chunk = 3 * (size_t)xs;
+  size_t pos = 0;
+  for (int y = 0; y < ys; y += 2) {
+    if (len - pos < chunk || pos > len) return 1;
+    const uint8_t* p = data + pos;
+    for (int k = 0; k < 2; k++) {
+      uint8_t* o = out + (size_t)(y + k) * xs * 3;
+      for (int x = 0; x < xs; x++)
+        pycc(o + 3 * x, p[x + k * xs], p[(x + 4 * xs) / 2], p[(x + 5 * xs) / 2]);
+    }
+    pos += chunk;
+  }
+  return 0;
+}
+
+static inline int32_t fli_i32(const uint8_t* p) {
+  return (int32_t)((uint32_t)p[0] | (uint32_t)p[1] << 8 | (uint32_t)p[2] << 16 |
+                   (uint32_t)p[3] << 24);
+}
+static inline int fli_i16(const uint8_t* p) { return p[0] | p[1] << 8; }
+
+// fli: one call of FliDecode.c on `bytes` bytes into the xs x ys image
+// `im`. Returns the bytes consumed (>= 0: it wants more data) or -1
+// (the frame is done) with *err Pillow's error code (0, -1 overrun,
+// -2 broken, -3 unknown).
+int64_t fli(const uint8_t* buf, int64_t bytes, int xs, int ys, uint8_t* im, int* err) {
+  *err = 0;
+  if (bytes < 4) return 0;
+  const uint8_t* ptr = buf;
+  const int64_t framesize = (uint32_t)fli_i32(ptr);
+  if (bytes + (bytes % 2) < framesize) return 0;
+  if (bytes < 8) return *err = -1, -1;
+  if (fli_i16(ptr + 4) != 0xF1FA) return *err = -3, -1;
+  const int chunks = fli_i16(ptr + 6);
+  ptr += 16;
+  bytes -= 16;
+#define OOB(o) if ((data + (o)) > ptr + bytes) return *err = -1, -1;
+  for (int c = 0; c < chunks; c++) {
+    if (bytes < 10) return *err = -1, -1;
+    const uint8_t* data = ptr + 6;
+    int x = 0, y, i = 0, j, l, lines, ymax;
+    switch (fli_i16(ptr + 4)) {
+      case 4:
+      case 11:
+        break;
+      case 7: {
+        lines = fli_i16(data);
+        data += 2;
+        for (l = y = 0; l < lines && y < ys; l++, y++) {
+          uint8_t* row = im + (size_t)y * xs;
+          int p, packets;
+          OOB(2)
+          packets = fli_i16(data);
+          data += 2;
+          while (packets & 0x8000) {
+            if (packets & 0x4000) {
+              y += 65536 - packets;
+              if (y >= ys) return *err = -1, -1;
+              row = im + (size_t)y * xs;
+            } else {
+              row[xs - 1] = (uint8_t)packets;
+            }
+            OOB(2)
+            packets = fli_i16(data);
+            data += 2;
+          }
+          for (p = x = 0; p < packets; p++) {
+            OOB(2)
+            x += data[0];
+            if (data[1] >= 128) {
+              OOB(4)
+              i = 256 - data[1];
+              if (x + i + i > xs) break;
+              for (j = 0; j < i; j++) {
+                row[x++] = data[2];
+                row[x++] = data[3];
+              }
+              data += 4;
+            } else {
+              i = 2 * (int)data[1];
+              if (x + i > xs) break;
+              OOB(2 + i)
+              std::memcpy(row + x, data + 2, i);
+              data += 2 + i;
+              x += i;
+            }
+          }
+          if (p < packets) break;
+        }
+        if (l < lines) return *err = -1, -1;
+        break;
+      }
+      case 12: {
+        y = fli_i16(data);
+        ymax = y + fli_i16(data + 2);
+        data += 4;
+        for (; y < ymax && y < ys; y++) {
+          uint8_t* out = im + (size_t)y * xs;
+          OOB(1)
+          int p, packets = *data++;
+          for (p = x = 0; p < packets; p++, x += i) {
+            OOB(2)
+            x += data[0];
+            if (data[1] & 0x80) {
+              i = 256 - data[1];
+              if (x + i > xs) break;
+              OOB(3)
+              std::memset(out + x, data[2], i);
+              data += 3;
+            } else {
+              i = data[1];
+              if (x + i > xs) break;
+              OOB(2 + i)
+              std::memcpy(out + x, data + 2, i);
+              data += i + 2;
+            }
+          }
+          if (p < packets) break;
+        }
+        if (y < ymax) return *err = -1, -1;
+        break;
+      }
+      case 13:
+        std::memset(im, 0, (size_t)xs * ys);
+        break;
+      case 15:
+        for (y = 0; y < ys; y++) {
+          uint8_t* out = im + (size_t)y * xs;
+          data += 1;
+          for (x = 0; x < xs; x += i) {
+            OOB(2)
+            if (data[0] & 0x80) {
+              i = 256 - data[0];
+              if (x + i > xs) break;
+              OOB(i + 1)
+              std::memcpy(out + x, data + 1, i);
+              data += i + 1;
+            } else {
+              i = data[0];
+              if (x + i > xs) break;
+              std::memset(out + x, data[1], i);
+              data += 2;
+            }
+          }
+          if (x != xs) return *err = -1, -1;
+        }
+        break;
+      case 16:
+        if (INT32_MAX / xs < ys) return *err = -1, -1;
+        if (data + (int64_t)xs * ys > ptr + bytes) return ptr - buf;
+        for (y = 0; y < ys; y++) {
+          std::memcpy(im + (size_t)y * xs, data, xs);
+          data += xs;
+        }
+        break;
+      case 18:
+        break;
+      default:
+        return *err = -3, -1;
+    }
+    const int64_t advance = fli_i32(ptr);
+    if (advance == 0) return *err = -2, -1;
+    if (advance < 0 || advance > bytes) return *err = -1, -1;
+    ptr += advance;
+    bytes -= advance;
+  }
+#undef OOB
+  return -1;
+}
+
+// bc1: out h x w x 4 bytes of RGBA; 0 done, 1 the data ended first.
+int bc1(const uint8_t* data, size_t len, int64_t w, int64_t h, uint8_t* out) {
+  const int64_t bw = (w + 3) / 4, bh = (h + 3) / 4;
+  size_t pos = 0;
+  for (int64_t by = 0; by < bh; by++) {
+    for (int64_t bx = 0; bx < bw; bx++) {
+      if (len - pos < 8 || pos > len) return 1;
+      const uint8_t* s = data + pos;
+      const int c0 = s[0] | s[1] << 8, c1 = s[2] | s[3] << 8;
+      const uint32_t lut = (uint32_t)s[4] | (uint32_t)s[5] << 8 | (uint32_t)s[6] << 16 |
+                           (uint32_t)s[7] << 24;
+      uint8_t p[4][4];
+      const int cs[2] = {c0, c1};
+      for (int k = 0; k < 2; k++) {
+        int r = (cs[k] & 0xf800) >> 8, g = (cs[k] & 0x7e0) >> 3, b = (cs[k] & 0x1f) << 3;
+        p[k][0] = (uint8_t)(r | r >> 5);
+        p[k][1] = (uint8_t)(g | g >> 6);
+        p[k][2] = (uint8_t)(b | b >> 5);
+        p[k][3] = 255;
+      }
+      for (int q = 0; q < 3; q++) {
+        if (c0 > c1) {
+          p[2][q] = (uint8_t)((2 * p[0][q] + p[1][q]) / 3);
+          p[3][q] = (uint8_t)((p[0][q] + 2 * p[1][q]) / 3);
+        } else {
+          p[2][q] = (uint8_t)((p[0][q] + p[1][q]) / 2);
+          p[3][q] = 0;
+        }
+      }
+      p[2][3] = 255;
+      p[3][3] = c0 > c1 ? 255 : 0;
+      for (int n = 0; n < 16; n++) {
+        const int64_t y = by * 4 + n / 4, x = bx * 4 + n % 4;
+        if (y >= h || x >= w) continue;
+        std::memcpy(out + (y * w + x) * 4, p[(lut >> (2 * n)) & 3], 4);
+      }
+      pos += 8;
+    }
+  }
+  return 0;
+}
+
+// bitdec: out ys x xs float32; 0 done, 1 the data ended first, 2 a
+// width Pillow's decoder refuses (IMAGING_CODEC_CONFIG).
+int bitdec(const uint8_t* data, size_t len, int bits, int64_t xs, int64_t ys, float* out) {
+  if (bits < 1 || bits >= 32) return 2;
+  const uint64_t mask = ((uint64_t)1 << bits) - 1;
+  uint64_t buffer = 0;
+  int count = 0;
+  int64_t x = 0, y = ys - 1;
+  for (size_t pos = 0; pos < len; pos++) {
+    const uint8_t byte = data[pos];
+    buffer |= (uint64_t)byte << count;
+    count += 8;
+    while (count >= bits) {
+      const uint64_t v = buffer & mask;
+      if (count > 32)
+        buffer = byte >> (8 - (count - bits));
+      else
+        buffer >>= bits;
+      count -= bits;
+      out[y * xs + x] = (float)v;
+      if (++x >= xs) {
+        if (--y < 0) return 0;
+        x = 0;
+        count = 0;
+      }
+    }
+  }
+  return 1;
 }
 
 }  // extern "C"

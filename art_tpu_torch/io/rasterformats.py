@@ -40,8 +40,10 @@ no tile), `PilValueError` (a palette of more than 256 entries, a raw mode
 the image's mode has no unpacker for, a single-plane raw image that the
 file, opened by name as the reference opens it, is too short to map),
 `PilIndexError` (QOI's Python decoder reading past the file's end).
-Every reader takes (buf, path) and returns (mode, samples, icc) as
-``imagefile.read_image`` does.
+Raw tiles load through :func:`art_tpu_torch.io.rawtile.load_raw`. Every
+reader takes (buf, path) and returns (mode, samples, icc) as
+``imagefile.read_image`` does. The small raster plugins (FITS to FLI)
+load in :mod:`art_tpu_torch.io.plugins`.
 """
 
 from __future__ import annotations
@@ -53,8 +55,10 @@ import threading
 import numpy as np
 
 from art_tpu_torch import hostbuild
+from art_tpu_torch.io.rawtile import (grey3, load_raw, new, put, rgb_out,
+                                      truncated)
 from art_tpu_torch.io.stdformats import (PilIndexError, PilValueError,
-                                         cmyk_to_rgb, read_bitmap)
+                                         read_bitmap)
 from art_tpu_torch.io import unported
 from art_tpu_torch.io.unported import _File
 
@@ -79,12 +83,24 @@ def _lib():
                                   ctypes.POINTER(_SZ)]),
                     ("sgi_rle", [_P, _SZ, _I64, _I64, ctypes.c_int,
                                  ctypes.c_int, _P]),
-                    ("qoi", [_P, _SZ, _I64, ctypes.c_int, _P])):
+                    ("qoi", [_P, _SZ, _I64, ctypes.c_int, _P]),
+                    ("sun_rle", [_P, _SZ, _SZ, _I64, _P]),
+                    ("xbm", [_P, _SZ, _SZ, _I64, _P]),
+                    ("pcd", [_P, _SZ, _P]),
+                    ("bc1", [_P, _SZ, _I64, _I64, _P]),
+                    ("bitdec", [_P, _SZ, ctypes.c_int, _I64, _I64, _P])):
                 fn = getattr(lib, name)
                 fn.restype = ctypes.c_int
                 fn.argtypes = args
+            lib.fli.restype = _I64
+            lib.fli.argtypes = [_P, _I64, ctypes.c_int, ctypes.c_int, _P,
+                                ctypes.POINTER(ctypes.c_int)]
             lib.lab_to_rgb.restype = None
             lib.lab_to_rgb.argtypes = [_P, _I64, _P, _P]
+            for name in ("ycc_to_rgb", "ycbcr_to_rgb"):
+                fn = getattr(lib, name)
+                fn.restype = None
+                fn.argtypes = [_P, _I64, _P]
             _LIB = lib
         return _LIB
 
@@ -96,10 +112,6 @@ def _ptr(a):
 def _data(buf, at):
     """The bytes from `at` to the file's end, as a uint8 array."""
     return np.frombuffer(buf, np.uint8)[at:]
-
-
-def _truncated(n=0):
-    return OSError(f"image file is truncated ({n} bytes not processed)")
 
 
 def _overrun():
@@ -116,10 +128,6 @@ def _bits_msb(rows, width):
     """Packed rows of 1-bit pixels, most significant first -> (h, width)
     0/1."""
     return np.unpackbits(rows, axis=1)[:, :width]
-
-
-def _grey3(grey):
-    return np.repeat(np.asarray(grey, np.uint8)[..., None], 3, axis=2)
 
 
 def palette_rgb(raw, stride=3, planar=False, order="RGB"):
@@ -162,28 +170,6 @@ def lab_to_rgb(lab):
     clut = np.ascontiguousarray(lab_to_srgb_clut())
     _lib().lab_to_rgb(_ptr(src), src.size // 3, _ptr(clut), _ptr(out))
     return out
-
-
-def _raw_rows(buf, at, rows, row_bytes):
-    """A raw tile's rows from `at` (Pillow's raw decoder fed from the
-    file): (rows, row_bytes) uint8, OSError where the file ends first."""
-    need = rows * row_bytes
-    got = buf[at : at + need] if at < len(buf) else b""
-    if len(got) < need:
-        raise _truncated(len(got) % row_bytes if row_bytes else 0)
-    return np.frombuffer(bytes(got), np.uint8).reshape(rows, row_bytes)
-
-
-def _mapped(buf, at, rows, width):
-    """A single-plane 8-bit raw tile of a file opened by name: Pillow maps
-    the file (``ImageFile.load``'s mmap), which fails with ValueError
-    where the file is shorter than the image, and falls back to the raw
-    decoder where the tile starts past the file's end."""
-    if at > len(buf):
-        raise _truncated()
-    if at + rows * width > len(buf):
-        raise PilValueError("buffer is not large enough")
-    return _raw_rows(buf, at, rows, width)
 
 
 # -- DIB, ICO, CUR -----------------------------------------------------------
@@ -243,44 +229,32 @@ def read_tga(buf, path):
     rawmode, bits = _TGA_RAW[key]
     if rawmode == "P" and mode == "L":
         raise PilValueError("unknown raw mode for given image mode")
-    row_bytes = (w * bits + 7) // 8
+    if mode == "P" and isinstance(pal, Exception):  # set before the tile
+        raise pal  # decodes (a mapped file's errors are ValueErrors too)
     if itype & 8:
-        if mode == "P" and isinstance(pal, Exception):
-            raise pal
+        row_bytes = (w * bits + 7) // 8
         rows = np.zeros((h, row_bytes), np.uint8)
         done = _I64(0)
         data = _data(buf, at)
         rc = _lib().tga_rle(_ptr(data), data.size, depth // 8, row_bytes, h,
                             _ptr(rows), ctypes.byref(done))
         if rc == 1:
-            raise _truncated()
+            raise truncated()
         if rc == 2:
             raise _overrun()
-    elif rawmode == mode and mode in ("L", "P"):
-        rows = _mapped(buf, at, h, row_bytes)
-        if mode == "P" and isinstance(pal, Exception):
-            raise pal
+        img = new(mode, w, h)
+        put(img, slice(None) if top else slice(None, None, -1), mode,
+            rawmode, rows, w)
     else:
-        rows = _raw_rows(buf, at, h, row_bytes)
-    if not top:
-        rows = rows[::-1]
+        img = load_raw(buf, path, mode, (w, h),
+                       [(at, (rawmode, 0, 1 if top else -1))])
     if cmap and mode not in ("P", "L", "LA"):
         raise PilValueError("unrecognized image mode")
     if isinstance(pal, Exception):
         raise pal
-    if rawmode in ("P", "L", "LA"):  # a colour map turns L and LA to P, PA
-        px = rows[:, : 2 * w : 2] if rawmode == "LA" else rows[:, :w]
-        rgb = pal[px] if pal is not None else _grey3(px)
-    elif rawmode == "1":
-        rgb = _grey3(_bits_msb(rows, w) * 255)
-    elif rawmode == "BGRA;15Z":
-        v = rows[:, : 2 * w].copy().view("<u2").astype(np.int32)
-        rgb = np.stack([((v >> 10) & 31) * 255 // 31,
-                        ((v >> 5) & 31) * 255 // 31,
-                        (v & 31) * 255 // 31], -1).astype(np.uint8)
-    else:
-        px = rows[:, : w * bits // 8].reshape(h, w, bits // 8)
-        rgb = np.ascontiguousarray(px[..., 2::-1])
+    if cmap:  # a colour map turns L and LA to P and PA
+        mode = {"L": "P", "LA": "PA"}.get(mode, mode)
+    rgb = rgb_out(mode, img, pal)[1]
     if orient in (0x10, 0x30):
         rgb = rgb[:, ::-1]
     return "RGB", np.ascontiguousarray(rgb), None
@@ -300,45 +274,31 @@ def read_psd(buf, path):
     icc = hd["icc"]
     palette = None if hd["palette"] is None else \
         palette_rgb(hd["palette"], planar=True)
-    bits = 1 if mode == "1" else 8
-    row_bytes = (w * bits + 7) // 8
-    planes = []
     at = hd["offset"]
+    layers = [c + ";I" if mode == "CMYK" else c for c in mode[:channels]]
     if comp == 0:
-        for c in range(channels):
-            if channels == 1 and mode in ("L", "P"):
-                planes.append(_mapped(buf, at, h, row_bytes))
-            else:
-                planes.append(_raw_rows(buf, at, h, row_bytes))
-            at += w * h
+        img = load_raw(buf, path, mode, (w, h),
+                       [(at + c * w * h, layer)
+                        for c, layer in enumerate(layers)])
     elif comp == 1:
         counts = hd["counts"]
         lib = _lib()
-        for c in range(channels):
+        img = new(mode, w, h)
+        row_bytes = (w + 7) // 8 if mode == "1" else w
+        for c, layer in enumerate(layers):
             data = _data(buf, at)
             plane = np.empty((h, row_bytes), np.uint8)
             used = _SZ(0)
             if lib.packbits(_ptr(data), data.size, row_bytes, h,
                             _ptr(plane), ctypes.byref(used)):
-                raise _truncated()
-            planes.append(plane)
+                raise truncated()
+            put(img, slice(None), mode, layer, plane, w)
             at += sum(counts[c * h : (c + 1) * h])
     else:
         raise _no_tile()
-    if mode == "1":
-        return "RGB", _grey3(_bits_msb(planes[0], w) * 255), icc
-    if mode == "L":
-        return "RGB", _grey3(planes[0]), icc
-    if mode == "P":
-        pal = palette if palette is not None else np.zeros((256, 3),
-                                                           np.uint8)
-        return "RGB", pal[planes[0]], icc
-    px = np.stack(planes, -1)
-    if mode == "CMYK":
-        return "RGB", cmyk_to_rgb(255 - px), icc
     if mode == "LAB":
-        return "RGB", lab_to_rgb(px), icc
-    return "RGB", np.ascontiguousarray(px[..., :3]), icc
+        return "RGB", lab_to_rgb(img), icc
+    return (*rgb_out(mode, img, palette), icc)
 
 
 # -- QOI ---------------------------------------------------------------------
@@ -387,11 +347,11 @@ def _read_pcx(buf, at):
     rc = _lib().pcx(_ptr(data), data.size, pbits, w, line, h, _ptr(rows),
                     ctypes.byref(done))
     if rc == 1:
-        raise _truncated()
+        raise truncated()
     if rc == 2:
         raise _overrun()
     if rawmode == "1":
-        return "RGB", _grey3(_bits_msb(rows, w) * 255)
+        return "RGB", grey3(_bits_msb(rows, w) * 255)
     if rawmode.startswith("P;"):
         s8 = (w + 7) // 8
         idx = np.zeros((h, w), np.uint8)
@@ -401,7 +361,7 @@ def _read_pcx(buf, at):
         return "RGB", pal[idx]
     if rawmode == "L":
         px = rows[:, :w]
-        return "RGB", pal[px] if pal is not None else _grey3(px)
+        return "RGB", pal[px] if pal is not None else grey3(px)
     return "RGB", np.ascontiguousarray(np.stack(
         [rows[:, k * w : (k + 1) * w] for k in range(3)], -1))
 
@@ -416,24 +376,19 @@ def read_dcx(buf, path):
 
 # -- SGI ---------------------------------------------------------------------
 
-_SGI_BANDS = {"L": 1, "RGB": 3, "RGBA": 4}
-
-
 def read_sgi(buf, path):
     from art_tpu_torch.io.unported import _SGI_MODES
 
     comp, bpc = buf[2], buf[3]
     dim, w, h, z = struct.unpack_from(">4H", buf, 4)
     mode = _SGI_MODES[(bpc, dim, z)]
-    bands = _SGI_BANDS[mode]
+    bands = len(mode)
     if comp == 0 and bpc == 1:
-        planes = []
-        for b in range(bands):
-            at = 512 + b * w * h
-            planes.append((_mapped if bands == 1 else _raw_rows)(
-                buf, at, h, w)[::-1])
-        px = np.stack(planes, -1)
-    elif comp == 0:
+        img = load_raw(buf, path, mode, (w, h),
+                       [(512 + b * w * h, (layer, 0, -1))
+                        for b, layer in enumerate(mode)])
+        return (*rgb_out(mode, img), None)
+    if comp == 0:
         planes = []
         at = 512
         for b in range(bands):
@@ -454,5 +409,5 @@ def read_sgi(buf, path):
     else:
         raise _no_tile()
     if bands == 1:
-        return "RGB", _grey3(px[..., 0]), None
+        return "RGB", grey3(px[..., 0]), None
     return "RGB", np.ascontiguousarray(px[..., :3]), None

@@ -25,11 +25,15 @@ OSError), `PilValueError` (a ValueError), `DecompressionBomb` or
 (BMP, GIF, JPEG, PNG, PNM's P1-P6 and TIFF) are read before this walk
 and are not in it; the walk's own decoded formats load where it opens
 them: DIB, CUR, PCX, DCX, ICO, PSD, QOI, SGI and TGA
-(:mod:`art_tpu_torch.io.rasterformats`) and WebP
+(:mod:`art_tpu_torch.io.rasterformats`); FITS, FLI, FTEX, GBR, IM, IMT,
+IPTC/NAA, McIdas, MSP, PCD, PIXAR, PFM, the PNM extensions, SPIDER,
+SUN, XBM, XPM and XVThumb (:mod:`art_tpu_torch.io.plugins`, each open
+leaving its tile in the file's ``tile``); and WebP
 (:mod:`art_tpu_torch.io.webpdec`, whose open is libwebp's parse, made
-in its load). `LOAD_FAILS` names the formats whose load always fails in
-Pillow (BUFR, GRIB and HDF5 stubs, WMF/EMF, MPEG, EPS with no
-Ghostscript).
+in its load). `FORMATS` holds the rest, refused by name: BLP, DDS,
+ICNS, JPEG 2000, AVIF and the formats of `LOAD_FAILS`, whose load
+always fails in Pillow (BUFR, GRIB and HDF5 stubs, WMF/EMF, MPEG, EPS
+with no Ghostscript).
 
 Not mirrored: the coded data that AVIF's open parses with libavif. Its
 container is checked (boxes whole, the image's boxes present), not what
@@ -70,6 +74,9 @@ class _File:
     def __init__(self, buf, path=None):
         self.buf = buf if isinstance(buf, bytes) else bytes(buf)
         self.pos, self.path = 0, path
+        # what an open leaves for its format's load: the tile (offset,
+        # raw mode, ...) and the header's state Pillow's load reads
+        self.tile = None
 
     def read(self, n=-1):
         if n < -1:
@@ -584,25 +591,30 @@ def _fits(f):
         headers[keyword] = value
     if parsed is None or not parsed[0]:
         raise PilValueError("No image data")
+    # the data start: the card that ended the walk read, backed off 80
+    f.tile = (parsed[0], parsed[3] + f.tell() - 80, parsed[4])
     return parsed[1], parsed[2]
 
 
 def _fits_parse(headers):
-    """FitsImageFile._parse_headers: (decoder, mode, size)."""
+    """FitsImageFile._parse_headers: (decoder, mode, size, offset past
+    the data start, the tile's args)."""
     prefix = b""
     decoder = "raw"
+    offset = 0
     if headers.get(b"XTENSION") == b"'BINTABLE'" and \
             headers.get(b"ZIMAGE") == b"T" and \
             headers[b"ZCMPTYPE"] == b"'GZIP_1  '":
-        _fits_size(headers, prefix)
-        _int(headers[b"BITPIX"])
+        table = _fits_size(headers, prefix) or (0, 0)
+        offset = table[0] * table[1] * (_int(headers[b"BITPIX"]) // 8)
         prefix, decoder = b"Z", "fits_gzip"
     size = _fits_size(headers, prefix)
     if not size:
-        return "", "", (0, 0)
+        return "", "", (0, 0), 0, ()
     bits = _int(headers[prefix + b"BITPIX"])
     mode = {8: "L", 16: "I;16", 32: "I", -32: "F", -64: "F"}.get(bits, "")
-    return decoder, mode, size
+    args = (mode, 0, -1) if decoder == "raw" else (bits,)
+    return decoder, mode, size, offset, args
 
 
 def _fli_accept(p):
@@ -618,6 +630,7 @@ def _fli(f):
     frames = _i16(s, 6)
     size = _i16(s, 8), _i16(s, 10)
     _i32(s, 16)
+    palette = [(a, a, a) for a in range(256)]
     s = f.read(16)
     if _i16(s, 4) == 0xF100:
         f.seek(128 + _i32(s))
@@ -629,6 +642,7 @@ def _fli(f):
                 f.seek(chunk - 6, 1)
             s = f.read(6)
             if _i16(s, 4) in (4, 11):
+                shift = 2 if _i16(s, 4) == 11 else 0
                 i = 0
                 for _ in range(_i16(f.read(2))):
                     s = f.read(2)
@@ -636,9 +650,11 @@ def _fli(f):
                     n = s[1] or 256
                     s = f.read(n * 3)
                     for k in range(0, len(s), 3):
-                        s[k + 2]
+                        rgb = tuple((v << shift) & 255 for v in
+                                    (s[k], s[k + 1], s[k + 2]))
                         if i >= 256:  # the palette's list of 256
                             raise IndexError("list index out of range")
+                        palette[i] = rgb
                         i += 1
                 break
             chunk = _i32(s)
@@ -650,7 +666,7 @@ def _fli(f):
     s = f.read(4)
     if not s:
         raise EOFError("missing frame size")
-    _i32(s)
+    f.tile = (palette, _i32(s))  # frame 0's size is the load's block
     return "P", size
 
 
@@ -665,7 +681,7 @@ def _ftex(f):
     fmt, where = struct.unpack("<2i", f.read(8))
     f.seek(where)
     (n,) = struct.unpack("<i", f.read(4))
-    f.read(n)
+    f.tile = (fmt, f.read(n))  # the load reads this mipmap only
     if fmt not in (0, 1):
         raise PilValueError(f"Invalid texture compression format: {fmt!r}")
     if size[0] <= 0 or size[1] <= 0:
@@ -696,6 +712,7 @@ def _gbr(f):
         _i32be(f.read(4))
     f.read(n)
     _bomb((w, h))
+    f.tile = f.tell()  # the load reads its samples from here
     return ("L" if depth == 1 else "RGBA"), (w, h)
 
 
@@ -946,14 +963,27 @@ _IM_SPLIT = re.compile(rb"^([A-Za-z][^:]*):[ \t]*(.*)[ \t]*$")
 _IM_TAGS = ("Comment", "Date", "Digitalization equipment",
             "File size (no of images)", "Lut", "Name", "Scale (x,y)",
             "Image size (x*y)", "Image type")
-_IM_MODES = {
-    "0 1 image": "1", "L 1 image": "1", "Greyscale image": "L",
-    "Grayscale image": "L", "RGB image": "RGB", "RLB image": "RGB",
-    "RYB image": "RGB", "B1 image": "1", "B2 image": "P", "B4 image": "P",
-    "X 24 image": "RGB", "L 32 S image": "I", "L 32 F image": "F",
-    "RGB3 image": "RGB", "RYB3 image": "RGB", "LA image": "LA",
-    "PA image": "LA", "RGBA image": "RGBA", "RGBX image": "RGB",
-    "CMYK image": "CMYK", "YCC image": "YCbCr"}
+# ImImagePlugin.OPEN: image type -> (mode, raw mode)
+_IM_OPEN = {
+    "0 1 image": ("1", "1"), "L 1 image": ("1", "1"),
+    "Greyscale image": ("L", "L"), "Grayscale image": ("L", "L"),
+    "RGB image": ("RGB", "RGB;L"), "RLB image": ("RGB", "RLB"),
+    "RYB image": ("RGB", "RLB"), "B1 image": ("1", "1"),
+    "B2 image": ("P", "P;2"), "B4 image": ("P", "P;4"),
+    "X 24 image": ("RGB", "RGB"), "L 32 S image": ("I", "I;32"),
+    "L 32 F image": ("F", "F;32"), "RGB3 image": ("RGB", "RGB;T"),
+    "RYB3 image": ("RGB", "RYB;T"), "LA image": ("LA", "LA;L"),
+    "PA image": ("LA", "PA;L"), "RGBA image": ("RGBA", "RGBA;L"),
+    "RGBX image": ("RGB", "RGBX;L"), "CMYK image": ("CMYK", "CMYK;L"),
+    "YCC image": ("YCbCr", "YCbCr;L")}
+for _i in ("8", "8S", "16", "16S", "32", "32F"):
+    _IM_OPEN[f"L {_i} image"] = _IM_OPEN[f"L*{_i} image"] = ("F", f"F;{_i}")
+for _i in ("16", "16L", "16B"):
+    _IM_OPEN[f"L {_i} image"] = _IM_OPEN[f"L*{_i} image"] = (f"I;{_i}",
+                                                              f"I;{_i}")
+_IM_OPEN["L 32S image"] = _IM_OPEN["L*32S image"] = ("I", "I;32S")
+for _i in range(2, 33):
+    _IM_OPEN[f"L*{_i} image"] = ("F", f"F;{_i}")
 
 
 def _im_number(s):
@@ -971,6 +1001,7 @@ def _im(f):
         raise SyntaxError("not an IM file")
     f.seek(0)
     info = {"Image type": "L", "Image size (x*y)": (512, 512)}
+    rawmode = "L"
     n = 0
     while True:
         s = f.read(1)
@@ -992,8 +1023,8 @@ def _im(f):
             v = tuple(map(_im_number, v.replace("*", ",").split(",")))
             if len(v) == 1:
                 v = v[0]
-        elif k == "Image type" and v in _IM_MODES:
-            v = _IM_MODES[v]
+        elif k == "Image type" and v in _IM_OPEN:
+            v, rawmode = _IM_OPEN[v]
         info[k] = v
         if k in _IM_TAGS:
             n += 1
@@ -1004,6 +1035,7 @@ def _im(f):
         s = f.read(1)
     if not s:
         raise SyntaxError("File truncated")
+    palette = None
     if "Lut" in info:
         p = f.read(768)
         grey = True
@@ -1011,8 +1043,11 @@ def _im(f):
             if not p[i] == p[i + 256] == p[i + 512]:
                 grey = False
         if mode in ("L", "LA", "P", "PA") and not grey:
-            mode = "P" if mode in ("L", "P") else "PA"
+            mode, rawmode = ("P", "P") if mode in ("L", "P") else \
+                ("PA", "PA;L")
+            palette = p
     size[0], size[1]  # a scalar size is no size (TypeError)
+    f.tile = (rawmode, f.tell(), palette)
     return mode, size
 
 
@@ -1030,7 +1065,10 @@ def _imt(f):
             s, buffer = buffer[:1], buffer[1:]
         else:
             s = f.read(1)
-        if not s or s == b"\x0c":
+        if not s:
+            break
+        if s == b"\x0c":
+            f.tile = f.tell() - len(buffer)
             break
         if b"\n" not in buffer:
             buffer += f.read(100)
@@ -1060,21 +1098,28 @@ def _iptc_int(c):
     return _i32be((b"\0\0\0\0" + c)[-4:])
 
 
+def iptc_field(f):
+    """IptcImageFile.field: (tag or None, size) of the field at the file's
+    position, the file left at its data."""
+    s = f.read(5)
+    if not s.strip(b"\0"):
+        return None, 0
+    tag = s[1], s[2]
+    if s[0] != 0x1C or tag[0] not in (1, 2, 3, 4, 5, 6, 7, 8, 9, 240):
+        raise SyntaxError("invalid IPTC/NAA file")
+    size = s[3]
+    if size > 132:
+        raise Unidentified("illegal field length in IPTC/NAA file")
+    return tag, 0 if size == 128 else \
+        _iptc_int(f.read(size - 128)) if size > 128 else _i16be(s, 3)
+
+
 def _iptc(f):
     info = {}
     while True:
-        s = f.read(5)
-        if not s.strip(b"\0"):
-            break
-        tag = s[1], s[2]
-        if s[0] != 0x1C or tag[0] not in (1, 2, 3, 4, 5, 6, 7, 8, 9, 240):
-            raise SyntaxError("invalid IPTC/NAA file")
-        size = s[3]
-        if size > 132:
-            raise Unidentified("illegal field length in IPTC/NAA file")
-        size = 0 if size == 128 else \
-            _iptc_int(f.read(size - 128)) if size > 128 else _i16be(s, 3)
-        if tag == (8, 10):
+        offset = f.tell()
+        tag, size = iptc_field(f)
+        if not tag or tag == (8, 10):
             break
         data = f.read(size) if size else None
         if tag in info:
@@ -1095,10 +1140,13 @@ def _iptc(f):
             info[(3, 65)][0] - 1
     size = _iptc_int(info[(3, 20)]), _iptc_int(info[(3, 30)])
     try:
-        if _iptc_int(info[(3, 120)]) not in (1, 5):
+        compression = _iptc_int(info[(3, 120)])
+        if compression not in (1, 5):
             raise KeyError
     except KeyError as e:
         raise Unidentified("Unknown IPTC image compression") from e
+    if tag == (8, 10):  # the data's first field, where the load starts
+        f.tile = (offset, compression, info)
     return mode, size
 
 
@@ -1109,6 +1157,7 @@ def _mcidas(f):
     w = [0, *struct.unpack("!64i", s)]
     if w[11] not in (1, 2, 4):
         raise SyntaxError("unsupported McIdas format")
+    f.tile = w
     return {1: "L", 2: "I;16B", 4: "I"}[w[11]], (w[10], w[9])
 
 
@@ -1145,6 +1194,7 @@ def _pcd(f):
     s = f.read(1539)
     if not s.startswith(b"PCD_"):
         raise SyntaxError("not a PCD file")
+    f.tile = s[1538] & 3  # the orientation
     return "RGB", (512, 768) if s[1538] & 3 in (1, 3) else (768, 512)
 
 
@@ -1177,9 +1227,13 @@ def _ppm(f):
             raise PilValueError(str(e)) from e
         if scale == 0.0 or not math.isfinite(scale):
             raise PilValueError("scale must be finite and non-zero")
-    elif not 0 < stdformats._int(token) < 65536:
-        raise PilValueError("maxval must be greater than 0 and less than "
-                            "65536")
+        f.tile = (r.pos, scale)
+    else:
+        maxval = stdformats._int(token)
+        if not 0 < maxval < 65536:
+            raise PilValueError("maxval must be greater than 0 and less "
+                                "than 65536")
+        f.tile = (r.pos, maxval)
     return mode, size
 
 
@@ -1304,18 +1358,24 @@ def _spider_int(v):
 
 def _spider(f):
     data = f.read(108)
+    big = True
     t = struct.unpack(">27f", data)
-    if not _spider_header(t):
+    hdrlen = _spider_header(t)
+    if not hdrlen:
+        big = False
         t = struct.unpack("<27f", data)
-        if not _spider_header(t):
+        hdrlen = _spider_header(t)
+        if not hdrlen:
             raise SyntaxError("not a valid Spider file")
     h = (99,) + t
     if int(h[5]) != 1:
         raise SyntaxError("not a Spider 2D image")
     size = int(h[12]), int(h[2])
     stack, number = _spider_int(h[24]), _spider_int(h[27])
+    f.tile = (hdrlen, big)
     if stack > 0 and number == 0:
         _spider_int(h[26])
+        f.tile = (hdrlen * 2, big)
     elif stack == 0 and number > 0:
         raise OpenError("SPIDER: AttributeError: 'SpiderImageFile' object "
                         "has no attribute 'stkoffset'")
@@ -1334,15 +1394,22 @@ def _sun(f):
     if depth not in (1, 4, 8, 24, 32):
         raise SyntaxError("Unsupported Mode/Bit Depth")
     mode = {1: "1", 4: "L", 8: "L"}.get(depth, "RGB")
+    rawmode = {1: "1;I", 4: "L;4", 8: "L"}.get(depth) or \
+        ("RGB" if ftype == 3 else "BGR") + ("X" if depth == 32 else "")
+    palette = None
     if plen:
         if plen > 1024:
             raise SyntaxError("Unsupported Color Palette Length")
         if ptype != 1:
             raise SyntaxError("Unsupported Palette Type")
+        palette = f.read(plen)
         if mode == "L":
             mode = "P"
+            rawmode = rawmode.replace("L", "P")
     if ftype not in (0, 1, 2, 3, 4, 5):
         raise SyntaxError("Unsupported Sun Raster file type")
+    f.tile = (rawmode, 32 + plen, ((size[0] * depth + 15) // 16) * 2,
+              ftype == 2, palette)
     return mode, size
 
 
@@ -1404,6 +1471,7 @@ def _xbm(f):
     m = _XBM.match(f.read(512))
     if not m:
         raise SyntaxError("not a XBM file")
+    f.tile = m.end()
     return "1", (int(m.group("width")), int(m.group("height")))
 
 
@@ -1422,22 +1490,27 @@ def _xpm(f):
             break
     size = _int(m.group(1)), _int(m.group(2))
     n, bpp = _int(m.group(3)), _int(m.group(4))
+    palette = {}
     for _ in range(n):
         line = f.readline().rstrip()
+        c = line[1 : bpp + 1]
         s = line[bpp + 1 : -2].split()
         for i in range(0, len(s), 2):
             if s[i] == b"c":
                 rgb = s[i + 1]
                 if rgb.startswith(b"#"):
                     try:
-                        int(rgb[1:], 16)
+                        v = int(rgb[1:], 16)
                     except ValueError as e:
                         raise PilValueError(str(e)) from e
+                    palette[c] = bytes(((v >> 16) & 255, (v >> 8) & 255,
+                                        v & 255))
                 elif rgb != b"None":
                     raise PilValueError("cannot read this XPM file")
                 break
         else:
             raise PilValueError("cannot read this XPM file")
+    f.tile = (bpp, palette, f.tell())
     return ("RGB" if n > 256 else "P"), size
 
 
@@ -1454,6 +1527,7 @@ def _xvthumb(f):
     parts = s.strip().split(maxsplit=2)[:2]
     if len(parts) < 2:
         raise PilValueError("not enough values to unpack")
+    f.tile = f.tell()
     return "P", (_int(parts[0]), _int(parts[1]))
 
 
@@ -1468,14 +1542,20 @@ def _starts(*magics):
     return lambda p: p.startswith(magics)
 
 
-def _reader(name):
-    """The port's load of a format it decodes, in
-    :mod:`art_tpu_torch.io.rasterformats`."""
+def _reader(name, module="rasterformats"):
+    """The port's load of a format it decodes: ``read_<name>`` of
+    :mod:`art_tpu_torch.io.rasterformats`, or of
+    :mod:`art_tpu_torch.io.plugins` for a small raster plugin."""
     def read(buf, path):
-        from art_tpu_torch.io import rasterformats
+        import importlib
 
-        return getattr(rasterformats, f"read_{name}")(buf, path)
+        mod = importlib.import_module(f"art_tpu_torch.io.{module}")
+        return getattr(mod, f"read_{name}")(buf, path)
     return read
+
+
+def _plugin(name):
+    return _reader(name, "plugins")
 
 
 def _webp_accept(p):
@@ -1518,11 +1598,11 @@ WALK = (
     ("DDS", _starts(b"DDS "), _dds, None),
     ("EPS", lambda p: p.startswith(b"%!PS")
      or (len(p) >= 4 and _i32(p) == 0xC6D3D0C5), _eps, None),
-    ("FITS", _starts(b"SIMPLE"), _fits, None),
-    ("FLI", _fli_accept, _fli, None),
-    ("FTEX", _starts(b"FTEX"), _ftex, None),
+    ("FITS", _starts(b"SIMPLE"), _fits, _plugin("fits")),
+    ("FLI", _fli_accept, _fli, _plugin("fli")),
+    ("FTEX", _starts(b"FTEX"), _ftex, _plugin("ftex")),
     ("GBR", lambda p: len(p) >= 8 and _i32be(p) >= 20
-     and _i32be(p, 4) in (1, 2), _gbr, None),
+     and _i32be(p, 4) in (1, 2), _gbr, _plugin("gbr")),
     ("GRIB", lambda p: len(p) >= 8 and p.startswith(b"GRIB") and p[7] == 1,
      _grib, None),
     ("HDF5", _starts(b"\x89HDF\r\n\x1a\n"), _stub(b"\x89HDF\r\n\x1a\n"),
@@ -1532,29 +1612,35 @@ WALK = (
      None),
     ("ICNS", _starts(b"icns"), _icns, None),
     ("ICO", _starts(b"\0\0\1\0"), _ico, _reader("ico")),
-    ("IM", None, _im, None),
-    ("IMT", None, _imt, None),
-    ("IPTC/NAA", None, _iptc, None),
-    ("McIdas", _starts(b"\0\0\0\0\0\0\0\4"), _mcidas, None),
+    ("IM", None, _im, _plugin("im")),
+    ("IMT", None, _imt, _plugin("imt")),
+    ("IPTC/NAA", None, _iptc, _plugin("iptc")),
+    ("McIdas", _starts(b"\0\0\0\0\0\0\0\4"), _mcidas,
+     _plugin("mcidas")),
     ("MPEG", _starts(b"\x00\x00\x01\xb3"), _mpeg, None),
-    ("MSP", _starts(b"DanM", b"LinS"), _msp, None),
-    ("PCD", None, _pcd, None),
-    ("PIXAR", _starts(b"\x80\xe8\x00\x00"), _pixar, None),
-    ("PFM", _starts(b"Pf"), _ppm, None),
-    ("PNM of a Pillow extension", _starts(b"P0", b"Py"), _ppm, None),
+    ("MSP", _starts(b"DanM", b"LinS"), _msp, _plugin("msp")),
+    ("PCD", None, _pcd, _plugin("pcd")),
+    ("PIXAR", _starts(b"\x80\xe8\x00\x00"), _pixar,
+     _plugin("pixar")),
+    ("PFM", _starts(b"Pf"), _ppm, _plugin("ppm")),
+    ("PNM of a Pillow extension", _starts(b"P0", b"Py"), _ppm,
+     _plugin("ppm")),
     ("PSD", _starts(b"8BPS"), _psd, _reader("psd")),
     ("QOI", _starts(b"qoif"), _qoi, _reader("qoi")),
     ("SGI", lambda p: len(p) >= 2 and _i16be(p) == 474, _sgi,
      _reader("sgi")),
-    ("SPIDER", None, _spider, None),
-    ("SUN", lambda p: len(p) >= 4 and _i32be(p) == 0x59A66A95, _sun, None),
+    ("SPIDER", None, _spider, _plugin("spider")),
+    ("SUN", lambda p: len(p) >= 4 and _i32be(p) == 0x59A66A95, _sun,
+     _plugin("sun")),
     ("TGA", None, _tga, _reader("tga")),
     ("WebP", _webp_accept, _webp_open, _read_webp),
     ("WMF", _starts(b"\xd7\xcd\xc6\x9a\x00\x00", b"\x01\x00\x00\x00"), _wmf,
      None),
-    ("XBM", lambda p: p.lstrip().startswith(b"#define"), _xbm, None),
-    ("XPM", _starts(b"/* XPM */"), _xpm, None),
-    ("XVThumb", _starts(b"P7 332"), _xvthumb, None),
+    ("XBM", lambda p: p.lstrip().startswith(b"#define"), _xbm,
+     _plugin("xbm")),
+    ("XPM", _starts(b"/* XPM */"), _xpm, _plugin("xpm")),
+    ("XVThumb", _starts(b"P7 332"), _xvthumb,
+     _plugin("xvthumb")),
 )
 
 # the formats Pillow opens that the port refuses by name: (name, accept,

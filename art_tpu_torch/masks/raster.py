@@ -261,8 +261,9 @@ def gaussian_blur(x, sigma):
 
 def _pil_taps(in_size, out_size):
     """Pillow's precompute_coeffs for the bilinear filter (support 1):
-    (first source index, taps) of each output sample, (out, ksize)
-    float64 taps normalised to sum 1 and zero past each one's count."""
+    (first source index, taps, count of taps) of each output sample,
+    (out, ksize) float64 taps normalised to sum 1 and zero past each
+    one's count."""
     scale = in_size / out_size
     filterscale = max(scale, 1.0)
     support = filterscale
@@ -280,13 +281,13 @@ def _pil_taps(in_size, out_size):
         ww += kk[:, t]
     kk = np.where(ww[:, None] != 0.0, kk / np.where(ww == 0.0, 1.0, ww)[
         :, None], kk)
-    return xmin, kk
+    return xmin, kk, xmax
 
 
 def _pil_pass(a, taps, mode, dim):
     """One pass of Pillow's resample along `dim` of a 2-D tensor (the
     8bpc, 16bpc and 32bpr loops)."""
-    xmin, kk = taps
+    xmin, kk, count = taps
     dev = a.device
     n_in = a.shape[dim]
     first = torch.from_numpy(xmin).to(dev)
@@ -301,9 +302,14 @@ def _pil_pass(a, taps, mode, dim):
         src = a.to(torch.float64)
     shape = [1, 1]
     shape[dim] = -1
+    used = torch.from_numpy(count).to(dev)
     for t in range(kk.shape[1]):
         idx = torch.clamp(first + t, max=n_in - 1)
-        acc = acc + src.index_select(dim, idx) * k[:, t].view(shape)
+        term = src.index_select(dim, idx) * k[:, t].view(shape)
+        # Pillow reads no sample past a tap's count (0 x inf is NaN)
+        acc = acc + torch.where((t < used).view(shape), term,
+                                torch.zeros((), dtype=term.dtype,
+                                            device=dev))
     if mode == "L":
         return torch.where(acc >= 1 << 30, 255, torch.where(
             acc <= 0, 0, acc >> 22)).to(torch.uint8)

@@ -33,7 +33,7 @@ plain-call counts set to 0 just before it and read just after:
 It checks that every kernel of a path launched and no plain version ran,
 that the output has the frame's shape, finite and in [0, 1], that each
 kernel equals its plain PyTorch version on the tensors its path feeds it
-(bounds below), and that a 512x2048 develop on the card agrees with the
+(bounds below), and that a 512x1024 develop on the card agrees with the
 same develop on the CPU's plain path, for each path, to the slice bounds
 of the CPU tests (configs 2 and 4 at 512x768 and 384x576; config 2's
 hot/dead and green-equilibration decisions may flip between the devices
@@ -61,24 +61,25 @@ second one that turns the denoise on at 20/20 (B1, B2, B3, B4 and B7,
 one launch each), timed the same way, its u8 output equal to the u8 cast
 of the float develop on the card, and each JPEG's markers well formed.
 Then config 5, the batch queue (`art_tpu_torch.parallel.process_batch`
-over every CUDA device, one worker each): 64 jobs of a 4000x6000 RGGB
-DNG from seed 3 as tools/bench_configs.py writes it (uncompressed,
-hardlinked per job), AMaZE and denoise at luminance 20, to JPEGs, after
-a warm run of 2, with the window of the reference's one-chip run
-(prefetch 8): images/s, the stages' worker-seconds, the frames held
-against the window, the device's busy share (torch.profiler over 16
-jobs) and 16 jobs at the default window; B1-B4 64 launches each and no
-other, every JPEG well formed, job 0's scan byte-equal to
+over every CUDA device, one worker each): C5_JOBS (32) jobs of a
+4000x6000 RGGB DNG from seed 3 as tools/bench_configs.py writes it
+(uncompressed, hardlinked per job), AMaZE and denoise at luminance 20,
+to JPEGs, after a warm run of 2, with the window of the reference's
+one-chip run (prefetch 8): images/s, the stages' worker-seconds, the
+frames held against the window, the device's busy share (torch.profiler
+over C5_SUB (8) jobs) and C5_SUB jobs at the default window; B1-B4
+C5_JOBS launches each and no other, every JPEG well formed, job 0's
+scan byte-equal to
 process_image's. Then a mixed catalog of 10 jobs (the four bundled
 profiles and USER_ARP, which turns on the five pointwise ops), B7 once
-per Neutral-curve job, and USER_ARP's 512x2048 develop against the CPU.
+per Neutral-curve job, and USER_ARP's 512x1024 develop against the CPU.
 Then the everyday export (`export_phase`), counts reset before each
 path: E1, the flagship frame with blown highlights (`clipped_frame`,
 about 1% of the sites at white) and `export_pp` (Blend, denoise 20/20
 with LuminanceDetail 30, RL sharpening, a quarter turn, a 3000x4500
 crop at (500, 750), a 2048 box with USM output sharpening, Adobe RGB),
 B1, B2, B3, B5 and B7 (no epilogue) once each and no other, as
-new_path runs configs 2 and 4, with a 512x2048 develop against the CPU;
+new_path runs configs 2 and 4, with a 512x1024 develop against the CPU;
 E2, the flagship's fast export (-q) through cli.main at the default
 1920 box (B1-B3 at 24 MP, B4 with no raw head at 1280x1920, B7 with the
 sRGB epilogue), its phases and the Lanczos matrices' share of the H2D;
@@ -86,7 +87,7 @@ E3, config 3's denoise with LuminanceDetail 30 in a fast export to an
 800 box (533x800: the whole-plane wavelet, the DCT pass, guided chroma;
 B6 once, its 256x256 tile fits, as in the reference), as new_path runs;
 B7 with no epilogue and B4 with no raw head against their plain
-versions on the tensors E1 and E2 feed them; and 512x2048 develops with
+versions on the tensors E1 and E2 feed them; and 512x1024 develops with
 HLRecovery=Color and ColorSoft against the CPU.
 Then the look (`look_phase`), counts reset before each path: L1, a
 colour grade on the flagship frame (`l1_pp`: two spot entries, HSL,
@@ -96,7 +97,7 @@ texture boost, automatic log encoding, Lab adjustments), B1, B2, B3, B4
 (no raw head) and B7 (no epilogue) once and B6 three times; L2, a
 scanned colour negative (`l2_frame`, `l2_pp`: film negative, Fattal, a
 FilmLike curve, B&W), B1-B3 once; each as new_path runs, with its
-512x2048 develop against the CPU; B6 against its plain version on the
+512x1024 develop against the CPU; B6 against its plain version on the
 luma and chroma planes L1's smoothing feeds it; Fattal's 49-point
 median at 24 MP beside a 9-point one; and each of the seven tone-curve
 modes in a 512x768 develop against the CPU.
@@ -109,10 +110,10 @@ denoise, the PDAF filter, an LCP profile's distortion, CA and vignette,
 a rotation by 1.5 degrees, perspective and auto-fill; AMaZE, denoise, the
 Neutral curve), B1, B2, B3, B4 (raw head) and B7 (sRGB epilogue) once
 each, as new_path runs it, each kernel held to its plain version on the
-tensors C1 feeds it and a 512x2048 develop against the CPU; C2, a 24 MP
+tensors C1 feeds it and a 512x1024 develop against the CPU; C2, a 24 MP
 DNG with four 9x9 gain maps developed through cli.main with lensfun
 (`lensfun_db`), a distortion slider and CA sliders (`c2_arp`), its
-phases (median of 3 after a warm run), its launches and a 512x2048
+phases (median of 2 after a warm run), its launches and a 512x1024
 develop against the CPU.
 Then the demosaics and raw inputs (`demosaic_phase`), counts reset
 before each path: D1, the flagship with `amazevng4` and the automatic
@@ -157,7 +158,7 @@ region's own, with the host plan's mask parts timed apart (the fills,
 the card's blurs, the decode, the resample); M2 (`m2_pp`), WB Auto
 through process_image with a listener that takes the histogram and the
 auto WB report: B1-B4 and B7 once. Each prints its develop, device
-program, peak memory, device ms by `art:` stage and a 512x2048 develop
+program, peak memory, device ms by `art:` stage and a 512x1024 develop
 against the CPU.
 Then the JPEG decoder and histogram matching (`jpeg_phase`): H1, the
 bundled Auto-Matched Curve.arp on a DNG with a full-size preview; H2,
@@ -206,6 +207,16 @@ develop through cli.main with a PackBits PSD Hald and an RLE SGI mask,
 its JPEG byte-equal to the same develop from PNGs of the same samples,
 B1-B4 and B7 once each and bit-equal to their plain versions on R2's
 tensors.
+Then the small raster plugins (`plugin_phase`): G1, 24 MP FITS (16-bit
+and float32, read as Pillow reads them: big-endian samples as
+little-endian), PFM, SPIDER, McIdas, IM RGB;L, RLE SUN and PIXAR files
+the phase writes (`plugin_files`), each read_image's host ms, mode and
+samples against the array written, and the small plugin fixtures of
+tests/data and a Photo CD (`write_pcd`) against Pillow's sha256; G2,
+F2's develop through cli.main with an RLE SUN Hald and a PFM mask of
+mode F, its JPEG byte-equal to the same develop from a PNG Hald and a
+float32 TIFF mask, B1-B4 and B7 once each and bit-equal to their plain
+versions on G2's tensors.
 Then one JSON line of per-kernel results (time, plain time, bound) and
 last the line {"ok": true, "device": {...}}. Any failure raises
 (non-zero exit, no result lines); so does a machine without CUDA.
@@ -256,8 +267,20 @@ FRAME = (4000, 6000)
 FRAME4 = (4008, 6000)
 # the small develops, card against the CPU: the earlier paths, config 2,
 # config 4
-SMALL, SMALL2, SMALL4 = (512, 2048), (512, 768), (384, 576)
+SMALL, SMALL2, SMALL4 = (512, 1024), (512, 768), (384, 576)
 PROFILE = "Standard Film Curve.arp"
+
+
+T_START = time.monotonic()
+
+
+@contextlib.contextmanager
+def phase_clock(name):
+    """Logs a phase's host seconds and the script's so far."""
+    t0 = time.monotonic()
+    yield
+    t1 = time.monotonic()
+    log(f"{name}: {t1 - t0:.1f} s ({t1 - T_START:.1f} s since the start)")
 
 
 def log(*a):
@@ -1182,12 +1205,12 @@ def median_develop(label, frame, pp, fast=False):
     from art_tpu_torch.pipeline import develop as tdev
 
     times = []
-    for _ in range(5):
+    for _ in range(2):
         t0 = time.monotonic()
         tdev.develop(frame, pp, fast=fast)
         torch.cuda.synchronize()
         times.append(time.monotonic() - t0)
-    log(f"{label} develop (plan + H2D + device + crop), median of 5: "
+    log(f"{label} develop (plan + H2D + device + crop), median of 2: "
         f"{1e3 * float(np.median(times)):.1f} ms "
         f"{[round(1e3 * t, 1) for t in times]}")
 
@@ -1484,7 +1507,7 @@ def cli_run(argv):
     return phases, seconds
 
 
-def cli_timed(label, argv, runs=3):
+def cli_timed(label, argv, runs=2):
     """cli_run once warm, then `runs` times: logs each phase's median."""
     cli_run(argv)
     got = [cli_run(argv) for _ in range(runs)]
@@ -1703,14 +1726,19 @@ BUNDLED = {"Auto-Matched Curve.arp": False, "Neutral.arp": False,
            "Punchy.arp": True, "Standard Film Curve.arp": True}
 
 
+# config 5's catalog: its jobs, and the jobs of the profiled run and of
+# the run at the default window
+C5_JOBS, C5_SUB = 32, 8
+
+
 def config5_phase(smi_line, tmp):
     """Config 5, the batch queue (`parallel.queue.process_batch` over
-    every CUDA device): (a) 64 jobs of config 5's 24 MP DNG to JPEGs,
+    every CUDA device): (a) C5_JOBS jobs of config 5's 24 MP DNG to JPEGs,
     after a warm run of 2: images/s, stage seconds, the frames held
     against the window, the device's busy share; launches, markers and
     job 0's scan against process_image's. (b) A mixed catalog of 10 jobs:
     the four bundled profiles and USER_ARP, two each; B7 once per
-    Neutral-curve job. Returns the user profile's 512x2048 develop, card
+    Neutral-curve job. Returns the user profile's 512x1024 develop, card
     against the CPU."""
     from art_tpu_torch.io.dngwrite import write_dng
     from art_tpu_torch.io.rawfile import load_raw
@@ -1732,10 +1760,11 @@ def config5_phase(smi_line, tmp):
     write_dng(src, m, black=500, white=16500, compress=False)
     del m
     paths = [src]
-    for i in range(1, 64):
+    for i in range(1, C5_JOBS):
         paths.append(os.path.join(tmp, f"c5_{i}.dng"))
         os.link(src, paths[-1])
-    log(f"config 5 DNG {FRAME[0]}x{FRAME[1]} written and linked 64 times "
+    log(f"config 5 DNG {FRAME[0]}x{FRAME[1]} written and linked {C5_JOBS} "
+        f"times "
         f"in {time.monotonic() - t0:.2f} s")
     config, _ = tdev.plan(load_raw(src), config5_pp(), out_u8=True)
     if ([s[0] for s in config.steps] != ["denoise"]
@@ -1744,7 +1773,7 @@ def config5_phase(smi_line, tmp):
                            f"{tdev.fusion_gates(config)}")
     jobs = [(p, config5_pp(), os.path.join(tmp, f"c5_out_{i}.jpg"))
             for i, p in enumerate(paths)]
-    want = {k: 64 * (k in ("b1", "b2", "b3", "b4")) for k in counted()}
+    want = {k: C5_JOBS * (k in ("b1", "b2", "b3", "b4")) for k in counted()}
     # the window of the reference's run on one chip (device_batch 4:
     # max(4 + 1, 2 * 4) = 8 frames), and the default (prefetch 2)
     prefetch = 8
@@ -1758,7 +1787,8 @@ def config5_phase(smi_line, tmp):
         f"span over wall time): {stats['stage_seconds']['device'] / wall:.4f}")
     scans = [check_jpeg(j[2], quiet=True) for j in jobs]
     sizes = [os.path.getsize(j[2]) for j in jobs]
-    log(f"  all 64 JPEGs well formed ({min(sizes)}-{max(sizes)} bytes)")
+    log(f"  all {C5_JOBS} JPEGs well formed ({min(sizes)}-{max(sizes)} "
+        "bytes)")
     ref = os.path.join(tmp, "c5_single.jpg")
     tdev.process_image(src, config5_pp(), output_path=ref)
     if scans[0] != check_jpeg(ref, quiet=True):
@@ -1769,13 +1799,14 @@ def config5_phase(smi_line, tmp):
                            "scans")
     log("  job 0's scan (SOS to EOI) equals process_image's, byte for "
         "byte; every job's scan equals job 0's")
+    n = C5_SUB
     busy, pwall = device_busy(lambda: batch_counts(
-        "config 5 under torch.profiler, 16 jobs", jobs[:16],
-        {k: 16 * (v > 0) for k, v in want.items()}, prefetch))
-    log(f"  profiled 16 jobs: device busy {busy:.3f} s of {pwall:.3f} s "
+        f"config 5 under torch.profiler, {n} jobs", jobs[:n],
+        {k: n * (v > 0) for k, v in want.items()}, prefetch))
+    log(f"  profiled {n} jobs: device busy {busy:.3f} s of {pwall:.3f} s "
         f"wall, busy share {busy / pwall:.4f}")
-    batch_counts("config 5 at the default window (prefetch 2), 16 jobs",
-                 jobs[:16], {k: 16 * (v > 0) for k, v in want.items()}, 2)
+    batch_counts(f"config 5 at the default window (prefetch 2), {n} jobs",
+                 jobs[:n], {k: n * (v > 0) for k, v in want.items()}, 2)
     for j in jobs:
         os.unlink(j[2])
 
@@ -2004,7 +2035,7 @@ def look_phase(smi_line, entries):
     grade on the flagship frame (`l1_pp`: B1, B2, B3 and B4 with no raw
     head once, B6 three times on smoothing's Y, U and V, B7 with no
     epilogue once) and L2, a scanned colour negative (`l2_frame`,
-    `l2_pp`: B1-B3 once), as new_path runs them, with 512x2048 develops
+    `l2_pp`: B1-B3 once), as new_path runs them, with 512x1024 develops
     against the CPU; B6 on L1's luma and chroma planes against its plain
     version (entries added to `entries`); Fattal's 49-point shadow median
     timed beside a 9-point one; and each tone-curve mode at 512x768
@@ -2117,10 +2148,10 @@ def lens_phase(smi_line, tmp):
     vignette, a rotation, perspective and auto-fill; AMaZE, denoise, the
     Neutral curve, sRGB), as new_path runs it: B1, B2, B3, B4 (raw head)
     and B7 (sRGB epilogue) once each, each held to its plain version on
-    the tensors C1 feeds it, and a 512x2048 develop against the CPU. C2,
+    the tensors C1 feeds it, and a 512x1024 develop against the CPU. C2,
     an embedded gain map and lensfun through cli.main (`c2_dng`,
-    `c2_arp`, `lensfun_db`): its phases, median of 3 after a warm run,
-    its launches, and a 512x2048 develop against the CPU. Returns (the
+    `c2_arp`, `lensfun_db`): its phases, median of 2 after a warm run,
+    its launches, and a 512x1024 develop against the CPU. Returns (the
     comparisons, the failures)."""
     from art_tpu_torch.io.rawfile import load_raw
     from art_tpu_torch.pipeline import develop as tdev
@@ -2394,7 +2425,8 @@ def demosaic_phase(smi_line, entries):
     own tensors, each path's small develop against the CPU:
     D1, the flagship with `amazevng4` and the automatic dual contrast
     (B1-B4, B7; the median develop, the device program, peak memory and
-    `art:` stages, a 512x2048 develop against the CPU); D2, each of
+    `art:` stages, a 512x768 develop against the CPU, as D3's and D4's);
+    D2, each of
     D2_METHODS on the flagship frame and profile (B4 and B7; B1-B3 for
     the AMaZE dual), its device program and `art:demosaic` ms and a
     256x1024 crop against the CPU; D3, pixel shift: four 24 MP frames
@@ -2412,7 +2444,7 @@ def demosaic_phase(smi_line, entries):
     b15 = ("b1", "b2", "b3", "b4", "b7")
     t0 = time.monotonic()
     frame = flagship_frame(*FRAME)
-    small = flagship_frame(*SMALL, seed=5)
+    small = flagship_frame(*SMALL2, seed=5)
     log(f"flagship frame {FRAME[0]}x{FRAME[1]} in "
         f"{time.monotonic() - t0:.2f} s")
 
@@ -2437,7 +2469,7 @@ def demosaic_phase(smi_line, entries):
     # D3: pixel shift, a moved patch
     t0 = time.monotonic()
     frame = pixelshift_frame(*FRAME)
-    small = pixelshift_frame(*SMALL, seed=5)
+    small = pixelshift_frame(*SMALL2, seed=5)
     log(f"D3 four pixel-shift frames {FRAME[0]}x{FRAME[1]} in "
         f"{time.monotonic() - t0:.2f} s")
     pp = flagship_pp("pixelshift")
@@ -2470,7 +2502,7 @@ def demosaic_phase(smi_line, entries):
 
     # D4: Foveon, three planes, no demosaic
     pp = flagship_pp("amaze")
-    frame, small = foveon_frame(*FRAME), foveon_frame(*SMALL, seed=5)
+    frame, small = foveon_frame(*FRAME), foveon_frame(*SMALL2, seed=5)
     config, _ = tdev.plan(frame, pp)
     if config.demosaic_method != "foveon" or not tdev.fusion_gates(
             config)[0]:
@@ -2951,7 +2983,7 @@ def profile_pp(arp, pp=None):
     return pp
 
 
-# the gamut warning's marks, card against the CPU at SMALL: a pixel whose
+# the gamut warning's marks, card against the CPU at SMALL2: a pixel whose
 # round-trip delta lies within rounding of the 1e-4 threshold may flip
 # between the devices (its colour moves by up to full scale); at most
 # this share of the pixels, and the slice bounds beyond them
@@ -3014,7 +3046,7 @@ def profile_phase(smi_line, tmp):
     log(f"Hald CLUT decode (host, io/imagefile.py): "
         f"{1e3 * (time.monotonic() - t0):.1f} ms -> {table.shape}")
     frame = flagship_frame(*FRAME)
-    small = flagship_frame(*SMALL, seed=5)
+    small = flagship_frame(*SMALL2, seed=5)
     want = ("b1", "b2", "b3", "b4", "b7")
     stats, failures = {}, []
 
@@ -3101,7 +3133,7 @@ def profile_phase(smi_line, tmp):
                            f"{phases}")
     check_jpeg(out)
     cli_timed("P3 gamut (4000x6000 DNG, Hald film simulation, ProPhoto "
-              "JPEG, an sRGB proof)", argv, runs=2)
+              "JPEG, an sRGB proof)", argv, runs=1)
     from art_tpu_torch import cli
 
     pp = cli.compose_params(dng, cli.parse_args(argv))
@@ -3115,7 +3147,7 @@ def profile_phase(smi_line, tmp):
     c, cm = paint_gamut_warning(tdev.develop(small, pp, device="cpu"),
                                 "ProPhoto", "sRGB")
     st = flip_parity(g.cpu(), c, gm.cpu(), cm, 0)
-    log(f"{SMALL[0]}x{SMALL[1]} P3 gamut develop, card vs CPU plain path: "
+    log(f"{SMALL2[0]}x{SMALL2[1]} P3 gamut develop, card vs CPU plain path: "
         f"{st}")
     if (st["flip_share"] > GAMUT_FLIPS
             or st["max_lsb8_beyond_flips"] > DEV_MAX * 255
@@ -3333,7 +3365,7 @@ def mask_phase(smi_line, tmp):
     flagship with WB Auto through process_image with a listener that
     takes the histogram and the auto WB report; B1-B4 and B7 once. Each
     with its device program, peak memory, device ms by `art:` stage and
-    a 512x2048 develop against the CPU. Returns (the comparisons, the
+    a 512x1024 develop against the CPU. Returns (the comparisons, the
     failures)."""
     from art_tpu_torch.ops import denoise
     from art_tpu_torch.pipeline import develop as tdev
@@ -3481,7 +3513,7 @@ def jpeg_phase(smi_line, tmp, entries):
     matched points; B1-B3 once each and no other (B7 too where the
     matched curve's LUT fits one split polynomial; a kinked one runs on
     segments, plain math, as in the reference), each held to its plain
-    version on H1's tensors (kernels-line entries `b*_h1`); a 512x2048
+    version on H1's tensors (kernels-line entries `b*_h1`); a 512x1024
     file on the card against the CPU, with the matched points of both. H2: the same file through cli.main
     with the bundled profile to a JPEG, its phases. J1: the decoder alone
     on the 24 MP preview, a level-8 Hald JPEG (512x512) and a 1000x1500
@@ -3708,20 +3740,21 @@ def entry_phase(smi_line, tmp):
     shipped `art_tpu_torch/preconverters/pnm_to_dng.py`, through cli.main
     with the bundled profile and denoise 20/20: the first call (the
     preconversion subprocess in its decode), the cached second, the
-    phases (median of 3 after a warm run), B1-B4 and B7 once each and no
+    phases (one run after a warm run), B1-B4 and B7 once each and no
     plain version, each held to its plain version on X1's tensors, the
     JPEG well formed with its scan byte-equal to cli.main's on the cached
     DNG itself; a 512x768 .mos through the same path, card against the
     CPU. T1: `thumbnail` of a 24 MP DNG with no preview (a fast develop
     of ProcParams(); its launches as its plan says) and of H1's DNG with
-    a full-size preview (no launch), both timed. N1: `load_image` of 24
-    MP non-raw files on the host, decode and conversion timed apart: an
-    8-bit RGB PNG, a 16-bit grey PNG (I;16), a JPEG-compressed TIFF
-    (YCbCr 4:2:0 strips), an 8-bit JPEG with an Adobe RGB matrix/TRC
-    profile (`color/iccwrite.py`; the LittleCMS model); then an [ART
-    ImageIO] loader for an unknown extension; then the PNG through
-    cli.main: exit code 2, the error naming non-raw input, no file
-    written. Returns (the comparisons, the failures)."""
+    a full-size preview (no launch), both timed (first and second call).
+    N1: `load_image` of 24 MP non-raw files on the host (one call each),
+    decode and conversion timed apart: an 8-bit RGB PNG, a 16-bit grey
+    PNG (I;16), a JPEG-compressed TIFF (YCbCr 4:2:0 strips), an 8-bit
+    JPEG with an Adobe RGB matrix/TRC profile (`color/iccwrite.py`; the
+    LittleCMS model); then an [ART ImageIO] loader for an unknown
+    extension; then the PNG through cli.main: exit code 2, the error
+    naming non-raw input, no file written. Returns (the comparisons, the
+    failures)."""
     import shutil
 
     import art_tpu_torch
@@ -3783,7 +3816,7 @@ def entry_phase(smi_line, tmp):
                                    f"once; plain calls {plain_calls}")
         scan = check_jpeg(out)
         cli_timed(f"X1 ({FRAME[0]}x{FRAME[1]} .{X1_EXT} preconverted, "
-                  "AMaZE, denoise, Neutral curve, sRGB JPEG)", argv)
+                  "AMaZE, denoise, Neutral curve, sRGB JPEG)", argv, runs=1)
         dng = iomanager.get_instance().preconvert_raw(pgm)
         if not dng or os.path.dirname(os.path.dirname(dng)) != cache:
             raise RuntimeError(f"X1: no cached DNG ({dng})")
@@ -3820,9 +3853,9 @@ def entry_phase(smi_line, tmp):
             reset_counts()
             thumb, first = timed(lambda: art_tpu_torch.thumbnail(path), 1)
             launches, plain_calls = read_counts()
-            _, warm = timed(lambda: art_tpu_torch.thumbnail(path), 3)
+            _, warm = timed(lambda: art_tpu_torch.thumbnail(path), 1)
             log(f"T1 thumbnail, {label}: {thumb.shape} {thumb.dtype}, first "
-                f"{1e3 * first:.1f} ms, median of 3 {1e3 * warm:.1f} ms; "
+                f"{1e3 * first:.1f} ms, second {1e3 * warm:.1f} ms; "
                 f"launches {launches}; plain calls {plain_calls}")
             if launches != {k: int(k in kernels) for k in launches} \
                     or any(plain_calls.values()):
@@ -3853,17 +3886,17 @@ def entry_phase(smi_line, tmp):
         log(f"N1 files written in {time.monotonic() - t0:.1f} s")
         for label, path in files.items():
             (mode, samples, icc), dec = timed(
-                lambda: imagefile.read_image(path))
+                lambda: imagefile.read_image(path), 1)
             conv = 0.0
             if icc:
                 _, conv = timed(lambda: lcms.to_srgb(
-                    imagefile.to_rgb8(mode, samples), icc))
-            fr, total = timed(lambda: art_tpu_torch.load_image(path))
+                    imagefile.to_rgb8(mode, samples), icc), 1)
+            fr, total = timed(lambda: art_tpu_torch.load_image(path), 1)
             log(f"N1 {label} ({os.path.getsize(path) / 1e6:.1f} MB, mode "
                 f"{mode}, ICC {len(icc) if icc else 0} bytes): decode "
                 f"{1e3 * dec:.1f} ms, ICC conversion {1e3 * conv:.1f} ms; "
                 f"load_image in all (decode, conversion, sRGB decode to "
-                f"float) {1e3 * total:.1f} ms (medians of 2)")
+                f"float) {1e3 * total:.1f} ms (one call each)")
             if fr.rgb.shape != (3, *FRAME) or fr.is_raw or not (
                     np.isfinite(fr.rgb).all() and fr.rgb.min() >= 0
                     and fr.rgb.max() <= 65535.0):
@@ -4182,8 +4215,8 @@ def formats_phase(smi_line, tmp):
             f"{'equal' if ok else 'DIFFERENT'}")
         if not ok:
             failures.append(f"F1 {name} decodes differently")
-    for name in sorted(k for k in recorded
-                       if not k.startswith(("F1 ", "webp_", "raster_"))):
+    for name in sorted(k for k in recorded if not k.startswith(
+            ("F1 ", "G1 ", "webp_", "raster_", "plugin_"))):
         path = os.path.join(FORMATS_DATA, name)
         buf = open(path, "rb").read()
         t0 = time.monotonic()
@@ -4875,6 +4908,370 @@ def raster_phase(smi_line, tmp):
     return {}, failures
 
 
+# ---- the small raster plugins (G1, G2) -----------------------------------
+
+def _write(path, data):
+    with open(path, "wb") as f:
+        f.write(data)
+    return path
+
+
+def _fits_card(key, value=None):
+    if value is None:
+        return key.ljust(80).encode()
+    return f"{key:<8}= {value:>20}".ljust(80).encode()
+
+
+def fits_bytes(arr, bitpix):
+    """A FITS primary image of (H, W) samples (BITPIX 8, 16, 32, -32 or
+    -64, the samples' bits stored big-endian), its first row the image's
+    bottom, padded to 2880-byte blocks."""
+    h, w = arr.shape
+    dt = {8: ">u1", 16: ">i2", 32: ">i4", -32: ">f4", -64: ">f8"}[bitpix]
+    head = b"".join([_fits_card("SIMPLE", "T"), _fits_card("BITPIX", bitpix),
+                     _fits_card("NAXIS", 2), _fits_card("NAXIS1", w),
+                     _fits_card("NAXIS2", h), _fits_card("END")])
+    head += b" " * (-len(head) % 2880)
+    data = np.ascontiguousarray(arr[::-1]).astype(dt).tobytes()
+    return head + data + b"\0" * (-len(data) % 2880)
+
+
+def write_fits(path, arr, bitpix):
+    return _write(path, fits_bytes(arr, bitpix))
+
+
+def fits_as_pillow(arr):
+    """What Pillow's FITS plugin reads from `write_fits` at BITPIX 16 or
+    -32: the stored bytes as little-endian samples (its raw mode is the
+    mode), the rows put back top-down: each sample's bytes swapped."""
+    return arr.byteswap()
+
+
+def pfm_bytes(arr, scale=-1.0):
+    """A PFM of (H, W) float32, bottom row first, little-endian for a
+    negative scale."""
+    h, w = arr.shape
+    dt = "<f4" if scale < 0 else ">f4"
+    return (b"Pf\n%d %d\n%s\n" % (w, h, repr(scale).encode())
+            + np.ascontiguousarray(arr[::-1]).astype(dt).tobytes())
+
+
+def write_pfm(path, arr):
+    return _write(path, pfm_bytes(arr))
+
+
+def spider_bytes(arr, big=False):
+    """A SPIDER 2D image of (H, W) float32: its header one record of 4 x W
+    bytes (or more records, to 1024 bytes), as SPIDER writes it."""
+    import struct
+
+    h, w = arr.shape
+    lenbyt = 4 * w
+    labrec = -(-1024 // lenbyt)
+    hdr = [0.0] * (labrec * lenbyt // 4 + 1)
+    hdr[1], hdr[2], hdr[3], hdr[5], hdr[12] = 1.0, h, h, 1.0, w
+    hdr[13], hdr[22], hdr[23] = labrec, labrec * lenbyt, lenbyt
+    e = ">" if big else "<"
+    return struct.pack(f"{e}{len(hdr) - 1}f", *hdr[1:]) + \
+        np.ascontiguousarray(arr).astype(f"{e}f4").tobytes()
+
+
+def write_spider(path, arr):
+    return _write(path, spider_bytes(arr))
+
+
+def mcidas_bytes(arr, nbytes, prefix=0, offset=256):
+    """A McIdas area of (H, W) samples of `nbytes` bytes (1, 2 or 4),
+    big-endian, one band, each line after a `prefix` of line-documentation
+    bytes, the data at `offset`."""
+    import struct
+
+    h, w = arr.shape
+    words = [0] * 65
+    words[2], words[9], words[10], words[11] = 4, h, w, nbytes
+    words[14], words[15], words[34] = 1, prefix, offset
+    dt = {1: ">u1", 2: ">u2", 4: ">i4"}[nbytes]
+    lines = np.full((h, prefix + nbytes * w), 7, np.uint8)
+    lines[:, prefix:] = np.ascontiguousarray(arr).astype(dt).view(
+        np.uint8).reshape(h, -1)
+    head = struct.pack("!64i", *words[1:])
+    return head + bytes(max(0, offset - 256)) + lines.tobytes()
+
+
+def write_mcidas(path, arr, prefix=8):
+    return _write(path, mcidas_bytes(arr, 2, prefix))
+
+
+def write_im_rgb(path, rgb):
+    """An IM "RGB image": a 512-byte header, then line-interleaved rows
+    (each row's R, G and B lines), bottom row first."""
+    h, w, _ = rgb.shape
+    head = (b"Image type: RGB image\r\nName: g1\r\n"
+            b"Image size (x*y): %d*%d\r\n" % (w, h)).ljust(511, b"\0")
+    rows = np.ascontiguousarray(np.moveaxis(rgb[::-1], -1, 1))
+    return _write(path, head + b"\x1a" + rows.tobytes())
+
+
+def sun_rle_bytes(raw):
+    """Sun's byte run-length code of a uint8 stream: runs of three or
+    more (up to 256) as 0x80, count - 1, value; a lone or paired 0x80 as
+    0x80 0 each; any other byte as itself."""
+    raw = np.ascontiguousarray(raw, np.uint8).reshape(-1)
+    n = raw.size
+    starts = np.concatenate([[0], np.nonzero(raw[1:] != raw[:-1])[0] + 1])
+    lengths = np.diff(np.concatenate([starts, [n]]))
+    # split runs longer than 256
+    k = (lengths + 255) // 256
+    first = np.repeat(starts, k) + (np.arange(k.sum()) - np.repeat(
+        np.cumsum(k) - k, k)) * 256
+    lens = np.minimum(256, np.repeat(starts + lengths, k) - first)
+    vals = raw[first]
+    run = lens >= 3
+    # a short stretch of 0x80 goes byte by byte, 2 bytes each; others 1
+    size = np.where(run, 3, np.where(vals == 0x80, 2 * lens, lens))
+    ends = np.cumsum(size)
+    at = ends - size
+    out = np.empty(int(ends[-1]), np.uint8)
+    r = np.nonzero(run)[0]
+    out[at[r]], out[at[r] + 1], out[at[r] + 2] = 0x80, lens[r] - 1, vals[r]
+    short = np.nonzero(~run)[0]
+    for j in (0, 1):  # the first and second byte of a short stretch
+        s2 = short[lens[short] > j]
+        esc = vals[s2] == 0x80
+        pos = at[s2] + np.where(esc, 2 * j, j)
+        out[pos] = vals[s2]
+        out[pos[esc] + 1] = 0
+    return out
+
+
+def sun_bytes(data, w, h, depth, ftype=1, palette=None):
+    """A Sun raster of its stored bytes (`ftype` 2: RLE-coded) and a
+    planar RGB colour map."""
+    import struct
+
+    pal = b"" if palette is None else bytes(palette)
+    return struct.pack(">8I", 0x59A66A95, w, h, depth, len(data), ftype,
+                       1 if pal else 0, len(pal)) + pal + bytes(data)
+
+
+def write_sun_rle(path, rgb):
+    """A 24-bit Sun raster, type 2 (RLE) of (H, W, 3) uint8: B, G, R
+    bytes, the rows one stream (coded 256 rows at a time)."""
+    h, w, _ = rgb.shape
+    data = np.concatenate([
+        sun_rle_bytes(np.ascontiguousarray(rgb[y : y + 256, :, ::-1]))
+        for y in range(0, h, 256)])
+    return _write(path, sun_bytes(data, w, h, 24, 2))
+
+
+def pixar_bytes(rgb):
+    """A PIXAR raster of (H, W, 3) uint8: the 1024-byte header (its size
+    at 416, the 8-bit RGB storage code at 424), then the pixels."""
+    import struct
+
+    h, w, _ = rgb.shape
+    head = bytearray(1024)
+    head[:4] = b"\x80\xe8\0\0"
+    struct.pack_into("<HH", head, 416, h, w)
+    struct.pack_into("<HH", head, 424, 14, 2)
+    return bytes(head) + np.ascontiguousarray(rgb, np.uint8).tobytes()
+
+
+def write_pixar(path, rgb):
+    return _write(path, pixar_bytes(rgb))
+
+
+def write_float_tiff(path, arr):
+    """A little-endian TIFF of one float32 sample a pixel (Pillow's "F")."""
+    h, w = arr.shape
+    strips = [np.ascontiguousarray(arr[y : y + 256]).astype("<f4").tobytes()
+              for y in range(0, h, 256)]
+    ents = [(256, 4, [w]), (257, 4, [h]), (258, 3, [32]), (259, 3, [1]),
+            (262, 3, [1]), (277, 3, [1]), (278, 4, [256]), (339, 3, [3])]
+    with open(path, "wb") as f:
+        f.write(tiff_bytes(strips, ents))
+    return path
+
+
+# the Photo CD the phase writes, and the sha256 of Pillow's decode
+G1_PCD = "G1 PCD, orientation 1"
+
+
+def pcd_bytes(orientation=1, seed=0):
+    """A Photo CD image pac as far as its base image: the "PCD_" block at
+    2048 with the orientation (1, a quarter turn), the 768 x 512 YCC base
+    at 96 x 2048: pairs of luma rows (a ramp with noise) over half-width
+    chroma."""
+    rng = np.random.default_rng(seed)
+    head = bytearray(96 * 2048)
+    head[2048 : 2048 + 7] = b"PCD_IPI"
+    head[2048 + 1538] = orientation
+    x = np.arange(768)
+    luma = ((x[None, :] // 3 + np.arange(512)[:, None] // 2) % 256 +
+            rng.integers(0, 6, (512, 768))).clip(0, 255).astype(np.uint8)
+    chroma = rng.integers(90, 190, (256, 2, 384)).astype(np.uint8)
+    body = np.concatenate([luma.reshape(256, 2 * 768),
+                           chroma.reshape(256, 768)], 1)
+    return bytes(head) + body.tobytes()
+
+
+def write_pcd(path, seed=0):
+    return _write(path, pcd_bytes(1, seed))
+
+
+def plugin_files(tmp, h, w, seed=0):
+    """G1's files in `tmp`: name -> (path, the mode read_image gives, the
+    samples it gives: each written array read as Pillow reads it)."""
+    rgb, grey16 = formats_arrays(h, w, seed)[:2]
+    f32 = (grey16.astype(np.float32) / 65535.0) ** np.float32(2.2)
+    j = os.path.join
+    return {
+        "FITS 16-bit": (write_fits(j(tmp, "g1.fits"), grey16, 16), "I;16",
+                        fits_as_pillow(grey16)),
+        "FITS float32": (write_fits(j(tmp, "g1f.fits"), f32, -32), "F",
+                         fits_as_pillow(f32)),
+        "PFM": (write_pfm(j(tmp, "g1.pfm"), f32), "F", f32),
+        "SPIDER": (write_spider(j(tmp, "g1.spi"), f32), "F", f32),
+        "McIdas 16-bit": (write_mcidas(j(tmp, "g1.area"), grey16), "I;16B",
+                          grey16),
+        "IM RGB;L": (write_im_rgb(j(tmp, "g1.im"), rgb), "RGB", rgb),
+        "SUN RLE 24-bit": (write_sun_rle(j(tmp, "g1.ras"), rgb), "RGB", rgb),
+        "PIXAR": (write_pixar(j(tmp, "g1.pxr"), rgb), "RGB", rgb),
+    }
+
+
+def _bits_equal(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    return a.shape == b.shape and a.dtype.itemsize == b.dtype.itemsize and \
+        np.array_equal(a.view(f"u{a.dtype.itemsize}"),
+                       b.view(f"u{b.dtype.itemsize}"))
+
+
+def plugin_phase(smi_line, tmp):
+    """The small raster plugins decoded by the port on the card's machine
+    (no PIL there). G1: `plugin_files` at 24 MP (FITS 16-bit and float32,
+    PFM, SPIDER, McIdas 16-bit, IM RGB;L, RLE SUN 24-bit, PIXAR), each
+    read_image's host ms and its mode and samples against the array
+    written, read as Pillow reads it (FITS's big-endian samples as
+    little-endian); then every small plugin fixture of tests/data and the
+    Photo CD `write_pcd` writes, against the sha256 of Pillow's decode.
+    G2: F2's develop through cli.main (P3's Hald film simulation with
+    Texture Boost under an external mask, bundled profile, denoise
+    20/20), the Hald an RLE SUN raster and the mask a PFM of mode F,
+    against the same develop from a PNG Hald and a float32 TIFF mask of
+    the same samples: the JPEGs byte-equal, B1-B4 and B7 once each and
+    bit-equal to their plain versions on G2's tensors. Returns (the
+    comparisons, the failures)."""
+    from art_tpu_torch.io import imagefile
+    from art_tpu_torch.io.dngwrite import write_dng
+    from art_tpu_torch.io.imagefile import write_png
+    from art_tpu_torch.pipeline import develop as tdev
+
+    log(f"---- plugin phase ({smi_line})")
+    t_phase = time.monotonic()
+    failures = []
+    with open(FORMATS_SHA) as f:
+        recorded = json.load(f)
+    h, w = FORMATS_FRAME
+    t0 = time.monotonic()
+    files = plugin_files(tmp, h, w)
+    log(f"G1 files {h}x{w} written in {time.monotonic() - t0:.2f} s: "
+        + ", ".join(f"{k} {os.path.getsize(p) / 1e6:.1f} MB"
+                    for k, (p, _, _) in files.items()))
+    for name, (path, want_mode, want) in files.items():
+        t0 = time.monotonic()
+        mode, samples, _ = imagefile.read_image(path)
+        ms = 1e3 * (time.monotonic() - t0)
+        ok = mode == want_mode and _bits_equal(samples, want)
+        log(f"G1 {name}: read_image {ms:.1f} ms (host) -> mode {mode} "
+            f"{samples.shape} {samples.dtype}: "
+            f"{'equal' if ok else 'DIFFERENT'}")
+        if not ok:
+            failures.append(f"G1 {name} decodes differently")
+        os.unlink(path)
+    del files, samples
+    fixtures = {k: os.path.join(FORMATS_DATA, k) for k in recorded
+                if k.startswith("plugin_")}
+    fixtures[G1_PCD] = write_pcd(os.path.join(tmp, "g1.pcd"))
+    for name in sorted(fixtures):
+        fpath = fixtures[name]
+        t0 = time.monotonic()
+        got = imagefile.read_rgb8(fpath)
+        ms = 1e3 * (time.monotonic() - t0)
+        ok = _sha(got) == recorded[name]
+        log(f"G1 {name} ({os.path.getsize(fpath)} bytes, "
+            f"{got.shape[1]}x{got.shape[0]}): read_rgb8 {ms:.1f} ms (host), "
+            f"sha256 {'equal to' if ok else 'NOT'} Pillow's")
+        if not ok:
+            failures.append(f"G1 {name}: sha256 differs from Pillow's")
+
+    # G2: an RLE SUN Hald and a PFM mask against a PNG and a float TIFF
+    hald = hald_image(12, 8)
+    mask = (f2_mask().astype(np.float32) / np.float32(255.0))
+    paths = {"hald": write_sun_rle(os.path.join(tmp, "hald12.ras"), hald),
+             "mask": write_pfm(os.path.join(tmp, "mask.pfm"), mask),
+             "hald_png": os.path.join(tmp, "hald12.png"),
+             "mask_tif": write_float_tiff(os.path.join(tmp, "mask.tif"),
+                                          mask)}
+    write_png(paths["hald_png"], hald)
+    t0 = time.monotonic()
+    plane, mode = imagefile.read_grey(paths["mask"])
+    ms = 1e3 * (time.monotonic() - t0)
+    ok = mode == "F" and _bits_equal(plane, mask)
+    log(f"G2 mask: the PFM reads as mode {mode} {plane.shape} in "
+        f"{ms:.1f} ms (host), {'equal to' if ok else 'NOT'} its samples")
+    if not ok:
+        failures.append("G2: the PFM mask decodes wrongly")
+    frame = flagship_frame(*FRAME)
+    dng = os.path.join(tmp, "g2.dng")
+    write_dng(dng, np.round(frame.cfa).astype(np.uint16), black=512,
+              white=16383, compress=False)
+    base = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "art_tpu_torch", "data", "profiles", PROFILE)
+    dn = os.path.join(tmp, "denoise20.arp")
+    with open(dn, "w") as f:
+        f.write("[Denoise]\nEnabled=true\nLuminance=20\nChrominance=20\n")
+    outs = {}
+    want = ("b1", "b2", "b3", "b4", "b7")
+    for kind, (lut, msk) in {
+            "plugins": (paths["hald"], paths["mask"]),
+            "png": (paths["hald_png"], paths["mask_tif"])}.items():
+        arp = os.path.join(tmp, f"g2_{kind}.arp")
+        with open(arp, "w") as f:
+            f.write(f2_arp(lut, msk))
+        out = os.path.join(tmp, f"g2_{kind}.jpg")
+        argv = ["-Y", "-p", base, "-p", dn, "-p", arp, "-o", out, "-c", dng]
+        reset_counts()
+        phases, seconds = cli_run(argv)
+        launches, plain_calls = read_counts()
+        log(f"G2 ({'SUN Hald, PFM mask' if kind == 'plugins' else 'PNG '
+            'Hald, float TIFF mask'}) through cli.main: "
+            f"{1e3 * seconds:.1f} ms end to end (first); phases {phases}; "
+            f"launches {launches}; plain calls {plain_calls}")
+        if launches != {k: int(k in want) for k in launches} \
+                or any(plain_calls.values()):
+            failures.append(f"G2 {kind}: launches {launches}, plain calls "
+                            f"{plain_calls}")
+        outs[kind] = open(out, "rb").read()
+        check_jpeg(out)
+    same = outs["plugins"] == outs["png"]
+    log(f"G2 JPEG from the SUN and PFM "
+        f"{'byte-equal to' if same else 'DIFFERS FROM'} the PNG's and "
+        f"TIFF's ({len(outs['plugins'])} bytes)")
+    if not same:
+        failures.append("G2: the SUN/PFM develop differs from the PNG/TIFF")
+    from art_tpu_torch import cli
+
+    argv = ["-Y", "-p", base, "-p", dn, "-p",
+            os.path.join(tmp, "g2_plugins.arp"), "-o",
+            os.path.join(tmp, "g2_k.jpg"), "-c", dng]
+    pp = cli.compose_params(dng, cli.parse_args(argv))
+    failures += kernels_against_plain("G2", lambda: tdev.develop(frame, pp),
+                                      want)
+    log(f"plugin phase: {time.monotonic() - t_phase:.1f} s")
+    return {}, failures
+
+
 def _leaves(d):
     for k, v in d.items():
         if isinstance(v, dict):
@@ -5121,42 +5518,49 @@ def main():
         log(f"{SMALL[0]}x{SMALL[1]} {label} develop, card vs CPU plain "
             f"path: {small_stats[label]}")
 
+    log(f"kernel phases and small develops: "
+        f"{time.monotonic() - T_START:.1f} s since the start")
     # ---- the CLI: config 1 and the flagship, file in, JPEG out
-    with tempfile.TemporaryDirectory() as tmp:
+    with phase_clock("CLI phase"), tempfile.TemporaryDirectory() as tmp:
         cli_phase(smi_line, tmp)
 
     # ---- config 5: the batch queue over a 24 MP catalog, then a mixed one
-    with tempfile.TemporaryDirectory() as tmp:
+    with phase_clock("config 5 phase"), \
+            tempfile.TemporaryDirectory() as tmp:
         new_stats["user-profile"] = config5_phase(smi_line, tmp)
 
     # ---- the everyday export: E1, E2 (-q through the CLI) and E3
-    with tempfile.TemporaryDirectory() as tmp:
+    with phase_clock("export phase"), tempfile.TemporaryDirectory() as tmp:
         new_stats.update(export_phase(smi_line, tmp, entries))
 
     # ---- the look: L1 (a colour grade) and L2 (a colour negative)
-    new_stats.update(look_phase(smi_line, entries))
+    with phase_clock("look phase"):
+        new_stats.update(look_phase(smi_line, entries))
 
     # ---- lens and sensor corrections: C1 (calibrated, lens-corrected)
     # and C2 (an embedded gain map and lensfun, through the CLI)
-    with tempfile.TemporaryDirectory() as tmp:
+    with phase_clock("lens phase"), tempfile.TemporaryDirectory() as tmp:
         lens_stats, failures = lens_phase(smi_line, tmp)
     new_stats.update(lens_stats)
 
     # ---- the demosaics and raw inputs: D1-D5
-    _, dem_stats, dem_failures = demosaic_phase(smi_line, entries)
+    with phase_clock("demosaic phase"):
+        _, dem_stats, dem_failures = demosaic_phase(smi_line, entries)
     new_stats.update(dem_stats)
     failures += dem_failures
 
     # ---- colour profiles and LUTs: P1 (a DCP), P2 (ICC LUT profiles), P3
     # (the film-simulation files, the gamut warning)
-    with tempfile.TemporaryDirectory() as tmp:
+    with phase_clock("profile phase, in all"), \
+            tempfile.TemporaryDirectory() as tmp:
         prof_stats, prof_failures = profile_phase(smi_line, tmp)
     new_stats.update(prof_stats)
     failures += prof_failures
 
     # ---- the region masks (M1: area, linked, drawn, external) and the
     # host autos and scopes (M2: auto WB, the histogram listener)
-    with tempfile.TemporaryDirectory() as tmp:
+    with phase_clock("mask phase, in all"), \
+            tempfile.TemporaryDirectory() as tmp:
         mask_stats, mask_failures = mask_phase(smi_line, tmp)
     new_stats.update(mask_stats)
     failures += mask_failures
@@ -5164,14 +5568,16 @@ def main():
     # ---- the JPEG decoder and histogram matching: H1 (the bundled
     # Auto-Matched Curve.arp on a DNG with a full-size preview), H2 (the
     # same through cli.main), J1 (the decoder alone, JPEG Hald and mask)
-    with tempfile.TemporaryDirectory() as tmp:
+    with phase_clock("JPEG phase, in all"), \
+            tempfile.TemporaryDirectory() as tmp:
         jpeg_stats, jpeg_failures = jpeg_phase(smi_line, tmp, entries)
     new_stats.update(jpeg_stats)
     failures += jpeg_failures
 
     # ---- the entry points: X1 (a preconverted raw through cli.main), T1
     # (thumbnails), N1 (non-raw input on the host)
-    with tempfile.TemporaryDirectory() as tmp:
+    with phase_clock("entry phase, in all"), \
+            tempfile.TemporaryDirectory() as tmp:
         entry_stats, entry_failures = entry_phase(smi_line, tmp)
     new_stats.update(entry_stats)
     failures += entry_failures
@@ -5179,24 +5585,36 @@ def main():
     # ---- the image formats Pillow opens: F1 (24 MP files of each form,
     # the committed JPEG forms), F2 (a BMP Hald and a PGM mask through
     # cli.main)
-    with tempfile.TemporaryDirectory() as tmp:
+    with phase_clock("formats phase, in all"), \
+            tempfile.TemporaryDirectory() as tmp:
         fmt_stats, fmt_failures = formats_phase(smi_line, tmp)
     new_stats.update(fmt_stats)
     failures += fmt_failures
 
     # ---- WebP: W1 (24 MP lossless and lossy decodes, the committed
     # fixtures), W2 (a WebP Hald and a WebP mask through cli.main)
-    with tempfile.TemporaryDirectory() as tmp:
+    with phase_clock("WebP phase, in all"), \
+            tempfile.TemporaryDirectory() as tmp:
         webp_stats, webp_failures = webp_phase(smi_line, tmp)
     new_stats.update(webp_stats)
     failures += webp_failures
 
     # ---- the simple raster formats: R1 (24 MP decodes, the committed
     # fixtures), R2 (a PSD Hald and an SGI mask through cli.main)
-    with tempfile.TemporaryDirectory() as tmp:
+    with phase_clock("raster phase, in all"), \
+            tempfile.TemporaryDirectory() as tmp:
         raster_stats, raster_failures = raster_phase(smi_line, tmp)
     new_stats.update(raster_stats)
     failures += raster_failures
+
+    # ---- the small raster plugins: G1 (24 MP decodes, the committed
+    # fixtures, a Photo CD), G2 (an RLE SUN Hald and a PFM mask through
+    # cli.main)
+    with phase_clock("plugin phase, in all"), \
+            tempfile.TemporaryDirectory() as tmp:
+        plugin_stats, plugin_failures = plugin_phase(smi_line, tmp)
+    new_stats.update(plugin_stats)
+    failures += plugin_failures
 
     failures += [f"B6 on {k} disagrees with its plain version"
                  for k, ok in b6_edges.items() if not ok]

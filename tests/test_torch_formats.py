@@ -87,7 +87,7 @@ def check_readers(path):
     assert gmode == pmode
     np.testing.assert_array_equal(grey, pg)
     got_mode, samples, icc = read_image(path)
-    if mode in ("I", "I;16", "I;16B", "F"):
+    if mode in ("I", "I;16", "I;16B", "I;16L", "F", "YCbCr"):
         assert got_mode == mode
         np.testing.assert_array_equal(samples, np.asarray(Image.open(path)))
     else:
@@ -833,7 +833,7 @@ def test_committed_fixtures_hold_their_sha256():
     check on the card's machine."""
     with open(os.path.join(DATA, "formats_sha256.json")) as f:
         recorded = json.load(f)
-    names = [k for k in recorded if not k.startswith("F1 ")]
+    names = [k for k in recorded if not k.startswith(("F1 ", "G1 "))]
     assert len(names) >= 7
     gif_bytes = open(os.path.join(DATA, "gif_pillow_lzw.gif"), "rb").read()
     assert gif_bytes[10] & 0x80 == 0  # no global table
@@ -892,8 +892,8 @@ PIL_FORMAT = {"JPEG 2000": "JPEG2000", "WebP": "WEBP", "McIdas": "MCIDAS",
 
 
 def _pil_written(fmt, tmp_path):
-    mode = "1" if fmt in ("XBM", "MSP") else ("F" if fmt == "SPIDER"
-                                             else "RGB")
+    mode = {"XBM": "1", "MSP": "1", "SPIDER": "F", "BLP": "P"}.get(fmt,
+                                                                  "RGB")
     img = Image.fromarray(scene(16, 16)).convert(mode)
     path = str(tmp_path / "a.img")
     try:
@@ -904,8 +904,7 @@ def _pil_written(fmt, tmp_path):
     return path
 
 
-@pytest.mark.parametrize("fmt", ["JPEG2000", "DDS", "MSP", "XBM", "IM",
-                                 "SPIDER"])
+@pytest.mark.parametrize("fmt", ["JPEG2000", "DDS", "BLP", "ICNS"])
 def test_formats_pillow_writes_and_the_port_refuses(fmt, tmp_path):
     """Files Pillow writes in a format the port does not decode: Pillow
     opens them, and the port raises NotImplementedError naming the
@@ -918,11 +917,12 @@ def test_formats_pillow_writes_and_the_port_refuses(fmt, tmp_path):
         read_rgb8(path)
 
 
-@pytest.mark.parametrize("fmt", ["DIB", "TGA", "ICO", "PCX", "SGI", "QOI"])
+@pytest.mark.parametrize("fmt", ["DIB", "TGA", "ICO", "PCX", "SGI", "QOI",
+                                 "MSP", "XBM", "IM", "SPIDER"])
 def test_formats_pillow_writes_decode_as_pillow(fmt, tmp_path):
-    """Files Pillow writes in the simple raster formats the port decodes
-    (io/rasterformats.py): the four readers as Pillow and the
-    reference."""
+    """Files Pillow writes in the simple raster formats and the small
+    raster plugins the port decodes (io/rasterformats.py,
+    io/plugins.py): the four readers as Pillow and the reference."""
     path = _pil_written(fmt, tmp_path)
     assert fmt not in {PIL_FORMAT.get(n, n.upper()) for n, _, _ in
                        unported.FORMATS}

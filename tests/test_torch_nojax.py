@@ -524,8 +524,10 @@ from art_tpu_torch.io import imagefile, unported
 qoi = b"qoif\0\0\0\4\0\0\0\3\3\0"
 assert unported.walk(qoi)[0] == "QOI" and unported.walk(qoi)[1] is not None
 assert unported.identify(qoi) is None
-assert unported.identify(b"Image type: RGB image\r\nImage size (x*y): "
-                         b"4*3\r\n\x1a" + bytes(36)) == "IM"
+im = b"Image type: RGB image\r\nImage size (x*y): 4*3\r\n\x1a" + bytes(36)
+assert unported.identify(im) is None and unported.walk(im)[0] == "IM"
+assert imagefile._decode(im, None)[1].shape == (3, 4, 3)
+assert unported.identify(b"icns\0\0\0\x10ic07\0\0\0\x08") == "ICNS"
 with tempfile.TemporaryDirectory() as d:
     for name, (path, want) in chip_smoke.formats_files(d, 40, 64).items():
         mode, samples, _ = imagefile.read_image(path)
@@ -535,7 +537,11 @@ with open(os.path.join("tests", "data", "formats_sha256.json")) as f:
 for name, sha in rec.items():
     if name.startswith("F1 "):
         continue
-    rgb = imagefile.read_rgb8(os.path.join("tests", "data", name))
+    with tempfile.TemporaryDirectory() as d:
+        path = chip_smoke.write_pcd(os.path.join(d, "g.pcd")) \
+            if name == chip_smoke.G1_PCD else \
+            os.path.join("tests", "data", name)
+        rgb = imagefile.read_rgb8(path)
     assert hashlib.sha256(rgb.tobytes()).hexdigest() == sha, name
 print("FORMATS-STANDALONE-OK")
 """

@@ -158,9 +158,9 @@ def test_check_lut_refuses_a_hald_image(tmp_path, capsys):
     rc, text = _check_lut(cli.main, tga, capsys)
     ref_rc, ref_text = _check_lut(ref_cli.main, tga, capsys)
     assert rc == ref_rc == 0 and text == ref_text
-    im = tmp_path / "hald.im"
-    Image.fromarray(hald_image(2, 8)).save(im)
-    rc, text = _check_lut(cli.main, im, capsys)
+    dds = tmp_path / "hald.dds"
+    Image.fromarray(hald_image(2, 8)).save(dds)
+    rc, text = _check_lut(cli.main, dds, capsys)
     assert rc == 2
-    assert "IM image" in text and "reads PNG, TIFF, JPEG" in text
+    assert "DDS image" in text and "does not read BLP, DDS" in text
     assert "Invalid LUT file" not in text

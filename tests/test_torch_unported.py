@@ -1,7 +1,11 @@
 """The formats Pillow 12.1.0 opens past those the port reads by their
 magic (`art_tpu_torch.io.unported`): a file of each opens in Pillow and,
 in the port, is decoded as Pillow decodes it (DIB, CUR, PCX, DCX, ICO,
-PSD, QOI, SGI, TGA: `art_tpu_torch.io.rasterformats`), fails with
+PSD, QOI, SGI, TGA: `art_tpu_torch.io.rasterformats`; FITS, FLI, FTEX,
+GBR, IM, IMT, IPTC/NAA, McIdas, MSP, PCD, PIXAR, PFM, the PNM
+extensions, SPIDER, SUN, XBM, XPM, XVThumb: `art_tpu_torch.io.plugins`;
+FTEX's, IPTC's and PCD's fixtures, whose load Pillow calls truncated,
+and XPM's, whose None colour fails its load, fail alike), fails with
 Pillow's load error where Pillow's load always fails (BUFR, GRIB, HDF5,
 WMF/EMF, MPEG, EPS with no Ghostscript) or is refused by name; damaged
 copies of it (cut short, bytes of its header changed, bytes added; for
@@ -213,7 +217,10 @@ PORT_DECODES = {"BMP", "GIF", "PNG", "JPEG", "MPO", "TIFF", "WEBP"}
 
 
 # the formats the port decodes where the walk opens them
-DECODED = {"DIB", "CUR", "PCX", "DCX", "ICO", "PSD", "QOI", "SGI", "TGA"}
+DECODED = {"DIB", "CUR", "PCX", "DCX", "ICO", "PSD", "QOI", "SGI", "TGA",
+           "FITS", "FLI", "FTEX", "GBR", "IM", "IMT", "IPTC/NAA", "McIdas",
+           "MSP", "PCD", "PIXAR", "PFM", "PNM of a Pillow extension",
+           "SPIDER", "SUN", "XBM", "XPM", "XVThumb"}
 
 
 def _name(key):
