@@ -19,9 +19,11 @@ RGBA, palette, CMYK, YCbCr under JPEG), a JPEG
 baseline, extended or progressive, lossless; grey, YCbCr, RGB, CMYK or
 YCCK), a BMP, PNM or GIF (:mod:`art_tpu_torch.io.stdformats`), a WebP
 (:mod:`art_tpu_torch.io.webpdec`: lossless, lossy with its alpha, the
-first frame of an animation) or a DIB, ICO, CUR, TGA, PSD, QOI, PCX,
-DCX or SGI (:mod:`art_tpu_torch.io.rasterformats`) into what the
-reference's callers ask PIL for,
+first frame of an animation), a DIB, ICO, CUR, TGA, PSD, QOI, PCX,
+DCX or SGI (:mod:`art_tpu_torch.io.rasterformats`), a small raster
+plugin's format (:mod:`art_tpu_torch.io.plugins`) or a BLP, DDS or ICNS
+(:mod:`art_tpu_torch.io.textures`) into what the reference's callers ask
+PIL for,
 ``np.asarray(Image.open(path).convert("RGB"))``, byte for byte: 16-bit
 colour keeps its high byte, 16-bit grey clips at 255 (PIL's I;16), grey
 below 8 bits scales to 0..255, a palette expands through PLTE (entries
@@ -165,7 +167,8 @@ def write_png(path, hwc, icc_bytes=None, exif_bytes=None, xmp_bytes=None):
 
 def read_rgb8(path):
     """A PNG, TIFF, JPEG, BMP, PNM, GIF, WebP, DIB, ICO, CUR, TGA, PSD,
-    QOI, PCX, DCX or SGI image as (H, W, 3) uint8, the array PIL's
+    QOI, PCX, DCX, SGI, small raster plugin, BLP, DDS or ICNS image as
+    (H, W, 3) uint8, the array PIL's
     ``Image.open(path).convert("RGB")`` gives. Another format that PIL
     reads, or a form the port's decoder does not read, raises
     NotImplementedError naming it; bytes that are no image, an image
@@ -276,6 +279,13 @@ def load_std_image(path):
         if conv is None:
             raise
         mode, samples, icc = read_image(conv)
+    else:
+        if buf[:4] == b"icns":  # the reference's np.asarray of the image
+            from art_tpu_torch.io.textures import icns_loaded_mode
+
+            loaded = icns_loaded_mode(buf)
+            if loaded not in ("RGB", "RGBA"):
+                raise PilValueError(f"No packer found from {loaded} to RGBA")
     if icc:
         try:
             samples = lcms.to_srgb(to_rgb8(mode, samples), icc)
@@ -341,14 +351,15 @@ def _plugin_walk(buf, path):
     ICO, PSD, QOI, SGI or TGA (:mod:`art_tpu_torch.io.rasterformats`), a
     FITS, FLI, FTEX, GBR, IM, IMT, IPTC/NAA, McIdas, MSP, PCD, PIXAR, PFM,
     PNM of a Pillow extension, SPIDER, SUN, XBM, XPM or XVThumb
-    (:mod:`art_tpu_torch.io.plugins`) or a WebP
+    (:mod:`art_tpu_torch.io.plugins`), a BLP, DDS or ICNS
+    (:mod:`art_tpu_torch.io.textures`) or a WebP
     (:mod:`art_tpu_torch.io.webpdec`) loaded where the walk opens it;
     OSError with Pillow's message for a format whose load always fails
     in Pillow (BUFR, GRIB, HDF5, WMF/EMF, MPEG, EPS with no Ghostscript:
     the open succeeded, so the reference tries no external loader);
-    NotImplementedError naming any other format Pillow opens (BLP, DDS,
-    ICNS, JPEG 2000, AVIF); `Unidentified` where Pillow opens nothing or
-    WebP's open fails, and the other errors Pillow's open raises."""
+    NotImplementedError naming any other format Pillow opens (JPEG 2000,
+    AVIF); `Unidentified` where Pillow opens nothing or WebP's open
+    fails, and the other errors Pillow's open raises."""
     from art_tpu_torch.io import unported
 
     hit = unported.walk(buf, path)
@@ -362,8 +373,7 @@ def _plugin_walk(buf, path):
         raise OSError(msg)
     raise NotImplementedError(
         f"{name} image {str(path)!r}: the port's image decoder "
-        "(io/imagefile.py::read_rgb8) does not read BLP, DDS, ICNS, "
-        "JPEG 2000 or AVIF")
+        "(io/imagefile.py::read_rgb8) does not read JPEG 2000 or AVIF")
 
 
 def _paeth(a, b, c):
@@ -534,9 +544,10 @@ def _png_chunk(f, cid, length, st):
     return s
 
 
-def _read_png(buf):
+def _read_png(buf, bomb=False):
     """A PNG's (samples (h, w, channels), depth, colour type, PLTE, ICC
-    profile) as Pillow 12.1.0 opens and loads it.
+    profile) as Pillow 12.1.0 opens and loads it; `bomb`: Pillow's
+    decompression bomb check between the open and the load.
 
     The open (``PngImageFile._open``): each chunk up to the first IDAT or
     IEND goes through its handler's checks, then its CRC is checked;
@@ -570,6 +581,10 @@ def _read_png(buf):
     if depth is None or w <= 0 or h <= 0:
         raise Unidentified("cannot identify image file: no PNG mode or "
                            "size")
+    if bomb:
+        from art_tpu_torch.io import unported
+
+        unported._bomb((w, h))
     if cid != b"IDAT":
         raise OSError("cannot load this image")
     channels = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[ctype]

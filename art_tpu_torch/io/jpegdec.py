@@ -270,7 +270,8 @@ def _native_decode(buf, salvage=False, color=-1):
     error came inside the one scan of a single-scan file (the array: the
     scanlines output before it, zeros after). color:
     a three-component frame's colour space, -1 libjpeg's guess, 0 the
-    components unconverted, 1 YCbCr."""
+    components unconverted, 1 YCbCr; 2 a four-component frame read as
+    CMYK (no YCCK conversion)."""
     lib = _load()
     info = (ctypes.c_int * 5)()
     out = ctypes.POINTER(ctypes.c_uint8)()
@@ -291,15 +292,17 @@ def _native_decode(buf, salvage=False, color=-1):
             rows if outcome == 4 else h)
 
 
-def decode(buf, salvage=False):
+def decode(buf, salvage=False, color=-1):
     """A JPEG stream as Pillow's ``Image.open(...)`` loads it: (H, W)
     uint8 for mode L, (H, W, 3) for RGB, (H, W, 4) for CMYK (Pillow's
     "CMYK;I": libjpeg's CMYK inverted). Strict (Pillow's default) raises
     OSError where the load fails; `salvage` is the load under
-    ``ImageFile.LOAD_TRUNCATED_IMAGES``."""
+    ``ImageFile.LOAD_TRUNCATED_IMAGES``; `color` 2 reads a
+    four-component frame as CMYK with no YCCK conversion (Pillow's jpeg
+    mode "CMYK", as BLP1 sets it)."""
     hdr = pil_header(buf)
     w, h = hdr.size
-    outcome, arr, msg, rows = _native_decode(buf, salvage)
+    outcome, arr, msg, rows = _native_decode(buf, salvage, color)
     if arr is not None and hdr.mode == "CMYK":
         # Pillow inverts the scanlines libjpeg output; the rest stay 0
         arr[:rows] = 255 - arr[:rows]

@@ -60,7 +60,9 @@
 //   int jpegdec_decode_as(..., int salvage, int color, int* info, ...)
 // is the same with the colour space of a three-component frame set as
 // libtiff sets it for a JPEG-compressed TIFF: color -1 libjpeg's guess
-// (jpegdec_decode), 0 the components unconverted (JCS_UNKNOWN), 1 YCbCr.
+// (jpegdec_decode), 0 the components unconverted (JCS_UNKNOWN), 1 YCbCr;
+// color 2 reads a four-component frame as CMYK whatever its Adobe
+// transform (Pillow's jpeg mode "CMYK", JCS_CMYK: no YCCK conversion).
 
 #include <algorithm>
 #include <cstdint>
@@ -2105,7 +2107,7 @@ struct Decoder {
   // ycck_cmyk_convert (YCbCr to RGB, inverted, K as it is)
   void output_cmyk(uint8_t* out, std::vector<std::vector<uint8_t>>& full) {
     size_t n = (size_t)height * width;
-    bool ycck = saw_Adobe && adobe_transform != 0;
+    bool ycck = color_override != 2 && saw_Adobe && adobe_transform != 0;
     if (!ycck) {
       for (size_t i = 0; i < n; i++)
         for (int k = 0; k < 4; k++) out[4 * i + k] = full[k][i];
@@ -2152,7 +2154,7 @@ struct Decoder {
 
   // jdapimin.c default_decompress_parms for three components
   bool color_space_is_ycc() const {
-    if (color_override >= 0) return color_override == 1;
+    if (color_override == 0 || color_override == 1) return color_override == 1;
     if (saw_JFIF) return true;
     if (saw_Adobe) return adobe_transform != 0;
     int c0 = comp[0].id, c1 = comp[1].id, c2 = comp[2].id;

@@ -36,10 +36,13 @@
 // - fli: FliDecode.c, one call on the bytes Pillow's load hands it
 //   (frame 0, at most its frame size): the COLOR chunks skipped, SS2,
 //   LC, BLACK, BRUN, COPY, PSTAMP; its bounds checks and error codes.
-// - bc1: BcnDecode.c with n = 1 (DXT1): 4 x 4 blocks of two 5-6-5 colours
-//   and a 2-bit index each, the third and fourth colour thirds (c0 > c1)
-//   or the mean and transparent black; RGBA out, blocks past the edge
-//   cut.
+// - bcn: BcnDecode.c, BC1 to BC7: BC1's two 5-6-5 colours and their
+//   thirds (c0 > c1) or mean and transparent black, BC2's 4-bit alpha,
+//   BC3's interpolated alpha (BC4's grey, BC5's red and green, signed or
+//   not), BC6H's 14 modes of half floats clamped to 8 bits, BC7's 8
+//   modes; blocks past the edge cut.
+// - blp_dxt: BlpImagePlugin's own DXT1/3/5 decode (Python in Pillow,
+//   whose arithmetic differs from BcnDecode.c's).
 // - bitdec: BitDecode.c as ImImagePlugin asks for it (fill 3, pad 8, no
 //   sign, bottom-up rows): `bits`-bit unsigned samples read LSB first
 //   into float32.
@@ -61,6 +64,7 @@
 #include <cstddef>
 #include <cstdint>
 #include <cstring>
+#include <utility>
 #include <vector>
 
 extern "C" {
@@ -842,46 +846,456 @@ int64_t fli(const uint8_t* buf, int64_t bytes, int xs, int ys, uint8_t* im, int*
   return -1;
 }
 
-// bc1: out h x w x 4 bytes of RGBA; 0 done, 1 the data ended first.
-int bc1(const uint8_t* data, size_t len, int64_t w, int64_t h, uint8_t* out) {
+// -- bcn: BcnDecode.c ---------------------------------------------------
+
+namespace {
+
+struct Rgba {
+  uint8_t r, g, b, a;
+};
+
+// decode_565: each field's top bits replicated into its low bits
+Rgba from565(int c) {
+  int r = (c >> 11) & 31, g = (c >> 5) & 63, b = c & 31;
+  return Rgba{(uint8_t)(r << 3 | r >> 2), (uint8_t)(g << 2 | g >> 4),
+              (uint8_t)(b << 3 | b >> 2), 255};
+}
+
+// decode_bc1_color: BC2 and BC3 (`four`) always take the thirds
+void bc1_color(Rgba* dst, const uint8_t* s, bool four) {
+  const int c0 = s[0] | s[1] << 8, c1 = s[2] | s[3] << 8;
+  const uint32_t lut = (uint32_t)s[4] | (uint32_t)s[5] << 8 | (uint32_t)s[6] << 16 |
+                       (uint32_t)s[7] << 24;
+  Rgba p[4];
+  p[0] = from565(c0);
+  p[1] = from565(c1);
+  const int r0 = p[0].r, g0 = p[0].g, b0 = p[0].b;
+  const int r1 = p[1].r, g1 = p[1].g, b1 = p[1].b;
+  if (c0 > c1 || four) {
+    p[2] = Rgba{(uint8_t)((2 * r0 + r1) / 3), (uint8_t)((2 * g0 + g1) / 3),
+                (uint8_t)((2 * b0 + b1) / 3), 255};
+    p[3] = Rgba{(uint8_t)((r0 + 2 * r1) / 3), (uint8_t)((g0 + 2 * g1) / 3),
+                (uint8_t)((b0 + 2 * b1) / 3), 255};
+  } else {
+    p[2] = Rgba{(uint8_t)((r0 + r1) / 2), (uint8_t)((g0 + g1) / 2),
+                (uint8_t)((b0 + b1) / 2), 255};
+    p[3] = Rgba{0, 0, 0, 0};
+  }
+  for (int n = 0; n < 16; n++) dst[n] = p[(lut >> (2 * n)) & 3];
+}
+
+// decode_bc3_alpha: 16 values into dst[n * stride]; `sign` reads the two
+// ends as int8 plus 128 (BC5S)
+void bc3_alpha(uint8_t* dst, const uint8_t* s, int stride, bool sign) {
+  int a0 = s[0], a1 = s[1];
+  if (sign) {
+    a0 = (int8_t)s[0] + 128;
+    a1 = (int8_t)s[1] + 128;
+  }
+  const uint32_t lut1 = s[2] | s[3] << 8 | s[4] << 16;
+  const uint32_t lut2 = s[5] | s[6] << 8 | s[7] << 16;
+  uint8_t a[8];
+  a[0] = (uint8_t)a0;
+  a[1] = (uint8_t)a1;
+  if (a0 > a1) {
+    for (int k = 1; k < 7; k++) a[k + 1] = (uint8_t)(((7 - k) * a0 + k * a1) / 7);
+  } else {
+    for (int k = 1; k < 5; k++) a[k + 1] = (uint8_t)(((5 - k) * a0 + k * a1) / 5);
+    a[6] = 0;
+    a[7] = 255;
+  }
+  for (int n = 0; n < 8; n++) dst[stride * n] = a[7 & (lut1 >> (3 * n))];
+  for (int n = 0; n < 8; n++) dst[stride * (8 + n)] = a[7 & (lut2 >> (3 * n))];
+}
+
+// the BC7 two- and three-subset partitions, 2 bits a pixel (pixel i at
+// bits 2i), and the anchor of each subset past the first
+const uint32_t PART2[64] = {
+    0x50505050, 0x40404040, 0x54545454, 0x54505040, 0x50404000, 0x55545450, 0x55545040,
+    0x54504000, 0x50400000, 0x55555450, 0x55544000, 0x54400000, 0x55555440, 0x55550000,
+    0x55555500, 0x55000000, 0x55150100, 0x00004054, 0x15010000, 0x00405054, 0x00004050,
+    0x15050100, 0x05010000, 0x40505054, 0x00404050, 0x05010100, 0x14141414, 0x05141450,
+    0x01155440, 0x00555500, 0x15014054, 0x05414150, 0x44444444, 0x55005500, 0x11441144,
+    0x05055050, 0x05500550, 0x11114444, 0x41144114, 0x44111144, 0x15055054, 0x01055040,
+    0x05041050, 0x05455150, 0x14414114, 0x50050550, 0x41411414, 0x00141400, 0x00041504,
+    0x00105410, 0x10541000, 0x04150400, 0x50410514, 0x41051450, 0x05415014, 0x14054150,
+    0x41050514, 0x41505014, 0x40011554, 0x54150140, 0x50505500, 0x00555050, 0x15151010,
+    0x54540404};
+const uint32_t PART3[64] = {
+    0xaa685050, 0x6a5a5040, 0x5a5a4200, 0x5450a0a8, 0xa5a50000, 0xa0a05050, 0x5555a0a0,
+    0x5a5a5050, 0xaa550000, 0xaa555500, 0xaaaa5500, 0x90909090, 0x94949494, 0xa4a4a4a4,
+    0xa9a59450, 0x2a0a4250, 0xa5945040, 0x0a425054, 0xa5a5a500, 0x55a0a0a0, 0xa8a85454,
+    0x6a6a4040, 0xa4a45000, 0x1a1a0500, 0x0050a4a4, 0xaaa59090, 0x14696914, 0x69691400,
+    0xa08585a0, 0xaa821414, 0x50a4a450, 0x6a5a0200, 0xa9a58000, 0x5090a0a8, 0xa8a09050,
+    0x24242424, 0x00aa5500, 0x24924924, 0x24499224, 0x50a50a50, 0x500aa550, 0xaaaa4444,
+    0x66660000, 0xa5a0a5a0, 0x50a050a0, 0x69286928, 0x44aaaa44, 0x66666600, 0xaa444444,
+    0x54a854a8, 0x95809580, 0x96969600, 0xa85454a8, 0x80959580, 0xaa141414, 0x96960000,
+    0xaaaa1414, 0xa05050a0, 0xa0a5a5a0, 0x96000000, 0x40804080, 0xa9a8a9a8, 0xaaaaaa44,
+    0x2a4a5254};
+const uint8_t ANCHOR2[64] = {15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15,
+                             15, 2,  8,  2,  2,  8,  8,  15, 2,  8,  2,  2,  8,  8,  2,  2,
+                             15, 15, 6,  8,  2,  8,  15, 15, 2,  8,  2,  2,  2,  15, 15, 6,
+                             6,  2,  6,  8,  15, 15, 2,  2,  15, 15, 15, 15, 15, 2,  2,  15};
+const uint8_t ANCHOR3A[64] = {3,  3,  15, 15, 8,  3,  15, 15, 8,  8,  6,  6,  6,  5,  3,  3,
+                              3,  3,  8,  15, 3,  3,  6,  10, 5,  8,  8,  6,  8,  5,  15, 15,
+                              8,  15, 3,  5,  6,  10, 8,  15, 15, 3,  15, 5,  15, 15, 15, 15,
+                              3,  15, 5,  5,  5,  8,  5,  10, 5,  10, 8,  13, 15, 12, 3,  3};
+const uint8_t ANCHOR3B[64] = {15, 8,  8,  3,  15, 15, 3,  8,  15, 15, 15, 15, 15, 15, 15, 8,
+                              15, 8,  15, 3,  15, 8,  15, 8,  3,  15, 6,  10, 15, 15, 10, 8,
+                              15, 3,  15, 10, 10, 8,  9,  10, 6,  15, 8,  15, 3,  6,  6,  8,
+                              15, 3,  15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 3,  15, 15, 8};
+const uint8_t WEIGHTS2[4] = {0, 21, 43, 64};
+const uint8_t WEIGHTS3[8] = {0, 9, 18, 27, 37, 46, 55, 64};
+const uint8_t WEIGHTS4[16] = {0, 4, 9, 13, 17, 21, 26, 30, 34, 38, 43, 47, 51, 55, 60, 64};
+
+const uint8_t* weights(int bits) {
+  return bits == 2 ? WEIGHTS2 : bits == 3 ? WEIGHTS3 : WEIGHTS4;
+}
+
+struct Bits {
+  const uint8_t* s;
+  int pos = 0;
+  int get(int n) {
+    int v = 0;
+    for (int i = 0; i < n; i++, pos++) v |= ((s[pos >> 3] >> (pos & 7)) & 1) << i;
+    return v;
+  }
+};
+
+int subset(int ns, int part, int i) {
+  if (ns == 1) return 0;
+  return ((ns == 2 ? PART2[part] : PART3[part]) >> (2 * i)) & 3;
+}
+
+bool anchor(int ns, int part, int i) {
+  if (i == 0) return true;
+  if (ns == 2) return i == ANCHOR2[part];
+  return ns == 3 && (i == ANCHOR3A[part] || i == ANCHOR3B[part]);
+}
+
+// BC7's modes: subsets, partition bits, rotation bits, index selection
+// bits, colour bits, alpha bits, a p-bit per endpoint, one per subset,
+// index bits, second index bits
+struct Bc7Mode {
+  int ns, pb, rb, isb, cb, ab, epb, spb, ib, ib2;
+};
+const Bc7Mode BC7_MODES[8] = {{3, 4, 0, 0, 4, 0, 1, 0, 3, 0}, {2, 6, 0, 0, 6, 0, 0, 1, 3, 0},
+                              {3, 6, 0, 0, 5, 0, 0, 0, 2, 0}, {2, 6, 0, 0, 7, 0, 1, 0, 2, 0},
+                              {1, 0, 2, 1, 5, 6, 0, 0, 2, 3}, {1, 0, 2, 0, 7, 8, 0, 0, 2, 2},
+                              {1, 0, 0, 0, 7, 7, 1, 0, 4, 0}, {2, 6, 0, 0, 5, 5, 1, 0, 2, 0}};
+
+// decode_bc7_block: a mode byte of zeros is reserved (black, opaque)
+void bc7_block(Rgba* col, const uint8_t* s) {
+  for (int i = 0; i < 16; i++) col[i] = Rgba{0, 0, 0, 255};
+  Bits br{s};
+  int mode = 0;
+  while (mode < 8 && !br.get(1)) mode++;
+  if (mode == 8) return;
+  const Bc7Mode& m = BC7_MODES[mode];
+  const int part = br.get(m.pb), rot = br.get(m.rb), isel = br.get(m.isb);
+  const int ne = 2 * m.ns;
+  int ep[6][4] = {};
+  for (int c = 0; c < 3; c++)
+    for (int e = 0; e < ne; e++) ep[e][c] = br.get(m.cb);
+  for (int e = 0; e < ne; e++) ep[e][3] = br.get(m.ab);
+  int cb = m.cb, ab = m.ab;
+  if (m.epb || m.spb) {
+    for (int e = 0; e < ne; e++) {
+      const int p = m.epb ? br.get(1) : (e & 1) ? ep[e - 1][0] & 1 : br.get(1);
+      for (int c = 0; c < 4; c++) ep[e][c] = ep[e][c] << 1 | p;
+    }
+    cb++;
+    if (ab) ab++;
+  }
+  for (int e = 0; e < ne; e++) {
+    for (int c = 0; c < 4; c++) {
+      const int n = c == 3 ? ab : cb;
+      if (n == 0) {
+        ep[e][c] = 255;
+      } else {
+        const int v = ep[e][c] << (8 - n);
+        ep[e][c] = v | v >> n;
+      }
+    }
+  }
+  int idx[16], idx2[16] = {};
+  for (int i = 0; i < 16; i++) idx[i] = br.get(m.ib - (anchor(m.ns, part, i) ? 1 : 0));
+  if (m.ib2)
+    for (int i = 0; i < 16; i++) idx2[i] = br.get(m.ib2 - (i == 0 ? 1 : 0));
+  const uint8_t *w1 = weights(m.ib), *w2 = weights(m.ib2 ? m.ib2 : m.ib);
+  for (int i = 0; i < 16; i++) {
+    const int* e0 = ep[2 * subset(m.ns, part, i)];
+    const int* e1 = e0 + 4;
+    int wc = w1[idx[i]], wa = wc;
+    if (m.ib2) {
+      wc = isel ? w2[idx2[i]] : w1[idx[i]];
+      wa = isel ? w1[idx[i]] : w2[idx2[i]];
+    }
+    uint8_t v[4];
+    for (int c = 0; c < 3; c++) v[c] = (uint8_t)((e0[c] * (64 - wc) + e1[c] * wc + 32) >> 6);
+    v[3] = ab ? (uint8_t)((e0[3] * (64 - wa) + e1[3] * wa + 32) >> 6) : 255;
+    if (rot) std::swap(v[3], v[rot - 1]);
+    col[i] = Rgba{v[0], v[1], v[2], v[3]};
+  }
+}
+
+// BC6H's modes: regions, transformed, partition bits, endpoint bits, and
+// the delta bits of red, green and blue
+struct Bc6Mode {
+  int ns, tr, pb, epb, rb, gb, bb;
+};
+const Bc6Mode BC6_MODES[14] = {
+    {2, 1, 5, 10, 5, 5, 5}, {2, 1, 5, 7, 6, 6, 6},   {2, 1, 5, 11, 5, 4, 4},
+    {2, 1, 5, 11, 4, 5, 4}, {2, 1, 5, 11, 4, 4, 5},  {2, 1, 5, 9, 5, 5, 5},
+    {2, 1, 5, 8, 6, 5, 5},  {2, 1, 5, 8, 5, 6, 5},   {2, 1, 5, 8, 5, 5, 6},
+    {2, 0, 5, 6, 6, 6, 6},  {1, 0, 0, 10, 10, 10, 10}, {1, 1, 0, 11, 9, 9, 9},
+    {1, 1, 0, 12, 8, 8, 8}, {1, 1, 0, 16, 4, 4, 4}};
+// where each header bit goes: endpoint (r0 g0 b0 r1 g1 b1 r2 ... b3) << 4
+// | its bit (the format's table of bit fields, mode by mode)
+const uint8_t BC6_BITS[14][75] = {
+    {116, 132, 180, 0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 16, 17, 18, 19, 20, 21, 22, 23, 24, 25, 32, 33, 34, 35, 36, 37, 38, 39, 40, 41, 48, 49, 50, 51, 52, 164, 112, 113, 114, 115, 64, 65, 66, 67, 68, 176, 160, 161, 162, 163, 80, 81, 82, 83, 84, 177, 128, 129, 130, 131, 96, 97, 98, 99, 100, 178, 144, 145, 146, 147, 148, 179},
+    {117, 164, 165, 0, 1, 2, 3, 4, 5, 6, 176, 177, 132, 16, 17, 18, 19, 20, 21, 22, 133, 178, 116, 32, 33, 34, 35, 36, 37, 38, 179, 181, 180, 48, 49, 50, 51, 52, 53, 112, 113, 114, 115, 64, 65, 66, 67, 68, 69, 160, 161, 162, 163, 80, 81, 82, 83, 84, 85, 128, 129, 130, 131, 96, 97, 98, 99, 100, 101, 144, 145, 146, 147, 148, 149},
+    {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 16, 17, 18, 19, 20, 21, 22, 23, 24, 25, 32, 33, 34, 35, 36, 37, 38, 39, 40, 41, 48, 49, 50, 51, 52, 10, 112, 113, 114, 115, 64, 65, 66, 67, 26, 176, 160, 161, 162, 163, 80, 81, 82, 83, 42, 177, 128, 129, 130, 131, 96, 97, 98, 99, 100, 178, 144, 145, 146, 147, 148, 179, 0, 0, 0},
+    {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 16, 17, 18, 19, 20, 21, 22, 23, 24, 25, 32, 33, 34, 35, 36, 37, 38, 39, 40, 41, 48, 49, 50, 51, 10, 164, 112, 113, 114, 115, 64, 65, 66, 67, 68, 26, 160, 161, 162, 163, 80, 81, 82, 83, 42, 177, 128, 129, 130, 131, 96, 97, 98, 99, 176, 178, 144, 145, 146, 147, 116, 179, 0, 0, 0},
+    {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 16, 17, 18, 19, 20, 21, 22, 23, 24, 25, 32, 33, 34, 35, 36, 37, 38, 39, 40, 41, 48, 49, 50, 51, 10, 132, 112, 113, 114, 115, 64, 65, 66, 67, 26, 176, 160, 161, 162, 163, 80, 81, 82, 83, 84, 42, 128, 129, 130, 131, 96, 97, 98, 99, 177, 178, 144, 145, 146, 147, 180, 179, 0, 0, 0},
+    {0, 1, 2, 3, 4, 5, 6, 7, 8, 132, 16, 17, 18, 19, 20, 21, 22, 23, 24, 116, 32, 33, 34, 35, 36, 37, 38, 39, 40, 180, 48, 49, 50, 51, 52, 164, 112, 113, 114, 115, 64, 65, 66, 67, 68, 176, 160, 161, 162, 163, 80, 81, 82, 83, 84, 177, 128, 129, 130, 131, 96, 97, 98, 99, 100, 178, 144, 145, 146, 147, 148, 179, 0, 0, 0},
+    {0, 1, 2, 3, 4, 5, 6, 7, 164, 132, 16, 17, 18, 19, 20, 21, 22, 23, 178, 116, 32, 33, 34, 35, 36, 37, 38, 39, 179, 180, 48, 49, 50, 51, 52, 53, 112, 113, 114, 115, 64, 65, 66, 67, 68, 176, 160, 161, 162, 163, 80, 81, 82, 83, 84, 177, 128, 129, 130, 131, 96, 97, 98, 99, 100, 101, 144, 145, 146, 147, 148, 149, 0, 0, 0},
+    {0, 1, 2, 3, 4, 5, 6, 7, 176, 132, 16, 17, 18, 19, 20, 21, 22, 23, 117, 116, 32, 33, 34, 35, 36, 37, 38, 39, 165, 180, 48, 49, 50, 51, 52, 164, 112, 113, 114, 115, 64, 65, 66, 67, 68, 69, 160, 161, 162, 163, 80, 81, 82, 83, 84, 177, 128, 129, 130, 131, 96, 97, 98, 99, 100, 178, 144, 145, 146, 147, 148, 179, 0, 0, 0},
+    {0, 1, 2, 3, 4, 5, 6, 7, 177, 132, 16, 17, 18, 19, 20, 21, 22, 23, 133, 116, 32, 33, 34, 35, 36, 37, 38, 39, 181, 180, 48, 49, 50, 51, 52, 164, 112, 113, 114, 115, 64, 65, 66, 67, 68, 176, 160, 161, 162, 163, 80, 81, 82, 83, 84, 85, 128, 129, 130, 131, 96, 97, 98, 99, 100, 178, 144, 145, 146, 147, 148, 179, 0, 0, 0},
+    {0, 1, 2, 3, 4, 5, 164, 176, 177, 132, 16, 17, 18, 19, 20, 21, 117, 133, 178, 116, 32, 33, 34, 35, 36, 37, 165, 179, 181, 180, 48, 49, 50, 51, 52, 53, 112, 113, 114, 115, 64, 65, 66, 67, 68, 69, 160, 161, 162, 163, 80, 81, 82, 83, 84, 85, 128, 129, 130, 131, 96, 97, 98, 99, 100, 101, 144, 145, 146, 147, 148, 149, 0, 0, 0},
+    {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 16, 17, 18, 19, 20, 21, 22, 23, 24, 25, 32, 33, 34, 35, 36, 37, 38, 39, 40, 41, 48, 49, 50, 51, 52, 53, 54, 55, 56, 57, 64, 65, 66, 67, 68, 69, 70, 71, 72, 73, 80, 81, 82, 83, 84, 85, 86, 87, 88, 89, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0},
+    {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 16, 17, 18, 19, 20, 21, 22, 23, 24, 25, 32, 33, 34, 35, 36, 37, 38, 39, 40, 41, 48, 49, 50, 51, 52, 53, 54, 55, 56, 10, 64, 65, 66, 67, 68, 69, 70, 71, 72, 26, 80, 81, 82, 83, 84, 85, 86, 87, 88, 42, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0},
+    {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 16, 17, 18, 19, 20, 21, 22, 23, 24, 25, 32, 33, 34, 35, 36, 37, 38, 39, 40, 41, 48, 49, 50, 51, 52, 53, 54, 55, 11, 10, 64, 65, 66, 67, 68, 69, 70, 71, 27, 26, 80, 81, 82, 83, 84, 85, 86, 87, 43, 42, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0},
+    {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 16, 17, 18, 19, 20, 21, 22, 23, 24, 25, 32, 33, 34, 35, 36, 37, 38, 39, 40, 41, 48, 49, 50, 51, 15, 14, 13, 12, 11, 10, 64, 65, 66, 67, 31, 30, 29, 28, 27, 26, 80, 81, 82, 83, 47, 46, 45, 44, 43, 42, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0},
+};
+
+int sign_extend(int v, int bits) {
+  v &= (1 << bits) - 1;
+  return v & (1 << (bits - 1)) ? v - (1 << bits) : v;
+}
+
+// bc6_unquantize: signed endpoints are read as the int16 of their low
+// 16 bits
+int bc6_unquantize(int v, int bits, bool sign) {
+  if (!sign) {
+    v &= 0xffff;
+    if (bits >= 15) return v;
+    if (v == 0) return 0;
+    if (v == (1 << bits) - 1) return 0xffff;
+    return ((v << 16) + 0x8000) >> bits;
+  }
+  int x = (int16_t)(uint16_t)v;
+  if (bits >= 16) return x;
+  const bool neg = x < 0;
+  if (neg) x = -x;
+  if (x == 0) {
+  } else if (x >= (1 << (bits - 1)) - 1) {
+    x = 0x7fff;
+  } else {
+    x = ((x << 15) + 0x4000) >> (bits - 1);
+  }
+  return neg ? -x : x;
+}
+
+float half_to_float(uint16_t h) {
+  union {
+    uint32_t u;
+    float f;
+  } o, m;
+  m.u = 0x77800000;
+  o.u = (uint32_t)(h & 0x7fff) << 13;
+  o.f *= m.f;
+  m.u = 0x47800000;
+  if (o.f >= m.f) o.u |= 255u << 23;
+  o.u |= (uint32_t)(h & 0x8000) << 16;
+  return o.f;
+}
+
+// bc6_finalize and bc6_clamp: the half float of the interpolated value,
+// truncated to 8 bits within 0..1 (NaN, which Pillow's float-to-int
+// conversion turns to 0x80000000, to 0)
+uint8_t bc6_out(int v, bool sign) {
+  uint16_t h;
+  if (sign)
+    h = v < 0 ? (uint16_t)(0x8000 | ((-v) * 31) / 32) : (uint16_t)((v * 31) / 32);
+  else
+    h = (uint16_t)((v * 31) / 64);
+  const float f = half_to_float(h);
+  if (f != f) return 0;
+  if (f < 0.0f) return 0;
+  if (f > 1.0f) return 255;
+  return (uint8_t)(int)(f * 255.0f);
+}
+
+void bc6_block(Rgba* col, const uint8_t* s, bool sign) {
+  int mode = s[0] & 31, first = 5, epbits = 75, ib = 3;
+  if ((mode & 3) == 0 || (mode & 3) == 1) {
+    mode &= 3;
+    first = 2;
+  } else if ((mode & 3) == 2) {
+    mode = 2 + (mode >> 2);
+    epbits = 72;
+  } else {
+    mode = 10 + (mode >> 2);
+    epbits = 60;
+    ib = 4;
+  }
+  if (mode >= 14) {
+    for (int i = 0; i < 16; i++) col[i] = Rgba{0, 0, 0, 0};
+    return;
+  }
+  const Bc6Mode& m = BC6_MODES[mode];
+  Bits br{s};
+  br.pos = first;
+  int ep[12] = {};
+  for (int i = 0; i < epbits; i++) {
+    const int d = BC6_BITS[mode][i];
+    ep[d >> 4] |= br.get(1) << (d & 15);
+  }
+  const int part = br.get(m.pb);
+  const int numep = m.ns == 2 ? 12 : 6;
+  const int dbits[3] = {m.rb, m.gb, m.bb};
+  if (sign)
+    for (int c = 0; c < 3; c++) ep[c] = sign_extend(ep[c], m.epb);
+  if (sign || m.tr)
+    for (int i = 3; i < numep; i++) ep[i] = sign_extend(ep[i], dbits[i % 3]);
+  if (m.tr)  // the deltas added, kept to the endpoint's bits
+    for (int i = 3; i < numep; i++) ep[i] = (ep[i] + ep[i % 3]) & ((1 << m.epb) - 1);
+  int u[12];
+  for (int i = 0; i < numep; i++) u[i] = bc6_unquantize(ep[i], m.epb, sign);
+  const uint8_t* w = weights(ib);
+  for (int i = 0; i < 16; i++) {
+    const int sub = subset(m.ns, part, i);
+    const int k = w[br.get(ib - (anchor(m.ns, part, i) ? 1 : 0))];
+    const int* e0 = u + 6 * sub;
+    uint8_t v[3];
+    for (int c = 0; c < 3; c++) v[c] = bc6_out((e0[c] * (64 - k) + e0[3 + c] * k) >> 6, sign);
+    col[i] = Rgba{v[0], v[1], v[2], 0};
+  }
+}
+
+}  // namespace
+
+// bcn: BcnDecode.c, n = 1 (BC1/DXT1), 2 (BC2/DXT3), 3 (BC3/DXT5), 4 (BC4,
+// L), 5 (BC5, RGB: red and green, blue 0, or 128 where `sign`), 6 (BC6H,
+// UF16 or SF16 where `sign`, RGB), 7 (BC7): blocks of 8 (n = 1, 4) or 16
+// bytes, 4 x 4 pixels each, left to right and top to bottom, those past
+// the image's edge cut; out h x w x 4 bytes (RGBA), 1 (n = 4) or 3 (n =
+// 5, 6). 0 done, 1 the data ended first.
+int bcn(int n, int sign, const uint8_t* data, size_t len, int64_t w, int64_t h, uint8_t* out) {
   const int64_t bw = (w + 3) / 4, bh = (h + 3) / 4;
+  const size_t size = n == 1 || n == 4 ? 8 : 16;
+  const int bands = n == 4 ? 1 : n == 5 || n == 6 ? 3 : 4;
   size_t pos = 0;
   for (int64_t by = 0; by < bh; by++) {
-    for (int64_t bx = 0; bx < bw; bx++) {
-      if (len - pos < 8 || pos > len) return 1;
+    for (int64_t bx = 0; bx < bw; bx++, pos += size) {
+      if (len < size || pos > len - size) return 1;
       const uint8_t* s = data + pos;
-      const int c0 = s[0] | s[1] << 8, c1 = s[2] | s[3] << 8;
-      const uint32_t lut = (uint32_t)s[4] | (uint32_t)s[5] << 8 | (uint32_t)s[6] << 16 |
-                           (uint32_t)s[7] << 24;
-      uint8_t p[4][4];
-      const int cs[2] = {c0, c1};
-      for (int k = 0; k < 2; k++) {
-        int r = (cs[k] & 0xf800) >> 8, g = (cs[k] & 0x7e0) >> 3, b = (cs[k] & 0x1f) << 3;
-        p[k][0] = (uint8_t)(r | r >> 5);
-        p[k][1] = (uint8_t)(g | g >> 6);
-        p[k][2] = (uint8_t)(b | b >> 5);
-        p[k][3] = 255;
-      }
-      for (int q = 0; q < 3; q++) {
-        if (c0 > c1) {
-          p[2][q] = (uint8_t)((2 * p[0][q] + p[1][q]) / 3);
-          p[3][q] = (uint8_t)((p[0][q] + 2 * p[1][q]) / 3);
-        } else {
-          p[2][q] = (uint8_t)((p[0][q] + p[1][q]) / 2);
-          p[3][q] = 0;
+      Rgba col[16];
+      switch (n) {
+        case 1:
+          bc1_color(col, s, false);
+          break;
+        case 2:
+          bc1_color(col, s + 8, true);
+          for (int k = 0; k < 16; k++) {
+            const int a = (s[k >> 1] >> ((k & 1) * 4)) & 15;
+            col[k].a = (uint8_t)(a << 4 | a);
+          }
+          break;
+        case 3:
+          bc1_color(col, s + 8, true);
+          bc3_alpha(&col[0].a, s, 4, false);
+          break;
+        case 4:
+          bc3_alpha(&col[0].r, s, 4, false);
+          break;
+        case 5: {
+          const uint8_t fill = sign ? 128 : 0;
+          for (int k = 0; k < 16; k++) col[k] = Rgba{fill, fill, fill, fill};
+          bc3_alpha(&col[0].r, s, 4, sign);
+          bc3_alpha(&col[0].g, s + 8, 4, sign);
+          break;
         }
+        case 6:
+          bc6_block(col, s, sign);
+          break;
+        default:
+          bc7_block(col, s);
       }
-      p[2][3] = 255;
-      p[3][3] = c0 > c1 ? 255 : 0;
-      for (int n = 0; n < 16; n++) {
-        const int64_t y = by * 4 + n / 4, x = bx * 4 + n % 4;
+      for (int k = 0; k < 16; k++) {
+        const int64_t y = by * 4 + k / 4, x = bx * 4 + k % 4;
         if (y >= h || x >= w) continue;
-        std::memcpy(out + (y * w + x) * 4, p[(lut >> (2 * n)) & 3], 4);
+        std::memcpy(out + (y * w + x) * bands, &col[k], bands);
       }
-      pos += 8;
     }
   }
   return 0;
+}
+
+// blp_dxt: BlpImagePlugin's own Python decode_dxt1, decode_dxt3 and
+// decode_dxt5 (kind 1, 3, 5), not BcnDecode.c: its 5-6-5 shifted with no
+// bits replicated, DXT3 and DXT5 colours always the floored thirds,
+// DXT3's alpha times 17; `rows` block rows of `bw` blocks each, every
+// block row 4 pixel rows of 4 bw pixels, RGBA, or RGB for DXT1 without
+// `alpha` (its transparent black then black), into out.
+void blp_dxt(int kind, int alpha, const uint8_t* data, int64_t bw, int64_t rows, uint8_t* out) {
+  const int size = kind == 1 ? 8 : 16;
+  const int bands = kind == 1 && !alpha ? 3 : 4;
+  const int64_t stride = bw * 4 * bands;
+  for (int64_t by = 0; by < rows; by++) {
+    for (int64_t bx = 0; bx < bw; bx++) {
+      const uint8_t* s = data + (by * bw + bx) * size;
+      const uint8_t* c = kind == 1 ? s : s + 8;
+      const int c0 = c[0] | c[1] << 8, c1 = c[2] | c[3] << 8;
+      const uint32_t code = (uint32_t)c[4] | (uint32_t)c[5] << 8 | (uint32_t)c[6] << 16 |
+                            (uint32_t)c[7] << 24;
+      const int e[2][3] = {{(c0 >> 11 & 31) << 3, (c0 >> 5 & 63) << 2, (c0 & 31) << 3},
+                           {(c1 >> 11 & 31) << 3, (c1 >> 5 & 63) << 2, (c1 & 31) << 3}};
+      int p[4][4];
+      for (int q = 0; q < 3; q++) {
+        p[0][q] = e[0][q];
+        p[1][q] = e[1][q];
+        if (c0 > c1 || kind != 1) {
+          p[2][q] = (2 * e[0][q] + e[1][q]) / 3;
+          p[3][q] = (2 * e[1][q] + e[0][q]) / 3;
+        } else {
+          p[2][q] = (e[0][q] + e[1][q]) / 2;
+          p[3][q] = 0;
+        }
+      }
+      p[0][3] = p[1][3] = p[2][3] = 255;
+      p[3][3] = c0 > c1 || kind != 1 ? 255 : 0;
+      int a[8] = {};
+      if (kind == 5) {
+        const int a0 = s[0], a1 = s[1];
+        a[0] = a0;
+        a[1] = a1;
+        for (int k = 2; k < 8; k++)
+          a[k] = a0 > a1 ? ((8 - k) * a0 + (k - 1) * a1) / 7
+                 : k == 6 ? 0
+                 : k == 7 ? 255
+                          : ((6 - k) * a0 + (k - 1) * a1) / 5;
+      }
+      const uint64_t acode = (uint64_t)s[2] | (uint64_t)s[3] << 8 | (uint64_t)s[4] << 16 |
+                             (uint64_t)s[5] << 24 | (uint64_t)s[6] << 32 | (uint64_t)s[7] << 40;
+      for (int k = 0; k < 16; k++) {
+        const int* px = p[(code >> (2 * k)) & 3];
+        uint8_t* o = out + (by * 4 + k / 4) * stride + (bx * 4 + k % 4) * bands;
+        o[0] = (uint8_t)px[0];
+        o[1] = (uint8_t)px[1];
+        o[2] = (uint8_t)px[2];
+        if (bands == 4) {
+          if (kind == 1)
+            o[3] = (uint8_t)px[3];
+          else if (kind == 3)
+            o[3] = (uint8_t)(((s[k >> 1] >> ((k & 1) * 4)) & 15) * 17);
+          else
+            o[3] = (uint8_t)a[(acode >> (3 * k)) & 7];
+        }
+      }
+    }
+  }
 }
 
 // bitdec: out ys x xs float32; 0 done, 1 the data ended first, 2 a

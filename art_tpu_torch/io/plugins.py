@@ -31,7 +31,10 @@ follows its plugin:
   or RGBA through ``frombytes``).
 - XBM (``XbmDecode.c``), XPM (``XpmDecoder``: P up to 256 colours, RGB
   above; a pixel of the ``None`` colour or of no colour fails).
-- FTEX (raw RGB, or BC1 through ``BcnDecode.c`` into RGBA).
+- FTEX (raw RGB, or BC1 through ``BcnDecode.c`` (``bcn``) into RGBA).
+  The texture and icon formats (BLP, DDS, ICNS) load in
+  :mod:`art_tpu_torch.io.textures`; JPEG 2000 and AVIF are refused by
+  name (:mod:`art_tpu_torch.io.unported`).
 - IPTC/NAA: the 8:10 records joined behind a P5 header (raw) and opened
   again (here the port's own decode); where the file names a band, the
   L image is that band of an RGB or CMYK image whose other bands are
@@ -365,7 +368,7 @@ def read_ftex(buf, path):
                 None)
     src = np.frombuffer(data, np.uint8)
     img = np.zeros((h, w, 4), np.uint8)
-    if _lib().bc1(_ptr(src), src.size, w, h, _ptr(img)):
+    if _lib().bcn(1, 0, _ptr(src), src.size, w, h, _ptr(img)):
         raise truncated()
     return (*rgb_out(mode, img), None)
 

@@ -87,7 +87,8 @@ def _lib():
                     ("sun_rle", [_P, _SZ, _SZ, _I64, _P]),
                     ("xbm", [_P, _SZ, _SZ, _I64, _P]),
                     ("pcd", [_P, _SZ, _P]),
-                    ("bc1", [_P, _SZ, _I64, _I64, _P]),
+                    ("bcn", [ctypes.c_int, ctypes.c_int, _P, _SZ, _I64,
+                             _I64, _P]),
                     ("bitdec", [_P, _SZ, ctypes.c_int, _I64, _I64, _P])):
                 fn = getattr(lib, name)
                 fn.restype = ctypes.c_int
@@ -95,6 +96,9 @@ def _lib():
             lib.fli.restype = _I64
             lib.fli.argtypes = [_P, _I64, ctypes.c_int, ctypes.c_int, _P,
                                 ctypes.POINTER(ctypes.c_int)]
+            lib.blp_dxt.restype = None
+            lib.blp_dxt.argtypes = [ctypes.c_int, ctypes.c_int, _P, _I64, _I64,
+                                    _P]
             lib.lab_to_rgb.restype = None
             lib.lab_to_rgb.argtypes = [_P, _I64, _P, _P]
             for name in ("ycc_to_rgb", "ycbcr_to_rgb"):

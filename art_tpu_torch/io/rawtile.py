@@ -108,6 +108,9 @@ _UNPACK = {
     ("RGB", "RGBX;L"): (32, ("planes", 4, (0, 1, 2))),
     ("RGBA", "RGBA"): (32, ("px", 4, (0, 1, 2, 3))),
     ("RGBA", "BGRA"): (32, ("px", 4, (2, 1, 0, 3))),
+    ("RGBA", "BGR"): (24, lambda r, w: np.concatenate(
+        [r[:, : 3 * w].reshape(len(r), w, 3)[..., ::-1],
+         np.full((len(r), w, 1), 255, np.uint8)], -1)),
     ("RGBA", "BGRA;15Z"): (16, _bgra15z),
     ("RGBA", "RGBA;L"): (32, ("planes", 4, (0, 1, 2, 3))),
     ("CMYK", "CMYK"): (32, ("px", 4, (0, 1, 2, 3))),

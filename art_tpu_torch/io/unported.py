@@ -28,12 +28,15 @@ them: DIB, CUR, PCX, DCX, ICO, PSD, QOI, SGI and TGA
 (:mod:`art_tpu_torch.io.rasterformats`); FITS, FLI, FTEX, GBR, IM, IMT,
 IPTC/NAA, McIdas, MSP, PCD, PIXAR, PFM, the PNM extensions, SPIDER,
 SUN, XBM, XPM and XVThumb (:mod:`art_tpu_torch.io.plugins`, each open
-leaving its tile in the file's ``tile``); and WebP
+leaving its tile in the file's ``tile``); BLP, DDS and ICNS
+(:mod:`art_tpu_torch.io.textures`, their opens leaving the decoder's
+state, DDS's data start and ICNS's blocks likewise); and WebP
 (:mod:`art_tpu_torch.io.webpdec`, whose open is libwebp's parse, made
-in its load). `FORMATS` holds the rest, refused by name: BLP, DDS,
-ICNS, JPEG 2000, AVIF and the formats of `LOAD_FAILS`, whose load
-always fails in Pillow (BUFR, GRIB and HDF5 stubs, WMF/EMF, MPEG, EPS
-with no Ghostscript).
+in its load). `FORMATS` holds the rest, refused by name: JPEG 2000,
+AVIF and the formats of `LOAD_FAILS`, whose load always fails in Pillow
+(BUFR, GRIB and HDF5 stubs, WMF/EMF, MPEG, EPS with no Ghostscript).
+An ICNS whose chosen size is a JPEG 2000 icon is refused by name in
+its load.
 
 Not mirrored: the coded data that AVIF's open parses with libavif. Its
 container is checked (boxes whole, the image's boxes present), not what
@@ -195,17 +198,21 @@ def _blp(f):
     magic = f.read(4)
     if not magic.startswith((b"BLP1", b"BLP2")):
         raise SyntaxError("Bad BLP magic")
-    struct.unpack("<i", f.read(4))
+    (compression,) = struct.unpack("<i", f.read(4))
+    encoding = alpha_encoding = None
     if magic == b"BLP1":
         alpha = struct.unpack("<I", f.read(4))[0] != 0
     else:
-        struct.unpack("<b", f.read(1))
+        (encoding,) = struct.unpack("<b", f.read(1))
         alpha = struct.unpack("<b", f.read(1))[0] != 0
-        struct.unpack("<b", f.read(1))
+        (alpha_encoding,) = struct.unpack("<b", f.read(1))
         f.seek(1, 1)
     size = struct.unpack("<II", f.read(8))
     if magic == b"BLP1":
-        struct.unpack("<i", f.read(4))
+        (encoding,) = struct.unpack("<i", f.read(4))
+    # the load's decoder, from the tile's offset
+    f.tile = (magic, 28 if magic == b"BLP1" else 20, compression, encoding,
+              alpha, alpha_encoding)
     return ("RGBA" if alpha else "RGB"), size
 
 
@@ -375,16 +382,26 @@ def _dcx(f):
     return _pcx(f)
 
 
-_DXGI = {70: "RGBA", 71: "RGBA", 73: "RGBA", 74: "RGBA", 76: "RGBA",
-         77: "RGBA", 79: "L", 80: "L", 82: "RGB", 83: "RGB", 84: "RGB",
-         95: "RGB", 96: "RGB", 97: "RGBA", 98: "RGBA", 99: "RGBA",
-         27: "RGBA", 28: "RGBA", 29: "RGBA"}
-_FOURCC = {827611204: "RGBA", 861165636: "RGBA", 894720068: "RGBA",
-           1429488450: "L", 826889281: "L", 1395999554: "RGB",
-           1429553986: "RGB", 843666497: "RGB"}
+# the DXGI formats and FourCCs DDS's open takes: (mode, BCn's n or 0 for
+# raw RGBA, signed)
+_DXGI = {70: ("RGBA", 1, 0), 71: ("RGBA", 1, 0), 73: ("RGBA", 2, 0),
+         74: ("RGBA", 2, 0), 76: ("RGBA", 3, 0), 77: ("RGBA", 3, 0),
+         79: ("L", 4, 0), 80: ("L", 4, 0), 82: ("RGB", 5, 0),
+         83: ("RGB", 5, 0), 84: ("RGB", 5, 1), 95: ("RGB", 6, 0),
+         96: ("RGB", 6, 1), 97: ("RGBA", 7, 0), 98: ("RGBA", 7, 0),
+         99: ("RGBA", 7, 0), 27: ("RGBA", 0, 0), 28: ("RGBA", 0, 0),
+         29: ("RGBA", 0, 0)}
+_FOURCC = {827611204: ("RGBA", 1, 0), 861165636: ("RGBA", 2, 0),
+           894720068: ("RGBA", 3, 0), 1429488450: ("L", 4, 0),
+           826889281: ("L", 4, 0), 1395999554: ("RGB", 5, 1),
+           1429553986: ("RGB", 5, 0), 843666497: ("RGB", 5, 0)}
 
 
 def _dds(f):
+    """DdsImageFile._open; the tile left for the load: ("rgb", bitcount,
+    masks), ("raw", raw mode) or ("bcn", n, signed), then the offset the
+    open stopped reading at (the load's ``load_seek`` does nothing, so
+    its data starts there) and a P image's palette."""
     if not f.read(4).startswith(b"DDS "):
         raise SyntaxError("not a DDS file")
     (hsize,) = struct.unpack("<I", f.read(4))
@@ -395,29 +412,40 @@ def _dds(f):
         raise Unidentified(f"Incomplete header: {len(header)} bytes")
     _, h, w = struct.unpack("<3I", header[:12])
     _, pfflags, fourcc, bitcount = struct.unpack("<4I", header[68:84])
+    palette = None
     if pfflags & 64:  # DDPF.RGB
         mode = "RGBA" if pfflags & 1 else "RGB"
-    elif pfflags & 131072:  # DDPF.LUMINANCE
+        n = len(mode)
+        masks = struct.unpack(f"<{n}I", header[84 : 84 + 4 * n])
+        f.tile = (("rgb", bitcount, masks), f.tell(), None)
+        return mode, (w, h)
+    if pfflags & 131072:  # DDPF.LUMINANCE
         if bitcount == 8:
             mode = "L"
         elif bitcount == 16 and pfflags & 1:
             mode = "LA"
         else:
             raise Unidentified(f"Unsupported bitcount {bitcount}")
+        kind = ("raw", mode)
     elif pfflags & 32:  # DDPF.PALETTEINDEXED8
-        mode = "P"
+        mode, kind = "P", ("raw", "P")
+        palette = f.read(1024)
     elif pfflags & 4:  # DDPF.FOURCC
         if fourcc == 808540228:  # DX10
             (dxgi,) = struct.unpack("<I", f.read(4))
+            f.read(16)
             if dxgi not in _DXGI:
                 raise OpenError(f"DDS: Unimplemented DXGI format {dxgi}")
-            mode = _DXGI[dxgi]
+            mode, n, sign = _DXGI[dxgi]
+            kind = ("bcn", n, sign) if n else ("raw", mode)
         elif fourcc in _FOURCC:
-            mode = _FOURCC[fourcc]
+            mode, n, sign = _FOURCC[fourcc]
+            kind = ("bcn", n, sign)
         else:
             raise OpenError(f"DDS: Unimplemented pixel format {fourcc!r}")
     else:
         raise OpenError(f"DDS: Unknown pixel format flags {pfflags}")
+    f.tile = (kind, f.tell(), palette)
     return mode, (w, h)
 
 
@@ -871,10 +899,12 @@ _ICNS_SIZES = {
 
 
 def _icns(f):
+    """IcnsFile: each block's (start, length) by its code (the last of a
+    code kept) in the tile, for the load."""
     sig, filesize = struct.unpack(">4sI", f.read(8))
     if not sig.startswith(b"icns"):
         raise SyntaxError("not an icns file")
-    blocks = set()
+    blocks = {}
     i = 8
     while i < filesize:
         sig, size = struct.unpack(">4sI", f.read(8))
@@ -882,12 +912,13 @@ def _icns(f):
             raise SyntaxError("invalid block header")
         i += 8
         size -= 8
-        blocks.add(sig)
+        blocks[sig] = (i, size)
         f.seek(size, 1)
         i += size
-    sizes = [s for s, codes in _ICNS_SIZES.items() if blocks & set(codes)]
+    sizes = [s for s, codes in _ICNS_SIZES.items() if set(blocks) & set(codes)]
     if not sizes:
         raise SyntaxError("No 32bit icon resources found")
+    f.tile = (blocks, sizes)
     w, h, scale = max(sizes)
     return "RGBA", (w * scale, h * scale)
 
@@ -1544,8 +1575,9 @@ def _starts(*magics):
 
 def _reader(name, module="rasterformats"):
     """The port's load of a format it decodes: ``read_<name>`` of
-    :mod:`art_tpu_torch.io.rasterformats`, or of
-    :mod:`art_tpu_torch.io.plugins` for a small raster plugin."""
+    :mod:`art_tpu_torch.io.rasterformats`, of
+    :mod:`art_tpu_torch.io.plugins` for a small raster plugin, or of
+    :mod:`art_tpu_torch.io.textures` for a texture or icon format."""
     def read(buf, path):
         import importlib
 
@@ -1556,6 +1588,10 @@ def _reader(name, module="rasterformats"):
 
 def _plugin(name):
     return _reader(name, "plugins")
+
+
+def _texture(name):
+    return _reader(name, "textures")
 
 
 def _webp_accept(p):
@@ -1587,7 +1623,7 @@ def _read_webp(buf, path):
 WALK = (
     ("AVIF", lambda p: p[4:8] == b"ftyp"
      and p[8:12] in (b"avif", b"avis", b"mif1", b"msf1"), _avif, None),
-    ("BLP", _starts(b"BLP1", b"BLP2"), _blp, None),
+    ("BLP", _starts(b"BLP1", b"BLP2"), _blp, _texture("blp")),
     ("DIB", lambda p: len(p) >= 4
      and _i32(p) in (12, 40, 52, 56, 64, 108, 124), _dib, _reader("dib")),
     ("BUFR", _starts(b"BUFR", b"ZCZC"), _stub(b"BUFR", b"ZCZC"), None),
@@ -1595,7 +1631,7 @@ WALK = (
     ("PCX", _pcx_accept, _pcx, _reader("pcx")),
     ("DCX", lambda p: len(p) >= 4 and _i32(p) == 987654321, _dcx,
      _reader("dcx")),
-    ("DDS", _starts(b"DDS "), _dds, None),
+    ("DDS", _starts(b"DDS "), _dds, _texture("dds")),
     ("EPS", lambda p: p.startswith(b"%!PS")
      or (len(p) >= 4 and _i32(p) == 0xC6D3D0C5), _eps, None),
     ("FITS", _starts(b"SIMPLE"), _fits, _plugin("fits")),
@@ -1610,7 +1646,7 @@ WALK = (
     ("JPEG 2000", _starts(b"\xff\x4f\xff\x51",
                           b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a"), _jpeg2000,
      None),
-    ("ICNS", _starts(b"icns"), _icns, None),
+    ("ICNS", _starts(b"icns"), _icns, _texture("icns")),
     ("ICO", _starts(b"\0\0\1\0"), _ico, _reader("ico")),
     ("IM", None, _im, _plugin("im")),
     ("IMT", None, _imt, _plugin("imt")),

@@ -101,8 +101,12 @@ def load_psf_kernel(path, scale=1.0):
             img = read_rgb8(path).astype(np.float32)
             if img.shape[0] == img.shape[1] and img.shape[0] % 2 == 1:
                 k = img[:, :, 1]
-    except NotImplementedError:
-        raise
+    except NotImplementedError as e:
+        from art_tpu_torch.io.textures import BLPFormatError
+
+        if not isinstance(e, BLPFormatError):  # Pillow's own, which the
+            raise  # reference's except takes
+        return None
     except Exception:
         return None
     if k is None or k.shape[0] % 2 == 0:

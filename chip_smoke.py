@@ -118,8 +118,9 @@ develop against the CPU.
 Then the demosaics and raw inputs (`demosaic_phase`), counts reset
 before each path: D1, the flagship with `amazevng4` and the automatic
 dual contrast (B1-B4, B7); D2, each other Bayer name of D2_METHODS on
-the flagship frame and profile (B4 and B7; B1-B3 for the AMaZE dual),
-with a 256x1024 crop against the CPU; D3, pixel shift: four 24 MP
+the flagship frame's top half (D2_FRAME, the full width) and profile
+(B4 and B7; B1-B3 for the AMaZE dual), with a 128x1024 crop against the
+CPU; D3, pixel shift: four 24 MP
 frames of the flagship scene with a 512x512 patch moved (B1-B3 in the
 motion fallback, B4 with no raw head, B7), its motion share and the H2D
 of the three float32 extra frames; D4, a (3, 4000, 6000) u16 Foveon
@@ -217,6 +218,16 @@ F2's develop through cli.main with an RLE SUN Hald and a PFM mask of
 mode F, its JPEG byte-equal to the same develop from a PNG Hald and a
 float32 TIFF mask, B1-B4 and B7 once each and bit-equal to their plain
 versions on G2's tensors.
+Then the texture and icon formats (`texture_phase`): K1, 24 MP DDS
+files of A8R8G8B8 and R5G6B5 masks and of DX10 R8G8B8A8 and a BLP2
+palette file the phase writes (`texture_files`), each against the array
+written; a BC1 and a BC7 DDS and a DXT5 BLP2 tiled from the committed
+fixtures' blocks (`tile_texture`), each against the same tiling of the
+fixture's decode; the small texture and icon fixtures of tests/data
+against Pillow's sha256; K2, F2's develop through cli.main with an
+uncompressed DDS Hald and a BLP2 palette mask, its JPEG byte-equal to
+the same develop from PNGs of the same samples, B1-B4 and B7 once each
+and bit-equal to their plain versions on K2's tensors.
 Then one JSON line of per-kernel results (time, plain time, bound) and
 last the line {"ok": true, "device": {...}}. Any failure raises
 (non-zero exit, no result lines); so does a machine without CUDA.
@@ -229,6 +240,7 @@ import io
 import json
 import os
 import re
+import struct
 import subprocess
 import sys
 import tempfile
@@ -2255,7 +2267,10 @@ def lens_phase(smi_line, tmp):
 D2_METHODS = ("lmmse", "igv", "vng4", "dcb", "ahd", "eahd", "hphd", "ppg",
               "jdl", "amazebilinear", "rcdbilinear", "rcdvng4",
               "dcbbilinear", "dcbvng4", "mono", "none", "no such method")
-CROP = (256, 1024)
+# D2 runs each name at half the flagship's rows (the full width) and
+# compares a 128x1024 crop card against CPU: 17 names, the phase's most
+CROP = (128, 1024)
+D2_FRAME = (FRAME[0] // 2, FRAME[1])
 PATCH = 512
 # a Sigma DP2 Merrill's levels (12-bit, black 16)
 FOVEON_BLACK, FOVEON_WHITE = 16.0, 4070.0
@@ -2427,9 +2442,10 @@ def demosaic_phase(smi_line, entries):
     (B1-B4, B7; the median develop, the device program, peak memory and
     `art:` stages, a 512x768 develop against the CPU, as D3's and D4's);
     D2, each of
-    D2_METHODS on the flagship frame and profile (B4 and B7; B1-B3 for
-    the AMaZE dual), its device program and `art:demosaic` ms and a
-    256x1024 crop against the CPU; D3, pixel shift: four 24 MP frames
+    D2_METHODS on the top half of the flagship frame (D2_FRAME, the full
+    width) and the flagship profile (B4 and B7; B1-B3 for the AMaZE
+    dual), its device program and `art:demosaic` ms and a CROP crop
+    against the CPU; D3, pixel shift: four 24 MP frames
     with a 512x512 patch moved (B1-B3 in the motion fallback at gain 1,
     B4 with no raw head, B7), the motion share and the H2D of the three
     float32 extra frames; D4, a (3, 4000, 6000) u16 Foveon frame (B4 with
@@ -2458,13 +2474,14 @@ def demosaic_phase(smi_line, entries):
     failures += f
 
     crop = crop_frame(frame, *CROP)
+    half = crop_frame(frame, *D2_FRAME)
     for m in D2_METHODS:
         label = f"D2 {m}"
         want = b15 if m.startswith("amaze") else ("b4", "b7")
-        t, st, f = demosaic_path(label, flagship_pp(m), frame, want, crop)
+        t, st, f = demosaic_path(label, flagship_pp(m), half, want, crop)
         times[label], stats[label] = t, st
         failures += f
-    del frame, crop, small
+    del frame, crop, small, half
 
     # D3: pixel shift, a moved patch
     t0 = time.monotonic()
@@ -5272,6 +5289,278 @@ def plugin_phase(smi_line, tmp):
     return {}, failures
 
 
+# ---- the texture and icon formats (texture_phase): DDS and BLP writers;
+# the CPU tests write their files with them too
+
+def dds_bytes(w, h, data, pfflags, fourcc=b"\0\0\0\0", bitcount=0,
+              masks=(0, 0, 0, 0), dxgi=None, extra=b""):
+    """A DDS: the 124-byte header (the pixel format's flags, FourCC, bit
+    count and four masks), DX10's 20 bytes where `dxgi` is given, `extra`
+    (a palette), then `data`."""
+    pf = struct.pack("<4I", 32, pfflags, int.from_bytes(fourcc, "little"),
+                     bitcount) + struct.pack("<4I", *masks)
+    head = (struct.pack("<7I", 124, 0x1007, h, w, 0, 0, 0) + bytes(44) + pf
+            + struct.pack("<5I", 0x1000, 0, 0, 0, 0))
+    dx10 = b"" if dxgi is None else struct.pack("<5I", dxgi, 3, 0, 1, 0)
+    return b"DDS " + head + dx10 + extra + data
+
+
+def blp2_bytes(w, h, encoding, alpha_depth, alpha_encoding, mip0,
+               palette=None):
+    """A BLP2 of one mipmap: the header, the 16 mipmap offsets and lengths
+    (the first after the 256-entry BGRA palette), the palette, `mip0`."""
+    pal = bytes(1024) if palette is None else bytes(palette)
+    off = 20 + 128 + len(pal)
+    return (b"BLP2" + struct.pack("<i4bII", 1, encoding, alpha_depth,
+                                  alpha_encoding, 0, w, h)
+            + struct.pack("<16I", off, *[0] * 15)
+            + struct.pack("<16I", len(mip0), *[0] * 15) + pal + mip0)
+
+
+def dds_rgb_bytes(rgb, alpha=None, bits=32):
+    """An uncompressed DDS of (H, W, 3) uint8: A8R8G8B8 (bits 32, `alpha`
+    its alpha, else 255), R8G8B8 (24), or R5G6B5 (16, the top 5, 6 and 5
+    bits of each sample)."""
+    h, w = rgb.shape[:2]
+    r, g, b = (rgb[..., i].astype(np.uint32) for i in range(3))
+    if bits == 16:
+        v = (r >> 3) << 11 | (g >> 2) << 5 | b >> 3
+        return dds_bytes(w, h, v.astype("<u2").tobytes(), 0x40, bitcount=16,
+                         masks=(0xF800, 0x7E0, 0x1F, 0))
+    if bits == 24:
+        data = np.ascontiguousarray(rgb[..., ::-1]).tobytes()
+        return dds_bytes(w, h, data, 0x40, bitcount=24,
+                         masks=(0xFF0000, 0xFF00, 0xFF, 0))
+    a = np.full((h, w), 255, np.uint32) if alpha is None else \
+        alpha.astype(np.uint32)
+    v = a << 24 | r << 16 | g << 8 | b
+    return dds_bytes(w, h, v.astype("<u4").tobytes(), 0x41, bitcount=32,
+                     masks=(0xFF0000, 0xFF00, 0xFF, 0xFF000000))
+
+
+def rgb565_as_pillow(rgb):
+    """`dds_rgb_bytes(rgb, bits=16)` as Pillow's dds_rgb decoder reads it:
+    each field v of n bits as int(v / (2^n - 1) * 255)."""
+    out = np.empty_like(rgb)
+    for i, n in enumerate((5, 6, 5)):
+        v = (rgb[..., i] >> (8 - n)).astype(np.float64)
+        out[..., i] = (v / ((1 << n) - 1) * 255).astype(np.uint8)
+    return out
+
+
+def texture_blocks(path):
+    """(header, blocks, blocks down, blocks across, bytes a block) of a
+    block-compressed texture fixture that ends with its blocks: a DDS of
+    a FourCC or a DX10 format (the data after the header), or a BLP2 of
+    DXT blocks (its first mipmap)."""
+    buf = open(path, "rb").read()
+    if buf[:4] == b"DDS ":
+        h, w = struct.unpack_from("<2I", buf, 12)
+        at = 128 + (20 if buf[84:88] == b"DX10" else 0)
+    else:
+        w, h = struct.unpack_from("<2I", buf, 12)
+        at = struct.unpack_from("<I", buf, 20)[0]
+    bh, bw = (h + 3) // 4, (w + 3) // 4
+    return buf[:at], buf[at:], bh, bw, (len(buf) - at) // (bh * bw)
+
+
+def tile_texture(path, out, h, w):
+    """A (h, w) texture (multiples of 4) whose block (y, x) is the
+    fixture's block (y mod its rows, x mod its columns): the fixture's
+    header with the size and, for a BLP, the first mipmap's length
+    changed. Returns out."""
+    head, blocks, bh, bw, size = texture_blocks(path)
+    grid = np.frombuffer(blocks, np.uint8).reshape(bh, bw, size)
+    big = grid[np.arange(h // 4) % bh][:, np.arange(w // 4) % bw]
+    head = bytearray(head)
+    if head[:4] == b"DDS ":
+        struct.pack_into("<2I", head, 12, h, w)
+    else:
+        struct.pack_into("<2I", head, 12, w, h)
+        struct.pack_into("<I", head, 84, big.size)
+    with open(out, "wb") as f:
+        f.write(bytes(head))
+        f.write(big.tobytes())
+    return out
+
+
+def tiled_decode(rgb, h, w):
+    """The decode of `tile_texture`'s file from its fixture's: blocks are
+    decoded alone, so the fixture's pixels repeat."""
+    fh, fw = rgb.shape[:2]
+    return rgb[np.arange(h) % fh][:, np.arange(w) % fw]
+
+
+def blp_palette_bytes(idx, palette):
+    """A BLP2 of one uncompressed mipmap: `idx` (H, W) uint8 into
+    `palette` (256, 3) RGB, stored BGRA, no alpha."""
+    h, w = idx.shape
+    bgra = np.zeros((256, 4), np.uint8)
+    bgra[:, :3] = np.asarray(palette, np.uint8)[:, ::-1]
+    return blp2_bytes(w, h, 1, 0, 0, np.ascontiguousarray(idx).tobytes(),
+                      bgra.tobytes())
+
+
+def texture_files(tmp, h, w, seed=0):
+    """K1's files in `tmp` that are written from arrays: name -> (path,
+    the RGB read_rgb8 must give)."""
+    rgb = formats_arrays(h, w, seed)[0]
+    rng = np.random.default_rng(seed + 1)
+    alpha = rng.integers(0, 256, (h, w)).astype(np.uint8)
+    idx = rng.integers(0, 256, (h, w)).astype(np.uint8)
+    pal = rng.integers(0, 256, (256, 3)).astype(np.uint8)
+    j = os.path.join
+    rgba = np.concatenate([rgb, alpha[..., None]], -1)
+    return {
+        "DDS A8R8G8B8": (_write(j(tmp, "k1a.dds"), dds_rgb_bytes(rgb, alpha)),
+                         rgb),
+        "DDS R5G6B5": (_write(j(tmp, "k1b.dds"), dds_rgb_bytes(rgb, bits=16)),
+                       rgb565_as_pillow(rgb)),
+        "DDS DX10 R8G8B8A8": (_write(j(tmp, "k1c.dds"), dds_bytes(
+            w, h, rgba.tobytes(), 4, b"DX10", dxgi=28)), rgb),
+        "BLP2 palette": (_write(j(tmp, "k1d.blp"),
+                                blp_palette_bytes(idx, pal)), pal[idx]),
+    }
+
+
+# the fixtures K1 tiles to 24 MP: (K1's name, fixture)
+K1_TILED = (("DDS BC1", "tex_bc1.dds"), ("DDS BC7", "tex_bc7.dds"),
+            ("BLP2 DXT5", "tex_dxt5.blp"))
+
+
+def texture_phase(smi_line, tmp):
+    """The texture and icon formats decoded by the port on the card's
+    machine (no PIL there). K1: `texture_files` at 24 MP (DDS of
+    A8R8G8B8 and R5G6B5 masks, DX10 R8G8B8A8, a BLP2 palette file), each
+    read_rgb8's host ms against the array written (the 5-6-5 samples as
+    Pillow's dds_rgb scales them); a BC1 and a BC7 DDS and a DXT5 BLP2
+    tiled from the committed fixtures' blocks (K1_TILED), each against
+    the same tiling of the fixture's decode; every committed texture and
+    icon fixture against the sha256 of Pillow's decode. K2: F2's develop
+    through cli.main (P3's Hald film simulation with Texture Boost under
+    an external mask, bundled profile, denoise 20/20), the Hald an
+    uncompressed DDS and the mask a BLP2 palette file, against the same
+    develop from a PNG Hald and a PNG mask of the same samples and mode:
+    the JPEGs byte-equal, B1-B4 and B7 once each and bit-equal to their
+    plain versions on K2's tensors. Returns (the comparisons, the
+    failures)."""
+    from art_tpu_torch.io import imagefile
+    from art_tpu_torch.io.dngwrite import write_dng
+    from art_tpu_torch.io.imagefile import write_png
+    from art_tpu_torch.pipeline import develop as tdev
+
+    log(f"---- texture phase ({smi_line})")
+    t_phase = time.monotonic()
+    failures = []
+    with open(FORMATS_SHA) as f:
+        recorded = json.load(f)
+    fixtures = sorted(k for k in recorded if k.startswith("tex_"))
+    decoded = {}
+    for name in fixtures:
+        fpath = os.path.join(FORMATS_DATA, name)
+        t0 = time.monotonic()
+        got = imagefile.read_rgb8(fpath)
+        ms = 1e3 * (time.monotonic() - t0)
+        ok = _sha(got) == recorded[name]
+        decoded[name] = got
+        log(f"K1 {name} ({os.path.getsize(fpath)} bytes, "
+            f"{got.shape[1]}x{got.shape[0]}): read_rgb8 {ms:.1f} ms (host), "
+            f"sha256 {'equal to' if ok else 'NOT'} Pillow's")
+        if not ok:
+            failures.append(f"K1 {name}: sha256 differs from Pillow's")
+    h, w = FORMATS_FRAME
+    t0 = time.monotonic()
+    files = texture_files(tmp, h, w)
+    for label, name in K1_TILED:
+        path = tile_texture(os.path.join(FORMATS_DATA, name),
+                            os.path.join(tmp, name), h, w)
+        files[label] = (path, tiled_decode(decoded[name], h, w))
+    log(f"K1 files {h}x{w} written in {time.monotonic() - t0:.2f} s: "
+        + ", ".join(f"{k} {os.path.getsize(p) / 1e6:.1f} MB"
+                    for k, (p, _) in files.items()))
+    for name, (path, want) in files.items():
+        t0 = time.monotonic()
+        got = imagefile.read_rgb8(path)
+        ms = 1e3 * (time.monotonic() - t0)
+        ok = got.shape == want.shape and np.array_equal(got, want)
+        log(f"K1 {name}: read_rgb8 {ms:.1f} ms (host) -> {got.shape}: "
+            f"{'equal' if ok else 'DIFFERENT'}")
+        if not ok:
+            failures.append(f"K1 {name} decodes differently")
+        os.unlink(path)
+    del files, got, want
+
+    # K2: an uncompressed DDS Hald and a BLP2 palette mask against PNGs
+    hald = hald_image(12, 8)
+    mask = f2_mask().astype(np.uint8)
+    grey = np.repeat(np.arange(256, dtype=np.uint8)[:, None], 3, 1)
+    paths = {"hald": _write(os.path.join(tmp, "hald12.dds"),
+                            dds_rgb_bytes(hald, bits=24)),
+             "mask": _write(os.path.join(tmp, "mask.blp"),
+                            blp_palette_bytes(mask, grey)),
+             "hald_png": os.path.join(tmp, "hald12.png"),
+             "mask_png": os.path.join(tmp, "mask.png")}
+    write_png(paths["hald_png"], hald)
+    write_png(paths["mask_png"], np.repeat(mask[..., None], 3, 2))
+    for key, want in (("hald", hald), ("mask", grey[mask])):
+        t0 = time.monotonic()
+        got = imagefile.read_rgb8(paths[key])
+        ms = 1e3 * (time.monotonic() - t0)
+        ok = np.array_equal(got, want)
+        log(f"K2 {key}: {os.path.basename(paths[key])} {got.shape} in "
+            f"{ms:.1f} ms (host), {'equal to' if ok else 'NOT'} its samples")
+        if not ok:
+            failures.append(f"K2: the {key} decodes wrongly")
+    frame = flagship_frame(*FRAME)
+    dng = os.path.join(tmp, "k2.dng")
+    write_dng(dng, np.round(frame.cfa).astype(np.uint16), black=512,
+              white=16383, compress=False)
+    base = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "art_tpu_torch", "data", "profiles", PROFILE)
+    dn = os.path.join(tmp, "denoise20.arp")
+    with open(dn, "w") as f:
+        f.write("[Denoise]\nEnabled=true\nLuminance=20\nChrominance=20\n")
+    outs = {}
+    want = ("b1", "b2", "b3", "b4", "b7")
+    for kind, (lut, msk) in {
+            "textures": (paths["hald"], paths["mask"]),
+            "png": (paths["hald_png"], paths["mask_png"])}.items():
+        arp = os.path.join(tmp, f"k2_{kind}.arp")
+        with open(arp, "w") as f:
+            f.write(f2_arp(lut, msk))
+        out = os.path.join(tmp, f"k2_{kind}.jpg")
+        argv = ["-Y", "-p", base, "-p", dn, "-p", arp, "-o", out, "-c", dng]
+        reset_counts()
+        phases, seconds = cli_run(argv)
+        launches, plain_calls = read_counts()
+        log(f"K2 ({'DDS Hald, BLP mask' if kind == 'textures' else 'PNG '
+            'Hald, PNG mask'}) through cli.main: "
+            f"{1e3 * seconds:.1f} ms end to end (first); phases {phases}; "
+            f"launches {launches}; plain calls {plain_calls}")
+        if launches != {k: int(k in want) for k in launches} \
+                or any(plain_calls.values()):
+            failures.append(f"K2 {kind}: launches {launches}, plain calls "
+                            f"{plain_calls}")
+        outs[kind] = open(out, "rb").read()
+        check_jpeg(out)
+    same = outs["textures"] == outs["png"]
+    log(f"K2 JPEG from the DDS and BLP "
+        f"{'byte-equal to' if same else 'DIFFERS FROM'} the PNGs' "
+        f"({len(outs['textures'])} bytes)")
+    if not same:
+        failures.append("K2: the DDS/BLP develop differs from the PNGs'")
+    from art_tpu_torch import cli
+
+    argv = ["-Y", "-p", base, "-p", dn, "-p",
+            os.path.join(tmp, "k2_textures.arp"), "-o",
+            os.path.join(tmp, "k2_k.jpg"), "-c", dng]
+    pp = cli.compose_params(dng, cli.parse_args(argv))
+    failures += kernels_against_plain("K2", lambda: tdev.develop(frame, pp),
+                                      want)
+    log(f"texture phase: {time.monotonic() - t_phase:.1f} s")
+    return {}, failures
+
+
 def _leaves(d):
     for k, v in d.items():
         if isinstance(v, dict):
@@ -5615,6 +5904,15 @@ def main():
         plugin_stats, plugin_failures = plugin_phase(smi_line, tmp)
     new_stats.update(plugin_stats)
     failures += plugin_failures
+
+    # ---- the texture and icon formats: K1 (24 MP DDS and BLP decodes,
+    # BCn tiled from the committed fixtures, the fixtures), K2 (a DDS
+    # Hald and a BLP mask through cli.main)
+    with phase_clock("texture phase, in all"), \
+            tempfile.TemporaryDirectory() as tmp:
+        tex_stats, tex_failures = texture_phase(smi_line, tmp)
+    new_stats.update(tex_stats)
+    failures += tex_failures
 
     failures += [f"B6 on {k} disagrees with its plain version"
                  for k, ok in b6_edges.items() if not ok]

@@ -904,7 +904,7 @@ def _pil_written(fmt, tmp_path):
     return path
 
 
-@pytest.mark.parametrize("fmt", ["JPEG2000", "DDS", "BLP", "ICNS"])
+@pytest.mark.parametrize("fmt", ["JPEG2000", "AVIF"])
 def test_formats_pillow_writes_and_the_port_refuses(fmt, tmp_path):
     """Files Pillow writes in a format the port does not decode: Pillow
     opens them, and the port raises NotImplementedError naming the
@@ -918,11 +918,13 @@ def test_formats_pillow_writes_and_the_port_refuses(fmt, tmp_path):
 
 
 @pytest.mark.parametrize("fmt", ["DIB", "TGA", "ICO", "PCX", "SGI", "QOI",
-                                 "MSP", "XBM", "IM", "SPIDER"])
+                                 "MSP", "XBM", "IM", "SPIDER", "DDS", "BLP",
+                                 "ICNS"])
 def test_formats_pillow_writes_decode_as_pillow(fmt, tmp_path):
-    """Files Pillow writes in the simple raster formats and the small
-    raster plugins the port decodes (io/rasterformats.py,
-    io/plugins.py): the four readers as Pillow and the reference."""
+    """Files Pillow writes in the simple raster formats, the small raster
+    plugins and the texture and icon formats the port decodes
+    (io/rasterformats.py, io/plugins.py, io/textures.py): the four
+    readers as Pillow and the reference."""
     path = _pil_written(fmt, tmp_path)
     assert fmt not in {PIL_FORMAT.get(n, n.upper()) for n, _, _ in
                        unported.FORMATS}

@@ -527,7 +527,8 @@ assert unported.identify(qoi) is None
 im = b"Image type: RGB image\r\nImage size (x*y): 4*3\r\n\x1a" + bytes(36)
 assert unported.identify(im) is None and unported.walk(im)[0] == "IM"
 assert imagefile._decode(im, None)[1].shape == (3, 4, 3)
-assert unported.identify(b"icns\0\0\0\x10ic07\0\0\0\x08") == "ICNS"
+icns = b"icns\0\0\0\x10ic07\0\0\0\x08"
+assert unported.identify(icns) is None and unported.walk(icns)[0] == "ICNS"
 with tempfile.TemporaryDirectory() as d:
     for name, (path, want) in chip_smoke.formats_files(d, 40, 64).items():
         mode, samples, _ = imagefile.read_image(path)

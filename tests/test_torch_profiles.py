@@ -158,9 +158,9 @@ def test_check_lut_refuses_a_hald_image(tmp_path, capsys):
     rc, text = _check_lut(cli.main, tga, capsys)
     ref_rc, ref_text = _check_lut(ref_cli.main, tga, capsys)
     assert rc == ref_rc == 0 and text == ref_text
-    dds = tmp_path / "hald.dds"
-    Image.fromarray(hald_image(2, 8)).save(dds)
-    rc, text = _check_lut(cli.main, dds, capsys)
+    jp2 = tmp_path / "hald.jp2"
+    Image.fromarray(hald_image(2, 8)).save(jp2)
+    rc, text = _check_lut(cli.main, jp2, capsys)
     assert rc == 2
-    assert "DDS image" in text and "does not read BLP, DDS" in text
+    assert "JPEG 2000 image" in text and "does not read JPEG 2000" in text
     assert "Invalid LUT file" not in text

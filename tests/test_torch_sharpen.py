@@ -143,9 +143,9 @@ def test_psf_image_file_is_refused_only_where_it_exists(tmp_path):
         want = jsh.load_psf_kernel(str(tmp_path / "k.tga"), scale)
         assert got is not None
         np.testing.assert_array_equal(got, want)
-    Image.fromarray(img).save(tmp_path / "k.dds")
-    with pytest.raises(NotImplementedError, match="DDS image"):
-        tsh.load_psf_kernel(str(tmp_path / "k.dds"))
+    Image.fromarray(img).save(tmp_path / "k.jp2")
+    with pytest.raises(NotImplementedError, match="JPEG 2000 image"):
+        tsh.load_psf_kernel(str(tmp_path / "k.jp2"))
 
 
 def test_auto_radius_matches_reference():

@@ -148,7 +148,7 @@ OPENABLE = {
     "PCX": _pil("PCX"),
     "PCX L": _pil("PCX", "L", (40, 30)),
     "DCX": _dcx,
-    "DDS": _pil("DDS"),
+    "DDS": _pil("DDS", size=(32, 24)),
     "DDS L": _pil("DDS", "L"),
     "EPS": _pil("EPS"),
     "FITS": _fits,
@@ -220,7 +220,7 @@ PORT_DECODES = {"BMP", "GIF", "PNG", "JPEG", "MPO", "TIFF", "WEBP"}
 DECODED = {"DIB", "CUR", "PCX", "DCX", "ICO", "PSD", "QOI", "SGI", "TGA",
            "FITS", "FLI", "FTEX", "GBR", "IM", "IMT", "IPTC/NAA", "McIdas",
            "MSP", "PCD", "PIXAR", "PFM", "PNM of a Pillow extension",
-           "SPIDER", "SUN", "XBM", "XPM", "XVThumb"}
+           "SPIDER", "SUN", "XBM", "XPM", "XVThumb", "BLP", "DDS", "ICNS"}
 
 
 def _name(key):
