@@ -3,8 +3,9 @@
 (``io/native/jpegenc.cc``), the JPEG decoder (``io/native/jpegdec.cc``),
 GIF's LZW decoder (``io/native/lzwdec.cc``), the WebP decoder
 (``io/native/webpdec.cc``), the simple raster formats' decoders
-(``io/native/rasterdec.cc``) and the JPEG 2000 decoder
-(``io/native/jp2dec.cc``).
+(``io/native/rasterdec.cc``), the JPEG 2000 decoder
+(``io/native/jp2dec.cc``) and the TIFF codecs (``io/native/tiffdec.cc``:
+ZSTD, CCITT fax, ThunderScan).
 
 Each source is compiled by g++ with portable flags (no ``-march=native``,
 so a library built on one machine runs on another), and a source's own
@@ -58,8 +59,8 @@ def _cxx() -> str:
     if not cxx:
         raise RuntimeError("g++ not found: cannot build the art_tpu_torch "
                            "host libraries (raw decoder, JPEG encoder and "
-                           "decoder, GIF, WebP, raster and JPEG 2000 "
-                           "decoders)")
+                           "decoder, GIF, WebP, raster, JPEG 2000 and "
+                           "TIFF decoders)")
     return cxx
 
 

@@ -11,10 +11,9 @@ for 8 bits and OpenCV for 16; the pixels are the same).
 
 `read_rgb8` decodes a PNG (1 to 16 bits; grey, grey and alpha, RGB, RGBA,
 palette; plain or Adam7; opened and loaded step by step as Pillow does,
-CRCs checked at the open only), a TIFF or BigTIFF (strips or tiles, chunky or
-planar; none, deflate, LZW, PackBits or JPEG; the horizontal predictor;
-1 to 16 bits, and one sample of 32-bit integers or floats; grey, RGB,
-RGBA, palette, CMYK, YCbCr under JPEG), a JPEG
+CRCs checked at the open only), a TIFF or BigTIFF in every mode of
+Pillow's OPEN_INFO under each compression Pillow's libtiff decodes
+(:mod:`art_tpu_torch.io.tiff`), a JPEG
 (:mod:`art_tpu_torch.io.jpegdec`: Huffman- or arithmetic-coded
 baseline, extended or progressive, lossless; grey, YCbCr, RGB, CMYK or
 YCCK), a BMP, PNM or GIF (:mod:`art_tpu_torch.io.stdformats`), a WebP
@@ -27,8 +26,9 @@ PIL for,
 ``np.asarray(Image.open(path).convert("RGB"))``, byte for byte: 16-bit
 colour keeps its high byte, 16-bit grey clips at 255 (PIL's I;16), grey
 below 8 bits scales to 0..255, a palette expands through PLTE (entries
-past its end black), alpha and tRNS drop, CMYK goes through Pillow's
-``cmyk2rgb``. `read_grey` decodes an external mask as PIL opens it: a
+past its end black), alpha and tRNS drop (premultiplied alpha divided
+out first), CMYK goes through Pillow's ``cmyk2rgb``, LAB through
+LittleCMS as Pillow's ``convert`` does. `read_grey` decodes an external mask as PIL opens it: a
 16-bit grey PNG or little-endian TIFF as its uint16 samples (``I;16``),
 a TIFF of 32-bit floats as float32 (``F``), any other image as the
 green channel of the above (``L``). `read_image` gives an image as
@@ -319,7 +319,9 @@ def _decode(buf, path):
             return "RGB", _png_rgb8(samples, depth, ctype, plte), icc
         if buf[:4] in (b"II\x2a\x00", b"MM\x00\x2a", b"II\x2b\x00",
                        b"MM\x00\x2b"):
-            return _read_tiff(buf)
+            from art_tpu_torch.io import tiff
+
+            return tiff.read(buf)
         if buf[:3] == b"\xff\xd8\xff":
             from art_tpu_torch.io import jpegdec
 
@@ -712,309 +714,3 @@ def _png_rgb8(samples, depth, ctype, plte):
     if depth == 16:
         rgb = (rgb >> 8).astype(np.uint8)
     return np.ascontiguousarray(rgb)
-
-
-def _lzw_decode(data):
-    """TIFF LZW (MSB-first codes, 9 to 12 bits, the early change)."""
-    out = bytearray()
-    table = [bytes([i]) for i in range(256)] + [b"", b""]
-    nbits = 9
-    bitpos = 0
-    end = len(data) * 8
-    data = bytes(data) + b"\0\0\0"
-    prev = None
-    while bitpos + nbits <= end:
-        i, off = divmod(bitpos, 8)
-        code = (int.from_bytes(data[i : i + 3], "big")
-                >> (24 - off - nbits)) & ((1 << nbits) - 1)
-        bitpos += nbits
-        if code == 256:  # clear
-            del table[258:]
-            nbits = 9
-            prev = None
-            continue
-        if code == 257:  # end of information
-            break
-        if prev is None:
-            entry = table[code]
-        elif code < len(table):
-            entry = table[code]
-            table.append(prev + entry[:1])
-        elif code == len(table):
-            entry = prev + prev[:1]
-            table.append(entry)
-        else:
-            raise ValueError("TIFF LZW: bad code")
-        out += entry
-        prev = entry
-        if len(table) + 1 >= (1 << nbits) and nbits < 12:
-            nbits += 1
-    return bytes(out)
-
-
-def _packbits_decode(data, size):
-    out = bytearray()
-    i, n = 0, len(data)
-    while i < n and len(out) < size:
-        c = data[i]
-        i += 1
-        if c < 128:
-            out += data[i : i + c + 1]
-            i += c + 1
-        elif c > 128:
-            out += data[i : i + 1] * (257 - c)
-            i += 1
-    return bytes(out)
-
-
-_TIFF_COMPRESSION = {1: "none", 5: "LZW", 8: "deflate", 32946: "deflate",
-                     32773: "PackBits"}
-
-
-# Pillow's integer TIFF types by their struct codes, and every type's size
-_TIFF_TYPES = {1: "B", 3: "H", 4: "I", 6: "b", 8: "h", 9: "i", 16: "Q",
-               17: "q", 18: "Q"}
-_TIFF_TYPE_SIZE = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 6: 1, 7: 1, 8: 2, 9: 4,
-                   10: 8, 11: 4, 12: 8, 13: 4, 16: 8, 17: 8, 18: 8}
-
-
-def _read_tiff(buf):
-    """A TIFF or BigTIFF as Pillow opens it: (mode, samples, icc) as
-    `read_image` gives them. Pillow's modes of one sample
-    (TiffImagePlugin.OPEN_INFO): "I;16" for 16 bits little-endian
-    (WhiteIsZero not inverted), "I;16B" for 16 bits big-endian
-    BlackIsZero (it opens no big-endian 16-bit WhiteIsZero image), "I"
-    for signed 16-bit and for 32-bit integers (unsigned ones
-    little-endian only, wrapped to int32), "F" for 32-bit floats; every
-    other form through its ``convert("RGB")``: CMYK (photometric 5, 8
-    bits) through Pillow's ``cmyk2rgb``. Separate planes
-    (PlanarConfiguration 2) decode plane by plane, each strip or tile
-    one sample. A JPEG-compressed image (compression 7) decodes strip by
-    strip or tile by tile through :mod:`art_tpu_torch.io.jpegdec`, its
-    JPEGTables (tag 347) joined to each stream, as libtiff feeds libjpeg:
-    YCbCr (photometric 6) converted to RGB as libtiff's
-    JPEGCOLORMODE_RGB asks, RGB and grey unconverted."""
-    from art_tpu_torch.io.stdformats import cmyk_to_rgb
-
-    le = buf[:2] == b"II"
-    big = buf[2:4] in (b"\x2b\x00", b"\x00\x2b")
-    e = "<" if le else ">"
-    from art_tpu_torch.io.metadata import _read_ifd, _value
-
-    try:
-        if big and struct.unpack_from(e + "HH", buf, 4) != (8, 0):
-            raise struct.error("BigTIFF: offset size other than 8")
-        first = struct.unpack_from(e + ("Q" if big else "I"), buf,
-                                   8 if big else 4)[0]
-        ents = _read_ifd(buf, first, le, big, _TIFF_TYPE_SIZE)[0]
-    except struct.error as err:  # Pillow's open fails on the IFD
-        raise Unidentified(f"TIFF: broken IFD ({err})") from err
-
-    def get(tag, default=None):
-        if tag not in ents:
-            return default
-        v = _value(buf, *ents[tag], le, _TIFF_TYPES)
-        return default if v is None else v
-
-    def seq(tag):
-        v = get(tag)
-        return None if v is None else (v if isinstance(v, tuple) else (v,))
-
-    def raw_tag(tag):
-        if tag not in ents:
-            return None
-        typ, cnt, off = ents[tag]
-        return buf[off : off + cnt] if typ in (1, 7) else None
-
-    def unported(what):
-        raise NotImplementedError(
-            f"TIFF image with {what}: the port's image decoder "
-            "(io/imagefile.py::read_rgb8) reads baseline, CMYK, planar and "
-            "JPEG-compressed TIFF only")
-
-    w, h = int(get(256, 0)), int(get(257, 0))
-    spp = int(get(277, 1))
-    bits = seq(258) or (1,)
-    depth = int(bits[0])
-    comp = int(get(259, 1))
-    photo = int(get(262, 1))
-    pred = int(get(317, 1))
-    fmt = seq(339) or (1,)
-    planar = int(get(284, 1)) == 2 and spp > 1
-    icc = raw_tag(34675)
-    if w <= 0 or h <= 0:
-        raise Unidentified("TIFF: no image size")
-    if comp == 6:
-        unported("old-style JPEG compression (6)")
-    if comp not in _TIFF_COMPRESSION and comp != 7:
-        unported(f"compression {comp}")
-    if int(get(284, 1)) not in (1, 2):
-        unported(f"planar configuration {get(284)}")
-    # Pillow's mode of one 16- or 32-bit sample
-    single = spp == 1 and photo in (0, 1)
-    mode = None
-    if single and bits in ((16,), (32,)):
-        kind = {(16, 1): "I;16" if le else "I;16B", (16, 2): "I",
-                (32, 1): "I", (32, 2): "I", (32, 3): "F"}.get(
-                    (depth, int(fmt[0])))
-        if kind is None:
-            unported(f"sample format {fmt[0]}")
-        # the forms OPEN_INFO lacks: Image.open fails on them
-        if (kind == "I;16B" and photo == 0) or (kind == "I" and (
-                photo == 0 or (depth == 32 and not le
-                               and int(fmt[0]) == 1))):
-            raise Unidentified(
-                f"cannot identify image file: PIL opens no TIFF of "
-                f"{depth}-bit samples of format {fmt[0]}, photometric "
-                f"{photo}, {'little' if le else 'big'}-endian")
-        mode = kind
-    elif any(int(f) != 1 for f in fmt):
-        unported(f"sample format {fmt[0]}")
-    if mode is None and (any(int(b) != depth for b in bits)
-                         or depth not in (1, 2, 4, 8, 16)):
-        unported(f"{bits} bits per sample")
-    if pred not in (1, 2) or (mode == "F" and pred != 1):
-        unported(f"predictor {pred}")
-    if photo == 5 and (depth != 8 or spp not in (4, 5)):
-        unported(f"CMYK of {bits} bits per sample")
-    if comp == 7:
-        if depth != 8 or mode is not None or planar:
-            unported(f"JPEG compression of {bits} bits per sample"
-                     + (", separate planes" if planar else ""))
-        if photo == 6 and spp == 3:
-            photo_out, color = 2, 1
-        elif (photo == 2 and spp == 3) or (photo in (0, 1) and spp == 1):
-            photo_out, color = photo, 0
-        else:
-            unported(f"JPEG compression of photometric {photo}, {spp} "
-                     "samples")
-    else:
-        photo_out = photo
-        if photo not in (0, 1, 2, 3, 5):
-            unported(f"photometric interpretation {photo}")
-    if photo_out == 2 and spp < 3:
-        raise Unidentified("TIFF: RGB with fewer than 3 samples")
-    tiled = 322 in ents
-    if tiled:
-        bw, bh = int(get(322)), int(get(323))
-        offsets, counts = seq(324), seq(325)
-        across = (w + bw - 1) // bw
-        per_plane = across * ((h + bh - 1) // bh)
-    else:
-        bw, bh = w, int(get(278, h))
-        bh = min(bh, h) if bh > 0 else h
-        offsets, counts = seq(273), seq(279)
-        across = 1
-        per_plane = (h + bh - 1) // bh
-    if not offsets:
-        raise ValueError("TIFF: no image data")
-    nplanes = spp if planar else 1
-    bspp = 1 if planar else spp  # samples a pixel in one strip or tile
-    nbytes = depth // 8 if depth >= 8 else 0
-    row_bytes = (bw * bspp * depth + 7) // 8
-    block_bytes = row_bytes * bh
-    if mode == "F":
-        dtype, store = np.dtype(e + "f4"), np.float32
-    elif mode == "I":
-        dtype = np.dtype(e + ("i" if int(fmt[0]) == 2 else "u") + str(nbytes))
-        store = np.int32
-    elif depth == 16:
-        dtype, store = np.dtype(e + "u2"), np.uint16
-    else:
-        dtype, store = np.uint8, np.uint8
-    # Pillow unpacks an uncompressed planar 16-bit plane with the 8-bit
-    # unpacker of its band ("RGB;16L"[k]): a strip's or tile's bytes in
-    # order, one a pixel, rows as long as its part in the image (a tile
-    # past the right edge: rows at the full row's stride)
-    bytewise = planar and comp == 1 and depth == 16 and mode is None
-    if bytewise:
-        store = np.uint8
-    img = np.zeros((h, w, spp) if depth >= 8 else (h, w), store)
-    tables = raw_tag(347)
-    for i, off in enumerate(offsets):
-        plane, j = divmod(i, per_plane) if planar else (0, i)
-        if plane >= nplanes:
-            break
-        y0 = (j // across) * bh
-        x0 = (j % across) * bw
-        if y0 >= h:
-            if planar:
-                continue
-            break
-        n = counts[i] if counts else block_bytes
-        if off + n > len(buf):
-            raise ValueError("TIFF: image file is truncated")
-        raw = buf[off : off + n]
-        hh, ww = min(bh, h - y0), min(bw, w - x0)
-        if comp == 7:
-            from art_tpu_torch.io import jpegdec
-
-            blk = jpegdec.decode_tiff_stream(_join_tables(tables, raw),
-                                             color)
-            blk = blk.reshape(blk.shape[0], blk.shape[1], -1)
-            if blk.shape[0] < hh or blk.shape[1] < ww or \
-                    blk.shape[2] != spp:
-                raise ValueError("TIFF: a JPEG strip of the wrong size")
-            img[y0 : y0 + hh, x0 : x0 + ww] = blk[:hh, :ww]
-            continue
-        name = _TIFF_COMPRESSION[comp]
-        if name == "deflate":
-            raw = zlib.decompress(raw)
-        elif name == "LZW":
-            raw = _lzw_decode(raw)
-        elif name == "PackBits":
-            raw = _packbits_decode(raw, block_bytes)
-        raw = raw[:block_bytes].ljust(block_bytes, b"\0")
-        rows = np.frombuffer(raw, np.uint8).reshape(bh, row_bytes)
-        if bytewise:
-            blk = np.zeros((bh, bw, 1), np.uint8)
-            blk[:hh, :ww, 0] = rows[:hh, :ww] if x0 + bw > w else \
-                np.frombuffer(raw, np.uint8)[: hh * ww].reshape(hh, ww)
-        elif depth >= 8:
-            blk = rows.view(dtype).reshape(bh, bw, bspp).astype(store)
-            if pred == 2:  # horizontal differencing, sample by sample
-                blk = np.cumsum(blk, axis=1, dtype=store)
-        else:
-            bitv = np.unpackbits(rows, axis=1).reshape(bh, -1, depth)[:, :bw]
-            blk = np.zeros((bh, bw), np.uint8)
-            for k in range(depth):
-                blk = (blk << 1) | bitv[..., k]
-        if planar:
-            img[y0 : y0 + hh, x0 : x0 + ww, plane] = blk[:hh, :ww, 0]
-        else:
-            img[y0 : y0 + hh, x0 : x0 + ww] = blk[:hh, :ww]
-    if depth < 8:
-        img = img[..., None]
-    if mode is not None:
-        return mode, img[..., 0], icc
-    if photo_out == 3:
-        cmap = np.asarray(seq(320) or (), np.uint16)
-        n = 1 << depth
-        if cmap.size < 3 * n:
-            raise ValueError("TIFF: short colour map")
-        pal = (cmap[: 3 * n].reshape(3, n).T >> 8).astype(np.uint8)
-        return "RGB", pal[img[..., 0]], icc
-    if photo_out in (0, 1):
-        grey = img[..., 0]
-        if depth < 8:
-            grey = (grey.astype(np.uint16) * (255 // ((1 << depth) - 1))
-                    ).astype(np.uint8)
-        if photo_out == 0:
-            grey = 255 - grey
-        return "RGB", np.repeat(grey[..., None], 3, axis=2), icc
-    if photo_out == 5:
-        return "RGB", cmyk_to_rgb(img[..., :4]), icc
-    rgb = img[..., :3]
-    if depth == 16 and not bytewise:
-        rgb = (rgb >> 8).astype(np.uint8)
-    return "RGB", np.ascontiguousarray(rgb), icc
-
-
-def _join_tables(tables, stream):
-    """A strip's JPEG stream with the JPEGTables' markers before its own,
-    as libtiff hands libjpeg the tables and then the strip."""
-    if not tables:
-        return stream
-    head = tables[:-2] if tables[-2:] == b"\xff\xd9" else tables
-    body = stream[2:] if stream[:2] == b"\xff\xd8" else stream
-    return head + body

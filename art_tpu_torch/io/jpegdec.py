@@ -257,6 +257,12 @@ def _load():
                 ctypes.POINTER(ctypes.c_int),
                 ctypes.POINTER(ctypes.POINTER(ctypes.c_uint8)),
                 ctypes.c_char_p, ctypes.c_int]
+            lib.jpegdec_decode_raw.restype = ctypes.c_int
+            lib.jpegdec_decode_raw.argtypes = [
+                ctypes.c_char_p, ctypes.c_size_t,
+                ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
+                ctypes.POINTER(ctypes.POINTER(ctypes.c_uint8)),
+                ctypes.c_char_p, ctypes.c_int]
             lib.jpegdec_free.restype = None
             lib.jpegdec_free.argtypes = [ctypes.POINTER(ctypes.c_uint8)]
             _LIB = lib
@@ -326,6 +332,41 @@ def decode_tiff_stream(buf, color):
     if outcome != 0:
         raise OSError(f"TIFF JPEG strip: {msg or 'the data ended first'}")
     return arr
+
+
+def decode_raw(buf):
+    """A JPEG stream's component planes as libjpeg's jpeg_read_raw_data
+    gives them (libtiff's old-style JPEG): a list of (plane (rows, row
+    length) uint8 in whole blocks, (h, v) sampling factors). A stream
+    libjpeg fails on before its last row raises OSError; what follows
+    the rows (tif_ojpeg never finishes the decompression) is not read."""
+    lib = _load()
+    info = (ctypes.c_int * 5)()
+    geom = (ctypes.c_int * 40)()
+    out = ctypes.POINTER(ctypes.c_uint8)()
+    msg = ctypes.create_string_buffer(256)
+    data = bytes(buf)
+    if lib.jpegdec_decode_raw(data, len(data), info, geom, ctypes.byref(out),
+                              msg, len(msg)) != 0:
+        raise RuntimeError("jpegdec: bad arguments")
+    if info[0] not in (0, 1) or not out:
+        if out:
+            lib.jpegdec_free(out)
+        raise OSError(f"JPEG raw data: "
+                      f"{msg.value.decode('ascii', 'replace') or 'the data ended first'}")
+    planes = []
+    total = sum(geom[4 * c] * geom[4 * c + 1] for c in range(info[3]))
+    try:
+        flat = np.ctypeslib.as_array(out, shape=(total,)).copy()
+    finally:
+        lib.jpegdec_free(out)
+    at = 0
+    for c in range(info[3]):
+        rows, pw = geom[4 * c], geom[4 * c + 1]
+        planes.append((flat[at : at + rows * pw].reshape(rows, pw),
+                       (geom[4 * c + 2], geom[4 * c + 3])))
+        at += rows * pw
+    return planes
 
 
 def decode_rgb(buf, salvage=False):

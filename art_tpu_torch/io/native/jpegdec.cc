@@ -63,6 +63,10 @@
 // (jpegdec_decode), 0 the components unconverted (JCS_UNKNOWN), 1 YCbCr;
 // color 2 reads a four-component frame as CMYK whatever its Adobe
 // transform (Pillow's jpeg mode "CMYK", JCS_CMYK: no YCCK conversion).
+// Colour 0 takes any number of components, output as they are.
+//   int jpegdec_decode_raw(data, len, int* info, int* geom, ...)
+// gives the components' planes unconverted and not upsampled, as
+// libjpeg's jpeg_read_raw_data does (libtiff's old-style JPEG).
 
 #include <algorithm>
 #include <cstdint>
@@ -2070,6 +2074,11 @@ struct Decoder {
       memcpy(out, full[0].data(), n);
       return;
     }
+    if (color_override == 0 && channels != 3) {  // JCS_UNKNOWN: as they are
+      for (size_t i = 0; i < n; i++)
+        for (int ci = 0; ci < channels; ci++) out[(size_t)channels * i + ci] = full[ci][i];
+      return;
+    }
     if (channels == 4) {
       output_cmyk(out, full);
       return;
@@ -2167,8 +2176,8 @@ struct Decoder {
 
 extern "C" {
 
-int jpegdec_decode_as(const uint8_t* data, size_t len, int salvage, int color, int* info,
-                      uint8_t** out, char* msg, int msg_len) {
+static int decode_impl(const uint8_t* data, size_t len, int salvage, int color, int* info,
+                       int* geom, uint8_t** out, char* msg, int msg_len) {
   if (!data || !info || !out) return -1;
   *out = nullptr;
   info[0] = 3;
@@ -2198,10 +2207,13 @@ int jpegdec_decode_as(const uint8_t* data, size_t len, int salvage, int color, i
       }
       if (dec.comps_in_scan > 0) break;  // a pseudo SOS is passed over
     }
-    if (dec.ncomp != 1 && dec.ncomp != 3 && dec.ncomp != 4)
+    // any count with the components unconverted (JCS_UNKNOWN) or raw
+    bool any_count = color == 0 || color == 3;
+    if (!any_count && dec.ncomp != 1 && dec.ncomp != 3 && dec.ncomp != 4)
       fail("unsupported: " + std::to_string(dec.ncomp) + " components");
     dec.initial_setup();
     channels = dec.ncomp == 1 ? 1 : dec.ncomp == 4 ? 4 : 3;
+    if (any_count) channels = dec.ncomp;
     info[1] = dec.height;
     info[2] = dec.width;
     info[3] = channels;
@@ -2222,9 +2234,32 @@ int jpegdec_decode_as(const uint8_t* data, size_t len, int salvage, int color, i
         dec.decode_scan();
       }
     }
-    img = (uint8_t*)malloc((size_t)dec.height * dec.width * channels);
-    if (!img) fail("out of memory");
-    dec.output(img, channels);
+    if (color == 3) {
+      // jpeg_read_raw_data: each component's plane at its own size,
+      // whole blocks, one after another
+      std::vector<std::vector<uint8_t>> planes;
+      std::vector<int> pws;
+      dec.sample_planes(planes, pws);
+      size_t total = 0;
+      for (int ci = 0; ci < dec.ncomp; ci++) total += planes[ci].size();
+      img = (uint8_t*)malloc(std::max<size_t>(total, 1));
+      if (!img) fail("out of memory");
+      size_t at = 0;
+      for (int ci = 0; ci < dec.ncomp; ci++) {
+        memcpy(img + at, planes[ci].data(), planes[ci].size());
+        at += planes[ci].size();
+        if (geom) {
+          geom[4 * ci] = (int)(planes[ci].size() / pws[ci]);
+          geom[4 * ci + 1] = pws[ci];
+          geom[4 * ci + 2] = dec.comp[ci].h;
+          geom[4 * ci + 3] = dec.comp[ci].v;
+        }
+      }
+    } else {
+      img = (uint8_t*)malloc((size_t)dec.height * dec.width * channels);
+      if (!img) fail("out of memory");
+      dec.output(img, channels);
+    }
     rows_done = true;
     outcome = 0;
     if (!dec.has_multiple_scans) {
@@ -2239,7 +2274,7 @@ int jpegdec_decode_as(const uint8_t* data, size_t len, int salvage, int color, i
   } catch (Fail& f) {
     err = f.msg;
     outcome = rows_done ? 1 : 3;
-    if (!rows_done && dec.single_scan && dec.rows_output() > 0) {
+    if (!rows_done && color != 3 && dec.single_scan && dec.rows_output() > 0) {
       // the scanlines output before the error, zeros after
       int rows = dec.rows_output();
       img = (uint8_t*)malloc((size_t)dec.height * dec.width * channels);
@@ -2269,6 +2304,20 @@ int jpegdec_decode_as(const uint8_t* data, size_t len, int salvage, int color, i
     msg[n] = 0;
   }
   return 0;
+}
+
+int jpegdec_decode_as(const uint8_t* data, size_t len, int salvage, int color, int* info,
+                      uint8_t** out, char* msg, int msg_len) {
+  return decode_impl(data, len, salvage, color, info, nullptr, out, msg, msg_len);
+}
+
+// color 3 of jpegdec_decode_as: the components' planes as
+// jpeg_read_raw_data gives them (no upsampling, no colour conversion),
+// one after another; geom[4 * ci ..]: the plane's rows and row length and
+// the component's sampling factors (at most 10 components)
+int jpegdec_decode_raw(const uint8_t* data, size_t len, int* info, int* geom, uint8_t** out,
+                       char* msg, int msg_len) {
+  return decode_impl(data, len, 0, 3, info, geom, out, msg, msg_len);
 }
 
 int jpegdec_decode(const uint8_t* data, size_t len, int salvage, int* info, uint8_t** out,

@@ -237,6 +237,16 @@ Q2, F2's develop through cli.main with a committed lossless JP2 Hald
 and J2K mask, its JPEG byte-equal to the same develop from PNGs of the
 same samples, B1-B4 and B7 once each and bit-equal to their plain
 versions on Q2's tensors.
+Then TIFF (`tiff_phase`): V1, four 24 MP TIFFs whose strips repeat a
+committed single-strip fixture (`tiff_tiled`: an 8-bit RGB under ZSTD
+with predictor 2, a 16-bit RGB under LZMA, a Group 4 bilevel, a float
+grey under deflate with the floating-point predictor), each read_image's
+host ms against the same tiling of the fixture's decode, and every
+committed TIFF fixture against Pillow's sha256; V2, F2's develop
+through cli.main with a committed 16-bit ZSTD Hald and a Group 4 mask,
+its JPEG byte-equal to the same develop from PNGs of the same samples,
+B1-B4 and B7 once each and bit-equal to their plain versions on V2's
+tensors.
 Then one JSON line of per-kernel results (time, plain time, bound) and
 last the line {"ok": true, "device": {...}}. Any failure raises
 (non-zero exit, no result lines); so does a machine without CUDA.
@@ -5767,6 +5777,212 @@ def jpeg2000_phase(smi_line, tmp):
     return {}, failures
 
 
+# V1: 24 MP TIFFs whose strips repeat a committed single-strip fixture
+V1_FRAME = (4000, 6000)
+V1_TILED = (("V1 8-bit RGB, ZSTD, predictor 2", "tiff_v1_rgb8_zstd_pred2.tif"),
+            ("V1 16-bit RGB, LZMA", "tiff_v1_rgb16_lzma.tif"),
+            ("V1 bilevel, Group 4", "tiff_v1_g4.tif"),
+            ("V1 float grey, deflate, predictor 3",
+             "tiff_v1_float_deflate_pred3.tif"))
+# V2's committed Hald (level 6, 16-bit RGB under ZSTD with predictor 2)
+# and mask (f2_mask at Q2_MASK above 128, Group 4)
+V2_HALD, V2_MASK = "tiff_v2_hald6_zstd16.tif", "tiff_v2_mask_g4.tif"
+
+
+def tiff_tiled(fixture, h):
+    """A TIFF of `h` rows whose every strip is the one-strip `fixture`'s
+    strip, stored once: the fixture's SHORT and LONG entries with
+    ImageLength set to h and StripOffsets and StripByteCounts naming the
+    one strip again and again. h is a multiple of its rows."""
+    e = "<" if fixture[:2] == b"II" else ">"
+    ifd = struct.unpack_from(e + "I", fixture, 4)[0]
+    ents = {}
+    for i in range(struct.unpack_from(e + "H", fixture, ifd)[0]):
+        at = ifd + 2 + 12 * i
+        tag, typ, cnt = struct.unpack_from(e + "HHI", fixture, at)
+        if typ in (3, 4):
+            code = "H" if typ == 3 else "I"
+            size = cnt * struct.calcsize(code)
+            off = at + 8 if size <= 4 else \
+                struct.unpack_from(e + "I", fixture, at + 8)[0]
+            ents[tag] = (typ, struct.unpack_from(e + code * cnt, fixture, off))
+    rows = ents[278][1][0] if 278 in ents else ents[257][1][0]
+    off, cnt = ents[273][1][0], ents[279][1][0]
+    strip = fixture[off : off + cnt] + b"\0" * (cnt % 2)
+    k = h // rows
+    ents.update({257: (4, (h,)), 278: (4, (rows,)), 273: (4, (8,) * k),
+                 279: (4, (cnt,) * k)})
+    ifd_at = 8 + len(strip)
+    extra_at = ifd_at + 2 + 12 * len(ents) + 4
+    table, extra = [struct.pack(e + "H", len(ents))], []
+    for tag in sorted(ents):
+        typ, vals = ents[tag]
+        payload = struct.pack(e + ("H" if typ == 3 else "I") * len(vals),
+                              *vals)
+        if len(payload) <= 4:
+            field = payload.ljust(4, b"\0")
+        else:
+            field = struct.pack(e + "I", extra_at + sum(map(len, extra)))
+            extra.append(payload)
+        table.append(struct.pack(e + "HHI", tag, typ, len(vals)) + field)
+    head = fixture[:2] + struct.pack(e + "HI", 42, ifd_at)
+    return b"".join([head, strip, *table, b"\0" * 4, *extra])
+
+
+def tiff_phase(smi_line, tmp):
+    """TIFF decoded by the port on the card's machine (no PIL there). V1:
+    four 24 MP TIFFs built by `tiff_tiled` from the committed single-strip
+    fixtures (V1_TILED), each read_image's host ms against the same
+    tiling of the fixture's decode; every committed TIFF fixture against
+    the sha256 of Pillow's decode. V2: F2's develop through cli.main
+    (P3's Hald film simulation with Texture Boost under an external mask,
+    bundled profile, denoise 20/20), the Hald a 16-bit ZSTD TIFF and the
+    mask a Group 4 TIFF, both committed, against the same develop from a
+    16-bit PNG Hald and a PNG mask of the same samples: the JPEGs
+    byte-equal, B1-B4 and B7 once each and bit-equal to their plain
+    versions on V2's tensors. Returns (the comparisons, the failures)."""
+    from art_tpu_torch import cli
+    from art_tpu_torch.io import imagefile
+    from art_tpu_torch.pipeline import develop as tdev
+
+    log(f"---- TIFF phase ({smi_line})")
+    t_phase = time.monotonic()
+    failures = []
+    with open(FORMATS_SHA) as f:
+        recorded = json.load(f)
+    decoded = {}
+    for name in sorted(k for k in recorded if k.startswith("tiff_")):
+        fpath = os.path.join(FORMATS_DATA, name)
+        t0 = time.monotonic()
+        got = imagefile.read_rgb8(fpath)
+        ms = 1e3 * (time.monotonic() - t0)
+        ok = _sha(got) == recorded[name]
+        decoded[name] = imagefile.read_image(fpath)[:2]
+        log(f"V1 {name} ({os.path.getsize(fpath)} bytes, "
+            f"{got.shape[1]}x{got.shape[0]}): read_rgb8 {ms:.1f} ms (host), "
+            f"sha256 {'equal to' if ok else 'NOT'} Pillow's")
+        if not ok:
+            failures.append(f"V1 {name}: sha256 differs from Pillow's")
+    h, w = V1_FRAME
+    for label, name in V1_TILED:
+        with open(os.path.join(FORMATS_DATA, name), "rb") as f:
+            fixture = f.read()
+        t0 = time.monotonic()
+        path = _write(os.path.join(tmp, name), tiff_tiled(fixture, h))
+        t1 = time.monotonic()
+        mode, got, _ = imagefile.read_image(path)
+        ms = 1e3 * (time.monotonic() - t1)
+        fmode, strip = decoded[name]
+        want = np.concatenate([strip] * (h // strip.shape[0]), axis=0)
+        ok = mode == fmode and got.shape == want.shape and \
+            np.array_equal(got, want)
+        log(f"{label}: {w}x{h} file {os.path.getsize(path) / 1e6:.2f} MB "
+            f"written in {t1 - t0:.2f} s; read_image {ms:.1f} ms (host) -> "
+            f"{mode} {got.shape}: {'equal to' if ok else 'DIFFERENT FROM'} "
+            f"the fixture's tiling")
+        if not ok:
+            failures.append(f"{label} decodes differently")
+        os.unlink(path)
+    del got, want
+
+    # V2: a 16-bit ZSTD Hald and a Group 4 mask against PNGs
+    frame = flagship_frame(*FRAME)
+    samples, paths, argvs = v2_inputs(tmp, frame)
+    for key in ("hald", "mask"):
+        t0 = time.monotonic()
+        got = imagefile.read_rgb8(paths[key])
+        ms = 1e3 * (time.monotonic() - t0)
+        ok = np.array_equal(got, samples[key])
+        log(f"V2 {key}: {os.path.basename(paths[key])} {got.shape} in "
+            f"{ms:.1f} ms (host), {'equal to' if ok else 'NOT'} its samples")
+        if not ok:
+            failures.append(f"V2: the {key} decodes wrongly")
+    outs = {}
+    want = ("b1", "b2", "b3", "b4", "b7")
+    for kind, argv in argvs.items():
+        out = argv[argv.index("-o") + 1]
+        reset_counts()
+        phases, seconds = cli_run(argv)
+        launches, plain_calls = read_counts()
+        log(f"V2 ({'ZSTD Hald, G4 mask' if kind == 'tiff' else 'PNG Hald, '
+            'PNG mask'}) through cli.main: "
+            f"{1e3 * seconds:.1f} ms end to end (first); phases {phases}; "
+            f"launches {launches}; plain calls {plain_calls}")
+        if launches != {k: int(k in want) for k in launches} \
+                or any(plain_calls.values()):
+            failures.append(f"V2 {kind}: launches {launches}, plain calls "
+                            f"{plain_calls}")
+        outs[kind] = open(out, "rb").read()
+        check_jpeg(out)
+    same = outs["tiff"] == outs["png"]
+    log(f"V2 JPEG from the TIFFs "
+        f"{'byte-equal to' if same else 'DIFFERS FROM'} the PNGs' "
+        f"({len(outs['tiff'])} bytes)")
+    if not same:
+        failures.append("V2: the TIFF develop differs from the PNGs'")
+    argv = argvs["tiff"]
+    pp = cli.compose_params(argv[-1], cli.parse_args(argv))
+    failures += kernels_against_plain("V2", lambda: tdev.develop(frame, pp),
+                                      want)
+    log(f"TIFF phase: {time.monotonic() - t_phase:.1f} s")
+    return {}, failures
+
+
+def v2_inputs(tmp, frame):
+    """V2's inputs: the committed 16-bit ZSTD Hald and Group 4 mask, PNGs
+    of the same samples and the frame's DNG, written in `tmp`. Returns
+    ({"hald", "mask"}: the 8-bit samples read_rgb8 gives, {"hald",
+    "mask"}: the TIFFs' paths, {"tiff", "png"}: the cli.main argv of F2's
+    develop from each kind, writing tmp/v2_<kind>.jpg)."""
+    from art_tpu_torch.io.dngwrite import write_dng
+    from art_tpu_torch.io.imagefile import write_png
+
+    hald = hald_image(6, 16)
+    mask = np.where(f2_mask(*Q2_MASK) > 128, 255, 0).astype(np.uint8)
+    mask3 = np.repeat(mask[..., None], 3, 2)
+    paths = {"hald": os.path.join(FORMATS_DATA, V2_HALD),
+             "mask": os.path.join(FORMATS_DATA, V2_MASK)}
+    pngs = {"hald": os.path.join(tmp, "hald6.png"),
+            "mask": os.path.join(tmp, "mask.png")}
+    write_png(pngs["hald"], hald)
+    write_png(pngs["mask"], mask3)
+    dng = os.path.join(tmp, "v2.dng")
+    write_dng(dng, np.round(frame.cfa).astype(np.uint16), black=512,
+              white=16383, compress=False)
+    base = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "art_tpu_torch", "data", "profiles", PROFILE)
+    dn = os.path.join(tmp, "denoise20.arp")
+    with open(dn, "w") as f:
+        f.write("[Denoise]\nEnabled=true\nLuminance=20\nChrominance=20\n")
+    argvs = {}
+    for kind, files in (("tiff", paths), ("png", pngs)):
+        arp = os.path.join(tmp, f"v2_{kind}.arp")
+        with open(arp, "w") as f:
+            f.write(f2_arp(files["hald"], files["mask"]))
+        out = os.path.join(tmp, f"v2_{kind}.jpg")
+        argvs[kind] = ["-Y", "-p", base, "-p", dn, "-p", arp, "-o", out,
+                       "-c", dng]
+    samples = {"hald": (hald >> 8).astype(np.uint8), "mask": mask3}
+    return samples, paths, argvs
+
+
+def v2_cpu(tmp):
+    """V2's two develops through cli.main on the CPU at 200x320 (ROADMAP
+    C's watch: run it in fresh processes and compare). Returns the sha256
+    of each JPEG."""
+    import hashlib
+
+    from art_tpu_torch import cli
+
+    _, _, argvs = v2_inputs(tmp, flagship_frame(200, 320))
+    shas = {}
+    for kind, argv in argvs.items():
+        cli.main(argv, device="cpu")
+        with open(argv[argv.index("-o") + 1], "rb") as f:
+            shas[kind] = hashlib.sha256(f.read()).hexdigest()
+    return shas
+
+
 def _leaves(d):
     for k, v in d.items():
         if isinstance(v, dict):
@@ -6129,6 +6345,15 @@ def main():
         q_stats, q_failures = jpeg2000_phase(smi_line, tmp)
     new_stats.update(q_stats)
     failures += q_failures
+
+    # ---- TIFF: V1 (24 MP ZSTD, LZMA, Group 4 and floating-point
+    # predictor files tiled from the committed strips, the fixtures), V2
+    # (a ZSTD Hald and a Group 4 mask through cli.main)
+    with phase_clock("TIFF phase, in all"), \
+            tempfile.TemporaryDirectory() as tmp:
+        v_stats, v_failures = tiff_phase(smi_line, tmp)
+    new_stats.update(v_stats)
+    failures += v_failures
 
     failures += [f"B6 on {k} disagrees with its plain version"
                  for k, ok in b6_edges.items() if not ok]

@@ -594,7 +594,8 @@ def test_no_source_file_imports_jax():
                  "color/ctl.py", "color/extclut.py",
                  "color/gamutwarning.py", "ops/dcplook.py",
                  "io/imagefile.py", "io/jpegdec.py", "io/metadata.py",
-                 "io/native/jpegdec.cc", "io/iomanager.py", "color/lcms.py",
+                 "io/native/jpegdec.cc", "io/tiff.py", "io/ojpeg.py",
+                 "io/native/tiffdec.cc", "io/iomanager.py", "color/lcms.py",
                  "preconverters/pnm_to_dng.py", "__init__.py"):
         assert os.path.join("art_tpu_torch", name) in scanned
     offenders = []
