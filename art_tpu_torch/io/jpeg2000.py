@@ -27,10 +27,10 @@ load here then does what ``j2k_decode_entry`` does:
 - ``opj_end_decompress``.
 
 Any failure raises Pillow's ``OSError("broken data stream when reading
-image file")``. A stream whose main header or tile header asks for HTJ2K
-code-blocks (the code-block style's bit 0x40), which OpenJPEG decodes and
-the port's decoder does not, raises NotImplementedError naming them. The image comes back as ``imagefile.read_image`` gives
-it: I;16 as it is, any other mode through its ``convert("RGB")``.
+image file")``. HTJ2K code-blocks (the code-block style's bit 0x40)
+decode through the decoder's port of OpenJPEG's HT block decoder. The
+image comes back as ``imagefile.read_image`` gives it: I;16 as it is,
+any other mode through its ``convert("RGB")``.
 """
 
 from __future__ import annotations
@@ -43,9 +43,6 @@ import numpy as np
 from art_tpu_torch import hostbuild
 
 BROKEN = "broken data stream when reading image file"
-HTJ2K = ("JPEG 2000 image with HTJ2K (high-throughput) code-blocks: the "
-         "port's decoder (io/native/jp2dec.cc) reads the code-blocks of "
-         "JPEG 2000 Part 1 only")
 
 _LIB = None
 _LIB_LOCK = threading.Lock()
@@ -103,10 +100,7 @@ def _broken():
 
 
 def _check(r):
-    """An entry point's return: 0 is Pillow's failure, 2 the HTJ2K
-    refusal."""
-    if r == 2:
-        raise NotImplementedError(HTJ2K)
+    """An entry point's return: 0 is Pillow's failure."""
     if not r:
         raise _broken()
 
@@ -204,7 +198,7 @@ def decode(buf, codec, mode, size):
     """The image Pillow's load of a JPEG 2000 file of mode `mode` and
     size `size` (from the open) leaves, in Pillow's storage: (H, W) uint8
     for L and P, (H, W) uint16 for I;16, else (H, W, 4) uint8. Every
-    failure is Pillow's OSError; HTJ2K code-blocks NotImplementedError."""
+    failure is Pillow's OSError."""
     lib = _lib()
     data = np.frombuffer(bytes(buf), np.uint8)
     handle = lib.j2k_create(data.ctypes.data, data.size, codec == "jp2")

@@ -22,7 +22,9 @@
 // - Tier 1: the MQ decoder, the significance, refinement and cleanup
 //   passes (raw in BYPASS), RESET, TERMALL, VSC, ERTERM and SEGSYM; the
 //   coefficients carry one more bit (1.5 steps on significance, a half
-//   step each refinement) and ROI maxshift.
+//   step each refinement) and ROI maxshift. HTJ2K code-blocks (ITU-T
+//   T.814, the code-block style's bit 0x40) through OpenJPEG's HT
+//   decoder: the cleanup pass and one SigProp and MagRef pass.
 // - Dequantisation (a reversible coefficient halved with C's division, an
 //   irreversible one a float product with half the band's step), the
 //   inverse 5/3 in integers and 9/7 in float32 (OpenJPEG's lifting
@@ -318,7 +320,7 @@ struct Chunk {
 
 struct Cblk {
   i32 x0, y0, x1, y1;
-  u32 numbps = 0, numlenbits = 0, numnewpasses = 0;
+  u32 Mb = 0, numbps = 0, numlenbits = 0, numnewpasses = 0;
   u32 numsegs = 0, real_num_segs = 0;
   std::vector<Seg> segs;
   std::vector<Chunk> chunks;
@@ -746,6 +748,1071 @@ static bool decode_cblk(T1& t1, Cblk& cblk, u32 orient, i32 roishift,
         passtype = 0;
         bpno_plus_one--;
       }
+    }
+  }
+  return true;
+}
+
+// -- HTJ2K code-blocks (OpenJPEG 2.5.4's ht_dec.c) --------------------------
+//
+// opj_t1_ht_decode_cblk as OpenJPEG 2.5.4 builds it (ITU-T T.814): the
+// cleanup pass (the forward MagSgn stream, the MEL run decoder, the
+// backward VLC stream with its U-VLC prefixes and suffixes) and the
+// SigProp and MagRef passes of one HT set. A significant sample lands in
+// OpenJPEG's word as (2 mu + 1) << (p - 1) with p the code-block's numbps
+// (the bin centre below its last bit), the sign in bit 31 until the end,
+// where each word becomes a two's complement integer. OpenJPEG's readers
+// first take 1 to 4 bytes by the address of the data, then a word at a
+// time; any grouping gives the same bits, so the readers here start with
+// one byte. Only mel_init's first reads depend on the address (their
+// count is 4 less the address modulo 4, and a byte above 0x8F after a
+// 0xFF among them fails the block), so the decode takes the address
+// modulo 4.
+//
+// The tables were read off Pillow 12.1.0's libopenjp2 2.5.4 (built -O0,
+// so each static table sits in .rodata as the source has it):
+// vlc_tbl0 at 0x77ae0 and vlc_tbl1 at 0x782e0 (1024 uint16 each, read
+// by opj_t1_ht_decode_cblk at 0x191f2 as tbl[(c_q << 7) | (vlc & 0x7f)]),
+// mel_exp at 0x791c0 (13 int32, read by mel_decode at 0x17997) and the
+// U-VLC prefix table at 0x791a8 and 0x791f8 (8 bytes each, the same in
+// decode_init_uvlc at 0x18654 and decode_noninit_uvlc at 0x18980). The
+// tests hold them to a T.814 encoder of their own whose streams Pillow
+// decodes to the encoder's input.
+
+static const uint16_t kVlcTbl0[1024] = {
+    0x0023, 0x00a5, 0x0043, 0x0066, 0x0083, 0xa8ee, 0x0014, 0xd8df,
+    0x0023, 0x10be, 0x0043, 0xf5ff, 0x0083, 0x207e, 0x0055, 0x515f,
+    0x0023, 0x0035, 0x0043, 0x444e, 0x0083, 0xc4ce, 0x0014, 0xcccf,
+    0x0023, 0xe2fe, 0x0043, 0x99ff, 0x0083, 0x0096, 0x00c5, 0x313f,
+    0x0023, 0x00a5, 0x0043, 0x445e, 0x0083, 0xc8ce, 0x0014, 0x11df,
+    0x0023, 0xf4fe, 0x0043, 0xfcff, 0x0083, 0x009e, 0x0055, 0x0077,
+    0x0023, 0x0035, 0x0043, 0xf1ff, 0x0083, 0x88ae, 0x0014, 0x00b7,
+    0x0023, 0xf8fe, 0x0043, 0xe4ef, 0x0083, 0x888e, 0x00c5, 0x111f,
+    0x0023, 0x00a5, 0x0043, 0x0066, 0x0083, 0xa8ee, 0x0014, 0x54df,
+    0x0023, 0x10be, 0x0043, 0x22ef, 0x0083, 0x207e, 0x0055, 0x227f,
+    0x0023, 0x0035, 0x0043, 0x444e, 0x0083, 0xc4ce, 0x0014, 0x11bf,
+    0x0023, 0xe2fe, 0x0043, 0x00f7, 0x0083, 0x0096, 0x00c5, 0x223f,
+    0x0023, 0x00a5, 0x0043, 0x445e, 0x0083, 0xc8ce, 0x0014, 0x00d7,
+    0x0023, 0xf4fe, 0x0043, 0xbaff, 0x0083, 0x009e, 0x0055, 0x006f,
+    0x0023, 0x0035, 0x0043, 0xe6ff, 0x0083, 0x88ae, 0x0014, 0xa2af,
+    0x0023, 0xf8fe, 0x0043, 0x00e7, 0x0083, 0x888e, 0x00c5, 0x222f,
+    0x0002, 0x00c5, 0x0084, 0x207e, 0x0002, 0xc4ce, 0x0024, 0x00f7,
+    0x0002, 0xa2fe, 0x0044, 0x0056, 0x0002, 0x009e, 0x0014, 0x00d7,
+    0x0002, 0x10be, 0x0084, 0x0066, 0x0002, 0x88ae, 0x0024, 0x11df,
+    0x0002, 0xa8ee, 0x0044, 0x0036, 0x0002, 0x888e, 0x0014, 0x111f,
+    0x0002, 0x00c5, 0x0084, 0x006e, 0x0002, 0x88ce, 0x0024, 0x88ff,
+    0x0002, 0xb8fe, 0x0044, 0x444e, 0x0002, 0x0096, 0x0014, 0x00b7,
+    0x0002, 0xe4fe, 0x0084, 0x445e, 0x0002, 0x00a6, 0x0024, 0x00e7,
+    0x0002, 0x54de, 0x0044, 0x222e, 0x0002, 0x003e, 0x0014, 0x0077,
+    0x0002, 0x00c5, 0x0084, 0x207e, 0x0002, 0xc4ce, 0x0024, 0xf1ff,
+    0x0002, 0xa2fe, 0x0044, 0x0056, 0x0002, 0x009e, 0x0014, 0x11bf,
+    0x0002, 0x10be, 0x0084, 0x0066, 0x0002, 0x88ae, 0x0024, 0x22ef,
+    0x0002, 0xa8ee, 0x0044, 0x0036, 0x0002, 0x888e, 0x0014, 0x227f,
+    0x0002, 0x00c5, 0x0084, 0x006e, 0x0002, 0x88ce, 0x0024, 0xe4ef,
+    0x0002, 0xb8fe, 0x0044, 0x444e, 0x0002, 0x0096, 0x0014, 0xa2af,
+    0x0002, 0xe4fe, 0x0084, 0x445e, 0x0002, 0x00a6, 0x0024, 0xd8df,
+    0x0002, 0x54de, 0x0044, 0x222e, 0x0002, 0x003e, 0x0014, 0x515f,
+    0x0002, 0x0055, 0x0084, 0x0066, 0x0002, 0x88de, 0x0024, 0x32ff,
+    0x0002, 0x11fe, 0x0044, 0x444e, 0x0002, 0x00ae, 0x0014, 0x00b7,
+    0x0002, 0x317e, 0x0084, 0x515e, 0x0002, 0x00c6, 0x0024, 0x00d7,
+    0x0002, 0x20ee, 0x0044, 0x111e, 0x0002, 0x009e, 0x0014, 0x0077,
+    0x0002, 0x0055, 0x0084, 0x545e, 0x0002, 0x44ce, 0x0024, 0x00e7,
+    0x0002, 0xf1fe, 0x0044, 0x0036, 0x0002, 0x00a6, 0x0014, 0x555f,
+    0x0002, 0x74fe, 0x0084, 0x113e, 0x0002, 0x20be, 0x0024, 0x747f,
+    0x0002, 0xc4de, 0x0044, 0xf8ff, 0x0002, 0x0096, 0x0014, 0x222f,
+    0x0002, 0x0055, 0x0084, 0x0066, 0x0002, 0x88de, 0x0024, 0x00f7,
+    0x0002, 0x11fe, 0x0044, 0x444e, 0x0002, 0x00ae, 0x0014, 0x888f,
+    0x0002, 0x317e, 0x0084, 0x515e, 0x0002, 0x00c6, 0x0024, 0xc8cf,
+    0x0002, 0x20ee, 0x0044, 0x111e, 0x0002, 0x009e, 0x0014, 0x006f,
+    0x0002, 0x0055, 0x0084, 0x545e, 0x0002, 0x44ce, 0x0024, 0xd1df,
+    0x0002, 0xf1fe, 0x0044, 0x0036, 0x0002, 0x00a6, 0x0014, 0x227f,
+    0x0002, 0x74fe, 0x0084, 0x113e, 0x0002, 0x20be, 0x0024, 0x22bf,
+    0x0002, 0xc4de, 0x0044, 0x22ef, 0x0002, 0x0096, 0x0014, 0x323f,
+    0x0003, 0xd4de, 0xf4fd, 0xfcff, 0x0014, 0x113e, 0x0055, 0x888f,
+    0x0003, 0x32be, 0x0085, 0x00e7, 0x0025, 0x515e, 0xaafe, 0x727f,
+    0x0003, 0x44ce, 0xf8fd, 0x44ef, 0x0014, 0x647e, 0x0045, 0xa2af,
+    0x0003, 0x00a6, 0x555d, 0x99df, 0xf1fd, 0x0036, 0xf5fe, 0x626f,
+    0x0003, 0xd1de, 0xf4fd, 0xe6ff, 0x0014, 0x717e, 0x0055, 0xb1bf,
+    0x0003, 0x88ae, 0x0085, 0xd5df, 0x0025, 0x444e, 0xf2fe, 0x667f,
+    0x0003, 0x00c6, 0xf8fd, 0xe2ef, 0x0014, 0x545e, 0x0045, 0x119f,
+    0x0003, 0x0096, 0x555d, 0xc8cf, 0xf1fd, 0x111e, 0xc8ee, 0x0067,
+    0x0003, 0xd4de, 0xf4fd, 0xf3ff, 0x0014, 0x113e, 0x0055, 0x11bf,
+    0x0003, 0x32be, 0x0085, 0xd8df, 0x0025, 0x515e, 0xaafe, 0x222f,
+    0x0003, 0x44ce, 0xf8fd, 0x00f7, 0x0014, 0x647e, 0x0045, 0x989f,
+    0x0003, 0x00a6, 0x555d, 0x00d7, 0xf1fd, 0x0036, 0xf5fe, 0x446f,
+    0x0003, 0xd1de, 0xf4fd, 0xb9ff, 0x0014, 0x717e, 0x0055, 0x00b7,
+    0x0003, 0x88ae, 0x0085, 0xdcdf, 0x0025, 0x444e, 0xf2fe, 0x0077,
+    0x0003, 0x00c6, 0xf8fd, 0xe4ef, 0x0014, 0x545e, 0x0045, 0x737f,
+    0x0003, 0x0096, 0x555d, 0xb8bf, 0xf1fd, 0x111e, 0xc8ee, 0x323f,
+    0x0002, 0x00a5, 0x0084, 0x407e, 0x0002, 0x10de, 0x0024, 0x11df,
+    0x0002, 0x72fe, 0x0044, 0x0056, 0x0002, 0xa8ae, 0x0014, 0xb2bf,
+    0x0002, 0x0096, 0x0084, 0x0066, 0x0002, 0x00c6, 0x0024, 0x00e7,
+    0x0002, 0xc8ee, 0x0044, 0x222e, 0x0002, 0x888e, 0x0014, 0x0077,
+    0x0002, 0x00a5, 0x0084, 0x006e, 0x0002, 0x88ce, 0x0024, 0x00f7,
+    0x0002, 0x91fe, 0x0044, 0x0036, 0x0002, 0xa2ae, 0x0014, 0xaaaf,
+    0x0002, 0xb8fe, 0x0084, 0x005e, 0x0002, 0x00be, 0x0024, 0xc4cf,
+    0x0002, 0x44ee, 0x0044, 0xf4ff, 0x0002, 0x223e, 0x0014, 0x111f,
+    0x0002, 0x00a5, 0x0084, 0x407e, 0x0002, 0x10de, 0x0024, 0x99ff,
+    0x0002, 0x72fe, 0x0044, 0x0056, 0x0002, 0xa8ae, 0x0014, 0x00b7,
+    0x0002, 0x0096, 0x0084, 0x0066, 0x0002, 0x00c6, 0x0024, 0x00d7,
+    0x0002, 0xc8ee, 0x0044, 0x222e, 0x0002, 0x888e, 0x0014, 0x444f,
+    0x0002, 0x00a5, 0x0084, 0x006e, 0x0002, 0x88ce, 0x0024, 0xe2ef,
+    0x0002, 0x91fe, 0x0044, 0x0036, 0x0002, 0xa2ae, 0x0014, 0x447f,
+    0x0002, 0xb8fe, 0x0084, 0x005e, 0x0002, 0x00be, 0x0024, 0x009f,
+    0x0002, 0x44ee, 0x0044, 0x76ff, 0x0002, 0x223e, 0x0014, 0x313f,
+    0x0003, 0x00c6, 0x0085, 0xd9ff, 0xf2fd, 0x647e, 0xf1fe, 0x99bf,
+    0x0003, 0xa2ae, 0x0025, 0x66ef, 0xf4fd, 0x0056, 0xe2ee, 0x737f,
+    0x0003, 0x98be, 0x0045, 0x00f7, 0xf8fd, 0x0066, 0x76fe, 0x889f,
+    0x0003, 0x888e, 0x0015, 0xd5df, 0x00a5, 0x222e, 0x98de, 0x444f,
+    0x0003, 0xb2be, 0x0085, 0xfcff, 0xf2fd, 0x226e, 0x0096, 0x00b7,
+    0x0003, 0xaaae, 0x0025, 0xd1df, 0xf4fd, 0x0036, 0xd4de, 0x646f,
+    0x0003, 0xa8ae, 0x0045, 0xeaef, 0xf8fd, 0x445e, 0xe8ee, 0x717f,
+    0x0003, 0x323e, 0x0015, 0xc4cf, 0x00a5, 0xfaff, 0x88ce, 0x313f,
+    0x0003, 0x00c6, 0x0085, 0x77ff, 0xf2fd, 0x647e, 0xf1fe, 0xb3bf,
+    0x0003, 0xa2ae, 0x0025, 0x00e7, 0xf4fd, 0x0056, 0xe2ee, 0x0077,
+    0x0003, 0x98be, 0x0045, 0xe4ef, 0xf8fd, 0x0066, 0x76fe, 0x667f,
+    0x0003, 0x888e, 0x0015, 0x00d7, 0x00a5, 0x222e, 0x98de, 0x333f,
+    0x0003, 0xb2be, 0x0085, 0x75ff, 0xf2fd, 0x226e, 0x0096, 0x919f,
+    0x0003, 0xaaae, 0x0025, 0x99df, 0xf4fd, 0x0036, 0xd4de, 0x515f,
+    0x0003, 0xa8ae, 0x0045, 0xecef, 0xf8fd, 0x445e, 0xe8ee, 0x727f,
+    0x0003, 0x323e, 0x0015, 0xb1bf, 0x00a5, 0xf3ff, 0x88ce, 0x111f,
+    0x0003, 0x54de, 0xf2fd, 0x111e, 0x0014, 0x647e, 0xf8fe, 0xcccf,
+    0x0003, 0x91be, 0x0045, 0x22ef, 0x0025, 0x222e, 0xf3fe, 0x888f,
+    0x0003, 0x00c6, 0x0085, 0x00f7, 0x0014, 0x115e, 0xfcfe, 0xa8af,
+    0x0003, 0x00a6, 0x0035, 0xc8df, 0xf1fd, 0x313e, 0x66fe, 0x646f,
+    0x0003, 0xc8ce, 0xf2fd, 0xf5ff, 0x0014, 0x0066, 0xf4fe, 0xbabf,
+    0x0003, 0x22ae, 0x0045, 0x00e7, 0x0025, 0x323e, 0xeafe, 0x737f,
+    0x0003, 0xb2be, 0x0085, 0x55df, 0x0014, 0x0056, 0x717e, 0x119f,
+    0x0003, 0x0096, 0x0035, 0xc4cf, 0xf1fd, 0x333e, 0xe8ee, 0x444f,
+    0x0003, 0x54de, 0xf2fd, 0x111e, 0x0014, 0x647e, 0xf8fe, 0x99bf,
+    0x0003, 0x91be, 0x0045, 0xe2ef, 0x0025, 0x222e, 0xf3fe, 0x667f,
+    0x0003, 0x00c6, 0x0085, 0xe4ef, 0x0014, 0x115e, 0xfcfe, 0x989f,
+    0x0003, 0x00a6, 0x0035, 0x00d7, 0xf1fd, 0x313e, 0x66fe, 0x226f,
+    0x0003, 0xc8ce, 0xf2fd, 0xb9ff, 0x0014, 0x0066, 0xf4fe, 0x00b7,
+    0x0003, 0x22ae, 0x0045, 0xd1df, 0x0025, 0x323e, 0xeafe, 0x0077,
+    0x0003, 0xb2be, 0x0085, 0xecef, 0x0014, 0x0056, 0x717e, 0x727f,
+    0x0003, 0x0096, 0x0035, 0xb8bf, 0xf1fd, 0x333e, 0xe8ee, 0x545f,
+    0xf1fc, 0xd1de, 0xfafd, 0x00d7, 0xf8fc, 0x0016, 0xfffd, 0x747f,
+    0xf4fc, 0x717e, 0xf3fd, 0xb3bf, 0xf2fc, 0xeaef, 0xe8ee, 0x444f,
+    0xf1fc, 0x22ae, 0x0005, 0xb8bf, 0xf8fc, 0x00f7, 0xfcfe, 0x0077,
+    0xf4fc, 0x115e, 0xf5fd, 0x757f, 0xf2fc, 0xd8df, 0xe2ee, 0x333f,
+    0xf1fc, 0xb2be, 0xfafd, 0x88cf, 0xf8fc, 0xfbff, 0xfffd, 0x737f,
+    0xf4fc, 0x006e, 0xf3fd, 0x00b7, 0xf2fc, 0x66ef, 0xf9fe, 0x313f,
+    0xf1fc, 0x009e, 0x0005, 0xbabf, 0xf8fc, 0xfdff, 0xf6fe, 0x0067,
+    0xf4fc, 0x0026, 0xf5fd, 0x888f, 0xf2fc, 0xdcdf, 0xd4de, 0x222f,
+    0xf1fc, 0xd1de, 0xfafd, 0xc4cf, 0xf8fc, 0x0016, 0xfffd, 0x727f,
+    0xf4fc, 0x717e, 0xf3fd, 0x99bf, 0xf2fc, 0xecef, 0xe8ee, 0x0047,
+    0xf1fc, 0x22ae, 0x0005, 0x00a7, 0xf8fc, 0xf7ff, 0xfcfe, 0x0057,
+    0xf4fc, 0x115e, 0xf5fd, 0x0097, 0xf2fc, 0xd5df, 0xe2ee, 0x0037,
+    0xf1fc, 0xb2be, 0xfafd, 0x00c7, 0xf8fc, 0xfeff, 0xfffd, 0x667f,
+    0xf4fc, 0x006e, 0xf3fd, 0xa8af, 0xf2fc, 0x00e7, 0xf9fe, 0x323f,
+    0xf1fc, 0x009e, 0x0005, 0xb1bf, 0xf8fc, 0xe4ef, 0xf6fe, 0x545f,
+    0xf4fc, 0x0026, 0xf5fd, 0x0087, 0xf2fc, 0x99df, 0xd4de, 0x111f,
+};
+static const uint16_t kVlcTbl1[1024] = {
+    0x0013, 0x0065, 0x0043, 0x00de, 0x0083, 0x888d, 0x0023, 0x444e,
+    0x0013, 0x00a5, 0x0043, 0x88ae, 0x0083, 0x0035, 0x0023, 0x00d7,
+    0x0013, 0x00c5, 0x0043, 0x009e, 0x0083, 0x0055, 0x0023, 0x222e,
+    0x0013, 0x0095, 0x0043, 0x007e, 0x0083, 0x10fe, 0x0023, 0x0077,
+    0x0013, 0x0065, 0x0043, 0x88ce, 0x0083, 0x888d, 0x0023, 0x111e,
+    0x0013, 0x00a5, 0x0043, 0x005e, 0x0083, 0x0035, 0x0023, 0x00e7,
+    0x0013, 0x00c5, 0x0043, 0x00be, 0x0083, 0x0055, 0x0023, 0x11ff,
+    0x0013, 0x0095, 0x0043, 0x003e, 0x0083, 0x40ee, 0x0023, 0xa2af,
+    0x0013, 0x0065, 0x0043, 0x00de, 0x0083, 0x888d, 0x0023, 0x444e,
+    0x0013, 0x00a5, 0x0043, 0x88ae, 0x0083, 0x0035, 0x0023, 0x44ef,
+    0x0013, 0x00c5, 0x0043, 0x009e, 0x0083, 0x0055, 0x0023, 0x222e,
+    0x0013, 0x0095, 0x0043, 0x007e, 0x0083, 0x10fe, 0x0023, 0x00b7,
+    0x0013, 0x0065, 0x0043, 0x88ce, 0x0083, 0x888d, 0x0023, 0x111e,
+    0x0013, 0x00a5, 0x0043, 0x005e, 0x0083, 0x0035, 0x0023, 0xc4cf,
+    0x0013, 0x00c5, 0x0043, 0x00be, 0x0083, 0x0055, 0x0023, 0x00f7,
+    0x0013, 0x0095, 0x0043, 0x003e, 0x0083, 0x40ee, 0x0023, 0x006f,
+    0x0001, 0x0084, 0x0001, 0x0056, 0x0001, 0x0014, 0x0001, 0x00d7,
+    0x0001, 0x0024, 0x0001, 0x0096, 0x0001, 0x0045, 0x0001, 0x0077,
+    0x0001, 0x0084, 0x0001, 0x00c6, 0x0001, 0x0014, 0x0001, 0x888f,
+    0x0001, 0x0024, 0x0001, 0x00f7, 0x0001, 0x0035, 0x0001, 0x222f,
+    0x0001, 0x0084, 0x0001, 0x40fe, 0x0001, 0x0014, 0x0001, 0x00b7,
+    0x0001, 0x0024, 0x0001, 0x00bf, 0x0001, 0x0045, 0x0001, 0x0067,
+    0x0001, 0x0084, 0x0001, 0x00a6, 0x0001, 0x0014, 0x0001, 0x444f,
+    0x0001, 0x0024, 0x0001, 0x00e7, 0x0001, 0x0035, 0x0001, 0x113f,
+    0x0001, 0x0084, 0x0001, 0x0056, 0x0001, 0x0014, 0x0001, 0x00cf,
+    0x0001, 0x0024, 0x0001, 0x0096, 0x0001, 0x0045, 0x0001, 0x006f,
+    0x0001, 0x0084, 0x0001, 0x00c6, 0x0001, 0x0014, 0x0001, 0x009f,
+    0x0001, 0x0024, 0x0001, 0x00ef, 0x0001, 0x0035, 0x0001, 0x323f,
+    0x0001, 0x0084, 0x0001, 0x40fe, 0x0001, 0x0014, 0x0001, 0x00af,
+    0x0001, 0x0024, 0x0001, 0x44ff, 0x0001, 0x0045, 0x0001, 0x005f,
+    0x0001, 0x0084, 0x0001, 0x00a6, 0x0001, 0x0014, 0x0001, 0x007f,
+    0x0001, 0x0024, 0x0001, 0x00df, 0x0001, 0x0035, 0x0001, 0x111f,
+    0x0001, 0x0024, 0x0001, 0x0056, 0x0001, 0x0085, 0x0001, 0x00bf,
+    0x0001, 0x0014, 0x0001, 0x00f7, 0x0001, 0x00c6, 0x0001, 0x0077,
+    0x0001, 0x0024, 0x0001, 0xf8ff, 0x0001, 0x0045, 0x0001, 0x007f,
+    0x0001, 0x0014, 0x0001, 0x00df, 0x0001, 0x00a6, 0x0001, 0x313f,
+    0x0001, 0x0024, 0x0001, 0x222e, 0x0001, 0x0085, 0x0001, 0x00b7,
+    0x0001, 0x0014, 0x0001, 0x44ef, 0x0001, 0xa2ae, 0x0001, 0x0067,
+    0x0001, 0x0024, 0x0001, 0x51ff, 0x0001, 0x0045, 0x0001, 0x0097,
+    0x0001, 0x0014, 0x0001, 0x00cf, 0x0001, 0x0036, 0x0001, 0x223f,
+    0x0001, 0x0024, 0x0001, 0x0056, 0x0001, 0x0085, 0x0001, 0xb2bf,
+    0x0001, 0x0014, 0x0001, 0x40ef, 0x0001, 0x00c6, 0x0001, 0x006f,
+    0x0001, 0x0024, 0x0001, 0x72ff, 0x0001, 0x0045, 0x0001, 0x009f,
+    0x0001, 0x0014, 0x0001, 0x00d7, 0x0001, 0x00a6, 0x0001, 0x444f,
+    0x0001, 0x0024, 0x0001, 0x222e, 0x0001, 0x0085, 0x0001, 0xa8af,
+    0x0001, 0x0014, 0x0001, 0x00e7, 0x0001, 0xa2ae, 0x0001, 0x005f,
+    0x0001, 0x0024, 0x0001, 0x44ff, 0x0001, 0x0045, 0x0001, 0x888f,
+    0x0001, 0x0014, 0x0001, 0xaaaf, 0x0001, 0x0036, 0x0001, 0x111f,
+    0x0002, 0xf8fe, 0x0024, 0x0056, 0x0002, 0x00b6, 0x0085, 0x66ff,
+    0x0002, 0x00ce, 0x0014, 0x111e, 0x0002, 0x0096, 0x0035, 0xa8af,
+    0x0002, 0x00f6, 0x0024, 0x313e, 0x0002, 0x00a6, 0x0045, 0xb3bf,
+    0x0002, 0xb2be, 0x0014, 0xf5ff, 0x0002, 0x0066, 0x517e, 0x545f,
+    0x0002, 0xf2fe, 0x0024, 0x222e, 0x0002, 0x22ae, 0x0085, 0x44ef,
+    0x0002, 0x00c6, 0x0014, 0xf4ff, 0x0002, 0x0076, 0x0035, 0x447f,
+    0x0002, 0x40de, 0x0024, 0x323e, 0x0002, 0x009e, 0x0045, 0x00d7,
+    0x0002, 0x88be, 0x0014, 0xfaff, 0x0002, 0x115e, 0xf1fe, 0x444f,
+    0x0002, 0xf8fe, 0x0024, 0x0056, 0x0002, 0x00b6, 0x0085, 0xc8ef,
+    0x0002, 0x00ce, 0x0014, 0x111e, 0x0002, 0x0096, 0x0035, 0x888f,
+    0x0002, 0x00f6, 0x0024, 0x313e, 0x0002, 0x00a6, 0x0045, 0x44df,
+    0x0002, 0xb2be, 0x0014, 0xa8ff, 0x0002, 0x0066, 0x517e, 0x006f,
+    0x0002, 0xf2fe, 0x0024, 0x222e, 0x0002, 0x22ae, 0x0085, 0x00e7,
+    0x0002, 0x00c6, 0x0014, 0xe2ef, 0x0002, 0x0076, 0x0035, 0x727f,
+    0x0002, 0x40de, 0x0024, 0x323e, 0x0002, 0x009e, 0x0045, 0xb1bf,
+    0x0002, 0x88be, 0x0014, 0x73ff, 0x0002, 0x115e, 0xf1fe, 0x333f,
+    0x0001, 0x0084, 0x0001, 0x20ee, 0x0001, 0x00c5, 0x0001, 0xc4cf,
+    0x0001, 0x0044, 0x0001, 0x32ff, 0x0001, 0x0015, 0x0001, 0x888f,
+    0x0001, 0x0084, 0x0001, 0x0066, 0x0001, 0x0025, 0x0001, 0x00af,
+    0x0001, 0x0044, 0x0001, 0x22ef, 0x0001, 0x00a6, 0x0001, 0x005f,
+    0x0001, 0x0084, 0x0001, 0x444e, 0x0001, 0x00c5, 0x0001, 0xcccf,
+    0x0001, 0x0044, 0x0001, 0x00f7, 0x0001, 0x0015, 0x0001, 0x006f,
+    0x0001, 0x0084, 0x0001, 0x0056, 0x0001, 0x0025, 0x0001, 0x009f,
+    0x0001, 0x0044, 0x0001, 0x00df, 0x0001, 0x30fe, 0x0001, 0x222f,
+    0x0001, 0x0084, 0x0001, 0x20ee, 0x0001, 0x00c5, 0x0001, 0xc8cf,
+    0x0001, 0x0044, 0x0001, 0x11ff, 0x0001, 0x0015, 0x0001, 0x0077,
+    0x0001, 0x0084, 0x0001, 0x0066, 0x0001, 0x0025, 0x0001, 0x007f,
+    0x0001, 0x0044, 0x0001, 0x00e7, 0x0001, 0x00a6, 0x0001, 0x0037,
+    0x0001, 0x0084, 0x0001, 0x444e, 0x0001, 0x00c5, 0x0001, 0x00b7,
+    0x0001, 0x0044, 0x0001, 0x00bf, 0x0001, 0x0015, 0x0001, 0x003f,
+    0x0001, 0x0084, 0x0001, 0x0056, 0x0001, 0x0025, 0x0001, 0x0097,
+    0x0001, 0x0044, 0x0001, 0x00d7, 0x0001, 0x30fe, 0x0001, 0x111f,
+    0x0002, 0xa8ee, 0x0044, 0x888e, 0x0002, 0x00d6, 0x00c5, 0xf3ff,
+    0x0002, 0xfcfe, 0x0025, 0x003e, 0x0002, 0x00b6, 0x0055, 0xd8df,
+    0x0002, 0xf8fe, 0x0044, 0x0066, 0x0002, 0x207e, 0x0085, 0x99ff,
+    0x0002, 0x00e6, 0x00f5, 0x0036, 0x0002, 0x00a6, 0x0015, 0x009f,
+    0x0002, 0xf2fe, 0x0044, 0x0076, 0x0002, 0x44ce, 0x00c5, 0x76ff,
+    0x0002, 0xf1fe, 0x0025, 0x444e, 0x0002, 0x00ae, 0x0055, 0xc8cf,
+    0x0002, 0xf4fe, 0x0044, 0x445e, 0x0002, 0x10be, 0x0085, 0xe4ef,
+    0x0002, 0x54de, 0x00f5, 0x111e, 0x0002, 0x0096, 0x0015, 0x222f,
+    0x0002, 0xa8ee, 0x0044, 0x888e, 0x0002, 0x00d6, 0x00c5, 0xfaff,
+    0x0002, 0xfcfe, 0x0025, 0x003e, 0x0002, 0x00b6, 0x0055, 0x11bf,
+    0x0002, 0xf8fe, 0x0044, 0x0066, 0x0002, 0x207e, 0x0085, 0x22ef,
+    0x0002, 0x00e6, 0x00f5, 0x0036, 0x0002, 0x00a6, 0x0015, 0x227f,
+    0x0002, 0xf2fe, 0x0044, 0x0076, 0x0002, 0x44ce, 0x00c5, 0xd5ff,
+    0x0002, 0xf1fe, 0x0025, 0x444e, 0x0002, 0x00ae, 0x0055, 0x006f,
+    0x0002, 0xf4fe, 0x0044, 0x445e, 0x0002, 0x10be, 0x0085, 0x11df,
+    0x0002, 0x54de, 0x00f5, 0x111e, 0x0002, 0x0096, 0x0015, 0x515f,
+    0x0003, 0x00f6, 0x0014, 0x111e, 0x0044, 0x888e, 0x00a5, 0xd4df,
+    0x0003, 0xa2ae, 0x0055, 0x76ff, 0x0024, 0x223e, 0x00b6, 0xaaaf,
+    0x0003, 0x00e6, 0x0014, 0xf5ff, 0x0044, 0x0066, 0x0085, 0xcccf,
+    0x0003, 0x009e, 0x00c5, 0x44ef, 0x0024, 0x0036, 0xf8fe, 0x317f,
+    0x0003, 0xe8ee, 0x0014, 0xf1ff, 0x0044, 0x0076, 0x00a5, 0xc4cf,
+    0x0003, 0x227e, 0x0055, 0xd1df, 0x0024, 0x444e, 0xf4fe, 0x515f,
+    0x0003, 0x00d6, 0x0014, 0xe2ef, 0x0044, 0x445e, 0x0085, 0x22bf,
+    0x0003, 0x0096, 0x00c5, 0xc8df, 0x0024, 0x222e, 0xf2fe, 0x226f,
+    0x0003, 0x00f6, 0x0014, 0x111e, 0x0044, 0x888e, 0x00a5, 0xb1bf,
+    0x0003, 0xa2ae, 0x0055, 0x33ff, 0x0024, 0x223e, 0x00b6, 0xa8af,
+    0x0003, 0x00e6, 0x0014, 0xb9ff, 0x0044, 0x0066, 0x0085, 0xa8bf,
+    0x0003, 0x009e, 0x00c5, 0xe4ef, 0x0024, 0x0036, 0xf8fe, 0x646f,
+    0x0003, 0xe8ee, 0x0014, 0xfcff, 0x0044, 0x0076, 0x00a5, 0xc8cf,
+    0x0003, 0x227e, 0x0055, 0xeaef, 0x0024, 0x444e, 0xf4fe, 0x747f,
+    0x0003, 0x00d6, 0x0014, 0xfaff, 0x0044, 0x445e, 0x0085, 0xb2bf,
+    0x0003, 0x0096, 0x00c5, 0x44df, 0x0024, 0x222e, 0xf2fe, 0x313f,
+    0x00f3, 0xfafe, 0xf1fd, 0x0036, 0x0004, 0x32be, 0x0075, 0x11df,
+    0x00f3, 0x54de, 0xf2fd, 0xe4ef, 0x00d5, 0x717e, 0xfcfe, 0x737f,
+    0x00f3, 0xf3fe, 0xf8fd, 0x111e, 0x0004, 0x0096, 0x0055, 0xb1bf,
+    0x00f3, 0x00ce, 0x00b5, 0xd8df, 0xf4fd, 0x0066, 0xb9fe, 0x545f,
+    0x00f3, 0x76fe, 0xf1fd, 0x0026, 0x0004, 0x00a6, 0x0075, 0x009f,
+    0x00f3, 0x00ae, 0xf2fd, 0xf7ff, 0x00d5, 0x0046, 0xf5fe, 0x747f,
+    0x00f3, 0x00e6, 0xf8fd, 0x0016, 0x0004, 0x0086, 0x0055, 0x888f,
+    0x00f3, 0x00c6, 0x00b5, 0xe2ef, 0xf4fd, 0x115e, 0xa8ee, 0x113f,
+    0x00f3, 0xfafe, 0xf1fd, 0x0036, 0x0004, 0x32be, 0x0075, 0xd1df,
+    0x00f3, 0x54de, 0xf2fd, 0xfbff, 0x00d5, 0x717e, 0xfcfe, 0x447f,
+    0x00f3, 0xf3fe, 0xf8fd, 0x111e, 0x0004, 0x0096, 0x0055, 0x727f,
+    0x00f3, 0x00ce, 0x00b5, 0x22ef, 0xf4fd, 0x0066, 0xb9fe, 0x444f,
+    0x00f3, 0x76fe, 0xf1fd, 0x0026, 0x0004, 0x00a6, 0x0075, 0x11bf,
+    0x00f3, 0x00ae, 0xf2fd, 0xffff, 0x00d5, 0x0046, 0xf5fe, 0x323f,
+    0x00f3, 0x00e6, 0xf8fd, 0x0016, 0x0004, 0x0086, 0x0055, 0x006f,
+    0x00f3, 0x00c6, 0x00b5, 0xb8bf, 0xf4fd, 0x115e, 0xa8ee, 0x222f,
+};
+
+static const int kMelExp[13] = {0, 0, 0, 1, 1, 1, 2, 2, 2, 3, 3, 4, 5};
+// 2 bits prefix length, 3 bits suffix length, 3 bits prefix value
+static const u8 kUvlcDec[8] = {0xb7, 0x21, 0x42, 0x21, 0x67, 0x21, 0x42, 0x21};
+
+static inline u32 popcount32(u32 v) { return (u32)__builtin_popcount(v); }
+static inline u32 clz32(u32 v) { return (u32)__builtin_clz(v); }
+// x86's shift, the count taken modulo 32, as OpenJPEG's build computes
+// its shifts by p - 2
+static inline u32 shl32(u32 v, u32 n) { return v << (n & 31); }
+
+// the MEL decoder (dec_mel_t)
+struct HtMel {
+  const u8* data;
+  u64 tmp;
+  int bits, size;
+  bool unstuff;
+  int k, num_runs;
+  u64 runs;
+
+  void read() {
+    if (bits > 32) return;
+    u32 val = 0xffffffffu;
+    if (size > 4) {
+      val = (u32)data[0] | (u32)data[1] << 8 | (u32)data[2] << 16 |
+            (u32)data[3] << 24;
+      data += 4;
+      size -= 4;
+    } else if (size > 0) {
+      int i = 0;
+      while (size > 1) {
+        u32 v = *data++;
+        u32 m = ~(0xffu << i);
+        val = (val & m) | (v << i);
+        --size;
+        i += 8;
+      }
+      u32 v = *data++;
+      v |= 0xf;
+      u32 m = ~(0xffu << i);
+      val = (val & m) | (v << i);
+      --size;
+    }
+    int nb = 32 - (int)unstuff;
+    u32 t = val & 0xff;
+    bool u = (val & 0xff) == 0xff;
+    nb -= (int)u;
+    t = t << (8 - (int)u);
+    t |= (val >> 8) & 0xff;
+    u = ((val >> 8) & 0xff) == 0xff;
+    nb -= (int)u;
+    t = t << (8 - (int)u);
+    t |= (val >> 16) & 0xff;
+    u = ((val >> 16) & 0xff) == 0xff;
+    nb -= (int)u;
+    t = t << (8 - (int)u);
+    t |= (val >> 24) & 0xff;
+    unstuff = ((val >> 24) & 0xff) == 0xff;
+    tmp |= (u64)t << (64 - nb - bits);
+    bits += nb;
+  }
+
+  void decode() {
+    if (bits < 6) read();
+    while (bits >= 6 && num_runs < 8) {
+      int eval = kMelExp[k];
+      int run;
+      if (tmp & (1ull << 63)) {
+        run = (1 << eval) - 1;
+        k = (k < 11 ? k : 11) + 1;
+        tmp <<= 1;
+        bits -= 1;
+        run = run << 1;
+      } else {
+        run = (int)(tmp >> (63 - eval)) & ((1 << eval) - 1);
+        k = (k > 1 ? k : 1) - 1;
+        tmp <<= eval + 1;
+        bits -= eval + 1;
+        run = (run << 1) + 1;
+      }
+      int sh = num_runs * 7;
+      runs &= ~((u64)0x3f << sh);
+      runs |= (u64)(i64)run << sh;
+      num_runs++;
+    }
+  }
+
+  // mel_init; addr4 is the address of the MEL data modulo 4
+  bool init(const u8* bbuf, int lcup, int scup, u32 addr4) {
+    data = bbuf + lcup - scup;
+    bits = 0;
+    tmp = 0;
+    unstuff = false;
+    size = scup - 1;
+    k = 0;
+    num_runs = 0;
+    runs = 0;
+    int num = 4 - (int)(addr4 & 3);
+    for (int i = 0; i < num; ++i) {
+      if (unstuff && data[0] > 0x8f) return false;
+      u64 d = size > 0 ? *data : 0xff;
+      if (size == 1) d |= 0xf;
+      data += size-- > 0;
+      int d_bits = 8 - (int)unstuff;
+      tmp = (tmp << d_bits) | d;
+      bits += d_bits;
+      unstuff = (d & 0xff) == 0xff;
+    }
+    tmp <<= (64 - bits);
+    return true;
+  }
+
+  int get_run() {
+    if (num_runs == 0) decode();
+    int t = (int)(runs & 0x7f);
+    runs >>= 7;
+    num_runs--;
+    return t;
+  }
+};
+
+// the backward readers (rev_struct_t): the VLC segment, and the MagRef
+// segment (rev_*_mrp, which differs only in its start)
+struct HtRev {
+  const u8* data;
+  u64 tmp;
+  u32 bits;
+  int size;
+  bool unstuff;
+
+  void read() {
+    if (bits > 32) return;
+    u32 val = 0;
+    if (size > 3) {
+      val = (u32)data[-3] | (u32)data[-2] << 8 | (u32)data[-1] << 16 |
+            (u32)data[0] << 24;
+      data -= 4;
+      size -= 4;
+    } else if (size > 0) {
+      int i = 24;
+      while (size > 0) {
+        u32 v = *data--;
+        val |= v << i;
+        --size;
+        i -= 8;
+      }
+    }
+    u32 t = val >> 24;
+    u32 nb = 8u - ((unstuff && (((val >> 24) & 0x7f) == 0x7f)) ? 1u : 0u);
+    bool u = (val >> 24) > 0x8f;
+    t |= ((val >> 16) & 0xff) << nb;
+    nb += 8u - ((u && (((val >> 16) & 0x7f) == 0x7f)) ? 1u : 0u);
+    u = ((val >> 16) & 0xff) > 0x8f;
+    t |= ((val >> 8) & 0xff) << nb;
+    nb += 8u - ((u && (((val >> 8) & 0x7f) == 0x7f)) ? 1u : 0u);
+    u = ((val >> 8) & 0xff) > 0x8f;
+    t |= (val & 0xff) << nb;
+    nb += 8u - ((u && ((val & 0x7f) == 0x7f)) ? 1u : 0u);
+    u = (val & 0xff) > 0x8f;
+    tmp |= (u64)t << bits;
+    bits += nb;
+    unstuff = u;
+  }
+
+  // rev_init: the VLC segment ends at byte lcup - 2, whose low half is
+  // Scup's
+  void init_vlc(const u8* d0, int lcup, int scup) {
+    data = d0 + lcup - 2;
+    size = scup - 2;
+    u32 d = *data--;
+    tmp = d >> 4;
+    bits = 4 - ((tmp & 7) == 7);
+    unstuff = (d | 0xf) > 0x8f;
+    // OpenJPEG reads 1 to 4 bytes here by the address; any count gives
+    // the same bits
+    int tnum = 1 < size ? 1 : size;
+    for (int i = 0; i < tnum; ++i) {
+      u64 b = *data--;
+      u32 d_bits = 8u - ((unstuff && ((b & 0x7f) == 0x7f)) ? 1u : 0u);
+      tmp |= b << bits;
+      bits += d_bits;
+      unstuff = b > 0x8f;
+    }
+    size -= tnum;
+    read();
+  }
+
+  // rev_init_mrp: the MagRef segment is read back from the end of the
+  // second segment
+  void init_mrp(const u8* d0, int lcup, int len2) {
+    data = d0 + lcup + len2 - 1;
+    size = len2;
+    unstuff = true;
+    bits = 0;
+    tmp = 0;
+    u64 b = size-- > 0 ? *data-- : 0;
+    u32 d_bits = 8u - ((unstuff && ((b & 0x7f) == 0x7f)) ? 1u : 0u);
+    tmp |= b << bits;
+    bits += d_bits;
+    unstuff = b > 0x8f;
+    read();
+  }
+
+  u32 fetch() {
+    if (bits < 32) {
+      read();
+      if (bits < 32) read();
+    }
+    return (u32)tmp;
+  }
+  u32 advance(u32 n) {
+    tmp >>= n;
+    bits -= n;
+    return (u32)tmp;
+  }
+};
+
+// the forward readers (frwd_struct_t): MagSgn (X = 0xff) and SigProp
+// (X = 0)
+struct HtFwd {
+  const u8* data;
+  u64 tmp;
+  u32 bits;
+  bool unstuff;
+  int size;
+  u32 X;
+
+  void read() {
+    u32 val;
+    if (size > 3) {
+      val = (u32)data[0] | (u32)data[1] << 8 | (u32)data[2] << 16 |
+            (u32)data[3] << 24;
+      data += 4;
+      size -= 4;
+    } else if (size > 0) {
+      int i = 0;
+      val = X != 0 ? 0xffffffffu : 0;
+      while (size > 0) {
+        u32 v = *data++;
+        u32 m = ~(0xffu << i);
+        val = (val & m) | (v << i);
+        --size;
+        i += 8;
+      }
+    } else {
+      val = X != 0 ? 0xffffffffu : 0;
+    }
+    u32 nb = 8u - (unstuff ? 1u : 0u);
+    u32 t = val & 0xff;
+    bool u = (val & 0xff) == 0xff;
+    t |= ((val >> 8) & 0xff) << nb;
+    nb += 8u - (u ? 1u : 0u);
+    u = ((val >> 8) & 0xff) == 0xff;
+    t |= ((val >> 16) & 0xff) << nb;
+    nb += 8u - (u ? 1u : 0u);
+    u = ((val >> 16) & 0xff) == 0xff;
+    t |= ((val >> 24) & 0xff) << nb;
+    nb += 8u - (u ? 1u : 0u);
+    unstuff = ((val >> 24) & 0xff) == 0xff;
+    tmp |= (u64)t << bits;
+    bits += nb;
+  }
+
+  void init(const u8* d0, int sz, u32 x) {
+    data = d0;
+    tmp = 0;
+    bits = 0;
+    unstuff = false;
+    size = sz;
+    X = x;
+    // OpenJPEG reads 1 to 4 bytes here by the address; one gives the
+    // same bits
+    u64 d = size-- > 0 ? *data++ : X;
+    tmp |= d << bits;
+    bits += 8u - (unstuff ? 1u : 0u);
+    unstuff = (d & 0xff) == 0xff;
+    read();
+  }
+
+  void advance(u32 n) {
+    tmp >>= n;
+    bits -= n;
+  }
+  u32 fetch() {
+    if (bits < 32) {
+      read();
+      if (bits < 32) read();
+    }
+    return (u32)tmp;
+  }
+};
+
+// one U-VLC prefix (a kUvlcDec entry) taken off the head of vlc
+static inline u32 uvlc_prefix(u32& vlc, u32& consumed) {
+  u32 d = kUvlcDec[vlc & 0x7];
+  vlc >>= d & 0x3;
+  consumed += d & 0x3;
+  return d;
+}
+
+// the u a prefix's suffix gives (prefix value plus suffix)
+static inline u32 uvlc_suffix(u32 d, u32& vlc, u32& consumed) {
+  u32 suffix_len = (d >> 2) & 0x7;
+  consumed += suffix_len;
+  u32 u = (d >> 5) + (vlc & ((1u << suffix_len) - 1));
+  vlc >>= suffix_len;
+  return u;
+}
+
+// decode_init_uvlc (first row) and decode_noninit_uvlc: u + kappa for
+// both quads of a pair by mode (bit 0 and 1: each quad's u_off; in the
+// first row 4 where both are set and the MEL event is 1, which adds 2
+// to each); the bits consumed
+static u32 decode_uvlc(u32 vlc, u32 mode, u32* u, bool first_row) {
+  u32 consumed = 0;
+  if (mode == 0) {
+    u[0] = u[1] = 1;
+  } else if (mode <= 2) {
+    u32 d = uvlc_suffix(uvlc_prefix(vlc, consumed), vlc, consumed);
+    u[0] = (mode == 1) ? d + 1 : 1;
+    u[1] = (mode == 1) ? 1 : d + 1;
+  } else if (mode == 3 && first_row && (kUvlcDec[vlc & 0x7] & 0x3) > 2) {
+    // u_q1 above 2: the other quad's u is 1 or 2, in one bit
+    u32 d1 = uvlc_prefix(vlc, consumed);
+    u[1] = (vlc & 1) + 1 + 1;
+    ++consumed;
+    vlc >>= 1;
+    u[0] = uvlc_suffix(d1, vlc, consumed) + 1;
+  } else if (mode <= 4) {
+    u32 d1 = uvlc_prefix(vlc, consumed);
+    u32 d2 = uvlc_prefix(vlc, consumed);
+    u32 add = mode == 4 ? 3 : 1;
+    u[0] = uvlc_suffix(d1, vlc, consumed) + add;
+    u[1] = uvlc_suffix(d2, vlc, consumed) + add;
+  }
+  return consumed;
+}
+
+// one significant sample of the cleanup pass: m_n bits of MagSgn (the
+// sign in the first), the EMB bit e_1 above them, the bin centre below
+static inline u32 ht_sample(HtFwd& ms, u32 U, u32 qinf, int i, u32 p,
+                            u32* vn_out) {
+  u32 ms_val = ms.fetch();
+  u32 m_n = U - ((qinf >> (12 + i)) & 1);
+  ms.advance(m_n);
+  u32 val = ms_val << 31;
+  u32 v_n = ms_val & ((1u << m_n) - 1);
+  v_n |= ((qinf >> (8 + i)) & 1) << m_n;
+  v_n |= 1;
+  *vn_out = v_n;
+  return val | ((v_n + 2) << (p - 1));
+}
+
+// the four samples of a quad (columns sp and sp + 1, two rows) as the
+// cleanup pass gives them, zero where significance marks none inside the
+// block (locs4), and the line state of the row's lower samples: lsp[0]
+// takes the larger exponent of the column pair it spans, lsp[1] the
+// right column's
+static void ht_quad(HtFwd& ms, u32 U, u32 qinf, u32 locs4, u32 p, u32* sp,
+                    i32 stride, u8* lsp, bool first_row) {
+  u32 v_n;
+  if (qinf & 0x10) sp[0] = ht_sample(ms, U, qinf, 0, p, &v_n);
+  else if (locs4 & 0x1) sp[0] = 0;
+  if (qinf & 0x20) {
+    sp[stride] = ht_sample(ms, U, qinf, 1, p, &v_n);
+    u32 t = lsp[0] & 0x7f;
+    v_n = 32 - clz32(v_n);
+    lsp[0] = (u8)(0x80 | (t > v_n ? t : v_n));
+  } else if (locs4 & 0x2) {
+    sp[stride] = 0;
+  }
+  if (qinf & 0x40) sp[1] = ht_sample(ms, U, qinf, 2, p, &v_n);
+  else if (locs4 & 0x4) sp[1] = 0;
+  if (first_row) lsp[1] = 0;
+  if (qinf & 0x80) {
+    sp[1 + stride] = ht_sample(ms, U, qinf, 3, p, &v_n);
+    lsp[1] = (u8)(0x80 | (32 - clz32(v_n)));
+  } else if (locs4 & 0x8) {
+    sp[1 + stride] = 0;
+  }
+}
+
+// the significance found by SigProp in one stripe (4 rows, or `pattern`'s
+// rows of the last), its signs, and the membership it passes on:
+// OpenJPEG's loop over groups of 8 columns, run for a whole stripe and
+// for the last
+static void ht_sigprop_stripe(u32* dec, i32 stride, i32 width, i32 row,
+                              u32* cur_sig, u32* cur_mbr, u32* nxt_sig,
+                              u32* nxt_mbr, u32 pattern, u32 val,
+                              HtFwd& sigprop) {
+  for (i32 i = 0; i < width;
+       i += 8, cur_sig++, cur_mbr++, nxt_sig++, nxt_mbr++) {
+    u32 mbr = *cur_mbr & pattern;
+    u32 new_sig = 0;
+    if (mbr) {
+      for (i32 n = 0; n < 8; n += 4) {
+        u32 cwd = sigprop.fetch();
+        u32 cnt = 0;
+        u32* dp = dec + (size_t)row * stride + i + n;
+        u32 col_mask = 0xfu << (4 * n);
+        u32 inv_sig = ~cur_sig[0] & pattern;
+        i32 end = n + 4 + i < width ? n + 4 : width - i;
+        for (i32 j = n; j < end; ++j, ++dp, col_mask <<= 4) {
+          if ((col_mask & mbr) == 0) continue;
+          static const u32 prop[4] = {0x32u, 0x74u, 0xe8u, 0xc0u};
+          u32 sample_mask = 0x11111111u & col_mask;
+          for (int r = 0; r < 4; ++r, sample_mask += sample_mask) {
+            if (mbr & sample_mask) {
+              if (cwd & 1) {
+                new_sig |= sample_mask;
+                u32 t = prop[r] << (j * 4);
+                mbr |= t & inv_sig;
+              }
+              cwd >>= 1;
+              ++cnt;
+            }
+          }
+        }
+        if (new_sig & (0xffffu << (4 * n))) {
+          u32* dq = dec + (size_t)row * stride + i + n;
+          u32 cm = 0xfu << (4 * n);
+          for (i32 j = n; j < end; ++j, ++dq, cm <<= 4) {
+            if ((cm & new_sig) == 0) continue;
+            u32 sample_mask = 0x11111111u & cm;
+            for (int r = 0; r < 4; ++r, sample_mask += sample_mask) {
+              if (new_sig & sample_mask) {
+                dq[(size_t)r * stride] |= ((cwd & 1) << 31) | val;
+                cwd >>= 1;
+                ++cnt;
+              }
+            }
+          }
+        }
+        sigprop.advance(cnt);
+        if (n == 4) {
+          u32 t = new_sig >> 28;
+          t |= ((t & 0xe) >> 1) | ((t & 7) << 1);
+          cur_mbr[1] |= t & ~cur_sig[1];
+        }
+      }
+    }
+    new_sig |= cur_sig[0];
+    u32 ux = (new_sig & 0x88888888u) >> 3;
+    u32 tx = ux | (ux << 4) | (ux >> 4);
+    if (i > 0) nxt_mbr[-1] |= (ux << 28) & ~nxt_sig[-1];
+    nxt_mbr[0] |= tx & ~nxt_sig[0];
+    nxt_mbr[1] |= (ux >> 28) & ~nxt_sig[1];
+  }
+}
+
+// MagRef over one stripe's samples made significant by the cleanup pass
+static void ht_magref_stripe(u32* dpp, i32 stride, i32 width, u32* cur_sig,
+                             u32 p, HtRev& magref) {
+  const u32 half = shl32(1u, p - 2);
+  for (i32 i = 0; i < width; i += 8) {
+    u32 cwd = magref.fetch();
+    u32 sig = *cur_sig++;
+    u32 col_mask = 0xfu;
+    u32* dp = dpp + i;
+    if (sig) {
+      for (int j = 0; j < 8; ++j, dp++) {
+        if (sig & col_mask) {
+          u32 sample_mask = 0x11111111u & col_mask;
+          for (int k = 0; k < 4; ++k) {
+            if (sig & sample_mask) {
+              u32 sym = cwd & 1;
+              dp[(size_t)k * stride] ^= shl32(1 - sym, p - 1);
+              dp[(size_t)k * stride] |= half;
+              cwd >>= 1;
+            }
+            sample_mask += sample_mask;
+          }
+        }
+        col_mask <<= 4;
+      }
+    }
+    magref.advance(popcount32(sig));
+  }
+}
+
+// the membership of one stripe from its own significance: its samples'
+// neighbours left, right, above and below within the stripe
+static void ht_stripe_mbr(u32* sig, u32* mbr, i32 width) {
+  u32 prev = 0;
+  for (i32 i = 0; i < width; i += 8, mbr++, sig++) {
+    mbr[0] = sig[0];
+    mbr[0] |= prev >> 28;
+    mbr[0] |= sig[0] << 4;
+    mbr[0] |= sig[0] >> 4;
+    mbr[0] |= sig[1] << 28;
+    prev = sig[0];
+    u32 t = mbr[0], z = mbr[0];
+    z |= (t & 0x77777777u) << 1;
+    z |= (t & 0xeeeeeeeeu) >> 1;
+    mbr[0] = z & ~sig[0];
+  }
+}
+
+// the next stripe's first row as the neighbour below this stripe's last
+static void ht_mbr_from_next(u32* cur_sig, u32* cur_mbr, u32* nxt_sig,
+                             i32 width, bool stripe_causal) {
+  u32 prev = 0;
+  for (i32 i = 0; i < width; i += 8, cur_mbr++, cur_sig++, nxt_sig++) {
+    u32 t = nxt_sig[0];
+    t |= prev >> 28;
+    t |= nxt_sig[0] << 4;
+    t |= nxt_sig[0] >> 4;
+    t |= nxt_sig[1] << 28;
+    prev = nxt_sig[0];
+    if (!stripe_causal) cur_mbr[0] |= (t & 0x11111111u) << 3;
+    cur_mbr[0] &= ~cur_sig[0];
+  }
+}
+
+// opj_t1_ht_decode_cblk into t1.data (w x h, zeroed first): false where
+// OpenJPEG's returns false. align4 is the address of the block's bytes
+// modulo 4 (OpenJPEG reads a block of one chunk where the tile's data
+// holds it, and copies a block of more into a buffer of its own).
+static bool ht_decode_cblk(T1& t1, Cblk& cblk, i32 roishift, u32 cblksty,
+                           u32 align4) {
+  const bool stripe_causal = (cblksty & CB_VSC) != 0;
+  if (roishift != 0) return false;  // "We do not support ROI ..."
+  const u32 cw = (u32)(cblk.x1 - cblk.x0), chh = (u32)(cblk.y1 - cblk.y0);
+  t1.w = cw;
+  t1.h = chh;
+  t1.data.assign((size_t)cw * chh, 0);
+  if (cblk.Mb == 0) return true;
+  const u32 zero_bplanes = (cblk.Mb + 1) - cblk.numbps;
+  u32 cblk_len = 0;
+  for (auto& ch : cblk.chunks) cblk_len += ch.len;
+  std::vector<u8> joined;
+  const u8* coded;
+  if (cblk.chunks.size() > 1) {
+    joined.resize(cblk_len);
+    size_t o = 0;
+    for (auto& ch : cblk.chunks) {
+      if (ch.len) memcpy(joined.data() + o, ch.data, ch.len);
+      o += ch.len;
+    }
+    coded = joined.data();
+    align4 = 0;
+  } else if (cblk.chunks.size() == 1) {
+    coded = cblk.chunks[0].data;
+  } else {
+    return true;
+  }
+  u32 num_passes = cblk.numsegs > 0 ? cblk.segs[0].real_num_passes : 0;
+  num_passes += cblk.numsegs > 1 ? cblk.segs[1].real_num_passes : 0;
+  const u32 lengths1 = num_passes > 0 ? cblk.segs[0].len : 0;
+  // a second segment that was never made reads as OpenJPEG's zeroed one
+  const u32 lengths2 =
+      num_passes > 1 && cblk.segs.size() > 1 ? cblk.segs[1].len : 0;
+  const i32 width = (i32)cw, height = (i32)chh, stride = width;
+  if (num_passes > 1 && lengths2 == 0) num_passes = 1;  // a warning
+  if (num_passes > 3) return false;
+  if (cblk.Mb > 30) return false;
+  if (zero_bplanes > cblk.Mb) return false;
+  if (zero_bplanes == cblk.Mb && num_passes > 1) num_passes = 1;  // warning
+  const u32 p = cblk.numbps;
+  const u32 zero_bplanes_p1 = zero_bplanes + 1;
+  if (lengths1 < 2 || lengths1 > cblk_len || lengths1 + lengths2 > cblk_len)
+    return false;
+  const int lcup = (int)lengths1;
+  const int scup = ((int)coded[lcup - 1] << 4) + (coded[lcup - 2] & 0xf);
+  if (scup < 2 || scup > lcup || scup > 4079) return false;
+
+  // sigma1, sigma2, mbr1, mbr2 (132 words each) and the line state
+  std::vector<u32> flags(132 * 4 + 528 / 4, 0);
+  u32* sigma1 = flags.data();
+  u32* sigma2 = sigma1 + 132;
+  u32* mbr1 = sigma2 + 132;
+  u32* mbr2 = mbr1 + 132;
+  u8* line_state = (u8*)(mbr2 + 132);
+  u32* sip = sigma1;
+  u32 sip_shift = 0;
+  u32* decoded = (u32*)t1.data.data();
+
+  HtMel mel;
+  if (!mel.init(coded, lcup, scup, (align4 + (u32)(lcup - scup)) & 3))
+    return false;
+  HtRev vlc;
+  vlc.init_vlc(coded, lcup, scup);
+  HtFwd magsgn;
+  magsgn.init(coded, lcup - scup, 0xff);
+  HtFwd sigprop;
+  if (num_passes > 1) sigprop.init(coded + lengths1, (int)lengths2, 0);
+  HtRev magref;
+  if (num_passes > 2) magref.init_mrp(coded, (int)lengths1, (int)lengths2);
+
+  u32 qinf[2];
+  u32 U_q[2];
+
+  // the first row of quads
+  u8* lsp = line_state;
+  lsp[0] = 0;
+  int run = mel.get_run();
+  u32 vlc_val;
+  u32 c_q = 0;
+  u32* sp = decoded;
+  for (i32 x = 0; x < width; x += 4) {
+    vlc_val = vlc.fetch();
+    qinf[0] = kVlcTbl0[(c_q << 7) | (vlc_val & 0x7f)];
+    if (c_q == 0) {
+      run -= 2;
+      qinf[0] = (run == -1) ? qinf[0] : 0;
+      if (run < 0) run = mel.get_run();
+    }
+    c_q = ((qinf[0] & 0x10) >> 4) | ((qinf[0] & 0xe0) >> 5);
+    vlc_val = vlc.advance(qinf[0] & 0x7);
+    *sip |= (((qinf[0] & 0x30) >> 4) | ((qinf[0] & 0xc0) >> 2)) << sip_shift;
+
+    qinf[1] = 0;
+    if (x + 2 < width) {
+      qinf[1] = kVlcTbl0[(c_q << 7) | (vlc_val & 0x7f)];
+      if (c_q == 0) {
+        run -= 2;
+        qinf[1] = (run == -1) ? qinf[1] : 0;
+        if (run < 0) run = mel.get_run();
+      }
+      c_q = ((qinf[1] & 0x10) >> 4) | ((qinf[1] & 0xe0) >> 5);
+      vlc_val = vlc.advance(qinf[1] & 0x7);
+    }
+    *sip |= (((qinf[1] & 0x30) | ((qinf[1] & 0xc0) << 2))) << (4 + sip_shift);
+    sip += x & 0x7 ? 1 : 0;
+    sip_shift ^= 0x10;
+
+    u32 uvlc_mode = ((qinf[0] & 0x8) >> 3) | ((qinf[1] & 0x8) >> 2);
+    if (uvlc_mode == 3) {
+      run -= 2;
+      uvlc_mode += (run == -1) ? 1 : 0;
+      if (run < 0) run = mel.get_run();
+    }
+    u32 consumed = decode_uvlc(vlc_val, uvlc_mode, U_q, true);
+    if (U_q[0] > zero_bplanes_p1 || U_q[1] > zero_bplanes_p1) return false;
+    vlc_val = vlc.advance(consumed);
+
+    u32 locs = 0xff;
+    if (x + 4 > width) locs >>= (x + 4 - width) << 1;
+    locs = height > 1 ? locs : (locs & 0x55);
+    if ((((qinf[0] & 0xf0) >> 4) | (qinf[1] & 0xf0)) & ~locs) return false;
+
+    ht_quad(magsgn, U_q[0], qinf[0], locs & 0xf, p, sp, stride, lsp, true);
+    ht_quad(magsgn, U_q[1], qinf[1], locs >> 4, p, sp + 2, stride, lsp + 1,
+            true);
+    lsp += 2;
+    sp += 4;
+  }
+
+  // the later rows of quads
+  for (i32 y = 2; y < height;) {
+    sip_shift ^= 0x2;
+    sip_shift &= 0xffffffefu;
+    sip = y & 0x4 ? sigma2 : sigma1;
+    lsp = line_state;
+    u8 ls0 = lsp[0];
+    lsp[0] = 0;
+    sp = decoded + (size_t)y * stride;
+    c_q = 0;
+    for (i32 x = 0; x < width; x += 4) {
+      c_q |= (ls0 >> 7);
+      c_q |= (lsp[1] >> 5) & 0x4;
+      vlc_val = vlc.fetch();
+      qinf[0] = kVlcTbl1[(c_q << 7) | (vlc_val & 0x7f)];
+      if (c_q == 0) {
+        run -= 2;
+        qinf[0] = (run == -1) ? qinf[0] : 0;
+        if (run < 0) run = mel.get_run();
+      }
+      c_q = ((qinf[0] & 0x40) >> 5) | ((qinf[0] & 0x80) >> 6);
+      vlc_val = vlc.advance(qinf[0] & 0x7);
+      *sip |= (((qinf[0] & 0x30) >> 4) | ((qinf[0] & 0xc0) >> 2)) << sip_shift;
+
+      qinf[1] = 0;
+      if (x + 2 < width) {
+        c_q |= (lsp[1] >> 7);
+        c_q |= (lsp[2] >> 5) & 0x4;
+        qinf[1] = kVlcTbl1[(c_q << 7) | (vlc_val & 0x7f)];
+        if (c_q == 0) {
+          run -= 2;
+          qinf[1] = (run == -1) ? qinf[1] : 0;
+          if (run < 0) run = mel.get_run();
+        }
+        c_q = ((qinf[1] & 0x40) >> 5) | ((qinf[1] & 0x80) >> 6);
+        vlc_val = vlc.advance(qinf[1] & 0x7);
+      }
+      *sip |= (((qinf[1] & 0x30) | ((qinf[1] & 0xc0) << 2))) << (4 + sip_shift);
+      sip += x & 0x7 ? 1 : 0;
+      sip_shift ^= 0x10;
+
+      u32 uvlc_mode = ((qinf[0] & 0x8) >> 3) | ((qinf[1] & 0x8) >> 2);
+      u32 consumed = decode_uvlc(vlc_val, uvlc_mode, U_q, false);
+      vlc_val = vlc.advance(consumed);
+
+      if ((qinf[0] & 0xf0) & ((qinf[0] & 0xf0) - 1)) {
+        u32 E = (ls0 & 0x7fu);
+        E = E > (lsp[1] & 0x7fu) ? E : (lsp[1] & 0x7fu);
+        U_q[0] += E > 2 ? E - 2 : 0;
+      }
+      if ((qinf[1] & 0xf0) & ((qinf[1] & 0xf0) - 1)) {
+        u32 E = (lsp[1] & 0x7fu);
+        E = E > (lsp[2] & 0x7fu) ? E : (lsp[2] & 0x7fu);
+        U_q[1] += E > 2 ? E - 2 : 0;
+      }
+      if (U_q[0] > zero_bplanes_p1 || U_q[1] > zero_bplanes_p1) return false;
+
+      ls0 = lsp[2];
+      lsp[1] = lsp[2] = 0;
+
+      u32 locs = 0xff;
+      if (x + 4 > width) locs >>= (x + 4 - width) << 1;
+      locs = y + 2 <= height ? locs : (locs & 0x55);
+      if ((((qinf[0] & 0xf0) >> 4) | (qinf[1] & 0xf0)) & ~locs) return false;
+
+      ht_quad(magsgn, U_q[0], qinf[0], locs & 0xf, p, sp, stride, lsp,
+              false);
+      ht_quad(magsgn, U_q[1], qinf[1], locs >> 4, p, sp + 2, stride,
+              lsp + 1, false);
+      lsp += 2;
+      sp += 4;
+    }
+
+    y += 2;
+    if (num_passes > 1 && (y & 3) == 0) {
+      if (num_passes > 2)
+        ht_magref_stripe(decoded + (size_t)(y - 4) * stride, stride, width,
+                         y & 0x4 ? sigma1 : sigma2, p, magref);
+      if (y >= 4)
+        ht_stripe_mbr(y & 0x4 ? sigma1 : sigma2, y & 0x4 ? mbr1 : mbr2, width);
+      if (y >= 8) {
+        u32* cur_sig = y & 0x4 ? sigma2 : sigma1;
+        u32* cur_mbr = y & 0x4 ? mbr2 : mbr1;
+        u32* nxt_sig = y & 0x4 ? sigma1 : sigma2;
+        u32* nxt_mbr = y & 0x4 ? mbr1 : mbr2;
+        ht_mbr_from_next(cur_sig, cur_mbr, nxt_sig, width, stripe_causal);
+        ht_sigprop_stripe(decoded, stride, width, y - 8, cur_sig, cur_mbr,
+                          nxt_sig, nxt_mbr, 0xffffffffu, 3u << (p - 2),
+                          sigprop);
+        memset(cur_sig, 0, ((((u32)width + 7u) >> 3) + 1u) << 2);
+      }
+    }
+  }
+
+  // the last stripes
+  if (num_passes > 1) {
+    if (num_passes > 2 && ((height & 3) == 1 || (height & 3) == 2))
+      ht_magref_stripe(decoded + (size_t)(height & 0xfffffc) * stride, stride,
+                       width, height & 0x4 ? sigma2 : sigma1, p, magref);
+    if ((height & 3) == 1 || (height & 3) == 2)
+      ht_stripe_mbr(height & 0x4 ? sigma2 : sigma1,
+                    height & 0x4 ? mbr2 : mbr1, width);
+    i32 st = height;
+    st -= height > 6 ? (((height + 1) & 3) + 3) : height;
+    for (i32 y = st; y < height; y += 4) {
+      u32 pattern = 0xffffffffu;
+      if (height - y == 3) pattern = 0x77777777u;
+      else if (height - y == 2) pattern = 0x33333333u;
+      else if (height - y == 1) pattern = 0x11111111u;
+      u32* cur_sig = y & 0x4 ? sigma2 : sigma1;
+      u32* cur_mbr = y & 0x4 ? mbr2 : mbr1;
+      u32* nxt_sig = y & 0x4 ? sigma1 : sigma2;
+      u32* nxt_mbr = y & 0x4 ? mbr1 : mbr2;
+      if (height - y > 4)
+        ht_mbr_from_next(cur_sig, cur_mbr, nxt_sig, width, stripe_causal);
+      ht_sigprop_stripe(decoded, stride, width, y, cur_sig, cur_mbr, nxt_sig,
+                        nxt_mbr, pattern, 3u << (p - 2), sigprop);
+    }
+  }
+
+  for (i32 y = 0; y < height; ++y) {
+    i32* row = t1.data.data() + (size_t)y * stride;
+    for (i32 x = 0; x < width; ++x) {
+      u32 w = (u32)row[x];
+      i32 v = (i32)(w & 0x7fffffffu);
+      row[x] = (w & 0x80000000u) ? -v : v;
     }
   }
   return true;
@@ -1876,7 +2943,6 @@ struct Decoder {
     TileComp& tc = tile.comps[pk.compno];
     Res& rs = tc.res[pk.resno];
     const u32 cblksty = tcp.tccps[pk.compno].cblksty;
-    if (cblksty & CB_HT) return false;  // HTJ2K: refused at the headers
     if (pk.layno == 0) {
       for (u32 b = 0; b < rs.numbands; ++b) {
         Band& bd = rs.bands[b];
@@ -1959,6 +3025,7 @@ struct Decoder {
             ++i;
             if (i > 0x10000000) return false;  // a stream of zero bits
           }
+          cb.Mb = (u32)bd.numbps;
           cb.numbps = (u32)bd.numbps + 1 - i;
           cb.numlenbits = 3;
         }
@@ -1979,7 +3046,13 @@ struct Decoder {
         i32 n = (i32)cb.numnewpasses;
         do {
           Seg& s = cb.segs[segno];
-          s.numnewpasses = (u32)std::min((i32)(s.maxpasses - s.numpasses), n);
+          // an HT block's first segment takes one pass (the cleanup), any
+          // later one the rest, whatever its maxpasses
+          if (cblksty & CB_HT)
+            s.numnewpasses = segno == 0 ? 1 : (u32)n;
+          else
+            s.numnewpasses =
+                (u32)std::min((i32)(s.maxpasses - s.numpasses), n);
           u32 bits = cb.numlenbits + floorlog2(s.numnewpasses);
           if (bits > 32) return false;
           s.newlen = bio.read(bits);
@@ -2099,8 +3172,18 @@ struct Decoder {
           Band& bd = rs.bands[b];
           for (auto& pr : bd.precs) {
             for (auto& cb : pr.cblks) {
-              if (!decode_cblk(t1, cb, bd.bandno, tccp.roishift, tccp.cblksty))
+              if (tccp.cblksty & CB_HT) {
+                // the address of a block's one chunk modulo 4, OpenJPEG's
+                // tile data being malloc'd (16-aligned)
+                u32 a4 = cb.chunks.size() == 1
+                             ? (u32)(cb.chunks[0].data - tcp.data.data()) & 3
+                             : 0;
+                if (!ht_decode_cblk(t1, cb, tccp.roishift, tccp.cblksty, a4))
+                  return false;
+              } else if (!decode_cblk(t1, cb, bd.bandno, tccp.roishift,
+                                      tccp.cblksty)) {
                 return false;
+              }
               i32 x = cb.x0 - bd.x0, y = cb.y0 - bd.y0;
               if (bd.bandno & 1) x += tc.res[r - 1].x1 - tc.res[r - 1].x0;
               if (bd.bandno & 2) y += tc.res[r - 1].y1 - tc.res[r - 1].y0;
@@ -2486,14 +3569,6 @@ struct Decoder {
     return true;
   }
 
-  // HTJ2K (ITU-T T.814) code-blocks, which OpenJPEG decodes and this
-  // decoder does not
-  bool uses_ht(const Tcp& tcp) const {
-    for (const Tccp& c : tcp.tccps)
-      if (c.cblksty & CB_HT) return true;
-    return false;
-  }
-
   int color_space_of() const {
     if (!jp2) return 0;  // OPJ_CLRSPC_UNSPECIFIED
     switch (enumcs) {
@@ -2522,8 +3597,7 @@ struct Decoder {
 extern "C" {
 
 // Each entry point fails (returns 0) where OpenJPEG's call fails, an
-// allocation that fails included. The header entry points return 2 where
-// the main header, or the tile's, asks for HTJ2K code-blocks.
+// allocation that fails included.
 
 void* j2k_create(const uint8_t* buf, size_t len, int jp2) {
   try {
@@ -2540,12 +3614,11 @@ void* j2k_create(const uint8_t* buf, size_t len, int jp2) {
 
 void j2k_destroy(void* h) { delete (Decoder*)h; }
 
-// opj_read_header: 1, 2 (HTJ2K), or 0 where it fails. info: numcomps,
+// opj_read_header: 1, or 0 where it fails. info: numcomps,
 // color space, x0, y0, x1, y1, then per component dx, dy, prec, sgnd
 int j2k_read_header(void* h, int64_t* info, int maxinfo) try {
   Decoder* d = (Decoder*)h;
   if (!d || !d->read_header()) return 0;
-  if (d->uses_ht(d->default_tcp)) return 2;
   const Image& im = d->img;
   if (6 + 4 * (int64_t)im.numcomps > maxinfo) return 0;
   info[0] = im.numcomps;
@@ -2565,7 +3638,7 @@ int j2k_read_header(void* h, int64_t* info, int maxinfo) try {
   return 0;
 }
 
-// opj_read_tile_header: 1, 2 (HTJ2K), or 0 where it fails. tinfo:
+// opj_read_tile_header: 1, or 0 where it fails. tinfo:
 // should_continue, tile index, data size, x0, y0, x1, y1, component count
 int j2k_read_tile_header(void* h, int64_t* tinfo) try {
   Decoder* d = (Decoder*)h;
@@ -2573,7 +3646,6 @@ int j2k_read_tile_header(void* h, int64_t* tinfo) try {
   if (r < 0) return 0;
   tinfo[0] = r;
   if (r == 0) return 1;
-  if (d->uses_ht(d->tcps[d->tile_index])) return 2;
   u64 size = d->decoded_size();
   if (size == 0xffffffffu) return 0;
   tinfo[1] = d->tile_index;

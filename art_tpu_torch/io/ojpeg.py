@@ -16,7 +16,9 @@ libtiff's RGBA interface then converts the YCbCr blocks
   2x2), with the strips' data after the SOS, one after another.
 
 Between two strips tif_ojpeg inserts the next RSTn marker. Only a
-baseline (JPEGProc 1) three-component YCbCr frame is read; libjpeg runs
+baseline (JPEGProc 1) frame is read: three YCbCr components, or for an
+image of one sample a pixel (any photometric but YCbCr) one component
+sampled 1x1, which libjpeg decodes into grey scanlines. libjpeg runs
 through :mod:`art_tpu_torch.io.jpegdec`.
 """
 
@@ -27,10 +29,11 @@ import struct
 import numpy as np
 
 
-def _segments(head):
+def _segments(head, ncomp=3):
     """The JIF stream's markers up to its SOS: (header bytes through the
     SOS segment, (h, v) of the first component) or None where tif_ojpeg's
-    parse fails."""
+    parse fails (a frame of other than `ncomp` components, the image's
+    samples a pixel; one component sampled other than 1x1)."""
     if head[:2] != b"\xff\xd8":
         return None
     pos = 2
@@ -45,9 +48,11 @@ def _segments(head):
         n = struct.unpack_from(">H", head, pos + 2)[0]
         seg = head[pos + 4 : pos + 2 + n]
         if marker in (0xC0, 0xC1):
-            if len(seg) < 9 or seg[5] != 3:
+            if len(seg) < 6 + 3 * ncomp or seg[5] != ncomp:
                 return None
             sampling = (seg[7] >> 4, seg[7] & 15)
+            if ncomp == 1 and sampling != (1, 1):
+                return None
         elif marker in (0xC2, 0xC3, 0xC5, 0xC6, 0xC7, 0xC9, 0xCA, 0xCB,
                         0xCD, 0xCE, 0xCF):
             return None
@@ -57,22 +62,23 @@ def _segments(head):
     return None
 
 
-def _table_header(t, buf, hs, vs):
-    """SOI, the tables, DRI and SOF0/SOS tif_ojpeg writes from the tags,
-    or None where a tag is missing or points outside the file."""
+def _table_header(t, buf, hs, vs, ncomp=3):
+    """SOI, the tables, DRI and SOF0/SOS tif_ojpeg writes from the tags
+    for `ncomp` components (a table of each kind a component), or None
+    where a tag is missing or points outside the file."""
     d = t.ifd
     q, dc, ac = d.seq(519), d.seq(520), d.seq(521)
     if int(d.get(512, 1)) != 1 or not q or not dc or not ac or \
-            min(len(q), len(dc), len(ac)) < 3:
+            min(len(q), len(dc), len(ac)) < ncomp:
         return None
     out = bytearray(b"\xff\xd8")
-    for i in range(3):
+    for i in range(ncomp):
         tab = buf[q[i] : q[i] + 64]
         if len(tab) < 64:
             return None
         out += b"\xff\xdb" + struct.pack(">HB", 67, i) + tab
     for cls, offs in ((0, dc), (1, ac)):
-        for i in range(3):
+        for i in range(ncomp):
             bits = buf[offs[i] : offs[i] + 16]
             if len(bits) < 16:
                 return None
@@ -84,12 +90,13 @@ def _table_header(t, buf, hs, vs):
     ri = int(d.get(515, 0))
     if ri:
         out += b"\xff\xdd" + struct.pack(">HH", 4, ri)
-    out += b"\xff\xc0" + struct.pack(">HBHHB", 17, 8, t.h, t.w, 3)
-    for i in range(3):
+    out += b"\xff\xc0" + struct.pack(">HBHHB", 8 + 3 * ncomp, 8, t.h, t.w,
+                                       ncomp)
+    for i in range(ncomp):
         samp = (hs << 4) | vs if i == 0 else 0x11
         out += bytes([i + 1, samp, i])
-    out += b"\xff\xda" + struct.pack(">HB", 12, 3)
-    for i in range(3):
+    out += b"\xff\xda" + struct.pack(">HB", 6 + 2 * ncomp, ncomp)
+    for i in range(ncomp):
         out += bytes([i + 1, (i << 4) | i])
     out += b"\x00\x3f\x00"
     return bytes(out)
@@ -104,9 +111,9 @@ def _strips(t, buf):
     return out
 
 
-def stream(t, buf, tag_sampling):
-    """(the JPEG stream, (hs, vs)) tif_ojpeg hands libjpeg, or (None,
-    sampling) where its header parse fails."""
+def stream(t, buf, tag_sampling, ncomp=3):
+    """(the JPEG stream of `ncomp` components, (hs, vs)) tif_ojpeg hands
+    libjpeg, or (None, sampling) where its header parse fails."""
     d = t.ifd
     jif = d.get(513)
     data = _strips(t, buf)
@@ -115,14 +122,14 @@ def stream(t, buf, tag_sampling):
     if jif:
         n = d.get(514) or len(buf) - jif
         head = buf[jif : jif + n]
-        parsed = _segments(head)
+        parsed = _segments(head, ncomp)
         if parsed is None:
             return None, tag_sampling
         header, sampling = parsed
         body += head[len(header):]
     else:
         sampling = tag_sampling
-        header = _table_header(t, buf, *sampling)
+        header = _table_header(t, buf, *sampling, ncomp)
         if header is None:
             return None, sampling
     for k, s in enumerate(data):

@@ -36,10 +36,11 @@ follows its plugin:
   :mod:`art_tpu_torch.io.textures`, JPEG 2000 in
   :mod:`art_tpu_torch.io.jpeg2000`; AVIF is refused by name
   (:mod:`art_tpu_torch.io.unported`).
-- IPTC/NAA: the 8:10 records joined behind a P5 header (raw) and opened
-  again (here the port's own decode); where the file names a band, the
-  L image is that band of an RGB or CMYK image whose other bands are
-  black.
+- IPTC/NAA: the 8:10 records joined (behind a P5 header where raw, as
+  they are otherwise, a JPEG in practice) and opened again (here the
+  port's own decode); where the file names a band, the image must be L
+  (Pillow's ``Image.merge``: else "mode mismatch") and is that band of an
+  RGB or CMYK image whose other bands are black.
 - PCD (``PcdDecode.c``): the 768 x 512 base image, rotated by 90 or 270
   degrees for orientation 1 or 3.
 - FLI/FLC (``FliDecode.c``): frame 0, fed one frame size at a time.
@@ -396,17 +397,49 @@ def read_iptc(buf, path):
         out += f.read(n)
     if mode == "L":
         return imagefile._decode(bytes(out), None)
+    # Image.open of the records, the band list, then Image.merge
     band = info[(3, 65)][0] - 1 if (3, 65) in info else 0
-    if compression != 1:
-        raise NotImplementedError(
-            "IPTC/NAA image of a JPEG band: the port reads raw bands only")
+    data = bytes(out)
     bands = _BANDS[mode]
+    if compression == 1:
+        inner = "L"
+    else:
+        inner = _inner_mode(data)
     if not -bands <= band < bands:
         raise IndexError("list assignment index out of range")
-    _, samples, _ = imagefile._decode(bytes(out), None)  # Pillow's L band
-    px = np.zeros(samples.shape[:2] + (bands,), np.uint8)
-    px[..., band] = samples[..., 0]
+    if inner not in ("L", None):
+        raise PilValueError("mode mismatch")
+    if inner == "L" and data[:3] == b"\xff\xd8\xff":
+        from art_tpu_torch.io import jpegdec
+
+        grey = jpegdec.decode(data)  # the merge loads the band
+    else:
+        _, samples, _ = imagefile._decode(data, None)  # Pillow's L band
+        grey = samples[..., 0]
+    px = np.zeros(grey.shape[:2] + (bands,), np.uint8)
+    px[..., band] = grey
     return (*rgb_out(mode, px), None)
+
+
+def _inner_mode(data):
+    """Pillow's mode of the image an IPTC file's records hold: a JPEG's,
+    a PNG's ("L" for 8-bit grey), a PNM's or a TIFF's; None for another
+    format, whose decode's first channel is then taken as its L."""
+    from art_tpu_torch.io import jpegdec, stdformats, tiff
+
+    if data[:3] == b"\xff\xd8\xff":
+        return jpegdec.pil_header(data).mode
+    if data[:8] == b"\x89PNG\r\n\x1a\n" and len(data) >= 26:
+        return "L" if data[24:26] == b"\x08\x00" else "other"
+    magic = stdformats.pnm_magic(data)[0]
+    if magic in (b"P2", b"P5"):
+        return "L"  # "I" above 255 levels: the decode's clip reads it
+    if magic in (b"P1", b"P3", b"P4", b"P6"):
+        return "other"
+    if data[:4] in (b"II\x2a\x00", b"MM\x00\x2a", b"II\x2b\x00",
+                    b"MM\x00\x2b"):
+        return tiff.open_tiff(data).mode
+    return None
 
 
 # -- PCD ---------------------------------------------------------------------

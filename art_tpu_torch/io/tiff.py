@@ -768,9 +768,11 @@ def _load_libtiff(t, buf, img):
     if comp in _LOAD_FAILS:
         raise _broken()
     if comp == 6 and libphoto != 6:
-        raise NotImplementedError(
-            f"old-style JPEG TIFF of photometric {libphoto}: the port's TIFF "
-            "reader (io/tiff.py) reads it as YCbCr only")
+        if t.spp != 1:
+            # Pillow's RGBX rows are wider than libtiff's three samples
+            raise _broken()
+        _load_ojpeg_grey(t, buf, img)
+        return
     if comp == 32809 and t.bps[0] != 4:
         raise _broken()  # ThunderSetupDecode: 4 bits only
     if comp in (2, 3, 4, 32771) and (t.spp != 1 or t.bps[0] != 1):
@@ -818,6 +820,25 @@ def _load_libtiff(t, buf, img):
         _unpremultiply(img.px)
 
 
+def _load_ojpeg_grey(t, buf, img):
+    """Old-style JPEG of one sample a pixel under a photometric other than
+    YCbCr: tif_ojpeg's stream of one component read by libjpeg's
+    scanlines (grey, unconverted), strip after strip; a failure anywhere
+    fails the load."""
+    from art_tpu_torch.io import jpegdec, ojpeg
+
+    jstream, _ = ojpeg.stream(t, buf, (1, 1), ncomp=1)
+    if jstream is None:
+        raise _broken()  # OJPEGPreDecode: the header
+    try:
+        plane = jpegdec.decode_raw(jstream)[0][0]
+    except OSError as err:
+        raise _broken() from err
+    if plane.shape[0] < t.h or plane.shape[1] < t.w:
+        raise _broken()  # libjpeg runs out of scanlines
+    img.px[:, :] = plane[: t.h, : t.w]
+
+
 def _strip_data(t, buf, idx):
     """The bytes of strip or tile `idx` as libtiff reads them; bits
     reversed under fill order 2 (the fax decoders read them reversed)."""
@@ -838,11 +859,11 @@ def _strip_data(t, buf, idx):
 _PREDICTED = {5, 8, 32946, 34925, 50000}
 
 
-def _read_block(t, buf, idx, rows, tw, scan):
+def _read_block(t, buf, idx, rows, tw, scan, predict=True):
     """TIFFReadEncodedStrip/Tile: `rows` rows of `scan` bytes decoded, the
-    predictor undone, multi-byte samples in the host's (little-endian)
-    order as libtiff delivers them; OSError where libtiff fails, its
-    cause a `_Broken` with what the codec wrote."""
+    predictor undone (unless `predict` is off), multi-byte samples in the
+    host's (little-endian) order as libtiff delivers them; OSError where
+    libtiff fails, its cause a `_Broken` with what the codec wrote."""
     occ = rows * scan
     comp = t.comp
     data = _strip_data(t, buf, idx)
@@ -871,7 +892,7 @@ def _read_block(t, buf, idx, rows, tw, scan):
             out = _jpeg_block(t, data, rows, tw)
     except _Broken as err:
         raise _broken() from err
-    pred = int(t.ifd.get(317, 1)) if comp in _PREDICTED else 1
+    pred = int(t.ifd.get(317, 1)) if comp in _PREDICTED and predict else 1
     if pred == 3:
         return _unpredict_float(out, rows, tw, t, scan)
     if pred == 2:
@@ -1040,13 +1061,11 @@ def _ycbcr_setup(t, sampling):
     """The YCbCr conversion of TIFFRGBAImageBegin; OSError where it fails
     ("Can not handle format")."""
     d = t.ifd
-    if t.planar == 2 and t.bps[0] == 8 and t.spp == 3 and \
-            tuple(sampling) == (1, 1):
-        raise NotImplementedError(
-            "YCbCr TIFF in separate planes: the port's TIFF reader "
-            "(io/tiff.py) reads YCbCr in one plane only")
-    if t.planar != 1 or t.bps[0] != 8 or t.spp != 3 or \
-            tuple(sampling) not in _SUBSAMPLINGS:
+    # PickContigCase converts each subsampling above; PickSeparateCase
+    # only 1x1 (putseparate8bitYCbCr11tile)
+    if t.bps[0] != 8 or t.spp != 3 or t.planar not in (1, 2) or \
+            tuple(sampling) not in _SUBSAMPLINGS or \
+            (t.planar == 2 and tuple(sampling) != (1, 1)):
         raise _broken()
     luma = d.values(529) or (0.299, 0.587, 0.114)
     refbw = d.values(532) or (0.0, 255.0, 128.0, 255.0, 128.0, 255.0)
@@ -1087,10 +1106,12 @@ def _load_rgba(t, buf, img):
     if t.comp == 6:  # the JPEG's own sampling, as OJPEGSubsamplingCorrect
         jstream, sampling = ojpeg.stream(t, buf, sampling)
     tabs = _ycbcr_setup(t, sampling)  # TIFFRGBAImageBegin
-    if t.tiled:
-        raise NotImplementedError(
-            "tiled YCbCr TIFF not under JPEG: the port's TIFF reader "
-            "(io/tiff.py) reads it in strips only")
+    if t.comp != 6 and t.planar == 2:
+        _load_rgba_separate(t, buf, img, tabs)
+        return
+    if t.comp != 6 and t.tiled:
+        _load_rgba_tiles(t, buf, img, tabs, sampling)
+        return
     packed = None
     if t.comp == 6:
         if jstream is None:
@@ -1118,6 +1139,74 @@ def _load_rgba(t, buf, img):
                 got = err.__cause__.partial
         img.px[y : y + rows, :, :3] = blocks_to_rgb(
             got[: brows * block_row], rows, t.w, hs, vs, tabs)
+
+
+def _read_into(t, buf, idx, out, occ, rows, tw, scan, first, predict=True):
+    """TIFFReadEncodedStrip/Tile of `occ` bytes into `out` (a bytearray)
+    with stoponerr off: a strip or tile that fails to decode is written
+    as far as the codec went, zeros after it; one libtiff cannot read at
+    all (TIFFFillStrip) is zeros, and fails the load where it is the
+    first read of a buffer (`first`: the buffer is never made)."""
+    try:
+        got = _read_block(t, buf, idx, rows, tw, scan, predict)
+    except OSError as err:
+        if not isinstance(err.__cause__, _Broken):
+            if first:
+                raise
+            got = b""
+        else:
+            got = err.__cause__.partial
+    out[:occ] = bytes(got[:occ]).ljust(occ, b"\0")
+
+
+def _load_rgba_separate(t, buf, img, tabs):
+    """gtStripSeparate as Pillow's _decodeAsRGBA calls it, a strip at a
+    time: the Y, Cb and Cr planes' strips read into one buffer
+    (`_read_into`: the Y strip must be readable), converted sample by
+    sample (putseparate8bitYCbCr11tile)."""
+    th = t.th if 0 < t.th < 0xFFFFFFFF else t.h
+    th = min(th, t.h)
+    per_plane = (t.h + th - 1) // th
+    for i, y in enumerate(range(0, t.h, th)):
+        rows = min(th, t.h - y)
+        occ = rows * t.w
+        planes = []
+        for k in range(3):
+            out = bytearray(occ)
+            _read_into(t, buf, i + k * per_plane, out, occ, rows, t.w, t.w,
+                       first=k == 0)
+            planes.append(np.frombuffer(bytes(out), np.uint8).reshape(
+                rows, t.w))
+        img.px[y : y + rows, :, :3] = ycbcr_to_rgb(*planes, tabs)
+
+
+def _load_rgba_tiles(t, buf, img, tabs, sampling):
+    """gtTileContig as Pillow's _decodeAsRGBA calls it, a row of tiles at
+    a time: each tile read into the row's one buffer (`_read_into`: the
+    row's first tile must be readable), its packed blocks converted
+    (putcontig8bitYCbCr*tile) and clipped at the image's right edge."""
+    hs, vs = sampling
+    tw, th = t.tw, t.th
+    if tw <= 0 or th <= 0:
+        raise _broken()
+    block_row = (tw + hs - 1) // hs * (hs * vs + 2)
+    occ = (th + vs - 1) // vs * block_row  # TIFFTileSize
+    rowsize = tw * 3  # TIFFTileRowSize, the predictor's row
+    across = (t.w + tw - 1) // tw
+    for r, y in enumerate(range(0, t.h, th)):
+        rows = min(th, t.h - y)
+        out = bytearray(occ)
+        for c in range(across):
+            x = c * tw
+            whole = occ % rowsize == 0
+            # PredictorDecodeTile fails on "occ0%rowsize != 0" after the
+            # codec has written the tile, which then stays unsummed
+            _read_into(t, buf, r * across + c, out, occ,
+                       occ // rowsize if whole else 1, tw,
+                       rowsize if whole else occ, c == 0, predict=whole)
+            ww = min(tw, t.w - x)
+            img.px[y : y + rows, x : x + ww, :3] = blocks_to_rgb(
+                bytes(out), rows, tw, hs, vs, tabs)[:, :ww]
 
 
 # -- read_image's contract -------------------------------------------------

@@ -4252,7 +4252,8 @@ def formats_phase(smi_line, tmp):
         if not ok:
             failures.append(f"F1 {name} decodes differently")
     for name in sorted(k for k in recorded if not k.startswith(
-            ("F1 ", "G1 ", "Q1 ", "webp_", "raster_", "plugin_", "j2k_"))):
+            ("F1 ", "G1 ", "Q1 ", "U1 ", "webp_", "raster_", "plugin_",
+             "j2k_", "u1_", "u2_"))):
         path = os.path.join(FORMATS_DATA, name)
         buf = open(path, "rb").read()
         t0 = time.monotonic()
@@ -5698,6 +5699,7 @@ def jpeg2000_phase(smi_line, tmp):
         want = tiled_decode(decoded[name], h, w)
         ok = got.shape == want.shape and np.array_equal(got, want)
         same = _sha(got) == recorded[f"{label} {w}x{h}"]
+        Q1_MS[label] = ms
         log(f"{label}: {w}x{h} file {os.path.getsize(path) / 1e6:.2f} MB "
             f"written in {t1 - t0:.2f} s; read_rgb8 {ms:.1f} ms (host) -> "
             f"{got.shape}: {'equal to' if ok else 'DIFFERENT FROM'} the "
@@ -5774,6 +5776,149 @@ def jpeg2000_phase(smi_line, tmp):
     failures += kernels_against_plain("Q2", lambda: tdev.develop(frame, pp),
                                       want)
     log(f"JPEG 2000 phase: {time.monotonic() - t_phase:.1f} s")
+    return {}, failures
+
+
+# -- HTJ2K and the last forms Pillow decodes (U1, U2) --------------------------
+
+# U1: the 24 MP HTJ2K files tiled from a committed one-tile fixture
+# (tests/util_htforms.py wrote each: T x T, 4 resolutions, 64x64 blocks):
+# (name, fixture, wrapped in a JP2)
+U1_TILED = (("U1 HTJ2K 9/7 with SigProp and MagRef, 512x512 tiles",
+             "u1_htj2k_97_sigprop_tile.j2k", False),
+            ("U1 HTJ2K JP2 lossless (5/3), 256x256 tiles",
+             "u1_htj2k_53_tile.j2k", True))
+# U2's committed Hald (level 6, reversible 5/3 with SigProp and MagRef, a
+# JP2) and mask (f2_mask at Q2_MASK, a lossless HTJ2K codestream)
+U2_HALD, U2_MASK_FILE = "u2_htj2k_hald6.jp2", "u2_htj2k_mask.j2k"
+# Q1's read_rgb8 host ms by label, kept by jpeg2000_phase for U1
+Q1_MS = {}
+
+
+def htj2k_phase(smi_line, tmp):
+    """The last forms Pillow decodes, read by the port on the card's
+    machine (no PIL there). U1: every committed U fixture (HTJ2K, an
+    old-style JPEG grey TIFF, YCbCr TIFFs in separate planes and in
+    tiles, an IPTC/NAA file with a JPEG band) against the sha256 of
+    Pillow's decode; two 24 MP HTJ2K files tiled from the committed
+    one-tile fixtures (U1_TILED), each read_rgb8's host ms beside Q1's
+    MQ decode of its like, against the same tiling of the fixture's
+    decode and the sha256 of Pillow's decode of the same file. U2: F2's
+    develop through cli.main (P3's Hald film simulation with Texture
+    Boost under an external mask, bundled profile, denoise 20/20), the
+    Hald a reversible HTJ2K JP2 and the mask an HTJ2K codestream, both
+    committed, against the same develop from PNGs of the same samples:
+    the JPEGs byte-equal, B1-B4 and B7 once each and bit-equal to their
+    plain versions on U2's tensors. Returns (the comparisons, the
+    failures)."""
+    from art_tpu_torch.io import imagefile
+    from art_tpu_torch.io.dngwrite import write_dng
+    from art_tpu_torch.io.imagefile import write_png
+    from art_tpu_torch.pipeline import develop as tdev
+
+    log(f"---- HTJ2K phase ({smi_line})")
+    t_phase = time.monotonic()
+    failures = []
+    with open(FORMATS_SHA) as f:
+        recorded = json.load(f)
+    decoded = {}
+    for name in sorted(k for k in recorded if k.startswith(("u1_", "u2_"))):
+        fpath = os.path.join(FORMATS_DATA, name)
+        t0 = time.monotonic()
+        got = imagefile.read_rgb8(fpath)
+        ms = 1e3 * (time.monotonic() - t0)
+        ok = _sha(got) == recorded[name]
+        decoded[name] = got
+        log(f"U1 {name} ({os.path.getsize(fpath)} bytes, "
+            f"{got.shape[1]}x{got.shape[0]}): read_rgb8 {ms:.1f} ms (host), "
+            f"sha256 {'equal to' if ok else 'NOT'} Pillow's")
+        if not ok:
+            failures.append(f"U1 {name}: sha256 differs from Pillow's")
+    h, w = Q1_FRAME
+    q1_like = {False: Q1_TILED[1][0], True: Q1_TILED[0][0]}
+    for label, name, jp2 in U1_TILED:
+        with open(os.path.join(FORMATS_DATA, name), "rb") as f:
+            fixture = f.read()
+        t0 = time.monotonic()
+        path = _write(os.path.join(tmp, name), j2k_tiled(fixture, h, w, jp2))
+        t1 = time.monotonic()
+        got = imagefile.read_rgb8(path)
+        ms = 1e3 * (time.monotonic() - t1)
+        want = tiled_decode(decoded[name], h, w)
+        ok = got.shape == want.shape and np.array_equal(got, want)
+        same = _sha(got) == recorded[f"{label} {w}x{h}"]
+        mq = Q1_MS.get(q1_like[jp2])
+        log(f"{label}: {w}x{h} file {os.path.getsize(path) / 1e6:.2f} MB "
+            f"written in {t1 - t0:.2f} s; read_rgb8 {ms:.1f} ms (host; "
+            f"{q1_like[jp2]} (MQ): "
+            f"{'not measured' if mq is None else f'{mq:.1f} ms'}) -> "
+            f"{got.shape}: {'equal to' if ok else 'DIFFERENT FROM'} the "
+            f"fixture's tiling, sha256 {'equal to' if same else 'NOT'} "
+            f"Pillow's ({smi_line})")
+        if not (ok and same):
+            failures.append(f"{label} decodes differently")
+        os.unlink(path)
+    del got, want
+
+    # U2: an HTJ2K Hald and mask against PNGs of the same samples
+    hald = decoded[U2_HALD]
+    mask = decoded[U2_MASK_FILE]
+    if not np.array_equal(mask[..., 0],
+                          f2_mask(*Q2_MASK).astype(np.uint8)):
+        failures.append("U2: the mask decodes wrongly")
+    paths = {"hald": os.path.join(FORMATS_DATA, U2_HALD),
+             "mask": os.path.join(FORMATS_DATA, U2_MASK_FILE),
+             "hald_png": os.path.join(tmp, "hald6.png"),
+             "mask_png": os.path.join(tmp, "mask.png")}
+    write_png(paths["hald_png"], hald)
+    write_png(paths["mask_png"], mask)
+    frame = flagship_frame(*FRAME)
+    dng = os.path.join(tmp, "u2.dng")
+    write_dng(dng, np.round(frame.cfa).astype(np.uint16), black=512,
+              white=16383, compress=False)
+    base = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "art_tpu_torch", "data", "profiles", PROFILE)
+    dn = os.path.join(tmp, "denoise20.arp")
+    with open(dn, "w") as f:
+        f.write("[Denoise]\nEnabled=true\nLuminance=20\nChrominance=20\n")
+    outs = {}
+    want = ("b1", "b2", "b3", "b4", "b7")
+    for kind, (lut, msk) in {
+            "htj2k": (paths["hald"], paths["mask"]),
+            "png": (paths["hald_png"], paths["mask_png"])}.items():
+        arp = os.path.join(tmp, f"u2_{kind}.arp")
+        with open(arp, "w") as f:
+            f.write(f2_arp(lut, msk))
+        out = os.path.join(tmp, f"u2_{kind}.jpg")
+        argv = ["-Y", "-p", base, "-p", dn, "-p", arp, "-o", out, "-c", dng]
+        reset_counts()
+        phases, seconds = cli_run(argv)
+        launches, plain_calls = read_counts()
+        log(f"U2 ({'HTJ2K Hald and mask' if kind == 'htj2k' else 'PNG '
+            'Hald, PNG mask'}) through cli.main: "
+            f"{1e3 * seconds:.1f} ms end to end (first); phases {phases}; "
+            f"launches {launches}; plain calls {plain_calls} ({smi_line})")
+        if launches != {k: int(k in want) for k in launches} \
+                or any(plain_calls.values()):
+            failures.append(f"U2 {kind}: launches {launches}, plain calls "
+                            f"{plain_calls}")
+        outs[kind] = open(out, "rb").read()
+        check_jpeg(out)
+    same = outs["htj2k"] == outs["png"]
+    log(f"U2 JPEG from the HTJ2K Hald and mask "
+        f"{'byte-equal to' if same else 'DIFFERS FROM'} the PNGs' "
+        f"({len(outs['htj2k'])} bytes)")
+    if not same:
+        failures.append("U2: the HTJ2K develop differs from the PNGs'")
+    from art_tpu_torch import cli
+
+    argv = ["-Y", "-p", base, "-p", dn, "-p",
+            os.path.join(tmp, "u2_htj2k.arp"), "-o",
+            os.path.join(tmp, "u2_k.jpg"), "-c", dng]
+    pp = cli.compose_params(dng, cli.parse_args(argv))
+    failures += kernels_against_plain("U2", lambda: tdev.develop(frame, pp),
+                                      want)
+    log(f"HTJ2K phase: {time.monotonic() - t_phase:.1f} s ({smi_line})")
     return {}, failures
 
 
@@ -6354,6 +6499,15 @@ def main():
         v_stats, v_failures = tiff_phase(smi_line, tmp)
     new_stats.update(v_stats)
     failures += v_failures
+
+    # ---- HTJ2K and the last TIFF and IPTC forms: U1 (the U fixtures,
+    # 24 MP HTJ2K files tiled from the committed ones, beside Q1's MQ
+    # decode), U2 (an HTJ2K Hald and mask through cli.main)
+    with phase_clock("HTJ2K phase, in all"), \
+            tempfile.TemporaryDirectory() as tmp:
+        u_stats, u_failures = htj2k_phase(smi_line, tmp)
+    new_stats.update(u_stats)
+    failures += u_failures
 
     failures += [f"B6 on {k} disagrees with its plain version"
                  for k, ok in b6_edges.items() if not ok]

@@ -830,10 +830,12 @@ def test_committed_fixtures_hold_their_sha256():
     lossy file up to 1.5 MB), the raster, plugin, texture and JPEG 2000
     fixtures (tests/util_rasterforms.py::fixtures and its like) decode to
     the sha256 recorded from Pillow, which `chip_smoke.py`'s format phases
-    check on the card's machine (the generated F1, G1 and Q1 files apart)."""
+    check on the card's machine (the generated F1, G1, Q1 and U1 files
+    apart)."""
     with open(os.path.join(DATA, "formats_sha256.json")) as f:
         recorded = json.load(f)
-    names = [k for k in recorded if not k.startswith(("F1 ", "G1 ", "Q1 "))]
+    names = [k for k in recorded
+             if not k.startswith(("F1 ", "G1 ", "Q1 ", "U1 "))]
     assert len(names) >= 7
     gif_bytes = open(os.path.join(DATA, "gif_pillow_lzw.gif"), "rb").read()
     assert gif_bytes[10] & 0x80 == 0  # no global table

@@ -19,14 +19,20 @@ and, through the consumers, against `art_tpu`:
   repeated colours, cdef, colr of enumcs 12, 17 and 18 and of an ICC
   profile, res, bpcc, an ihdr that disagrees with SIZ); RGN (ROI
   maxshift) in the main and a tile's header; packet headers moved into
-  PPT or PPM, whole and damaged; HTJ2K code-blocks refused by name;
+  PPT or PPM, whole and damaged; HTJ2K code-blocks in empty packets;
+- HTJ2K streams of the tests' own encoder (tests/util_htforms.py):
+  cleanup only and with SigProp and MagRef, 5/3 and 9/7, layers, tiles,
+  precincts, stripe-causal, CAP/CPF; lossless ones (and SigProp and
+  MagRef at one resolution) as the encoder's input in Pillow; damaged
+  copies and random code-block bytes as Pillow; the consumers;
 - ICNS with JPEG 2000 icons (ic08, icp4);
 - damaged copies of tiled, layered, precinct-partitioned files (cut,
   bytes changed anywhere): Pillow's array or its error; and (slow) the
   decoder under AddressSanitizer and UBSan on damaged copies of every
   form (tests/jp2dec_driver.cc);
 - the committed fixtures against the sha256 of Pillow's decode, and
-  `chip_smoke.py`'s Q1 tiling and Q2 Hald and mask.
+  `chip_smoke.py`'s Q1 tiling and Q2 Hald and mask, U1's HTJ2K tiling
+  and U2's HTJ2K Hald and mask.
 
 Every form decodes bit-equal to Pillow, 9/7 included. The damaged copies
 of Pillow's own JPEG 2000 files are in tests/test_torch_unported.py.
@@ -47,6 +53,7 @@ from art_tpu_torch.io.imagefile import (load_std_image, read_grey, read_image,
                                         read_rgb8)
 
 import chip_smoke
+import util_htforms
 import util_j2kforms as F
 from test_torch_formats import DATA, check_readers, pil_grey
 
@@ -409,23 +416,192 @@ HTJ2K = {
 @pytest.mark.parametrize("name", sorted(HTJ2K))
 def test_htj2k_code_blocks_are_refused_by_name(name, tmp_path):
     """A stream whose COD or COC asks for HTJ2K code-blocks (style bit
-    0x40), with every packet empty so that it codes no block: Pillow
-    decodes it (OpenJPEG reads HTJ2K), and the port's readers, the
-    reference's loader and the external mask raise NotImplementedError
-    naming HTJ2K where the reference's mask decodes it, so no consumer
-    passes over it as an unreadable file. Without the bit the same
-    stream decodes as Pillow's."""
+    0x40), with every packet empty so that it codes no block: no longer
+    refused, the port's readers decode it as Pillow does and the
+    external mask as the reference's (the name is kept from when the
+    port refused these streams). Without the bit the same stream
+    decodes as Pillow's."""
     from art_tpu.masks import _load_external_mask as ref_mask
     from art_tpu_torch.masks import load_external_mask
 
     assert check(HTJ2K[name](0), tmp_path, "a.j2k") == "ok"
+    assert check(HTJ2K[name](0x40), tmp_path, "a.j2k") == "ok"
     path = _write(tmp_path, HTJ2K[name](0x40), "a.j2k")
-    assert _outcome(lambda: _pil_rgb(path))[0] == "ok"
-    assert ref_mask(path, 30, 40, False) is not None
-    for read in (read_rgb8, read_image, read_grey, load_std_image,
-                 lambda p: load_external_mask(p, 30, 40, False)):
-        with pytest.raises(NotImplementedError, match="HTJ2K"):
-            read(path)
+    np.testing.assert_array_equal(load_external_mask(path, 30, 40, False),
+                                  ref_mask(path, 30, 40, False))
+
+
+# HTJ2K streams of the tests' own encoder (tests/util_htforms.py): (image,
+# encode_ht's options)
+HT_PIC = F.picture(21, 27, seed=3)
+HT_FORMS = {
+    "cleanup, 5/3, no level": (HT_PIC, dict(levels=0)),
+    "cleanup, 5/3, grey, 4x4 blocks": (HT_PIC[..., 1], dict(
+        levels=2, cblk=(2, 2))),
+    "cleanup, 5/3, three levels, 8x4 blocks": (HT_PIC, dict(
+        levels=3, cblk=(3, 2))),
+    "cleanup, 9/7": (HT_PIC, dict(levels=2, reversible=False, step_exp=2)),
+    "SigProp, 5/3, no level": (HT_PIC, dict(levels=0, passes=2)),
+    "SigProp and MagRef, 5/3, no level": (HT_PIC, dict(levels=0,
+                                                       passes=3)),
+    "SigProp and MagRef, 9/7": (HT_PIC, dict(levels=2, reversible=False,
+                                             passes=3)),
+    "SigProp and MagRef, 9/7, plane 3": (HT_PIC, dict(
+        levels=1, reversible=False, passes=3, plane=3, cblk=(2, 3))),
+    "SigProp and MagRef, stripe-causal": (HT_PIC[..., 0], dict(
+        levels=1, passes=3, vsc=True, cblk=(3, 3))),
+    "two layers": (HT_PIC, dict(levels=1, layers=2, passes=3,
+                                reversible=False)),
+    "three layers, cleanup only": (HT_PIC, dict(levels=2, layers=3)),
+    "refinement a layer after its cleanup": (HT_PIC, dict(
+        levels=1, layers=2, passes=3, split=True)),
+    "SigProp a layer after its cleanup": (HT_PIC, dict(
+        levels=1, layers=2, passes=2, split=True)),
+    "tiles 13x11, precincts": (HT_PIC, dict(
+        levels=2, tile=(13, 11), precincts=[(2, 2), (3, 3), (4, 4)],
+        cblk=(2, 2))),
+    "CAP and CPF markers": (HT_PIC, dict(levels=1, markers=True)),
+    "1x9 and 9x1": (HT_PIC[:1, :9], dict(levels=2, passes=3)),
+    "9x1": (HT_PIC[:9, :1], dict(levels=2)),
+    "no MCT": (HT_PIC, dict(levels=1, mct=False, passes=3)),
+}
+
+
+def _ht(name):
+    img, kw = HT_FORMS[name]
+    return util_htforms.encode_ht(img, **kw)
+
+
+@pytest.mark.parametrize("name", sorted(HT_FORMS))
+def test_htj2k_forms_decode_as_pillow(name, tmp_path):
+    """The encoder's HTJ2K streams: cleanup only and with SigProp and
+    MagRef, 5/3 and 9/7, one to three layers (a block's refinement also
+    a layer after its cleanup, which OpenJPEG reads into the cleanup's
+    segment), tiles and precincts, stripe-causal, CAP and CPF: the four
+    readers as Pillow and the reference. Where the encoder knows the
+    image (lossless; SigProp and MagRef with no level) Pillow decodes
+    the stream to it, which holds the tables and the passes' reading to
+    OpenJPEG's."""
+    data, expected = _ht(name)
+    outcome = check(data, tmp_path, "h.j2k")
+    broken = name == "SigProp a layer after its cleanup"
+    assert outcome == ("OSError" if broken else "ok")
+    if expected is not None:
+        want = expected if expected.ndim == 3 else np.repeat(
+            expected[..., None], 3, -1)
+        np.testing.assert_array_equal(_pil_rgb(_write(tmp_path, data,
+                                                      "e.j2k")), want)
+
+
+@pytest.mark.parametrize("name", sorted(HT_FORMS))
+def test_htj2k_damaged_copies(name, tmp_path):
+    """60 damaged copies of each HTJ2K form (util_j2kforms.
+    damaged_copies: cut, or bytes changed anywhere): Pillow's array or its
+    error."""
+    data, _ = _ht(name)
+    rng = np.random.default_rng(sorted(HT_FORMS).index(name) + 300)
+    wrong = []
+    for i, d in enumerate(F.damaged_copies(data, rng, 60)):
+        path = _write(tmp_path, d, "v.j2k")
+        want = _outcome(lambda: _pil_rgb(path))
+        got = _outcome(lambda: read_rgb8(path))
+        if not _same(want, got):
+            wrong.append((i, want[0], got[0]))
+    assert not wrong, wrong
+
+
+def _garble(rng):
+    """A function that replaces a block's segments, now and then, with
+    random bytes: all of them, a few bytes changed, the MagSgn part or
+    the MEL and VLC part (Scup kept), or random bytes of a random
+    length."""
+    def mangle(segs):
+        if rng.random() > 0.15:
+            return segs
+        mode = int(rng.integers(0, 5))
+        cup = bytearray(segs[0])
+        scup = (cup[-1] << 4) | (cup[-2] & 15)
+        rest = [bytes(rng.integers(0, 256, len(x), dtype=np.uint8))
+                for x in segs[1:]]
+        if mode == 0:
+            return [bytes(rng.integers(0, 256, len(x), dtype=np.uint8))
+                    for x in segs]
+        if mode == 1:
+            for _ in range(int(rng.integers(1, 4))):
+                cup[int(rng.integers(0, len(cup)))] = int(
+                    rng.integers(0, 256))
+            return [bytes(cup)] + list(segs[1:])
+        lo, hi = (0, len(cup) - scup) if mode == 2 else \
+            (max(0, len(cup) - scup), len(cup) - 2)
+        for i in range(lo, hi):
+            if rng.random() < 0.4:
+                cup[i] = int(rng.integers(0, 256))
+        if mode == 2:
+            return [bytes(cup)] + rest
+        if mode == 3:
+            return [bytes(cup)] + list(segs[1:])
+        return [bytes(rng.integers(0, 256, int(rng.integers(2, 60)),
+                                   dtype=np.uint8)) for _ in segs]
+    return mangle
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_htj2k_random_code_block_bytes(seed, tmp_path):
+    """Random bytes in HT code-block segments (whole segments, the
+    MagSgn, MEL and VLC parts, the SigProp and MagRef segment, the
+    lengths): the malformed-block checks of OpenJPEG's HT decoder, or a
+    decode of the random data, as Pillow; 40 streams a seed."""
+    rng = np.random.default_rng(seed + 900)
+    wrong = []
+    names = sorted(HT_FORMS)
+    seen = set()
+    for i in range(40):
+        img, kw = HT_FORMS[names[(seed * 40 + i) % len(names)]]
+        data, _ = util_htforms.encode_ht(img, mangle=_garble(rng), **kw)
+        path = _write(tmp_path, data, "r.j2k")
+        want = _outcome(lambda: _pil_rgb(path))
+        got = _outcome(lambda: read_rgb8(path))
+        seen.add(want[0])
+        if not _same(want, got):
+            wrong.append((i, want[0], got[0]))
+    assert not wrong, wrong
+    assert seen == {"ok", "OSError"}
+
+
+def test_htj2k_consumers_as_the_reference(tmp_path):
+    """load_std_image, the Hald CLUT, the external mask and the PSF image
+    from HTJ2K files against the reference."""
+    import art_tpu
+    import art_tpu_torch
+    from art_tpu.color.lut3d import load_hald_clut as ref_hald
+    from art_tpu.masks import _load_external_mask as ref_mask
+    from art_tpu.ops.sharpen import load_psf_kernel as ref_psf
+    from art_tpu_torch.color.lut3d import load_hald_clut
+    from art_tpu_torch.masks import load_external_mask
+    from art_tpu_torch.ops.sharpen import load_psf_kernel
+
+    rgb = _write(tmp_path, util_htforms.encode_ht(
+        HT_PIC, levels=2, reversible=False, passes=3)[0], "rgb.j2k")
+    ref, got = art_tpu.load_image(rgb), art_tpu_torch.load_image(rgb)
+    np.testing.assert_array_equal(got.rgb, ref.rgb)
+    hald = _write(tmp_path, util_htforms.encode_ht(
+        chip_smoke.hald_image(4, 8), levels=2, passes=3, plane=2)[0],
+        "hald.j2k")
+    np.testing.assert_array_equal(load_hald_clut(hald), ref_hald(hald))
+    grey = _write(tmp_path, util_htforms.encode_ht(
+        HT_PIC[..., 2], levels=1, passes=3)[0], "m.j2k")
+    for path in (rgb, grey):
+        for inverted in (False, True):
+            np.testing.assert_array_equal(
+                load_external_mask(path, 30, 40, inverted),
+                ref_mask(path, 30, 40, inverted))
+    yy, xx = np.mgrid[-4:5, -4:5]
+    k = np.round(255 * np.exp(-(xx ** 2 + yy ** 2) / 6.0)).astype(np.uint8)
+    psf = _write(tmp_path, util_htforms.encode_ht(k, levels=1)[0], "k.j2k")
+    for scale in (1.0, 2.0):
+        got, want = load_psf_kernel(psf, scale), ref_psf(psf, scale)
+        assert got is not None
+        np.testing.assert_array_equal(got, want)
 
 
 SUB = {"4:2:0": (2, 2), "4:2:2": (2, 1)}
@@ -595,7 +771,8 @@ def test_damaged_copies_under_sanitizers(tmp_path):
     forms above and 60 damaged copies of each (encoder options, POC, palettes,
     the damaged-file bases, reordered tile-parts, sYCC, style and
     precision rewrites, tiles lower than their levels, ROI, PPT and PPM,
-    HTJ2K) with no report."""
+    HTJ2K in empty packets, every HTJ2K form of the encoder and its
+    streams of random code-block bytes) with no report."""
     import subprocess
 
     driver = F.sanitized_driver(tmp_path)
@@ -620,6 +797,10 @@ def test_damaged_copies_under_sanitizers(tmp_path):
     forms += [wrap(f(), 2) for f in PACKED.values()
               for wrap in (F.with_ppt, F.with_ppm)]
     forms += [f(0x40) for f in HTJ2K.values()]
+    forms += [_ht(name)[0] for name in sorted(HT_FORMS)]
+    garble = _garble(np.random.default_rng(77))
+    forms += [util_htforms.encode_ht(img, mangle=garble, **kw)[0]
+              for img, kw in HT_FORMS.values()]
     rng = np.random.default_rng(2024)
     paths = []
     for i, form in enumerate(forms):
@@ -733,6 +914,70 @@ def test_q2_hald_and_mask_hold_their_samples():
     want = chip_smoke.hald_image(6, 8)
     np.testing.assert_array_equal(_pil_rgb(hald), want)
     np.testing.assert_array_equal(read_rgb8(hald), want)
+    m = chip_smoke.f2_mask(*chip_smoke.Q2_MASK).astype(np.uint8)
+    assert Image.open(mask).mode == "L"
+    np.testing.assert_array_equal(read_grey(mask)[0], m)
+    np.testing.assert_array_equal(pil_grey(mask)[0], m)
+
+
+def test_u_fixtures_hold_their_sha256():
+    """Each committed fixture of chip_smoke.py's U1 and U2 (HTJ2K, the
+    three TIFF layouts, IPTC with a JPEG band) is what util_htforms.
+    fixtures writes, at most 64 KB, and decodes in Pillow to the recorded
+    sha256 and in the port to Pillow's array."""
+    recorded = json.load(open(os.path.join(DATA, "formats_sha256.json")))
+    made = util_htforms.fixtures()
+    assert {k for k in recorded if k.startswith(("u1_", "u2_"))} == \
+        set(made)
+    for name, data in made.items():
+        path = os.path.join(DATA, name)
+        assert open(path, "rb").read() == data, name
+        assert len(data) <= 64 * 1024
+        want = _pil_rgb(path)
+        assert _sha(want) == recorded[name], name
+        np.testing.assert_array_equal(read_rgb8(path), want)
+
+
+def test_u1_tiling_at_a_small_size(tmp_path):
+    """chip_smoke.j2k_tiled of U1's HTJ2K fixtures at 512x1024 (and the
+    JP2 wrap): Pillow and the port both decode it to the fixture's decode
+    tiled."""
+    for label, name, jp2 in chip_smoke.U1_TILED:
+        fixture = open(os.path.join(DATA, name), "rb").read()
+        path = _write(tmp_path, chip_smoke.j2k_tiled(fixture, 512, 1024,
+                                                     jp2), "u1")
+        want = chip_smoke.tiled_decode(_pil_rgb(os.path.join(DATA, name)),
+                                       512, 1024)
+        np.testing.assert_array_equal(_pil_rgb(path), want, err_msg=label)
+        np.testing.assert_array_equal(read_rgb8(path), want, err_msg=label)
+
+
+@pytest.mark.slow
+def test_u1_tiling_premise_at_24mp(tmp_path):
+    """U1's 24 MP HTJ2K files: Pillow's decode is the fixture's tiled and
+    has the sha256 chip_smoke.py holds the port's decode to."""
+    recorded = json.load(open(os.path.join(DATA, "formats_sha256.json")))
+    h, w = chip_smoke.Q1_FRAME
+    Image.MAX_IMAGE_PIXELS = None
+    for label, name, jp2 in chip_smoke.U1_TILED:
+        fixture = open(os.path.join(DATA, name), "rb").read()
+        path = _write(tmp_path, chip_smoke.j2k_tiled(fixture, h, w, jp2),
+                      "u1")
+        got = _pil_rgb(path)
+        assert _sha(got) == recorded[f"{label} {w}x{h}"]
+        np.testing.assert_array_equal(got, chip_smoke.tiled_decode(
+            _pil_rgb(os.path.join(DATA, name)), h, w))
+
+
+def test_u2_hald_and_mask():
+    """U2's committed HTJ2K Hald decodes, in Pillow and in the port, to
+    hald_image(6, 8) within the SigProp and MagRef passes' last plane
+    (two codes), and its mask, lossless, to f2_mask at Q2_MASK."""
+    hald = os.path.join(DATA, chip_smoke.U2_HALD)
+    mask = os.path.join(DATA, chip_smoke.U2_MASK_FILE)
+    got = read_rgb8(hald)
+    np.testing.assert_array_equal(got, _pil_rgb(hald))
+    assert np.abs(got.astype(int) - chip_smoke.hald_image(6, 8)).max() <= 7
     m = chip_smoke.f2_mask(*chip_smoke.Q2_MASK).astype(np.uint8)
     assert Image.open(mask).mode == "L"
     np.testing.assert_array_equal(read_grey(mask)[0], m)

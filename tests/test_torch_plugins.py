@@ -9,7 +9,8 @@ the CPU against Pillow 12.1.0 and, through the consumers, against
   in each mode ``ImImagePlugin.OPEN`` maps, its Lut and ``F;n`` bit
   forms; SUN of each depth, raw and RLE, with colour maps; MSP v1 and
   v2; XVThumb; PIXAR; GBR v1 and v2; XBM; XPM in P and RGB; FTEX raw and
-  BC1; IPTC/NAA with and without a band; PCD in each orientation; FLI's
+  BC1; IPTC/NAA with and without a band, raw and with a JPEG of each
+  mode in each file mode; PCD in each orientation; FLI's
   chunks) through the four readers: `read_rgb8` against Pillow's
   ``convert("RGB")``, `read_grey` against the mask path's mode rule,
   `read_image` (Pillow's mode and samples for I;16, I;16B, I;16L, I, F
@@ -208,6 +209,63 @@ def test_iptc_band_merges_into_its_mode(tmp_path):
     path = _write(tmp_path, up.iptc(g, 3, 1, band=5))
     assert _class(lambda: read_rgb8(path)) == "IndexError" == _class(
         lambda: Image.open(path).load())
+
+
+_IPTC_PIC = np.clip(np.add.outer(np.arange(19) * 7, np.arange(27) * 3)
+                    [..., None] * np.array([1, 2, 3]) % 256, 0,
+                    255).astype(np.uint8)
+
+
+def _iptc_jpeg(inner, layers, band, cut=None):
+    bio = io.BytesIO()
+    Image.fromarray(_IPTC_PIC).convert(inner).save(bio, "JPEG", quality=90)
+    data = bio.getvalue()[:cut]
+    return up.iptc_jpeg(data, 27, 19, layers, band)
+
+
+@pytest.mark.parametrize("band", [None, 0, 1, 2, 3, 4, 5])
+@pytest.mark.parametrize("layers", [1, 3, 4])
+@pytest.mark.parametrize("inner", ["L", "RGB", "CMYK"])
+def test_iptc_jpeg_band(inner, layers, band, tmp_path):
+    """An IPTC/NAA file whose 8:10 records hold a JPEG (compression 5) of
+    an L, RGB or CMYK image, in an L, RGB or CMYK file, naming no band or
+    band 0 to 5: Pillow's load opens the records and merges an L image
+    into the file's mode as that band (band 0 the last), raises its
+    ValueError where the image is not L and its IndexError where the
+    band is out of range; an L file takes the image as it is. The port's
+    readers as Pillow's, and the reference's loader and external mask as
+    the port's. (An L file holding a colour JPEG is Pillow's L image over
+    an RGB or CMYK core: its convert("RGB") is the JPEG's, which the port
+    gives, but its L samples are the core's bytes read as L, which
+    read_grey and the external mask do not mimic.)"""
+    from art_tpu.masks import _load_external_mask as ref_mask
+    from art_tpu_torch.masks import load_external_mask
+
+    path = _write(tmp_path, _iptc_jpeg(inner, layers, band), "a.iim")
+    want = _outcome(lambda: np.asarray(Image.open(path).convert("RGB")))
+    got = _outcome(lambda: read_rgb8(path))
+    assert want[0] == got[0]
+    if want[0] != "ok":
+        assert _class(lambda: load_std_image(path)) == want[0]
+        return
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(load_std_image(path).rgb,
+                                  ref_load(path).rgb)
+    if layers == 1 and inner != "L":
+        return
+    check_readers(path)
+    np.testing.assert_array_equal(load_external_mask(path, 30, 40, False),
+                                  ref_mask(path, 30, 40, False))
+
+
+def test_iptc_jpeg_band_cut_short(tmp_path):
+    """A JPEG band cut inside its headers fails Pillow's open of the
+    records (an OSError), one cut in its scan its load (OSError), in the
+    port alike."""
+    for cut in (60, 400):
+        path = _write(tmp_path, _iptc_jpeg("L", 3, 2, cut), "c.iim")
+        assert _class(lambda: read_rgb8(path)) == "OSError" == _class(
+            lambda: Image.open(path).load())
 
 
 def test_pcd_orientation_rotates_the_base_image(tmp_path):

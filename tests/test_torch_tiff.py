@@ -25,6 +25,7 @@ import io
 import json
 import lzma
 import os
+import struct
 import tempfile
 import warnings
 import zlib
@@ -546,6 +547,179 @@ def test_ycbcr_later_strip_has_a_buffer_of_its_own():
     past[273] = (LONG, (8, 1 << 20))
     past[279] = (LONG, (len(top), 50))
     assert check(U.build(past, [top])) == "load"
+
+
+GREY = np.clip(np.add.outer(np.arange(37) * 3, np.arange(45) * 5) % 256
+               + np.random.default_rng(5).integers(-9, 9, (37, 45)), 0,
+               255).astype(np.uint8)
+OJPEG_GREY = {
+    "interchange, photometric 1": (lambda: U.ojpeg_grey(GREY, 1), "ok"),
+    "interchange, photometric 0": (lambda: U.ojpeg_grey(GREY, 0), "ok"),
+    "interchange, photometric 3": (lambda: U.ojpeg_grey(GREY, 3), "ok"),
+    "interchange, photometric 5": (lambda: U.ojpeg_grey(GREY, 5), "ok"),
+    "interchange, photometric 8": (lambda: U.ojpeg_grey(GREY, 8), "ok"),
+    "interchange, photometric 32844": (lambda: U.ojpeg_grey(GREY, 32844),
+                                       "ok"),
+    "tables": (lambda: U.ojpeg_grey(GREY, 1, tables=True), "ok"),
+    "tables, a strip a restart interval": (lambda: U.ojpeg_grey(
+        GREY[:32, :40], 1, tables=True, rows=8, restart=5), "ok"),
+    "a frame sampled 2x2": (lambda: U.ojpeg_grey(GREY, 1,
+                                                 sof_sampling=0x22), "load"),
+    "a frame sampled 1x2": (lambda: U.ojpeg_grey(GREY, 1,
+                                                 sof_sampling=0x12), "load"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(OJPEG_GREY))
+def test_old_style_jpeg_of_one_sample(name, tmp_path):
+    """Old-style JPEG of one sample a pixel under a photometric other than
+    YCbCr (Pillow's L): libjpeg's grey scanlines of tif_ojpeg's stream of
+    one component, from the interchange stream or the tables; a frame
+    sampled other than 1x1 fails tif_ojpeg's header check, as in
+    Pillow."""
+    make, want = OJPEG_GREY[name]
+    assert check_file(make(), tmp_path) == want
+
+
+@pytest.mark.parametrize("photo", [0, 1, 3, 5, 8, 10, 32844])
+def test_old_style_jpeg_of_three_samples_not_ycbcr(photo, tmp_path):
+    """Three samples under old-style JPEG and a photometric that libtiff
+    does not take for YCbCr: Pillow's RGBX rows are wider than libtiff's,
+    so its load fails, as the port's does."""
+    data = bytearray(U.ojpeg_jif(PIC, 0))
+    ifd = struct.unpack_from("<I", data, 4)[0]
+    for i in range(struct.unpack_from("<H", data, ifd)[0]):
+        at = ifd + 2 + 12 * i
+        if struct.unpack_from("<H", data, at)[0] == 262:
+            struct.pack_into("<H", data, at + 8, photo)
+    assert check_file(bytes(data), tmp_path) == "load"
+
+
+YC = [np.random.default_rng(40 + k).integers(0, 256, (21, 31),
+                                             dtype=np.uint8)
+      for k in range(3)]
+
+
+@pytest.mark.parametrize("rows", [None, 4, 5])
+@pytest.mark.parametrize("comp", [8, 5, 32773])
+def test_ycbcr_in_separate_planes(comp, rows, tmp_path):
+    """YCbCr 1x1 in separate planes under deflate, LZW and PackBits, in
+    one strip a plane or several: libtiff's putseparate8bitYCbCr11tile,
+    the same tables as the contiguous form."""
+    assert check_file(U.ycbcr_planar(*YC, comp, rows), tmp_path) == "ok"
+
+
+def test_ycbcr_in_separate_planes_other_forms(tmp_path):
+    """With predictor 2 (each plane's rows summed); subsampled 2x2 or 2x1
+    (no separate put routine: "Can not handle format"); a Cb strip cut
+    short (kept as far as it decoded, zeros after) or past the end of the
+    file (zeros); a Y strip past the end (the load fails)."""
+    assert check_file(U.ycbcr_planar(*YC, 8, 4, predictor=2),
+                      tmp_path) == "ok"
+    for sampling in ((2, 2), (2, 1), (1, 2)):
+        assert check(U.ycbcr_planar(*YC, 8, 4, sampling=sampling)) == "load"
+    data = U.ycbcr_planar(*YC, 8, 8)
+    t = tiff.open_tiff(data)
+    per = len(t.offsets) // 3
+    tags = {256: (U.SHORT, (31,)), 257: (U.SHORT, (21,)),
+            258: (U.SHORT, (8, 8, 8)), 259: (U.SHORT, (8,)),
+            262: (U.SHORT, (6,)), 277: (U.SHORT, (3,)),
+            278: (U.SHORT, (8,)), 284: (U.SHORT, (2,)),
+            530: (U.SHORT, (1, 1))}
+    strips = [data[o : o + n] for o, n in zip(t.offsets, t.counts)]
+    cut = list(strips)
+    cut[per + 1] = cut[per + 1][: len(cut[per + 1]) // 2]
+    assert check(U.build(tags, cut)) == "ok"
+    for k, want in ((per + 1, "ok"), (0, "load"), (1, "load")):
+        far = dict(tags)
+        offs = [o for o in t.offsets]
+        offs[k] = 1 << 20
+        far[273] = (U.LONG, tuple(offs))
+        far[279] = (U.LONG, tuple(t.counts))
+        assert check(U.build(far, strips)) == want, k
+
+
+@pytest.mark.parametrize("hs,vs", SUBSAMPLINGS)
+def test_ycbcr_in_tiles(hs, vs, tmp_path):
+    """YCbCr in tiles (16x16 and 32x16, edge tiles clipped) under deflate
+    and LZW at each subsampling, and with predictor 2 (summed along rows
+    of three bytes a pixel, or left unsummed where a tile is not whole
+    such rows): gtTileContig with the contiguous put routines, or
+    libtiff's failure where the subsampling has none."""
+    rng = np.random.default_rng(hs * 10 + vs + 50)
+    outcomes = set()
+    for tw, th, comp, pred in ((16, 16, 8, 1), (32, 16, 5, 1),
+                               (16, 16, 8, 2)):
+        ch = (-(-21 // vs) + 8, -(-31 // hs) + 8)
+        cb, cr = (rng.integers(0, 256, ch, dtype=np.uint8) for _ in "bc")
+        data = U.ycbcr_tiled(YC[0], cb, cr, hs, vs, tw, th, comp, pred)
+        outcomes.add(check_file(data, tmp_path))
+    assert outcomes == {"ok" if (hs, vs) in tiff._SUBSAMPLINGS else "load"}
+
+
+def test_ycbcr_tiles_damaged(tmp_path):
+    """A tile cut short keeps what its codec wrote, zeros after it (over
+    the tile before it in the row's buffer); a tile past the end of the
+    file reads as zeros, and where it is a row's first fails the load;
+    with predictor 2 a tile that is not whole rows of the predictor stays
+    unsummed."""
+    rng = np.random.default_rng(61)
+    cb, cr = (rng.integers(0, 256, (11, 16), dtype=np.uint8) for _ in "bc")
+    data = U.ycbcr_tiled(YC[0], cb, cr, 2, 2, 16, 16, 8)
+    t = tiff.open_tiff(data)
+    tiles = [data[o : o + n] for o, n in zip(t.offsets, t.counts)]
+    tags = {256: (U.SHORT, (31,)), 257: (U.SHORT, (21,)),
+            258: (U.SHORT, (8, 8, 8)), 259: (U.SHORT, (8,)),
+            262: (U.SHORT, (6,)), 277: (U.SHORT, (3,)),
+            322: (U.SHORT, (16,)), 323: (U.SHORT, (16,)),
+            530: (U.SHORT, (2, 2))}
+    for k in range(len(tiles)):
+        cut = list(tiles)
+        cut[k] = cut[k][: len(cut[k]) // 3]
+        assert check(U.build(tags, cut)) == "ok", k
+        far = dict(tags)
+        offs = list(t.offsets)
+        offs[k] = 1 << 20
+        far[324] = (U.LONG, tuple(offs))
+        far[325] = (U.LONG, tuple(t.counts))
+        assert check(U.build(far, tiles)) == ("load" if k % 2 == 0
+                                              else "ok"), k
+    pred = dict(tags)
+    pred[317] = (U.SHORT, (2,))
+    assert check(U.build(pred, tiles)) == "ok"
+
+
+def test_three_layouts_for_the_consumers(tmp_path):
+    """load_std_image, the Hald CLUT and the external mask from an
+    old-style JPEG grey TIFF, a YCbCr TIFF in separate planes and one in
+    tiles, against the reference."""
+    from art_tpu.color.lut3d import load_hald_clut as ref_hald
+    from art_tpu.io.imagefile import load_std_image as ref_load
+    from art_tpu.masks import _load_external_mask as ref_mask
+    from art_tpu_torch.color.lut3d import load_hald_clut
+    from art_tpu_torch.masks import load_external_mask
+
+    hald = chip_smoke.hald_image(2, 8)
+    cb = np.zeros((8, 8), np.uint8) + 128
+    files = {
+        "ojpeg": U.ojpeg_grey(GREY, 1),
+        "planar": U.ycbcr_planar(*YC, 8, 4),
+        "tiled": U.ycbcr_tiled(YC[0], cb, cb, 1, 1, 16, 16, 5),
+        "hald": U.ycbcr_tiled(hald[..., 1], hald[..., 0], hald[..., 2], 1, 1,
+                              16, 16, 8),
+    }
+    for name, data in files.items():
+        path = str(tmp_path / f"{name}.tif")
+        with open(path, "wb") as f:
+            f.write(data)
+        np.testing.assert_array_equal(load_std_image(path).rgb,
+                                      ref_load(path).rgb)
+        for inverted in (False, True):
+            np.testing.assert_array_equal(
+                load_external_mask(path, 30, 40, inverted),
+                ref_mask(path, 30, 40, inverted))
+    path = str(tmp_path / "hald.tif")
+    np.testing.assert_array_equal(load_hald_clut(path), ref_hald(path))
 
 
 def test_uncompressed_ycbcr_is_pillows_raw_rgbx(tmp_path):

@@ -192,6 +192,23 @@ def iptc(arr, layers=1, component=0, band=None, compression=1,
     return out
 
 
+def iptc_jpeg(data, w, h, layers=3, band=None, chunks=2):
+    """An IPTC/NAA file whose 8:10 records hold the image `data` (a JPEG,
+    say) under compression 5, for an image of `layers` layers (1: L)
+    naming `band` (3:65) where given."""
+    def field(rec, ds, body):
+        return bytes([0x1C, rec, ds]) + struct.pack(">H", len(body)) + body
+    out = field(3, 60, bytes([layers, int(layers > 1)])) + \
+        field(3, 20, struct.pack(">H", w)) + \
+        field(3, 30, struct.pack(">H", h)) + field(3, 120, bytes([5]))
+    if band is not None:
+        out += field(3, 65, bytes([band]))
+    step = -(-len(data) // chunks)
+    for i in range(0, len(data), step):
+        out += field(8, 10, data[i : i + step])
+    return out
+
+
 def _chunk(kind, payload):
     return struct.pack("<IH", 6 + len(payload), kind) + payload
 

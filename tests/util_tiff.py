@@ -441,3 +441,125 @@ def ycbcr_blocks(y, cb, cr, hs, vs):
     lum = np.moveaxis(lum.reshape(br, vs, bw, hs), 2, 1).reshape(br, bw, -1)
     return np.concatenate([lum, cb[:br, :bw, None], cr[:br, :bw, None]],
                           axis=2).reshape(br, -1)
+
+
+def ojpeg_grey(grey, photo=1, tables=False, rows=None, restart=0,
+               sof_sampling=None):
+    """Old-style JPEG of one sample a pixel under photometric `photo`: a
+    Pillow JPEG of the grey plane at JPEGInterchangeFormat, or (tables)
+    rebuilt from one table of each kind, the strips its entropy data (one
+    a restart interval of `restart` MCUs where given). sof_sampling
+    rewrites the interchange frame's sampling byte."""
+    import io
+
+    from PIL import Image
+
+    h, w = grey.shape
+    bio = io.BytesIO()
+    kw = {"restart_marker_blocks": restart} if restart else {}
+    Image.fromarray(grey).save(bio, "JPEG", quality=85, **kw)
+    j = bio.getvalue()
+    base = {256: (SHORT, (w,)), 257: (SHORT, (h,)), 258: (SHORT, (8,)),
+            259: (SHORT, (6,)), 262: (SHORT, (photo,)), 277: (SHORT, (1,))}
+    if not tables:
+        if sof_sampling is not None:
+            at = j.index(b"\xff\xc0")
+            j = j[: at + 11] + bytes([sof_sampling]) + j[at + 12 :]
+        tags = dict(base)
+        tags.update({278: (SHORT, (rows or h,)), 513: (LONG, (0,)),
+                     514: (LONG, (len(j),))})
+        tags[513] = (LONG, (_first_offset(build(tags, [j])),))
+        return build(tags, [j])
+    parts, _, ent = _jpeg_parts(j)
+    strips = [ent]
+    if restart:
+        strips, cur, i = [], bytearray(), 0
+        while i < len(ent):
+            if ent[i] == 0xFF and i + 1 < len(ent) and \
+                    0xD0 <= ent[i + 1] <= 0xD7:
+                strips.append(bytes(cur))
+                cur, i = bytearray(), i + 2
+                continue
+            cur.append(ent[i])
+            i += 1
+        strips.append(bytes(cur))
+    blob, at = bytearray(), {}
+    for k in (("q", 0), ("h", 0x00), ("h", 0x10)):
+        at[k] = 8 + len(blob)
+        blob += parts[k]
+    blob += b"\0" * (len(blob) % 2)
+    offs, p = [], 8 + len(blob)
+    for s in strips:
+        offs.append(p)
+        p += len(s) + len(s) % 2
+    tags = dict(base)
+    tags.update({278: (SHORT, (rows or h,)), 512: (SHORT, (1,)),
+                 519: (LONG, (at["q", 0],)), 520: (LONG, (at["h", 0x00],)),
+                 521: (LONG, (at["h", 0x10],)), 273: (LONG, tuple(offs)),
+                 279: (LONG, tuple(map(len, strips)))})
+    if restart:
+        tags[515] = (SHORT, (restart,))
+    return build(tags, [bytes(blob)] + strips)
+
+
+def _squeeze(raw, comp):
+    import zlib
+
+    if comp == 8:
+        return zlib.compress(raw)
+    if comp == 5:
+        return lzw(raw)
+    if comp == 32773:
+        return packbits(raw)
+    return raw
+
+
+def ycbcr_planar(y, cb, cr, comp=8, rows=None, predictor=1, sampling=(1, 1)):
+    """YCbCr in separate planes (PlanarConfiguration 2): each of Y, Cb and
+    Cr stored in strips of `rows` rows under compression `comp`."""
+    h, w = y.shape
+    rows = rows or h
+    strips = []
+    for plane in (y, cb, cr):
+        for r in range(0, plane.shape[0], rows):
+            part = plane[r : r + rows]
+            if predictor == 2:
+                part = predict_horizontal(part[..., None])[..., 0]
+            strips.append(_squeeze(np.ascontiguousarray(part).tobytes(),
+                                   comp))
+    tags = {256: (SHORT, (w,)), 257: (SHORT, (h,)),
+            258: (SHORT, (8, 8, 8)), 259: (SHORT, (comp,)),
+            262: (SHORT, (6,)), 277: (SHORT, (3,)), 278: (SHORT, (rows,)),
+            284: (SHORT, (2,)), 530: (SHORT, sampling)}
+    if predictor != 1:
+        tags[317] = (SHORT, (predictor,))
+    return build(tags, strips)
+
+
+def ycbcr_tiled(y, cb, cr, hs, vs, tw=16, th=16, comp=8, predictor=1):
+    """YCbCr (contiguous, subsampled hs x vs) in tiles of tw x th: each
+    tile's packed blocks, edge tiles padded to the whole tile; the
+    Predictor tag set to `predictor` over the blocks as they are."""
+    h, w = y.shape
+    tiles = []
+    for ty in range(0, h, th):
+        for tx in range(0, w, tw):
+            ty_ = np.zeros((th, tw), np.uint8)
+            part = y[ty : ty + th, tx : tx + tw]
+            ty_[: part.shape[0], : part.shape[1]] = part
+            bh, bw = (th + vs - 1) // vs, (tw + hs - 1) // hs
+            cbt = np.zeros((bh, bw), np.uint8)
+            crt = np.zeros((bh, bw), np.uint8)
+            pc = cb[ty // vs : ty // vs + bh, tx // hs : tx // hs + bw]
+            cbt[: pc.shape[0], : pc.shape[1]] = pc
+            pc = cr[ty // vs : ty // vs + bh, tx // hs : tx // hs + bw]
+            crt[: pc.shape[0], : pc.shape[1]] = pc
+            tiles.append(_squeeze(ycbcr_blocks(ty_, cbt, crt, hs, vs)
+                                  .tobytes(), comp))
+    tags = {256: (SHORT, (w,)), 257: (SHORT, (h,)),
+            258: (SHORT, (8, 8, 8)), 259: (SHORT, (comp,)),
+            262: (SHORT, (6,)), 277: (SHORT, (3,)), 322: (SHORT, (tw,)),
+            323: (SHORT, (th,)), 530: (SHORT, (hs, vs))}
+    if predictor != 1:
+        tags[317] = (SHORT, (predictor,))
+    return build(tags, tiles)
