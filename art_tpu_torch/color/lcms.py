@@ -4,44 +4,41 @@ profile to LittleCMS's built-in sRGB, perceptual intent, as the reference's
 ``ImageCms.profileToProfile(img.convert("RGB"), ImageCmsProfile(icc),
 ImageCms.createProfile("sRGB"))`` (RGB in and out, 8 bits a sample).
 
-A numpy model of the C code, with no LittleCMS to call:
+A numpy model of the C code, with no LittleCMS to call, bit-equal to
+Pillow's on every profile class it links:
 
 - the built-in sRGB (``cmsCreate_sRGBProfile``): D65 and the Rec. 709
   primaries Bradford-adapted to D50 in double precision
   (``_cmsBuildRGB2XYZtransferMatrix``), and the parametric type-4 curve,
   reversed analytically for output;
 - the source profile's header, tag directory and tags read as
-  ``cmsOpenProfileFromMem`` and ``cmsReadTag`` read them (XYZ, ``curv``,
-  ``para``);
-- a matrix/TRC source (``cmsopt.c``): the two matrices joined
-  (``_MultiplyMatrix``), then ``OptimizeMatrixShaper``'s 8-bit evaluator:
-  a 256-entry input shaper in 1.14 fixed point, the matrix in 1.14,
+  ``cmsOpenProfileFromMem`` and ``cmsReadTag`` read them;
+- the link (``cmscnvrt.c``): the source's input table
+  (``_cmsReadInputLUT``: a float D2B0 in preference to the A2B0, else the
+  matrix and TRCs; a device link's or an abstract profile's own table by
+  ``_cmsReadDevicelinkLUT``), black point compensation as the v4 sRGB
+  forces it in perceptual (``cmsDetectBlackPoint`` of the source, a
+  matrix and offset where the blacks differ), the sRGB's output matrix
+  and reversed curves; the stages in LittleCMS's own arithmetic
+  (``color/lcms_stages.py``, ``color/lcms_mpe.py``), then PreOptimize;
+- the 8-bit transform ``cmsopt.c`` makes of it: ``OptimizeMatrixShaper``
+  (a 256-entry input shaper in 1.14 fixed point, the matrix in 1.14,
   ``(sum + 0x2000) >> 14`` clipped to 0..16384, a 16385-entry output
-  shaper to 8 bits, in integers, bit for bit. A sampled ``curv``
-  evaluates through LittleCMS's
-  16-bit linear interpolation, a parametric curve through the C library's
-  ``pow`` (Python's ``math.pow`` calls it);
-- a LUT-class source (an A2B0 of type ``mft1``, ``mft2`` or ``mAB``):
-  the joined pipeline in float (the tag through the port's stages,
-  ``color/icclut.py``; black point compensation as LittleCMS forces it
-  for the v4 sRGB in perceptual; the sRGB output in float), then
-  ``cmsopt.c``'s resampling for 8-bit RGB: the prelinearisation curves
-  of ``OptimizeByComputingLinearization`` (a 4096-entry grey ramp,
-  slope-limited and reversed), a 33^3 16-bit CLUT sampled through them,
-  the white node patched (``FixWhiteMisalignment``), and ``PrelinEval8``'s
-  tetrahedral interpolation in LittleCMS's fixed point; where the curves
-  are not monotonic, ``OptimizeByResampling``'s plain CLUT. Within one
-  8-bit code of Pillow's LittleCMS (``tests/test_torch_stdimage.py``):
-  the float pipeline's last bit differs now and then at a CLUT node.
+  shaper to 8 bits, in integers), else ``OptimizeByComputingLinearization``
+  (three 4096-entry prelinearisation curves from a grey ramp,
+  slope-limited and reversed, a 33^3 16-bit CLUT sampled through them,
+  the white node patched, ``PrelinEval8``), else ``OptimizeByResampling``
+  (the CLUT alone, ``TetrahedralInterp16``).
 
-`Refused` marks a profile LittleCMS refuses (it cannot open the profile,
-or cannot link it: a grey or CMYK profile on an RGB image, a tag missing
-or cut off): Pillow raises, and the reference leaves the image as it was.
-A profile LittleCMS would link but this model does not cover (a device
-link, a float D2B0 tag, black point compensation of a matrix source, a
-LUT tag the port does not parse, an A2B0 curve whose table the port's
-curve refit misses by more than `LUT_CURVE_TOL`) raises NotImplementedError
-naming it.
+`Refused` marks a profile or link LittleCMS refuses: Pillow raises, and
+the reference leaves the image as it was (a profile it cannot open, a
+grey or CMYK profile on an RGB image, a tag missing, cut off or of a
+type the tag may not have, a device link to anything but Lab or XYZ, a
+named-colour profile, an abstract profile or one whose connection space
+is RGB). NotImplementedError is left only where Pillow is not reached
+here: a CLUT of other than three inputs inside an RGB profile's table,
+and the joined-curves optimisation, which no profile's s15.16 colorants
+reach (``tests/test_torch_lcms.py``).
 """
 
 from __future__ import annotations
@@ -52,11 +49,13 @@ import struct
 
 import numpy as np
 
-MAX_ENCODEABLE_XYZ = 1.0 + 32767.0 / 32768.0
+from art_tpu_torch.color import lcms_stages as ls
+from art_tpu_torch.color.lcms_stages import (
+    D50, MATRIX_DET_TOLERANCE, MAX_ENCODEABLE_XYZ, from_16_to_8, lin_lerp16,
+    quick_saturate_word, to_fixed_domain)
+
 INP_ADJ = 1.0 / MAX_ENCODEABLE_XYZ
 OUTP_ADJ = MAX_ENCODEABLE_XYZ
-D50 = (0.9642, 1.0, 0.8249)
-MATRIX_DET_TOLERANCE = 0.0001
 MAX_TABLE_TAG = 100
 # cmsPERCEPTUAL_BLACK_X/Y/Z: the v4 perceptual reference medium black
 PERCEPTUAL_BLACK = (0.00336, 0.0034731, 0.00287)
@@ -140,110 +139,9 @@ def srgb_colorants():
     return mat3_per(_adaptation(white, D50), r)
 
 
-# -- numbers and curves (lcms2_internal.h, cmsgamma.c, cmsintrp.c) ----------
-
-def quick_floor(v):
-    """_cmsQuickFloor: the double's 16.16 fixed-point image after adding
-    1.5 * 2^36 (so rounded to 2^-16 first), floored."""
-    t = np.asarray(v, np.float64) + 103079215104.0
-    low = (t.view(np.int64) & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
-    return low >> 16
-
-
-def quick_saturate_word(d):
-    """_cmsQuickSaturateWord of doubles -> int64 in 0..65535."""
-    d = np.asarray(d, np.float64) + 0.5
-    w = (quick_floor(d - 32767.0).astype(np.int64) + 32767) & 0xFFFF
-    return np.where(d <= 0, 0, np.where(d >= 65535.0, 0xFFFF, w))
-
-
-def from_16_to_8(w):
-    return ((np.asarray(w, np.int64) * 65281 + 8388608) >> 24) & 0xFF
-
-
-def lin_lerp16(v, table):
-    """LinLerp1D: a 16-bit table at 16-bit inputs (int64 arrays)."""
-    table = np.asarray(table, np.int64)
-    v = np.asarray(v, np.int64)
-    n1 = len(table) - 1
-    if n1 == 0:
-        return np.full(v.shape, table[0], np.int64)
-    a = n1 * v
-    val3 = a + (a + 0x7FFF) // 0xFFFF
-    cell0 = np.minimum(val3 >> 16, n1 - 1)
-    rest = val3 & 0xFFFF
-    y0 = table[cell0]
-    y1 = table[cell0 + 1]
-    dif = ((((y1 - y0) % (1 << 32)) * rest + 0x8000) % (1 << 32)) >> 16
-    out = ((dif + y0) % (1 << 32)) & 0xFFFF
-    return np.where(v == 0xFFFF, table[n1], out)
-
-
-def _pow(a, b):
-    """C's pow (glibc), with its inf and nan where Python raises."""
-    try:
-        return math.pow(a, b)
-    except ZeroDivisionError:
-        return math.inf
-    except (ValueError, OverflowError):
-        return math.nan if a < 0 else math.inf
-
-
-def eval_parametric(kind, p, r):
-    """DefaultEvalParametricFn for the types a profile's TRC can take
-    (1-5) and the reversed sRGB curve (-4), at one double."""
-    if kind == 1:
-        if r < 0:
-            return r if abs(p[0] - 1.0) < MATRIX_DET_TOLERANCE else 0.0
-        return _pow(r, p[0])
-    if kind == 2:
-        if abs(p[1]) < MATRIX_DET_TOLERANCE:
-            return 0.0
-        if r >= -p[2] / p[1]:
-            e = p[1] * r + p[2]
-            return _pow(e, p[0]) if e > 0 else 0.0
-        return 0.0
-    if kind == 3:
-        if abs(p[1]) < MATRIX_DET_TOLERANCE:
-            return 0.0
-        disc = max(-p[2] / p[1], 0.0)
-        if r >= disc:
-            e = p[1] * r + p[2]
-            return _pow(e, p[0]) + p[3] if e > 0 else 0.0
-        return p[3]
-    if kind == 4:
-        if r >= p[4]:
-            e = p[1] * r + p[2]
-            return _pow(e, p[0]) if e > 0 else 0.0
-        return r * p[3]
-    if kind == 5:
-        if r >= p[4]:
-            e = p[1] * r + p[2]
-            return _pow(e, p[0]) + p[5] if e > 0 else p[5]
-        return r * p[3] + p[6]
-    if kind == -4:
-        e = p[1] * p[4] + p[2]
-        disc = 0.0 if e < 0 else _pow(e, p[0])
-        if r >= disc:
-            if abs(p[0]) < MATRIX_DET_TOLERANCE or \
-                    abs(p[1]) < MATRIX_DET_TOLERANCE:
-                return 0.0
-            return (_pow(r, 1.0 / p[0]) - p[2]) / p[1]
-        return 0.0 if abs(p[3]) < MATRIX_DET_TOLERANCE else r / p[3]
-    raise NotImplementedError(f"parametric curve type {kind}")
-
-
-def eval_float(curve, v):
-    """cmsEvalToneCurveFloat at float32 inputs -> float32: a sampled
-    curve through 16 bits (its table, LinLerp1D), a parametric one in
-    double (EvalSegmentedFn)."""
-    v = np.asarray(v, np.float32)
-    if curve[0] == "table":
-        w = quick_saturate_word(v.astype(np.float64) * 65535.0)
-        return (lin_lerp16(w, curve[1]) / 65535.0).astype(np.float32)
-    kind, p = curve[1], curve[2]
-    flat = [eval_parametric(kind, p, float(x)) for x in v.ravel()]
-    return np.asarray(flat, np.float64).astype(np.float32).reshape(v.shape)
+def _as_curve(c):
+    """A ``curv``/``para`` reading as a `lcms_stages` curve."""
+    return ls.param_curve(c[1], c[2]) if c[0] == "param" else c
 
 
 SRGB_INVERSE = ("param", -4, SRGB_PARAMS)
@@ -253,11 +151,16 @@ SRGB_INVERSE = ("param", -4, SRGB_PARAMS)
 
 _DEVICE_CLASSES = {b"\0\0\0\0", b"scnr", b"mntr", b"prtr", b"link", b"abst",
                    b"spac", b"nmcl"}
+_LUT_TYPES = (b"mft1", b"mft2", b"mAB ")
 _TAG_TYPES = {b"rXYZ": (b"XYZ ",), b"gXYZ": (b"XYZ ",), b"bXYZ": (b"XYZ ",),
               b"rTRC": (b"curv", b"para"), b"gTRC": (b"curv", b"para"),
               b"bTRC": (b"curv", b"para"),
-              b"A2B0": (b"mft1", b"mft2", b"mAB ")}
+              b"A2B0": _LUT_TYPES, b"A2B1": _LUT_TYPES, b"A2B2": _LUT_TYPES,
+              b"D2B0": (b"mpet",), b"D2B1": (b"mpet",), b"D2B2": (b"mpet",)}
 _PARA_COUNTS = {0: 1, 1: 3, 2: 4, 3: 5, 4: 7}
+_A2B = (b"A2B0", b"A2B1", b"A2B2", b"A2B1")  # Device2PCS16
+_D2B = (b"D2B0", b"D2B1", b"D2B2", b"D2B3")  # Device2PCSFloat
+_PCS_SPACES = (b"XYZ ", b"Lab ")
 
 
 class Profile:
@@ -301,13 +204,16 @@ class Profile:
                 raise Refused("duplicated tag")
             self.tags[sig] = (off, n)
 
-    def tag_type(self, sig):
-        off, _ = self.tags[sig]
-        return self.data[off : off + 4]
+    def is_matrix_shaper(self):
+        """cmsIsMatrixShaper of an RGB profile: all six tags present."""
+        return self.color_space == b"RGB " and all(
+            s in self.tags for s in (b"rXYZ", b"gXYZ", b"bXYZ", b"rTRC",
+                                     b"gTRC", b"bTRC"))
 
     def read(self, sig):
-        """cmsReadTag for the tags this model reads: the parsed tag, or
-        None where LittleCMS's read fails."""
+        """cmsReadTag for the tags this model reads: the parsed tag (a
+        LUT tag as (stages, its type)), or None where LittleCMS's read
+        fails."""
         if sig not in self.tags:
             return None
         off, n = self.tags[sig]
@@ -339,37 +245,253 @@ class Profile:
                 k = _PARA_COUNTS[kind]
                 vals = struct.unpack(f">{k}i", body[4 : 4 + 4 * k])
                 return ("param", kind + 1, tuple(v / 65536.0 for v in vals))
-        except struct.error:
+            st, _, _, typ = ls.read_lut_tag(self.data, off)
+            return st, typ
+        except (struct.error, ValueError):
             return None
-        return self.data[off : off + n]
 
 
-# -- the transform -------------------------------------------------------
+# -- reading a profile's table (cmsio1.c) ------------------------------------
 
-def _srgb_output_matrix():
-    """BuildRGBOutputMatrixShaper's matrix: the inverse colorants,
-    times OutpAdj."""
+def _read_lut(prof, sig):
+    got = prof.read(sig)
+    if got is None:
+        raise Refused(f"cannot read the {sig.decode('latin-1')} tag")
+    return got
+
+
+def _float_tag(prof, sig):
+    """_cmsReadFloatInputTag / _cmsReadFloatDevicelinkTag: the tag
+    between its spaces' float normalisers."""
+    st, _ = _read_lut(prof, sig)
+    if prof.color_space == b"Lab ":
+        st.insert(0, ls.normalize_to_lab_float())
+    elif prof.color_space == b"XYZ ":
+        st.insert(0, ls.normalize_to_xyz_float())
+    if prof.pcs == b"Lab ":
+        st.append(ls.normalize_from_lab_float())
+    elif prof.pcs == b"XYZ ":
+        st.append(ls.normalize_from_xyz_float())
+    return st
+
+
+def _matrix_shaper_input(prof):
+    """BuildRGBInputMatrixShaper: the TRCs, the colorants times InpAdj,
+    XYZ to Lab for a Lab PCS."""
+    cols = [prof.read(s) for s in (b"rXYZ", b"gXYZ", b"bXYZ")]
+    curves = [prof.read(s) for s in (b"rTRC", b"gTRC", b"bTRC")]
+    if any(c is None for c in cols + curves):
+        raise Refused("cannot build the matrix-shaper input")
+    m = [[cols[j][i] * INP_ADJ for j in range(3)] for i in range(3)]
+    st = [ls.Curves([_as_curve(c) for c in curves]), ls.Matrix(3, 3, m)]
+    if prof.pcs == b"Lab ":
+        st.append(ls.XYZ2Lab())
+    return st
+
+
+def input_lut(prof, intent=0):
+    """_cmsReadInputLUT of a profile that is not a named-colour one."""
+    if prof.color_space == b"GRAY":
+        raise Refused("grey profile")
+    if _D2B[intent] in prof.tags:
+        return _float_tag(prof, _D2B[intent])
+    tag = _A2B[intent] if _A2B[intent] in prof.tags else b"A2B0"
+    if tag in prof.tags:
+        st, typ = _read_lut(prof, tag)
+        if typ != b"mft2" or prof.pcs != b"Lab ":
+            return st
+        if prof.color_space == b"Lab ":
+            st.insert(0, ls.lab_v4_to_v2())
+        return st + [ls.lab_v2_to_v4()]
+    return _matrix_shaper_input(prof)
+
+
+def devicelink_lut(prof, intent=0):
+    """_cmsReadDevicelinkLUT of a device link or an abstract profile."""
+    if _D2B[intent] in prof.tags:
+        return _float_tag(prof, _D2B[intent])
+    if b"D2B0" in prof.tags:
+        return _read_lut(prof, b"D2B0")[0]
+    tag = _A2B[intent] if _A2B[intent] in prof.tags else b"A2B0"
+    if tag not in prof.tags:
+        raise Refused("no device link table")
+    st, typ = _read_lut(prof, tag)
+    if prof.pcs == b"Lab ":  # ChangeInterpolationToTrilinear
+        for s in st:
+            if s.type == "clut":
+                s.trilinear = True
+    if typ != b"mft2":
+        return st
+    if prof.color_space == b"Lab ":
+        st.insert(0, ls.lab_v4_to_v2())
+    if prof.pcs == b"Lab ":
+        st.append(ls.lab_v2_to_v4())
+    return st
+
+
+def _srgb_input():
+    """The built-in sRGB read for input: its curves, its colorants."""
+    m = [[v * INP_ADJ for v in row] for row in srgb_colorants()]
+    return [ls.Curves([_as_curve(("param", 4, SRGB_PARAMS))] * 3),
+            ls.Matrix(3, 3, m)]
+
+
+def _srgb_output():
+    """BuildRGBOutputMatrixShaper of the built-in sRGB."""
     inv = mat3_inverse(srgb_colorants())
-    return tuple(tuple(v * OUTP_ADJ for v in row) for row in inv)
+    m = [[v * OUTP_ADJ for v in row] for row in inv]
+    return [ls.Matrix(3, 3, m),
+            ls.Curves([_as_curve(SRGB_INVERSE)] * 3)]
+
+
+# -- black points (cmssamp.c) ------------------------------------------------
+
+def _lab2xyz(L, a, b):
+    """cmsLab2XYZ against D50 in double."""
+    y = (L + 16.0) / 116.0
+    x = y + 0.002 * a
+    z = y - 0.005 * b
+
+    def f1(t):
+        return t * t * t if t > 24.0 / 116.0 else \
+            (108.0 / 841.0) * (t - 16.0 / 116.0)
+
+    return (f1(x) * D50[0], f1(y) * D50[1], f1(z) * D50[2])
+
+
+def _black_of(stages, pcs):
+    """BlackPointAsDarkerColorant's transform to a Lab identity (Lab
+    double out, no optimisation) at the zero colorant: the PCS to Lab,
+    then PreOptimize; L outside 0..50 read as 0, a = b = 0, to XYZ."""
+    st = list(stages)
+    if pcs == b"XYZ ":
+        st.append(ls.XYZ2Lab())
+    st = ls.pre_optimize(st)
+    out = ls.eval_float(st, np.zeros((1, 3), np.float32))[0]
+    L = float(out[0]) * 100.0
+    if L > 50 or L < 0:
+        L = 0.0
+    return _lab2xyz(L, 0.0, 0.0)
+
+
+def _black_darker(prof, intent):
+    """BlackPointAsDarkerColorant of an RGB profile."""
+    if not (_A2B[intent] in prof.tags or prof.is_matrix_shaper()):
+        return (0.0, 0.0, 0.0)  # cmsIsIntentSupported
+    try:
+        st = input_lut(prof, intent)
+    except Refused:
+        return (0.0, 0.0, 0.0)
+    if prof.pcs not in _PCS_SPACES:
+        return (0.0, 0.0, 0.0)
+    try:
+        if ls.check_chain(st, 3, 3) != (3, 3):
+            return (0.0, 0.0, 0.0)
+    except ValueError:
+        return (0.0, 0.0, 0.0)
+    return _black_of(st, prof.pcs)
+
+
+def detect_black_point(prof, intent=0):
+    """cmsDetectBlackPoint of a source profile, perceptual or relative."""
+    if prof.device_class in (b"link", b"abst", b"nmcl"):
+        return (0.0, 0.0, 0.0)
+    if prof.version >= 0x4000000 and intent in (0, 2):
+        if prof.is_matrix_shaper():
+            return _black_darker(prof, 1)
+        return PERCEPTUAL_BLACK
+    return _black_darker(prof, intent)
 
 
 @functools.lru_cache(maxsize=None)
-def _srgb_second_shaper():
-    """FillSecondShaper of the reversed sRGB curve for 8-bit output: the
-    byte each of 16385 1.14 values gives (the table holds it times 257,
-    the optimised packer keeps the low byte)."""
-    r = (np.arange(16385, dtype=np.float64) / 16384.0).astype(np.float32)
-    val = eval_float(SRGB_INVERSE, r).astype(np.float64)
-    val = np.clip(val, 0.0, 1.0)
-    return from_16_to_8(quick_saturate_word(val * 65535.0)).astype(np.uint8)
+def srgb_black_point():
+    """cmsDetectDestinationBlackPoint of the built-in sRGB, perceptual: a
+    v4 matrix-shaper, so its relative black through its own input."""
+    return _black_of(_srgb_input(), b"XYZ ")
 
+
+def bpc_conversion(black_in, black_out):
+    """ComputeConversion's black point compensation: (m, off), the
+    offset over MAX_ENCODEABLE_XYZ; None for an empty layer
+    (IsEmptyLayer: the entries' distance from the identity below
+    0.002)."""
+    m = np.eye(3)
+    off = np.zeros(3)
+    if tuple(black_in) != tuple(black_out):
+        for k in range(3):
+            t = black_in[k] - D50[k]
+            m[k, k] = (black_out[k] - D50[k]) / t
+            off[k] = -D50[k] * (black_out[k] - black_in[k]) / t
+    off = off / MAX_ENCODEABLE_XYZ
+    diff = 0.0
+    for v in (m - np.eye(3)).ravel():
+        diff += abs(v)
+    for v in off:
+        diff += abs(v)
+    return None if diff < 0.002 else (m, off)
+
+
+# -- the link (cmscnvrt.c, cmsxform.c) ---------------------------------------
+
+def link(prof):
+    """The pipeline ``cmsCreateTransform(prof, RGB_8, sRGB, RGB_8,
+    PERCEPTUAL, 0)`` links, before optimisation: `Refused` where the
+    transform cannot be created."""
+    cls, cs, pcs = prof.device_class, prof.color_space, prof.pcs
+    # GetXFormColorSpaces, IsProperColorSpace
+    if cls == b"nmcl":
+        raise Refused("wrong input color space on transform (named colour)")
+    entry, post = (cs, pcs) if cs not in _PCS_SPACES or cls == b"link" \
+        else (pcs, cs)
+    if entry != b"RGB ":
+        raise Refused("wrong input color space on transform")
+    if post not in _PCS_SPACES:
+        raise Refused("wrong output color space on transform")
+    # DefaultICCintents: the source, then sRGB for output from a PCS
+    # (black point compensation forced by its v4) or else for input
+    if cls in (b"link", b"abst"):
+        st, black = devicelink_lut(prof), (0.0, 0.0, 0.0)
+    else:
+        st, black = input_lut(prof), None
+    if pcs in _PCS_SPACES:
+        if black is None:
+            black = detect_black_point(prof)
+        if pcs == b"Lab ":
+            st.append(ls.Lab2XYZ())
+        bpc = bpc_conversion(black, srgb_black_point())
+        if bpc is not None:
+            st.append(ls.Matrix(3, 3, bpc[0], bpc[1]))
+        st += _srgb_output()
+    elif pcs == b"RGB ":
+        st += _srgb_input()
+    else:
+        raise Refused("colorspace mismatch")
+    try:
+        chans = ls.check_chain(st, 3, 3)
+    except ValueError:
+        raise Refused("cannot link the profiles") from None
+    if chans != (3, 3):
+        raise Refused("channel count doesn't match")
+    return st
+
+
+# -- the 8-bit transform (cmsopt.c) ------------------------------------------
 
 def _first_shaper(curve):
     """FillFirstShaper: 256 entries of 1.14 fixed point."""
     r = (np.arange(256, dtype=np.float64) / 255.0).astype(np.float32)
-    y = eval_float(curve, r).astype(np.float64)
+    y = ls.curve_float(curve, r).astype(np.float64)
     return np.where(y < 131072.0, np.floor(y * 16384.0 + 0.5),
                     0x7FFFFFFF).astype(np.int64)
+
+
+def _second_shaper(curve):
+    """FillSecondShaper for 8-bit output: the byte each of 16385 1.14
+    values gives (the table holds it times 257, the optimised packer
+    keeps the low byte)."""
+    r = (np.arange(16385, dtype=np.float64) / 16384.0).astype(np.float32)
+    val = np.clip(ls.curve_float(curve, r).astype(np.float64), 0.0, 1.0)
+    return from_16_to_8(quick_saturate_word(val * 65535.0)).astype(np.uint8)
 
 
 def _fixed14(x):
@@ -377,54 +499,49 @@ def _fixed14(x):
 
 
 class MatrixShaper:
-    """The optimised 8-bit transform of a matrix/TRC source."""
+    """OptimizeMatrixShaper's 8-bit evaluator (MatShaperEval16): input
+    shapers, the matrix and its offset in 1.14 (the offset added to the
+    1.28 sums, as LittleCMS adds it), output shapers."""
 
-    def __init__(self, colorants, curves):
-        m_in = tuple(tuple(v * INP_ADJ for v in row) for row in colorants)
-        res = mat3_per(_srgb_output_matrix(), m_in)  # _MultiplyMatrix
-        # a product within 1/65535 of the identity would join the two
-        # curves instead (OptimizeByJoiningCurves); no profile's 15.16
-        # colorants come that close to the built-in sRGB's doubles (the
-        # nearest lattice point is 1.9e-5 off), so that path is not modelled
-        if all(abs((i == j) - res[i][j]) < 1.0 / 65535.0
-               for i in range(3) for j in range(3)):
-            raise NotImplementedError(
-                "ICC profile whose colorants join sRGB's to the identity "
-                "(LittleCMS's joined-curves path)")
-        shaper1 = [_first_shaper(c) for c in curves]
-        # MatShaperEval16's sums, Mat[i][k] * Shaper1k[v] (+ 0x2000 in
-        # the first term), tabulated per input byte
-        self.terms = [[_fixed14(res[i][k]) * shaper1[k] + (0x2000 if k == 0
-                                                           else 0)
+    def __init__(self, curves1, mat, off, curves2):
+        shaper1 = [_first_shaper(c) for c in curves1]
+        # Mat[i][k] * Shaper1k[v] (+ Off[i] + 0x2000 in the first term),
+        # tabulated per input byte
+        self.terms = [[_fixed14(mat[i][k]) * shaper1[k]
+                       + ((0x2000 + (0 if off is None else _fixed14(off[i])))
+                          if k == 0 else 0)
                        for k in range(3)] for i in range(3)]
-        self.shaper2 = _srgb_second_shaper()
+        self.shaper2 = [_second_shaper(c) for c in curves2]
 
     def __call__(self, rgb8):
         out = np.empty(rgb8.shape, np.uint8)
         for i, (tr, tg, tb) in enumerate(self.terms):
             lv = (tr[rgb8[..., 0]] + tg[rgb8[..., 1]] + tb[rgb8[..., 2]]) >> 14
-            out[..., i] = self.shaper2[np.clip(lv, 0, 16384)]
+            out[..., i] = self.shaper2[i][np.clip(lv, 0, 16384)]
         return out
 
 
-def _lab_black_to_xyz(xyz):
-    """BlackPointAsDarkerColorant's last steps: XYZ -> Lab, L above 95
-    read as 0, a = b = 0, L clipped to 50, back to XYZ (D50)."""
-    def f(t):
-        return (841.0 / 108.0) * t + 16.0 / 116.0 \
-            if t <= (24.0 / 116.0) ** 3 else t ** (1.0 / 3.0)
-
-    L = 116.0 * f(xyz[1] / D50[1]) - 16.0
-    if L > 95:
-        L = 0.0
-    L = min(L, 50.0)
-    fy = (L + 16.0) / 116.0
-
-    def f1(t):
-        return t * t * t if t > 24.0 / 116.0 else \
-            108.0 / 841.0 * (t - 16.0 / 116.0)
-
-    return (D50[0] * f1(fy), D50[1] * f1(fy), D50[2] * f1(fy))
+def _matrix_shaper(st):
+    """OptimizeMatrixShaper's patterns: curves, matrix, curves; or
+    curves, matrix without offset, matrix, curves (joined). (curves1,
+    matrix, offset, curves2, identity?) or None."""
+    types = [s.type for s in st]
+    if types == ["cvst", "matf", "matf", "cvst"]:
+        m1, m2 = st[1], st[2]
+        if any((m.n_in, m.n_out) != (3, 3) for m in (m1, m2)) or \
+                m1.off is not None:
+            return None
+        res = mat3_per(tuple(map(tuple, m2.m)), tuple(map(tuple, m1.m)))
+        off = m2.off
+    elif types == ["cvst", "matf", "cvst"]:
+        if (st[1].n_in, st[1].n_out) != (3, 3):
+            return None
+        res, off = tuple(map(tuple, st[1].m)), st[1].off
+    else:
+        return None
+    ident = off is None and all(abs(res[i][j] - (i == j)) < 1.0 / 65535.0
+                                for i in range(3) for j in range(3))
+    return st[0].curves, res, off, st[-1].curves, ident
 
 
 PRELIN_POINTS = 4096  # PRELINEARIZATION_POINTS (cmsopt.c)
@@ -525,196 +642,77 @@ def reverse_curve(t, n_out):
     return np.where(collapsed, ends, out).astype(np.int64)
 
 
-def to_fixed_domain(a):
-    """_cmsToFixedDomain: a 0..0xFFFF (times a domain) value to 16.16."""
-    a = np.asarray(a, np.int64)
-    return a + (a + 0x7FFF) // 0xFFFF
+class ClutTransform:
+    """A pipeline LittleCMS resamples for 8-bit RGB: by
+    ``OptimizeByComputingLinearization`` (three 4096-entry
+    prelinearisation curves from a grey ramp through the float pipeline,
+    slope-limited; a 33^3 16-bit CLUT sampled through their inverses;
+    ``PrelinEval8`` in LittleCMS's fixed point), or, where the last
+    stage's curves are degenerate or the grey curves are not monotonic
+    or are degenerate, by ``OptimizeByResampling`` (the CLUT alone,
+    ``TetrahedralInterp16``); the white node patched by
+    ``FixWhiteMisalignment`` either way. Each pixel is evaluated by
+    ``io/native/rasterdec.cc::clut8`` (`_eval16` is its numpy model)."""
 
-
-# the most a refit A2B0 curve may miss its table by (of full scale): the
-# pipeline's curves are the port's refits (core/curve1d.py), LittleCMS's
-# the tables themselves
-LUT_CURVE_TOL = 1e-3
-
-
-def _check_curve_fits(lut):
-    """NotImplementedError where a curve of the A2B0 is one the port's
-    refit does not follow within `LUT_CURVE_TOL` (a table with detail
-    finer than the refit's segments): the model would then be more than
-    an 8-bit code from LittleCMS, which interpolates the table."""
-    import torch
-
-    from art_tpu_torch.color.icclut import _is_identity_curves
-    from art_tpu_torch.core.curve1d import eval_curve, fit_curves
-
-    x = np.linspace(0.0, 1.0, 65536)
-    for key in ("in_curves", "m_curves", "out_curves"):
-        stack = lut.get(key)
-        if stack is None or _is_identity_curves(stack):
-            continue
-        fits = fit_curves([stack[i] for i in range(3)])
-        for i in range(3):
-            table = np.asarray(stack[i], np.float64)
-            want = np.interp(x, np.linspace(0.0, 1.0, table.size), table)
-            got = eval_curve(torch.from_numpy(x.astype(np.float32)),
-                             torch.from_numpy(fits[i]), in_max=1.0,
-                             out_max=1.0).double().numpy()
-            err = float(np.abs(got - want).max())
-            if err > LUT_CURVE_TOL:
-                raise NotImplementedError(
-                    f"ICC profile whose A2B0 {key.replace('_', ' ')} "
-                    f"({table.size}-entry table, channel {i}) the port's "
-                    f"refit misses by {err:.2g} of full scale, past "
-                    f"{LUT_CURVE_TOL:g}: LittleCMS interpolates the table")
-
-
-class LutSource:
-    """A LUT-class source as LittleCMS optimises it for 8-bit RGB
-    (``cmsopt.c``): the joined float pipeline (its A2B0 through the
-    port's stages, ``color/icclut.py``; black point compensation to
-    sRGB's zero black, which LittleCMS forces for the v4 sRGB in
-    perceptual; the sRGB colorants inverted and the reversed sRGB curve)
-    resampled by ``OptimizeByComputingLinearization``: three 4096-entry
-    prelinearisation curves from a grey ramp, slope-limited, a 33^3
-    16-bit CLUT sampled through their inverses, the white node patched
-    by ``FixWhiteMisalignment``, evaluated by ``PrelinEval8`` in
-    LittleCMS's fixed point; ``OptimizeByResampling`` (the CLUT alone,
-    ``TetrahedralInterp16``) where the curves are not monotonic or
-    degenerate."""
-
-    def __init__(self, prof):
-        from art_tpu_torch.color.iccfile import _parse_lut_tag
-        from art_tpu_torch.color.icclut import plan_lut
-
-        off, _ = prof.tags[b"A2B0"]
-        try:
-            lut = _parse_lut_tag(prof.data, off)
-            pcs = "Lab" if prof.pcs == b"Lab " else "XYZ"
-            self.stages, data = plan_lut(lut, pcs, "in")
-        except (ValueError, KeyError, IndexError, struct.error) as e:
-            raise NotImplementedError(
-                f"ICC profile with an A2B0 the port does not parse ({e})")
-        _check_curve_fits(lut)
-        import torch
-
-        self.data = {k: torch.from_numpy(np.asarray(v, np.float32))
-                     for k, v in data.items()}
-        self.inv = np.array(mat3_inverse(srgb_colorants()))
-        # the v4 perceptual black of a LUT profile, else its own black
-        if prof.version >= 0x4000000:
-            bp = PERCEPTUAL_BLACK
-        else:
-            bp = _lab_black_to_xyz(self._xyz(np.zeros((1, 3), np.float32))[0])
-        self.bpc = None
-        if any(bp):
-            t = [bp[k] - D50[k] for k in range(3)]
-            self.bpc = (np.array([(0.0 - D50[k]) / t[k] for k in range(3)]),
-                        np.array([-D50[k] * (0.0 - bp[k]) / t[k]
-                                  for k in range(3)]))
+    def __init__(self, stages):
+        self.stages = stages
         self._optimise()
 
-    def _xyz(self, rgb):
-        """The A2B0 at float32 RGB in [0, 1]: XYZ (N, 3) float64."""
-        import torch
-
-        from art_tpu_torch.color.icclut import apply_stages
-
-        x = torch.from_numpy(np.asarray(rgb, np.float32).reshape(-1, 3))
-        r, g, b = apply_stages(x[:, 0], x[:, 1], x[:, 2], self.stages,
-                               self.data)
-        return torch.stack([r, g, b], -1).double().numpy()
-
     def pipeline(self, rgb):
-        """The joined float pipeline: float32 RGB (N, 3) in [0, 1] to the
+        """The float pipeline: float32 RGB (N, 3) in [0, 1] to the
         encoded sRGB floats, unclipped."""
-        xyz = self._xyz(rgb)
-        if self.bpc is not None:
-            xyz = (xyz * self.bpc[0] + self.bpc[1]).astype(np.float32)
-        lin = (np.asarray(xyz, np.float64) @ self.inv.T).astype(np.float32)
-        enc = _srgb_encode_float(lin)
-        return enc
+        return ls.eval_float(self.stages,
+                             np.asarray(rgb, np.float32).reshape(-1, 3))
 
     def _optimise(self):
-        ramp = (np.arange(PRELIN_POINTS, dtype=np.float64)
-                / (PRELIN_POINTS - 1)).astype(np.float32)
-        grey = self.pipeline(np.repeat(ramp[:, None], 3, axis=1))
-        trans = [slope_limit(quick_saturate_word(grey[:, t].astype(np.float64)
-                                                 * 65535.0))
-                 for t in range(3)]
-        suitable = all(is_monotonic(t) and not is_degenerated(t)
-                       for t in trans)
+        last = self.stages[-1]
+        suitable = not (last.type == "cvst" and any(
+            is_degenerated(ls.curve_table16(c)) for c in last.curves))
+        if suitable:
+            ramp = (np.arange(PRELIN_POINTS, dtype=np.float64)
+                    / (PRELIN_POINTS - 1)).astype(np.float32)
+            grey = self.pipeline(np.repeat(ramp[:, None], 3, axis=1))
+            trans = [slope_limit(quick_saturate_word(
+                grey[:, t].astype(np.float64) * 65535.0)) for t in range(3)]
+            suitable = all(is_monotonic(t) and not is_degenerated(t)
+                           for t in trans)
         g = GRID_RGB
         node = quick_saturate_word(np.arange(g) * 65535.0 / (g - 1))
         nodes = np.stack(np.meshgrid(node, node, node, indexing="ij"),
                          -1).reshape(-1, 3)  # r slowest, b fastest
-        infl = (nodes / 65535.0).astype(np.float32)
+        infl = (nodes / 65535.0).astype(np.float32)  # XFormSampler16
         if suitable:
-            rev = [reverse_curve(t, PRELIN_POINTS) for t in trans]
-            w = quick_saturate_word(infl.astype(np.float64) * 65535.0)
-            infl = np.stack([(lin_lerp16(w[:, t], rev[t]) / 65535.0)
-                             .astype(np.float32) for t in range(3)], -1)
+            rev = [("table", reverse_curve(t, PRELIN_POINTS)) for t in trans]
+            infl = np.stack([ls.curve_float(rev[t], infl[:, t])
+                             for t in range(3)], -1)
         out = self.pipeline(infl)
         self.clut = quick_saturate_word(out.astype(np.float64) * 65535.0
                                         ).reshape(g, g, g, 3)
         self.prelin = trans if suitable else None
+        self.tables = byte_tables(self.prelin)
         self._fix_white()
 
     def _eval16(self, rgb8):
         """PrelinEval8 (or, without curves, TetrahedralInterp16) of (N, 3)
         uint8: (N, 3) int64 16-bit outputs."""
-        v = np.asarray(rgb8, np.int64).reshape(-1, 3)
-        g1 = GRID_RGB - 1
-        w16 = (v << 8) | v
-        if self.prelin is not None:
-            w16 = np.stack([lin_lerp16(w16[:, t], self.prelin[t])
-                            for t in range(3)], -1)
-        f = to_fixed_domain(w16 * g1)
-        i0 = f >> 16
-        r = f & 0xFFFF
-        if self.prelin is None:  # TetrahedralInterp16 steps past no edge
-            i1 = np.where(w16 == 0xFFFF, i0, i0 + 1)
-        else:
-            i1 = np.where(r == 0, i0, i0 + 1)
-        lut = self.clut
-        rx, ry, rz = r[:, 0:1], r[:, 1:2], r[:, 2:3]
-        x0, y0, z0 = i0[:, 0], i0[:, 1], i0[:, 2]
-        x1, y1, z1 = i1[:, 0], i1[:, 1], i1[:, 2]
-
-        def d(x, y, z):
-            return lut[x, y, z]
-
-        c0 = d(x0, y0, z0)
-        conds = [(rx >= ry) & (ry >= rz), (rx >= rz) & (rz >= ry),
-                 (rz >= rx) & (rx >= ry), (ry >= rx) & (rx >= rz),
-                 (ry >= rz) & (rz >= rx), (rz >= ry) & (ry >= rx)]
-        c1s = [d(x1, y0, z0) - c0, d(x1, y0, z0) - c0,
-               d(x1, y0, z1) - d(x0, y0, z1), d(x1, y1, z0) - d(x0, y1, z0),
-               d(x1, y1, z1) - d(x0, y1, z1), d(x1, y1, z1) - d(x0, y1, z1)]
-        c2s = [d(x1, y1, z0) - d(x1, y0, z0), d(x1, y1, z1) - d(x1, y0, z1),
-               d(x1, y1, z1) - d(x1, y0, z1), d(x0, y1, z0) - c0,
-               d(x0, y1, z0) - c0, d(x0, y1, z1) - d(x0, y0, z1)]
-        c3s = [d(x1, y1, z1) - d(x1, y1, z0), d(x1, y0, z1) - d(x1, y0, z0),
-               d(x0, y0, z1) - c0, d(x1, y1, z1) - d(x1, y1, z0),
-               d(x0, y1, z1) - d(x0, y1, z0), d(x0, y0, z1) - c0]
-        c1 = np.select(conds, c1s, 0)
-        c2 = np.select(conds, c2s, 0)
-        c3 = np.select(conds, c3s, 0)
-        rest = c1 * rx + c2 * ry + c3 * rz + 0x8001
-        return (c0 + ((rest + (rest >> 16)) >> 16)) & 0xFFFF
+        v = np.asarray(rgb8).reshape(-1, 3).astype(np.intp)
+        i0, i1, r = (np.stack([self.tables[k, j][v[:, k]] for k in range(3)],
+                              -1) for j in range(3))
+        return ls.tetra16(self.clut, i0, i1, r)
 
     def _fix_white(self):
-        """FixWhiteMisalignment: where white does not come out white, the
-        CLUT node white lands on (if it lands on one) set to 0xFFFF."""
+        """FixWhiteMisalignment: where white does not come out white
+        (WhitesAreEqual: channel by channel, a difference past 0xF000
+        counts as equal), the CLUT node white lands on (if it lands on
+        one) set to 0xFFFF."""
         got = self._eval16(np.full((1, 3), 255, np.uint8))[0]
-        d = np.abs(got - 0xFFFF)
-        if (d > 0xF000).any() or (got == 0xFFFF).all():
-            return
-        # on the first channel whose whites differ: WhitesAreEqual
         for k in range(3):
-            if d[k] > 0xF000:
+            if abs(int(got[k]) - 0xFFFF) > 0xF000:
                 return
             if got[k] != 0xFFFF:
                 break
+        else:
+            return
         white_in = [0xFFFF] * 3 if self.prelin is None else [
             int(lin_lerp16(np.array([0xFFFF]), t)[0]) for t in self.prelin]
         pos = [w * (GRID_RGB - 1) / 65535.0 for w in white_in]
@@ -724,25 +722,26 @@ class LutSource:
         self.clut[x, y, z] = 0xFFFF
 
     def __call__(self, rgb8):
-        out = self._eval16(np.asarray(rgb8).reshape(-1, 3))
-        return from_16_to_8(out).astype(np.uint8).reshape(np.shape(rgb8))
+        from art_tpu_torch.io.rasterformats import clut8
+
+        return clut8(rgb8, self.tables, self.clut)
 
 
-def _srgb_encode_float(lin):
-    """The reversed sRGB curve (parametric type -4, in double) at float32
-    linear values, to float32."""
-    p = SRGB_PARAMS
-    r = np.asarray(lin, np.float64)
-    disc = math.pow(p[1] * p[4] + p[2], p[0])
-    with np.errstate(invalid="ignore", divide="ignore"):
-        hi = (np.power(np.where(r >= disc, r, 1.0), 1.0 / p[0]) - p[2]) / p[1]
-    return np.where(r >= disc, hi, r / p[3]).astype(np.float32)
-
-
-def _lab_f1(t):
-    """cmsLab2XYZ's inverse of the Lab companding."""
-    return np.where(t <= 24.0 / 116.0, (108.0 / 841.0) * (t - 16.0 / 116.0),
-                    t * t * t)
+def byte_tables(prelin=None):
+    """Each input byte's base node, upper node and 16-bit rest on the
+    GRID_RGB grid, per channel ((3, 3, 256) int32): PrelinEval8's
+    (PrelinOpt8alloc: the byte times 257 through the channel's `prelin`
+    curve; a rest of 0 steps to no upper node), or, without curves,
+    TetrahedralInterp16's on the byte times 257."""
+    w16 = np.arange(256, dtype=np.int64) * 257
+    out = np.empty((3, 3, 256), np.int32)
+    for k in range(3):
+        w = w16 if prelin is None else lin_lerp16(w16, prelin[k])
+        f = to_fixed_domain(w * (GRID_RGB - 1))
+        i0, r = f >> 16, f & 0xFFFF
+        up = w != 0xFFFF if prelin is None else r != 0
+        out[k] = i0, np.where(up, i0 + 1, i0), r
+    return out
 
 
 @functools.lru_cache(maxsize=1)
@@ -752,76 +751,43 @@ def lab_to_srgb_clut():
     from ``cmsCreateLab2Profile(NULL)`` (D50, an abstract v2 profile
     whose identity A2B0 and v2/v4 encoding stages PreOptimize removes)
     to the built-in sRGB, TYPE_Lab_8 in, 8 bits out, perceptual, no BPC
-    (both black points zero). ``OptimizeByResampling`` samples the float
-    pipeline at the nodes: the node's 16-bit value over 65535 in float32,
-    ``EvaluateLab2XYZ`` in double (L times 100, a and b times 255 less
-    128, ``cmsLab2XYZ`` against D50, over MAX_ENCODEABLE_XYZ) to
-    float32, the sRGB output matrix (the colorants inverted, times
-    MAX_ENCODEABLE_XYZ) summed in double to float32, the reversed sRGB
-    curve, then ``_cmsQuickSaturateWord`` of the value times 65535. The
-    white node is not patched: Lab's white (0xFFFF, 0x8080, 0x8080) is
-    on no node. The 8-bit evaluation is ``TetrahedralInterp16`` on the
-    bytes times 257 (``io/native/rasterdec.cc::lab_to_rgb``)."""
+    (both black points zero): ``OptimizeByResampling`` samples Lab to
+    XYZ and sRGB's output at the nodes (``XFormSampler16``). The white
+    node is not patched: Lab's white (0xFFFF, 0x8080, 0x8080) is on no
+    node. The 8-bit evaluation is ``TetrahedralInterp16`` on the bytes
+    times 257 (`byte_tables`, ``io/native/rasterdec.cc::clut8``)."""
     g = GRID_RGB
     node = quick_saturate_word(np.arange(g) * 65535.0 / (g - 1))
     nodes = np.stack(np.meshgrid(node, node, node, indexing="ij"),
                      -1).reshape(-1, 3)
-    v = (nodes / 65535.0).astype(np.float32).astype(np.float64)
-    y = (v[:, 0] * 100.0 + 16.0) / 116.0
-    x = y + 0.002 * (v[:, 1] * 255.0 - 128.0)
-    z = y - 0.005 * (v[:, 2] * 255.0 - 128.0)
-    xyz = np.stack([(_lab_f1(t) * D50[k] / MAX_ENCODEABLE_XYZ).astype(
-        np.float32) for k, t in enumerate((x, y, z))], -1).astype(np.float64)
-    inv = np.array(mat3_inverse(srgb_colorants())) * MAX_ENCODEABLE_XYZ
-    lin = np.zeros_like(xyz)
-    for i in range(3):
-        for j in range(3):
-            lin[:, i] = lin[:, i] + xyz[:, j] * inv[i, j]
-    enc = _srgb_encode_float(lin.astype(np.float32))
-    return quick_saturate_word(enc.astype(np.float64) * 65535.0).astype(
+    out = ls.eval_float([ls.Lab2XYZ()] + _srgb_output(),
+                        (nodes / 65535.0).astype(np.float32))
+    return quick_saturate_word(out.astype(np.float64) * 65535.0).astype(
         np.uint16).reshape(g, g, g, 3)
+
+
+def optimise(st):
+    """cmsopt.c's choice for 8-bit RGB in and out, after PreOptimize."""
+    if all(s.type == "cvst" for s in st):
+        raise NotImplementedError(
+            "ICC transform that reduces to curves alone (LittleCMS's "
+            "joined-curves path)")
+    ms = _matrix_shaper(st)
+    if ms is not None:
+        curves1, mat, off, curves2, ident = ms
+        if ident:
+            raise NotImplementedError(
+                "ICC profile whose colorants join sRGB's to the identity "
+                "(LittleCMS's joined-curves path)")
+        return MatrixShaper(curves1, mat, off, curves2)
+    return ClutTransform(st)
 
 
 def build_transform(icc):
     """The transform from profile bytes `icc` to the built-in sRGB, as a
     callable on (..., 3) uint8 RGB; `Refused` where Pillow's
-    ``profileToProfile`` raises, NotImplementedError where LittleCMS
-    would convert and this model does not."""
-    prof = Profile(icc)
-    if prof.device_class in (b"link", b"abst", b"nmcl"):
-        # LittleCMS reads a link's or an abstract's A2B0, a named colour
-        # profile's ncl2; without it the link fails
-        if (b"ncl2" if prof.device_class == b"nmcl" else b"A2B0") \
-                not in prof.tags:
-            raise Refused("no device link table")
-        raise NotImplementedError(
-            f"ICC profile of class {prof.device_class.decode('latin-1')!r} "
-            "as an image's embedded profile")
-    if prof.color_space != b"RGB ":
-        raise Refused("wrong input color space on transform")
-    if prof.pcs == b"RGB ":
-        raise NotImplementedError("ICC profile with an RGB connection space")
-    if prof.pcs not in (b"XYZ ", b"Lab "):
-        raise Refused("colorspace mismatch")
-    if b"D2B0" in prof.tags:
-        raise NotImplementedError("ICC profile with a float D2B0 tag")
-    if b"A2B0" in prof.tags:
-        if prof.read(b"A2B0") is None:
-            raise Refused("cannot read the A2B0 tag")
-        return LutSource(prof)
-    cols = [prof.read(s) for s in (b"rXYZ", b"gXYZ", b"bXYZ")]
-    curves = [prof.read(s) for s in (b"rTRC", b"gTRC", b"bTRC")]
-    if any(c is None for c in cols + curves):
-        raise Refused("cannot build the matrix-shaper input")
-    colorants = tuple(tuple(cols[j][i] for j in range(3)) for i in range(3))
-    # black point compensation (forced for the v4 sRGB) moves nothing
-    # when the source's black is zero, as sRGB's is
-    zero = np.zeros(1, np.float32)
-    if any(float(eval_float(c, zero)[0]) != 0.0 for c in curves):
-        raise NotImplementedError(
-            "black point compensation of an ICC profile whose TRC does not "
-            "start at 0")
-    return MatrixShaper(colorants, curves)
+    ``profileToProfile`` raises."""
+    return optimise(ls.pre_optimize(link(Profile(icc))))
 
 
 @functools.lru_cache(maxsize=8)

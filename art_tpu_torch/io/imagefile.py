@@ -180,21 +180,33 @@ def read_rgb8(path):
     return to_rgb8(mode, samples)
 
 
-def read_grey(path):
+def read_grey(path, resized=False):
     """A mask image as PIL opens it for the reference's external masks
     (``art_tpu/masks/__init__.py::_load_external_mask``): (plane, mode)
     with mode "I;16" (uint16: a 16-bit grey PNG, a little-endian 16-bit
     grey TIFF), "F" (float32: a TIFF of 32-bit float samples) or "L"
     (uint8: any other image, "I" of a deep PGM included, the green
     channel of its ``convert("RGB")``), of the formats `read_rgb8`
-    reads. Bytes that are no image, and an image whose decode fails (a
-    truncated file), raise OSError as PIL does; another format that PIL
-    reads raises NotImplementedError naming it."""
+    reads. An IPTC/NAA L file over a colour core
+    (`plugins.iptc_l_core`) gives Pillow's L samples, each row the first
+    bytes of the core's row; or, `resized`, the plane the reference's
+    resize and green channel read, the core's second band (the resize
+    keeps the core's mode). Bytes that are no
+    image, and an image whose decode fails (a truncated file), raise
+    OSError as PIL does; another format that PIL reads raises
+    NotImplementedError naming it."""
     with open(path, "rb") as f:
         buf = f.read()
     mode, samples, _ = _decode(buf, path)
     if mode in ("I;16", "F"):
         return samples, mode
+    from art_tpu_torch.io import plugins
+
+    core = plugins.iptc_l_core(buf, path)
+    if core is not None:
+        h, w = core.shape[:2]
+        plane = core[..., 1] if resized else core.reshape(h, 4 * w)[:, :w]
+        return np.ascontiguousarray(plane), "L"
     return to_rgb8(mode, samples)[..., 1], "L"
 
 

@@ -21,10 +21,12 @@
 //   with no error), the bounds checks against the file's last byte.
 // - qoi: QoiImagePlugin.QoiDecoder (Python in Pillow): the six ops, the
 //   64-entry index, the run; the end marker is not read.
-// - lab_to_rgb: LittleCMS's 8-bit transform from Pillow's "LAB" to
-//   sRGB as Pillow's convert("RGB") builds it, a tetrahedral
-//   interpolation (TetrahedralInterp16) on a 33^3 16-bit CLUT the
-//   caller samples.
+// - clut8: LittleCMS's 8-bit evaluation of a 16-bit CLUT of three
+//   inputs and outputs (PrelinEval8, or TetrahedralInterp16 on the
+//   bytes times 257) and From16To8: each byte's base node, upper node
+//   and rest from the caller's tables, the six tetrahedra in the C
+//   code's int32 arithmetic. Pillow's convert("RGB") of "LAB" and every
+//   embedded profile color/lcms.py resamples to a CLUT.
 // - sun_rle: SunRleDecode.c. 0x80 0 is a literal 0x80, 0x80 n v a run
 //   of n + 1 bytes v that goes on into the next rows; rows of
 //   ceil(bits x xsize / 8) bytes (no 16-bit padding).
@@ -363,28 +365,28 @@ int qoi(const uint8_t* data, size_t len, int64_t npix, int bands, uint8_t* out) 
   return 0;
 }
 
-// lab: npix x 3 bytes of Pillow's LAB; clut: 33^3 x 3 16-bit values
-// (L slowest); out: npix x 3 bytes of RGB.
-void lab_to_rgb(const uint8_t* lab, int64_t npix, const uint16_t* clut, uint8_t* out) {
-  const int g1 = 32;
-  const int opta[3] = {33 * 33 * 3, 33 * 3, 3};  // L, a, b strides
+// rgb: npix x 3 bytes; tables: for each input channel 256 base nodes,
+// 256 upper nodes and 256 16-bit rests (int32, indexed by the byte);
+// clut: n^3 x 3 16-bit values (the first channel slowest); out: npix x
+// 3 bytes. Rest and the sums wrap as the C code's int32s do.
+void clut8(const uint8_t* rgb, int64_t npix, const int32_t* tables,
+           const uint16_t* clut, int n, uint8_t* out) {
+  const int opta[3] = {n * n * 3, n * 3, 3};
   for (int64_t p = 0; p < npix; p++) {
     int i0[3], i1[3], r[3];
     for (int k = 0; k < 3; k++) {
-      const int w = lab[3 * p + k] * 257;
-      const int64_t a = (int64_t)w * g1;
-      const int64_t f = a + (a + 0x7FFF) / 0xFFFF;  // _cmsToFixedDomain
-      i0[k] = (int)(f >> 16);
-      r[k] = (int)(f & 0xFFFF);
-      i1[k] = w == 0xFFFF ? i0[k] : i0[k] + 1;
+      const int v = rgb[3 * p + k];
+      i0[k] = tables[768 * k + v] * opta[k];
+      i1[k] = tables[768 * k + 256 + v] * opta[k];
+      r[k] = tables[768 * k + 512 + v];
     }
-    const int x0 = i0[0] * opta[0], y0 = i0[1] * opta[1], z0 = i0[2] * opta[2];
-    const int x1 = i1[0] * opta[0], y1 = i1[1] * opta[1], z1 = i1[2] * opta[2];
+    const int x0 = i0[0], y0 = i0[1], z0 = i0[2];
+    const int x1 = i1[0], y1 = i1[1], z1 = i1[2];
     const int rx = r[0], ry = r[1], rz = r[2];
     for (int c = 0; c < 3; c++) {
-      auto d = [&](int x, int y, int z) { return (int64_t)clut[x + y + z + c]; };
-      const int64_t c0 = d(x0, y0, z0);
-      int64_t c1 = 0, c2 = 0, c3 = 0;
+      auto d = [&](int x, int y, int z) { return (int32_t)clut[x + y + z + c]; };
+      const int32_t c0 = d(x0, y0, z0);
+      int32_t c1 = 0, c2 = 0, c3 = 0;
       if (rx >= ry && ry >= rz) {
         c1 = d(x1, y0, z0) - c0;
         c2 = d(x1, y1, z0) - d(x1, y0, z0);
@@ -405,13 +407,15 @@ void lab_to_rgb(const uint8_t* lab, int64_t npix, const uint16_t* clut, uint8_t*
         c1 = d(x1, y1, z1) - d(x0, y1, z1);
         c2 = d(x0, y1, z0) - c0;
         c3 = d(x0, y1, z1) - d(x0, y1, z0);
-      } else if (rz >= ry && ry >= rx) {
+      } else {  // rz >= ry >= rx
         c1 = d(x1, y1, z1) - d(x0, y1, z1);
         c2 = d(x0, y1, z1) - d(x0, y0, z1);
         c3 = d(x0, y0, z1) - c0;
       }
-      const int64_t rest = c1 * rx + c2 * ry + c3 * rz + 0x8001;
-      const uint32_t o16 = (uint32_t)((c0 + ((rest + (rest >> 16)) >> 16)) & 0xFFFF);
+      const int32_t rest = (int32_t)((uint32_t)c1 * (uint32_t)rx + (uint32_t)c2 * (uint32_t)ry +
+                                     (uint32_t)c3 * (uint32_t)rz + 0x8001u);
+      const int32_t s = (int32_t)((uint32_t)rest + (uint32_t)(rest >> 16));
+      const uint32_t o16 = ((uint32_t)c0 + (uint32_t)(s >> 16)) & 0xFFFF;
       out[3 * p + c] = (uint8_t)(((o16 * 65281u + 8388608u) >> 24) & 0xFF);
     }
   }

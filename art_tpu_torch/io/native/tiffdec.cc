@@ -688,7 +688,19 @@ bool zstd_strip(const uint8_t* in, size_t n, uint8_t* out, size_t occ, std::stri
       size_t bsize = bh >> 3;
       if (type == 3) fail("reserved block type");
       size_t csize = type == 1 ? 1 : bsize;
-      if (p + 3 + csize > n) break;  // the block is not all there
+      if (p + 3 + csize > n) {  // the block is not all there
+        // libzstd streams a raw block as its bytes come
+        // (ZSTD_nextSrcSizeToDecompressWithInputSize): those that are
+        // there reach the strip
+        if (type == 0 && !single_pass && p + 3 < n) {
+          if (bsize > f.block_max) fail("raw block larger than its maximum");
+          f.out.insert(f.out.end(), in + p + 3, in + n);
+          size_t c = std::min(occ - flushed, f.out.size() - flushed);
+          memcpy(out + flushed, f.out.data() + flushed, c);
+          flushed += c;
+        }
+        break;
+      }
       const uint8_t* b = in + p + 3;
       if (type == 0) {
         if (bsize > f.block_max) fail("raw block larger than its maximum");

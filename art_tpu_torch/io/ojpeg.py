@@ -102,10 +102,27 @@ def _table_header(t, buf, hs, vs, ncomp=3):
     return bytes(out)
 
 
+def strip_count(t):
+    """The strips libtiff reads: as many as RowsPerStrip names (the
+    offsets cut to that many, or padded with zeros that tif_ojpeg skips),
+    the tiles as held."""
+    if t.tiled:
+        return len(t.offsets)
+    rows = t.th if 0 < t.th < t.h else t.h
+    return -(-t.h // rows)
+
+
+def header_fails(t, vs):
+    """OJPEGReadHeaderInfo's check where a strip is shorter than the
+    image: its rows a multiple of the MCU's (8 vs)."""
+    rows = t.th if 0 < t.th < t.h else t.h
+    return not t.tiled and rows < t.h and rows % (8 * vs) != 0
+
+
 def _strips(t, buf):
     """The strips' bytes in order, as tif_ojpeg reads them."""
     out = []
-    for k, off in enumerate(t.offsets):
+    for k, off in enumerate(t.offsets[: strip_count(t)]):
         n = t.counts[k] if t.counts and k < len(t.counts) else 0
         out.append(buf[off : off + n])
     return out

@@ -67,7 +67,8 @@ from art_tpu_torch.io.rasterformats import _lib, _ptr, palette_rgb
 from art_tpu_torch.io.rawtile import (_BANDS, decoder_error, load_raw, new,
                                       put, raw, rgb_out, seek, truncated,
                                       unpacker)
-from art_tpu_torch.io.stdformats import PilValueError, Unidentified
+from art_tpu_torch.io.stdformats import (GREY_PALETTE, PilValueError,
+                                         Unidentified)
 from art_tpu_torch.io.unported import _File
 
 
@@ -180,7 +181,9 @@ def read_imt(buf, path):
 
 # -- IM ----------------------------------------------------------------------
 
-def read_im(buf, path):
+def read_im(buf, path, indices=False):
+    """An IM as Pillow opens and converts it; `indices`: a palette
+    image's indices in each channel."""
     f, mode, size = _open(unported._im, buf, path)
     rawmode, offs, lut = f.tile
     new(mode, 1, 1)
@@ -189,7 +192,7 @@ def read_im(buf, path):
         raise unported.OpenError("IM: TypeError: a size of floats")
     pal = None
     if lut is not None:
-        pal = _pal(lut, planar=True)
+        pal = GREY_PALETTE if indices else _pal(lut, planar=True)
     bits = None
     if rawmode.startswith("F;"):
         try:
@@ -377,9 +380,10 @@ def read_ftex(buf, path):
 
 # -- IPTC/NAA ----------------------------------------------------------------
 
-def read_iptc(buf, path):
-    from art_tpu_torch.io import imagefile
-
+def _iptc_records(buf, path):
+    """Pillow's open of an IPTC/NAA file and the image its load reads:
+    (mode, info, compression, the 8:10 records joined; a raw image's
+    behind a PGM header)."""
     f, mode, size = _open(unported._iptc, buf, path)
     if f.tile is None:
         raise OSError("cannot load this image")
@@ -395,11 +399,17 @@ def read_iptc(buf, path):
         if tag != (8, 10):
             break
         out += f.read(n)
-    if mode == "L":
-        return imagefile._decode(bytes(out), None)
+    return mode, info, compression, bytes(out)
+
+
+def read_iptc(buf, path):
+    from art_tpu_torch.io import imagefile
+
+    mode, info, compression, data = _iptc_records(buf, path)
+    if mode == "L":  # Pillow's L image: its convert is the records' image's
+        return imagefile._decode(data, None)
     # Image.open of the records, the band list, then Image.merge
     band = info[(3, 65)][0] - 1 if (3, 65) in info else 0
-    data = bytes(out)
     bands = _BANDS[mode]
     if compression == 1:
         inner = "L"
@@ -407,39 +417,130 @@ def read_iptc(buf, path):
         inner = _inner_mode(data)
     if not -bands <= band < bands:
         raise IndexError("list assignment index out of range")
-    if inner not in ("L", None):
+    # the merge checks the mode of every band but the first, and takes a
+    # first band of one byte a pixel as its bytes: a P image's indices
+    if inner not in ("L", None) and (band % bands or inner not in ("P",
+                                                                   "1")):
         raise PilValueError("mode mismatch")
     if inner == "L" and data[:3] == b"\xff\xd8\xff":
         from art_tpu_torch.io import jpegdec
 
         grey = jpegdec.decode(data)  # the merge loads the band
     else:
-        _, samples, _ = imagefile._decode(data, None)  # Pillow's L band
-        grey = samples[..., 0]
+        _, samples, _ = imagefile._decode(data, None)  # Pillow's load
+        grey = _palette_indices(data) if inner == "P" else samples[..., 0]
     px = np.zeros(grey.shape[:2] + (bands,), np.uint8)
     px[..., band] = grey
     return (*rgb_out(mode, px), None)
 
 
+def iptc_l_core(buf, path=None):
+    """The core under Pillow's L image of an IPTC/NAA L file whose
+    records hold an RGB image (RGBX, (H, W, 4) uint8, the pad byte 255,
+    or 0 from Pillow's SGI decoder) or a JPEG's CMYK: Pillow's L samples
+    are the first bytes of each of its rows, and a resize keeps its
+    mode. None for any other file."""
+    from art_tpu_torch.io import imagefile, jpegdec
+
+    if buf[:1] != b"\x1c":
+        return None
+    hit = unported.walk_open(buf, path)
+    if hit is None or hit[0] != "IPTC/NAA" or hit[2] != "L":
+        return None
+    data = _iptc_records(buf, path)[3]
+    inner = _inner_mode(data)
+    if inner == "CMYK" and data[:3] == b"\xff\xd8\xff":
+        return jpegdec.decode(data)
+    if inner == "RGB":
+        mode, samples, _ = imagefile._decode(data, None)
+        if mode == "RGB":
+            pad = 0 if data[:2] == b"\x01\xda" else 255
+            return np.dstack([samples, np.full(samples.shape[:2], pad,
+                                               np.uint8)])
+    return None
+
+
+def _palette_indices(data):
+    """The index plane of the palette image `data` holds, the bytes
+    Pillow's merge takes of it as a first band: a PNG's, GIF's, BMP's,
+    TIFF's, TGA's, PCX's or IM's; NotImplementedError naming any other
+    format."""
+    from art_tpu_torch.io import imagefile, rasterformats, stdformats, tiff
+
+    if data[:8] == b"\x89PNG\r\n\x1a\n":
+        return imagefile._read_png(data)[0][..., 0]
+    if data[:6] in (b"GIF87a", b"GIF89a"):
+        return stdformats.read_gif(data, indices=True)[1][..., 0]
+    if data[:2] == b"BM":
+        return stdformats.read_bmp(data, indices=True)[1][..., 0]
+    if data[:4] in (b"II\x2a\x00", b"MM\x00\x2a", b"II\x2b\x00",
+                    b"MM\x00\x2b"):
+        return tiff.load(data)[1]
+    name = unported.walk(data)[0]
+    read = {"TGA": rasterformats.read_tga, "PCX": rasterformats.read_pcx,
+            "IM": read_im}.get(name)
+    if read is None:
+        raise NotImplementedError(
+            f"IPTC/NAA: band 0 of a palette {name} image: the port reads "
+            "the index plane of a PNG, GIF, BMP, TIFF, TGA, PCX or IM only")
+    return read(data, None, indices=True)[1][..., 0]
+
+
+def _bmp_mode(data):
+    """Pillow's mode of a BMP of a 40-byte header or longer: RGB for 24
+    bits and plain 32, and below 9 bits "1" or "L" where the palette is
+    the grey ramp, else P; None for the rest, left to the decode."""
+    if struct.unpack_from("<I", data, 14)[0] < 40:
+        return None
+    bits = struct.unpack_from("<H", data, 28)[0]
+    comp = struct.unpack_from("<I", data, 30)[0]
+    if bits == 24 or (bits == 32 and comp == 0):
+        return "RGB"
+    if bits > 8:
+        return None
+    colours = struct.unpack_from("<I", data, 46)[0] or 1 << bits
+    at = 14 + struct.unpack_from("<I", data, 14)[0]
+    pal = data[at : at + 4 * colours]
+    ramp = (0, 255) if colours == 2 else range(colours)
+    grey = all(pal[4 * i : 4 * i + 3] == bytes([v]) * 3
+               for i, v in enumerate(ramp))
+    return ("1" if colours == 2 else "L") if grey else "P"
+
+
 def _inner_mode(data):
-    """Pillow's mode of the image an IPTC file's records hold: a JPEG's,
-    a PNG's ("L" for 8-bit grey), a PNM's or a TIFF's; None for another
-    format, whose decode's first channel is then taken as its L."""
-    from art_tpu_torch.io import jpegdec, stdformats, tiff
+    """Pillow's mode of the image an IPTC file's records hold, as its
+    open gives it: a JPEG's, a PNG's by its colour type and depth, a
+    PNM's, a GIF's (P), a BMP's (`_bmp_mode`), a TIFF's, or the mode the
+    open of the plugin Pillow's walk reaches gives; None where no plugin
+    opens it or the mode is left to the decode."""
+    from art_tpu_torch.io import jpegdec, stdformats, tiff, unported
 
     if data[:3] == b"\xff\xd8\xff":
         return jpegdec.pil_header(data).mode
     if data[:8] == b"\x89PNG\r\n\x1a\n" and len(data) >= 26:
-        return "L" if data[24:26] == b"\x08\x00" else "other"
+        depth, ctype = data[24], data[25]
+        if ctype == 0:
+            return {1: "1", 16: "I;16"}.get(depth, "L")
+        return {2: "RGB", 3: "P", 4: "LA", 6: "RGBA"}.get(ctype, "other")
     magic = stdformats.pnm_magic(data)[0]
     if magic in (b"P2", b"P5"):
         return "L"  # "I" above 255 levels: the decode's clip reads it
-    if magic in (b"P1", b"P3", b"P4", b"P6"):
-        return "other"
+    if magic in (b"P3", b"P6"):
+        return "RGB"
+    if magic in (b"P1", b"P4"):
+        return "1"
+    if data[:6] in (b"GIF87a", b"GIF89a"):
+        return "P"
+    if data[:2] == b"BM" and len(data) >= 54:
+        return _bmp_mode(data)
     if data[:4] in (b"II\x2a\x00", b"MM\x00\x2a", b"II\x2b\x00",
                     b"MM\x00\x2b"):
         return tiff.open_tiff(data).mode
-    return None
+    try:
+        hit = unported.walk_open(data)
+    except (OSError, ValueError):
+        return None
+    return None if hit is None else hit[2]
 
 
 # -- PCD ---------------------------------------------------------------------

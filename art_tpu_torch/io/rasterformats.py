@@ -57,8 +57,8 @@ import numpy as np
 from art_tpu_torch import hostbuild
 from art_tpu_torch.io.rawtile import (grey3, load_raw, new, put, rgb_out,
                                       truncated)
-from art_tpu_torch.io.stdformats import (PilIndexError, PilValueError,
-                                         read_bitmap)
+from art_tpu_torch.io.stdformats import (GREY_PALETTE, PilIndexError,
+                                         PilValueError, read_bitmap)
 from art_tpu_torch.io import unported
 from art_tpu_torch.io.unported import _File
 
@@ -99,8 +99,8 @@ def _lib():
             lib.blp_dxt.restype = None
             lib.blp_dxt.argtypes = [ctypes.c_int, ctypes.c_int, _P, _I64, _I64,
                                     _P]
-            lib.lab_to_rgb.restype = None
-            lib.lab_to_rgb.argtypes = [_P, _I64, _P, _P]
+            lib.clut8.restype = None
+            lib.clut8.argtypes = [_P, _I64, _P, _P, ctypes.c_int, _P]
             for name in ("ycc_to_rgb", "ycbcr_to_rgb"):
                 fn = getattr(lib, name)
                 fn.restype = None
@@ -163,17 +163,27 @@ def palette_rgb(raw, stride=3, planar=False, order="RGB"):
     return pal
 
 
+def clut8(rgb8, tables, clut):
+    """LittleCMS's 8-bit evaluation of the (n, n, n, 3) 16-bit CLUT
+    `clut` on (..., 3) uint8 samples, each byte's nodes and rest from
+    `tables` ((3, 3, 256): per channel the base nodes, upper nodes and
+    rests), and From16To8 (``io/native/rasterdec.cc::clut8``)."""
+    src = np.ascontiguousarray(rgb8, np.uint8)
+    out = np.empty_like(src)
+    tab = np.ascontiguousarray(tables, np.int32)
+    lut = np.ascontiguousarray(clut, np.uint16)
+    _lib().clut8(_ptr(src), src.size // 3, _ptr(tab), _ptr(lut),
+                 lut.shape[0], _ptr(out))
+    return out
+
+
 def lab_to_rgb(lab):
     """Pillow's ``convert("RGB")`` of (..., 3) uint8 "LAB" samples
     (LittleCMS's transform, :func:`art_tpu_torch.color.lcms.
     lab_to_srgb_clut`), bit for bit."""
-    from art_tpu_torch.color.lcms import lab_to_srgb_clut
+    from art_tpu_torch.color.lcms import byte_tables, lab_to_srgb_clut
 
-    src = np.ascontiguousarray(lab, np.uint8)
-    out = np.empty_like(src)
-    clut = np.ascontiguousarray(lab_to_srgb_clut())
-    _lib().lab_to_rgb(_ptr(src), src.size // 3, _ptr(clut), _ptr(out))
-    return out
+    return clut8(lab, byte_tables(), lab_to_srgb_clut())
 
 
 # -- DIB, ICO, CUR -----------------------------------------------------------
@@ -208,7 +218,9 @@ _TGA_RAW = {(1, 8): ("P", 8), (3, 1): ("1", 1), (3, 8): ("L", 8),
             (2, 24): ("BGR", 24), (2, 32): ("BGRA", 32)}
 
 
-def read_tga(buf, path):
+def read_tga(buf, path, indices=False):
+    """A TGA as Pillow opens and converts it; `indices`: a palette
+    image's indices in each channel."""
     f = _File(buf)
     mode, (w, h) = unported._tga(f)  # the file left at the image data
     at = f.tell()
@@ -258,7 +270,7 @@ def read_tga(buf, path):
         raise pal
     if cmap:  # a colour map turns L and LA to P and PA
         mode = {"L": "P", "LA": "PA"}.get(mode, mode)
-    rgb = rgb_out(mode, img, pal)[1]
+    rgb = rgb_out(mode, img, GREY_PALETTE if indices else pal)[1]
     if orient in (0x10, 0x30):
         rgb = rgb[:, ::-1]
     return "RGB", np.ascontiguousarray(rgb), None
@@ -322,7 +334,7 @@ def read_qoi(buf, path):
 
 # -- PCX, DCX ----------------------------------------------------------------
 
-def _read_pcx(buf, at):
+def _read_pcx(buf, at, indices=False):
     f = _File(buf)
     f.seek(at)
     mode, (w, h) = unported._pcx(f)  # the mode decided as the open does
@@ -350,6 +362,8 @@ def _read_pcx(buf, at):
     done = _I64(0)
     rc = _lib().pcx(_ptr(data), data.size, pbits, w, line, h, _ptr(rows),
                     ctypes.byref(done))
+    if indices and pal is not None:
+        pal = GREY_PALETTE
     if rc == 1:
         raise truncated()
     if rc == 2:
@@ -370,8 +384,10 @@ def _read_pcx(buf, at):
         [rows[:, k * w : (k + 1) * w] for k in range(3)], -1))
 
 
-def read_pcx(buf, path):
-    return (*_read_pcx(buf, 0), None)
+def read_pcx(buf, path, indices=False):
+    """A PCX as Pillow opens and converts it; `indices`: a palette
+    image's indices in each channel."""
+    return (*_read_pcx(buf, 0, indices), None)
 
 
 def read_dcx(buf, path):

@@ -108,6 +108,10 @@ def _grey3(grey):
     return np.repeat(np.asarray(grey, np.uint8)[..., None], 3, axis=2)
 
 
+# the palette a reader's `indices` takes: each entry its index, thrice
+GREY_PALETTE = np.repeat(np.arange(256, dtype=np.uint8)[:, None], 3, axis=1)
+
+
 def _palette(raw, stride):
     """(256, 3) uint8 from palette bytes of `stride` bytes an entry in
     B, G, R (stride 3 or 4) or R, G, B order (negative stride); entries
@@ -145,16 +149,17 @@ _MASKS32 = {(0xFF0000, 0xFF00, 0xFF, 0x0): "BGRX",
             (0x0, 0x0, 0x0, 0x0): "BGRA"}
 
 
-def read_bmp(buf):
-    """A BMP file as Pillow opens and converts it: ("RGB", (H, W, 3))."""
+def read_bmp(buf, indices=False):
+    """A BMP file as Pillow opens and converts it: ("RGB", (H, W, 3));
+    `indices`: a palette image's indices in each channel."""
     try:
         offset = _u32(buf, 10)
     except struct.error as e:
         raise Unidentified(f"BMP: header cut off ({e})") from e
-    return read_bitmap(buf, 14, offset)
+    return read_bitmap(buf, 14, offset, indices=indices)
 
 
-def read_bitmap(buf, at, offset=0, rows=None, mapped=True):
+def read_bitmap(buf, at, offset=0, rows=None, mapped=True, indices=False):
     """``BmpImageFile._bitmap`` and the load of its tile: the bitmap whose
     info header starts at byte `at`, its data at `offset` (the file
     header's; where that is 0, after the header, masks and palette, as a
@@ -163,7 +168,9 @@ def read_bitmap(buf, at, offset=0, rows=None, mapped=True):
     cursor (``h // 2``) takes of the header's. `mapped`: the file was
     opened by name, so Pillow maps an 8-bit tile of one byte a pixel
     (``ImageFile.load``'s mmap) where the file holds all its rows; an
-    icon's bitmap, read from the icon file's stream, is not mapped."""
+    icon's bitmap, read from the icon file's stream, is not mapped.
+    `indices`: a palette image's indices in each channel, its palette
+    read as the grey ramp."""
     try:
         hsize = _u32(buf, at)
     except struct.error as e:
@@ -239,7 +246,7 @@ def read_bitmap(buf, at, offset=0, rows=None, mapped=True):
         if not grey:
             if len(praw) // pad > 256:  # the palette's load, first
                 raise PilValueError("invalid palette size")
-            pal = _palette(praw, pad)
+            pal = GREY_PALETTE if indices else _palette(praw, pad)
         # the grey modes' raw modes: "1" (bits, whatever the depth) or
         # "L" (a byte a pixel, whatever the depth)
         raw = ("1" if colors == 2 else "L") if grey else raw
@@ -542,9 +549,9 @@ def _interlace_rows(h):
                            np.arange(2, h, 4), np.arange(1, h, 2)])
 
 
-def read_gif(buf):
+def read_gif(buf, indices=False):
     """A GIF's first frame as Pillow opens and converts it: ("RGB",
-    (H, W, 3))."""
+    (H, W, 3)); `indices`: its indices in each channel."""
     if len(buf) < 13:
         raise Unidentified("GIF: header cut off")
     w, h = _u16(buf, 6), _u16(buf, 8)
@@ -632,6 +639,6 @@ def read_gif(buf):
             raise OSError("image file is truncated")
         rows = _interlace_rows(fh) if interlace else np.arange(fh)
         canvas[y0 + rows, x0 : x0 + fw] = out.reshape(fh, fw)
-    if pal is None:
+    if pal is None or indices:
         return "RGB", _grey3(canvas)
     return "RGB", _palette(pal, -3)[canvas]

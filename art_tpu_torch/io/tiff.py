@@ -827,6 +827,8 @@ def _load_ojpeg_grey(t, buf, img):
     fails the load."""
     from art_tpu_torch.io import jpegdec, ojpeg
 
+    if ojpeg.header_fails(t, 1) or ojpeg.strip_count(t) > len(t.offsets):
+        raise _broken()  # the header; a strip past the offsets held
     jstream, _ = ojpeg.stream(t, buf, (1, 1), ncomp=1)
     if jstream is None:
         raise _broken()  # OJPEGPreDecode: the header
@@ -849,6 +851,8 @@ def _strip_data(t, buf, idx):
         else len(buf) - off
     if off > len(buf) or n > len(buf) - off:
         raise _broken()  # TIFFFillStrip: "Read error on strip"
+    if n == 0 and t.comp != 1:
+        raise _broken()  # TIFFFillStrip: "Invalid strip byte count"
     data = buf[off : off + n]
     if t.fill == 2:
         data = _BITFLIP[np.frombuffer(data, np.uint8)].tobytes()
@@ -1113,17 +1117,23 @@ def _load_rgba(t, buf, img):
         _load_rgba_tiles(t, buf, img, tabs, sampling)
         return
     packed = None
+    hs, vs = sampling
+    th = t.th if 0 < t.th < 0xFFFFFFFF else t.h
+    th = min(th, t.h)
     if t.comp == 6:
-        if jstream is None:
+        # RowsPerStrip naming more strips than the offsets hold: the first
+        # missing strip's decode runs out of data (its rows stay zero),
+        # and the next one's setup fails the load
+        missing = ojpeg.strip_count(t) - len(t.offsets)
+        if jstream is None or missing > 1 or ojpeg.header_fails(t, vs):
             raise _broken()  # OJPEGPreDecode: the header
         try:
             planes = jpegdec.decode_raw(jstream)
         except OSError as err:
             raise _broken() from err
         packed = ojpeg.ycbcr_blocks(planes, t.w, t.h, *sampling)
-    hs, vs = sampling
-    th = t.th if 0 < t.th < 0xFFFFFFFF else t.h
-    th = min(th, t.h)
+        if missing == 1:
+            packed[len(t.offsets) * th // vs :] = 0
     block_row = (t.w + hs - 1) // hs * (hs * vs + 2)
     for i, y in enumerate(range(0, t.h, th)):
         rows = min(th, t.h - y)

@@ -1756,6 +1756,12 @@ def walk(buf, path=None):
     ``Image.open`` opens `buf` (the bytes of the file at `path`, where
     given) with, walking `WALK`, or None where none does; the errors its
     open lets out as the module docstring says."""
+    hit = walk_open(buf, path)
+    return None if hit is None else hit[:2]
+
+
+def walk_open(buf, path=None):
+    """`walk`'s (name, load) and the mode the plugin's open gives."""
     prefix = bytes(buf[:16])
     for name, accept, open_, read in WALK:
         if accept is not None and not accept(prefix):
@@ -1771,7 +1777,7 @@ def walk(buf, path=None):
         if not mode or size[0] <= 0 or size[1] <= 0:
             continue
         _bomb(size)
-        return name, read
+        return name, read, mode
     return None
 
 

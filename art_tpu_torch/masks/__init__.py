@@ -337,7 +337,7 @@ def load_external_mask(filename, h, w, inverted, device="cpu"):
     from art_tpu_torch.io.imagefile import read_grey
 
     try:
-        plane, mode = read_grey(filename)
+        plane, mode = read_grey(filename, resized=True)
     except OSError:
         return None
     a = raster.pil_resize_bilinear(plane, mode, (w, h), device).to(

@@ -118,7 +118,7 @@ develop against the CPU.
 Then the demosaics and raw inputs (`demosaic_phase`), counts reset
 before each path: D1, the flagship with `amazevng4` and the automatic
 dual contrast (B1-B4, B7); D2, each other Bayer name of D2_METHODS on
-the flagship frame's top half (D2_FRAME, the full width) and profile
+the flagship frame's top quarter (D2_FRAME, the full width) and profile
 (B4 and B7; B1-B3 for the AMaZE dual), with a 128x1024 crop against the
 CPU; D3, pixel shift: four 24 MP
 frames of the flagship scene with a 512x512 patch moved (B1-B3 in the
@@ -2286,10 +2286,11 @@ def lens_phase(smi_line, tmp):
 D2_METHODS = ("lmmse", "igv", "vng4", "dcb", "ahd", "eahd", "hphd", "ppg",
               "jdl", "amazebilinear", "rcdbilinear", "rcdvng4",
               "dcbbilinear", "dcbvng4", "mono", "none", "no such method")
-# D2 runs each name at half the flagship's rows (the full width) and
-# compares a 128x1024 crop card against CPU: 17 names, the phase's most
+# D2 runs each name at a quarter of the flagship's rows (the full width)
+# and compares a 128x1024 crop card against CPU: 17 names, the phase's most
+# time
 CROP = (128, 1024)
-D2_FRAME = (FRAME[0] // 2, FRAME[1])
+D2_FRAME = (FRAME[0] // 4, FRAME[1])
 PATCH = 512
 # a Sigma DP2 Merrill's levels (12-bit, black 16)
 FOVEON_BLACK, FOVEON_WHITE = 16.0, 4070.0
@@ -2461,7 +2462,7 @@ def demosaic_phase(smi_line, entries):
     (B1-B4, B7; the median develop, the device program, peak memory and
     `art:` stages, a 512x768 develop against the CPU, as D3's and D4's);
     D2, each of
-    D2_METHODS on the top half of the flagship frame (D2_FRAME, the full
+    D2_METHODS on the top quarter of the flagship frame (D2_FRAME, the full
     width) and the flagship profile (B4 and B7; B1-B3 for the AMaZE
     dual), its device program and `art:demosaic` ms and a CROP crop
     against the CPU; D3, pixel shift: four 24 MP frames
@@ -2493,14 +2494,14 @@ def demosaic_phase(smi_line, entries):
     failures += f
 
     crop = crop_frame(frame, *CROP)
-    half = crop_frame(frame, *D2_FRAME)
+    top = crop_frame(frame, *D2_FRAME)
     for m in D2_METHODS:
         label = f"D2 {m}"
         want = b15 if m.startswith("amaze") else ("b4", "b7")
-        t, st, f = demosaic_path(label, flagship_pp(m), half, want, crop)
+        t, st, f = demosaic_path(label, flagship_pp(m), top, want, crop)
         times[label], stats[label] = t, st
         failures += f
-    del frame, crop, small, half
+    del frame, crop, small, top
 
     # D3: pixel shift, a moved patch
     t0 = time.monotonic()
@@ -3768,6 +3769,13 @@ def timed(fn, runs=2):
     return out, float(np.median(ts))
 
 
+# N1's host ms (decode, ICC conversion, load_image) by label, and its
+# Adobe RGB JPEG's decoded 8-bit RGB ("rgb8"), kept by entry_phase for
+# I1's comparison and I1's photo
+N1_MS = {}
+N1_PHOTO = {}
+
+
 def entry_phase(smi_line, tmp):
     """The package's entry points on the card, counts reset before each
     path. X1: the flagship frame (seed 0) as a 16-bit PGM under a raw
@@ -3928,6 +3936,9 @@ def entry_phase(smi_line, tmp):
                 _, conv = timed(lambda: lcms.to_srgb(
                     imagefile.to_rgb8(mode, samples), icc), 1)
             fr, total = timed(lambda: art_tpu_torch.load_image(path), 1)
+            N1_MS[label] = (1e3 * dec, 1e3 * conv, 1e3 * total)
+            if label == "JPEG, Adobe RGB profile":
+                N1_PHOTO["rgb8"] = imagefile.to_rgb8(mode, samples)
             log(f"N1 {label} ({os.path.getsize(path) / 1e6:.1f} MB, mode "
                 f"{mode}, ICC {len(icc) if icc else 0} bytes): decode "
                 f"{1e3 * dec:.1f} ms, ICC conversion {1e3 * conv:.1f} ms; "
@@ -4252,8 +4263,8 @@ def formats_phase(smi_line, tmp):
         if not ok:
             failures.append(f"F1 {name} decodes differently")
     for name in sorted(k for k in recorded if not k.startswith(
-            ("F1 ", "G1 ", "Q1 ", "U1 ", "webp_", "raster_", "plugin_",
-             "j2k_", "u1_", "u2_"))):
+            ("F1 ", "G1 ", "Q1 ", "U1 ", "I1 ", "webp_", "raster_",
+             "plugin_", "j2k_", "u1_", "u2_"))):
         path = os.path.join(FORMATS_DATA, name)
         buf = open(path, "rb").read()
         t0 = time.monotonic()
@@ -5922,6 +5933,160 @@ def htj2k_phase(smi_line, tmp):
     return {}, failures
 
 
+# I1: one committed 64x64 PNG a profile form LittleCMS converts (or, the
+# last, refuses), and whether the phase also loads a 24 MP file tiled
+# from it; tests/test_torch_lcms.py writes them and records the sha256 of
+# Pillow's conversion under "I1 <name>"
+I1_FORMS = (
+    ("I1 float D2B0 (formula and sampled segments, matrix, float CLUT)",
+     "i1_d2b0_xyz_v4.png", True),
+    ("I1 D2B0 beside an A2B0, v2", "i1_d2b0_beside_a2b0_v2.png", False),
+    ("I1 lifted black (BPC of a matrix/TRC source)",
+     "i1_lifted_black_v2.png", True),
+    ("I1 rippled 4096-entry mft2 curves", "i1_rippled_mft2.png", True),
+    ("I1 device link RGB to Lab", "i1_link_rgb_lab.png", True),
+    ("I1 device link RGB to XYZ (D2B0)", "i1_link_rgb_xyz_d2b0.png", False),
+    ("I1 abstract Lab to Lab (refused)", "i1_abstract_lab_refused.png",
+     False))
+I1_FRAME = (4000, 6000)
+# I1's photo: N1's Adobe RGB JPEG decoded, under this fixture's profile
+I1_PHOTO = ("I1 N1's photo under the rippled mft2 profile",
+            "i1_rippled_mft2.png")
+
+
+def frame_rgb8(rgb):
+    """The 8-bit RGB a non-raw (3, H, W) frame was decoded from: each
+    sample's nearest of the 256 levels load_std_image makes (the sRGB
+    decode of v / 255, times 65535); (H, W, 3) uint8."""
+    from art_tpu_torch.color import colorspaces as cs
+
+    levels = cs.srgb_igamma(np.arange(256, dtype=np.float32) / 255.0) \
+        * 65535.0
+    mids = (levels[1:].astype(np.float64) + levels[:-1]) / 2.0
+    return np.moveaxis(np.searchsorted(mids, rgb), 0, -1).astype(np.uint8)
+
+
+def i1_tiled(samples, h, w):
+    """(h, w, ...) of `samples` repeated, cut at the far edges."""
+    reps = (-(-h // samples.shape[0]), -(-w // samples.shape[1])) \
+        + (1,) * (samples.ndim - 2)
+    return np.ascontiguousarray(np.tile(samples, reps)[:h, :w])
+
+
+def icc_phase(smi_line, tmp):
+    """Embedded ICC profiles through the port's model of LittleCMS on the
+    card's machine (no PIL there). I1: each committed fixture of
+    I1_FORMS through art_tpu_torch.load_image, its 8-bit RGB against the
+    sha256 of Pillow's conversion (decode, conversion and load_image ms
+    each); for the tiled forms a 24 MP PNG of the fixture's samples
+    repeated, with its profile, loaded in one call (decode, conversion,
+    load_image ms beside N1's Adobe RGB JPEG of this run), its frame
+    equal to the same tiling of the fixture's frame; and N1's decoded
+    photo (millions of colours) as a PNG with the I1_PHOTO fixture's
+    LUT-class profile, its decode, conversion and load_image ms beside
+    N1's, the load equal to the conversion. Returns (the comparisons,
+    the failures)."""
+    import art_tpu_torch
+    from art_tpu_torch.color import lcms
+    from art_tpu_torch.io import imagefile
+
+    log(f"---- ICC phase ({smi_line})")
+    t_phase = time.monotonic()
+    failures = []
+    with open(FORMATS_SHA) as f:
+        recorded = json.load(f)
+    n1 = N1_MS.get("JPEG, Adobe RGB profile")
+    n1_text = "not measured" if n1 is None else (
+        f"decode {n1[0]:.1f}, conversion {n1[1]:.1f}, load_image "
+        f"{n1[2]:.1f} ms")
+    h, w = I1_FRAME
+    for label, name, tiled in I1_FORMS:
+        path = os.path.join(FORMATS_DATA, name)
+        (mode, samples, icc), dec = timed(
+            lambda: imagefile.read_image(path), 1)
+        rgb8 = imagefile.to_rgb8(mode, samples)
+        t0 = time.monotonic()
+        try:
+            conv8, refused = lcms.to_srgb(rgb8, icc), False
+        except lcms.Refused:
+            conv8, refused = rgb8, True
+        conv = time.monotonic() - t0
+        fr, total = timed(lambda: art_tpu_torch.load_image(path), 1)
+        got8 = frame_rgb8(fr.rgb)
+        ok = _sha(got8) == recorded[f"I1 {name}"] and \
+            np.array_equal(got8, conv8)
+        log(f"{label} ({name}, {os.path.getsize(path)} bytes, ICC "
+            f"{len(icc)} bytes): decode {1e3 * dec:.1f} ms, conversion "
+            f"{1e3 * conv:.1f} ms (the transform built"
+            f"{'; Refused, as Pillow' if refused else ''}), load_image "
+            f"{1e3 * total:.1f} ms (host), "
+            f"sha256 {'equal to' if ok else 'NOT'} Pillow's")
+        if not ok:
+            failures.append(f"{label}: sha256 differs from Pillow's")
+        if not tiled:
+            continue
+        big = os.path.join(tmp, name)
+        t0 = time.monotonic()
+        imagefile.write_png(big, i1_tiled(samples, h, w), icc_bytes=icc)
+        written = time.monotonic() - t0
+        (bmode, bsamples, bicc), bdec = timed(
+            lambda: imagefile.read_image(big), 1)
+        _, bconv = timed(lambda: lcms.to_srgb(
+            imagefile.to_rgb8(bmode, bsamples), bicc), 1)
+        del bsamples
+        bfr, btotal = timed(lambda: art_tpu_torch.load_image(big), 1)
+        same = bfr.rgb.shape == (3, h, w) and np.array_equal(
+            bfr.rgb, i1_tiled(np.moveaxis(fr.rgb, 0, -1), h, w)
+            .transpose(2, 0, 1))
+        log(f"{label} at {w}x{h} ({os.path.getsize(big) / 1e6:.1f} MB, "
+            f"written in {written:.2f} s): decode {1e3 * bdec:.1f} ms, "
+            f"conversion {1e3 * bconv:.1f} ms, load_image "
+            f"{1e3 * btotal:.1f} ms (host; N1's Adobe RGB JPEG: {n1_text})"
+            f": frame {'equal to' if same else 'DIFFERENT FROM'} the "
+            f"fixture's tiled ({smi_line})")
+        if not same:
+            failures.append(f"{label}: the 24 MP load differs from the "
+                            "tiled fixture")
+        del bfr
+        os.unlink(big)
+    photo = N1_PHOTO.pop("rgb8", None)
+    if photo is None:
+        failures.append("I1 photo: N1's Adobe RGB JPEG was not decoded")
+    else:
+        label, name = I1_PHOTO
+        icc = imagefile.read_image(os.path.join(FORMATS_DATA, name))[2]
+        big = os.path.join(tmp, "i1_photo.png")
+        t0 = time.monotonic()
+        imagefile.write_png(big, photo, icc_bytes=icc)
+        written = time.monotonic() - t0
+        used = np.zeros(1 << 24, bool)
+        used[(photo[..., 0].astype(np.int32) << 16)
+             | (photo[..., 1].astype(np.int32) << 8) | photo[..., 2]] = True
+        colours = int(np.count_nonzero(used))
+        del photo, used
+        (bmode, bsamples, bicc), bdec = timed(
+            lambda: imagefile.read_image(big), 1)
+        bconv8, bconv = timed(lambda: lcms.to_srgb(
+            imagefile.to_rgb8(bmode, bsamples), bicc), 1)
+        del bsamples
+        bfr, btotal = timed(lambda: art_tpu_torch.load_image(big), 1)
+        same = bfr.rgb.shape == (3, *I1_FRAME) and np.array_equal(
+            frame_rgb8(bfr.rgb), bconv8)
+        log(f"{label} at {w}x{h} ({colours} colours, "
+            f"{os.path.getsize(big) / 1e6:.1f} MB, written in "
+            f"{written:.2f} s): decode {1e3 * bdec:.1f} ms, conversion "
+            f"{1e3 * bconv:.1f} ms, load_image {1e3 * btotal:.1f} ms (host; "
+            f"N1's Adobe RGB JPEG: {n1_text}): frame "
+            f"{'equal to' if same else 'DIFFERENT FROM'} the conversion "
+            f"({smi_line})")
+        if not same:
+            failures.append(f"{label}: load_image differs from to_srgb")
+        del bfr, bconv8
+        os.unlink(big)
+    log(f"ICC phase: {time.monotonic() - t_phase:.1f} s ({smi_line})")
+    return {}, failures
+
+
 # V1: 24 MP TIFFs whose strips repeat a committed single-strip fixture
 V1_FRAME = (4000, 6000)
 V1_TILED = (("V1 8-bit RGB, ZSTD, predictor 2", "tiff_v1_rgb8_zstd_pred2.tif"),
@@ -6508,6 +6673,14 @@ def main():
         u_stats, u_failures = htj2k_phase(smi_line, tmp)
     new_stats.update(u_stats)
     failures += u_failures
+
+    # ---- embedded ICC profiles: I1 (every profile form LittleCMS links,
+    # at 64x64 and, four of them, tiled to 24 MP)
+    with phase_clock("ICC phase, in all"), \
+            tempfile.TemporaryDirectory() as tmp:
+        i_stats, i_failures = icc_phase(smi_line, tmp)
+    new_stats.update(i_stats)
+    failures += i_failures
 
     failures += [f"B6 on {k} disagrees with its plain version"
                  for k, ok in b6_edges.items() if not ok]

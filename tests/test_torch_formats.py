@@ -831,11 +831,11 @@ def test_committed_fixtures_hold_their_sha256():
     fixtures (tests/util_rasterforms.py::fixtures and its like) decode to
     the sha256 recorded from Pillow, which `chip_smoke.py`'s format phases
     check on the card's machine (the generated F1, G1, Q1 and U1 files
-    apart)."""
+    and I1's conversions, tests/test_torch_lcms.py, apart)."""
     with open(os.path.join(DATA, "formats_sha256.json")) as f:
         recorded = json.load(f)
     names = [k for k in recorded
-             if not k.startswith(("F1 ", "G1 ", "Q1 ", "U1 "))]
+             if not k.startswith(("F1 ", "G1 ", "Q1 ", "U1 ", "I1 "))]
     assert len(names) >= 7
     gif_bytes = open(os.path.join(DATA, "gif_pillow_lzw.gif"), "rb").read()
     assert gif_bytes[10] & 0x80 == 0  # no global table

@@ -24,7 +24,8 @@ ICC profile (the LittleCMS model), `process_image`'s refusal of it and
 `thumbnail` from a preview; no source file of the package (`parallel/`,
 the export's and the colour profiles' modules, `masks/raster.py`,
 `pipeline/scopes.py`, `io/jpegdec.py`, `io/native/jpegdec.cc`,
-`io/iomanager.py`, `color/lcms.py` and `preconverters/` among them), nor
+`io/iomanager.py`, `color/lcms.py` with its stages and ``mpet`` reader,
+and `preconverters/` among them), nor
 chip_smoke.py, imports any of them or reads a file under art_tpu/; and
 the port's copies of the reference's host modules (profiles, colour-space
 tables, camera constants, output TRCs) hold the reference's values.
@@ -536,7 +537,7 @@ with tempfile.TemporaryDirectory() as d:
 with open(os.path.join("tests", "data", "formats_sha256.json")) as f:
     rec = json.load(f)
 for name, sha in rec.items():
-    if name.startswith(("F1 ", "Q1 ", "U1 ")):  # generated 24 MP files
+    if name.startswith(("F1 ", "Q1 ", "U1 ", "I1 ")):  # not file names
         continue
     with tempfile.TemporaryDirectory() as d:
         path = chip_smoke.write_pcd(os.path.join(d, "g.pcd")) \
@@ -597,6 +598,7 @@ def test_no_source_file_imports_jax():
                  "io/jpeg2000.py", "io/native/jp2dec.cc", "io/plugins.py",
                  "io/native/jpegdec.cc", "io/tiff.py", "io/ojpeg.py",
                  "io/native/tiffdec.cc", "io/iomanager.py", "color/lcms.py",
+                 "color/lcms_stages.py", "color/lcms_mpe.py",
                  "preconverters/pnm_to_dng.py", "__init__.py"):
         assert os.path.join("art_tpu_torch", name) in scanned
     offenders = []

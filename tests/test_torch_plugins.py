@@ -10,7 +10,8 @@ the CPU against Pillow 12.1.0 and, through the consumers, against
   forms; SUN of each depth, raw and RLE, with colour maps; MSP v1 and
   v2; XVThumb; PIXAR; GBR v1 and v2; XBM; XPM in P and RGB; FTEX raw and
   BC1; IPTC/NAA with and without a band, raw and with a JPEG of each
-  mode in each file mode; PCD in each orientation; FLI's
+  mode in each file mode, an L file over a colour image of each format
+  (C19) and a band of one (C20); PCD in each orientation; FLI's
   chunks) through the four readers: `read_rgb8` against Pillow's
   ``convert("RGB")``, `read_grey` against the mask path's mode rule,
   `read_image` (Pillow's mode and samples for I;16, I;16B, I;16L, I, F
@@ -234,10 +235,9 @@ def test_iptc_jpeg_band(inner, layers, band, tmp_path):
     ValueError where the image is not L and its IndexError where the
     band is out of range; an L file takes the image as it is. The port's
     readers as Pillow's, and the reference's loader and external mask as
-    the port's. (An L file holding a colour JPEG is Pillow's L image over
-    an RGB or CMYK core: its convert("RGB") is the JPEG's, which the port
-    gives, but its L samples are the core's bytes read as L, which
-    read_grey and the external mask do not mimic.)"""
+    the port's, an L file holding a colour JPEG included (Pillow's L
+    image over an RGB or CMYK core: its L samples are the core's bytes,
+    its resize the core's)."""
     from art_tpu.masks import _load_external_mask as ref_mask
     from art_tpu_torch.masks import load_external_mask
 
@@ -251,11 +251,157 @@ def test_iptc_jpeg_band(inner, layers, band, tmp_path):
     np.testing.assert_array_equal(got[1], want[1])
     np.testing.assert_array_equal(load_std_image(path).rgb,
                                   ref_load(path).rgb)
-    if layers == 1 and inner != "L":
-        return
     check_readers(path)
     np.testing.assert_array_equal(load_external_mask(path, 30, 40, False),
                                   ref_mask(path, 30, 40, False))
+
+
+def _encoded(arr, fmt, mode=None, **kw):
+    bio = io.BytesIO()
+    img = Image.fromarray(arr)
+    (img.convert(mode) if mode else img).save(bio, fmt, **kw)
+    return bio.getvalue()
+
+
+_IPTC_RGB = np.ascontiguousarray(np.stack(
+    [_IPTC_PIC[..., 0], _IPTC_PIC[::-1, :, 1], 255 - _IPTC_PIC[..., 2]], -1))
+# images an IPTC file's records may hold, Pillow opening each as RGB or
+# CMYK: Pillow's core of each (RGBX, its pad byte 255, or 0 from the SGI
+# decoder; the CMYK bytes)
+_COLOUR_INNER = {
+    "JPEG RGB": lambda: _encoded(_IPTC_RGB, "JPEG", quality=90),
+    "JPEG CMYK": lambda: _encoded(_IPTC_RGB, "JPEG", quality=90,
+                                  mode="CMYK"),
+    "PNG RGB": lambda: _encoded(_IPTC_RGB, "PNG"),
+    "PPM": lambda: _encoded(_IPTC_RGB, "PPM"),
+    "BMP": lambda: _encoded(_IPTC_RGB, "BMP"),
+    "SGI": lambda: _encoded(_IPTC_RGB, "SGI"),
+    "TGA": lambda: _encoded(_IPTC_RGB, "TGA"),
+    "PCX": lambda: _encoded(_IPTC_RGB, "PCX"),
+    "QOI": lambda: _encoded(_IPTC_RGB, "QOI"),
+    "WebP": lambda: _encoded(_IPTC_RGB, "WEBP", lossless=True),
+    "JPEG 2000": lambda: _encoded(_IPTC_RGB, "JPEG2000"),
+}
+
+
+@pytest.mark.parametrize("inner", sorted(_COLOUR_INNER))
+def test_c19_l_file_over_a_colour_core(inner, tmp_path):
+    """An IPTC/NAA L file (3:60 of one layer) whose records hold a colour
+    image: Pillow's L image over the image's RGB or CMYK core. Its
+    ``convert("RGB")`` is the image's; its L samples, which read_grey
+    gives, are the first bytes of each row of the core; the reference's
+    external mask resizes the core and reads its second band. All four
+    readers and the mask against Pillow and the reference, by path."""
+    from art_tpu.masks import _load_external_mask as ref_mask
+    from art_tpu_torch.io.imagefile import read_grey
+    from art_tpu_torch.masks import load_external_mask
+
+    path = _write(tmp_path, up.iptc_jpeg(_COLOUR_INNER[inner](), 27, 19, 1),
+                  "l.iim")
+    with Image.open(path) as im:
+        assert im.mode == "L"
+        want = np.asarray(im)
+    grey, mode = read_grey(path)
+    assert mode == "L"
+    np.testing.assert_array_equal(grey, want)
+    check_readers(path)
+    for h, w in ((30, 40), (19, 27), (7, 9)):
+        np.testing.assert_array_equal(load_external_mask(path, h, w, False),
+                                      ref_mask(path, h, w, False))
+
+
+@pytest.mark.parametrize("band", [None, 1, 2])
+@pytest.mark.parametrize("inner", sorted(set(_COLOUR_INNER) - {
+    "JPEG RGB", "JPEG CMYK", "PNG RGB", "PPM"}))
+def test_c20_band_of_a_colour_image(inner, band, tmp_path):
+    """An IPTC/NAA RGB file naming band 0 (none named, or 3:65 of 1) or
+    band 1 of a colour image in a format other than JPEG, PNG, PNM or
+    TIFF: Pillow's merge raises its ValueError (the band's mode is not
+    L, or its core has more than one band), in the port's readers and
+    load_std_image alike (the port read the decode's first channel)."""
+    path = _write(tmp_path, up.iptc_jpeg(_COLOUR_INNER[inner](), 27, 19, 3,
+                                         band), "b.iim")
+    assert _class(lambda: Image.open(path).convert("RGB")) == "ValueError"
+    assert _class(lambda: read_rgb8(path)) == "ValueError"
+    assert _class(lambda: load_std_image(path)) == "ValueError"
+    assert _class(lambda: ref_load(path)) == "ValueError"
+
+
+@pytest.mark.parametrize("inner", ["GIF", "BMP P", "PNG P", "PNG RGBA"])
+def test_c20_second_band_of_a_palette_image(inner, tmp_path):
+    """Band 1 of an IPTC/NAA RGB file (3:65 of 2) holding a palette or
+    RGBA image: a band the merge checks, its mode not L, so Pillow's
+    ValueError in the port's readers too (a GIF opens as P in Pillow,
+    even of a grey image)."""
+    img = Image.fromarray(_IPTC_RGB)
+    if inner == "PNG RGBA":
+        img = Image.fromarray(np.dstack([_IPTC_RGB, _IPTC_PIC[..., :1]]))
+    elif inner != "GIF":
+        img = img.convert("P")
+    bio = io.BytesIO()
+    img.save(bio, inner.split()[0])
+    path = _write(tmp_path, up.iptc_jpeg(bio.getvalue(), 27, 19, 3, 2),
+                  "p.iim")
+    assert _class(lambda: Image.open(path).convert("RGB")) == "ValueError"
+    assert _class(lambda: read_rgb8(path)) == "ValueError"
+    assert _class(lambda: load_std_image(path)) == "ValueError"
+
+
+def _palette_inner(inner):
+    """The bytes of a palette (or bilevel) image of _IPTC_RGB in the
+    format `inner` names, as Pillow writes it."""
+    img = Image.fromarray(_IPTC_RGB)
+    fmt, _, kind = inner.partition(" ")
+    kw = {}
+    if kind == "1":
+        img = img.convert("1")
+    elif kind == "P4":
+        img, kw = img.quantize(16), {"bits": 4} if fmt == "PNG" else {}
+    elif kind == "P tRNS":
+        img, kw = img.convert("P"), {"transparency": 3}
+    elif fmt != "GIF":
+        img = img.convert("P")
+    bio = io.BytesIO()
+    img.save(bio, fmt, **kw)
+    return bio.getvalue()
+
+
+@pytest.mark.parametrize("band", [None, 1])
+@pytest.mark.parametrize("inner", [
+    "GIF", "BMP P", "BMP P4", "PNG P", "PNG P4", "PNG P tRNS", "TIFF P",
+    "TGA P", "PCX P", "IM P", "PPM 1", "PNG 1", "BMP 1"])
+def test_c20_first_band_of_a_palette_image(inner, band, tmp_path):
+    """Band 0 of an IPTC/NAA RGB file (none named, or 3:65 of 1) holding
+    a palette or bilevel image: a band the merge does not check, taken
+    as the image's bytes, so a P image's indices (not its colours) and
+    a bilevel image's 0 and 255 in the red channel. The port's readers
+    and load_std_image as Pillow's and the reference's, by path (the
+    port read a P image's first colour channel, a PBM's raised)."""
+    path = _write(tmp_path, up.iptc_jpeg(_palette_inner(inner), 27, 19, 3,
+                                         band), "p0.iim")
+    with Image.open(path) as im:
+        want = np.asarray(im.convert("RGB"))
+    np.testing.assert_array_equal(read_rgb8(path), want)
+    assert not want[..., 1:].any()
+    if inner.split()[-1] != "1":
+        with Image.open(io.BytesIO(_palette_inner(inner))) as im:
+            np.testing.assert_array_equal(want[..., 0], np.asarray(im))
+    np.testing.assert_array_equal(load_std_image(path).rgb,
+                                  ref_load(path).rgb)
+    check_readers(path)
+
+
+def test_c20_first_band_of_another_palette_format_is_named(tmp_path):
+    """Band 0 of an IPTC/NAA RGB file holding a palette image in a format
+    whose index plane the port does not read (an XPM here): refused by
+    name, where Pillow merges its indices."""
+    xpm = (b'/* XPM */\nstatic char *x[] = {\n"2 1 2 1",\n"a c #FF0000",\n'
+           b'"b c #0000FF",\n"ab"\n};\n')
+    path = _write(tmp_path, up.iptc_jpeg(xpm, 2, 1, 3), "x.iim")
+    with Image.open(path) as im:
+        assert np.asarray(im.convert("RGB"))[0, :, 0].tolist() == [0, 1]
+    with pytest.raises(NotImplementedError, match="XPM"):
+        read_rgb8(path)
 
 
 def test_iptc_jpeg_band_cut_short(tmp_path):

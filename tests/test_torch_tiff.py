@@ -446,6 +446,32 @@ def test_old_style_jpeg(name, tmp_path):
     assert check_file(OJPEG[name](), tmp_path) == "ok"
 
 
+@pytest.mark.parametrize("rows", [8, 16, 24, 32])
+@pytest.mark.parametrize("form", ["4:4:4", "4:2:2", "4:2:0", "grey tables",
+                                  "grey interchange"])
+def test_c17_rows_per_strip_names_more_strips_than_held(form, rows,
+                                                        tmp_path):
+    """One strip of entropy data holding the whole 48x64 image, and
+    RowsPerStrip naming 2 to 8 strips: libtiff pads the offsets with
+    zeros, tif_ojpeg sets a restart interval of a strip's MCUs, checks
+    that a strip is whole MCU rows, and inserts a restart marker after
+    the strip it holds. The first missing strip runs out of data (its
+    rows are zero blocks in Pillow's RGBA path, a failed strip in the
+    grey one) and the next one fails the load: Pillow's array or its
+    error, by path."""
+    rng = np.random.default_rng(5)
+    if form.startswith("grey"):
+        g = rng.integers(0, 256, (64, 48), dtype=np.uint8)
+        data = U.ojpeg_grey(g, 1, tables=form == "grey tables", rows=rows)
+    else:
+        rgb = rng.integers(0, 256, (64, 48, 3), dtype=np.uint8)
+        data = U.ojpeg_tables(rgb, ("4:4:4", "4:2:2", "4:2:0").index(form),
+                              rows=rows)
+    assert len(tiff.open_tiff(data).offsets) == 1
+    want = "ok" if rows == 32 and not form.startswith("grey") else "load"
+    assert check_file(data, tmp_path) == want
+
+
 def test_old_style_jpeg_close_to_its_source():
     """The interchange form at 4:4:4: a few codes from the picture (JPEG
     at quality 85 and libtiff's YCbCr tables)."""
@@ -990,6 +1016,58 @@ def test_damaged_copies(name):
         start += 600  # past the JPEG's tables, into its entropy data
     outcomes = [check(copy) for copy in _damaged(data, start, 30, len(name))]
     assert len(outcomes) == 30
+
+
+def _cut_each(tags, blocks, k):
+    """The file of `blocks` with block `k` cut at each of its bytes (its
+    byte count the cut's), every cut against Pillow."""
+    for n in range(len(blocks[k]) + 1):
+        cut = list(blocks)
+        cut[k] = blocks[k][:n]
+        check(U.build(tags, cut))
+
+
+def test_c18_zstd_strip_cut_at_every_byte():
+    """tests/data/tiff_c18_zstd_ycbcr.tif: YCbCr 4:2:0 in three ZSTD
+    strips (noise in a raw block, a flat strip, noise again). Each strip
+    cut at every byte: Pillow's array or its error. libzstd streams a
+    raw block's bytes as they come, so a strip cut inside one keeps them
+    (and the RGBA path shows them); a byte count of 0 fails
+    TIFFFillStrip."""
+    with open(os.path.join(DATA, "tiff_c18_zstd_ycbcr.tif"), "rb") as f:
+        data = f.read()
+    t = tiff.open_tiff(data)
+    strips = [data[o : o + n] for o, n in zip(t.offsets, t.counts)]
+    tags = {256: (SHORT, (t.w,)), 257: (SHORT, (t.h,)),
+            258: (SHORT, (8, 8, 8)), 259: (SHORT, (50000,)),
+            262: (SHORT, (6,)), 277: (SHORT, (3,)), 278: (SHORT, (t.th,)),
+            530: (SHORT, (2, 2))}
+    assert check(U.build(tags, strips)) == "ok"
+    for k in range(len(strips)):
+        _cut_each(tags, strips, k)
+
+
+def test_c18_zstd_tile_cut_at_every_byte():
+    """YCbCr 4:2:0 in four 16x16 ZSTD tiles (raw blocks for the noisy
+    ones), each tile cut at every byte: Pillow's array or its error (a
+    tile of no bytes fails TIFFFillTile, and fails the load where it
+    starts a row of tiles)."""
+    import zlib
+
+    rng = np.random.default_rng(61)
+    cb, cr = (rng.integers(0, 256, (11, 16), dtype=np.uint8) for _ in "bc")
+    data = U.ycbcr_tiled(YC[0], cb, cr, 2, 2, 16, 16, 8)
+    t = tiff.open_tiff(data)
+    tiles = [zstandard.ZstdCompressor(level=12, write_checksum=True).compress(
+        zlib.decompress(data[o : o + n])) for o, n in zip(t.offsets,
+                                                           t.counts)]
+    tags = {256: (SHORT, (31,)), 257: (SHORT, (21,)),
+            258: (SHORT, (8, 8, 8)), 259: (SHORT, (50000,)),
+            262: (SHORT, (6,)), 277: (SHORT, (3,)),
+            322: (SHORT, (16,)), 323: (SHORT, (16,)), 530: (SHORT, (2, 2))}
+    assert check(U.build(tags, tiles)) == "ok"
+    for k in range(len(tiles)):
+        _cut_each(tags, tiles, k)
 
 
 @pytest.mark.slow
