@@ -4,8 +4,10 @@
 GIF's LZW decoder (``io/native/lzwdec.cc``), the WebP decoder
 (``io/native/webpdec.cc``), the simple raster formats' decoders
 (``io/native/rasterdec.cc``), the JPEG 2000 decoder
-(``io/native/jp2dec.cc``) and the TIFF codecs (``io/native/tiffdec.cc``:
-ZSTD, CCITT fax, ThunderScan).
+(``io/native/jp2dec.cc``), the TIFF codecs (``io/native/tiffdec.cc``:
+ZSTD, CCITT fax, ThunderScan) and the writers' encoders
+(``io/native/saveenc.cc``: QOI, PCX, EPS, GIF's median cut and LZW, the
+resamples).
 
 Each source is compiled by g++ with portable flags (no ``-march=native``,
 so a library built on one machine runs on another), and a source's own
@@ -60,7 +62,7 @@ def _cxx() -> str:
         raise RuntimeError("g++ not found: cannot build the art_tpu_torch "
                            "host libraries (raw decoder, JPEG encoder and "
                            "decoder, GIF, WebP, raster, JPEG 2000 and "
-                           "TIFF decoders)")
+                           "TIFF decoders, the writers' encoders)")
     return cxx
 
 

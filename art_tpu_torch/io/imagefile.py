@@ -121,9 +121,11 @@ def save_image(path, rgb_encoded01, bits=8, quality=92, icc_bytes=None,
         write_png(path, data, icc_bytes=icc_bytes, exif_bytes=exif_bytes,
                   xmp_bytes=xmp_bytes)
         return
-    raise NotImplementedError(
-        f"output format of {path!r}: only JPEG, TIFF and PNG are ported "
-        "to art_tpu_torch")
+    # the reference's Image.fromarray(data).save(path, icc_profile=...,
+    # exif=...): Pillow's writer of the extension's format
+    from art_tpu_torch.io import savers
+
+    savers.save(path, data, icc_bytes=icc_bytes, exif_bytes=exif_bytes)
 
 
 def _chunk(kind, data):
@@ -132,7 +134,15 @@ def _chunk(kind, data):
 
 
 def write_png(path, hwc, icc_bytes=None, exif_bytes=None, xmp_bytes=None):
-    """Write an (H, W, 3) uint8 or uint16 RGB image as a PNG: no filter,
+    """Write an (H, W, 3) uint8 or uint16 RGB image as a PNG
+    (`png_bytes`)."""
+    data = png_bytes(hwc, icc_bytes, exif_bytes, xmp_bytes)
+    with open(path, "wb") as f:
+        f.write(data)
+
+
+def png_bytes(hwc, icc_bytes=None, exif_bytes=None, xmp_bytes=None):
+    """The PNG of an (H, W, 3) uint8 or uint16 RGB image: no filter,
     deflate level 6; the ICC profile as iCCP, EXIF as eXIf, XMP as an
     iTXt chunk."""
     hwc = np.asarray(hwc)
@@ -159,8 +169,7 @@ def write_png(path, hwc, icc_bytes=None, exif_bytes=None, xmp_bytes=None):
                           + xmp_bytes))
     out.append(_chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)))
     out.append(_chunk(b"IEND", b""))
-    with open(path, "wb") as f:
-        f.write(b"".join(out))
+    return b"".join(out)
 
 
 # -- decode ----------------------------------------------------------------
@@ -187,13 +196,13 @@ def read_grey(path, resized=False):
     grey TIFF), "F" (float32: a TIFF of 32-bit float samples) or "L"
     (uint8: any other image, "I" of a deep PGM included, the green
     channel of its ``convert("RGB")``), of the formats `read_rgb8`
-    reads. An IPTC/NAA L file over a colour core
+    reads. An IPTC/NAA L file over a core of another mode
     (`plugins.iptc_l_core`) gives Pillow's L samples, each row the first
     bytes of the core's row; or, `resized`, the plane the reference's
     resize and green channel read, the core's second band (the resize
-    keeps the core's mode). Bytes that are no
-    image, and an image whose decode fails (a truncated file), raise
-    OSError as PIL does; another format that PIL reads raises
+    keeps the core's mode), or a P core's indices as mode "P". Bytes
+    that are no image, and an image whose decode fails (a truncated
+    file), raise OSError as PIL does; another format that PIL reads raises
     NotImplementedError naming it."""
     with open(path, "rb") as f:
         buf = f.read()
@@ -204,9 +213,11 @@ def read_grey(path, resized=False):
 
     core = plugins.iptc_l_core(buf, path)
     if core is not None:
-        h, w = core.shape[:2]
-        plane = core[..., 1] if resized else core.reshape(h, 4 * w)[:, :w]
-        return np.ascontiguousarray(plane), "L"
+        mem, second = core
+        if resized:  # a P core has no band Pillow's resize takes
+            return (mem, "P") if second is None else (second, "L")
+        h, w = mem.shape[:2]
+        return np.ascontiguousarray(mem.reshape(h, -1)[:, :w]), "L"
     return to_rgb8(mode, samples)[..., 1], "L"
 
 

@@ -278,7 +278,7 @@ def to_pillow_layout(mode, im):
     return im
 
 
-def read_jpeg2000(buf, path):
+def read_jpeg2000(buf, path, indices=False):
     """A JPEG 2000 image as ``imagefile.read_image`` gives it: (mode,
     samples, None), I;16 as it is, any other mode its ``convert("RGB")``
     (P and PA through the open's palette)."""
@@ -290,4 +290,8 @@ def read_jpeg2000(buf, path):
     mode, size = unported._jpeg2000(f)
     codec, palette = f.tile
     im = to_pillow_layout(mode, decode(buf, codec, mode, size))
+    if indices and mode in ("P", "PA"):
+        from art_tpu_torch.io.stdformats import GREY_PALETTE
+
+        palette = GREY_PALETTE
     return (*rgb_out(mode, im, palette), None)

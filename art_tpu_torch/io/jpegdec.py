@@ -336,10 +336,14 @@ def decode_tiff_stream(buf, color):
 
 def decode_raw(buf):
     """A JPEG stream's component planes as libjpeg's jpeg_read_raw_data
-    gives them (libtiff's old-style JPEG): a list of (plane (rows, row
-    length) uint8 in whole blocks, (h, v) sampling factors). A stream
-    libjpeg fails on before its last row raises OSError; what follows
-    the rows (tif_ojpeg never finishes the decompression) is not read."""
+    gives them to libtiff's old-style JPEG, through tif_ojpeg's source
+    manager, whose resync_to_restart fails the decode where libjpeg's own
+    would resync: (planes, None), or (planes, n) where the decode failed
+    in iMCU row n (the planes' rows before it are the rows
+    jpeg_read_raw_data wrote). Each plane is (plane (rows, row length)
+    uint8 in whole blocks, (h, v) sampling factors). A stream libjpeg
+    fails on otherwise raises OSError; what follows the rows (tif_ojpeg
+    never finishes the decompression) is not read."""
     lib = _load()
     info = (ctypes.c_int * 5)()
     geom = (ctypes.c_int * 40)()
@@ -349,7 +353,7 @@ def decode_raw(buf):
     if lib.jpegdec_decode_raw(data, len(data), info, geom, ctypes.byref(out),
                               msg, len(msg)) != 0:
         raise RuntimeError("jpegdec: bad arguments")
-    if info[0] not in (0, 1) or not out:
+    if info[0] not in (0, 1, 4) or not out:
         if out:
             lib.jpegdec_free(out)
         raise OSError(f"JPEG raw data: "
@@ -366,7 +370,7 @@ def decode_raw(buf):
         planes.append((flat[at : at + rows * pw].reshape(rows, pw),
                        (geom[4 * c + 2], geom[4 * c + 3])))
         at += rows * pw
-    return planes
+    return planes, (info[4] if info[0] == 4 else None)
 
 
 def decode_rgb(buf, salvage=False):

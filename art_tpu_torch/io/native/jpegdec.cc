@@ -66,7 +66,8 @@
 // Colour 0 takes any number of components, output as they are.
 //   int jpegdec_decode_raw(data, len, int* info, int* geom, ...)
 // gives the components' planes unconverted and not upsampled, as
-// libjpeg's jpeg_read_raw_data does (libtiff's old-style JPEG).
+// libjpeg's jpeg_read_raw_data does for libtiff's old-style JPEG, whose
+// source manager fails the decode at an unexpected restart marker.
 
 #include <algorithm>
 #include <cstdint>
@@ -224,6 +225,9 @@ struct Decoder {
   // the caller's jpeg_color_space for three components: -1 libjpeg's
   // guess, 0 none (JCS_UNKNOWN: the components as they are), 1 YCbCr
   int color_override = -1;
+  // tif_ojpeg's source manager: its resync_to_restart fails the decode
+  // ("Unexpected error") where libjpeg's own would resync
+  bool resync_fails = false;
   int adobe_transform = 0;
   int restart_interval = 0;
   int next_restart_num = 0;
@@ -974,6 +978,7 @@ struct Decoder {
     next_restart_num = (next_restart_num + 1) & 7;
   }
   void resync_to_restart(int desired) {
+    if (resync_fails) fail("Unexpected error");
     int marker = unread_marker;
     for (;;) {
       int action;
@@ -2184,7 +2189,10 @@ static int decode_impl(const uint8_t* data, size_t len, int salvage, int color, 
   info[1] = info[2] = info[3] = info[4] = 0;
   Decoder* dp = new Decoder();
   Decoder& dec = *dp;
+  bool ojpeg = color == 4;  // raw planes through tif_ojpeg's source
+  if (ojpeg) color = 3;
   dec.color_override = color;
+  dec.resync_fails = ojpeg;
   dec.d.assign(data, data + len);
   dec.file_len = len;
   if (salvage) {
@@ -2274,6 +2282,31 @@ static int decode_impl(const uint8_t* data, size_t len, int salvage, int color, 
   } catch (Fail& f) {
     err = f.msg;
     outcome = rows_done ? 1 : 3;
+    if (!rows_done && ojpeg && dec.single_scan) {
+      // jpeg_read_raw_data's iMCU rows written before the failing one
+      std::vector<std::vector<uint8_t>> planes;
+      std::vector<int> pws;
+      dec.sample_planes(planes, pws);
+      size_t total = 0;
+      for (int ci = 0; ci < dec.ncomp; ci++) total += planes[ci].size();
+      img = (uint8_t*)malloc(std::max<size_t>(total, 1));
+      if (img) {
+        size_t at = 0;
+        for (int ci = 0; ci < dec.ncomp; ci++) {
+          memcpy(img + at, planes[ci].data(), planes[ci].size());
+          at += planes[ci].size();
+          if (geom) {
+            geom[4 * ci] = (int)(planes[ci].size() / pws[ci]);
+            geom[4 * ci + 1] = pws[ci];
+            geom[4 * ci + 2] = dec.comp[ci].h;
+            geom[4 * ci + 3] = dec.comp[ci].v;
+          }
+        }
+        info[4] = dec.imcu_in_progress;
+        outcome = 4;
+        rows_done = true;
+      }
+    }
     if (!rows_done && color != 3 && dec.single_scan && dec.rows_output() > 0) {
       // the scanlines output before the error, zeros after
       int rows = dec.rows_output();
@@ -2314,10 +2347,13 @@ int jpegdec_decode_as(const uint8_t* data, size_t len, int salvage, int color, i
 // color 3 of jpegdec_decode_as: the components' planes as
 // jpeg_read_raw_data gives them (no upsampling, no colour conversion),
 // one after another; geom[4 * ci ..]: the plane's rows and row length and
-// the component's sampling factors (at most 10 components)
+// the component's sampling factors (at most 10 components); through
+// tif_ojpeg's source manager: an unexpected restart marker fails the
+// decode; info[0] 4: the planes of the info[4] iMCU rows decoded before
+// the failure (the rest as the coefficients stand)
 int jpegdec_decode_raw(const uint8_t* data, size_t len, int* info, int* geom, uint8_t** out,
                        char* msg, int msg_len) {
-  return decode_impl(data, len, 0, 3, info, geom, out, msg, msg_len);
+  return decode_impl(data, len, 0, 4, info, geom, out, msg, msg_len);
 }
 
 int jpegdec_decode(const uint8_t* data, size_t len, int salvage, int* info, uint8_t** out,

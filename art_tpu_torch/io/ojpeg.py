@@ -62,6 +62,15 @@ def _segments(head, ncomp=3):
     return None
 
 
+def _markers(header):
+    """The two-byte markers of a JIF header's segments."""
+    out, pos = [], 2
+    while pos + 4 <= len(header):
+        out.append(header[pos : pos + 2])
+        pos += 2 + struct.unpack_from(">H", header, pos + 2)[0]
+    return out
+
+
 def _table_header(t, buf, hs, vs, ncomp=3):
     """SOI, the tables, DRI and SOF0/SOS tif_ojpeg writes from the tags
     for `ncomp` components (a table of each kind a component), or None
@@ -87,7 +96,7 @@ def _table_header(t, buf, hs, vs, ncomp=3):
                 return None
             out += b"\xff\xc4" + struct.pack(">HB", 19 + len(vals),
                                               (cls << 4) | i) + bits + vals
-    ri = int(d.get(515, 0))
+    ri = restart_interval(t, hs, vs)
     if ri:
         out += b"\xff\xdd" + struct.pack(">HH", 4, ri)
     out += b"\xff\xc0" + struct.pack(">HBHHB", 8 + 3 * ncomp, 8, t.h, t.w,
@@ -119,6 +128,16 @@ def header_fails(t, vs):
     return not t.tiled and rows < t.h and rows % (8 * vs) != 0
 
 
+def restart_interval(t, hs, vs):
+    """The restart interval tif_ojpeg gives libjpeg: where a strip is
+    shorter than the image, a strip's MCUs (OJPEGReadHeaderInfo), else
+    JPEGRestartInterval's."""
+    rows = t.th if 0 < t.th < t.h else t.h
+    if not t.tiled and rows < t.h:
+        return -(-t.w // (8 * hs)) * (rows // (8 * vs))
+    return int(t.ifd.get(515, 0))
+
+
 def _strips(t, buf):
     """The strips' bytes in order, as tif_ojpeg reads them."""
     out = []
@@ -144,6 +163,11 @@ def stream(t, buf, tag_sampling, ncomp=3):
             return None, tag_sampling
         header, sampling = parsed
         body += head[len(header):]
+        ri = restart_interval(t, *sampling)
+        if ri and b"\xff\xdd" not in _markers(header):
+            # the forced interval, where the stream sets none of its own
+            header = (header[:2] + b"\xff\xdd" + struct.pack(">HH", 4, ri)
+                      + header[2:])
     else:
         sampling = tag_sampling
         header = _table_header(t, buf, *sampling, ncomp)

@@ -223,13 +223,13 @@ def read_im(buf, path, indices=False):
 
 # -- SUN, MSP, XVThumb, PIXAR, GBR -------------------------------------------
 
-def read_sun(buf, path):
+def read_sun(buf, path, indices=False):
     f, mode, size = _open(unported._sun, buf, path)
     rawmode, offset, stride, rle, palette = f.tile
     w, h = size
     pal = None
     if mode == "P":  # ImageFile.load_prepare sets a P image's palette
-        pal = _pal(palette, planar=True)  # before its tile decodes
+        pal = GREY_PALETTE if indices else _pal(palette, planar=True)
     if rle:
         img = new(mode, w, h)
         data = seek(buf, path, offset)
@@ -289,10 +289,11 @@ _XV_PALETTE = np.array([((r * 255) // 7, (g * 255) // 7, (b * 255) // 3)
                         for b in range(4)], np.uint8)
 
 
-def read_xvthumb(buf, path):
+def read_xvthumb(buf, path, indices=False):
     f, mode, size = _open(unported._xvthumb, buf, path)
     img = load_raw(buf, path, mode, size, [(f.tile, mode)])
-    return (*rgb_out(mode, img, _XV_PALETTE), None)
+    return (*rgb_out(mode, img, GREY_PALETTE if indices else _XV_PALETTE),
+            None)
 
 
 def read_pixar(buf, path):
@@ -324,7 +325,7 @@ def read_xbm(buf, path):
     return (*rgb_out(mode, img), None)
 
 
-def read_xpm(buf, path):
+def read_xpm(buf, path, indices=False):
     f, mode, size = _open(unported._xpm, buf, path)
     bpp, palette, offset = f.tile
     w, h = size
@@ -358,7 +359,9 @@ def read_xpm(buf, path):
                     raise PilValueError("tuple.index(x): x not in tuple")
                 data.append(index[key])
     _set_as_raw(img, data, mode)
-    pal = _pal(b"".join(palette.values())) if mode == "P" else None
+    pal = None
+    if mode == "P":
+        pal = GREY_PALETTE if indices else _pal(b"".join(palette.values()))
     return (*rgb_out(mode, img, pal), None)
 
 
@@ -436,11 +439,14 @@ def read_iptc(buf, path):
 
 def iptc_l_core(buf, path=None):
     """The core under Pillow's L image of an IPTC/NAA L file whose
-    records hold an RGB image (RGBX, (H, W, 4) uint8, the pad byte 255,
-    or 0 from Pillow's SGI decoder) or a JPEG's CMYK: Pillow's L samples
-    are the first bytes of each of its rows, and a resize keeps its
-    mode. None for any other file."""
-    from art_tpu_torch.io import imagefile, jpegdec
+    records hold an image of another mode than L: (its memory, its
+    second band), or None for any other file. The memory is (H, W, 4)
+    uint8 for a four-byte mode (RGB as RGBX, the pad byte 255, or 0 from
+    Pillow's SGI decoder; RGBA; LA as L, L, L, A; CMYK) and (H, W) for
+    P, whose second band is None (Pillow's resize of a P core fails).
+    Pillow's L samples are the first bytes of each of its rows, and a
+    resize keeps its mode."""
+    from art_tpu_torch.io import imagefile, jpegdec, tiff
 
     if buf[:1] != b"\x1c":
         return None
@@ -449,22 +455,43 @@ def iptc_l_core(buf, path=None):
         return None
     data = _iptc_records(buf, path)[3]
     inner = _inner_mode(data)
+    if inner == "P":
+        return _palette_indices(data), None
     if inner == "CMYK" and data[:3] == b"\xff\xd8\xff":
-        return jpegdec.decode(data)
-    if inner == "RGB":
+        mem = jpegdec.decode(data)
+    elif inner == "RGB":
         mode, samples, _ = imagefile._decode(data, None)
-        if mode == "RGB":
-            pad = 0 if data[:2] == b"\x01\xda" else 255
-            return np.dstack([samples, np.full(samples.shape[:2], pad,
-                                               np.uint8)])
-    return None
+        if mode != "RGB":
+            return None
+        pad = 0 if data[:2] == b"\x01\xda" else 255
+        mem = np.dstack([samples, np.full(samples.shape[:2], pad, np.uint8)])
+    elif inner in ("RGBA", "LA", "CMYK"):
+        if data[:8] == b"\x89PNG\r\n\x1a\n":
+            arr = imagefile._read_png(data)[0]
+            if arr.dtype != np.uint8:
+                arr = (arr >> 8).astype(np.uint8)
+        elif data[:4] in (b"II\x2a\x00", b"MM\x00\x2a", b"II\x2b\x00",
+                          b"MM\x00\x2b"):
+            arr = tiff.load(data)[1]
+        else:
+            raise NotImplementedError(
+                f"IPTC/NAA: an L file over a {inner} "
+                f"{unported.walk(data)[0]} image: the port reads such a "
+                "core from a PNG or TIFF only")
+        mem = arr if inner != "LA" else arr[..., [0, 0, 0, 1]]
+        if inner == "LA":
+            return np.ascontiguousarray(mem), np.ascontiguousarray(arr[..., 1])
+    else:
+        return None
+    return mem, np.ascontiguousarray(mem[..., 1])
 
 
 def _palette_indices(data):
     """The index plane of the palette image `data` holds, the bytes
     Pillow's merge takes of it as a first band: a PNG's, GIF's, BMP's,
-    TIFF's, TGA's, PCX's or IM's; NotImplementedError naming any other
-    format."""
+    TIFF's, TGA's, PCX's, DCX's, CUR's, IM's, PSD's, SUN's, XPM's,
+    FLI's, XVThumb's, JPEG 2000's or DDS's, every format Pillow opens as P
+    (a BLP opens as RGB or RGBA, an ICO as RGBA)."""
     from art_tpu_torch.io import imagefile, rasterformats, stdformats, tiff
 
     if data[:8] == b"\x89PNG\r\n\x1a\n":
@@ -476,13 +503,14 @@ def _palette_indices(data):
     if data[:4] in (b"II\x2a\x00", b"MM\x00\x2a", b"II\x2b\x00",
                     b"MM\x00\x2b"):
         return tiff.load(data)[1]
-    name = unported.walk(data)[0]
+    from art_tpu_torch.io import jpeg2000, textures
+
     read = {"TGA": rasterformats.read_tga, "PCX": rasterformats.read_pcx,
-            "IM": read_im}.get(name)
-    if read is None:
-        raise NotImplementedError(
-            f"IPTC/NAA: band 0 of a palette {name} image: the port reads "
-            "the index plane of a PNG, GIF, BMP, TIFF, TGA, PCX or IM only")
+            "DCX": rasterformats.read_dcx, "CUR": rasterformats.read_cur,
+            "IM": read_im, "PSD": rasterformats.read_psd, "SUN": read_sun,
+            "XPM": read_xpm, "FLI": read_fli, "XVThumb": read_xvthumb,
+            "JPEG 2000": jpeg2000.read_jpeg2000,
+            "DDS": textures.read_dds}[unported.walk(data)[0]]
     return read(data, None, indices=True)[1][..., 0]
 
 
@@ -560,7 +588,7 @@ def read_pcd(buf, path):
 
 # -- FLI ---------------------------------------------------------------------
 
-def read_fli(buf, path):
+def read_fli(buf, path, indices=False):
     f, mode, size = _open(unported._fli, buf, path)
     palette, block = f.tile
     w, h = size
@@ -584,4 +612,5 @@ def read_fli(buf, path):
         b = b[n:]
     if err.value < 0:
         raise decoder_error(err.value)
-    return "RGB", np.array(palette, np.uint8)[img], None
+    pal = GREY_PALETTE if indices else np.array(palette, np.uint8)
+    return "RGB", pal[img], None

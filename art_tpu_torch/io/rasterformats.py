@@ -204,10 +204,11 @@ def read_ico(buf, path):
     return (*read_bitmap(buf, offset, rows=lambda h: int(h / 2)), None)
 
 
-def read_cur(buf, path):
+def read_cur(buf, path, indices=False):
     f = _File(buf)
     at = struct.unpack_from("<I", unported.cur_entry(f), 12)[0] or f.tell()
-    return (*read_bitmap(buf, at, rows=lambda h: h // 2), None)
+    return (*read_bitmap(buf, at, rows=lambda h: h // 2, indices=indices),
+            None)
 
 
 # -- TGA ---------------------------------------------------------------------
@@ -283,13 +284,13 @@ _PSD_MODES = {(0, 1): ("1", 1), (0, 8): ("L", 1), (1, 8): ("L", 1),
               (7, 8): ("L", 1), (8, 8): ("L", 1), (9, 8): ("LAB", 3)}
 
 
-def read_psd(buf, path):
+def read_psd(buf, path, indices=False):
     hd = unported.psd_header(_File(buf))
     mode, channels, comp = hd["mode"], hd["channels"], hd["comp"]
     w, h = hd["size"]
     icc = hd["icc"]
-    palette = None if hd["palette"] is None else \
-        palette_rgb(hd["palette"], planar=True)
+    palette = None if hd["palette"] is None else GREY_PALETTE if indices \
+        else palette_rgb(hd["palette"], planar=True)
     at = hd["offset"]
     layers = [c + ";I" if mode == "CMYK" else c for c in mode[:channels]]
     if comp == 0:
@@ -390,8 +391,9 @@ def read_pcx(buf, path, indices=False):
     return (*_read_pcx(buf, 0, indices), None)
 
 
-def read_dcx(buf, path):
-    return (*_read_pcx(buf, struct.unpack_from("<I", buf, 4)[0]), None)
+def read_dcx(buf, path, indices=False):
+    return (*_read_pcx(buf, struct.unpack_from("<I", buf, 4)[0], indices),
+            None)
 
 
 # -- SGI ---------------------------------------------------------------------

@@ -51,7 +51,8 @@ import numpy as np
 from art_tpu_torch.io import unported
 from art_tpu_torch.io.rasterformats import _lib, _ptr
 from art_tpu_torch.io.rawtile import new, raw, rgb_out, truncated
-from art_tpu_torch.io.stdformats import (DecompressionBomb, PilValueError,
+from art_tpu_torch.io.stdformats import (GREY_PALETTE, DecompressionBomb,
+                                         PilValueError,
                                          Unidentified)
 from art_tpu_torch.io.unported import _File
 
@@ -208,7 +209,7 @@ def _dds_rgb(data, w, h, bitcount, masks):
     return out.reshape(h, w, len(masks))
 
 
-def read_dds(buf, path):
+def read_dds(buf, path, indices=False):
     f = _File(buf, path)
     mode, (w, h) = unported._dds(f)
     kind, at, palette = f.tile
@@ -222,7 +223,9 @@ def read_dds(buf, path):
         img = new(mode, w, h)
         raw(img, data, mode, kind[1])
         pal = None
-        if palette is not None:
+        if palette is not None and indices:
+            pal = GREY_PALETTE
+        elif palette is not None:
             pal = np.zeros((256, 3), np.uint8)
             entries = np.frombuffer(palette[: len(palette) // 4 * 4],
                                     np.uint8).reshape(-1, 4)

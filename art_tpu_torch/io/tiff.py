@@ -827,15 +827,18 @@ def _load_ojpeg_grey(t, buf, img):
     fails the load."""
     from art_tpu_torch.io import jpegdec, ojpeg
 
-    if ojpeg.header_fails(t, 1) or ojpeg.strip_count(t) > len(t.offsets):
-        raise _broken()  # the header; a strip past the offsets held
+    if ojpeg.header_fails(t, 1):
+        raise _broken()  # the header
     jstream, _ = ojpeg.stream(t, buf, (1, 1), ncomp=1)
     if jstream is None:
         raise _broken()  # OJPEGPreDecode: the header
     try:
-        plane = jpegdec.decode_raw(jstream)[0][0]
+        planes, failed_at = jpegdec.decode_raw(jstream)
     except OSError as err:
         raise _broken() from err
+    if failed_at is not None:
+        raise _broken()
+    plane = planes[0][0]
     if plane.shape[0] < t.h or plane.shape[1] < t.w:
         raise _broken()  # libjpeg runs out of scanlines
     img.px[:, :] = plane[: t.h, : t.w]
@@ -1128,12 +1131,17 @@ def _load_rgba(t, buf, img):
         if jstream is None or missing > 1 or ojpeg.header_fails(t, vs):
             raise _broken()  # OJPEGPreDecode: the header
         try:
-            planes = jpegdec.decode_raw(jstream)
+            planes, failed_at = jpegdec.decode_raw(jstream)
         except OSError as err:
             raise _broken() from err
         packed = ojpeg.ycbcr_blocks(planes, t.w, t.h, *sampling)
         if missing == 1:
             packed[len(t.offsets) * th // vs :] = 0
+        if failed_at is not None:
+            # the strip whose decode fails keeps none of its rows, and
+            # every strip after it fails at once
+            first = failed_at * 8 * vs // th * th
+            packed[first // vs :] = 0
     block_row = (t.w + hs - 1) // hs * (hs * vs + 2)
     for i, y in enumerate(range(0, t.h, th)):
         rows = min(th, t.h - y)

@@ -340,8 +340,15 @@ def load_external_mask(filename, h, w, inverted, device="cpu"):
         plane, mode = read_grey(filename, resized=True)
     except OSError:
         return None
-    a = raster.pil_resize_bilinear(plane, mode, (w, h), device).to(
-        torch.float32)
+    if mode == "P":  # an IPTC/NAA L file over a palette core
+        if plane.shape != (h, w):
+            from art_tpu_torch.io.stdformats import PilValueError
+
+            raise PilValueError("image has wrong mode")
+        a = torch.from_numpy(plane.astype(np.float32)).to(device)
+    else:
+        a = raster.pil_resize_bilinear(plane, mode, (w, h), device).to(
+            torch.float32)
     top = float(a.max())
     scale = 65535.0 if top > 255.0 else (255.0 if top > 1.0 else 1.0)
     a = torch.clamp(a / scale, 0.0, 1.0)

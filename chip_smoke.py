@@ -167,15 +167,16 @@ the same through cli.main; J1, the decoder alone and P3's and M1's
 paths with JPEG files.
 Then the package's entry points (`entry_phase`), counts reset before
 each path: X1, the flagship frame as a 16-bit PGM under a raw extension
-the native decoder does not read (.mos), registered through `init` for
+the native decoder does not read (.mos), X1, T1 and N1 at ENTRY_FRAME
+(half the flagship's rows), registered through `init` for
 the shipped preconverter (art_tpu_torch/preconverters/pnm_to_dng.py),
 through cli.main with the bundled profile and denoise 20/20: the first
 call (the preconversion) and the cached one, the phases, B1-B4 and B7
 once each and bit-equal to their plain versions on X1's tensors, the
 scan byte-equal to cli.main's on the cached DNG, a 512x768 .mos
-against the CPU; T1, `thumbnail` of a 24 MP DNG with no preview (B1-B3,
+against the CPU; T1, `thumbnail` of a DNG with no preview (B1-B3,
 as its plan says) and with H1's preview (no launch); N1, `load_image`
-of 24 MP non-raw files on the host (an 8-bit PNG, a 16-bit grey PNG, a
+of non-raw files on the host (an 8-bit PNG, a 16-bit grey PNG, a
 JPEG-compressed TIFF, a JPEG with an Adobe RGB profile), decode and ICC
 conversion timed apart, an external loader, and the PNG through
 cli.main (exit 2, non-raw input named, no file).
@@ -247,6 +248,15 @@ through cli.main with a committed 16-bit ZSTD Hald and a Group 4 mask,
 its JPEG byte-equal to the same develop from PNGs of the same samples,
 B1-B4 and B7 once each and bit-equal to their plain versions on V2's
 tensors.
+Then the writers (`output_phase`): O1, every format the reference saves
+through Pillow written by the port (`art_tpu_torch/io/savers.py`) from a
+seeded photo-like 24 MP array, each timed, the lossless ones read back
+through the port's decoders equal to the array, the GIF to its own
+indices and palette, ICO and ICNS timed with their largest frames equal
+to their resamples, and the small O1 fixtures' bytes against Pillow's
+sha256; O2, the flagship through cli.main to a PNG, a GIF, a PDF and a
+BMP, B1-B4 and B7 once each and bit-equal to their plain versions, each
+file byte-equal to the port's writer applied to the PNG's pixels.
 Then one JSON line of per-kernel results (time, plain time, bound) and
 last the line {"ok": true, "device": {...}}. Any failure raises
 (non-zero exit, no result lines); so does a machine without CUDA.
@@ -255,6 +265,7 @@ last the line {"ok": true, "device": {...}}. Any failure raises
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import io
 import json
 import os
@@ -264,6 +275,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import zlib
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -3711,6 +3723,10 @@ def jpeg_phase(smi_line, tmp, entries):
 # X1's raw format: an extension of a raw the native decoder does not read
 # (Leaf's), so load_raw hands it to the registered preconverter
 X1_EXT = "mos"
+# X1, T1 and N1 run at half the flagship's rows (the full width): the
+# entry phase is host-bound (X1's preconversion, N1's file writes and
+# loads), and its depth was cut to make room for the output phase
+ENTRY_FRAME = (FRAME[0] // 2, FRAME[1])
 
 
 def write_pgm16(path, mosaic):
@@ -3778,7 +3794,8 @@ N1_PHOTO = {}
 
 def entry_phase(smi_line, tmp):
     """The package's entry points on the card, counts reset before each
-    path. X1: the flagship frame (seed 0) as a 16-bit PGM under a raw
+    path, at ENTRY_FRAME (half the flagship's rows, the full width). X1:
+    the flagship frame (seed 0) as a 16-bit PGM under a raw
     extension the native decoder does not read (.mos), registered through
     `init(user_settings_dir=...)` with `<user>/imageio/pnm.txt` for the
     shipped `art_tpu_torch/preconverters/pnm_to_dng.py`, through cli.main
@@ -3788,10 +3805,10 @@ def entry_phase(smi_line, tmp):
     plain version, each held to its plain version on X1's tensors, the
     JPEG well formed with its scan byte-equal to cli.main's on the cached
     DNG itself; a 512x768 .mos through the same path, card against the
-    CPU. T1: `thumbnail` of a 24 MP DNG with no preview (a fast develop
+    CPU. T1: `thumbnail` of a DNG with no preview (a fast develop
     of ProcParams(); its launches as its plan says) and of H1's DNG with
     a full-size preview (no launch), both timed (first and second call).
-    N1: `load_image` of 24 MP non-raw files on the host (one call each),
+    N1: `load_image` of non-raw files on the host (one call each),
     decode and conversion timed apart: an 8-bit RGB PNG, a 16-bit grey
     PNG (I;16), a JPEG-compressed TIFF (YCbCr 4:2:0 strips), an 8-bit
     JPEG with an Adobe RGB matrix/TRC profile (`color/iccwrite.py`; the
@@ -3834,7 +3851,7 @@ def entry_phase(smi_line, tmp):
         art_tpu_torch.init(user_settings_dir=user)
 
         # X1: a preconverted raw through cli.main
-        frame = flagship_frame(*FRAME)
+        frame = flagship_frame(*ENTRY_FRAME)
         mosaic = np.round(frame.cfa).astype(np.uint16)
         del frame
         pgm = write_pgm16(os.path.join(tmp, f"x1.{X1_EXT}"), mosaic)
@@ -3859,8 +3876,9 @@ def entry_phase(smi_line, tmp):
                 raise RuntimeError(f"X1: launches {launches}, want {want} "
                                    f"once; plain calls {plain_calls}")
         scan = check_jpeg(out)
-        cli_timed(f"X1 ({FRAME[0]}x{FRAME[1]} .{X1_EXT} preconverted, "
-                  "AMaZE, denoise, Neutral curve, sRGB JPEG)", argv, runs=1)
+        cli_timed(f"X1 ({ENTRY_FRAME[0]}x{ENTRY_FRAME[1]} .{X1_EXT} "
+                  "preconverted, AMaZE, denoise, Neutral curve, sRGB JPEG)",
+                  argv, runs=1)
         dng = iomanager.get_instance().preconvert_raw(pgm)
         if not dng or os.path.dirname(os.path.dirname(dng)) != cache:
             raise RuntimeError(f"X1: no cached DNG ({dng})")
@@ -3893,7 +3911,7 @@ def entry_phase(smi_line, tmp):
         for label, path, kernels in (
                 ("no preview", t1, want_t),
                 ("H1's full-size preview",
-                 h1_dng(os.path.join(tmp, "h1.dng"), *FRAME), ())):
+                 h1_dng(os.path.join(tmp, "h1.dng"), *ENTRY_FRAME), ())):
             reset_counts()
             thumb, first = timed(lambda: art_tpu_torch.thumbnail(path), 1)
             launches, plain_calls = read_counts()
@@ -3905,21 +3923,23 @@ def entry_phase(smi_line, tmp):
                     or any(plain_calls.values()):
                 failures.append(f"T1 {label}: launches {launches}, want "
                                 f"{kernels}; plain {plain_calls}")
-            step = -(-max(FRAME) // 256)
-            if thumb.shape != (3, -(-FRAME[0] // step), -(-FRAME[1] // step))\
+            step = -(-max(ENTRY_FRAME) // 256)
+            if thumb.shape != (3, -(-ENTRY_FRAME[0] // step),
+                               -(-ENTRY_FRAME[1] // step)) \
                     or not np.isfinite(thumb).all():
                 failures.append(f"T1 {label}: thumbnail {thumb.shape}")
         del mosaic
 
         # N1: non-raw files on the host
-        rgb8 = np.round(np.moveaxis(preview_look(flagship_scene(*FRAME)),
-                                    0, -1) * 255.0).astype(np.uint8)
+        scene = preview_look(flagship_scene(*ENTRY_FRAME))
+        rgb8 = np.round(np.moveaxis(scene, 0, -1) * 255.0).astype(np.uint8)
+        del scene
         files = {}
         t0 = time.monotonic()
         files["8-bit RGB PNG"] = os.path.join(tmp, "n1.png")
         imagefile.write_png(files["8-bit RGB PNG"], rgb8)
         files["16-bit grey PNG (I;16)"] = write_mask_png(
-            os.path.join(tmp, "n1_grey.png"), *FRAME)
+            os.path.join(tmp, "n1_grey.png"), *ENTRY_FRAME)
         files["JPEG-compressed TIFF"] = write_jpeg_tiff(
             os.path.join(tmp, "n1.tif"), rgb8)
         files["JPEG, Adobe RGB profile"] = os.path.join(tmp, "n1.jpg")
@@ -3944,7 +3964,7 @@ def entry_phase(smi_line, tmp):
                 f"{1e3 * dec:.1f} ms, ICC conversion {1e3 * conv:.1f} ms; "
                 f"load_image in all (decode, conversion, sRGB decode to "
                 f"float) {1e3 * total:.1f} ms (one call each)")
-            if fr.rgb.shape != (3, *FRAME) or fr.is_raw or not (
+            if fr.rgb.shape != (3, *ENTRY_FRAME) or fr.is_raw or not (
                     np.isfinite(fr.rgb).all() and fr.rgb.min() >= 0
                     and fr.rgb.max() <= 65535.0):
                 failures.append(f"N1 {label}: bad frame {fr.rgb.shape}")
@@ -4263,7 +4283,7 @@ def formats_phase(smi_line, tmp):
         if not ok:
             failures.append(f"F1 {name} decodes differently")
     for name in sorted(k for k in recorded if not k.startswith(
-            ("F1 ", "G1 ", "Q1 ", "U1 ", "I1 ", "webp_", "raster_",
+            ("F1 ", "G1 ", "Q1 ", "U1 ", "I1 ", "O1 ", "webp_", "raster_",
              "plugin_", "j2k_", "u1_", "u2_"))):
         path = os.path.join(FORMATS_DATA, name)
         buf = open(path, "rb").read()
@@ -6063,6 +6083,7 @@ def icc_phase(smi_line, tmp):
         used[(photo[..., 0].astype(np.int32) << 16)
              | (photo[..., 1].astype(np.int32) << 8) | photo[..., 2]] = True
         colours = int(np.count_nonzero(used))
+        shape = photo.shape[:2]
         del photo, used
         (bmode, bsamples, bicc), bdec = timed(
             lambda: imagefile.read_image(big), 1)
@@ -6070,7 +6091,7 @@ def icc_phase(smi_line, tmp):
             imagefile.to_rgb8(bmode, bsamples), bicc), 1)
         del bsamples
         bfr, btotal = timed(lambda: art_tpu_torch.load_image(big), 1)
-        same = bfr.rgb.shape == (3, *I1_FRAME) and np.array_equal(
+        same = bfr.rgb.shape == (3, *shape) and np.array_equal(
             frame_rgb8(bfr.rgb), bconv8)
         log(f"{label} at {w}x{h} ({colours} colours, "
             f"{os.path.getsize(big) / 1e6:.1f} MB, written in "
@@ -6301,6 +6322,239 @@ def _leaves(d):
             yield k, v
 
 
+# O1: the writers of every format the reference saves through Pillow;
+# each byte-equal writer's bytes of the O1_FIXTURES arrays are held to
+# Pillow's sha256 under "O1 <fixture> <extension>"
+# (tests/test_torch_savers.py writes them), a PDF's two dates masked
+O1_EXTS = (".bmp", ".dib", ".tga", ".sgi", ".im", ".pcx", ".ppm", ".qoi",
+           ".dds", ".eps", ".jpe", ".pdf", ".gif")
+O1_FIXTURES = {"photo 56x40": (40, 56, 0), "odd 23x17": (17, 23, 1),
+               "many colours 300x200": (200, 300, 2)}
+O1_FRAME = FRAME
+O2_EXTS = (".gif", ".pdf", ".bmp")
+
+
+def photo_u8(h, w, seed=0):
+    """A photo-like (h, w, 3) uint8 image from a seed: smooth gradients
+    and a slow wave in each channel, plus noise of +-12 (millions of
+    colours at 24 MP)."""
+    rng = np.random.default_rng(seed)
+    y = np.linspace(0.0, 1.0, h, dtype=np.float32)[:, None]
+    x = np.linspace(0.0, 1.0, w, dtype=np.float32)[None, :]
+    out = np.empty((h, w, 3), np.uint8)
+    for c, (fy, fx, ph) in enumerate(((3.0, 2.0, 0.3), (2.0, 5.0, 1.1),
+                                      (4.0, 3.0, 2.0))):
+        base = 60.0 + 120.0 * (0.6 * x + 0.4 * y) + 50.0 * np.sin(
+            fy * np.pi * y + fx * np.pi * x + ph)
+        noise = rng.integers(-12, 13, (h, w), dtype=np.int16)
+        out[..., c] = np.clip(base + noise, 0, 255).astype(np.uint8)
+    return out
+
+
+def mask_pdf_dates(data):
+    """A PDF's bytes with its CreationDate and ModDate zeroed."""
+    return re.sub(rb"\(D:\d{14}Z\)", b"(D:00000000000000Z)", data)
+
+
+def o1_fixture_sha(save, tmp):
+    """{"O1 <fixture> <extension>": sha256 of the bytes `save(path, rgb)`
+    writes} for each O1 fixture and extension."""
+    out = {}
+    for name, (h, w, seed) in O1_FIXTURES.items():
+        rgb = photo_u8(h, w, seed)
+        for ext in O1_EXTS:
+            path = os.path.join(tmp, f"o1{ext}")
+            save(path, rgb)
+            with open(path, "rb") as f:
+                data = f.read()
+            if ext == ".pdf":
+                data = mask_pdf_dates(data)
+            out[f"O1 {name} {ext}"] = hashlib.sha256(data).hexdigest()
+            os.unlink(path)
+    return out
+
+
+def png_metadata(path):
+    """(ICC profile, EXIF with its "Exif" header) of a PNG the port
+    wrote: its iCCP inflated, its eXIf chunk."""
+    data = open(path, "rb").read()
+    pos, icc, exif = 8, None, None
+    while pos + 8 <= len(data):
+        n, kind = struct.unpack(">I4s", data[pos : pos + 8])
+        body = data[pos + 8 : pos + 8 + n]
+        if kind == b"iCCP":
+            icc = zlib.decompress(body[body.index(b"\0") + 2 :])
+        elif kind == b"eXIf":
+            exif = b"Exif\x00\x00" + body
+        pos += 12 + n
+    return icc, exif
+
+
+def o1_writers(smi_line, tmp):
+    """O1 of `output_phase`: the fixtures against Pillow's sha256, then
+    each writer on the 24 MP array. Returns the failures."""
+    from art_tpu_torch.io import imagefile, savers, stdformats
+
+    failures = []
+    with open(FORMATS_SHA) as f:
+        recorded = json.load(f)
+    got = o1_fixture_sha(savers.save, tmp)
+    bad = sorted(k for k, v in got.items() if recorded.get(k) != v)
+    log(f"O1 fixtures: {len(got) - len(bad)} of {len(got)} files at "
+        f"Pillow's sha256")
+    if bad:
+        failures.append(f"O1 fixtures differ from Pillow's: {bad}")
+
+    # O1 at 24 MP
+    h, w = O1_FRAME
+    t0 = time.monotonic()
+    rgb = photo_u8(h, w, 7)
+    log(f"O1 array {w}x{h} made in {time.monotonic() - t0:.1f} s")
+    jpe = None
+    for ext in O1_EXTS + (".ico", ".icns"):
+        path = os.path.join(tmp, f"o1{ext}")
+        t0 = time.monotonic()
+        savers.save(path, rgb)
+        ms = 1e3 * (time.monotonic() - t0)
+        size = os.path.getsize(path)
+        ok, how = True, ""
+        if ext in (".bmp", ".dib", ".tga", ".sgi", ".im", ".pcx", ".ppm",
+                   ".qoi", ".dds"):
+            t1 = time.monotonic()
+            back = imagefile.read_rgb8(path)
+            ok = back.shape == rgb.shape and np.array_equal(back, rgb)
+            how = (f"read back in {1e3 * (time.monotonic() - t1):.1f} ms "
+                   f"{'equal to' if ok else 'DIFFERENT FROM'} the array")
+            del back
+        elif ext == ".eps":
+            data = open(path, "rb").read()
+            start = data.index(b"false 3 colorimage\n",
+                               data.index(b"gsave")) + 19
+            end = data.index(b"\n%%%%EndBinary")
+            hexed = data[start:end].replace(b"\n", b"")
+            ok = bytes.fromhex(hexed.decode("ascii")) == rgb.tobytes()
+            how = f"hex {'equal to' if ok else 'DIFFERENT FROM'} the array"
+            del data, hexed
+        elif ext == ".jpe":
+            jpe = open(path, "rb").read()
+            check_jpeg(path, quiet=True)
+            how = "markers well formed"
+        elif ext == ".pdf":
+            data = open(path, "rb").read()
+            at = data.index(b">>stream\n") + 9
+            n = int(re.search(rb"/Length (\d+)", data).group(1))
+            ok = data[at : at + n] == jpe
+            how = (f"DCT stream {'equal to' if ok else 'DIFFERENT FROM'} the"
+                   " .jpe")
+        elif ext == ".gif":
+            t1 = time.monotonic()
+            idx, pal = savers.gif_parts(rgb)
+            quant = 1e3 * (time.monotonic() - t1)
+            data = open(path, "rb").read()
+            _, back = stdformats.read_gif(data, indices=True)
+            ok = np.array_equal(back[..., 0], idx) and np.array_equal(
+                imagefile.read_rgb8(path), pal[idx])
+            how = (f"{len(pal)} colours (the median cut and palette "
+                   f"{quant:.1f} ms); indices and palette read back "
+                   f"{'equal' if ok else 'DIFFERENT'}")
+            del idx, data, back
+        elif ext == ".ico":
+            frames = savers.ico_frames(rgb)
+            big = frames[-1]
+            back = imagefile.read_rgb8(path)
+            ok = np.array_equal(back, big)
+            how = (f"{len(frames)} frames; its {big.shape[1]}x{big.shape[0]}"
+                   f" frame {'equal to' if ok else 'DIFFERENT FROM'} its "
+                   "resample")
+        elif ext == ".icns":
+            big = savers.resize(rgb, (1024, 1024), 3)
+            back = imagefile.read_rgb8(path)
+            ok = np.array_equal(back, big)
+            how = (f"its 1024x1024 frame {'equal to' if ok else 'DIFFERENT'}"
+                   f" {'' if ok else 'FROM '}its resample")
+        log(f"O1 {ext}: {w}x{h} written in {ms:.1f} ms (host), "
+            f"{size / 1e6:.2f} MB; {how} ({smi_line})")
+        if not ok:
+            failures.append(f"O1 {ext}: {how}")
+        os.unlink(path)
+    del rgb, jpe
+    return failures
+
+
+def output_phase(smi_line, tmp):
+    """The writers of the formats the reference saves through Pillow, on
+    the card's machine (no PIL there). O1: every byte-equal writer on a
+    seeded photo-like 24 MP array (O1_FRAME), each timed on the host, the
+    lossless ones read back through the port's decoders equal to the
+    array (EPS by its hex, the GIF equal to its own indices and palette,
+    the PDF's DCT stream equal to the .jpe's bytes), ICO and ICNS timed
+    and their largest frames read back equal to their resamples; the
+    O1_FIXTURES arrays' bytes against Pillow's sha256. O2: the flagship
+    through cli.main to out.png, then out.gif, out.pdf and out.bmp, each
+    with B1-B4 and B7 once and no plain version; each file byte-equal to
+    the port's writer applied to the PNG's pixels, ICC profile and EXIF
+    (the PDF's dates masked); B1-B4 and B7 bit-equal to their plain
+    versions on O2's tensors. Returns (the comparisons, the failures)."""
+    from art_tpu_torch import cli
+    from art_tpu_torch.io import imagefile, savers
+    from art_tpu_torch.io.dngwrite import write_dng
+    from art_tpu_torch.pipeline import develop as tdev
+
+    log(f"---- output phase ({smi_line})")
+    t_phase = time.monotonic()
+    failures = o1_writers(smi_line, tmp)
+
+    # O2: the flagship through cli.main to each format
+    frame = flagship_frame(*FRAME)
+    dng = os.path.join(tmp, "o2.dng")
+    write_dng(dng, np.round(frame.cfa).astype(np.uint16), black=512,
+              white=16383, compress=False)
+    base = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "art_tpu_torch", "data", "profiles", PROFILE)
+    dn = os.path.join(tmp, "denoise20.arp")
+    with open(dn, "w") as f:
+        f.write("[Denoise]\nEnabled=true\nLuminance=20\nChrominance=20\n")
+    want = ("b1", "b2", "b3", "b4", "b7")
+    outs = {}
+    for ext in (".png",) + O2_EXTS:
+        out = os.path.join(tmp, f"o2{ext}")
+        argv = ["-Y", "-p", base, "-p", dn, "-o", out, "-c", dng]
+        reset_counts()
+        phases, seconds = cli_run(argv)
+        launches, plain_calls = read_counts()
+        log(f"O2 -o {os.path.basename(out)} through cli.main: "
+            f"{1e3 * seconds:.1f} ms end to end; encode+write "
+            f"{phases.get('encode+write', float('nan')):.1f} ms; launches "
+            f"{launches}; plain calls {plain_calls} ({smi_line})")
+        if launches != {k: int(k in want) for k in launches} \
+                or any(plain_calls.values()):
+            failures.append(f"O2 {ext}: launches {launches}, plain calls "
+                            f"{plain_calls}")
+        outs[ext] = out
+    pixels = imagefile.read_rgb8(outs[".png"])
+    icc, exif = png_metadata(outs[".png"])
+    os.makedirs(os.path.join(tmp, "writer"))
+    for ext in O2_EXTS:  # the same base name: a PDF's title is the name
+        ref = os.path.join(tmp, "writer", f"o2{ext}")
+        savers.save(ref, pixels, icc_bytes=icc, exif_bytes=exif)
+        a, b = open(outs[ext], "rb").read(), open(ref, "rb").read()
+        if ext == ".pdf":
+            a, b = mask_pdf_dates(a), mask_pdf_dates(b)
+        same = a == b
+        log(f"O2 {ext} ({len(a)} bytes) "
+            f"{'byte-equal to' if same else 'DIFFERS FROM'} the writer on "
+            "the PNG's pixels")
+        if not same:
+            failures.append(f"O2 {ext}: differs from the writer on the "
+                            "PNG's pixels")
+    pp = cli.compose_params(dng, cli.parse_args(
+        ["-Y", "-p", base, "-p", dn, "-o", outs[".gif"], "-c", dng]))
+    failures += kernels_against_plain("O2", lambda: tdev.develop(frame, pp),
+                                      want)
+    log(f"output phase: {time.monotonic() - t_phase:.1f} s ({smi_line})")
+    return {}, failures
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -6333,12 +6587,13 @@ def main():
 
     # the host libraries (raw decoder, JPEG encoder and decoder, GIF's
     # LZW decoder, WebP decoder, the simple raster decoders, the JPEG 2000
-    # decoder; g++) build
+    # decoder, the writers' encoders; g++) build
     # beside the CUDA kernels (nvcc), all compilers at once
     t0 = time.monotonic()
     with ThreadPoolExecutor(1) as pool:
         host = pool.submit(hostbuild.build, "artraw", "jpegenc", "jpegdec",
-                           "lzwdec", "webpdec", "rasterdec", "jp2dec")
+                           "lzwdec", "webpdec", "rasterdec", "jp2dec",
+                           "saveenc")
         kernels.library()
         host_libs = host.result()
     log(f"build: {time.monotonic() - t0:.2f} s "
@@ -6681,6 +6936,15 @@ def main():
         i_stats, i_failures = icc_phase(smi_line, tmp)
     new_stats.update(i_stats)
     failures += i_failures
+
+    # ---- the writers: O1 (every format the reference saves through
+    # Pillow, on a 24 MP array, and the fixtures against Pillow's
+    # sha256), O2 (the flagship through cli.main to GIF, PDF and BMP)
+    with phase_clock("output phase, in all"), \
+            tempfile.TemporaryDirectory() as tmp:
+        o_stats, o_failures = output_phase(smi_line, tmp)
+    new_stats.update(o_stats)
+    failures += o_failures
 
     failures += [f"B6 on {k} disagrees with its plain version"
                  for k, ok in b6_edges.items() if not ok]

@@ -835,7 +835,7 @@ def test_committed_fixtures_hold_their_sha256():
     with open(os.path.join(DATA, "formats_sha256.json")) as f:
         recorded = json.load(f)
     names = [k for k in recorded
-             if not k.startswith(("F1 ", "G1 ", "Q1 ", "U1 ", "I1 "))]
+             if not k.startswith(("F1 ", "G1 ", "Q1 ", "U1 ", "I1 ", "O1 "))]
     assert len(names) >= 7
     gif_bytes = open(os.path.join(DATA, "gif_pillow_lzw.gif"), "rb").read()
     assert gif_bytes[10] & 0x80 == 0  # no global table

@@ -537,7 +537,7 @@ with tempfile.TemporaryDirectory() as d:
 with open(os.path.join("tests", "data", "formats_sha256.json")) as f:
     rec = json.load(f)
 for name, sha in rec.items():
-    if name.startswith(("F1 ", "Q1 ", "U1 ", "I1 ")):  # not file names
+    if name.startswith(("F1 ", "Q1 ", "U1 ", "I1 ", "O1 ")):  # not files
         continue
     with tempfile.TemporaryDirectory() as d:
         path = chip_smoke.write_pcd(os.path.join(d, "g.pcd")) \
@@ -556,6 +556,52 @@ def test_formats_with_jax_pil_and_cv2_blocked():
                           cwd=REPO)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "FORMATS-STANDALONE-OK" in proc.stdout
+
+
+WRITERS_SCRIPT = r"""
+import sys
+
+BLOCKED = ("jax", "jaxlib", "art_tpu", "PIL", "cv2")
+
+
+class _Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError("blocked in this process: " + name)
+        return None
+
+
+sys.meta_path.insert(0, _Refuse())
+
+import json
+import os
+import tempfile
+import chip_smoke
+from art_tpu_torch.io import imagefile, savers
+
+with open(os.path.join("tests", "data", "formats_sha256.json")) as f:
+    rec = json.load(f)
+with tempfile.TemporaryDirectory() as d:
+    got = chip_smoke.o1_fixture_sha(savers.save, d)
+    assert got == {k: v for k, v in rec.items() if k.startswith("O1 ")}
+    rgb = chip_smoke.photo_u8(40, 56, 3)
+    for ext in (".ico", ".icns", ".apng"):
+        imagefile.save_image(os.path.join(d, "x" + ext), rgb)
+assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
+print("WRITERS-STANDALONE-OK")
+"""
+
+
+def test_writers_with_jax_pil_and_cv2_blocked():
+    """The writers (io/savers.py, io/native/saveenc.cc) in a process that
+    refuses jax, art_tpu, PIL and cv2: the O1 fixtures at Pillow's
+    recorded sha256, and ICO, ICNS and APNG written."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", WRITERS_SCRIPT], env=env,
+                          capture_output=True, text=True, timeout=600,
+                          cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "WRITERS-STANDALONE-OK" in proc.stdout
 
 
 def _port_sources():
@@ -599,7 +645,8 @@ def test_no_source_file_imports_jax():
                  "io/native/jpegdec.cc", "io/tiff.py", "io/ojpeg.py",
                  "io/native/tiffdec.cc", "io/iomanager.py", "color/lcms.py",
                  "color/lcms_stages.py", "color/lcms_mpe.py",
-                 "preconverters/pnm_to_dng.py", "__init__.py"):
+                 "preconverters/pnm_to_dng.py", "__init__.py",
+                 "io/savers.py", "io/native/saveenc.cc"):
         assert os.path.join("art_tpu_torch", name) in scanned
     offenders = []
     for path in _port_sources():

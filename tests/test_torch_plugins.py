@@ -47,6 +47,7 @@ from art_tpu_torch.io.imagefile import load_std_image, read_image, read_rgb8
 
 import chip_smoke
 import util_plugins as up
+import util_rasterforms as ur
 from test_torch_formats import DATA, check_readers
 
 Image = pytest.importorskip("PIL.Image")
@@ -393,15 +394,15 @@ def test_c20_first_band_of_a_palette_image(inner, band, tmp_path):
 
 def test_c20_first_band_of_another_palette_format_is_named(tmp_path):
     """Band 0 of an IPTC/NAA RGB file holding a palette image in a format
-    whose index plane the port does not read (an XPM here): refused by
-    name, where Pillow merges its indices."""
+    whose index plane the port read by name before C22 (an XPM here): no
+    longer refused, Pillow's merge of its indices (the name is kept)."""
     xpm = (b'/* XPM */\nstatic char *x[] = {\n"2 1 2 1",\n"a c #FF0000",\n'
            b'"b c #0000FF",\n"ab"\n};\n')
     path = _write(tmp_path, up.iptc_jpeg(xpm, 2, 1, 3), "x.iim")
     with Image.open(path) as im:
-        assert np.asarray(im.convert("RGB"))[0, :, 0].tolist() == [0, 1]
-    with pytest.raises(NotImplementedError, match="XPM"):
-        read_rgb8(path)
+        want = np.asarray(im.convert("RGB"))
+    assert want[0, :, 0].tolist() == [0, 1]
+    np.testing.assert_array_equal(read_rgb8(path), want)
 
 
 def test_iptc_jpeg_band_cut_short(tmp_path):
@@ -555,3 +556,103 @@ def test_g2_mask_and_hald_as_the_png_and_tiff(tmp_path):
         assert mode == "F" and Image.open(path).mode == "F"
         np.testing.assert_array_equal(plane, mask)
         np.testing.assert_array_equal(np.asarray(Image.open(path)), mask)
+
+
+def _c22_core(kind):
+    """The bytes of a 27x19 image in the mode and format `kind` names,
+    as Pillow writes it (P, RGBA, LA or CMYK)."""
+    mode, fmt = kind.split()
+    img = Image.fromarray(_IPTC_RGB)
+    if mode == "RGBA":
+        img = Image.fromarray(np.dstack([_IPTC_RGB, _IPTC_PIC[..., :1]]))
+    elif mode != "RGB":
+        img = img.convert(mode)
+    bio = io.BytesIO()
+    img.save(bio, fmt)
+    return bio.getvalue()
+
+
+@pytest.mark.parametrize("kind", ["P PNG", "P GIF", "P BMP", "RGBA PNG",
+                                  "RGBA TIFF", "LA PNG", "LA TIFF",
+                                  "CMYK TIFF"])
+def test_c22_l_file_over_another_core(kind, tmp_path):
+    """An IPTC/NAA L file (3:60 of one layer) over a P, RGBA, LA or
+    non-JPEG CMYK core: Pillow's L samples, which read_grey gives, are
+    the first bytes of each row of the core's memory (indices; RGBA;
+    L, L, L, A; CMYK); the reference's external mask resizes the core
+    (its second band; a P core's resize raises Pillow's ValueError, the
+    same size its indices). Against Pillow and the reference, by path."""
+    from art_tpu.masks import _load_external_mask as ref_mask
+    from art_tpu_torch.io.imagefile import read_grey
+    from art_tpu_torch.masks import load_external_mask
+
+    path = _write(tmp_path, up.iptc_jpeg(_c22_core(kind), 27, 19, 1),
+                  "l.iim")
+    with Image.open(path) as im:
+        assert im.mode == "L"
+        want = np.asarray(im)
+    grey, mode = read_grey(path)
+    assert mode == "L"
+    np.testing.assert_array_equal(grey, want)
+    for h, w in ((30, 40), (19, 27), (7, 9)):
+        want = _outcome(lambda: ref_mask(path, h, w, False))
+        got = _outcome(lambda: load_external_mask(path, h, w, False))
+        assert got[0] == want[0]
+        if want[0] == "ok":
+            np.testing.assert_array_equal(got[1], want[1])
+
+
+def _c22_palette_inner(fmt):
+    """A palette image of 27x19 indices in `fmt`, hand-built, where
+    Pillow opens it as P."""
+    rng = np.random.default_rng(22)
+    idx = rng.integers(0, 200, (19, 27), dtype=np.uint8)
+    colours = rng.integers(0, 256, (200, 3), dtype=np.uint8)
+    if fmt == "PSD":
+        return ur.psd_form("P", h=19, w=27, seed=3)
+    if fmt == "SUN":
+        return up.sun(np.pad(idx, ((0, 0), (0, 1))).tobytes(), 27, 19, 8, 1,
+                      colours.T.reshape(-1).tobytes())
+    if fmt == "XPM":
+        return up.xpm(idx % 40, colours[:40])
+    if fmt == "FLI":
+        return up.fli(27, 19, [up.fli_colour(colours), up.fli_brun(idx)])
+    if fmt == "XVThumb":
+        return up.xvthumb(idx)
+    if fmt == "DCX":
+        img = Image.fromarray(idx, "P")
+        img.putpalette(colours.reshape(-1).tolist())
+        bio = io.BytesIO()
+        img.save(bio, "PCX")
+        return ur.dcx(bio.getvalue())
+    if fmt == "JPEG 2000":
+        import util_j2kforms as uj
+
+        return uj.palette_file(idx, colours)
+    import util_texforms as ut
+
+    pal = np.zeros((256, 4), np.uint8)
+    pal[:200, :3], pal[:200, 3] = colours, 255
+    return ut.dds_palette(idx, pal)
+
+
+@pytest.mark.parametrize("band", [None, 1])
+@pytest.mark.parametrize("fmt", ["PSD", "SUN", "XPM", "FLI", "XVThumb",
+                                 "JPEG 2000", "DDS", "DCX"])
+def test_c22_first_band_of_a_palette_image(fmt, band, tmp_path):
+    """Band 0 of an IPTC/NAA RGB file holding a palette image in a format
+    other than PNG, GIF, BMP, TIFF, TGA, PCX or IM (and a DCX): Pillow
+    merges its indices as band 0, in the port's readers and load_std_image as in
+    Pillow and the reference (the port refused it by name)."""
+    inner = _c22_palette_inner(fmt)
+    with Image.open(io.BytesIO(inner)) as im:
+        assert im.mode == "P"
+        idx = np.asarray(im)
+    w, h = idx.shape[1], idx.shape[0]
+    path = _write(tmp_path, up.iptc_jpeg(inner, w, h, 3, band), "p0.iim")
+    with Image.open(path) as im:
+        want = np.asarray(im.convert("RGB"))
+    np.testing.assert_array_equal(want[..., 0], idx)
+    np.testing.assert_array_equal(read_rgb8(path), want)
+    np.testing.assert_array_equal(load_std_image(path).rgb,
+                                  ref_load(path).rgb)

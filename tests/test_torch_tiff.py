@@ -472,6 +472,43 @@ def test_c17_rows_per_strip_names_more_strips_than_held(form, rows,
     assert check_file(data, tmp_path) == want
 
 
+@pytest.mark.parametrize("restart", [2, 3, 6])
+@pytest.mark.parametrize("rows", [8, 16, 24, 32, 64])
+@pytest.mark.parametrize("form", ["4:4:4", "4:2:2", "4:2:0", "grey tables",
+                                  "grey interchange"])
+def test_c21_strips_not_the_ones_rows_per_strip_names(form, rows, restart,
+                                                      tmp_path):
+    """A 48x64 picture whose strips are restart intervals of 2, 3 or 6
+    MCUs, under a RowsPerStrip of 8-64 rows: libtiff reads only the
+    strips RowsPerStrip names; where a strip is shorter than the image,
+    tif_ojpeg sets a restart interval of a strip's MCUs (an interchange
+    stream's own DRI wins); libjpeg skips to a restart marker past the
+    interval's data and fills a short interval with zeros; an unexpected
+    marker fails the decode in tif_ojpeg's resync (RGBA: that strip and
+    those after it are zero; grey: the load fails). Pillow's array or its
+    error, by path."""
+    rng = np.random.default_rng(5)
+    if form.startswith("grey"):
+        g = rng.integers(0, 256, (64, 48), dtype=np.uint8)
+        data = U.ojpeg_grey(g, 1, tables=form == "grey tables", rows=rows,
+                            restart=restart)
+    else:
+        rgb = rng.integers(0, 256, (64, 48, 3), dtype=np.uint8)
+        data = U.ojpeg_tables(rgb, ("4:4:4", "4:2:2", "4:2:0").index(form),
+                              rows=rows, restart=restart)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        try:
+            path = str(tmp_path / "a.tif")
+            with open(path, "wb") as f:
+                f.write(data)
+            Image.open(path).load()
+            want = "ok"
+        except OSError:
+            want = "load"
+    assert check_file(data, tmp_path) == want
+
+
 def test_old_style_jpeg_close_to_its_source():
     """The interchange form at 4:4:4: a few codes from the picture (JPEG
     at quality 85 and libtiff's YCbCr tables)."""
